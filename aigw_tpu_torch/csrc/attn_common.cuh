@@ -1,0 +1,300 @@
+// Shared device code of the paged-attention kernels (K1 ragged prefill,
+// K2 fused decode, K3 chained decode).
+//
+// Work split. One warp carries the query rows of one query position
+// that share a KV head (the GQA group, at most G = 4 or 8 rows) as
+// float32 registers. Lane l holds head-dim elements [8 * (l % LG), +8)
+// of every row, where LG = D / 8 lanes span one head row, so the warp
+// covers NG = 32 / LG keys at a time, one per group of LG lanes. Each
+// lane loads its 8 elements of the key's K and V rows with one 16-byte
+// load (bf16; two for float32), the lane group sums the partial q.k
+// dots with shuffles, and every lane keeps its lane group's
+// online-softmax state (running max m, denominator l, accumulator acc)
+// in registers. After the walk the NG lane groups merge their states
+// with shuffles. The decode kernels run several warps per (sequence, KV
+// head) over interleaved key chunks and merge the warps' states through
+// shared memory; the prefill kernel gives each warp its own query
+// position and needs no merge across warps.
+//
+// This replaces the TPU kernels' sequential page axis, whose softmax
+// state lived in VMEM scratch across grid steps: here the page walk is
+// a loop inside the warp and the state never leaves registers.
+//
+// Bound on the H100: the decode walks read every cached K/V byte once
+// for ~2 FLOPs per byte, far below the card's ~295 FLOPs/byte balance
+// point, so they are bound by HBM bytes; the loads are 16-byte vectors,
+// consecutive lanes on consecutive addresses of a K/V row, and a warp
+// issues the loads of several key chunks before it reduces any of them
+// (warp_walk's U), rescaling its softmax state once per step.
+// Prefill does tens of FLOPs per byte and runs on the CUDA cores in
+// float32. Tensor cores (mma/wgmma), TMA and deeper pipelining are
+// later work.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace aigw {
+
+constexpr int WARP = 32;
+constexpr int VEC = 8;           // head-dim elements one lane holds
+constexpr float NEG = -1e30f;    // initial running max, as the plain versions
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);  // round to nearest even, like astype
+}
+
+// 8 consecutive elements at p (16-byte aligned) as float32.
+__device__ __forceinline__ void load8(const float* p, float (&x)[VEC]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&x)[VEC]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < VEC / 2; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// Online-softmax state of G query rows, one lane's slice of the head dim.
+template <int G>
+struct RowState {
+  float m[G], l[G], acc[G][VEC];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      m[r] = NEG;
+      l[r] = 0.f;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[r][e] = 0.f;
+    }
+  }
+
+  // Fold another state (m2, l2, acc2) of row r into this one.
+  __device__ __forceinline__ void merge_row(int r, float m2, float l2,
+                                            const float (&acc2)[VEC]) {
+    const float mm = fmaxf(m[r], m2);
+    const float a1 = __expf(m[r] - mm), a2 = __expf(m2 - mm);
+    l[r] = l[r] * a1 + l2 * a2;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[r][e] = acc[r][e] * a1 + acc2[e] * a2;
+    m[r] = mm;
+  }
+};
+
+// K and V elements [e0, e0 + 8) of key position `key` of one sequence,
+// KV head h; zeros when key >= n_keys. Key position j lives at pool
+// slot page_row[j / page_size] * page_size + j % page_size. The pool
+// pointers carry no __restrict__: the fused decode kernel reads rows it
+// wrote earlier in the same launch, which the non-coherent read-only
+// load path must not serve.
+template <typename TKV>
+__device__ __forceinline__ void load_key(const TKV* k_pool, const TKV* v_pool,
+                                         const int* __restrict__ page_row,
+                                         int page_size, int Hkv, int h, int D,
+                                         int e0, int key, int n_keys,
+                                         float (&kx)[VEC], float (&vx)[VEC]) {
+  if (key < n_keys) {
+    const int64_t slot =
+        (int64_t)page_row[key / page_size] * page_size + key % page_size;
+    const int64_t off = (slot * Hkv + h) * D + e0;
+    load8(k_pool + off, kx);
+    load8(v_pool + off, vx);
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) kx[e] = vx[e] = 0.f;
+  }
+}
+
+// One warp's online-softmax walk over the keys c * NG + (lane group) for
+// key chunks c = c0, c0 + c_step, ... below n_keys, U chunks per step:
+// U independent K/V loads in flight per lane, and one softmax rescale
+// per step instead of one per key.
+// q holds this lane's slice of the query rows, already divided by
+// sqrt(D); rows >= grp are skipped (grp is uniform across the warp, so
+// are the shuffles). Ends with the lane groups' states merged: every
+// lane group holds the warp's state.
+template <int G, int U, typename TKV>
+__device__ __forceinline__ void warp_walk(RowState<G>& st,
+                                          const float (&q)[G][VEC], int grp,
+                                          const TKV* k_pool,
+                                          const TKV* v_pool,
+                                          const int* __restrict__ page_row,
+                                          int page_size, int Hkv, int h,
+                                          int D, int n_keys, int c0,
+                                          int c_step) {
+  const int lane = threadIdx.x % WARP;
+  const int LG = D / VEC, NG = WARP / LG;
+  const int slot_in_chunk = lane / LG;
+  const int e0 = (lane % LG) * VEC;
+  for (int c = c0; c * NG < n_keys; c += U * c_step) {
+    float kx[U][VEC], vx[U][VEC];
+    bool valid[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int key = (c + u * c_step) * NG + slot_in_chunk;
+      valid[u] = key < n_keys;
+      load_key(k_pool, v_pool, page_row, page_size, Hkv, h, D, e0, key,
+               n_keys, kx[u], vx[u]);
+    }
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      if (r >= grp) break;
+      float s[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u] = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) s[u] = fmaf(q[r][e], kx[u][e], s[u]);
+      }
+      for (int o = LG / 2; o > 0; o >>= 1) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) s[u] += __shfl_xor_sync(FULL, s[u], o);
+      }
+      float m_new = st.m[r];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (valid[u]) m_new = fmaxf(m_new, s[u]);
+      const float alpha = __expf(st.m[r] - m_new);
+      st.l[r] *= alpha;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) st.acc[r][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (!valid[u]) continue;
+        const float p = __expf(s[u] - m_new);
+        st.l[r] += p;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          st.acc[r][e] = fmaf(p, vx[u][e], st.acc[r][e]);
+      }
+      st.m[r] = m_new;
+    }
+  }
+  // merge the lane groups (lanes with the same e0 sit LG apart)
+  for (int o = LG; o < WARP; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      if (r >= grp) break;
+      const float m2 = __shfl_xor_sync(FULL, st.m[r], o);
+      const float l2 = __shfl_xor_sync(FULL, st.l[r], o);
+      float acc2[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        acc2[e] = __shfl_xor_sync(FULL, st.acc[r][e], o);
+      st.merge_row(r, m2, l2, acc2);
+    }
+  }
+}
+
+// Decode: the block's warps walk interleaved key chunks of one
+// (sequence, KV head), merge through shared memory and write the
+// group's rows out[r * D + d] = acc / max(l, 1e-30). smem holds
+// nwarps * G * (D + 2) floats. Every thread of the block must call it.
+template <int G, typename TQ, typename TKV>
+__device__ __forceinline__ void decode_attend(const float (&q)[G][VEC],
+                                              int grp, const TKV* k_pool,
+                                              const TKV* v_pool,
+                                              const int* __restrict__ page_row,
+                                              int page_size, int Hkv, int h,
+                                              int D, int n_keys, TQ* out,
+                                              float* smem) {
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  const int nwarps = blockDim.x / WARP;
+  // decode walks are latency-bound: more chunks in flight per lane
+  constexpr int U = G <= 4 ? 4 : 2;
+  RowState<G> st;
+  st.init();
+  warp_walk<G, U>(st, q, grp, k_pool, v_pool, page_row, page_size, Hkv, h,
+                  D, n_keys, warp, nwarps);
+  float* s_acc = smem;                       // [nwarps][G][D]
+  float* s_m = s_acc + nwarps * G * D;       // [nwarps][G]
+  float* s_l = s_m + nwarps * G;             // [nwarps][G]
+  const int LG = D / VEC;
+  if (lane < LG) {
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      if (r >= grp) break;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        s_acc[(warp * G + r) * D + lane * VEC + e] = st.acc[r][e];
+      if (lane == 0) {
+        s_m[warp * G + r] = st.m[r];
+        s_l[warp * G + r] = st.l[r];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < grp * D; i += blockDim.x) {
+    const int r = i / D, d = i % D;
+    float mm = NEG;
+    for (int w = 0; w < nwarps; ++w) mm = fmaxf(mm, s_m[w * G + r]);
+    float l = 0.f, a = 0.f;
+    for (int w = 0; w < nwarps; ++w) {
+      const float sc = __expf(s_m[w * G + r] - mm);
+      l += s_l[w * G + r] * sc;
+      a += s_acc[(w * G + r) * D + d] * sc;
+    }
+    out[r * D + d] = from_f<TQ>(a / fmaxf(l, 1e-30f));
+  }
+}
+
+}  // namespace aigw
+
+// dtype codes shared with the Python wrappers
+#define AIGW_F32 0
+#define AIGW_BF16 1
+
+// Dispatch a templated launch over (rows per warp G, query dtype, pool
+// dtype): G = 4 for GQA groups up to 4, else 8.
+#define AIGW_DISPATCH(GRP, QDT, KVDT, LAUNCH)                          \
+  do {                                                                 \
+    if ((GRP) <= 4) {                                                  \
+      AIGW_DISPATCH_DT(4, QDT, KVDT, LAUNCH);                          \
+    } else {                                                           \
+      AIGW_DISPATCH_DT(8, QDT, KVDT, LAUNCH);                          \
+    }                                                                  \
+  } while (0)
+
+#define AIGW_DISPATCH_DT(G, QDT, KVDT, LAUNCH)                         \
+  do {                                                                 \
+    if ((QDT) == AIGW_F32 && (KVDT) == AIGW_F32) {                     \
+      LAUNCH(G, float, float);                                         \
+    } else if ((QDT) == AIGW_F32 && (KVDT) == AIGW_BF16) {             \
+      LAUNCH(G, float, __nv_bfloat16);                                 \
+    } else if ((QDT) == AIGW_BF16 && (KVDT) == AIGW_F32) {             \
+      LAUNCH(G, __nv_bfloat16, float);                                 \
+    } else if ((QDT) == AIGW_BF16 && (KVDT) == AIGW_BF16) {            \
+      LAUNCH(G, __nv_bfloat16, __nv_bfloat16);                         \
+    } else {                                                           \
+      return (int)cudaErrorInvalidValue;                               \
+    }                                                                  \
+  } while (0)
+
+// Shapes every kernel of this family accepts: D a multiple of 8 with
+// D / 8 lanes dividing the warp (D in 8..256), a GQA group of at most 8.
+#define AIGW_SHAPES_OK(D, GRP) \
+  ((D) % 8 == 0 && (D) >= 8 && (D) <= 256 && (32 % ((D) / 8)) == 0 && \
+   (GRP) >= 1 && (GRP) <= 8)

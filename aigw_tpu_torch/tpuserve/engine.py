@@ -1,0 +1,801 @@
+"""Continuous-batching engine (counterpart of
+``aigw_tpu/tpuserve/engine.py``, the main-path subset).
+
+- **Fixed decode geometry**: every decode step runs the whole
+  ``[max_batch_size]`` slot table; finished slots are masked, not
+  removed.
+- **K-step decode windows**: the reference's ``lax.scan`` becomes a
+  Python loop of K steps whose sampled tokens stay on the device; the
+  host copies the ``[K, B]`` tokens once per window (started
+  asynchronously into pinned memory on CUDA) and settles the window while
+  the next one runs — the same 1-deep pipeline as the reference. The
+  adaptive ``{min, max}`` window is kept.
+- **Sampling on the device**, keys ``[seed, position]`` per slot, so
+  streams are identical to the reference engine's, greedy and seeded.
+- **Engine thread**: the loop runs in its own thread; consumers receive
+  tokens through each request's ``emit`` callback.
+
+Admission is FIFO; every admitted burst prefills through the ragged
+backend (``tpuserve/attention.py``). The KV pool carries one page past
+the allocator's range, the dump page (``models/kvq.py``).
+
+Two defaults differ from the reference: ``enable_prefix_cache`` is
+False (True raises until the prefix-caching slice) and
+``constrained_decoding`` is False (the server answers ``response_format``
+and tools with the reference's knob-off 400). Both differences are
+exported on ``/state``. Knobs of features this slice does not implement
+raise ``NotImplementedError`` naming their ROADMAP entry when set to a
+non-default value.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from aigw_tpu_torch.device import resolve_device
+from aigw_tpu_torch.models import kvq
+from aigw_tpu_torch.tpuserve.attention import (
+    BACKENDS,
+    DECODE_BACKENDS,
+    make_attention_backend,
+    resolve_decode_backend,
+)
+from aigw_tpu_torch.tpuserve.kvcache import OutOfPagesError, PageAllocator
+from aigw_tpu_torch.tpuserve.sampling import (
+    SamplingParams,
+    apply_penalties,
+    sample,
+)
+
+logger = logging.getLogger(__name__)
+
+#: knobs of features this slice does not implement: (reference default,
+#: ROADMAP queue 1 entry). A non-default value raises NotImplementedError.
+NOT_PORTED = {
+    "enable_prefix_cache": (False, "prefix caching and CoW"),
+    "spec_tokens": (0, "speculation with K5"),
+    "constrained_decoding": (False, "constrained decoding"),
+    "tenant_slot_cap": (0, "host scheduler features"),
+    "logprobs_topk": (0, "host scheduler features (logprobs)"),
+    "kv_host_bytes": (0, "migration and KV mobility"),
+}
+
+#: the two defaults that differ from the reference, and why (/state)
+DEFAULTS_DIFFER = {
+    "enable_prefix_cache": "False: prefix caching is not ported yet",
+    "constrained_decoding": "False: grammar constraints are not ported "
+                            "yet; response_format and tools get a 400",
+}
+
+
+class EngineOverloadedError(Exception):
+    """Admission queue full — callers should surface 429/503."""
+
+
+@dataclass
+class EngineConfig:
+    """The reference's EngineConfig fields this slice serves, with the
+    reference's names and defaults (see the module docstring for the
+    two that differ)."""
+
+    max_batch_size: int = 8
+    max_seq_len: int = 2048
+    page_size: int = 128
+    num_pages: int = 0  # 0 = auto: enough for max_batch full sequences
+    # decode steps per host round-trip (the adaptive window's maximum)
+    decode_steps_per_tick: int = 8
+    enable_prefix_cache: bool = False
+    max_queued_requests: int = 256
+    adaptive_decode_window: bool = True
+    # small window used under pressure; 0 = auto: max(1, K // 4)
+    min_decode_steps_per_tick: int = 0
+    # copy each window's tokens to the host asynchronously (CUDA)
+    async_transfers: bool = True
+    # idle-burst coalescing before admitting (ms); 0 disables
+    admission_coalesce_ms: float = 3.0
+    # a lone arrival to an idle engine probes 1 ms for a second request
+    # instead of waiting the whole coalescing window
+    first_token_fast_path: bool = True
+    # the chained decode rung (paged-attention kernel after the scatter)
+    pallas_attn: bool = False
+    decode_backend: str = "auto"
+    attention_backend: str = "xla-bucketed"
+    ragged_chunk_tokens: int = 256
+    ragged_max_chunks: int = 8
+    kv_cache_dtype: str = "bfloat16"
+    spec_tokens: int = 0
+    constrained_decoding: bool = False
+    tenant_slot_cap: int = 0
+    logprobs_topk: int = 0
+    kv_host_bytes: int = 0
+
+    def __post_init__(self) -> None:
+        for name, (default, entry) in NOT_PORTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r}: not ported yet "
+                    f"(ROADMAP queue 1: {entry})")
+        kvq.compute_dtype(self.kv_cache_dtype)  # raises if not served
+        if self.attention_backend not in BACKENDS:
+            raise ValueError(f"attention_backend must be one of {BACKENDS} "
+                             f"(got {self.attention_backend!r})")
+        if self.decode_backend not in DECODE_BACKENDS:
+            raise ValueError(f"decode_backend must be one of "
+                             f"{DECODE_BACKENDS} "
+                             f"(got {self.decode_backend!r})")
+        if self.ragged_chunk_tokens < 8 or self.ragged_max_chunks < 1:
+            raise ValueError("ragged_chunk_tokens must be >= 8 and "
+                             "ragged_max_chunks >= 1")
+        if self.min_decode_steps_per_tick == 0:
+            self.min_decode_steps_per_tick = max(
+                1, self.decode_steps_per_tick // 4)
+        if self.min_decode_steps_per_tick > self.decode_steps_per_tick:
+            raise ValueError(
+                f"min_decode_steps_per_tick "
+                f"({self.min_decode_steps_per_tick}) exceeds "
+                f"decode_steps_per_tick ({self.decode_steps_per_tick})")
+        if self.max_seq_len % self.page_size != 0:
+            raise ValueError(
+                f"max_seq_len ({self.max_seq_len}) must be a multiple of "
+                f"page_size ({self.page_size})")
+        if self.num_pages == 0:
+            self.num_pages = (self.max_batch_size * self.max_seq_len
+                              // self.page_size)
+
+    @property
+    def max_pages_per_seq(self) -> int:
+        return self.max_seq_len // self.page_size
+
+
+@dataclass
+class GenRequest:
+    prompt: list[int]
+    max_tokens: int
+    sampling: SamplingParams
+    # (token_id, finish_reason): token_id < 0 means no token, just finish
+    emit: Callable[[int, str | None], None] = lambda t, f: None
+    id: int = 0
+    enqueued_at: float = field(default_factory=time.monotonic)
+    # set by the consumer to abandon the request (client disconnect /
+    # stop sequence hit); the engine frees the slot at the next tick
+    cancelled: threading.Event = field(default_factory=threading.Event)
+
+
+@dataclass
+class _Slot:
+    req: GenRequest
+    # position at which the pending input token is written by the next
+    # decode step
+    pos: int
+    generated: int
+    key_seed: int
+    pending_token: int = 0
+    limit: int = 0  # exclusive max write position (page-safety fence)
+    page_row: np.ndarray | None = None
+    # generated-token histogram (repetition penalties)
+    token_counts: dict[int, int] = field(default_factory=dict)
+
+
+@dataclass
+class EngineStats:
+    """The reference's stats this engine has, under the same names."""
+
+    active_slots: int = 0
+    queued: int = 0
+    kv_pages_free: int = 0
+    kv_occupancy: float = 0.0
+    tokens_generated: int = 0
+    prefills: int = 0
+    chunked_prefill_steps: int = 0
+    decode_steps: int = 0
+    decode_window: int = 0
+    window_shrinks: int = 0
+    window_grows: int = 0
+    state_rebuilds: int = 0
+    prefill_ms: float = 0.0
+    transfer_ms: float = 0.0
+    emit_ms: float = 0.0
+    first_emit_ms: float = 0.0
+    prefill_tokens_real: int = 0
+    prefill_tokens_padded: int = 0
+    prefill_padded_frac: float = 0.0
+    queue_wait_ms: float = 0.0
+    warmup_ms: float = 0.0
+    device_bytes_in_use: int = 0
+    device_bytes_limit: int = 0
+    device_memory_frac: float = 0.0
+    kv_pool_bytes: int = 0
+    kv_bytes_in_use: int = 0
+    kv_quant_bits: int = 16
+    kv_bytes_per_token: float = 0.0
+    prefill_ms_decayed: float = 0.0
+    prefill_tokens_decayed: float = 0.0
+
+    PREFILL_RATE_HALF_LIFE_TOKENS = 16384
+
+    def note_prefill_call(self, ms: float, tokens: int) -> None:
+        """Fold one prefill call into the token-decayed prefill rate."""
+        if tokens <= 0:
+            return
+        decay = 0.5 ** (tokens / self.PREFILL_RATE_HALF_LIFE_TOKENS)
+        self.prefill_ms_decayed = self.prefill_ms_decayed * decay + ms
+        self.prefill_tokens_decayed = (
+            self.prefill_tokens_decayed * decay + tokens)
+
+    def prefill_ms_per_token(self) -> float:
+        if self.prefill_tokens_decayed > 0:
+            return self.prefill_ms_decayed / self.prefill_tokens_decayed
+        return self.prefill_ms / max(1, self.prefill_tokens_real)
+
+
+@dataclass
+class _Window:
+    """One dispatched decode window: its sampled tokens (on their way to
+    the host) and what the host needs to settle it."""
+
+    sampled: torch.Tensor  # [K, B] int32 (pinned host copy on CUDA)
+    ready: Any  # torch.cuda.Event recorded after the copy, or None
+    # (slot index, request) pairs the window computes for
+    members: tuple[tuple[int, GenRequest], ...]
+    k: int
+    # sequence ids whose pages are safe to recycle once it completes
+    frees: list[int]
+
+
+_STATE_FIELDS = ("tokens", "positions", "limits", "active", "keys", "temp",
+                 "top_p", "top_k", "freq_pen", "pres_pen", "page_table",
+                 "counts", "bias")
+
+
+class Engine:
+    """One model instance on one device."""
+
+    def __init__(
+        self,
+        params: dict[str, torch.Tensor],
+        model_cfg: Any,
+        cfg: EngineConfig,
+        eos_token_ids: tuple[int, ...] = (),
+        fns: Any = None,  # models.registry.ModelFns; default = llama
+        device: str | torch.device = "cuda",
+    ):
+        from aigw_tpu_torch.models.registry import family_fns
+
+        self.device = resolve_device(device)
+        for name, t in params.items():
+            if t.device.type != self.device.type:
+                raise ValueError(f"param {name} is on {t.device}, engine "
+                                 f"device is {self.device}")
+        self.fns = fns or family_fns("llama")
+        self.params = params
+        self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.eos = eos_token_ids
+        self.allocator = PageAllocator(cfg.num_pages, cfg.page_size)
+        self.stats = EngineStats()
+        self.stats.kv_quant_bits = kvq.quant_bits(cfg.kv_cache_dtype)
+        self.healthy = True
+        self.last_error: str | None = None
+
+        B = cfg.max_batch_size
+        self._slots: list[_Slot | None] = [None] * B
+        self._queue: "queue.Queue[GenRequest]" = queue.Queue()
+        self._seq_ids = itertools.count()
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._thread: threading.Thread | None = None
+        # the pool carries one extra page past the allocator's range:
+        # the dump page (never allocated, never in a page table)
+        kv_shape = (model_cfg.n_layers, 2,
+                    (cfg.num_pages + 1) * cfg.page_size,
+                    model_cfg.n_kv_heads, model_cfg.head_dim)
+        self.kv_cache = kvq.make_pool(kv_shape, cfg.kv_cache_dtype,
+                                      self.device)
+        self.kv_page_bytes = (self.kv_cache[:, :, :cfg.page_size].numel()
+                              * self.kv_cache.element_size())
+        self.stats.kv_bytes_per_token = round(
+            self.kv_page_bytes / cfg.page_size, 3)
+        # per-slot decode state lives ON DEVICE between ticks; membership
+        # changes patch single rows (_dirty_rows), never the live rows of
+        # in-flight slots
+        self._device_state: dict[str, torch.Tensor] | None = None
+        self._dirty_rows: set[int] = set()
+        # 1-deep pipeline: the window on the device while the host
+        # settles the previous one
+        self._inflight: _Window | None = None
+        # pages of finished sequences, recycled once every window
+        # dispatched while they were active has completed
+        self._pending_frees: list[int] = []
+        self._cur_window = cfg.decode_steps_per_tick
+        self._steady_ticks = 0
+        self._mem_next = 0.0
+        self.decode_attn_impl, self.decode_attn_reason = (
+            resolve_decode_backend(cfg, self.device))
+        self._decode_impl = self.decode_attn_impl.split("-")[0]
+        self.attn = make_attention_backend(self)
+        self._refresh_stats()
+
+    # -- device programs ----------------------------------------------------
+    def _prefill_ragged_step(self, tokens, row_seq, positions, last_rows,
+                             page_table, keys, temp, top_p, top_k, bias):
+        """One packed prefill call plus sampling of each row's first
+        token (key [seed, 0]); returns [B] int32 tokens on the device."""
+        logits, self.kv_cache = self.fns.prefill_ragged(
+            self.params, self.model_cfg, tokens, row_seq, positions,
+            last_rows, self.kv_cache, page_table, self.cfg.page_size)
+        return sample(logits + bias, keys, temp, top_p, top_k)
+
+    def _decode_window(self, k: int, lean: bool, greedy: bool
+                       ) -> torch.Tensor:
+        """K decode+sample steps; sampled tokens feed forward on the
+        device. ``lean`` skips the repetition-penalty terms (bit-identical
+        while no live slot uses penalties: zero penalties subtract
+        exactly 0.0), ``greedy`` skips the sort/top-p work when every
+        live slot samples greedily (sample() returns argmax for those).
+        Returns [K, B] int32 tokens on the device."""
+        st = self._device_state
+        B = self.cfg.max_batch_size
+        rows = torch.arange(B, device=self.device)
+        out = []
+        for _ in range(k):
+            act = st["active"] & (st["positions"] < st["limits"])
+            logits, self.kv_cache = self.fns.decode_step(
+                self.params, self.model_cfg, st["tokens"], st["positions"],
+                self.kv_cache, st["page_table"], self.cfg.page_size, act,
+                attn_impl=self._decode_impl)
+            if lean:
+                logits = logits + st["bias"]
+            else:
+                logits = apply_penalties(logits, st["counts"],
+                                         st["freq_pen"], st["pres_pen"],
+                                         st["bias"])
+            if greedy:
+                sampled = torch.argmax(logits, dim=-1).to(torch.int32)
+            else:
+                sampled = sample(logits, st["keys"], st["temp"],
+                                 st["top_p"], st["top_k"])
+            if not lean:
+                st["counts"].index_put_((rows, sampled.long()),
+                                        act.to(torch.int32), accumulate=True)
+            st["tokens"] = torch.where(act, sampled, st["tokens"])
+            st["positions"] = torch.where(act, st["positions"] + 1,
+                                          st["positions"])
+            st["keys"][:, 1] = (st["keys"][:, 1] + act.long()) & 0xFFFFFFFF
+            out.append(sampled)
+        return torch.stack(out)
+
+    # -- host copies ----------------------------------------------------------
+    def _start_host_copy(self, t: torch.Tensor):
+        """Begin the device→host copy of ``t`` now; returns (host tensor,
+        event). On the CPU the tensor already is the host copy."""
+        if self.device.type != "cuda":
+            return t, None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    # -- adaptive window ------------------------------------------------------
+    def _window_ladder(self) -> list[int]:
+        K = self.cfg.decode_steps_per_tick
+        if not self.cfg.adaptive_decode_window:
+            return [K]
+        kmin = min(self.cfg.min_decode_steps_per_tick, K)
+        return [K] if kmin == K else [kmin, K]
+
+    def _choose_window(self) -> int:
+        """Shrink to the small window while requests wait or a stream is
+        brand new; regrow after two steady ticks."""
+        K = self.cfg.decode_steps_per_tick
+        ladder = self._window_ladder()
+        if len(ladder) == 1:
+            self.stats.decode_window = K
+            return K
+        pressured = self._queue.qsize() > 0 or any(
+            s is not None and s.generated <= 1 for s in self._slots)
+        if pressured:
+            self._steady_ticks = 0
+            chosen = ladder[0]
+        else:
+            self._steady_ticks += 1
+            chosen = K if self._steady_ticks >= 2 else self._cur_window
+        if chosen < self._cur_window:
+            self.stats.window_shrinks += 1
+        elif chosen > self._cur_window:
+            self.stats.window_grows += 1
+        self._cur_window = chosen
+        self.stats.decode_window = chosen
+        return chosen
+
+    # -- public API -------------------------------------------------------------
+    def warmup(self) -> None:
+        """Build the CUDA kernels before traffic arrives (the first
+        request must not pay the nvcc build)."""
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            from aigw_tpu_torch.ops import _build
+
+            _build.library()
+        self.stats.warmup_ms = round(1e3 * (time.monotonic() - t0), 3)
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._run, name="tpuserve-engine", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        """Stop the loop; pending requests finish with "error"."""
+        self._stop.set()
+        self._wake.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        self._abort_all("engine stopped")
+
+    def submit(self, req: GenRequest) -> None:
+        if len(req.prompt) + req.max_tokens > self.cfg.max_seq_len:
+            raise ValueError(
+                f"prompt+max_tokens {len(req.prompt)}+{req.max_tokens} "
+                f"exceeds max_seq_len {self.cfg.max_seq_len}")
+        if self._queue.qsize() >= self.cfg.max_queued_requests:
+            raise EngineOverloadedError(
+                f"queue full ({self.cfg.max_queued_requests} waiting)")
+        self._queue.put(req)
+        self._wake.set()
+
+    # -- engine loop --------------------------------------------------------
+    def _run(self) -> None:
+        logger.info("engine loop started (batch=%d, pages=%d×%d, %s)",
+                    self.cfg.max_batch_size, self.cfg.num_pages,
+                    self.cfg.page_size, self.device)
+        while not self._stop.is_set():
+            try:
+                self._reap_cancelled()
+                admitted = self._admit()
+                worked = self._decode_tick()
+                if self._stop.is_set():
+                    self._drain_inflight()
+                    self._apply_frees()
+            except Exception as e:  # fail loudly, error every request
+                logger.exception("engine tick failed")
+                self.healthy = False
+                self.last_error = f"{type(e).__name__}: {e}"
+                self._abort_all(str(e))
+                return
+            if not admitted and not worked:
+                self._wake.wait(timeout=0.05)
+                self._wake.clear()
+        self._drain_inflight()
+        self._apply_frees()
+        logger.info("engine loop stopped")
+
+    def _abort_all(self, reason: str) -> None:
+        if self._inflight is not None:
+            self._pending_frees.extend(self._inflight.frees)
+            self._inflight = None
+        self._apply_frees()
+        self._device_state = None
+        self._dirty_rows.clear()
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                s.req.emit(-1, "error")
+                self.allocator.free(s.req.id)
+                self._slots[i] = None
+        try:
+            while True:
+                self._queue.get_nowait().emit(-1, "error")
+        except queue.Empty:
+            pass
+
+    def _reap_cancelled(self) -> None:
+        for i, s in enumerate(self._slots):
+            if s is not None and s.req.cancelled.is_set():
+                s.req.emit(-1, "cancelled")
+                self._pending_frees.append(s.req.id)
+                self._slots[i] = None
+                self._dirty_rows.add(i)
+
+    def _free_slot_count(self) -> int:
+        return sum(1 for s in self._slots if s is None)
+
+    def _requeue_front(self, reqs: list[GenRequest]) -> None:
+        items = list(reqs)
+        try:
+            while True:
+                items.append(self._queue.get_nowait())
+        except queue.Empty:
+            pass
+        for it in items:
+            self._queue.put(it)
+
+    def _pop_pending(self, pending: list[GenRequest], free: int) -> None:
+        try:
+            while len(pending) < free:
+                pending.append(self._queue.get_nowait())
+        except queue.Empty:
+            pass
+
+    def _admit(self) -> bool:
+        """Admit queued requests in arrival order: allocate their pages,
+        prefill them as one packed burst, emit each first token."""
+        admitted = False
+        while True:
+            free = self._free_slot_count()
+            if free == 0:
+                break
+            pending: list[GenRequest] = []
+            self._pop_pending(pending, free)
+            if not pending:
+                break
+            if (self.cfg.admission_coalesce_ms > 0 and len(pending) < free
+                    and self._inflight is None
+                    and all(s is None for s in self._slots)):
+                # idle engine, partial burst: wait once for the rest of
+                # it; a lone arrival only probes 1 ms for a second one
+                wait_ms = self.cfg.admission_coalesce_ms
+                if self.cfg.first_token_fast_path and len(pending) == 1:
+                    probe = min(1.0, wait_ms)
+                    time.sleep(probe / 1e3)
+                    self._pop_pending(pending, free)
+                    wait_ms = (0.0 if len(pending) == 1
+                               else max(0.0, wait_ms - probe))
+                if wait_ms > 0 and len(pending) < free:
+                    time.sleep(wait_ms / 1e3)
+                    self._pop_pending(pending, free)
+            prepared: list[tuple[GenRequest, int, int, int]] = []
+            leftover: list[GenRequest] = []
+            for i, req in enumerate(pending):
+                if req.cancelled.is_set():
+                    continue  # consumed without a slot
+                n = len(req.prompt)
+                if n < 1:
+                    req.emit(-1, "error")
+                    continue
+                total = min(n + req.max_tokens, self.cfg.max_seq_len)
+                seq_id = next(self._seq_ids)
+                try:
+                    self.allocator.allocate(seq_id, total)
+                except OutOfPagesError:
+                    self.allocator.free(seq_id)
+                    leftover = [r for r in pending[i:]
+                                if not r.cancelled.is_set()]
+                    break
+                req.id = seq_id
+                prepared.append((req, seq_id, n, total))
+            if prepared:
+                self._admit_group(prepared)
+                admitted = True
+            if leftover:  # page pressure: wait for frees, keep the order
+                self._requeue_front(leftover)
+                break
+        return admitted
+
+    def _admit_group(self, prepared: list) -> None:
+        results = self.attn.group_prefill(prepared)
+        t_first = time.monotonic()
+        for r in results:
+            slot_idx = self._slots.index(None)
+            self._slots[slot_idx] = _Slot(
+                req=r.req, pos=r.n - 1, generated=0,
+                key_seed=r.req.sampling.seed or r.seq_id,
+                limit=r.total, page_row=r.page_row)
+            self.stats.prefills += 1
+            self._dirty_rows.add(slot_idx)
+            self._emit_token(slot_idx, r.tok)
+        self.stats.first_emit_ms += 1e3 * (time.monotonic() - t_first)
+
+    # -- device state -----------------------------------------------------
+    def _row_host_values(self, i: int) -> dict[str, Any]:
+        """Host-side row i of the decode state (cleared when empty)."""
+        V = self.model_cfg.vocab_size
+        P = self.cfg.max_pages_per_seq
+        s = self._slots[i]
+        row: dict[str, Any] = {
+            "tokens": 0, "positions": 0, "limits": 0, "active": False,
+            "keys": [0, 0], "temp": 1.0, "top_p": 1.0, "top_k": 0,
+            "freq_pen": 0.0, "pres_pen": 0.0,
+            "page_table": np.zeros((P,), np.int32),
+            "counts": np.zeros((V,), np.int32),
+            "bias": np.zeros((V,), np.float32),
+        }
+        if s is None:
+            return row
+        sp = s.req.sampling
+        row.update(tokens=s.pending_token, positions=s.pos, limits=s.limit,
+                   active=True, keys=[s.key_seed & 0xFFFFFFFF, s.pos],
+                   temp=sp.temperature, top_p=sp.top_p, top_k=sp.top_k,
+                   freq_pen=sp.frequency_penalty,
+                   pres_pen=sp.presence_penalty)
+        row["page_table"][:] = s.page_row[:P]
+        for tok_id, cnt in s.token_counts.items():
+            if 0 <= tok_id < V:
+                row["counts"][tok_id] = cnt
+        for tok_id, b in sp.logit_bias:
+            if 0 <= tok_id < V:
+                row["bias"][tok_id] = b
+        return row
+
+    def _build_device_state(self) -> dict[str, torch.Tensor]:
+        """The full per-slot decode state, uploaded once per busy period
+        (membership changes then patch rows)."""
+        rows = [self._row_host_values(i)
+                for i in range(self.cfg.max_batch_size)]
+        dtypes = {"tokens": np.int32, "positions": np.int32,
+                  "limits": np.int32, "active": np.bool_, "keys": np.int64,
+                  "temp": np.float32, "top_p": np.float32,
+                  "top_k": np.int32, "freq_pen": np.float32,
+                  "pres_pen": np.float32, "page_table": np.int32,
+                  "counts": np.int32, "bias": np.float32}
+        return {k: torch.from_numpy(np.asarray(
+                    [r[k] for r in rows], dtypes[k])).to(self.device)
+                for k in _STATE_FIELDS}
+
+    def _apply_row_updates(self) -> None:
+        """Patch dirty slot rows into the live state. On CUDA the writes
+        queue behind the in-flight window on the same stream, like the
+        reference's chained row-update program."""
+        st = self._device_state
+        for i in sorted(self._dirty_rows):
+            row = self._row_host_values(i)
+            for k in _STATE_FIELDS:
+                v = row[k]
+                st[k][i] = (torch.from_numpy(np.asarray(v)).to(self.device)
+                            if isinstance(v, (np.ndarray, list))
+                            else v)
+        self._dirty_rows.clear()
+
+    # -- decode ---------------------------------------------------------------
+    def _drain_inflight(self) -> None:
+        """Settle the in-flight window: finish its host copy, emit its
+        tokens, recycle the pages it was carrying."""
+        w, self._inflight = self._inflight, None
+        if w is None:
+            return
+        t0 = time.monotonic()
+        if w.ready is not None:
+            w.ready.synchronize()
+        toks = w.sampled.numpy()
+        t1 = time.monotonic()
+        self.stats.transfer_ms += 1e3 * (t1 - t0)
+        self.stats.decode_steps += w.k
+        for k in range(w.k):
+            for i, req in w.members:
+                s = self._slots[i]
+                if s is None or s.req is not req:
+                    continue  # finished earlier in this window / reused
+                self._emit_token(i, int(toks[k, i]))
+        self.stats.emit_ms += 1e3 * (time.monotonic() - t1)
+        for seq_id in w.frees:
+            self.allocator.free(seq_id)
+
+    def _apply_frees(self) -> None:
+        """Recycle finished sequences' pages (only with no window in
+        flight: it may still write into them)."""
+        assert self._inflight is None
+        for seq_id in self._pending_frees:
+            self.allocator.free(seq_id)
+        self._pending_frees.clear()
+
+    def _quiesce(self) -> None:
+        self._device_state = None
+        self._dirty_rows.clear()
+        self.stats.active_slots = 0
+        self._refresh_stats()
+
+    def _decode_tick(self) -> bool:
+        """Pipelined: dispatch window N+1, then settle window N while the
+        device runs it."""
+        active_idx = [i for i, s in enumerate(self._slots) if s is not None]
+        if not active_idx:
+            self._drain_inflight()
+            self._apply_frees()
+            self._quiesce()
+            return False
+        if self._device_state is None:
+            self._drain_inflight()
+            self._apply_frees()
+            active_idx = [i for i, s in enumerate(self._slots)
+                          if s is not None]
+            if not active_idx:
+                self._quiesce()
+                return True
+            self._device_state = self._build_device_state()
+            self._dirty_rows.clear()
+        elif self._dirty_rows:
+            self._apply_row_updates()
+
+        if self._inflight is not None:
+            # zombie-window guard: when every slot finishes inside the
+            # window already in flight, drain instead of computing K
+            # junk steps
+            K = self._inflight.k
+            in_window = {i: req for i, req in self._inflight.members}
+            if all(s is None or (
+                    in_window.get(i) is s.req
+                    and (s.generated + K >= s.req.max_tokens
+                         or s.pos + K >= min(s.limit, self.cfg.max_seq_len)))
+                   for i, s in enumerate(self._slots)):
+                self._drain_inflight()
+                self._apply_frees()
+                self.stats.active_slots = sum(
+                    s is not None for s in self._slots)
+                self._refresh_stats()
+                return True
+
+        k = self._choose_window()
+        members = tuple((i, self._slots[i].req) for i in active_idx)
+        live = [self._slots[i].req.sampling for i in active_idx]
+        lean = all(sp.frequency_penalty == 0.0 and sp.presence_penalty == 0.0
+                   for sp in live)
+        greedy = all(sp.temperature <= 0.0 for sp in live)
+        frees, self._pending_frees = self._pending_frees, []
+        sampled = self._decode_window(k, lean, greedy)
+        if self.cfg.async_transfers:
+            host, ready = self._start_host_copy(sampled)
+        else:
+            host, ready = sampled.cpu(), None
+        # settle the PREVIOUS window while this one runs on the device
+        self._drain_inflight()
+        self._inflight = _Window(sampled=host, ready=ready, members=members,
+                                 k=k, frees=frees)
+        self.stats.active_slots = sum(s is not None for s in self._slots)
+        self._refresh_stats()
+        return True
+
+    def _emit_token(self, i: int, tok: int) -> None:
+        """Record one generated token for slot i; finish if stopping."""
+        s = self._slots[i]
+        req = s.req
+        s.generated += 1
+        finish: str | None = None
+        send_tok = tok
+        if tok in self.eos:
+            finish = "stop"
+            send_tok = -1
+        else:
+            s.pos += 1  # where `tok` will be written by the next decode
+            if s.generated >= req.max_tokens or s.pos >= self.cfg.max_seq_len:
+                finish = "length"
+        req.emit(send_tok, finish)
+        self.stats.tokens_generated += 1
+        if finish is not None:
+            self._pending_frees.append(req.id)
+            self._slots[i] = None
+            self._dirty_rows.add(i)
+            self._wake.set()  # maybe admit a queued request
+        else:
+            s.pending_token = tok
+            s.token_counts[tok] = s.token_counts.get(tok, 0) + 1
+
+    def _refresh_stats(self) -> None:
+        st = self.stats
+        st.queued = self._queue.qsize()
+        if st.prefill_tokens_padded:
+            st.prefill_padded_frac = round(
+                1.0 - st.prefill_tokens_real / st.prefill_tokens_padded, 4)
+        st.kv_pages_free = self.allocator.free_pages
+        st.kv_occupancy = self.allocator.occupancy
+        st.kv_pool_bytes = self.cfg.num_pages * self.kv_page_bytes
+        st.kv_bytes_in_use = round(st.kv_pool_bytes * st.kv_occupancy)
+        now = time.monotonic()
+        if self.device.type == "cuda" and now >= self._mem_next:
+            self._mem_next = now + 0.5  # a CUDA query: not every tick
+            free_b, total_b = torch.cuda.mem_get_info(self.device)
+            st.device_bytes_in_use = int(total_b - free_b)
+            st.device_bytes_limit = int(total_b)
+            st.device_memory_frac = round(
+                st.device_bytes_in_use / total_b, 4) if total_b else 0.0
+        try:
+            head = self._queue.queue[0]
+            st.queue_wait_ms = 1e3 * (now - head.enqueued_at)
+        except IndexError:
+            st.queue_wait_ms = 0.0

@@ -1,0 +1,130 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: they need an NVIDIA GPU with ``nvcc`` and skip without
+one. Run them on the card with
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+Inputs are seeded; each kernel sees the same tensors as its plain
+version. Tolerances: float32 2e-5 (summation order), bfloat16 2e-2
+(one bf16 rounding of the output); the fused decode kernel's pools must
+match byte for byte in both.
+"""
+
+import pytest
+import torch
+
+from aigw_tpu_torch.ops import decode_fused, paged_attention
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _pools(g, n_pages, ps, Hkv, D, dtype, dev):
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return r(n_pages * ps, Hkv, D), r(n_pages * ps, Hkv, D), r
+
+
+GEOMS = [  # (H, Hkv, D, page)
+    (4, 2, 16, 16),  # tiny
+    (32, 8, 128, 128),  # Llama-3-8B attention
+    (14, 2, 64, 16),  # Qwen2-0.5B attention (group 7)
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_paged_decode_kernel(cuda, geom, dtype):
+    H, Hkv, D, ps = geom
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, P = 6, 12
+    kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
+    pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
+        B, P).to(torch.int32)
+    lens = torch.tensor([0, 1, ps - 1, ps, ps + 1, P * ps], device=cuda,
+                        dtype=torch.int32)
+    q = r(B, H, D)
+    got = paged_attention.paged_attention_decode_v2(q, kp, vp, pt, lens,
+                                                    page_size=ps)
+    want = paged_attention.paged_attention_decode_v2_plain(
+        q, kp, vp, pt, lens, page_size=ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert not got[0].any()  # length 0 attends nothing
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_ragged_prefill_kernel(cuda, geom, dtype):
+    H, Hkv, D, ps = geom
+    g = torch.Generator(device=cuda).manual_seed(1)
+    seq = [(3 * ps + 5, 0), (1, 0), (2 * ps, ps // 2 + 3), (ps - 1, 0)]
+    B, P = len(seq), 8
+    kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
+    pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
+        B, P).to(torch.int32)
+    total = sum(n for n, _ in seq)
+    T = total + 37  # padding rows at the tail
+    cu = torch.tensor([0] + [sum(n for n, _ in seq[:i + 1])
+                             for i in range(B)], dtype=torch.int32,
+                      device=cuda)
+    st = torch.tensor([s for _, s in seq], dtype=torch.int32, device=cuda)
+    q = r(T, H, D)
+    got = paged_attention.ragged_prefill_attention(q, kp, vp, pt, cu, st,
+                                                   page_size=ps)
+    want = paged_attention.ragged_prefill_attention_plain(
+        q, kp, vp, pt, cu, st, page_size=ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert not got[total:].any()  # rows owned by no sequence are zero
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_fused_decode_kernel(cuda, geom, dtype):
+    H, Hkv, D, ps = geom
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, P = 6, 8
+    kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
+    pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
+        B, P).to(torch.int32)
+    positions = torch.tensor([0, 5, ps, 2 * ps + 1, 3 * ps - 1, 7],
+                             dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, True, True, True, True, False],
+                          device=cuda)
+    q, kn, vn = r(B, H, D), r(B, Hkv, D), r(B, Hkv, D)
+    kp2, vp2 = kp.clone(), vp.clone()
+    got, _, _ = decode_fused.fused_paged_decode(
+        q, kn, vn, kp, vp, pt, positions, active, rope_theta=500000.0,
+        page_size=ps)
+    want, _, _ = decode_fused.fused_paged_decode_plain(
+        q, kn, vn, kp2, vp2, pt, positions, active, rope_theta=500000.0,
+        page_size=ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    assert not got[5].any()  # the inactive slot attends nothing
+
+
+def test_cuda_tensor_never_falls_back(cuda):
+    """A CUDA call the kernel refuses raises instead of running the
+    plain version."""
+    q = torch.zeros(2, 4, 16, device=cuda)
+    pool = torch.zeros(32, 2, 16, device=cuda)
+    pt = torch.zeros(2, 2, dtype=torch.int64, device=cuda)  # not int32
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        paged_attention.paged_attention_decode_v2(q, pool, pool, pt, lens,
+                                                  page_size=16)

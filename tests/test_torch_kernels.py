@@ -1,0 +1,238 @@
+"""The port's kernels against the JAX package's Pallas kernels.
+
+On the CPU each kernel wrapper of ``aigw_tpu_torch.ops`` runs its plain
+PyTorch version; these tests hold that version against the reference
+Pallas kernel run in interpret mode, on the same seeded numpy inputs, in
+float32 (rtol/atol 2e-5: the two sides sum in different orders). The
+fused decode kernel's pool must match byte for byte: the appended row,
+fresh-page zeroing, the dump page of inactive slots, and every other
+row untouched. The one exception is float32's appended K rows: on the
+CPU, XLA contracts the reference kernel's jitted RoPE into a fused
+multiply-add, ``fma(x, cos, round(rot * sin))``, while the port rounds
+each product as the reference's eager ``llama.rope`` does, so those rows
+may differ in the last place. The test pins each side to its formula
+bit for bit instead (in bfloat16 the two match byte for byte). The CUDA kernels themselves are held against the same
+plain versions on the card (``tests/test_torch_gpu.py``,
+``chip_smoke.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aigw_tpu.ops.pallas.decode_fused import (
+    _rope_tables as jax_rope_tables,
+    fused_paged_decode as jax_fused,
+)
+from aigw_tpu.ops.pallas.paged_attention import (
+    paged_attention_decode_v2 as jax_decode_v2,
+    ragged_prefill_attention as jax_ragged,
+)
+from aigw_tpu_torch.ops.decode_fused import fused_paged_decode
+from aigw_tpu_torch.ops.paged_attention import (
+    paged_attention_decode_v2,
+    ragged_prefill_attention,
+)
+
+TOL = 2e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+# -- K1 ragged prefill -------------------------------------------------------
+@pytest.mark.parametrize("lens,starts,page_size,q_block,H,Hkv,D,n_pages", [
+    # q blocks span sequence boundaries; one short sequence
+    ([3, 12, 7, 20], [0, 0, 0, 0], 8, 16, 4, 2, 32, 16),
+    # nonzero, page-misaligned resume offsets
+    ([5, 9, 14], [3, 8, 21], 8, 8, 4, 4, 32, 24),
+    # tiny-moe attention geometry, one offset-resumed sequence
+    ([7, 30, 13], [0, 5, 0], 16, 16, 4, 2, 16, 16),
+], ids=["mixed_lengths", "misaligned_starts", "q_tile_spanning"])
+def test_ragged_prefill_matches_pallas(lens, starts, page_size, q_block, H,
+                                       Hkv, D, n_pages):
+    rng = np.random.default_rng(42)
+    B = len(lens)
+    total = sum(lens)
+    T = -(-total // q_block) * q_block
+    cu = np.zeros((B + 1,), np.int32)
+    cu[1:] = np.cumsum(lens)
+    P = max(2, max(-(-(s + n) // page_size) for s, n in zip(starts, lens)))
+    q = rng.standard_normal((T, H, D), np.float32)
+    kp = rng.standard_normal((n_pages * page_size, Hkv, D), np.float32)
+    vp = rng.standard_normal((n_pages * page_size, Hkv, D), np.float32)
+    pt = rng.permutation(n_pages)[: B * P].reshape(B, P).astype(np.int32)
+    st = np.asarray(starts, np.int32)
+    want = np.asarray(jax_ragged(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
+        jnp.asarray(cu), jnp.asarray(st), page_size=page_size,
+        q_block=q_block, interpret=True))
+    got = ragged_prefill_attention(
+        _t(q), _t(kp), _t(vp), _t(pt), _t(cu), _t(st),
+        page_size=page_size, q_block=q_block).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    if T > cu[-1]:  # tail rows owned by no sequence are zero
+        assert not got[cu[-1]:].any()
+
+
+# -- K3 chained decode -------------------------------------------------------
+@pytest.mark.parametrize("lengths", [[7, 33], [1, 64], [40, 17], [0, 5]])
+def test_paged_decode_v2_matches_pallas(lengths):
+    B, H, Hkv, D, page_size, n_pages, P = 2, 4, 2, 128, 16, 16, 4
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((B, H, D), np.float32)
+    kp = rng.standard_normal((n_pages * page_size, Hkv, D), np.float32)
+    vp = rng.standard_normal((n_pages * page_size, Hkv, D), np.float32)
+    pt = rng.permutation(n_pages)[: B * P].reshape(B, P).astype(np.int32)
+    ln = np.asarray(lengths, np.int32)
+    want = np.asarray(jax_decode_v2(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
+        jnp.asarray(ln), page_size=page_size, interpret=True))
+    got = paged_attention_decode_v2(
+        _t(q), _t(kp), _t(vp), _t(pt), _t(ln), page_size=page_size).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+# -- K2 fused decode ---------------------------------------------------------
+THETA = 10000.0
+_ML = {"float32": np.float32, "bfloat16": jnp.bfloat16}
+_TD = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _fused_case(B, H, Hkv, D, ps, n_pages, P, positions, active,
+                dtype="float32", seed=0):
+    """Run the reference Pallas kernel (interpret mode) and the port on
+    one seeded case; returns numpy float32 views of (attn, k pool,
+    v pool) for both, the input K pool, the page table, the flat slots
+    the active appends land in, and the active slots' new K rows with
+    their cos/sin tables."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):  # seeded values, rounded once to the case dtype
+        return rng.standard_normal(shape, np.float32).astype(_ML[dtype])
+
+    q, kn, vn = draw((B, H, D)), draw((B, Hkv, D)), draw((B, Hkv, D))
+    kp, vp = draw((n_pages * ps, Hkv, D)), draw((n_pages * ps, Hkv, D))
+    # the LAST pool page stays out of every table: the dump page
+    pt = rng.permutation(n_pages - 1)[: B * P].reshape(B, P).astype(np.int32)
+    pos = np.asarray(positions, np.int32)
+    act = np.asarray(active, bool)
+    attn_j, kp_j, vp_j = jax_fused(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(kp),
+        jnp.asarray(vp), jnp.asarray(pt), jnp.asarray(pos),
+        jnp.asarray(act), rope_theta=THETA, page_size=ps, interpret=True)
+
+    def tt(a):
+        return _t(np.asarray(a, np.float32)).to(_TD[dtype])
+
+    kp_t, vp_t = tt(kp), tt(vp)
+    # the reference's own cos/sin tables, computed as its jitted kernel
+    # computes them: f32 cos/sin differ between libms (and between XLA's
+    # eager and fused programs), see test_torch_model.py::test_rope_*
+    cos, sin = jax.jit(jax_rope_tables, static_argnums=(1, 2))(
+        jnp.asarray(pos), D, THETA)
+    attn_t, kp_o, vp_o = fused_paged_decode(
+        tt(q), tt(kn), tt(vn), kp_t, vp_t, _t(pt), _t(pos), _t(act),
+        rope_theta=THETA, page_size=ps,
+        tables=(_t(np.asarray(cos)), _t(np.asarray(sin))))
+    assert kp_o is kp_t and vp_o is vp_t  # updated in place
+    slots = [int(pt[b, p // ps]) * ps + p % ps
+             for b, p in enumerate(positions) if active[b]]
+
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    act_rows = [b for b in range(B) if active[b]]
+    new_k = (f32(kn)[act_rows], np.asarray(cos)[act_rows],
+             np.asarray(sin)[act_rows])
+    return (f32(attn_j), f32(kp_j), f32(vp_j), attn_t.float().numpy(),
+            kp_o.float().numpy(), vp_o.float().numpy(), f32(kp), pt, slots,
+            new_k)
+
+
+def _rope_recipes(x, cos, sin):
+    """The interleaved RoPE of f32 rows ``x [N, Hkv, D]`` two ways:
+    every product rounded (the port, and the reference's eager rope), and
+    XLA's contraction on the CPU, ``fma(x, cos, round(rot * sin))`` with
+    ``rot`` the pair swap (-x[2i+1], x[2i])."""
+    c, s = cos[:, None, :], sin[:, None, :]
+    rot = np.empty_like(x)
+    rot[..., ::2], rot[..., 1::2] = -x[..., 1::2], x[..., ::2]
+    rounded = x * c + rot * s  # numpy rounds each f32 product and sum
+    fused = (x.astype(np.float64) * c
+             + (rot * s).astype(np.float64)).astype(np.float32)
+    return rounded, fused
+
+
+GEOMS = {
+    # llama-3-8B heads: misaligned mid-page append, page-straddling length
+    "llama3_8b_heads": dict(B=2, H=32, Hkv=8, D=128, ps=128, n_pages=9,
+                            P=4, positions=[385, 129], active=[True, True]),
+    # tiny geometry: mid-page, position 0, page-aligned third slot
+    "tiny_geometry": dict(B=3, H=4, Hkv=2, D=16, ps=16, n_pages=16, P=4,
+                          positions=[17, 0, 48], active=[True, True, True]),
+    # fresh page at 16, pos 0, and an inactive slot
+    "fresh_page_inactive": dict(B=3, H=4, Hkv=2, D=128, ps=16, n_pages=16,
+                                P=4, positions=[16, 0, 33],
+                                active=[True, True, False]),
+}
+
+
+@pytest.mark.parametrize("geom", sorted(GEOMS))
+def test_fused_decode_matches_pallas(geom):
+    """float32: attention within 2e-5; every pool row byte for byte
+    except the appended K rows, whose RoPE XLA contracts into an FMA
+    inside the jitted reference: there each side equals its own recipe
+    bit for bit (the bfloat16 case below holds them byte for byte)."""
+    g = GEOMS[geom]
+    (attn_j, kp_j, vp_j, attn_t, kp_t, vp_t, _kp0, _pt,
+     slots, new_k) = _fused_case(**g)
+    act = np.asarray(g["active"])
+    np.testing.assert_allclose(attn_t[act], attn_j[act], rtol=TOL, atol=TOL)
+    # inactive slots attend nothing: zeros on both sides
+    assert not attn_t[~act].any() and not attn_j[~act].any()
+    np.testing.assert_array_equal(vp_t, vp_j)  # values need no RoPE
+    rest = np.ones(kp_t.shape[0], bool)
+    rest[slots] = False
+    np.testing.assert_array_equal(kp_t[rest], kp_j[rest])
+    rounded, fused = _rope_recipes(*new_k)
+    np.testing.assert_array_equal(kp_t[slots], rounded)
+    np.testing.assert_array_equal(kp_j[slots], fused)
+
+
+@pytest.mark.parametrize("geom", sorted(GEOMS))
+def test_fused_decode_matches_pallas_bf16(geom):
+    """bfloat16 (the serving dtype): the pools match byte for byte,
+    appended rows, fresh-page zeroing and the dump page included;
+    attention within one bf16 rounding (1e-2)."""
+    g = GEOMS[geom]
+    (attn_j, kp_j, vp_j, attn_t, kp_t, vp_t, _kp0, _pt,
+     _slots, _new_k) = _fused_case(**g, dtype="bfloat16")
+    act = np.asarray(g["active"])
+    np.testing.assert_allclose(attn_t[act], attn_j[act], rtol=1e-2,
+                               atol=1e-2)
+    np.testing.assert_array_equal(kp_t, kp_j)
+    np.testing.assert_array_equal(vp_t, vp_j)
+
+
+def test_fused_decode_page_semantics():
+    """Fresh page at a page-aligned append, the dump page for an
+    inactive slot, and every other row untouched."""
+    g = dict(B=3, H=4, Hkv=2, D=16, ps=16, n_pages=16, P=4,
+             positions=[16, 5, 33], active=[True, True, False])
+    (_, _, _, _, kp_t, _, kp0, pt, _, _) = _fused_case(**g)
+    ps, n_pages = 16, 16
+    fresh = int(pt[0, 1])  # slot 0 appends at row 0 of its 2nd page
+    pages = kp_t.reshape(n_pages, ps, 2, 16)
+    assert not pages[fresh, 1:].any()  # rest of the fresh page zeroed
+    assert not pages[n_pages - 1].any()  # dump page zeroed
+    mid = int(pt[1, 0])
+    touched = np.zeros((n_pages, ps), bool)
+    touched[fresh] = True
+    touched[n_pages - 1] = True
+    touched[mid, 5] = True
+    np.testing.assert_array_equal(
+        pages[~touched], kp0.reshape(n_pages, ps, 2, 16)[~touched])

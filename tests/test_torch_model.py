@@ -1,0 +1,260 @@
+"""The port's Llama forward against the JAX package's, on the reference's
+own weights.
+
+Weights come from the reference's ``init_params(PRNGKey(0), cfg,
+dtype=float32)`` and cross through ``aigw_tpu_torch.models.convert``;
+token inputs are made from a seed with numpy. Both sides run in float32
+on the CPU: the reference's entry points with ``attn_impl="pallas"`` /
+``"fused-pallas"`` run its Pallas kernels in interpret mode, the port's
+run its kernels' plain versions. Logits agree within 1e-4 (different
+summation orders through two layers); the pools agree within 1e-5
+outside the dump page (the reference drops padding writes, the port
+parks them in the dump page).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from aigw_tpu.models import llama as jllama
+from aigw_tpu.ops.pallas.decode_fused import _rope_tables as jax_rope_tables
+from aigw_tpu_torch.models import convert, kvq
+from aigw_tpu_torch.models import llama as tllama
+from aigw_tpu_torch.ops.decode_fused import rope_rotate, rope_tables
+
+LOGIT_TOL = 1e-4
+POOL_TOL = 1e-5
+PS = 8  # page size
+CFGS = {
+    "tiny": (jllama.TINY, tllama.TINY),
+    "tiny-qwen": (jllama.LlamaConfig(
+        vocab_size=512, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+        ffn_dim=128, max_seq_len=512, rope_theta=10000.0, attn_bias=True,
+        tie_embeddings=True), tllama.TINY_QWEN),
+}
+
+
+def _weights(jcfg):
+    p = jllama.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32)
+    if jcfg.attn_bias:  # nonzero biases so the bias path is exercised
+        rng = np.random.default_rng(5)
+        p = {k: (jnp.asarray(rng.standard_normal(v.shape, np.float32) * 0.1)
+                 if k.split(".")[-1] in ("bq", "bk", "bv") else v)
+             for k, v in p.items()}
+    return p, convert.params_from_numpy(
+        {k: np.asarray(v) for k, v in p.items()}, device="cpu")
+
+
+def _pool_shape(cfg, n_pages):
+    return (cfg.n_layers, 2, (n_pages + 1) * PS, cfg.n_kv_heads,
+            cfg.head_dim)
+
+
+def _pack(lens, B, T):
+    """Packed ragged layout: sequences back to back, padding at the tail
+    (row_seq == B), positions from 0, last row per sequence."""
+    row_seq = np.full((T,), B, np.int32)
+    positions = np.zeros((T,), np.int32)
+    last = np.zeros((B,), np.int32)
+    o = 0
+    for b, n in enumerate(lens):
+        row_seq[o:o + n] = b
+        positions[o:o + n] = np.arange(n)
+        last[b] = o + n - 1
+        o += n
+    return row_seq, positions, last
+
+
+def _prefill_both(name, lens, max_pages=6, n_pages=24, T=64, seed=0):
+    jcfg, tcfg = CFGS[name]
+    jp, tp = _weights(jcfg)
+    B = len(lens)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, jcfg.vocab_size, (T,)).astype(np.int32)
+    row_seq, positions, last = _pack(lens, B, T)
+    pt = rng.permutation(n_pages)[: B * max_pages].reshape(
+        B, max_pages).astype(np.int32)
+    shape = _pool_shape(jcfg, n_pages)
+    jl, jkv = jllama.prefill_ragged(
+        jp, jcfg, jnp.asarray(tokens), jnp.asarray(row_seq),
+        jnp.asarray(positions), jnp.asarray(last),
+        jnp.zeros(shape, jnp.float32), jnp.asarray(pt), PS,
+        attn_impl="pallas")
+    tkv = torch.zeros(shape)
+    tl, tkv = tllama.prefill_ragged(
+        tp, tcfg, *(torch.from_numpy(a) for a in
+                    (tokens, row_seq, positions, last)), tkv,
+        torch.from_numpy(pt), PS)
+    return (jcfg, tcfg, jp, tp, pt, np.asarray(jl), np.asarray(jkv),
+            tl.numpy(), tkv)
+
+
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_prefill_ragged_matches_jax(name):
+    (_, _, _, _, _, jl, jkv, tl, tkv) = _prefill_both(
+        name, lens=[5, 17, 9, 1])
+    np.testing.assert_allclose(tl, jl, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    n = jkv.shape[2] - PS  # everything but the dump page
+    np.testing.assert_allclose(tkv.numpy()[:, :, :n], jkv[:, :, :n],
+                               rtol=POOL_TOL, atol=POOL_TOL)
+
+
+def test_prefill_padding_never_lands_in_an_allocatable_page():
+    """Padding rows (row_seq >= B) write only into the dump page: every
+    allocatable row not owned by a prompt position stays zero."""
+    lens = [3, 6]
+    (_, tcfg, _, _, pt, _, _, _, tkv) = _prefill_both(
+        "tiny", lens=lens, T=32)
+    written = np.zeros(tkv.shape[2], bool)
+    for b, n in enumerate(lens):
+        for pos in range(n):
+            written[pt[b, pos // PS] * PS + pos % PS] = True
+    n_alloc = tkv.shape[2] - PS
+    untouched = ~written[:n_alloc]
+    assert not tkv[:, :, :n_alloc][:, :, torch.from_numpy(untouched)].any()
+    assert tkv[:, :, n_alloc:].any()  # the padding went to the dump page
+
+
+@pytest.mark.parametrize("name", sorted(CFGS))
+@pytest.mark.parametrize("rung", ["fused", "chained"])
+def test_decode_steps_match_jax(name, rung):
+    """Prefill, then several decode steps on both sides with a mix of
+    active and inactive slots and a page-boundary crossing."""
+    lens = [5, 7, 3]
+    (jcfg, tcfg, jp, tp, pt, jl, jkv, tl, tkv) = _prefill_both(name, lens)
+    B = len(lens)
+    jimpl = "fused-pallas" if rung == "fused" else "pallas"
+    tokens = np.argmax(jl, -1).astype(np.int32)
+    positions = np.asarray(lens, np.int32)
+    active = np.array([True, True, False])
+    jkv = jnp.asarray(jkv)
+    for _ in range(4):
+        jlog, jkv = jllama.decode_step(
+            jp, jcfg, jnp.asarray(tokens), jnp.asarray(positions), jkv,
+            jnp.asarray(pt), PS, jnp.asarray(active), attn_impl=jimpl)
+        tlog, tkv = tllama.decode_step(
+            tp, tcfg, torch.from_numpy(tokens), torch.from_numpy(positions),
+            tkv, torch.from_numpy(pt), PS, torch.from_numpy(active),
+            attn_impl=rung)
+        jlog = np.asarray(jlog)
+        np.testing.assert_allclose(tlog.numpy()[active], jlog[active],
+                                   rtol=LOGIT_TOL, atol=LOGIT_TOL)
+        tokens = np.where(active, np.argmax(jlog, -1), tokens).astype(
+            np.int32)
+        positions = np.where(active, positions + 1, positions).astype(
+            np.int32)
+    n = jkv.shape[2] - PS
+    np.testing.assert_allclose(tkv.numpy()[:, :, :n],
+                               np.asarray(jkv)[:, :, :n],
+                               rtol=POOL_TOL, atol=POOL_TOL)
+
+
+@pytest.mark.parametrize("rung", ["fused", "chained"])
+def test_decode_inactive_slot_at_max_seq_len(rung):
+    """A slot whose decode window ran to its limit at max_seq_len sits in
+    the step as an inactive row at position max_pages * page: the step
+    runs (no page index past the table) and matches the reference."""
+    lens = [5, 7]
+    max_pages = 6
+    (jcfg, tcfg, jp, tp, pt, jl, jkv, _, tkv) = _prefill_both(
+        "tiny", lens, max_pages=max_pages)
+    tokens = np.argmax(jl, -1).astype(np.int32)
+    positions = np.array([lens[0], max_pages * PS], np.int32)
+    active = np.array([True, False])
+    jlog, jkv = jllama.decode_step(
+        jp, jcfg, jnp.asarray(tokens), jnp.asarray(positions),
+        jnp.asarray(jkv), jnp.asarray(pt), PS, jnp.asarray(active),
+        attn_impl="fused-pallas" if rung == "fused" else "pallas")
+    tlog, tkv = tllama.decode_step(
+        tp, tcfg, torch.from_numpy(tokens), torch.from_numpy(positions),
+        tkv, torch.from_numpy(pt), PS, torch.from_numpy(active),
+        attn_impl=rung)
+    np.testing.assert_allclose(tlog.numpy()[active], np.asarray(jlog)[active],
+                               rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    n = jkv.shape[2] - PS
+    np.testing.assert_allclose(tkv.numpy()[:, :, :n],
+                               np.asarray(jkv)[:, :, :n],
+                               rtol=POOL_TOL, atol=POOL_TOL)
+
+
+def test_rope_rotation_matches_jax_bit_for_bit():
+    """Given the same angle tables, the port's interleaved rotation is
+    the reference's bit for bit in float32 (pairs (x[::2], x[1::2]),
+    separately rounded products)."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((3, 5, 4, 16), np.float32)
+    pos = rng.integers(0, 2000, (3, 5)).astype(np.int32)
+    want = np.asarray(jllama.rope(jnp.asarray(x), jnp.asarray(pos), 1e4))
+    freqs = 1.0 / (1e4 ** (jnp.arange(0, 16, 2, dtype=jnp.float32) / 16))
+    ang = jnp.asarray(pos).astype(jnp.float32)[..., None, None] * freqs
+    got = rope_rotate(torch.from_numpy(x),
+                             torch.from_numpy(np.array(jnp.cos(ang))),
+                             torch.from_numpy(np.array(jnp.sin(ang))))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_rope_matches_jax():
+    """The full rope, angle tables included: float32 cos/sin are not
+    correctly rounded and the two libraries' implementations differ in
+    the last ulp, so the result is held within 1e-5 (a few ulp of the
+    rotated values)."""
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 9, 8, 128), np.float32)
+    pos = rng.integers(0, 8192, (2, 9)).astype(np.int32)
+    want = np.asarray(jllama.rope(jnp.asarray(x), jnp.asarray(pos), 5e5))
+    got = tllama.rope(torch.from_numpy(x), torch.from_numpy(pos), 5e5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    cj, sj = jax_rope_tables(jnp.asarray(pos[0]), 128, 5e5)
+    ct, st = rope_tables(torch.from_numpy(pos[0]), 128, 5e5)
+    np.testing.assert_allclose(ct.numpy(), np.asarray(cj), atol=2e-6)
+    np.testing.assert_allclose(st.numpy(), np.asarray(sj), atol=2e-6)
+
+
+def test_rms_norm_matches_jax():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 64), np.float32)
+    w = rng.standard_normal((64,), np.float32)
+    want = np.asarray(jllama.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5))
+    got = tllama.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_params_and_pool_round_trip():
+    p = jllama.init_params(jax.random.PRNGKey(1), jllama.TINY)  # bf16
+    tp = convert.params_from_numpy(p, device="cpu")
+    assert tp["l0.wq"].dtype == torch.bfloat16
+    assert sorted(tp) == sorted(p)
+    np.testing.assert_array_equal(
+        tp["l1.w_up"].float().numpy(),
+        np.asarray(p["l1.w_up"], np.float32))
+    pool = np.random.default_rng(0).standard_normal(
+        (2, 2, 16, 2, 16)).astype(np.float32)
+    np.testing.assert_array_equal(
+        convert.pool_to_numpy(convert.pool_from_numpy(pool, "cpu")), pool)
+
+
+def test_init_params_shapes_and_scales():
+    p = tllama.init_params(0, tllama.TINY_QWEN, dtype=torch.float32,
+                           device="cpu")
+    ref = jllama.init_params(jax.random.PRNGKey(0), CFGS["tiny-qwen"][0])
+    assert {k: tuple(v.shape) for k, v in p.items()} == \
+        {k: tuple(v.shape) for k, v in ref.items()}
+    assert abs(float(p["embed"].std()) - 0.02) < 2e-3
+    assert abs(float(p["l0.w_up"].std()) - 1 / 8) < 1e-2
+    # same seed → same weights
+    q = tllama.init_params(0, tllama.TINY_QWEN, dtype=torch.float32,
+                           device="cpu")
+    assert torch.equal(p["l1.wo"], q["l1.wo"])
+
+
+def test_scatter_kv_padding_goes_to_dump_page():
+    kv = kvq.make_pool((1, 2, 4 * PS, 1, 2), "float32", torch.device("cpu"))
+    slot = torch.tensor([0, 9, 3])
+    valid = torch.tensor([True, False, True])
+    flat = kvq.padding_slots(kv, PS, valid, slot)
+    assert flat.tolist()[0::2] == [0, 3]
+    assert 3 * PS <= int(flat[1]) < 4 * PS
+    kvq.scatter_kv(kv, 0, flat, torch.ones(3, 1, 2), torch.ones(3, 1, 2))
+    assert kv[0, 0, 9].sum() == 0 and kv[0, 0, 3].sum() == 2
