@@ -2,6 +2,8 @@
 
     python -m aigw_tpu_torch tpuserve --model tiny-random --port 8011 \\
         --device cuda --attention-backend pallas-ragged --decode-backend fused
+    python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
+        --quantize int8 --kv-cache-dtype int8
 
 Only the ``tpuserve`` subcommand is ported; the gateway and the other
 subcommands stay JAX-package code, and the gateway can front this
@@ -53,7 +55,12 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--decode-backend", default="auto",
                    choices=["auto", "chained", "fused"])
     s.add_argument("--kv-cache-dtype", default="bfloat16",
-                   choices=["bfloat16", "float32"])
+                   choices=["bfloat16", "float32", "int8", "int4"],
+                   help="KV pages: int8/int4 store quantized rows with "
+                        "per-row, per-head float32 scales")
+    s.add_argument("--quantize", default="", choices=["", "int8", "int4"],
+                   help="weight-only quantization: int8 (W8A16) or int4 "
+                        "(W4A16, group-128 scales)")
     s.add_argument("--ragged-chunk-tokens", type=int, default=256)
     s.add_argument("--max-queued-requests", type=int, default=256)
     return p
@@ -89,7 +96,7 @@ def main(argv: list[str] | None = None) -> int:
 
     server = TPUServeServer(args.model, engine_config(args),
                             device=args.device, host=args.host,
-                            port=args.port)
+                            port=args.port, quantize=args.quantize)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())

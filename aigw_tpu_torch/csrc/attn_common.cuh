@@ -1,5 +1,5 @@
 // Shared device code of the paged-attention kernels (K1 ragged prefill,
-// K2 fused decode, K3 chained decode).
+// K2/K7 fused decode, K3 chained decode).
 //
 // Work split. One warp carries the query rows of one query position
 // that share a KV head (the GQA group, at most G = 4 or 8 rows) as
@@ -104,14 +104,76 @@ struct RowState {
   }
 };
 
+// Pool views: how a walk reads the K and V elements [e0, e0 + 8) of
+// pool slot `slot`, KV head h, as float32. The pointers carry no
+// __restrict__: the fused decode kernel reads rows (and scales) it wrote
+// earlier in the same launch, which the non-coherent read-only load path
+// must not serve.
+template <typename TKV>
+struct NativePool {  // [slots, Hkv, D] float32 / bfloat16
+  const TKV* k;
+  const TKV* v;
+  __device__ __forceinline__ void load(int64_t slot, int Hkv, int h, int D,
+                                       int e0, float (&kx)[VEC],
+                                       float (&vx)[VEC]) const {
+    const int64_t off = (slot * Hkv + h) * D + e0;
+    load8(k + off, kx);
+    load8(v + off, vx);
+  }
+};
+
+// int8 rows [slots, Hkv, D] with float32 scales [slots, Hkv]: element
+// value q * scale, one float32 product (the plain version's dequant).
+struct Int8Pool {
+  const int8_t* k;
+  const int8_t* v;
+  const float* ks;
+  const float* vs;
+  __device__ __forceinline__ static void deq(uint2 u, float s,
+                                             float (&x)[VEC]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[i] = __fmul_rn((float)(int8_t)(u.x >> (8 * i)), s);
+      x[4 + i] = __fmul_rn((float)(int8_t)(u.y >> (8 * i)), s);
+    }
+  }
+  __device__ __forceinline__ void load(int64_t slot, int Hkv, int h, int D,
+                                       int e0, float (&kx)[VEC],
+                                       float (&vx)[VEC]) const {
+    const int64_t row = slot * Hkv + h;
+    deq(*reinterpret_cast<const uint2*>(k + row * D + e0), ks[row], kx);
+    deq(*reinterpret_cast<const uint2*>(v + row * D + e0), vs[row], vx);
+  }
+};
+
+// int4 rows packed two per byte [slots, Hkv, D / 2] (element 2i in the
+// low nibble of byte i, two's complement), float32 scales [slots, Hkv].
+struct Int4Pool {
+  const uint8_t* k;
+  const uint8_t* v;
+  const float* ks;
+  const float* vs;
+  __device__ __forceinline__ static void deq(uint32_t u, float s,
+                                             float (&x)[VEC]) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      x[e] = __fmul_rn((float)((int32_t)(u << (28 - 4 * e)) >> 28), s);
+  }
+  __device__ __forceinline__ void load(int64_t slot, int Hkv, int h, int D,
+                                       int e0, float (&kx)[VEC],
+                                       float (&vx)[VEC]) const {
+    const int64_t row = slot * Hkv + h;
+    const int64_t off = row * (D / 2) + e0 / 2;
+    deq(*reinterpret_cast<const uint32_t*>(k + off), ks[row], kx);
+    deq(*reinterpret_cast<const uint32_t*>(v + off), vs[row], vx);
+  }
+};
+
 // K and V elements [e0, e0 + 8) of key position `key` of one sequence,
 // KV head h; zeros when key >= n_keys. Key position j lives at pool
-// slot page_row[j / page_size] * page_size + j % page_size. The pool
-// pointers carry no __restrict__: the fused decode kernel reads rows it
-// wrote earlier in the same launch, which the non-coherent read-only
-// load path must not serve.
-template <typename TKV>
-__device__ __forceinline__ void load_key(const TKV* k_pool, const TKV* v_pool,
+// slot page_row[j / page_size] * page_size + j % page_size.
+template <typename Pool>
+__device__ __forceinline__ void load_key(const Pool& pool,
                                          const int* __restrict__ page_row,
                                          int page_size, int Hkv, int h, int D,
                                          int e0, int key, int n_keys,
@@ -119,9 +181,7 @@ __device__ __forceinline__ void load_key(const TKV* k_pool, const TKV* v_pool,
   if (key < n_keys) {
     const int64_t slot =
         (int64_t)page_row[key / page_size] * page_size + key % page_size;
-    const int64_t off = (slot * Hkv + h) * D + e0;
-    load8(k_pool + off, kx);
-    load8(v_pool + off, vx);
+    pool.load(slot, Hkv, h, D, e0, kx, vx);
   } else {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) kx[e] = vx[e] = 0.f;
@@ -136,11 +196,10 @@ __device__ __forceinline__ void load_key(const TKV* k_pool, const TKV* v_pool,
 // sqrt(D); rows >= grp are skipped (grp is uniform across the warp, so
 // are the shuffles). Ends with the lane groups' states merged: every
 // lane group holds the warp's state.
-template <int G, int U, typename TKV>
+template <int G, int U, typename Pool>
 __device__ __forceinline__ void warp_walk(RowState<G>& st,
                                           const float (&q)[G][VEC], int grp,
-                                          const TKV* k_pool,
-                                          const TKV* v_pool,
+                                          const Pool& pool,
                                           const int* __restrict__ page_row,
                                           int page_size, int Hkv, int h,
                                           int D, int n_keys, int c0,
@@ -156,8 +215,8 @@ __device__ __forceinline__ void warp_walk(RowState<G>& st,
     for (int u = 0; u < U; ++u) {
       const int key = (c + u * c_step) * NG + slot_in_chunk;
       valid[u] = key < n_keys;
-      load_key(k_pool, v_pool, page_row, page_size, Hkv, h, D, e0, key,
-               n_keys, kx[u], vx[u]);
+      load_key(pool, page_row, page_size, Hkv, h, D, e0, key, n_keys,
+               kx[u], vx[u]);
     }
 #pragma unroll
     for (int r = 0; r < G; ++r) {
@@ -213,10 +272,9 @@ __device__ __forceinline__ void warp_walk(RowState<G>& st,
 // (sequence, KV head), merge through shared memory and write the
 // group's rows out[r * D + d] = acc / max(l, 1e-30). smem holds
 // nwarps * G * (D + 2) floats. Every thread of the block must call it.
-template <int G, typename TQ, typename TKV>
+template <int G, typename TQ, typename Pool>
 __device__ __forceinline__ void decode_attend(const float (&q)[G][VEC],
-                                              int grp, const TKV* k_pool,
-                                              const TKV* v_pool,
+                                              int grp, const Pool& pool,
                                               const int* __restrict__ page_row,
                                               int page_size, int Hkv, int h,
                                               int D, int n_keys, TQ* out,
@@ -227,8 +285,8 @@ __device__ __forceinline__ void decode_attend(const float (&q)[G][VEC],
   constexpr int U = G <= 4 ? 4 : 2;
   RowState<G> st;
   st.init();
-  warp_walk<G, U>(st, q, grp, k_pool, v_pool, page_row, page_size, Hkv, h,
-                  D, n_keys, warp, nwarps);
+  warp_walk<G, U>(st, q, grp, pool, page_row, page_size, Hkv, h, D,
+                  n_keys, warp, nwarps);
   float* s_acc = smem;                       // [nwarps][G][D]
   float* s_m = s_acc + nwarps * G * D;       // [nwarps][G]
   float* s_l = s_m + nwarps * G;             // [nwarps][G]
@@ -263,9 +321,12 @@ __device__ __forceinline__ void decode_attend(const float (&q)[G][VEC],
 
 }  // namespace aigw
 
-// dtype codes shared with the Python wrappers
+// dtype codes shared with the Python wrappers (AIGW_I8 / AIGW_I4: the
+// fused decode kernel's quantized pools, int8 and packed-int4 uint8)
 #define AIGW_F32 0
 #define AIGW_BF16 1
+#define AIGW_I8 2
+#define AIGW_I4 3
 
 // Dispatch a templated launch over (rows per warp G, query dtype, pool
 // dtype): G = 4 for GQA groups up to 4, else 8.

@@ -67,7 +67,7 @@ __global__ void __launch_bounds__(PREFILL_WARPS * WARP)
   // causal: the row at absolute position start + row attends <= it
   // prefill keeps fewer chunks in flight (its keys are mostly cache
   // hits) for fewer registers and more resident warps
-  warp_walk<G, G <= 4 ? 2 : 1>(st, qr, grp, k_pool, v_pool,
+  warp_walk<G, G <= 4 ? 2 : 1>(st, qr, grp, NativePool<TKV>{k_pool, v_pool},
                                page_table + (int64_t)b * P, page_size,
                                Hkv, h, D, start_pos[b] + row + 1, 0, 1);
   if (lane < D / VEC) {
@@ -107,7 +107,8 @@ __global__ void __launch_bounds__(DECODE_WARPS * WARP)
 #pragma unroll
     for (int e = 0; e < VEC; ++e) qr[r][e] = __fdiv_rn(x[e], sqrt_d);
   }
-  decode_attend<G>(qr, grp, k_pool, v_pool, page_table + (int64_t)b * P,
+  decode_attend<G>(qr, grp, NativePool<TKV>{k_pool, v_pool},
+                   page_table + (int64_t)b * P,
                    page_size, Hkv, h, D, lengths[b],
                    out + ((int64_t)b * H + (int64_t)h * grp) * D, smem);
 }

@@ -12,24 +12,37 @@ the reference leaves them to XLA; the attention runs through the
 hand-written kernels (``aigw_tpu_torch/ops``) on CUDA tensors and their
 plain versions on CPU tensors.
 
-The pool is updated IN PLACE and returned (the reference donates it).
+Weights may be quantized (``models/quant.py``): a W8A16 matrix at a
+shape ``qmatmul.supported`` takes goes through K6
+(``ops.qmatmul.w8a16_matmul``); every other quantized matrix (int4,
+prefill-sized M, unaligned widths) is dequantized to bf16 by ``_w`` and
+multiplied, as in the reference. torch's matmul does not promote mixed
+dtypes the way JAX's does, so ``_mm`` casts both operands to the
+promoted dtype first (float32 activations against bf16-dequantized
+weights in the parity rig).
 
-This slice ports ``prefill_ragged`` and ``decode_step`` (fused and
-chained rungs). ``prefill``, ``prefill_suffix``, ``verify_step``,
-``hidden_states``, the sequence-parallel prefills, the gather rung, LoRA
-and quantized weights wait for later slices (ROADMAP queue 1).
+The pool (native tensor or the quantized ``{"q", "scale"}`` dict of
+``models/kvq.py``) is updated IN PLACE and returned (the reference
+donates it).
+
+This slice ports ``prefill_ragged`` (K1, or the windowed program that
+quantized pools take) and ``decode_step`` (fused and chained rungs).
+``prefill``, ``prefill_suffix``, ``verify_step``, ``hidden_states``, the
+sequence-parallel prefills, the gather rung and LoRA wait for later
+slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 from aigw_tpu_torch.models import kvq
-from aigw_tpu_torch.ops import decode_fused, paged_attention
+from aigw_tpu_torch.ops import decode_fused, paged_attention, qmatmul
 
 
 @dataclass(frozen=True)
@@ -127,6 +140,63 @@ def init_params(seed: int, cfg: LlamaConfig, dtype=torch.bfloat16,
     return p
 
 
+def _w(p: dict[str, torch.Tensor], key: str) -> torch.Tensor:
+    """A weight stored bf16/f32, int8 + per-channel scale (W8A16) or
+    packed int4 + group scales (W4A16), as the matmul operand: quantized
+    weights come back as ``q * scale`` in bf16 with the scale rounded to
+    bf16 first, exactly as the reference's ``_w``."""
+    q = p.get(key + ".q")
+    if q is None:
+        return p[key]
+    scale = p[key + ".scale"].to(torch.bfloat16)
+    if q.dtype == torch.uint8:
+        # int4 packed along the input axis; scales [in / G, out]
+        wf = kvq.unpack_int4(q, dim=0).to(torch.bfloat16)
+        n_in, n_out = wf.shape
+        groups = scale.shape[0]
+        wf = wf.reshape(groups, n_in // groups, n_out) * scale[:, None, :]
+        return wf.reshape(n_in, n_out)
+    return q.to(torch.bfloat16) * scale
+
+
+def _embed_rows(p: dict[str, torch.Tensor],
+                tokens: torch.Tensor) -> torch.Tensor:
+    q = p.get("embed.q")
+    if q is None:
+        return p["embed"][tokens]
+    rows = q[tokens].to(torch.bfloat16)
+    scales = p["embed.scale"][:, 0][tokens]
+    return rows * scales[..., None].to(torch.bfloat16)
+
+
+def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with JAX's dtype promotion (torch refuses mixed
+    dtypes)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
+
+
+def _matmul(p: dict[str, torch.Tensor], key: str, x: torch.Tensor,
+            plain: bool = False) -> torch.Tensor:
+    """``x @ weight``: K6 for int8 weights at the shapes it takes
+    (decode-sized M, aligned K/N; its plain version when ``plain``),
+    else ``x @ _w(p, key)``. int4 carries group-wise scales the
+    per-column kernel would misapply, so it always takes ``_w``."""
+    q = p.get(key + ".q")
+    if q is None or q.dtype != torch.int8:
+        return _mm(x, _w(p, key))
+    lead, k = x.shape[:-1], x.shape[-1]
+    m = math.prod(lead)
+    n = q.shape[-1]
+    if not qmatmul.supported(m, k, n):
+        return _mm(x, _w(p, key))
+    mm = qmatmul.w8a16_matmul_plain if plain else qmatmul.w8a16_matmul
+    y = mm(x.reshape(m, k).contiguous(), q, p[key + ".scale"])
+    return y.reshape(*lead, n)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
@@ -148,12 +218,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return decode_fused.rope_rotate(x, torch.cos(angles), torch.sin(angles))
 
 
-def _project_qkv(p, i, x, positions, cfg, apply_rope=True):
+def _project_qkv(p, i, x, positions, cfg, apply_rope=True, plain=False):
     hd = cfg.head_dim
     B, S, _ = x.shape
-    q = x @ p[f"l{i}.wq"]
-    k = x @ p[f"l{i}.wk"]
-    v = x @ p[f"l{i}.wv"]
+    q = _matmul(p, f"l{i}.wq", x, plain)
+    k = _matmul(p, f"l{i}.wk", x, plain)
+    v = _matmul(p, f"l{i}.wv", x, plain)
     if cfg.attn_bias:
         q, k, v = q + p[f"l{i}.bq"], k + p[f"l{i}.bk"], v + p[f"l{i}.bv"]
     q = q.reshape(B, S, cfg.n_heads, hd)
@@ -165,16 +235,91 @@ def _project_qkv(p, i, x, positions, cfg, apply_rope=True):
     return q, k, v
 
 
-def _mlp(p, i, x):
-    gate = F.silu(x @ p[f"l{i}.w_gate"])
-    up = x @ p[f"l{i}.w_up"]
-    return (gate * up) @ p[f"l{i}.w_down"]
+def _mlp(p, i, x, plain=False):
+    gate = F.silu(_matmul(p, f"l{i}.w_gate", x, plain))
+    up = _matmul(p, f"l{i}.w_up", x, plain)
+    return _matmul(p, f"l{i}.w_down", gate * up, plain)
 
 
-def _logits(p, cfg: LlamaConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(p, cfg: LlamaConfig, x: torch.Tensor,
+            plain: bool = False) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return (x @ p["embed"].T).float()
-    return (x @ p["lm_head"]).float()
+        return _mm(x, _w(p, "embed").T).float()
+    return _matmul(p, "lm_head", x, plain).float()
+
+
+#: packed rows the windowed prefill attends per pass: bounds its
+#: [rows, page, Hkv, D] float32 gathers (~270 MB at Llama-3-8B widths)
+WINDOW_ROWS = 256
+
+
+def _window_pages(positions: torch.Tensor, valid: torch.Tensor,
+                  page_size: int, max_pages: int) -> list[int]:
+    """Pages each ``WINDOW_ROWS`` pass of the windowed prefill walks:
+    up to its highest valid position (one host read per call)."""
+    top = torch.where(valid, positions.long(), 0)
+    pad = -len(top) % WINDOW_ROWS
+    top = torch.nn.functional.pad(top, (0, pad)).reshape(-1, WINDOW_ROWS)
+    return [min(int(x) // page_size + 1, max_pages)
+            for x in top.amax(1).tolist()]
+
+
+def _ragged_window_attention(
+    q: torch.Tensor,  # [T, H, D] packed queries
+    k_pool: torch.Tensor,  # [n_slots, Hkv, D] (or int8 / packed int4)
+    v_pool: torch.Tensor,
+    pt_rows: torch.Tensor,  # [T, P] page ids of each token's sequence
+    positions: torch.Tensor,  # [T] absolute position per token
+    valid: torch.Tensor,  # [T] bool — False for padding rows
+    page_size: int,
+    k_scale: torch.Tensor | None,  # [n_slots, Hkv] (quantized), or None
+    v_scale: torch.Tensor | None,
+    chunk_pages: list[int],  # _window_pages, computed once for all layers
+) -> torch.Tensor:
+    """The reference's windowed ragged prefill attention: online softmax
+    over each row's page window, one page per loop step, quantized pages
+    dequantized at the read. Rows go ``WINDOW_ROWS`` at a time, each
+    pass walking pages up to its own highest valid position (the pages
+    it skips are fully masked for its valid rows, so skipping them
+    changes nothing). Plain PyTorch on every device: the reference has
+    no kernel for it either. Returns
+    ``[T, H * D]`` in q's dtype."""
+    T, H, D = q.shape
+    Hkv = k_pool.shape[1]
+    grp = H // Hkv
+    offs = torch.arange(page_size, device=q.device)
+    pos = positions.long()
+    out = torch.empty((T, H * D), dtype=q.dtype, device=q.device)
+    for lo, n_pages in zip(range(0, T, WINDOW_ROWS), chunk_pages):
+        hi = min(T, lo + WINDOW_ROWS)
+        n = hi - lo
+        qf = q[lo:hi].float().reshape(n, Hkv, grp, D) / math.sqrt(D)
+        m = torch.full((n, Hkv, grp, 1), -1e30, device=q.device)
+        l = torch.zeros((n, Hkv, grp, 1), device=q.device)
+        acc = torch.zeros((n, Hkv, grp, D), device=q.device)
+        for pg in range(n_pages):
+            slots = pt_rows[lo:hi, pg].long()[:, None] * page_size \
+                + offs[None, :]
+            if k_scale is None:
+                k = k_pool[slots].float()  # [n, page, Hkv, D]
+                v = v_pool[slots].float()
+            else:
+                k = kvq.dequantize_rows(k_pool[slots], k_scale[slots])
+                v = kvq.dequantize_rows(v_pool[slots], v_scale[slots])
+            logits = torch.einsum("thgd,tshd->thgs", qf, k)
+            kp = pg * page_size + offs
+            mask = (kp[None, :] <= pos[lo:hi, None]) & valid[lo:hi, None]
+            logits = torch.where(mask[:, None, None, :], logits,
+                                 torch.full_like(logits, -1e30))
+            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            probs = torch.exp(logits - m_new)
+            l = alpha * l + probs.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("thgs,tshd->thgd", probs, v)
+            m = m_new
+        res = acc / torch.clamp(l, min=1e-30)
+        out[lo:hi] = res.reshape(n, H * D).to(q.dtype)
+    return out
 
 
 def prefill_ragged(
@@ -184,21 +329,27 @@ def prefill_ragged(
     row_seq: torch.Tensor,  # [T] int — sequence row per token; >= B = padding
     positions: torch.Tensor,  # [T] int — absolute position per token
     last_rows: torch.Tensor,  # [B] int — packed index of each row's last token
-    kv_cache: torch.Tensor,  # [L, 2, n_slots, Hkv, D], updated in place
+    kv_cache: Any,  # [L, 2, n_slots, Hkv, D] or quantized dict, in place
     page_table: torch.Tensor,  # [B, max_pages] int32
     page_size: int,
     *,
     plain: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, Any]:
     """Ragged prefill: sequence b's new tokens occupy a contiguous run of
     packed rows (grouped and ascending in b, padding at the tail), at
     absolute positions ``positions``. Per layer the chunk's K/V are
-    scattered into the pool (padding rows into the dump page), then
-    every packed query attends its own sequence's pages under a causal
-    mask through K1 (``ops.paged_attention.ragged_prefill_attention``).
-    ``plain=True`` runs K1's plain version whatever the device (the
-    on-card reference). Returns (logits at each row's last packed token
-    [B, V] float32, pool)."""
+    scattered into the pool (padding rows into the dump page; quantized
+    in the same pass for an int8/int4 pool), then every packed query
+    attends its own sequence's pages under a causal mask: through K1
+    (``ops.paged_attention.ragged_prefill_attention``, the reference's
+    ``"pallas"``) on a native pool, through ``_ragged_window_attention``
+    in plain PyTorch (the reference's ``""``) on an int8/int4 pool, as
+    the reference's fallback matrix routes them.
+
+    ``plain=True`` runs the kernels' plain versions (K1's and K6's)
+    whatever the device (the on-card reference). Returns (logits at
+    each row's last packed token [B, V] float32, pool)."""
+    windowed = kvq.is_quantized(kv_cache)
     T = tokens.shape[0]
     B, P = page_table.shape
     dev = tokens.device
@@ -219,22 +370,30 @@ def prefill_ragged(
               else paged_attention.ragged_prefill_attention)
     pt32 = page_table.to(torch.int32).contiguous()
 
-    x = p["embed"][tokens.long()][:, None]  # [T, 1, dim]
+    if windowed:
+        chunk_pages = _window_pages(pos, valid, page_size, P)
+    x = _embed_rows(p, tokens.long())[:, None]  # [T, 1, dim]
     pos2 = pos[:, None]
+    HD = cfg.n_heads * cfg.head_dim
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
-        q, k, v = _project_qkv(p, i, h, pos2, cfg)
+        q, k, v = _project_qkv(p, i, h, pos2, cfg, plain=plain)
         kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
-        attn = attend(q[:, 0].contiguous(), kvq.layer_pool(kv_cache, i, 0),
-                      kvq.layer_pool(kv_cache, i, 1), pt32, cu,
-                      start.contiguous(), page_size=page_size)
-        x = x + attn.reshape(T, 1, cfg.n_heads * cfg.head_dim) \
-            @ p[f"l{i}.wo"]
+        kr, ksc = kvq.layer_pool(kv_cache, i, 0)
+        vr, vsc = kvq.layer_pool(kv_cache, i, 1)
+        if windowed:
+            attn = _ragged_window_attention(
+                q[:, 0], kr, vr, pt_rows, pos, valid, page_size, ksc, vsc,
+                chunk_pages)
+        else:
+            attn = attend(q[:, 0].contiguous(), kr, vr, pt32, cu,
+                          start.contiguous(), page_size=page_size)
+        x = x + _matmul(p, f"l{i}.wo", attn.reshape(T, 1, HD), plain)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
-        x = x + _mlp(p, i, h)
+        x = x + _mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
     last = x[torch.clamp(last_rows.long(), 0, T - 1), 0]  # [B, dim]
-    return _logits(p, cfg, last), kv_cache
+    return _logits(p, cfg, last, plain), kv_cache
 
 
 def decode_step(
@@ -242,29 +401,36 @@ def decode_step(
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # [B] int current token per slot
     positions: torch.Tensor,  # [B] int position of `tokens`
-    kv_cache: torch.Tensor,  # updated in place
+    kv_cache: Any,  # native tensor or quantized dict, updated in place
     page_table: torch.Tensor,  # [B, max_pages] int32
     page_size: int,
     active: torch.Tensor,  # [B] bool slot occupied
     attn_impl: str = "fused",
     *,
     plain: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, Any]:
     """One continuous-batching decode step; returns (logits [B, V]
     float32, pool). ``attn_impl`` selects the decode rung:
 
-    - ``"fused"`` — K2 (``ops.decode_fused.fused_paged_decode``): RoPE +
-      append + paged attention in one launch per layer; inactive slots
-      write into the dump page.
+    - ``"fused"`` — ``ops.decode_fused.fused_paged_decode``: RoPE +
+      append + paged attention in one launch per layer (K2 on a native
+      pool, K7 on an int8/int4 pool); inactive slots write into the dump
+      page.
     - ``"chained"`` — RoPE and the K/V scatter in PyTorch (inactive
       slots scatter into the dump page), then K3
-      (``ops.paged_attention.paged_attention_decode_v2``).
+      (``ops.paged_attention.paged_attention_decode_v2``). Native pools
+      only, as in the reference.
 
-    ``plain=True`` runs the kernels' plain versions whatever the device.
+    ``plain=True`` runs the kernels' plain versions (the attention
+    rung's and K6's) whatever the device.
     """
     if attn_impl not in ("fused", "chained"):
         raise ValueError(f"attn_impl must be 'fused' or 'chained' "
                          f"(got {attn_impl!r})")
+    if attn_impl == "chained" and kvq.is_quantized(kv_cache):
+        raise NotImplementedError(
+            "the chained decode kernel has no quantized-pool rung: the "
+            "fallback matrix resolves int8/int4 to the fused rung")
     B = tokens.shape[0]
     pos = positions.long()
     pos1 = pos[:, None]
@@ -292,24 +458,25 @@ def decode_step(
         lengths = torch.where(active, pos + 1,
                               torch.zeros_like(pos)).to(torch.int32)
     HD = cfg.n_heads * cfg.head_dim
-    x = p["embed"][tokens.long()][:, None]  # [B, 1, dim]
+    x = _embed_rows(p, tokens.long())[:, None]  # [B, 1, dim]
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
-        q, k, v = _project_qkv(p, i, h, pos1, cfg, apply_rope=not fused)
+        q, k, v = _project_qkv(p, i, h, pos1, cfg, apply_rope=not fused,
+                               plain=plain)
+        kr, ksc = kvq.layer_pool(kv_cache, i, 0)
+        vr, vsc = kvq.layer_pool(kv_cache, i, 1)
         if fused:
-            attn, _, _ = step(
+            attn = step(
                 q[:, 0].contiguous(), k[:, 0].contiguous(),
-                v[:, 0].contiguous(), kvq.layer_pool(kv_cache, i, 0),
-                kvq.layer_pool(kv_cache, i, 1), pt32, pos32, act32,
+                v[:, 0].contiguous(), kr, vr, pt32, pos32, act32, ksc, vsc,
                 rope_theta=cfg.rope_theta, page_size=page_size,
-                tables=tables)
+                tables=tables)[0]
         else:
             kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
-            attn = walk(q[:, 0].contiguous(), kvq.layer_pool(kv_cache, i, 0),
-                        kvq.layer_pool(kv_cache, i, 1), pt32, lengths,
+            attn = walk(q[:, 0].contiguous(), kr, vr, pt32, lengths,
                         page_size=page_size)
-        x = x + attn.reshape(B, 1, HD) @ p[f"l{i}.wo"]
+        x = x + _matmul(p, f"l{i}.wo", attn.reshape(B, 1, HD), plain)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
-        x = x + _mlp(p, i, h)
+        x = x + _mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
-    return _logits(p, cfg, x[:, 0]), kv_cache
+    return _logits(p, cfg, x[:, 0], plain), kv_cache

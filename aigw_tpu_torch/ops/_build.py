@@ -27,11 +27,15 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# No --use_fast_math: the quantizing kernels divide x / scale and round,
+# and an approximate division would change the rounded integers.
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-lineinfo")
 
-#: dtype codes of the C interface (AIGW_F32 / AIGW_BF16 in the sources)
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype codes of the C interface (AIGW_F32 / AIGW_BF16 / AIGW_I8 /
+#: AIGW_I4 in the sources; uint8 is the packed-int4 pool)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.uint8: 3}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,7 +43,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "aigw_ragged_prefill": [_P] * 7 + [_I] * 9 + [_P],
     "aigw_paged_decode": [_P] * 6 + [_I] * 8 + [_P],
-    "aigw_fused_decode": [_P] * 11 + [_I] * 9 + [_P],
+    "aigw_fused_decode": [_P] * 13 + [_I] * 9 + [_P],
+    "aigw_w8a16_matmul": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 #: wall seconds of the last build in this process (0.0 = reused)
@@ -139,10 +144,11 @@ def check_heads(H: int, Hkv: int, D: int) -> None:
                          "128, 256")
 
 
-def dtype_code(t: torch.Tensor, name: str) -> int:
-    if t.dtype not in DTYPE_CODE:
+def dtype_code(t: torch.Tensor, name: str,
+               allowed=(torch.float32, torch.bfloat16)) -> int:
+    if t.dtype not in allowed:
         raise ValueError(f"{name}: unsupported dtype {t.dtype} "
-                         "(float32 or bfloat16)")
+                         f"(one of {', '.join(map(str, allowed))})")
     return DTYPE_CODE[t.dtype]
 
 

@@ -1,24 +1,27 @@
 """Fused decode step (counterpart of
-``aigw_tpu/ops/pallas/decode_fused.py``), native-dtype rung.
+``aigw_tpu/ops/pallas/decode_fused.py``).
 
-``fused_paged_decode`` (K2) runs, per layer and decode step, in one
-launch: interleaved RoPE of q and of the new key from per-step ``[B, D]``
+``fused_paged_decode`` runs, per layer and decode step, in one launch:
+interleaved RoPE of q and of the new key from per-step ``[B, D]``
 cos/sin tables, the in-place append of the new K/V row into its page,
 and online-softmax paged attention over the slot's rows up to and
-including the new one. Append semantics follow the reference kernel
-bit for bit:
+including the new one. It has two rungs: K2 for native (bf16/f32)
+pools, and K7 for int8 and packed-int4 pools (``models/kvq.py``) with
+their ``[n_slots, Hkv]`` float32 scales, which dequantizes pool rows as
+``q * scale`` in float32 and quantizes the new rows by the kvq recipe.
+Append semantics follow the reference kernel bit for bit:
 
 - a page-aligned append (``position % page == 0``) starts a fresh page:
-  the page's other rows are zeroed;
-- inactive slots write zeros into the dump page (the pool's last page,
-  which the engine never allocates) and attend nothing;
+  the page's other rows, and their scales, are zeroed;
+- inactive slots write zeros (scale 0) into the dump page (the pool's
+  last page, which the engine never allocates) and attend nothing;
 - every other pool row is left untouched.
 
-The pools are updated IN PLACE (the reference aliases them through
-``input_output_aliases``) and returned. The plain version is the
-scatter (with those page semantics) followed by ``paged_decode_walk``;
-the kernel lives in ``csrc/decode_fused.cu``. The int8/int4 rung and the
-mesh walk wait for later slices (ROADMAP queue 1).
+The pools (and scales) are updated IN PLACE (the reference aliases them
+through ``input_output_aliases``) and returned. The plain version is
+the scatter (with those page semantics) followed by
+``paged_decode_walk``; the kernels live in ``csrc/decode_fused.cu``.
+The mesh walk waits for a later slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import math
 
 import torch
 
+from aigw_tpu_torch.models import kvq
 from aigw_tpu_torch.ops import _build
 
 
@@ -63,10 +67,13 @@ def paged_decode_walk(
     lengths: torch.Tensor,  # [B] rows to attend (incl. the new token)
     *,
     page_size: int,
+    k_scale: torch.Tensor | None = None,  # [n_slots, Hkv] (quantized)
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Online-softmax paged attention, one page per loop step — the
-    reference's ``paged_decode_walk``. Returns ``[B, H, D]`` in q's
-    dtype; rows with length 0 come out zero."""
+    reference's ``paged_decode_walk``; quantized pools dequantize at the
+    read (``q * scale`` in float32). Returns ``[B, H, D]`` in q's dtype;
+    rows with length 0 come out zero."""
     B, H, D = q.shape
     Hkv = k_rows.shape[1]
     grp = H // Hkv
@@ -82,8 +89,12 @@ def paged_decode_walk(
     p_hi = min(max(0, (max_len - 1) // page_size + 1), P)
     for p in range(p_hi):
         slots = pt[:, p][:, None] * page_size + offs[None, :]  # [B, page]
-        k = k_rows[slots].float()  # [B, page, Hkv, D]
-        v = v_rows[slots].float()
+        if k_scale is None:
+            k = k_rows[slots].float()  # [B, page, Hkv, D]
+            v = v_rows[slots].float()
+        else:
+            k = kvq.dequantize_rows(k_rows[slots], k_scale[slots])
+            v = kvq.dequantize_rows(v_rows[slots], v_scale[slots])
         logits = torch.einsum("bhgd,bshd->bhgs", qf, k)
         kpos = p * page_size + offs
         mask = kpos[None, :] < lens[:, None]  # [B, page]
@@ -121,21 +132,27 @@ def fused_paged_decode_plain(
     q: torch.Tensor,  # [B, H, D] unroped query
     k_new: torch.Tensor,  # [B, Hkv, D] unroped new key
     v_new: torch.Tensor,  # [B, Hkv, D]
-    k_rows: torch.Tensor,  # [n_slots, Hkv, D] pool (updated in place)
+    k_rows: torch.Tensor,  # [n_slots, Hkv, D or D/2] pool (in place)
     v_rows: torch.Tensor,
     page_table: torch.Tensor,  # [B, P]
     positions: torch.Tensor,  # [B]
     active: torch.Tensor,  # [B] bool (or 0/1 integers)
+    k_scale: torch.Tensor | None = None,  # [n_slots, Hkv] f32 (in place)
+    v_scale: torch.Tensor | None = None,
     *,
     rope_theta: float,
     page_size: int,
     tables: tuple[torch.Tensor, torch.Tensor] | None = None,
 ):
-    """Plain version of K2: RoPE, the append (fresh-page zeroing, dump
-    page for inactive slots), then ``paged_decode_walk`` over rows
-    ``<= position``. Returns ``(attn, k_rows, v_rows)``."""
+    """Plain version of K2 (native pool) and K7 (with scales): RoPE,
+    the append (quantized by the kvq recipe when the pool is; fresh-page
+    zeroing, the dump page for inactive slots), then
+    ``paged_decode_walk`` over rows ``<= position``. Returns ``(attn,
+    k_rows, v_rows)``, plus ``(k_scale, v_scale)`` for a quantized
+    pool."""
     B, H, D = q.shape
     n_slots, Hkv, _ = k_rows.shape
+    quant = k_scale is not None
     active = active.bool()
     cos, sin = tables or rope_tables(positions, D, rope_theta)
     # columns 2i and 2i+1 of a table carry the same angle
@@ -145,20 +162,30 @@ def fused_paged_decode_plain(
     page, row = _append_targets(page_table, positions, active, n_slots,
                                 page_size)
     fresh = page[row == 0]
-    pages_k = k_rows.view(n_slots // page_size, page_size, Hkv, D)
-    pages_v = v_rows.view(n_slots // page_size, page_size, Hkv, D)
-    pages_k[fresh] = 0
-    pages_v[fresh] = 0
     slot = page * page_size + row
     keep = active[:, None, None]
-    k_rows[slot] = torch.where(keep, knr, torch.zeros_like(knr)).to(
-        k_rows.dtype)
-    v_rows[slot] = torch.where(keep, v_new, torch.zeros_like(v_new)).to(
-        v_rows.dtype)
+    new = [torch.where(keep, x, torch.zeros_like(x)) for x in (knr, v_new)]
+    leaves = [(k_rows, v_rows)]
+    if quant:
+        dt = "int8" if k_rows.dtype == torch.int8 else "int4"
+        qk, sk = kvq.quantize_rows(new[0], dt)
+        qv, sv = kvq.quantize_rows(new[1], dt)
+        zero = torch.zeros_like(sk)
+        new = [qk, qv, torch.where(active[:, None], sk, zero),
+               torch.where(active[:, None], sv, zero)]
+        leaves.append((k_scale, v_scale))
+    flat = [t for pair in leaves for t in pair]
+    for t, x in zip(flat, new):
+        pages = t.view(n_slots // page_size, page_size, *t.shape[1:])
+        pages[fresh] = 0
+        t[slot] = x.to(t.dtype)
     lengths = torch.where(active, positions.long() + 1,
                           torch.zeros_like(positions.long()))
     attn = paged_decode_walk(qr, k_rows, v_rows, page_table, lengths,
-                             page_size=page_size)
+                             page_size=page_size, k_scale=k_scale,
+                             v_scale=v_scale)
+    if quant:
+        return attn, k_rows, v_rows, k_scale, v_scale
     return attn, k_rows, v_rows
 
 
@@ -171,24 +198,32 @@ def fused_paged_decode(
     page_table: torch.Tensor,
     positions: torch.Tensor,
     active: torch.Tensor,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
     *,
     rope_theta: float,
     page_size: int,
     tables: tuple[torch.Tensor, torch.Tensor] | None = None,
 ):
-    """K2. Returns ``(attn [B, H, D] in q's dtype, k_rows, v_rows)`` with
-    the pools updated in place. ``tables`` are this step's
-    ``rope_tables(positions, D, rope_theta)`` when the caller computed
-    them once for all layers. CPU tensors: the plain version; CUDA
-    tensors: the kernel (``aigw_fused_decode``)."""
+    """K2 (native pool) or K7 (int8 / packed-int4 pool with ``k_scale``
+    / ``v_scale``). Returns ``(attn [B, H, D] in q's dtype, k_rows,
+    v_rows)``, plus ``(k_scale, v_scale)`` for a quantized pool, all
+    updated in place. ``tables`` are this step's ``rope_tables(positions,
+    D, rope_theta)`` when the caller computed them once for all layers.
+    CPU tensors: the plain version; CUDA tensors: the kernel
+    (``aigw_fused_decode``). Launches count in ``.launches`` (K2),
+    ``.launches_int8`` and ``.launches_int4`` (K7)."""
     if q.device.type == "cpu":
         return fused_paged_decode_plain(
             q, k_new, v_new, k_rows, v_rows, page_table, positions, active,
-            rope_theta=rope_theta, page_size=page_size, tables=tables)
+            k_scale, v_scale, rope_theta=rope_theta, page_size=page_size,
+            tables=tables)
+    quant = k_scale is not None
     B, H, D = q.shape
-    n_slots, Hkv, D2 = k_rows.shape
+    n_slots, Hkv, RW = k_rows.shape
     P = page_table.shape[1]
-    if (D2 != D or k_new.shape != (B, Hkv, D)
+    packed = k_rows.dtype == torch.uint8
+    if (RW != (D // 2 if packed else D) or k_new.shape != (B, Hkv, D)
             or v_new.shape != k_new.shape or v_rows.shape != k_rows.shape
             or page_table.shape[0] != B or positions.shape != (B,)
             or active.shape != (B,) or n_slots % page_size):
@@ -201,6 +236,17 @@ def fused_paged_decode(
         raise ValueError("q, k_new and v_new must share a dtype")
     if v_rows.dtype != k_rows.dtype:
         raise ValueError("k_rows and v_rows dtypes differ")
+    if quant != (k_rows.dtype in (torch.int8, torch.uint8)) \
+            or (v_scale is None) == quant:
+        raise ValueError("an int8/int4 pool takes k_scale and v_scale; a "
+                         "native pool takes neither")
+    scale_ptrs = (None, None)
+    if quant:
+        for t, name in ((k_scale, "k_scale"), (v_scale, "v_scale")):
+            _build.check_cuda(t, name, torch.float32)
+            if t.shape != (n_slots, Hkv):
+                raise ValueError(f"{name} must be [n_slots, Hkv]")
+        scale_ptrs = (k_scale.data_ptr(), v_scale.data_ptr())
     _build.check_cuda(page_table, "page_table", torch.int32)
     pos32 = positions.to(torch.int32).contiguous()
     act32 = active.to(torch.int32).contiguous()
@@ -213,12 +259,21 @@ def fused_paged_decode(
     _build.launch(
         "aigw_fused_decode", q.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-        k_rows.data_ptr(), v_rows.data_ptr(), page_table.data_ptr(),
-        pos32.data_ptr(), act32.data_ptr(), out.data_ptr(),
-        B, P, H, Hkv, D, page_size, n_slots,
-        _build.dtype_code(q, "q"), _build.dtype_code(k_rows, "k_rows"))
-    fused_paged_decode.launches += 1
-    return out, k_rows, v_rows
+        k_rows.data_ptr(), v_rows.data_ptr(), *scale_ptrs,
+        page_table.data_ptr(), pos32.data_ptr(), act32.data_ptr(),
+        out.data_ptr(), B, P, H, Hkv, D, page_size, n_slots,
+        _build.dtype_code(q, "q"),
+        _build.dtype_code(k_rows, "k_rows", tuple(_build.DTYPE_CODE)))
+    if not quant:
+        fused_paged_decode.launches += 1
+        return out, k_rows, v_rows
+    if packed:
+        fused_paged_decode.launches_int4 += 1
+    else:
+        fused_paged_decode.launches_int8 += 1
+    return out, k_rows, v_rows, k_scale, v_scale
 
 
 fused_paged_decode.launches = 0
+fused_paged_decode.launches_int8 = 0
+fused_paged_decode.launches_int4 = 0

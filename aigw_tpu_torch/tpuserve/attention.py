@@ -8,7 +8,9 @@ two sub-chunk rungs); bursts larger than ``ragged_chunk_tokens x
 ragged_max_chunks`` split at budget boundaries with decode ticks
 interleaved. Attention runs K1 (``ops.paged_attention.
 ragged_prefill_attention``): the CUDA kernel on CUDA tensors, its plain
-version on CPU tensors.
+version on CPU tensors. An int8/int4 KV pool prefills through the
+windowed program instead (plain PyTorch, as in the reference, whose
+kernel has no quantized rung either).
 
 Both resolvers export what the replica actually runs, and why, on
 ``/state`` (``attention_backend_reason``, ``decode_attn_impl``,
@@ -27,6 +29,8 @@ from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
+
+from aigw_tpu_torch.models.kvq import is_quantized_dtype
 
 if TYPE_CHECKING:  # pragma: no cover
     from aigw_tpu_torch.tpuserve.engine import Engine
@@ -223,15 +227,24 @@ class RaggedPrefillBackend:
 
 def resolve_attention_backend(cfg, device: torch.device) -> tuple[str, str]:
     """The prefill half of the fallback matrix: (resolved backend, WHY).
+    ``prefill_ragged`` picks the attention from the pool it is given.
 
-    | requested     | device | resolved      | attention          |
-    |---------------|--------|---------------|--------------------|
-    | xla-bucketed  | any    | pallas-ragged | as below (bucketed not ported) |
-    | pallas-ragged | cuda   | pallas-ragged | K1 CUDA kernel     |
-    | pallas-ragged | cpu    | pallas-ragged | K1 plain PyTorch   |
+    | requested     | kv dtype  | device | resolved      | attention |
+    |---------------|-----------|--------|---------------|-----------|
+    | xla-bucketed  | any       | any    | pallas-ragged | as below (bucketed not ported) |
+    | pallas-ragged | native    | cuda   | pallas-ragged | K1 CUDA kernel |
+    | pallas-ragged | native    | cpu    | pallas-ragged | K1 plain PyTorch |
+    | pallas-ragged | int8/int4 | any    | pallas-ragged | windowed program, plain PyTorch (dequant at the read) |
     """
-    impl = ("CUDA kernel (single GPU)" if device.type == "cuda"
-            else "plain PyTorch version (device=cpu)")
+    if is_quantized_dtype(cfg.kv_cache_dtype):
+        impl = (
+            f"windowed program: {cfg.kv_cache_dtype} KV pages — the ragged "
+            "prefill kernel has no quantized-pool rung (nor has the "
+            "reference's), so the windowed program dequantizes prefix "
+            "pages at the read, in plain PyTorch on every device")
+    else:
+        impl = ("CUDA kernel (single GPU)" if device.type == "cuda"
+                else "plain PyTorch version (device=cpu)")
     if cfg.attention_backend != "pallas-ragged":
         return "pallas-ragged", (
             f"{cfg.attention_backend} is not ported yet (ROADMAP queue 1): "
@@ -244,23 +257,35 @@ def resolve_decode_backend(cfg, device: torch.device) -> tuple[str, str]:
     WHY), exported on /state as ``decode_attn_impl`` /
     ``decode_attn_reason``.
 
-    | requested               | device | resolved       |
-    |-------------------------|--------|----------------|
-    | fused (any pallas_attn) | cuda   | fused-cuda     |
-    | fused (any pallas_attn) | cpu    | fused-torch    |
-    | auto/chained+pallas_attn| cuda   | chained-cuda   |
-    | auto/chained+pallas_attn| cpu    | chained-torch  |
-    | auto                    | any    | fused-* (the gather rung is not ported) |
-    | chained                 | any    | NotImplementedError (gather rung) |
+    | requested               | kv dtype  | device | resolved       |
+    |-------------------------|-----------|--------|----------------|
+    | fused (any pallas_attn) | any       | cuda   | fused-cuda     |
+    | fused (any pallas_attn) | any       | cpu    | fused-torch    |
+    | auto/chained+pallas_attn| native    | cuda   | chained-cuda   |
+    | auto/chained+pallas_attn| native    | cpu    | chained-torch  |
+    | auto/chained+pallas_attn| int8/int4 | any    | fused-* (the chained kernel has no quantized rung) |
+    | auto                    | any       | any    | fused-* (the gather rung is not ported) |
+    | chained                 | any       | any    | NotImplementedError (gather rung) |
+
+    On a quantized pool the fused rung is K7, the fused kernel's
+    int8/int4 rung.
     """
     where = "cuda" if device.type == "cuda" else "torch"
     how = ("CUDA kernel" if device.type == "cuda"
            else "plain PyTorch version (device=cpu)")
+    quant = is_quantized_dtype(cfg.kv_cache_dtype)
+    pool = (f" ({cfg.kv_cache_dtype} pages dequantized in the kernel)"
+            if quant else "")
     req = cfg.decode_backend
     if req == "fused":
         return f"fused-{where}", (
             f"decode_backend=fused: RoPE + KV append + paged attention in "
-            f"one launch per layer, {how}")
+            f"one launch per layer{pool}, {how}")
+    if cfg.pallas_attn and quant:
+        return f"fused-{where}", (
+            f"pallas_attn requested with {cfg.kv_cache_dtype} KV pages: "
+            f"the chained kernel has no quantized rung, so the fused rung "
+            f"serves{pool}, {how}")
     if cfg.pallas_attn:
         return f"chained-{where}", (
             f"pallas_attn requested: RoPE and scatter, then the chained "
@@ -272,7 +297,7 @@ def resolve_decode_backend(cfg, device: torch.device) -> tuple[str, str]:
             "bucketed prefill)")
     return f"fused-{where}", (
         "decode_backend=auto: the gather rung is not ported yet (ROADMAP "
-        f"queue 1), so auto takes the fused rung, {how}")
+        f"queue 1), so auto takes the fused rung{pool}, {how}")
 
 
 def make_attention_backend(engine: "Engine") -> RaggedPrefillBackend:

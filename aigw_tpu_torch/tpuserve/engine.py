@@ -16,8 +16,9 @@
   tokens through each request's ``emit`` callback.
 
 Admission is FIFO; every admitted burst prefills through the ragged
-backend (``tpuserve/attention.py``). The KV pool carries one page past
-the allocator's range, the dump page (``models/kvq.py``).
+backend (``tpuserve/attention.py``). The KV pool (native, or int8/int4
+pages with their scales, ``models/kvq.py``) carries one page past the
+allocator's range, the dump page.
 
 Two defaults differ from the reference: ``enable_prefix_cache`` is
 False (True raises until the prefix-caching slice) and
@@ -124,7 +125,7 @@ class EngineConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r}: not ported yet "
                     f"(ROADMAP queue 1: {entry})")
-        kvq.compute_dtype(self.kv_cache_dtype)  # raises if not served
+        kvq.compute_dtype(self.kv_cache_dtype)  # raises if unknown
         if self.attention_backend not in BACKENDS:
             raise ValueError(f"attention_backend must be one of {BACKENDS} "
                              f"(got {self.attention_backend!r})")
@@ -300,8 +301,14 @@ class Engine:
                     model_cfg.n_kv_heads, model_cfg.head_dim)
         self.kv_cache = kvq.make_pool(kv_shape, cfg.kv_cache_dtype,
                                       self.device)
-        self.kv_page_bytes = (self.kv_cache[:, :, :cfg.page_size].numel()
-                              * self.kv_cache.element_size())
+        # device bytes of one page: packed elements plus, for a quantized
+        # pool, one float32 scale per token row and KV head for K and V
+        # (the reference's kv_page_bytes)
+        per_elt = kvq.bytes_per_kv_element(cfg.kv_cache_dtype)
+        scale = 4 if kvq.is_quantized_dtype(cfg.kv_cache_dtype) else 0
+        self.kv_page_bytes = int(
+            model_cfg.n_layers * 2 * cfg.page_size * model_cfg.n_kv_heads
+            * (model_cfg.head_dim * per_elt + scale))
         self.stats.kv_bytes_per_token = round(
             self.kv_page_bytes / cfg.page_size, 3)
         # per-slot decode state lives ON DEVICE between ticks; membership

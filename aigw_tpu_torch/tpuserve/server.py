@@ -27,6 +27,7 @@ from typing import Any
 import torch
 
 from aigw_tpu_torch.device import device_name, resolve_device
+from aigw_tpu_torch.models.quant import quantize_params
 from aigw_tpu_torch.models.registry import family_fns, get_model_spec
 from aigw_tpu_torch.schemas import openai as oai
 from aigw_tpu_torch.tpuserve.engine import (
@@ -60,7 +61,7 @@ class TPUServeServer:
     def __init__(self, model: str, engine_cfg: EngineConfig,
                  device: str | torch.device = "cuda",
                  host: str = "127.0.0.1", port: int = 8011,
-                 param_dtype: str = "bfloat16"):
+                 param_dtype: str = "bfloat16", quantize: str = ""):
         self.device = resolve_device(device)
         self.model_name = model
         spec = get_model_spec(model)
@@ -75,9 +76,16 @@ class TPUServeServer:
                 "checkpoints); register a weights='random' spec")
         logger.info("initializing random %s weights for %s on %s",
                     param_dtype, spec.name, self.device)
+        if quantize not in ("", "int8", "int4"):
+            raise ValueError(f"unknown quantization {quantize!r}")
         params = self.fns.init_params(0, self.model_cfg,
                                       _PARAM_DTYPES[param_dtype],
                                       self.device)
+        if quantize:
+            # on the device, one matrix at a time (consume=True)
+            params = quantize_params(params, consume=True, mode=quantize)
+            logger.info("weights quantized to %s (W%sA16)", quantize,
+                        quantize[-1])
         self.engine = Engine(params, self.model_cfg, engine_cfg,
                              eos_token_ids=(self.tokenizer.eos_id,),
                              fns=self.fns, device=self.device)

@@ -19,16 +19,30 @@ Phases (any failure exits non-zero):
    above zero. The burst is served again on the warm server, then a
    third time under ``torch.profiler`` (the ``serve`` JSON line: cold
    and warm wall times, the device's busy share while serving);
-4. every kernel against its plain PyTorch version on the card at the
-   served shapes (max |error| within the stated tolerance; K2's pool
-   bytes equal), timed with CUDA events (L2 flushed between launches)
-   beside the plain version and the kernel's roofline bound; one
-   full-width prefill + 8 decode steps of the model through the kernels
-   against the same through the plain versions;
-5. where one full-width decode step's time goes: its host wall time
-   against the device time ``torch.profiler`` sees, by kernel (the
-   ``decode_profile`` JSON line);
-6. the ``kernels`` JSON line, the card line, then the last line
+4. quantized serving on the same server: the same bf16 weights
+   quantized to int8 on the card (W8A16) over an int8 KV pool, fused
+   decode. The burst cold and warm (the ``serve_quant`` JSON line: wall
+   times, ``/state``'s KV byte gauges, launches per kernel): the W8A16
+   matmul (K6) and the fused decode's int8 rung (K7-int8) must launch,
+   K1 and K2 must not (quantized pools prefill through the windowed
+   program and decode through K7). Then two requests over an int4 KV
+   pool, which must launch K7-int4;
+5. every kernel against its plain PyTorch version on the card at the
+   served shapes (max |error| within the stated tolerance; K2's and
+   K7's pool bytes equal), timed with CUDA events (L2 flushed between
+   launches) beside the plain version and the kernel's roofline bound;
+   K6 at each of the five weight shapes a decode step multiplies (the
+   ``qmatmul_shapes`` JSON line), beside cuBLAS on the same weight
+   dequantized to bf16 ahead of time; full-width prefill + 8 decode
+   steps of the model through the kernels against the same through the
+   plain versions, for bf16, for W8A16 over an int8 pool and for W4A16
+   (whose matmuls are plain PyTorch in the reference too), the
+   quantized ones also against the bf16 model's greedy tokens;
+6. where one full-width decode step's time goes, bf16 and W8A16 over
+   int8 pages: its host wall time against the device time
+   ``torch.profiler`` sees, by kernel (the ``decode_profile`` and
+   ``decode_profile_quant`` JSON lines);
+7. the ``kernels`` JSON line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -50,7 +64,21 @@ import urllib.request
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 ATTN_TOL = 2e-2  # bf16 attention output, kernel vs plain (abs)
+# K7's bf16 attention, kernel vs plain, per element: one bf16 ulp of the
+# plain output (2**-7 relative) plus 2e-3, about 5% of a typical output
+# at the check's long-context slots (outputs there are ~0.04 in size)
+K7_RTOL, K7_ATOL = 2.0 ** -7, 2e-3
+# K6 with bf16 x, kernel vs plain: one bf16 ulp of the output (2**-7
+# relative; the two float32 sums, in different orders, may round to
+# neighbouring bf16 values) plus float32 summation order over K (1e-5 of
+# the output's scale)
+QMM_RTOL, QMM_ATOL = 2.0 ** -7, 1e-5
 SERVE_MAX_TOKENS = 64
+# the weight shapes one Llama-3-8B decode step multiplies (K, N), and
+# how many launches of each a step makes: wq/wo, wk/wv, gate/up, down
+# per layer (x 32), the lm_head once
+QMM_STEP = [((4096, 4096), 64), ((4096, 1024), 64), ((4096, 14336), 64),
+            ((14336, 4096), 32), ((4096, 128256), 1)]
 T0 = time.monotonic()
 
 
@@ -99,6 +127,34 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- launch counters -----------------------------------------------------------
+def counters() -> dict:
+    """kernel name → (wrapper, counter attribute): each wrapper adds one
+    to its counter where it launches its kernel, and nowhere else."""
+    from aigw_tpu_torch.ops import decode_fused, paged_attention, qmatmul
+
+    fused = decode_fused.fused_paged_decode
+    return {
+        "ragged_prefill_attention": (
+            paged_attention.ragged_prefill_attention, "launches"),
+        "fused_paged_decode": (fused, "launches"),
+        "paged_attention_decode_v2": (
+            paged_attention.paged_attention_decode_v2, "launches"),
+        "w8a16_matmul": (qmatmul.w8a16_matmul, "launches"),
+        "fused_paged_decode_int8": (fused, "launches_int8"),
+        "fused_paged_decode_int4": (fused, "launches_int4"),
+    }
+
+
+def reset_counts() -> None:
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters().items()}
 
 
 # -- phase 3: serving ---------------------------------------------------------
@@ -333,10 +389,153 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
     return rows
 
 
-def model_check(torch, params, cfg, dev: str = "cuda") -> dict:
+def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
+    """K6 at every weight shape a decode step multiplies (M = 8) and
+    K7's int8 and int4 rungs at K2's shapes, each against its plain
+    version; K6 also beside ``torch.matmul`` on the same weight
+    dequantized to bf16 ahead of time (cuBLAS, the library row)."""
+    from aigw_tpu_torch.models import kvq, llama, quant
+    from aigw_tpu_torch.ops import decode_fused, qmatmul
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(4321)
+    rows, shapes = [], []
+    M = 8
+    for (K, N), per_step in QMM_STEP:
+        w = torch.randn((K, N), generator=g, device=dev) / K ** 0.5
+        qp = quant.quantize_params({"w_up": w}, consume=True)
+        del w
+        q, sc = qp["w_up.q"], qp["w_up.scale"]
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        got = qmatmul.w8a16_matmul(x, q, sc)
+        want = qmatmul.w8a16_matmul_plain(x, q, sc)
+        err = (got.float() - want.float()).abs()
+        tol = QMM_RTOL * want.float().abs() \
+            + QMM_ATOL * want.float().abs().max()
+        if (err > tol).any():
+            raise AssertionError(f"K6 {K}x{N}: max error {err.max().item()}")
+        w_bf16 = llama._w(qp, "w_up")  # dequantized ahead of time
+        b_ms, b_by = bound(K * N + 4 * N + 2 * M * K + 2 * M * N,
+                           2 * M * K * N)
+        shapes.append(dict(
+            K=K, N=N, M=M, per_step=per_step, max_abs_err=err.max().item(),
+            ms=cuda_ms(lambda: qmatmul.w8a16_matmul(x, q, sc)),
+            plain_ms=cuda_ms(lambda: qmatmul.w8a16_matmul_plain(x, q, sc),
+                             iters=5),
+            library_ms=cuda_ms(lambda: torch.matmul(x, w_bf16)),
+            bound_ms=b_ms, bound_by=b_by))
+        del qp, q, sc, w_bf16, got, want
+        log(f"K6 {K}x{N}: {shapes[-1]['ms']:.4f} ms (bound "
+            f"{b_ms:.4f}, cuBLAS on bf16 {shapes[-1]['library_ms']:.4f}, "
+            f"plain {shapes[-1]['plain_ms']:.3f}), max err "
+            f"{shapes[-1]['max_abs_err']:.3g}")
+    print(json.dumps({"qmatmul_shapes": shapes}), flush=True)
+
+    def step_sum(key):
+        return sum(r[key] * r["per_step"] for r in shapes)
+
+    rows.append(dict(
+        name="w8a16_matmul", route="cuda",
+        source="aigw_tpu_torch/csrc/qmatmul.cu",
+        replaces="aigw_tpu/ops/pallas/qmatmul.py:91",
+        launches=launches["w8a16_matmul"],
+        max_abs_err=max(r["max_abs_err"] for r in shapes),
+        ms=step_sum("ms"), plain_ms=step_sum("plain_ms"),
+        bound_ms=step_sum("bound_ms"),
+        bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in shapes)
+                  else "operations"),
+        library_ms=step_sum("library_ms"),
+        per="one Llama-3-8B decode step at batch 8: 225 launches, the "
+            "per-shape medians of qmatmul_shapes times per_step"))
+
+    # K7: K2's shapes over int8 / int4 pools
+    H, Hkv, D, PS = 32, 8, 128, 128
+    B, P = 8, 16
+    n_pages = B * P + 1
+    kf = torch.randn((n_pages * PS, Hkv, D), generator=g, device=dev)
+    vf = torch.randn((n_pages * PS, Hkv, D), generator=g, device=dev)
+    perm = torch.randperm(n_pages - 1, generator=g, device=dev)
+    pt = perm[: B * P].reshape(B, P).to(torch.int32).contiguous()
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q, kn, vn = randn(B, H, D), randn(B, Hkv, D), randn(B, Hkv, D)
+    positions = torch.tensor([0, 126, 128, 256, 499, 999, 1534, 299],
+                             dtype=torch.int32, device=dev)
+    active = torch.tensor([True] * 7 + [False], device=dev)
+    tables = decode_fused.rope_tables(positions, D, 500000.0)
+    act = active.tolist()
+    pos_l = positions.tolist()
+    cached = sum(p for p, a in zip(pos_l, act) if a)
+    fresh = sum(1 for p, a in zip(pos_l, act) if (not a) or p % PS == 0)
+    for qdt in ("int8", "int4"):
+        kq, ks = kvq.quantize_rows(kf, qdt)
+        vq, vs = kvq.quantize_rows(vf, qdt)
+        a = [t.clone() for t in (kq, vq, ks, vs)]
+        b = [t.clone() for t in (kq, vq, ks, vs)]
+
+        def k7(a=a):
+            return decode_fused.fused_paged_decode(
+                q, kn, vn, a[0], a[1], pt, positions, active, a[2], a[3],
+                rope_theta=500000.0, page_size=PS, tables=tables)
+
+        def k7_plain(b=b):
+            return decode_fused.fused_paged_decode_plain(
+                q, kn, vn, b[0], b[1], pt, positions, active, b[2], b[3],
+                rope_theta=500000.0, page_size=PS, tables=tables)
+
+        out_k, out_p = k7()[0].float(), k7_plain()[0].float()
+        diff = (out_k - out_p).abs()
+        err = diff.max().item()
+        if (diff > K7_RTOL * out_p.abs() + K7_ATOL).any():
+            raise AssertionError(f"K7-{qdt} max error {err} over rtol "
+                                 f"{K7_RTOL} + atol {K7_ATOL}")
+        # typical output size at the long-context slots (positions 999,
+        # 1534), which the absolute term is read against
+        long_scale = out_p[5:7].abs().mean().item()
+        # appended q bytes and scales: equal, or (FMA contraction in the
+        # RoPE) within one step of q and rtol 1e-5 on the scale, counted
+        dq = [(kvq.int_values(x).int() - kvq.int_values(y).int()).abs()
+              for x, y in zip(a[:2], b[:2])]
+        n_q = sum(int((d > 0).sum()) for d in dq)
+        if max(int(d.max()) for d in dq) > 1:
+            raise AssertionError(f"K7-{qdt} q bytes differ by more than 1")
+        for x, y in zip(a[2:], b[2:]):
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=0)
+        n_s = sum(int((x != y).sum()) for x, y in zip(a[2:], b[2:]))
+        RW = D // 2 if qdt == "int4" else D
+        nbytes = (2 * (2 * B * H * D + 2 * B * Hkv * D)  # q, out, k/v new
+                  + 2 * B * D * 4  # cos/sin tables
+                  + 2 * cached * Hkv * (RW + 4)  # cached rows + scales
+                  + 2 * (sum(act) + fresh * (PS - 1)) * Hkv * (RW + 4)
+                  + 4 * B * (P + 2))
+        b_ms, b_by = bound(nbytes, 4 * (cached + sum(act)) * H * D)
+        name = f"fused_paged_decode_{qdt}"
+        rows.append(dict(
+            name=name, route="cuda",
+            source="aigw_tpu_torch/csrc/decode_fused.cu",
+            replaces="aigw_tpu/ops/pallas/decode_fused.py:268",
+            launches=launches[name], max_abs_err=err,
+            ms=cuda_ms(k7), plain_ms=cuda_ms(k7_plain, iters=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            q_bytes_off_by_one=n_q, scales_differ=n_s,
+            out_mean_abs_long=long_scale))
+        log(f"K7-{qdt} ok: max err {err:.3g} (mean |out| at the long "
+            f"slots {long_scale:.3g}), q bytes differing {n_q}, "
+            f"scales differing {n_s}, {rows[-1]['ms']:.4f} ms (bound "
+            f"{b_ms:.4f} ms, plain {rows[-1]['plain_ms']:.3f} ms)")
+    return rows
+
+
+def model_check(torch, params, cfg, dev: str = "cuda",
+                kv_dtype: str = "bfloat16", ref_params=None) -> dict:
     """One full-width prefill + 8 decode steps, kernels vs plain versions
-    (teacher-forced on the kernel path's greedy tokens)."""
-    from aigw_tpu_torch.models import llama
+    (teacher-forced on the kernel path's greedy tokens), over a
+    ``kv_dtype`` pool. With ``ref_params`` (the bf16 model), also the
+    share of greedy tokens the bf16 model (kernel path, bf16 pool) picks
+    the same along those tokens."""
+    from aigw_tpu_torch.models import kvq, llama
 
     PS, P = 128, 16
     lens = [700, 45, 1000, 3]
@@ -356,19 +555,24 @@ def model_check(torch, params, cfg, dev: str = "cuda") -> dict:
         o += n
     pt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
     shape = (cfg.n_layers, 2, (B * P + 1) * PS, cfg.n_kv_heads, cfg.head_dim)
-    dtype = next(iter(params.values())).dtype
-    kv_k = torch.zeros(shape, dtype=dtype, device=dev)
-    kv_p = torch.zeros(shape, dtype=dtype, device=dev)
+    kv_k = kvq.make_pool(shape, kv_dtype, dev)
+    kv_p = kvq.make_pool(shape, kv_dtype, dev)
     lk, kv_k = llama.prefill_ragged(params, cfg, tokens, row_seq, positions,
                                     last, kv_k, pt, PS)
     lp, kv_p = llama.prefill_ragged(params, cfg, tokens, row_seq, positions,
                                     last, kv_p, pt, PS, plain=True)
-    errs, gaps, mism = [], [], 0
+    if ref_params is not None:
+        kv_r = kvq.make_pool(shape, "bfloat16", dev)
+        lr, kv_r = llama.prefill_ragged(ref_params, cfg, tokens, row_seq,
+                                        positions, last, kv_r, pt, PS)
+    errs, gaps, mism, agree, picks = [], [], 0, 0, 0
 
-    def compare(a, b):
-        nonlocal mism
+    def compare(a, b, ref=None):
+        nonlocal mism, agree, picks
         if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
             raise AssertionError("non-finite logits")
+        if a.shape != (B, cfg.vocab_size):
+            raise AssertionError(f"logits of shape {tuple(a.shape)}")
         errs.append((a - b).abs().max().item())
         top2 = torch.topk(b, 2, dim=-1).values
         gap = (top2[:, 0] - top2[:, 1])
@@ -382,8 +586,11 @@ def model_check(torch, params, cfg, dev: str = "cuda") -> dict:
                 raise AssertionError(f"greedy token differs at a top-2 gap "
                                      f"of {worst}")
             mism += int(differ.sum())
+        if ref is not None:
+            agree += int((a.argmax(-1) == ref.argmax(-1)).sum())
+            picks += B
 
-    compare(lk, lp)
+    compare(lk, lp, lr if ref_params is not None else None)
     tok = lk.argmax(-1).to(torch.int32)
     pos = torch.tensor(lens, dtype=torch.int32, device=dev)
     active = torch.ones((B,), dtype=torch.bool, device=dev)
@@ -392,15 +599,22 @@ def model_check(torch, params, cfg, dev: str = "cuda") -> dict:
                                      active)
         dp, kv_p = llama.decode_step(params, cfg, tok, pos, kv_p, pt, PS,
                                      active, plain=True)
-        compare(dk, dp)
+        dr = None
+        if ref_params is not None:
+            dr, kv_r = llama.decode_step(ref_params, cfg, tok, pos, kv_r, pt,
+                                         PS, active)
+        compare(dk, dp, dr)
         tok = dk.argmax(-1).to(torch.int32)
         pos = pos + 1
     scale = lp.abs().max().item()
     if max(errs) > 0.1 * scale:
         raise AssertionError(f"logits differ by {max(errs)} "
                              f"(logit scale {scale})")
-    return {"max_abs_logit_err": max(errs), "logit_scale": scale,
-            "greedy_mismatches": mism, "steps": 9}
+    out = {"max_abs_logit_err": max(errs), "logit_scale": scale,
+           "greedy_mismatches": mism, "steps": 9, "kv_dtype": kv_dtype}
+    if ref_params is not None:
+        out["greedy_agree_with_bf16"] = agree / picks
+    return out
 
 
 def serve_profile(torch, port: int, reqs, warm_s: float) -> dict:
@@ -426,17 +640,19 @@ def serve_profile(torch, port: int, reqs, warm_s: float) -> dict:
             "warm_device_busy": device_ms / (warm_s * 1e3)}
 
 
-def decode_profile(torch, params, cfg, dev: str = "cuda") -> dict:
+def decode_profile(torch, params, cfg, dev: str = "cuda",
+                   kv_dtype: str = "bfloat16") -> dict:
     """Where one full-width decode step's time goes: host wall clock of a
     step (synchronized) against the device time torch.profiler sees, by
-    kernel. Batch 8 at 1000 cached tokens each, fused rung."""
+    kernel. Batch 8 at 1000 cached tokens each, fused rung, a
+    ``kv_dtype`` pool."""
     from torch.profiler import ProfilerActivity, profile
 
-    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.models import kvq, llama
 
     B, PS, P, ctx, steps = 8, 128, 16, 1000, 5
-    kv = torch.zeros((cfg.n_layers, 2, (B * P + 1) * PS, cfg.n_kv_heads,
-                      cfg.head_dim), dtype=torch.bfloat16, device=dev)
+    kv = kvq.make_pool((cfg.n_layers, 2, (B * P + 1) * PS, cfg.n_kv_heads,
+                        cfg.head_dim), kv_dtype, dev)
     pt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
     tok = torch.zeros((B,), dtype=torch.int32, device=dev)
     pos = torch.full((B,), ctx, dtype=torch.int32, device=dev)
@@ -468,6 +684,7 @@ def decode_profile(torch, params, cfg, dev: str = "cuda") -> dict:
         raise AssertionError("the profiler saw no device time")
     top = sorted(by_kernel.items(), key=lambda item: -item[1])[:6]
     return {"batch": B, "cached_tokens": ctx, "layers": cfg.n_layers,
+            "kv_dtype": kv_dtype,
             "wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy": device_ms / wall_ms,
             "top_kernels_ms": {k: us / 1e3 / steps for k, us in top}}
@@ -484,13 +701,9 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from aigw_tpu_torch.models import llama
+        from aigw_tpu_torch.models import llama, quant
         from aigw_tpu_torch.models.registry import ModelSpec, register_model
-        from aigw_tpu_torch.ops import (
-            _build,
-            decode_fused,
-            paged_attention,
-        )
+        from aigw_tpu_torch.ops import _build
         from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
         from aigw_tpu_torch.tpuserve.server import TPUServeServer
     except ImportError as e:
@@ -523,23 +736,31 @@ def main() -> int:
     log(f"server up in {time.monotonic() - t:.1f}s: "
         f"{sum(p.numel() for p in srv.engine.params.values()) / 1e9:.2f}B "
         f"params, decode {srv.engine.decode_attn_impl}")
-    counted = (paged_attention.ragged_prefill_attention,
-               decode_fused.fused_paged_decode,
-               paged_attention.paged_attention_decode_v2)
+
+    def restart(params, **engine_kw):
+        srv.engine.stop()
+        srv.engine = Engine(
+            params, llama.LLAMA3_8B,
+            EngineConfig(max_batch_size=8, max_seq_len=2048, page_size=128,
+                         attention_backend="pallas-ragged", **engine_kw),
+            eos_token_ids=(srv.tokenizer.eos_id,), device="cuda")
+        srv.engine.start()
+
     try:
         reqs = _requests(np.random.default_rng(0))
-        for fn in counted:
-            fn.launches = 0
+        reset_counts()
         t = time.monotonic()
         results = serve_phase(srv.port, reqs)
         cold_s = time.monotonic() - t
-        launches = {fn.__name__: fn.launches for fn in counted}
+        served = read_counts()
+        launches = {k: served[k] for k in ("ragged_prefill_attention",
+                                           "fused_paged_decode")}
         log(f"served {len(reqs)} requests in {cold_s:.1f}s: "
-            f"{[r['n'] for r in results]} tokens; launches {launches}")
+            f"{[r['n'] for r in results]} tokens; launches {served}")
         if launches["ragged_prefill_attention"] <= 0 \
                 or launches["fused_paged_decode"] <= 0:
             raise AssertionError(f"kernels not on the served path: "
-                                 f"{launches}")
+                                 f"{served}")
         state = json.loads(_http(srv.port, "/state")[2])
         log(f"/state: decode {state['decode_attn_impl']}, prefill "
             f"{state['attention_backend_reason']}, padded_frac "
@@ -562,37 +783,113 @@ def main() -> int:
 
         # the chained rung: restart the engine with pallas_attn
         params = srv.engine.params
-        srv.engine.stop()
-        srv.engine = Engine(
-            params, llama.LLAMA3_8B,
-            EngineConfig(max_batch_size=8, max_seq_len=2048,
-                         page_size=128, attention_backend="pallas-ragged",
-                         pallas_attn=True),
-            eos_token_ids=(srv.tokenizer.eos_id,), device="cuda")
-        srv.engine.start()
-        for fn in counted:
-            fn.launches = 0
+        restart(params, pallas_attn=True)
+        reset_counts()
         serve_phase(srv.port, reqs[:2])
-        k3 = paged_attention.paged_attention_decode_v2.launches
+        k3 = read_counts()["paged_attention_decode_v2"]
         log(f"chained rung ({srv.engine.decode_attn_impl}): K3 launches {k3}")
         if k3 <= 0:
             raise AssertionError("K3 not on the chained served path")
         launches["paged_attention_decode_v2"] = k3
+
+        # 4. quantized serving: W8A16 weights over int8 KV pages; the
+        # bf16 copy stays for the checks below (consume=False)
+        t = time.monotonic()
+        qparams = quant.quantize_params(params, consume=False, mode="int8")
+        torch.cuda.synchronize()
+        q_gb = sum(v.numel() * v.element_size()
+                   for v in qparams.values()) / 1e9
+        log(f"weights quantized to int8 on the card in "
+            f"{time.monotonic() - t:.1f}s ({q_gb:.2f} GB)")
+        restart(qparams, decode_backend="fused", kv_cache_dtype="int8")
+        reset_counts()
+        t = time.monotonic()
+        results_q = serve_phase(srv.port, reqs)
+        cold_q = time.monotonic() - t
+        served_q = read_counts()
+        log(f"quantized: served {len(reqs)} requests in {cold_q:.1f}s "
+            f"({srv.engine.decode_attn_impl}); launches {served_q}")
+        if served_q["w8a16_matmul"] <= 0 \
+                or served_q["fused_paged_decode_int8"] <= 0:
+            raise AssertionError(f"K6 / K7-int8 not on the quantized "
+                                 f"served path: {served_q}")
+        if served_q["ragged_prefill_attention"] \
+                or served_q["fused_paged_decode"]:
+            raise AssertionError(f"K1 / K2 launched on a quantized pool: "
+                                 f"{served_q}")
+        state_q = json.loads(_http(srv.port, "/state")[2])
+        t = time.monotonic()
+        serve_phase(srv.port, reqs)
+        warm_q = time.monotonic() - t
+        warm_sq = json.loads(_http(srv.port, "/state")[2])
+        print(json.dumps({"serve_quant": {
+            "weights": "int8", "kv_cache_dtype": state_q["kv_cache_dtype"],
+            "requests": len(reqs),
+            "new_tokens": sum(r["n"] for r in results_q),
+            "cold_s": cold_q, "warm_s": warm_q,
+            "warm_prefill_ms": warm_sq["prefill_ms"] - state_q["prefill_ms"],
+            "warm_decode_steps": warm_sq["decode_steps"]
+            - state_q["decode_steps"],
+            "kv_bytes_per_token": state_q["kv_bytes_per_token"],
+            "kv_pool_bytes": state_q["kv_pool_bytes"],
+            "kv_bytes_per_token_bf16": state["kv_bytes_per_token"],
+            "kv_pool_bytes_bf16": state["kv_pool_bytes"],
+            "launches": served_q}}), flush=True)
+        launches["w8a16_matmul"] = served_q["w8a16_matmul"]
+        launches["fused_paged_decode_int8"] = \
+            served_q["fused_paged_decode_int8"]
+
+        # the same weights over int4 KV pages, two requests
+        restart(qparams, decode_backend="fused", kv_cache_dtype="int4")
+        reset_counts()
+        t = time.monotonic()
+        serve_phase(srv.port, reqs[:2])
+        served_4 = read_counts()
+        state_4 = json.loads(_http(srv.port, "/state")[2])
+        print(json.dumps({"serve_int4_kv": {
+            "requests": 2, "wall_s": time.monotonic() - t,
+            "kv_bytes_per_token": state_4["kv_bytes_per_token"],
+            "kv_pool_bytes": state_4["kv_pool_bytes"],
+            "launches": served_4}}), flush=True)
+        if served_4["fused_paged_decode_int4"] <= 0:
+            raise AssertionError(f"K7-int4 not on the int4 served path: "
+                                 f"{served_4}")
+        launches["fused_paged_decode_int4"] = \
+            served_4["fused_paged_decode_int4"]
     finally:
         srv.stop()
 
-    # 4. kernels against their plain versions; the model end to end
+    # 5. kernels against their plain versions; the model end to end
     rows = kernel_checks(torch, launches)
-    t = time.monotonic()
-    mc = model_check(torch, params, llama.LLAMA3_8B)
-    log(f"full-width model, kernels vs plain: {mc} "
-        f"({time.monotonic() - t:.1f}s)")
+    rows += quant_kernel_checks(torch, launches)
+    checks = {}
+    for name, p_, kv_dtype, ref in (
+            ("bf16", params, "bfloat16", None),
+            ("w8a16_kv_int8", qparams, "int8", params),
+            ("w4a16", None, "bfloat16", params)):
+        t = time.monotonic()
+        if p_ is None:  # W4A16: plain PyTorch matmuls, as the reference's
+            p_ = quant.quantize_params(params, consume=False, mode="int4")
+        checks[name] = model_check(torch, p_, llama.LLAMA3_8B,
+                                   kv_dtype=kv_dtype, ref_params=ref)
+        del p_
+        log(f"full-width model {name}, kernels vs plain: {checks[name]} "
+            f"({time.monotonic() - t:.1f}s)")
+    print(json.dumps({"model_check": checks}), flush=True)
+
+    # 6. where a decode step's time goes
     prof = decode_profile(torch, params, llama.LLAMA3_8B)
     log(f"decode step at full width: {prof['wall_ms']:.2f} ms wall, "
         f"{prof['device_ms']:.2f} ms on the device "
         f"(busy {prof['device_busy']:.2f})")
     print(json.dumps({"decode_profile": prof}), flush=True)
-    del params
+    prof_q = decode_profile(torch, qparams, llama.LLAMA3_8B,
+                            kv_dtype="int8")
+    log(f"W8A16 + int8 KV decode step: {prof_q['wall_ms']:.2f} ms wall, "
+        f"{prof_q['device_ms']:.2f} ms on the device "
+        f"(busy {prof_q['device_busy']:.2f})")
+    print(json.dumps({"decode_profile_quant": prof_q}), flush=True)
+    del params, qparams
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": rows}), flush=True)

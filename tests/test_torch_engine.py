@@ -15,13 +15,17 @@ of the reference's own equivalence tests), after which the stream is
 not compared further.
 """
 
+import json
 import os
+import subprocess
+import sys
 import threading
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from aigw_tpu.models import llama as jllama
 from aigw_tpu.tpuserve import engine as jengine
@@ -104,22 +108,25 @@ def _port_streams(weights, **overrides):
     return eng, _run(eng, tengine.GenRequest, TSampling, _prompts())
 
 
-def _top2_gap(jp, tokens):
+def _top2_gap(jp, tokens, mcfg=jllama.TINY, kv_dtype="float32"):
     """Top-2 logit gap of the reference model after ``tokens``."""
+    from aigw_tpu.models import kvq as jkvq
+
     S = 1 << max(3, (len(tokens) - 1).bit_length())
     toks = np.zeros((1, S), np.int32)
     toks[0, :len(tokens)] = tokens
-    pool = jnp.zeros((jllama.TINY.n_layers, 2, S, jllama.TINY.n_kv_heads,
-                      jllama.TINY.head_dim), jnp.float32)
+    pool = jkvq.make_pool((mcfg.n_layers, 2, S, mcfg.n_kv_heads,
+                           mcfg.head_dim), kv_dtype)
     logits, _ = jllama.prefill(
-        jp, jllama.TINY, jnp.asarray(toks),
+        jp, mcfg, jnp.asarray(toks),
         jnp.asarray([len(tokens)], jnp.int32), pool,
         jnp.arange(S // 8, dtype=jnp.int32)[None], 8)
     top = np.sort(np.asarray(logits[0]))[-2:]
     return float(top[1] - top[0])
 
 
-def _assert_streams_match(got, want, weights):
+def _assert_streams_match(got, want, weights, mcfg=jllama.TINY,
+                          kv_dtype="float32"):
     jp, _ = weights
     for i, (g, w) in enumerate(zip(got, want)):
         if g == w:
@@ -127,7 +134,8 @@ def _assert_streams_match(got, want, weights):
         j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b),
                  min(len(g), len(w)))
         greedy = REQUESTS[i][2].get("temperature", 1.0) <= 0.0
-        gap = _top2_gap(jp, _prompts()[i] + w[:j]) if greedy else None
+        gap = (_top2_gap(jp, _prompts()[i] + w[:j], mcfg, kv_dtype)
+               if greedy else None)
         assert greedy and gap < TIE_GAP, (
             f"stream {i} diverges at token {j} (greedy={greedy}, top-2 "
             f"gap={gap}):\n port {g}\n  ref {w}")
@@ -246,7 +254,7 @@ def test_engine_request_filling_max_seq_len(weights, rung):
 def test_engine_config_refuses_unported_knobs():
     for kw in (dict(enable_prefix_cache=True), dict(spec_tokens=2),
                dict(constrained_decoding=True), dict(logprobs_topk=2),
-               dict(kv_cache_dtype="int8"), dict(tenant_slot_cap=1)):
+               dict(kv_host_bytes=1 << 20), dict(tenant_slot_cap=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tengine.EngineConfig(**kw)
     with pytest.raises(NotImplementedError, match="gather"):
@@ -266,3 +274,117 @@ def test_engine_config_defaults_match_reference():
         tengine.EngineConfig)}
     differ = {k for k in port if port[k] != ref[k]}
     assert differ == set(tengine.DEFAULTS_DIFFER)
+
+
+# -- quantized serving ---------------------------------------------------------
+# 128-aligned widths so the W8A16 decode matmuls reach K6 (the reference's
+# interpret-mode Pallas kernel, the port's plain version)
+QJ = jllama.LlamaConfig(vocab_size=512, dim=128, n_layers=2, n_heads=4,
+                        n_kv_heads=2, ffn_dim=256, max_seq_len=256,
+                        rope_theta=10000.0)
+QT = tllama.LlamaConfig(vocab_size=512, dim=128, n_layers=2, n_heads=4,
+                        n_kv_heads=2, ffn_dim=256, max_seq_len=256,
+                        rope_theta=10000.0)
+
+
+def _reference_streams_quantized(wmode: str, qdt: str) -> dict:
+    """The reference Engine's streams and KV byte gauges for the
+    quantized case (run by the test below in a subprocess)."""
+    from aigw_tpu.models import quant as jquant
+
+    jp = jllama.init_params(jax.random.PRNGKey(0), QJ, dtype=jnp.float32)
+    if wmode:
+        jp = jquant.quantize_params(jp, mode=wmode)
+    eng = jengine.Engine(jp, QJ, jengine.EngineConfig(
+        enable_prefix_cache=False, **{**CFG, "kv_cache_dtype": qdt}),
+        eos_token_ids=EOS)
+    streams = _run(eng, jengine.GenRequest, JSampling, _prompts())
+    return {"impl": eng.decode_attn_impl, "streams": streams,
+            "kv_page_bytes": eng.kv_page_bytes,
+            "kv_bytes_per_token": eng.stats.kv_bytes_per_token,
+            "kv_quant_bits": eng.stats.kv_quant_bits,
+            "kv_pool_bytes": eng.stats.kv_pool_bytes}
+
+
+@pytest.mark.parametrize("wmode,qdt", [("int8", "int8"), ("int4", "int4")],
+                         ids=["w8_kv8", "w4_kv4"])
+def test_engine_streams_match_reference_quantized(wmode, qdt):
+    """W8A16 / W4A16 weights over int8 / int4 KV pages: the reference
+    Engine (windowed prefill, ``fused-xla`` decode with in-pass
+    quantization, K6's Pallas kernel in interpret mode) against the
+    port's (windowed prefill, K6's and K7's plain versions); identical
+    streams, seeded draws included, greedy tie-aware.
+
+    Quantized weights put bf16 values in the forward pass (the
+    dequantized operand, the embedding rows), and the reference rounds
+    them to bf16 as its source says only when XLA's
+    ``--xla_allow_excess_precision`` is off: with the default, its jitted
+    programs keep some of them in float32 and its logits move by ~0.03
+    from its own eager functions (ROADMAP §3). So the reference Engine
+    runs in a subprocess with that flag off."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(os.path.dirname(__file__))!r})\n"
+        "import jax\n"
+        "jax.config.update('jax_platforms', 'cpu')\n"
+        "import test_torch_engine as te\n"
+        f"print(json.dumps(te._reference_streams_quantized({wmode!r}, "
+        f"{qdt!r})))\n")
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_allow_excess_precision=false"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert ref["impl"] == "fused-xla"
+    from aigw_tpu.models import quant as jquant
+
+    jp = jquant.quantize_params(
+        jllama.init_params(jax.random.PRNGKey(0), QJ, dtype=jnp.float32),
+        mode=wmode)
+    weights = (jp, convert.params_from_numpy(
+        {k: np.asarray(v) for k, v in jp.items()}, device="cpu"))
+    teng = tengine.Engine(weights[1], QT, tengine.EngineConfig(
+        **{**CFG, "kv_cache_dtype": qdt}), eos_token_ids=EOS, device="cpu")
+    assert teng.decode_attn_impl == "fused-torch"
+    assert teng.attn_reason.startswith("windowed program")
+    got = _run(teng, tengine.GenRequest, TSampling, _prompts())
+    _assert_streams_match(got, ref["streams"], weights, QJ, qdt)
+    # the /state byte math: packed elements plus the scales
+    assert teng.kv_page_bytes == ref["kv_page_bytes"]
+    for key in ("kv_bytes_per_token", "kv_quant_bits", "kv_pool_bytes"):
+        assert getattr(teng.stats, key) == ref[key], key
+
+
+@pytest.mark.parametrize("qdt", ["int8", "int4"])
+def test_engine_streams_match_reference_quantized_pool(weights, qdt):
+    """float32 weights over int8 / int4 KV pages, against the reference
+    Engine in this process (no bf16 value in the forward pass, so
+    excess precision changes nothing): identical streams."""
+    jp, tp = weights
+    cfg = {**CFG, "kv_cache_dtype": qdt}
+    jeng = jengine.Engine(jp, jllama.TINY, jengine.EngineConfig(
+        enable_prefix_cache=False, **cfg), eos_token_ids=EOS)
+    want = _run(jeng, jengine.GenRequest, JSampling, _prompts())
+    teng = tengine.Engine(tp, tllama.TINY, tengine.EngineConfig(**cfg),
+                          eos_token_ids=EOS, device="cpu")
+    got = _run(teng, tengine.GenRequest, TSampling, _prompts())
+    _assert_streams_match(got, want, weights, jllama.TINY, qdt)
+
+
+def test_quantized_pool_resolves_to_fused_and_windowed():
+    """The fallback matrix's quantized rows: the chained kernel and the
+    ragged prefill kernel have no quantized rung."""
+    from aigw_tpu_torch.tpuserve.attention import (
+        resolve_attention_backend,
+        resolve_decode_backend,
+    )
+
+    cpu = torch.device("cpu")
+    cfg = tengine.EngineConfig(kv_cache_dtype="int4", pallas_attn=True)
+    impl, why = resolve_decode_backend(cfg, cpu)
+    assert impl == "fused-torch" and "no quantized rung" in why
+    _, why = resolve_attention_backend(
+        tengine.EngineConfig(kv_cache_dtype="int8",
+                             attention_backend="pallas-ragged"), cpu)
+    assert "windowed" in why and "plain PyTorch" in why

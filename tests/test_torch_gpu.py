@@ -128,3 +128,93 @@ def test_cuda_tensor_never_falls_back(cuda):
     with pytest.raises(ValueError):
         paged_attention.paged_attention_decode_v2(q, pool, pool, pt, lens,
                                                   page_size=16)
+
+
+# -- K6 W8A16 matmul ---------------------------------------------------------
+QMM_SHAPES = [  # (M, K, N): Llama-3-8B decode and prefill-rung shapes
+    (8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336), (8, 14336, 4096),
+    (8, 4096, 128256), (1, 128, 128), (64, 256, 384), (37, 512, 1536),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", QMM_SHAPES)
+def test_w8a16_matmul_kernel(cuda, shape, dtype):
+    """Kernel against plain: float32 x within 1e-5 of the output's scale
+    (summation order over K up to 14336); bfloat16 x within one bf16 ulp
+    of the output (2**-7 relative: the two float32 sums may round to
+    neighbouring bf16 values) plus that."""
+    from aigw_tpu_torch.ops import qmatmul
+
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    q = torch.randint(-127, 128, (K, N), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand((1, N), generator=g, device=cuda) * 0.02
+    got = qmatmul.w8a16_matmul(x, q, s)
+    want = qmatmul.w8a16_matmul_plain(x, q, s)
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5 * scale)
+
+
+# -- K7 fused decode, int8/int4 rung ---------------------------------------
+@pytest.mark.parametrize("qdt", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_fused_decode_quantized_kernel(cuda, geom, dtype, qdt):
+    """Attention within the dtype's tolerance; the pools (q bytes and
+    scales) equal the plain version's byte for byte: appended rows,
+    fresh-page zeroing and the dump page included."""
+    from aigw_tpu_torch.models import kvq
+
+    H, Hkv, D, ps = geom
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, P = 6, 8
+    n_slots = (B * P + 1) * ps
+    kf = torch.randn((n_slots, Hkv, D), generator=g, device=cuda)
+    vf = torch.randn((n_slots, Hkv, D), generator=g, device=cuda)
+    kq, ks = kvq.quantize_rows(kf, qdt)
+    vq, vs = kvq.quantize_rows(vf, qdt)
+    pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
+        B, P).to(torch.int32)
+    positions = torch.tensor([0, 5, ps, 2 * ps + 1, 3 * ps - 1, 7],
+                             dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, True, True, True, True, False],
+                          device=cuda)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    q, kn, vn = r(B, H, D), r(B, Hkv, D), r(B, Hkv, D)
+    a = [t.clone() for t in (kq, vq, ks, vs)]
+    b = [t.clone() for t in (kq, vq, ks, vs)]
+    got = decode_fused.fused_paged_decode(
+        q, kn, vn, a[0], a[1], pt, positions, active, a[2], a[3],
+        rope_theta=500000.0, page_size=ps)
+    want = decode_fused.fused_paged_decode_plain(
+        q, kn, vn, b[0], b[1], pt, positions, active, b[2], b[3],
+        rope_theta=500000.0, page_size=ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0].float(), want[0].float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert not got[0][5].any()  # the inactive slot attends nothing
+
+
+def test_quantized_pool_needs_its_scales(cuda):
+    """A CUDA call on an int8 pool without scales raises, never runs a
+    plain version."""
+    q = torch.zeros(2, 4, 16, device=cuda)
+    kv_new = torch.zeros(2, 2, 16, device=cuda)
+    pool = torch.zeros(32, 2, 16, dtype=torch.int8, device=cuda)
+    pt = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="scale"):
+        decode_fused.fused_paged_decode(
+            q, kv_new, kv_new, pool, pool, pt, pos, pos > 0,
+            rope_theta=1e4, page_size=16)

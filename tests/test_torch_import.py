@@ -57,6 +57,21 @@ def test_every_module_imports_with_jax_blocked():
     assert proc.stdout.startswith("ok")
 
 
+def test_quantized_serving_modules_are_covered():
+    """The quantized-serving modules and K6's source are in the scans
+    above, and importing a kernel module builds nothing."""
+    for m in ("aigw_tpu_torch.models.quant", "aigw_tpu_torch.models.kvq",
+              "aigw_tpu_torch.ops.qmatmul", "aigw_tpu_torch.ops.decode_fused"):
+        assert m in MODULES, m
+    assert (PKG / "csrc" / "qmatmul.cu").exists()
+    from aigw_tpu_torch.ops import _build, qmatmul
+
+    assert "aigw_w8a16_matmul" in _build.SIGNATURES
+    assert isinstance(qmatmul.w8a16_matmul.launches, int)
+    if not torch.cuda.is_available():
+        assert _build.library.cache_info().currsize == 0  # nothing built
+
+
 def test_cuda_request_without_cuda_raises():
     from aigw_tpu_torch.device import resolve_device
 

@@ -236,3 +236,104 @@ def test_fused_decode_page_semantics():
     touched[mid, 5] = True
     np.testing.assert_array_equal(
         pages[~touched], kp0.reshape(n_pages, ps, 2, 16)[~touched])
+
+
+# -- K7 fused decode, int8/int4 rung -----------------------------------------
+def _fused_quant_case(B, H, Hkv, D, ps, n_pages, P, positions, active, qdt,
+                      dtype="float32", seed=0):
+    """The reference Pallas kernel (interpret mode) and the port on one
+    seeded case over an int8/int4 pool quantized by the reference's own
+    ``kvq.quantize_rows``; returns (reference outputs, port outputs,
+    page table, active slots' append slots), pools as integer values."""
+    from aigw_tpu.models import kvq as jkvq
+    from aigw_tpu_torch.models import convert
+
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        return rng.standard_normal(shape, np.float32).astype(_ML[dtype])
+
+    q, kn, vn = draw((B, H, D)), draw((B, Hkv, D)), draw((B, Hkv, D))
+    kf = rng.standard_normal((n_pages * ps, Hkv, D), np.float32)
+    vf = rng.standard_normal((n_pages * ps, Hkv, D), np.float32)
+    kq, ks = jkvq.quantize_rows(jnp.asarray(kf), qdt)
+    vq, vs = jkvq.quantize_rows(jnp.asarray(vf), qdt)
+    pt = rng.permutation(n_pages - 1)[: B * P].reshape(B, P).astype(np.int32)
+    pos = np.asarray(positions, np.int32)
+    act = np.asarray(active, bool)
+    ref = jax_fused(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), kq, vq,
+        jnp.asarray(pt), jnp.asarray(pos), jnp.asarray(act), ks, vs,
+        rope_theta=THETA, page_size=ps, interpret=True)
+    kp = convert.pool_from_numpy({"q": kq, "scale": ks}, "cpu")
+    vp = convert.pool_from_numpy({"q": vq, "scale": vs}, "cpu")
+    cos, sin = jax.jit(jax_rope_tables, static_argnums=(1, 2))(
+        jnp.asarray(pos), D, THETA)
+
+    def tt(a):
+        return _t(np.asarray(a, np.float32)).to(_TD[dtype])
+
+    got = fused_paged_decode(
+        tt(q), tt(kn), tt(vn), kp["q"], vp["q"], _t(pt), _t(pos), _t(act),
+        kp["scale"], vp["scale"], rope_theta=THETA, page_size=ps,
+        tables=(_t(np.asarray(cos)), _t(np.asarray(sin))))
+    assert got[1] is kp["q"] and got[3] is kp["scale"]  # in place
+    to_np = [np.asarray(ref[0], np.float32),
+             *(np.asarray(r).astype(np.int8) for r in ref[1:3]),
+             *(np.asarray(r) for r in ref[3:])]
+    port = [got[0].float().numpy(),
+            *(convert.pool_to_numpy({"q": g, "scale": kp["scale"]})["q"]
+              for g in got[1:3]),
+            got[3].numpy(), got[4].numpy()]
+    slots = [int(pt[b, p // ps]) * ps + p % ps
+             for b, p in enumerate(positions) if active[b]]
+    return to_np, port, pt, slots
+
+
+QGEOMS = {
+    # the reference's production-shape quantized case
+    "llama3_8b_heads": dict(B=2, H=32, Hkv=8, D=128, ps=128, n_pages=9,
+                            P=4, positions=[385, 129], active=[True, True]),
+    # tiny geometry: a page-aligned append, position 0, an inactive slot
+    "fresh_page_inactive": dict(B=3, H=4, Hkv=2, D=16, ps=16, n_pages=16,
+                                P=4, positions=[16, 0, 33],
+                                active=[True, True, False]),
+}
+
+
+@pytest.mark.parametrize("qdt", ["int8", "int4"])
+@pytest.mark.parametrize("geom", sorted(QGEOMS))
+def test_fused_decode_quantized_matches_pallas(geom, qdt):
+    """float32: attention within 2e-5; every pool row not appended this
+    step byte for byte (fresh-page zeroing and the dump page included);
+    the appended rows' q values within ±1 and scales within rtol 1e-5,
+    as the reference's own test asserts (its jitted kernel contracts the
+    f32 RoPE of the new key into an FMA, see the module docstring)."""
+    g = QGEOMS[geom]
+    ref, port, _pt, slots = _fused_quant_case(**g, qdt=qdt)
+    act = np.asarray(g["active"])
+    np.testing.assert_allclose(port[0][act], ref[0][act], rtol=TOL,
+                               atol=TOL)
+    assert not port[0][~act].any()
+    rest = np.ones(port[1].shape[0], bool)
+    rest[slots] = False
+    for i in (1, 2, 3, 4):
+        np.testing.assert_array_equal(port[i][rest], ref[i][rest])
+    for i in (1, 2):
+        assert np.abs(port[i][slots].astype(np.int32)
+                      - ref[i][slots].astype(np.int32)).max() <= 1
+    for i in (3, 4):
+        np.testing.assert_allclose(port[i][slots], ref[i][slots], rtol=1e-5)
+
+
+@pytest.mark.parametrize("qdt", ["int8", "int4"])
+def test_fused_decode_quantized_matches_pallas_bf16(qdt):
+    """bfloat16 (the serving dtype): attention within one bf16 rounding
+    (1e-2); the pools, q bytes and scales, byte for byte, appended rows,
+    fresh-page zeroing and the dump page included."""
+    for geom in sorted(QGEOMS):
+        ref, port, _pt, _slots = _fused_quant_case(**QGEOMS[geom], qdt=qdt,
+                                                   dtype="bfloat16")
+        np.testing.assert_allclose(port[0], ref[0], rtol=1e-2, atol=1e-2)
+        for i in (1, 2, 3, 4):
+            np.testing.assert_array_equal(port[i], ref[i])

@@ -258,3 +258,182 @@ def test_scatter_kv_padding_goes_to_dump_page():
     assert 3 * PS <= int(flat[1]) < 4 * PS
     kvq.scatter_kv(kv, 0, flat, torch.ones(3, 1, 2), torch.ones(3, 1, 2))
     assert kv[0, 0, 9].sum() == 0 and kv[0, 0, 3].sum() == 2
+
+
+# -- quantized weights and pools ---------------------------------------------
+# 128-aligned widths, so W8A16 matrices at decode (and T <= 64 prefill)
+# shapes reach K6 on both sides (the reference's interpret-mode Pallas
+# kernel, the port's plain version)
+QCFG = (jllama.LlamaConfig(vocab_size=512, dim=128, n_layers=2, n_heads=4,
+                           n_kv_heads=2, ffn_dim=256, max_seq_len=256,
+                           rope_theta=10000.0),
+        tllama.LlamaConfig(vocab_size=512, dim=128, n_layers=2, n_heads=4,
+                           n_kv_heads=2, ffn_dim=256, max_seq_len=256,
+                           rope_theta=10000.0))
+
+
+def _qweights(wmode):
+    from aigw_tpu.models import quant as jquant
+
+    jcfg, _ = QCFG
+    p = jllama.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32)
+    if wmode:
+        p = jquant.quantize_params(p, mode=wmode)
+    return p, convert.params_from_numpy(
+        {k: np.asarray(v) for k, v in p.items()}, device="cpu")
+
+
+def _assert_pools_close(tkv, jkv):
+    """Quantized pools outside the dump page: rows byte for byte except
+    where a scale differs in its last place, and there q within ±1 and
+    scales within rtol 1e-5. The reference's functions called eagerly,
+    as here, divide by qmax; the port scales by the float32 reciprocal,
+    as the reference's compiled programs do (``models/kvq.py``)."""
+    got = convert.pool_to_numpy(tkv)
+    n = got["q"].shape[2] - PS
+    jq = np.asarray(jkv["q"]).astype(np.int8)[:, :, :n]
+    js = np.asarray(jkv["scale"])[:, :, :n]
+    tq, ts = got["q"][:, :, :n], got["scale"][:, :, :n]
+    np.testing.assert_allclose(ts, js, rtol=1e-5)
+    dq = np.abs(tq.astype(np.int32) - jq.astype(np.int32))
+    assert dq.max() <= 1
+    assert not dq[ts == js].any()
+
+
+def _qprefill_both(wmode, qdt, lens, T, n_pages=24, max_pages=6, seed=0):
+    from aigw_tpu.models import kvq as jkvq
+
+    jcfg, tcfg = QCFG
+    jp, tp = _qweights(wmode)
+    B = len(lens)
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, jcfg.vocab_size, (T,)).astype(np.int32)
+    row_seq, positions, last = _pack(lens, B, T)
+    pt = rng.permutation(n_pages)[: B * max_pages].reshape(
+        B, max_pages).astype(np.int32)
+    shape = _pool_shape(jcfg, n_pages)
+    jl, jkv = jllama.prefill_ragged(
+        jp, jcfg, jnp.asarray(tokens), jnp.asarray(row_seq),
+        jnp.asarray(positions), jnp.asarray(last), jkvq.make_pool(shape, qdt),
+        jnp.asarray(pt), PS, attn_impl="")
+    tkv = kvq.make_pool(shape, qdt, torch.device("cpu"))
+    tl, tkv = tllama.prefill_ragged(
+        tp, tcfg, *(torch.from_numpy(a) for a in
+                    (tokens, row_seq, positions, last)), tkv,
+        torch.from_numpy(pt), PS)
+    return jp, tp, pt, np.asarray(jl), jkv, tl.numpy(), tkv
+
+
+@pytest.mark.parametrize("wmode,qdt,T", [
+    ("int8", "int8", 64),  # W8A16 at M = 64: K6 in both prefills
+    ("int4", "int4", 96),
+    ("", "int8", 48),
+], ids=["w8_kv8_k6", "w4_kv4", "bf_kv8"])
+def test_prefill_ragged_quantized_matches_jax(wmode, qdt, T):
+    """A quantized pool prefills through the windowed program on both
+    sides (the reference's ``attn_impl=""``): logits within 1e-4."""
+    (_, _, _, jl, jkv, tl, tkv) = _qprefill_both(wmode, qdt, [5, 17, 9, 1],
+                                                 T)
+    np.testing.assert_allclose(tl, jl, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    _assert_pools_close(tkv, jkv)
+
+
+def test_prefill_windowed_row_passes_match_one_pass(monkeypatch):
+    """The windowed program attends ``WINDOW_ROWS`` packed rows per pass,
+    each pass walking only up to its own highest valid position: with
+    8-row passes (some all padding, some skipping pages) the logits and
+    the pool's pages equal one pass over every row, bit for bit."""
+    (_, tp, pt, _, _, tl, tkv) = _qprefill_both("", "int8", [5, 17, 9, 1],
+                                                48)
+    _, tcfg = QCFG
+    B = 4
+    row_seq, positions, last = _pack([5, 17, 9, 1], B, 48)
+    tokens = np.random.default_rng(0).integers(
+        0, tcfg.vocab_size, (48,)).astype(np.int32)
+    monkeypatch.setattr(tllama, "WINDOW_ROWS", 8)
+    kv8 = kvq.make_pool(_pool_shape(tcfg, 24), "int8", torch.device("cpu"))
+    l8, kv8 = tllama.prefill_ragged(
+        tp, tcfg, *(torch.from_numpy(a) for a in
+                    (tokens, row_seq, positions, last)), kv8,
+        torch.from_numpy(pt), PS)
+    np.testing.assert_array_equal(l8.numpy(), tl)
+    for key in ("q", "scale"):  # the dump page's rows are scratch
+        assert torch.equal(kv8[key][:, :, :-PS], tkv[key][:, :, :-PS]), key
+
+
+@pytest.mark.parametrize("wmode,qdt", [("int8", "int8"), ("int8", "int4"),
+                                       ("int4", "int8"), ("", "int4")],
+                         ids=["w8_kv8", "w8_kv4", "w4_kv8", "bf_kv4"])
+def test_decode_steps_quantized_match_jax(wmode, qdt):
+    """Prefill, then decode steps on both sides over a quantized pool
+    with W8A16 / W4A16 / f32 weights: the reference's ``fused-pallas``
+    rung (K6 and K7's Pallas kernels in interpret mode) against the
+    port's fused rung (their plain versions). Active slots' logits
+    within 1e-4; pools as ``_assert_pools_close``."""
+    lens = [5, 7, 3]
+    jcfg, tcfg = QCFG
+    (jp, tp, pt, jl, jkv, _tl, tkv) = _qprefill_both(wmode, qdt, lens, 32)
+    tokens = np.argmax(jl, -1).astype(np.int32)
+    positions = np.asarray(lens, np.int32)
+    active = np.array([True, True, False])
+    for _ in range(4):
+        jlog, jkv = jllama.decode_step(
+            jp, jcfg, jnp.asarray(tokens), jnp.asarray(positions), jkv,
+            jnp.asarray(pt), PS, jnp.asarray(active),
+            attn_impl="fused-pallas")
+        tlog, tkv = tllama.decode_step(
+            tp, tcfg, torch.from_numpy(tokens), torch.from_numpy(positions),
+            tkv, torch.from_numpy(pt), PS, torch.from_numpy(active))
+        jlog = np.asarray(jlog)
+        np.testing.assert_allclose(tlog.numpy()[active], jlog[active],
+                                   rtol=LOGIT_TOL, atol=LOGIT_TOL)
+        tokens = np.where(active, np.argmax(jlog, -1), tokens).astype(
+            np.int32)
+        positions = np.where(active, positions + 1, positions).astype(
+            np.int32)
+    _assert_pools_close(tkv, jkv)
+
+
+def test_plain_flag_keeps_w8a16_off_the_kernel_wrapper(monkeypatch):
+    """``plain=True`` sends every K6-shaped W8A16 matrix to K6's plain
+    version: the wrapper is called on the default path (here, at every
+    aligned projection and the lm_head) and never under ``plain``, and
+    both give the same logits on the CPU."""
+    from aigw_tpu_torch.ops import qmatmul
+
+    _, tp = _qweights("int8")
+    _, tcfg = QCFG
+    calls = []
+    wrapper = qmatmul.w8a16_matmul
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return wrapper(*args)
+
+    monkeypatch.setattr(qmatmul, "w8a16_matmul", counted)
+    tokens = torch.tensor([3, 9], dtype=torch.int32)
+    positions = torch.tensor([0, 4], dtype=torch.int32)
+    pt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    active = torch.ones(2, dtype=torch.bool)
+    out = {}
+    for plain in (False, True):
+        kv = kvq.make_pool(_pool_shape(tcfg, 4), "int8", torch.device("cpu"))
+        calls.clear()
+        out[plain], _ = tllama.decode_step(tp, tcfg, tokens, positions, kv,
+                                           pt, PS, active, plain=plain)
+        n = len(calls)
+        # wq, wo, w_gate, w_up, w_down per layer, then the lm_head (wk
+        # and wv, 64 wide, are under K6's 128-column tile)
+        assert n == (0 if plain else 5 * tcfg.n_layers + 1), (plain, n)
+    torch.testing.assert_close(out[True], out[False], rtol=0, atol=0)
+
+
+def test_chained_rung_refuses_quantized_pool():
+    _, tcfg = QCFG
+    kv = kvq.make_pool(_pool_shape(tcfg, 4), "int4", torch.device("cpu"))
+    z = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="fused"):
+        tllama.decode_step({}, tcfg, z, z, kv,
+                           torch.zeros((1, 2), dtype=torch.int32), PS,
+                           torch.ones(1, dtype=torch.bool),
+                           attn_impl="chained")

@@ -10,6 +10,7 @@ import urllib.error
 import urllib.request
 
 import pytest
+import torch
 
 from aigw_tpu_torch.models import llama as tllama
 from aigw_tpu_torch.tpuserve import engine as tengine
@@ -56,11 +57,11 @@ def _sse(raw):
     return [json.loads(f) for f in frames[:-1]]
 
 
-def _engine_text(srv, prompt):
+def _engine_text(srv, prompt, cfg=CFG):
     """The port engine's greedy stream for ``prompt``, detokenized, on a
     fresh engine over the server's own weights."""
     eng = tengine.Engine(srv.engine.params, tllama.TINY,
-                         tengine.EngineConfig(**CFG),
+                         tengine.EngineConfig(**cfg),
                          eos_token_ids=(ByteTokenizer.eos_id,),
                          device="cpu")
     toks, done = [], threading.Event()
@@ -196,3 +197,43 @@ def test_stop_string_ends_stream(server):
     body = json.loads(raw)
     assert body["choices"][0]["message"]["content"] == full[:full.index(stop)]
     assert body["choices"][0]["finish_reason"] == "stop"
+
+
+QCFG = {**CFG, "kv_cache_dtype": "int8"}
+
+
+def test_quantized_replica_serves_its_greedy_stream():
+    """``quantize="int8"`` (W8A16 weights, quantized on the device after
+    init) over int8 KV pages: the served text equals the port engine's
+    greedy stream over the same quantized weights and pool, and /state
+    exports the pool's dtype and byte math."""
+    srv = TPUServeServer(MODEL, tengine.EngineConfig(**QCFG), device="cpu",
+                         port=0, param_dtype="float32", quantize="int8")
+    srv.start()
+    try:
+        assert srv.engine.params["l0.wq.q"].dtype == torch.int8
+        status, _h, raw = _post(srv, "/v1/chat/completions", {
+            "model": MODEL, "messages": MSGS, "max_tokens": MAX_TOKENS,
+            "temperature": 0})
+        assert status == 200
+        prompt = apply_chat_template(MSGS, ByteTokenizer())
+        text, n = _engine_text(srv, prompt, QCFG)
+        body = json.loads(raw)
+        assert body["choices"][0]["message"]["content"] == text
+        assert body["usage"]["completion_tokens"] == n
+        _s, state = _get(srv, "/state")
+        assert state["kv_cache_dtype"] == "int8"
+        assert state["kv_quant_bits"] == 8
+        # L * 2 * Hkv * (D + 4) bytes per token: packed rows plus scales
+        c = tllama.TINY
+        assert state["kv_bytes_per_token"] == (
+            c.n_layers * 2 * c.n_kv_heads * (c.head_dim + 4))
+        assert "windowed program: int8 KV pages" in \
+            state["attention_backend_reason"]
+        assert "int8 pages dequantized in the kernel" in \
+            state["decode_attn_reason"]
+    finally:
+        srv.stop()
+    with pytest.raises(ValueError, match="quantization"):
+        TPUServeServer(MODEL, tengine.EngineConfig(**CFG), device="cpu",
+                       port=0, quantize="fp8")
