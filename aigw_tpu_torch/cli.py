@@ -4,6 +4,8 @@
         --device cuda --attention-backend pallas-ragged --decode-backend fused
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --quantize int8 --kv-cache-dtype int8
+    python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
+        --pallas-attn --spec-tokens 4
 
 Only the ``tpuserve`` subcommand is ported; the gateway and the other
 subcommands stay JAX-package code, and the gateway can front this
@@ -61,6 +63,17 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--quantize", default="", choices=["", "int8", "int4"],
                    help="weight-only quantization: int8 (W8A16) or int4 "
                         "(W4A16, group-128 scales)")
+    s.add_argument("--spec-tokens", type=int, default=0,
+                   help="speculative decoding: max draft tokens verified "
+                        "per decode step (0 = off). Drafts come from n-gram "
+                        "prompt lookup; an adaptive per-slot ladder "
+                        "collapses to plain decode when acceptance is poor")
+    s.add_argument("--no-spec-adaptive", action="store_true",
+                   help="pin the draft length at --spec-tokens instead of "
+                        "the adaptive rung ladder")
+    s.add_argument("--no-speculation", action="store_true",
+                   help="force speculative decoding off (overrides "
+                        "--spec-tokens)")
     s.add_argument("--ragged-chunk-tokens", type=int, default=256)
     s.add_argument("--max-queued-requests", type=int, default=256)
     return p
@@ -82,6 +95,8 @@ def engine_config(args):
         attention_backend=args.attention_backend,
         decode_backend=args.decode_backend,
         kv_cache_dtype=args.kv_cache_dtype,
+        spec_tokens=0 if args.no_speculation else args.spec_tokens,
+        spec_adaptive=not args.no_spec_adaptive,
         ragged_chunk_tokens=args.ragged_chunk_tokens,
         max_queued_requests=args.max_queued_requests,
     )

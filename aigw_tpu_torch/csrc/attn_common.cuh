@@ -1,5 +1,5 @@
 // Shared device code of the paged-attention kernels (K1 ragged prefill,
-// K2/K7 fused decode, K3 chained decode).
+// K2/K7 fused decode, K3 chained decode, K4 split decode, K5 verify).
 //
 // Work split. One warp carries the query rows of one query position
 // that share a KV head (the GQA group, at most G = 4 or 8 rows) as
@@ -269,16 +269,18 @@ __device__ __forceinline__ void warp_walk(RowState<G>& st,
 }
 
 // Decode: the block's warps walk interleaved key chunks of one
-// (sequence, KV head), merge through shared memory and write the
-// group's rows out[r * D + d] = acc / max(l, 1e-30). smem holds
-// nwarps * G * (D + 2) floats. Every thread of the block must call it.
-template <int G, typename TQ, typename Pool>
-__device__ __forceinline__ void decode_attend(const float (&q)[G][VEC],
-                                              int grp, const Pool& pool,
-                                              const int* __restrict__ page_row,
-                                              int page_size, int Hkv, int h,
-                                              int D, int n_keys, TQ* out,
-                                              float* smem) {
+// (sequence, KV head) and merge their states through shared memory;
+// emit(r, d, m, l, a) then receives, once per element d of each group
+// row r, the block's merged running max m, denominator l and
+// unnormalized accumulator a. smem holds nwarps * G * (D + 2) floats.
+// Every thread of the block must call it.
+template <int G, typename Pool, typename Emit>
+__device__ __forceinline__ void block_attend(const float (&q)[G][VEC],
+                                             int grp, const Pool& pool,
+                                             const int* __restrict__ page_row,
+                                             int page_size, int Hkv, int h,
+                                             int D, int n_keys, float* smem,
+                                             Emit emit) {
   const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   const int nwarps = blockDim.x / WARP;
   // decode walks are latency-bound: more chunks in flight per lane
@@ -315,8 +317,23 @@ __device__ __forceinline__ void decode_attend(const float (&q)[G][VEC],
       l += s_l[w * G + r] * sc;
       a += s_acc[(w * G + r) * D + d] * sc;
     }
-    out[r * D + d] = from_f<TQ>(a / fmaxf(l, 1e-30f));
+    emit(r, d, mm, l, a);
   }
+}
+
+// block_attend writing the group's rows out[r * D + d] =
+// acc / max(l, 1e-30) (a row with no keys comes out zero).
+template <int G, typename TQ, typename Pool>
+__device__ __forceinline__ void decode_attend(const float (&q)[G][VEC],
+                                              int grp, const Pool& pool,
+                                              const int* __restrict__ page_row,
+                                              int page_size, int Hkv, int h,
+                                              int D, int n_keys, TQ* out,
+                                              float* smem) {
+  block_attend<G>(q, grp, pool, page_row, page_size, Hkv, h, D, n_keys, smem,
+                  [out, D](int r, int d, float, float l, float a) {
+                    out[r * D + d] = from_f<TQ>(a / fmaxf(l, 1e-30f));
+                  });
 }
 
 }  // namespace aigw

@@ -215,6 +215,22 @@ def padding_slots(kv: Any, page_size: int, valid: torch.Tensor,
     return torch.where(valid, slot, dump.to(slot.dtype))
 
 
+def gather_kv(kv: Any, layer: int, gslot: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K/V rows of layer ``layer`` at flat slot indices ``gslot``. A
+    native pool returns its rows as they are; a quantized pool gathers
+    the integer rows and their scales, dequantizes in float32 and rounds
+    to bfloat16, the serving compute dtype (the reference's
+    ``gather_kv``)."""
+    if not is_quantized(kv):
+        return kv[layer, 0][gslot], kv[layer, 1][gslot]
+    k = dequantize_rows(kv["q"][layer, 0][gslot],
+                        kv["scale"][layer, 0][gslot])
+    v = dequantize_rows(kv["q"][layer, 1][gslot],
+                        kv["scale"][layer, 1][gslot])
+    return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
 def layer_pool(kv: Any, layer: int, which: int
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """``(rows [n_slots, Hkv, D or D/2], scale [n_slots, Hkv] | None)``:

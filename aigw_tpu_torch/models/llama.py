@@ -25,9 +25,10 @@ The pool (native tensor or the quantized ``{"q", "scale"}`` dict of
 ``models/kvq.py``) is updated IN PLACE and returned (the reference
 donates it).
 
-This slice ports ``prefill_ragged`` (K1, or the windowed program that
-quantized pools take) and ``decode_step`` (fused and chained rungs).
-``prefill``, ``prefill_suffix``, ``verify_step``, ``hidden_states``, the
+The port has ``prefill_ragged`` (K1, or the windowed program that
+quantized pools take), ``decode_step`` (fused and chained rungs) and
+``verify_step`` (K5 on the chained rung, the gather path otherwise).
+``prefill``, ``prefill_suffix``, ``hidden_states``, the
 sequence-parallel prefills, the gather rung and LoRA wait for later
 slices (ROADMAP queue 1).
 """
@@ -233,6 +234,27 @@ def _project_qkv(p, i, x, positions, cfg, apply_rope=True, plain=False):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _attention(q: torch.Tensor,  # [B, S, H, D]
+               k: torch.Tensor,  # [B, T, Hkv, D]
+               v: torch.Tensor,  # [B, T, Hkv, D]
+               mask: torch.Tensor,  # [B, S, T] bool, True = attend
+               ) -> torch.Tensor:
+    """Dense masked attention over gathered rows (the reference's
+    ``_attention``): float32 logits and softmax; the probabilities cast
+    to the rows' dtype before the PV product, which sums in float32 and
+    rounds once to that dtype. Returns ``[B, S, H * D]``."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, D)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())
+    logits = logits / math.sqrt(D)
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgst,bthd->bshgd", probs.float(), v.float())
+    return out.to(v.dtype).reshape(B, S, H * D)
 
 
 def _mlp(p, i, x, plain=False):
@@ -480,3 +502,90 @@ def decode_step(
         x = x + _mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
     return _logits(p, cfg, x[:, 0], plain), kv_cache
+
+
+def verify_step(
+    p: dict[str, torch.Tensor],
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] pending token + S - 1 draft tokens
+    positions: torch.Tensor,  # [B] int position of tokens[:, 0]
+    kv_cache: Any,  # native tensor or quantized dict, updated in place
+    page_table: torch.Tensor,  # [B, max_pages] int32
+    page_size: int,
+    active: torch.Tensor,  # [B] bool slot occupied
+    limits: torch.Tensor,  # [B] int exclusive max write position
+    attn_impl: str = "",
+    *,
+    plain: bool = False,
+) -> tuple[torch.Tensor, Any]:
+    """Speculative decoding's verifier: S candidate positions per slot
+    in one step; returns (logits at every position [B, S, V] float32,
+    pool). K/V of all S positions are scattered; a rejected draft's
+    rows are rewritten by a later step before any causal read can reach
+    them. Writes at positions ``>= limits`` and from inactive slots go
+    to the dump page. ``attn_impl``:
+
+    - ``"chained"`` (the reference's ``"pallas"``) — K5
+      (``ops.paged_attention.paged_attention_verify``); native pools
+      only, as in the reference;
+    - ``""`` — the gather path: every slot's page window gathered (a
+      quantized pool dequantized to bf16) and dense masked attention,
+      rows past ``limits`` masked out.
+
+    ``plain=True`` runs the kernels' plain versions (K5's and K6's)
+    whatever the device."""
+    if attn_impl not in ("", "chained"):
+        raise ValueError(f"attn_impl must be '' or 'chained' "
+                         f"(got {attn_impl!r})")
+    chained = attn_impl == "chained"
+    if chained and kvq.is_quantized(kv_cache):
+        raise NotImplementedError(
+            "the verify kernel has no quantized-pool rung: the fallback "
+            "matrix keeps int8/int4 on the gather-dequant path")
+    B, S = tokens.shape
+    P = page_table.shape[1]
+    dev = tokens.device
+    start = positions.long()
+    pos = start[:, None] + torch.arange(S, device=dev)[None, :]  # [B, S]
+    active = active.bool()
+    valid = active[:, None] & (pos < limits.long()[:, None])
+    # positions near max_seq_len (or of an inactive slot) may index past
+    # the table: clamp as the reference's gather does; padding_slots
+    # sends those rows to the dump page anyway
+    page_idx = torch.clamp(pos // page_size, 0, P - 1)
+    slot = torch.gather(page_table.long(), 1, page_idx) * page_size \
+        + pos % page_size
+    flat = kvq.padding_slots(kv_cache, page_size, valid, slot)
+    if chained:
+        attend = (paged_attention.paged_attention_verify_plain if plain
+                  else paged_attention.paged_attention_verify)
+        pt32 = page_table.to(torch.int32).contiguous()
+        # an inactive slot sits at -(S + 1): no attendable key
+        pos0 = torch.where(active, start,
+                           torch.full_like(start, -(S + 1))
+                           ).to(torch.int32).contiguous()
+    else:
+        T = P * page_size
+        gslot = (page_table.long()[:, :, None] * page_size
+                 + torch.arange(page_size, device=dev)).reshape(B, T)
+        mask = (torch.arange(T, device=dev)[None, None, :]
+                <= pos[:, :, None]) & valid[..., None]
+    HD = cfg.n_heads * cfg.head_dim
+    x = _embed_rows(p, tokens.long())  # [B, S, dim]
+    for i in range(cfg.n_layers):
+        h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(p, i, h, pos, cfg, plain=plain)
+        kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
+        if chained:
+            kr, _ = kvq.layer_pool(kv_cache, i, 0)
+            vr, _ = kvq.layer_pool(kv_cache, i, 1)
+            attn = attend(q.contiguous(), kr, vr, pt32, pos0,
+                          page_size=page_size).reshape(B, S, HD)
+        else:
+            k_all, v_all = kvq.gather_kv(kv_cache, i, gslot)
+            attn = _attention(q, k_all, v_all, mask)
+        x = x + _matmul(p, f"l{i}.wo", attn, plain)
+        h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
+        x = x + _mlp(p, i, h, plain)
+    x = rms_norm(x, p["norm_f"], cfg.norm_eps)
+    return _logits(p, cfg, x, plain), kv_cache

@@ -33,12 +33,15 @@ class ModelFns:
     init_params: Any
     decode_step: Any
     prefill_ragged: Any
+    # multi-position verifier for speculative decoding; None disables
+    # the engine's speculation for the family
+    verify_step: Any = None
 
 
 def family_fns(family: str) -> ModelFns:
     if family == "llama":
         return ModelFns(llama.init_params, llama.decode_step,
-                        llama.prefill_ragged)
+                        llama.prefill_ragged, verify_step=llama.verify_step)
     if family == "mixtral":
         raise NotImplementedError(
             "the mixtral family is ROADMAP queue 1 (MoE)")

@@ -43,6 +43,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "aigw_ragged_prefill": [_P] * 7 + [_I] * 9 + [_P],
     "aigw_paged_decode": [_P] * 6 + [_I] * 8 + [_P],
+    "aigw_paged_verify": [_P] * 6 + [_I] * 9 + [_P],
+    "aigw_paged_decode_split": [_P] * 7 + [_I] * 10 + [_P],
     "aigw_fused_decode": [_P] * 13 + [_I] * 9 + [_P],
     "aigw_w8a16_matmul": [_P] * 5 + [_I] * 6 + [_P],
 }

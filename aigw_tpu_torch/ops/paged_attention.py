@@ -1,5 +1,5 @@
-"""Paged attention for prefill and chained decode (counterpart of
-``aigw_tpu/ops/pallas/paged_attention.py``).
+"""Paged attention for prefill, chained decode and speculative verify
+(counterpart of ``aigw_tpu/ops/pallas/paged_attention.py``).
 
 - ``ragged_prefill_attention`` (K1): causal prefill attention over a
   packed variable-length query stream against the paged KV pool. Row t
@@ -8,6 +8,13 @@
   sequence come out zero.
 - ``paged_attention_decode_v2`` (K3): one query token per sequence
   attends its first ``lengths[b]`` pool rows; GQA group = H / Hkv.
+- ``paged_attention_decode`` (K4, the reference's v1): K3's function,
+  its keys split over blocks (``csrc/paged_attention.cu``). No engine
+  path selects it, as in the reference.
+- ``paged_attention_verify`` (K5): S consecutive queries per sequence
+  (the pending token and its drafts); query s attends pool positions
+  ``<= positions[b] + s``, and a slot with ``positions[b] <= -S``
+  attends nothing (zeros).
 
 Each function has a plain PyTorch version beside it with the same
 signature (``*_plain``). The public function runs the plain version for
@@ -133,6 +140,25 @@ def ragged_prefill_attention(
 ragged_prefill_attention.launches = 0
 
 
+def _check_decode_args(name, q, k_pool, v_pool, page_table, rows):
+    """Shapes, devices and dtypes K3-K5 take: q ``[B, ..., H, D]``, the
+    native pools, an int32 page table and an int32 ``[B]`` row."""
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    Hkv, D2 = k_pool.shape[1], k_pool.shape[2]
+    if D2 != D or v_pool.shape != k_pool.shape \
+            or page_table.shape[0] != B or rows.shape != (B,):
+        raise ValueError(f"{name}: shape mismatch q {tuple(q.shape)} pool "
+                         f"{tuple(k_pool.shape)} page table "
+                         f"{tuple(page_table.shape)} {tuple(rows.shape)}")
+    _build.check_heads(H, Hkv, D)
+    for t, what in ((q, "q"), (k_pool, "k_pool"), (v_pool, "v_pool")):
+        _build.check_cuda(t, what)
+    for t, what in ((page_table, "page_table"), (rows, "lengths/positions")):
+        _build.check_cuda(t, what, torch.int32)
+    if v_pool.dtype != k_pool.dtype:
+        raise ValueError("k_pool and v_pool dtypes differ")
+
+
 def paged_attention_decode_v2_plain(
     q: torch.Tensor,  # [B, H, D]
     k_pool: torch.Tensor,  # [n_slots, Hkv, D]
@@ -162,19 +188,11 @@ def paged_attention_decode_v2(
     if q.device.type == "cpu":
         return paged_attention_decode_v2_plain(
             q, k_pool, v_pool, page_table, lengths, page_size=page_size)
+    _check_decode_args("paged_attention_decode_v2", q, k_pool, v_pool,
+                       page_table, lengths)
     B, H, D = q.shape
-    n_slots, Hkv, D2 = k_pool.shape
+    Hkv = k_pool.shape[1]
     P = page_table.shape[1]
-    if D2 != D or v_pool.shape != k_pool.shape \
-            or page_table.shape[0] != B or lengths.shape != (B,):
-        raise ValueError("paged_attention_decode_v2: shape mismatch")
-    _build.check_heads(H, Hkv, D)
-    for t, name in ((q, "q"), (k_pool, "k_pool"), (v_pool, "v_pool")):
-        _build.check_cuda(t, name)
-    for t, name in ((page_table, "page_table"), (lengths, "lengths")):
-        _build.check_cuda(t, name, torch.int32)
-    if v_pool.dtype != k_pool.dtype:
-        raise ValueError("k_pool and v_pool dtypes differ")
     out = torch.empty_like(q)
     _build.launch(
         "aigw_paged_decode", q.data_ptr(), k_pool.data_ptr(),
@@ -186,3 +204,127 @@ def paged_attention_decode_v2(
 
 
 paged_attention_decode_v2.launches = 0
+
+
+def paged_attention_decode_plain(
+    q: torch.Tensor,  # [B, H, D]
+    k_pool: torch.Tensor,  # [n_slots, Hkv, D]
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B, P]
+    lengths: torch.Tensor,  # [B]
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """Plain version of K4: K3's page walk (the two compute one
+    function)."""
+    return paged_decode_walk(q, k_pool, v_pool, page_table, lengths,
+                             page_size=page_size)
+
+
+#: K4 splits each sequence's pages over enough blocks to put about this
+#: many (sequence, KV head, split) blocks on the card: four per SM of
+#: the H100's 132
+SPLIT_TARGET_BLOCKS = 4 * 132
+
+
+def split_pages(B: int, Hkv: int, P: int) -> tuple[int, int]:
+    """K4's (pages per split, number of splits) for a ``[B, P]`` page
+    table: from the shapes alone, so the launch needs no host sync."""
+    want = max(1, min(P, -(-SPLIT_TARGET_BLOCKS // max(1, B * Hkv))))
+    pps = -(-P // want)
+    return pps, -(-P // pps)
+
+
+def paged_attention_decode(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """K4. Returns ``[B, H, D]`` in q's dtype; rows with length 0 are
+    zero. CPU tensors: the plain version; CUDA tensors: the split walk
+    and its fold (``aigw_paged_decode_split``, two launches counted as
+    one)."""
+    if q.device.type == "cpu":
+        return paged_attention_decode_plain(
+            q, k_pool, v_pool, page_table, lengths, page_size=page_size)
+    _check_decode_args("paged_attention_decode", q, k_pool, v_pool,
+                       page_table, lengths)
+    B, H, D = q.shape
+    Hkv = k_pool.shape[1]
+    P = page_table.shape[1]
+    pps, n_split = split_pages(B, Hkv, P)
+    out = torch.empty_like(q)
+    part = torch.empty((n_split * B * H * (D + 2),), dtype=torch.float32,
+                       device=q.device)
+    _build.launch(
+        "aigw_paged_decode_split", q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), part.data_ptr(), B, P, H, Hkv, D, page_size, pps,
+        n_split, _build.dtype_code(q, "q"),
+        _build.dtype_code(k_pool, "k_pool"))
+    paged_attention_decode.launches += 1
+    return out
+
+
+paged_attention_decode.launches = 0
+
+
+def paged_attention_verify_plain(
+    q: torch.Tensor,  # [B, S, H, D]
+    k_pool: torch.Tensor,  # [n_slots, Hkv, D]
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B, P]
+    positions: torch.Tensor,  # [B] position of q[:, 0]; <= -S = off
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """Plain version of K5: query s of sequence b is a decode row over
+    ``positions[b] + s + 1`` keys (none when that is not positive), at
+    most the table's ``P * page_size`` (the reference kernel's grid ends
+    there too)."""
+    B, S, H, D = q.shape
+    P = page_table.shape[1]
+    s_off = torch.arange(S, device=q.device)
+    lengths = torch.clamp(positions.long()[:, None] + s_off + 1, 0,
+                          P * page_size)
+    out = paged_decode_walk(
+        q.reshape(B * S, H, D), k_pool, v_pool,
+        page_table.repeat_interleave(S, dim=0), lengths.reshape(-1),
+        page_size=page_size)
+    return out.reshape(B, S, H, D)
+
+
+def paged_attention_verify(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    page_size: int,
+) -> torch.Tensor:
+    """K5. Returns ``[B, S, H, D]`` in q's dtype. CPU tensors: the plain
+    version; CUDA tensors: the kernel (``aigw_paged_verify``)."""
+    if q.device.type == "cpu":
+        return paged_attention_verify_plain(
+            q, k_pool, v_pool, page_table, positions, page_size=page_size)
+    _check_decode_args("paged_attention_verify", q, k_pool, v_pool,
+                       page_table, positions)
+    B, S, H, D = q.shape
+    Hkv = k_pool.shape[1]
+    P = page_table.shape[1]
+    out = torch.empty_like(q)
+    _build.launch(
+        "aigw_paged_verify", q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), page_table.data_ptr(), positions.data_ptr(),
+        out.data_ptr(), B, S, P, H, Hkv, D, page_size,
+        _build.dtype_code(q, "q"), _build.dtype_code(k_pool, "k_pool"))
+    paged_attention_verify.launches += 1
+    return out
+
+
+paged_attention_verify.launches = 0

@@ -20,6 +20,14 @@ backend (``tpuserve/attention.py``). The KV pool (native, or int8/int4
 pages with their scales, ``models/kvq.py``) carries one page past the
 allocator's range, the dump page.
 
+**Speculative decoding** (``spec_tokens > 0``, ``tpuserve/
+speculation.py``): while an eligible slot's adaptive controller holds a
+nonzero draft length D, a window runs K verify steps of width D + 1
+(``_spec_window``, the reference's ``_spec_scan``) instead of K decode
+steps, each slot advancing by its accepted drafts plus one. The verify
+step runs K5 when the decode rung resolves to ``chained-*`` and the
+gather path otherwise, as in the reference.
+
 Two defaults differ from the reference: ``enable_prefix_cache`` is
 False (True raises until the prefix-caching slice) and
 ``constrained_decoding`` is False (the server answers ``response_format``
@@ -44,6 +52,7 @@ import torch
 
 from aigw_tpu_torch.device import resolve_device
 from aigw_tpu_torch.models import kvq
+from aigw_tpu_torch.tpuserve import speculation
 from aigw_tpu_torch.tpuserve.attention import (
     BACKENDS,
     DECODE_BACKENDS,
@@ -55,15 +64,16 @@ from aigw_tpu_torch.tpuserve.sampling import (
     SamplingParams,
     apply_penalties,
     sample,
+    spec_accept,
 )
 
 logger = logging.getLogger(__name__)
 
-#: knobs of features this slice does not implement: (reference default,
-#: ROADMAP queue 1 entry). A non-default value raises NotImplementedError.
+#: knobs of features the port does not implement yet: (reference
+#: default, ROADMAP queue 1 entry). A non-default value raises
+#: NotImplementedError.
 NOT_PORTED = {
     "enable_prefix_cache": (False, "prefix caching and CoW"),
-    "spec_tokens": (0, "speculation with K5"),
     "constrained_decoding": (False, "constrained decoding"),
     "tenant_slot_cap": (0, "host scheduler features"),
     "logprobs_topk": (0, "host scheduler features (logprobs)"),
@@ -113,7 +123,11 @@ class EngineConfig:
     ragged_chunk_tokens: int = 256
     ragged_max_chunks: int = 8
     kv_cache_dtype: str = "bfloat16"
+    # speculative decoding: max draft tokens verified per step (0 = off)
     spec_tokens: int = 0
+    # adaptive per-slot draft rungs; False pins eligible slots at
+    # spec_tokens
+    spec_adaptive: bool = True
     constrained_decoding: bool = False
     tenant_slot_cap: int = 0
     logprobs_topk: int = 0
@@ -184,6 +198,16 @@ class _Slot:
     page_row: np.ndarray | None = None
     # generated-token histogram (repetition penalties)
     token_counts: dict[int, int] = field(default_factory=dict)
+    # generated tokens in order (the speculation history row is the
+    # prompt followed by these)
+    gen_tokens: list[int] = field(default_factory=list)
+    # speculation (eligible slots only): the adaptive draft controller,
+    # the draft length live on the device, and the lookahead buffer
+    # (empty until prefix caching is ported)
+    ctrl: Any = None  # speculation.DraftController | None
+    dev_draft_len: int = 0
+    la_base: int = 0
+    la_tokens: list[int] = field(default_factory=list)
 
 
 @dataclass
@@ -220,6 +244,16 @@ class EngineStats:
     kv_bytes_per_token: float = 0.0
     prefill_ms_decayed: float = 0.0
     prefill_tokens_decayed: float = 0.0
+    # speculative decoding: tokens landed by accepted drafts (beyond the
+    # one a step always emits), drafts offered, their ratio, the last
+    # dispatched draft width, rung moves, lookahead-seeded slots
+    spec_accepted: int = 0
+    spec_drafted: int = 0
+    spec_accept_rate: float = 0.0
+    spec_draft_len: int = 0
+    spec_rung_ups: int = 0
+    spec_rung_downs: int = 0
+    spec_lookahead_slots: int = 0
 
     PREFILL_RATE_HALF_LIFE_TOKENS = 16384
 
@@ -243,18 +277,35 @@ class _Window:
     """One dispatched decode window: its sampled tokens (on their way to
     the host) and what the host needs to settle it."""
 
-    sampled: torch.Tensor  # [K, B] int32 (pinned host copy on CUDA)
+    # [K, B] int32 tokens, or for a speculative window [K, B, D + 3]
+    # (samples, n_emit, n_prop; see _spec_window); a pinned host copy on
+    # CUDA
+    sampled: torch.Tensor
     ready: Any  # torch.cuda.Event recorded after the copy, or None
     # (slot index, request) pairs the window computes for
     members: tuple[tuple[int, GenRequest], ...]
     k: int
     # sequence ids whose pages are safe to recycle once it completes
     frees: list[int]
+    # speculative draft width (0 = plain window) and the per-slot draft
+    # lengths at dispatch ((slot, D_slot) pairs) for the controllers
+    draft: int = 0
+    draft_lens: tuple[tuple[int, int], ...] = ()
 
 
-_STATE_FIELDS = ("tokens", "positions", "limits", "active", "keys", "temp",
-                 "top_p", "top_k", "freq_pen", "pres_pen", "page_table",
-                 "counts", "bias")
+#: per-slot decode state on the device: field → numpy dtype
+_STATE_DTYPES = {"tokens": np.int32, "positions": np.int32,
+                 "limits": np.int32, "active": np.bool_, "keys": np.int64,
+                 "temp": np.float32, "top_p": np.float32,
+                 "top_k": np.int32, "freq_pen": np.float32,
+                 "pres_pen": np.float32, "page_table": np.int32,
+                 "counts": np.int32, "bias": np.float32}
+#: the speculation rows, present when spec_tokens > 0: token history
+#: (prompt + generated, valid through the pending token's position),
+#: the slot's draft length, and the lookahead draft buffer
+_SPEC_DTYPES = {"history": np.int32, "draft_len": np.int32,
+                "lookahead": np.int32, "la_base": np.int32,
+                "la_len": np.int32}
 
 
 class Engine:
@@ -328,6 +379,24 @@ class Engine:
         self.decode_attn_impl, self.decode_attn_reason = (
             resolve_decode_backend(cfg, self.device))
         self._decode_impl = self.decode_attn_impl.split("-")[0]
+        # speculative decoding: a rung ladder of [B, D + 1] verify steps
+        # replaces the decode step while an eligible slot's controller
+        # holds a nonzero draft length. The verify step keeps the chained
+        # path (K5) on the chained rung, and takes the gather path (which
+        # also serves quantized pools) on the fused rung
+        self._spec_rungs = (
+            speculation.draft_rungs(cfg.spec_tokens)
+            if cfg.spec_tokens > 0 and self.fns.verify_step is not None
+            else (0,))
+        self._spec_max = self._spec_rungs[-1]
+        self._accept_prior = speculation.AcceptancePrior()
+        self._verify_impl = "chained" if self._decode_impl == "chained" \
+            else ""
+        # slots whose controller moved rung: only their on-device draft
+        # length is patched before the next dispatch
+        self._spec_dirty: set[int] = set()
+        self._state_dtypes = (_STATE_DTYPES | _SPEC_DTYPES if self._spec_max
+                              else _STATE_DTYPES)
         self.attn = make_attention_backend(self)
         self._refresh_stats()
 
@@ -378,6 +447,84 @@ class Engine:
                                           st["positions"])
             st["keys"][:, 1] = (st["keys"][:, 1] + act.long()) & 0xFFFFFFFF
             out.append(sampled)
+        return torch.stack(out)
+
+    def _spec_window(self, k: int, D: int, greedy: bool) -> torch.Tensor:
+        """K speculative steps at draft rung D (the reference's
+        ``_spec_scan`` body). Each step drafts D tokens per slot
+        (lookahead where it covers the position, n-gram elsewhere),
+        poisoned to -1 for ineligible slots (sampled or penalized) and
+        past the slot's own ``draft_len``; verifies the D + 1 positions
+        in one ``verify_step``; samples position d with key ``[seed, pos
+        + d]``, the key plain decoding would use there; and advances each
+        slot by ``spec_accept``'s n_emit. ``greedy`` takes the argmax,
+        which ``sample`` returns for greedy slots anyway. Returns [K, B,
+        D + 3] int32 on the device: the samples ``[..., :D + 1]``, then
+        n_emit and n_prop (the drafts actually offered)."""
+        st = self._device_state
+        dev = self.device
+        B = self.cfg.max_batch_size
+        H = self.cfg.max_seq_len
+        D1 = D + 1
+        rows = torch.arange(B, device=dev)
+        d_off = torch.arange(D, device=dev)[None, :]
+        d_idx = torch.arange(D1, device=dev)[None, :]
+        elig = ((st["freq_pen"] == 0.0) & (st["pres_pen"] == 0.0)
+                & (st["temp"] <= 0.0))
+        out = []
+        for _ in range(k):
+            act = st["active"] & (st["positions"] < st["limits"])
+            drafts = speculation.combine_drafts(
+                speculation.lookahead_drafts(
+                    st["lookahead"], st["la_base"], st["la_len"],
+                    st["positions"], D),
+                speculation.ngram_drafts(st["history"], st["positions"], D))
+            ok = elig[:, None] & (d_off < st["draft_len"][:, None])
+            drafts = torch.where(ok, drafts, torch.full_like(drafts, -1))
+            inputs = torch.cat([st["tokens"][:, None],
+                                torch.clamp(drafts, min=0)], dim=1)
+            logits, self.kv_cache = self.fns.verify_step(
+                self.params, self.model_cfg, inputs, st["positions"],
+                self.kv_cache, st["page_table"], self.cfg.page_size, act,
+                st["limits"], attn_impl=self._verify_impl)
+            # counts are window-start values: exact at d = 0, and later
+            # positions accept only on penalty-free slots
+            lT = apply_penalties(logits.transpose(0, 1), st["counts"],
+                                 st["freq_pen"], st["pres_pen"], st["bias"])
+            if greedy:
+                sampled = torch.argmax(lT, dim=-1).to(torch.int32)
+            else:
+                keys = st["keys"][None].repeat(D1, 1, 1)  # [D1, B, 2]
+                keys[:, :, 1] = (keys[:, :, 1] + d_idx.T) & 0xFFFFFFFF
+                sampled = sample(
+                    lT.reshape(D1 * B, -1), keys.reshape(D1 * B, 2),
+                    st["temp"].repeat(D1), st["top_p"].repeat(D1),
+                    st["top_k"].repeat(D1)).reshape(D1, B)
+            sampled = sampled.T.contiguous()  # [B, D1]
+            n_emit, emit = spec_accept(drafts, sampled, act,
+                                       st["limits"] - st["positions"])
+            # sampled[:, d] is the token at position pos + 1 + d. torch
+            # has no drop mode: an entry not emitted (or past max_seq_len)
+            # rewrites history[pos] with its own value instead
+            pos = st["positions"].long()
+            col = pos[:, None] + 1 + d_idx
+            keep = emit & (col < H)
+            here = torch.clamp(pos, 0, H - 1)[:, None].expand(B, D1)
+            st["history"].scatter_(
+                1, torch.where(keep, col, here),
+                torch.where(keep, sampled,
+                            torch.gather(st["history"], 1, here)))
+            st["counts"].scatter_add_(1, sampled.long(),
+                                      emit.to(torch.int32))
+            new_pending = sampled[rows, torch.clamp(n_emit.long() - 1, 0, D)]
+            st["tokens"] = torch.where(n_emit > 0, new_pending, st["tokens"])
+            st["positions"] = st["positions"] + n_emit
+            st["keys"][:, 1] = (st["keys"][:, 1] + n_emit.long()) & 0xFFFFFFFF
+            n_prop = torch.cumprod((drafts >= 0).to(torch.int32),
+                                   dim=1).sum(dim=1)
+            n_prop = torch.where(act, n_prop, torch.zeros_like(n_prop))
+            out.append(torch.cat([sampled, n_emit[:, None],
+                                  n_prop[:, None].to(torch.int32)], dim=1))
         return torch.stack(out)
 
     # -- host copies ----------------------------------------------------------
@@ -492,6 +639,7 @@ class Engine:
         self._apply_frees()
         self._device_state = None
         self._dirty_rows.clear()
+        self._spec_dirty.clear()
         for i, s in enumerate(self._slots):
             if s is not None:
                 s.req.emit(-1, "error")
@@ -594,9 +742,11 @@ class Engine:
             self._slots[slot_idx] = _Slot(
                 req=r.req, pos=r.n - 1, generated=0,
                 key_seed=r.req.sampling.seed or r.seq_id,
-                limit=r.total, page_row=r.page_row)
+                limit=r.total, page_row=r.page_row,
+                ctrl=self._make_ctrl(r.req))
             self.stats.prefills += 1
             self._dirty_rows.add(slot_idx)
+            self._spec_dirty.discard(slot_idx)  # the row carries draft_len
             self._emit_token(slot_idx, r.tok)
         self.stats.first_emit_ms += 1e3 * (time.monotonic() - t_first)
 
@@ -614,6 +764,11 @@ class Engine:
             "counts": np.zeros((V,), np.int32),
             "bias": np.zeros((V,), np.float32),
         }
+        if self._spec_max:
+            row.update(history=np.zeros((self.cfg.max_seq_len,), np.int32),
+                       draft_len=0,
+                       lookahead=np.zeros((self.cfg.page_size,), np.int32),
+                       la_base=0, la_len=0)
         if s is None:
             return row
         sp = s.req.sampling
@@ -629,6 +784,15 @@ class Engine:
         for tok_id, b in sp.logit_bias:
             if 0 <= tok_id < V:
                 row["bias"][tok_id] = b
+        if self._spec_max:
+            n = len(s.req.prompt)
+            row["history"][:n] = s.req.prompt
+            row["history"][n:n + len(s.gen_tokens)] = s.gen_tokens
+            if s.ctrl is not None:
+                row["draft_len"] = s.dev_draft_len = s.ctrl.draft_len()
+            if s.la_tokens:
+                row["lookahead"][:len(s.la_tokens)] = s.la_tokens
+                row.update(la_base=s.la_base, la_len=len(s.la_tokens))
         return row
 
     def _build_device_state(self) -> dict[str, torch.Tensor]:
@@ -636,15 +800,9 @@ class Engine:
         (membership changes then patch rows)."""
         rows = [self._row_host_values(i)
                 for i in range(self.cfg.max_batch_size)]
-        dtypes = {"tokens": np.int32, "positions": np.int32,
-                  "limits": np.int32, "active": np.bool_, "keys": np.int64,
-                  "temp": np.float32, "top_p": np.float32,
-                  "top_k": np.int32, "freq_pen": np.float32,
-                  "pres_pen": np.float32, "page_table": np.int32,
-                  "counts": np.int32, "bias": np.float32}
         return {k: torch.from_numpy(np.asarray(
-                    [r[k] for r in rows], dtypes[k])).to(self.device)
-                for k in _STATE_FIELDS}
+                    [r[k] for r in rows], dt)).to(self.device)
+                for k, dt in self._state_dtypes.items()}
 
     def _apply_row_updates(self) -> None:
         """Patch dirty slot rows into the live state. On CUDA the writes
@@ -653,7 +811,7 @@ class Engine:
         st = self._device_state
         for i in sorted(self._dirty_rows):
             row = self._row_host_values(i)
-            for k in _STATE_FIELDS:
+            for k in self._state_dtypes:
                 v = row[k]
                 st[k][i] = (torch.from_numpy(np.asarray(v)).to(self.device)
                             if isinstance(v, (np.ndarray, list))
@@ -673,16 +831,129 @@ class Engine:
         toks = w.sampled.numpy()
         t1 = time.monotonic()
         self.stats.transfer_ms += 1e3 * (t1 - t0)
-        self.stats.decode_steps += w.k
-        for k in range(w.k):
-            for i, req in w.members:
+        if w.draft:
+            D1 = w.draft + 1
+            self._process_spec_window(toks[:, :, :D1], toks[:, :, D1],
+                                      toks[:, :, D1 + 1], w.members,
+                                      w.draft_lens)
+        else:
+            self._process_window(toks, w.members)
+        self.stats.emit_ms += 1e3 * (time.monotonic() - t1)
+        for seq_id in w.frees:
+            self.allocator.free(seq_id)
+
+    def _process_window(self, toks: np.ndarray, members: tuple) -> None:
+        """Emit a plain window's tokens [K, B] to the slots that were
+        members at dispatch and still hold the same request."""
+        self.stats.decode_steps += toks.shape[0]
+        for k in range(toks.shape[0]):
+            for i, req in members:
                 s = self._slots[i]
                 if s is None or s.req is not req:
                     continue  # finished earlier in this window / reused
                 self._emit_token(i, int(toks[k, i]))
-        self.stats.emit_ms += 1e3 * (time.monotonic() - t1)
-        for seq_id in w.frees:
-            self.allocator.free(seq_id)
+
+    def _process_spec_window(self, toks: np.ndarray, counts: np.ndarray,
+                             props: np.ndarray, members: tuple,
+                             draft_lens: tuple) -> None:
+        """A speculative window: samples [K, B, D + 1], n_emit [K, B],
+        n_prop [K, B]. The leading n_emit samples of each row are
+        model-exact and emitted; the rest were conditioned on a rejected
+        draft. Then each surviving slot's controller observes the
+        window's proposed/accepted counts and may move its rung (patched
+        on the device before the next dispatch)."""
+        self.stats.decode_steps += toks.shape[0]
+        dl = dict(draft_lens)
+        proposed = dict.fromkeys(dl, 0)
+        accepted = dict.fromkeys(dl, 0)
+        live = dict.fromkeys(dl, False)
+        for k in range(toks.shape[0]):
+            for i, req in members:
+                s = self._slots[i]
+                if s is None or s.req is not req:
+                    continue
+                n = int(counts[k, i])
+                if n > 0:
+                    proposed[i] = proposed.get(i, 0) + int(props[k, i])
+                    live[i] = True
+                emitted = 0
+                for d in range(n):
+                    cur = self._slots[i]
+                    if cur is None or cur.req is not req:
+                        break  # EOS or the length limit mid-burst
+                    self._emit_token(i, int(toks[k, i, d]))
+                    emitted += 1
+                if emitted > 1:
+                    self.stats.spec_accepted += emitted - 1
+                    accepted[i] = accepted.get(i, 0) + emitted - 1
+        for i, req in members:
+            # only slots that decoded under a nonzero draft width this
+            # window carry a controller signal
+            if not live.get(i, False) or dl.get(i, 0) <= 0:
+                continue
+            self.stats.spec_drafted += proposed.get(i, 0)
+            s = self._slots[i]
+            if s is None or s.req is not req or s.ctrl is None:
+                continue
+            move = s.ctrl.observe_window(proposed.get(i, 0),
+                                         accepted.get(i, 0))
+            if move:
+                if move > 0:
+                    self.stats.spec_rung_ups += 1
+                else:
+                    self.stats.spec_rung_downs += 1
+                if i not in self._dirty_rows:
+                    self._spec_dirty.add(i)
+
+    # -- speculation control (host) ------------------------------------------
+    def _make_ctrl(self, req: GenRequest):
+        """The adaptive draft controller of a fresh slot, or None when
+        the request is ineligible (sampled, or with repetition
+        penalties: those slots decode plainly and never lift the
+        dispatch width)."""
+        sp = req.sampling
+        if (not self._spec_max or sp.temperature > 0.0
+                or sp.frequency_penalty != 0.0
+                or sp.presence_penalty != 0.0):
+            return None
+        return speculation.DraftController(
+            self._spec_rungs, self._accept_prior, self.cfg.spec_adaptive)
+
+    def _choose_draft_len(self) -> int:
+        """Dispatch draft width: the max of the live eligible slots'
+        rungs (0 dispatches the plain window). Ticking the controllers
+        also runs the rung-0 re-probe; a rung move is patched on the
+        device before the dispatch that follows."""
+        if not self._spec_max:
+            return 0
+        d = 0
+        for i, s in enumerate(self._slots):
+            if s is None or s.ctrl is None:
+                continue
+            before = s.ctrl.draft_len()
+            nd = s.ctrl.tick()
+            if nd > before:
+                self.stats.spec_rung_ups += 1  # rung-0 re-probe
+            if nd != s.dev_draft_len and i not in self._dirty_rows:
+                self._spec_dirty.add(i)
+            d = max(d, nd)
+        self.stats.spec_draft_len = d
+        return d
+
+    def _apply_spec_row_updates(self) -> None:
+        """Patch live slots' on-device ``draft_len`` after a rung move.
+        Only that field: a live slot's positions and history on the
+        device run ahead of the host's view while a window is in
+        flight, but the draft length is position-independent."""
+        dl = self._device_state["draft_len"]
+        for i in sorted(self._spec_dirty):
+            s = self._slots[i]
+            d = (s.ctrl.draft_len() if s is not None and s.ctrl is not None
+                 else 0)
+            dl[i] = d
+            if s is not None:
+                s.dev_draft_len = d
+        self._spec_dirty.clear()
 
     def _apply_frees(self) -> None:
         """Recycle finished sequences' pages (only with no window in
@@ -695,6 +966,7 @@ class Engine:
     def _quiesce(self) -> None:
         self._device_state = None
         self._dirty_rows.clear()
+        self._spec_dirty.clear()
         self.stats.active_slots = 0
         self._refresh_stats()
 
@@ -717,6 +989,7 @@ class Engine:
                 return True
             self._device_state = self._build_device_state()
             self._dirty_rows.clear()
+            self._spec_dirty.clear()
         elif self._dirty_rows:
             self._apply_row_updates()
 
@@ -738,6 +1011,11 @@ class Engine:
                 self._refresh_stats()
                 return True
 
+        # the speculative width (and any rung-move patches) settle before
+        # the window is chosen
+        draft = self._choose_draft_len()
+        if self._spec_dirty:
+            self._apply_spec_row_updates()
         k = self._choose_window()
         members = tuple((i, self._slots[i].req) for i in active_idx)
         live = [self._slots[i].req.sampling for i in active_idx]
@@ -745,7 +1023,14 @@ class Engine:
                    for sp in live)
         greedy = all(sp.temperature <= 0.0 for sp in live)
         frees, self._pending_frees = self._pending_frees, []
-        sampled = self._decode_window(k, lean, greedy)
+        draft_lens: tuple = ()
+        if draft:
+            draft_lens = tuple((i, self._slots[i].ctrl.draft_len())
+                               for i in active_idx
+                               if self._slots[i].ctrl is not None)
+            sampled = self._spec_window(k, draft, greedy)
+        else:
+            sampled = self._decode_window(k, lean, greedy)
         if self.cfg.async_transfers:
             host, ready = self._start_host_copy(sampled)
         else:
@@ -753,7 +1038,8 @@ class Engine:
         # settle the PREVIOUS window while this one runs on the device
         self._drain_inflight()
         self._inflight = _Window(sampled=host, ready=ready, members=members,
-                                 k=k, frees=frees)
+                                 k=k, frees=frees, draft=draft,
+                                 draft_lens=draft_lens)
         self.stats.active_slots = sum(s is not None for s in self._slots)
         self._refresh_stats()
         return True
@@ -782,10 +1068,13 @@ class Engine:
         else:
             s.pending_token = tok
             s.token_counts[tok] = s.token_counts.get(tok, 0) + 1
+            s.gen_tokens.append(tok)
 
     def _refresh_stats(self) -> None:
         st = self.stats
         st.queued = self._queue.qsize()
+        st.spec_accept_rate = (st.spec_accepted / st.spec_drafted
+                               if st.spec_drafted else 0.0)
         if st.prefill_tokens_padded:
             st.prefill_padded_frac = round(
                 1.0 - st.prefill_tokens_real / st.prefill_tokens_padded, 4)

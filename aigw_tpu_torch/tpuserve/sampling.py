@@ -9,7 +9,8 @@ the reference's ``jax.random.categorical`` reproduced exactly — threefry
 2x32 over the key with the flat element index as a 64-bit counter, the
 reference's uniform-from-bits recipe and Gumbel argmax — so seeded
 streams match the JAX engine token for token, not only greedy ones.
-``spec_accept`` waits for the speculative-decoding slice.
+``spec_accept`` turns a verify step's samples into what the engine
+emits.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from aigw_tpu_torch.tpuserve.speculation import accept_counts
 
 _MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -72,6 +75,27 @@ def apply_penalties(
     if bias is not None:
         out = out + bias
     return out
+
+
+def spec_accept(
+    drafts: torch.Tensor,  # [B, D] proposed tokens (-1 = no proposal)
+    sampled: torch.Tensor,  # [B, D + 1] model samples per position
+    active: torch.Tensor,  # [B] bool slot occupied + below its limit
+    budget: torch.Tensor,  # [B] tokens the slot may still emit
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Acceptance masks for speculative verification: ``n_acc`` drafts
+    whose cumulative match with the model's own samples is unbroken are
+    accepted and the sample after them rides along, so a step emits
+    ``n_acc + 1`` model-exact tokens, clipped to ``budget`` (the
+    page-safety fence). Returns (n_emit [B] int32, emit_mask [B, D + 1]
+    bool); everything past the mask was conditioned on a rejected
+    draft."""
+    n_acc = accept_counts(drafts, sampled)
+    n_emit = torch.where(
+        active, torch.minimum(n_acc + 1, torch.clamp(budget, min=0)),
+        torch.zeros_like(n_acc)).to(torch.int32)
+    d_idx = torch.arange(drafts.shape[1] + 1, device=drafts.device)[None, :]
+    return n_emit, d_idx < n_emit[:, None]
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:

@@ -178,6 +178,14 @@ class TPUServeServer:
             "decode_backend": cfg.decode_backend,
             "decode_attn_impl": eng.decode_attn_impl,
             "decode_attn_reason": eng.decode_attn_reason,
+            # speculative decoding: acceptance telemetry
+            "spec_accepted": s.spec_accepted,
+            "spec_drafted": s.spec_drafted,
+            "spec_accept_rate": round(s.spec_accept_rate, 4),
+            "spec_draft_len": s.spec_draft_len,
+            "spec_rung_ups": s.spec_rung_ups,
+            "spec_rung_downs": s.spec_rung_downs,
+            "spec_lookahead_slots": s.spec_lookahead_slots,
             "constrained_decoding": cfg.constrained_decoding,
             "enable_prefix_cache": cfg.enable_prefix_cache,
             "defaults_differ": dict(DEFAULTS_DIFFER),

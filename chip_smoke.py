@@ -19,6 +19,13 @@ Phases (any failure exits non-zero):
    above zero. The burst is served again on the warm server, then a
    third time under ``torch.profiler`` (the ``serve`` JSON line: cold
    and warm wall times, the device's busy share while serving);
+   speculative decoding on the same weights: the chained rung with a
+   fixed draft width of 4, so every window verifies through K5 at S = 5,
+   serving the burst plus two greedy requests pinned to one token by
+   ``logit_bias`` (drafts proposed and accepted; the ``serve_spec``
+   line), then the fused rung with the adaptive ladder, whose verify
+   takes the gather path (K5 must not launch) and whose plain windows
+   run K2 (the ``serve_spec_fused`` line);
 4. quantized serving on the same server: the same bf16 weights
    quantized to int8 on the card (W8A16) over an int8 KV pool, fused
    decode. The burst cold and warm (the ``serve_quant`` JSON line: wall
@@ -28,20 +35,27 @@ Phases (any failure exits non-zero):
    program and decode through K7). Then two requests over an int4 KV
    pool, which must launch K7-int4;
 5. every kernel against its plain PyTorch version on the card at the
-   served shapes (max |error| within the stated tolerance; K2's and
+   served shapes (each attention output element within 2**-7 of the
+   plain output plus 2e-3, printed beside the mean |output|; K2's and
    K7's pool bytes equal), timed with CUDA events (L2 flushed between
    launches) beside the plain version and the kernel's roofline bound;
+   K4, which no engine path selects (nor the reference's), at K3's
+   inputs and timed beside K3; K5 at the served verify shapes (batch 8,
+   S = 5, a slot that is off, windows across a page);
    K6 at each of the five weight shapes a decode step multiplies (the
    ``qmatmul_shapes`` JSON line), beside cuBLAS on the same weight
    dequantized to bf16 ahead of time; full-width prefill + 8 decode
    steps of the model through the kernels against the same through the
    plain versions, for bf16, for W8A16 over an int8 pool and for W4A16
    (whose matmuls are plain PyTorch in the reference too), the
-   quantized ones also against the bf16 model's greedy tokens;
+   quantized ones also against the bf16 model's greedy tokens; one
+   full-width verify step (width 5) through K5 against the same through
+   its plain version (the ``model_check`` line's ``verify``);
 6. where one full-width decode step's time goes, bf16 and W8A16 over
-   int8 pages: its host wall time against the device time
-   ``torch.profiler`` sees, by kernel (the ``decode_profile`` and
-   ``decode_profile_quant`` JSON lines);
+   int8 pages, and one verify step of width 5 through K5: its host wall
+   time against the device time ``torch.profiler`` sees, by kernel (the
+   ``decode_profile``, ``decode_profile_quant`` and ``verify_profile``
+   JSON lines);
 7. the ``kernels`` JSON line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -63,11 +77,12 @@ import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
-ATTN_TOL = 2e-2  # bf16 attention output, kernel vs plain (abs)
-# K7's bf16 attention, kernel vs plain, per element: one bf16 ulp of the
-# plain output (2**-7 relative) plus 2e-3, about 5% of a typical output
-# at the check's long-context slots (outputs there are ~0.04 in size)
-K7_RTOL, K7_ATOL = 2.0 ** -7, 2e-3
+# bf16 attention output (K1-K5, K7), kernel vs plain, per element: one
+# bf16 ulp of the plain output (2**-7 relative: the two float32 results
+# may round to neighbouring bf16 values) plus 2e-3, set from K7's
+# readings (max error 0.00049 against a mean |output| of ~0.038 at its
+# long-context slots); each check prints the mean |output| it held
+ATTN_RTOL, ATTN_ATOL = 2.0 ** -7, 2e-3
 # K6 with bf16 x, kernel vs plain: one bf16 ulp of the output (2**-7
 # relative; the two float32 sums, in different orders, may round to
 # neighbouring bf16 values) plus float32 summation order over K (1e-5 of
@@ -145,6 +160,10 @@ def counters() -> dict:
         "w8a16_matmul": (qmatmul.w8a16_matmul, "launches"),
         "fused_paged_decode_int8": (fused, "launches_int8"),
         "fused_paged_decode_int4": (fused, "launches_int4"),
+        "paged_attention_decode": (
+            paged_attention.paged_attention_decode, "launches"),
+        "paged_attention_verify": (
+            paged_attention.paged_attention_verify, "launches"),
     }
 
 
@@ -169,7 +188,8 @@ def _http(port: int, path: str, body: dict | None = None):
 
 def _check_response(kind: str, stream: bool, status: int, ctype: str,
                     raw: str) -> dict:
-    """Well-formed JSON or SSE; returns {"n": tokens, "finish": reason}."""
+    """Well-formed JSON or SSE; returns {"n": tokens, "finish": reason}
+    (and "text" for a completion that is not streamed)."""
     if status != 200:
         raise AssertionError(f"{kind} status {status}")
     if not stream:
@@ -177,8 +197,11 @@ def _check_response(kind: str, stream: bool, status: int, ctype: str,
         want = "chat.completion" if kind == "chat" else "text_completion"
         if body["object"] != want:
             raise AssertionError(f"object {body['object']!r}, want {want!r}")
-        return {"n": body["usage"]["completion_tokens"],
-                "finish": body["choices"][0]["finish_reason"]}
+        out = {"n": body["usage"]["completion_tokens"],
+               "finish": body["choices"][0]["finish_reason"]}
+        if kind == "completion":
+            out["text"] = body["choices"][0]["text"]
+        return out
     if not ctype.startswith("text/event-stream"):
         raise AssertionError(f"stream content-type {ctype!r}")
     frames = [ln[6:] for ln in raw.split("\n") if ln.startswith("data: ")]
@@ -241,9 +264,44 @@ def serve_phase(port: int, reqs) -> list[dict]:
     for i, r in enumerate(results):
         if not isinstance(r, dict):
             raise AssertionError(f"request {i} failed: {r!r}")
-        if r["n"] != SERVE_MAX_TOKENS and r["finish"] != "stop":
+        if r["n"] != reqs[i][2]["max_tokens"] and r["finish"] != "stop":
             raise AssertionError(f"request {i}: {r}")
     return results
+
+
+#: the token the pinned requests' logit_bias forces ("a" in the byte
+#: tokenizer)
+PIN_TOKEN = 97
+
+
+def _pinned_requests(n: int) -> list[tuple[str, bool, dict]]:
+    """Greedy completions whose logit_bias pins every sample to one
+    token: the history turns into a repetition, so n-gram drafts are
+    proposed and accepted (the reference's ``test_pallas_ops`` case)."""
+    return [("completion", False, {
+        "model": "llama-3-8b-random", "prompt": f"pinned request {i}: ",
+        "max_tokens": SERVE_MAX_TOKENS, "temperature": 0.0,
+        "logit_bias": {str(PIN_TOKEN): 100.0}}) for i in range(n)]
+
+
+def _check_pinned(results) -> None:
+    for r in results:
+        if r.get("text") != chr(PIN_TOKEN) * SERVE_MAX_TOKENS:
+            raise AssertionError(f"a pinned stream is not the pinned token: "
+                                 f"{r}")
+
+
+def attn_check(name: str, got, want) -> tuple[float, float]:
+    """Hold a bf16 attention output to its plain version per element
+    (ATTN_RTOL * |plain| + ATTN_ATOL); returns (max |error|, mean |plain
+    output|: the size the absolute term is read against)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err = diff.max().item()
+    if (diff > ATTN_RTOL * w.abs() + ATTN_ATOL).any():
+        raise AssertionError(f"{name} max error {err} over rtol {ATTN_RTOL} "
+                             f"+ atol {ATTN_ATOL}")
+    return err, w.abs().mean().item()
 
 
 # -- phase 4: kernels against their plain versions -----------------------------
@@ -278,21 +336,48 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         return paged_attention.paged_attention_decode_v2_plain(
             q, k_pool, v_pool, pt, lens, page_size=PS)
 
-    err = (k3().float() - k3_plain().float()).abs().max().item()
-    if not err <= ATTN_TOL:
-        raise AssertionError(f"K3 max error {err} > {ATTN_TOL}")
+    def k4():
+        return paged_attention.paged_attention_decode(
+            q, k_pool, v_pool, pt, lens, page_size=PS)
+
+    def k4_plain():
+        return paged_attention.paged_attention_decode_plain(
+            q, k_pool, v_pool, pt, lens, page_size=PS)
+
+    err, mean_out = attn_check("K3", k3(), k3_plain())
+    err4, mean_out4 = attn_check("K4", k4(), k4_plain())
     toks = sum(lengths)
     nbytes = 2 * (2 * B * H * D + 2 * toks * Hkv * D) + 4 * B * (P + 1)
     b_ms, b_by = bound(nbytes, 4 * toks * H * D)
+    # K3 and K4 compute one function: timed in turns (K3, K4, K4, K3)
+    t3a, t4a, t4b, t3b = (cuda_ms(f) for f in (k3, k4, k4, k3))
     rows.append(dict(
         name="paged_attention_decode_v2", route="cuda",
         source="aigw_tpu_torch/csrc/paged_attention.cu",
         replaces="aigw_tpu/ops/pallas/paged_attention.py:223",
         launches=launches["paged_attention_decode_v2"], max_abs_err=err,
-        ms=cuda_ms(k3), plain_ms=cuda_ms(k3_plain, iters=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    log(f"K3 ok: max err {err:.3g}, {rows[-1]['ms']:.4f} ms "
-        f"(bound {b_ms:.4f} ms, plain {rows[-1]['plain_ms']:.3f} ms)")
+        ms=(t3a + t3b) / 2, plain_ms=cuda_ms(k3_plain, iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        out_mean_abs=mean_out))
+    log(f"K3 ok: max err {err:.3g} (mean |out| {mean_out:.3g}), "
+        f"{rows[-1]['ms']:.4f} ms (bound {b_ms:.4f} ms, plain "
+        f"{rows[-1]['plain_ms']:.3f} ms)")
+    pps, n_split = paged_attention.split_pages(B, Hkv, P)
+    rows.append(dict(
+        name="paged_attention_decode", route="cuda",
+        source="aigw_tpu_torch/csrc/paged_attention.cu",
+        replaces="aigw_tpu/ops/pallas/paged_attention.py:115",
+        launches=launches["paged_attention_decode"], max_abs_err=err4,
+        ms=(t4a + t4b) / 2, plain_ms=cuda_ms(k4_plain, iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        out_mean_abs=mean_out4, k3_ms_beside=(t3a + t3b) / 2,
+        splits=n_split, pages_per_split=pps,
+        note="off the engine path, as in the reference: no decode rung "
+             "selects v1"))
+    log(f"K4 ok: max err {err4:.3g} (mean |out| {mean_out4:.3g}), "
+        f"{rows[-1]['ms']:.4f} ms in {n_split} splits of {pps} pages "
+        f"(K3 beside it {rows[-1]['k3_ms_beside']:.4f} ms; bound "
+        f"{b_ms:.4f} ms)")
 
     # K2: positions = lengths - 1 … with a page-aligned append (128,
     # 1536 is not allocated: use 256) and one inactive slot
@@ -309,9 +394,7 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
     out_p, _, _ = decode_fused.fused_paged_decode_plain(
         q, kn, vn, kp_b, vp_b, pt, positions, active, rope_theta=500000.0,
         page_size=PS, tables=tables)
-    err = (out_k.float() - out_p.float()).abs().max().item()
-    if not err <= ATTN_TOL:
-        raise AssertionError(f"K2 max error {err} > {ATTN_TOL}")
+    err, mean_out = attn_check("K2", out_k, out_p)
     if not (torch.equal(kp_a, kp_b) and torch.equal(vp_a, vp_b)):
         diff = (kp_a != kp_b).sum().item() + (vp_a != vp_b).sum().item()
         raise AssertionError(f"K2 pool bytes differ in {diff} elements")
@@ -342,9 +425,49 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         replaces="aigw_tpu/ops/pallas/decode_fused.py:268",
         launches=launches["fused_paged_decode"], max_abs_err=err,
         ms=cuda_ms(k2), plain_ms=cuda_ms(k2_plain, iters=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    log(f"K2 ok: max err {err:.3g}, pools equal, {rows[-1]['ms']:.4f} ms "
-        f"(bound {b_ms:.4f} ms, plain {rows[-1]['plain_ms']:.3f} ms)")
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        out_mean_abs=mean_out))
+    log(f"K2 ok: max err {err:.3g} (mean |out| {mean_out:.3g}), pools "
+        f"equal, {rows[-1]['ms']:.4f} ms (bound {b_ms:.4f} ms, plain "
+        f"{rows[-1]['plain_ms']:.3f} ms)")
+
+    # K5 at the served verify shapes: batch 8, S = 5 (4 drafts), windows
+    # across page boundaries (126, 1022, 1534), a fresh sequence and a
+    # slot that is off (the engine passes -(S + 1))
+    S = 5
+    pos0 = [126, 0, 500, 1022, -(S + 1), 1534, 300, 127]
+    pos_t = torch.tensor(pos0, dtype=torch.int32, device=dev)
+    qv = randn(B, S, H, D)
+
+    def k5():
+        return paged_attention.paged_attention_verify(
+            qv, k_pool, v_pool, pt, pos_t, page_size=PS)
+
+    def k5_plain():
+        return paged_attention.paged_attention_verify_plain(
+            qv, k_pool, v_pool, pt, pos_t, page_size=PS)
+
+    got = k5()
+    err, mean_out = attn_check("K5", got, k5_plain())
+    if got[pos0.index(-(S + 1))].abs().max().item() != 0.0:
+        raise AssertionError("K5's slot that is off is not zero")
+    # keys each query attends, and the rows each sequence's walk needs
+    keys = [max(0, min(p + s + 1, P * PS)) for p in pos0 for s in range(S)]
+    rows_read = sum(max(0, min(p + S, P * PS)) for p in pos0)
+    nbytes = 2 * (2 * B * S * H * D + 2 * rows_read * Hkv * D) \
+        + 4 * B * (P + 1)
+    b_ms, b_by = bound(nbytes, 4 * sum(keys) * H * D)
+    rows.append(dict(
+        name="paged_attention_verify", route="cuda",
+        source="aigw_tpu_torch/csrc/paged_attention.cu",
+        replaces="aigw_tpu/ops/pallas/paged_attention.py:497",
+        launches=launches["paged_attention_verify"], max_abs_err=err,
+        ms=cuda_ms(k5), plain_ms=cuda_ms(k5_plain, iters=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        out_mean_abs=mean_out, S=S))
+    log(f"K5 ok: max err {err:.3g} (mean |out| {mean_out:.3g}), "
+        f"{rows[-1]['ms']:.4f} ms (bound {b_ms:.4f} ms, plain "
+        f"{rows[-1]['plain_ms']:.3f} ms)")
 
     # K1: a packed burst with one offset start, padded to a 256 multiple
     seq = [(700, 0), (300, 0), (1, 0), (129, 77), (250, 0)]
@@ -368,9 +491,7 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
             q1, k_pool, v_pool, pt1, cu_t, st_t, page_size=PS)
 
     got = k1()
-    err = (got.float() - k1_plain().float()).abs().max().item()
-    if not err <= ATTN_TOL:
-        raise AssertionError(f"K1 max error {err} > {ATTN_TOL}")
+    err, mean_out = attn_check("K1", got[:total], k1_plain()[:total])
     if got[total:].abs().max().item() != 0.0:
         raise AssertionError("K1 tail rows are not zero")
     keys = sum(s + n for n, s in seq)  # pool rows each sequence reads
@@ -383,9 +504,11 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         replaces="aigw_tpu/ops/pallas/paged_attention.py:419",
         launches=launches["ragged_prefill_attention"], max_abs_err=err,
         ms=cuda_ms(k1, iters=10), plain_ms=cuda_ms(k1_plain, iters=3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    log(f"K1 ok: max err {err:.3g}, {rows[0]['ms']:.4f} ms "
-        f"(bound {b_ms:.4f} ms, plain {rows[0]['plain_ms']:.3f} ms)")
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        out_mean_abs=mean_out))
+    log(f"K1 ok: max err {err:.3g} (mean |out| {mean_out:.3g}), "
+        f"{rows[0]['ms']:.4f} ms (bound {b_ms:.4f} ms, plain "
+        f"{rows[0]['plain_ms']:.3f} ms)")
     return rows
 
 
@@ -485,14 +608,10 @@ def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
                 q, kn, vn, b[0], b[1], pt, positions, active, b[2], b[3],
                 rope_theta=500000.0, page_size=PS, tables=tables)
 
-        out_k, out_p = k7()[0].float(), k7_plain()[0].float()
-        diff = (out_k - out_p).abs()
-        err = diff.max().item()
-        if (diff > K7_RTOL * out_p.abs() + K7_ATOL).any():
-            raise AssertionError(f"K7-{qdt} max error {err} over rtol "
-                                 f"{K7_RTOL} + atol {K7_ATOL}")
+        out_p = k7_plain()[0].float()
+        err, mean_out = attn_check(f"K7-{qdt}", k7()[0], out_p)
         # typical output size at the long-context slots (positions 999,
-        # 1534), which the absolute term is read against
+        # 1534)
         long_scale = out_p[5:7].abs().mean().item()
         # appended q bytes and scales: equal, or (FMA contraction in the
         # RoPE) within one step of q and rtol 1e-5 on the scale, counted
@@ -520,9 +639,9 @@ def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
             ms=cuda_ms(k7), plain_ms=cuda_ms(k7_plain, iters=5),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             q_bytes_off_by_one=n_q, scales_differ=n_s,
-            out_mean_abs_long=long_scale))
-        log(f"K7-{qdt} ok: max err {err:.3g} (mean |out| at the long "
-            f"slots {long_scale:.3g}), q bytes differing {n_q}, "
+            out_mean_abs=mean_out, out_mean_abs_long=long_scale))
+        log(f"K7-{qdt} ok: max err {err:.3g} (mean |out| {mean_out:.3g}, "
+            f"{long_scale:.3g} at the long slots), q bytes differing {n_q}, "
             f"scales differing {n_s}, {rows[-1]['ms']:.4f} ms (bound "
             f"{b_ms:.4f} ms, plain {rows[-1]['plain_ms']:.3f} ms)")
     return rows
@@ -617,6 +736,73 @@ def model_check(torch, params, cfg, dev: str = "cuda",
     return out
 
 
+def verify_check(torch, params, cfg, dev: str = "cuda") -> dict:
+    """One full-width prefill (batch 8), then one verify step of width 5
+    through K5 against the same step through K5's plain version, on
+    copies of the same pool: the max logit error over the valid rows
+    and tie-aware greedy agreement (a flip only at a near-tie of the
+    plain logits). One slot is inactive, one fenced by its limit inside
+    the window, and windows cross pages (126, 1022, 1534)."""
+    from aigw_tpu_torch.models import kvq, llama
+
+    PS, P, S = 128, 16, 5
+    lens = [126, 45, 1022, 3, 700, 1534, 300, 1]
+    B = len(lens)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    T = -(-sum(lens) // 256) * 256
+    tokens = torch.randint(0, cfg.vocab_size, (T,), generator=g, device=dev)
+    row_seq = torch.full((T,), B, dtype=torch.int32, device=dev)
+    positions = torch.zeros((T,), dtype=torch.int32, device=dev)
+    last = torch.zeros((B,), dtype=torch.int32, device=dev)
+    o = 0
+    for b, n in enumerate(lens):
+        row_seq[o:o + n] = b
+        positions[o:o + n] = torch.arange(n, device=dev)
+        last[b] = o + n - 1
+        o += n
+    pt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    kv = kvq.make_pool((cfg.n_layers, 2, (B * P + 1) * PS, cfg.n_kv_heads,
+                        cfg.head_dim), "bfloat16", dev)
+    _, kv = llama.prefill_ragged(params, cfg, tokens, row_seq, positions,
+                                 last, kv, pt, PS)
+    draft = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                          device=dev, dtype=torch.int32)
+    pos0 = torch.tensor(lens, dtype=torch.int32, device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    active[7] = False
+    limits = pos0 + 64
+    limits[1] = lens[1] + 2  # fenced after two positions
+    out = {}
+    for plain in (False, True):
+        out[plain], _ = llama.verify_step(
+            params, cfg, draft, pos0, kv.clone(), pt, PS, active, limits,
+            attn_impl="chained", plain=plain)
+    got, want = out[False], out[True]
+    pos = pos0[:, None].long() + torch.arange(S, device=dev)
+    valid = active[:, None] & (pos < limits[:, None])
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("non-finite verify logits")
+    if got.shape != (B, S, cfg.vocab_size):
+        raise AssertionError(f"verify logits of shape {tuple(got.shape)}")
+    a, b = got[valid], want[valid]
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    top2 = torch.topk(b, 2, dim=-1).values
+    differ = a.argmax(-1) != b.argmax(-1)
+    worst = (top2[:, 0] - top2[:, 1])[differ].max().item() \
+        if differ.any() else 0.0
+    if worst > 0.1:
+        raise AssertionError(f"verify greedy token differs at a top-2 gap "
+                             f"of {worst}")
+    if err > 0.1 * scale:
+        raise AssertionError(f"verify logits differ by {err} (logit scale "
+                             f"{scale})")
+    return {"max_abs_logit_err": err, "logit_scale": scale,
+            "greedy_mismatches": int(differ.sum()),
+            "valid_rows": int(valid.sum()), "S": S}
+
+
 def serve_profile(torch, port: int, reqs, warm_s: float) -> dict:
     """The device's busy share while the warm server serves the burst:
     the kernel time torch.profiler sees on the card over one more
@@ -641,11 +827,12 @@ def serve_profile(torch, port: int, reqs, warm_s: float) -> dict:
 
 
 def decode_profile(torch, params, cfg, dev: str = "cuda",
-                   kv_dtype: str = "bfloat16") -> dict:
+                   kv_dtype: str = "bfloat16", verify_width: int = 0) -> dict:
     """Where one full-width decode step's time goes: host wall clock of a
     step (synchronized) against the device time torch.profiler sees, by
     kernel. Batch 8 at 1000 cached tokens each, fused rung, a
-    ``kv_dtype`` pool."""
+    ``kv_dtype`` pool; with ``verify_width`` > 0, a verify step of that
+    width on the chained rung (K5) instead."""
     from torch.profiler import ProfilerActivity, profile
 
     from aigw_tpu_torch.models import kvq, llama
@@ -658,8 +845,15 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
     pos = torch.full((B,), ctx, dtype=torch.int32, device=dev)
     act = torch.ones((B,), dtype=torch.bool, device=dev)
 
+    toks = torch.zeros((B, verify_width), dtype=torch.int32, device=dev)
+    limits = pos + 64
+
     def step():
-        llama.decode_step(params, cfg, tok, pos, kv, pt, PS, act)
+        if verify_width:
+            llama.verify_step(params, cfg, toks, pos, kv, pt, PS, act,
+                              limits, attn_impl="chained")
+        else:
+            llama.decode_step(params, cfg, tok, pos, kv, pt, PS, act)
 
     for _ in range(2):
         step()
@@ -684,10 +878,107 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
         raise AssertionError("the profiler saw no device time")
     top = sorted(by_kernel.items(), key=lambda item: -item[1])[:6]
     return {"batch": B, "cached_tokens": ctx, "layers": cfg.n_layers,
-            "kv_dtype": kv_dtype,
+            "kv_dtype": kv_dtype, "verify_width": verify_width,
             "wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy": device_ms / wall_ms,
             "top_kernels_ms": {k: us / 1e3 / steps for k, us in top}}
+
+
+def spec_phases(srv, restart, params, reqs, launches: dict) -> None:
+    """Serve with speculative decoding: the chained rung at a fixed
+    draft width of 4 (the ``serve_spec`` line), then the fused rung with
+    the adaptive ladder (``serve_spec_fused``). ``restart(params, **kw)``
+    puts a fresh engine with EngineConfig overrides ``kw`` behind
+    ``srv``; K5's and K4's launches of the first go into ``launches``."""
+    # speculative decoding on the chained rung, a fixed draft width
+    # of 4: every window verifies through K5 at S = 5. The burst plus
+    # two greedy requests pinned to one token, whose drafts the
+    # verify accepts
+    restart(params, pallas_attn=True, spec_tokens=4,
+            spec_adaptive=False)
+    spec_reqs = reqs + _pinned_requests(2)
+    reset_counts()
+    t = time.monotonic()
+    results_s = serve_phase(srv.port, spec_reqs)
+    cold_spec = time.monotonic() - t
+    served_s = read_counts()
+    _check_pinned(results_s[len(reqs):])
+    state_s = json.loads(_http(srv.port, "/state")[2])
+    log(f"speculative (chained, width 4): served {len(spec_reqs)} "
+        f"requests in {cold_spec:.1f}s; spec_accepted "
+        f"{state_s['spec_accepted']} of {state_s['spec_drafted']} "
+        f"drafted; launches {served_s}")
+    if served_s["paged_attention_verify"] <= 0:
+        raise AssertionError(f"K5 not on the speculative served path: "
+                             f"{served_s}")
+    if state_s["spec_accepted"] <= 0:
+        raise AssertionError("no draft accepted on the pinned requests")
+    t = time.monotonic()
+    serve_phase(srv.port, spec_reqs)
+    warm_spec = time.monotonic() - t
+    warm_s = json.loads(_http(srv.port, "/state")[2])
+    # the pinned pair alone: tokens per verify step per slot
+    t = time.monotonic()
+    _check_pinned(serve_phase(srv.port, _pinned_requests(2)))
+    pinned_s = time.monotonic() - t
+    pin = json.loads(_http(srv.port, "/state")[2])
+    pin_steps = pin["decode_steps"] - warm_s["decode_steps"]
+    # each request's first token comes from its prefill
+    pin_tokens = pin["tokens_generated"] - warm_s["tokens_generated"] - 2
+    burst_tokens = state_s["tokens_generated"] - len(spec_reqs)
+    print(json.dumps({"serve_spec": {
+        "decode_attn_impl": state_s["decode_attn_impl"],
+        "spec_tokens": 4, "spec_adaptive": False,
+        "requests": len(spec_reqs),
+        "new_tokens": sum(r["n"] for r in results_s),
+        "cold_s": cold_spec, "warm_s": warm_spec,
+        "decode_steps": state_s["decode_steps"],
+        "spec_drafted": state_s["spec_drafted"],
+        "spec_accepted": state_s["spec_accepted"],
+        "spec_accept_rate": state_s["spec_accept_rate"],
+        "decode_tokens_per_verify_step": burst_tokens
+        / state_s["decode_steps"],
+        "pinned_pair_wall_s": pinned_s,
+        "pinned_decode_steps": pin_steps,
+        "pinned_tokens_per_verify_step_per_slot":
+            pin_tokens / (2 * pin_steps),
+        "launches": served_s}}), flush=True)
+    launches["paged_attention_verify"] = \
+        served_s["paged_attention_verify"]
+    launches["paged_attention_decode"] = \
+        served_s["paged_attention_decode"]
+
+    # the fused rung with the adaptive ladder: verify takes the
+    # gather path (K5 must not launch) while the pinned greedy request
+    # speculates; once it finishes, the sampled one (ineligible: no
+    # controller) decodes in plain windows through K2
+    restart(params, decode_backend="fused", spec_tokens=4)
+    fused_reqs = [_pinned_requests(1)[0], reqs[0]]
+    fused_reqs[0][2]["max_tokens"] = 24
+    reset_counts()
+    t = time.monotonic()
+    serve_phase(srv.port, fused_reqs)
+    fused_s = time.monotonic() - t
+    served_f = read_counts()
+    state_f = json.loads(_http(srv.port, "/state")[2])
+    print(json.dumps({"serve_spec_fused": {
+        "decode_attn_impl": state_f["decode_attn_impl"],
+        "spec_tokens": 4, "spec_adaptive": True,
+        "requests": len(fused_reqs), "wall_s": fused_s,
+        "decode_steps": state_f["decode_steps"],
+        "spec_drafted": state_f["spec_drafted"],
+        "spec_accepted": state_f["spec_accepted"],
+        "spec_rung_downs": state_f["spec_rung_downs"],
+        "spec_draft_len": state_f["spec_draft_len"],
+        "launches": served_f}}), flush=True)
+    if served_f["paged_attention_verify"]:
+        raise AssertionError(f"K5 launched on the fused rung: "
+                             f"{served_f}")
+    if state_f["spec_accepted"] <= 0:
+        raise AssertionError("the gather verify path accepted no draft")
+    if served_f["fused_paged_decode"] <= 0:
+        raise AssertionError(f"K2 not on the fused rung's plain "
+                             f"windows: {served_f}")
 
 
 def main() -> int:
@@ -792,6 +1083,9 @@ def main() -> int:
             raise AssertionError("K3 not on the chained served path")
         launches["paged_attention_decode_v2"] = k3
 
+        # speculative decoding, on the chained rung (K5) and on the fused
+        spec_phases(srv, restart, params, reqs, launches)
+
         # 4. quantized serving: W8A16 weights over int8 KV pages; the
         # bf16 copy stays for the checks below (consume=False)
         t = time.monotonic()
@@ -875,6 +1169,10 @@ def main() -> int:
         del p_
         log(f"full-width model {name}, kernels vs plain: {checks[name]} "
             f"({time.monotonic() - t:.1f}s)")
+    t = time.monotonic()
+    checks["verify"] = verify_check(torch, params, llama.LLAMA3_8B)
+    log(f"full-width verify step, K5 vs plain: {checks['verify']} "
+        f"({time.monotonic() - t:.1f}s)")
     print(json.dumps({"model_check": checks}), flush=True)
 
     # 6. where a decode step's time goes
@@ -889,6 +1187,11 @@ def main() -> int:
         f"{prof_q['device_ms']:.2f} ms on the device "
         f"(busy {prof_q['device_busy']:.2f})")
     print(json.dumps({"decode_profile_quant": prof_q}), flush=True)
+    prof_v = decode_profile(torch, params, llama.LLAMA3_8B, verify_width=5)
+    log(f"verify step (width 5, K5) at full width: {prof_v['wall_ms']:.2f} "
+        f"ms wall, {prof_v['device_ms']:.2f} ms on the device (busy "
+        f"{prof_v['device_busy']:.2f})")
+    print(json.dumps({"verify_profile": prof_v}), flush=True)
     del params, qparams
     torch.cuda.synchronize()
 

@@ -156,6 +156,22 @@ def test_engine_streams_match_reference_chained(weights, reference_streams):
     _assert_streams_match(got, reference_streams, weights)
 
 
+@pytest.mark.parametrize("rung", [dict(decode_backend="fused"),
+                                  dict(decode_backend="auto",
+                                       pallas_attn=True)],
+                         ids=["fused", "chained"])
+def test_engine_streams_match_reference_speculative(weights,
+                                                    reference_streams, rung):
+    """Speculation (width 3, the adaptive ladder) on the mixed batch of
+    greedy, seeded top-k/top-p and penalized requests: the reference's
+    streams on both rungs. The verify step runs K5's plain version on the
+    chained rung and the gather path on the fused rung."""
+    eng, got = _port_streams(weights, spec_tokens=3, **rung)
+    assert eng._verify_impl == ("chained" if "pallas_attn" in rung else "")
+    _assert_streams_match(got, reference_streams, weights)
+    assert eng.stats.spec_drafted > 0
+
+
 def test_engine_streams_fixed_window_sync_transfers(weights,
                                                     reference_streams):
     """Window size and transfer mode change only timing, never tokens."""
@@ -252,7 +268,7 @@ def test_engine_request_filling_max_seq_len(weights, rung):
 
 
 def test_engine_config_refuses_unported_knobs():
-    for kw in (dict(enable_prefix_cache=True), dict(spec_tokens=2),
+    for kw in (dict(enable_prefix_cache=True),
                dict(constrained_decoding=True), dict(logprobs_topk=2),
                dict(kv_host_bytes=1 << 20), dict(tenant_slot_cap=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):

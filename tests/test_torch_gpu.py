@@ -6,9 +6,11 @@ one. Run them on the card with
     python -m pytest -m gpu tests/test_torch_gpu.py
 
 Inputs are seeded; each kernel sees the same tensors as its plain
-version. Tolerances: float32 2e-5 (summation order), bfloat16 2e-2
-(one bf16 rounding of the output); the fused decode kernel's pools must
-match byte for byte in both.
+version. Attention outputs are held per element to rtol * |plain| +
+atol: float32 2e-5 and 2e-5 (summation order), bfloat16 2**-7 and 2e-3
+(one bf16 ulp of the plain output: the two float32 results may round to
+neighbouring bf16 values, the limit chip_smoke.py holds the kernels
+to); the fused decode kernel's pools must match byte for byte in both.
 """
 
 import pytest
@@ -16,7 +18,8 @@ import torch
 
 from aigw_tpu_torch.ops import decode_fused, paged_attention
 
-TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+#: (rtol, atol) per dtype
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2.0 ** -7, 2e-3)}
 pytestmark = pytest.mark.gpu
 
 
@@ -58,8 +61,8 @@ def test_paged_decode_kernel(cuda, geom, dtype):
     want = paged_attention.paged_attention_decode_v2_plain(
         q, kp, vp, pt, lens, page_size=ps)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype][0],
+                               atol=TOL[dtype][1])
     assert not got[0].any()  # length 0 attends nothing
 
 
@@ -85,8 +88,8 @@ def test_ragged_prefill_kernel(cuda, geom, dtype):
     want = paged_attention.ragged_prefill_attention_plain(
         q, kp, vp, pt, cu, st, page_size=ps)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype][0],
+                               atol=TOL[dtype][1])
     assert not got[total:].any()  # rows owned by no sequence are zero
 
 
@@ -112,8 +115,8 @@ def test_fused_decode_kernel(cuda, geom, dtype):
         q, kn, vn, kp2, vp2, pt, positions, active, rope_theta=500000.0,
         page_size=ps)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
-                               atol=TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype][0],
+                               atol=TOL[dtype][1])
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
     assert not got[5].any()  # the inactive slot attends nothing
 
@@ -200,7 +203,7 @@ def test_fused_decode_quantized_kernel(cuda, geom, dtype, qdt):
         rope_theta=500000.0, page_size=ps)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0].float(), want[0].float(),
-                               rtol=TOL[dtype], atol=TOL[dtype])
+                               rtol=TOL[dtype][0], atol=TOL[dtype][1])
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert not got[0][5].any()  # the inactive slot attends nothing
@@ -218,3 +221,54 @@ def test_quantized_pool_needs_its_scales(cuda):
         decode_fused.fused_paged_decode(
             q, kv_new, kv_new, pool, pool, pt, pos, pos > 0,
             rope_theta=1e4, page_size=16)
+
+
+# -- K4 split decode and K5 verify ------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_paged_decode_split_kernel(cuda, geom, dtype):
+    """K4 against its plain version (K3's function), with lengths of 0,
+    one page and the whole table, at two batch sizes (8 splits and 1)."""
+    H, Hkv, D, ps = geom
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for B, P in ((6, 12), (64, 4)):
+        kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
+        pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
+            B, P).to(torch.int32)
+        lens = torch.randint(0, P * ps + 1, (B,), generator=g, device=cuda,
+                             dtype=torch.int32)
+        lens[:3] = torch.tensor([0, ps, P * ps])
+        q = r(B, H, D)
+        got = paged_attention.paged_attention_decode(q, kp, vp, pt, lens,
+                                                     page_size=ps)
+        want = paged_attention.paged_attention_decode_plain(
+            q, kp, vp, pt, lens, page_size=ps)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=TOL[dtype][0], atol=TOL[dtype][1])
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_paged_verify_kernel(cuda, geom, dtype):
+    """K5 against its plain version: windows at 0, across a page, at the
+    table's end (rows past it stop at its last key) and a slot that is
+    off (zeros)."""
+    H, Hkv, D, ps = geom
+    g = torch.Generator(device=cuda).manual_seed(6)
+    B, S, P = 5, 5, 6
+    kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
+    pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
+        B, P).to(torch.int32)
+    pos = torch.tensor([0, ps - 2, 3 * ps + 7, P * ps - 2, -(S + 1)],
+                       dtype=torch.int32, device=cuda)
+    q = r(B, S, H, D)
+    got = paged_attention.paged_attention_verify(q, kp, vp, pt, pos,
+                                                 page_size=ps)
+    want = paged_attention.paged_attention_verify_plain(q, kp, vp, pt, pos,
+                                                        page_size=ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype][0],
+                               atol=TOL[dtype][1])
+    assert not got[4].any()

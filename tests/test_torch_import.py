@@ -72,6 +72,21 @@ def test_quantized_serving_modules_are_covered():
         assert _build.library.cache_info().currsize == 0  # nothing built
 
 
+def test_speculation_modules_are_covered():
+    """The speculation module is in the scans above, and K4's and K5's
+    entry points are bound and counted without building anything."""
+    assert "aigw_tpu_torch.tpuserve.speculation" in MODULES
+    from aigw_tpu_torch.ops import _build, paged_attention
+
+    for name in ("aigw_paged_verify", "aigw_paged_decode_split"):
+        assert name in _build.SIGNATURES, name
+    for fn in (paged_attention.paged_attention_verify,
+               paged_attention.paged_attention_decode):
+        assert isinstance(fn.launches, int)
+    if not torch.cuda.is_available():
+        assert _build.library.cache_info().currsize == 0  # nothing built
+
+
 def test_cuda_request_without_cuda_raises():
     from aigw_tpu_torch.device import resolve_device
 

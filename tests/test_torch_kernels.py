@@ -27,13 +27,18 @@ from aigw_tpu.ops.pallas.decode_fused import (
     fused_paged_decode as jax_fused,
 )
 from aigw_tpu.ops.pallas.paged_attention import (
+    paged_attention_decode as jax_decode_v1,
     paged_attention_decode_v2 as jax_decode_v2,
+    paged_attention_verify as jax_verify,
     ragged_prefill_attention as jax_ragged,
 )
 from aigw_tpu_torch.ops.decode_fused import fused_paged_decode
 from aigw_tpu_torch.ops.paged_attention import (
+    paged_attention_decode,
     paged_attention_decode_v2,
+    paged_attention_verify,
     ragged_prefill_attention,
+    split_pages,
 )
 
 TOL = 2e-5
@@ -96,10 +101,117 @@ def test_paged_decode_v2_matches_pallas(lengths):
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
-# -- K2 fused decode ---------------------------------------------------------
+# -- K4 decode v1 and K5 verify ----------------------------------------------
 THETA = 10000.0
 _ML = {"float32": np.float32, "bfloat16": jnp.bfloat16}
 _TD = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: attention tolerance per dtype: summation order (f32), one bf16
+#: rounding of the output (bf16)
+ATOL = {"float32": TOL, "bfloat16": 1e-2}
+
+
+def _paged_inputs(rng, shape_q, Hkv, D, ps, n_pages, B, P, dtype):
+    """Seeded q, K/V pools (rounded once to ``dtype``) and a permuted
+    page table, as numpy arrays in the case dtype."""
+    def draw(shape):
+        return rng.standard_normal(shape, np.float32).astype(_ML[dtype])
+
+    q = draw(shape_q)
+    kp, vp = draw((n_pages * ps, Hkv, D)), draw((n_pages * ps, Hkv, D))
+    pt = rng.permutation(n_pages)[: B * P].reshape(B, P).astype(np.int32)
+    return q, kp, vp, pt
+
+
+def _tt(a, dtype):
+    return _t(np.asarray(a, np.float32)).to(_TD[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lengths", [[7, 33, 0], [64, 1, 17]])
+def test_paged_decode_v1_matches_pallas(lengths, dtype):
+    """K4's plain version against the reference's v1 kernel (grid
+    (B, Hkv, P)), including a sequence of length 0 and full tables."""
+    B, H, Hkv, D, ps, n_pages, P = 3, 4, 2, 32, 16, 16, 4
+    q, kp, vp, pt = _paged_inputs(np.random.default_rng(3), (B, H, D), Hkv,
+                                  D, ps, n_pages, B, P, dtype)
+    ln = np.asarray(lengths, np.int32)
+    want = np.asarray(jax_decode_v1(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
+        jnp.asarray(ln), page_size=ps, interpret=True), np.float32)
+    got = paged_attention_decode(
+        _tt(q, dtype), _tt(kp, dtype), _tt(vp, dtype), _t(pt), _t(ln),
+        page_size=ps).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=ATOL[dtype],
+                               atol=ATOL[dtype])
+
+
+@pytest.mark.parametrize("B,Hkv,P,want", [
+    (8, 8, 16, (2, 8)),  # Llama-3-8B heads at batch 8: 512 blocks
+    (1, 2, 4, (1, 4)),  # small batch: one page per split
+    (128, 8, 16, (16, 1)),  # the card is full without a split
+])
+def test_paged_decode_v1_split_from_shapes(B, Hkv, P, want):
+    """K4 sizes its split from the shapes alone: (pages per split,
+    splits), every page in exactly one split."""
+    pps, n = split_pages(B, Hkv, P)
+    assert (pps, n) == want
+    assert (n - 1) * pps < P <= n * pps
+
+
+VERIFY_CASES = {
+    # a window crossing a page boundary (pos 14..18 over page 16), a
+    # slot that is off (the engine passes -(S + 1)), a fresh sequence
+    "cross_page_off_slot": dict(B=3, S=5, H=4, Hkv=2, D=32, ps=16, P=4,
+                                positions=[14, -6, 0]),
+    # Llama-3-8B heads (group 4, D 128), page 128, windows at 126 and 300
+    "llama3_8b_heads": dict(B=2, S=4, H=32, Hkv=8, D=128, ps=128, P=3,
+                            positions=[126, 300]),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(VERIFY_CASES))
+def test_paged_verify_matches_pallas(case, dtype):
+    """K5's plain version against the reference's verify kernel in
+    interpret mode: query s attends keys <= pos0 + s; a slot that is off
+    comes out zero on both sides."""
+    c = VERIFY_CASES[case]
+    B, S, H, Hkv, D, ps, P = (c[k] for k in ("B", "S", "H", "Hkv", "D",
+                                             "ps", "P"))
+    n_pages = B * P + 2
+    q, kp, vp, pt = _paged_inputs(np.random.default_rng(4), (B, S, H, D),
+                                  Hkv, D, ps, n_pages, B, P, dtype)
+    pos = np.asarray(c["positions"], np.int32)
+    want = np.asarray(jax_verify(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
+        jnp.asarray(pos), page_size=ps, interpret=True), np.float32)
+    got = paged_attention_verify(
+        _tt(q, dtype), _tt(kp, dtype), _tt(vp, dtype), _t(pt), _t(pos),
+        page_size=ps).float().numpy()
+    np.testing.assert_allclose(got, want, rtol=ATOL[dtype],
+                               atol=ATOL[dtype])
+    off = pos <= -S
+    assert not got[off].any() and not want[off].any()
+
+
+def test_paged_verify_rows_are_decode_rows():
+    """Query s of K5's plain version equals K3's walk over pos0 + s + 1
+    keys, bit for bit, including a window that runs past the table (its
+    rows stop at the table's last key, as the reference's grid does)."""
+    B, S, H, Hkv, D, ps, P = 2, 5, 4, 2, 16, 8, 3
+    q, kp, vp, pt = _paged_inputs(np.random.default_rng(5), (B, S, H, D),
+                                  Hkv, D, ps, B * P, B, P, "float32")
+    pos = np.asarray([5, P * ps - 2], np.int32)
+    got = paged_attention_verify(_t(q), _t(kp), _t(vp), _t(pt), _t(pos),
+                                 page_size=ps)
+    for s in range(S):
+        ln = np.minimum(pos + s + 1, P * ps).astype(np.int32)
+        want = paged_attention_decode_v2(_t(q[:, s]), _t(kp), _t(vp),
+                                         _t(pt), _t(ln), page_size=ps)
+        assert torch.equal(got[:, s], want)
+
+
+# -- K2 fused decode ---------------------------------------------------------
 
 
 def _fused_case(B, H, Hkv, D, ps, n_pages, P, positions, active,

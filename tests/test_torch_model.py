@@ -437,3 +437,133 @@ def test_chained_rung_refuses_quantized_pool():
                            torch.zeros((1, 2), dtype=torch.int32), PS,
                            torch.ones(1, dtype=torch.bool),
                            attn_impl="chained")
+
+
+# -- speculative verify ---------------------------------------------------------
+def _verify_both(jp, tp, jcfg, tcfg, jkv, tkv, pt, tokens, positions, active,
+                 limits, rung):
+    """One verify step on each side: the reference's ``"pallas"`` (its
+    verify kernel, interpret mode) against the port's ``"chained"`` (K5's
+    plain version), or both gather paths (``""``). Returns (reference
+    logits, reference pool, port logits, port pool, valid rows)."""
+    jimpl, timpl = {"chained": ("pallas", "chained"), "gather": ("", "")}[
+        rung]
+    jl, jkv = jllama.verify_step(
+        jp, jcfg, jnp.asarray(tokens), jnp.asarray(positions), jkv,
+        jnp.asarray(pt), PS, jnp.asarray(active), jnp.asarray(limits),
+        attn_impl=jimpl)
+    tl, tkv = tllama.verify_step(
+        tp, tcfg, *(torch.from_numpy(a) for a in (tokens, positions)), tkv,
+        torch.from_numpy(pt), PS, torch.from_numpy(active),
+        torch.from_numpy(limits), attn_impl=timpl)
+    S = tokens.shape[1]
+    pos = positions[:, None] + np.arange(S)[None]
+    valid = active[:, None] & (pos < limits[:, None])
+    return np.asarray(jl), jkv, tl.numpy(), tkv, valid
+
+
+@pytest.mark.parametrize("rung", ["chained", "gather"])
+@pytest.mark.parametrize("name", sorted(CFGS))
+def test_verify_step_matches_jax(name, rung):
+    """After a prefill, a 5-wide verify step with an inactive slot and a
+    slot fenced by its limit mid-window (positions 7..11, limit 9): the
+    logits of every valid row within 1e-4, and the pools (writes past
+    the limit fenced out) within 1e-5 outside the dump page."""
+    lens = [5, 7, 3]
+    (jcfg, tcfg, jp, tp, pt, _jl, jkv, _tl, tkv) = _prefill_both(name, lens)
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, jcfg.vocab_size, (3, 5)).astype(np.int32)
+    positions = np.asarray(lens, np.int32)
+    active = np.array([True, True, False])
+    limits = np.array([40, 9, 40], np.int32)
+    jl, jkv, tl, tkv, valid = _verify_both(
+        jp, tp, jcfg, tcfg, jnp.asarray(jkv), tkv, pt, tokens, positions,
+        active, limits, rung)
+    np.testing.assert_allclose(tl[valid], jl[valid], rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+    n = jkv.shape[2] - PS
+    np.testing.assert_allclose(tkv.numpy()[:, :, :n],
+                               np.asarray(jkv)[:, :, :n],
+                               rtol=POOL_TOL, atol=POOL_TOL)
+    # the fence: slot 1 wrote positions 7 and 8 only
+    for p_ in (9, 10, 11):
+        row = pt[1, p_ // PS] * PS + p_ % PS
+        assert not tkv[:, :, row].any()
+
+
+@pytest.mark.parametrize("rung", ["chained", "gather"])
+def test_verify_step_near_max_seq_len(rung):
+    """A window at max_seq_len - 2 (positions past the page table) and
+    an inactive slot parked at max_seq_len: no page index past the
+    table, and the valid rows match the reference."""
+    lens = [5, 7]
+    max_pages = 6
+    (jcfg, tcfg, jp, tp, pt, _jl, jkv, _tl, tkv) = _prefill_both(
+        "tiny", lens, max_pages=max_pages)
+    end = max_pages * PS
+    tokens = np.arange(10, dtype=np.int32).reshape(2, 5)
+    positions = np.array([end - 2, end], np.int32)
+    active = np.array([True, False])
+    limits = np.array([end, end], np.int32)
+    jl, jkv, tl, tkv, valid = _verify_both(
+        jp, tp, jcfg, tcfg, jnp.asarray(jkv), tkv, pt, tokens, positions,
+        active, limits, rung)
+    assert valid.sum() == 2
+    np.testing.assert_allclose(tl[valid], jl[valid], rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+    n = jkv.shape[2] - PS
+    np.testing.assert_allclose(tkv.numpy()[:, :, :n],
+                               np.asarray(jkv)[:, :, :n],
+                               rtol=POOL_TOL, atol=POOL_TOL)
+
+
+@pytest.mark.parametrize("wmode,qdt", [("", "int8"), ("int4", "int4")],
+                         ids=["bf_kv8", "w4_kv4"])
+def test_verify_step_quantized_matches_jax(wmode, qdt):
+    """A quantized pool verifies on the gather path on both sides (the
+    rows dequantized in float32 and rounded to bf16): valid rows' logits
+    within 1e-4, pools as ``_assert_pools_close``; the chained path
+    refuses the pool."""
+    lens = [5, 7, 3]
+    jcfg, tcfg = QCFG
+    (jp, tp, pt, _jl, jkv, _tl, tkv) = _qprefill_both(wmode, qdt, lens, 32)
+    rng = np.random.default_rng(8)
+    tokens = rng.integers(0, jcfg.vocab_size, (3, 4)).astype(np.int32)
+    positions = np.asarray(lens, np.int32)
+    active = np.array([True, True, False])
+    limits = np.array([40, 9, 40], np.int32)
+    jl, jkv, tl, tkv, valid = _verify_both(
+        jp, tp, jcfg, tcfg, jkv, tkv, pt, tokens, positions, active, limits,
+        "gather")
+    np.testing.assert_allclose(tl[valid], jl[valid], rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+    _assert_pools_close(tkv, jkv)
+    with pytest.raises(NotImplementedError, match="gather"):
+        tllama.verify_step(tp, tcfg, torch.from_numpy(tokens),
+                           torch.from_numpy(positions), tkv,
+                           torch.from_numpy(pt), PS,
+                           torch.from_numpy(active),
+                           torch.from_numpy(limits), attn_impl="chained")
+
+
+def test_verify_step_equals_sequential_decode():
+    """The port's verify logits at every position equal decode steps run
+    one token at a time over the same inputs (the reference's own
+    property, ``tests/test_spec_decode.py``), in float32 within 1e-4."""
+    lens = [5]
+    (jcfg, tcfg, jp, tp, pt, _jl, _jkv, _tl, tkv0) = _prefill_both(
+        "tiny", lens)
+    inputs = np.array([[9, 2, 6, 5]], np.int32)
+    one = np.ones(1, bool)
+    ver, _ = tllama.verify_step(
+        tp, tcfg, torch.from_numpy(inputs), torch.tensor([5]), tkv0.clone(),
+        torch.from_numpy(pt), PS, torch.from_numpy(one), torch.tensor([64]),
+        attn_impl="chained")
+    tkv = tkv0.clone()
+    for d in range(inputs.shape[1]):
+        lg, tkv = tllama.decode_step(
+            tp, tcfg, torch.from_numpy(inputs[:, d]), torch.tensor([5 + d]),
+            tkv, torch.from_numpy(pt), PS, torch.from_numpy(one),
+            attn_impl="chained")
+        np.testing.assert_allclose(ver[0, d].numpy(), lg[0].numpy(),
+                                   rtol=LOGIT_TOL, atol=LOGIT_TOL)

@@ -172,6 +172,33 @@ def test_models_health_state(server):
                                              "constrained_decoding"}
 
 
+SPEC_KEYS = ("spec_accepted", "spec_drafted", "spec_accept_rate",
+             "spec_draft_len", "spec_rung_ups", "spec_rung_downs",
+             "spec_lookahead_slots")
+
+
+def test_state_carries_speculation_keys():
+    """A speculating replica exports the reference's seven ``spec_*``
+    /state keys, and a pinned greedy request moves them."""
+    srv = TPUServeServer(MODEL, tengine.EngineConfig(
+        **CFG, spec_tokens=3, spec_adaptive=False), device="cpu", port=0,
+        param_dtype="float32")
+    srv.start()
+    try:
+        status, _, raw = _post(srv, "/v1/completions", {
+            "model": MODEL, "prompt": "abcab", "max_tokens": 16,
+            "temperature": 0, "logit_bias": {"97": 100}})
+        assert status == 200
+        assert json.loads(raw)["choices"][0]["text"] == "a" * 16
+        _, state = _get(srv, "/state")
+    finally:
+        srv.stop()
+    assert set(SPEC_KEYS) <= set(state)
+    assert state["spec_accepted"] > 0 and state["spec_draft_len"] == 3
+    assert state["spec_accept_rate"] == round(
+        state["spec_accepted"] / state["spec_drafted"], 4)
+
+
 @pytest.mark.parametrize("body", [
     {"messages": MSGS},  # no model
     {"model": MODEL, "messages": MSGS,
