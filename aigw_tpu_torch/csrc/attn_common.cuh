@@ -1,5 +1,7 @@
 // Shared device code of the paged-attention kernels (K1 ragged prefill,
-// K2/K7 fused decode, K3 chained decode, K4 split decode, K5 verify).
+// K2/K7 fused decode, K3 chained decode, K4 split decode, K5 verify),
+// and the asynchronous-copy and split-fold helpers that K2/K7 and K6
+// (qmatmul.cu) share.
 //
 // Work split. One warp carries the query rows of one query position
 // that share a KV head (the GQA group, at most G = 4 or 8 rows) as
@@ -22,13 +24,17 @@
 //
 // Bound on the H100: the decode walks read every cached K/V byte once
 // for ~2 FLOPs per byte, far below the card's ~295 FLOPs/byte balance
-// point, so they are bound by HBM bytes; the loads are 16-byte vectors,
-// consecutive lanes on consecutive addresses of a K/V row, and a warp
-// issues the loads of several key chunks before it reduces any of them
-// (warp_walk's U), rescaling its softmax state once per step.
-// Prefill does tens of FLOPs per byte and runs on the CUDA cores in
-// float32. Tensor cores (mma/wgmma), TMA and deeper pipelining are
-// later work.
+// point, so their floor is HBM bytes. What holds the register walk
+// (warp_walk: K1, K3-K5) above it is latency: each warp runs a dependent
+// chain per step (a page-table read, then U = 4 or 2 16-byte K/V loads
+// in flight, shuffles, a rescale). The fused decode kernel (K2/K7)
+// removes that chain: its blocks stage whole chunks of keys into a
+// shared-memory ring with cp.async (page rows loaded once per block)
+// and the warps run warp_step on the staged chunk while the next ones
+// are in flight; its split over keys then folds in the same launch
+// through last_arrival. K1, K3, K4 and K5 keep the register walk until
+// their own redesign. Prefill does tens of FLOPs per byte and runs on
+// the CUDA cores in float32.
 
 #pragma once
 
@@ -104,11 +110,8 @@ struct RowState {
   }
 };
 
-// Pool views: how a walk reads the K and V elements [e0, e0 + 8) of
-// pool slot `slot`, KV head h, as float32. The pointers carry no
-// __restrict__: the fused decode kernel reads rows (and scales) it wrote
-// earlier in the same launch, which the non-coherent read-only load path
-// must not serve.
+// Pool view of the register walk: how it reads the K and V elements
+// [e0, e0 + 8) of pool slot `slot`, KV head h, as float32.
 template <typename TKV>
 struct NativePool {  // [slots, Hkv, D] float32 / bfloat16
   const TKV* k;
@@ -119,53 +122,6 @@ struct NativePool {  // [slots, Hkv, D] float32 / bfloat16
     const int64_t off = (slot * Hkv + h) * D + e0;
     load8(k + off, kx);
     load8(v + off, vx);
-  }
-};
-
-// int8 rows [slots, Hkv, D] with float32 scales [slots, Hkv]: element
-// value q * scale, one float32 product (the plain version's dequant).
-struct Int8Pool {
-  const int8_t* k;
-  const int8_t* v;
-  const float* ks;
-  const float* vs;
-  __device__ __forceinline__ static void deq(uint2 u, float s,
-                                             float (&x)[VEC]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[i] = __fmul_rn((float)(int8_t)(u.x >> (8 * i)), s);
-      x[4 + i] = __fmul_rn((float)(int8_t)(u.y >> (8 * i)), s);
-    }
-  }
-  __device__ __forceinline__ void load(int64_t slot, int Hkv, int h, int D,
-                                       int e0, float (&kx)[VEC],
-                                       float (&vx)[VEC]) const {
-    const int64_t row = slot * Hkv + h;
-    deq(*reinterpret_cast<const uint2*>(k + row * D + e0), ks[row], kx);
-    deq(*reinterpret_cast<const uint2*>(v + row * D + e0), vs[row], vx);
-  }
-};
-
-// int4 rows packed two per byte [slots, Hkv, D / 2] (element 2i in the
-// low nibble of byte i, two's complement), float32 scales [slots, Hkv].
-struct Int4Pool {
-  const uint8_t* k;
-  const uint8_t* v;
-  const float* ks;
-  const float* vs;
-  __device__ __forceinline__ static void deq(uint32_t u, float s,
-                                             float (&x)[VEC]) {
-#pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      x[e] = __fmul_rn((float)((int32_t)(u << (28 - 4 * e)) >> 28), s);
-  }
-  __device__ __forceinline__ void load(int64_t slot, int Hkv, int h, int D,
-                                       int e0, float (&kx)[VEC],
-                                       float (&vx)[VEC]) const {
-    const int64_t row = slot * Hkv + h;
-    const int64_t off = row * (D / 2) + e0 / 2;
-    deq(*reinterpret_cast<const uint32_t*>(k + off), ks[row], kx);
-    deq(*reinterpret_cast<const uint32_t*>(v + off), vs[row], vx);
   }
 };
 
@@ -188,14 +144,77 @@ __device__ __forceinline__ void load_key(const Pool& pool,
   }
 }
 
-// One warp's online-softmax walk over the keys c * NG + (lane group) for
-// key chunks c = c0, c0 + c_step, ... below n_keys, U chunks per step:
-// U independent K/V loads in flight per lane, and one softmax rescale
-// per step instead of one per key.
+// One online-softmax step of a warp over U keys per lane group: the
+// lane group's K/V slices kx[u], vx[u] of key u (valid[u] false: skipped),
+// LG = D / VEC lanes per key. One softmax rescale per step, not per key.
 // q holds this lane's slice of the query rows, already divided by
 // sqrt(D); rows >= grp are skipped (grp is uniform across the warp, so
-// are the shuffles). Ends with the lane groups' states merged: every
-// lane group holds the warp's state.
+// are the shuffles).
+template <int G, int U>
+__device__ __forceinline__ void warp_step(RowState<G>& st,
+                                          const float (&q)[G][VEC], int grp,
+                                          int LG, const float (&kx)[U][VEC],
+                                          const float (&vx)[U][VEC],
+                                          const bool (&valid)[U]) {
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    if (r >= grp) break;
+    float s[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      s[u] = 0.f;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) s[u] = fmaf(q[r][e], kx[u][e], s[u]);
+    }
+    for (int o = LG / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) s[u] += __shfl_xor_sync(FULL, s[u], o);
+    }
+    float m_new = st.m[r];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (valid[u]) m_new = fmaxf(m_new, s[u]);
+    const float alpha = __expf(st.m[r] - m_new);
+    st.l[r] *= alpha;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) st.acc[r][e] *= alpha;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!valid[u]) continue;
+      const float p = __expf(s[u] - m_new);
+      st.l[r] += p;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        st.acc[r][e] = fmaf(p, vx[u][e], st.acc[r][e]);
+    }
+    st.m[r] = m_new;
+  }
+}
+
+// Merge the lane groups of a warp (lanes with the same e0 sit LG apart):
+// afterwards every lane group holds the warp's state.
+template <int G>
+__device__ __forceinline__ void merge_lane_groups(RowState<G>& st, int grp,
+                                                  int LG) {
+  for (int o = LG; o < WARP; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      if (r >= grp) break;
+      const float m2 = __shfl_xor_sync(FULL, st.m[r], o);
+      const float l2 = __shfl_xor_sync(FULL, st.l[r], o);
+      float acc2[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        acc2[e] = __shfl_xor_sync(FULL, st.acc[r][e], o);
+      st.merge_row(r, m2, l2, acc2);
+    }
+  }
+}
+
+// One warp's online-softmax walk over the keys c * NG + (lane group) for
+// key chunks c = c0, c0 + c_step, ... below n_keys, U chunks per step:
+// U independent K/V loads in flight per lane (each a page-table read,
+// then the row's loads). Ends with the lane groups' states merged.
 template <int G, int U, typename Pool>
 __device__ __forceinline__ void warp_walk(RowState<G>& st,
                                           const float (&q)[G][VEC], int grp,
@@ -218,77 +237,21 @@ __device__ __forceinline__ void warp_walk(RowState<G>& st,
       load_key(pool, page_row, page_size, Hkv, h, D, e0, key, n_keys,
                kx[u], vx[u]);
     }
-#pragma unroll
-    for (int r = 0; r < G; ++r) {
-      if (r >= grp) break;
-      float s[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        s[u] = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) s[u] = fmaf(q[r][e], kx[u][e], s[u]);
-      }
-      for (int o = LG / 2; o > 0; o >>= 1) {
-#pragma unroll
-        for (int u = 0; u < U; ++u) s[u] += __shfl_xor_sync(FULL, s[u], o);
-      }
-      float m_new = st.m[r];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (valid[u]) m_new = fmaxf(m_new, s[u]);
-      const float alpha = __expf(st.m[r] - m_new);
-      st.l[r] *= alpha;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) st.acc[r][e] *= alpha;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (!valid[u]) continue;
-        const float p = __expf(s[u] - m_new);
-        st.l[r] += p;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          st.acc[r][e] = fmaf(p, vx[u][e], st.acc[r][e]);
-      }
-      st.m[r] = m_new;
-    }
+    warp_step<G, U>(st, q, grp, LG, kx, vx, valid);
   }
-  // merge the lane groups (lanes with the same e0 sit LG apart)
-  for (int o = LG; o < WARP; o <<= 1) {
-#pragma unroll
-    for (int r = 0; r < G; ++r) {
-      if (r >= grp) break;
-      const float m2 = __shfl_xor_sync(FULL, st.m[r], o);
-      const float l2 = __shfl_xor_sync(FULL, st.l[r], o);
-      float acc2[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        acc2[e] = __shfl_xor_sync(FULL, st.acc[r][e], o);
-      st.merge_row(r, m2, l2, acc2);
-    }
-  }
+  merge_lane_groups<G>(st, grp, LG);
 }
 
-// Decode: the block's warps walk interleaved key chunks of one
-// (sequence, KV head) and merge their states through shared memory;
-// emit(r, d, m, l, a) then receives, once per element d of each group
-// row r, the block's merged running max m, denominator l and
-// unnormalized accumulator a. smem holds nwarps * G * (D + 2) floats.
-// Every thread of the block must call it.
-template <int G, typename Pool, typename Emit>
-__device__ __forceinline__ void block_attend(const float (&q)[G][VEC],
-                                             int grp, const Pool& pool,
-                                             const int* __restrict__ page_row,
-                                             int page_size, int Hkv, int h,
-                                             int D, int n_keys, float* smem,
-                                             Emit emit) {
+// The block's warps merge their states (each already merged over its
+// lane groups) through shared memory; emit(r, d, m, l, a) then receives,
+// once per element d of each group row r, the block's merged running max
+// m, denominator l and unnormalized accumulator a. smem holds nwarps * G
+// * (D + 2) floats. Every thread of the block must call it.
+template <int G, typename Emit>
+__device__ __forceinline__ void block_merge(const RowState<G>& st, int grp,
+                                            int D, float* smem, Emit emit) {
   const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   const int nwarps = blockDim.x / WARP;
-  // decode walks are latency-bound: more chunks in flight per lane
-  constexpr int U = G <= 4 ? 4 : 2;
-  RowState<G> st;
-  st.init();
-  warp_walk<G, U>(st, q, grp, pool, page_row, page_size, Hkv, h, D,
-                  n_keys, warp, nwarps);
   float* s_acc = smem;                       // [nwarps][G][D]
   float* s_m = s_acc + nwarps * G * D;       // [nwarps][G]
   float* s_l = s_m + nwarps * G;             // [nwarps][G]
@@ -321,6 +284,25 @@ __device__ __forceinline__ void block_attend(const float (&q)[G][VEC],
   }
 }
 
+// Decode: the block's warps walk interleaved key chunks of one
+// (sequence, KV head) and merge their states (block_merge, same emit
+// and smem).
+template <int G, typename Pool, typename Emit>
+__device__ __forceinline__ void block_attend(const float (&q)[G][VEC],
+                                             int grp, const Pool& pool,
+                                             const int* __restrict__ page_row,
+                                             int page_size, int Hkv, int h,
+                                             int D, int n_keys, float* smem,
+                                             Emit emit) {
+  // decode walks are latency-bound: more chunks in flight per lane
+  constexpr int U = G <= 4 ? 4 : 2;
+  RowState<G> st;
+  st.init();
+  warp_walk<G, U>(st, q, grp, pool, page_row, page_size, Hkv, h, D,
+                  n_keys, threadIdx.x / WARP, blockDim.x / WARP);
+  block_merge<G>(st, grp, D, smem, emit);
+}
+
 // block_attend writing the group's rows out[r * D + d] =
 // acc / max(l, 1e-30) (a row with no keys comes out zero).
 template <int G, typename TQ, typename Pool>
@@ -334,6 +316,60 @@ __device__ __forceinline__ void decode_attend(const float (&q)[G][VEC],
                   [out, D](int r, int d, float, float l, float a) {
                     out[r * D + d] = from_f<TQ>(a / fmaxf(l, 1e-30f));
                   });
+}
+
+// -- asynchronous copies into shared memory (K2/K7's page ring, K6's
+// weight ring) -----------------------------------------------------------
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// 16 bytes global -> shared through L2 only; src_bytes < 16 zero-fills
+// the rest (0: nothing is read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// N = 4 or 8 bytes global -> shared.
+template <int N>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(N));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// -- the fold of split partials inside one launch (K2/K7, K6) -------------
+// Every block of a group of `arrivals` blocks calls this once, after
+// writing its partial result to global memory; it returns true, in every
+// thread, in the block that arrives last, which then folds the group's
+// partials (reading them with __ldcg, past its SM's L1). The fence
+// before the count orders each block's partial stores before its
+// arrival; the one after it orders the last block's reads after every
+// arrival. The last block resets the counter to 0, so the next launch
+// finds it zero.
+__device__ __forceinline__ bool last_arrival(unsigned* counter,
+                                             unsigned arrivals) {
+  __shared__ unsigned s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned prev = atomicAdd(counter, 1u);
+    s_last = prev + 1 == arrivals;
+    if (s_last) atomicExch(counter, 0u);
+  }
+  __syncthreads();
+  const bool last = s_last != 0;
+  if (last) __threadfence();
+  return last;
 }
 
 }  // namespace aigw

@@ -10,39 +10,52 @@
 // into its page, and the online-softmax walk over the slot's pool rows
 // up to and including the new one.
 //
-// What bounds it on the H100: like the chained decode kernel, reading
-// the cached K/V bytes of the batch (~2 FLOPs per byte). Fusing RoPE
-// and the append into the walk saves the separate rope, scatter and
-// their HBM round trips of the chained rung; the walk itself is the
-// shared decode_attend (attn_common.cuh): eight warps per (b, h) over
-// interleaved key chunks, 16-byte loads, the softmax state in registers.
-// K7 reads (D + 4) bytes (int8) or (D / 2 + 4) bytes (int4) per cached
-// row and head instead of 2 D: each lane loads its 8 elements with one
-// 8- or 4-byte load plus the row's scale and dequantizes in registers
-// (Int8Pool / Int4Pool), so the quantized pages never exist at full
-// width in HBM.
+// What bounds it on the H100: reading the cached K/V bytes of the batch
+// (~2 FLOPs per byte), ~10 us for batch 8 at 1000 cached tokens in bf16.
+// The first version took 78 us there: its grid (B, Hkv) gave 64 blocks
+// to 132 SMs, and each warp ran a dependent chain per step (a page-table
+// read, then U = 4 16-byte K/V loads in flight, shuffles, a rescale).
+// This version:
+// - splits each sequence's keys over blocks: grid (B, Hkv, n_split),
+//   split s walks keys [s * pps * page, (s + 1) * pps * page), with
+//   (pps, n_split) from the shapes alone (split_pages in
+//   ops/decode_fused.py, no host sync); splits past the sequence exit at
+//   once;
+// - stages keys through shared memory: the block loads its split's page
+//   rows once, then 16-byte cp.async copies bring the K and V rows (the
+//   quantized rungs: their int8 or int4 bytes and scales, a half or a
+//   quarter of the bytes) of 4096 / D keys per stage into a 3-stage
+//   ring, so two stages are in flight while the warps run the online
+//   softmax on the third (attn_common.cuh's warp_step, two keys per lane
+//   group per stage). No load waits on a page-table read of its own;
+// - folds the splits in the same launch: each split writes its float32
+//   (m, l, acc) partial, and the last block of the (b, h) to arrive
+//   (last_arrival) folds them in split order and writes the output. A
+//   sequence whose keys fit one split writes its output directly.
+// The dequantization stays in registers (q * scale, one float32
+// product, the plain version's), so the quantized pages never exist at
+// full width in HBM. Measured (PERF.md), this version is no longer
+// bound by its bytes but by the walk's per-key instructions: 16 lanes
+// share a key, so every row and key pays a 4-level shuffle, and int4
+// pages run barely faster than bf16 ones for a quarter of the bytes.
 //
-// Design. The TPU kernel folded the new token in at its finalize step
-// because its pipeline wrote the append block only at the end of the
-// page axis. Here the block appends first and then walks rows
-// [0, position] — scatter-then-walk, the same arithmetic as the plain
-// version (paged_decode_walk after the scatter). Rounding follows the
-// reference: RoPE in float32 without FMA contraction (so the rotated row
-// is bit-identical to the PyTorch elementwise version), q rounded to its
-// dtype and then divided by sqrt(D), the new key rounded to k_new's
-// dtype and then stored in the pool dtype. K7 quantizes the new K and V
-// rows by the kvq recipe: absmax over the head's D elements (a block
-// reduction; max is exact in any order), scale = absmax * (1 / qmax) (1
-// when zero; the float32 reciprocal, as the reference's compiled
-// programs compute it), q = clip(rint(x / scale), +-qmax) with IEEE
-// division and round-half-to-even, so the bytes equal the plain
-// version's. The walk
-// then reads the appended row back, so the current token attends
-// exactly the q * scale that later steps read. In the int4 pool one
-// thread owns an element pair and writes its whole byte (both nibbles):
-// no two threads share a byte.
+// Numerics follow the reference: RoPE in float32 without FMA
+// contraction (so the rotated row is bit-identical to the PyTorch
+// elementwise version), q rounded to its dtype and then divided by
+// sqrt(D), the new key rounded to k_new's dtype and then stored in the
+// pool dtype. K7 quantizes the new K and V rows by the kvq recipe:
+// absmax over the head's D elements (a block reduction; max is exact in
+// any order), scale = absmax * (1 / qmax) (1 when zero; the float32
+// reciprocal, as the reference's compiled programs compute it), q =
+// clip(rint(x / scale), +-qmax) with IEEE division and
+// round-half-to-even, so the bytes equal the plain version's. The walk
+// then reads the appended row back, so the current token attends exactly
+// the q * scale that later steps read. In the int4 pool one thread owns
+// an element pair and writes its whole byte (both nibbles).
 //
-// Append semantics (pool bytes must match the reference):
+// Append semantics (pool bytes must match the reference); only the
+// block whose split holds the position appends (split 0 for an inactive
+// slot):
 // - active slot, position % page != 0: write row position % page of
 //   page page_table[b, position / page], head h (and its scales);
 // - active slot, position % page == 0 (a fresh page): zero every row of
@@ -50,16 +63,20 @@
 // - inactive slot: zero every row of the dump page (the pool's last
 //   page) for head h, write a zero row with scale 0, and attend nothing
 //   (output zeros).
-// Blocks of different heads write disjoint columns. All inactive slots
-// write the same zeros into the dump page, so their overlapping writes
-// are benign; no page table references the dump page, so no block
-// reads it.
+// No other block reads the appended row or the zeroed rows (all at or
+// past the position, in the appending split's own pages), so the blocks
+// need no ordering. Blocks of different heads write disjoint columns.
+// All inactive slots write the same zeros into the dump page, so their
+// overlapping writes are benign; no page table references the dump
+// page, so no block reads it.
 
 #include "attn_common.cuh"
 
 namespace aigw {
 
-constexpr int FUSED_WARPS = 8;  // warps sharing one (b, h)
+constexpr int FUSED_WARPS = 8;  // warps sharing one (b, h, split)
+constexpr int RING = 3;         // stages of the key ring
+constexpr int STAGE_STEPS = 2;  // keys per lane group per ring stage
 
 // RoPE of element pair (x[2i], x[2i+1]) with the interleaved tables
 // (column d carries angle(pos, d / 2)); no FMA contraction.
@@ -98,11 +115,201 @@ __device__ __forceinline__ int quantize(float x, float scale, float qmax) {
   return (int)fminf(fmaxf(rintf(__fdiv_rn(x, scale)), -qmax), qmax);
 }
 
-// grid (B, Hkv), block FUSED_WARPS warps. QBITS 0: native pool of TKV;
-// 8: int8 pool (TKV int8_t); 4: packed int4 pool (TKV uint8_t). The
-// scale pointers are used only when QBITS > 0.
+// Keys per ring stage: STAGE_STEPS per lane group of every warp (D / 8
+// lanes per key, 256 / D lane groups per warp).
+__host__ __device__ constexpr int stage_keys(int D) {
+  return STAGE_STEPS * FUSED_WARPS * 256 / D;
+}
+
+// Bytes of one stored pool row of one head: QBITS 0: D elements of TKV;
+// 8: D int8; 4: D / 2 bytes of packed int4.
+template <typename TKV, int QBITS>
+__host__ __device__ constexpr int row_bytes(int D) {
+  return QBITS == 4 ? D / 2 : D * (int)sizeof(TKV);
+}
+
+// One ring stage: the K rows of its CK keys, their V rows ([CK][RB]
+// bytes each), then (quantized pools) their K and V scales ([CK] float32
+// each).
+template <typename TKV, int QBITS>
+__host__ __device__ constexpr int stage_bytes(int D) {
+  return 2 * stage_keys(D) * row_bytes<TKV, QBITS>(D) +
+         (QBITS > 0 ? 8 * stage_keys(D) : 0);
+}
+
+// The pool rows of KV head h as the ring stages and reads them. The
+// pool pointers carry no __restrict__: the appending block reads back
+// the row (and scales) it wrote earlier in the same launch.
+template <typename TKV, int QBITS>
+struct StagedPool {
+  const unsigned char* k;  // [slots, Hkv, RB] bytes
+  const unsigned char* v;
+  const float* ks;  // [slots, Hkv] (QBITS > 0)
+  const float* vs;
+  int Hkv, h, D;
+
+  __device__ __forceinline__ int bytes() const {  // of one ring stage
+    return stage_bytes<TKV, QBITS>(D);
+  }
+
+  // Copy keys [key0, key0 + CK) below n_keys of the split whose page
+  // rows are `pages` into the stage at dst (cp.async; the caller
+  // commits). Keys at or past n_keys are not copied.
+  __device__ __forceinline__ void fetch(unsigned char* dst, const int* pages,
+                                        int page_size, int key0,
+                                        int n_keys) const {
+    const int CK = stage_keys(D), RB = row_bytes<TKV, QBITS>(D);
+    const int cu = min(16, RB);  // bytes per copy
+    // copies per row and keys per stage are powers of two: shifts
+    const int upr_sh = __ffs(RB / cu) - 1, ck_sh = __ffs(CK) - 1;
+    const int n_rows = 2 * CK << upr_sh;
+    const int total = n_rows + (QBITS > 0 ? 2 * CK : 0);
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      int kv, j, u = -1;
+      if (i < n_rows) {
+        kv = i >> (ck_sh + upr_sh);
+        j = (i >> upr_sh) & (CK - 1);
+        u = i & ((1 << upr_sh) - 1);
+      } else {
+        kv = (i - n_rows) >> ck_sh;
+        j = (i - n_rows) & (CK - 1);
+      }
+      const int key = key0 + j;
+      if (key >= n_keys) continue;
+      const int64_t row =
+          ((int64_t)pages[key / page_size] * page_size + key % page_size) *
+              Hkv + h;
+      if (u < 0) {
+        cp_async_small<4>(dst + 2 * CK * RB + (kv * CK + j) * 4,
+                          (kv ? vs : ks) + row);
+        continue;
+      }
+      const unsigned char* src = (kv ? v : k) + row * RB + u * cu;
+      unsigned char* d = dst + (kv * CK + j) * RB + u * cu;
+      if (cu == 16) {
+        cp_async16(d, src);
+      } else if (cu == 8) {
+        cp_async_small<8>(d, src);
+      } else {
+        cp_async_small<4>(d, src);
+      }
+    }
+  }
+
+  // K and V elements [e0, e0 + 8) of the stage's key j, as float32.
+  __device__ __forceinline__ void read(const unsigned char* stage, int j,
+                                       int e0, float (&kx)[VEC],
+                                       float (&vx)[VEC]) const {
+    const int CK = stage_keys(D), RB = row_bytes<TKV, QBITS>(D);
+    const unsigned char* kr = stage + j * RB;
+    const unsigned char* vr = stage + (CK + j) * RB;
+    if constexpr (QBITS == 0) {
+      load8(reinterpret_cast<const TKV*>(kr) + e0, kx);
+      load8(reinterpret_cast<const TKV*>(vr) + e0, vx);
+    } else {
+      const float* sc = reinterpret_cast<const float*>(stage + 2 * CK * RB);
+      if constexpr (QBITS == 8) {
+        deq8(*reinterpret_cast<const uint2*>(kr + e0), sc[j], kx);
+        deq8(*reinterpret_cast<const uint2*>(vr + e0), sc[CK + j], vx);
+      } else {
+        deq4(*reinterpret_cast<const uint32_t*>(kr + e0 / 2), sc[j], kx);
+        deq4(*reinterpret_cast<const uint32_t*>(vr + e0 / 2), sc[CK + j], vx);
+      }
+    }
+  }
+
+  // int8: element value q * scale, one float32 product (the plain
+  // version's dequant).
+  __device__ __forceinline__ static void deq8(uint2 u, float s,
+                                              float (&x)[VEC]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[i] = __fmul_rn((float)(int8_t)(u.x >> (8 * i)), s);
+      x[4 + i] = __fmul_rn((float)(int8_t)(u.y >> (8 * i)), s);
+    }
+  }
+  // int4 packed two per byte (element 2i in the low nibble of byte i,
+  // two's complement).
+  __device__ __forceinline__ static void deq4(uint32_t u, float s,
+                                              float (&x)[VEC]) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      x[e] = __fmul_rn((float)((int32_t)(u << (28 - 4 * e)) >> 28), s);
+  }
+};
+
+// The block's online-softmax walk over keys [0, n_keys) of one split
+// (its page rows in `pages`), staged through `ring` (RING stages; it
+// holds at least FUSED_WARPS * G * (D + 2) floats, which the final
+// block_merge reuses); then block_merge with `emit`. Every thread of the
+// block must call it.
+template <int G, typename SP, typename Emit>
+__device__ __forceinline__ void staged_attend(const float (&q)[G][VEC],
+                                              int grp, const SP& pool,
+                                              const int* pages, int page_size,
+                                              int D, int n_keys,
+                                              unsigned char* ring, Emit emit) {
+  const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
+  const int LG = D / VEC, NG = WARP / LG;
+  const int sl = lane / LG, e0 = (lane % LG) * VEC;
+  const int CK = stage_keys(D);  // = STAGE_STEPS * FUSED_WARPS * NG
+  const int sb = pool.bytes();
+  const int n_chunks = (n_keys + CK - 1) / CK;
+#pragma unroll
+  for (int s = 0; s < RING - 1; ++s) {
+    if (s < n_chunks)
+      pool.fetch(ring + s * sb, pages, page_size, s * CK, n_keys);
+    cp_async_commit();
+  }
+  RowState<G> st;
+  st.init();
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<RING - 2>();
+    __syncthreads();  // chunk c landed; slot (c - 1) % RING is free
+    const int nx = c + RING - 1;
+    if (nx < n_chunks)
+      pool.fetch(ring + (nx % RING) * sb, pages, page_size, nx * CK, n_keys);
+    cp_async_commit();
+    const unsigned char* stage = ring + (c % RING) * sb;
+    float kx[STAGE_STEPS][VEC], vx[STAGE_STEPS][VEC];
+    bool valid[STAGE_STEPS];
+#pragma unroll
+    for (int u = 0; u < STAGE_STEPS; ++u) {
+      const int j = (u * FUSED_WARPS + warp) * NG + sl;
+      valid[u] = c * CK + j < n_keys;
+      if (valid[u]) {
+        pool.read(stage, j, e0, kx[u], vx[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kx[u][e] = vx[u][e] = 0.f;
+      }
+    }
+    // every one of the G rows (rows past grp have a zero q and are never
+    // emitted): with no exit inside the row loop, the compiler
+    // interleaves the rows' shuffle and exp chains
+    warp_step<G, STAGE_STEPS>(st, q, G, LG, kx, vx, valid);
+  }
+  merge_lane_groups<G>(st, grp, LG);
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: block_merge reuses it
+  block_merge<G>(st, grp, D, reinterpret_cast<float*>(ring), emit);
+}
+
+// Bytes before the ring in dynamic shared memory: the split's page rows.
+__host__ __device__ constexpr int pages_bytes(int pps) {
+  return (pps * 4 + 15) / 16 * 16;
+}
+
+// grid (B, Hkv, n_split), block FUSED_WARPS warps. QBITS 0: native pool
+// of TKV; 8: int8 pool (TKV int8_t); 4: packed int4 pool (TKV uint8_t).
+// The scale pointers are used only when QBITS > 0. part holds, for the
+// splits of each (b, h), float32 accumulators [B, Hkv, n_split, grp, D],
+// then maxima and denominators [B, Hkv, n_split, grp]; counters one per
+// (b, h). A (b, h) whose keys fit one split uses neither.
+// Up to 4 rows per warp fit two blocks per SM in registers (more
+// resident warps hide the walk's shuffle and exp chains); 8 rows take one.
 template <int G, typename TQ, typename TKV, int QBITS>
-__global__ void __launch_bounds__(FUSED_WARPS * WARP)
+__global__ void __launch_bounds__(FUSED_WARPS * WARP, G <= 4 ? 2 : 1)
     fused_decode_kernel(const TQ* __restrict__ q,      // [B, H, D] unroped
                         const TQ* __restrict__ k_new,  // [B, Hkv, D] unroped
                         const TQ* __restrict__ v_new,  // [B, Hkv, D]
@@ -116,85 +323,101 @@ __global__ void __launch_bounds__(FUSED_WARPS * WARP)
                         const int* __restrict__ positions,   // [B]
                         const int* __restrict__ active,      // [B] 0/1
                         TQ* __restrict__ out,                // [B, H, D]
-                        int P, int H, int Hkv, int D, int page_size,
-                        int dump_page, float sqrt_d) {
-  extern __shared__ float smem[];
+                        float* part, unsigned* counters, int P, int H,
+                        int Hkv, int D, int page_size, int dump_page,
+                        int pps, float sqrt_d) {
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float s_max[FUSED_WARPS];
-  const int b = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
+  const int n_split = gridDim.z;
   const int grp = H / Hkv;
   const bool act = active[b] != 0;
   const int pos = positions[b];
+  const int span = pps * page_size;  // keys per split
+  const int n_keys = act ? min(pos + 1, P * page_size) : 0;
+  // splits that hold keys; the last of them appends (split 0 when
+  // inactive)
+  const int n_used = max(1, (n_keys + span - 1) / span);
+  if (sp >= n_used) return;
+  const int* row_pt = page_table + (int64_t)b * P;
+  int* s_pages = reinterpret_cast<int*>(smem);  // this split's page rows
+  unsigned char* ring = smem + pages_bytes(pps);
+  for (int i = threadIdx.x; i < pps; i += blockDim.x)
+    s_pages[i] = row_pt[min(sp * pps + i, P - 1)];
   const float* cs = cos_t + (int64_t)b * D;
   const float* sn = sin_t + (int64_t)b * D;
-  const int RW = QBITS == 4 ? D / 2 : D;  // stored elements per row
 
   // 1. append (see the header note for the page semantics)
-  const int* row_pt = page_table + (int64_t)b * P;
-  const int app_row = act ? pos % page_size : 0;
-  const int app_page =
-      act ? row_pt[min(pos / page_size, P - 1)] : dump_page;
-  const int64_t page_base = (int64_t)app_page * page_size;
-  if (app_row == 0) {  // fresh page (or the dump page): zero the rest
-    for (int i = threadIdx.x; i < (page_size - 1) * RW; i += blockDim.x) {
-      const int64_t slot = page_base + 1 + i / RW;
-      const int64_t off = (slot * Hkv + h) * RW + i % RW;
-      k_pool[off] = zero_of<TKV>();
-      v_pool[off] = zero_of<TKV>();
-    }
-    if constexpr (QBITS > 0) {
-      for (int i = threadIdx.x; i < page_size - 1; i += blockDim.x) {
-        k_scale[(page_base + 1 + i) * Hkv + h] = 0.f;
-        v_scale[(page_base + 1 + i) * Hkv + h] = 0.f;
+  if (sp == n_used - 1) {
+    const int RW = QBITS == 4 ? D / 2 : D;  // stored elements per row
+    const int app_row = act ? pos % page_size : 0;
+    const int app_page =
+        act ? row_pt[min(pos / page_size, P - 1)] : dump_page;
+    const int64_t page_base = (int64_t)app_page * page_size;
+    if (app_row == 0) {  // fresh page (or the dump page): zero the rest
+      for (int i = threadIdx.x; i < (page_size - 1) * RW; i += blockDim.x) {
+        const int64_t slot = page_base + 1 + i / RW;
+        const int64_t off = (slot * Hkv + h) * RW + i % RW;
+        k_pool[off] = zero_of<TKV>();
+        v_pool[off] = zero_of<TKV>();
+      }
+      if constexpr (QBITS > 0) {
+        for (int i = threadIdx.x; i < page_size - 1; i += blockDim.x) {
+          k_scale[(page_base + 1 + i) * Hkv + h] = 0.f;
+          v_scale[(page_base + 1 + i) * Hkv + h] = 0.f;
+        }
       }
     }
-  }
-  // thread i < D / 2 owns element pair (2i, 2i + 1); blockDim >= D / 2
-  const int i = threadIdx.x;
-  const int j = 2 * i;
-  const bool owns = i < D / 2;
-  const int64_t src = ((int64_t)b * Hkv + h) * D;
-  const int64_t dst_row = (page_base + app_row) * Hkv + h;
-  float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
-  if (owns && act) {
-    float o0, o1;
-    rope_pair(to_f(k_new[src + j]), to_f(k_new[src + j + 1]), cs[j],
-              sn[j], cs[j + 1], sn[j + 1], &o0, &o1);
-    k0 = to_f(from_f<TQ>(o0));  // rounded through k_new's dtype
-    k1 = to_f(from_f<TQ>(o1));
-    v0 = to_f(v_new[src + j]);
-    v1 = to_f(v_new[src + j + 1]);
-  }
-  if constexpr (QBITS == 0) {
-    if (owns) {
-      k_pool[dst_row * D + j] = from_f<TKV>(k0);
-      k_pool[dst_row * D + j + 1] = from_f<TKV>(k1);
-      v_pool[dst_row * D + j] = from_f<TKV>(v0);
-      v_pool[dst_row * D + j + 1] = from_f<TKV>(v1);
+    // thread i < D / 2 owns element pair (2i, 2i + 1); blockDim >= D / 2
+    const int i = threadIdx.x;
+    const int j = 2 * i;
+    const bool owns = i < D / 2;
+    const int64_t src = ((int64_t)b * Hkv + h) * D;
+    const int64_t dst_row = (page_base + app_row) * Hkv + h;
+    float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
+    if (owns && act) {
+      float o0, o1;
+      rope_pair(to_f(k_new[src + j]), to_f(k_new[src + j + 1]), cs[j],
+                sn[j], cs[j + 1], sn[j + 1], &o0, &o1);
+      k0 = to_f(from_f<TQ>(o0));  // rounded through k_new's dtype
+      k1 = to_f(from_f<TQ>(o1));
+      v0 = to_f(v_new[src + j]);
+      v1 = to_f(v_new[src + j + 1]);
     }
-  } else {
-    constexpr float qmax = QBITS == 8 ? 127.f : 7.f;
-    constexpr float inv_qmax = 1.f / qmax;  // rounded once, to float32
-    const float k_amax = block_max(fmaxf(fabsf(k0), fabsf(k1)), s_max);
-    __syncthreads();  // s_max is reused
-    const float v_amax = block_max(fmaxf(fabsf(v0), fabsf(v1)), s_max);
-    const float k_s = k_amax > 0.f ? __fmul_rn(k_amax, inv_qmax) : 1.f;
-    const float v_s = v_amax > 0.f ? __fmul_rn(v_amax, inv_qmax) : 1.f;
-    if (owns) {
-      const int kq0 = quantize(k0, k_s, qmax), kq1 = quantize(k1, k_s, qmax);
-      const int vq0 = quantize(v0, v_s, qmax), vq1 = quantize(v1, v_s, qmax);
-      if constexpr (QBITS == 8) {
-        k_pool[dst_row * D + j] = (int8_t)kq0;
-        k_pool[dst_row * D + j + 1] = (int8_t)kq1;
-        v_pool[dst_row * D + j] = (int8_t)vq0;
-        v_pool[dst_row * D + j + 1] = (int8_t)vq1;
-      } else {  // one byte: element 2i low nibble, 2i + 1 high nibble
-        k_pool[dst_row * RW + i] = (uint8_t)((kq0 & 0xF) | ((kq1 & 0xF) << 4));
-        v_pool[dst_row * RW + i] = (uint8_t)((vq0 & 0xF) | ((vq1 & 0xF) << 4));
+    if constexpr (QBITS == 0) {
+      if (owns) {
+        k_pool[dst_row * D + j] = from_f<TKV>(k0);
+        k_pool[dst_row * D + j + 1] = from_f<TKV>(k1);
+        v_pool[dst_row * D + j] = from_f<TKV>(v0);
+        v_pool[dst_row * D + j + 1] = from_f<TKV>(v1);
       }
-    }
-    if (threadIdx.x == 0) {
-      k_scale[dst_row] = act ? k_s : 0.f;
-      v_scale[dst_row] = act ? v_s : 0.f;
+    } else {
+      constexpr float qmax = QBITS == 8 ? 127.f : 7.f;
+      constexpr float inv_qmax = 1.f / qmax;  // rounded once, to float32
+      const float k_amax = block_max(fmaxf(fabsf(k0), fabsf(k1)), s_max);
+      __syncthreads();  // s_max is reused
+      const float v_amax = block_max(fmaxf(fabsf(v0), fabsf(v1)), s_max);
+      const float k_s = k_amax > 0.f ? __fmul_rn(k_amax, inv_qmax) : 1.f;
+      const float v_s = v_amax > 0.f ? __fmul_rn(v_amax, inv_qmax) : 1.f;
+      if (owns) {
+        const int kq0 = quantize(k0, k_s, qmax), kq1 = quantize(k1, k_s, qmax);
+        const int vq0 = quantize(v0, v_s, qmax), vq1 = quantize(v1, v_s, qmax);
+        if constexpr (QBITS == 8) {
+          k_pool[dst_row * D + j] = (int8_t)kq0;
+          k_pool[dst_row * D + j + 1] = (int8_t)kq1;
+          v_pool[dst_row * D + j] = (int8_t)vq0;
+          v_pool[dst_row * D + j + 1] = (int8_t)vq1;
+        } else {  // one byte: element 2i low nibble, 2i + 1 high nibble
+          k_pool[dst_row * RW + i] =
+              (uint8_t)((kq0 & 0xF) | ((kq1 & 0xF) << 4));
+          v_pool[dst_row * RW + i] =
+              (uint8_t)((vq0 & 0xF) | ((vq1 & 0xF) << 4));
+        }
+      }
+      if (threadIdx.x == 0) {
+        k_scale[dst_row] = act ? k_s : 0.f;
+        v_scale[dst_row] = act ? v_s : 0.f;
+      }
     }
   }
 
@@ -217,22 +440,53 @@ __global__ void __launch_bounds__(FUSED_WARPS * WARP)
       qr[r][e + 1] = __fdiv_rn(to_f(from_f<TQ>(o1)), sqrt_d);
     }
   }
-  // the walk reads the appended row back from global memory:
-  // __syncthreads makes this block's global writes visible to it
+  // the walk reads the appended row back from global memory, and the
+  // page rows from shared memory: __syncthreads makes both visible
   __syncthreads();
 
-  // 3. online softmax over rows [0, pos] (nothing when inactive)
-  const int n_keys = act ? pos + 1 : 0;
+  // 3. online softmax over this split's share of rows [0, pos]
+  const int k_lo = sp * span;
+  const int n_mine = max(0, min(n_keys - k_lo, span));
   TQ* ob = out + ((int64_t)b * H + (int64_t)h * grp) * D;
-  if constexpr (QBITS == 0) {
-    decode_attend<G>(qr, grp, NativePool<TKV>{k_pool, v_pool}, row_pt,
-                     page_size, Hkv, h, D, n_keys, ob, smem);
-  } else if constexpr (QBITS == 8) {
-    decode_attend<G>(qr, grp, Int8Pool{k_pool, v_pool, k_scale, v_scale},
-                     row_pt, page_size, Hkv, h, D, n_keys, ob, smem);
-  } else {
-    decode_attend<G>(qr, grp, Int4Pool{k_pool, v_pool, k_scale, v_scale},
-                     row_pt, page_size, Hkv, h, D, n_keys, ob, smem);
+  const int64_t rows = (int64_t)gridDim.x * gridDim.y * n_split * grp;
+  float* p_acc = part;  // [rows, D]
+  float* p_m = part + rows * D;  // [rows]
+  float* p_l = p_m + rows;  // [rows]
+  const int64_t i0 = ((int64_t)b * Hkv + h) * n_split;  // this (b, h)
+  const StagedPool<TKV, QBITS> pool{
+      reinterpret_cast<const unsigned char*>(k_pool),
+      reinterpret_cast<const unsigned char*>(v_pool), k_scale, v_scale, Hkv,
+      h, D};
+  staged_attend<G>(qr, grp, pool, s_pages, page_size, D, n_mine, ring,
+                   [&](int r, int d, float m, float l, float a) {
+                     if (n_used == 1) {
+                       ob[r * D + d] = from_f<TQ>(a / fmaxf(l, 1e-30f));
+                       return;
+                     }
+                     const int64_t row = (i0 + sp) * grp + r;
+                     p_acc[row * D + d] = a;
+                     if (d == 0) {
+                       p_m[row] = m;
+                       p_l[row] = l;
+                     }
+                   });
+  if (n_used == 1 || !last_arrival(counters + (int64_t)b * Hkv + h, n_used))
+    return;
+  // 4. the last split of (b, h) to finish folds the partials in split
+  // order (the rescaled sums of block_merge's fold of its warps)
+  for (int t = threadIdx.x; t < grp * D; t += blockDim.x) {
+    const int r = t / D, d = t % D;
+    float mm = NEG;
+    for (int k = 0; k < n_used; ++k)
+      mm = fmaxf(mm, __ldcg(p_m + (i0 + k) * grp + r));
+    float l = 0.f, a = 0.f;
+    for (int k = 0; k < n_used; ++k) {
+      const int64_t row = (i0 + k) * grp + r;
+      const float sc = __expf(__ldcg(p_m + row) - mm);
+      l += __ldcg(p_l + row) * sc;
+      a += __ldcg(p_acc + row * D + d) * sc;
+    }
+    ob[r * D + d] = from_f<TQ>(a / fmaxf(l, 1e-30f));
   }
 }
 
@@ -244,32 +498,49 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 = launched). kv_dtype
 // AIGW_F32 / AIGW_BF16: native pool, scales unused (null); AIGW_I8 /
-// AIGW_I4: quantized pool with its [slots, Hkv] float32 scales.
+// AIGW_I4: quantized pool with its [slots, Hkv] float32 scales. The
+// split plan is n_split splits of pps pages each; with n_split > 1, part
+// is float32 scratch of n_split * B * H * (D + 2) elements and counters
+// B * Hkv zeroed uint32, which the kernel leaves zero.
 int aigw_fused_decode(const void* q, const void* k_new, const void* v_new,
                       const float* cos_t, const float* sin_t, void* k_pool,
                       void* v_pool, void* k_scale, void* v_scale,
                       const int* page_table, const int* positions,
-                      const int* active, void* out, int B, int P, int H,
-                      int Hkv, int D, int page_size, int n_slots,
+                      const int* active, void* out, void* part,
+                      void* counters, int B, int P, int H, int Hkv, int D,
+                      int page_size, int n_slots, int pps, int n_split,
                       int q_dtype, int kv_dtype, void* stream) {
   const int grp = H / Hkv;
-  if (!AIGW_SHAPES_OK(D, grp) || B < 1 || n_slots % page_size != 0) {
+  if (!AIGW_SHAPES_OK(D, grp) || B < 1 || n_slots % page_size != 0 ||
+      pps < 1 || n_split < 1 || n_split > 65535 ||
+      (int64_t)(n_split - 1) * pps >= P || (int64_t)n_split * pps < P ||
+      (n_split > 1 && (part == nullptr || counters == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(B, Hkv);
+  const dim3 grid(B, Hkv, n_split);
   const int dump_page = n_slots / page_size - 1;
   const float sqrt_d = sqrtf((float)D);
 #define LAUNCH_Q(G, TQ, TKV, QB)                                            \
   {                                                                         \
-    const int smem = FUSED_WARPS * G * (D + 2) * (int)sizeof(float);        \
+    const int ring = RING * stage_bytes<TKV, QB>(D);                        \
+    const int merge = FUSED_WARPS * G * (D + 2) * (int)sizeof(float);       \
+    const int smem = pages_bytes(pps) + (ring > merge ? ring : merge);      \
     auto kern = fused_decode_kernel<G, TQ, TKV, QB>;                        \
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                         smem);                                             \
+    /* the largest size allowed so far: one runtime call per new size, */\
+    /* none on the launch path (and none inside a CUDA graph capture) */   \
+    static int smem_set = 0;                                                \
+    if (smem > smem_set) {                                                  \
+      const cudaError_t e = cudaFuncSetAttribute(                           \
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);         \
+      if (e != cudaSuccess) return (int)e;                                  \
+      smem_set = smem;                                                      \
+    }                                                                       \
     kern<<<grid, FUSED_WARPS * WARP, smem, (cudaStream_t)stream>>>(         \
         (const TQ*)q, (const TQ*)k_new, (const TQ*)v_new, cos_t, sin_t,     \
         (TKV*)k_pool, (TKV*)v_pool, (float*)k_scale, (float*)v_scale,       \
-        page_table, positions, active, (TQ*)out, P, H, Hkv, D, page_size,   \
-        dump_page, sqrt_d);                                                 \
+        page_table, positions, active, (TQ*)out, (float*)part,              \
+        (unsigned*)counters, P, H, Hkv, D, page_size, dump_page, pps,       \
+        sqrt_d);                                                            \
   }
 #define LAUNCH(G, TQ, TKV) LAUNCH_Q(G, TQ, TKV, 0)
 #define LAUNCH_I8(G, TQ, TKV) LAUNCH_Q(G, TQ, int8_t, 8)

@@ -45,8 +45,8 @@ SIGNATURES = {
     "aigw_paged_decode": [_P] * 6 + [_I] * 8 + [_P],
     "aigw_paged_verify": [_P] * 6 + [_I] * 9 + [_P],
     "aigw_paged_decode_split": [_P] * 7 + [_I] * 10 + [_P],
-    "aigw_fused_decode": [_P] * 13 + [_I] * 9 + [_P],
-    "aigw_w8a16_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    "aigw_fused_decode": [_P] * 15 + [_I] * 11 + [_P],
+    "aigw_w8a16_matmul": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 #: wall seconds of the last build in this process (0.0 = reused)
@@ -132,6 +132,29 @@ def check_cuda(t: torch.Tensor, name: str, dtype=None) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
     if dtype is not None and t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype} (got {t.dtype})")
+
+
+#: (device, kernel) -> int32 counters of the kernels' in-launch folds
+_COUNTERS: dict[tuple[str, str], torch.Tensor] = {}
+
+
+def counters(device: torch.device, kernel: str, n: int) -> torch.Tensor:
+    """``n`` (or more) zeroed int32 arrival counters for ``kernel``'s
+    fold of split partials on ``device``. Made once and grown as needed:
+    every launch leaves the counters it used at zero, so launches of one
+    kernel on one device must be ordered (one stream), as the engine's
+    are."""
+    key = (str(device), kernel)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's data pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def check_heads(H: int, Hkv: int, D: int) -> None:

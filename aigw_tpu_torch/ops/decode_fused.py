@@ -21,6 +21,10 @@ The pools (and scales) are updated IN PLACE (the reference aliases them
 through ``input_output_aliases``) and returned. The plain version is
 the scatter (with those page semantics) followed by
 ``paged_decode_walk``; the kernels live in ``csrc/decode_fused.cu``.
+On the card each sequence's keys are split over blocks by
+``split_pages`` (shared with K4), the block whose split holds the
+position appends (``appending_split``), and the splits fold in the same
+launch.
 The mesh walk waits for a later slice (ROADMAP queue 1).
 """
 
@@ -112,6 +116,33 @@ def paged_decode_walk(
     out = torch.where((lens > 0)[:, None, None, None], out,
                       torch.zeros_like(out))
     return out.reshape(B, H, D).to(q.dtype)
+
+
+#: the split decode kernels (K2/K7, K4) split each sequence's pages over
+#: enough blocks to put about this many (sequence, KV head, split) blocks
+#: on the card: four per SM of the H100's 132
+SPLIT_TARGET_BLOCKS = 4 * 132
+
+
+def split_pages(B: int, Hkv: int, P: int) -> tuple[int, int]:
+    """(pages per split, number of splits) for a ``[B, P]`` page table:
+    from the shapes alone, so the launch needs no host sync. Split s
+    holds pages ``[s * pps, min(P, (s + 1) * pps))``."""
+    want = max(1, min(P, -(-SPLIT_TARGET_BLOCKS // max(1, B * Hkv))))
+    pps = -(-P // want)
+    return pps, -(-P // pps)
+
+
+def appending_split(positions: torch.Tensor, active: torch.Tensor, *,
+                    P: int, page_size: int, pps: int) -> torch.Tensor:
+    """The split whose block appends each slot's new row, as the kernel
+    picks it: the last split holding any of the slot's keys ``[0,
+    min(position + 1, P * page))`` (so the one holding the position),
+    split 0 for an inactive slot (the dump page)."""
+    n_keys = torch.clamp(positions.long() + 1, max=P * page_size)
+    span = pps * page_size
+    used = torch.clamp(-(-n_keys // span), min=1)
+    return torch.where(active.bool(), used - 1, torch.zeros_like(used))
 
 
 def _append_targets(page_table: torch.Tensor, positions: torch.Tensor,
@@ -256,12 +287,19 @@ def fused_paged_decode(
         if t.shape != (B, D):
             raise ValueError(f"rope table {name} must be [B, D]")
     out = torch.empty_like(q)
+    pps, n_split = split_pages(B, Hkv, P)
+    part = counters = None
+    if n_split > 1:
+        part = torch.empty((n_split * B * H * (D + 2),), dtype=torch.float32,
+                           device=q.device)
+        counters = _build.counters(q.device, "fused_paged_decode", B * Hkv)
     _build.launch(
         "aigw_fused_decode", q.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         k_rows.data_ptr(), v_rows.data_ptr(), *scale_ptrs,
         page_table.data_ptr(), pos32.data_ptr(), act32.data_ptr(),
-        out.data_ptr(), B, P, H, Hkv, D, page_size, n_slots,
+        out.data_ptr(), _build.ptr(part), _build.ptr(counters), B, P, H,
+        Hkv, D, page_size, n_slots, pps, n_split,
         _build.dtype_code(q, "q"),
         _build.dtype_code(k_rows, "k_rows", tuple(_build.DTYPE_CODE)))
     if not quant:

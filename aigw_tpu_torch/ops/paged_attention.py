@@ -34,7 +34,7 @@ import math
 import torch
 
 from aigw_tpu_torch.ops import _build
-from aigw_tpu_torch.ops.decode_fused import paged_decode_walk
+from aigw_tpu_torch.ops.decode_fused import paged_decode_walk, split_pages
 
 
 def ragged_prefill_attention_plain(
@@ -219,20 +219,6 @@ def paged_attention_decode_plain(
     function)."""
     return paged_decode_walk(q, k_pool, v_pool, page_table, lengths,
                              page_size=page_size)
-
-
-#: K4 splits each sequence's pages over enough blocks to put about this
-#: many (sequence, KV head, split) blocks on the card: four per SM of
-#: the H100's 132
-SPLIT_TARGET_BLOCKS = 4 * 132
-
-
-def split_pages(B: int, Hkv: int, P: int) -> tuple[int, int]:
-    """K4's (pages per split, number of splits) for a ``[B, P]`` page
-    table: from the shapes alone, so the launch needs no host sync."""
-    want = max(1, min(P, -(-SPLIT_TARGET_BLOCKS // max(1, B * Hkv))))
-    pps = -(-P // want)
-    return pps, -(-P // pps)
 
 
 def paged_attention_decode(

@@ -12,13 +12,18 @@ weight never exists dequantized anywhere.
 weights first and so computes slightly different numbers, and the port
 must send the kernel the shapes the reference sends its Pallas kernel.
 
-The kernel lives in ``csrc/qmatmul.cu``; ``w8a16_matmul_plain`` is its
-plain PyTorch version with the same signature. The public function runs
-the plain version for CPU tensors and the kernel for CUDA tensors, and
-counts its launches in ``w8a16_matmul.launches``.
+The kernel lives in ``csrc/qmatmul.cu`` (tensor cores for bf16 x, the
+CUDA cores for float32 x; one launch, which folds its split-K partials
+itself); ``launch_plan`` sizes its grid and scratch from the shapes, and
+``w8a16_matmul_plain`` is its plain PyTorch version with the same
+signature. The public function runs the plain version for CPU tensors
+and the kernel for CUDA tensors, and counts its launches in
+``w8a16_matmul.launches``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,10 +32,15 @@ from aigw_tpu_torch.ops import _build
 # the reference's int8 weight-tile byte budget per grid step; only the
 # shape gate below reads it
 _TILE_BYTES = 2 * 1024 * 1024
-#: output columns one block of the CUDA kernel covers
+#: output columns one block of the CUDA kernels covers
 BLOCK_N = 128
-#: blocks the kernel aims to put on the card (132 SMs, a few each)
-_TARGET_BLOCKS = 528
+#: a split of K holds a multiple of this many weight rows (four of the
+#: tensor-core kernel's 64-row pipeline stages: shorter splits cost more
+#: in their fold than they gain in blocks)
+SPLIT_ROWS = 256
+#: blocks the kernel aims to put on the card when N alone gives fewer:
+#: two per SM of the H100's 132
+_TARGET_BLOCKS = 264
 
 
 def _pick_tile_n(k: int, n: int) -> int:
@@ -48,12 +58,28 @@ def supported(m: int, k: int, n: int) -> bool:
 
 
 def k_splits(k: int, n: int) -> tuple[int, int]:
-    """(splits of K across blocks, rows per split): enough blocks to
-    fill the card when N alone gives too few, in 128-row steps."""
-    steps = k // 128
+    """(splits of K across blocks, rows per split): one split where the
+    column tiles fill the card, else enough splits of whole
+    ``SPLIT_ROWS`` steps to give it about ``_TARGET_BLOCKS`` blocks."""
+    steps = -(-k // SPLIT_ROWS)
     want = max(1, -(-_TARGET_BLOCKS // (n // BLOCK_N)))
     per = -(-steps // min(steps, want))
-    return -(-steps // per), per * 128
+    return -(-steps // per), per * SPLIT_ROWS
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(m: int, k: int, n: int) -> dict:
+    """The launch's grid and scratch: ``tiles`` column tiles of
+    ``BLOCK_N`` x ``splits`` splits of ``k_rows`` rows; split s of tile t
+    covers rows ``[s * k_rows, min(k, (s + 1) * k_rows))`` of columns
+    ``[t * BLOCK_N, (t + 1) * BLOCK_N)``. With more than one split, the
+    float32 partials take ``part_elems`` elements and the fold one
+    counter per tile (``counters``); one split needs neither."""
+    splits, rows = k_splits(k, n)
+    tiles = n // BLOCK_N
+    return {"tiles": tiles, "splits": splits, "k_rows": rows,
+            "part_elems": splits * m * n if splits > 1 else 0,
+            "counters": tiles if splits > 1 else 0}
 
 
 def w8a16_matmul_plain(x: torch.Tensor, q: torch.Tensor,
@@ -82,12 +108,17 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor,
     _build.check_cuda(q, "q", torch.int8)
     _build.check_cuda(scale, "scale", torch.float32)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    splits, rows = k_splits(K, N)
-    part = (torch.empty((splits, M, N), dtype=torch.float32,
-                        device=x.device) if splits > 1 else out)
+    plan = launch_plan(M, K, N)
+    part = counters = None
+    if plan["splits"] > 1:
+        part = torch.empty((plan["part_elems"],), dtype=torch.float32,
+                           device=x.device)
+        counters = _build.counters(x.device, "w8a16_matmul",
+                                   plan["counters"])
     _build.launch("aigw_w8a16_matmul", x.data_ptr(), q.data_ptr(),
-                  scale.data_ptr(), part.data_ptr(), out.data_ptr(),
-                  M, K, N, splits, rows, _build.dtype_code(x, "x"))
+                  scale.data_ptr(), _build.ptr(part), _build.ptr(counters),
+                  out.data_ptr(), M, K, N, plan["splits"], plan["k_rows"],
+                  _build.dtype_code(x, "x"))
     w8a16_matmul.launches += 1
     return out
 

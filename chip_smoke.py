@@ -39,6 +39,11 @@ Phases (any failure exits non-zero):
    plain output plus 2e-3, printed beside the mean |output|; K2's and
    K7's pool bytes equal), timed with CUDA events (L2 flushed between
    launches) beside the plain version and the kernel's roofline bound;
+   K2, K6 and K7 also back to back over copies of their inputs above
+   100 MB, replayed from a CUDA graph (``ms_rotated``: device time with
+   no host time and no flush between launches, as a served step runs
+   them), K6 twice on the same inputs (bit-identical: its split-K fold
+   runs in split order);
    K4, which no engine path selects (nor the reference's), at K3's
    inputs and timed beside K3; K5 at the served verify shapes (batch 8,
    S = 5, a slot that is off, windows across a page);
@@ -55,7 +60,7 @@ Phases (any failure exits non-zero):
    int8 pages, and one verify step of width 5 through K5: its host wall
    time against the device time ``torch.profiler`` sees, by kernel (the
    ``decode_profile``, ``decode_profile_quant`` and ``verify_profile``
-   JSON lines);
+   JSON lines; ``port_kernels_ms`` sums every K6 and K2/K7 launch);
 7. the ``kernels`` JSON line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -136,6 +141,49 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+#: bytes the copies a rotated timing cycles through must exceed: twice
+#: the H100's 50 MB L2, so no launch finds its inputs cached
+ROTATE_BYTES = 100e6
+
+
+def copies_for(nbytes: float) -> int:
+    """Copies of a launch's inputs (``nbytes`` each) that rotated_ms
+    cycles through: at least two, together above ROTATE_BYTES."""
+    return max(2, int(ROTATE_BYTES // nbytes) + 1)
+
+
+def rotated_ms(fn, n_copies: int, launches: int = 50,
+               warmup: int = 3) -> float:
+    """Device time per launch of ``fn(i)`` run back to back, launch j on
+    copy ``j % n_copies`` of its inputs (so none finds them in L2), as a
+    served step runs its kernels: the launches are captured in a CUDA
+    graph and replayed, so no host time sits between them, with one
+    event pair around the replay, divided by the launch count (the
+    least of three replays)."""
+    import torch
+
+    for j in range(warmup):
+        fn(j % n_copies)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for j in range(launches):
+            fn(j % n_copies)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / launches)
+    del graph
+    return min(times)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -419,17 +467,25 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
               + 2 * 2 * (sum(act) + fresh * (PS - 1)) * Hkv * D  # writes
               + 4 * B * (P + 2))
     b_ms, b_by = bound(nbytes, 4 * (cached + sum(act)) * H * D)
+    # back to back over copies of the pools, as a served step runs it
+    n_rot = copies_for(nbytes)
+    rot = [(kp_a.clone(), vp_a.clone()) for _ in range(n_rot)]
+    act32 = active.to(torch.int32)
+    ms_rot = rotated_ms(lambda i: decode_fused.fused_paged_decode(
+        q, kn, vn, *rot[i], pt, positions, act32, rope_theta=500000.0,
+        page_size=PS, tables=tables), n_rot)
+    del rot
     rows.append(dict(
         name="fused_paged_decode", route="cuda",
         source="aigw_tpu_torch/csrc/decode_fused.cu",
         replaces="aigw_tpu/ops/pallas/decode_fused.py:268",
         launches=launches["fused_paged_decode"], max_abs_err=err,
-        ms=cuda_ms(k2), plain_ms=cuda_ms(k2_plain, iters=5),
+        ms=cuda_ms(k2), ms_rotated=ms_rot, plain_ms=cuda_ms(k2_plain, iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         out_mean_abs=mean_out))
     log(f"K2 ok: max err {err:.3g} (mean |out| {mean_out:.3g}), pools "
-        f"equal, {rows[-1]['ms']:.4f} ms (bound {b_ms:.4f} ms, plain "
-        f"{rows[-1]['plain_ms']:.3f} ms)")
+        f"equal, {rows[-1]['ms']:.4f} ms, rotated {ms_rot:.4f} ms (bound "
+        f"{b_ms:.4f} ms, plain {rows[-1]['plain_ms']:.3f} ms)")
 
     # K5 at the served verify shapes: batch 8, S = 5 (4 drafts), windows
     # across page boundaries (126, 1022, 1534), a fresh sequence and a
@@ -537,19 +593,34 @@ def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
             + QMM_ATOL * want.float().abs().max()
         if (err > tol).any():
             raise AssertionError(f"K6 {K}x{N}: max error {err.max().item()}")
+        again = qmatmul.w8a16_matmul(x, q, sc)
+        if not torch.equal(got, again):
+            raise AssertionError(f"K6 {K}x{N}: two calls differ")
         w_bf16 = llama._w(qp, "w_up")  # dequantized ahead of time
-        b_ms, b_by = bound(K * N + 4 * N + 2 * M * K + 2 * M * N,
-                           2 * M * K * N)
+        nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+        b_ms, b_by = bound(nbytes, 2 * M * K * N)
+        n_rot = copies_for(nbytes)
+        rot = [q] + [q.clone() for _ in range(n_rot - 1)]
+        ms_rot = rotated_ms(lambda i: qmatmul.w8a16_matmul(x, rot[i], sc),
+                            n_rot)
+        del rot
+        n_lib = copies_for(2 * K * N)
+        rot = [w_bf16] + [w_bf16.clone() for _ in range(n_lib - 1)]
+        lib_rot = rotated_ms(lambda i: torch.matmul(x, rot[i]), n_lib)
+        del rot
         shapes.append(dict(
             K=K, N=N, M=M, per_step=per_step, max_abs_err=err.max().item(),
             ms=cuda_ms(lambda: qmatmul.w8a16_matmul(x, q, sc)),
+            ms_rotated=ms_rot,
             plain_ms=cuda_ms(lambda: qmatmul.w8a16_matmul_plain(x, q, sc),
                              iters=5),
             library_ms=cuda_ms(lambda: torch.matmul(x, w_bf16)),
+            library_ms_rotated=lib_rot,
             bound_ms=b_ms, bound_by=b_by))
-        del qp, q, sc, w_bf16, got, want
-        log(f"K6 {K}x{N}: {shapes[-1]['ms']:.4f} ms (bound "
-            f"{b_ms:.4f}, cuBLAS on bf16 {shapes[-1]['library_ms']:.4f}, "
+        del qp, q, sc, w_bf16, got, want, again
+        log(f"K6 {K}x{N}: {shapes[-1]['ms']:.4f} ms, rotated {ms_rot:.4f} "
+            f"(bound {b_ms:.4f}, cuBLAS on bf16 "
+            f"{shapes[-1]['library_ms']:.4f}, rotated {lib_rot:.4f}, "
             f"plain {shapes[-1]['plain_ms']:.3f}), max err "
             f"{shapes[-1]['max_abs_err']:.3g}")
     print(json.dumps({"qmatmul_shapes": shapes}), flush=True)
@@ -563,13 +634,14 @@ def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
         replaces="aigw_tpu/ops/pallas/qmatmul.py:91",
         launches=launches["w8a16_matmul"],
         max_abs_err=max(r["max_abs_err"] for r in shapes),
-        ms=step_sum("ms"), plain_ms=step_sum("plain_ms"),
-        bound_ms=step_sum("bound_ms"),
+        ms=step_sum("ms"), ms_rotated=step_sum("ms_rotated"),
+        plain_ms=step_sum("plain_ms"), bound_ms=step_sum("bound_ms"),
         bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in shapes)
                   else "operations"),
         library_ms=step_sum("library_ms"),
+        library_ms_rotated=step_sum("library_ms_rotated"),
         per="one Llama-3-8B decode step at batch 8: 225 launches, the "
-            "per-shape medians of qmatmul_shapes times per_step"))
+            "per-shape times of qmatmul_shapes times per_step"))
 
     # K7: K2's shapes over int8 / int4 pools
     H, Hkv, D, PS = 32, 8, 128, 128
@@ -588,6 +660,7 @@ def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
                              dtype=torch.int32, device=dev)
     active = torch.tensor([True] * 7 + [False], device=dev)
     tables = decode_fused.rope_tables(positions, D, 500000.0)
+    act32 = active.to(torch.int32)
     act = active.tolist()
     pos_l = positions.tolist()
     cached = sum(p for p, a in zip(pos_l, act) if a)
@@ -630,19 +703,28 @@ def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
                   + 2 * (sum(act) + fresh * (PS - 1)) * Hkv * (RW + 4)
                   + 4 * B * (P + 2))
         b_ms, b_by = bound(nbytes, 4 * (cached + sum(act)) * H * D)
+        n_rot = copies_for(nbytes)
+        rot = [[t.clone() for t in a] for _ in range(n_rot)]
+        ms_rot = rotated_ms(lambda i: decode_fused.fused_paged_decode(
+            q, kn, vn, rot[i][0], rot[i][1], pt, positions, act32,
+            rot[i][2], rot[i][3], rope_theta=500000.0, page_size=PS,
+            tables=tables), n_rot)
+        del rot
         name = f"fused_paged_decode_{qdt}"
         rows.append(dict(
             name=name, route="cuda",
             source="aigw_tpu_torch/csrc/decode_fused.cu",
             replaces="aigw_tpu/ops/pallas/decode_fused.py:268",
             launches=launches[name], max_abs_err=err,
-            ms=cuda_ms(k7), plain_ms=cuda_ms(k7_plain, iters=5),
+            ms=cuda_ms(k7), ms_rotated=ms_rot,
+            plain_ms=cuda_ms(k7_plain, iters=5),
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             q_bytes_off_by_one=n_q, scales_differ=n_s,
             out_mean_abs=mean_out, out_mean_abs_long=long_scale))
         log(f"K7-{qdt} ok: max err {err:.3g} (mean |out| {mean_out:.3g}, "
             f"{long_scale:.3g} at the long slots), q bytes differing {n_q}, "
-            f"scales differing {n_s}, {rows[-1]['ms']:.4f} ms (bound "
+            f"scales differing {n_s}, {rows[-1]['ms']:.4f} ms, rotated "
+            f"{ms_rot:.4f} ms (bound "
             f"{b_ms:.4f} ms, plain {rows[-1]['plain_ms']:.3f} ms)")
     return rows
 
@@ -869,10 +951,17 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
             step()
         torch.cuda.synchronize()
     by_kernel: dict[str, float] = {}
+    # the port's kernels on this path, every launch of each summed: K6's
+    # (W8A16 projections) and K2/K7's (the fused decode rung)
+    ours = {"w8a16_matmul": 0.0, "fused_paged_decode": 0.0}
     for ev in prof.key_averages():
         us = ev.self_device_time_total
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[ev.key[:60]] = by_kernel.get(ev.key[:60], 0.0) + us
+            for name, tag in (("w8a16_matmul", "w8a16"),
+                              ("fused_paged_decode", "fused_decode")):
+                if tag in ev.key:
+                    ours[name] += us / 1e3 / steps
     device_ms = sum(by_kernel.values()) / 1e3 / steps
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
@@ -881,6 +970,7 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
             "kv_dtype": kv_dtype, "verify_width": verify_width,
             "wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy": device_ms / wall_ms,
+            "port_kernels_ms": ours,
             "top_kernels_ms": {k: us / 1e3 / steps for k, us in top}}
 
 

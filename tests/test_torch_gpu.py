@@ -93,19 +93,53 @@ def test_ragged_prefill_kernel(cuda, geom, dtype):
     assert not got[total:].any()  # rows owned by no sequence are zero
 
 
+def _fused_case(case, g, ps, Hkv, dev):
+    """(B, P, positions, active) of a fused decode case. The kernel
+    splits each sequence's pages into ``split_pages`` splits of ``pps``
+    pages (``span`` keys); the block whose split holds the position
+    appends."""
+    if case == "mixed":  # fresh pages, a mid-page append, position 0
+        B, P = 6, 8
+        pos = [0, 5, ps, 2 * ps + 1, 3 * ps - 1, 7]
+    elif case == "split_edges":
+        # appends at the last key of a split and the first of the next
+        # (a fresh page in a split other than the first), and a length
+        # equal to the whole table
+        B, P = 6, 8
+        span = decode_fused.split_pages(B, Hkv, P)[0] * ps
+        pos = [span - 1, span, 2 * span - 1, 2 * span, P * ps - 1, 3]
+    elif case == "batch1":
+        B, P = 1, 8
+        pos = [3 * ps + 5]
+    else:  # "batch64", "one_split": the card full without a split
+        B = 64 if case == "batch64" else -(-decode_fused.SPLIT_TARGET_BLOCKS
+                                           // Hkv)
+        P = 4 if case == "batch64" else 2
+        pos = torch.randint(0, P * ps, (B,), generator=g,
+                            device=dev).tolist()
+        pos[:2] = [P * ps - 1, ps]
+        if case == "one_split":
+            assert decode_fused.split_pages(B, Hkv, P)[1] == 1
+    active = [True] * B
+    if B > 1:
+        active[-1] = False  # an inactive slot (the dump page)
+    return (B, P, torch.tensor(pos, dtype=torch.int32, device=dev),
+            torch.tensor(active, device=dev))
+
+
+FUSED_CASES = ["mixed", "split_edges", "batch1", "batch64", "one_split"]
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("geom", GEOMS)
-def test_fused_decode_kernel(cuda, geom, dtype):
+def test_fused_decode_kernel(cuda, geom, dtype, case):
     H, Hkv, D, ps = geom
     g = torch.Generator(device=cuda).manual_seed(2)
-    B, P = 6, 8
+    B, P, positions, active = _fused_case(case, g, ps, Hkv, cuda)
     kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
     pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
         B, P).to(torch.int32)
-    positions = torch.tensor([0, 5, ps, 2 * ps + 1, 3 * ps - 1, 7],
-                             dtype=torch.int32, device=cuda)
-    active = torch.tensor([True, True, True, True, True, False],
-                          device=cuda)
     q, kn, vn = r(B, H, D), r(B, Hkv, D), r(B, Hkv, D)
     kp2, vp2 = kp.clone(), vp.clone()
     got, _, _ = decode_fused.fused_paged_decode(
@@ -118,7 +152,7 @@ def test_fused_decode_kernel(cuda, geom, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype][0],
                                atol=TOL[dtype][1])
     assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
-    assert not got[5].any()  # the inactive slot attends nothing
+    assert not got[~active].any()  # an inactive slot attends nothing
 
 
 def test_cuda_tensor_never_falls_back(cuda):
@@ -134,41 +168,47 @@ def test_cuda_tensor_never_falls_back(cuda):
 
 
 # -- K6 W8A16 matmul ---------------------------------------------------------
-QMM_SHAPES = [  # (M, K, N): Llama-3-8B decode and prefill-rung shapes
-    (8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336), (8, 14336, 4096),
-    (8, 4096, 128256), (1, 128, 128), (64, 256, 384), (37, 512, 1536),
+QMM_SHAPES = [  # (K, N): Llama-3-8B's weights (wq/wo, wk/wv, gate/up,
+    # down, lm_head) and small prefill-rung shapes
+    (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+    (4096, 128256), (128, 128), (256, 384), (512, 1536),
 ]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", QMM_SHAPES)
-def test_w8a16_matmul_kernel(cuda, shape, dtype):
+@pytest.mark.parametrize("M", [1, 8, 40, 64])
+def test_w8a16_matmul_kernel(cuda, M, shape, dtype):
     """Kernel against plain: float32 x within 1e-5 of the output's scale
     (summation order over K up to 14336); bfloat16 x within one bf16 ulp
     of the output (2**-7 relative: the two float32 sums may round to
-    neighbouring bf16 values) plus that."""
+    neighbouring bf16 values) plus that. A second call on the same
+    inputs gives the same bits (the split-K fold runs in split order)."""
     from aigw_tpu_torch.ops import qmatmul
 
-    M, K, N = shape
+    K, N = shape
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
     q = torch.randint(-127, 128, (K, N), generator=g, device=cuda,
                       dtype=torch.int8)
     s = torch.rand((1, N), generator=g, device=cuda) * 0.02
     got = qmatmul.w8a16_matmul(x, q, s)
+    again = qmatmul.w8a16_matmul(x, q, s)
     want = qmatmul.w8a16_matmul_plain(x, q, s)
     torch.cuda.synchronize()
     scale = want.float().abs().max().item()
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=1e-5 * scale)
+    assert torch.equal(got, again)
 
 
 # -- K7 fused decode, int8/int4 rung ---------------------------------------
+@pytest.mark.parametrize("case", FUSED_CASES)
 @pytest.mark.parametrize("qdt", ["int8", "int4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("geom", GEOMS)
-def test_fused_decode_quantized_kernel(cuda, geom, dtype, qdt):
+def test_fused_decode_quantized_kernel(cuda, geom, dtype, qdt, case):
     """Attention within the dtype's tolerance; the pools (q bytes and
     scales) equal the plain version's byte for byte: appended rows,
     fresh-page zeroing and the dump page included."""
@@ -176,7 +216,7 @@ def test_fused_decode_quantized_kernel(cuda, geom, dtype, qdt):
 
     H, Hkv, D, ps = geom
     g = torch.Generator(device=cuda).manual_seed(4)
-    B, P = 6, 8
+    B, P, positions, active = _fused_case(case, g, ps, Hkv, cuda)
     n_slots = (B * P + 1) * ps
     kf = torch.randn((n_slots, Hkv, D), generator=g, device=cuda)
     vf = torch.randn((n_slots, Hkv, D), generator=g, device=cuda)
@@ -184,10 +224,6 @@ def test_fused_decode_quantized_kernel(cuda, geom, dtype, qdt):
     vq, vs = kvq.quantize_rows(vf, qdt)
     pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
         B, P).to(torch.int32)
-    positions = torch.tensor([0, 5, ps, 2 * ps + 1, 3 * ps - 1, 7],
-                             dtype=torch.int32, device=cuda)
-    active = torch.tensor([True, True, True, True, True, False],
-                          device=cuda)
 
     def r(*shape):
         return torch.randn(shape, generator=g, device=cuda).to(dtype)
@@ -206,7 +242,7 @@ def test_fused_decode_quantized_kernel(cuda, geom, dtype, qdt):
                                rtol=TOL[dtype][0], atol=TOL[dtype][1])
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert not got[0][5].any()  # the inactive slot attends nothing
+    assert not got[0][~active].any()  # an inactive slot attends nothing
 
 
 def test_quantized_pool_needs_its_scales(cuda):

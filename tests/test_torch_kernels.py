@@ -32,7 +32,10 @@ from aigw_tpu.ops.pallas.paged_attention import (
     paged_attention_verify as jax_verify,
     ragged_prefill_attention as jax_ragged,
 )
-from aigw_tpu_torch.ops.decode_fused import fused_paged_decode
+from aigw_tpu_torch.ops.decode_fused import (
+    appending_split,
+    fused_paged_decode,
+)
 from aigw_tpu_torch.ops.paged_attention import (
     paged_attention_decode,
     paged_attention_decode_v2,
@@ -156,6 +159,35 @@ def test_paged_decode_v1_split_from_shapes(B, Hkv, P, want):
     pps, n = split_pages(B, Hkv, P)
     assert (pps, n) == want
     assert (n - 1) * pps < P <= n * pps
+
+
+@pytest.mark.parametrize("B,Hkv,P,ps", [
+    (8, 8, 16, 128),  # Llama-3-8B heads at batch 8: 8 splits of 2 pages
+    (1, 2, 4, 16),  # one page per split
+    (6, 2, 8, 16),
+    (64, 8, 4, 128),  # batch 64: 2 splits of 2 pages
+    (66, 8, 16, 128),  # the card is full without a split
+    (3, 4, 7, 16),  # a last split shorter than the others
+])
+def test_fused_decode_split_plan(B, Hkv, P, ps):
+    """The fused decode kernel's split over keys (K4's ``split_pages``):
+    every key of the table in exactly one split; the appending block is
+    the split holding the position; an inactive slot appends in split
+    0 (the dump page)."""
+    pps, n = split_pages(B, Hkv, P)
+    span = pps * ps
+    hits = np.zeros(P * ps, np.int32)
+    for s in range(n):
+        hits[s * span:min(P * ps, (s + 1) * span)] += 1
+    assert (hits == 1).all()
+    pos = torch.arange(P * ps)
+    split = appending_split(pos, torch.ones_like(pos, dtype=torch.bool),
+                            P=P, page_size=ps, pps=pps)
+    assert ((split * span <= pos) & (pos < (split + 1) * span)).all()
+    assert int(split.max()) == n - 1
+    off = appending_split(pos, torch.zeros_like(pos, dtype=torch.bool),
+                          P=P, page_size=ps, pps=pps)
+    assert not off.any()
 
 
 VERIFY_CASES = {

@@ -73,10 +73,41 @@ def test_supported_gates_like_reference():
 @pytest.mark.parametrize("k,n", [(4096, 1024), (4096, 4096), (4096, 14336),
                                  (14336, 4096), (4096, 128256), (128, 128)])
 def test_k_splits_cover_k(k, n):
-    """The CUDA launch's split of K across blocks: 128-row steps that
-    cover K exactly once, and enough blocks to fill the card when N
-    alone gives few."""
+    """The CUDA launch's split of K across blocks: whole SPLIT_ROWS
+    steps that cover K exactly once, and enough blocks to fill the card
+    when N alone gives few, unless every split is already one step."""
     splits, rows = qmatmul.k_splits(k, n)
-    assert rows % 128 == 0 and splits * rows >= k > (splits - 1) * rows
-    if n // qmatmul.BLOCK_N < 132 and k >= 128 * 16:
-        assert splits * n // qmatmul.BLOCK_N >= 132
+    assert rows % qmatmul.SPLIT_ROWS == 0
+    assert splits * rows >= k > (splits - 1) * rows
+    tiles = n // qmatmul.BLOCK_N
+    if tiles < 132:
+        assert (splits * tiles >= 132
+                or splits == -(-k // qmatmul.SPLIT_ROWS))
+
+
+@pytest.mark.parametrize("m", [1, 8, 40, 64])
+@pytest.mark.parametrize("k,n", [(4096, 1024), (4096, 4096), (4096, 14336),
+                                 (14336, 4096), (4096, 128256), (128, 128),
+                                 (512, 1536)])
+def test_launch_plan_covers_each_weight_once(m, k, n):
+    """The grid's (column tile, split) blocks cover every weight row and
+    column exactly once, splits are whole pipeline stages, and the
+    scratch and counters match the plan: float32 partials [splits, M, N]
+    and one counter per column tile when K is split, none otherwise."""
+    plan = qmatmul.launch_plan(m, k, n)
+    tiles, splits, rows = plan["tiles"], plan["splits"], plan["k_rows"]
+    hits = np.zeros((k, n), np.int32)
+    for t in range(tiles):
+        for s in range(splits):
+            hits[s * rows:min(k, (s + 1) * rows),
+                 t * qmatmul.BLOCK_N:(t + 1) * qmatmul.BLOCK_N] += 1
+    assert (hits == 1).all()
+    assert rows % 64 == 0 and (splits - 1) * rows < k
+    if splits > 1:
+        assert plan["part_elems"] == splits * m * n
+        assert plan["counters"] == tiles == n // qmatmul.BLOCK_N
+    else:
+        assert plan["part_elems"] == 0 and plan["counters"] == 0
+    # K is split only where the column tiles alone leave the card short
+    assert (splits > 1) == (tiles < qmatmul._TARGET_BLOCKS
+                            and k > qmatmul.SPLIT_ROWS)
