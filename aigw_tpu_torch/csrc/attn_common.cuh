@@ -1,7 +1,7 @@
 // Shared device code of the paged-attention kernels (K1 ragged prefill,
 // K2/K7 fused decode, K3 chained decode, K4 split decode, K5 verify),
-// and the asynchronous-copy and split-fold helpers that K2/K7 and K6
-// (qmatmul.cu) share.
+// the tensor-core fragments K3/K5 and K6 (qmatmul.cu) use, and the
+// asynchronous-copy and split-fold helpers of K2/K7, K3/K5 and K6.
 //
 // Work split. One warp carries the query rows of one query position
 // that share a KV head (the GQA group, at most G = 4 or 8 rows) as
@@ -25,16 +25,15 @@
 // Bound on the H100: the decode walks read every cached K/V byte once
 // for ~2 FLOPs per byte, far below the card's ~295 FLOPs/byte balance
 // point, so their floor is HBM bytes. What holds the register walk
-// (warp_walk: K1, K3-K5) above it is latency: each warp runs a dependent
+// (warp_walk: K1, K4) above it is latency: each warp runs a dependent
 // chain per step (a page-table read, then U = 4 or 2 16-byte K/V loads
-// in flight, shuffles, a rescale). The fused decode kernel (K2/K7)
-// removes that chain: its blocks stage whole chunks of keys into a
-// shared-memory ring with cp.async (page rows loaded once per block)
-// and the warps run warp_step on the staged chunk while the next ones
-// are in flight; its split over keys then folds in the same launch
-// through last_arrival. K1, K3, K4 and K5 keep the register walk until
-// their own redesign. Prefill does tens of FLOPs per byte and runs on
-// the CUDA cores in float32.
+// in flight, shuffles, a rescale). The staged walk (attn_staged.cuh:
+// K2/K7, and K3/K5) removes that chain: its blocks stage whole chunks of
+// keys into a shared-memory ring with cp.async (page rows loaded once
+// per block) while the warps work on the chunk before; its split over
+// keys then folds in the same launch through last_arrival. K1 and K4
+// keep the register walk until their own redesign. Prefill does tens of
+// FLOPs per byte and runs on the CUDA cores in float32.
 
 #pragma once
 
@@ -144,24 +143,32 @@ __device__ __forceinline__ void load_key(const Pool& pool,
   }
 }
 
+// Every (row, key) pair is attended: the mask of the decode walks, whose
+// rows share one key range.
+struct AllRows {
+  __device__ __forceinline__ bool operator()(int, int) const { return true; }
+};
+
 // One online-softmax step of a warp over U keys per lane group: the
 // lane group's K/V slices kx[u], vx[u] of key u (valid[u] false: skipped),
 // LG = D / VEC lanes per key. One softmax rescale per step, not per key.
 // q holds this lane's slice of the query rows, already divided by
 // sqrt(D); rows >= grp are skipped (grp is uniform across the warp, so
-// are the shuffles).
-template <int G, int U>
-__device__ __forceinline__ void warp_step(RowState<G>& st,
-                                          const float (&q)[G][VEC], int grp,
-                                          int LG, const float (&kx)[U][VEC],
-                                          const float (&vx)[U][VEC],
-                                          const bool (&valid)[U]) {
+// are the shuffles). Row r attends key u only where mask(r, key[u])
+// holds as well (the multi-query walk's per-row causal limit).
+template <int G, int U, typename Mask>
+__device__ __forceinline__ void warp_step_rows(
+    RowState<G>& st, const float (&q)[G][VEC], int grp, int LG,
+    const float (&kx)[U][VEC], const float (&vx)[U][VEC],
+    const bool (&valid)[U], const int (&key)[U], Mask mask) {
 #pragma unroll
   for (int r = 0; r < G; ++r) {
     if (r >= grp) break;
     float s[U];
+    bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
+      ok[u] = valid[u] && mask(r, key[u]);
       s[u] = 0.f;
 #pragma unroll
       for (int e = 0; e < VEC; ++e) s[u] = fmaf(q[r][e], kx[u][e], s[u]);
@@ -173,14 +180,14 @@ __device__ __forceinline__ void warp_step(RowState<G>& st,
     float m_new = st.m[r];
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (valid[u]) m_new = fmaxf(m_new, s[u]);
+      if (ok[u]) m_new = fmaxf(m_new, s[u]);
     const float alpha = __expf(st.m[r] - m_new);
     st.l[r] *= alpha;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) st.acc[r][e] *= alpha;
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if (!valid[u]) continue;
+      if (!ok[u]) continue;
       const float p = __expf(s[u] - m_new);
       st.l[r] += p;
 #pragma unroll
@@ -189,6 +196,17 @@ __device__ __forceinline__ void warp_step(RowState<G>& st,
     }
     st.m[r] = m_new;
   }
+}
+
+// warp_step_rows where every row attends every valid key.
+template <int G, int U>
+__device__ __forceinline__ void warp_step(RowState<G>& st,
+                                          const float (&q)[G][VEC], int grp,
+                                          int LG, const float (&kx)[U][VEC],
+                                          const float (&vx)[U][VEC],
+                                          const bool (&valid)[U]) {
+  const int key[U] = {};
+  warp_step_rows<G, U>(st, q, grp, LG, kx, vx, valid, key, AllRows{});
 }
 
 // Merge the lane groups of a warp (lanes with the same e0 sit LG apart):
@@ -242,6 +260,31 @@ __device__ __forceinline__ void warp_walk(RowState<G>& st,
   merge_lane_groups<G>(st, grp, LG);
 }
 
+// The fold of block_merge: the states of nwarps warps in smem (float32
+// accumulators [nwarps][G][D], then maxima and denominators [nwarps][G])
+// rescaled to their common maximum and summed in warp order; emit(r, d,
+// m, l, a) receives each element d of rows r < grp. The caller
+// synchronizes the block after writing smem.
+template <typename Emit>
+__device__ __forceinline__ void fold_warps(int nwarps, int G, int grp, int D,
+                                           const float* smem, Emit emit) {
+  const float* s_acc = smem;                  // [nwarps][G][D]
+  const float* s_m = s_acc + nwarps * G * D;  // [nwarps][G]
+  const float* s_l = s_m + nwarps * G;        // [nwarps][G]
+  for (int i = threadIdx.x; i < grp * D; i += blockDim.x) {
+    const int r = i / D, d = i % D;
+    float mm = NEG;
+    for (int w = 0; w < nwarps; ++w) mm = fmaxf(mm, s_m[w * G + r]);
+    float l = 0.f, a = 0.f;
+    for (int w = 0; w < nwarps; ++w) {
+      const float sc = __expf(s_m[w * G + r] - mm);
+      l += s_l[w * G + r] * sc;
+      a += s_acc[(w * G + r) * D + d] * sc;
+    }
+    emit(r, d, mm, l, a);
+  }
+}
+
 // The block's warps merge their states (each already merged over its
 // lane groups) through shared memory; emit(r, d, m, l, a) then receives,
 // once per element d of each group row r, the block's merged running max
@@ -270,18 +313,7 @@ __device__ __forceinline__ void block_merge(const RowState<G>& st, int grp,
     }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < grp * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    float mm = NEG;
-    for (int w = 0; w < nwarps; ++w) mm = fmaxf(mm, s_m[w * G + r]);
-    float l = 0.f, a = 0.f;
-    for (int w = 0; w < nwarps; ++w) {
-      const float sc = __expf(s_m[w * G + r] - mm);
-      l += s_l[w * G + r] * sc;
-      a += s_acc[(w * G + r) * D + d] * sc;
-    }
-    emit(r, d, mm, l, a);
-  }
+  fold_warps(nwarps, G, grp, D, smem, emit);
 }
 
 // Decode: the block's warps walk interleaved key chunks of one
@@ -301,21 +333,6 @@ __device__ __forceinline__ void block_attend(const float (&q)[G][VEC],
   warp_walk<G, U>(st, q, grp, pool, page_row, page_size, Hkv, h, D,
                   n_keys, threadIdx.x / WARP, blockDim.x / WARP);
   block_merge<G>(st, grp, D, smem, emit);
-}
-
-// block_attend writing the group's rows out[r * D + d] =
-// acc / max(l, 1e-30) (a row with no keys comes out zero).
-template <int G, typename TQ, typename Pool>
-__device__ __forceinline__ void decode_attend(const float (&q)[G][VEC],
-                                              int grp, const Pool& pool,
-                                              const int* __restrict__ page_row,
-                                              int page_size, int Hkv, int h,
-                                              int D, int n_keys, TQ* out,
-                                              float* smem) {
-  block_attend<G>(q, grp, pool, page_row, page_size, Hkv, h, D, n_keys, smem,
-                  [out, D](int r, int d, float, float l, float a) {
-                    out[r * D + d] = from_f<TQ>(a / fmaxf(l, 1e-30f));
-                  });
 }
 
 // -- asynchronous copies into shared memory (K2/K7's page ring, K6's
@@ -345,6 +362,44 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// -- tensor-core fragments (K6, and K3/K5's bf16 path) --------------------
+// c += a b: one m16n8k16 product, bf16 in, float32 accumulate. Lane (g =
+// lane / 4, t = lane % 4) holds A (row-major 16 x 16) elements (g, 2t..),
+// (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..) in a[0..3], two per
+// register; B (16 x 8, k by n) elements (2t.., g) in b0 and (2t + 8.., g)
+// in b1; C elements (g, 2t..) in c[0..1] and (g + 8, 2t..) in c[2..3].
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Four 8 x 8 bf16 matrices from shared memory: lane i gives the address
+// of row i % 8 of matrix i / 8; r[j] receives matrix j's elements (lane /
+// 4, 2 (lane % 4) ..).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// The same, transposed: r[j] receives matrix j's elements (2 (lane % 4)
+// .., lane / 4).
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// Two floats as a bf16x2 register (lo in the low half), rounded to
+// nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // -- the fold of split partials inside one launch (K2/K7, K6) -------------

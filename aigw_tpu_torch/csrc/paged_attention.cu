@@ -10,14 +10,14 @@
 // K5 replaces aigw_tpu/ops/pallas/paged_attention.py::
 // paged_attention_verify (Pallas kernel _verify_kernel).
 //
-// What bounds them on the H100: K3 reads each cached K/V byte once for
-// ~2 FLOPs per byte, so it is bound by HBM bytes (3.35 TB/s); its blocks
-// split each sequence's keys over eight warps so that many 16-byte loads
-// are in flight per sequence. K1 does O(rows x keys) work per sequence:
-// at prefill lengths of hundreds of tokens it has tens of FLOPs per pool
-// byte, under the tensor cores' balance point but above what float32
-// dot products on the CUDA cores sustain, so this version is bound by
-// its own arithmetic (see PERF.md for the measured gap); the rows of one
+// What bounds them on the H100: K3 and K5 read each cached K/V byte
+// once per (sequence, KV head) for ~2 FLOPs per byte and query row, far
+// below the card's ~295 FLOPs per byte, so their floor is HBM bytes
+// (3.35 TB/s). K1 does O(rows x keys) work per sequence: at prefill
+// lengths of hundreds of tokens it has tens of FLOPs per pool byte,
+// under the tensor cores' balance point but above what float32 dot
+// products on the CUDA cores sustain, so this version is bound by its
+// own arithmetic (see PERF.md for the measured gap); the rows of one
 // block read the same keys, which the L1 cache serves after the first.
 //
 // Design. The TPU kernel walked a grid (query block, sequence, page)
@@ -31,14 +31,34 @@
 // the grid is sized from the packed length T without a host sync. Rows
 // owned by no sequence stay zero: the wrapper zero-fills the output.
 //
-// K5 (verify) is S decode rows per sequence, query s at position
-// pos0 + s attending keys <= it: grid (B, Hkv, S), each block K3's
-// walk over pos0 + s + 1 keys (none for a slot that is off, pos0 <= -S).
-// Keeping one query position per block holds a warp's registers at K3's
-// G rows; holding all S x G rows in one warp would spill. The S blocks of
-// a (b, h) re-read the same pages, mostly from L2 since they run
-// together; K5 is bound by the bytes of one read of each sequence's
-// cached K/V, which it does not reach at S = 5 (PERF.md).
+// K3 and K5 are one body: K5's query s of sequence b attends keys <=
+// positions[b] + s, and K3 is K5 at S = 1 over lengths[b] keys. The first
+// K5 ran a block per query (grid (B, Hkv, S)), so each of the S blocks
+// of a (sequence, KV head) re-walked the same pages, and every key cost
+// each block a dependent chain (a page-table read, loads, shuffles, a
+// rescale) for its G rows on the CUDA cores. Here one block holds all S
+// x G rows of a (sequence, KV head) (more than 32 rows: further row
+// groups, each re-reading the keys) and reads every key once for them:
+// - the keys split over blocks as K2's do (grid (B * row groups, Hkv,
+//   n_split), split_pages), staged through attn_staged.cuh's cp.async
+//   ring after the split's page rows are loaded once; splits past the
+//   group's keys exit at once, and the splits fold in the same launch
+//   (last_arrival, fold_splits, in split order);
+// - for bf16 q over a bf16 pool the products run on the tensor cores
+//   (mq_tc_kernel): each warp takes 16 keys of a 64-key stage (the
+//   warps split keys, not rows: 20 rows at S 5 are two m16 tiles, too
+//   few to share out) and merges with the others through shared memory
+//   after the walk (fold_warps); the ring's rows are XOR-swizzled by
+//   16-byte chunk, since 256-byte rows would put every ldmatrix row on
+//   the same banks. The scores are scaled by 1 / sqrt(D) in float32 and
+//   the softmax state (m, l) of each row stays float32;
+// - float32 pools, mixed dtypes and D = 8 take the same split, ring and
+//   fold on the CUDA cores (mq_staged_kernel: K2's warp_step_rows with
+//   each row's causal limit as its mask, groups of up to 8 rows).
+// A row's causal limit matters only in the chunk that holds its
+// sequence's last S keys; a row with no keys (a slot that is off,
+// positions[b] <= -S, or the first queries of a window starting below
+// zero) comes out zero.
 //
 // K4 (decode v1) computes K3's function. The TPU's v1 grid walked one
 // page per grid step along a sequential page axis; here that axis
@@ -50,12 +70,12 @@
 // blocks on 132 SMs); the wrapper sizes n_split from the page-table
 // width, with no host sync.
 
-#include "attn_common.cuh"
+#include "attn_staged.cuh"
 
 namespace aigw {
 
 constexpr int PREFILL_WARPS = 4;  // packed rows per K1 block
-constexpr int DECODE_WARPS = 8;   // warps sharing one K3/K4/K5 block
+constexpr int DECODE_WARPS = 8;   // warps sharing one K4 block
 constexpr int COMBINE_THREADS = 128;  // K4's fold of the partials
 
 // grid (ceil(T / PREFILL_WARPS), B, Hkv), block PREFILL_WARPS warps
@@ -108,36 +128,6 @@ __global__ void __launch_bounds__(PREFILL_WARPS * WARP)
   }
 }
 
-// grid (B, Hkv), block DECODE_WARPS warps
-template <int G, typename TQ, typename TKV>
-__global__ void __launch_bounds__(DECODE_WARPS * WARP)
-    paged_decode_kernel(const TQ* __restrict__ q,        // [B, H, D]
-                        const TKV* __restrict__ k_pool,  // [slots, Hkv, D]
-                        const TKV* __restrict__ v_pool,
-                        const int* __restrict__ page_table,  // [B, P]
-                        const int* __restrict__ lengths,     // [B]
-                        TQ* __restrict__ out,                // [B, H, D]
-                        int P, int H, int Hkv, int D, int page_size,
-                        float sqrt_d) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int grp = H / Hkv;
-  const int e0 = (threadIdx.x % WARP % (D / VEC)) * VEC;
-  const TQ* qb = q + ((int64_t)b * H + (int64_t)h * grp) * D;
-  float qr[G][VEC];
-#pragma unroll
-  for (int r = 0; r < G; ++r) {
-    float x[VEC] = {};
-    if (r < grp) load8(qb + r * D + e0, x);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) qr[r][e] = __fdiv_rn(x[e], sqrt_d);
-  }
-  decode_attend<G>(qr, grp, NativePool<TKV>{k_pool, v_pool},
-                   page_table + (int64_t)b * P,
-                   page_size, Hkv, h, D, lengths[b],
-                   out + ((int64_t)b * H + (int64_t)h * grp) * D, smem);
-}
-
 // The G query rows of KV head h at row `row` (= (token) * H + h * grp
 // head rows) as this lane's float32 slice, divided by sqrt(D).
 template <int G, typename TQ>
@@ -154,29 +144,359 @@ __device__ __forceinline__ void load_q(const TQ* q, int64_t row, int grp,
   }
 }
 
-// K5: grid (B, Hkv, S), block DECODE_WARPS warps
-template <int G, typename TQ, typename TKV>
-__global__ void __launch_bounds__(DECODE_WARPS * WARP)
-    paged_verify_kernel(const TQ* __restrict__ q,        // [B, S, H, D]
-                        const TKV* __restrict__ k_pool,  // [slots, Hkv, D]
-                        const TKV* __restrict__ v_pool,
-                        const int* __restrict__ page_table,  // [B, P]
-                        const int* __restrict__ positions,   // [B]
-                        TQ* __restrict__ out,                // [B, S, H, D]
-                        int S, int P, int H, int Hkv, int D, int page_size,
-                        float sqrt_d) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
-  const int grp = H / Hkv;
-  const int64_t row = ((int64_t)b * S + s) * H + (int64_t)h * grp;
-  float qr[G][VEC];
-  load_q<G>(q, row, grp, D, sqrt_d, qr);
-  // query s attends keys <= pos0 + s, within the table's P pages (a
-  // query past them is past its slot's limit: its output is discarded)
-  const int n_keys = max(0, min(positions[b] + s + 1, P * page_size));
-  decode_attend<G>(qr, grp, NativePool<TKV>{k_pool, v_pool},
-                   page_table + (int64_t)b * P, page_size, Hkv, h, D,
-                   n_keys, out + row * D, smem);
+// -- K3 and K5: the multi-query staged split body ---------------------------
+// Row r of the (b, h) pair is query s = r / grp, head h * grp + r % grp
+// of q [B, S, H, D]; it attends keys [0, clamp(xs[b] + s + off, 0, P *
+// page)): K5 passes positions and off 1, K3 lengths, S 1 and off 0.
+// Row groups of `rows` rows (the last may be short) run in separate
+// blocks, each over the keys of its own last row.
+
+constexpr int MQ_TC_WARPS = 4;   // warps of a tensor-core block
+constexpr int MQ_TC_KEYS = 16;   // keys of one warp per ring stage
+constexpr int MQ_TC_CK = MQ_TC_WARPS * MQ_TC_KEYS;  // keys per ring stage
+
+// Physical 16-byte chunk of logical chunk c of row r, for rows of nc
+// chunks (a power of two): the 8 rows an ldmatrix reads at one logical
+// chunk land on 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int swz(int r, int c, int nc) {
+  return nc >= 8 ? c ^ (r & 7) : c ^ ((r * nc >> 3) & (nc - 1));
+}
+
+// Which (sequence, row group, KV head, split) a block is, its rows' key
+// limits, and where its results go. `live` is false for a split past
+// the group's keys (the block exits at once).
+template <typename TQ>
+struct MqBlock {
+  int b, rg, h, sp, n_split, n_rg, S, H, Hkv, grp, D, R, r0, nr;
+  int x, off, cap, n_used, k_lo, n_mine;
+  bool live;
+  TQ* out;
+  float* part;
+  unsigned* counters;
+  int64_t part_rows;  // rows of the partial arrays
+
+  __device__ MqBlock(int rows, const int* xs, TQ* out_, float* part_,
+                     unsigned* counters_, int S_, int P, int H_, int Hkv_,
+                     int D_, int page_size, int pps, int n_rg_, int off_)
+      : S(S_), H(H_), Hkv(Hkv_), D(D_), off(off_), out(out_), part(part_),
+        counters(counters_) {
+    n_rg = n_rg_;
+    b = blockIdx.x / n_rg;
+    rg = blockIdx.x % n_rg;
+    h = blockIdx.y;
+    sp = blockIdx.z;
+    n_split = gridDim.z;
+    grp = H / Hkv;
+    R = S * grp;
+    r0 = rg * rows;
+    nr = min(rows, R - r0);
+    x = xs[b];
+    cap = P * page_size;
+    const int span = pps * page_size;
+    const int n_keys = row_keys(nr - 1);  // the group's most
+    n_used = max(1, (n_keys + span - 1) / span);
+    live = sp < n_used;
+    k_lo = sp * span;
+    n_mine = max(0, min(n_keys - k_lo, span));
+    part_rows = (int64_t)(gridDim.x / n_rg) * Hkv * n_split * R;
+  }
+  // keys of group row r
+  __device__ __forceinline__ int row_keys(int r) const {
+    const int64_t k = (int64_t)x + (r0 + r) / grp + off;
+    return (int)max((int64_t)0, min(k, (int64_t)cap));
+  }
+  // this split's keys [0, row_lim(r)) of group row r (none past nr)
+  __device__ __forceinline__ int row_lim(int r) const {
+    return r < nr ? min(row_keys(r) - k_lo, n_mine) : 0;
+  }
+  // element 0 of group row r in q and out
+  __device__ __forceinline__ int64_t row_off(int r) const {
+    const int s = (r0 + r) / grp, g = (r0 + r) % grp;
+    return (((int64_t)b * S + s) * H + (int64_t)h * grp + g) * D;
+  }
+  // (m, l, a) of group row r, element d: the output when the group's
+  // keys fit one split, else this split's partial
+  __device__ __forceinline__ void emit(int r, int d, float m, float l,
+                                       float a) const {
+    if (n_used == 1) {
+      out[row_off(r) + d] = from_f<TQ>(a / fmaxf(l, 1e-30f));
+      return;
+    }
+    const int64_t row = (((int64_t)b * Hkv + h) * n_split + sp) * R + r0 + r;
+    part[row * D + d] = a;
+    if (d == 0) {
+      part[part_rows * D + row] = m;
+      part[part_rows * (D + 1) + row] = l;
+    }
+  }
+  // The last split of the group to arrive folds the partials. Every
+  // thread of the block must call it.
+  __device__ __forceinline__ void finish() const {
+    if (n_used == 1 ||
+        !last_arrival(counters + ((int64_t)b * Hkv + h) * n_rg + rg, n_used))
+      return;
+    fold_splits(part, part + part_rows * D, part + part_rows * (D + 1),
+                ((int64_t)b * Hkv + h) * n_split, n_used, R, r0, nr, D,
+                [&](int r, int d, float o) {
+                  out[row_off(r) + d] = from_f<TQ>(o);
+                });
+  }
+};
+
+// The split's page rows into shared memory (visible after the caller's
+// next __syncthreads).
+__device__ __forceinline__ void load_pages(int* s_pages, const int* row_pt,
+                                           int sp, int pps, int P) {
+  for (int i = threadIdx.x; i < pps; i += blockDim.x)
+    s_pages[i] = row_pt[min(sp * pps + i, P - 1)];
+}
+
+// bf16 q over a bf16 pool, D a multiple of 16: the tensor-core body.
+// grid (B * n_rg, Hkv, n_split), MQ_TC_WARPS warps; group rows 16 * MT.
+// Dynamic shared memory: the split's page rows, the q tile [16 MT][D]
+// bf16, then the ring: RING stages of MQ_TC_CK K rows and as many V
+// rows, 16-byte chunks swizzled (swz); the warps' merge reuses the ring.
+// In each stage warp w takes keys [16 w, 16 w + 16): S = q k^T by
+// m16n8k16 (rows on M, keys on N, the head dim on K), the online softmax
+// on the float32 fragment, then P v with P split into two bf16 terms
+// (hi + lo: P rounded to bf16 alone would cost a short window's nearly
+// cancelling outputs their tolerance), the fragment reused as the A
+// operand (FlashAttention-2's register layout) and V read by
+// ldmatrix.trans.
+template <int MT, int D>
+__global__ void __launch_bounds__(MQ_TC_WARPS * WARP, 2)
+    mq_tc_kernel(const __nv_bfloat16* __restrict__ q,  // [B, S, H, D]
+                 const __nv_bfloat16* __restrict__ k_pool,  // [slots, Hkv, D]
+                 const __nv_bfloat16* __restrict__ v_pool,
+                 const int* __restrict__ page_table,  // [B, P]
+                 const int* __restrict__ xs,          // [B]
+                 __nv_bfloat16* __restrict__ out,     // [B, S, H, D]
+                 float* part, unsigned* counters, int S, int P, int H,
+                 int Hkv, int page_size, int pps, int n_rg, int off,
+                 float scale) {
+  constexpr int ROWS = 16 * MT, NC = D / 8, RB = D * 2;
+  constexpr int CK = MQ_TC_CK, SB = 2 * CK * RB;
+  extern __shared__ __align__(16) unsigned char mq_smem[];
+  const MqBlock<__nv_bfloat16> blk(ROWS, xs, out, part, counters, S, P, H,
+                                   Hkv, D, page_size, pps, n_rg, off);
+  if (!blk.live) return;
+  int* s_pages = reinterpret_cast<int*>(mq_smem);
+  unsigned char* s_q = mq_smem + pages_bytes(pps);  // [ROWS][RB], swizzled
+  unsigned char* ring = s_q + ROWS * RB;
+  load_pages(s_pages, page_table + (int64_t)blk.b * P, blk.sp, pps, P);
+  for (int i = threadIdx.x; i < ROWS * NC; i += blockDim.x) {
+    const int r = i / NC, c = i % NC;
+    unsigned char* dst = s_q + r * RB + swz(r, c, NC) * 16;
+    if (r < blk.nr) {
+      cp_async16(dst, q + blk.row_off(r) + c * 8);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  __syncthreads();  // the page rows (the q copies land with chunk 0)
+
+  const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
+  const int g = lane / 4, t = lane % 4;
+  int lim[MT][2];  // keys of this lane's rows g, g + 8 of each tile
+  float m[MT][2], l[MT][2], acc[MT][D / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      lim[mt][hh] = blk.row_lim(mt * 16 + g + 8 * hh);
+      m[mt][hh] = NEG;
+      l[mt][hh] = 0.f;
+    }
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][dt][e] = 0.f;
+  }
+  const int Hkv_ = Hkv, h = blk.h, n_mine = blk.n_mine;
+  // rows a lane addresses in ldmatrix: K (keys (lane / 16) 8 + lane % 8
+  // at chunk offset (lane / 8) % 2), V and q (rows ((lane / 8) % 2) 8 +
+  // lane % 8 at chunk offset lane / 16)
+  const int kr = warp * MQ_TC_KEYS + (lane / 16) * 8 + lane % 8;
+  const int kc = (lane / 8) % 2;
+  const int vr = warp * MQ_TC_KEYS + ((lane / 8) % 2) * 8 + lane % 8;
+  const int qr = ((lane / 8) % 2) * 8 + lane % 8, qc = lane / 16;
+
+  ring_walk<RING>(
+      (n_mine + CK - 1) / CK,
+      [&](int c, int slot) {
+        unsigned char* stage = ring + slot * SB;
+        for (int i = threadIdx.x; i < 2 * CK * NC; i += blockDim.x) {
+          const int kv = i / (CK * NC), j = (i / NC) % CK, ch = i % NC;
+          const int key = c * CK + j;
+          unsigned char* dst =
+              stage + (kv * CK + j) * RB + swz(j, ch, NC) * 16;
+          if (key < n_mine) {
+            const int64_t row = ((int64_t)s_pages[key / page_size] *
+                                     page_size + key % page_size) * Hkv_ + h;
+            cp_async16(dst, (kv ? v_pool : k_pool) + row * D + ch * 8);
+          } else {  // zeros: a masked key's v must not be NaN
+            cp_async16(dst, k_pool, 0);
+          }
+        }
+      },
+      [&](int c, int slot) {
+        const int kb = c * CK + warp * MQ_TC_KEYS;  // this warp's keys
+        if (kb >= n_mine) return;
+        const unsigned char* ks = ring + slot * SB;
+        const unsigned char* vs = ks + CK * RB;
+        float sc[MT][2][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[mt][n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t kf[4];  // B of key tiles 0-7 (kf[0..1]), 8-15 (kf[2..3])
+          ldsm_x4(kf, ks + kr * RB + swz(kr, 2 * kk + kc, NC) * 16);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            uint32_t qf[4];
+            const int r = mt * 16 + qr;
+            ldsm_x4(qf, s_q + r * RB + swz(r, 2 * kk + qc, NC) * 16);
+            mma_bf16(sc[mt][0], qf, kf[0], kf[1]);
+            mma_bf16(sc[mt][1], qf, kf[2], kf[3]);
+          }
+        }
+        uint32_t ph[MT][4], pl[MT][4];  // P as A fragments, hi and lo
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            // this lane's 4 keys of row g + 8 hh: kb + 8 n + 2 t + e
+            float v[2][2];
+            bool ok[2][2];
+            float mx = NEG;
+#pragma unroll
+            for (int n = 0; n < 2; ++n)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                v[n][e] = sc[mt][n][2 * hh + e] * scale;
+                ok[n][e] = kb + 8 * n + 2 * t + e < lim[mt][hh];
+                if (ok[n][e]) mx = fmaxf(mx, v[n][e]);
+              }
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+            const float m_new = fmaxf(m[mt][hh], mx);
+            const float alpha = __expf(m[mt][hh] - m_new);
+            m[mt][hh] = m_new;
+            float ls = 0.f;
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+              float p[2], hi[2], lo[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                p[e] = ok[n][e] ? __expf(v[n][e] - m_new) : 0.f;
+                hi[e] = __bfloat162float(__float2bfloat16_rn(p[e]));
+                lo[e] = __bfloat162float(__float2bfloat16_rn(p[e] - hi[e]));
+                ls += hi[e] + lo[e];  // l sums the P that PV multiplies
+              }
+              ph[mt][2 * n + hh] = pack_bf16(hi[0], hi[1]);
+              pl[mt][2 * n + hh] = pack_bf16(lo[0], lo[1]);
+            }
+            l[mt][hh] = l[mt][hh] * alpha + ls;  // this lane's keys only
+#pragma unroll
+            for (int dt = 0; dt < D / 8; ++dt) {
+              acc[mt][dt][2 * hh] *= alpha;
+              acc[mt][dt][2 * hh + 1] *= alpha;
+            }
+          }
+        }
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t vf[4];  // B of columns 16 dp + [0, 8), + [8, 16)
+          ldsm_x4_t(vf, vs + vr * RB + swz(vr, 2 * dp + qc, NC) * 16);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][2 * dp], ph[mt], vf[0], vf[1]);
+            mma_bf16(acc[mt][2 * dp], pl[mt], vf[0], vf[1]);
+            mma_bf16(acc[mt][2 * dp + 1], ph[mt], vf[2], vf[3]);
+            mma_bf16(acc[mt][2 * dp + 1], pl[mt], vf[2], vf[3]);
+          }
+        }
+      });
+  // the warps' states into the ring (fold_warps' layout), then the fold
+  float* s_acc = reinterpret_cast<float*>(ring);  // [warps][ROWS][D]
+  float* s_m = s_acc + MQ_TC_WARPS * ROWS * D;     // [warps][ROWS]
+  float* s_l = s_m + MQ_TC_WARPS * ROWS;           // [warps][ROWS]
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = mt * 16 + g + 8 * hh;
+      float ls = l[mt][hh];
+      ls += __shfl_xor_sync(FULL, ls, 1);
+      ls += __shfl_xor_sync(FULL, ls, 2);
+      float* a = s_acc + (warp * ROWS + r) * D + 2 * t;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+        *reinterpret_cast<float2*>(a + dt * 8) =
+            make_float2(acc[mt][dt][2 * hh], acc[mt][dt][2 * hh + 1]);
+      if (t == 0) {
+        s_m[warp * ROWS + r] = m[mt][hh];
+        s_l[warp * ROWS + r] = ls;
+      }
+    }
+  }
+  __syncthreads();
+  fold_warps(MQ_TC_WARPS, ROWS, blk.nr, D, s_acc,
+             [&](int r, int d, float mm, float ll, float a) {
+               blk.emit(r, d, mm, ll, a);
+             });
+  blk.finish();
+}
+
+// float32 pools, mixed dtypes and D = 8: the same split, ring and fold
+// on the CUDA cores (staged_attend, K2's walk, with each row's causal
+// limit as its mask). grid (B * n_rg, Hkv, n_split), FUSED_WARPS warps;
+// group rows NR.
+template <int NR, typename TQ, typename TKV>
+__global__ void __launch_bounds__(FUSED_WARPS * WARP)
+    mq_staged_kernel(const TQ* __restrict__ q,  // [B, S, H, D]
+                     const TKV* k_pool,         // [slots, Hkv, D]
+                     const TKV* v_pool,
+                     const int* __restrict__ page_table,  // [B, P]
+                     const int* __restrict__ xs,          // [B]
+                     TQ* __restrict__ out,                // [B, S, H, D]
+                     float* part, unsigned* counters, int S, int P, int H,
+                     int Hkv, int D, int page_size, int pps, int n_rg,
+                     int off, float sqrt_d) {
+  extern __shared__ __align__(16) unsigned char mq_smem[];
+  const MqBlock<TQ> blk(NR, xs, out, part, counters, S, P, H, Hkv, D,
+                        page_size, pps, n_rg, off);
+  if (!blk.live) return;
+  int* s_pages = reinterpret_cast<int*>(mq_smem);
+  load_pages(s_pages, page_table + (int64_t)blk.b * P, blk.sp, pps, P);
+  const int e0 = (threadIdx.x % WARP % (D / VEC)) * VEC;
+  float qr[NR][VEC];
+  int lim[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    float x[VEC] = {};
+    if (r < blk.nr) load8(q + blk.row_off(r) + e0, x);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) qr[r][e] = __fdiv_rn(x[e], sqrt_d);
+    lim[r] = blk.row_lim(r);
+  }
+  __syncthreads();  // the page rows
+  const StagedPool<TKV, 0> pool{
+      reinterpret_cast<const unsigned char*>(k_pool),
+      reinterpret_cast<const unsigned char*>(v_pool), nullptr, nullptr, Hkv,
+      blk.h, D};
+  staged_attend<NR>(
+      qr, blk.nr, pool, s_pages, page_size, D, blk.n_mine,
+      mq_smem + pages_bytes(pps),
+      [&](int r, int d, float m, float l, float a) {
+        blk.emit(r, d, m, l, a);
+      },
+      [&](int r, int key) { return key < lim[r]; });
+  blk.finish();
 }
 
 // K4, first launch: grid (B, Hkv, n_split), block DECODE_WARPS warps.
@@ -280,53 +600,132 @@ int aigw_ragged_prefill(const void* q, const void* k_pool,
   return (int)cudaGetLastError();
 }
 
-int aigw_paged_decode(const void* q, const void* k_pool, const void* v_pool,
-                      const int* page_table, const int* lengths, void* out,
-                      int B, int P, int H, int Hkv, int D, int page_size,
-                      int q_dtype, int kv_dtype, void* stream) {
+// Group rows of the K3/K5 body for S * grp rows (the Python plan's
+// group_rows): the tensor-core body takes 16 or 32 (two m16 tiles,
+// D <= 128), the CUDA-core body 4 or 8.
+static int mq_rows(bool tc, int R, int D) {
+  if (tc) return R > 16 && D <= 128 ? 32 : 16;
+  return R <= 4 ? 4 : 8;
+}
+
+// The K3/K5 launch: grid (B * n_rg, Hkv, n_split) over q [B, S, H, D];
+// row r of a (b, h) attends keys [0, clamp(xs[b] + r / grp + off, 0, P *
+// page_size)). With n_split > 1, part is float32 scratch of n_split * B
+// * S * H * (D + 2) elements and counters B * Hkv * n_rg zeroed uint32,
+// which the kernel leaves zero.
+static int paged_mq(const void* q, const void* k_pool, const void* v_pool,
+                    const int* page_table, const int* xs, void* out,
+                    void* part, void* counters, int B, int S, int P, int H,
+                    int Hkv, int D, int page_size, int pps, int n_split,
+                    int rows, int off, int q_dtype, int kv_dtype,
+                    void* stream) {
   const int grp = H / Hkv;
-  if (!AIGW_SHAPES_OK(D, grp) || B < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, Hkv);
-  const float sqrt_d = sqrtf((float)D);
-#define LAUNCH(G, TQ, TKV)                                                  \
-  {                                                                         \
-    const int smem = DECODE_WARPS * G * (D + 2) * (int)sizeof(float);       \
-    auto kern = paged_decode_kernel<G, TQ, TKV>;                            \
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                         smem);                                             \
-    kern<<<grid, DECODE_WARPS * WARP, smem, (cudaStream_t)stream>>>(        \
-        (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, page_table,   \
-        lengths, (TQ*)out, P, H, Hkv, D, page_size, sqrt_d);                \
+  if (!AIGW_SHAPES_OK(D, grp) || B < 1 || S < 1 || S > 65535 || P < 1 ||
+      pps < 1 || n_split < 1 || n_split > 65535 || Hkv > 65535 ||
+      (int64_t)(n_split - 1) * pps >= P || (int64_t)n_split * pps < P ||
+      (n_split > 1 && (part == nullptr || counters == nullptr))) {
+    return (int)cudaErrorInvalidValue;
   }
-  AIGW_DISPATCH(grp, q_dtype, kv_dtype, LAUNCH);
+  const bool tc = q_dtype == AIGW_BF16 && kv_dtype == AIGW_BF16 &&
+                  D % 16 == 0;
+  const int R = S * grp;
+  if (rows != mq_rows(tc, R, D)) return (int)cudaErrorInvalidValue;
+  const int n_rg = (R + rows - 1) / rows;
+  if ((int64_t)B * n_rg > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * n_rg, Hkv, n_split);
+  const cudaStream_t st = (cudaStream_t)stream;
+  // the largest dynamic shared memory allowed so far, per kernel: one
+  // runtime call per new size, none on the launch path (and none inside
+  // a CUDA graph capture)
+#define SET_SMEM(KERN, SMEM)                                                \
+  {                                                                         \
+    static int smem_set = 0;                                                \
+    if ((SMEM) > smem_set) {                                                \
+      const cudaError_t e = cudaFuncSetAttribute(                           \
+          KERN, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);         \
+      if (e != cudaSuccess) return (int)e;                                  \
+      smem_set = (SMEM);                                                    \
+    }                                                                       \
+  }
+  if (tc) {
+#define LAUNCH_TC(MT, DD)                                                   \
+  {                                                                         \
+    const int ring = RING * 2 * MQ_TC_CK * DD * 2;                          \
+    const int merge = MQ_TC_WARPS * 16 * MT * (DD + 2) * (int)sizeof(float);\
+    const int smem = pages_bytes(pps) + 16 * MT * DD * 2 +                  \
+                     (ring > merge ? ring : merge);                         \
+    auto kern = mq_tc_kernel<MT, DD>;                                       \
+    SET_SMEM(kern, smem);                                                   \
+    kern<<<grid, MQ_TC_WARPS * WARP, smem, st>>>(                           \
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool,              \
+        (const __nv_bfloat16*)v_pool, page_table, xs, (__nv_bfloat16*)out,  \
+        (float*)part, (unsigned*)counters, S, P, H, Hkv, page_size, pps,    \
+        n_rg, off, 1.f / sqrtf((float)DD));                                 \
+  }
+#define LAUNCH_TC_D(MT)                                                     \
+  switch (D) {                                                              \
+    case 16: LAUNCH_TC(MT, 16); break;                                      \
+    case 32: LAUNCH_TC(MT, 32); break;                                      \
+    case 64: LAUNCH_TC(MT, 64); break;                                      \
+    case 128: LAUNCH_TC(MT, 128); break;                                    \
+    default: return (int)cudaErrorInvalidValue;                             \
+  }
+    if (rows == 32) {
+      LAUNCH_TC_D(2);
+    } else if (D == 256) {
+      LAUNCH_TC(1, 256);
+    } else {
+      LAUNCH_TC_D(1);
+    }
+#undef LAUNCH_TC_D
+#undef LAUNCH_TC
+  } else {
+    const float sqrt_d = sqrtf((float)D);
+#define LAUNCH(NR, TQ, TKV)                                                 \
+  {                                                                         \
+    const int ring = RING * stage_bytes<TKV, 0>(D);                         \
+    const int merge = FUSED_WARPS * NR * (D + 2) * (int)sizeof(float);      \
+    const int smem = pages_bytes(pps) + (ring > merge ? ring : merge);      \
+    auto kern = mq_staged_kernel<NR, TQ, TKV>;                              \
+    SET_SMEM(kern, smem);                                                   \
+    kern<<<grid, FUSED_WARPS * WARP, smem, st>>>(                           \
+        (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, page_table,   \
+        xs, (TQ*)out, (float*)part, (unsigned*)counters, S, P, H, Hkv, D,   \
+        page_size, pps, n_rg, off, sqrt_d);                                 \
+  }
+    if (rows == 4) {
+      AIGW_DISPATCH_DT(4, q_dtype, kv_dtype, LAUNCH);
+    } else {
+      AIGW_DISPATCH_DT(8, q_dtype, kv_dtype, LAUNCH);
+    }
 #undef LAUNCH
+  }
+#undef SET_SMEM
   return (int)cudaGetLastError();
 }
 
+// K3: q [B, H, D], row b attends its first lengths[b] keys (capped at
+// the table).
+int aigw_paged_decode(const void* q, const void* k_pool, const void* v_pool,
+                      const int* page_table, const int* lengths, void* out,
+                      void* part, void* counters, int B, int P, int H,
+                      int Hkv, int D, int page_size, int pps, int n_split,
+                      int rows, int q_dtype, int kv_dtype, void* stream) {
+  return paged_mq(q, k_pool, v_pool, page_table, lengths, out, part,
+                  counters, B, 1, P, H, Hkv, D, page_size, pps, n_split,
+                  rows, 0, q_dtype, kv_dtype, stream);
+}
+
+// K5: q [B, S, H, D], query s of sequence b attends keys <= positions[b]
+// + s (capped at the table; none for a slot at positions[b] <= -S).
 int aigw_paged_verify(const void* q, const void* k_pool, const void* v_pool,
                       const int* page_table, const int* positions, void* out,
-                      int B, int S, int P, int H, int Hkv, int D,
-                      int page_size, int q_dtype, int kv_dtype,
-                      void* stream) {
-  const int grp = H / Hkv;
-  if (!AIGW_SHAPES_OK(D, grp) || B < 1 || S < 1 || S > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid(B, Hkv, S);
-  const float sqrt_d = sqrtf((float)D);
-#define LAUNCH(G, TQ, TKV)                                                  \
-  {                                                                         \
-    const int smem = DECODE_WARPS * G * (D + 2) * (int)sizeof(float);       \
-    auto kern = paged_verify_kernel<G, TQ, TKV>;                            \
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                         smem);                                             \
-    kern<<<grid, DECODE_WARPS * WARP, smem, (cudaStream_t)stream>>>(        \
-        (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, page_table,   \
-        positions, (TQ*)out, S, P, H, Hkv, D, page_size, sqrt_d);           \
-  }
-  AIGW_DISPATCH(grp, q_dtype, kv_dtype, LAUNCH);
-#undef LAUNCH
-  return (int)cudaGetLastError();
+                      void* part, void* counters, int B, int S, int P, int H,
+                      int Hkv, int D, int page_size, int pps, int n_split,
+                      int rows, int q_dtype, int kv_dtype, void* stream) {
+  return paged_mq(q, k_pool, v_pool, page_table, positions, out, part,
+                  counters, B, S, P, H, Hkv, D, page_size, pps, n_split,
+                  rows, 1, q_dtype, kv_dtype, stream);
 }
 
 // part: float32 scratch of n_split * B * Hkv * grp * (D + 2) elements

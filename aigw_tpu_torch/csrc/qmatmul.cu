@@ -57,6 +57,7 @@ using aigw::cp_async16;
 using aigw::cp_async_commit;
 using aigw::cp_async_wait;
 using aigw::last_arrival;
+using aigw::mma_bf16;
 
 constexpr int BLOCK_N = 128;  // output columns per block (both kernels)
 
@@ -86,15 +87,6 @@ __device__ __forceinline__ float int8_at(uint32_t u) {
 // bits are zero): the upper halves, lo in the low half.
 __device__ __forceinline__ uint32_t bf16x2_hi(float lo, float hi) {
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {

@@ -16,6 +16,13 @@
   ``<= positions[b] + s``, and a slot with ``positions[b] <= -S``
   attends nothing (zeros).
 
+On the card K3 and K5 are one kernel body (K3 is K5 at S = 1 over
+``lengths[b]`` keys): every (sequence, KV head) holds its S x G query
+rows in one block and reads each key once for all of them, its keys
+split over blocks as the fused decode's are (``split_pages``), folded in
+the same launch. ``mq_plan`` sizes the launch from the shapes alone and
+``mq_blocks`` lists what each block covers.
+
 Each function has a plain PyTorch version beside it with the same
 signature (``*_plain``). The public function runs the plain version for
 CPU tensors and the CUDA kernel (``csrc/paged_attention.cu``) for CUDA
@@ -159,6 +166,82 @@ def _check_decode_args(name, q, k_pool, v_pool, page_table, rows):
         raise ValueError("k_pool and v_pool dtypes differ")
 
 
+def mq_plan(B: int, S: int, H: int, Hkv: int, D: int, P: int, *,
+            tensor_cores: bool) -> tuple[int, int, int, int]:
+    """Launch plan of the K3/K5 body for q ``[B, S, H, D]`` over a ``[B,
+    P]`` page table: ``(pps, n_split, group_rows, n_rg)``. Keys split
+    as the fused decode's (``split_pages``); the S x G rows of a
+    (sequence, KV head) run in ``n_rg`` groups of ``group_rows``: the
+    tensor-core body (bf16 q over a bf16 pool, D a multiple of 16) holds
+    16 rows, or 32 (two m16 tiles) where more rows come and D <= 128;
+    the CUDA-core body 4 or 8 (``csrc/paged_attention.cu``)."""
+    R = S * (H // Hkv)
+    if tensor_cores:
+        rows = 32 if R > 16 and D <= 128 else 16
+    else:
+        rows = 4 if R <= 4 else 8
+    pps, n_split = split_pages(B, Hkv, P)
+    return pps, n_split, rows, -(-R // rows)
+
+
+def mq_blocks(xs, *, S: int, H: int, Hkv: int, P: int, page_size: int,
+              off: int, pps: int, group_rows: int):
+    """What each block of the K3/K5 launch attends, as the kernel
+    decides it: yields ``(b, rg, sp, rows)`` for every block that does
+    not exit at once, ``rows`` a list of ``(row, key_lo, key_hi)`` (row
+    r of the (b, h) pair is query r // G, head h * G + r % G; it attends
+    keys ``[key_lo, key_hi)``, possibly none). Row r's keys are ``[0,
+    clamp(xs[b] + r // G + off, 0, P * page_size))``: K3 passes lengths
+    with ``off`` 0 and S 1, K5 positions with ``off`` 1."""
+    grp = H // Hkv
+    R = S * grp
+    span = pps * page_size
+    cap = P * page_size
+    n_rg = -(-R // group_rows)
+    for b, x in enumerate(int(v) for v in xs):
+        for rg in range(n_rg):
+            r0 = rg * group_rows
+            nr = min(group_rows, R - r0)
+
+            def row_keys(r):
+                return max(0, min(x + (r0 + r) // grp + off, cap))
+
+            n_keys = row_keys(nr - 1)
+            n_used = max(1, -(-n_keys // span))
+            for sp in range(n_used):
+                k_lo = sp * span
+                n_mine = max(0, min(n_keys - k_lo, span))
+                yield b, rg, sp, [
+                    (r0 + r, k_lo, k_lo + max(0, min(row_keys(r) - k_lo,
+                                                     n_mine)))
+                    for r in range(nr)]
+
+
+def _paged_mq(name, q4, k_pool, v_pool, page_table, xs, out, page_size,
+              counter_key):
+    """Launch the K3/K5 body (``aigw_paged_decode`` / ``_verify``) for
+    q ``[B, S, H, D]``; allocates the split partials and takes the
+    arrival counters (``_build.counters``)."""
+    B, S, H, D = q4.shape
+    Hkv = k_pool.shape[1]
+    P = page_table.shape[1]
+    tc = (q4.dtype == torch.bfloat16 and k_pool.dtype == torch.bfloat16
+          and D % 16 == 0)
+    pps, n_split, rows, n_rg = mq_plan(B, S, H, Hkv, D, P, tensor_cores=tc)
+    part = counters = None
+    if n_split > 1:
+        part = torch.empty((n_split * B * S * H * (D + 2),),
+                           dtype=torch.float32, device=q4.device)
+        counters = _build.counters(q4.device, counter_key, B * Hkv * n_rg)
+    head = (q4.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), xs.data_ptr(), out.data_ptr(),
+            _build.ptr(part), _build.ptr(counters), B)
+    dims = (P, H, Hkv, D) if name == "aigw_paged_decode" else (S, P, H, Hkv, D)
+    _build.launch(name, *head, *dims, page_size, pps, n_split, rows,
+                  _build.dtype_code(q4, "q"),
+                  _build.dtype_code(k_pool, "k_pool"))
+
+
 def paged_attention_decode_v2_plain(
     q: torch.Tensor,  # [B, H, D]
     k_pool: torch.Tensor,  # [n_slots, Hkv, D]
@@ -184,21 +267,16 @@ def paged_attention_decode_v2(
     page_size: int,
 ) -> torch.Tensor:
     """K3. Returns ``[B, H, D]`` in q's dtype; rows with length 0 are
-    zero. CPU tensors: the plain version; CUDA tensors: the kernel."""
+    zero. CPU tensors: the plain version; CUDA tensors: the K3/K5 body
+    at S = 1 (``aigw_paged_decode``)."""
     if q.device.type == "cpu":
         return paged_attention_decode_v2_plain(
             q, k_pool, v_pool, page_table, lengths, page_size=page_size)
     _check_decode_args("paged_attention_decode_v2", q, k_pool, v_pool,
                        page_table, lengths)
-    B, H, D = q.shape
-    Hkv = k_pool.shape[1]
-    P = page_table.shape[1]
     out = torch.empty_like(q)
-    _build.launch(
-        "aigw_paged_decode", q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, P, H, Hkv, D, page_size,
-        _build.dtype_code(q, "q"), _build.dtype_code(k_pool, "k_pool"))
+    _paged_mq("aigw_paged_decode", q[:, None], k_pool, v_pool, page_table,
+              lengths, out, page_size, "paged_attention_decode_v2")
     paged_attention_decode_v2.launches += 1
     return out
 
@@ -300,15 +378,9 @@ def paged_attention_verify(
             q, k_pool, v_pool, page_table, positions, page_size=page_size)
     _check_decode_args("paged_attention_verify", q, k_pool, v_pool,
                        page_table, positions)
-    B, S, H, D = q.shape
-    Hkv = k_pool.shape[1]
-    P = page_table.shape[1]
     out = torch.empty_like(q)
-    _build.launch(
-        "aigw_paged_verify", q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), page_table.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), B, S, P, H, Hkv, D, page_size,
-        _build.dtype_code(q, "q"), _build.dtype_code(k_pool, "k_pool"))
+    _paged_mq("aigw_paged_verify", q, k_pool, v_pool, page_table,
+              positions, out, page_size, "paged_attention_verify")
     paged_attention_verify.launches += 1
     return out
 

@@ -39,14 +39,15 @@ Phases (any failure exits non-zero):
    plain output plus 2e-3, printed beside the mean |output|; K2's and
    K7's pool bytes equal), timed with CUDA events (L2 flushed between
    launches) beside the plain version and the kernel's roofline bound;
-   K2, K6 and K7 also back to back over copies of their inputs above
+   every kernel also back to back over copies of its inputs above
    100 MB, replayed from a CUDA graph (``ms_rotated``: device time with
    no host time and no flush between launches, as a served step runs
    them), K6 twice on the same inputs (bit-identical: its split-K fold
    runs in split order);
    K4, which no engine path selects (nor the reference's), at K3's
    inputs and timed beside K3; K5 at the served verify shapes (batch 8,
-   S = 5, a slot that is off, windows across a page);
+   S = 5, a slot that is off, windows across a page) and at S = 9 (two
+   row groups per sequence and KV head, a window starting at -2);
    K6 at each of the five weight shapes a decode step multiplies (the
    ``qmatmul_shapes`` JSON line), beside cuBLAS on the same weight
    dequantized to bf16 ahead of time; full-width prefill + 8 decode
@@ -56,11 +57,13 @@ Phases (any failure exits non-zero):
    quantized ones also against the bf16 model's greedy tokens; one
    full-width verify step (width 5) through K5 against the same through
    its plain version (the ``model_check`` line's ``verify``);
-6. where one full-width decode step's time goes, bf16 and W8A16 over
-   int8 pages, and one verify step of width 5 through K5: its host wall
-   time against the device time ``torch.profiler`` sees, by kernel (the
-   ``decode_profile``, ``decode_profile_quant`` and ``verify_profile``
-   JSON lines; ``port_kernels_ms`` sums every K6 and K2/K7 launch);
+6. where one full-width decode step's time goes, bf16 on the fused and
+   on the chained rung (K3) and W8A16 over int8 pages, and one verify
+   step of width 5 through K5: its host wall time against the device
+   time ``torch.profiler`` sees, by kernel (the ``decode_profile``,
+   ``decode_profile_chained``, ``decode_profile_quant`` and
+   ``verify_profile`` JSON lines; ``port_kernels_ms`` sums every K6,
+   K2/K7 and K3 or K5 launch of the step);
 7. the ``kernels`` JSON line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -399,16 +402,26 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
     b_ms, b_by = bound(nbytes, 4 * toks * H * D)
     # K3 and K4 compute one function: timed in turns (K3, K4, K4, K3)
     t3a, t4a, t4b, t3b = (cuda_ms(f) for f in (k3, k4, k4, k3))
+    # back to back over copies of the pools, as a served step runs them
+    n_rot = copies_for(nbytes)
+    rot = [(k_pool.clone(), v_pool.clone()) for _ in range(n_rot)]
+    rot3, rot4 = (rotated_ms(lambda i, f=f: f(
+        q, *rot[i], pt, lens, page_size=PS), n_rot) for f in (
+        paged_attention.paged_attention_decode_v2,
+        paged_attention.paged_attention_decode))
+    del rot
     rows.append(dict(
         name="paged_attention_decode_v2", route="cuda",
         source="aigw_tpu_torch/csrc/paged_attention.cu",
         replaces="aigw_tpu/ops/pallas/paged_attention.py:223",
         launches=launches["paged_attention_decode_v2"], max_abs_err=err,
-        ms=(t3a + t3b) / 2, plain_ms=cuda_ms(k3_plain, iters=5),
+        ms=(t3a + t3b) / 2, ms_rotated=rot3,
+        plain_ms=cuda_ms(k3_plain, iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         out_mean_abs=mean_out))
     log(f"K3 ok: max err {err:.3g} (mean |out| {mean_out:.3g}), "
-        f"{rows[-1]['ms']:.4f} ms (bound {b_ms:.4f} ms, plain "
+        f"{rows[-1]['ms']:.4f} ms, rotated {rot3:.4f} ms (bound "
+        f"{b_ms:.4f} ms, plain "
         f"{rows[-1]['plain_ms']:.3f} ms)")
     pps, n_split = paged_attention.split_pages(B, Hkv, P)
     rows.append(dict(
@@ -416,14 +429,16 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         source="aigw_tpu_torch/csrc/paged_attention.cu",
         replaces="aigw_tpu/ops/pallas/paged_attention.py:115",
         launches=launches["paged_attention_decode"], max_abs_err=err4,
-        ms=(t4a + t4b) / 2, plain_ms=cuda_ms(k4_plain, iters=5),
+        ms=(t4a + t4b) / 2, ms_rotated=rot4,
+        plain_ms=cuda_ms(k4_plain, iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         out_mean_abs=mean_out4, k3_ms_beside=(t3a + t3b) / 2,
         splits=n_split, pages_per_split=pps,
         note="off the engine path, as in the reference: no decode rung "
              "selects v1"))
     log(f"K4 ok: max err {err4:.3g} (mean |out| {mean_out4:.3g}), "
-        f"{rows[-1]['ms']:.4f} ms in {n_split} splits of {pps} pages "
+        f"{rows[-1]['ms']:.4f} ms, rotated {rot4:.4f} ms, in {n_split} "
+        f"splits of {pps} pages "
         f"(K3 beside it {rows[-1]['k3_ms_beside']:.4f} ms; bound "
         f"{b_ms:.4f} ms)")
 
@@ -495,9 +510,9 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
     pos_t = torch.tensor(pos0, dtype=torch.int32, device=dev)
     qv = randn(B, S, H, D)
 
-    def k5():
+    def k5(kp=k_pool, vp=v_pool):
         return paged_attention.paged_attention_verify(
-            qv, k_pool, v_pool, pt, pos_t, page_size=PS)
+            qv, kp, vp, pt, pos_t, page_size=PS)
 
     def k5_plain():
         return paged_attention.paged_attention_verify_plain(
@@ -507,23 +522,42 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
     err, mean_out = attn_check("K5", got, k5_plain())
     if got[pos0.index(-(S + 1))].abs().max().item() != 0.0:
         raise AssertionError("K5's slot that is off is not zero")
+    # S = 9: 36 rows of a (sequence, KV head), two row groups; a window
+    # starting at -2 (its first two queries attend nothing) and a slot
+    # that is off
+    S9 = 9
+    pos9 = torch.tensor([-2, -(S9 + 1), 1022, 126, 1530, 0, 700, 255],
+                        dtype=torch.int32, device=dev)
+    q9 = randn(B, S9, H, D)
+    got9 = paged_attention.paged_attention_verify(q9, k_pool, v_pool, pt,
+                                                  pos9, page_size=PS)
+    err9, _ = attn_check("K5 (S 9)", got9,
+                         paged_attention.paged_attention_verify_plain(
+                             q9, k_pool, v_pool, pt, pos9, page_size=PS))
+    if got9[1].abs().max().item() != 0.0 or got9[0, :2].abs().max() != 0:
+        raise AssertionError("K5 (S 9): a query with no keys is not zero")
     # keys each query attends, and the rows each sequence's walk needs
     keys = [max(0, min(p + s + 1, P * PS)) for p in pos0 for s in range(S)]
     rows_read = sum(max(0, min(p + S, P * PS)) for p in pos0)
     nbytes = 2 * (2 * B * S * H * D + 2 * rows_read * Hkv * D) \
         + 4 * B * (P + 1)
     b_ms, b_by = bound(nbytes, 4 * sum(keys) * H * D)
+    n_rot = copies_for(nbytes)
+    rot = [(k_pool.clone(), v_pool.clone()) for _ in range(n_rot)]
+    rot5 = rotated_ms(lambda i: k5(*rot[i]), n_rot)
+    del rot
     rows.append(dict(
         name="paged_attention_verify", route="cuda",
         source="aigw_tpu_torch/csrc/paged_attention.cu",
         replaces="aigw_tpu/ops/pallas/paged_attention.py:497",
         launches=launches["paged_attention_verify"], max_abs_err=err,
-        ms=cuda_ms(k5), plain_ms=cuda_ms(k5_plain, iters=5),
+        ms=cuda_ms(k5), ms_rotated=rot5,
+        plain_ms=cuda_ms(k5_plain, iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        out_mean_abs=mean_out, S=S))
-    log(f"K5 ok: max err {err:.3g} (mean |out| {mean_out:.3g}), "
-        f"{rows[-1]['ms']:.4f} ms (bound {b_ms:.4f} ms, plain "
-        f"{rows[-1]['plain_ms']:.3f} ms)")
+        out_mean_abs=mean_out, S=S, max_abs_err_s9=err9))
+    log(f"K5 ok: max err {err:.3g} (mean |out| {mean_out:.3g}; S 9: "
+        f"{err9:.3g}), {rows[-1]['ms']:.4f} ms, rotated {rot5:.4f} ms "
+        f"(bound {b_ms:.4f} ms, plain {rows[-1]['plain_ms']:.3f} ms)")
 
     # K1: a packed burst with one offset start, padded to a 256 multiple
     seq = [(700, 0), (300, 0), (1, 0), (129, 77), (250, 0)]
@@ -548,22 +582,30 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
 
     got = k1()
     err, mean_out = attn_check("K1", got[:total], k1_plain()[:total])
+    keys = sum(s + n for n, s in seq)  # pool rows each sequence reads
+    nbytes = 2 * (total * H * D + 2 * keys * Hkv * D + T * H * D)
+    n_rot = copies_for(nbytes)
+    rot = [(q1.clone(), k_pool.clone(), v_pool.clone())
+           for _ in range(n_rot)]
+    rot1 = rotated_ms(lambda i: paged_attention.ragged_prefill_attention(
+        *rot[i], pt1, cu_t, st_t, page_size=PS), n_rot)
+    del rot
     if got[total:].abs().max().item() != 0.0:
         raise AssertionError("K1 tail rows are not zero")
-    keys = sum(s + n for n, s in seq)  # pool rows each sequence reads
     pairs = sum(sum(s + i + 1 for i in range(n)) for n, s in seq)
-    nbytes = 2 * (total * H * D + 2 * keys * Hkv * D + T * H * D)
     b_ms, b_by = bound(nbytes, 4 * pairs * H * D)
     rows.insert(0, dict(
         name="ragged_prefill_attention", route="cuda",
         source="aigw_tpu_torch/csrc/paged_attention.cu",
         replaces="aigw_tpu/ops/pallas/paged_attention.py:419",
         launches=launches["ragged_prefill_attention"], max_abs_err=err,
-        ms=cuda_ms(k1, iters=10), plain_ms=cuda_ms(k1_plain, iters=3),
+        ms=cuda_ms(k1, iters=10), ms_rotated=rot1,
+        plain_ms=cuda_ms(k1_plain, iters=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         out_mean_abs=mean_out))
     log(f"K1 ok: max err {err:.3g} (mean |out| {mean_out:.3g}), "
-        f"{rows[0]['ms']:.4f} ms (bound {b_ms:.4f} ms, plain "
+        f"{rows[0]['ms']:.4f} ms, rotated {rot1:.4f} ms (bound "
+        f"{b_ms:.4f} ms, plain "
         f"{rows[0]['plain_ms']:.3f} ms)")
     return rows
 
@@ -909,12 +951,14 @@ def serve_profile(torch, port: int, reqs, warm_s: float) -> dict:
 
 
 def decode_profile(torch, params, cfg, dev: str = "cuda",
-                   kv_dtype: str = "bfloat16", verify_width: int = 0) -> dict:
+                   kv_dtype: str = "bfloat16", verify_width: int = 0,
+                   attn_impl: str = "fused") -> dict:
     """Where one full-width decode step's time goes: host wall clock of a
     step (synchronized) against the device time torch.profiler sees, by
-    kernel. Batch 8 at 1000 cached tokens each, fused rung, a
-    ``kv_dtype`` pool; with ``verify_width`` > 0, a verify step of that
-    width on the chained rung (K5) instead."""
+    kernel. Batch 8 at 1000 cached tokens each, a ``kv_dtype`` pool, on
+    the ``attn_impl`` rung (K2/K7 fused, K3 chained); with
+    ``verify_width`` > 0, a verify step of that width on the chained
+    rung (K5) instead."""
     from torch.profiler import ProfilerActivity, profile
 
     from aigw_tpu_torch.models import kvq, llama
@@ -935,7 +979,8 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
             llama.verify_step(params, cfg, toks, pos, kv, pt, PS, act,
                               limits, attn_impl="chained")
         else:
-            llama.decode_step(params, cfg, tok, pos, kv, pt, PS, act)
+            llama.decode_step(params, cfg, tok, pos, kv, pt, PS, act,
+                              attn_impl=attn_impl)
 
     for _ in range(2):
         step()
@@ -952,15 +997,23 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
         torch.cuda.synchronize()
     by_kernel: dict[str, float] = {}
     # the port's kernels on this path, every launch of each summed: K6's
-    # (W8A16 projections) and K2/K7's (the fused decode rung)
-    ours = {"w8a16_matmul": 0.0, "fused_paged_decode": 0.0}
+    # (W8A16 projections), K2/K7's (the fused decode rung), and the K3/K5
+    # body's (mq_*; the single-query paged_decode_kernel and
+    # paged_verify_kernel it replaced, which the A/B tool runs as its old
+    # build): K5 in a verify step, else K3
+    mq = "paged_attention_verify" if verify_width \
+        else "paged_attention_decode_v2"
+    tags = (("w8a16_matmul", ("w8a16",)),
+            ("fused_paged_decode", ("fused_decode",)),
+            (mq, ("mq_", "paged_verify_kernel" if verify_width
+                  else "paged_decode_kernel")))
+    ours = {name: 0.0 for name, _ in tags}
     for ev in prof.key_averages():
         us = ev.self_device_time_total
         if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[ev.key[:60]] = by_kernel.get(ev.key[:60], 0.0) + us
-            for name, tag in (("w8a16_matmul", "w8a16"),
-                              ("fused_paged_decode", "fused_decode")):
-                if tag in ev.key:
+            for name, keys in tags:
+                if any(tag in ev.key for tag in keys):
                     ours[name] += us / 1e3 / steps
     device_ms = sum(by_kernel.values()) / 1e3 / steps
     if device_ms <= 0:
@@ -968,6 +1021,7 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
     top = sorted(by_kernel.items(), key=lambda item: -item[1])[:6]
     return {"batch": B, "cached_tokens": ctx, "layers": cfg.n_layers,
             "kv_dtype": kv_dtype, "verify_width": verify_width,
+            "attn_impl": "chained" if verify_width else attn_impl,
             "wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy": device_ms / wall_ms,
             "port_kernels_ms": ours,
@@ -1271,6 +1325,12 @@ def main() -> int:
         f"{prof['device_ms']:.2f} ms on the device "
         f"(busy {prof['device_busy']:.2f})")
     print(json.dumps({"decode_profile": prof}), flush=True)
+    prof_c = decode_profile(torch, params, llama.LLAMA3_8B,
+                            attn_impl="chained")
+    log(f"chained decode step (K3): {prof_c['wall_ms']:.2f} ms wall, "
+        f"{prof_c['device_ms']:.2f} ms on the device (busy "
+        f"{prof_c['device_busy']:.2f})")
+    print(json.dumps({"decode_profile_chained": prof_c}), flush=True)
     prof_q = decode_profile(torch, qparams, llama.LLAMA3_8B,
                             kv_dtype="int8")
     log(f"W8A16 + int8 KV decode step: {prof_q['wall_ms']:.2f} ms wall, "

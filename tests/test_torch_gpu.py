@@ -308,3 +308,92 @@ def test_paged_verify_kernel(cuda, geom, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype][0],
                                atol=TOL[dtype][1])
     assert not got[4].any()
+
+
+# -- K3 and K5: the multi-query staged split body ---------------------------
+def _mq_case(case, S, ps, Hkv, g, dev):
+    """(B, P, xs) of a K3/K5 case: K5 positions (query s attends keys
+    <= xs[b] + s) or K3 lengths. Each case covers the split edges the
+    launch plan (``mq_plan``) draws, a window crossing a page, rows
+    capped at the table's end, a partly negative window (-2) and a slot
+    that is off (-(S + 1))."""
+    if case == "split_edges":
+        B, P = 8, 8
+        span = paged_attention.split_pages(B, Hkv, P)[0] * ps
+        xs = [span - 1 - S // 2, span - S, 2 * span - 1, ps - 2,
+              P * ps - 2, -2, -(S + 1), 0]
+    elif case == "batch1":
+        B, P = 1, 8
+        xs = [3 * ps + 5 - S // 2]
+    else:  # "batch64", "one_split": the card full without a split
+        B = 64 if case == "batch64" else -(-decode_fused.SPLIT_TARGET_BLOCKS
+                                           // Hkv)
+        P = 4 if case == "batch64" else 2
+        xs = torch.randint(-S - 1, P * ps, (B,), generator=g,
+                           device=dev).tolist()
+        xs[:4] = [P * ps - 1, -2, -(S + 1), ps - 1 - S // 2]
+        if case == "one_split":
+            assert paged_attention.split_pages(B, Hkv, P)[1] == 1
+    return B, P, torch.tensor(xs, dtype=torch.int32, device=dev)
+
+
+MQ_CASES = ["split_edges", "batch1", "batch64", "one_split"]
+
+
+@pytest.mark.parametrize("case", MQ_CASES)
+@pytest.mark.parametrize("S", [1, 2, 5, 9, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_paged_verify_mq_kernel(cuda, geom, dtype, S, case):
+    """K5 against its plain version at every S the engine's draft
+    widths give (17 x G rows need two row groups at G 4 and 7), over the
+    split and page edges of ``_mq_case``; a slot that is off comes out
+    exactly zero; a second call gives the same bits (the fold runs in
+    split order)."""
+    H, Hkv, D, ps = geom
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, P, pos = _mq_case(case, S, ps, Hkv, g, cuda)
+    kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
+    pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
+        B, P).to(torch.int32)
+    q = r(B, S, H, D)
+    got = paged_attention.paged_attention_verify(q, kp, vp, pt, pos,
+                                                 page_size=ps)
+    again = paged_attention.paged_attention_verify(q, kp, vp, pt, pos,
+                                                   page_size=ps)
+    want = paged_attention.paged_attention_verify_plain(q, kp, vp, pt, pos,
+                                                        page_size=ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype][0],
+                               atol=TOL[dtype][1])
+    assert torch.equal(got, again)
+    assert not got[pos <= -S].any()  # a slot that is off attends nothing
+
+
+@pytest.mark.parametrize("case", MQ_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_paged_decode_mq_kernel(cuda, geom, dtype, case):
+    """K3 (the K3/K5 body at S = 1) against its plain version over
+    lengths at the split and page edges, zero, and past the table (capped
+    at its end); a second call gives the same bits."""
+    H, Hkv, D, ps = geom
+    g = torch.Generator(device=cuda).manual_seed(8)
+    B, P, xs = _mq_case(case, 1, ps, Hkv, g, cuda)
+    lens = torch.clamp(xs + 1, min=0)
+    lens[0] = P * ps + 5  # past the table
+    kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
+    pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
+        B, P).to(torch.int32)
+    q = r(B, H, D)
+    got = paged_attention.paged_attention_decode_v2(q, kp, vp, pt, lens,
+                                                    page_size=ps)
+    again = paged_attention.paged_attention_decode_v2(q, kp, vp, pt, lens,
+                                                      page_size=ps)
+    want = paged_attention.paged_attention_decode_v2_plain(
+        q, kp, vp, pt, lens, page_size=ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype][0],
+                               atol=TOL[dtype][1])
+    assert torch.equal(got, again)
+    assert not got[lens == 0].any()

@@ -37,6 +37,8 @@ from aigw_tpu_torch.ops.decode_fused import (
     fused_paged_decode,
 )
 from aigw_tpu_torch.ops.paged_attention import (
+    mq_blocks,
+    mq_plan,
     paged_attention_decode,
     paged_attention_decode_v2,
     paged_attention_verify,
@@ -241,6 +243,76 @@ def test_paged_verify_rows_are_decode_rows():
         want = paged_attention_decode_v2(_t(q[:, s]), _t(kp), _t(vp),
                                          _t(pt), _t(ln), page_size=ps)
         assert torch.equal(got[:, s], want)
+
+
+# -- the K3/K5 launch plan ---------------------------------------------------
+MQ_PLAN_CASES = {
+    # K5 at the served verify shapes: windows across pages and splits, a
+    # slot that is off (-(S + 1)), a partly negative window (-2), rows
+    # capped at the table's end
+    "k5_served": dict(B=8, S=5, H=32, Hkv=8, D=128, P=16, ps=128, off=1,
+                      xs=[126, 0, 254, 1022, -6, 1534, -2, 2046]),
+    # --spec-tokens 16: 17 x 4 rows, three groups of 32
+    "k5_s17": dict(B=3, S=17, H=32, Hkv=8, D=128, P=4, ps=16, off=1,
+                   xs=[30, -18, 60]),
+    # Qwen2 geometry (group 7): 63 rows, padded rows never emitted
+    "k5_g7": dict(B=4, S=9, H=14, Hkv=2, D=64, P=6, ps=16, off=1,
+                  xs=[15, -2, 88, 47]),
+    # D 256: one m16 tile per group
+    "k5_d256": dict(B=2, S=2, H=16, Hkv=2, D=256, P=3, ps=16, off=1,
+                    xs=[40, 3]),
+    # K3: lengths 0, at page and split edges, the whole table and past it
+    "k3": dict(B=7, S=1, H=32, Hkv=8, D=128, P=16, ps=128, off=0,
+               xs=[0, 1, 127, 256, 257, 2048, 2053]),
+    # batch 66: the card is full without a split
+    "k3_batch66": dict(B=66, S=1, H=8, Hkv=8, D=64, P=4, ps=16, off=0,
+                       xs=list(range(0, 66))),
+}
+
+
+@pytest.mark.parametrize("tensor_cores", [True, False])
+@pytest.mark.parametrize("case", sorted(MQ_PLAN_CASES))
+def test_mq_launch_plan_covers_each_pair_once(case, tensor_cores):
+    """The K3/K5 body's blocks (``mq_blocks``, as the kernel picks them
+    from ``mq_plan``): every (row, key) pair the plain version attends
+    (row s * G + g attends keys < clamp(xs[b] + s + off, 0, P * page)) is
+    covered by exactly one (split, row group), and no key at or past the
+    row's count by any; no block lies past the grid."""
+    c = MQ_PLAN_CASES[case]
+    B, S, H, Hkv, D, P, ps = (c[k] for k in ("B", "S", "H", "Hkv", "D",
+                                             "P", "ps"))
+    grp = H // Hkv
+    R = S * grp
+    pps, n_split, rows, n_rg = mq_plan(B, S, H, Hkv, D, P,
+                                       tensor_cores=tensor_cores)
+    assert rows in ((16, 32) if tensor_cores else (4, 8))
+    cover = np.zeros((B, R, P * ps + 8), np.int32)
+    for b, rg, sp, block_rows in mq_blocks(
+            c["xs"], S=S, H=H, Hkv=Hkv, P=P, page_size=ps, off=c["off"],
+            pps=pps, group_rows=rows):
+        assert 0 <= rg < n_rg and 0 <= sp < n_split
+        assert 1 <= len(block_rows) <= rows
+        for r, lo, hi in block_rows:
+            assert rg * rows <= r < (rg + 1) * rows
+            assert sp * pps * ps <= lo <= hi <= (sp + 1) * pps * ps
+            cover[b, r, lo:hi] += 1
+    s_of_row = np.arange(R) // grp
+    n_keys = np.clip(np.asarray(c["xs"])[:, None] + s_of_row + c["off"], 0,
+                     P * ps)  # [B, R]
+    want = (np.arange(P * ps + 8)[None, None, :]
+            < n_keys[:, :, None]).astype(np.int32)
+    np.testing.assert_array_equal(cover, want)
+
+
+def test_mq_plan_reads_each_key_once_at_served_shapes():
+    """At Llama-3-8B heads, S 5 (20 rows) fits one row group, so each
+    key of a (sequence, KV head) is read by one block for all S queries;
+    S 17 needs three groups of 32 rows, the CUDA-core body groups of 8."""
+    assert mq_plan(8, 5, 32, 8, 128, 16, tensor_cores=True) == (2, 8, 32, 1)
+    assert mq_plan(8, 1, 32, 8, 128, 16, tensor_cores=True)[2:] == (16, 1)
+    assert mq_plan(8, 17, 32, 8, 128, 16, tensor_cores=True)[2:] == (32, 3)
+    assert mq_plan(8, 5, 32, 8, 128, 16, tensor_cores=False)[2:] == (8, 3)
+    assert mq_plan(2, 2, 16, 2, 256, 3, tensor_cores=True)[2:] == (16, 1)
 
 
 # -- K2 fused decode ---------------------------------------------------------
