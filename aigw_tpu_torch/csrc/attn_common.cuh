@@ -1,7 +1,7 @@
 // Shared device code of the paged-attention kernels (K1 ragged prefill,
-// K2/K7 fused decode, K3 chained decode, K4 split decode, K5 verify),
-// the tensor-core fragments K3/K5 and K6 (qmatmul.cu) use, and the
-// asynchronous-copy and split-fold helpers of K2/K7, K3/K5 and K6.
+// K2/K7 fused decode, K3/K4 paged decode, K5 verify), the tensor-core
+// fragments K1, K3/K5 and K6 (qmatmul.cu) use, and the asynchronous-copy
+// and split-fold helpers of K1, K2/K7, K3/K5 and K6.
 //
 // Work split. One warp carries the query rows of one query position
 // that share a KV head (the GQA group, at most G = 4 or 8 rows) as
@@ -13,10 +13,9 @@
 // dots with shuffles, and every lane keeps its lane group's
 // online-softmax state (running max m, denominator l, accumulator acc)
 // in registers. After the walk the NG lane groups merge their states
-// with shuffles. The decode kernels run several warps per (sequence, KV
-// head) over interleaved key chunks and merge the warps' states through
-// shared memory; the prefill kernel gives each warp its own query
-// position and needs no merge across warps.
+// with shuffles; the staged walk's warps then merge theirs through
+// shared memory (block_merge). K1's CUDA-core kernel gives each warp its
+// own query position and needs no merge across warps.
 //
 // This replaces the TPU kernels' sequential page axis, whose softmax
 // state lived in VMEM scratch across grid steps: here the page walk is
@@ -25,15 +24,13 @@
 // Bound on the H100: the decode walks read every cached K/V byte once
 // for ~2 FLOPs per byte, far below the card's ~295 FLOPs/byte balance
 // point, so their floor is HBM bytes. What holds the register walk
-// (warp_walk: K1, K4) above it is latency: each warp runs a dependent
-// chain per step (a page-table read, then U = 4 or 2 16-byte K/V loads
+// (warp_walk: K1 on the CUDA cores) above it is latency: each warp runs
+// a dependent chain per step (a page-table read, then 16-byte K/V loads
 // in flight, shuffles, a rescale). The staged walk (attn_staged.cuh:
-// K2/K7, and K3/K5) removes that chain: its blocks stage whole chunks of
-// keys into a shared-memory ring with cp.async (page rows loaded once
-// per block) while the warps work on the chunk before; its split over
-// keys then folds in the same launch through last_arrival. K1 and K4
-// keep the register walk until their own redesign. Prefill does tens of
-// FLOPs per byte and runs on the CUDA cores in float32.
+// K2/K7, K3-K5, and K1's tensor-core kernel) removes that chain: its
+// blocks stage whole chunks of keys into a shared-memory ring with
+// cp.async while the warps work on the chunk before; the decode walks'
+// split over keys then folds in the same launch through last_arrival.
 
 #pragma once
 
@@ -316,25 +313,6 @@ __device__ __forceinline__ void block_merge(const RowState<G>& st, int grp,
   fold_warps(nwarps, G, grp, D, smem, emit);
 }
 
-// Decode: the block's warps walk interleaved key chunks of one
-// (sequence, KV head) and merge their states (block_merge, same emit
-// and smem).
-template <int G, typename Pool, typename Emit>
-__device__ __forceinline__ void block_attend(const float (&q)[G][VEC],
-                                             int grp, const Pool& pool,
-                                             const int* __restrict__ page_row,
-                                             int page_size, int Hkv, int h,
-                                             int D, int n_keys, float* smem,
-                                             Emit emit) {
-  // decode walks are latency-bound: more chunks in flight per lane
-  constexpr int U = G <= 4 ? 4 : 2;
-  RowState<G> st;
-  st.init();
-  warp_walk<G, U>(st, q, grp, pool, page_row, page_size, Hkv, h, D,
-                  n_keys, threadIdx.x / WARP, blockDim.x / WARP);
-  block_merge<G>(st, grp, D, smem, emit);
-}
-
 // -- asynchronous copies into shared memory (K2/K7's page ring, K6's
 // weight ring) -----------------------------------------------------------
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
@@ -364,7 +342,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// -- tensor-core fragments (K6, and K3/K5's bf16 path) --------------------
+// -- tensor-core fragments (K6, and K1's and K3/K5's bf16 paths) ----------
 // c += a b: one m16n8k16 product, bf16 in, float32 accumulate. Lane (g =
 // lane / 4, t = lane % 4) holds A (row-major 16 x 16) elements (g, 2t..),
 // (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..) in a[0..3], two per

@@ -1,6 +1,7 @@
 // The staged split walk over a paged KV pool, shared by K2/K7 (fused
-// decode, decode_fused.cu) and K3/K5 (the multi-query decode and verify
-// body, paged_attention.cu).
+// decode, decode_fused.cu) and K3-K5 (the multi-query decode and verify
+// body, paged_attention.cu); K1's tensor-core kernel stages its keys
+// through the same ring (ring_walk).
 //
 // A (sequence, KV head)'s keys are split over blocks: split s of pps
 // pages holds keys [s * pps * page, (s + 1) * pps * page), with (pps,

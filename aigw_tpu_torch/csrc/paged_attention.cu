@@ -1,5 +1,5 @@
-// K1 ragged prefill attention, K3 chained paged decode attention, K4
-// split paged decode attention and K5 speculative verify attention.
+// K1 ragged prefill attention, and K3 chained paged decode, K4 paged
+// decode (v1) and K5 speculative verify attention on one body.
 //
 // K1 replaces aigw_tpu/ops/pallas/paged_attention.py::
 // ragged_prefill_attention (Pallas kernel _ragged_prefill_kernel).
@@ -10,32 +10,54 @@
 // K5 replaces aigw_tpu/ops/pallas/paged_attention.py::
 // paged_attention_verify (Pallas kernel _verify_kernel).
 //
-// What bounds them on the H100: K3 and K5 read each cached K/V byte
-// once per (sequence, KV head) for ~2 FLOPs per byte and query row, far
-// below the card's ~295 FLOPs per byte, so their floor is HBM bytes
-// (3.35 TB/s). K1 does O(rows x keys) work per sequence: at prefill
-// lengths of hundreds of tokens it has tens of FLOPs per pool byte,
-// under the tensor cores' balance point but above what float32 dot
-// products on the CUDA cores sustain, so this version is bound by its
-// own arithmetic (see PERF.md for the measured gap); the rows of one
-// block read the same keys, which the L1 cache serves after the first.
+// What bounds them on the H100: K3-K5 read each cached K/V byte once
+// per (sequence, KV head) for ~2 FLOPs per byte and query row, far below
+// the card's ~295 FLOPs per byte, so their floor is HBM bytes (3.35
+// TB/s). K1 does O(rows x keys) work per sequence: at prefill lengths of
+// hundreds of tokens and a GQA group of 4 it does hundreds of FLOPs per
+// pool byte, so its floor is the tensor cores' rate (PERF.md states both
+// bounds).
 //
-// Design. The TPU kernel walked a grid (query block, sequence, page)
-// and revisited a query block once per sequence it overlapped, carrying
-// the softmax state in VMEM scratch across the sequential page axis.
-// Here nothing spans two sequences: the K1 grid is (query tile within
-// the sequence, sequence b, KV head), each warp of the block owns one
-// packed row (query position) and walks that row's causal key range
-// [0, start_pos[b] + row] in registers (warp_walk, attn_common.cuh).
-// Blocks whose tile starts past the sequence's length exit at once, so
-// the grid is sized from the packed length T without a host sync. Rows
-// owned by no sequence stay zero: the wrapper zero-fills the output.
+// K1. The TPU kernel walked a grid (query block, sequence, page) and
+// revisited a query block once per sequence it overlapped, carrying the
+// softmax state in VMEM scratch across the sequential page axis. Here a
+// block owns one tile of one sequence and one KV head, and nothing spans
+// two sequences. For bf16 q over a bf16 pool (ragged_prefill_tc_kernel)
+// it is FlashAttention-2's forward pass over pages:
+// - a tile's PF_ROWS rows are (query, head in the GQA group) pairs, whole
+//   queries of the group: floor(PF_ROWS / G) queries (16 at G 4, 9 at G
+//   7), so the G heads of the group share every K/V stage;
+// - the warps split the rows, not the keys: each owns one m16 row tile
+//   for every key of a stage, so no merge follows the walk;
+// - the sequence's K and V rows come through attn_staged.cuh's cp.async
+//   ring (ring_walk) in stages of PF_CK keys, from key 0 to the tile's
+//   last row's limit, 16-byte chunks XOR-swizzled by row (swz); keys past
+//   the limit are zero-filled (0 source bytes), so a masked key's V is
+//   never NaN. A thread's keys of a stage take one division and
+//   independent page-table reads, all issued before its copies;
+// - per stage S = q k^T by m16n8k16 (ldmatrix for q and K), scaled by
+//   log2(e) / sqrt(D) in float32, so the online softmax, (m, l) float32
+//   per row, takes one ex2 a probability; P v with P as two bf16 terms
+//   (hi + lo, as K3/K5's body) and the score fragment reused as the A
+//   operand (V by ldmatrix.trans). Only a step crossing some row's
+//   causal limit applies a per-row mask;
+// - the grid, (tiles bound) x Hkv blocks, is sized from T with no host
+//   sync; each block finds its tile from cu and start_pos
+//   (prefill_tile): tiles in descending order of their key count (the
+//   last tile of the longest sequence first), so the triangle's light
+//   tiles, not a heavy one, end the launch; blocks past the tile count
+//   exit. The plan is mirrored in Python (ops/paged_attention.py,
+//   prefill_tile) and tested on the CPU.
+// float32 pools, mixed dtypes and D = 8 keep the first port on the CUDA
+// cores (ragged_prefill_kernel): a warp per packed row walks its causal
+// keys in registers (warp_walk, attn_common.cuh).
 //
 // K3 and K5 are one body: K5's query s of sequence b attends keys <=
-// positions[b] + s, and K3 is K5 at S = 1 over lengths[b] keys. The first
-// K5 ran a block per query (grid (B, Hkv, S)), so each of the S blocks
-// of a (sequence, KV head) re-walked the same pages, and every key cost
-// each block a dependent chain (a page-table read, loads, shuffles, a
+// positions[b] + s, and K3 is K5 at S = 1 over lengths[b] keys; K4
+// computes K3's function and launches the same body. The first K5 ran a
+// block per query (grid (B, Hkv, S)), so each of the S blocks of a
+// (sequence, KV head) re-walked the same pages, and every key cost each
+// block a dependent chain (a page-table read, loads, shuffles, a
 // rescale) for its G rows on the CUDA cores. Here one block holds all S
 // x G rows of a (sequence, KV head) (more than 32 rows: further row
 // groups, each re-reading the keys) and reads every key once for them:
@@ -59,24 +81,22 @@
 // sequence's last S keys; a row with no keys (a slot that is off,
 // positions[b] <= -S, or the first queries of a window starting below
 // zero) comes out zero.
-//
-// K4 (decode v1) computes K3's function. The TPU's v1 grid walked one
-// page per grid step along a sequential page axis; here that axis
-// becomes a split over keys across blocks: grid (B, Hkv, n_split), block
-// `sp` walks pages [sp * pps, (sp + 1) * pps) and writes its float32
-// partial state (running max, denominator, unnormalized accumulator),
-// and a second launch folds the n_split partials in a fixed order. The
-// split fills the card where K3's B x Hkv blocks do not (batch 8: 64
-// blocks on 132 SMs); the wrapper sizes n_split from the page-table
-// width, with no host sync.
+
+#include <type_traits>
 
 #include "attn_staged.cuh"
 
 namespace aigw {
 
-constexpr int PREFILL_WARPS = 4;  // packed rows per K1 block
-constexpr int DECODE_WARPS = 8;   // warps sharing one K4 block
-constexpr int COMBINE_THREADS = 128;  // K4's fold of the partials
+// Physical 16-byte chunk of logical chunk c of row r, for rows of nc
+// chunks (a power of two): the 8 rows an ldmatrix reads at one logical
+// chunk land on 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int swz(int r, int c, int nc) {
+  return nc >= 8 ? c ^ (r & 7) : c ^ ((r * nc >> 3) & (nc - 1));
+}
+
+// -- K1 on the CUDA cores ----------------------------------------------------
+constexpr int PREFILL_WARPS = 4;  // packed rows per K1 CUDA-core block
 
 // grid (ceil(T / PREFILL_WARPS), B, Hkv), block PREFILL_WARPS warps
 template <int G, typename TQ, typename TKV>
@@ -128,19 +148,343 @@ __global__ void __launch_bounds__(PREFILL_WARPS * WARP)
   }
 }
 
-// The G query rows of KV head h at row `row` (= (token) * H + h * grp
-// head rows) as this lane's float32 slice, divided by sqrt(D).
-template <int G, typename TQ>
-__device__ __forceinline__ void load_q(const TQ* q, int64_t row, int grp,
-                                       int D, float sqrt_d,
-                                       float (&qr)[G][VEC]) {
-  const int e0 = (threadIdx.x % WARP % (D / VEC)) * VEC;
+// -- K1 on the tensor cores ----------------------------------------------------
+constexpr int PF_WARPS = 4;               // warps of a K1 tensor-core block
+constexpr int PF_ROWS = 16 * PF_WARPS;    // (query, head) rows of a tile
+constexpr int PF_CK = 64;                 // keys per ring stage
+
+// Tiles of a sequence of len queries starting at absolute position start,
+// qt queries a tile: tile j holds queries [j qt, min((j + 1) qt, len)) and
+// weighs start + min((j + 1) qt, len) keys (its last query's). How many
+// of them weigh at least w.
+__device__ __forceinline__ int tiles_ge(int len, int start, int qt, int w) {
+  if (len <= 0 || w > start + len) return 0;
+  const int n = (len + qt - 1) / qt;
+  const int j = w <= start ? 0 : (w - start + qt - 1) / qt - 1;
+  return n - min(j, n - 1);
+}
+
+// The tile of rank t when the tiles of all sequences are ordered by
+// weight, heaviest first (ties: lower b first): its sequence b and index
+// j; false when there are t or fewer tiles. A binary search on the
+// weight of rank t, then the k-th sequence holding a tile of that
+// weight. Every lane of the warp calls it and gets the same answer; lane
+// l keeps sequence l's length and start in registers (sequences past the
+// warp's 32 are read again at each count).
+__device__ __forceinline__ bool prefill_tile(const int* cu,
+                                             const int* start_pos, int B,
+                                             int qt, int t, int& b_out,
+                                             int& j_out) {
+  const int lane = threadIdx.x % WARP;
+  const int len0 = lane < B ? cu[lane + 1] - cu[lane] : 0;
+  const int st0 = lane < B ? start_pos[lane] : 0;
+  // tiles of all B sequences weighing at least w (every lane gets it)
+  auto count_ge = [&](int w) {
+    int c = tiles_ge(len0, st0, qt, w);
+    for (int b = lane + WARP; b < B; b += WARP)
+      c += tiles_ge(cu[b + 1] - cu[b], start_pos[b], qt, w);
+    return __reduce_add_sync(FULL, c);
+  };
+  int w_max = len0 > 0 ? st0 + len0 : 0;
+  for (int b = lane + WARP; b < B; b += WARP) {
+    const int len = cu[b + 1] - cu[b];
+    if (len > 0) w_max = max(w_max, start_pos[b] + len);
+  }
+  w_max = __reduce_max_sync(FULL, w_max);
+  if (w_max < 1 || count_ge(1) <= t) return false;
+  int lo = 1, hi = w_max;  // count_ge(lo) > t
+  while (lo < hi) {
+    const int mid = lo + (hi - lo + 1) / 2;
+    if (count_ge(mid) > t) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  // rank t weighs lo; count_ge(lo + 1) tiles rank before every tile of
+  // that weight, and each sequence holds at most one of them
+  int k = t - count_ge(lo + 1);
+  for (int b0 = 0; b0 < B; b0 += WARP) {
+    const int b = b0 + lane;
+    int len = len0, st = st0, n_ge = 0;
+    if (b0 > 0 && b < B) {
+      len = cu[b + 1] - cu[b];
+      st = start_pos[b];
+    }
+    if (b < B) n_ge = tiles_ge(len, st, qt, lo);
+    const bool has = b < B && n_ge - tiles_ge(len, st, qt, lo + 1) == 1;
+    unsigned m = __ballot_sync(FULL, has);
+    if (k < __popc(m)) {
+      for (int i = 0; i < k; ++i) m &= m - 1;  // drop the k lower hits
+      const int src = __ffs(m) - 1;
+      const int n = (len + qt - 1) / qt;
+      b_out = b0 + src;
+      j_out = __shfl_sync(FULL, n - n_ge, src);
+      return true;
+    }
+    k -= __popc(m);
+  }
+  return false;
+}
+
+// 2^x, approximate (MUFU.EX2; -inf gives +0), the power of two __expf
+// computes.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows of out outside the sequences' packed range [cu[0], cu[B]) come
+// out zero: every block of the grid zeroes its share.
+__device__ __forceinline__ void zero_outside(__nv_bfloat16* out,
+                                             const int* cu, int B, int T,
+                                             int row_elems) {
+  const int lo = min(max(cu[0], 0), T), hi = min(max(cu[B], lo), T);
+  const int64_t per_row = row_elems / 8;  // 16-byte chunks
+  const int64_t n_head = (int64_t)lo * per_row;
+  const int64_t n = n_head + (int64_t)(T - hi) * per_row;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t c = i < n_head ? i : i - n_head + (int64_t)hi * per_row;
+    reinterpret_cast<uint4*>(out)[c] = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// bf16 q over a bf16 pool, D a multiple of 16: grid (tiles bound * Hkv),
+// PF_WARPS warps; block i is KV head i % Hkv of the tile of rank i / Hkv
+// (prefill_tile). Row r of a tile is query q0 + r / G, head h G + r % G.
+// Dynamic shared memory: the q tile [PF_ROWS][D] bf16 (the output tile
+// after the walk), then the ring: RING stages of PF_CK K rows and as many
+// V rows, 16-byte chunks swizzled (swz). Warp w owns rows [16 w, 16 w +
+// 16) and takes every key of a stage, KS keys per softmax step.
+template <int D>
+__global__ void __launch_bounds__(PF_WARPS * WARP, 2)
+    ragged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,  // [T, H, D]
+                             const __nv_bfloat16* __restrict__ k_pool,
+                             const __nv_bfloat16* __restrict__ v_pool,
+                             const int* __restrict__ page_table,  // [B, P]
+                             const int* __restrict__ cu,          // [B + 1]
+                             const int* __restrict__ start_pos,   // [B]
+                             __nv_bfloat16* __restrict__ out,     // [T, H, D]
+                             int T, int B, int P, int H, int Hkv,
+                             int page_size, int qt, float scale_log2) {
+  constexpr int NC = D / 8, RB = D * 2, CK = PF_CK, SB = 2 * CK * RB;
+  // keys of one softmax step: 64 keep 96 float32 registers of scores and
+  // accumulators a lane at D 128; 16 at D 256
+  constexpr int KS = D <= 128 ? 64 : 16;
+  // the fetch: thread i copies 16-byte chunk i % NC of key rows i / NC +
+  // KSTEP m, m < PER, of each stage (K and V)
+  constexpr int NT = PF_WARPS * WARP, KSTEP = NT / NC, PER = CK / KSTEP;
+  extern __shared__ __align__(16) unsigned char pf_smem[];
+  unsigned char* s_q = pf_smem;  // [PF_ROWS][RB], swizzled
+  unsigned char* ring = s_q + PF_ROWS * RB;
+  zero_outside(out, cu, B, T, H * D);
+  const int h = blockIdx.x % Hkv;
+  int b, j;
+  if (!prefill_tile(cu, start_pos, B, qt, blockIdx.x / Hkv, b, j)) return;
+  const int grp = H / Hkv;
+  const int lo = cu[b], st = start_pos[b];
+  const int q0 = j * qt, nq = min(qt, cu[b + 1] - lo - q0);
+  const int nrow = nq * grp;  // the tile's valid rows
+  const int cap = P * page_size;
+  const int n_keys = min(st + q0 + nq, cap);  // its last row's keys
+  // the keys of tile row r (0 for a row past the tile)
+  auto row_lim = [&](int r) {
+    return r < nrow ? min(st + q0 + r / grp + 1, cap) : 0;
+  };
+  for (int i = threadIdx.x; i < PF_ROWS * NC; i += blockDim.x) {
+    const int r = i / NC, c = i % NC;
+    unsigned char* dst = s_q + r * RB + swz(r, c, NC) * 16;
+    if (r < nrow) {
+      cp_async16(dst, q + ((int64_t)(lo + q0 + r / grp) * H +
+                           (int64_t)h * grp + r % grp) * D + c * 8);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  // (the q copies land with the ring's first stage)
+
+  const int lane = threadIdx.x % WARP, warp = threadIdx.x / WARP;
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = warp * 16;
+  // this warp's least and greatest key count over its valid rows (rows
+  // ascend, so do their limits); a warp with none skips the walk
+  const bool busy = r0 < nrow;
+  const int w_lo = row_lim(r0), w_hi = row_lim(min(r0 + 15, nrow - 1));
+  const int lim[2] = {row_lim(r0 + g), row_lim(r0 + g + 8)};
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f}, acc[D / 8][4];
 #pragma unroll
-  for (int r = 0; r < G; ++r) {
-    float x[VEC] = {};
-    if (r < grp) load8(q + (row + r) * D + e0, x);
+  for (int dt = 0; dt < D / 8; ++dt)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qr[r][e] = __fdiv_rn(x[e], sqrt_d);
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  // rows a lane addresses in ldmatrix: K (keys (lane / 16) 8 + lane % 8
+  // at chunk offset (lane / 8) % 2), V and q (rows ((lane / 8) % 2) 8 +
+  // lane % 8 at chunk offset lane / 16)
+  const int kr = (lane / 16) * 8 + lane % 8, kc = (lane / 8) % 2;
+  const int vr = ((lane / 8) % 2) * 8 + lane % 8, qc = lane / 16;
+  const int qrow = r0 + vr;
+  const int* row_pt = page_table + (int64_t)b * P;
+  const int f_row = threadIdx.x / NC, f_ch = threadIdx.x % NC;
+
+  // one softmax step over keys [kb, kb + KS) of the stage at ks / vs
+  // (rows kb0 .. kb0 + KS of the stage); MASK: some row's limit falls
+  // inside the step. Scores and the running max m are in log2 units
+  // (scaled by log2(e) / sqrt(D)), so each probability is one ex2
+  auto step = [&](auto mask_c, const unsigned char* ks,
+                  const unsigned char* vs, int kb0, int kb) {
+    constexpr bool MASK = decltype(mask_c)::value;
+    float sc[KS / 8][4];
+#pragma unroll
+    for (int n = 0; n < KS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qf[4];
+      ldsm_x4(qf, s_q + qrow * RB + swz(qrow, 2 * kk + qc, NC) * 16);
+#pragma unroll
+      for (int nk = 0; nk < KS / 16; ++nk) {
+        uint32_t kf[4];  // B of keys 16 nk + 0-7 (kf[0..1]), + 8-15
+        const int rr = kb0 + 16 * nk + kr;
+        ldsm_x4(kf, ks + rr * RB + swz(rr, 2 * kk + kc, NC) * 16);
+        mma_bf16(sc[2 * nk], qf, kf[0], kf[1]);
+        mma_bf16(sc[2 * nk + 1], qf, kf[2], kf[3]);
+      }
+    }
+    uint32_t ph[KS / 16][4], pl[KS / 16][4];  // P as A fragments
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      // this lane's keys of row g + 8 hh: kb + 8 n + 2 t + e; a masked
+      // score is -inf, whose ex2 is 0 against the finite running max
+      float mx = NEG;
+#pragma unroll
+      for (int n = 0; n < KS / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = sc[n][2 * hh + e] * scale_log2;
+          if (MASK && kb + 8 * n + 2 * t + e >= lim[hh]) v = -INFINITY;
+          sc[n][2 * hh + e] = v;
+          mx = fmaxf(mx, v);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[hh], mx);
+      const float alpha = ex2(m[hh] - m_new);
+      m[hh] = m_new;
+      float ls = 0.f;
+#pragma unroll
+      for (int n = 0; n < KS / 8; ++n) {
+        const float p0 = ex2(sc[n][2 * hh] - m_new);
+        const float p1 = ex2(sc[n][2 * hh + 1] - m_new);
+        // P = hi + lo, two bf16 pairs; l sums the P that PV multiplies
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        const float2 hf = __bfloat1622float2(hi);
+        const __nv_bfloat162 lo2 = __floats2bfloat162_rn(p0 - hf.x,
+                                                         p1 - hf.y);
+        const float2 lf = __bfloat1622float2(lo2);
+        ls += (hf.x + lf.x) + (hf.y + lf.y);
+        // key tile n is half n % 2 of the 16-key group n / 2
+        ph[n / 2][2 * (n % 2) + hh] = *reinterpret_cast<const uint32_t*>(&hi);
+        pl[n / 2][2 * (n % 2) + hh] = *reinterpret_cast<const uint32_t*>(&lo2);
+      }
+      l[hh] = l[hh] * alpha + ls;  // this lane's keys only
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        acc[dt][2 * hh] *= alpha;
+        acc[dt][2 * hh + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int kg = 0; kg < KS / 16; ++kg) {
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vf[4];  // B of columns 16 dp + [0, 8), + [8, 16)
+        const int rr = kb0 + 16 * kg + vr;
+        ldsm_x4_t(vf, vs + rr * RB + swz(rr, 2 * dp + qc, NC) * 16);
+        mma_bf16(acc[2 * dp], ph[kg], vf[0], vf[1]);
+        mma_bf16(acc[2 * dp], pl[kg], vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], ph[kg], vf[2], vf[3]);
+        mma_bf16(acc[2 * dp + 1], pl[kg], vf[2], vf[3]);
+      }
+    }
+  };
+
+  ring_walk<RING>(
+      (n_keys + CK - 1) / CK,
+      [&](int c, int slot) {
+        unsigned char* stage = ring + slot * SB;
+        // this thread's PER keys: page and offset from one division,
+        // then PER independent page-table reads before any copy
+        const int key0 = c * CK + f_row;
+        int pg = key0 / page_size, off = key0 - pg * page_size;
+        int64_t row[PER];
+#pragma unroll
+        for (int m = 0; m < PER; ++m) {
+          if (m > 0) {
+            off += KSTEP;
+            while (off >= page_size) {
+              off -= page_size;
+              ++pg;
+            }
+          }
+          row[m] = key0 + KSTEP * m < n_keys
+                       ? (int64_t)__ldg(row_pt + pg) * page_size + off
+                       : -1;
+        }
+#pragma unroll
+        for (int m = 0; m < PER; ++m) {
+          const int jj = f_row + KSTEP * m;
+          unsigned char* dk = stage + jj * RB + swz(jj, f_ch, NC) * 16;
+          unsigned char* dv = dk + CK * RB;
+          if (row[m] >= 0) {
+            const int64_t e = (row[m] * Hkv + h) * D + f_ch * 8;
+            cp_async16(dk, k_pool + e);
+            cp_async16(dv, v_pool + e);
+          } else {  // zeros: a masked key's v must not be NaN
+            cp_async16(dk, k_pool, 0);
+            cp_async16(dv, k_pool, 0);
+          }
+        }
+      },
+      [&](int c, int slot) {
+        if (!busy) return;
+        const unsigned char* ks = ring + slot * SB;
+#pragma unroll
+        for (int s = 0; s < CK / KS; ++s) {
+          const int kb = c * CK + s * KS;
+          if (kb >= w_hi) break;  // none of the warp's rows sees these
+          if (kb + KS <= w_lo) {
+            step(std::false_type{}, ks, ks + CK * RB, s * KS, kb);
+          } else {
+            step(std::true_type{}, ks, ks + CK * RB, s * KS, kb);
+          }
+        }
+      });
+  if (!busy) return;
+  // the warp's rows, normalized, into its own rows of the q tile, then
+  // out with 16-byte stores
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float ls = l[hh];
+    ls += __shfl_xor_sync(FULL, ls, 1);
+    ls += __shfl_xor_sync(FULL, ls, 2);
+    ls = fmaxf(ls, 1e-30f);
+    const int r = r0 + g + 8 * hh;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(s_q + r * RB + swz(r, dt, NC) * 16 +
+                                   4 * t) =
+          pack_bf16(acc[dt][2 * hh] / ls, acc[dt][2 * hh + 1] / ls);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * NC; i += WARP) {
+    const int r = r0 + i / NC, c = i % NC;
+    if (r >= nrow) break;
+    *reinterpret_cast<uint4*>(
+        out + ((int64_t)(lo + q0 + r / grp) * H + (int64_t)h * grp +
+               r % grp) * D + c * 8) =
+        *reinterpret_cast<const uint4*>(s_q + r * RB + swz(r, c, NC) * 16);
   }
 }
 
@@ -154,13 +498,6 @@ __device__ __forceinline__ void load_q(const TQ* q, int64_t row, int grp,
 constexpr int MQ_TC_WARPS = 4;   // warps of a tensor-core block
 constexpr int MQ_TC_KEYS = 16;   // keys of one warp per ring stage
 constexpr int MQ_TC_CK = MQ_TC_WARPS * MQ_TC_KEYS;  // keys per ring stage
-
-// Physical 16-byte chunk of logical chunk c of row r, for rows of nc
-// chunks (a power of two): the 8 rows an ldmatrix reads at one logical
-// chunk land on 8 distinct 16-byte bank groups.
-__device__ __forceinline__ int swz(int r, int c, int nc) {
-  return nc >= 8 ? c ^ (r & 7) : c ^ ((r * nc >> 3) & (nc - 1));
-}
 
 // Which (sequence, row group, KV head, split) a block is, its rows' key
 // limits, and where its results go. `live` is false for a split past
@@ -499,84 +836,31 @@ __global__ void __launch_bounds__(FUSED_WARPS * WARP)
   blk.finish();
 }
 
-// K4, first launch: grid (B, Hkv, n_split), block DECODE_WARPS warps.
-// Split sp writes, for its pages [sp * pps, (sp + 1) * pps) of sequence
-// b, the partial state of each group row r: part_acc[(i * grp + r) * D
-// + d], part_m[i * grp + r], part_l[i * grp + r], i = (b * Hkv + h) *
-// n_split + sp.
-template <int G, typename TQ, typename TKV>
-__global__ void __launch_bounds__(DECODE_WARPS * WARP)
-    paged_split_kernel(const TQ* __restrict__ q,        // [B, H, D]
-                       const TKV* __restrict__ k_pool,  // [slots, Hkv, D]
-                       const TKV* __restrict__ v_pool,
-                       const int* __restrict__ page_table,  // [B, P]
-                       const int* __restrict__ lengths,     // [B]
-                       float* __restrict__ part_acc, float* __restrict__ part_m,
-                       float* __restrict__ part_l, int P, int H, int Hkv,
-                       int D, int page_size, int pps, int n_split,
-                       float sqrt_d) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
-  const int grp = H / Hkv;
-  float qr[G][VEC];
-  load_q<G>(q, (int64_t)b * H + (int64_t)h * grp, grp, D, sqrt_d, qr);
-  // this split's keys, counted from its first page (the walk reads key
-  // j of the split at page_row[j / page_size], page_row = its first page)
-  const int k_lo = sp * pps * page_size;
-  const int n_keys =
-      max(0, min(min(lengths[b], P * page_size) - k_lo, pps * page_size));
-  const int64_t i = ((int64_t)b * Hkv + h) * n_split + sp;
-  float* acc = part_acc + i * grp * D;
-  float* pm = part_m + i * grp;
-  float* pl = part_l + i * grp;
-  block_attend<G>(qr, grp, NativePool<TKV>{k_pool, v_pool},
-                  page_table + (int64_t)b * P + (int64_t)sp * pps, page_size,
-                  Hkv, h, D, n_keys, smem,
-                  [acc, pm, pl, D](int r, int d, float m, float l, float a) {
-                    acc[r * D + d] = a;
-                    if (d == 0) {
-                      pm[r] = m;
-                      pl[r] = l;
-                    }
-                  });
-}
-
-// K4, second launch: grid (B, Hkv), COMBINE_THREADS threads; folds the
-// n_split partials of each group row in split order (the same rescaled
-// sums as decode_attend's fold of its warps) and writes out [B, H, D].
-template <typename TQ>
-__global__ void __launch_bounds__(COMBINE_THREADS)
-    paged_combine_kernel(const float* __restrict__ part_acc,
-                         const float* __restrict__ part_m,
-                         const float* __restrict__ part_l,
-                         TQ* __restrict__ out, int H, int Hkv, int D,
-                         int n_split) {
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int grp = H / Hkv;
-  const int64_t i0 = ((int64_t)b * Hkv + h) * n_split;
-  TQ* ob = out + ((int64_t)b * H + (int64_t)h * grp) * D;
-  for (int t = threadIdx.x; t < grp * D; t += blockDim.x) {
-    const int r = t / D, d = t % D;
-    float mm = NEG;
-    for (int sp = 0; sp < n_split; ++sp)
-      mm = fmaxf(mm, part_m[(i0 + sp) * grp + r]);
-    float l = 0.f, a = 0.f;
-    for (int sp = 0; sp < n_split; ++sp) {
-      const int64_t j = (i0 + sp) * grp + r;
-      const float sc = __expf(part_m[j] - mm);
-      l += part_l[j] * sc;
-      a += part_acc[j * D + d] * sc;
-    }
-    ob[r * D + d] = from_f<TQ>(a / fmaxf(l, 1e-30f));
-  }
-}
-
 }  // namespace aigw
 
 using namespace aigw;
 
 extern "C" {
 
+// The largest dynamic shared memory allowed so far, per kernel: one
+// runtime call per new size, none on the launch path (and none inside a
+// CUDA graph capture).
+#define SET_SMEM(KERN, SMEM)                                                \
+  {                                                                         \
+    static int smem_set = 0;                                                \
+    if ((SMEM) > smem_set) {                                                \
+      const cudaError_t e = cudaFuncSetAttribute(                           \
+          KERN, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);         \
+      if (e != cudaSuccess) return (int)e;                                  \
+      smem_set = (SMEM);                                                    \
+    }                                                                       \
+  }
+
+// K1: q [T, H, D] packed; rows [cu[b], cu[b + 1]) of sequence b attend
+// keys [0, start_pos[b] + row + 1). bf16 q over a bf16 pool with D a
+// multiple of 16 runs on the tensor cores and writes every row of out
+// (rows outside [cu[0], cu[B]) zero); otherwise the CUDA-core kernel
+// writes the sequences' rows only, over an out the caller zero-filled.
 // Returns cudaGetLastError() after the launch (0 = launched).
 int aigw_ragged_prefill(const void* q, const void* k_pool,
                         const void* v_pool, const int* page_table,
@@ -585,14 +869,42 @@ int aigw_ragged_prefill(const void* q, const void* k_pool,
                         int page_size, int q_dtype, int kv_dtype,
                         void* stream) {
   const int grp = H / Hkv;
-  if (!AIGW_SHAPES_OK(D, grp) || T < 1 || B < 1) {
+  if (!AIGW_SHAPES_OK(D, grp) || T < 1 || B < 1 || P < 1) {
     return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (q_dtype == AIGW_BF16 && kv_dtype == AIGW_BF16 && D % 16 == 0) {
+    // tiles of qt whole queries; at most (T + B (qt - 1)) / qt of them
+    const int qt = PF_ROWS / grp;
+    const int64_t blocks = ((int64_t)T + (int64_t)B * (qt - 1)) / qt * Hkv;
+    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+#define LAUNCH_TC(DD)                                                       \
+  {                                                                         \
+    const int smem = PF_ROWS * DD * 2 + RING * 2 * PF_CK * DD * 2;          \
+    auto kern = ragged_prefill_tc_kernel<DD>;                               \
+    SET_SMEM(kern, smem);                                                   \
+    kern<<<(unsigned)blocks, PF_WARPS * WARP, smem, st>>>(                  \
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pool,              \
+        (const __nv_bfloat16*)v_pool, page_table, cu, start_pos,            \
+        (__nv_bfloat16*)out, T, B, P, H, Hkv, page_size, qt,                \
+        1.4426950408889634f / sqrtf((float)DD));                            \
+  }
+    switch (D) {
+      case 16: LAUNCH_TC(16); break;
+      case 32: LAUNCH_TC(32); break;
+      case 64: LAUNCH_TC(64); break;
+      case 128: LAUNCH_TC(128); break;
+      case 256: LAUNCH_TC(256); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef LAUNCH_TC
+    return (int)cudaGetLastError();
   }
   const dim3 grid((T + PREFILL_WARPS - 1) / PREFILL_WARPS, B, Hkv);
   const float sqrt_d = sqrtf((float)D);
 #define LAUNCH(G, TQ, TKV)                                                  \
   ragged_prefill_kernel<G, TQ, TKV>                                         \
-      <<<grid, PREFILL_WARPS * WARP, 0, (cudaStream_t)stream>>>(            \
+      <<<grid, PREFILL_WARPS * WARP, 0, st>>>(                              \
           (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, page_table, \
           cu, start_pos, (TQ*)out, P, H, Hkv, D, page_size, sqrt_d)
   AIGW_DISPATCH(grp, q_dtype, kv_dtype, LAUNCH);
@@ -634,19 +946,6 @@ static int paged_mq(const void* q, const void* k_pool, const void* v_pool,
   if ((int64_t)B * n_rg > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const dim3 grid(B * n_rg, Hkv, n_split);
   const cudaStream_t st = (cudaStream_t)stream;
-  // the largest dynamic shared memory allowed so far, per kernel: one
-  // runtime call per new size, none on the launch path (and none inside
-  // a CUDA graph capture)
-#define SET_SMEM(KERN, SMEM)                                                \
-  {                                                                         \
-    static int smem_set = 0;                                                \
-    if ((SMEM) > smem_set) {                                                \
-      const cudaError_t e = cudaFuncSetAttribute(                           \
-          KERN, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);         \
-      if (e != cudaSuccess) return (int)e;                                  \
-      smem_set = (SMEM);                                                    \
-    }                                                                       \
-  }
   if (tc) {
 #define LAUNCH_TC(MT, DD)                                                   \
   {                                                                         \
@@ -700,12 +999,11 @@ static int paged_mq(const void* q, const void* k_pool, const void* v_pool,
     }
 #undef LAUNCH
   }
-#undef SET_SMEM
   return (int)cudaGetLastError();
 }
 
-// K3: q [B, H, D], row b attends its first lengths[b] keys (capped at
-// the table).
+// K3 and K4: q [B, H, D], row b attends its first lengths[b] keys
+// (capped at the table).
 int aigw_paged_decode(const void* q, const void* k_pool, const void* v_pool,
                       const int* page_table, const int* lengths, void* out,
                       void* part, void* counters, int B, int P, int H,
@@ -726,52 +1024,6 @@ int aigw_paged_verify(const void* q, const void* k_pool, const void* v_pool,
   return paged_mq(q, k_pool, v_pool, page_table, positions, out, part,
                   counters, B, S, P, H, Hkv, D, page_size, pps, n_split,
                   rows, 1, q_dtype, kv_dtype, stream);
-}
-
-// part: float32 scratch of n_split * B * Hkv * grp * (D + 2) elements
-// (accumulators, then maxima, then denominators).
-int aigw_paged_decode_split(const void* q, const void* k_pool,
-                            const void* v_pool, const int* page_table,
-                            const int* lengths, void* out, float* part,
-                            int B, int P, int H, int Hkv, int D,
-                            int page_size, int pps, int n_split,
-                            int q_dtype, int kv_dtype, void* stream) {
-  const int grp = H / Hkv;
-  if (!AIGW_SHAPES_OK(D, grp) || B < 1 || pps < 1 || n_split < 1 ||
-      n_split > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int64_t rows = (int64_t)B * Hkv * n_split * grp;
-  float* part_acc = part;
-  float* part_m = part_acc + rows * D;
-  float* part_l = part_m + rows;
-  const dim3 grid(B, Hkv, n_split);
-  const float sqrt_d = sqrtf((float)D);
-#define LAUNCH(G, TQ, TKV)                                                  \
-  {                                                                         \
-    const int smem = DECODE_WARPS * G * (D + 2) * (int)sizeof(float);       \
-    auto kern = paged_split_kernel<G, TQ, TKV>;                             \
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                         smem);                                             \
-    kern<<<grid, DECODE_WARPS * WARP, smem, (cudaStream_t)stream>>>(        \
-        (const TQ*)q, (const TKV*)k_pool, (const TKV*)v_pool, page_table,   \
-        lengths, part_acc, part_m, part_l, P, H, Hkv, D, page_size, pps,    \
-        n_split, sqrt_d);                                                   \
-  }
-  AIGW_DISPATCH(grp, q_dtype, kv_dtype, LAUNCH);
-#undef LAUNCH
-  const dim3 grid2(B, Hkv);
-  if (q_dtype == AIGW_F32) {
-    paged_combine_kernel<float>
-        <<<grid2, COMBINE_THREADS, 0, (cudaStream_t)stream>>>(
-            part_acc, part_m, part_l, (float*)out, H, Hkv, D, n_split);
-  } else {
-    paged_combine_kernel<__nv_bfloat16>
-        <<<grid2, COMBINE_THREADS, 0, (cudaStream_t)stream>>>(
-            part_acc, part_m, part_l, (__nv_bfloat16*)out, H, Hkv, D,
-            n_split);
-  }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

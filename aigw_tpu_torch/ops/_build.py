@@ -44,7 +44,6 @@ SIGNATURES = {
     "aigw_ragged_prefill": [_P] * 7 + [_I] * 9 + [_P],
     "aigw_paged_decode": [_P] * 8 + [_I] * 11 + [_P],
     "aigw_paged_verify": [_P] * 8 + [_I] * 12 + [_P],
-    "aigw_paged_decode_split": [_P] * 7 + [_I] * 10 + [_P],
     "aigw_fused_decode": [_P] * 15 + [_I] * 11 + [_P],
     "aigw_w8a16_matmul": [_P] * 6 + [_I] * 6 + [_P],
 }

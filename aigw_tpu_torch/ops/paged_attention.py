@@ -9,19 +9,23 @@
 - ``paged_attention_decode_v2`` (K3): one query token per sequence
   attends its first ``lengths[b]`` pool rows; GQA group = H / Hkv.
 - ``paged_attention_decode`` (K4, the reference's v1): K3's function,
-  its keys split over blocks (``csrc/paged_attention.cu``). No engine
-  path selects it, as in the reference.
+  launched on K3's body. No engine path selects it, as in the
+  reference.
 - ``paged_attention_verify`` (K5): S consecutive queries per sequence
   (the pending token and its drafts); query s attends pool positions
   ``<= positions[b] + s``, and a slot with ``positions[b] <= -S``
   attends nothing (zeros).
 
-On the card K3 and K5 are one kernel body (K3 is K5 at S = 1 over
+On the card K3, K4 and K5 are one kernel body (K3 is K5 at S = 1 over
 ``lengths[b]`` keys): every (sequence, KV head) holds its S x G query
 rows in one block and reads each key once for all of them, its keys
 split over blocks as the fused decode's are (``split_pages``), folded in
 the same launch. ``mq_plan`` sizes the launch from the shapes alone and
-``mq_blocks`` lists what each block covers.
+``mq_blocks`` lists what each block covers. K1 in bf16 runs on the
+tensor cores in tiles of whole queries of one sequence and KV head,
+heaviest first; ``prefill_plan`` sizes its grid from the shapes and
+``prefill_tile`` / ``prefill_tiles`` mirror how its blocks find their
+tiles.
 
 Each function has a plain PyTorch version beside it with the same
 signature (``*_plain``). The public function runs the plain version for
@@ -98,6 +102,94 @@ def ragged_prefill_attention_plain(
     return out
 
 
+#: (query, head) rows of a K1 tensor-core tile (PF_ROWS in the source)
+PF_ROWS = 64
+
+
+def _tc(q: torch.Tensor, k_pool: torch.Tensor) -> bool:
+    """Whether the tensor-core bodies (K1's and K3-K5's) take these
+    operands: bf16 q over a bf16 pool, D a multiple of 16."""
+    return (q.dtype == torch.bfloat16 and k_pool.dtype == torch.bfloat16
+            and q.shape[-1] % 16 == 0)
+
+
+def prefill_plan(T: int, B: int, H: int, Hkv: int) -> tuple[int, int]:
+    """Launch plan of K1's tensor-core kernel for T packed rows of B
+    sequences: ``(qt, n_blocks)``. A tile holds ``qt`` whole queries of
+    one sequence (``PF_ROWS // G`` of them, G = H / Hkv, so all G heads
+    of a query sit in one tile); the B sequences hold at most ``(T + B
+    (qt - 1)) // qt`` tiles, and the grid has that many blocks per KV
+    head, sized with no look at ``cu_seqlens``."""
+    qt = PF_ROWS // (H // Hkv)
+    return qt, (T + B * (qt - 1)) // qt * Hkv
+
+
+def _tiles_ge(n_q: int, start: int, qt: int, w: int) -> int:
+    """Tiles of a sequence of ``n_q`` queries at ``start`` weighing at
+    least ``w`` keys (tile j weighs ``start + min((j + 1) qt, n_q)``,
+    its last query's keys); the kernel's ``tiles_ge``."""
+    if n_q <= 0 or w > start + n_q:
+        return 0
+    n = -(-n_q // qt)
+    j = 0 if w <= start else -(-(w - start) // qt) - 1
+    return n - min(j, n - 1)
+
+
+def prefill_tile(t: int, lens, starts, qt: int):
+    """The tile block rank ``t`` of K1's tensor-core launch works on, as
+    the kernel's ``prefill_tile`` finds it: tiles ordered by weight,
+    heaviest first (ties: lower sequence first); ``(b, j)``, or None
+    past the last tile. A binary search on the weight of rank t, then
+    the sequence holding a tile of that weight."""
+    def count_ge(w):
+        return sum(_tiles_ge(n, s, qt, w) for n, s in zip(lens, starts))
+
+    w_max = max([s + n for n, s in zip(lens, starts) if n > 0], default=0)
+    if w_max < 1 or count_ge(1) <= t:
+        return None
+    lo, hi = 1, w_max
+    while lo < hi:
+        mid = lo + (hi - lo + 1) // 2
+        if count_ge(mid) > t:
+            lo = mid
+        else:
+            hi = mid - 1
+    k = t - count_ge(lo + 1)
+    for b, (n, s) in enumerate(zip(lens, starts)):
+        n_ge = _tiles_ge(n, s, qt, lo)
+        if n_ge - _tiles_ge(n, s, qt, lo + 1) == 1:
+            if k == 0:
+                return b, -(-n // qt) - n_ge
+            k -= 1
+    return None
+
+
+def prefill_tiles(cu_seqlens, start_pos, *, T: int, H: int, Hkv: int,
+                  P: int, page_size: int):
+    """What K1's tensor-core blocks attend, in launch order (rank 0
+    first; each rank is one block per KV head): yields ``(b, j, rows)``
+    for every rank that holds a tile, ``rows`` a list of ``(t, g,
+    n_keys)``: packed row t, head h * G + g of KV head h, attending keys
+    ``[0, n_keys)``."""
+    cu = [int(v) for v in cu_seqlens]
+    starts = [int(v) for v in start_pos]
+    B = len(starts)
+    lens = [cu[b + 1] - cu[b] for b in range(B)]
+    grp = H // Hkv
+    qt, n_blocks = prefill_plan(T, B, H, Hkv)
+    cap = P * page_size
+    for rank in range(n_blocks // Hkv):
+        tile = prefill_tile(rank, lens, starts, qt)
+        if tile is None:
+            continue
+        b, j = tile
+        q0 = j * qt
+        nq = min(qt, lens[b] - q0)
+        yield b, j, [(cu[b] + q0 + r // grp, r % grp,
+                      min(starts[b] + q0 + r // grp + 1, cap))
+                     for r in range(nq * grp)]
+
+
 def ragged_prefill_attention(
     q: torch.Tensor,
     k_pool: torch.Tensor,
@@ -110,8 +202,10 @@ def ragged_prefill_attention(
     q_block: int = 128,
 ) -> torch.Tensor:
     """K1. Returns ``[T, H, D]`` in q's dtype. CPU tensors: the plain
-    version. CUDA tensors: the kernel (``aigw_ragged_prefill``), one warp
-    per packed row (``q_block`` is the reference's TPU query block and
+    version. CUDA tensors: the kernel (``aigw_ragged_prefill``): bf16 q
+    over a bf16 pool on the tensor cores in tiles of whole queries
+    (``prefill_plan``), other dtypes on the CUDA cores, one warp per
+    packed row (``q_block`` is the reference's TPU query block and
     unused here)."""
     if q.device.type == "cpu":
         return ragged_prefill_attention_plain(
@@ -133,7 +227,9 @@ def ragged_prefill_attention(
         _build.check_cuda(t, name, torch.int32)
     if v_pool.dtype != k_pool.dtype:
         raise ValueError("k_pool and v_pool dtypes differ")
-    out = torch.zeros_like(q)
+    # the tensor-core kernel writes every row (zeros outside the
+    # sequences); the CUDA-core one only the sequences' rows
+    out = torch.empty_like(q) if _tc(q, k_pool) else torch.zeros_like(q)
     _build.launch(
         "aigw_ragged_prefill", q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), page_table.data_ptr(), cu_seqlens.data_ptr(),
@@ -225,9 +321,8 @@ def _paged_mq(name, q4, k_pool, v_pool, page_table, xs, out, page_size,
     B, S, H, D = q4.shape
     Hkv = k_pool.shape[1]
     P = page_table.shape[1]
-    tc = (q4.dtype == torch.bfloat16 and k_pool.dtype == torch.bfloat16
-          and D % 16 == 0)
-    pps, n_split, rows, n_rg = mq_plan(B, S, H, Hkv, D, P, tensor_cores=tc)
+    pps, n_split, rows, n_rg = mq_plan(B, S, H, Hkv, D, P,
+                                       tensor_cores=_tc(q4, k_pool))
     part = counters = None
     if n_split > 1:
         part = torch.empty((n_split * B * S * H * (D + 2),),
@@ -309,27 +404,17 @@ def paged_attention_decode(
     page_size: int,
 ) -> torch.Tensor:
     """K4. Returns ``[B, H, D]`` in q's dtype; rows with length 0 are
-    zero. CPU tensors: the plain version; CUDA tensors: the split walk
-    and its fold (``aigw_paged_decode_split``, two launches counted as
-    one)."""
+    zero. CPU tensors: the plain version; CUDA tensors: K3's body at S =
+    1 (``aigw_paged_decode``, one launch; the reference's v1 page axis
+    is its split over keys, folded in the launch)."""
     if q.device.type == "cpu":
         return paged_attention_decode_plain(
             q, k_pool, v_pool, page_table, lengths, page_size=page_size)
     _check_decode_args("paged_attention_decode", q, k_pool, v_pool,
                        page_table, lengths)
-    B, H, D = q.shape
-    Hkv = k_pool.shape[1]
-    P = page_table.shape[1]
-    pps, n_split = split_pages(B, Hkv, P)
     out = torch.empty_like(q)
-    part = torch.empty((n_split * B * H * (D + 2),), dtype=torch.float32,
-                       device=q.device)
-    _build.launch(
-        "aigw_paged_decode_split", q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), part.data_ptr(), B, P, H, Hkv, D, page_size, pps,
-        n_split, _build.dtype_code(q, "q"),
-        _build.dtype_code(k_pool, "k_pool"))
+    _paged_mq("aigw_paged_decode", q[:, None], k_pool, v_pool, page_table,
+              lengths, out, page_size, "paged_attention_decode")
     paged_attention_decode.launches += 1
     return out
 

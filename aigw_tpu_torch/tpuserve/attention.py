@@ -202,6 +202,8 @@ class RaggedPrefillBackend:
         (the engine creates the slots)."""
         eng = self.eng
         t0 = time.monotonic()
+        for req, _sid, _n, _total in items:
+            eng.phases.observe("queue_wait", 1e3 * (t0 - req.enqueued_at))
         segs = []
         by_row = {}
         for g, (req, seq_id, _n, _total) in enumerate(items):
@@ -217,6 +219,8 @@ class RaggedPrefillBackend:
                          - info["tick_ms"])
         eng.stats.prefill_ms += prefill_ms
         eng.stats.note_prefill_call(prefill_ms, info["real"])
+        for _item in items:
+            eng.phases.observe("prefill", prefill_ms)
         logger.debug("ragged prefill G=%d tokens=%d padded=%d calls=%d",
                      len(items), info["real"], info["padded"],
                      info["calls"])

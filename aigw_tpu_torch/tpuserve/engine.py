@@ -52,6 +52,7 @@ import torch
 
 from aigw_tpu_torch.device import resolve_device
 from aigw_tpu_torch.models import kvq
+from aigw_tpu_torch.obs.metrics import EnginePhases
 from aigw_tpu_torch.tpuserve import speculation
 from aigw_tpu_torch.tpuserve.attention import (
     BACKENDS,
@@ -196,6 +197,7 @@ class _Slot:
     pending_token: int = 0
     limit: int = 0  # exclusive max write position (page-safety fence)
     page_row: np.ndarray | None = None
+    first_emit_at: float = 0.0  # monotonic time of the first token
     # generated-token histogram (repetition penalties)
     token_counts: dict[int, int] = field(default_factory=dict)
     # generated tokens in order (the speculation history row is the
@@ -334,6 +336,10 @@ class Engine:
         self.eos = eos_token_ids
         self.allocator = PageAllocator(cfg.num_pages, cfg.page_size)
         self.stats = EngineStats()
+        # serving-phase latency histograms (queue_wait, prefill, ttft,
+        # first_emit, decode_per_token, transfer), observed where the
+        # reference's engine observes them; /state's phase_percentiles
+        self.phases = EnginePhases()
         self.stats.kv_quant_bits = kvq.quant_bits(cfg.kv_cache_dtype)
         self.healthy = True
         self.last_error: str | None = None
@@ -747,7 +753,9 @@ class Engine:
             self.stats.prefills += 1
             self._dirty_rows.add(slot_idx)
             self._spec_dirty.discard(slot_idx)  # the row carries draft_len
+            t_m = time.monotonic()
             self._emit_token(slot_idx, r.tok)
+            self.phases.observe("first_emit", 1e3 * (time.monotonic() - t_m))
         self.stats.first_emit_ms += 1e3 * (time.monotonic() - t_first)
 
     # -- device state -----------------------------------------------------
@@ -831,6 +839,7 @@ class Engine:
         toks = w.sampled.numpy()
         t1 = time.monotonic()
         self.stats.transfer_ms += 1e3 * (t1 - t0)
+        self.phases.observe("transfer", 1e3 * (t1 - t0))
         if w.draft:
             D1 = w.draft + 1
             self._process_spec_window(toks[:, :, :D1], toks[:, :, D1],
@@ -1049,6 +1058,12 @@ class Engine:
         s = self._slots[i]
         req = s.req
         s.generated += 1
+        if s.generated == 1:
+            # engine-side TTFT: arrival to the first sampled token (every
+            # request of the port is interactive: no batch tier yet)
+            s.first_emit_at = time.monotonic()
+            self.phases.observe("ttft",
+                                1e3 * (s.first_emit_at - req.enqueued_at))
         finish: str | None = None
         send_tok = tok
         if tok in self.eos:
@@ -1061,6 +1076,11 @@ class Engine:
         req.emit(send_tok, finish)
         self.stats.tokens_generated += 1
         if finish is not None:
+            if s.generated > 1 and s.first_emit_at:
+                self.phases.observe(
+                    "decode_per_token", 1e3 * (time.monotonic()
+                                               - s.first_emit_at)
+                    / (s.generated - 1))
             self._pending_frees.append(req.id)
             self._slots[i] = None
             self._dirty_rows.add(i)

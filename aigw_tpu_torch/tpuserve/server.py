@@ -3,9 +3,11 @@
 
 Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions``
 (streamed over SSE and not, in the reference server's response shapes),
-``GET /v1/models``, ``GET /health`` and ``GET /state`` (the reference's
-keys that this engine has, under the same names). A gateway in front
-routes to it like to a reference replica.
+``POST /tokenize``, ``GET /v1/models``, ``GET /health`` and ``GET
+/state`` (the reference's keys that this engine has, under the same
+names, ``phase_percentiles`` among them). A gateway in front routes to
+it like to a reference replica, and prices its TTFT from
+``phase_percentiles`` as a reference replica's.
 
 The server is ``http.server.ThreadingHTTPServer``: one thread per
 connection, each waiting on its request's token queue, which the engine
@@ -190,7 +192,24 @@ class TPUServeServer:
             "enable_prefix_cache": cfg.enable_prefix_cache,
             "defaults_differ": dict(DEFAULTS_DIFFER),
             "migration": False,
+            # serving-phase latency distributions (p50/p95/p99 per
+            # phase; -1 = no observations yet): the picker's TTFT
+            # prediction reads the prefill and ttft p50
+            "phase_percentiles": eng.phases.percentiles(),
         }
+
+    def tokenize(self, body: dict[str, Any]) -> dict[str, Any]:
+        """The reference's ``/tokenize``: chat ``messages`` through the
+        chat template, else ``prompt`` as text (no BOS), with the
+        replica's context limit."""
+        if isinstance(body.get("messages"), list):
+            ids = apply_chat_template(body["messages"], self.tokenizer,
+                                      self.chat_template)
+        else:
+            ids = self.tokenizer.encode(str(body.get("prompt", "")))
+        return {"count": len(ids),
+                "max_model_len": self.engine.cfg.max_seq_len,
+                "tokens": ids}
 
     # -- generation -------------------------------------------------------
     def encode_chat(self, body: dict[str, Any]) -> list[int]:
@@ -293,12 +312,15 @@ def _make_handler(server: TPUServeServer):
         def do_POST(self):  # noqa: N802
             path = self.path.split("?", 1)[0]
             chat = path == "/v1/chat/completions"
-            if not chat and path != "/v1/completions":
+            if not chat and path not in ("/v1/completions", "/tokenize"):
                 self._error(404, f"no route {path}", "not_found")
                 return
             length = int(self.headers.get("content-length") or 0)
             try:
                 body = oai.parse_json_body(self.rfile.read(length))
+                if path == "/tokenize":
+                    self._json(200, self.srv.tokenize(body))
+                    return
                 prompt = (self.srv.encode_chat(body) if chat
                           else self.srv.encode_text(body))
                 self.srv.check_unsupported(body)

@@ -18,7 +18,9 @@ Phases (any failure exits non-zero):
    kernel (K3). Every kernel's launch count over the served run must be
    above zero. The burst is served again on the warm server, then a
    third time under ``torch.profiler`` (the ``serve`` JSON line: cold
-   and warm wall times, the device's busy share while serving);
+   and warm wall times, the warm burst's prefill and TTFT p50 and p95
+   from ``/state``'s ``phase_percentiles``, the device's busy share
+   while serving);
    speculative decoding on the same weights: the chained rung with a
    fixed draft width of 4, so every window verifies through K5 at S = 5,
    serving the burst plus two greedy requests pinned to one token by
@@ -44,10 +46,15 @@ Phases (any failure exits non-zero):
    no host time and no flush between launches, as a served step runs
    them), K6 twice on the same inputs (bit-identical: its split-K fold
    runs in split order);
-   K4, which no engine path selects (nor the reference's), at K3's
-   inputs and timed beside K3; K5 at the served verify shapes (batch 8,
-   S = 5, a slot that is off, windows across a page) and at S = 9 (two
-   row groups per sequence and KV head, a window starting at -2);
+   K4 (K3's body), which no engine path selects (nor the reference's),
+   at K3's inputs and timed beside K3; K1 in bf16 (tensor cores) and in
+   float32 (CUDA cores), its bytes and operations bounds side by side,
+   beside one ``scaled_dot_product_attention`` call per sequence (flash
+   backend, ``enable_gqa``) on contiguous copies of its keys, the
+   library yardstick no part of K1 uses; K5 at the served verify shapes
+   (batch 8, S = 5, a slot that is off, windows across a page) and at
+   S = 9 (two row groups per sequence and KV head, a window starting at
+   -2);
    K6 at each of the five weight shapes a decode step multiplies (the
    ``qmatmul_shapes`` JSON line), beside cuBLAS on the same weight
    dequantized to bf16 ahead of time; full-width prefill + 8 decode
@@ -63,7 +70,9 @@ Phases (any failure exits non-zero):
    time ``torch.profiler`` sees, by kernel (the ``decode_profile``,
    ``decode_profile_chained``, ``decode_profile_quant`` and
    ``verify_profile`` JSON lines; ``port_kernels_ms`` sums every K6,
-   K2/K7 and K3 or K5 launch of the step);
+   K2/K7 and K3 or K5 launch of the step); the same for one full-width
+   bf16 prefill of the served burst's prompts, K1's 32 launches summed
+   (the ``prefill_profile`` line);
 7. the ``kernels`` JSON line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -433,9 +442,9 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         plain_ms=cuda_ms(k4_plain, iters=5),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         out_mean_abs=mean_out4, k3_ms_beside=(t3a + t3b) / 2,
-        splits=n_split, pages_per_split=pps,
-        note="off the engine path, as in the reference: no decode rung "
-             "selects v1"))
+        k3_ms_rotated_beside=rot3, splits=n_split, pages_per_split=pps,
+        note="K3's body, one launch; off the engine path, as in the "
+             "reference: no decode rung selects v1"))
     log(f"K4 ok: max err {err4:.3g} (mean |out| {mean_out4:.3g}), "
         f"{rows[-1]['ms']:.4f} ms, rotated {rot4:.4f} ms, in {n_split} "
         f"splits of {pps} pages "
@@ -560,7 +569,7 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         f"(bound {b_ms:.4f} ms, plain {rows[-1]['plain_ms']:.3f} ms)")
 
     # K1: a packed burst with one offset start, padded to a 256 multiple
-    seq = [(700, 0), (300, 0), (1, 0), (129, 77), (250, 0)]
+    seq = K1_CASE
     total = sum(n for n, _ in seq)
     T = -(-total // 256) * 256
     Bp = len(seq)
@@ -572,28 +581,41 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
     pt1 = perm[: Bp * P].reshape(Bp, P).to(torch.int32).contiguous()
     q1 = randn(T, H, D)
 
-    def k1():
+    def k1(*a):
         return paged_attention.ragged_prefill_attention(
-            q1, k_pool, v_pool, pt1, cu_t, st_t, page_size=PS)
+            *(a or (q1, k_pool, v_pool)), pt1, cu_t, st_t, page_size=PS)
 
-    def k1_plain():
+    def k1_plain(*a):
         return paged_attention.ragged_prefill_attention_plain(
-            q1, k_pool, v_pool, pt1, cu_t, st_t, page_size=PS)
+            *(a or (q1, k_pool, v_pool)), pt1, cu_t, st_t, page_size=PS)
 
     got = k1()
-    err, mean_out = attn_check("K1", got[:total], k1_plain()[:total])
+    want = k1_plain()[:total]
+    err, mean_out = attn_check("K1", got[:total], want)
+    if got[total:].abs().max().item() != 0.0:
+        raise AssertionError("K1 tail rows are not zero")
+    if not torch.equal(got, k1()):
+        raise AssertionError("K1: two calls differ")
+    # the CUDA-core kernel (float32), the same case
+    f32 = (q1.float(), k_pool.float(), v_pool.float())
+    got32 = k1(*f32)
+    want32 = k1_plain(*f32)
+    err32 = (got32 - want32).abs().max().item()
+    torch.testing.assert_close(got32, want32, rtol=2e-5, atol=2e-5)
+    ms32 = cuda_ms(lambda: k1(*f32), iters=5)
+    del f32, got32, want32
     keys = sum(s + n for n, s in seq)  # pool rows each sequence reads
     nbytes = 2 * (total * H * D + 2 * keys * Hkv * D + T * H * D)
+    pairs = sum(sum(s + i + 1 for i in range(n)) for n, s in seq)
+    flops = 4 * pairs * H * D
+    b_ms, b_by = bound(nbytes, flops)
     n_rot = copies_for(nbytes)
     rot = [(q1.clone(), k_pool.clone(), v_pool.clone())
            for _ in range(n_rot)]
-    rot1 = rotated_ms(lambda i: paged_attention.ragged_prefill_attention(
-        *rot[i], pt1, cu_t, st_t, page_size=PS), n_rot)
+    rot1 = rotated_ms(lambda i: k1(*rot[i]), n_rot)
     del rot
-    if got[total:].abs().max().item() != 0.0:
-        raise AssertionError("K1 tail rows are not zero")
-    pairs = sum(sum(s + i + 1 for i in range(n)) for n, s in seq)
-    b_ms, b_by = bound(nbytes, 4 * pairs * H * D)
+    lib = sdpa_yardstick(torch, q1, k_pool, v_pool, pt1, seq, cu, PS,
+                         want)
     rows.insert(0, dict(
         name="ragged_prefill_attention", route="cuda",
         source="aigw_tpu_torch/csrc/paged_attention.cu",
@@ -601,13 +623,73 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         launches=launches["ragged_prefill_attention"], max_abs_err=err,
         ms=cuda_ms(k1, iters=10), ms_rotated=rot1,
         plain_ms=cuda_ms(k1_plain, iters=3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        out_mean_abs=mean_out))
-    log(f"K1 ok: max err {err:.3g} (mean |out| {mean_out:.3g}), "
-        f"{rows[0]['ms']:.4f} ms, rotated {rot1:.4f} ms (bound "
-        f"{b_ms:.4f} ms, plain "
-        f"{rows[0]['plain_ms']:.3f} ms)")
+        bound_ms=b_ms, bound_by=b_by,
+        bound_bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_operations_ms=flops / BF16_FLOPS_PER_S * 1e3,
+        gflop=flops / 1e9, causal_pairs=pairs,
+        tflops_rotated=flops / rot1 / 1e9,
+        library_ms=lib["ms"], library_ms_rotated=lib["ms_rotated"],
+        library=lib["call"], max_abs_err_library=lib["max_abs_err"],
+        out_mean_abs=mean_out, max_abs_err_f32=err32, ms_f32=ms32))
+    log(f"K1 ok: max err {err:.3g} (mean |out| {mean_out:.3g}; float32 "
+        f"{err32:.3g}), {rows[0]['ms']:.4f} ms, rotated {rot1:.4f} ms "
+        f"({rows[0]['tflops_rotated']:.1f} TFLOP/s; bounds "
+        f"{rows[0]['bound_bytes_ms']:.5f} bytes, "
+        f"{rows[0]['bound_operations_ms']:.5f} operations; SDPA "
+        f"{lib['ms']:.4f}, rotated {lib['ms_rotated']:.4f}; float32 "
+        f"{ms32:.3f} ms; plain {rows[0]['plain_ms']:.3f} ms)")
     return rows
+
+
+#: K1's case: (new rows, start position) of 5 packed sequences, one
+#: resumed at 77 (1380 rows)
+K1_CASE = [(700, 0), (300, 0), (1, 0), (129, 77), (250, 0)]
+
+
+def sdpa_yardstick(torch, q, k_pool, v_pool, page_table, seq, cu,
+                   page_size, want) -> dict:
+    """K1's library yardstick: one ``scaled_dot_product_attention`` call
+    per sequence with the flash backend and ``enable_gqa``, on
+    contiguous copies of that sequence's keys (gathered from the pool
+    beforehand, not timed), causal with the lower-right mask for a
+    sequence resumed past 0, the calls summed. No single PyTorch call
+    computes K1's function over a paged pool; this is the yardstick for
+    K1's later passes and no part of K1. Returns its times (flushed and
+    back to back over copies, as K1's), the call, and its largest
+    difference from ``want``, K1's plain output on the sequences' rows."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
+
+    offs = torch.arange(page_size, device=q.device)
+    args = []
+    for b, (n, s) in enumerate(seq):
+        slots = (page_table[b].long()[:, None] * page_size
+                 + offs).reshape(-1)[:s + n]
+        args.append((q[cu[b]:cu[b + 1]].transpose(0, 1)[None].contiguous(),
+                     k_pool[slots].transpose(0, 1)[None].contiguous(),
+                     v_pool[slots].transpose(0, 1)[None].contiguous(),
+                     causal_lower_right(n, s + n) if s else None))
+
+    def run(a=args):
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return [F.scaled_dot_product_attention(
+                qb, kb, vb, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True) for qb, kb, vb, mask in a]
+
+    got = torch.cat([o[0].transpose(0, 1) for o in run()])
+    err = (got.float() - want.float()).abs().max().item()
+    nbytes = sum(x.numel() * 2 for a in args for x in a[:3])
+    n_rot = copies_for(nbytes)
+    rot = [args] + [[(qb, kb.clone(), vb.clone(), mask)
+                     for qb, kb, vb, mask in args]
+                    for _ in range(n_rot - 1)]
+    return {"ms": cuda_ms(run), "ms_rotated": rotated_ms(
+                lambda i: run(rot[i]), n_rot),
+            "call": "torch.nn.functional.scaled_dot_product_attention, "
+                    "flash backend, enable_gqa=True, one call per "
+                    "sequence on contiguous keys",
+            "max_abs_err": err}
 
 
 def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
@@ -995,37 +1077,112 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    by_kernel: dict[str, float] = {}
     # the port's kernels on this path, every launch of each summed: K6's
     # (W8A16 projections), K2/K7's (the fused decode rung), and the K3/K5
-    # body's (mq_*; the single-query paged_decode_kernel and
-    # paged_verify_kernel it replaced, which the A/B tool runs as its old
-    # build): K5 in a verify step, else K3
+    # body's (mq_*): K5 in a verify step, else K3
     mq = "paged_attention_verify" if verify_width \
         else "paged_attention_decode_v2"
-    tags = (("w8a16_matmul", ("w8a16",)),
-            ("fused_paged_decode", ("fused_decode",)),
-            (mq, ("mq_", "paged_verify_kernel" if verify_width
-                  else "paged_decode_kernel")))
-    ours = {name: 0.0 for name, _ in tags}
-    for ev in prof.key_averages():
-        us = ev.self_device_time_total
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[ev.key[:60]] = by_kernel.get(ev.key[:60], 0.0) + us
-            for name, keys in tags:
-                if any(tag in ev.key for tag in keys):
-                    ours[name] += us / 1e3 / steps
-    device_ms = sum(by_kernel.values()) / 1e3 / steps
-    if device_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
-    top = sorted(by_kernel.items(), key=lambda item: -item[1])[:6]
+    device_ms, ours, top = device_split(
+        torch, prof, steps, (("w8a16_matmul", "w8a16"),
+                             ("fused_paged_decode", "fused_decode"),
+                             (mq, "mq_")))
     return {"batch": B, "cached_tokens": ctx, "layers": cfg.n_layers,
             "kv_dtype": kv_dtype, "verify_width": verify_width,
             "attn_impl": "chained" if verify_width else attn_impl,
             "wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy": device_ms / wall_ms,
-            "port_kernels_ms": ours,
-            "top_kernels_ms": {k: us / 1e3 / steps for k, us in top}}
+            "port_kernels_ms": ours, "top_kernels_ms": top}
+
+
+def device_split(torch, prof, calls: int, tags) -> tuple:
+    """From a profile of ``calls`` calls: device ms per call, each
+    tagged kernel's ms per call (``tags``: (name, substring of its
+    kernels' names); every launch summed) and the six costliest kernels'
+    ms per call."""
+    by_kernel: dict[str, float] = {}
+    ours = {name: 0.0 for name, _ in tags}
+    for ev in prof.key_averages():
+        us = ev.self_device_time_total
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[ev.key[:60]] = by_kernel.get(ev.key[:60], 0.0) + us
+            for name, tag in tags:
+                if tag in ev.key:
+                    ours[name] += us / 1e3 / calls
+    device_ms = sum(by_kernel.values()) / 1e3 / calls
+    if device_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    top = sorted(by_kernel.items(), key=lambda item: -item[1])[:6]
+    return device_ms, ours, {k: us / 1e3 / calls for k, us in top}
+
+
+def served_prompt_lens(reqs) -> list[int]:
+    """Prompt tokens of each request of a burst as the server makes
+    them (the byte tokenizer: chat through its template, a completion
+    after BOS)."""
+    from aigw_tpu_torch.tpuserve.tokenizer import (
+        ByteTokenizer,
+        apply_chat_template,
+    )
+
+    tok = ByteTokenizer()
+    return [len(apply_chat_template(body["messages"], tok)) if kind == "chat"
+            else 1 + len(tok.encode(body["prompt"]))
+            for kind, _stream, body in reqs]
+
+
+def prefill_profile(torch, params, cfg, seqs, dev: str = "cuda") -> dict:
+    """Where one full-width bf16 prefill's time goes: one
+    ``prefill_ragged`` call over the packed sequences ``seqs`` ((new
+    tokens, start position) each; the rows padded to a multiple of 256),
+    its host wall clock (synchronized) against the device time
+    torch.profiler sees, and K1's launches (one per layer) summed."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from aigw_tpu_torch.models import kvq, llama
+
+    PS, calls = 128, 3
+    B = len(seqs)
+    P = max(-(-(n + s) // PS) for n, s in seqs)
+    total = sum(n for n, _ in seqs)
+    T = -(-total // 256) * 256
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (T,), generator=g, device=dev)
+    row_seq = torch.full((T,), B, dtype=torch.int32, device=dev)
+    positions = torch.zeros((T,), dtype=torch.int32, device=dev)
+    last = torch.zeros((B,), dtype=torch.int32, device=dev)
+    o = 0
+    for b, (n, s) in enumerate(seqs):
+        row_seq[o:o + n] = b
+        positions[o:o + n] = s + torch.arange(n, device=dev)
+        last[b] = o + n - 1
+        o += n
+    pt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    kv = kvq.make_pool((cfg.n_layers, 2, (B * P + 1) * PS, cfg.n_kv_heads,
+                        cfg.head_dim), "bfloat16", dev)
+
+    def call():
+        llama.prefill_ragged(params, cfg, tokens, row_seq, positions, last,
+                             kv, pt, PS)
+
+    call()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for _ in range(calls):
+        call()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    device_ms, ours, top = device_split(
+        torch, prof, calls, (("ragged_prefill_attention", "ragged_prefill"),))
+    return {"sequences": [list(x) for x in seqs], "rows": total,
+            "padded_rows": T, "layers": cfg.n_layers, "wall_ms": wall_ms,
+            "device_ms": device_ms, "k1_in_place_ms":
+            ours["ragged_prefill_attention"], "top_kernels_ms": top}
 
 
 def spec_phases(srv, restart, params, reqs, launches: dict) -> None:
@@ -1138,6 +1295,7 @@ def main() -> int:
     try:
         from aigw_tpu_torch.models import llama, quant
         from aigw_tpu_torch.models.registry import ModelSpec, register_model
+        from aigw_tpu_torch.obs.metrics import EnginePhases
         from aigw_tpu_torch.ops import _build
         from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
         from aigw_tpu_torch.tpuserve.server import TPUServeServer
@@ -1202,19 +1360,33 @@ def main() -> int:
             f"{state['prefill_padded_frac']}, tokens "
             f"{state['tokens_generated']}")
         # the same burst on the warm server: the first one also pays the
-        # process's first-use costs (cuBLAS handles, lazily loaded kernels)
+        # process's first-use costs (cuBLAS handles, lazily loaded
+        # kernels). The phase histograms start empty for it, so /state's
+        # phase_percentiles are the warm burst's
+        srv.engine.phases = EnginePhases()
         t = time.monotonic()
         serve_phase(srv.port, reqs)
         warm_s = time.monotonic() - t
         warm = json.loads(_http(srv.port, "/state")[2])
+        pp = warm["phase_percentiles"]
         print(json.dumps({"serve": {
             "requests": len(reqs),
             "new_tokens": sum(r["n"] for r in results),
+            "prompt_tokens": served_prompt_lens(reqs),
             "cold_s": cold_s, "warm_s": warm_s,
             "warm_prefill_ms": warm["prefill_ms"] - state["prefill_ms"],
+            "warm_prefills": warm["prefills"] - state["prefills"],
             "warm_decode_steps": warm["decode_steps"]
             - state["decode_steps"],
+            "warm_prefill_p50_ms": pp["prefill"]["p50"],
+            "warm_prefill_p95_ms": pp["prefill"]["p95"],
+            "warm_ttft_p50_ms": pp["ttft"]["p50"],
+            "warm_ttft_p95_ms": pp["ttft"]["p95"],
+            "warm_phase_percentiles": pp,
             **serve_profile(torch, srv.port, reqs, warm_s)}}), flush=True)
+        if min(pp["prefill"]["p50"], pp["ttft"]["p50"]) < 0:
+            raise AssertionError(f"no prefill or TTFT observations on "
+                                 f"/state: {pp}")
 
         # the chained rung: restart the engine with pallas_attn
         params = srv.engine.params
@@ -1342,6 +1514,17 @@ def main() -> int:
         f"ms wall, {prof_v['device_ms']:.2f} ms on the device (busy "
         f"{prof_v['device_busy']:.2f})")
     print(json.dumps({"verify_profile": prof_v}), flush=True)
+    # one bf16 prefill of the served burst's prompts, and of K1's case
+    prof_p = {name: prefill_profile(torch, params, llama.LLAMA3_8B, seqs)
+              for name, seqs in (
+                  ("served_burst",
+                   [(n, 0) for n in served_prompt_lens(reqs)]),
+                  ("k1_case", K1_CASE))}
+    for name, pr in prof_p.items():
+        log(f"prefill ({name}, {pr['rows']} rows) at full width: "
+            f"{pr['wall_ms']:.2f} ms wall, {pr['device_ms']:.2f} ms on the "
+            f"device, K1 {pr['k1_in_place_ms']:.3f} ms in 32 launches")
+    print(json.dumps({"prefill_profile": prof_p}), flush=True)
     del params, qparams
     torch.cuda.synchronize()
 

@@ -69,10 +69,17 @@ def test_paged_decode_kernel(cuda, geom, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("geom", GEOMS)
 def test_ragged_prefill_kernel(cuda, geom, dtype):
+    """K1 against its plain version: bf16 on the tensor-core kernel (at
+    G 2, 4 and 7: tiles of 32, 16 and 9 whole queries), float32 on the
+    CUDA-core one. Sequences of one query, of 1000, one resumed at ps /
+    2 + 3 (its tiles straddle pages), one short of a page; padding rows
+    at the tail come out zero; a second call gives the same bits."""
     H, Hkv, D, ps = geom
     g = torch.Generator(device=cuda).manual_seed(1)
-    seq = [(3 * ps + 5, 0), (1, 0), (2 * ps, ps // 2 + 3), (ps - 1, 0)]
-    B, P = len(seq), 8
+    seq = [(3 * ps + 5, 0), (1, 0), (2 * ps, ps // 2 + 3), (ps - 1, 0),
+           (1000, 0)]
+    B = len(seq)
+    P = max(-(-(n + s) // ps) for n, s in seq)
     kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
     pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
         B, P).to(torch.int32)
@@ -85,12 +92,15 @@ def test_ragged_prefill_kernel(cuda, geom, dtype):
     q = r(T, H, D)
     got = paged_attention.ragged_prefill_attention(q, kp, vp, pt, cu, st,
                                                    page_size=ps)
+    again = paged_attention.ragged_prefill_attention(q, kp, vp, pt, cu, st,
+                                                     page_size=ps)
     want = paged_attention.ragged_prefill_attention_plain(
         q, kp, vp, pt, cu, st, page_size=ps)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype][0],
                                atol=TOL[dtype][1])
     assert not got[total:].any()  # rows owned by no sequence are zero
+    assert torch.equal(got, again)
 
 
 def _fused_case(case, g, ps, Hkv, dev):
@@ -259,30 +269,37 @@ def test_quantized_pool_needs_its_scales(cuda):
             rope_theta=1e4, page_size=16)
 
 
-# -- K4 split decode and K5 verify ------------------------------------------
+# -- K4 decode (v1) and K5 verify ------------------------------------------
+@pytest.mark.parametrize("case", ["split_edges", "batch1", "batch64",
+                                  "one_split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("geom", GEOMS)
-def test_paged_decode_split_kernel(cuda, geom, dtype):
-    """K4 against its plain version (K3's function), with lengths of 0,
-    one page and the whole table, at two batch sizes (8 splits and 1)."""
+def test_paged_decode_split_kernel(cuda, geom, dtype, case):
+    """K4 (one launch of K3's body) against its plain version over K3's
+    cases: lengths at the split and page edges, zero, and past the table
+    (capped at its end); a second call gives the same bits."""
     H, Hkv, D, ps = geom
     g = torch.Generator(device=cuda).manual_seed(5)
-    for B, P in ((6, 12), (64, 4)):
-        kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
-        pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
-            B, P).to(torch.int32)
-        lens = torch.randint(0, P * ps + 1, (B,), generator=g, device=cuda,
-                             dtype=torch.int32)
-        lens[:3] = torch.tensor([0, ps, P * ps])
-        q = r(B, H, D)
-        got = paged_attention.paged_attention_decode(q, kp, vp, pt, lens,
-                                                     page_size=ps)
-        want = paged_attention.paged_attention_decode_plain(
-            q, kp, vp, pt, lens, page_size=ps)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=TOL[dtype][0], atol=TOL[dtype][1])
-        assert not got[0].any()
+    B, P, xs = _mq_case(case, 1, ps, Hkv, g, cuda)
+    lens = torch.clamp(xs + 1, min=0)
+    lens[0] = P * ps + 5  # past the table
+    kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
+    pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
+        B, P).to(torch.int32)
+    q = r(B, H, D)
+    n0 = paged_attention.paged_attention_decode.launches
+    got = paged_attention.paged_attention_decode(q, kp, vp, pt, lens,
+                                                 page_size=ps)
+    again = paged_attention.paged_attention_decode(q, kp, vp, pt, lens,
+                                                   page_size=ps)
+    want = paged_attention.paged_attention_decode_plain(
+        q, kp, vp, pt, lens, page_size=ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=TOL[dtype][0], atol=TOL[dtype][1])
+    assert torch.equal(got, again)
+    assert not got[lens == 0].any()
+    assert paged_attention.paged_attention_decode.launches == n0 + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -37,11 +37,15 @@ from aigw_tpu_torch.ops.decode_fused import (
     fused_paged_decode,
 )
 from aigw_tpu_torch.ops.paged_attention import (
+    PF_ROWS,
     mq_blocks,
     mq_plan,
     paged_attention_decode,
     paged_attention_decode_v2,
     paged_attention_verify,
+    prefill_plan,
+    prefill_tile,
+    prefill_tiles,
     ragged_prefill_attention,
     split_pages,
 )
@@ -86,6 +90,96 @@ def test_ragged_prefill_matches_pallas(lens, starts, page_size, q_block, H,
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     if T > cu[-1]:  # tail rows owned by no sequence are zero
         assert not got[cu[-1]:].any()
+
+
+# -- K1's tensor-core launch plan --------------------------------------------
+PREFILL_PLAN_CASES = {
+    # chip_smoke's case at Llama-3-8B heads (group 4: 16 queries a
+    # tile), one sequence resumed at 77, padding rows at the tail
+    "served_g4": dict(H=32, Hkv=8, P=16, ps=128, pad=156,
+                      seq=[(700, 0), (300, 0), (1, 0), (129, 77), (250, 0)]),
+    # Qwen2-0.5B heads (group 7): 9 queries a tile, the 64th row unused
+    "qwen_g7": dict(H=14, Hkv=2, P=8, ps=16, pad=5,
+                    seq=[(37, 0), (1, 0), (20, 11), (9, 0)]),
+    # group 8, resumed past a page, sequences with no queries
+    "g8_offsets": dict(H=8, Hkv=1, P=6, ps=16, pad=0,
+                       seq=[(0, 0), (17, 40), (8, 3), (0, 5), (33, 0)]),
+    # group 1 (64 queries a tile), tiles of equal weight in three
+    # sequences, a row past the table (capped at its last key)
+    "g1_ties": dict(H=2, Hkv=2, P=4, ps=32, pad=7,
+                    seq=[(64, 0), (64, 0), (1, 63), (100, 29)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_PLAN_CASES))
+def test_prefill_tile_plan_covers_each_row_once(case):
+    """K1's tensor-core tiles (``prefill_tiles``, as the kernel's blocks
+    find them): every (packed row, head of the group) of every sequence
+    is in exactly one tile and attends keys [0, start + row + 1), capped
+    at the table; padding rows are in none; a tile holds whole queries
+    of one sequence, at most ``PF_ROWS // G`` of them; the grid's blocks
+    cover every tile."""
+    c = PREFILL_PLAN_CASES[case]
+    H, Hkv, P, ps = c["H"], c["Hkv"], c["P"], c["ps"]
+    grp = H // Hkv
+    lens = [n for n, _ in c["seq"]]
+    starts = [s for _, s in c["seq"]]
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    T = int(cu[-1]) + c["pad"]
+    qt, n_blocks = prefill_plan(T, len(lens), H, Hkv)
+    assert qt == PF_ROWS // grp and n_blocks % Hkv == 0
+    cover = np.zeros((T, grp), np.int32)
+    n_tiles = 0
+    for b, j, rows in prefill_tiles(cu, starts, T=T, H=H, Hkv=Hkv, P=P,
+                                    page_size=ps):
+        n_tiles += 1
+        assert 1 <= len(rows) <= qt * grp and len(rows) % grp == 0
+        for t, g, n_keys in rows:
+            assert cu[b] + j * qt <= t < min(cu[b + 1], cu[b] + (j + 1) * qt)
+            assert n_keys == min(starts[b] + t - cu[b] + 1, P * ps)
+            cover[t, g] += 1
+    want = np.zeros((T, grp), np.int32)
+    want[:cu[-1]] = 1
+    np.testing.assert_array_equal(cover, want)
+    assert n_tiles == sum(-(-n // qt) for n in lens) <= n_blocks // Hkv
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_PLAN_CASES))
+def test_prefill_tiles_heaviest_first(case):
+    """Block rank t works on the t-th tile in descending order of its
+    key count (its last query's keys; ties go to the lower sequence), so
+    the last tile of the longest sequence launches first; ranks past the
+    last tile find none. The kernel's binary search (mirrored by
+    ``prefill_tile``) equals a sort."""
+    c = PREFILL_PLAN_CASES[case]
+    lens = [n for n, _ in c["seq"]]
+    starts = [s for _, s in c["seq"]]
+    qt = PF_ROWS // (c["H"] // c["Hkv"])
+    tiles = sorted(((s + min((j + 1) * qt, n), b, j)
+                    for b, (n, s) in enumerate(zip(lens, starts))
+                    for j in range(-(-n // qt))),
+                   key=lambda x: (-x[0], x[1]))
+    got = [prefill_tile(t, lens, starts, qt) for t in range(len(tiles) + 3)]
+    assert got[:len(tiles)] == [(b, j) for _, b, j in tiles]
+    assert got[len(tiles):] == [None] * 3
+    b0, j0 = got[0]
+    assert starts[b0] + lens[b0] == max(s + n for n, s in zip(lens, starts))
+    assert j0 == -(-lens[b0] // qt) - 1  # its last tile
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_prefill_grid_bound_holds(seed):
+    """``prefill_plan``'s block count, from T and B alone, covers the
+    tiles of any packing of B sequences into T rows (empty sequences and
+    one-query tiles included)."""
+    rng = np.random.default_rng(seed)
+    B = int(rng.integers(1, 9))
+    for G in (1, 4, 7, 8):
+        lens = [int(x) for x in rng.integers(0, 90, B)]
+        lens[int(rng.integers(B))] = int(rng.integers(0, 3))
+        T = sum(lens) + int(rng.integers(0, 40))
+        qt, n_blocks = prefill_plan(max(T, 1), B, 8 * G, 8)
+        assert sum(-(-n // qt) for n in lens) <= n_blocks // 8
 
 
 # -- K3 chained decode -------------------------------------------------------
