@@ -6,6 +6,8 @@
         --quantize int8 --kv-cache-dtype int8
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --pallas-attn --spec-tokens 4
+    python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
+        --no-prefix-cache
 
 Only the ``tpuserve`` subcommand is ported; the gateway and the other
 subcommands stay JAX-package code, and the gateway can front this
@@ -74,6 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--no-speculation", action="store_true",
                    help="force speculative decoding off (overrides "
                         "--spec-tokens)")
+    s.add_argument("--no-prefix-cache", action="store_true",
+                   help="disable automatic prefix caching (shared prompt "
+                        "prefixes then prefill again on every request)")
     s.add_argument("--ragged-chunk-tokens", type=int, default=256)
     s.add_argument("--max-queued-requests", type=int, default=256)
     return p
@@ -88,6 +93,7 @@ def engine_config(args):
         page_size=args.page_size,
         num_pages=args.hbm_pages,
         decode_steps_per_tick=args.decode_steps_per_tick,
+        enable_prefix_cache=not args.no_prefix_cache,
         adaptive_decode_window=not args.no_adaptive_window,
         async_transfers=not args.sync_transfers,
         first_token_fast_path=not args.no_first_token_fast_path,

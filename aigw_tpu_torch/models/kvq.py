@@ -202,6 +202,19 @@ def scatter_kv(kv: Any, layer: int, flat: torch.Tensor, k: torch.Tensor,
     return kv
 
 
+def copy_page(kv: Any, src: int, dst: int, page_size: int) -> Any:
+    """Clone page ``src``'s rows into page ``dst`` in place, in every
+    tensor of the pool (K and V; for a quantized pool the q rows and
+    their scale rows, which page on the same slot axis) and every layer:
+    the prefix cache's copy-on-write (the reference's ``_copy_page_dev``
+    over the pool's leaves). It runs on the caller's stream, after
+    every launch already queued there that reads ``src``."""
+    s, d = src * page_size, dst * page_size
+    for leaf in (kv.values() if is_quantized(kv) else (kv,)):
+        leaf[:, :, d:d + page_size] = leaf[:, :, s:s + page_size]
+    return kv
+
+
 def padding_slots(kv: Any, page_size: int, valid: torch.Tensor,
                   slot: torch.Tensor) -> torch.Tensor:
     """``slot`` where ``valid``, else a row of the dump page (the JAX

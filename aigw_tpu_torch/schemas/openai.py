@@ -23,6 +23,8 @@ class TokenUsage:
     input_tokens: int = 0
     output_tokens: int = 0
     total_tokens: int = 0
+    # prompt tokens whose KV came from the prefix cache
+    cached_input_tokens: int = 0
 
 
 def parse_json_body(body: bytes) -> dict[str, Any]:
@@ -110,12 +112,16 @@ def validate_chat_request(body: dict[str, Any]) -> None:
 
 
 def usage_dict(usage: TokenUsage) -> dict[str, Any]:
-    return {
+    d: dict[str, Any] = {
         "prompt_tokens": usage.input_tokens,
         "completion_tokens": usage.output_tokens,
         "total_tokens": usage.total_tokens
         or usage.input_tokens + usage.output_tokens,
     }
+    if usage.cached_input_tokens:
+        d["prompt_tokens_details"] = {
+            "cached_tokens": usage.cached_input_tokens}
+    return d
 
 
 def chat_completion_response(*, model: str, content: str,

@@ -14,10 +14,12 @@ kernel has no quantized rung either).
 
 Both resolvers export what the replica actually runs, and why, on
 ``/state`` (``attention_backend_reason``, ``decode_attn_impl``,
-``decode_attn_reason``) — reduced to the rows this slice has. The
-bucketed prefill backend, the gather decode rung, the per-request
-``single_prefill`` path and ``sp_chunked_prefill`` wait for later slices
-(ROADMAP queue 1).
+``decode_attn_reason``) — reduced to the rows this slice has.
+``group_prefill`` serves batched admissions and ``single_prefill`` the
+per-request path, which resumes a prefix-cache hit at its cached offset
+as one packed segment at absolute positions (a full hit is one row at
+n - 1). The bucketed prefill backend, the gather decode rung and
+``sp_chunked_prefill`` wait for later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -103,9 +105,14 @@ class RaggedPrefillBackend:
                 * self.eng.cfg.ragged_max_chunks)
 
     # -- packing core ------------------------------------------------------
-    def _run_packed(self, segs: list[_Seg], sampling_args: tuple):
+    def _run_packed(self, segs: list[_Seg], sampling_args: tuple,
+                    cancellable: Any = None):
         """Run the segments through budget-sized packed calls. Returns
-        ({row g → device tokens of the call that finished g}, info)."""
+        ({row g → device tokens of the call that finished g}, info), or
+        an abort status string (only with ``cancellable``, the single
+        path's request, cancelled or the engine stopping at a budget
+        boundary: "skipped", "stop" or "stop_consumed" as the engine's
+        ``_admit_one`` returns them)."""
         eng = self.eng
         cfg = eng.cfg
         dev = eng.device
@@ -136,8 +143,17 @@ class RaggedPrefillBackend:
             if not call:
                 break
             if calls > 0:
-                # budget boundary: decode interleave (chunked-prefill
-                # liveness — live streams keep decoding)
+                # budget boundary: cancellation/shutdown yield point and
+                # decode interleave (chunked-prefill liveness — live
+                # streams keep decoding)
+                if cancellable is not None and (
+                        cancellable.cancelled.is_set()
+                        or eng._stop.is_set()):
+                    if eng._stop.is_set():
+                        return ("stop_consumed"
+                                if cancellable.cancelled.is_set()
+                                else "stop")
+                    return "skipped"
                 t_tick = time.monotonic()
                 eng._decode_tick()
                 tick_ms += 1e3 * (time.monotonic() - t_tick)
@@ -196,10 +212,12 @@ class RaggedPrefillBackend:
                      for a in (keys, temp, top_p, top_k, bias))
 
     # -- interface ---------------------------------------------------------
-    def group_prefill(self, items: list) -> list[GroupResult]:
+    def group_prefill(self, items: list, chain_by_req: dict
+                      ) -> list[GroupResult]:
         """Prefill ``items`` ((req, seq_id, n, total) with pages already
         allocated) as one packed stream; returns results in item order
-        (the engine creates the slots)."""
+        (the engine creates the slots and inserts each prompt's
+        ``chain_by_req[id(req)]`` into the prefix cache)."""
         eng = self.eng
         t0 = time.monotonic()
         for req, _sid, _n, _total in items:
@@ -227,6 +245,22 @@ class RaggedPrefillBackend:
         return [GroupResult(req=req, seq_id=seq_id, n=n, total=total,
                             tok=int(host[s.g][s.g]), page_row=s.page_row)
                 for s, (req, seq_id, n, total) in zip(segs, items)]
+
+    def single_prefill(self, req, seq_id: int, suffix: list[int],
+                       prefix_len: int, page_row: np.ndarray):
+        """Prefill one request's ``suffix`` at absolute position
+        ``prefix_len`` (0, a cached page-aligned prefix, or n - 1 after a
+        full hit) as one segment at row 0 of the packed calls, its
+        sampling row at row 0 of the ``[B]`` layout. Returns (first token,
+        info) or an abort status string (see ``_run_packed``)."""
+        seg = _Seg(g=0, req=req, tokens=suffix, start=prefix_len,
+                   page_row=page_row)
+        res = self._run_packed([seg], self._sampling_rows({0: (req, seq_id)}),
+                               cancellable=req)
+        if isinstance(res, str):
+            return res
+        final_out, info = res
+        return int(final_out[0].cpu().numpy()[0]), info
 
 
 def resolve_attention_backend(cfg, device: torch.device) -> tuple[str, str]:

@@ -15,10 +15,25 @@
 - **Engine thread**: the loop runs in its own thread; consumers receive
   tokens through each request's ``emit`` callback.
 
-Admission is FIFO; every admitted burst prefills through the ragged
-backend (``tpuserve/attention.py``). The KV pool (native, or int8/int4
-pages with their scales, ``models/kvq.py``) carries one page past the
-allocator's range, the dump page.
+Admission is FIFO and the reference's: each pass classifies its
+requests, runs of two or more simple ones (whole prompt, nothing cached
+to adopt, at most one new chain head per run) prefill as one packed
+burst (``group_prefill``), and every other request goes through
+``_admit_one`` in arrival order, which adopts the longest cached
+page-prefix and resumes at its offset (``single_prefill``). Both run the
+ragged backend (``tpuserve/attention.py``). The KV pool (native, or
+int8/int4 pages with their scales, ``models/kvq.py``) carries one page
+past the allocator's range, the dump page.
+
+**Prefix caching** (``enable_prefix_cache``, on by default as in the
+reference; ``tpuserve/kvcache.py``): full prompt pages are registered
+under chained content hashes after each prefill. A partial hit adopts
+the cached pages and prefills only the suffix; a full hit (a
+page-aligned prompt fully cached) adopts every page, copies the last one
+into a private page (copy-on-write, ``kvq.copy_page`` on the engine's
+stream) and resumes with the single token at n - 1. Each hit is admitted
+on its own, one packed call per request, as in the reference. The radix
+chain's continuation seeds speculation's lookahead drafts.
 
 **Speculative decoding** (``spec_tokens > 0``, ``tpuserve/
 speculation.py``): while an eligible slot's adaptive controller holds a
@@ -28,13 +43,11 @@ steps, each slot advancing by its accepted drafts plus one. The verify
 step runs K5 when the decode rung resolves to ``chained-*`` and the
 gather path otherwise, as in the reference.
 
-Two defaults differ from the reference: ``enable_prefix_cache`` is
-False (True raises until the prefix-caching slice) and
-``constrained_decoding`` is False (the server answers ``response_format``
-and tools with the reference's knob-off 400). Both differences are
-exported on ``/state``. Knobs of features this slice does not implement
-raise ``NotImplementedError`` naming their ROADMAP entry when set to a
-non-default value.
+One default differs from the reference: ``constrained_decoding`` is
+False (the server answers ``response_format`` and tools with the
+reference's knob-off 400), exported on ``/state``. Knobs of features
+this slice does not implement raise ``NotImplementedError`` naming their
+ROADMAP entry when set to a non-default value.
 """
 
 from __future__ import annotations
@@ -60,7 +73,12 @@ from aigw_tpu_torch.tpuserve.attention import (
     make_attention_backend,
     resolve_decode_backend,
 )
-from aigw_tpu_torch.tpuserve.kvcache import OutOfPagesError, PageAllocator
+from aigw_tpu_torch.tpuserve.kvcache import (
+    OutOfPagesError,
+    PageAllocator,
+    PrefixCache,
+    RefcountedAllocator,
+)
 from aigw_tpu_torch.tpuserve.sampling import (
     SamplingParams,
     apply_penalties,
@@ -74,16 +92,14 @@ logger = logging.getLogger(__name__)
 #: default, ROADMAP queue 1 entry). A non-default value raises
 #: NotImplementedError.
 NOT_PORTED = {
-    "enable_prefix_cache": (False, "prefix caching and CoW"),
     "constrained_decoding": (False, "constrained decoding"),
     "tenant_slot_cap": (0, "host scheduler features"),
     "logprobs_topk": (0, "host scheduler features (logprobs)"),
     "kv_host_bytes": (0, "migration and KV mobility"),
 }
 
-#: the two defaults that differ from the reference, and why (/state)
+#: the default that differs from the reference, and why (/state)
 DEFAULTS_DIFFER = {
-    "enable_prefix_cache": "False: prefix caching is not ported yet",
     "constrained_decoding": "False: grammar constraints are not ported "
                             "yet; response_format and tools get a 400",
 }
@@ -97,7 +113,7 @@ class EngineOverloadedError(Exception):
 class EngineConfig:
     """The reference's EngineConfig fields this slice serves, with the
     reference's names and defaults (see the module docstring for the
-    two that differ)."""
+    one that differs)."""
 
     max_batch_size: int = 8
     max_seq_len: int = 2048
@@ -105,7 +121,7 @@ class EngineConfig:
     num_pages: int = 0  # 0 = auto: enough for max_batch full sequences
     # decode steps per host round-trip (the adaptive window's maximum)
     decode_steps_per_tick: int = 8
-    enable_prefix_cache: bool = False
+    enable_prefix_cache: bool = True
     max_queued_requests: int = 256
     adaptive_decode_window: bool = True
     # small window used under pressure; 0 = auto: max(1, K // 4)
@@ -184,6 +200,9 @@ class GenRequest:
     # set by the consumer to abandon the request (client disconnect /
     # stop sequence hit); the engine frees the slot at the next tick
     cancelled: threading.Event = field(default_factory=threading.Event)
+    # prompt tokens whose KV came from the prefix cache (set at
+    # admission; the usage's cached_tokens)
+    prefix_reused: int = 0
 
 
 @dataclass
@@ -204,8 +223,8 @@ class _Slot:
     # prompt followed by these)
     gen_tokens: list[int] = field(default_factory=list)
     # speculation (eligible slots only): the adaptive draft controller,
-    # the draft length live on the device, and the lookahead buffer
-    # (empty until prefix caching is ported)
+    # the draft length live on the device, and the lookahead buffer (the
+    # radix chain's continuation: tokens from absolute position la_base)
     ctrl: Any = None  # speculation.DraftController | None
     dev_draft_len: int = 0
     la_base: int = 0
@@ -224,6 +243,19 @@ class EngineStats:
     prefills: int = 0
     chunked_prefill_steps: int = 0
     decode_steps: int = 0
+    # prefix cache: misses count page-eligible prompts (at least one
+    # full page) that reused nothing, so the hit rate is over prompts
+    # the cache could have served; a full hit resumes at n - 1 against
+    # a copy-on-write'd last page
+    prefix_cache_hits: int = 0
+    prefix_tokens_reused: int = 0
+    prefix_cache_misses: int = 0
+    prefix_cache_evictions: int = 0
+    prefix_full_hits: int = 0
+    prefix_cow_copies: int = 0
+    prefix_pages_resident: int = 0
+    prefix_pages_pinned: int = 0
+    prefix_cache_hit_rate: float = 0.0
     decode_window: int = 0
     window_shrinks: int = 0
     window_grows: int = 0
@@ -334,7 +366,14 @@ class Engine:
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.eos = eos_token_ids
-        self.allocator = PageAllocator(cfg.num_pages, cfg.page_size)
+        if cfg.enable_prefix_cache:
+            self.allocator = RefcountedAllocator(cfg.num_pages,
+                                                 cfg.page_size)
+            self.prefix_cache: PrefixCache | None = PrefixCache(
+                self.allocator, cfg.page_size)
+        else:
+            self.allocator = PageAllocator(cfg.num_pages, cfg.page_size)
+            self.prefix_cache = None
         self.stats = EngineStats()
         # serving-phase latency histograms (queue_wait, prefill, ttft,
         # first_emit, decode_per_token, transfer), observed where the
@@ -686,8 +725,11 @@ class Engine:
             pass
 
     def _admit(self) -> bool:
-        """Admit queued requests in arrival order: allocate their pages,
-        prefill them as one packed burst, emit each first token."""
+        """Admit queued requests in strict arrival order: classify each
+        once (its chain keys reused up to the cache insert), then send
+        contiguous runs of two or more simple requests through the
+        batched prefill and every other request through ``_admit_one``,
+        so pages are always allocated in arrival order."""
         admitted = False
         while True:
             free = self._free_slot_count()
@@ -712,38 +754,108 @@ class Engine:
                 if wait_ms > 0 and len(pending) < free:
                     time.sleep(wait_ms / 1e3)
                     self._pop_pending(pending, free)
-            prepared: list[tuple[GenRequest, int, int, int]] = []
-            leftover: list[GenRequest] = []
-            for i, req in enumerate(pending):
+            items: list[tuple[GenRequest, bool, list]] = []
+            seen_chain_heads: set = set()
+            for req in pending:
                 if req.cancelled.is_set():
                     continue  # consumed without a slot
-                n = len(req.prompt)
-                if n < 1:
+                if not req.prompt:
                     req.emit(-1, "error")
                     continue
-                total = min(n + req.max_tokens, self.cfg.max_seq_len)
-                seq_id = next(self._seq_ids)
-                try:
-                    self.allocator.allocate(seq_id, total)
-                except OutOfPagesError:
-                    self.allocator.free(seq_id)
-                    leftover = [r for r in pending[i:]
-                                if not r.cancelled.is_set()]
+                ok, chain = self._classify(req)
+                if ok and chain:
+                    # a batch-mate sharing the first prompt page would
+                    # prefill the shared prefix twice: the per-request
+                    # path adopts the pages the batch inserts instead
+                    if chain[0] in seen_chain_heads:
+                        ok = False
+                    else:
+                        seen_chain_heads.add(chain[0])
+                items.append((req, ok, chain))
+            stop = False
+            unhandled: list[GenRequest] = []
+            i = 0
+            while i < len(items):
+                req, simple, chain = items[i]
+                if simple:
+                    j = i
+                    while j < len(items) and items[j][1]:
+                        j += 1
+                    if j - i >= 2:
+                        run = items[i:j]
+                        done, leftover = self._admit_batch(
+                            [it[0] for it in run],
+                            {id(it[0]): it[2] for it in run})
+                        admitted |= done > 0
+                        if leftover is not None:  # page pressure
+                            unhandled.extend(leftover)
+                            unhandled.extend(it[0] for it in items[j:])
+                            stop = True
+                            break
+                        i = j
+                        continue
+                r = self._admit_one(req, chain)
+                if r == "admitted":
+                    admitted = True
+                elif r in ("stop", "stop_consumed"):
+                    if r == "stop":
+                        unhandled.append(req)
+                    unhandled.extend(it[0] for it in items[i + 1:])
+                    stop = True
                     break
-                req.id = seq_id
-                prepared.append((req, seq_id, n, total))
-            if prepared:
-                self._admit_group(prepared)
-                admitted = True
-            if leftover:  # page pressure: wait for frees, keep the order
-                self._requeue_front(leftover)
+                i += 1
+            if unhandled:  # wait for frees, keep the order
+                self._requeue_front(unhandled)
+            if stop:
                 break
         return admitted
 
-    def _admit_group(self, prepared: list) -> None:
-        results = self.attn.group_prefill(prepared)
+    def _classify(self, req: GenRequest) -> tuple[bool, list]:
+        """(simple, chain keys): simple = eligible for the batched
+        prefill (no cached prefix to adopt; the ragged backend packs
+        long prompts itself). The chain keys are hashed once here; the
+        cheap probe is redone at adoption (cache state moves within a
+        pass)."""
+        n = len(req.prompt)
+        chain: list = []
+        if self.prefix_cache is not None and n > 1:
+            chain = self.prefix_cache.chain_keys(req.prompt)
+            hits = len(self.prefix_cache.probe(chain))
+            if min(hits, n // self.cfg.page_size) > 0:
+                return False, chain
+        return True, chain
+
+    def _admit_batch(self, reqs: list[GenRequest], chain_by_req: dict
+                     ) -> tuple[int, list[GenRequest] | None]:
+        """Allocate and batch-prefill ``reqs`` (all simple). Returns
+        (admitted count, leftover): leftover is None without page
+        pressure, else the unallocated tail for the caller to requeue."""
+        prepared: list[tuple[GenRequest, int, int, int]] = []
+        leftover: list[GenRequest] | None = None
+        for i, req in enumerate(reqs):
+            n = len(req.prompt)
+            total = min(n + req.max_tokens, self.cfg.max_seq_len)
+            seq_id = next(self._seq_ids)
+            try:
+                self.allocator.allocate(seq_id, total)
+            except OutOfPagesError:
+                self.allocator.free(seq_id)
+                leftover = reqs[i:]
+                break
+            req.id = seq_id
+            prepared.append((req, seq_id, n, total))
+        if not prepared:
+            return 0, leftover
+        results = self.attn.group_prefill(prepared, chain_by_req)
         t_first = time.monotonic()
         for r in results:
+            chain = chain_by_req.get(id(r.req), [])
+            if self.prefix_cache is not None and chain:
+                # the batched path = classified with no reusable prefix
+                self.stats.prefix_cache_misses += 1
+                self.prefix_cache.insert(
+                    chain, self.allocator.pages(r.seq_id),
+                    tokens=r.req.prompt)
             slot_idx = self._slots.index(None)
             self._slots[slot_idx] = _Slot(
                 req=r.req, pos=r.n - 1, generated=0,
@@ -751,12 +863,135 @@ class Engine:
                 limit=r.total, page_row=r.page_row,
                 ctrl=self._make_ctrl(r.req))
             self.stats.prefills += 1
-            self._dirty_rows.add(slot_idx)
-            self._spec_dirty.discard(slot_idx)  # the row carries draft_len
+            self._mark_admitted(slot_idx)
             t_m = time.monotonic()
             self._emit_token(slot_idx, r.tok)
             self.phases.observe("first_emit", 1e3 * (time.monotonic() - t_m))
         self.stats.first_emit_ms += 1e3 * (time.monotonic() - t_first)
+        return len(results), leftover
+
+    def _mark_admitted(self, i: int) -> None:
+        """Slot i's whole row is uploaded before the next dispatch (its
+        draft length included)."""
+        self._dirty_rows.add(i)
+        self._spec_dirty.discard(i)
+
+    def _admit_one(self, req: GenRequest, chain: list) -> str:
+        """Per-request admission with prefix-cache adoption. Returns
+        "admitted", "skipped" (consumed without a slot), "stop" (page
+        pressure or the engine stopping: the caller requeues the request
+        and stops admitting) or "stop_consumed" (stop admitting, the
+        request needs no requeue)."""
+        n = len(req.prompt)
+        total = min(n + req.max_tokens, self.cfg.max_seq_len)
+        seq_id = next(self._seq_ids)
+        ps = self.cfg.page_size
+        # adopt the longest cached page-prefix. A full hit (every page of
+        # a page-aligned prompt cached) adopts them all, copies the last
+        # one into a private page and re-runs only the last prompt token:
+        # its forward pass gives the first token's logits, and its
+        # recomputed K/V lands in the private copy, never the shared page
+        cached_pages: list[int] = []
+        full_hit = False
+        if self.prefix_cache is not None and chain:
+            hit_pages = self.prefix_cache.probe(chain)
+            hits = min(len(hit_pages), n // ps)
+            full_hit = hits > 0 and hits * ps == n
+            cached_pages = hit_pages[:hits]
+        prefix_len = n - 1 if full_hit else len(cached_pages) * ps
+        try:
+            if cached_pages:
+                self.allocator.adopt(seq_id, cached_pages)
+                extra = self.allocator.pages_for(total) - len(cached_pages)
+                if extra > 0:
+                    self.allocator.allocate_extra(seq_id, extra)
+                if full_hit:
+                    shared_last = cached_pages[-1]
+                    fresh = self.allocator.cow_page(seq_id, shared_last)
+                    self._copy_page_dev(shared_last, fresh)
+                    self.stats.prefix_full_hits += 1
+                    self.stats.prefix_cow_copies += 1
+            else:
+                self.allocator.allocate(seq_id, total)
+            if self._spec_max and self.prefix_cache is not None:
+                # speculation's write invariant: no page the slot's
+                # draft K/V may land in ([n, limit)) is shared. Healthy
+                # layouts pass by construction; a violation is repaired
+                # by a copy-on-write and logged
+                for old, new, needs_copy in self.allocator.truncate_to(
+                        seq_id, n):
+                    logger.warning("speculative admission CoW'd shared "
+                                   "tail page %d->%d for seq %d", old, new,
+                                   seq_id)
+                    if needs_copy:
+                        self._copy_page_dev(old, new)
+                        self.stats.prefix_cow_copies += 1
+        except OutOfPagesError:
+            self.allocator.free(seq_id)
+            return "stop"
+        pages = self.allocator.pages(seq_id)
+        req.id = seq_id
+        self.phases.observe("queue_wait",
+                            1e3 * (time.monotonic() - req.enqueued_at))
+        suffix = req.prompt[prefix_len:]
+        page_row = np.zeros((self.cfg.max_pages_per_seq,), np.int32)
+        page_row[:len(pages)] = pages
+        t0 = time.monotonic()
+        res = self.attn.single_prefill(req, seq_id, suffix, prefix_len,
+                                       page_row)
+        if isinstance(res, str):
+            self.allocator.free(seq_id)
+            return res
+        tok, info = res
+        if prefix_len:
+            self.stats.prefix_cache_hits += 1
+            self.stats.prefix_tokens_reused += prefix_len
+        elif chain:
+            # page-eligible prompt, nothing reusable cached
+            self.stats.prefix_cache_misses += 1
+        self.stats.prefills += 1
+        prefill_ms = max(0.0, 1e3 * (time.monotonic() - t0)
+                         - info["tick_ms"])
+        self.stats.prefill_ms += prefill_ms
+        self.stats.note_prefill_call(prefill_ms, len(suffix))
+        self.phases.observe("prefill", prefill_ms)
+        t_first = time.monotonic()
+        if self.prefix_cache is not None and chain:
+            self.prefix_cache.insert(chain, pages, tokens=req.prompt)
+        # speculative drafts: when the radix chain remembers what followed
+        # this prefix, one page of it becomes the slot's lookahead buffer
+        ctrl = self._make_ctrl(req)
+        la_base = 0
+        la_tokens: list[int] = []
+        if ctrl is not None and self.prefix_cache is not None and chain:
+            cont = self.prefix_cache.continuation(chain)
+            if cont is not None and cont[0] * ps + len(cont[1]) > n:
+                la_base = cont[0] * ps
+                la_tokens = cont[1]
+                self.stats.spec_lookahead_slots += 1
+        req.prefix_reused = prefix_len
+        slot_idx = self._slots.index(None)
+        # pos = n - 1: _emit_token advances it to n, the write position
+        # of the just-sampled first token
+        self._slots[slot_idx] = _Slot(
+            req=req, pos=n - 1, generated=0,
+            key_seed=req.sampling.seed or seq_id, limit=total,
+            page_row=page_row, ctrl=ctrl, la_base=la_base,
+            la_tokens=la_tokens)
+        self._mark_admitted(slot_idx)
+        self._emit_token(slot_idx, tok)
+        first_emit_ms = 1e3 * (time.monotonic() - t_first)
+        self.stats.first_emit_ms += first_emit_ms
+        self.phases.observe("first_emit", first_emit_ms)
+        return "admitted"
+
+    def _copy_page_dev(self, src: int, dst: int) -> None:
+        """Clone one KV page on the device (copy-on-write of a full hit's
+        last page). On the engine's stream: it runs after the in-flight
+        window's launches, which may read ``src``, and before the resume
+        that writes ``dst``."""
+        self.kv_cache = kvq.copy_page(self.kv_cache, src, dst,
+                                      self.cfg.page_size)
 
     # -- device state -----------------------------------------------------
     def _row_host_values(self, i: int) -> dict[str, Any]:
@@ -1098,6 +1333,13 @@ class Engine:
         if st.prefill_tokens_padded:
             st.prefill_padded_frac = round(
                 1.0 - st.prefill_tokens_real / st.prefill_tokens_padded, 4)
+        if self.prefix_cache is not None:
+            st.prefix_cache_evictions = self.prefix_cache.evictions
+            st.prefix_pages_resident = self.prefix_cache.resident_entries
+            st.prefix_pages_pinned = self.allocator.pinned_cached_pages
+            hm = st.prefix_cache_hits + st.prefix_cache_misses
+            st.prefix_cache_hit_rate = (st.prefix_cache_hits / hm if hm
+                                        else 0.0)
         st.kv_pages_free = self.allocator.free_pages
         st.kv_occupancy = self.allocator.occupancy
         st.kv_pool_bytes = self.cfg.num_pages * self.kv_page_bytes

@@ -180,6 +180,18 @@ class TPUServeServer:
             "decode_backend": cfg.decode_backend,
             "decode_attn_impl": eng.decode_attn_impl,
             "decode_attn_reason": eng.decode_attn_reason,
+            # prefix cache: the picker's prefix-affinity scoring and
+            # capacity dashboards read these
+            "prefix_cache_hit_rate": round(s.prefix_cache_hit_rate, 4),
+            "prefix_pages_resident": s.prefix_pages_resident,
+            "prefix_pages_pinned": s.prefix_pages_pinned,
+            "prefix_bytes_pinned": s.prefix_pages_pinned * eng.kv_page_bytes,
+            "prefix_cache_hits": s.prefix_cache_hits,
+            "prefix_cache_misses": s.prefix_cache_misses,
+            "prefix_cache_evictions": s.prefix_cache_evictions,
+            "prefix_full_hits": s.prefix_full_hits,
+            "prefix_cow_copies": s.prefix_cow_copies,
+            "prefix_tokens_reused": s.prefix_tokens_reused,
             # speculative decoding: acceptance telemetry
             "spec_accepted": s.spec_accepted,
             "spec_drafted": s.spec_drafted,
@@ -356,7 +368,8 @@ def _make_handler(server: TPUServeServer):
                 if finish == "error":
                     self._error(500, "engine failure", "server_error")
                     return
-                usage = oai.TokenUsage(n_prompt, n_out, n_prompt + n_out)
+                usage = oai.TokenUsage(n_prompt, n_out, n_prompt + n_out,
+                                       req.prefix_reused)
                 if chat:
                     resp = oai.chat_completion_response(
                         model=srv.model_name, content=text,
@@ -440,7 +453,8 @@ def _make_handler(server: TPUServeServer):
                         done = True
                         break
                 write_piece("".join(pieces))
-            usage = (oai.TokenUsage(n_prompt, n_out, n_prompt + n_out)
+            usage = (oai.TokenUsage(n_prompt, n_out, n_prompt + n_out,
+                                    req.prefix_reused)
                      if include_usage else None)
             if chat:
                 tail = oai.stream_chunk_sse(

@@ -20,22 +20,45 @@ Phases (any failure exits non-zero):
    third time under ``torch.profiler`` (the ``serve`` JSON line: cold
    and warm wall times, the warm burst's prefill and TTFT p50 and p95
    from ``/state``'s ``phase_percentiles``, the device's busy share
-   while serving);
+   while serving). These phases and the ones below run with the prefix
+   cache off unless said otherwise, so their lines measure what they
+   measured before it was ported;
+   prefix caching, on the fused rung (the ``serve_prefix`` line): burst
+   A, one chat behind a shared system message whose rendered prompts
+   agree on 1089 tokens (8 full pages and part of the 9th, counted with
+   ``/tokenize``); burst B, seven chats behind it (partial hits resumed
+   at 1024 through K1, each with ``cached_tokens`` 1024); burst C, a
+   1024-token completion sent twice (a miss, then a full hit: the last
+   page copied on write, one row resumed at 1023, the shared page
+   byte-equal to its state before, the copy to its source). ``/state``
+   must count 8 hits, 1 full hit, 1 copy, 2 misses and 7 x 1024 + 1023
+   reused tokens; B's geometry again with fresh user turns sent one at
+   a time for one token each (each prefill alone on an idle engine,
+   ``serial_prefill_ms``); then all of it with the cache off, B's
+   prefill and TTFT beside the cache on's, and how many greedy streams
+   the two share (reported, not gated: bf16 on the card is not
+   bit-stable across call shapes);
    speculative decoding on the same weights: the chained rung with a
    fixed draft width of 4, so every window verifies through K5 at S = 5,
    serving the burst plus two greedy requests pinned to one token by
    ``logit_bias`` (drafts proposed and accepted; the ``serve_spec``
    line), then the fused rung with the adaptive ladder, whose verify
    takes the gather path (K5 must not launch) and whose plain windows
-   run K2 (the ``serve_spec_fused`` line);
+   run K2 (the ``serve_spec_fused`` line); between them the chained
+   rung at width 4 with the prefix cache on, where a prompt cut partway
+   into the second page of an earlier one gets the earlier prompt's
+   continuation as lookahead drafts, verified through K5 (the
+   ``serve_spec_prefix`` line);
 4. quantized serving on the same server: the same bf16 weights
    quantized to int8 on the card (W8A16) over an int8 KV pool, fused
    decode. The burst cold and warm (the ``serve_quant`` JSON line: wall
    times, ``/state``'s KV byte gauges, launches per kernel): the W8A16
    matmul (K6) and the fused decode's int8 rung (K7-int8) must launch,
    K1 and K2 must not (quantized pools prefill through the windowed
-   program and decode through K7). Then two requests over an int4 KV
-   pool, which must launch K7-int4;
+   program and decode through K7). Then bursts A-C over int8 pages with
+   the prefix cache on (the ``serve_prefix_int8`` line: the same counts,
+   the copied page's q and scale rows equal to their source's), and two
+   requests over an int4 KV pool, which must launch K7-int4;
 5. every kernel against its plain PyTorch version on the card at the
    served shapes (each attention output element within 2**-7 of the
    plain output plus 2e-3, printed beside the mean |output|; K2's and
@@ -51,7 +74,10 @@ Phases (any failure exits non-zero):
    float32 (CUDA cores), its bytes and operations bounds side by side,
    beside one ``scaled_dot_product_attention`` call per sequence (flash
    backend, ``enable_gqa``) on contiguous copies of its keys, the
-   library yardstick no part of K1 uses; K5 at the served verify shapes
+   library yardstick no part of K1 uses; K1 again at the prefix cache's
+   resume geometry (7 suffixes of 150 rows at start 1024 and a full
+   hit's one row at 1151, ``ragged_prefill_attention_resume``, its
+   launches those of burst B); K5 at the served verify shapes
    (batch 8, S = 5, a slot that is off, windows across a page) and at
    S = 9 (two row groups per sequence and KV head, a window starting at
    -2);
@@ -63,7 +89,10 @@ Phases (any failure exits non-zero):
    (whose matmuls are plain PyTorch in the reference too), the
    quantized ones also against the bf16 model's greedy tokens; one
    full-width verify step (width 5) through K5 against the same through
-   its plain version (the ``model_check`` line's ``verify``);
+   its plain version (the ``model_check`` line's ``verify``); a prompt's
+   8 pages prefilled, then its last 150 tokens resumed at 1024, and a
+   full hit's copied page with its last token resumed at 1023, each
+   against a cold prefill (``resume``);
 6. where one full-width decode step's time goes, bf16 on the fused and
    on the chained rung (K3) and W8A16 over int8 pages, and one verify
    step of width 5 through K5: its host wall time against the device
@@ -71,8 +100,9 @@ Phases (any failure exits non-zero):
    ``decode_profile_chained``, ``decode_profile_quant`` and
    ``verify_profile`` JSON lines; ``port_kernels_ms`` sums every K6,
    K2/K7 and K3 or K5 launch of the step); the same for one full-width
-   bf16 prefill of the served burst's prompts, K1's 32 launches summed
-   (the ``prefill_profile`` line);
+   bf16 prefill of the served burst's prompts, K1's 32 launches summed,
+   and of a prefix-cache resume (150 rows at 1024) beside the same
+   prompt's cold prefill (the ``prefill_profile`` line);
 7. the ``kernels`` JSON line, the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -569,7 +599,28 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         f"(bound {b_ms:.4f} ms, plain {rows[-1]['plain_ms']:.3f} ms)")
 
     # K1: a packed burst with one offset start, padded to a 256 multiple
-    seq = K1_CASE
+    # (float32 on the CUDA-core kernel too); then the prefix cache's
+    # resume geometry
+    rows.insert(0, k1_row(torch, "ragged_prefill_attention", K1_CASE,
+                          launches["ragged_prefill_attention"], k_pool,
+                          v_pool, perm, randn, f32=True, dev=dev))
+    rows.insert(1, k1_row(torch, "ragged_prefill_attention_resume",
+                          K1_RESUME_CASE,
+                          launches["ragged_prefill_attention_resume"],
+                          k_pool, v_pool, perm, randn, dev=dev))
+    return rows
+
+
+def k1_row(torch, name: str, seq, n_launches: int, k_pool, v_pool, perm,
+           randn, f32: bool = False, dev: str = "cuda") -> dict:
+    """K1 over the packed sequences ``seq`` ((new rows, start position)
+    each, on distinct pages of the pool), padded to a multiple of 256:
+    held against its plain version (padding rows zero, two calls
+    bit-identical), timed flushed and rotated beside its bound and the
+    SDPA yardstick; with ``f32``, also the CUDA-core kernel in float32."""
+    from aigw_tpu_torch.ops import paged_attention
+
+    H, Hkv, D, PS, P = 32, 8, 128, 128, 16
     total = sum(n for n, _ in seq)
     T = -(-total // 256) * 256
     Bp = len(seq)
@@ -591,19 +642,20 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
 
     got = k1()
     want = k1_plain()[:total]
-    err, mean_out = attn_check("K1", got[:total], want)
+    err, mean_out = attn_check(name, got[:total], want)
     if got[total:].abs().max().item() != 0.0:
-        raise AssertionError("K1 tail rows are not zero")
+        raise AssertionError(f"{name}: tail rows are not zero")
     if not torch.equal(got, k1()):
-        raise AssertionError("K1: two calls differ")
-    # the CUDA-core kernel (float32), the same case
-    f32 = (q1.float(), k_pool.float(), v_pool.float())
-    got32 = k1(*f32)
-    want32 = k1_plain(*f32)
-    err32 = (got32 - want32).abs().max().item()
-    torch.testing.assert_close(got32, want32, rtol=2e-5, atol=2e-5)
-    ms32 = cuda_ms(lambda: k1(*f32), iters=5)
-    del f32, got32, want32
+        raise AssertionError(f"{name}: two calls differ")
+    extra = {}
+    if f32:  # the CUDA-core kernel (float32), the same case
+        f32_in = (q1.float(), k_pool.float(), v_pool.float())
+        got32 = k1(*f32_in)
+        want32 = k1_plain(*f32_in)
+        extra["max_abs_err_f32"] = (got32 - want32).abs().max().item()
+        torch.testing.assert_close(got32, want32, rtol=2e-5, atol=2e-5)
+        extra["ms_f32"] = cuda_ms(lambda: k1(*f32_in), iters=5)
+        del f32_in, got32, want32
     keys = sum(s + n for n, s in seq)  # pool rows each sequence reads
     nbytes = 2 * (total * H * D + 2 * keys * Hkv * D + T * H * D)
     pairs = sum(sum(s + i + 1 for i in range(n)) for n, s in seq)
@@ -616,11 +668,11 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
     del rot
     lib = sdpa_yardstick(torch, q1, k_pool, v_pool, pt1, seq, cu, PS,
                          want)
-    rows.insert(0, dict(
-        name="ragged_prefill_attention", route="cuda",
+    row = dict(
+        name=name, route="cuda",
         source="aigw_tpu_torch/csrc/paged_attention.cu",
         replaces="aigw_tpu/ops/pallas/paged_attention.py:419",
-        launches=launches["ragged_prefill_attention"], max_abs_err=err,
+        launches=n_launches, max_abs_err=err,
         ms=cuda_ms(k1, iters=10), ms_rotated=rot1,
         plain_ms=cuda_ms(k1_plain, iters=3),
         bound_ms=b_ms, bound_by=b_by,
@@ -630,20 +682,26 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         tflops_rotated=flops / rot1 / 1e9,
         library_ms=lib["ms"], library_ms_rotated=lib["ms_rotated"],
         library=lib["call"], max_abs_err_library=lib["max_abs_err"],
-        out_mean_abs=mean_out, max_abs_err_f32=err32, ms_f32=ms32))
-    log(f"K1 ok: max err {err:.3g} (mean |out| {mean_out:.3g}; float32 "
-        f"{err32:.3g}), {rows[0]['ms']:.4f} ms, rotated {rot1:.4f} ms "
-        f"({rows[0]['tflops_rotated']:.1f} TFLOP/s; bounds "
-        f"{rows[0]['bound_bytes_ms']:.5f} bytes, "
-        f"{rows[0]['bound_operations_ms']:.5f} operations; SDPA "
+        out_mean_abs=mean_out, sequences=[list(x) for x in seq], **extra)
+    log(f"{name} ok: max err {err:.3g} (mean |out| {mean_out:.3g}; "
+        f"float32 {extra.get('max_abs_err_f32', float('nan')):.3g}), "
+        f"{row['ms']:.4f} ms, rotated {rot1:.4f} ms "
+        f"({row['tflops_rotated']:.1f} TFLOP/s; bounds "
+        f"{row['bound_bytes_ms']:.5f} bytes, "
+        f"{row['bound_operations_ms']:.5f} operations; SDPA "
         f"{lib['ms']:.4f}, rotated {lib['ms_rotated']:.4f}; float32 "
-        f"{ms32:.3f} ms; plain {rows[0]['plain_ms']:.3f} ms)")
-    return rows
+        f"{extra.get('ms_f32', float('nan')):.3f} ms; plain "
+        f"{row['plain_ms']:.3f} ms)")
+    return row
 
 
 #: K1's case: (new rows, start position) of 5 packed sequences, one
 #: resumed at 77 (1380 rows)
 K1_CASE = [(700, 0), (300, 0), (1, 0), (129, 77), (250, 0)]
+#: K1 at the prefix cache's resume geometry: 7 suffixes of 150 rows
+#: resumed at 1024 (8 cached pages: partial hits), and the one row at
+#: 1151 of a full hit (1051 rows)
+K1_RESUME_CASE = [(150, 1024)] * 7 + [(1, 1151)]
 
 
 def sdpa_yardstick(torch, q, k_pool, v_pool, page_table, seq, cu,
@@ -1249,6 +1307,9 @@ def spec_phases(srv, restart, params, reqs, launches: dict) -> None:
     launches["paged_attention_decode"] = \
         served_s["paged_attention_decode"]
 
+    # speculation with the prefix cache on: lookahead drafts
+    spec_prefix_phase(srv, restart, params)
+
     # the fused rung with the adaptive ladder: verify takes the
     # gather path (K5 must not launch) while the pinned greedy request
     # speculates; once it finishes, the sampled one (ineligible: no
@@ -1280,6 +1341,388 @@ def spec_phases(srv, restart, params, reqs, launches: dict) -> None:
     if served_f["fused_paged_decode"] <= 0:
         raise AssertionError(f"K2 not on the fused rung's plain "
                              f"windows: {served_f}")
+
+
+# -- the prefix cache ---------------------------------------------------------
+#: bytes of the system message every chat of the prefix phase shares:
+#: the byte tokenizer's rendered prompts ("<system>: ...\n<user>: ")
+#: then agree on their first 1070 + 19 = 1089 tokens, 8 full 128-token
+#: pages and part of the 9th, so every hit adopts exactly 8 pages
+PREFIX_SYSTEM_BYTES = 1070
+#: the completion of burst C: BOS + 1023 bytes = exactly 8 pages
+PREFIX_C_BYTES = 1023
+
+
+def _prefix_requests(rng) -> tuple:
+    """Burst A (one chat behind the shared system message), burst B
+    (seven chats behind it, user turns of 40-300 bytes with distinct
+    first letters, streamed and not, greedy and seeded) and the
+    completion of burst C (sharing nothing with A), 64 new tokens each."""
+    words = "the quick brown fox jumps over a lazy dog while rivers run".split()
+
+    def text(n_bytes: int) -> str:
+        out = ""
+        while len(out) <= n_bytes:
+            out += " " + words[int(rng.integers(len(words)))]
+        return out[1:n_bytes + 1]
+
+    system = text(PREFIX_SYSTEM_BYTES)
+
+    def chat(i: int, n_bytes: int, stream: bool, greedy: bool):
+        body = {"model": "llama-3-8b-random", "max_tokens": SERVE_MAX_TOKENS,
+                "temperature": 0.0 if greedy else 0.8, "seed": 300 + i,
+                "stream": stream, "messages": [
+                    {"role": "system", "content": system},
+                    {"role": "user",
+                     "content": "QRSTUVWX"[i] + text(n_bytes - 1)}]}
+        if stream:
+            body["stream_options"] = {"include_usage": True}
+        return ("chat", stream, body)
+
+    a = [chat(0, 120, False, True)]
+    b = [chat(i + 1, n, i % 2 == 1, i % 3 != 2)
+         for i, n in enumerate([40, 90, 300, 150, 220, 64, 260])]
+    c = ("completion", False, {
+        "model": "llama-3-8b-random", "max_tokens": SERVE_MAX_TOKENS,
+        "temperature": 0.0, "prompt": text(PREFIX_C_BYTES)})
+    # B's geometry again with fresh user turns, one token each, sent one
+    # at a time to an idle engine: each prefill alone, no decode window
+    # in flight to queue behind
+    serial = [chat(i + 1, n, False, True)
+              for i, n in enumerate([41, 91, 299, 151, 219, 65, 259])]
+    for _kind, _stream, body in serial:
+        body["max_tokens"] = 1
+    return a, b, c, serial
+
+
+def _prefix_call(port: int, kind: str, stream: bool, body: dict) -> dict:
+    """One request: checked as the serve phase checks it, plus its text
+    and the usage's cached_tokens (0 when the usage carries none)."""
+    path = "/v1/chat/completions" if kind == "chat" else "/v1/completions"
+    status, ctype, raw = _http(port, path, body)
+    out = _check_response(kind, stream, status, ctype, raw)
+    if stream:
+        chunks = [json.loads(ln[6:]) for ln in raw.split("\n")
+                  if ln.startswith("data: ") and ln[6:] != "[DONE]"]
+        pieces = [(c["choices"][0]["delta"].get("content") or ""
+                   if kind == "chat" else c["choices"][0]["text"])
+                  for c in chunks if c["choices"]]
+        text, usage = "".join(pieces), chunks[-1]["usage"]
+    else:
+        body_out = json.loads(raw)
+        choice = body_out["choices"][0]
+        text = (choice["message"]["content"] if kind == "chat"
+                else choice["text"])
+        usage = body_out["usage"]
+    out.update(text=text, cached=(usage.get("prompt_tokens_details")
+                                  or {}).get("cached_tokens", 0))
+    return out
+
+
+def _prefix_burst(port: int, reqs) -> list[dict]:
+    results: list = [None] * len(reqs)
+
+    def one(i):
+        try:
+            results[i] = _prefix_call(port, *reqs[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            results[i] = e
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    for i, r in enumerate(results):
+        if not isinstance(r, dict):
+            raise AssertionError(f"prefix request {i} failed: {r!r}")
+        if r["n"] != reqs[i][2]["max_tokens"] and r["finish"] != "stop":
+            raise AssertionError(f"prefix request {i}: {r}")
+    return results
+
+
+def _page_rows(kv, page: int, ps: int) -> dict:
+    """Clones of one page's rows in every tensor of the pool."""
+    leaves = kv.items() if isinstance(kv, dict) else [("kv", kv)]
+    return {k: v[:, :, page * ps:(page + 1) * ps].clone() for k, v in leaves}
+
+
+def shared_prefix_tokens(port: int, reqs) -> int:
+    """Longest token prefix burst A shares with every chat of burst B,
+    from /tokenize."""
+    def toks(body):
+        return json.loads(_http(port, "/tokenize", {
+            "model": body["model"], "messages": body["messages"]})[2]
+        )["tokens"]
+
+    a, b = reqs[:2]
+    ta = toks(a[0][2])
+    shared = []
+    for _kind, _stream, body in b:
+        tb = toks(body)
+        n = 0
+        while n < min(len(ta), len(tb)) and ta[n] == tb[n]:
+            n += 1
+        shared.append(n)
+    return min(shared)
+
+
+def prefix_bursts(torch, srv, reqs) -> dict:
+    """Serve burst A, then B (the phase histograms emptied before it,
+    launches counted over it), then C twice in turn, on ``srv``'s
+    engine. With the cache on, C's shared last page is held byte-equal
+    to its state before the full hit, and the copy (rows before n - 1)
+    to its source, after the second request has decoded."""
+    from aigw_tpu_torch.obs.metrics import EnginePhases
+
+    a, b, c, serial = reqs
+    port = srv.port
+    eng = srv.engine
+    cows: list = []
+    copy = eng._copy_page_dev
+
+    def recording_copy(src, dst):
+        cows.append((src, dst))
+        copy(src, dst)
+
+    eng._copy_page_dev = recording_copy
+    res_a = _prefix_burst(port, a)
+    st0 = json.loads(_http(port, "/state")[2])
+    eng.phases = EnginePhases()
+    reset_counts()
+    t = time.monotonic()
+    res_b = _prefix_burst(port, b)
+    wall_b = time.monotonic() - t
+    counts_b = read_counts()
+    st1 = json.loads(_http(port, "/state")[2])
+    pp = st1["phase_percentiles"]
+    res_c = _prefix_burst(port, [c])
+    out = {}
+    if eng.prefix_cache is not None:
+        ps = eng.cfg.page_size
+        tokens = [srv.tokenizer.bos_id] + srv.tokenizer.encode(c[2]["prompt"])
+        if len(tokens) != 8 * ps:
+            raise AssertionError(f"burst C has {len(tokens)} tokens")
+        shared = eng.prefix_cache.probe(eng.prefix_cache.chain_keys(tokens))
+        if len(shared) != 8:
+            raise AssertionError(f"burst C cached {len(shared)} pages")
+        before = _page_rows(eng.kv_cache, shared[-1], ps)
+    res_c += _prefix_burst(port, [c])
+    st2 = json.loads(_http(port, "/state")[2])
+    if eng.prefix_cache is not None:
+        if cows[-1][0] != shared[-1]:
+            raise AssertionError(f"CoW pair {cows[-1]} is not from the "
+                                 f"shared page {shared[-1]}")
+        after = _page_rows(eng.kv_cache, shared[-1], ps)
+        copied = _page_rows(eng.kv_cache, cows[-1][1], ps)
+        for k in before:
+            if not torch.equal(after[k], before[k]):
+                raise AssertionError(f"the shared page's {k} changed "
+                                     f"after the full hit")
+            if not torch.equal(copied[k][:, :, :-1], before[k][:, :, :-1]):
+                raise AssertionError(f"the CoW'd page's {k} differs from "
+                                     f"its source")
+        out["cow_page"] = {
+            "source": cows[-1][0], "copy": cows[-1][1],
+            "leaves": sorted(before),
+            "copy_rows_equal": ps - 1,
+            "last_row_equal": all(torch.equal(copied[k][:, :, -1],
+                                              before[k][:, :, -1])
+                                  for k in before)}
+    # then each prefill alone (C's pages are checked above: these
+    # requests may reuse the copy's page)
+    serial_ms, serial_cached = [], []
+    for r in serial:
+        before_ms = json.loads(_http(port, "/state")[2])["prefill_ms"]
+        serial_cached.append(_prefix_burst(port, [r])[0]["cached"])
+        serial_ms.append(json.loads(_http(port, "/state")[2])["prefill_ms"]
+                         - before_ms)
+    out.update(
+        results=res_a + res_b + res_c, b_wall_s=wall_b,
+        b_prefill_ms=st1["prefill_ms"] - st0["prefill_ms"],
+        b_prefills=st1["prefills"] - st0["prefills"],
+        b_prefill_tokens_real=st1["prefill_tokens_real"]
+        - st0["prefill_tokens_real"],
+        b_prefill_p50_ms=pp["prefill"]["p50"],
+        b_prefill_p95_ms=pp["prefill"]["p95"],
+        b_ttft_p50_ms=pp["ttft"]["p50"], b_ttft_p95_ms=pp["ttft"]["p95"],
+        b_launches=counts_b,
+        cached_tokens=[r["cached"] for r in res_a + res_b + res_c],
+        serial_prefill_ms=serial_ms, serial_cached_tokens=serial_cached,
+        **{k: st2[k] for k in PREFIX_STATE_KEYS})
+    return out
+
+
+PREFIX_STATE_KEYS = ("prefix_cache_hits", "prefix_cache_misses",
+                     "prefix_full_hits", "prefix_cow_copies",
+                     "prefix_tokens_reused", "prefix_cache_hit_rate",
+                     "prefix_pages_resident", "prefix_cache_evictions",
+                     "kv_pages_free", "kv_occupancy")
+
+
+def check_prefix_counts(run: dict, what: str) -> None:
+    """The exact counts bursts A-C give with the cache on: 7 partial
+    hits (B) and a full hit (C's repeat), misses A and C's first."""
+    want = {"prefix_cache_hits": 8, "prefix_full_hits": 1,
+            "prefix_cow_copies": 1, "prefix_cache_misses": 2,
+            "prefix_tokens_reused": 7 * 1024 + 1023}
+    got = {k: run[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: /state prefix counts {got}, want "
+                             f"{want}")
+    cached = run["cached_tokens"]
+    if cached != [0] + [1024] * 7 + [0, 1023]:
+        raise AssertionError(f"{what}: cached_tokens {cached}")
+
+
+def serve_prefix_phase(torch, srv, restart, params, reqs,
+                       launches: dict) -> None:
+    """Bursts A-C (``reqs``) on the fused rung with the cache on, then on
+    an engine restarted with the cache off (the ``serve_prefix`` line);
+    K1's launches during B go into ``launches``."""
+    restart(params, decode_backend="fused", enable_prefix_cache=True)
+    shared = shared_prefix_tokens(srv.port, reqs)
+    if not 1024 <= shared < 1152:
+        raise AssertionError(f"A and B share {shared} tokens, not 8 full "
+                             f"pages and part of the 9th")
+    on = prefix_bursts(torch, srv, reqs)
+    check_prefix_counts(on, "bf16")
+    if on["b_launches"]["ragged_prefill_attention"] <= 0:
+        raise AssertionError(f"K1 not launched by burst B's resumes: "
+                             f"{on['b_launches']}")
+    restart(params, decode_backend="fused", enable_prefix_cache=False)
+    off = prefix_bursts(torch, srv, reqs)
+    if off["prefix_cache_hits"] or any(off["cached_tokens"]):
+        raise AssertionError("the cache-off engine reused a prefix")
+    a, b, c, _ = reqs
+    bodies = [r[2] for r in a + b] + [c[2], c[2]]
+    greedy = [i for i, body in enumerate(bodies)
+              if body["temperature"] == 0.0]
+    same = sum(on["results"][i]["text"] == off["results"][i]["text"]
+               for i in greedy)
+    for run in (on, off):
+        run["new_tokens"] = sum(r["n"] for r in run.pop("results"))
+    print(json.dumps({"serve_prefix": {
+        "shared_prefix_tokens": shared, "requests_a_b_c": [1, 7, 2],
+        "greedy_streams": len(greedy),
+        "greedy_streams_equal_cache_off": same,
+        "cache_on": on, "cache_off": off}}), flush=True)
+    launches["ragged_prefill_attention_resume"] = \
+        on["b_launches"]["ragged_prefill_attention"]
+
+
+def serve_prefix_int8(torch, srv, restart, qparams, reqs) -> None:
+    """Bursts A-C over int8 KV pages with the cache on (the
+    ``serve_prefix_int8`` line): the same counts, the CoW'd page's q and
+    scale rows equal to their source's, and no K1 launch (quantized pools
+    prefill through the windowed program)."""
+    restart(qparams, decode_backend="fused", kv_cache_dtype="int8",
+            enable_prefix_cache=True)
+    run = prefix_bursts(torch, srv, reqs)
+    check_prefix_counts(run, "int8")
+    if run["cow_page"]["leaves"] != ["q", "scale"]:
+        raise AssertionError(f"int8 CoW checked {run['cow_page']}")
+    if run["b_launches"]["ragged_prefill_attention"]:
+        raise AssertionError("K1 launched on an int8 pool")
+    run["new_tokens"] = sum(r["n"] for r in run.pop("results"))
+    print(json.dumps({"serve_prefix_int8": run}), flush=True)
+
+
+def spec_prefix_phase(srv, restart, params) -> None:
+    """Speculation with the cache on, on the chained rung at a fixed
+    draft width of 4 (the ``serve_spec_prefix`` line): a 300-token
+    completion, then its first 200 tokens as a second one. The radix
+    chain's continuation of the first page (the first prompt's tokens
+    128-255) seeds the second request's lookahead drafts, verified
+    through K5."""
+    restart(params, pallas_attn=True, spec_tokens=4, spec_adaptive=False,
+            enable_prefix_cache=True)
+    text = "".join(chr(97 + (7 * i) % 26) for i in range(299))
+    reqs = [("completion", False, {
+        "model": "llama-3-8b-random", "prompt": p, "max_tokens": 32,
+        "temperature": 0.0}) for p in (text, text[:199])]
+    reset_counts()
+    t = time.monotonic()
+    for r in reqs:
+        _prefix_burst(srv.port, [r])
+    counts = read_counts()
+    st = json.loads(_http(srv.port, "/state")[2])
+    print(json.dumps({"serve_spec_prefix": {
+        "wall_s": time.monotonic() - t,
+        "decode_attn_impl": st["decode_attn_impl"],
+        **{k: st[k] for k in ("spec_lookahead_slots", "spec_drafted",
+                              "spec_accepted", "prefix_cache_hits",
+                              "prefix_tokens_reused")},
+        "launches": counts}}), flush=True)
+    if st["spec_lookahead_slots"] < 1:
+        raise AssertionError("no lookahead-seeded slot")
+    if counts["paged_attention_verify"] <= 0:
+        raise AssertionError(f"K5 not launched: {counts}")
+
+
+def resume_check(torch, params, cfg, dev: str = "cuda") -> dict:
+    """K1 at the prefix cache's resume geometry in the model: one
+    ``prefill_ragged`` of a prompt's 8 full pages, then its remaining 150
+    tokens resumed at start 1024 over the same pool, against one cold
+    prefill of the whole prompt (last-row logits within model_check's
+    tolerance); and a full hit: the 8-page prompt's last page copied
+    (``kvq.copy_page``) and its last token resumed at 1023 against the
+    cold prefill of the 8 pages, the source page left unchanged."""
+    from aigw_tpu_torch.models import kvq, llama
+
+    PS, P, n_pre, n_suf = 128, 10, 1024, 150
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (n_pre + n_suf,),
+                           generator=g, device=dev)
+    pt = torch.arange(P, dtype=torch.int32, device=dev)[None]
+    # pages 0-9 for the sequence, 10 for the copy, 11 the dump page
+    shape = (cfg.n_layers, 2, (P + 2) * PS, cfg.n_kv_heads, cfg.head_dim)
+
+    def call(kv, toks, start, table=pt):
+        n = len(toks)
+        T = -(-n // 256) * 256
+        tk = torch.zeros((T,), dtype=toks.dtype, device=dev)
+        tk[:n] = toks
+        row_seq = torch.ones((T,), dtype=torch.int32, device=dev)
+        row_seq[:n] = 0
+        pos = torch.zeros((T,), dtype=torch.int32, device=dev)
+        pos[:n] = start + torch.arange(n, device=dev)
+        last = torch.tensor([n - 1], dtype=torch.int32, device=dev)
+        return llama.prefill_ragged(params, cfg, tk, row_seq, pos, last, kv,
+                                    table, PS)
+
+    def compare(a, b, what):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+            raise AssertionError(f"{what}: non-finite logits")
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        top2 = torch.topk(b, 2, dim=-1).values
+        if a.argmax(-1) != b.argmax(-1) and \
+                (top2[0, 0] - top2[0, 1]).item() > 0.1:
+            raise AssertionError(f"{what}: greedy token differs")
+        if err > 0.1 * scale:
+            raise AssertionError(f"{what}: logits differ by {err} (logit "
+                                 f"scale {scale})")
+        return {"max_abs_logit_err": err, "logit_scale": scale,
+                "greedy_equal": bool(a.argmax(-1) == b.argmax(-1))}
+
+    cold, _ = call(kvq.make_pool(shape, "bfloat16", dev), tokens, 0)
+    _, kv = call(kvq.make_pool(shape, "bfloat16", dev), tokens[:n_pre], 0)
+    warm, kv = call(kv, tokens[n_pre:], n_pre)
+    out = {"partial": compare(warm, cold, "resume at 1024")}
+    cold8, kv8 = call(kv, tokens[:n_pre], 0)
+    src = kv8[:, :, 7 * PS:8 * PS].clone()
+    kvq.copy_page(kv8, 7, P, PS)
+    pt_cow = pt.clone()
+    pt_cow[0, 7] = P
+    hit, kv8 = call(kv8, tokens[n_pre - 1:n_pre], n_pre - 1, pt_cow)
+    if not torch.equal(kv8[:, :, 7 * PS:8 * PS], src):
+        raise AssertionError("the full-hit resume wrote the source page")
+    out["full_hit"] = compare(hit, cold8, "full-hit resume at 1023")
+    out["rows"] = [n_pre, n_suf]
+    return out
 
 
 def main() -> int:
@@ -1320,9 +1763,12 @@ def main() -> int:
 
     # 3. serve at full width
     register_model(ModelSpec("llama-3-8b-random", "llama", llama.LLAMA3_8B))
+    # the earlier phases run with the prefix cache off, so their lines
+    # keep measuring what they measured (their warm bursts repeat the
+    # cold bursts' prompts, which would be full hits)
     cfg = EngineConfig(max_batch_size=8, max_seq_len=2048, page_size=128,
                        attention_backend="pallas-ragged",
-                       decode_backend="fused")
+                       decode_backend="fused", enable_prefix_cache=False)
     t = time.monotonic()
     srv = TPUServeServer("llama-3-8b-random", cfg, device="cuda", port=0)
     srv.start()
@@ -1332,10 +1778,11 @@ def main() -> int:
 
     def restart(params, **engine_kw):
         srv.engine.stop()
+        kw = dict(max_batch_size=8, max_seq_len=2048, page_size=128,
+                  attention_backend="pallas-ragged",
+                  enable_prefix_cache=False)
         srv.engine = Engine(
-            params, llama.LLAMA3_8B,
-            EngineConfig(max_batch_size=8, max_seq_len=2048, page_size=128,
-                         attention_backend="pallas-ragged", **engine_kw),
+            params, llama.LLAMA3_8B, EngineConfig(**{**kw, **engine_kw}),
             eos_token_ids=(srv.tokenizer.eos_id,), device="cuda")
         srv.engine.start()
 
@@ -1388,8 +1835,13 @@ def main() -> int:
             raise AssertionError(f"no prefill or TTFT observations on "
                                  f"/state: {pp}")
 
-        # the chained rung: restart the engine with pallas_attn
+        # the prefix cache on the fused rung, then off (serve_prefix)
         params = srv.engine.params
+        prefix_reqs = _prefix_requests(np.random.default_rng(7))
+        serve_prefix_phase(torch, srv, restart, params, prefix_reqs,
+                           launches)
+
+        # the chained rung: restart the engine with pallas_attn
         restart(params, pallas_attn=True)
         reset_counts()
         serve_phase(srv.port, reqs[:2])
@@ -1448,6 +1900,8 @@ def main() -> int:
         launches["w8a16_matmul"] = served_q["w8a16_matmul"]
         launches["fused_paged_decode_int8"] = \
             served_q["fused_paged_decode_int8"]
+        # the prefix cache over int8 pages (serve_prefix_int8)
+        serve_prefix_int8(torch, srv, restart, qparams, prefix_reqs)
 
         # the same weights over int4 KV pages, two requests
         restart(qparams, decode_backend="fused", kv_cache_dtype="int4")
@@ -1489,6 +1943,11 @@ def main() -> int:
     checks["verify"] = verify_check(torch, params, llama.LLAMA3_8B)
     log(f"full-width verify step, K5 vs plain: {checks['verify']} "
         f"({time.monotonic() - t:.1f}s)")
+    t = time.monotonic()
+    checks["resume"] = resume_check(torch, params, llama.LLAMA3_8B)
+    log(f"full-width prefix-cache resume (K1 at 1024, the full hit's row "
+        f"at 1023) vs a cold prefill: {checks['resume']} "
+        f"({time.monotonic() - t:.1f}s)")
     print(json.dumps({"model_check": checks}), flush=True)
 
     # 6. where a decode step's time goes
@@ -1514,12 +1973,16 @@ def main() -> int:
         f"ms wall, {prof_v['device_ms']:.2f} ms on the device (busy "
         f"{prof_v['device_busy']:.2f})")
     print(json.dumps({"verify_profile": prof_v}), flush=True)
-    # one bf16 prefill of the served burst's prompts, and of K1's case
+    # one bf16 prefill of the served burst's prompts, of K1's case, and
+    # of a prefix-cache resume (150 rows at 1024) beside the same
+    # prompt's cold prefill (1174 rows)
     prof_p = {name: prefill_profile(torch, params, llama.LLAMA3_8B, seqs)
               for name, seqs in (
                   ("served_burst",
                    [(n, 0) for n in served_prompt_lens(reqs)]),
-                  ("k1_case", K1_CASE))}
+                  ("k1_case", K1_CASE),
+                  ("resume_150_at_1024", [(150, 1024)]),
+                  ("cold_1174", [(1174, 0)]))}
     for name, pr in prof_p.items():
         log(f"prefill ({name}, {pr['rows']} rows) at full width: "
             f"{pr['wall_ms']:.2f} ms wall, {pr['device_ms']:.2f} ms on the "

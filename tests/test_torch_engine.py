@@ -268,8 +268,7 @@ def test_engine_request_filling_max_seq_len(weights, rung):
 
 
 def test_engine_config_refuses_unported_knobs():
-    for kw in (dict(enable_prefix_cache=True),
-               dict(constrained_decoding=True), dict(logprobs_topk=2),
+    for kw in (dict(constrained_decoding=True), dict(logprobs_topk=2),
                dict(kv_host_bytes=1 << 20), dict(tenant_slot_cap=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tengine.EngineConfig(**kw)
@@ -281,7 +280,7 @@ def test_engine_config_refuses_unported_knobs():
 
 def test_engine_config_defaults_match_reference():
     """Every field the port keeps has the reference's default, except the
-    two documented differences."""
+    documented difference (constrained decoding)."""
     import dataclasses
 
     ref = {f.name: f.default for f in dataclasses.fields(
@@ -289,7 +288,9 @@ def test_engine_config_defaults_match_reference():
     port = {f.name: f.default for f in dataclasses.fields(
         tengine.EngineConfig)}
     differ = {k for k in port if port[k] != ref[k]}
-    assert differ == set(tengine.DEFAULTS_DIFFER)
+    assert differ == set(tengine.DEFAULTS_DIFFER) \
+        == {"constrained_decoding"}
+    assert port["enable_prefix_cache"] is True
 
 
 # -- quantized serving ---------------------------------------------------------

@@ -103,6 +103,74 @@ def test_ragged_prefill_kernel(cuda, geom, dtype):
     assert torch.equal(got, again)
 
 
+#: prefix-cache resume geometries at a start of 8 pages: short suffixes
+#: resumed there (a partial hit) beside a cold sequence, and the single
+#: row at n - 1 of an 8-page prompt (a full hit's resume)
+RESUME_CASES = {
+    "partial_hit": lambda ps: [(150, 8 * ps), (7, 8 * ps), (1, 8 * ps),
+                               (ps + 3, 0)],
+    "full_hit_row": lambda ps: [(1, 8 * ps - 1)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESUME_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geom", GEOMS)
+def test_ragged_prefill_kernel_resume(cuda, geom, dtype, case):
+    """K1 at the prefix cache's resume geometries against its plain
+    version: every tile walks the 8 cached pages before its own rows'
+    causal edge; padding rows come out zero."""
+    H, Hkv, D, ps = geom
+    g = torch.Generator(device=cuda).manual_seed(2)
+    seq = RESUME_CASES[case](ps)
+    B = len(seq)
+    P = max(-(-(n + s) // ps) for n, s in seq)
+    kp, vp, r = _pools(g, B * P + 1, ps, Hkv, D, dtype, cuda)
+    pt = torch.randperm(B * P, generator=g, device=cuda).reshape(
+        B, P).to(torch.int32)
+    total = sum(n for n, _ in seq)
+    T = total + 9
+    cu = torch.tensor([0] + [sum(n for n, _ in seq[:i + 1])
+                             for i in range(B)], dtype=torch.int32,
+                      device=cuda)
+    st = torch.tensor([s for _, s in seq], dtype=torch.int32, device=cuda)
+    q = r(T, H, D)
+    got = paged_attention.ragged_prefill_attention(q, kp, vp, pt, cu, st,
+                                                   page_size=ps)
+    want = paged_attention.ragged_prefill_attention_plain(
+        q, kp, vp, pt, cu, st, page_size=ps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype][0],
+                               atol=TOL[dtype][1])
+    assert not got[total:].any()
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "int4"])
+def test_copy_page_is_byte_equal(cuda, kv_dtype):
+    """The prefix cache's copy-on-write on the card: the copy equals its
+    source byte for byte in every tensor of the pool (q rows and scale
+    rows of a quantized pool), and no other page changes."""
+    from aigw_tpu_torch.models import kvq
+
+    ps, n_pages = 16, 6
+    kv = kvq.make_pool((2, 2, n_pages * ps, 2, 32), kv_dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for leaf in (kv.values() if isinstance(kv, dict) else (kv,)):
+        if leaf.dtype.is_floating_point:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda))
+        else:
+            leaf.copy_(torch.randint(0, 255, leaf.shape, generator=g,
+                                     device=cuda).to(leaf.dtype))
+    before = {k: v.clone() for k, v in (
+        kv.items() if isinstance(kv, dict) else [("kv", kv)])}
+    kvq.copy_page(kv, 4, 1, ps)
+    torch.cuda.synchronize()
+    for k, v in (kv.items() if isinstance(kv, dict) else [("kv", kv)]):
+        assert torch.equal(v[:, :, ps:2 * ps], before[k][:, :, 4 * ps:5 * ps])
+        assert torch.equal(v[:, :, :ps], before[k][:, :, :ps])
+        assert torch.equal(v[:, :, 2 * ps:], before[k][:, :, 2 * ps:])
+
+
 def _fused_case(case, g, ps, Hkv, dev):
     """(B, P, positions, active) of a fused decode case. The kernel
     splits each sequence's pages into ``split_pages`` splits of ``pps``

@@ -65,7 +65,13 @@ def _t(a):
     ([5, 9, 14], [3, 8, 21], 8, 8, 4, 4, 32, 24),
     # tiny-moe attention geometry, one offset-resumed sequence
     ([7, 30, 13], [0, 5, 0], 16, 16, 4, 2, 16, 16),
-], ids=["mixed_lengths", "misaligned_starts", "q_tile_spanning"])
+    # prefix-cache partial hits: short suffixes resumed at long,
+    # page-aligned prefixes (8 pages, 4, 6)
+    ([12, 7, 3], [128, 64, 96], 16, 16, 4, 2, 32, 32),
+    # full hits: the single row at n - 1 of a page-aligned prompt
+    ([1, 1], [127, 63], 16, 16, 4, 2, 32, 24),
+], ids=["mixed_lengths", "misaligned_starts", "q_tile_spanning",
+        "resume_long_prefix", "full_hit_row"])
 def test_ragged_prefill_matches_pallas(lens, starts, page_size, q_block, H,
                                        Hkv, D, n_pages):
     rng = np.random.default_rng(42)

@@ -2,8 +2,9 @@
 
 The same seeded sequence of allocate / allocate_extra / adopt / free
 operations runs on ``aigw_tpu.tpuserve.kvcache`` and on
-``aigw_tpu_torch.tpuserve.kvcache`` (no prefix cache attached: that
-half of the reference waits for the prefix-caching slice). After every
+``aigw_tpu_torch.tpuserve.kvcache`` (no prefix cache attached here:
+``tests/test_torch_prefix.py`` holds the allocators with their caches
+against the reference's). After every
 operation both hand out the same pages, refuse the same requests with
 OutOfPagesError, and report the same free/used/occupancy telemetry.
 """

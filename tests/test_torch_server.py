@@ -162,14 +162,17 @@ def test_models_health_state(server):
                 "kv_occupancy", "tokens_generated", "decode_window",
                 "attention_backend", "attention_backend_reason",
                 "decode_attn_impl", "decode_attn_reason",
-                "prefill_padded_frac", "constrained_decoding"):
+                "prefill_padded_frac", "constrained_decoding",
+                "prefix_cache_hit_rate", "prefix_pages_resident",
+                "prefix_pages_pinned", "prefix_bytes_pinned",
+                "prefix_cache_hits", "prefix_cache_misses",
+                "prefix_cache_evictions"):
         assert key in state, key
     assert state["attention_backend"] == "pallas-ragged"
     assert state["decode_attn_impl"] == "fused-torch"
     assert state["constrained_decoding"] is False
-    assert state["enable_prefix_cache"] is False
-    assert set(state["defaults_differ"]) == {"enable_prefix_cache",
-                                             "constrained_decoding"}
+    assert state["enable_prefix_cache"] is True  # the reference's default
+    assert set(state["defaults_differ"]) == {"constrained_decoding"}
 
 
 SPEC_KEYS = ("spec_accepted", "spec_drafted", "spec_accept_rate",
