@@ -7,7 +7,7 @@
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --pallas-attn --spec-tokens 4
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
-        --no-prefix-cache
+        --no-prefix-cache --no-constrained-decoding
 
 Only the ``tpuserve`` subcommand is ported; the gateway and the other
 subcommands stay JAX-package code, and the gateway can front this
@@ -79,6 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--no-prefix-cache", action="store_true",
                    help="disable automatic prefix caching (shared prompt "
                         "prefixes then prefill again on every request)")
+    s.add_argument("--no-constrained-decoding", action="store_true",
+                   help="disable grammar-constrained decoding "
+                        "(response_format json modes + tool calling); such "
+                        "requests then 400 with a clear error instead of "
+                        "being enforced")
     s.add_argument("--ragged-chunk-tokens", type=int, default=256)
     s.add_argument("--max-queued-requests", type=int, default=256)
     return p
@@ -94,6 +99,7 @@ def engine_config(args):
         num_pages=args.hbm_pages,
         decode_steps_per_tick=args.decode_steps_per_tick,
         enable_prefix_cache=not args.no_prefix_cache,
+        constrained_decoding=not args.no_constrained_decoding,
         adaptive_decode_window=not args.no_adaptive_window,
         async_transfers=not args.sync_transfers,
         first_token_fast_path=not args.no_first_token_fast_path,

@@ -127,14 +127,20 @@ def usage_dict(usage: TokenUsage) -> dict[str, Any]:
 def chat_completion_response(*, model: str, content: str,
                              finish_reason: str = "stop",
                              usage: TokenUsage | None = None,
-                             response_id: str = "") -> dict[str, Any]:
+                             response_id: str = "",
+                             tool_calls: list[dict[str, Any]] | None = None
+                             ) -> dict[str, Any]:
+    message: dict[str, Any] = {"role": "assistant", "content": content}
+    if tool_calls:
+        message["tool_calls"] = tool_calls
+        if not content:
+            message["content"] = None
     return {
         "id": response_id or f"chatcmpl-{uuid.uuid4().hex[:24]}",
         "object": "chat.completion",
         "created": int(time.time()),
         "model": model,
-        "choices": [{"index": 0,
-                     "message": {"role": "assistant", "content": content},
+        "choices": [{"index": 0, "message": message,
                      "finish_reason": finish_reason}],
         "usage": usage_dict(usage or TokenUsage()),
     }
@@ -197,11 +203,19 @@ def completion_chunk_sse(*, response_id: str, model: str, created: int,
 
 
 def models_response(models: Iterable[tuple]) -> dict[str, Any]:
-    """(name, owned_by, created) tuples → /v1/models body."""
-    return {"object": "list", "data": [
-        {"id": name, "object": "model",
-         "created": created or int(time.time()), "owned_by": owned_by}
-        for name, owned_by, created in models]}
+    """(name, owned_by, created[, extra]) tuples → /v1/models body; a
+    non-empty ``extra`` dict merges into the entry (the replica's
+    ``capabilities``)."""
+    data = []
+    for item in models:
+        name, owned_by, created = item[:3]
+        entry: dict[str, Any] = {"id": name, "object": "model",
+                                 "created": created or int(time.time()),
+                                 "owned_by": owned_by}
+        if len(item) > 3 and item[3]:
+            entry.update(item[3])
+        data.append(entry)
+    return {"object": "list", "data": data}
 
 
 def error_body(message: str, type_: str = "invalid_request_error",

@@ -188,9 +188,12 @@ class RaggedPrefillBackend:
         return final_out, {"tick_ms": tick_ms, "calls": calls,
                            "real": real, "padded": padded}
 
-    def _sampling_rows(self, by_row: dict[int, tuple]) -> tuple:
+    def _sampling_rows(self, by_row: dict[int, tuple],
+                       mask: np.ndarray | None = None) -> tuple:
         """[B]-wide sampling tensors from ``row → (req, seq_id)``: the
-        prefill token samples with key ``[seed or seq_id, 0]``."""
+        prefill token samples with key ``[seed or seq_id, 0]``. A
+        grammar ``mask`` ([V]) is added to row 0's bias (the single
+        path's row)."""
         eng = self.eng
         B = eng.cfg.max_batch_size
         V = eng.model_cfg.vocab_size
@@ -207,6 +210,8 @@ class RaggedPrefillBackend:
             for tok_id, b in req.sampling.logit_bias:
                 if 0 <= tok_id < V:
                     bias[g, tok_id] = b
+        if mask is not None:
+            bias[0] += mask
         dev = eng.device
         return tuple(torch.from_numpy(a).to(dev)
                      for a in (keys, temp, top_p, top_k, bias))
@@ -247,16 +252,19 @@ class RaggedPrefillBackend:
                 for s, (req, seq_id, n, total) in zip(segs, items)]
 
     def single_prefill(self, req, seq_id: int, suffix: list[int],
-                       prefix_len: int, page_row: np.ndarray):
+                       prefix_len: int, page_row: np.ndarray,
+                       mask: np.ndarray | None = None):
         """Prefill one request's ``suffix`` at absolute position
         ``prefix_len`` (0, a cached page-aligned prefix, or n - 1 after a
         full hit) as one segment at row 0 of the packed calls, its
-        sampling row at row 0 of the ``[B]`` layout. Returns (first token,
-        info) or an abort status string (see ``_run_packed``)."""
+        sampling row at row 0 of the ``[B]`` layout, with the grammar
+        ``mask`` of a constrained request in its bias. Returns (first
+        token, info) or an abort status string (see ``_run_packed``)."""
         seg = _Seg(g=0, req=req, tokens=suffix, start=prefix_len,
                    page_row=page_row)
-        res = self._run_packed([seg], self._sampling_rows({0: (req, seq_id)}),
-                               cancellable=req)
+        res = self._run_packed(
+            [seg], self._sampling_rows({0: (req, seq_id)}, mask),
+            cancellable=req)
         if isinstance(res, str):
             return res
         final_out, info = res

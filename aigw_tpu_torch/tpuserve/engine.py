@@ -43,11 +43,25 @@ steps, each slot advancing by its accepted drafts plus one. The verify
 step runs K5 when the decode rung resolves to ``chained-*`` and the
 gather path otherwise, as in the reference.
 
-One default differs from the reference: ``constrained_decoding`` is
-False (the server answers ``response_format`` and tools with the
-reference's knob-off 400), exported on ``/state``. Knobs of features
-this slice does not implement raise ``NotImplementedError`` naming their
-ROADMAP entry when set to a non-default value.
+**Grammar-constrained decoding** (``constrained_decoding``, on by
+default as in the reference; ``tpuserve/constrain.py``): a request's
+``constraint`` (a shared ``TokenFSM``) gives its slot an FSM cursor
+whose state's ``[V]`` mask is added to the slot's logit-bias row. The
+prefill samples the first token under the initial state's mask. A window
+runs under the mask of the state settled at dispatch; the host accepts
+its tokens only while the slot's current state demands that same mask
+(``_cn_verify``), and at the first token whose mask changed it rolls the
+slot back to its last accepted token: the epoch moves, so the window in
+flight is discarded for the slot, and the whole row (position, key,
+counts, history, mask) is uploaded again behind it. Rows past the cut
+that the kernels already wrote are rewritten by the next windows. An
+accepted token that moves the state patches only the bias row. Row
+uploads on CUDA go through a pinned staging row per slot with
+non-blocking copies on the engine's stream.
+
+Every default equals the reference's. Knobs of features this slice does
+not implement raise ``NotImplementedError`` naming their ROADMAP entry
+when set to a non-default value.
 """
 
 from __future__ import annotations
@@ -66,7 +80,7 @@ import torch
 from aigw_tpu_torch.device import resolve_device
 from aigw_tpu_torch.models import kvq
 from aigw_tpu_torch.obs.metrics import EnginePhases
-from aigw_tpu_torch.tpuserve import speculation
+from aigw_tpu_torch.tpuserve import constrain, speculation
 from aigw_tpu_torch.tpuserve.attention import (
     BACKENDS,
     DECODE_BACKENDS,
@@ -92,17 +106,13 @@ logger = logging.getLogger(__name__)
 #: default, ROADMAP queue 1 entry). A non-default value raises
 #: NotImplementedError.
 NOT_PORTED = {
-    "constrained_decoding": (False, "constrained decoding"),
     "tenant_slot_cap": (0, "host scheduler features"),
     "logprobs_topk": (0, "host scheduler features (logprobs)"),
     "kv_host_bytes": (0, "migration and KV mobility"),
 }
 
-#: the default that differs from the reference, and why (/state)
-DEFAULTS_DIFFER = {
-    "constrained_decoding": "False: grammar constraints are not ported "
-                            "yet; response_format and tools get a 400",
-}
+#: defaults that differ from the reference, and why (/state): none
+DEFAULTS_DIFFER: dict[str, str] = {}
 
 
 class EngineOverloadedError(Exception):
@@ -112,8 +122,7 @@ class EngineOverloadedError(Exception):
 @dataclass
 class EngineConfig:
     """The reference's EngineConfig fields this slice serves, with the
-    reference's names and defaults (see the module docstring for the
-    one that differs)."""
+    reference's names and defaults."""
 
     max_batch_size: int = 8
     max_seq_len: int = 2048
@@ -145,7 +154,9 @@ class EngineConfig:
     # adaptive per-slot draft rungs; False pins eligible slots at
     # spec_tokens
     spec_adaptive: bool = True
-    constrained_decoding: bool = False
+    # grammar-constrained decoding (response_format json modes and tool
+    # calls); False makes the server 400 such requests
+    constrained_decoding: bool = True
     tenant_slot_cap: int = 0
     logprobs_topk: int = 0
     kv_host_bytes: int = 0
@@ -203,6 +214,9 @@ class GenRequest:
     # prompt tokens whose KV came from the prefix cache (set at
     # admission; the usage's cached_tokens)
     prefix_reused: int = 0
+    # a compiled, shared constrain.TokenFSM (the slot builds its own
+    # cursor at admission), or None: unconstrained
+    constraint: Any = None
 
 
 @dataclass
@@ -229,6 +243,10 @@ class _Slot:
     dev_draft_len: int = 0
     la_base: int = 0
     la_tokens: list[int] = field(default_factory=list)
+    # grammar constraint: the slot's FSM cursor and its rollback epoch (a
+    # window whose captured epoch trails it is discarded for the slot)
+    cn: Any = None  # constrain.ConstraintState | None
+    cn_epoch: int = 0
 
 
 @dataclass
@@ -288,6 +306,23 @@ class EngineStats:
     spec_rung_ups: int = 0
     spec_rung_downs: int = 0
     spec_lookahead_slots: int = 0
+    # grammar-constrained decoding: live constrained slots, requests
+    # admitted with a constraint, rollbacks (a window ran past a mask
+    # change: its later tokens were discarded and the row uploaded
+    # again), bias-row patches after an accepted token moved the state,
+    # and the compiled-grammar cache size
+    constrained_slots: int = 0
+    constraint_requests: int = 0
+    constraint_rollbacks: int = 0
+    constraint_mask_updates: int = 0
+    constraint_grammars: int = 0
+    # host time in the constraint path (verify, rollback, the patches'
+    # staging and queueing), and the windows it was spent over; the
+    # port's own, not on /state
+    constraint_host_ms: float = 0.0
+    constraint_windows: int = 0
+    # constrained members summed over those windows
+    constraint_slot_windows: int = 0
 
     PREFILL_RATE_HALF_LIFE_TOKENS = 16384
 
@@ -325,6 +360,10 @@ class _Window:
     # lengths at dispatch ((slot, D_slot) pairs) for the controllers
     draft: int = 0
     draft_lens: tuple[tuple[int, int], ...] = ()
+    # constrained members at dispatch: (slot, rollback epoch, the mask
+    # the window samples under). A token counts only while the slot's
+    # current state demands that very mask
+    cn_epochs: tuple[tuple[int, int, Any], ...] = ()
 
 
 #: per-slot decode state on the device: field → numpy dtype
@@ -440,6 +479,15 @@ class Engine:
         # slots whose controller moved rung: only their on-device draft
         # length is patched before the next dispatch
         self._spec_dirty: set[int] = set()
+        # constrained slots whose FSM moved on an accepted token: only
+        # their bias row (logit_bias + the new state's mask) is patched
+        # before the next dispatch; like draft_len it does not depend on
+        # the position, so it is safe to patch with a window in flight
+        self._cn_dirty: set[int] = set()
+        # CUDA row uploads: a pinned staging row per slot (field → host
+        # tensor) and the event recorded after its last copies
+        self._stage: dict[int, dict[str, torch.Tensor]] = {}
+        self._stage_done: list[Any] = [None] * B
         self._state_dtypes = (_STATE_DTYPES | _SPEC_DTYPES if self._spec_max
                               else _STATE_DTYPES)
         self.attn = make_attention_backend(self)
@@ -685,6 +733,7 @@ class Engine:
         self._device_state = None
         self._dirty_rows.clear()
         self._spec_dirty.clear()
+        self._cn_dirty.clear()
         for i, s in enumerate(self._slots):
             if s is not None:
                 s.req.emit(-1, "error")
@@ -823,6 +872,10 @@ class Engine:
             hits = len(self.prefix_cache.probe(chain))
             if min(hits, n // self.cfg.page_size) > 0:
                 return False, chain
+        if req.constraint is not None:
+            # the grammar's initial mask goes into the prefill's bias
+            # row: the per-request path builds it
+            return False, chain
         return True, chain
 
     def _admit_batch(self, reqs: list[GenRequest], chain_by_req: dict
@@ -875,6 +928,7 @@ class Engine:
         draft length included)."""
         self._dirty_rows.add(i)
         self._spec_dirty.discard(i)
+        self._cn_dirty.discard(i)  # the row carries the mask too
 
     def _admit_one(self, req: GenRequest, chain: list) -> str:
         """Per-request admission with prefix-cache adoption. Returns
@@ -936,9 +990,15 @@ class Engine:
         suffix = req.prompt[prefix_len:]
         page_row = np.zeros((self.cfg.max_pages_per_seq,), np.int32)
         page_row[:len(pages)] = pages
+        # grammar constraint: the slot's FSM cursor; the initial state's
+        # mask joins the prefill's bias row, so the first sampled token
+        # is already valid
+        cn = req.constraint.new_state() if req.constraint is not None \
+            else None
         t0 = time.monotonic()
-        res = self.attn.single_prefill(req, seq_id, suffix, prefix_len,
-                                       page_row)
+        res = self.attn.single_prefill(
+            req, seq_id, suffix, prefix_len, page_row,
+            mask=cn.mask_row() if cn is not None else None)
         if isinstance(res, str):
             self.allocator.free(seq_id)
             return res
@@ -977,8 +1037,14 @@ class Engine:
             req=req, pos=n - 1, generated=0,
             key_seed=req.sampling.seed or seq_id, limit=total,
             page_row=page_row, ctrl=ctrl, la_base=la_base,
-            la_tokens=la_tokens)
+            la_tokens=la_tokens, cn=cn)
         self._mark_admitted(slot_idx)
+        if cn is not None:
+            # counted at admission (a requeue under page pressure must
+            # not count twice); the first token is mask-valid, and the
+            # first window dispatches under the state after it
+            self.stats.constraint_requests += 1
+            cn.advance(tok)
         self._emit_token(slot_idx, tok)
         first_emit_ms = 1e3 * (time.monotonic() - t_first)
         self.stats.first_emit_ms += first_emit_ms
@@ -1024,9 +1090,7 @@ class Engine:
         for tok_id, cnt in s.token_counts.items():
             if 0 <= tok_id < V:
                 row["counts"][tok_id] = cnt
-        for tok_id, b in sp.logit_bias:
-            if 0 <= tok_id < V:
-                row["bias"][tok_id] = b
+        row["bias"] = self._bias_row(s)
         if self._spec_max:
             n = len(s.req.prompt)
             row["history"][:n] = s.req.prompt
@@ -1048,18 +1112,108 @@ class Engine:
                 for k, dt in self._state_dtypes.items()}
 
     def _apply_row_updates(self) -> None:
-        """Patch dirty slot rows into the live state. On CUDA the writes
-        queue behind the in-flight window on the same stream, like the
-        reference's chained row-update program."""
-        st = self._device_state
+        """Patch dirty slot rows into the live state, like the
+        reference's chained row-update program: the writes queue behind
+        the in-flight window on the engine's stream."""
         for i in sorted(self._dirty_rows):
-            row = self._row_host_values(i)
-            for k in self._state_dtypes:
-                v = row[k]
-                st[k][i] = (torch.from_numpy(np.asarray(v)).to(self.device)
-                            if isinstance(v, (np.ndarray, list))
-                            else v)
+            t0 = time.monotonic()
+            self._upload_row(i, self._row_host_values(i))
+            s = self._slots[i]
+            if s is not None and s.cn is not None:
+                self.stats.constraint_host_ms += 1e3 * (time.monotonic()
+                                                        - t0)
         self._dirty_rows.clear()
+
+    def _upload_row(self, i: int, row: dict[str, Any]) -> None:
+        """Write ``row``'s fields into row i of the live state. On CUDA
+        the arrays are copied into slot i's pinned staging row and from
+        there with non-blocking copies, so the host does not wait for the
+        window in flight; the staging row is rewritten only after the
+        event of its previous copies has completed."""
+        st = self._device_state
+        stage = None
+        if self.device.type == "cuda":
+            if self._stage_done[i] is not None:
+                self._stage_done[i].synchronize()
+            stage = self._stage.get(i)
+            if stage is None:
+                stage = self._stage[i] = {}
+        for k, v in row.items():
+            if not isinstance(v, (np.ndarray, list)):
+                st[k][i] = v
+                continue
+            a = np.asarray(v, self._state_dtypes[k])
+            if stage is None:
+                st[k][i] = torch.from_numpy(a)
+                continue
+            buf = stage.get(k)
+            if buf is None:
+                buf = stage[k] = torch.from_numpy(a.copy()).pin_memory()
+            else:
+                buf.numpy()[...] = a
+            st[k][i].copy_(buf, non_blocking=True)
+        if stage is not None:
+            ev = torch.cuda.Event()
+            ev.record()
+            self._stage_done[i] = ev
+
+    def _bias_row(self, s: _Slot) -> np.ndarray:
+        """Slot ``s``'s bias row: the request's logit_bias plus, for a
+        constrained slot, its FSM state's mask, in float32."""
+        V = self.model_cfg.vocab_size
+        row = np.zeros((V,), np.float32)
+        for tok_id, b in s.req.sampling.logit_bias:
+            if 0 <= tok_id < V:
+                row[tok_id] = b
+        if s.cn is not None:
+            row += s.cn.mask_row()
+        return row
+
+    # -- grammar constraints (host) ------------------------------------------
+    def _apply_cn_row_updates(self) -> None:
+        """Patch the bias rows of constrained slots whose state moved.
+        Rows due for a whole upload (``_dirty_rows``) carry the mask
+        already and are skipped."""
+        for i in sorted(self._cn_dirty):
+            s = self._slots[i]
+            if s is None or s.cn is None or i in self._dirty_rows:
+                continue
+            self._upload_row(i, {"bias": self._bias_row(s)})
+            self.stats.constraint_mask_updates += 1
+        self._cn_dirty.clear()
+
+    def _cn_verify(self, i: int, s: _Slot, tok: int, dispatch_mask) -> bool:
+        """Verify and advance slot i's FSM with ``tok``, which the window
+        sampled under ``dispatch_mask``; True = emit it.
+
+        A token counts only while the slot's current state demands
+        exactly the dispatch mask: then the device drew it from the
+        distribution a per-step masked decode would have used (same bias
+        row, same per-position key), so accepted streams equal true
+        per-step constrained decoding. When an advance changes the mask,
+        the window is cut there and the slot rolled back to its last
+        accepted token (``_cn_rollback``); so is a token the FSM refuses
+        (a mask-allowed token must be valid: a disagreement is a cut,
+        never a corrupt stream)."""
+        t0 = time.monotonic()
+        cur = s.cn.mask_row()
+        ok = ((cur is dispatch_mask or np.array_equal(cur, dispatch_mask))
+              and s.cn.advance(tok))
+        if not ok:
+            self._cn_rollback(i, s)
+        elif tok not in self.eos:
+            self._cn_dirty.add(i)
+        self.stats.constraint_host_ms += 1e3 * (time.monotonic() - t0)
+        return ok
+
+    def _cn_rollback(self, i: int, s: _Slot) -> None:
+        """The host state never moved past the cut: a new epoch drops the
+        window in flight for this slot, and the whole row is uploaded
+        again behind it (position, key, counts, history, mask)."""
+        s.cn_epoch += 1
+        self._dirty_rows.add(i)
+        self._cn_dirty.discard(i)
+        self.stats.constraint_rollbacks += 1
 
     # -- decode ---------------------------------------------------------------
     def _drain_inflight(self) -> None:
@@ -1075,37 +1229,48 @@ class Engine:
         t1 = time.monotonic()
         self.stats.transfer_ms += 1e3 * (t1 - t0)
         self.phases.observe("transfer", 1e3 * (t1 - t0))
+        ce = {i: (ep, m) for i, ep, m in w.cn_epochs}
         if w.draft:
             D1 = w.draft + 1
             self._process_spec_window(toks[:, :, :D1], toks[:, :, D1],
                                       toks[:, :, D1 + 1], w.members,
-                                      w.draft_lens)
+                                      w.draft_lens, ce)
         else:
-            self._process_window(toks, w.members)
+            self._process_window(toks, w.members, ce)
         self.stats.emit_ms += 1e3 * (time.monotonic() - t1)
         for seq_id in w.frees:
             self.allocator.free(seq_id)
 
-    def _process_window(self, toks: np.ndarray, members: tuple) -> None:
+    def _process_window(self, toks: np.ndarray, members: tuple,
+                        ce: dict) -> None:
         """Emit a plain window's tokens [K, B] to the slots that were
-        members at dispatch and still hold the same request."""
+        members at dispatch and still hold the same request. A
+        constrained slot whose epoch moved past the window's (``ce``:
+        slot → (epoch, dispatch mask)) is skipped: the window ran past a
+        grammar cut."""
         self.stats.decode_steps += toks.shape[0]
         for k in range(toks.shape[0]):
             for i, req in members:
                 s = self._slots[i]
                 if s is None or s.req is not req:
                     continue  # finished earlier in this window / reused
+                if s.cn is not None and (
+                        ce.get(i, (None,))[0] != s.cn_epoch
+                        or not self._cn_verify(i, s, int(toks[k, i]),
+                                               ce[i][1])):
+                    continue  # stale window, or cut here
                 self._emit_token(i, int(toks[k, i]))
 
     def _process_spec_window(self, toks: np.ndarray, counts: np.ndarray,
                              props: np.ndarray, members: tuple,
-                             draft_lens: tuple) -> None:
+                             draft_lens: tuple, ce: dict) -> None:
         """A speculative window: samples [K, B, D + 1], n_emit [K, B],
         n_prop [K, B]. The leading n_emit samples of each row are
         model-exact and emitted; the rest were conditioned on a rejected
         draft. Then each surviving slot's controller observes the
         window's proposed/accepted counts and may move its rung (patched
-        on the device before the next dispatch)."""
+        on the device before the next dispatch). Constrained slots are
+        cut as in ``_process_window``."""
         self.stats.decode_steps += toks.shape[0]
         dl = dict(draft_lens)
         proposed = dict.fromkeys(dl, 0)
@@ -1116,6 +1281,8 @@ class Engine:
                 s = self._slots[i]
                 if s is None or s.req is not req:
                     continue
+                if s.cn is not None and ce.get(i, (None,))[0] != s.cn_epoch:
+                    continue  # stale window for a rolled-back slot
                 n = int(counts[k, i])
                 if n > 0:
                     proposed[i] = proposed.get(i, 0) + int(props[k, i])
@@ -1125,6 +1292,9 @@ class Engine:
                     cur = self._slots[i]
                     if cur is None or cur.req is not req:
                         break  # EOS or the length limit mid-burst
+                    if cur.cn is not None and not self._cn_verify(
+                            i, cur, int(toks[k, i, d]), ce[i][1]):
+                        break  # cut here: rolled back
                     self._emit_token(i, int(toks[k, i, d]))
                     emitted += 1
                 if emitted > 1:
@@ -1211,6 +1381,7 @@ class Engine:
         self._device_state = None
         self._dirty_rows.clear()
         self._spec_dirty.clear()
+        self._cn_dirty.clear()
         self.stats.active_slots = 0
         self._refresh_stats()
 
@@ -1234,8 +1405,16 @@ class Engine:
             self._device_state = self._build_device_state()
             self._dirty_rows.clear()
             self._spec_dirty.clear()
+            self._cn_dirty.clear()  # the full build carried the masks
         elif self._dirty_rows:
             self._apply_row_updates()
+        if self._cn_dirty:
+            # constrained slots whose state moved since the last
+            # dispatch: their bias rows, before this dispatch samples
+            # under them
+            t0 = time.monotonic()
+            self._apply_cn_row_updates()
+            self.stats.constraint_host_ms += 1e3 * (time.monotonic() - t0)
 
         if self._inflight is not None:
             # zombie-window guard: when every slot finishes inside the
@@ -1266,6 +1445,15 @@ class Engine:
         lean = all(sp.frequency_penalty == 0.0 and sp.presence_penalty == 0.0
                    for sp in live)
         greedy = all(sp.temperature <= 0.0 for sp in live)
+        t0 = time.monotonic()
+        cn_epochs = tuple((i, self._slots[i].cn_epoch,
+                           self._slots[i].cn.mask_row())
+                          for i in active_idx
+                          if self._slots[i].cn is not None)
+        if cn_epochs:
+            self.stats.constraint_windows += 1
+            self.stats.constraint_slot_windows += len(cn_epochs)
+            self.stats.constraint_host_ms += 1e3 * (time.monotonic() - t0)
         frees, self._pending_frees = self._pending_frees, []
         draft_lens: tuple = ()
         if draft:
@@ -1283,7 +1471,7 @@ class Engine:
         self._drain_inflight()
         self._inflight = _Window(sampled=host, ready=ready, members=members,
                                  k=k, frees=frees, draft=draft,
-                                 draft_lens=draft_lens)
+                                 draft_lens=draft_lens, cn_epochs=cn_epochs)
         self.stats.active_slots = sum(s is not None for s in self._slots)
         self._refresh_stats()
         return True
@@ -1328,6 +1516,9 @@ class Engine:
     def _refresh_stats(self) -> None:
         st = self.stats
         st.queued = self._queue.qsize()
+        st.constrained_slots = sum(
+            1 for s in self._slots if s is not None and s.cn is not None)
+        st.constraint_grammars = constrain.grammar_cache_size()
         st.spec_accept_rate = (st.spec_accepted / st.spec_drafted
                                if st.spec_drafted else 0.0)
         if st.prefill_tokens_padded:

@@ -5,9 +5,19 @@ Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions``
 (streamed over SSE and not, in the reference server's response shapes),
 ``POST /tokenize``, ``GET /v1/models``, ``GET /health`` and ``GET
 /state`` (the reference's keys that this engine has, under the same
-names, ``phase_percentiles`` among them). A gateway in front routes to
-it like to a reference replica, and prices its TTFT from
-``phase_percentiles`` as a reference replica's.
+names, ``phase_percentiles`` and the constraint keys among them). A
+gateway in front routes to it like to a reference replica, prices its
+TTFT from ``phase_percentiles`` as a reference replica's, and merges the
+``capabilities`` it advertises on ``/v1/models`` and ``/state``.
+
+Structured outputs and tool calls (``tpuserve/constrain.py``):
+``response_format`` ``json_object`` / ``json_schema`` and ``tools`` with
+``tool_choice`` ``required`` or named compile to a grammar the engine
+enforces; the reply carries the JSON as content, or the envelope as
+``message.tool_calls`` with ``finish_reason: "tool_calls"`` (streamed as
+``tool_calls`` deltas). ``tool_choice: "auto"`` generates freely and the
+server detects an envelope in the output, holding streamed text back
+only while it is still a viable envelope prefix.
 
 The server is ``http.server.ThreadingHTTPServer``: one thread per
 connection, each waiting on its request's token queue, which the engine
@@ -32,6 +42,11 @@ from aigw_tpu_torch.device import device_name, resolve_device
 from aigw_tpu_torch.models.quant import quantize_params
 from aigw_tpu_torch.models.registry import family_fns, get_model_spec
 from aigw_tpu_torch.schemas import openai as oai
+from aigw_tpu_torch.translate.structured import (
+    JSONSchemaError,
+    parse_response_format,
+)
+from aigw_tpu_torch.tpuserve import constrain
 from aigw_tpu_torch.tpuserve.engine import (
     DEFAULTS_DIFFER,
     Engine,
@@ -121,8 +136,17 @@ class TPUServeServer:
         self.engine.stop()
 
     # -- endpoints --------------------------------------------------------
+    def capabilities(self) -> dict[str, Any]:
+        """The structured-output and tool-calling flags this replica
+        enforces (empty with constrained decoding off)."""
+        return (dict(constrain.CAPABILITIES)
+                if self.engine.cfg.constrained_decoding else {})
+
     def models(self) -> dict[str, Any]:
-        return oai.models_response([(self.model_name, "tpuserve", 0)])
+        caps = self.capabilities()
+        return oai.models_response([(self.model_name, "tpuserve", 0,
+                                     {"capabilities": caps} if caps
+                                     else None)])
 
     def health(self) -> tuple[int, dict[str, Any]]:
         if not self.engine.healthy:
@@ -200,7 +224,16 @@ class TPUServeServer:
             "spec_rung_ups": s.spec_rung_ups,
             "spec_rung_downs": s.spec_rung_downs,
             "spec_lookahead_slots": s.spec_lookahead_slots,
+            # grammar-constrained decoding: the flags the gateway merges
+            # into /v1/models, live constrained slots, rollbacks (grammar
+            # cuts), bias-row patches, the compiled-grammar cache size
             "constrained_decoding": cfg.constrained_decoding,
+            "capabilities": self.capabilities(),
+            "constrained_slots": s.constrained_slots,
+            "constraint_requests": s.constraint_requests,
+            "constraint_rollbacks": s.constraint_rollbacks,
+            "constraint_mask_updates": s.constraint_mask_updates,
+            "constraint_grammars": s.constraint_grammars,
             "enable_prefix_cache": cfg.enable_prefix_cache,
             "defaults_differ": dict(DEFAULTS_DIFFER),
             "migration": False,
@@ -236,23 +269,96 @@ class TPUServeServer:
             text = "".join(text)
         return [self.tokenizer.bos_id] + self.tokenizer.encode(str(text))
 
-    def check_unsupported(self, body: dict[str, Any]) -> None:
-        """400 for what this replica does not serve, as the reference
-        does with the matching knob off."""
-        rf = body.get("response_format")
-        if (isinstance(rf, dict) and rf.get("type") not in (None, "text")) \
-                or (body.get("tools") and body.get("tool_choice") != "none"):
+    def check_request(self, body: dict[str, Any], chat: bool
+                      ) -> tuple[Any, dict[str, Any] | None]:
+        """Intake checks in the reference's order: logprobs (not served
+        here: the reference's knob-off 400), then the constraints, then
+        ``n``. Returns ``check_constraints``' (grammar, mode)."""
+        if body.get("logprobs") or body.get("top_logprobs") is not None:
+            raise oai.SchemaError(
+                "per-token logprobs are not available on this replica")
+        n = int(body.get("n") or 1)
+        found = self.check_constraints(body, chat, n)
+        if n > 1:
+            raise oai.SchemaError("n > 1 is not supported on this server")
+        return found
+
+    def check_constraints(self, body: dict[str, Any], chat: bool, n: int
+                          ) -> tuple[Any, dict[str, Any] | None]:
+        """``response_format`` and ``tools``/``tool_choice`` → a compiled
+        TokenFSM (or None) and how the reply is assembled (None, or
+        ``{"mode": "json"}``, or ``{"mode": "tool", "choice": ...,
+        "names": [...]}``). Every unsupported or malformed ask raises
+        SchemaError (a 400) with the reference's message."""
+        try:
+            rf = parse_response_format(body)
+        except JSONSchemaError as e:
+            raise oai.SchemaError(str(e)) from None
+        if rf is not None and rf.kind == "text":
+            rf = None
+        tools = body.get("tools")
+        choice = body.get("tool_choice")
+        tools_active = bool(tools) and choice != "none"
+        if rf is None and not tools_active:
+            return None, None
+        if not chat:
+            raise oai.SchemaError(
+                "response_format and tools are only supported on "
+                "/v1/chat/completions")
+        if not self.engine.cfg.constrained_decoding:
             raise oai.SchemaError(
                 "this server was started with --no-constrained-decoding; "
                 "response_format json modes and tool calling are "
                 "unavailable")
-        if body.get("logprobs") or body.get("top_logprobs") is not None:
+        if rf is not None and tools_active:
             raise oai.SchemaError(
-                "per-token logprobs are not available on this replica")
-        if int(body.get("n") or 1) > 1:
-            raise oai.SchemaError("n > 1 is not supported on this server")
+                "response_format json modes cannot be combined with "
+                "tools on this backend; send one or the other")
+        eos = (self.tokenizer.eos_id,)
+        V = self.model_cfg.vocab_size
+        try:
+            if tools_active:
+                if n > 1:
+                    raise oai.SchemaError(
+                        "n > 1 is not supported with tools on this "
+                        "backend")
+                specs = constrain.parse_tools(tools)
+                names = [nm for nm, _s in specs]
+                named = ""
+                if isinstance(choice, dict):
+                    named = str(choice["function"]["name"])
+                    if named not in names:
+                        raise oai.SchemaError(
+                            f"tool_choice names unknown tool {named!r}; "
+                            f"tools declare {names}")
+                    specs = [t for t in specs if t[0] == named]
+                mode = ("named" if named
+                        else "required" if choice == "required"
+                        else "auto")
+                if mode == "auto":
+                    # free generation; the reply is searched for an
+                    # envelope (a grammar admitting all text masks
+                    # nothing)
+                    return None, {"mode": "tool", "choice": "auto",
+                                  "names": names}
+                fsm = constrain.compile_constraint(
+                    self.tokenizer, V, eos, constrain.spec_for_tools(specs))
+                return fsm, {"mode": "tool", "choice": mode,
+                             "names": [t[0] for t in specs]}
+            if rf.kind == "json_schema" and rf.schema is None:
+                raise oai.SchemaError(
+                    "response_format.json_schema.schema is required for "
+                    "constrained decoding")
+            fsm = constrain.compile_constraint(
+                self.tokenizer, V, eos,
+                constrain.spec_for_response_format(rf.kind, rf.schema))
+            return fsm, {"mode": "json"}
+        except (JSONSchemaError,
+                constrain.UnsupportedConstraintError) as e:
+            raise oai.SchemaError(str(e)) from None
 
-    def submit(self, prompt: list[int], body: dict[str, Any]):
+    def submit(self, prompt: list[int], body: dict[str, Any],
+               constraint: Any = None):
         """Submit to the engine; returns (token queue, request). The queue
         yields (token_id, finish_reason) pairs."""
         out: "queue.Queue[tuple[int, str | None]]" = queue.Queue()
@@ -260,7 +366,8 @@ class TPUServeServer:
                          or body.get("max_tokens") or 256)
         req = GenRequest(prompt=prompt, max_tokens=max_tokens,
                          sampling=SamplingParams.from_request(body),
-                         emit=lambda t, f: out.put((t, f)))
+                         emit=lambda t, f: out.put((t, f)),
+                         constraint=constraint)
         self.engine.submit(req)
         return out, req
 
@@ -335,13 +442,13 @@ def _make_handler(server: TPUServeServer):
                     return
                 prompt = (self.srv.encode_chat(body) if chat
                           else self.srv.encode_text(body))
-                self.srv.check_unsupported(body)
+                constraint, cmode = self.srv.check_request(body, chat)
             except oai.SchemaError as e:
                 self._error(400, str(e))
                 return
-            self._generate(body, prompt, chat)
+            self._generate(body, prompt, chat, constraint, cmode)
 
-        def _generate(self, body, prompt, chat):
+        def _generate(self, body, prompt, chat, constraint, cmode):
             srv = self.srv
             stream = bool(body.get("stream", False))
             rid = (f"chatcmpl-{uuid.uuid4().hex[:24]}" if chat
@@ -351,7 +458,7 @@ def _make_handler(server: TPUServeServer):
             stop_strs = [stops] if isinstance(stops, str) \
                 else list(stops or [])
             try:
-                out, req = srv.submit(prompt, body)
+                out, req = srv.submit(prompt, body, constraint)
             except EngineOverloadedError as e:
                 self._error(429, str(e), "rate_limit_error",
                             headers={"retry-after": "1"})
@@ -370,10 +477,27 @@ def _make_handler(server: TPUServeServer):
                     return
                 usage = oai.TokenUsage(n_prompt, n_out, n_prompt + n_out,
                                        req.prefix_reused)
+                tool_calls = None
+                if cmode is not None and cmode["mode"] == "tool":
+                    env = constrain.parse_tool_envelope(text, cmode["names"])
+                    if env is not None:
+                        tool_calls = [{
+                            "id": f"call_{uuid.uuid4().hex[:24]}",
+                            "type": "function",
+                            "function": {"name": env[0],
+                                         "arguments": env[1]},
+                        }]
+                        text = ""
+                        if finish == "stop":
+                            finish = "tool_calls"
+                    # no envelope: auto mode's plain content, or a
+                    # required/named reply cut by max_tokens, returned as
+                    # content with finish "length"
                 if chat:
                     resp = oai.chat_completion_response(
                         model=srv.model_name, content=text,
-                        finish_reason=finish, usage=usage, response_id=rid)
+                        finish_reason=finish, usage=usage, response_id=rid,
+                        tool_calls=tool_calls)
                 else:
                     resp = oai.completion_response(
                         model=srv.model_name, text=text,
@@ -383,13 +507,13 @@ def _make_handler(server: TPUServeServer):
                 return
             try:
                 self._stream(out, req, chat, rid, created, stop_strs,
-                             n_prompt, oai.include_stream_usage(body))
+                             n_prompt, oai.include_stream_usage(body), cmode)
             except (BrokenPipeError, ConnectionResetError):
                 req.cancelled.set()  # client went away: free the slot
                 self.close_connection = True
 
         def _stream(self, out, req, chat, rid, created, stop_strs,
-                    n_prompt, include_usage):
+                    n_prompt, include_usage, cmode):
             srv = self.srv
             self.send_response(200)
             self.send_header("content-type", "text/event-stream")
@@ -412,6 +536,51 @@ def _make_handler(server: TPUServeServer):
                         created=created, text=piece)
                 self.wfile.write(frame)
                 self.wfile.flush()
+
+            # tool calls: a required/named reply is a grammar-forced
+            # envelope, split into tool_calls deltas as it arrives; auto
+            # mode holds text back only while it is still a viable
+            # envelope prefix, then streams it as content or a tool call
+            tool_stream = auto_detect = None
+            if cmode is not None and cmode["mode"] == "tool":
+                if cmode["choice"] == "auto":
+                    auto_detect = constrain.AutoToolDetector(cmode["names"])
+                else:
+                    tool_stream = constrain.ToolCallParser()
+            tool_call_id = f"call_{uuid.uuid4().hex[:24]}"
+
+            def write_tool_events(events) -> None:
+                for ev in events:
+                    if ev[0] == "name":
+                        call = {"index": 0, "id": tool_call_id,
+                                "type": "function",
+                                "function": {"name": ev[1],
+                                             "arguments": ""}}
+                    elif ev[0] == "args" and ev[1]:
+                        call = {"index": 0,
+                                "function": {"arguments": ev[1]}}
+                    else:
+                        continue
+                    self.wfile.write(oai.stream_chunk_sse(
+                        response_id=rid, model=srv.model_name,
+                        created=created, delta={"tool_calls": [call]}))
+                    self.wfile.flush()
+
+            def emit_text(piece: str) -> None:
+                nonlocal tool_stream
+                if tool_stream is not None:
+                    write_tool_events(tool_stream.feed(piece))
+                    return
+                if auto_detect is not None and auto_detect.decided is None:
+                    decision, text_out = auto_detect.feed(piece)
+                    if decision is None:
+                        return  # still a viable envelope prefix
+                    if decision == "tool":
+                        tool_stream = constrain.ToolCallParser()
+                        write_tool_events(tool_stream.feed(text_out))
+                        return
+                    piece = text_out  # diverged: the held text is content
+                write_piece(piece)
 
             if chat:
                 self.wfile.write(oai.stream_chunk_sse(
@@ -452,7 +621,15 @@ def _make_handler(server: TPUServeServer):
                             pieces.append(decoder.flush())
                         done = True
                         break
-                write_piece("".join(pieces))
+                emit_text("".join(pieces))
+            if auto_detect is not None and tool_stream is None:
+                # ended while still ambiguous: the held text was content
+                decision, rest = auto_detect.finish()
+                if decision == "content" and rest:
+                    write_piece(rest)
+            if tool_stream is not None and tool_stream.completed \
+                    and finish == "stop":
+                finish = "tool_calls"
             usage = (oai.TokenUsage(n_prompt, n_out, n_prompt + n_out,
                                     req.prefix_reused)
                      if include_usage else None)

@@ -38,6 +38,22 @@ Phases (any failure exits non-zero):
    prefill and TTFT beside the cache on's, and how many greedy streams
    the two share (reported, not gated: bf16 on the card is not
    bit-stable across call shapes);
+   grammar-constrained decoding, on the fused rung with the prefix cache
+   on (the ``serve_constrained`` line): the grammars compiled in process
+   (timed), a warm-up request caching the shared system message's two
+   pages, then a burst of 8 chats (256 new tokens at most): two
+   ``json_schema`` (a nested object with an enum; an array of at most 3
+   strings), one seeded ``json_object`` body sent streamed and not, a
+   required and a named tool call over two functions, ``tool_choice:
+   "auto"`` and a plain request. Every schema and tool reply must finish
+   with ``stop`` or ``tool_calls``, parse and validate; a ``json_object``
+   reply that runs to ``length`` must be a prefix the grammar accepts;
+   ``constraint_requests`` must rise by exactly 6 and rollbacks be
+   above 0; K1 and K2 must launch; the two ``json_object`` replies, and a
+   seeded tool call sent both ways, must be equal. Then the chained rung
+   at a fixed draft width of 4: two greedy schema replies beside two
+   pinned requests (K5), one seeded schema reply alone (K3); both must
+   launch and drafts be accepted;
    speculative decoding on the same weights: the chained rung with a
    fixed draft width of 4, so every window verifies through K5 at S = 5,
    serving the burst plus two greedy requests pinned to one token by
@@ -1661,6 +1677,319 @@ def spec_prefix_phase(srv, restart, params) -> None:
         raise AssertionError(f"K5 not launched: {counts}")
 
 
+# -- grammar-constrained decoding ---------------------------------------------
+CN_MAX_TOKENS = 256
+#: the schemas and tools of the constrained phase; each one's longest
+#: valid output is under 200 characters (the byte tokenizer emits one
+#: character a token), so every reply can finish inside CN_MAX_TOKENS
+CN_SCHEMA_NESTED = {
+    "type": "object", "properties": {
+        "name": {"type": "string", "maxLength": 12},
+        "kind": {"enum": ["cat", "dog", "bird"]},
+        "owner": {"type": "object", "properties": {
+            "id": {"type": "integer"}, "vip": {"type": "boolean"}},
+            "required": ["id", "vip"]}},
+    "required": ["name", "kind", "owner"], "additionalProperties": False}
+CN_SCHEMA_ARRAY = {
+    "type": "object", "properties": {
+        "tags": {"type": "array", "maxItems": 3,
+                 "items": {"type": "string", "maxLength": 12}},
+        "score": {"type": "number"}},
+    "required": ["tags", "score"]}
+CN_TOOLS = [
+    {"type": "function", "function": {
+        "name": "get_weather", "parameters": {
+            "type": "object", "properties": {
+                "city": {"type": "string", "maxLength": 12},
+                "unit": {"enum": ["c", "f"]}},
+            "required": ["city", "unit"], "additionalProperties": False}}},
+    {"type": "function", "function": {
+        "name": "get_time", "parameters": {
+            "type": "object", "properties": {
+                "tz": {"type": "string", "maxLength": 12}},
+            "required": ["tz"], "additionalProperties": False}}}]
+#: the shared system message: the rendered prompts of the phase agree on
+#: their first two 128-token pages, which the warm-up request caches, so
+#: every request of the burst resumes at 256 through K1
+CN_SYSTEM = ("You answer in JSON. " * 16)[:300]
+
+
+def _cn_requests() -> list[tuple[str, bool, dict]]:
+    """The burst: (what, streamed, body). Greedy and seeded at 0.8 half
+    each, four streamed; the two json_object requests are one seeded
+    body sent both ways."""
+    def chat(i, what, stream, greedy, **extra):
+        body = {"model": "llama-3-8b-random", "max_tokens": CN_MAX_TOKENS,
+                "temperature": 0.0 if greedy else 0.8, "seed": 500 + i,
+                "stream": stream, "messages": [
+                    {"role": "system", "content": CN_SYSTEM},
+                    {"role": "user", "content": f"request {i}: {what}"}],
+                **extra}
+        if stream:
+            body["stream_options"] = {"include_usage": True}
+        return (what, stream, body)
+
+    def schema(s):
+        return {"type": "json_schema",
+                "json_schema": {"name": "out", "schema": s}}
+
+    obj = {"response_format": {"type": "json_object"}}
+    pair = chat(2, "json_object", False, False, **obj)
+    twin = ("json_object", True, {**pair[2], "stream": True,
+                                  "stream_options": {"include_usage": True}})
+    return [
+        chat(0, "json_schema", False, True,
+             response_format=schema(CN_SCHEMA_NESTED)),
+        chat(1, "json_schema", True, False,
+             response_format=schema(CN_SCHEMA_ARRAY)),
+        pair, twin,
+        chat(4, "required", True, True, tools=CN_TOOLS,
+             tool_choice="required"),
+        chat(5, "named", False, True, tools=CN_TOOLS, tool_choice={
+            "type": "function", "function": {"name": "get_time"}}),
+        chat(6, "auto", False, False, tools=CN_TOOLS, tool_choice="auto"),
+        chat(7, "plain", True, True),
+    ]
+
+
+def _cn_call(port: int, stream: bool, body: dict) -> dict:
+    """One chat request: its finish, completion tokens, content and tool
+    call (name, arguments), from the JSON reply or reassembled from the
+    stream's deltas; the stream's tool-call deltas are held to the
+    OpenAI shape (a first delta with the call's id, type and name, then
+    argument deltas)."""
+    status, ctype, raw = _http(port, "/v1/chat/completions", body)
+    out = _check_response("chat", stream, status, ctype, raw)
+    if not stream:
+        msg = json.loads(raw)["choices"][0]["message"]
+        calls = msg.get("tool_calls") or []
+        call = ((calls[0]["function"]["name"],
+                 calls[0]["function"]["arguments"]) if calls else None)
+        if calls and not (len(calls) == 1 and calls[0]["type"] == "function"
+                          and len(calls[0]["id"]) == 29):
+            raise AssertionError(f"tool_calls {calls}")
+        return {**out, "content": msg.get("content") or "", "call": call}
+    chunks = [json.loads(ln[6:]) for ln in raw.split("\n")
+              if ln.startswith("data: ") and ln[6:] != "[DONE]"]
+    content, name, args, first = "", None, "", None
+    for c in chunks:
+        for ch in c["choices"]:
+            delta = ch["delta"]
+            content += delta.get("content") or ""
+            for t in delta.get("tool_calls") or []:
+                if first is None:
+                    first = t
+                    name = t["function"]["name"]
+                    if not (t.get("id", "").startswith("call_")
+                            and len(t["id"]) == 29
+                            and t.get("type") == "function"
+                            and t["function"]["arguments"] == ""):
+                        raise AssertionError(f"first tool-call delta {t}")
+                elif set(t) != {"index", "function"}:
+                    raise AssertionError(f"tool-call delta {t}")
+                args += t["function"].get("arguments") or ""
+    return {**out, "content": content,
+            "call": (name, args) if name is not None else None}
+
+
+def _cn_check(constrain, fsm_json_object, what: str, body: dict,
+              r: dict) -> None:
+    """The phase's gates for one reply."""
+    params = {t["function"]["name"]: t["function"]["parameters"]
+              for t in CN_TOOLS}
+    if what == "json_schema":
+        schema = body["response_format"]["json_schema"]["schema"]
+        if r["finish"] != "stop" or not constrain.validate_instance(
+                schema, json.loads(r["content"])):
+            raise AssertionError(f"json_schema reply {r}")
+    elif what in ("required", "named"):
+        want = (body["tool_choice"]["function"]["name"] if what == "named"
+                else None)
+        if r["finish"] != "tool_calls" or r["call"] is None \
+                or r["content"] or r["call"][0] not in params \
+                or want not in (None, r["call"][0]) \
+                or not constrain.validate_instance(
+                    params[r["call"][0]], json.loads(r["call"][1])):
+            raise AssertionError(f"{what} tool reply {r}")
+    elif what == "json_object":
+        if r["finish"] == "stop":
+            if not isinstance(json.loads(r["content"]), dict):
+                raise AssertionError(f"json_object reply {r}")
+        else:
+            st = fsm_json_object.new_state()
+            if r["finish"] != "length" or not all(
+                    st.advance(b) for b in r["content"].encode()):
+                raise AssertionError(f"json_object reply is not a prefix "
+                                     f"the grammar accepts: {r}")
+    elif what == "auto" and r["call"] is not None:
+        if r["finish"] != "tool_calls" or not constrain.validate_instance(
+                params[r["call"][0]], json.loads(r["call"][1])):
+            raise AssertionError(f"auto tool reply {r}")
+
+
+def _cn_burst(port: int, reqs) -> tuple[list[dict], float]:
+    results: list = [None] * len(reqs)
+
+    def one(i):
+        try:
+            results[i] = _cn_call(port, reqs[i][1], reqs[i][2])
+        except Exception as e:  # noqa: BLE001 — reported below
+            results[i] = e
+
+    t = time.monotonic()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(reqs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.monotonic() - t
+    for i, r in enumerate(results):
+        if not isinstance(r, dict):
+            raise AssertionError(f"constrained request {i} failed: {r!r}")
+    return results, wall
+
+
+CN_STATE_KEYS = ("constraint_requests", "constraint_rollbacks",
+                 "constraint_mask_updates", "constraint_grammars",
+                 "constrained_slots", "spec_accepted", "spec_drafted",
+                 "prefix_cache_hits", "prefix_tokens_reused",
+                 "tokens_generated", "decode_steps")
+
+
+def serve_constrained_phase(srv, restart, params) -> None:
+    """Grammar-constrained serving (the ``serve_constrained`` line): the
+    fused rung with the prefix cache on, as a default replica serves.
+    The grammars compile in process first (timed; the first pays the
+    token table over the whole vocabulary); one warm-up request caches
+    the system message's pages; then the burst of 8, gated reply by
+    reply, ``constraint_requests`` up by exactly 6, rollbacks above 0,
+    K1 and K2 launched, and the json_object pair (one seeded body,
+    streamed and not) equal. Then the chained rung at a fixed draft
+    width of 4 serves two greedy json_schema requests beside the two
+    pinned ones (K5 while a
+    greedy slot lives), then one seeded json_schema request alone (no
+    draft controller: plain windows, K3): K5 and K3 must launch, drafts
+    be accepted and the constrained replies validate."""
+    from aigw_tpu_torch.tpuserve import constrain
+
+    restart(params, decode_backend="fused", enable_prefix_cache=True)
+    eng = srv.engine
+    tok, V = srv.tokenizer, srv.model_cfg.vocab_size
+    eos = (tok.eos_id,)
+    compile_ms = {}
+    for name, spec in (
+            ("json_schema_nested", constrain.spec_for_response_format(
+                "json_schema", CN_SCHEMA_NESTED)),
+            ("json_schema_array", constrain.spec_for_response_format(
+                "json_schema", CN_SCHEMA_ARRAY)),
+            ("json_object", constrain.spec_for_response_format(
+                "json_object", None)),
+            ("tools", constrain.spec_for_tools(
+                constrain.parse_tools(CN_TOOLS)))):
+        t = time.monotonic()
+        fsm = constrain.compile_constraint(tok, V, eos, spec)
+        fsm.mask(fsm.root)
+        compile_ms[name] = 1e3 * (time.monotonic() - t)
+    fsm_obj = constrain.compile_constraint(
+        tok, V, eos, constrain.spec_for_response_format("json_object", None))
+    reqs = _cn_requests()
+    t = time.monotonic()
+    warm, _ = _cn_burst(srv.port, [reqs[0]])
+    warmup_s = time.monotonic() - t
+    _cn_check(constrain, fsm_obj, reqs[0][0], reqs[0][2], warm[0])
+
+    before = json.loads(_http(srv.port, "/state")[2])
+    st0 = {k: getattr(eng.stats, k) for k in (
+        "constraint_host_ms", "constraint_windows",
+        "constraint_slot_windows")}
+    reset_counts()
+    results, wall = _cn_burst(srv.port, reqs)
+    counts = read_counts()
+    after = json.loads(_http(srv.port, "/state")[2])
+    st1 = {k: getattr(eng.stats, k) - v for k, v in st0.items()}
+    for (what, _stream, body), r in zip(reqs, results):
+        _cn_check(constrain, fsm_obj, what, body, r)
+    delta = {k: after[k] - before[k] for k in CN_STATE_KEYS}
+    if delta["constraint_requests"] != 6:
+        raise AssertionError(f"constraint_requests rose by "
+                             f"{delta['constraint_requests']}, not 6")
+    if delta["constraint_rollbacks"] <= 0:
+        raise AssertionError("no constraint rollback in the burst")
+    if counts["ragged_prefill_attention"] <= 0 \
+            or counts["fused_paged_decode"] <= 0:
+        raise AssertionError(f"K1 / K2 not launched: {counts}")
+    if results[2]["content"] != results[3]["content"] \
+            or results[2]["finish"] != results[3]["finish"]:
+        raise AssertionError(f"streamed differs from non-streamed: "
+                             f"{results[2]} / {results[3]}")
+    cn_idx = [i for i, (what, _s, _b) in enumerate(reqs)
+              if what not in ("auto", "plain")]
+    # every token but the prefill's first comes from a window
+    window_tokens = sum(results[i]["n"] - 1 for i in cn_idx)
+    # a seeded tool call sent both ways, alone beside its twin
+    call_twin = ("required", True, {**reqs[4][2], "temperature": 0.8,
+                                    "seed": 77})
+    call = ("required", False, {
+        k: v for k, v in call_twin[2].items() if k != "stream_options"}
+        | {"stream": False})
+    pair, _ = _cn_burst(srv.port, [call, call_twin])
+    for (what, _s, body), r in zip((call, call_twin), pair):
+        _cn_check(constrain, fsm_obj, what, body, r)
+    if pair[0]["call"] != pair[1]["call"]:
+        raise AssertionError(f"streamed tool call differs: {pair}")
+    fused = {
+        "burst_wall_s": wall, "warmup_request_s": warmup_s,
+        "grammar_compile_ms": compile_ms,
+        "finishes": [r["finish"] for r in results],
+        "new_tokens": [r["n"] for r in results],
+        "emitted_tokens_per_window_per_constrained_slot":
+            window_tokens / max(1, st1["constraint_slot_windows"]),
+        "windows_with_constrained_slots": st1["constraint_windows"],
+        "constraint_host_ms_per_window":
+            st1["constraint_host_ms"] / max(1, st1["constraint_windows"]),
+        **delta, "launches": counts}
+
+    # the chained rung at a fixed draft width of 4
+    restart(params, pallas_attn=True, spec_tokens=4, spec_adaptive=False,
+            enable_prefix_cache=True)
+    seeded = ("json_schema", False, {
+        k: v for k, v in reqs[1][2].items() if k != "stream_options"}
+        | {"stream": False})
+    spec_reqs = [reqs[0], ("json_schema", False,
+                           seeded[2] | {"temperature": 0.0})]
+    before = json.loads(_http(srv.port, "/state")[2])
+    reset_counts()
+    t = time.monotonic()
+    pinned: list = []
+    th = threading.Thread(target=lambda: pinned.extend(
+        serve_phase(srv.port, _pinned_requests(2))))
+    th.start()
+    spec_results, _ = _cn_burst(srv.port, spec_reqs)
+    th.join(timeout=900)
+    spec_wall = time.monotonic() - t
+    k3_results, k3_wall = _cn_burst(srv.port, [seeded])
+    spec_counts = read_counts()
+    after = json.loads(_http(srv.port, "/state")[2])
+    _check_pinned(pinned)
+    for (what, _s, body), r in zip(spec_reqs + [seeded],
+                                   spec_results + k3_results):
+        _cn_check(constrain, fsm_obj, what, body, r)
+    spec_delta = {k: after[k] - before[k] for k in CN_STATE_KEYS}
+    if spec_counts["paged_attention_verify"] <= 0 \
+            or spec_counts["paged_attention_decode_v2"] <= 0:
+        raise AssertionError(f"K5 / K3 not launched: {spec_counts}")
+    if spec_delta["spec_accepted"] <= 0:
+        raise AssertionError("no draft accepted on the chained rung")
+    print(json.dumps({"serve_constrained": {
+        "card": nvidia_smi_line(), "fused": fused,
+        "chained_spec": {"wall_s": spec_wall, "seeded_alone_wall_s": k3_wall,
+                         "finishes": [r["finish"] for r in spec_results
+                                      + k3_results],
+                         **spec_delta, "launches": spec_counts}}}),
+          flush=True)
+
+
 def resume_check(torch, params, cfg, dev: str = "cuda") -> dict:
     """K1 at the prefix cache's resume geometry in the model: one
     ``prefill_ragged`` of a prompt's 8 full pages, then its remaining 150
@@ -1840,6 +2169,9 @@ def main() -> int:
         prefix_reqs = _prefix_requests(np.random.default_rng(7))
         serve_prefix_phase(torch, srv, restart, params, prefix_reqs,
                            launches)
+
+        # grammar-constrained decoding (serve_constrained)
+        serve_constrained_phase(srv, restart, params)
 
         # the chained rung: restart the engine with pallas_attn
         restart(params, pallas_attn=True)

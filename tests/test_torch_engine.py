@@ -268,8 +268,8 @@ def test_engine_request_filling_max_seq_len(weights, rung):
 
 
 def test_engine_config_refuses_unported_knobs():
-    for kw in (dict(constrained_decoding=True), dict(logprobs_topk=2),
-               dict(kv_host_bytes=1 << 20), dict(tenant_slot_cap=1)):
+    for kw in (dict(logprobs_topk=2), dict(kv_host_bytes=1 << 20),
+               dict(tenant_slot_cap=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tengine.EngineConfig(**kw)
     with pytest.raises(NotImplementedError, match="gather"):
@@ -279,8 +279,8 @@ def test_engine_config_refuses_unported_knobs():
 
 
 def test_engine_config_defaults_match_reference():
-    """Every field the port keeps has the reference's default, except the
-    documented difference (constrained decoding)."""
+    """Every field the port keeps has the reference's default
+    (constrained decoding and the prefix cache on among them)."""
     import dataclasses
 
     ref = {f.name: f.default for f in dataclasses.fields(
@@ -288,9 +288,9 @@ def test_engine_config_defaults_match_reference():
     port = {f.name: f.default for f in dataclasses.fields(
         tengine.EngineConfig)}
     differ = {k for k in port if port[k] != ref[k]}
-    assert differ == set(tengine.DEFAULTS_DIFFER) \
-        == {"constrained_decoding"}
+    assert differ == set(tengine.DEFAULTS_DIFFER) == set()
     assert port["enable_prefix_cache"] is True
+    assert port["constrained_decoding"] is True
 
 
 # -- quantized serving ---------------------------------------------------------

@@ -11,6 +11,8 @@ atol: float32 2e-5 and 2e-5 (summation order), bfloat16 2**-7 and 2e-3
 (one bf16 ulp of the plain output: the two float32 results may round to
 neighbouring bf16 values, the limit chip_smoke.py holds the kernels
 to); the fused decode kernel's pools must match byte for byte in both.
+The constrained engine's streams on the card equal the CPU's, and the
+pool rows it rewrote after grammar rollbacks equal a cold prefill.
 """
 
 import pytest
@@ -482,3 +484,168 @@ def test_paged_decode_mq_kernel(cuda, geom, dtype, case):
                                atol=TOL[dtype][1])
     assert torch.equal(got, again)
     assert not got[lens == 0].any()
+
+
+# -- grammar-constrained serving: streams and rows across rollbacks -----------
+CN_SCHEMA = {"type": "object", "properties": {
+    "t": {"type": "string", "maxLength": 12},
+    "n": {"type": "integer"},
+    "k": {"enum": ["cat", "dog"]}},
+    "required": ["t", "n", "k"], "additionalProperties": False}
+CN_TOOLS = [{"type": "function", "function": {
+    "name": "get_weather", "parameters": {"type": "object", "properties": {
+        "city": {"type": "string", "maxLength": 6}},
+        "required": ["city"], "additionalProperties": False}}}]
+#: rungs the constrained engine runs on: the fused rung (K2), and the
+#: chained rung speculating at width 4 (K5 verifies, K3 decodes)
+CN_RUNGS = {
+    "fused": dict(decode_backend="fused"),
+    "chained_spec": dict(decode_backend="auto", pallas_attn=True,
+                         spec_tokens=4, spec_adaptive=False),
+}
+
+
+def _cn_engine(device, params, kv_dtype, rung):
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    return Engine({k: v.to(device) for k, v in params.items()}, llama.TINY,
+                  EngineConfig(max_batch_size=4, max_seq_len=128,
+                               page_size=16, decode_steps_per_tick=4,
+                               kv_cache_dtype=kv_dtype,
+                               attention_backend="pallas-ragged",
+                               **CN_RUNGS[rung]),
+                  eos_token_ids=(257,), device=device)
+
+
+def _cn_requests(streams):
+    """A constrained batch (json_schema greedy and seeded, json_object,
+    a required tool call) and a plain request; emitted tokens land in
+    ``streams``."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve import constrain
+    from aigw_tpu_torch.tpuserve.engine import GenRequest
+    from aigw_tpu_torch.tpuserve.sampling import SamplingParams
+    from aigw_tpu_torch.tpuserve.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+
+    def fsm(spec):
+        return constrain.compile_constraint(tok, llama.TINY.vocab_size,
+                                            (257,), spec)
+
+    schema = fsm(constrain.spec_for_response_format("json_schema",
+                                                    CN_SCHEMA))
+    cases = [
+        ("a json reply", dict(temperature=0.0), schema),
+        ("seeded", dict(temperature=0.8, seed=5), schema),
+        ("object", dict(temperature=0.7, seed=9), fsm(
+            constrain.spec_for_response_format("json_object", None))),
+        ("call a tool", dict(temperature=0.0), fsm(
+            constrain.spec_for_tools(constrain.parse_tools(CN_TOOLS)))),
+        ("plain text", dict(temperature=0.0), None),
+    ]
+    reqs = []
+    for i, (prompt, kw, cn) in enumerate(cases):
+        streams.append([])
+
+        def emit(t, f, out=streams[i]):
+            if t >= 0:
+                out.append(t)
+            if f is not None:
+                out.append(f)
+
+        reqs.append(GenRequest(prompt=tok.encode(prompt), max_tokens=60,
+                               sampling=SamplingParams(**kw), emit=emit,
+                               constraint=cn))
+    return reqs
+
+
+def _cn_serve(eng, reqs):
+    """Serve ``reqs`` on the engine's own loop, driven from this thread
+    (admit, then tick) until every request has finished."""
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(5000):
+        eng._admit()
+        if not eng._decode_tick() and eng._queue.empty():
+            break
+    assert all(s is None for s in eng._slots)
+
+
+@pytest.mark.parametrize("rung", sorted(CN_RUNGS))
+def test_constrained_streams_match_cpu(cuda, rung):
+    """The constrained engine on the card (the kernels) and on the CPU
+    (their plain versions), float32, the same weights: identical streams
+    and the same rollback and mask-patch counts; on the chained rung
+    drafts are verified (K5) and accepted."""
+    from aigw_tpu_torch.models import llama
+
+    params = llama.init_params(0, llama.TINY, torch.float32, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = _cn_engine(dev, params, "float32", rung)
+        streams: list = []
+        _cn_serve(eng, _cn_requests(streams))
+        out[str(dev)] = (streams, eng.stats)
+    (cpu, cst), (gpu, gst) = out["cpu"], out[str(cuda)]
+    assert gpu == cpu
+    assert gst.constraint_rollbacks == cst.constraint_rollbacks > 0
+    assert gst.constraint_mask_updates == cst.constraint_mask_updates
+    assert gst.constraint_requests == cst.constraint_requests == 4
+    assert gst.spec_accepted == cst.spec_accepted
+    if rung == "chained_spec":
+        assert gst.spec_accepted > 0
+
+
+@pytest.mark.parametrize("rung", sorted(CN_RUNGS))
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_rows_rewritten_after_a_cut(cuda, kv_dtype, rung):
+    """After windows cut by grammar rollbacks (the window in flight wrote
+    K/V past the cut, later windows wrote those rows again), each live
+    slot's pool rows [0, pos) equal a cold prefill of its prompt and
+    emitted tokens, within the card tolerance of the pool's dtype."""
+    from aigw_tpu_torch.models import kvq, llama
+
+    cfg = llama.TINY
+    params = llama.init_params(0, cfg, torch.float32, "cpu")
+    eng = _cn_engine(cuda, params, kv_dtype, rung)
+    streams: list = []
+    for r in _cn_requests(streams):
+        r.max_tokens = 100
+        eng.submit(r)
+    for _ in range(400):
+        eng._admit()
+        eng._decode_tick()
+        live = [s for s in eng._slots if s is not None and s.cn is not None
+                and s.pos > len(s.req.prompt) + 8]
+        if eng.stats.constraint_rollbacks >= 6 and len(live) >= 2:
+            break
+    eng._drain_inflight()
+    live = [s for s in eng._slots if s is not None]
+    assert eng.stats.constraint_rollbacks >= 6 and live
+    ps = eng.cfg.page_size
+    rtol, atol = TOL[kvq.compute_dtype(kv_dtype)]
+    for s in live:
+        toks = s.req.prompt + s.gen_tokens[:-1]
+        n = len(toks)
+        assert n == s.pos
+        rows = torch.tensor([int(s.page_row[r // ps]) * ps + r % ps
+                             for r in range(n)], device=cuda)
+        got = eng.kv_cache[:, :, rows]
+        P = -(-n // ps)
+        pool = kvq.make_pool((cfg.n_layers, 2, (P + 1) * ps, cfg.n_kv_heads,
+                              cfg.head_dim), kv_dtype, cuda)
+        T = P * ps
+        tk = torch.zeros(T, dtype=torch.int32, device=cuda)
+        tk[:n] = torch.tensor(toks, device=cuda)
+        row_seq = torch.ones(T, dtype=torch.int32, device=cuda)
+        row_seq[:n] = 0
+        pos = torch.zeros(T, dtype=torch.int32, device=cuda)
+        pos[:n] = torch.arange(n, device=cuda)
+        _, cold = llama.prefill_ragged(
+            eng.params, cfg, tk, row_seq, pos,
+            torch.tensor([n - 1], dtype=torch.int32, device=cuda), pool,
+            torch.arange(P, dtype=torch.int32, device=cuda)[None], ps)
+        torch.testing.assert_close(got.float(), cold[:, :, :n].float(),
+                                   rtol=rtol, atol=atol)

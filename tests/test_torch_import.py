@@ -89,6 +89,16 @@ def test_speculation_modules_are_covered():
         assert _build.library.cache_info().currsize == 0  # nothing built
 
 
+def test_constraint_modules_are_covered():
+    """The grammar-constrained decoding modules are in the scans above:
+    the port's own copies, never the reference's JAX-free modules."""
+    for m in ("aigw_tpu_torch.tpuserve.constrain",
+              "aigw_tpu_torch.translate.structured"):
+        assert m in MODULES, m
+    names = _imported_names(PKG / "tpuserve" / "constrain.py")
+    assert "aigw_tpu_torch.translate.structured" in names
+
+
 def test_cuda_request_without_cuda_raises():
     from aigw_tpu_torch.device import resolve_device
 

@@ -36,6 +36,18 @@ def server():
     srv.stop()
 
 
+@pytest.fixture(scope="module")
+def server_knob_off():
+    """A replica started as ``--no-constrained-decoding`` would start
+    it."""
+    srv = TPUServeServer(MODEL, tengine.EngineConfig(
+        **CFG, constrained_decoding=False), device="cpu", port=0,
+        param_dtype="float32")
+    srv.start()
+    yield srv
+    srv.stop()
+
+
 def _post(srv, path, body):
     req = urllib.request.Request(
         f"http://127.0.0.1:{srv.port}{path}", data=json.dumps(body).encode(),
@@ -170,9 +182,17 @@ def test_models_health_state(server):
         assert key in state, key
     assert state["attention_backend"] == "pallas-ragged"
     assert state["decode_attn_impl"] == "fused-torch"
-    assert state["constrained_decoding"] is False
-    assert state["enable_prefix_cache"] is True  # the reference's default
-    assert set(state["defaults_differ"]) == {"constrained_decoding"}
+    # the reference's defaults: constrained decoding and the prefix cache
+    # on, no default differing
+    assert state["constrained_decoding"] is True
+    assert state["enable_prefix_cache"] is True
+    assert state["defaults_differ"] == {}
+    assert models["data"][0]["capabilities"] == state["capabilities"]
+    assert state["capabilities"]["tools"] is True
+    for key in ("constrained_slots", "constraint_requests",
+                "constraint_rollbacks", "constraint_mask_updates",
+                "constraint_grammars"):
+        assert isinstance(state[key], int), key
 
 
 SPEC_KEYS = ("spec_accepted", "spec_drafted", "spec_accept_rate",
@@ -202,17 +222,23 @@ def test_state_carries_speculation_keys():
         state["spec_accepted"] / state["spec_drafted"], 4)
 
 
-@pytest.mark.parametrize("body", [
-    {"messages": MSGS},  # no model
-    {"model": MODEL, "messages": MSGS,
-     "response_format": {"type": "json_object"}},
-    {"model": MODEL, "messages": MSGS, "logprobs": True},
+@pytest.mark.parametrize("body,knob_off", [
+    ({"messages": MSGS}, False),  # no model
+    # served by default: refused by a --no-constrained-decoding replica
+    ({"model": MODEL, "messages": MSGS,
+      "response_format": {"type": "json_object"}}, True),
+    ({"model": MODEL, "messages": MSGS, "logprobs": True}, False),
 ], ids=["missing_model", "response_format", "logprobs"])
-def test_bad_requests_get_400(server, body):
+def test_bad_requests_get_400(server, server_knob_off, body, knob_off):
     with pytest.raises(urllib.error.HTTPError) as e:
-        _post(server, "/v1/chat/completions", body)
+        _post(server_knob_off if knob_off else server,
+              "/v1/chat/completions", body)
     assert e.value.code == 400
-    assert "error" in json.loads(e.value.read())
+    err = json.loads(e.value.read())["error"]
+    if knob_off:
+        assert err["message"] == (
+            "this server was started with --no-constrained-decoding; "
+            "response_format json modes and tool calling are unavailable")
 
 
 def test_stop_string_ends_stream(server):
