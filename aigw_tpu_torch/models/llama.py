@@ -95,14 +95,15 @@ TINY_QWEN = LlamaConfig(
 )
 
 
-def init_params(seed: int, cfg: LlamaConfig, dtype=torch.bfloat16,
-                device: str | torch.device = "cuda"
-                ) -> dict[str, torch.Tensor]:
+def iter_params(seed: int, cfg: LlamaConfig, dtype=torch.bfloat16,
+                device: str | torch.device = "cuda"):
     """Random weights from a seeded ``torch.Generator`` on ``device``,
-    with the reference's scales (``init_params``: dense weights
-    N(0, 1/in), embeddings N(0, 0.02²), norms one, biases zero). The
-    draws differ from ``jax.random``'s; parity tests carry the
-    reference's own weights across with ``models.convert``."""
+    yielded as ``(name, tensor)`` one at a time in ``init_params``'
+    order, so a caller can quantize each as it is drawn. The scales are
+    the reference's (``init_params``: dense weights N(0, 1/in),
+    embeddings N(0, 0.02²), norms one, biases zero). The draws differ
+    from ``jax.random``'s; parity tests carry the reference's own
+    weights across with ``models.convert``."""
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -119,45 +120,56 @@ def init_params(seed: int, cfg: LlamaConfig, dtype=torch.bfloat16,
     def zeros(n):
         return torch.zeros((n,), dtype=dtype, device=device)
 
-    p = {"embed": dense((cfg.vocab_size, cfg.dim), scale=0.02),
-         "norm_f": ones(cfg.dim)}
+    yield "embed", dense((cfg.vocab_size, cfg.dim), scale=0.02)
+    yield "norm_f", ones(cfg.dim)
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense((cfg.dim, cfg.vocab_size))
+        yield "lm_head", dense((cfg.dim, cfg.vocab_size))
     hd = cfg.head_dim
     for i in range(cfg.n_layers):
-        p[f"l{i}.attn_norm"] = ones(cfg.dim)
-        p[f"l{i}.wq"] = dense((cfg.dim, cfg.n_heads * hd))
-        p[f"l{i}.wk"] = dense((cfg.dim, cfg.n_kv_heads * hd))
-        p[f"l{i}.wv"] = dense((cfg.dim, cfg.n_kv_heads * hd))
+        yield f"l{i}.attn_norm", ones(cfg.dim)
+        yield f"l{i}.wq", dense((cfg.dim, cfg.n_heads * hd))
+        yield f"l{i}.wk", dense((cfg.dim, cfg.n_kv_heads * hd))
+        yield f"l{i}.wv", dense((cfg.dim, cfg.n_kv_heads * hd))
         if cfg.attn_bias:
-            p[f"l{i}.bq"] = zeros(cfg.n_heads * hd)
-            p[f"l{i}.bk"] = zeros(cfg.n_kv_heads * hd)
-            p[f"l{i}.bv"] = zeros(cfg.n_kv_heads * hd)
-        p[f"l{i}.wo"] = dense((cfg.n_heads * hd, cfg.dim))
-        p[f"l{i}.mlp_norm"] = ones(cfg.dim)
-        p[f"l{i}.w_gate"] = dense((cfg.dim, cfg.ffn_dim))
-        p[f"l{i}.w_up"] = dense((cfg.dim, cfg.ffn_dim))
-        p[f"l{i}.w_down"] = dense((cfg.ffn_dim, cfg.dim))
-    return p
+            yield f"l{i}.bq", zeros(cfg.n_heads * hd)
+            yield f"l{i}.bk", zeros(cfg.n_kv_heads * hd)
+            yield f"l{i}.bv", zeros(cfg.n_kv_heads * hd)
+        yield f"l{i}.wo", dense((cfg.n_heads * hd, cfg.dim))
+        yield f"l{i}.mlp_norm", ones(cfg.dim)
+        yield f"l{i}.w_gate", dense((cfg.dim, cfg.ffn_dim))
+        yield f"l{i}.w_up", dense((cfg.dim, cfg.ffn_dim))
+        yield f"l{i}.w_down", dense((cfg.ffn_dim, cfg.dim))
+
+
+def init_params(seed: int, cfg: LlamaConfig, dtype=torch.bfloat16,
+                device: str | torch.device = "cuda"
+                ) -> dict[str, torch.Tensor]:
+    """Every weight of ``iter_params`` at once."""
+    return dict(iter_params(seed, cfg, dtype, device))
 
 
 def _w(p: dict[str, torch.Tensor], key: str) -> torch.Tensor:
     """A weight stored bf16/f32, int8 + per-channel scale (W8A16) or
-    packed int4 + group scales (W4A16), as the matmul operand: quantized
+    packed int4 + group scales (W4A16), as the matmul operand, over
+    ``[..., in, out]`` (an ``[E, in, out]`` expert stack too): quantized
     weights come back as ``q * scale`` in bf16 with the scale rounded to
-    bf16 first, exactly as the reference's ``_w``."""
+    bf16 first, exactly as the reference's ``_w``. The integer values
+    multiply the bf16 scale in one pass (they convert to bf16 exactly;
+    each product is rounded once, as after an explicit conversion), so
+    the only temporary is the bf16 result."""
     q = p.get(key + ".q")
     if q is None:
         return p[key]
     scale = p[key + ".scale"].to(torch.bfloat16)
     if q.dtype == torch.uint8:
-        # int4 packed along the input axis; scales [in / G, out]
-        wf = kvq.unpack_int4(q, dim=0).to(torch.bfloat16)
-        n_in, n_out = wf.shape
-        groups = scale.shape[0]
-        wf = wf.reshape(groups, n_in // groups, n_out) * scale[:, None, :]
-        return wf.reshape(n_in, n_out)
-    return q.to(torch.bfloat16) * scale
+        # int4 packed along the input axis; scales [..., in / G, out]
+        wi = kvq.unpack_int4(q, dim=-2)
+        *lead, n_in, n_out = wi.shape
+        groups = scale.shape[-2]
+        wf = wi.reshape(*lead, groups, n_in // groups, n_out) \
+            * scale[..., :, None, :]
+        return wf.reshape(*lead, n_in, n_out)
+    return q * scale
 
 
 def _embed_rows(p: dict[str, torch.Tensor],
@@ -356,6 +368,7 @@ def prefill_ragged(
     page_size: int,
     *,
     plain: bool = False,
+    mlp: Any = None,
 ) -> tuple[torch.Tensor, Any]:
     """Ragged prefill: sequence b's new tokens occupy a contiguous run of
     packed rows (grouped and ascending in b, padding at the tail), at
@@ -369,8 +382,11 @@ def prefill_ragged(
     the reference's fallback matrix routes them.
 
     ``plain=True`` runs the kernels' plain versions (K1's and K6's)
-    whatever the device (the on-card reference). Returns (logits at
-    each row's last packed token [B, V] float32, pool)."""
+    whatever the device (the on-card reference). ``mlp(p, i, h, plain)``
+    replaces the dense MLP of every layer (the mixtral family's MoE
+    layer). Returns (logits at each row's last packed token [B, V]
+    float32, pool)."""
+    mlp = mlp or _mlp
     windowed = kvq.is_quantized(kv_cache)
     T = tokens.shape[0]
     B, P = page_table.shape
@@ -412,7 +428,7 @@ def prefill_ragged(
                           start.contiguous(), page_size=page_size)
         x = x + _matmul(p, f"l{i}.wo", attn.reshape(T, 1, HD), plain)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
-        x = x + _mlp(p, i, h, plain)
+        x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
     last = x[torch.clamp(last_rows.long(), 0, T - 1), 0]  # [B, dim]
     return _logits(p, cfg, last, plain), kv_cache
@@ -430,6 +446,7 @@ def decode_step(
     attn_impl: str = "fused",
     *,
     plain: bool = False,
+    mlp: Any = None,
 ) -> tuple[torch.Tensor, Any]:
     """One continuous-batching decode step; returns (logits [B, V]
     float32, pool). ``attn_impl`` selects the decode rung:
@@ -444,7 +461,8 @@ def decode_step(
       only, as in the reference.
 
     ``plain=True`` runs the kernels' plain versions (the attention
-    rung's and K6's) whatever the device.
+    rung's and K6's) whatever the device; ``mlp`` as in
+    ``prefill_ragged``.
     """
     if attn_impl not in ("fused", "chained"):
         raise ValueError(f"attn_impl must be 'fused' or 'chained' "
@@ -453,6 +471,7 @@ def decode_step(
         raise NotImplementedError(
             "the chained decode kernel has no quantized-pool rung: the "
             "fallback matrix resolves int8/int4 to the fused rung")
+    mlp = mlp or _mlp
     B = tokens.shape[0]
     pos = positions.long()
     pos1 = pos[:, None]
@@ -499,7 +518,7 @@ def decode_step(
                         page_size=page_size)
         x = x + _matmul(p, f"l{i}.wo", attn.reshape(B, 1, HD), plain)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
-        x = x + _mlp(p, i, h, plain)
+        x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
     return _logits(p, cfg, x[:, 0], plain), kv_cache
 
@@ -517,6 +536,7 @@ def verify_step(
     attn_impl: str = "",
     *,
     plain: bool = False,
+    mlp: Any = None,
 ) -> tuple[torch.Tensor, Any]:
     """Speculative decoding's verifier: S candidate positions per slot
     in one step; returns (logits at every position [B, S, V] float32,
@@ -533,10 +553,11 @@ def verify_step(
       rows past ``limits`` masked out.
 
     ``plain=True`` runs the kernels' plain versions (K5's and K6's)
-    whatever the device."""
+    whatever the device; ``mlp`` as in ``prefill_ragged``."""
     if attn_impl not in ("", "chained"):
         raise ValueError(f"attn_impl must be '' or 'chained' "
                          f"(got {attn_impl!r})")
+    mlp = mlp or _mlp
     chained = attn_impl == "chained"
     if chained and kvq.is_quantized(kv_cache):
         raise NotImplementedError(
@@ -586,6 +607,6 @@ def verify_step(
             attn = _attention(q, k_all, v_all, mask)
         x = x + _matmul(p, f"l{i}.wo", attn, plain)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
-        x = x + _mlp(p, i, h, plain)
+        x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
     return _logits(p, cfg, x, plain), kv_cache

@@ -1,11 +1,11 @@
 """Model registry: name → (family, config, weight source) (counterpart of
 ``aigw_tpu/models/registry.py``).
 
-This slice serves the llama family. Weight sources: ``random`` (seeded
-random weights at the config's widths). The reference's ``orbax:`` and
-``hf:`` checkpoints wait until checkpoints are part of the repository
-(ROADMAP queue 1, weight quantization and checkpoints); the mixtral
-family waits for the MoE slice.
+Both of the reference's families are served: llama and mixtral. Weight
+sources: ``random`` (seeded random weights at the config's widths). The
+reference's ``orbax:`` and ``hf:`` checkpoints wait until checkpoints
+are part of the repository (ROADMAP queue 1, weight quantization and
+checkpoints).
 """
 
 from __future__ import annotations
@@ -13,13 +13,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
-from aigw_tpu_torch.models import llama
+from aigw_tpu_torch.models import llama, mixtral
 
 
 @dataclass(frozen=True)
 class ModelSpec:
     name: str
-    family: str  # "llama"
+    family: str  # "llama" | "mixtral"
     config: Any
     weights: str = "random"  # "random" | "orbax:<dir>" | "hf:<dir>"
     tokenizer: str = "byte"  # "byte" | path to tokenizer.json
@@ -36,15 +36,25 @@ class ModelFns:
     # multi-position verifier for speculative decoding; None disables
     # the engine's speculation for the family
     verify_step: Any = None
+    # the random weights one tensor at a time, in init_params' order
+    # (the server quantizes each as it is drawn)
+    iter_params: Any = None
+    # entry points take ``moe_stats=True`` and then return a trailing
+    # [L, E + 1] int32 routing-stats leaf; the engine turns it on for
+    # MoE families
+    moe_stats: bool = False
 
 
 def family_fns(family: str) -> ModelFns:
     if family == "llama":
         return ModelFns(llama.init_params, llama.decode_step,
-                        llama.prefill_ragged, verify_step=llama.verify_step)
+                        llama.prefill_ragged, verify_step=llama.verify_step,
+                        iter_params=llama.iter_params)
     if family == "mixtral":
-        raise NotImplementedError(
-            "the mixtral family is ROADMAP queue 1 (MoE)")
+        return ModelFns(mixtral.init_params, mixtral.decode_step,
+                        mixtral.prefill_ragged,
+                        verify_step=mixtral.verify_step,
+                        iter_params=mixtral.iter_params, moe_stats=True)
     raise KeyError(f"unknown model family {family!r}")
 
 
@@ -64,6 +74,9 @@ def get_model_spec(name: str) -> ModelSpec:
 
 
 register_model(ModelSpec("tiny-random", "llama", llama.TINY))
+register_model(ModelSpec("tiny-moe", "mixtral", mixtral.TINY_MOE))
+register_model(ModelSpec("mixtral-8x7b", "mixtral", mixtral.MIXTRAL_8X7B,
+                         weights="orbax:checkpoints/mixtral-8x7b"))
 register_model(ModelSpec("llama-3-8b", "llama", llama.LLAMA3_8B,
                          weights="orbax:checkpoints/llama-3-8b"))
 register_model(ModelSpec("qwen2-7b", "llama", llama.QWEN2_7B,

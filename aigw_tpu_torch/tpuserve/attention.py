@@ -108,7 +108,9 @@ class RaggedPrefillBackend:
     def _run_packed(self, segs: list[_Seg], sampling_args: tuple,
                     cancellable: Any = None):
         """Run the segments through budget-sized packed calls. Returns
-        ({row g → device tokens of the call that finished g}, info), or
+        ({row g → device tokens of the call that finished g}, info; the
+        calls' summed routing counts on the device in ``info["moe"]``,
+        None on a dense family), or
         an abort status string (only with ``cancellable``, the single
         path's request, cancelled or the engine stopping at a budget
         boundary: "skipped", "stop" or "stop_consumed" as the engine's
@@ -123,6 +125,7 @@ class RaggedPrefillBackend:
             pt[s.g] = s.page_row[:P]
         pt_dev = torch.from_numpy(pt).to(dev)
         final_out: dict[int, torch.Tensor] = {}
+        macc = None
         calls = 0
         tick_ms = 0.0
         real = padded = 0
@@ -171,10 +174,11 @@ class RaggedPrefillBackend:
                 last_rows[s.g] = o + take - 1
                 s.done += take
                 o += take
-            next_tok = eng._prefill_ragged_step(
+            next_tok, moe = eng._prefill_ragged_step(
                 *(torch.from_numpy(a).to(dev)
                   for a in (tokens, row_seq, positions, last_rows)),
                 pt_dev, *sampling_args)
+            macc = moe if macc is None else macc + moe
             calls += 1
             real += t_used
             padded += T
@@ -186,7 +190,7 @@ class RaggedPrefillBackend:
         eng.stats.prefill_tokens_real += real
         eng.stats.prefill_tokens_padded += padded
         return final_out, {"tick_ms": tick_ms, "calls": calls,
-                           "real": real, "padded": padded}
+                           "real": real, "padded": padded, "moe": macc}
 
     def _sampling_rows(self, by_row: dict[int, tuple],
                        mask: np.ndarray | None = None) -> tuple:
@@ -238,6 +242,7 @@ class RaggedPrefillBackend:
             by_row[g] = (req, seq_id)
         final_out, info = self._run_packed(segs, self._sampling_rows(by_row))
         host = {g: out.cpu().numpy() for g, out in final_out.items()}
+        eng._fold_moe(info["moe"])  # settled with the tokens just read
         prefill_ms = max(0.0, 1e3 * (time.monotonic() - t0)
                          - info["tick_ms"])
         eng.stats.prefill_ms += prefill_ms
@@ -268,7 +273,9 @@ class RaggedPrefillBackend:
         if isinstance(res, str):
             return res
         final_out, info = res
-        return int(final_out[0].cpu().numpy()[0]), info
+        tok = int(final_out[0].cpu().numpy()[0])
+        self.eng._fold_moe(info["moe"])  # settled with the token
+        return tok, info
 
 
 def resolve_attention_backend(cfg, device: torch.device) -> tuple[str, str]:

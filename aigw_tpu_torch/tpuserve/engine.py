@@ -3,7 +3,8 @@
 
 - **Fixed decode geometry**: every decode step runs the whole
   ``[max_batch_size]`` slot table; finished slots are masked, not
-  removed.
+  removed. The model calls see the page table cut to the reference's
+  power-of-two page bucket (``_state_bucket``).
 - **K-step decode windows**: the reference's ``lax.scan`` becomes a
   Python loop of K steps whose sampled tokens stay on the device; the
   host copies the ``[K, B]`` tokens once per window (started
@@ -58,6 +59,16 @@ that the kernels already wrote are rewritten by the next windows. An
 accepted token that moves the state patches only the bias row. Row
 uploads on CUDA go through a pinned staging row per slot with
 non-blocking copies on the engine's stream.
+
+**Mixture of experts** (a family whose ``ModelFns.moe_stats`` is set,
+``models/mixtral.py``): every model call also returns its ``[L, E + 1]``
+routing counts (placed per expert, then dropped, per layer). A decode
+or speculative window sums them on the device and they reach the host
+with the window's token copy; a packed prefill's reach it with its first
+tokens. They fold into per-expert and per-layer totals where the
+reference folds them (a window's even when a grammar cut discards its
+tokens), behind ``/state``'s ``moe_*`` keys: zero or ``[]`` on dense
+families, as in the reference.
 
 Every default equals the reference's. Knobs of features this slice does
 not implement raise ``NotImplementedError`` naming their ROADMAP entry
@@ -323,6 +334,13 @@ class EngineStats:
     constraint_windows: int = 0
     # constrained members summed over those windows
     constraint_slot_windows: int = 0
+    # mixture of experts: (token, k) assignments placed and dropped by
+    # the capacity fence over every row the programs ran, the dropped
+    # share, and the hottest expert's load over the mean
+    moe_tokens_routed: int = 0
+    moe_tokens_dropped: int = 0
+    moe_dropped_frac: float = 0.0
+    moe_expert_imbalance: float = 0.0
 
     PREFILL_RATE_HALF_LIFE_TOKENS = 16384
 
@@ -364,6 +382,9 @@ class _Window:
     # the window samples under). A token counts only while the slot's
     # current state demands that very mask
     cn_epochs: tuple[tuple[int, int, Any], ...] = ()
+    # the window's summed [L, E + 1] routing counts (host copy), or None
+    # on a dense family
+    moe: Any = None
 
 
 #: per-slot decode state on the device: field → numpy dtype
@@ -403,6 +424,16 @@ class Engine:
         self.fns = fns or family_fns("llama")
         self.params = params
         self.model_cfg = model_cfg
+        # MoE routing stats: per-expert placed and per-layer dropped
+        # totals, folded from every call's [L, E + 1] leaf
+        self._moe = bool(getattr(self.fns, "moe_stats", False))
+        self._moe_kw = {"moe_stats": True} if self._moe else {}
+        self._moe_experts = (int(getattr(model_cfg, "n_experts", 0))
+                             if self._moe else 0)
+        self._moe_expert_tokens = np.zeros(max(self._moe_experts, 1),
+                                           np.int64)
+        self._moe_layer_drops = np.zeros(max(int(model_cfg.n_layers), 1),
+                                         np.int64)
         self.cfg = cfg
         self.eos = eos_token_ids
         if cfg.enable_prefix_cache:
@@ -451,6 +482,15 @@ class Engine:
         # in-flight slots
         self._device_state: dict[str, torch.Tensor] | None = None
         self._dirty_rows: set[int] = set()
+        # the page-table width the model calls see: the reference's
+        # power-of-two page bucket covering every live slot's limit, set
+        # when the state is built; an admission that needs a wider one
+        # drains the pipeline and rebuilds (``_need_rebuild``), as the
+        # reference does. Only rows that attend nothing (past their
+        # limit) read the width: they average the whole window, and an
+        # MoE layer routes them by that average
+        self._state_bucket = 0
+        self._need_rebuild = False
         # 1-deep pipeline: the window on the device while the host
         # settles the previous one
         self._inflight: _Window | None = None
@@ -494,33 +534,48 @@ class Engine:
         self._refresh_stats()
 
     # -- device programs ----------------------------------------------------
+    def _model(self, fn, *args, **kw):
+        """One model call: the pool is kept; returns (logits, the call's
+        [L, E + 1] routing counts or None on a dense family)."""
+        out = fn(self.params, self.model_cfg, *args, **kw, **self._moe_kw)
+        if self._moe:
+            logits, self.kv_cache, moe = out
+            return logits, moe
+        logits, self.kv_cache = out
+        return logits, None
+
     def _prefill_ragged_step(self, tokens, row_seq, positions, last_rows,
                              page_table, keys, temp, top_p, top_k, bias):
         """One packed prefill call plus sampling of each row's first
-        token (key [seed, 0]); returns [B] int32 tokens on the device."""
-        logits, self.kv_cache = self.fns.prefill_ragged(
-            self.params, self.model_cfg, tokens, row_seq, positions,
-            last_rows, self.kv_cache, page_table, self.cfg.page_size)
-        return sample(logits + bias, keys, temp, top_p, top_k)
+        token (key [seed, 0]); returns ([B] int32 tokens, routing counts
+        or None), on the device."""
+        logits, moe = self._model(
+            self.fns.prefill_ragged, tokens, row_seq, positions, last_rows,
+            self.kv_cache, page_table, self.cfg.page_size)
+        return sample(logits + bias, keys, temp, top_p, top_k), moe
 
     def _decode_window(self, k: int, lean: bool, greedy: bool
-                       ) -> torch.Tensor:
+                       ) -> tuple[torch.Tensor, Any]:
         """K decode+sample steps; sampled tokens feed forward on the
         device. ``lean`` skips the repetition-penalty terms (bit-identical
         while no live slot uses penalties: zero penalties subtract
         exactly 0.0), ``greedy`` skips the sort/top-p work when every
         live slot samples greedily (sample() returns argmax for those).
-        Returns [K, B] int32 tokens on the device."""
+        Returns ([K, B] int32 tokens, the window's summed routing counts
+        or None) on the device."""
         st = self._device_state
         B = self.cfg.max_batch_size
         rows = torch.arange(B, device=self.device)
+        pt = st["page_table"][:, :self._state_bucket]
         out = []
+        macc = None
         for _ in range(k):
             act = st["active"] & (st["positions"] < st["limits"])
-            logits, self.kv_cache = self.fns.decode_step(
-                self.params, self.model_cfg, st["tokens"], st["positions"],
-                self.kv_cache, st["page_table"], self.cfg.page_size, act,
+            logits, moe = self._model(
+                self.fns.decode_step, st["tokens"], st["positions"],
+                self.kv_cache, pt, self.cfg.page_size, act,
                 attn_impl=self._decode_impl)
+            macc = moe if macc is None else macc + moe
             if lean:
                 logits = logits + st["bias"]
             else:
@@ -540,9 +595,10 @@ class Engine:
                                           st["positions"])
             st["keys"][:, 1] = (st["keys"][:, 1] + act.long()) & 0xFFFFFFFF
             out.append(sampled)
-        return torch.stack(out)
+        return torch.stack(out), macc
 
-    def _spec_window(self, k: int, D: int, greedy: bool) -> torch.Tensor:
+    def _spec_window(self, k: int, D: int, greedy: bool
+                     ) -> tuple[torch.Tensor, Any]:
         """K speculative steps at draft rung D (the reference's
         ``_spec_scan`` body). Each step drafts D tokens per slot
         (lookahead where it covers the position, n-gram elsewhere),
@@ -551,9 +607,10 @@ class Engine:
         in one ``verify_step``; samples position d with key ``[seed, pos
         + d]``, the key plain decoding would use there; and advances each
         slot by ``spec_accept``'s n_emit. ``greedy`` takes the argmax,
-        which ``sample`` returns for greedy slots anyway. Returns [K, B,
-        D + 3] int32 on the device: the samples ``[..., :D + 1]``, then
-        n_emit and n_prop (the drafts actually offered)."""
+        which ``sample`` returns for greedy slots anyway. Returns ([K, B,
+        D + 3] int32: the samples ``[..., :D + 1]``, then n_emit and
+        n_prop (the drafts actually offered); the window's summed
+        routing counts or None), on the device."""
         st = self._device_state
         dev = self.device
         B = self.cfg.max_batch_size
@@ -564,7 +621,9 @@ class Engine:
         d_idx = torch.arange(D1, device=dev)[None, :]
         elig = ((st["freq_pen"] == 0.0) & (st["pres_pen"] == 0.0)
                 & (st["temp"] <= 0.0))
+        pt = st["page_table"][:, :self._state_bucket]
         out = []
+        macc = None
         for _ in range(k):
             act = st["active"] & (st["positions"] < st["limits"])
             drafts = speculation.combine_drafts(
@@ -576,10 +635,11 @@ class Engine:
             drafts = torch.where(ok, drafts, torch.full_like(drafts, -1))
             inputs = torch.cat([st["tokens"][:, None],
                                 torch.clamp(drafts, min=0)], dim=1)
-            logits, self.kv_cache = self.fns.verify_step(
-                self.params, self.model_cfg, inputs, st["positions"],
-                self.kv_cache, st["page_table"], self.cfg.page_size, act,
+            logits, moe = self._model(
+                self.fns.verify_step, inputs, st["positions"],
+                self.kv_cache, pt, self.cfg.page_size, act,
                 st["limits"], attn_impl=self._verify_impl)
+            macc = moe if macc is None else macc + moe
             # counts are window-start values: exact at d = 0, and later
             # positions accept only on penalty-free slots
             lT = apply_penalties(logits.transpose(0, 1), st["counts"],
@@ -618,19 +678,25 @@ class Engine:
             n_prop = torch.where(act, n_prop, torch.zeros_like(n_prop))
             out.append(torch.cat([sampled, n_emit[:, None],
                                   n_prop[:, None].to(torch.int32)], dim=1))
-        return torch.stack(out)
+        return torch.stack(out), macc
 
     # -- host copies ----------------------------------------------------------
-    def _start_host_copy(self, t: torch.Tensor):
-        """Begin the device→host copy of ``t`` now; returns (host tensor,
-        event). On the CPU the tensor already is the host copy."""
+    def _start_host_copy(self, *ts: torch.Tensor | None):
+        """Begin the device→host copies of ``ts`` now (None passes
+        through); returns (host tensors, one event recorded after them).
+        On the CPU the tensors already are the host copies."""
         if self.device.type != "cuda":
-            return t, None
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
+            return ts, None
+        hosts = []
+        for t in ts:
+            if t is not None:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                t = host
+            hosts.append(t)
         ev = torch.cuda.Event()
         ev.record()
-        return host, ev
+        return tuple(hosts), ev
 
     # -- adaptive window ------------------------------------------------------
     def _window_ladder(self) -> list[int]:
@@ -731,6 +797,7 @@ class Engine:
             self._inflight = None
         self._apply_frees()
         self._device_state = None
+        self._need_rebuild = False
         self._dirty_rows.clear()
         self._spec_dirty.clear()
         self._cn_dirty.clear()
@@ -923,10 +990,26 @@ class Engine:
         self.stats.first_emit_ms += 1e3 * (time.monotonic() - t_first)
         return len(results), leftover
 
+    def _decode_bucket_pages(self) -> int:
+        """Smallest power-of-two page count covering every live slot's
+        limit (the reference's decode page bucket)."""
+        need = 1
+        for s in self._slots:
+            if s is not None:
+                need = max(need, -(-s.limit // self.cfg.page_size))
+        bucket = 1
+        while bucket < need:
+            bucket *= 2
+        return min(bucket, self.cfg.max_pages_per_seq)
+
     def _mark_admitted(self, i: int) -> None:
         """Slot i's whole row is uploaded before the next dispatch (its
-        draft length included)."""
+        draft length included); a page bucket that must grow rebuilds
+        the state instead."""
         self._dirty_rows.add(i)
+        if (self._device_state is not None
+                and self._decode_bucket_pages() > self._state_bucket):
+            self._need_rebuild = True
         self._spec_dirty.discard(i)
         self._cn_dirty.discard(i)  # the row carries the mask too
 
@@ -1238,8 +1321,32 @@ class Engine:
         else:
             self._process_window(toks, w.members, ce)
         self.stats.emit_ms += 1e3 * (time.monotonic() - t1)
+        # folded whatever the window's tokens became (a grammar cut may
+        # have discarded them): the rows ran all the same
+        self._fold_moe(w.moe)
         for seq_id in w.frees:
             self.allocator.free(seq_id)
+
+    def _fold_moe(self, moe) -> None:
+        """Fold one program's [L, E + 1] routing counts into the totals
+        behind /state's moe_* keys; None (a dense family) is a no-op."""
+        if moe is None:
+            return
+        arr = moe.cpu().numpy().astype(np.int64)
+        self._moe_expert_tokens += arr[:, :-1].sum(axis=0)
+        self._moe_layer_drops += arr[:, -1]
+
+    def moe_expert_load(self) -> list[int]:
+        """Placed (token, k) totals per expert; [] on a dense family."""
+        if not self._moe:
+            return []
+        return [int(x) for x in self._moe_expert_tokens]
+
+    def moe_layer_drops(self) -> list[int]:
+        """Capacity-drop totals per layer; [] on a dense family."""
+        if not self._moe:
+            return []
+        return [int(x) for x in self._moe_layer_drops]
 
     def _process_window(self, toks: np.ndarray, members: tuple,
                         ce: dict) -> None:
@@ -1379,6 +1486,7 @@ class Engine:
 
     def _quiesce(self) -> None:
         self._device_state = None
+        self._need_rebuild = False
         self._dirty_rows.clear()
         self._spec_dirty.clear()
         self._cn_dirty.clear()
@@ -1394,7 +1502,9 @@ class Engine:
             self._apply_frees()
             self._quiesce()
             return False
-        if self._device_state is None:
+        if self._device_state is None or self._need_rebuild:
+            if self._device_state is not None:
+                self.stats.state_rebuilds += 1  # a live pipeline drained
             self._drain_inflight()
             self._apply_frees()
             active_idx = [i for i, s in enumerate(self._slots)
@@ -1403,6 +1513,8 @@ class Engine:
                 self._quiesce()
                 return True
             self._device_state = self._build_device_state()
+            self._state_bucket = self._decode_bucket_pages()
+            self._need_rebuild = False
             self._dirty_rows.clear()
             self._spec_dirty.clear()
             self._cn_dirty.clear()  # the full build carried the masks
@@ -1460,18 +1572,20 @@ class Engine:
             draft_lens = tuple((i, self._slots[i].ctrl.draft_len())
                                for i in active_idx
                                if self._slots[i].ctrl is not None)
-            sampled = self._spec_window(k, draft, greedy)
+            sampled, moe = self._spec_window(k, draft, greedy)
         else:
-            sampled = self._decode_window(k, lean, greedy)
+            sampled, moe = self._decode_window(k, lean, greedy)
         if self.cfg.async_transfers:
-            host, ready = self._start_host_copy(sampled)
+            (host, moe), ready = self._start_host_copy(sampled, moe)
         else:
             host, ready = sampled.cpu(), None
+            moe = None if moe is None else moe.cpu()
         # settle the PREVIOUS window while this one runs on the device
         self._drain_inflight()
         self._inflight = _Window(sampled=host, ready=ready, members=members,
                                  k=k, frees=frees, draft=draft,
-                                 draft_lens=draft_lens, cn_epochs=cn_epochs)
+                                 draft_lens=draft_lens, cn_epochs=cn_epochs,
+                                 moe=moe)
         self.stats.active_slots = sum(s is not None for s in self._slots)
         self._refresh_stats()
         return True
@@ -1531,6 +1645,19 @@ class Engine:
             hm = st.prefix_cache_hits + st.prefix_cache_misses
             st.prefix_cache_hit_rate = (st.prefix_cache_hits / hm if hm
                                         else 0.0)
+        if self._moe:
+            # the reference's formulas: dropped over all assignments, and
+            # the hottest expert over the mean
+            placed = float(self._moe_expert_tokens.sum())
+            dropped = float(self._moe_layer_drops.sum())
+            st.moe_tokens_routed = int(placed)
+            st.moe_tokens_dropped = int(dropped)
+            st.moe_dropped_frac = (round(dropped / (placed + dropped), 6)
+                                   if placed + dropped else 0.0)
+            mean = placed / max(self._moe_experts, 1)
+            st.moe_expert_imbalance = (
+                round(float(self._moe_expert_tokens.max()) / mean, 4)
+                if mean > 0 else 0.0)
         st.kv_pages_free = self.allocator.free_pages
         st.kv_occupancy = self.allocator.occupancy
         st.kv_pool_bytes = self.cfg.num_pages * self.kv_page_bytes

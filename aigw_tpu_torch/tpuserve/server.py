@@ -95,12 +95,18 @@ class TPUServeServer:
                     param_dtype, spec.name, self.device)
         if quantize not in ("", "int8", "int4"):
             raise ValueError(f"unknown quantization {quantize!r}")
-        params = self.fns.init_params(0, self.model_cfg,
-                                      _PARAM_DTYPES[param_dtype],
-                                      self.device)
+        # drawn one tensor at a time and, with --quantize, quantized as
+        # drawn: the peak is the quantized model plus one bf16 tensor
+        # (Mixtral-8x7B's bf16 weights do not fit one 80 GB card)
+        params: dict[str, torch.Tensor] = {}
+        for name, w in self.fns.iter_params(0, self.model_cfg,
+                                            _PARAM_DTYPES[param_dtype],
+                                            self.device):
+            params.update(quantize_params({name: w}, consume=True,
+                                          mode=quantize)
+                          if quantize else {name: w})
+            del w
         if quantize:
-            # on the device, one matrix at a time (consume=True)
-            params = quantize_params(params, consume=True, mode=quantize)
             logger.info("weights quantized to %s (W%sA16)", quantize,
                         quantize[-1])
         self.engine = Engine(params, self.model_cfg, engine_cfg,
@@ -234,6 +240,15 @@ class TPUServeServer:
             "constraint_rollbacks": s.constraint_rollbacks,
             "constraint_mask_updates": s.constraint_mask_updates,
             "constraint_grammars": s.constraint_grammars,
+            # mixture of experts: placements and capacity drops, the
+            # picker's imbalance price, per-expert load and per-layer
+            # drops (zero or [] on a dense family)
+            "moe_tokens_routed": s.moe_tokens_routed,
+            "moe_tokens_dropped": s.moe_tokens_dropped,
+            "moe_dropped_frac": s.moe_dropped_frac,
+            "moe_expert_imbalance": s.moe_expert_imbalance,
+            "moe_expert_load": eng.moe_expert_load(),
+            "moe_layer_drops": eng.moe_layer_drops(),
             "enable_prefix_cache": cfg.enable_prefix_cache,
             "defaults_differ": dict(DEFAULTS_DIFFER),
             "migration": False,

@@ -119,7 +119,33 @@ Phases (any failure exits non-zero):
    bf16 prefill of the served burst's prompts, K1's 32 launches summed,
    and of a prefix-cache resume (150 rows at 1024) beside the same
    prompt's cold prefill (the ``prefill_profile`` line);
-7. the ``kernels`` JSON line, the card line, then the last line
+7. the mixtral family (the Llama weights freed first). At Mixtral-8x7B
+   widths (dim 4096, 8 experts of ffn 14336, top-2, vocab 32000) and 2
+   layers, in float32 and in bf16: a packed prefill of 4 sequences, 8
+   fused and 8 chained decode steps and one verify step of width 5
+   (K5), each through the kernels against the same call through the
+   plain versions, with the ``[L, E + 1]`` routing counts compared
+   (the ``model_check_moe`` line): in float32 every row routed
+   differently must be a router near-tie (adjacent top-3 logits within
+   1e-4; counted) and the other rows' logits agree within 2e-5; in
+   bf16 routing differences are reported and the other rows' logits
+   held to ``model_check``'s tolerance. Then Mixtral-8x7B served at
+   full depth (32 layers, the ``serve_moe`` line): random weights
+   drawn and quantized to int8 one tensor at a time (W8A16: the bf16
+   model does not fit the card), a bf16 KV pool, the fused rung, the
+   prefix cache on; the burst cold, then warm (its cached prefixes
+   resumed through K1 at their offsets); K1, K2 and K6 must launch,
+   the routing counts cover a whole number of layers x 2 and
+   ``moe_expert_load`` has 8 entries; wall times, the warm burst's
+   prefill and TTFT p50/p95, the dropped share, the expert imbalance,
+   peak device memory and one decode step's time at batch 8; then the
+   chained rung at a fixed draft width of 4 (two pinned requests of 32
+   tokens and a sampled one of 64, which decodes on alone): K3 and K5
+   must launch and drafts be accepted.
+   K6 at Mixtral's lm_head shape (4096 x 32000) is on the
+   ``qmatmul_shapes`` line;
+8. the ``kernels`` JSON line (each row also carries its launches on
+   ``serve_moe``), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -128,6 +154,7 @@ result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -154,9 +181,10 @@ QMM_RTOL, QMM_ATOL = 2.0 ** -7, 1e-5
 SERVE_MAX_TOKENS = 64
 # the weight shapes one Llama-3-8B decode step multiplies (K, N), and
 # how many launches of each a step makes: wq/wo, wk/wv, gate/up, down
-# per layer (x 32), the lm_head once
+# per layer (x 32), the lm_head once; then Mixtral-8x7B's lm_head (its
+# attention shapes are Llama-3-8B's), outside the Llama step (0)
 QMM_STEP = [((4096, 4096), 64), ((4096, 1024), 64), ((4096, 14336), 64),
-            ((14336, 4096), 32), ((4096, 128256), 1)]
+            ((14336, 4096), 32), ((4096, 128256), 1), ((4096, 32000), 0)]
 T0 = time.monotonic()
 
 
@@ -390,9 +418,9 @@ def _pinned_requests(n: int) -> list[tuple[str, bool, dict]]:
         "logit_bias": {str(PIN_TOKEN): 100.0}}) for i in range(n)]
 
 
-def _check_pinned(results) -> None:
+def _check_pinned(results, n: int = SERVE_MAX_TOKENS) -> None:
     for r in results:
-        if r.get("text") != chr(PIN_TOKEN) * SERVE_MAX_TOKENS:
+        if r.get("text") != chr(PIN_TOKEN) * n:
             raise AssertionError(f"a pinned stream is not the pinned token: "
                                  f"{r}")
 
@@ -1108,16 +1136,19 @@ def serve_profile(torch, port: int, reqs, warm_s: float) -> dict:
 
 def decode_profile(torch, params, cfg, dev: str = "cuda",
                    kv_dtype: str = "bfloat16", verify_width: int = 0,
-                   attn_impl: str = "fused") -> dict:
+                   attn_impl: str = "fused", model=None) -> dict:
     """Where one full-width decode step's time goes: host wall clock of a
     step (synchronized) against the device time torch.profiler sees, by
     kernel. Batch 8 at 1000 cached tokens each, a ``kv_dtype`` pool, on
     the ``attn_impl`` rung (K2/K7 fused, K3 chained); with
     ``verify_width`` > 0, a verify step of that width on the chained
-    rung (K5) instead."""
+    rung (K5) instead. ``model`` is the family's module (llama by
+    default)."""
     from torch.profiler import ProfilerActivity, profile
 
     from aigw_tpu_torch.models import kvq, llama
+
+    model = model or llama
 
     B, PS, P, ctx, steps = 8, 128, 16, 1000, 5
     kv = kvq.make_pool((cfg.n_layers, 2, (B * P + 1) * PS, cfg.n_kv_heads,
@@ -1132,10 +1163,10 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
 
     def step():
         if verify_width:
-            llama.verify_step(params, cfg, toks, pos, kv, pt, PS, act,
+            model.verify_step(params, cfg, toks, pos, kv, pt, PS, act,
                               limits, attn_impl="chained")
         else:
-            llama.decode_step(params, cfg, tok, pos, kv, pt, PS, act,
+            model.decode_step(params, cfg, tok, pos, kv, pt, PS, act,
                               attn_impl=attn_impl)
 
     for _ in range(2):
@@ -2054,6 +2085,391 @@ def resume_check(torch, params, cfg, dev: str = "cuda") -> dict:
     return out
 
 
+# -- the mixtral family -------------------------------------------------------
+#: layers of the full-width MoE check (Mixtral-8x7B's other widths whole)
+MOE_CHECK_LAYERS = 2
+#: a router near-tie: the smallest gap between adjacent logits among a
+#: row's top k + 1 under which the two paths may route it differently
+MOE_NEAR_TIE = 1e-4
+#: float32 logits, kernels vs plain versions, per element: rtol * |plain|
+#: + atol, on rows whose routing agreed all the way
+MOE_F32_TOL = 2e-5
+
+
+class RouteTape:
+    """Records each mixtral layer's router while on: the top k + 1
+    logits (descending) and the chosen experts of every row, one entry
+    per layer call, through ``mixtral.top_k`` (the MoE layer looks it up
+    at each call)."""
+
+    def __init__(self, torch, mixtral):
+        self.torch, self.mixtral, self.calls = torch, mixtral, []
+
+    def __enter__(self):
+        self._orig = orig = self.mixtral.top_k
+
+        def record(logits, k):
+            vals, idx = orig(logits, k)
+            top = self.torch.sort(logits, dim=-1, descending=True).values
+            self.calls.append((top[..., :k + 1].clone(), idx.clone()))
+            return vals, idx
+
+        self.mixtral.top_k = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mixtral.top_k = self._orig
+
+
+def route_diff(torch, kern: RouteTape, plain: RouteTape, slot_of, tainted,
+               near_tie: float | None) -> dict:
+    """Rows the two runs of one model call routed differently, layer by
+    layer: a row of a slot already ``tainted`` (it differed in an earlier
+    layer or call: its hidden state, and its slot's K/V, moved by a whole
+    expert) is carried; any other must be a near-tie of the plain run's
+    router (under ``near_tie``; None reports the gaps only). ``slot_of``
+    maps each row to its slot (None: padding). Taints the slots."""
+    out = {"rows": 0, "near_ties": 0, "carried": 0, "max_gap": 0.0}
+    if len(kern.calls) != len(plain.calls):
+        raise AssertionError("the two runs made different router calls")
+    for (tk, ik), (tp, ip) in zip(kern.calls, plain.calls):
+        diff = (ik != ip).any(-1)
+        if not diff.any():
+            continue
+        gaps = (tp[:, :-1] - tp[:, 1:]).min(-1).values
+        fresh = []
+        for r in torch.nonzero(diff)[:, 0].tolist():
+            s = slot_of[r]
+            out["rows"] += 1
+            if s is not None and s in tainted:
+                out["carried"] += 1
+                continue
+            gap = gaps[r].item()
+            out["max_gap"] = max(out["max_gap"], gap)
+            if near_tie is not None and gap >= near_tie:
+                raise AssertionError(f"row {r} routed differently at a "
+                                     f"router gap of {gap}")
+            out["near_ties"] += 1
+            fresh.append(s)
+        tainted.update(s for s in fresh if s is not None)
+    return out
+
+
+def model_check_moe(torch, mixtral, dtype, dev: str = "cuda") -> dict:
+    """Mixtral-8x7B widths at MOE_CHECK_LAYERS layers, random weights in
+    ``dtype`` (float32 or bfloat16) over a pool of that dtype: a packed
+    prefill of 4 sequences, 8 fused decode steps, 8 chained steps (K3),
+    one verify step of width 5 through K5 (a slot off, one fenced), each
+    through the kernels against the same call with ``plain=True``
+    (teacher-forced on the kernel path's greedy tokens). Each call's
+    [L, E + 1] routing counts are compared. In float32 every row routed
+    differently must be a router near-tie (or carried from one) and the
+    logits of the other rows agree within MOE_F32_TOL; in bfloat16 the
+    routing differences are reported, and the logits of the rows whose
+    routing agreed are held to model_check's tolerance (0.1 of the logit
+    scale, greedy flips only at a top-2 gap under 0.1)."""
+    from dataclasses import replace
+
+    from aigw_tpu_torch.models import kvq
+
+    cfg = replace(mixtral.MIXTRAL_8X7B, n_layers=MOE_CHECK_LAYERS)
+    params = mixtral.init_params(21, cfg, dtype, dev)
+    PS, P, S = 128, 16, 5
+    lens = [700, 45, 250, 3]
+    B = len(lens)
+    g = torch.Generator(device=dev)
+    g.manual_seed(77)
+    T = -(-sum(lens) // 256) * 256
+    tokens = torch.randint(0, cfg.vocab_size, (T,), generator=g, device=dev)
+    row_seq = torch.full((T,), B, dtype=torch.int32, device=dev)
+    positions = torch.zeros((T,), dtype=torch.int32, device=dev)
+    last = torch.zeros((B,), dtype=torch.int32, device=dev)
+    prefill_slot: list = [None] * T
+    o = 0
+    for b, n in enumerate(lens):
+        row_seq[o:o + n] = b
+        positions[o:o + n] = torch.arange(n, device=dev)
+        last[b] = o + n - 1
+        prefill_slot[o:o + n] = [b] * n
+        o += n
+    pt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    kv_dtype = "float32" if dtype == torch.float32 else "bfloat16"
+    shape = (cfg.n_layers, 2, (B * P + 1) * PS, cfg.n_kv_heads, cfg.head_dim)
+    pools = {False: kvq.make_pool(shape, kv_dtype, dev),
+             True: kvq.make_pool(shape, kv_dtype, dev)}
+    f32 = dtype == torch.float32
+    tainted: set = set()
+    report = {"calls": 0, "stats_differ": 0, "route_rows": 0,
+              "near_ties": 0, "carried": 0, "max_gap": 0.0,
+              "max_abs_logit_err": 0.0, "logit_scale": 0.0,
+              "greedy_mismatches": 0, "greedy_rows": 0}
+
+    def both(fn, *args, slot_of, **kw):
+        """One entry point through the kernels and plain, on each side's
+        own pool; returns the kernel path's logits after the checks."""
+        out, tapes = {}, {}
+        for plain in (False, True):
+            with RouteTape(torch, mixtral) as tape:
+                logits, pools[plain], stats = fn(
+                    params, cfg, *_place(args, pools[plain]), plain=plain,
+                    moe_stats=True, **kw)
+            out[plain], tapes[plain] = (logits, stats), tape
+        (lk, sk), (lp, sp) = out[False], out[True]
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            raise AssertionError("non-finite MoE logits")
+        if tuple(sk.shape) != (cfg.n_layers, cfg.n_experts + 1):
+            raise AssertionError(f"stats of shape {tuple(sk.shape)}")
+        if int(sk.sum()) != len(slot_of) * cfg.n_layers \
+                * cfg.experts_per_token:
+            raise AssertionError("routing counts do not cover every row")
+        d = route_diff(torch, tapes[False], tapes[True], slot_of, tainted,
+                       MOE_NEAR_TIE if f32 else None)
+        report["calls"] += 1
+        report["stats_differ"] += int(not torch.equal(sk, sp))
+        report["route_rows"] += d["rows"]
+        report["near_ties"] += d["near_ties"]
+        report["carried"] += d["carried"]
+        report["max_gap"] = max(report["max_gap"], d["max_gap"])
+        if not d["rows"] and not torch.equal(sk, sp):
+            raise AssertionError("routing counts differ with equal routes")
+        return lk, lp
+
+    def gate(lk, lp, slots):
+        """The logits of rows whose slot's routing agreed throughout."""
+        keep = torch.tensor([s not in tainted for s in slots],
+                            device=dev)
+        a, b = lk[keep], lp[keep]
+        if not len(a):
+            return
+        err = (a - b).abs()
+        scale = b.abs().max().item()
+        report["max_abs_logit_err"] = max(report["max_abs_logit_err"],
+                                          err.max().item())
+        report["logit_scale"] = max(report["logit_scale"], scale)
+        differ = a.argmax(-1) != b.argmax(-1)
+        report["greedy_mismatches"] += int(differ.sum())
+        report["greedy_rows"] += len(a)
+        if f32:
+            if (err > MOE_F32_TOL * b.abs() + MOE_F32_TOL).any():
+                raise AssertionError(f"float32 MoE logits differ by "
+                                     f"{err.max().item()}")
+            return
+        top2 = torch.topk(b, 2, dim=-1).values
+        gap = top2[:, 0] - top2[:, 1]
+        if differ.any() and gap[differ].max().item() > 0.1:
+            raise AssertionError("bf16 MoE greedy token differs at a "
+                                 "top-2 gap over 0.1")
+        if err.max().item() > 0.1 * scale:
+            raise AssertionError(f"bf16 MoE logits differ by "
+                                 f"{err.max().item()} (scale {scale})")
+
+    lk, lp = both(mixtral.prefill_ragged, tokens, row_seq, positions, last,
+                  None, pt, PS, slot_of=prefill_slot)
+    gate(lk, lp, range(B))
+    tok = lk.argmax(-1).to(torch.int32)
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    for rung in ("fused", "chained"):
+        for _ in range(8):
+            lk, lp = both(mixtral.decode_step, tok, pos, None, pt, PS,
+                          active, rung, slot_of=list(range(B)))
+            gate(lk, lp, range(B))
+            tok = lk.argmax(-1).to(torch.int32)
+            pos = pos + 1
+    draft = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                          device=dev, dtype=torch.int32)
+    draft[:, 0] = tok
+    active[3] = False
+    limits = pos + 64
+    limits[1] = pos[1] + 2  # fenced after two positions
+    lk, lp = both(mixtral.verify_step, draft, pos, None, pt, PS, active,
+                  limits, "chained",
+                  slot_of=[b for b in range(B) for _ in range(S)])
+    valid = (active[:, None] & (pos[:, None] + torch.arange(
+        S, device=dev) < limits[:, None])).reshape(-1)
+    rows = [b for b in range(B) for _ in range(S)]
+    vk = lk.reshape(B * S, -1)[valid]
+    vp = lp.reshape(B * S, -1)[valid]
+    gate(vk, vp, [r for r, v in zip(rows, valid.tolist()) if v])
+    report["layers"] = cfg.n_layers
+    report["tainted_slots"] = sorted(tainted)
+    del params, pools
+    return report
+
+
+def _place(args, pool):
+    """An entry point's arguments with the pool put where ``None``
+    stands."""
+    return tuple(pool if a is None else a for a in args)
+
+
+MOE_MODEL = "mixtral-8x7b-random"
+
+
+def _moe_requests(reqs) -> list:
+    """A burst's requests addressed to the Mixtral replica."""
+    return [(kind, stream, dict(body, model=MOE_MODEL))
+            for kind, stream, body in reqs]
+
+
+def _aligned_request() -> tuple:
+    """A greedy completion of exactly 8 pages (BOS + 1023 bytes): asked
+    again, a full prefix-cache hit (its last page copied on write, one
+    row resumed at 1023)."""
+    text = ("the quick brown fox jumps over a lazy dog " * 30)[
+        :PREFIX_C_BYTES]
+    return ("completion", False, {
+        "model": MOE_MODEL, "prompt": text, "temperature": 0.0,
+        "max_tokens": SERVE_MAX_TOKENS})
+
+
+def serve_moe(torch, mixtral, reqs, launches: dict,
+              dev: str = "cuda") -> None:
+    """Mixtral-8x7B widths at full depth (32 layers) through the port's
+    server: random weights drawn and quantized to int8 one tensor at a
+    time (W8A16; the bf16 model does not fit the card), a bf16 KV pool,
+    8 slots of 2048 tokens, page 128, the fused rung, the prefix cache
+    on. The burst cold, then warm (its prompts' cached pages resumed
+    through K1 at their offsets, page-aligned ones as full hits), then
+    one decode step's time at batch 8; then the chained rung at a fixed
+    draft width of 4 (K3 and K5) over two pinned requests and a sampled
+    one of the burst. The burst is chip_smoke's with one 8-page
+    completion added (its warm ask a full hit). The ``serve_moe`` JSON line; launches go into
+    ``launches`` under ``serve_moe``."""
+    from aigw_tpu_torch.models.registry import ModelSpec, register_model
+    from aigw_tpu_torch.obs.metrics import EnginePhases
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+    from aigw_tpu_torch.tpuserve.server import TPUServeServer
+
+    cfg = mixtral.MIXTRAL_8X7B
+    register_model(ModelSpec(MOE_MODEL, "mixtral", cfg))
+    torch.cuda.reset_peak_memory_stats()
+    reqs = _moe_requests(reqs) + [_aligned_request()]
+    kw = dict(max_batch_size=8, max_seq_len=2048, page_size=128,
+              attention_backend="pallas-ragged")
+    t = time.monotonic()
+    srv = TPUServeServer(MOE_MODEL, EngineConfig(
+        **kw, decode_backend="fused"), device=dev, port=0,
+        quantize="int8")
+    srv.start()
+    torch.cuda.synchronize()
+    params = srv.engine.params
+    w_gb = sum(v.numel() * v.element_size() for v in params.values()) / 1e9
+    log(f"Mixtral-8x7B widths up in {time.monotonic() - t:.1f}s: "
+        f"{w_gb:.2f} GB of W8A16 weights, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    out: dict = {"weights_gb": w_gb,
+                 "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    try:
+        reset_counts()
+        t = time.monotonic()
+        results = serve_phase(srv.port, reqs)
+        out["cold_s"] = time.monotonic() - t
+        cold = json.loads(_http(srv.port, "/state")[2])
+        srv.engine.phases = EnginePhases()
+        t = time.monotonic()
+        serve_phase(srv.port, reqs)
+        out["warm_s"] = time.monotonic() - t
+        served = read_counts()
+        state = json.loads(_http(srv.port, "/state")[2])
+        pp = state["phase_percentiles"]
+        log(f"Mixtral served the burst cold in {out['cold_s']:.1f}s, warm "
+            f"in {out['warm_s']:.1f}s ({state['prefix_cache_hits']} prefix "
+            f"hits); launches {served}")
+        for k in ("ragged_prefill_attention", "fused_paged_decode",
+                  "w8a16_matmul"):
+            if served[k] <= 0:
+                raise AssertionError(f"{k} not on the Mixtral served path: "
+                                     f"{served}")
+        total = state["moe_tokens_routed"] + state["moe_tokens_dropped"]
+        unit = cfg.n_layers * cfg.experts_per_token
+        if total <= 0 or total % unit:
+            raise AssertionError(f"routing counts {total} are not a "
+                                 f"positive multiple of {unit}")
+        if len(state["moe_expert_load"]) != cfg.n_experts:
+            raise AssertionError(f"moe_expert_load "
+                                 f"{state['moe_expert_load']}")
+        if state["prefix_cache_hits"] <= cold["prefix_cache_hits"] \
+                or state["prefix_full_hits"] <= cold["prefix_full_hits"]:
+            raise AssertionError("the warm burst resumed no cached prefix, "
+                                 "or made no full hit")
+        out.update({
+            "requests": len(reqs), "new_tokens": sum(r["n"] for r in results),
+            "prompt_tokens": served_prompt_lens(reqs),
+            "warm_prefix_cache_hits": state["prefix_cache_hits"]
+            - cold["prefix_cache_hits"],
+            "warm_prefix_full_hits": state["prefix_full_hits"]
+            - cold["prefix_full_hits"],
+            "warm_prefix_tokens_reused": state["prefix_tokens_reused"]
+            - cold["prefix_tokens_reused"],
+            "warm_decode_steps": state["decode_steps"]
+            - cold["decode_steps"],
+            "warm_prefill_p50_ms": pp["prefill"]["p50"],
+            "warm_prefill_p95_ms": pp["prefill"]["p95"],
+            "warm_ttft_p50_ms": pp["ttft"]["p50"],
+            "warm_ttft_p95_ms": pp["ttft"]["p95"],
+            "warm_decode_per_token_p50_ms": pp["decode_per_token"]["p50"],
+            "state_rebuilds": state["state_rebuilds"],
+            **{k: state[k] for k in (
+                "moe_tokens_routed", "moe_tokens_dropped",
+                "moe_dropped_frac", "moe_expert_imbalance",
+                "moe_expert_load", "moe_layer_drops", "kv_pool_bytes")},
+            "launches": served})
+        srv.engine.stop()
+        prof = decode_profile(torch, params, cfg, dev, model=mixtral)
+        log(f"Mixtral decode step at batch 8: {prof['wall_ms']:.2f} ms "
+            f"wall, {prof['device_ms']:.2f} ms on the device; top "
+            f"kernels {prof['top_kernels_ms']}")
+        out["decode_profile"] = prof
+
+        # the chained rung at a fixed draft width of 4: the pinned pair
+        # (32 tokens) speculates through K5; the sampled request (64,
+        # ineligible) decodes on alone in plain windows through K3
+        srv.engine = Engine(params, cfg, EngineConfig(
+            **kw, pallas_attn=True, spec_tokens=4, spec_adaptive=False),
+            eos_token_ids=(srv.tokenizer.eos_id,), fns=srv.fns,
+            device=dev)
+        srv.engine.start()
+        spec_reqs = _moe_requests(_pinned_requests(2)) + [reqs[0]]
+        for _kind, _stream, body in spec_reqs[:2]:
+            body["max_tokens"] = 32
+        if reqs[0][2]["temperature"] <= 0:
+            raise AssertionError("the spec phase needs a sampled request")
+        reset_counts()
+        t = time.monotonic()
+        results_s = serve_phase(srv.port, spec_reqs)
+        spec_s = time.monotonic() - t
+        served_s = read_counts()
+        _check_pinned(results_s[:2], 32)
+        st = json.loads(_http(srv.port, "/state")[2])
+        log(f"Mixtral speculative (chained, width 4): {spec_s:.1f}s, "
+            f"spec_accepted {st['spec_accepted']} of {st['spec_drafted']}; "
+            f"launches {served_s}")
+        if served_s["paged_attention_verify"] <= 0 \
+                or served_s["paged_attention_decode_v2"] <= 0:
+            raise AssertionError(f"K5 / K3 not on the Mixtral chained "
+                                 f"path: {served_s}")
+        if st["spec_accepted"] <= 0:
+            raise AssertionError("no draft accepted on the Mixtral pinned "
+                                 "requests")
+        out["spec"] = {
+            "decode_attn_impl": st["decode_attn_impl"], "requests":
+            len(spec_reqs), "wall_s": spec_s,
+            "decode_steps": st["decode_steps"],
+            "spec_drafted": st["spec_drafted"],
+            "spec_accepted": st["spec_accepted"],
+            "moe_tokens_routed": st["moe_tokens_routed"],
+            "moe_tokens_dropped": st["moe_tokens_dropped"],
+            "launches": served_s}
+        out["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        srv.stop()
+        srv.engine = None
+    print(json.dumps({"serve_moe": out}), flush=True)
+    launches["serve_moe"] = {k: served[k] + served_s[k] for k in served}
+
+
 def main() -> int:
     try:
         import torch
@@ -2065,7 +2481,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     try:
-        from aigw_tpu_torch.models import llama, quant
+        from aigw_tpu_torch.models import llama, mixtral, quant
         from aigw_tpu_torch.models.registry import ModelSpec, register_model
         from aigw_tpu_torch.obs.metrics import EnginePhases
         from aigw_tpu_torch.ops import _build
@@ -2320,8 +2736,28 @@ def main() -> int:
             f"{pr['wall_ms']:.2f} ms wall, {pr['device_ms']:.2f} ms on the "
             f"device, K1 {pr['k1_in_place_ms']:.3f} ms in 32 launches")
     print(json.dumps({"prefill_profile": prof_p}), flush=True)
-    del params, qparams
+    srv.engine = None
+    del params, qparams, ref  # the model_check loop's ref held params
+    gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # 7. the mixtral family at Mixtral-8x7B widths: the layer and the
+    # entry points at 2 layers, kernels vs plain; then served at full
+    # depth in W8A16
+    checks_moe = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bf16", torch.bfloat16)):
+        t = time.monotonic()
+        checks_moe[name] = model_check_moe(torch, mixtral, dtype)
+        torch.cuda.empty_cache()
+        log(f"Mixtral-8x7B widths ({MOE_CHECK_LAYERS} layers, {name}), "
+            f"kernels vs plain: {checks_moe[name]} "
+            f"({time.monotonic() - t:.1f}s)")
+    print(json.dumps({"model_check_moe": checks_moe}), flush=True)
+    serve_moe(torch, mixtral, reqs, launches)
+    for row in rows:
+        row["launches_serve_moe"] = launches["serve_moe"].get(row["name"], 0)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)

@@ -649,3 +649,136 @@ def test_rows_rewritten_after_a_cut(cuda, kv_dtype, rung):
             torch.arange(P, dtype=torch.int32, device=cuda)[None], ps)
         torch.testing.assert_close(got.float(), cold[:, :, :n].float(),
                                    rtol=rtol, atol=atol)
+
+
+# -- the mixtral family -------------------------------------------------------
+def _moe_params(dev, wmode):
+    """A 128-aligned MoE config (K6 takes its attention projections and
+    lm_head at decode sizes) and its weights in float32, bf16 or W8A16."""
+    from aigw_tpu_torch.models import mixtral, quant
+
+    cfg = mixtral.MixtralConfig(
+        vocab_size=512, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+        ffn_dim=512, n_experts=4, experts_per_token=2, max_seq_len=512,
+        rope_theta=10000.0)
+    dtype = torch.float32 if wmode == "float32" else torch.bfloat16
+    params = mixtral.init_params(3, cfg, dtype, dev)
+    if wmode == "w8a16":
+        params = quant.quantize_params(params, consume=True, mode="int8")
+    return cfg, params, dtype
+
+
+class _Routes:
+    """Every router top-k of the mixtral layers while on (the MoE layer
+    looks ``top_k`` up at each call)."""
+
+    def __init__(self, monkeypatch):
+        from aigw_tpu_torch.models import mixtral
+
+        self.calls = []
+        orig = mixtral.top_k
+
+        def record(logits, k):
+            vals, idx = orig(logits, k)
+            self.calls.append(idx.clone())
+            return vals, idx
+
+        monkeypatch.setattr(mixtral, "top_k", record)
+
+
+@pytest.mark.parametrize("wmode", ["float32", "bf16", "w8a16"])
+def test_mixtral_entry_points_kernels_vs_plain(cuda, monkeypatch, wmode):
+    """A packed prefill, 4 fused and 4 chained decode steps and a verify
+    step of width 5 through K5, through the kernels against the same
+    calls with ``plain=True`` (teacher-forced on the kernel path's
+    tokens). Float32: the [L, E + 1] routing counts equal and the logits
+    within TOL. bf16 (and W8A16, whose attention projections and lm_head
+    run K6): the logits of every slot whose routing agreed so far within
+    0.1 of the logit scale, a greedy flip only at a top-2 gap under 0.1
+    (routing may flip at bf16 near-ties: counted, not held)."""
+    from aigw_tpu_torch.models import kvq, mixtral
+    from aigw_tpu_torch.ops import qmatmul
+
+    cfg, params, dtype = _moe_params(cuda, wmode)
+    routes = {False: _Routes(monkeypatch), True: None}
+    ps, P, B, S = 16, 8, 3, 5
+    lens = [5, 17, 9]
+    T = 48
+    g = torch.Generator(device=cuda).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (T,), generator=g,
+                           device=cuda, dtype=torch.int32)
+    row_seq = torch.full((T,), B, dtype=torch.int32, device=cuda)
+    positions = torch.zeros((T,), dtype=torch.int32, device=cuda)
+    last = torch.zeros((B,), dtype=torch.int32, device=cuda)
+    o = 0
+    for b, n in enumerate(lens):
+        row_seq[o:o + n] = b
+        positions[o:o + n] = torch.arange(n, device=cuda)
+        last[b] = o + n - 1
+        o += n
+    pt = torch.arange(B * P, dtype=torch.int32, device=cuda).reshape(B, P)
+    kv_dtype = "float32" if dtype == torch.float32 else "bfloat16"
+    shape = (cfg.n_layers, 2, (B * P + 1) * ps, cfg.n_kv_heads, cfg.head_dim)
+    pools = {p: kvq.make_pool(shape, kv_dtype, cuda) for p in (False, True)}
+    flipped: set[int] = set()
+    k6 = qmatmul.w8a16_matmul.launches
+
+    def both(fn, *args, rows):
+        out, idx = {}, {}
+        for plain in (False, True):
+            routes[False].calls = []
+            a = tuple(pools[plain] if x is None else x for x in args)
+            logits, pools[plain], stats = fn(params, cfg, *a, plain=plain,
+                                             moe_stats=True)
+            out[plain], idx[plain] = (logits, stats), routes[False].calls
+        (lk, sk), (lp, sp) = out[False], out[True]
+        assert torch.isfinite(lk).all() and torch.isfinite(lp).all()
+        for a, b in zip(idx[False], idx[True]):
+            flipped.update(rows[r] for r in torch.nonzero(
+                (a != b).any(-1))[:, 0].tolist() if rows[r] is not None)
+        if dtype == torch.float32:
+            assert torch.equal(sk, sp)
+            assert not flipped
+            torch.testing.assert_close(lk, lp, rtol=TOL[dtype][0],
+                                       atol=TOL[dtype][1])
+        return lk, lp
+
+    def hold(lk, lp, slots):
+        keep = torch.tensor([s not in flipped for s in slots], device=cuda)
+        a, b = lk[keep], lp[keep]
+        if not len(a):
+            return
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 0.1 * scale
+        top2 = torch.topk(b, 2, dim=-1).values
+        differ = a.argmax(-1) != b.argmax(-1)
+        if differ.any():
+            assert (top2[:, 0] - top2[:, 1])[differ].max().item() <= 0.1
+
+    slot_of = [row_seq[t].item() if row_seq[t].item() < B else None
+               for t in range(T)]
+    lk, lp = both(mixtral.prefill_ragged, tokens, row_seq, positions, last,
+                  None, pt, ps, rows=slot_of)
+    hold(lk, lp, range(B))
+    tok = lk.argmax(-1).to(torch.int32)
+    pos = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    active = torch.ones((B,), dtype=torch.bool, device=cuda)
+    for rung in ("fused", "chained"):
+        for _ in range(4):
+            lk, lp = both(mixtral.decode_step, tok, pos, None, pt, ps,
+                          active, rung, rows=list(range(B)))
+            hold(lk, lp, range(B))
+            tok = lk.argmax(-1).to(torch.int32)
+            pos = pos + 1
+    draft = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                          device=cuda, dtype=torch.int32)
+    draft[:, 0] = tok
+    active[2] = False
+    limits = pos + 32
+    lk, lp = both(mixtral.verify_step, draft, pos, None, pt, ps, active,
+                  limits, "chained", rows=[b for b in range(B)
+                                           for _ in range(S)])
+    hold(lk[:2].reshape(2 * S, -1), lp[:2].reshape(2 * S, -1),
+         [b for b in range(2) for _ in range(S)])
+    if wmode == "w8a16":
+        assert qmatmul.w8a16_matmul.launches > k6

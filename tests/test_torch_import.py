@@ -99,6 +99,18 @@ def test_constraint_modules_are_covered():
     assert "aigw_tpu_torch.translate.structured" in names
 
 
+def test_moe_modules_are_covered():
+    """The mixtral family is in the scans above: the port's own module
+    over the port's llama skeleton, never the reference's."""
+    assert "aigw_tpu_torch.models.mixtral" in MODULES
+    names = _imported_names(PKG / "models" / "mixtral.py")
+    assert "aigw_tpu_torch.models" in names
+    assert "aigw_tpu_torch.models.llama" in names
+    from aigw_tpu_torch.models.registry import family_fns
+
+    assert family_fns("mixtral").moe_stats
+
+
 def test_cuda_request_without_cuda_raises():
     from aigw_tpu_torch.device import resolve_device
 
