@@ -9,6 +9,13 @@
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --no-prefix-cache --no-constrained-decoding
 
+``--lora NAME=DIR`` names an adapter checkpoint, which the reference
+reads with orbax; the port has no orbax (nor does the card machine), so
+it refuses the flag with that reason until checkpoints are ported
+(ROADMAP queue 1, checkpoints). A zoo is served from Python instead:
+``TPUServeServer(..., lora_adapters=..., lora_slots=...)``.
+``--lora-slots`` is wired through.
+
 Only the ``tpuserve`` subcommand is ported; the gateway and the other
 subcommands stay JAX-package code, and the gateway can front this
 replica over HTTP. Flag names follow the reference's ``tpuserve``.
@@ -84,6 +91,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "(response_format json modes + tool calling); such "
                         "requests then 400 with a clear error instead of "
                         "being enforced")
+    s.add_argument("--lora", action="append", default=[],
+                   metavar="NAME=ORBAX_DIR",
+                   help="register a LoRA adapter in the zoo (repeatable); "
+                        "served as model '<base>:<name>'. Refused: "
+                        "adapter checkpoints are orbax, not ported yet")
+    s.add_argument("--lora-slots", type=int, default=0,
+                   help="device rows for resident adapters; the rest of "
+                        "the zoo loads on demand with refcounted LRU "
+                        "eviction (0 = one row per registered adapter)")
     s.add_argument("--ragged-chunk-tokens", type=int, default=256)
     s.add_argument("--max-queued-requests", type=int, default=256)
     return p
@@ -114,8 +130,25 @@ def engine_config(args):
     )
 
 
+def lora_adapters(specs: list[str]) -> dict[str, dict]:
+    """``--lora NAME=DIR`` values → the zoo. The reference restores each
+    DIR with orbax, which the port lacks: a well-formed value raises
+    NotImplementedError with that reason, as the registry's ``orbax:``
+    weights do."""
+    for spec in specs:
+        name, _, path = spec.partition("=")
+        if not name or not path:
+            raise ValueError(f"--lora expects NAME=ORBAX_DIR, got {spec!r}")
+        raise NotImplementedError(
+            f"--lora {spec}: adapter checkpoints are orbax directories, "
+            "and checkpoint loading is not ported yet (ROADMAP queue 1: "
+            "checkpoints); pass lora_adapters to TPUServeServer instead")
+    return {}
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    adapters = lora_adapters(args.lora)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s "
                                "%(message)s")
@@ -123,7 +156,9 @@ def main(argv: list[str] | None = None) -> int:
 
     server = TPUServeServer(args.model, engine_config(args),
                             device=args.device, host=args.host,
-                            port=args.port, quantize=args.quantize)
+                            port=args.port, quantize=args.quantize,
+                            lora_adapters=adapters or None,
+                            lora_slots=args.lora_slots)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())

@@ -4,7 +4,8 @@ The reference keeps parameters as a flat dict (``embed``, ``l{i}.wq``,
 …) of ``[in, out]`` arrays; the port keeps the same names and layout,
 so conversion is a per-leaf copy through numpy. Parity tests use it to
 run both implementations on the reference's ``init_params`` weights,
-quantized ones included.
+quantized ones included, and on its LoRA adapters
+(``adapters_from_numpy``).
 
 numpy has no int4: a reference int4 leaf arrives as an ``ml_dtypes``
 int4 array, is widened with ``astype(np.int8)`` and packed two per byte
@@ -63,6 +64,16 @@ def params_from_numpy(flat: dict, device: str | torch.device = "cuda",
         else:
             out[k] = tensor_from_numpy(arr, device, dtype)
     return out
+
+
+def adapters_from_numpy(flat: dict, dtype: torch.dtype,
+                        device: str | torch.device) -> dict[str, torch.Tensor]:
+    """A reference adapter dict (``l{i}.{kind}.lora_a`` / ``.lora_b``:
+    the stacked ``[rows, r, in]`` / ``[rows, out, r]`` of
+    ``init_lora_adapters``, or one adapter's ``[r, in]`` / ``[out, r]``)
+    → tensors of ``dtype`` on ``device``, both named by the caller
+    (bf16 leaves widen to float32 exactly first)."""
+    return {k: tensor_from_numpy(v, device, dtype) for k, v in flat.items()}
 
 
 def pool_from_numpy(pool, device: str | torch.device = "cuda"):

@@ -28,9 +28,12 @@ donates it).
 The port has ``prefill_ragged`` (K1, or the windowed program that
 quantized pools take), ``decode_step`` (fused and chained rungs) and
 ``verify_step`` (K5 on the chained rung, the gather path otherwise).
-``prefill``, ``prefill_suffix``, ``hidden_states``, the
-sequence-parallel prefills, the gather rung and LoRA wait for later
-slices (ROADMAP queue 1).
+Each takes ``lora=`` (stacked adapters, ``models/lora.py``) and
+``adapter_idx=`` (the adapter row of each sequence): the deltas join
+the projections before the bias and RoPE, the out-projection and the
+dense MLP, as in the reference. ``prefill``, ``prefill_suffix``,
+``hidden_states``, the sequence-parallel prefills and the gather rung
+wait for later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from aigw_tpu_torch.models import kvq
+from aigw_tpu_torch.models.lora import lora_delta
 from aigw_tpu_torch.ops import decode_fused, paged_attention, qmatmul
 
 
@@ -231,12 +235,28 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return decode_fused.rope_rotate(x, torch.cos(angles), torch.sin(angles))
 
 
-def _project_qkv(p, i, x, positions, cfg, apply_rope=True, plain=False):
+def _adapters(lora, adapter_idx, row_seq=None):
+    """The (stacks, row per sequence, sequence per packed row) triple
+    the projections hand ``lora_delta``, or None without adapters."""
+    if lora is None or adapter_idx is None:
+        return None
+    return lora, adapter_idx, row_seq
+
+
+def _with_delta(y: torch.Tensor, ad, key: str,
+                x: torch.Tensor) -> torch.Tensor:
+    """``y = x @ W[key]`` plus its adapter delta, when ``ad`` has one."""
+    d = None if ad is None else lora_delta(ad[0], key, x, ad[1], ad[2])
+    return y if d is None else y + d
+
+
+def _project_qkv(p, i, x, positions, cfg, apply_rope=True, plain=False,
+                 ad=None):
     hd = cfg.head_dim
     B, S, _ = x.shape
-    q = _matmul(p, f"l{i}.wq", x, plain)
-    k = _matmul(p, f"l{i}.wk", x, plain)
-    v = _matmul(p, f"l{i}.wv", x, plain)
+    q = _with_delta(_matmul(p, f"l{i}.wq", x, plain), ad, f"l{i}.wq", x)
+    k = _with_delta(_matmul(p, f"l{i}.wk", x, plain), ad, f"l{i}.wk", x)
+    v = _with_delta(_matmul(p, f"l{i}.wv", x, plain), ad, f"l{i}.wv", x)
     if cfg.attn_bias:
         q, k, v = q + p[f"l{i}.bq"], k + p[f"l{i}.bk"], v + p[f"l{i}.bv"]
     q = q.reshape(B, S, cfg.n_heads, hd)
@@ -269,10 +289,28 @@ def _attention(q: torch.Tensor,  # [B, S, H, D]
     return out.to(v.dtype).reshape(B, S, H * D)
 
 
-def _mlp(p, i, x, plain=False):
-    gate = F.silu(_matmul(p, f"l{i}.w_gate", x, plain))
-    up = _matmul(p, f"l{i}.w_up", x, plain)
-    return _matmul(p, f"l{i}.w_down", gate * up, plain)
+def _wo(p, i, attn, plain=False, ad=None):
+    """The attention out-projection with its adapter delta."""
+    return _with_delta(_matmul(p, f"l{i}.wo", attn, plain), ad,
+                       f"l{i}.wo", attn)
+
+
+def _mlp(p, i, x, plain=False, ad=None):
+    gate = F.silu(_with_delta(_matmul(p, f"l{i}.w_gate", x, plain), ad,
+                              f"l{i}.w_gate", x))
+    up = _with_delta(_matmul(p, f"l{i}.w_up", x, plain), ad,
+                     f"l{i}.w_up", x)
+    h = gate * up
+    return _with_delta(_matmul(p, f"l{i}.w_down", h, plain), ad,
+                       f"l{i}.w_down", h)
+
+
+def _dense_mlp(mlp, ad):
+    """The layer MLP an entry point runs: a family's ``mlp`` hook as
+    given (no adapter deltas), else the dense MLP with ``ad``'s."""
+    if mlp is not None:
+        return mlp
+    return lambda p, i, h, plain: _mlp(p, i, h, plain, ad)
 
 
 def _logits(p, cfg: LlamaConfig, x: torch.Tensor,
@@ -369,6 +407,8 @@ def prefill_ragged(
     *,
     plain: bool = False,
     mlp: Any = None,
+    lora: dict[str, torch.Tensor] | None = None,
+    adapter_idx: torch.Tensor | None = None,  # [B] adapter row per sequence
 ) -> tuple[torch.Tensor, Any]:
     """Ragged prefill: sequence b's new tokens occupy a contiguous run of
     packed rows (grouped and ascending in b, padding at the tail), at
@@ -384,15 +424,18 @@ def prefill_ragged(
     ``plain=True`` runs the kernels' plain versions (K1's and K6's)
     whatever the device (the on-card reference). ``mlp(p, i, h, plain)``
     replaces the dense MLP of every layer (the mixtral family's MoE
-    layer). Returns (logits at each row's last packed token [B, V]
+    layer). ``lora``/``adapter_idx`` add each sequence's adapter deltas
+    (``models/lora.lora_delta`` over the packed rows, gathered per
+    sequence). Returns (logits at each row's last packed token [B, V]
     float32, pool)."""
-    mlp = mlp or _mlp
     windowed = kvq.is_quantized(kv_cache)
     T = tokens.shape[0]
     B, P = page_table.shape
     dev = tokens.device
     valid = row_seq < B
     rs = torch.clamp(row_seq, max=B - 1).long()
+    ad = _adapters(lora, adapter_idx, rs)
+    mlp = _dense_mlp(mlp, ad)
     pt_rows = page_table.long()[rs]  # [T, P]
     pos = positions.long()
     slot = torch.gather(pt_rows, 1, (pos // page_size)[:, None])[:, 0] \
@@ -415,7 +458,7 @@ def prefill_ragged(
     HD = cfg.n_heads * cfg.head_dim
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
-        q, k, v = _project_qkv(p, i, h, pos2, cfg, plain=plain)
+        q, k, v = _project_qkv(p, i, h, pos2, cfg, plain=plain, ad=ad)
         kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
         kr, ksc = kvq.layer_pool(kv_cache, i, 0)
         vr, vsc = kvq.layer_pool(kv_cache, i, 1)
@@ -426,7 +469,7 @@ def prefill_ragged(
         else:
             attn = attend(q[:, 0].contiguous(), kr, vr, pt32, cu,
                           start.contiguous(), page_size=page_size)
-        x = x + _matmul(p, f"l{i}.wo", attn.reshape(T, 1, HD), plain)
+        x = x + _wo(p, i, attn.reshape(T, 1, HD), plain, ad)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
         x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
@@ -447,6 +490,8 @@ def decode_step(
     *,
     plain: bool = False,
     mlp: Any = None,
+    lora: dict[str, torch.Tensor] | None = None,
+    adapter_idx: torch.Tensor | None = None,  # [B] adapter row per slot
 ) -> tuple[torch.Tensor, Any]:
     """One continuous-batching decode step; returns (logits [B, V]
     float32, pool). ``attn_impl`` selects the decode rung:
@@ -461,8 +506,9 @@ def decode_step(
       only, as in the reference.
 
     ``plain=True`` runs the kernels' plain versions (the attention
-    rung's and K6's) whatever the device; ``mlp`` as in
-    ``prefill_ragged``.
+    rung's and K6's) whatever the device; ``mlp``, ``lora`` and
+    ``adapter_idx`` as in ``prefill_ragged``. On the fused rung the
+    kernel gets q/k/v that already carry the adapter deltas.
     """
     if attn_impl not in ("fused", "chained"):
         raise ValueError(f"attn_impl must be 'fused' or 'chained' "
@@ -471,7 +517,8 @@ def decode_step(
         raise NotImplementedError(
             "the chained decode kernel has no quantized-pool rung: the "
             "fallback matrix resolves int8/int4 to the fused rung")
-    mlp = mlp or _mlp
+    ad = _adapters(lora, adapter_idx)
+    mlp = _dense_mlp(mlp, ad)
     B = tokens.shape[0]
     pos = positions.long()
     pos1 = pos[:, None]
@@ -503,7 +550,7 @@ def decode_step(
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(p, i, h, pos1, cfg, apply_rope=not fused,
-                               plain=plain)
+                               plain=plain, ad=ad)
         kr, ksc = kvq.layer_pool(kv_cache, i, 0)
         vr, vsc = kvq.layer_pool(kv_cache, i, 1)
         if fused:
@@ -516,7 +563,7 @@ def decode_step(
             kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
             attn = walk(q[:, 0].contiguous(), kr, vr, pt32, lengths,
                         page_size=page_size)
-        x = x + _matmul(p, f"l{i}.wo", attn.reshape(B, 1, HD), plain)
+        x = x + _wo(p, i, attn.reshape(B, 1, HD), plain, ad)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
         x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
@@ -537,6 +584,8 @@ def verify_step(
     *,
     plain: bool = False,
     mlp: Any = None,
+    lora: dict[str, torch.Tensor] | None = None,
+    adapter_idx: torch.Tensor | None = None,  # [B] adapter row per slot
 ) -> tuple[torch.Tensor, Any]:
     """Speculative decoding's verifier: S candidate positions per slot
     in one step; returns (logits at every position [B, S, V] float32,
@@ -553,11 +602,13 @@ def verify_step(
       rows past ``limits`` masked out.
 
     ``plain=True`` runs the kernels' plain versions (K5's and K6's)
-    whatever the device; ``mlp`` as in ``prefill_ragged``."""
+    whatever the device; ``mlp``, ``lora`` and ``adapter_idx`` as in
+    ``prefill_ragged``."""
     if attn_impl not in ("", "chained"):
         raise ValueError(f"attn_impl must be '' or 'chained' "
                          f"(got {attn_impl!r})")
-    mlp = mlp or _mlp
+    ad = _adapters(lora, adapter_idx)
+    mlp = _dense_mlp(mlp, ad)
     chained = attn_impl == "chained"
     if chained and kvq.is_quantized(kv_cache):
         raise NotImplementedError(
@@ -595,7 +646,7 @@ def verify_step(
     x = _embed_rows(p, tokens.long())  # [B, S, dim]
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
-        q, k, v = _project_qkv(p, i, h, pos, cfg, plain=plain)
+        q, k, v = _project_qkv(p, i, h, pos, cfg, plain=plain, ad=ad)
         kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
         if chained:
             kr, _ = kvq.layer_pool(kv_cache, i, 0)
@@ -605,7 +656,7 @@ def verify_step(
         else:
             k_all, v_all = kvq.gather_kv(kv_cache, i, gslot)
             attn = _attention(q, k_all, v_all, mask)
-        x = x + _matmul(p, f"l{i}.wo", attn, plain)
+        x = x + _wo(p, i, attn, plain, ad)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
         x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)

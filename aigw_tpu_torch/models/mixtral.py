@@ -218,9 +218,15 @@ def _with_moe(out, stats: list | None):
     return logits, kv_cache, torch.stack(stats)
 
 
+# LoRA is llama-family-only, as in the reference: the entry points take
+# ``lora`` and ``adapter_idx`` for interface parity and ignore them (the
+# MoE layer gets no deltas, and neither do the projections).
+
+
 def prefill_ragged(p, cfg: MixtralConfig, tokens, row_seq, positions,
                    last_rows, kv_cache, page_table, page_size, *,
-                   plain=False, moe_stats=False):
+                   plain=False, moe_stats=False, lora=None,
+                   adapter_idx=None):
     stats: list | None = [] if moe_stats else None
     return _with_moe(llama.prefill_ragged(
         p, cfg.as_llama(), tokens, row_seq, positions, last_rows, kv_cache,
@@ -229,7 +235,7 @@ def prefill_ragged(p, cfg: MixtralConfig, tokens, row_seq, positions,
 
 def decode_step(p, cfg: MixtralConfig, tokens, positions, kv_cache,
                 page_table, page_size, active, attn_impl="fused", *,
-                plain=False, moe_stats=False):
+                plain=False, moe_stats=False, lora=None, adapter_idx=None):
     stats: list | None = [] if moe_stats else None
     return _with_moe(llama.decode_step(
         p, cfg.as_llama(), tokens, positions, kv_cache, page_table,
@@ -239,7 +245,7 @@ def decode_step(p, cfg: MixtralConfig, tokens, positions, kv_cache,
 
 def verify_step(p, cfg: MixtralConfig, tokens, positions, kv_cache,
                 page_table, page_size, active, limits, attn_impl="", *,
-                plain=False, moe_stats=False):
+                plain=False, moe_stats=False, lora=None, adapter_idx=None):
     stats: list | None = [] if moe_stats else None
     return _with_moe(llama.verify_step(
         p, cfg.as_llama(), tokens, positions, kv_cache, page_table,

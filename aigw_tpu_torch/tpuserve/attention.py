@@ -18,8 +18,10 @@ Both resolvers export what the replica actually runs, and why, on
 ``group_prefill`` serves batched admissions and ``single_prefill`` the
 per-request path, which resumes a prefix-cache hit at its cached offset
 as one packed segment at absolute positions (a full hit is one row at
-n - 1). The bucketed prefill backend, the gather decode rung and
-``sp_chunked_prefill`` wait for later slices (ROADMAP queue 1).
+n - 1). Each segment's sequence row carries its request's adapter
+row, which the packed call's LoRA deltas read. The bucketed prefill
+backend, the gather decode rung and ``sp_chunked_prefill`` wait for
+later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ class GroupResult:
     total: int
     tok: int
     page_row: np.ndarray
+    adapter_row: int
 
 
 @dataclass
@@ -194,7 +197,8 @@ class RaggedPrefillBackend:
 
     def _sampling_rows(self, by_row: dict[int, tuple],
                        mask: np.ndarray | None = None) -> tuple:
-        """[B]-wide sampling tensors from ``row → (req, seq_id)``: the
+        """[B]-wide sampling tensors from ``row → (req, seq_id)``, and
+        each row's adapter row (the base row where no request sits): the
         prefill token samples with key ``[seed or seq_id, 0]``. A
         grammar ``mask`` ([V]) is added to row 0's bias (the single
         path's row)."""
@@ -206,6 +210,7 @@ class RaggedPrefillBackend:
         top_p = np.ones((B,), np.float32)
         top_k = np.zeros((B,), np.int32)
         bias = np.zeros((B, V), np.float32)
+        adapter = np.full((B,), eng._base_row, np.int32)
         for g, (req, seq_id) in by_row.items():
             keys[g, 0] = (req.sampling.seed or seq_id) & 0xFFFFFFFF
             temp[g] = req.sampling.temperature
@@ -214,11 +219,12 @@ class RaggedPrefillBackend:
             for tok_id, b in req.sampling.logit_bias:
                 if 0 <= tok_id < V:
                     bias[g, tok_id] = b
+            adapter[g] = eng._adapter_row_of(req)
         if mask is not None:
             bias[0] += mask
         dev = eng.device
         return tuple(torch.from_numpy(a).to(dev)
-                     for a in (keys, temp, top_p, top_k, bias))
+                     for a in (keys, temp, top_p, top_k, bias, adapter))
 
     # -- interface ---------------------------------------------------------
     def group_prefill(self, items: list, chain_by_req: dict
@@ -253,7 +259,8 @@ class RaggedPrefillBackend:
                      len(items), info["real"], info["padded"],
                      info["calls"])
         return [GroupResult(req=req, seq_id=seq_id, n=n, total=total,
-                            tok=int(host[s.g][s.g]), page_row=s.page_row)
+                            tok=int(host[s.g][s.g]), page_row=s.page_row,
+                            adapter_row=eng._adapter_row_of(req))
                 for s, (req, seq_id, n, total) in zip(segs, items)]
 
     def single_prefill(self, req, seq_id: int, suffix: list[int],
@@ -262,7 +269,8 @@ class RaggedPrefillBackend:
         """Prefill one request's ``suffix`` at absolute position
         ``prefix_len`` (0, a cached page-aligned prefix, or n - 1 after a
         full hit) as one segment at row 0 of the packed calls, its
-        sampling row at row 0 of the ``[B]`` layout, with the grammar
+        sampling row (its adapter row with it) at row 0 of the ``[B]``
+        layout, with the grammar
         ``mask`` of a constrained request in its bias. Returns (first
         token, info) or an abort status string (see ``_run_packed``)."""
         seg = _Seg(g=0, req=req, tokens=suffix, start=prefix_len,

@@ -70,6 +70,18 @@ reference folds them (a window's even when a grammar cut discards its
 tokens), behind ``/state``'s ``moe_*`` keys: zero or ``[]`` on dense
 families, as in the reference.
 
+**Multi-LoRA** (``lora_params``/``adapter_names`` for a fixed stack, or
+an ``adapter_store``, ``tpuserve/adapters.py``, for a hot-loaded zoo):
+a request's ``adapter`` pins its row at admission (a load into a free or
+LRU-evicted row when it is not resident; every row pinned is waited out
+like page pressure), every model call gets the stacks and each
+sequence's row (the decode state's ``adapter_idx``), and the row is
+released wherever its slot is freed. An unknown adapter finishes its
+request with ``error``. Mixtral's entry points take the rows and ignore
+them, as the reference's do. The prefix cache keys pages on token ids
+only, as the reference's does: an adapter request can adopt pages a base
+request (or another adapter) computed.
+
 Every default equals the reference's. Knobs of features this slice does
 not implement raise ``NotImplementedError`` naming their ROADMAP entry
 when set to a non-default value.
@@ -92,6 +104,10 @@ from aigw_tpu_torch.device import resolve_device
 from aigw_tpu_torch.models import kvq
 from aigw_tpu_torch.obs.metrics import EnginePhases
 from aigw_tpu_torch.tpuserve import constrain, speculation
+from aigw_tpu_torch.tpuserve.adapters import (
+    AdapterCapacityError,
+    UnknownAdapterError,
+)
 from aigw_tpu_torch.tpuserve.attention import (
     BACKENDS,
     DECODE_BACKENDS,
@@ -228,6 +244,8 @@ class GenRequest:
     # a compiled, shared constrain.TokenFSM (the slot builds its own
     # cursor at admission), or None: unconstrained
     constraint: Any = None
+    # LoRA adapter name ("" = the base model)
+    adapter: str = ""
 
 
 @dataclass
@@ -258,6 +276,8 @@ class _Slot:
     # window whose captured epoch trails it is discarded for the slot)
     cn: Any = None  # constrain.ConstraintState | None
     cn_epoch: int = 0
+    # the adapter row the slot decodes through (pinned while it lives)
+    adapter_row: int = 0
 
 
 @dataclass
@@ -341,6 +361,12 @@ class EngineStats:
     moe_tokens_dropped: int = 0
     moe_dropped_frac: float = 0.0
     moe_expert_imbalance: float = 0.0
+    # adapter serving: loads and evictions of device rows, resident
+    # adapters, and live slots decoding through a non-base row
+    adapter_loads: int = 0
+    adapter_evictions: int = 0
+    adapter_resident: int = 0
+    adapter_slots: int = 0
 
     PREFILL_RATE_HALF_LIFE_TOKENS = 16384
 
@@ -393,7 +419,8 @@ _STATE_DTYPES = {"tokens": np.int32, "positions": np.int32,
                  "temp": np.float32, "top_p": np.float32,
                  "top_k": np.int32, "freq_pen": np.float32,
                  "pres_pen": np.float32, "page_table": np.int32,
-                 "counts": np.int32, "bias": np.float32}
+                 "counts": np.int32, "bias": np.float32,
+                 "adapter_idx": np.int32}
 #: the speculation rows, present when spec_tokens > 0: token history
 #: (prompt + generated, valid through the pending token's position),
 #: the slot's draft length, and the lookahead draft buffer
@@ -413,14 +440,38 @@ class Engine:
         eos_token_ids: tuple[int, ...] = (),
         fns: Any = None,  # models.registry.ModelFns; default = llama
         device: str | torch.device = "cuda",
+        lora_params: dict[str, torch.Tensor] | None = None,
+        adapter_names: tuple[str, ...] = (),
+        # a hot-loaded zoo (tpuserve/adapters.py): refcounted rows with
+        # LRU eviction; exclusive with the fixed stack above
+        adapter_store: Any = None,
     ):
         from aigw_tpu_torch.models.registry import family_fns
 
         self.device = resolve_device(device)
-        for name, t in params.items():
+        for name, t in {**params, **(lora_params or {})}.items():
             if t.device.type != self.device.type:
                 raise ValueError(f"param {name} is on {t.device}, engine "
                                  f"device is {self.device}")
+        # multi-LoRA: the stacks and name → row map; the last row of a
+        # stack is the all-zeros base-model row (models/lora.py). With a
+        # store both are dynamic, resolved through it
+        if adapter_store is not None and (lora_params or adapter_names):
+            raise ValueError(
+                "pass either adapter_store or lora_params/adapter_names, "
+                "not both")
+        if (adapter_store is not None
+                and adapter_store.device.type != self.device.type):
+            raise ValueError(f"adapter store is on {adapter_store.device}, "
+                             f"engine device is {self.device}")
+        self._adapter_store = adapter_store
+        self._lora_static = lora_params
+        if adapter_store is not None:
+            self.adapter_rows: dict[str, int] = {}
+            self._base_row = adapter_store.base_row
+        else:
+            self.adapter_rows = {n: i for i, n in enumerate(adapter_names)}
+            self._base_row = len(adapter_names)
         self.fns = fns or family_fns("llama")
         self.params = params
         self.model_cfg = model_cfg
@@ -534,10 +585,12 @@ class Engine:
         self._refresh_stats()
 
     # -- device programs ----------------------------------------------------
-    def _model(self, fn, *args, **kw):
-        """One model call: the pool is kept; returns (logits, the call's
+    def _model(self, fn, *args, adapter_idx=None, **kw):
+        """One model call with the adapter stacks and each sequence's row
+        (``adapter_idx``): the pool is kept; returns (logits, the call's
         [L, E + 1] routing counts or None on a dense family)."""
-        out = fn(self.params, self.model_cfg, *args, **kw, **self._moe_kw)
+        out = fn(self.params, self.model_cfg, *args, **kw, **self._moe_kw,
+                 lora=self.lora_params, adapter_idx=adapter_idx)
         if self._moe:
             logits, self.kv_cache, moe = out
             return logits, moe
@@ -545,13 +598,16 @@ class Engine:
         return logits, None
 
     def _prefill_ragged_step(self, tokens, row_seq, positions, last_rows,
-                             page_table, keys, temp, top_p, top_k, bias):
-        """One packed prefill call plus sampling of each row's first
-        token (key [seed, 0]); returns ([B] int32 tokens, routing counts
-        or None), on the device."""
+                             page_table, keys, temp, top_p, top_k, bias,
+                             adapter_idx):
+        """One packed prefill call (``adapter_idx``: [B] adapter row per
+        sequence row) plus sampling of each row's first token (key
+        [seed, 0]); returns ([B] int32 tokens, routing counts or None),
+        on the device."""
         logits, moe = self._model(
             self.fns.prefill_ragged, tokens, row_seq, positions, last_rows,
-            self.kv_cache, page_table, self.cfg.page_size)
+            self.kv_cache, page_table, self.cfg.page_size,
+            adapter_idx=adapter_idx)
         return sample(logits + bias, keys, temp, top_p, top_k), moe
 
     def _decode_window(self, k: int, lean: bool, greedy: bool
@@ -574,7 +630,7 @@ class Engine:
             logits, moe = self._model(
                 self.fns.decode_step, st["tokens"], st["positions"],
                 self.kv_cache, pt, self.cfg.page_size, act,
-                attn_impl=self._decode_impl)
+                attn_impl=self._decode_impl, adapter_idx=st["adapter_idx"])
             macc = moe if macc is None else macc + moe
             if lean:
                 logits = logits + st["bias"]
@@ -638,7 +694,8 @@ class Engine:
             logits, moe = self._model(
                 self.fns.verify_step, inputs, st["positions"],
                 self.kv_cache, pt, self.cfg.page_size, act,
-                st["limits"], attn_impl=self._verify_impl)
+                st["limits"], attn_impl=self._verify_impl,
+                adapter_idx=st["adapter_idx"])
             macc = moe if macc is None else macc + moe
             # counts are window-start values: exact at d = 0, and later
             # positions accept only on penalty-free slots
@@ -679,6 +736,49 @@ class Engine:
             out.append(torch.cat([sampled, n_emit[:, None],
                                   n_prop[:, None].to(torch.int32)], dim=1))
         return torch.stack(out), macc
+
+    # -- adapter rows (tpuserve/adapters.py) ---------------------------------
+    @property
+    def lora_params(self) -> dict[str, torch.Tensor] | None:
+        """The adapter stacks the next model call reads (None without
+        adapters). A store loads rows in place, so its stacks never
+        change identity."""
+        if self._adapter_store is not None:
+            return self._adapter_store.params or None
+        return self._lora_static
+
+    def _adapter_known(self, name: str) -> bool:
+        if self._adapter_store is not None:
+            return self._adapter_store.knows(name)
+        return name in self.adapter_rows
+
+    def _acquire_adapter(self, name: str) -> int:
+        """An adapter name's device row for a new slot, pinned (and
+        loaded when not resident) in store mode. Raises
+        UnknownAdapterError for a name outside the zoo and
+        AdapterCapacityError when every row is pinned (the caller
+        requeues, as on KV page pressure)."""
+        if self._adapter_store is not None:
+            return self._adapter_store.acquire(name)
+        row = self.adapter_rows.get(name)
+        if row is None:
+            raise UnknownAdapterError(name)
+        return row
+
+    def _release_adapter_row(self, row: int) -> None:
+        """Drop a slot's pin on its row; safe with a window in flight: a
+        later load into the row queues behind it on the stream."""
+        if self._adapter_store is not None and row != self._base_row:
+            self._adapter_store.release(row)
+
+    def _adapter_row_of(self, req: GenRequest) -> int:
+        """The device row of an admitted request (its pin was taken at
+        admission, so a store lookup must succeed)."""
+        if not req.adapter:
+            return self._base_row
+        if self._adapter_store is not None:
+            return self._adapter_store.row_of(req.adapter)
+        return self.adapter_rows.get(req.adapter, self._base_row)
 
     # -- host copies ----------------------------------------------------------
     def _start_host_copy(self, *ts: torch.Tensor | None):
@@ -739,6 +839,8 @@ class Engine:
             from aigw_tpu_torch.ops import _build
 
             _build.library()
+        if self._adapter_store is not None:
+            self._adapter_store.warm()
         self.stats.warmup_ms = round(1e3 * (time.monotonic() - t0), 3)
 
     def start(self) -> None:
@@ -805,6 +907,7 @@ class Engine:
             if s is not None:
                 s.req.emit(-1, "error")
                 self.allocator.free(s.req.id)
+                self._release_adapter_row(s.adapter_row)
                 self._slots[i] = None
         try:
             while True:
@@ -817,6 +920,7 @@ class Engine:
             if s is not None and s.req.cancelled.is_set():
                 s.req.emit(-1, "cancelled")
                 self._pending_frees.append(s.req.id)
+                self._release_adapter_row(s.adapter_row)
                 self._slots[i] = None
                 self._dirty_rows.add(i)
 
@@ -939,6 +1043,8 @@ class Engine:
             hits = len(self.prefix_cache.probe(chain))
             if min(hits, n // self.cfg.page_size) > 0:
                 return False, chain
+        if req.adapter and not self._adapter_known(req.adapter):
+            return False, chain  # the per-request path reports the error
         if req.constraint is not None:
             # the grammar's initial mask goes into the prefill's bias
             # row: the per-request path builds it
@@ -962,6 +1068,17 @@ class Engine:
                 self.allocator.free(seq_id)
                 leftover = reqs[i:]
                 break
+            if req.adapter:
+                # pin (and load, when not resident) the row before the
+                # prefill builds its sampling rows; the pin passes to the
+                # slot. Every row pinned waits like page pressure
+                # (classify already checked the name)
+                try:
+                    self._acquire_adapter(req.adapter)
+                except AdapterCapacityError:
+                    self.allocator.free(seq_id)
+                    leftover = reqs[i:]
+                    break
             req.id = seq_id
             prepared.append((req, seq_id, n, total))
         if not prepared:
@@ -981,7 +1098,7 @@ class Engine:
                 req=r.req, pos=r.n - 1, generated=0,
                 key_seed=r.req.sampling.seed or r.seq_id,
                 limit=r.total, page_row=r.page_row,
-                ctrl=self._make_ctrl(r.req))
+                adapter_row=r.adapter_row, ctrl=self._make_ctrl(r.req))
             self.stats.prefills += 1
             self._mark_admitted(slot_idx)
             t_m = time.monotonic()
@@ -1070,6 +1187,20 @@ class Engine:
         req.id = seq_id
         self.phases.observe("queue_wait",
                             1e3 * (time.monotonic() - req.enqueued_at))
+        adapter_row = self._base_row
+        if req.adapter:
+            try:
+                # pins (and loads, when not resident) the row; the pin
+                # passes to the slot and is released when it frees
+                adapter_row = self._acquire_adapter(req.adapter)
+            except UnknownAdapterError:
+                req.emit(-1, "error")
+                self.allocator.free(seq_id)
+                return "skipped"
+            except AdapterCapacityError:
+                # every row pinned by live slots: wait like page pressure
+                self.allocator.free(seq_id)
+                return "stop"
         suffix = req.prompt[prefix_len:]
         page_row = np.zeros((self.cfg.max_pages_per_seq,), np.int32)
         page_row[:len(pages)] = pages
@@ -1083,6 +1214,9 @@ class Engine:
             req, seq_id, suffix, prefix_len, page_row,
             mask=cn.mask_row() if cn is not None else None)
         if isinstance(res, str):
+            # cancelled or the engine stopping: the pin never reached a
+            # slot
+            self._release_adapter_row(adapter_row)
             self.allocator.free(seq_id)
             return res
         tok, info = res
@@ -1120,7 +1254,7 @@ class Engine:
             req=req, pos=n - 1, generated=0,
             key_seed=req.sampling.seed or seq_id, limit=total,
             page_row=page_row, ctrl=ctrl, la_base=la_base,
-            la_tokens=la_tokens, cn=cn)
+            la_tokens=la_tokens, cn=cn, adapter_row=adapter_row)
         self._mark_admitted(slot_idx)
         if cn is not None:
             # counted at admission (a requeue under page pressure must
@@ -1155,6 +1289,7 @@ class Engine:
             "page_table": np.zeros((P,), np.int32),
             "counts": np.zeros((V,), np.int32),
             "bias": np.zeros((V,), np.float32),
+            "adapter_idx": self._base_row,
         }
         if self._spec_max:
             row.update(history=np.zeros((self.cfg.max_seq_len,), np.int32),
@@ -1168,7 +1303,7 @@ class Engine:
                    active=True, keys=[s.key_seed & 0xFFFFFFFF, s.pos],
                    temp=sp.temperature, top_p=sp.top_p, top_k=sp.top_k,
                    freq_pen=sp.frequency_penalty,
-                   pres_pen=sp.presence_penalty)
+                   pres_pen=sp.presence_penalty, adapter_idx=s.adapter_row)
         row["page_table"][:] = s.page_row[:P]
         for tok_id, cnt in s.token_counts.items():
             if 0 <= tok_id < V:
@@ -1619,6 +1754,7 @@ class Engine:
                                                - s.first_emit_at)
                     / (s.generated - 1))
             self._pending_frees.append(req.id)
+            self._release_adapter_row(s.adapter_row)
             self._slots[i] = None
             self._dirty_rows.add(i)
             self._wake.set()  # maybe admit a queued request
@@ -1658,6 +1794,16 @@ class Engine:
             st.moe_expert_imbalance = (
                 round(float(self._moe_expert_tokens.max()) / mean, 4)
                 if mean > 0 else 0.0)
+        store = self._adapter_store
+        if store is not None:
+            st.adapter_loads = store.loads
+            st.adapter_evictions = store.evictions
+            st.adapter_resident = store.resident_count
+        else:
+            st.adapter_resident = len(self.adapter_rows)
+        st.adapter_slots = sum(
+            1 for s in self._slots
+            if s is not None and s.adapter_row != self._base_row)
         st.kv_pages_free = self.allocator.free_pages
         st.kv_occupancy = self.allocator.occupancy
         st.kv_pool_bytes = self.cfg.num_pages * self.kv_page_bytes

@@ -19,6 +19,13 @@ enforces; the reply carries the JSON as content, or the envelope as
 server detects an envelope in the output, holding streamed text back
 only while it is still a viable envelope prefix.
 
+Multi-LoRA (``lora_adapters``, ``tpuserve/adapters.py``): a request
+whose ``model`` is ``<base>:<adapter>`` or a bare adapter name decodes
+through that adapter; an unknown ``<base>:`` suffix is a 404 (a typo
+must not silently serve base-model output). ``/v1/models`` lists
+``<model>:<adapter>`` per registered adapter, and ``/state`` carries the
+picker's adapter keys on every replica, zoo or not.
+
 The server is ``http.server.ThreadingHTTPServer``: one thread per
 connection, each waiting on its request's token queue, which the engine
 thread fills. Embeddings, batches, migration, KV pages, debug and
@@ -47,6 +54,7 @@ from aigw_tpu_torch.translate.structured import (
     parse_response_format,
 )
 from aigw_tpu_torch.tpuserve import constrain
+from aigw_tpu_torch.tpuserve.adapters import AdapterStore
 from aigw_tpu_torch.tpuserve.engine import (
     DEFAULTS_DIFFER,
     Engine,
@@ -78,7 +86,12 @@ class TPUServeServer:
     def __init__(self, model: str, engine_cfg: EngineConfig,
                  device: str | torch.device = "cuda",
                  host: str = "127.0.0.1", port: int = 8011,
-                 param_dtype: str = "bfloat16", quantize: str = ""):
+                 param_dtype: str = "bfloat16", quantize: str = "",
+                 lora_adapters: dict[str, dict] | None = None,
+                 lora_slots: int = 0):
+        """``lora_adapters``: name → one adapter's tensors (``[r, in]`` /
+        ``[out, r]`` per target), the zoo, of which ``lora_slots`` are
+        resident on the device at a time (0 = one row per adapter)."""
         self.device = resolve_device(device)
         self.model_name = model
         spec = get_model_spec(model)
@@ -109,9 +122,18 @@ class TPUServeServer:
         if quantize:
             logger.info("weights quantized to %s (W%sA16)", quantize,
                         quantize[-1])
+        self.adapter_store: AdapterStore | None = None
+        if lora_adapters:
+            if spec.family != "llama":
+                raise ValueError("LoRA serving supports the llama family")
+            self.adapter_store = AdapterStore(
+                n_slots=lora_slots or len(lora_adapters), device=self.device)
+            for name, adapter in lora_adapters.items():
+                self.adapter_store.register(name, adapter)
         self.engine = Engine(params, self.model_cfg, engine_cfg,
                              eos_token_ids=(self.tokenizer.eos_id,),
-                             fns=self.fns, device=self.device)
+                             fns=self.fns, device=self.device,
+                             adapter_store=self.adapter_store)
         self._started_at = time.time()
         self.replica_id = uuid.uuid4().hex[:16]
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
@@ -148,11 +170,33 @@ class TPUServeServer:
         return (dict(constrain.CAPABILITIES)
                 if self.engine.cfg.constrained_decoding else {})
 
+    @property
+    def adapter_names(self) -> tuple[str, ...]:
+        """The served zoo (registered adapters, resident or not)."""
+        if self.adapter_store is None:
+            return ()
+        return self.adapter_store.names()
+
+    def _resolve_adapter(self, model: str) -> str:
+        """``<base>:<adapter>`` or a bare adapter name → the adapter; any
+        other name → "" (the base model). An unknown colon suffix raises
+        SchemaError (the server's 404)."""
+        if model.startswith(self.model_name + ":"):
+            cand = model[len(self.model_name) + 1:]
+            if cand not in self.adapter_names:
+                raise oai.SchemaError(
+                    f"unknown LoRA adapter {cand!r}; loaded: "
+                    f"{sorted(self.adapter_names)}")
+            return cand
+        return model if model in self.adapter_names else ""
+
     def models(self) -> dict[str, Any]:
         caps = self.capabilities()
-        return oai.models_response([(self.model_name, "tpuserve", 0,
-                                     {"capabilities": caps} if caps
-                                     else None)])
+        extra = {"capabilities": caps} if caps else None
+        return oai.models_response(
+            [(self.model_name, "tpuserve", 0, extra)]
+            + [(f"{self.model_name}:{a}", "tpuserve-lora", 0, extra)
+               for a in self.adapter_names])
 
     def health(self) -> tuple[int, dict[str, Any]]:
         if not self.engine.healthy:
@@ -249,6 +293,18 @@ class TPUServeServer:
             "moe_expert_imbalance": s.moe_expert_imbalance,
             "moe_expert_load": eng.moe_expert_load(),
             "moe_layer_drops": eng.moe_layer_drops(),
+            # adapter serving: the zoo, device residency, load/evict
+            # churn and live adapter slots (the picker's adapter
+            # affinity reads adapters_resident)
+            "adapters_registered": sorted(self.adapter_names),
+            "adapters_resident": (self.adapter_store.resident_names()
+                                  if self.adapter_store is not None
+                                  else []),
+            "adapter_rows": (self.adapter_store.n_slots
+                             if self.adapter_store is not None else 0),
+            "adapter_loads": s.adapter_loads,
+            "adapter_evictions": s.adapter_evictions,
+            "adapter_slots": s.adapter_slots,
             "enable_prefix_cache": cfg.enable_prefix_cache,
             "defaults_differ": dict(DEFAULTS_DIFFER),
             "migration": False,
@@ -375,14 +431,16 @@ class TPUServeServer:
     def submit(self, prompt: list[int], body: dict[str, Any],
                constraint: Any = None):
         """Submit to the engine; returns (token queue, request). The queue
-        yields (token_id, finish_reason) pairs."""
+        yields (token_id, finish_reason) pairs. Raises SchemaError for an
+        unknown adapter suffix."""
+        adapter = self._resolve_adapter(str(body.get("model", "")))
         out: "queue.Queue[tuple[int, str | None]]" = queue.Queue()
         max_tokens = int(body.get("max_completion_tokens")
                          or body.get("max_tokens") or 256)
         req = GenRequest(prompt=prompt, max_tokens=max_tokens,
                          sampling=SamplingParams.from_request(body),
                          emit=lambda t, f: out.put((t, f)),
-                         constraint=constraint)
+                         constraint=constraint, adapter=adapter)
         self.engine.submit(req)
         return out, req
 
@@ -477,6 +535,9 @@ def _make_handler(server: TPUServeServer):
             except EngineOverloadedError as e:
                 self._error(429, str(e), "rate_limit_error",
                             headers={"retry-after": "1"})
+                return
+            except oai.SchemaError as e:  # an unknown adapter
+                self._error(404, str(e), "model_not_found")
                 return
             except ValueError as e:
                 self._error(400, str(e))

@@ -75,6 +75,21 @@ Phases (any failure exits non-zero):
    the prefix cache on (the ``serve_prefix_int8`` line: the same counts,
    the copied page's q and scale rows equal to their source's), and two
    requests over an int4 KV pool, which must launch K7-int4;
+   multi-LoRA (the ``serve_lora`` line; launch counts zeroed before it,
+   read after it): a zoo of 4 adapters at the reference's default
+   ``LoRAConfig()`` (wq and wv, rank 16) over 2 device rows, the fused
+   rung with the prefix cache on, the burst cold and warm with 6 of its
+   8 requests on adapters (``<model>:<adapter>`` and a bare name): every
+   request 200, ``<model>:nope`` a 404 with the reference's message on
+   both routes streamed and not, ``/v1/models`` listing the zoo,
+   ``/state`` counting at least 4 loads and 2 evictions, at most 2
+   resident, no adapter slot when idle; K1 and K2 must launch. Then the
+   chained rung at a fixed draft width of 4 (two pinned requests beside
+   a sampled adapter request: K3 and K5, drafts accepted), then W8A16
+   weights with the zoo (K6). Reported, not gated: an adapter's load
+   time (wq + wv, and all seven targets), one decode step at batch 8
+   with 8 adapter slots, 8 base slots and none, and one packed prefill
+   of the burst's prompts with and without adapters;
 5. every kernel against its plain PyTorch version on the card at the
    served shapes (each attention output element within 2**-7 of the
    plain output plus 2e-3, printed beside the mean |output|; K2's and
@@ -108,7 +123,16 @@ Phases (any failure exits non-zero):
    its plain version (the ``model_check`` line's ``verify``); a prompt's
    8 pages prefilled, then its last 150 tokens resumed at 1024, and a
    full hit's copied page with its last token resumed at 1023, each
-   against a cold prefill (``resume``);
+   against a cold prefill (``resume``); LoRA at Llama-3-8B widths and 2
+   layers, float32 and bf16, 4 adapters on all seven targets at rank 16
+   and the base row mixed over 8 slots: a packed prefill (K1), 8 fused
+   (K2) and 8 chained (K3) steps and a verify step (K5), dense and
+   W8A16 (K6), kernels against plain versions at ``model_check``'s
+   tolerances, the base rows bit-equal to the same calls with
+   ``lora=None`` and every adapter row different
+   (``model_check_lora``); K3, K4 and K5 beside one
+   ``scaled_dot_product_attention`` call over the batch (efficient
+   backend, a boolean mask, ``enable_gqa``), their library yardstick;
 6. where one full-width decode step's time goes, bf16 on the fused and
    on the chained rung (K3) and W8A16 over int8 pages, and one verify
    step of width 5 through K5: its host wall time against the device
@@ -145,7 +169,8 @@ Phases (any failure exits non-zero):
    K6 at Mixtral's lm_head shape (4096 x 32000) is on the
    ``qmatmul_shapes`` line;
 8. the ``kernels`` JSON line (each row also carries its launches on
-   ``serve_moe``), the card line, then the last line
+   ``serve_moe`` and on ``serve_lora``), the card line, then the last
+   line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -163,6 +188,7 @@ import sys
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -493,6 +519,9 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         paged_attention.paged_attention_decode_v2,
         paged_attention.paged_attention_decode))
     del rot
+    # one SDPA call over the batch computes K3's (and K4's) function
+    lib3 = sdpa_paged_yardstick(torch, q[:, None], k_pool, v_pool, pt,
+                                [[n] for n in lengths], PS, k3_plain())
     rows.append(dict(
         name="paged_attention_decode_v2", route="cuda",
         source="aigw_tpu_torch/csrc/paged_attention.cu",
@@ -500,7 +529,9 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         launches=launches["paged_attention_decode_v2"], max_abs_err=err,
         ms=(t3a + t3b) / 2, ms_rotated=rot3,
         plain_ms=cuda_ms(k3_plain, iters=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib3["ms"],
+        library_ms_rotated=lib3["ms_rotated"], library=lib3["call"],
+        max_abs_err_library=lib3["max_abs_err"],
         out_mean_abs=mean_out))
     log(f"K3 ok: max err {err:.3g} (mean |out| {mean_out:.3g}), "
         f"{rows[-1]['ms']:.4f} ms, rotated {rot3:.4f} ms (bound "
@@ -514,7 +545,8 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         launches=launches["paged_attention_decode"], max_abs_err=err4,
         ms=(t4a + t4b) / 2, ms_rotated=rot4,
         plain_ms=cuda_ms(k4_plain, iters=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib3["ms"],
+        library_ms_rotated=lib3["ms_rotated"], library=lib3["call"],
         out_mean_abs=mean_out4, k3_ms_beside=(t3a + t3b) / 2,
         k3_ms_rotated_beside=rot3, splits=n_split, pages_per_split=pps,
         note="K3's body, one launch; off the engine path, as in the "
@@ -629,6 +661,10 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
     rot = [(k_pool.clone(), v_pool.clone()) for _ in range(n_rot)]
     rot5 = rotated_ms(lambda i: k5(*rot[i]), n_rot)
     del rot
+    lib5 = sdpa_paged_yardstick(
+        torch, qv, k_pool, v_pool, pt,
+        [[max(0, min(p + s + 1, P * PS)) for s in range(S)] for p in pos0],
+        PS, k5_plain())
     rows.append(dict(
         name="paged_attention_verify", route="cuda",
         source="aigw_tpu_torch/csrc/paged_attention.cu",
@@ -636,7 +672,9 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
         launches=launches["paged_attention_verify"], max_abs_err=err,
         ms=cuda_ms(k5), ms_rotated=rot5,
         plain_ms=cuda_ms(k5_plain, iters=5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib5["ms"],
+        library_ms_rotated=lib5["ms_rotated"], library=lib5["call"],
+        max_abs_err_library=lib5["max_abs_err"],
         out_mean_abs=mean_out, S=S, max_abs_err_s9=err9))
     log(f"K5 ok: max err {err:.3g} (mean |out| {mean_out:.3g}; S 9: "
         f"{err9:.3g}), {rows[-1]['ms']:.4f} ms, rotated {rot5:.4f} ms "
@@ -792,6 +830,67 @@ def sdpa_yardstick(torch, q, k_pool, v_pool, page_table, seq, cu,
                     "flash backend, enable_gqa=True, one call per "
                     "sequence on contiguous keys",
             "max_abs_err": err}
+
+
+def sdpa_paged_yardstick(torch, q, k_pool, v_pool, page_table, keys,
+                         page_size, want) -> dict:
+    """K3's, K4's and K5's library yardstick: one
+    ``scaled_dot_product_attention`` call over the whole batch, on
+    contiguous copies of every sequence's keys (gathered from the pool
+    beforehand, padded to the longest and to a multiple of 16, not
+    timed), with a boolean mask: query s of sequence b attends its first
+    ``keys[b][s]`` keys (K3: its length; K5: the causal window). The
+    efficient backend (flash takes no mask), ``enable_gqa``; where that
+    backend refuses grouped heads, the key heads are expanded in the
+    copies instead, and the call says so. q is ``[B, S, H, D]``.
+    Returns its times (flushed and back to back over copies, as the
+    kernels'), the call, and its largest difference from ``want`` (the
+    kernel's plain output) over queries with keys."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, S, H, D = q.shape
+    Hkv = k_pool.shape[1]
+    L = -(-max(max(k) for k in keys) // 16) * 16
+    offs = torch.arange(page_size, device=q.device)
+    slots = (page_table.long()[:, :, None] * page_size
+             + offs).reshape(B, -1)[:, :L]
+    kc = k_pool[slots].transpose(1, 2).contiguous()  # [B, Hkv, L, D]
+    vc = v_pool[slots].transpose(1, 2).contiguous()
+    qb = q.transpose(1, 2).contiguous()  # [B, H, S, D]
+    n_keys = torch.tensor(keys, device=q.device)  # [B, S]
+    mask = (torch.arange(L, device=q.device)[None, None, :]
+            < n_keys[:, :, None])[:, None]  # [B, 1, S, L]
+    call = ("torch.nn.functional.scaled_dot_product_attention, efficient "
+            "backend, one call over the batch on contiguous keys, a "
+            "boolean mask")
+    gqa = True
+
+    def run(a=None):
+        kb, vb = a or (kc, vc)
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(
+                qb, kb, vb, attn_mask=mask, enable_gqa=gqa)
+
+    try:
+        got = run()
+        call += ", enable_gqa=True"
+    except RuntimeError:
+        gqa = False
+        kc = kc.repeat_interleave(H // Hkv, dim=1)
+        vc = vc.repeat_interleave(H // Hkv, dim=1)
+        got = run()
+        call += ", key heads expanded to the query heads"
+    has = (n_keys > 0)[:, :, None, None]  # [B, S, 1, 1]
+    diff = (got.transpose(1, 2).float()
+            - want.reshape(B, S, H, D).float()).abs()
+    err = torch.where(has, diff, torch.zeros_like(diff)).max().item()
+    n_rot = copies_for(2 * kc.numel() * kc.element_size())
+    rot = [(kc, vc)] + [(kc.clone(), vc.clone()) for _ in range(n_rot - 1)]
+    out = {"ms": cuda_ms(run), "ms_rotated": rotated_ms(
+        lambda i: run(rot[i]), n_rot), "call": call, "max_abs_err": err}
+    del rot
+    return out
 
 
 def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
@@ -1136,14 +1235,15 @@ def serve_profile(torch, port: int, reqs, warm_s: float) -> dict:
 
 def decode_profile(torch, params, cfg, dev: str = "cuda",
                    kv_dtype: str = "bfloat16", verify_width: int = 0,
-                   attn_impl: str = "fused", model=None) -> dict:
+                   attn_impl: str = "fused", model=None, lora=None,
+                   adapter_idx=None) -> dict:
     """Where one full-width decode step's time goes: host wall clock of a
     step (synchronized) against the device time torch.profiler sees, by
     kernel. Batch 8 at 1000 cached tokens each, a ``kv_dtype`` pool, on
     the ``attn_impl`` rung (K2/K7 fused, K3 chained); with
     ``verify_width`` > 0, a verify step of that width on the chained
     rung (K5) instead. ``model`` is the family's module (llama by
-    default)."""
+    default); ``lora`` and ``adapter_idx`` give the slots adapter rows."""
     from torch.profiler import ProfilerActivity, profile
 
     from aigw_tpu_torch.models import kvq, llama
@@ -1161,13 +1261,15 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
     toks = torch.zeros((B, verify_width), dtype=torch.int32, device=dev)
     limits = pos + 64
 
+    ad = {} if lora is None else dict(lora=lora, adapter_idx=adapter_idx)
+
     def step():
         if verify_width:
             model.verify_step(params, cfg, toks, pos, kv, pt, PS, act,
-                              limits, attn_impl="chained")
+                              limits, attn_impl="chained", **ad)
         else:
             model.decode_step(params, cfg, tok, pos, kv, pt, PS, act,
-                              attn_impl=attn_impl)
+                              attn_impl=attn_impl, **ad)
 
     for _ in range(2):
         step()
@@ -1235,12 +1337,14 @@ def served_prompt_lens(reqs) -> list[int]:
             for kind, _stream, body in reqs]
 
 
-def prefill_profile(torch, params, cfg, seqs, dev: str = "cuda") -> dict:
+def prefill_profile(torch, params, cfg, seqs, dev: str = "cuda", lora=None,
+                    adapter_idx=None) -> dict:
     """Where one full-width bf16 prefill's time goes: one
     ``prefill_ragged`` call over the packed sequences ``seqs`` ((new
     tokens, start position) each; the rows padded to a multiple of 256),
     its host wall clock (synchronized) against the device time
-    torch.profiler sees, and K1's launches (one per layer) summed."""
+    torch.profiler sees, and K1's launches (one per layer) summed;
+    ``lora`` and ``adapter_idx`` give the sequences adapter rows."""
     from torch.profiler import ProfilerActivity, profile
 
     from aigw_tpu_torch.models import kvq, llama
@@ -1268,7 +1372,7 @@ def prefill_profile(torch, params, cfg, seqs, dev: str = "cuda") -> dict:
 
     def call():
         llama.prefill_ragged(params, cfg, tokens, row_seq, positions, last,
-                             kv, pt, PS)
+                             kv, pt, PS, lora=lora, adapter_idx=adapter_idx)
 
     call()
     torch.cuda.synchronize()
@@ -2470,6 +2574,373 @@ def serve_moe(torch, mixtral, reqs, launches: dict,
     launches["serve_moe"] = {k: served[k] + served_s[k] for k in served}
 
 
+# -- multi-LoRA -----------------------------------------------------------------
+#: every projection a LoRA adapter can target
+LORA_TARGETS_ALL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+LORA_CHECK_LAYERS = 2
+#: model_check_lora's slot rows: adapters a0-a3 (rows 0-3), the base row 4
+LORA_CHECK_ROWS = [0, 4, 1, 2, 0, 4, 3, 1]
+LORA_MODEL = "llama-3-8b-random"
+
+
+def model_check_lora(torch, dtype, dev: str = "cuda") -> dict:
+    """Llama-3-8B widths at ``LORA_CHECK_LAYERS`` layers in ``dtype``, 4
+    adapters at rank 16 on all seven targets (``random_b``) plus the base
+    row, slots on rows ``LORA_CHECK_ROWS``: a packed prefill of 8
+    sequences (K1), 8 fused steps (K2) and 8 chained steps (K3) from it,
+    one verify step of width 5 (K5), and the same on the weights in
+    W8A16 (K6). Each call runs through the kernels and through their
+    plain versions (``model_check``'s tolerances: logits within a tenth
+    of their scale, a greedy flip only at a near-tie), and each also
+    with ``lora=None``: the base rows' logits must be bit-equal to it,
+    every adapter row's must differ. Step tokens are seeded, the same
+    for every run."""
+    import dataclasses
+
+    from aigw_tpu_torch.models import kvq, llama, lora, quant
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=LORA_CHECK_LAYERS)
+    dense = llama.init_params(11, cfg, dtype, dev)
+    stacks = lora.init_lora_adapters(
+        12, cfg, lora.LoRAConfig(targets=LORA_TARGETS_ALL), 4, dtype,
+        random_b=True, device=dev)
+    rows = torch.tensor(LORA_CHECK_ROWS, device=dev)
+    base = rows == 4
+    PS, P, S = 128, 16, 5
+    lens = [300, 45, 700, 3, 128, 129, 500, 90]
+    B = len(lens)
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    T = -(-sum(lens) // 256) * 256
+    tokens = torch.randint(0, cfg.vocab_size, (T,), generator=g, device=dev)
+    row_seq = torch.full((T,), B, dtype=torch.int32, device=dev)
+    positions = torch.zeros((T,), dtype=torch.int32, device=dev)
+    last = torch.zeros((B,), dtype=torch.int32, device=dev)
+    o = 0
+    for b, n in enumerate(lens):
+        row_seq[o:o + n] = b
+        positions[o:o + n] = torch.arange(n, device=dev)
+        last[b] = o + n - 1
+        o += n
+    pt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    shape = (cfg.n_layers, 2, (B * P + 1) * PS, cfg.n_kv_heads,
+             cfg.head_dim)
+    pos = torch.tensor(lens, dtype=torch.int32, device=dev)
+    act = torch.ones((B,), dtype=torch.bool, device=dev)
+    steps = torch.randint(0, cfg.vocab_size, (8, B), generator=g,
+                          device=dev, dtype=torch.int32)
+    drafts = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                           device=dev, dtype=torch.int32)
+
+    def calls(params, plain, lo):
+        """Every call's logits: prefill, 8 fused, 8 chained, verify."""
+        kw = dict(plain=plain, lora=lo,
+                  adapter_idx=rows if lo is not None else None)
+        kv = kvq.make_pool(shape, "bfloat16", dev)
+        out = [llama.prefill_ragged(params, cfg, tokens, row_seq, positions,
+                                    last, kv, pt, PS, **kw)[0]]
+        for impl in ("fused", "chained"):
+            kv2 = kv.clone()
+            for s in range(8):
+                out.append(llama.decode_step(params, cfg, steps[s], pos + s,
+                                             kv2, pt, PS, act, impl,
+                                             **kw)[0])
+            del kv2
+        out.append(llama.verify_step(params, cfg, drafts, pos, kv, pt, PS,
+                                     act, pos + 64, "chained", **kw)[0])
+        return out
+
+    result = {}
+    for wname in ("dense", "w8a16"):
+        params = dense if wname == "dense" else quant.quantize_params(
+            dense, consume=False, mode="int8")
+        kern, plain = calls(params, False, stacks), calls(params, True, stacks)
+        kern0, plain0 = calls(params, False, None), calls(params, True, None)
+        errs, flips, worst = [], 0, 0.0
+        for a, b, a0, b0 in zip(kern, plain, kern0, plain0):
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"LoRA {wname}: non-finite logits")
+            errs.append((a - b).abs().max().item())
+            bb = b.reshape(-1, b.shape[-1])
+            top2 = torch.topk(bb, 2, dim=-1).values
+            differ = a.reshape(bb.shape).argmax(-1) != bb.argmax(-1)
+            if differ.any():
+                gap = (top2[:, 0] - top2[:, 1])[differ].max().item()
+                worst = max(worst, gap)
+                flips += int(differ.sum())
+            for x, x0, what in ((a, a0, "kernels"), (b, b0, "plain")):
+                if not torch.equal(x[base], x0[base]):
+                    raise AssertionError(f"LoRA {wname} ({what}): a base "
+                                         f"row differs from lora=None")
+                for i in torch.nonzero(~base).flatten().tolist():
+                    if torch.equal(x[i], x0[i]):
+                        raise AssertionError(f"LoRA {wname} ({what}): "
+                                             f"adapter row {i} equals its "
+                                             f"base output")
+        scale = plain[0].abs().max().item()
+        if worst > 0.1:
+            raise AssertionError(f"LoRA {wname}: greedy token differs at a "
+                                 f"top-2 gap of {worst}")
+        if max(errs) > 0.1 * scale:
+            raise AssertionError(f"LoRA {wname}: logits differ by "
+                                 f"{max(errs)} (logit scale {scale})")
+        result[wname] = {"max_abs_logit_err": max(errs),
+                         "logit_scale": scale, "greedy_mismatches": flips,
+                         "calls": len(kern), "base_rows_bitwise": True}
+        del params, kern, plain, kern0, plain0
+    result.update(layers=cfg.n_layers, rank=16, targets=list(
+        LORA_TARGETS_ALL), rows=LORA_CHECK_ROWS)
+    return result
+
+
+def _lora_zoo(torch, cfg, targets=("wq", "wv"), n: int = 4,
+              seed: int = 21, dev: str = "cuda") -> tuple:
+    """``n`` adapters at rank 16 on ``targets`` (``random_b``, bf16, on
+    ``dev``): the stacks and one dict per adapter."""
+    from aigw_tpu_torch.models import lora
+
+    stacks = lora.init_lora_adapters(seed, cfg, lora.LoRAConfig(
+        targets=targets), n, torch.bfloat16, random_b=True, device=dev)
+    return stacks, {f"a{i}": {k: v[i] for k, v in stacks.items()}
+                    for i in range(n)}
+
+
+def _lora_requests(reqs) -> list:
+    """The burst addressed to the zoo: 2 base, ``:a0`` three times (one a
+    chat), ``:a1``, the bare name ``a2`` and ``:a3``."""
+    models = ["", "", ":a0", ":a0", ":a1", "a2", ":a3", ":a0"]
+    out = []
+    for (kind, stream, body), m in zip(reqs, models):
+        name = LORA_MODEL + m if m.startswith(":") or not m else m
+        out.append((kind, stream, dict(body, model=name)))
+    return out
+
+
+def _expect_404(port: int, path: str, body: dict, names) -> str:
+    """An unknown adapter suffix: 404 with the reference's message."""
+    try:
+        _http(port, path, body)
+    except urllib.error.HTTPError as e:
+        err = json.loads(e.read().decode())["error"]
+        want = f"unknown LoRA adapter 'nope'; loaded: {sorted(names)}"
+        if e.code != 404 or err["message"] != want \
+                or err["type"] != "model_not_found":
+            raise AssertionError(f"unknown adapter: {e.code} {err}")
+        return err["message"]
+    raise AssertionError("an unknown adapter was served")
+
+
+def _wait_idle(srv, timeout_s: float = 60.0) -> dict:
+    """/state once the engine holds no slot and no window."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        st = json.loads(_http(srv.port, "/state")[2])
+        if (st["active_slots"] == 0 and srv.engine._inflight is None) \
+                or time.monotonic() > deadline:
+            return st
+        time.sleep(0.05)
+
+
+def lora_load_ms(torch, cfg, targets, dev: str = "cuda") -> dict:
+    """Host time of one adapter's hot load (a 1-row store, so every
+    acquire after the first evicts and loads), synchronized: the median
+    of 5, beside its bytes in bf16."""
+    from aigw_tpu_torch.tpuserve.adapters import AdapterStore
+
+    _, zoo = _lora_zoo(torch, cfg, targets, n=2, seed=31, dev=dev)
+    store = AdapterStore(n_slots=1, device=dev)
+    for name, ad in zoo.items():
+        store.register(name, ad)
+    store.warm()
+    nbytes = sum(v.numel() * 2 for v in zoo["a0"].values())
+    times = []
+    for i in range(6):
+        row = store.acquire(f"a{i % 2}")
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        store.release(row)
+        row = store.acquire(f"a{(i + 1) % 2}")
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t) * 1e3)
+        store.release(row)
+    return {"targets": list(targets), "bytes": nbytes,
+            "load_ms": statistics.median(times[1:]), "loads": store.loads}
+
+
+def serve_lora(torch, srv, params, qparams, reqs, launches: dict,
+               dev: str = "cuda") -> None:
+    """Multi-LoRA at full depth (32 layers, bf16) through the port's
+    server: a zoo of 4 adapters at the reference's default
+    ``LoRAConfig()`` (wq and wv, rank 16) over 2 device rows, the fused
+    rung, the prefix cache on. The burst (``_lora_requests``) cold and
+    warm: every request 200, ``:nope`` a 404 on both routes,
+    ``/v1/models`` listing the 4, ``/state`` counting at least 4 loads
+    and 2 evictions, at most 2 resident, no adapter slot when idle; K1
+    and K2 launch. Then the chained rung at a fixed draft width of 4:
+    two pinned base requests of 32 tokens (K5, drafts accepted) beside a
+    sampled ``:a2`` request of 64 that decodes on alone (K3). Then
+    W8A16 weights with the zoo (K6). Then, not gated: one adapter's load
+    time (wq + wv, and all seven targets), one decode step at batch 8
+    with 8 adapter slots, with 8 base slots (the same delta kernels on
+    the zero row) and without adapters, and one packed prefill of the
+    burst's prompts with and without adapters (the delta's device time
+    is the difference). The ``serve_lora`` JSON line; the serving
+    runs' launches go into ``launches`` under ``serve_lora``."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.obs.metrics import EnginePhases
+    from aigw_tpu_torch.tpuserve.adapters import AdapterStore
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    cfg = llama.LLAMA3_8B
+    stacks, zoo = _lora_zoo(torch, cfg, dev=dev)
+    names = sorted(zoo)
+
+    def start(p, **engine_kw):
+        srv.engine.stop()
+        t = time.monotonic()
+        store = AdapterStore(n_slots=2, device=dev)
+        for name, ad in zoo.items():
+            store.register(name, ad)
+        register_s = time.monotonic() - t
+        srv.adapter_store = store
+        srv.engine = Engine(p, cfg, EngineConfig(**{
+            **dict(max_batch_size=8, max_seq_len=2048, page_size=128,
+                   attention_backend="pallas-ragged",
+                   decode_backend="fused"), **engine_kw}),
+            eos_token_ids=(srv.tokenizer.eos_id,), device=dev,
+            adapter_store=store)
+        srv.engine.warmup()
+        srv.engine.start()
+        return register_s
+
+    out: dict = {"adapters": names, "rows": 2, "rank": 16,
+                 "targets": ["wq", "wv"]}
+    burst = _lora_requests(reqs)
+    try:
+        out["register_s"] = start(params)
+        reset_counts()
+        t = time.monotonic()
+        results = serve_phase(srv.port, burst)
+        out["cold_s"] = time.monotonic() - t
+        cold = _wait_idle(srv)
+        srv.engine.phases = EnginePhases()
+        t = time.monotonic()
+        serve_phase(srv.port, burst)
+        out["warm_s"] = time.monotonic() - t
+        c_burst = read_counts()
+        st = _wait_idle(srv)
+        models = [m["id"] for m in json.loads(
+            _http(srv.port, "/v1/models")[2])["data"]]
+        want_models = [LORA_MODEL] + [f"{LORA_MODEL}:{n}" for n in names]
+        if models != want_models:
+            raise AssertionError(f"/v1/models lists {models}")
+        for path, body in (("/v1/chat/completions", burst[0][2]),
+                           ("/v1/completions", burst[1][2])):
+            for stream in (False, True):
+                out["not_found"] = _expect_404(srv.port, path, dict(
+                    body, model=f"{LORA_MODEL}:nope", stream=stream), names)
+        keys = {k: st[k] for k in (
+            "adapters_registered", "adapters_resident", "adapter_rows",
+            "adapter_loads", "adapter_evictions", "adapter_slots")}
+        if (keys["adapter_loads"] < 4 or keys["adapter_evictions"] < 2
+                or len(keys["adapters_resident"]) > 2
+                or keys["adapter_slots"] != 0
+                or keys["adapters_registered"] != names):
+            raise AssertionError(f"/state adapter keys {keys}")
+        if c_burst["ragged_prefill_attention"] <= 0 \
+                or c_burst["fused_paged_decode"] <= 0:
+            raise AssertionError(f"K1 / K2 not on the LoRA served path: "
+                                 f"{c_burst}")
+        pp = st["phase_percentiles"]
+        out.update({
+            "requests": len(burst), "new_tokens": sum(r["n"]
+                                                      for r in results),
+            "prompt_tokens": served_prompt_lens(burst),
+            "cold_state": {k: cold[k] for k in keys}, "state": keys,
+            "warm_prefix_cache_hits": st["prefix_cache_hits"]
+            - cold["prefix_cache_hits"],
+            "warm_prefill_p50_ms": pp["prefill"]["p50"],
+            "warm_prefill_p95_ms": pp["prefill"]["p95"],
+            "warm_ttft_p50_ms": pp["ttft"]["p50"],
+            "warm_ttft_p95_ms": pp["ttft"]["p95"],
+            "launches": c_burst})
+        log(f"LoRA zoo (4 adapters, 2 rows) served the burst cold in "
+            f"{out['cold_s']:.1f}s, warm in {out['warm_s']:.1f}s; {keys}")
+
+        # the chained rung at a fixed draft width of 4: the pinned pair
+        # speculates through K5, the sampled adapter request decodes on
+        # alone through K3
+        start(params, decode_backend="auto", pallas_attn=True,
+              spec_tokens=4, spec_adaptive=False)
+        spec_reqs = [(k, s, dict(b, model=LORA_MODEL, max_tokens=32))
+                     for k, s, b in _pinned_requests(2)]
+        sampled = next((k, s, dict(b, model=f"{LORA_MODEL}:a2"))
+                       for k, s, b in reqs if b["temperature"] > 0)
+        spec_reqs.append(sampled)
+        t = time.monotonic()
+        results_s = serve_phase(srv.port, spec_reqs)
+        spec_s = time.monotonic() - t
+        c_spec = read_counts()
+        _check_pinned(results_s[:2], 32)
+        st = _wait_idle(srv)
+        d_spec = {k: c_spec[k] - c_burst[k] for k in c_spec}
+        if d_spec["paged_attention_verify"] <= 0 \
+                or d_spec["paged_attention_decode_v2"] <= 0:
+            raise AssertionError(f"K5 / K3 not on the LoRA chained path: "
+                                 f"{d_spec}")
+        if st["spec_accepted"] <= 0:
+            raise AssertionError("no draft accepted beside the adapter slot")
+        out["spec"] = {"wall_s": spec_s, "spec_drafted": st["spec_drafted"],
+                       "spec_accepted": st["spec_accepted"],
+                       "adapter_loads": st["adapter_loads"],
+                       "launches": d_spec}
+
+        # W8A16 weights with the zoo: K6 carries the base projections
+        start(qparams)
+        t = time.monotonic()
+        serve_phase(srv.port, burst[:4])
+        q_s = time.monotonic() - t
+        c_all = read_counts()
+        d_q = {k: c_all[k] - c_spec[k] for k in c_all}
+        if d_q["w8a16_matmul"] <= 0:
+            raise AssertionError(f"K6 not on the W8A16 LoRA path: {d_q}")
+        out["w8a16"] = {"requests": 4, "wall_s": q_s, "launches": d_q}
+        srv.engine.stop()
+    finally:
+        srv.adapter_store = None
+    launches["serve_lora"] = c_all
+
+    # the numbers: a load, a decode step, a prefill (not gated)
+    out["load"] = [lora_load_ms(torch, cfg, ("wq", "wv"), dev),
+                   lora_load_ms(torch, cfg, LORA_TARGETS_ALL, dev)]
+    rows_ad = torch.tensor([0, 1, 2, 3] * 2, device=dev)
+    rows_base = torch.full((8,), 4, device=dev)
+    out["decode_profile"] = {
+        name: decode_profile(torch, params, cfg, dev, lora=lo,
+                             adapter_idx=idx)
+        for name, lo, idx in (("adapters", stacks, rows_ad),
+                              ("base", stacks, rows_base),
+                              ("none", None, None))}
+    seqs = [(n, 0) for n in served_prompt_lens(burst)]
+    out["prefill_profile"] = {
+        name: prefill_profile(torch, params, cfg, seqs, dev, lora=lo,
+                              adapter_idx=idx)
+        for name, lo, idx in (("adapters", stacks, rows_ad),
+                              ("none", None, None))}
+    out["prefill_delta_device_ms"] = (
+        out["prefill_profile"]["adapters"]["device_ms"]
+        - out["prefill_profile"]["none"]["device_ms"])
+    out["decode_delta_device_ms"] = (
+        out["decode_profile"]["adapters"]["device_ms"]
+        - out["decode_profile"]["none"]["device_ms"])
+    log(f"LoRA numbers: loads {out['load']}; decode step with 8 adapter "
+        f"slots {out['decode_profile']['adapters']['wall_ms']:.2f} ms wall "
+        f"/ {out['decode_profile']['adapters']['device_ms']:.2f} device vs "
+        f"base rows {out['decode_profile']['base']['device_ms']:.2f}; "
+        f"prefill delta {out['prefill_delta_device_ms']:.2f} ms device")
+    print(json.dumps({"serve_lora": out}), flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2668,6 +3139,9 @@ def main() -> int:
                                  f"{served_4}")
         launches["fused_paged_decode_int4"] = \
             served_4["fused_paged_decode_int4"]
+
+        # multi-LoRA: a zoo over 2 rows, bf16 then W8A16 (serve_lora)
+        serve_lora(torch, srv, params, qparams, reqs, launches)
     finally:
         srv.stop()
 
@@ -2697,6 +3171,16 @@ def main() -> int:
         f"at 1023) vs a cold prefill: {checks['resume']} "
         f"({time.monotonic() - t:.1f}s)")
     print(json.dumps({"model_check": checks}), flush=True)
+    checks_lora = {}
+    for name, dtype in (("float32", torch.float32),
+                        ("bf16", torch.bfloat16)):
+        t = time.monotonic()
+        checks_lora[name] = model_check_lora(torch, dtype)
+        torch.cuda.empty_cache()
+        log(f"LoRA at Llama-3-8B widths ({LORA_CHECK_LAYERS} layers, "
+            f"{name}), kernels vs plain, base rows vs lora=None: "
+            f"{checks_lora[name]} ({time.monotonic() - t:.1f}s)")
+    print(json.dumps({"model_check_lora": checks_lora}), flush=True)
 
     # 6. where a decode step's time goes
     prof = decode_profile(torch, params, llama.LLAMA3_8B)
@@ -2758,6 +3242,8 @@ def main() -> int:
     serve_moe(torch, mixtral, reqs, launches)
     for row in rows:
         row["launches_serve_moe"] = launches["serve_moe"].get(row["name"], 0)
+        row["launches_serve_lora"] = launches["serve_lora"].get(
+            row["name"], 0)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)

@@ -782,3 +782,174 @@ def test_mixtral_entry_points_kernels_vs_plain(cuda, monkeypatch, wmode):
          [b for b in range(2) for _ in range(S)])
     if wmode == "w8a16":
         assert qmatmul.w8a16_matmul.launches > k6
+
+
+# -- multi-LoRA -------------------------------------------------------------------
+LORA_ALL = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+@pytest.mark.parametrize("layout", ["batched", "packed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lora_delta_on_card_matches_cpu(cuda, dtype, layout):
+    """``lora_delta`` on the card against its CPU result on the same
+    tensors (float32 within 1e-5 of the delta's scale, bf16 within one
+    bf16 ulp plus 2**-7 of the scale), at Llama-3-8B's wq and w_down
+    shapes, rank 16; the base row exactly 0 on both."""
+    from aigw_tpu_torch.models import llama, lora
+
+    cfg = llama.LlamaConfig(n_layers=1)
+    stacks = lora.init_lora_adapters(3, cfg, lora.LoRAConfig(
+        targets=("wq", "w_down")), 4, dtype, random_b=True, device="cpu")
+    g = torch.Generator().manual_seed(4)
+    idx = torch.tensor([0, 4, 1, 2, 0, 4, 3, 1])
+    for key, d_in in (("l0.wq", cfg.dim), ("l0.w_down", cfg.ffn_dim)):
+        if layout == "batched":
+            x = torch.randn((8, 1, d_in), generator=g).to(dtype)
+            row_seq, base = None, idx == 4
+        else:
+            row_seq = torch.repeat_interleave(
+                torch.arange(8), torch.tensor([300, 1, 45, 700, 3, 128, 90,
+                                               20]))
+            x = torch.randn((len(row_seq), 1, d_in), generator=g).to(dtype)
+            base = idx[row_seq] == 4
+        want = lora.lora_delta(stacks, key, x, idx, row_seq)
+        got = lora.lora_delta({k: v.to(cuda) for k, v in stacks.items()},
+                              key, x.to(cuda), idx.to(cuda),
+                              None if row_seq is None else row_seq.to(cuda))
+        scale = want.float().abs().max().item()
+        rtol, atol = ((1e-5, 1e-5 * scale) if dtype == torch.float32
+                      else (2.0 ** -7, 2.0 ** -7 * scale))
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=rtol, atol=atol)
+        assert not got[base.to(cuda)].any() and not want[base].any()
+
+
+def _lora_engine(device, params, zoo, **over):
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.adapters import AdapterStore
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    store = AdapterStore(n_slots=1, device=device)
+    for name, ad in zoo.items():
+        store.register(name, ad)
+    cfg = dict(max_batch_size=4, max_seq_len=128, page_size=16,
+               decode_steps_per_tick=4, kv_cache_dtype="float32",
+               attention_backend="pallas-ragged", decode_backend="fused")
+    return Engine({k: v.to(device) for k, v in params.items()}, llama.TINY,
+                  EngineConfig(**{**cfg, **over}), eos_token_ids=(257,),
+                  device=device, adapter_store=store)
+
+
+@pytest.mark.parametrize("rung", sorted(CN_RUNGS))
+def test_adapter_row_loaded_under_a_window_in_flight(cuda, rung):
+    """One adapter row, two adapters: ad0's short request finishes while
+    the next window (still carrying its slot) is in flight, and ad1's
+    load rewrites that row in place behind it on the stream. Every
+    stream equals the CPU engine's (the plain versions, the same
+    schedule), and at least one load happened under a window in
+    flight."""
+    from aigw_tpu_torch.models import llama, lora
+    from aigw_tpu_torch.tpuserve.engine import GenRequest
+    from aigw_tpu_torch.tpuserve.sampling import SamplingParams
+
+    params = llama.init_params(0, llama.TINY, torch.float32, "cpu")
+    stacks = lora.init_lora_adapters(7, llama.TINY, lora.LoRAConfig(
+        rank=4, alpha=8.0, targets=("wq", "wv", "w_down")), 2,
+        torch.bfloat16, random_b=True, device="cpu")
+    zoo = {f"ad{i}": {k: v[i] for k, v in stacks.items()} for i in range(2)}
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = _lora_engine(dev, params, zoo, **CN_RUNGS[rung])
+        store = eng._adapter_store
+        under = []
+        load = store._load
+
+        def traced(row, name, load=load, eng=eng, under=under):
+            under.append(eng._inflight is not None)
+            load(row, name)
+
+        store._load = traced
+        streams: list = []
+        reqs = []
+        for i, (adapter, prompt, n) in enumerate([
+                ("ad0", [3, 1, 4], 4), ("", [5, 6, 7, 5, 6], 40),
+                ("ad1", [2, 7, 1], 12)]):
+            streams.append([])
+
+            def emit(t, f, s=streams[i]):
+                if t >= 0:
+                    s.append(t)
+                if f is not None:
+                    s.append(f)
+
+            reqs.append(GenRequest(prompt=prompt, max_tokens=n,
+                                   sampling=SamplingParams(temperature=0.0),
+                                   emit=emit, adapter=adapter))
+        _cn_serve(eng, reqs)
+        out[str(dev)] = (streams, under, store.loads, store.evictions)
+        row = store.row_of("ad1")
+        for k, v in zoo["ad1"].items():
+            assert torch.equal(store.params[k][row].cpu(), v)
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    assert gpu == cpu
+    assert any(gpu[1]) and gpu[3] == 1
+
+
+def test_lora_base_rows_bitwise_on_card(cuda):
+    """At 2 layers with Llama-3-8B's head geometry (bf16, every target,
+    rank 16): the base rows of a packed prefill, fused and chained
+    decode steps and a verify step through the kernels are bit-equal to
+    the same calls with ``lora=None``, and every adapter row differs."""
+    from aigw_tpu_torch.models import kvq, llama, lora
+
+    cfg = llama.LlamaConfig(vocab_size=1024, dim=1024, n_layers=2,
+                            n_heads=8, n_kv_heads=2, ffn_dim=2048)
+    params = llama.init_params(0, cfg, torch.bfloat16, cuda)
+    stacks = lora.init_lora_adapters(1, cfg, lora.LoRAConfig(
+        targets=LORA_ALL), 3, torch.bfloat16, random_b=True, device=cuda)
+    rows = torch.tensor([0, 3, 1, 2, 3], device=cuda)
+    base = rows == 3
+    lens, PS, P = [40, 7, 130, 1, 64], 16, 12
+    B, T = len(lens), 256
+    row_seq = torch.full((T,), B, dtype=torch.int32, device=cuda)
+    positions = torch.zeros((T,), dtype=torch.int32, device=cuda)
+    last = torch.zeros((B,), dtype=torch.int32, device=cuda)
+    o = 0
+    for b, n in enumerate(lens):
+        row_seq[o:o + n] = b
+        positions[o:o + n] = torch.arange(n, device=cuda)
+        last[b] = o + n - 1
+        o += n
+    g = torch.Generator(device=cuda).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (T,), generator=g,
+                           device=cuda)
+    pt = torch.arange(B * P, dtype=torch.int32, device=cuda).reshape(B, P)
+    shape = (cfg.n_layers, 2, (B * P + 1) * PS, cfg.n_kv_heads,
+             cfg.head_dim)
+    pos = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    act = torch.ones((B,), dtype=torch.bool, device=cuda)
+    step_toks = torch.randint(0, cfg.vocab_size, (B, 5), generator=g,
+                              device=cuda, dtype=torch.int32)
+
+    def calls(lo):
+        kw = dict(lora=lo, adapter_idx=rows) if lo is not None else {}
+        kv = kvq.make_pool(shape, "bfloat16", cuda)
+        out = [llama.prefill_ragged(params, cfg, tokens, row_seq, positions,
+                                    last, kv, pt, PS, **kw)[0]]
+        for impl in ("fused", "chained"):
+            kv2 = kv.clone()
+            for s in range(3):
+                out.append(llama.decode_step(
+                    params, cfg, step_toks[:, s], pos + s, kv2, pt, PS, act,
+                    impl, **kw)[0])
+        out.append(llama.verify_step(params, cfg, step_toks, pos, kv.clone(),
+                                     pt, PS, act, pos + 5, "chained",
+                                     **kw)[0])
+        return out
+
+    with_lora, without = calls(stacks), calls(None)
+    for a, b in zip(with_lora, without):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a[base], b[base])
+        assert all(not torch.equal(a[i], b[i])
+                   for i in torch.nonzero(~base).flatten().tolist())

@@ -111,6 +111,25 @@ def test_moe_modules_are_covered():
     assert family_fns("mixtral").moe_stats
 
 
+def test_lora_modules_are_covered():
+    """The multi-LoRA modules are in the scans above, the port's own
+    copies; the adapter math is plain PyTorch, and its store and the
+    engine default to CUDA."""
+    import inspect
+
+    for m in ("aigw_tpu_torch.models.lora",
+              "aigw_tpu_torch.tpuserve.adapters"):
+        assert m in MODULES, m
+    names = _imported_names(PKG / "tpuserve" / "adapters.py")
+    assert "aigw_tpu_torch.models.lora" in names
+    assert "aigw_tpu_torch.ops" not in str(
+        _imported_names(PKG / "models" / "lora.py"))
+    from aigw_tpu_torch.tpuserve.adapters import AdapterStore
+
+    sig = inspect.signature(AdapterStore.__init__)
+    assert sig.parameters["device"].default == "cuda"
+
+
 def test_cuda_request_without_cuda_raises():
     from aigw_tpu_torch.device import resolve_device
 
