@@ -8,6 +8,8 @@
         --pallas-attn --spec-tokens 4
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --no-prefix-cache --no-constrained-decoding
+    python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
+        --logprobs 20 --tenant-slot-cap 4
 
 ``--lora NAME=DIR`` names an adapter checkpoint, which the reference
 reads with orbax; the port has no orbax (nor does the card machine), so
@@ -72,6 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--quantize", default="", choices=["", "int8", "int4"],
                    help="weight-only quantization: int8 (W8A16) or int4 "
                         "(W4A16, group-128 scales)")
+    s.add_argument("--logprobs", type=int, default=0,
+                   help="enable per-token logprobs: max top_logprobs "
+                        "servable per request (0 = off; OpenAI caps "
+                        "requests at 20); exclusive with --spec-tokens")
     s.add_argument("--spec-tokens", type=int, default=0,
                    help="speculative decoding: max draft tokens verified "
                         "per decode step (0 = off). Drafts come from n-gram "
@@ -100,6 +106,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device rows for resident adapters; the rest of "
                         "the zoo loads on demand with refcounted LRU "
                         "eviction (0 = one row per registered adapter)")
+    s.add_argument("--tenant-slot-cap", type=int, default=0,
+                   help="max in-flight decode slots one tenant "
+                        "(x-aigw-tenant / adapter suffix) may hold: the "
+                        "fairness guard against one tenant's burst "
+                        "starving others (0 = off)")
     s.add_argument("--ragged-chunk-tokens", type=int, default=256)
     s.add_argument("--max-queued-requests", type=int, default=256)
     return p
@@ -127,6 +138,8 @@ def engine_config(args):
         spec_adaptive=not args.no_spec_adaptive,
         ragged_chunk_tokens=args.ragged_chunk_tokens,
         max_queued_requests=args.max_queued_requests,
+        logprobs_topk=args.logprobs,
+        tenant_slot_cap=args.tenant_slot_cap,
     )
 
 

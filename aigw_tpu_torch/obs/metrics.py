@@ -5,7 +5,9 @@ only).
 
 ``/state`` exports ``EnginePhases.percentiles()`` as
 ``phase_percentiles``, the key the gateway's picker prices a replica's
-TTFT from. The reference also renders the histograms on ``/metrics``
+TTFT from, and the TTFT histogram's ``cumulative()`` buckets as
+``ttft_hist_buckets``, which the gateway's SLO burn-rate monitor reads
+off the same poll. The reference also renders the histograms on ``/metrics``
 with trace-id exemplars; the port serves neither ``/metrics`` nor traces
 yet, so this copy keeps the counts and the percentiles.
 """
@@ -78,6 +80,18 @@ class PhaseHistogram:
             "p95": round(self.percentile(0.95), 3),
             "p99": round(self.percentile(0.99), 3),
         }
+
+    def cumulative(self) -> dict[str, int]:
+        """Cumulative bucket counts ``{le: count}``, ``+Inf`` last (the
+        reference's ``/state`` ``ttft_hist_buckets``)."""
+        out: dict[str, int] = {}
+        cum = 0
+        for i, c in enumerate(self.counts):
+            cum += c
+            le = (f"{self.buckets[i]:g}" if i < len(self.buckets)
+                  else "+Inf")
+            out[le] = cum
+        return out
 
 
 class EnginePhases:

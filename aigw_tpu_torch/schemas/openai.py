@@ -169,8 +169,12 @@ def sse(data: str) -> bytes:
 def stream_chunk_sse(*, response_id: str, model: str, created: int,
                      delta: dict[str, Any] | None = None,
                      finish_reason: str | None = None,
-                     usage: TokenUsage | None = None) -> bytes:
-    """One ``chat.completion.chunk`` as an SSE event."""
+                     usage: TokenUsage | None = None,
+                     logprobs: dict[str, Any] | None = None,
+                     index: int = 0) -> bytes:
+    """One ``chat.completion.chunk`` as an SSE event: choice ``index``
+    (with its ``logprobs`` when given), or no choice when there is
+    neither a delta nor a finish (a usage chunk)."""
     chunk: dict[str, Any] = {
         "id": response_id,
         "object": "chat.completion.chunk",
@@ -179,23 +183,34 @@ def stream_chunk_sse(*, response_id: str, model: str, created: int,
         "choices": [],
     }
     if delta is not None or finish_reason is not None:
-        chunk["choices"] = [{"index": 0,
-                             "delta": delta if delta is not None else {},
-                             "finish_reason": finish_reason}]
+        choice: dict[str, Any] = {
+            "index": index, "delta": delta if delta is not None else {},
+            "finish_reason": finish_reason}
+        if logprobs is not None:
+            choice["logprobs"] = logprobs
+        chunk["choices"] = [choice]
     if usage is not None:
         chunk["usage"] = usage_dict(usage)
     return sse(json.dumps(chunk))
 
 
 def completion_chunk_sse(*, response_id: str, model: str, created: int,
-                         text: str, finish_reason: str | None = None,
-                         usage: TokenUsage | None = None) -> bytes:
-    """One legacy ``text_completion`` stream event."""
+                         text: str | None, finish_reason: str | None = None,
+                         usage: TokenUsage | None = None,
+                         logprobs: dict[str, Any] | None = None,
+                         index: int = 0) -> bytes:
+    """One legacy ``text_completion`` stream event: choice ``index``
+    (with its legacy ``logprobs`` when given), or ``choices: []`` when
+    ``text`` is None (an ``n > 1`` stream's usage event)."""
+    choices: list[dict[str, Any]] = []
+    if text is not None:
+        choices.append({"index": index, "text": text,
+                        "finish_reason": finish_reason})
+        if logprobs is not None:
+            choices[0]["logprobs"] = logprobs
     ev: dict[str, Any] = {
         "id": response_id, "object": "text_completion", "created": created,
-        "model": model,
-        "choices": [{"index": 0, "text": text,
-                     "finish_reason": finish_reason}],
+        "model": model, "choices": choices,
     }
     if usage is not None:
         ev["usage"] = usage_dict(usage)

@@ -58,6 +58,8 @@ class GroupResult:
     tok: int
     page_row: np.ndarray
     adapter_row: int
+    # (chosen logprob, [(top id, top logprob)]) with logprobs on
+    first_lp: tuple | None = None
 
 
 @dataclass
@@ -247,7 +249,7 @@ class RaggedPrefillBackend:
                              page_row=page_row))
             by_row[g] = (req, seq_id)
         final_out, info = self._run_packed(segs, self._sampling_rows(by_row))
-        host = {g: out.cpu().numpy() for g, out in final_out.items()}
+        host = {g: _unpack_row(out, g) for g, out in final_out.items()}
         eng._fold_moe(info["moe"])  # settled with the tokens just read
         prefill_ms = max(0.0, 1e3 * (time.monotonic() - t0)
                          - info["tick_ms"])
@@ -259,7 +261,8 @@ class RaggedPrefillBackend:
                      len(items), info["real"], info["padded"],
                      info["calls"])
         return [GroupResult(req=req, seq_id=seq_id, n=n, total=total,
-                            tok=int(host[s.g][s.g]), page_row=s.page_row,
+                            tok=host[s.g][0], first_lp=host[s.g][1],
+                            page_row=s.page_row,
                             adapter_row=eng._adapter_row_of(req))
                 for s, (req, seq_id, n, total) in zip(segs, items)]
 
@@ -272,7 +275,8 @@ class RaggedPrefillBackend:
         sampling row (its adapter row with it) at row 0 of the ``[B]``
         layout, with the grammar
         ``mask`` of a constrained request in its bias. Returns (first
-        token, info) or an abort status string (see ``_run_packed``)."""
+        token, info; ``info["first_lp"]`` its logprobs or None) or an
+        abort status string (see ``_run_packed``)."""
         seg = _Seg(g=0, req=req, tokens=suffix, start=prefix_len,
                    page_row=page_row)
         res = self._run_packed(
@@ -281,9 +285,19 @@ class RaggedPrefillBackend:
         if isinstance(res, str):
             return res
         final_out, info = res
-        tok = int(final_out[0].cpu().numpy()[0])
+        tok, info["first_lp"] = _unpack_row(final_out[0], 0)
         self.eng._fold_moe(info["moe"])  # settled with the token
         return tok, info
+
+
+def _unpack_row(out: Any, g: int) -> tuple[int, tuple | None]:
+    """(token, first_lp) of row g of one packed call's output: a [B]
+    token tensor, or with logprobs on (tokens, chosen, top ids, top
+    values)."""
+    if not isinstance(out, tuple):
+        return int(out[g].item()), None
+    toks, chosen, ids, vals = (t[g].tolist() for t in out)
+    return toks, (chosen, list(zip(ids, vals)))
 
 
 def resolve_attention_backend(cfg, device: torch.device) -> tuple[str, str]:

@@ -16,11 +16,13 @@
 - **Engine thread**: the loop runs in its own thread; consumers receive
   tokens through each request's ``emit`` callback.
 
-Admission is FIFO and the reference's: each pass classifies its
+Admission is the reference's: each pass first runs the tenant fairness
+guard (``_fair_admission``: a per-tenant slot cap, and deficit order
+whenever two or more tenants are pending or live), then classifies its
 requests, runs of two or more simple ones (whole prompt, nothing cached
 to adopt, at most one new chain head per run) prefill as one packed
 burst (``group_prefill``), and every other request goes through
-``_admit_one`` in arrival order, which adopts the longest cached
+``_admit_one`` in the guard's order, which adopts the longest cached
 page-prefix and resumes at its offset (``single_prefill``). Both run the
 ragged backend (``tpuserve/attention.py``). The KV pool (native, or
 int8/int4 pages with their scales, ``models/kvq.py``) carries one page
@@ -82,6 +84,16 @@ them, as the reference's do. The prefix cache keys pages on token ids
 only, as the reference's does: an adapter request can adopt pages a base
 request (or another adapter) computed.
 
+**Per-token logprobs** (``logprobs_topk > 0``; exclusive with
+speculation, as in the reference): every sampling step also computes
+``sampling.token_logprobs`` over the logits the token was drawn from (the
+prefill's ``logits + bias``, a window step's penalized logits), and a
+request with ``emit_lp`` receives ``(token, finish, chosen, top)``
+instead of ``emit``'s pair. A window's ``[K, B]`` chosen values and
+``[K, B, k]`` top ids and values reach the host under the tokens' event.
+With ``logprobs_topk == 0`` the window runs exactly the ops it ran
+before.
+
 Every default equals the reference's. Knobs of features this slice does
 not implement raise ``NotImplementedError`` naming their ROADMAP entry
 when set to a non-default value.
@@ -89,6 +101,7 @@ when set to a non-default value.
 
 from __future__ import annotations
 
+import heapq
 import itertools
 import logging
 import queue
@@ -125,6 +138,7 @@ from aigw_tpu_torch.tpuserve.sampling import (
     apply_penalties,
     sample,
     spec_accept,
+    token_logprobs,
 )
 
 logger = logging.getLogger(__name__)
@@ -133,8 +147,6 @@ logger = logging.getLogger(__name__)
 #: default, ROADMAP queue 1 entry). A non-default value raises
 #: NotImplementedError.
 NOT_PORTED = {
-    "tenant_slot_cap": (0, "host scheduler features"),
-    "logprobs_topk": (0, "host scheduler features (logprobs)"),
     "kv_host_bytes": (0, "migration and KV mobility"),
 }
 
@@ -184,11 +196,20 @@ class EngineConfig:
     # grammar-constrained decoding (response_format json modes and tool
     # calls); False makes the server 400 such requests
     constrained_decoding: bool = True
+    # the most in-flight slots one tenant (GenRequest.tenant; "" is one
+    # anonymous tenant) may hold; 0 = no cap. Admission is deficit-
+    # ordered whenever several tenants are pending or live, cap or not
     tenant_slot_cap: int = 0
+    # per-token logprobs: top alternates computed per sampled token (0 =
+    # off: the default programs are unchanged); exclusive with
+    # spec_tokens, as in the reference
     logprobs_topk: int = 0
     kv_host_bytes: int = 0
 
     def __post_init__(self) -> None:
+        if self.logprobs_topk > 0 and self.spec_tokens > 0:
+            raise ValueError(
+                "logprobs_topk and spec_tokens are mutually exclusive")
         for name, (default, entry) in NOT_PORTED.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -246,6 +267,14 @@ class GenRequest:
     constraint: Any = None
     # LoRA adapter name ("" = the base model)
     adapter: str = ""
+    # tenant key of the fairness guard ("" = anonymous); the server sets
+    # the x-aigw-tenant header's value, else the adapter
+    tenant: str = ""
+    # per-token logprobs: with logprobs_topk > 0, called INSTEAD of emit
+    # with (token, finish, chosen logprob, [(top id, top logprob)]); a
+    # terminal token < 0 carries (None, None)
+    emit_lp: Callable[[int, str | None, float | None, list | None],
+                      None] | None = None
 
 
 @dataclass
@@ -367,6 +396,11 @@ class EngineStats:
     adapter_evictions: int = 0
     adapter_resident: int = 0
     adapter_slots: int = 0
+    # tenant fairness: tenants holding slots, the most slots one holds,
+    # and admissions the per-tenant cap deferred (one per pass waited)
+    tenants_active: int = 0
+    tenant_max_slots: int = 0
+    tenant_deferrals: int = 0
 
     PREFILL_RATE_HALF_LIFE_TOKENS = 16384
 
@@ -411,6 +445,9 @@ class _Window:
     # the window's summed [L, E + 1] routing counts (host copy), or None
     # on a dense family
     moe: Any = None
+    # per-token logprobs (host copies): [K, B] chosen, [K, B, k] top ids
+    # and values; None with logprobs_topk == 0
+    lp: Any = None
 
 
 #: per-slot decode state on the device: field → numpy dtype
@@ -603,27 +640,36 @@ class Engine:
         """One packed prefill call (``adapter_idx``: [B] adapter row per
         sequence row) plus sampling of each row's first token (key
         [seed, 0]); returns ([B] int32 tokens, routing counts or None),
-        on the device."""
+        on the device. With logprobs on, the tokens are a tuple
+        (tokens, chosen [B], top ids [B, k], top values [B, k])."""
         logits, moe = self._model(
             self.fns.prefill_ragged, tokens, row_seq, positions, last_rows,
             self.kv_cache, page_table, self.cfg.page_size,
             adapter_idx=adapter_idx)
-        return sample(logits + bias, keys, temp, top_p, top_k), moe
+        logits = logits + bias
+        sampled = sample(logits, keys, temp, top_p, top_k)
+        if not self.cfg.logprobs_topk:
+            return sampled, moe
+        return (sampled, *token_logprobs(logits, sampled,
+                                         self.cfg.logprobs_topk)), moe
 
     def _decode_window(self, k: int, lean: bool, greedy: bool
-                       ) -> tuple[torch.Tensor, Any]:
+                       ) -> tuple[torch.Tensor, Any, Any]:
         """K decode+sample steps; sampled tokens feed forward on the
         device. ``lean`` skips the repetition-penalty terms (bit-identical
         while no live slot uses penalties: zero penalties subtract
         exactly 0.0), ``greedy`` skips the sort/top-p work when every
         live slot samples greedily (sample() returns argmax for those).
         Returns ([K, B] int32 tokens, the window's summed routing counts
-        or None) on the device."""
+        or None, and with logprobs on ([K, B] chosen, [K, B, k] top ids,
+        [K, B, k] top values), else None) on the device."""
         st = self._device_state
         B = self.cfg.max_batch_size
+        lp_k = self.cfg.logprobs_topk
         rows = torch.arange(B, device=self.device)
         pt = st["page_table"][:, :self._state_bucket]
         out = []
+        lps = []
         macc = None
         for _ in range(k):
             act = st["active"] & (st["positions"] < st["limits"])
@@ -643,6 +689,10 @@ class Engine:
             else:
                 sampled = sample(logits, st["keys"], st["temp"],
                                  st["top_p"], st["top_k"])
+            if lp_k:
+                # over the penalized logits: the distribution the token
+                # was drawn from
+                lps.append(token_logprobs(logits, sampled, lp_k))
             if not lean:
                 st["counts"].index_put_((rows, sampled.long()),
                                         act.to(torch.int32), accumulate=True)
@@ -651,7 +701,8 @@ class Engine:
                                           st["positions"])
             st["keys"][:, 1] = (st["keys"][:, 1] + act.long()) & 0xFFFFFFFF
             out.append(sampled)
-        return torch.stack(out), macc
+        lp = (tuple(torch.stack(t) for t in zip(*lps)) if lp_k else None)
+        return torch.stack(out), macc, lp
 
     def _spec_window(self, k: int, D: int, greedy: bool
                      ) -> tuple[torch.Tensor, Any]:
@@ -944,12 +995,68 @@ class Engine:
         except queue.Empty:
             pass
 
+    # -- tenant fairness ----------------------------------------------------
+    def _tenant_slots(self) -> dict[str, int]:
+        counts: dict[str, int] = {}
+        for s in self._slots:
+            if s is not None:
+                t = s.req.tenant
+                counts[t] = counts.get(t, 0) + 1
+        return counts
+
+    def _fair_admission(self, pending: list[GenRequest], free: int
+                        ) -> tuple[list[GenRequest], list[GenRequest], int]:
+        """(admit_now, requeue, n_capped): the reference's fairness guard
+        over one admission pass. Requests whose tenant already holds (or
+        would reach) ``tenant_slot_cap`` slots are deferred; the rest are
+        deficit-ordered (fewer live slots first, arrival order within a
+        tenant) by a heap keyed (live-slot count, head arrival index),
+        which gives the order of the reference's quadratic scan. The
+        requeue keeps arrival order. Single-tenant traffic with nothing
+        live passes through untouched."""
+        cap = self.cfg.tenant_slot_cap
+        live = self._tenant_slots()
+        if cap <= 0 and len({r.tenant for r in pending} | set(live)) <= 1:
+            return pending[:free], pending[free:], 0
+        taken: dict[str, int] = {}
+        eligible: list[GenRequest] = []
+        capped: list[GenRequest] = []
+        for req in pending:
+            t = req.tenant
+            if cap > 0 and live.get(t, 0) + taken.get(t, 0) >= cap:
+                capped.append(req)
+                continue
+            taken[t] = taken.get(t, 0) + 1
+            eligible.append(req)
+        if len({r.tenant for r in eligible}) > 1:
+            fifos: dict[str, list[tuple[int, GenRequest]]] = {}
+            for j, req in enumerate(eligible):
+                fifos.setdefault(req.tenant, []).append((j, req))
+            heap = [(live.get(t, 0), lst[0][0], t)
+                    for t, lst in fifos.items()]
+            heapq.heapify(heap)
+            heads = dict.fromkeys(fifos, 0)
+            ordered: list[GenRequest] = []
+            while heap:
+                cnt, _, t = heapq.heappop(heap)
+                lst, h = fifos[t], heads[t]
+                ordered.append(lst[h][1])
+                heads[t] = h + 1
+                if h + 1 < len(lst):
+                    heapq.heappush(heap, (cnt + 1, lst[h + 1][0], t))
+            eligible = ordered
+        admit = eligible[:free]
+        left = set(map(id, capped)) | set(map(id, eligible[free:]))
+        requeue = [r for r in pending if id(r) in left]  # arrival order
+        return admit, requeue, len(capped)
+
     def _admit(self) -> bool:
-        """Admit queued requests in strict arrival order: classify each
-        once (its chain keys reused up to the cache insert), then send
-        contiguous runs of two or more simple requests through the
-        batched prefill and every other request through ``_admit_one``,
-        so pages are always allocated in arrival order."""
+        """Admit queued requests: the fairness guard picks and orders
+        each pass's requests, each is classified once (its chain keys
+        reused up to the cache insert), then contiguous runs of two or
+        more simple requests go through the batched prefill and every
+        other request through ``_admit_one``, so pages are allocated in
+        the order of admission."""
         admitted = False
         while True:
             free = self._free_slot_count()
@@ -974,6 +1081,28 @@ class Engine:
                 if wait_ms > 0 and len(pending) < free:
                     time.sleep(wait_ms / 1e3)
                     self._pop_pending(pending, free)
+            # the fairness guard; when the cap left slots unused, the
+            # scan extends over the rest of the queue so deferred heads
+            # do not occlude admissible tenants behind them
+            admit, fair_requeue, capped = self._fair_admission(pending,
+                                                               free)
+            if fair_requeue and len(admit) < free:
+                more: list[GenRequest] = []
+                try:
+                    while True:
+                        more.append(self._queue.get_nowait())
+                except queue.Empty:
+                    pass
+                if more:
+                    admit, fair_requeue, capped = self._fair_admission(
+                        pending + more, free)
+            self.stats.tenant_deferrals += capped
+            pending = admit
+            if not pending:
+                # everything at cap: back to the queue head, arrival
+                # order kept, until a tenant frees a slot
+                self._requeue_front(fair_requeue)
+                break
             items: list[tuple[GenRequest, bool, list]] = []
             seen_chain_heads: set = set()
             for req in pending:
@@ -1024,9 +1153,13 @@ class Engine:
                     stop = True
                     break
                 i += 1
-            if unhandled:  # wait for frees, keep the order
-                self._requeue_front(unhandled)
-            if stop:
+            if unhandled or fair_requeue:
+                # page-pressure leftovers first (they were at the head),
+                # then the fairness deferrals
+                self._requeue_front(unhandled + fair_requeue)
+            if stop or fair_requeue:
+                # a deferral ends the pass: looping would pop the
+                # deferred head again until a slot frees
                 break
         return admitted
 
@@ -1102,7 +1235,7 @@ class Engine:
             self.stats.prefills += 1
             self._mark_admitted(slot_idx)
             t_m = time.monotonic()
-            self._emit_token(slot_idx, r.tok)
+            self._emit_token(slot_idx, r.tok, r.first_lp)
             self.phases.observe("first_emit", 1e3 * (time.monotonic() - t_m))
         self.stats.first_emit_ms += 1e3 * (time.monotonic() - t_first)
         return len(results), leftover
@@ -1262,7 +1395,7 @@ class Engine:
             # first window dispatches under the state after it
             self.stats.constraint_requests += 1
             cn.advance(tok)
-        self._emit_token(slot_idx, tok)
+        self._emit_token(slot_idx, tok, info["first_lp"])
         first_emit_ms = 1e3 * (time.monotonic() - t_first)
         self.stats.first_emit_ms += first_emit_ms
         self.phases.observe("first_emit", first_emit_ms)
@@ -1454,7 +1587,9 @@ class Engine:
                                       toks[:, :, D1 + 1], w.members,
                                       w.draft_lens, ce)
         else:
-            self._process_window(toks, w.members, ce)
+            lp = (None if w.lp is None
+                  else tuple(t.tolist() for t in w.lp))
+            self._process_window(toks, w.members, ce, lp)
         self.stats.emit_ms += 1e3 * (time.monotonic() - t1)
         # folded whatever the window's tokens became (a grammar cut may
         # have discarded them): the rows ran all the same
@@ -1484,12 +1619,13 @@ class Engine:
         return [int(x) for x in self._moe_layer_drops]
 
     def _process_window(self, toks: np.ndarray, members: tuple,
-                        ce: dict) -> None:
+                        ce: dict, lp=None) -> None:
         """Emit a plain window's tokens [K, B] to the slots that were
-        members at dispatch and still hold the same request. A
-        constrained slot whose epoch moved past the window's (``ce``:
-        slot → (epoch, dispatch mask)) is skipped: the window ran past a
-        grammar cut."""
+        members at dispatch and still hold the same request, each with
+        its logprobs (``lp``: [K, B] chosen, [K, B, k] top ids and
+        values as nested lists, or None). A constrained slot whose epoch moved past the
+        window's (``ce``: slot → (epoch, dispatch mask)) is skipped: the
+        window ran past a grammar cut."""
         self.stats.decode_steps += toks.shape[0]
         for k in range(toks.shape[0]):
             for i, req in members:
@@ -1501,7 +1637,12 @@ class Engine:
                         or not self._cn_verify(i, s, int(toks[k, i]),
                                                ce[i][1])):
                     continue  # stale window, or cut here
-                self._emit_token(i, int(toks[k, i]))
+                step_lp = None
+                if lp is not None:
+                    chosen, tk_ids, tk_vals = lp
+                    step_lp = (chosen[k][i],
+                               list(zip(tk_ids[k][i], tk_vals[k][i])))
+                self._emit_token(i, int(toks[k, i]), step_lp)
 
     def _process_spec_window(self, toks: np.ndarray, counts: np.ndarray,
                              props: np.ndarray, members: tuple,
@@ -1703,30 +1844,37 @@ class Engine:
             self.stats.constraint_host_ms += 1e3 * (time.monotonic() - t0)
         frees, self._pending_frees = self._pending_frees, []
         draft_lens: tuple = ()
+        lp = None
         if draft:
             draft_lens = tuple((i, self._slots[i].ctrl.draft_len())
                                for i in active_idx
                                if self._slots[i].ctrl is not None)
             sampled, moe = self._spec_window(k, draft, greedy)
         else:
-            sampled, moe = self._decode_window(k, lean, greedy)
+            sampled, moe, lp = self._decode_window(k, lean, greedy)
         if self.cfg.async_transfers:
-            (host, moe), ready = self._start_host_copy(sampled, moe)
+            # the logprobs ride the tokens' copy and event
+            (host, moe, *lp_host), ready = self._start_host_copy(
+                sampled, moe, *(lp or ()))
+            lp = tuple(lp_host) if lp is not None else None
         else:
             host, ready = sampled.cpu(), None
             moe = None if moe is None else moe.cpu()
+            lp = None if lp is None else tuple(t.cpu() for t in lp)
         # settle the PREVIOUS window while this one runs on the device
         self._drain_inflight()
         self._inflight = _Window(sampled=host, ready=ready, members=members,
                                  k=k, frees=frees, draft=draft,
                                  draft_lens=draft_lens, cn_epochs=cn_epochs,
-                                 moe=moe)
+                                 moe=moe, lp=lp)
         self.stats.active_slots = sum(s is not None for s in self._slots)
         self._refresh_stats()
         return True
 
-    def _emit_token(self, i: int, tok: int) -> None:
-        """Record one generated token for slot i; finish if stopping."""
+    def _emit_token(self, i: int, tok: int, lp=None) -> None:
+        """Record one generated token for slot i; finish if stopping.
+        ``lp`` = (chosen logprob, [(top id, top logprob)]) with logprobs
+        on, else None."""
         s = self._slots[i]
         req = s.req
         s.generated += 1
@@ -1745,7 +1893,12 @@ class Engine:
             s.pos += 1  # where `tok` will be written by the next decode
             if s.generated >= req.max_tokens or s.pos >= self.cfg.max_seq_len:
                 finish = "length"
-        req.emit(send_tok, finish)
+        if req.emit_lp is None:
+            req.emit(send_tok, finish)
+        elif lp is None or send_tok < 0:
+            req.emit_lp(send_tok, finish, None, None)
+        else:
+            req.emit_lp(send_tok, finish, lp[0], lp[1])
         self.stats.tokens_generated += 1
         if finish is not None:
             if s.generated > 1 and s.first_emit_at:
@@ -1804,6 +1957,9 @@ class Engine:
         st.adapter_slots = sum(
             1 for s in self._slots
             if s is not None and s.adapter_row != self._base_row)
+        tenants = self._tenant_slots()
+        st.tenants_active = len(tenants)
+        st.tenant_max_slots = max(tenants.values(), default=0)
         st.kv_pages_free = self.allocator.free_pages
         st.kv_occupancy = self.allocator.occupancy
         st.kv_pool_bytes = self.cfg.num_pages * self.kv_page_bytes

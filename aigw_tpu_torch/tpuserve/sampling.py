@@ -10,7 +10,7 @@ the reference's ``jax.random.categorical`` reproduced exactly — threefry
 reference's uniform-from-bits recipe and Gumbel argmax — so seeded
 streams match the JAX engine token for token, not only greedy ones.
 ``spec_accept`` turns a verify step's samples into what the engine
-emits.
+emits, and ``token_logprobs`` gives a step's per-token logprobs.
 """
 
 from __future__ import annotations
@@ -96,6 +96,23 @@ def spec_accept(
         torch.zeros_like(n_acc)).to(torch.int32)
     d_idx = torch.arange(drafts.shape[1] + 1, device=drafts.device)[None, :]
     return n_emit, d_idx < n_emit[:, None]
+
+
+def token_logprobs(
+    logits: torch.Tensor,  # [B, V] the logits the tokens were sampled from
+    sampled: torch.Tensor,  # [B] int sampled token ids
+    k: int,  # top alternates per row (k >= 1)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-token logprobs of one sampling step (the reference engine's
+    ``_sample_maybe_lp``): ``log_softmax`` in float32 over the penalized,
+    untempered logits, the sampled token's value and the top ``k``.
+    Temperature, top-p and top-k do not enter. Returns (chosen [B]
+    float32, top ids [B, k] int32, top values [B, k] float32, values
+    descending)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    chosen = torch.gather(logp, 1, sampled.long()[:, None])[:, 0]
+    vals, ids = torch.topk(logp, k, dim=-1)
+    return chosen, ids.to(torch.int32), vals
 
 
 def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:

@@ -19,6 +19,17 @@ enforces; the reply carries the JSON as content, or the envelope as
 server detects an envelope in the output, holding streamed text back
 only while it is still a viable envelope prefix.
 
+Per-token logprobs (``EngineConfig.logprobs_topk``, ``--logprobs``):
+the chat dialect (``logprobs: true`` + ``top_logprobs``) and the legacy
+integer ``logprobs`` of ``/v1/completions``, validated by
+``check_logprobs`` with the reference's messages, returned in OpenAI's
+shapes buffered and streamed (one entry per completion token, an empty
+mid-UTF-8 piece included). ``n > 1`` fans out one engine request per
+choice (``submit_n``, per-choice seeds) and assembles indexed choices,
+buffered or as one interleaved stream. A request's tenant (the
+``x-aigw-tenant`` header, else its adapter) feeds the engine's fairness
+guard; ``/state`` carries the tenant keys and ``ttft_hist_buckets``.
+
 Multi-LoRA (``lora_adapters``, ``tpuserve/adapters.py``): a request
 whose ``model`` is ``<base>:<adapter>`` or a bare adapter name decodes
 through that adapter; an unknown ``<base>:`` suffix is a 404 (a typo
@@ -73,6 +84,10 @@ logger = logging.getLogger(__name__)
 
 _PARAM_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
+#: the tenant key header (sent by clients or relayed by the gateway),
+#: read into GenRequest.tenant for the engine's fairness guard
+TENANT_HEADER = "x-aigw-tenant"
+
 
 def _find_stop(text: str, stop_strs: list[str]) -> int | None:
     """Earliest index where a stop sequence begins, or None."""
@@ -102,8 +117,8 @@ class TPUServeServer:
         if spec.weights != "random":
             raise NotImplementedError(
                 f"weights {spec.weights!r}: checkpoint loading is not "
-                "ported yet (ROADMAP queue 1: weight quantization and "
-                "checkpoints); register a weights='random' spec")
+                "ported yet (ROADMAP queue 1: checkpoints); register a "
+                "weights='random' spec")
         logger.info("initializing random %s weights for %s on %s",
                     param_dtype, spec.name, self.device)
         if quantize not in ("", "int8", "int4"):
@@ -209,6 +224,7 @@ class TPUServeServer:
         eng = self.engine
         s = eng.stats
         cfg = eng.cfg
+        tenant_slots = eng._tenant_slots()
         return {
             "model": self.model_name,
             "replica_id": self.replica_id,
@@ -305,6 +321,14 @@ class TPUServeServer:
             "adapter_loads": s.adapter_loads,
             "adapter_evictions": s.adapter_evictions,
             "adapter_slots": s.adapter_slots,
+            # tenant fairness: who holds slots now, and how often the
+            # per-tenant cap deferred an admission
+            "tenant_slots": {t or "(anonymous)": c
+                             for t, c in sorted(tenant_slots.items())},
+            "tenants_active": s.tenants_active,
+            "tenant_max_slots": s.tenant_max_slots,
+            "tenant_deferrals": s.tenant_deferrals,
+            "tenant_slot_cap": cfg.tenant_slot_cap,
             "enable_prefix_cache": cfg.enable_prefix_cache,
             "defaults_differ": dict(DEFAULTS_DIFFER),
             "migration": False,
@@ -312,6 +336,9 @@ class TPUServeServer:
             # phase; -1 = no observations yet): the picker's TTFT
             # prediction reads the prefill and ttft p50
             "phase_percentiles": eng.phases.percentiles(),
+            # the TTFT histogram's cumulative buckets: the gateway's SLO
+            # burn-rate monitor computes windowed goodput from them
+            "ttft_hist_buckets": eng.phases.hists["ttft"].cumulative(),
         }
 
     def tokenize(self, body: dict[str, Any]) -> dict[str, Any]:
@@ -341,20 +368,61 @@ class TPUServeServer:
         return [self.tokenizer.bos_id] + self.tokenizer.encode(str(text))
 
     def check_request(self, body: dict[str, Any], chat: bool
-                      ) -> tuple[Any, dict[str, Any] | None]:
-        """Intake checks in the reference's order: logprobs (not served
-        here: the reference's knob-off 400), then the constraints, then
-        ``n``. Returns ``check_constraints``' (grammar, mode)."""
-        if body.get("logprobs") or body.get("top_logprobs") is not None:
-            raise oai.SchemaError(
-                "per-token logprobs are not available on this replica")
+                      ) -> tuple[int, int, Any, dict[str, Any] | None]:
+        """Intake checks in the reference's order: logprobs, then the
+        constraints (which refuse tools with ``n > 1`` and logprobs
+        with a grammar), then ``n`` against the batch. Returns
+        (``check_logprobs``' top-n, n, grammar, mode)."""
+        lp_top_n = self.check_logprobs(body)
         n = int(body.get("n") or 1)
-        found = self.check_constraints(body, chat, n)
-        if n > 1:
-            raise oai.SchemaError("n > 1 is not supported on this server")
-        return found
+        constraint, cmode = self.check_constraints(body, chat, n, lp_top_n)
+        if n > self.engine.cfg.max_batch_size:
+            raise oai.SchemaError(
+                f"n={n} exceeds max_batch_size "
+                f"{self.engine.cfg.max_batch_size}")
+        return lp_top_n, n, constraint, cmode
 
-    def check_constraints(self, body: dict[str, Any], chat: bool, n: int
+    def check_logprobs(self, body: dict[str, Any]) -> int:
+        """The request's logprobs knobs → top alternates per token (-1 =
+        logprobs off, 0 = the chosen token only), the reference's
+        ``_check_logprobs``. Chat sends ``logprobs: bool`` +
+        ``top_logprobs: int``; legacy ``/v1/completions`` sends
+        ``logprobs: int`` (the alternate count). The cap is
+        ``min(logprobs_topk, 20)``. Raises SchemaError (a 400)."""
+        raw = body.get("logprobs")
+        try:
+            if isinstance(raw, bool) or raw is None:
+                want = bool(raw)
+                top_n = int(body.get("top_logprobs") or 0)
+                if top_n and not want:
+                    # a SchemaError is a ValueError: the reference's
+                    # handler below answers with the type message
+                    raise oai.SchemaError(
+                        "top_logprobs requires logprobs: true")
+            else:  # the legacy integer form
+                want = True
+                top_n = int(raw)
+        except (TypeError, ValueError):
+            raise oai.SchemaError(
+                "logprobs must be a boolean (chat) or integer (legacy); "
+                "top_logprobs must be an integer") from None
+        if top_n < 0:
+            raise oai.SchemaError("logprobs count must be >= 0")
+        if not want:
+            return -1
+        cap = self.engine.cfg.logprobs_topk
+        if cap <= 0:
+            raise oai.SchemaError(
+                "this server was started without --logprobs; "
+                "per-token logprobs are unavailable")
+        if top_n > min(cap, 20):
+            raise oai.SchemaError(
+                f"top_logprobs {top_n} exceeds the served maximum "
+                f"{min(cap, 20)}")
+        return top_n
+
+    def check_constraints(self, body: dict[str, Any], chat: bool, n: int,
+                          lp_top_n: int = -1
                           ) -> tuple[Any, dict[str, Any] | None]:
         """``response_format`` and ``tools``/``tool_choice`` → a compiled
         TokenFSM (or None) and how the reply is assembled (None, or
@@ -381,6 +449,11 @@ class TPUServeServer:
                 "this server was started with --no-constrained-decoding; "
                 "response_format json modes and tool calling are "
                 "unavailable")
+        if lp_top_n >= 0:
+            raise oai.SchemaError(
+                "logprobs cannot be combined with response_format json "
+                "modes or tools (the grammar mask reshapes the "
+                "distribution the logprobs would describe)")
         if rf is not None and tools_active:
             raise oai.SchemaError(
                 "response_format json modes cannot be combined with "
@@ -429,39 +502,109 @@ class TPUServeServer:
             raise oai.SchemaError(str(e)) from None
 
     def submit(self, prompt: list[int], body: dict[str, Any],
-               constraint: Any = None):
+               constraint: Any = None, lp_top_n: int = -1,
+               tenant: str = "", sink: Any = None):
         """Submit to the engine; returns (token queue, request). The queue
-        yields (token_id, finish_reason) pairs. Raises SchemaError for an
-        unknown adapter suffix."""
+        yields (token_id, finish_reason, lp) items, lp None without
+        logprobs, else (chosen logprob, [(top id, top logprob)]);
+        ``sink`` (a callable taking each item) replaces the queue, which
+        is then None. ``lp_top_n`` is ``check_logprobs``' value (>= 0
+        attaches logprobs); the tenant is the header's, else the
+        adapter. Raises SchemaError for an unknown adapter suffix."""
         adapter = self._resolve_adapter(str(body.get("model", "")))
-        out: "queue.Queue[tuple[int, str | None]]" = queue.Queue()
+        out: queue.Queue | None = queue.Queue() if sink is None else None
+        put = out.put if sink is None else sink
         max_tokens = int(body.get("max_completion_tokens")
                          or body.get("max_tokens") or 256)
+
+        def emit_lp(tok, fin, chosen, top) -> None:
+            put((tok, fin, None if chosen is None else (chosen, top)))
+
         req = GenRequest(prompt=prompt, max_tokens=max_tokens,
                          sampling=SamplingParams.from_request(body),
-                         emit=lambda t, f: out.put((t, f)),
-                         constraint=constraint, adapter=adapter)
+                         emit=lambda t, f: put((t, f, None)),
+                         emit_lp=emit_lp if lp_top_n >= 0 else None,
+                         constraint=constraint, adapter=adapter,
+                         tenant=tenant or adapter)
         self.engine.submit(req)
         return out, req
 
-    def collect(self, out: queue.Queue, stop_strs: list[str]
-                ) -> tuple[str, int, str]:
-        """Drain a generation to completion (non-streaming path)."""
+    def submit_n(self, prompt: list[int], body: dict[str, Any], n: int,
+                 constraint: Any = None, lp_top_n: int = -1,
+                 tenant: str = "", merged: queue.Queue | None = None
+                 ) -> list:
+        """``n`` engine requests, one per choice (the reference's
+        ``_submit_n``): choice i samples with seed ``(seed or 0) + i``
+        when a seed is given or the temperature is above 0, else 0.
+        Returns [(queue, request)]; with ``merged``, choice i's items go
+        there as (i, item) and its queue is None. A refusal (overload,
+        an unknown adapter, bad sampling) cancels the choices already
+        queued and raises."""
+        sampling = SamplingParams.from_request(body)
+        outs: list = []
+        try:
+            for i in range(n):
+                per_choice = dict(body)
+                per_choice["seed"] = ((sampling.seed or 0) + i
+                                      if sampling.seed
+                                      or sampling.temperature > 0 else 0)
+                sink = (None if merged is None
+                        else lambda item, i=i: merged.put((i, item)))
+                outs.append(self.submit(prompt, per_choice, constraint,
+                                        lp_top_n, tenant, sink))
+        except (EngineOverloadedError, ValueError):
+            for _q, req in outs:  # no orphaned choices in the queue
+                req.cancelled.set()
+            raise
+        return outs
+
+    def collect(self, out: queue.Queue, stop_strs: list[str],
+                lp_top_n: int = -1) -> tuple[str, int, str, list | None]:
+        """Drain a generation to completion (non-streaming path): (text,
+        tokens, finish, logprobs content entries or None). The entries
+        are not cut at a stop-string hit, as in the reference."""
         decoder = StreamingDecoder(self.tokenizer)
         text = ""
         n_out = 0
+        lp_content: list | None = [] if lp_top_n >= 0 else None
         while True:
-            tok, fin = out.get()
+            tok, fin, lp = out.get()
             if tok >= 0:
                 n_out += 1
-                text += decoder.push(tok)
+                piece = decoder.push(tok)
+                text += piece
+                if lp_content is not None and lp is not None:
+                    lp_content.append(self.lp_entry(piece, lp, lp_top_n))
                 hit = _find_stop(text, stop_strs)
                 if hit is not None:
-                    return text[:hit], n_out, "stop"
+                    return text[:hit], n_out, "stop", lp_content
             if fin is not None:
                 if fin != "error":
                     text += decoder.flush()
-                return text, n_out, fin
+                return text, n_out, fin, lp_content
+
+    @staticmethod
+    def legacy_logprobs(entries: list[dict[str, Any]]) -> dict[str, Any]:
+        """The legacy ``/v1/completions`` logprobs shape from the chat
+        content entries."""
+        return {
+            "tokens": [e["token"] for e in entries],
+            "token_logprobs": [e["logprob"] for e in entries],
+            "top_logprobs": [
+                {t["token"]: t["logprob"] for t in e["top_logprobs"]}
+                for e in entries],
+        }
+
+    def lp_entry(self, piece: str, lp, top_n: int) -> dict[str, Any]:
+        """One OpenAI logprobs content entry for an emitted token."""
+        chosen, top = lp
+        tops = []
+        for tid, tval in (top or [])[:top_n]:
+            ttext = self.tokenizer.decode([int(tid)])
+            tops.append({"token": ttext, "logprob": float(tval),
+                         "bytes": list(ttext.encode("utf-8"))})
+        return {"token": piece, "logprob": float(chosen),
+                "bytes": list(piece.encode("utf-8")), "top_logprobs": tops}
 
 
 def _make_handler(server: TPUServeServer):
@@ -515,13 +658,14 @@ def _make_handler(server: TPUServeServer):
                     return
                 prompt = (self.srv.encode_chat(body) if chat
                           else self.srv.encode_text(body))
-                constraint, cmode = self.srv.check_request(body, chat)
+                intake = self.srv.check_request(body, chat)
             except oai.SchemaError as e:
                 self._error(400, str(e))
                 return
-            self._generate(body, prompt, chat, constraint, cmode)
+            self._generate(body, prompt, chat, *intake)
 
-        def _generate(self, body, prompt, chat, constraint, cmode):
+        def _generate(self, body, prompt, chat, lp_top_n, n, constraint,
+                      cmode):
             srv = self.srv
             stream = bool(body.get("stream", False))
             rid = (f"chatcmpl-{uuid.uuid4().hex[:24]}" if chat
@@ -530,8 +674,16 @@ def _make_handler(server: TPUServeServer):
             stops = body.get("stop")
             stop_strs = [stops] if isinstance(stops, str) \
                 else list(stops or [])
+            tenant = self.headers.get(TENANT_HEADER, "")
+            merged: queue.Queue | None = \
+                queue.Queue() if n > 1 and stream else None
             try:
-                out, req = srv.submit(prompt, body, constraint)
+                if n > 1:
+                    outs = srv.submit_n(prompt, body, n, constraint,
+                                        lp_top_n, tenant, merged)
+                else:
+                    out, req = srv.submit(prompt, body, constraint,
+                                          lp_top_n, tenant)
             except EngineOverloadedError as e:
                 self._error(429, str(e), "rate_limit_error",
                             headers={"retry-after": "1"})
@@ -543,8 +695,24 @@ def _make_handler(server: TPUServeServer):
                 self._error(400, str(e))
                 return
             n_prompt = len(prompt)
+            if n > 1:
+                reqs = [r for _q, r in outs]
+                try:
+                    if stream:
+                        self._stream_n(merged, reqs, chat, rid, created,
+                                       stop_strs, n_prompt, lp_top_n,
+                                       oai.include_stream_usage(body))
+                    else:
+                        self._respond_n(outs, chat, rid, created,
+                                        stop_strs, n_prompt, lp_top_n)
+                except (BrokenPipeError, ConnectionResetError):
+                    for r in reqs:
+                        r.cancelled.set()
+                    self.close_connection = True
+                return
             if not stream:
-                text, n_out, finish = srv.collect(out, stop_strs)
+                text, n_out, finish, lp_content = srv.collect(
+                    out, stop_strs, lp_top_n)
                 # a stop-string hit ends generation (a no-op once the
                 # engine has finished the request itself)
                 req.cancelled.set()
@@ -574,23 +742,63 @@ def _make_handler(server: TPUServeServer):
                         model=srv.model_name, content=text,
                         finish_reason=finish, usage=usage, response_id=rid,
                         tool_calls=tool_calls)
+                    if lp_content is not None:
+                        resp["choices"][0]["logprobs"] = {
+                            "content": lp_content}
                 else:
                     resp = oai.completion_response(
                         model=srv.model_name, text=text,
                         finish_reason=finish, usage=usage,
                         response_id=rid, created=created)
+                    if lp_content is not None:
+                        resp["choices"][0]["logprobs"] = \
+                            srv.legacy_logprobs(lp_content)
                 self._json(200, resp, headers={"x-aigw-request-id": rid})
                 return
             try:
                 self._stream(out, req, chat, rid, created, stop_strs,
-                             n_prompt, oai.include_stream_usage(body), cmode)
+                             n_prompt, oai.include_stream_usage(body), cmode,
+                             lp_top_n)
             except (BrokenPipeError, ConnectionResetError):
                 req.cancelled.set()  # client went away: free the slot
                 self.close_connection = True
 
-        def _stream(self, out, req, chat, rid, created, stop_strs,
-                    n_prompt, include_usage, cmode):
+        def _respond_n(self, outs, chat, rid, created, stop_strs, n_prompt,
+                       lp_top_n):
+            """The buffered ``n > 1`` reply (the reference's
+            ``_generate_n``): indexed choices; usage counts the prompt
+            once, sums the completions and the choices' cached
+            tokens."""
             srv = self.srv
+            results = []
+            for q, req in outs:
+                results.append(srv.collect(q, stop_strs, lp_top_n))
+                req.cancelled.set()  # a stop-string hit ends the choice
+            n_out = sum(r[1] for r in results)
+            usage = oai.TokenUsage(n_prompt, n_out, n_prompt + n_out,
+                                   sum(r.prefix_reused for _q, r in outs))
+            choices = []
+            for i, (text, _n, finish, lp_content) in enumerate(results):
+                if chat:
+                    c: dict[str, Any] = {
+                        "index": i,
+                        "message": {"role": "assistant", "content": text},
+                        "finish_reason": finish}
+                    if lp_content is not None:
+                        c["logprobs"] = {"content": lp_content}
+                else:
+                    c = {"index": i, "text": text, "finish_reason": finish}
+                    if lp_content is not None:
+                        c["logprobs"] = srv.legacy_logprobs(lp_content)
+                choices.append(c)
+            self._json(200, {
+                "id": rid,
+                "object": "chat.completion" if chat else "text_completion",
+                "created": created, "model": srv.model_name,
+                "choices": choices, "usage": oai.usage_dict(usage),
+            }, headers={"x-aigw-request-id": rid})
+
+        def _start_sse(self, rid):
             self.send_response(200)
             self.send_header("content-type", "text/event-stream")
             self.send_header("cache-control", "no-cache")
@@ -599,18 +807,126 @@ def _make_handler(server: TPUServeServer):
             self.end_headers()
             self.close_connection = True
 
-            def write_piece(piece: str) -> None:
-                if not piece:
-                    return
+        def _chunk(self, chat, rid, created, piece, lp_entries=None,
+                   finish=None, index=0):
+            """One content (or finish) frame of choice ``index``; a
+            chat finish frame carries an empty delta."""
+            srv = self.srv
+            if chat:
+                return oai.stream_chunk_sse(
+                    response_id=rid, model=srv.model_name, created=created,
+                    delta={"content": piece} if finish is None else {},
+                    finish_reason=finish, index=index,
+                    logprobs={"content": lp_entries} if lp_entries
+                    else None)
+            return oai.completion_chunk_sse(
+                response_id=rid, model=srv.model_name, created=created,
+                text=piece, finish_reason=finish, index=index,
+                logprobs=srv.legacy_logprobs(lp_entries) if lp_entries
+                else None)
+
+        def _stream_n(self, merged, reqs, chat, rid, created, stop_strs,
+                      n_prompt, lp_top_n, include_usage):
+            """The streamed ``n > 1`` reply (the reference's
+            ``_generate_n_stream``): the choices' items arrive on one
+            merged queue; each burst becomes one frame per choice that
+            moved, then one finish frame per choice, usage when asked
+            for, one ``[DONE]``."""
+            srv = self.srv
+            n = len(reqs)
+            self._start_sse(rid)
+            w = self.wfile
+            if chat:
+                for i in range(n):
+                    w.write(oai.stream_chunk_sse(
+                        response_id=rid, model=srv.model_name,
+                        created=created,
+                        delta={"role": "assistant", "content": ""},
+                        index=i))
+                w.flush()
+            decoders = [StreamingDecoder(srv.tokenizer) for _ in range(n)]
+            emitted = [""] * n
+            counts = [0] * n
+            done = [False] * n
+            want_lp = lp_top_n >= 0
+            while not all(done):
+                burst = [merged.get()]
+                while True:
+                    try:
+                        burst.append(merged.get_nowait())
+                    except queue.Empty:
+                        break
+                pieces: dict[int, list[str]] = {}
+                lps: dict[int, list] = {}
+                fins: dict[int, str] = {}
+                for i, (tok, fin, lp) in burst:
+                    if done[i] or i in fins:
+                        # items past a finish (a stop-string hit) count
+                        # toward nothing
+                        continue
+                    if tok >= 0:
+                        counts[i] += 1
+                        piece = decoders[i].push(tok)
+                        if want_lp and lp is not None:
+                            lps.setdefault(i, []).append(
+                                srv.lp_entry(piece, lp, lp_top_n))
+                        if piece:
+                            emitted[i] += piece
+                            hit = _find_stop(emitted[i], stop_strs)
+                            if hit is not None:
+                                keep = hit - (len(emitted[i]) - len(piece))
+                                pieces.setdefault(i, []).append(
+                                    piece[:max(keep, 0)])
+                                fins[i] = "stop"
+                                reqs[i].cancelled.set()
+                                continue
+                            pieces.setdefault(i, []).append(piece)
+                    if fin is not None and i not in fins:
+                        fins[i] = fin
+                        if fin != "error":
+                            tail = decoders[i].flush()
+                            if tail:
+                                pieces.setdefault(i, []).append(tail)
+                for i in sorted(set(pieces) | set(lps) | set(fins)):
+                    text = "".join(pieces.get(i, ()))
+                    if text or lps.get(i):
+                        w.write(self._chunk(chat, rid, created, text,
+                                            lps.get(i), index=i))
+                    if i in fins:
+                        done[i] = True
+                        w.write(self._chunk(chat, rid, created, "",
+                                            finish=fins[i] or "stop",
+                                            index=i))
+                w.flush()
+            if include_usage:
+                n_out = sum(counts)
+                usage = oai.TokenUsage(n_prompt, n_out, n_prompt + n_out,
+                                       sum(r.prefix_reused for r in reqs))
                 if chat:
-                    frame = oai.stream_chunk_sse(
+                    w.write(oai.stream_chunk_sse(
                         response_id=rid, model=srv.model_name,
-                        created=created, delta={"content": piece})
+                        created=created, usage=usage))
                 else:
-                    frame = oai.completion_chunk_sse(
+                    w.write(oai.completion_chunk_sse(
                         response_id=rid, model=srv.model_name,
-                        created=created, text=piece)
-                self.wfile.write(frame)
+                        created=created, text=None, usage=usage))
+            w.write(oai.sse("[DONE]"))
+            w.flush()
+
+        def _stream(self, out, req, chat, rid, created, stop_strs,
+                    n_prompt, include_usage, cmode, lp_top_n):
+            srv = self.srv
+            self._start_sse(rid)
+            want_lp = lp_top_n >= 0
+
+            def write_piece(piece: str, lp_entries=None) -> None:
+                # an empty piece (mid-UTF-8) still carries its logprob
+                # entries, so the streamed list aligns one to one with
+                # the completion tokens
+                if not piece and not lp_entries:
+                    return
+                self.wfile.write(self._chunk(chat, rid, created, piece,
+                                             lp_entries))
                 self.wfile.flush()
 
             # tool calls: a required/named reply is a grammar-forced
@@ -642,7 +958,7 @@ def _make_handler(server: TPUServeServer):
                         created=created, delta={"tool_calls": [call]}))
                     self.wfile.flush()
 
-            def emit_text(piece: str) -> None:
+            def emit_text(piece: str, lp_entries) -> None:
                 nonlocal tool_stream
                 if tool_stream is not None:
                     write_tool_events(tool_stream.feed(piece))
@@ -656,7 +972,7 @@ def _make_handler(server: TPUServeServer):
                         write_tool_events(tool_stream.feed(text_out))
                         return
                     piece = text_out  # diverged: the held text is content
-                write_piece(piece)
+                write_piece(piece, lp_entries)
 
             if chat:
                 self.wfile.write(oai.stream_chunk_sse(
@@ -676,14 +992,19 @@ def _make_handler(server: TPUServeServer):
                     except queue.Empty:
                         break
                 pieces = []
-                for tok, fin in burst:
+                lp_entries = []
+                for tok, fin, lp in burst:
                     if tok >= 0:
                         n_out += 1
                         piece = decoder.push(tok)
+                        if want_lp and lp is not None:
+                            lp_entries.append(
+                                srv.lp_entry(piece, lp, lp_top_n))
                         if piece:
                             emitted += piece
                             hit = _find_stop(emitted, stop_strs)
                             if hit is not None:
+                                # the cut token keeps its entry
                                 keep = hit - (len(emitted) - len(piece))
                                 pieces.append(piece[:max(keep, 0)])
                                 finish = "stop"
@@ -697,7 +1018,7 @@ def _make_handler(server: TPUServeServer):
                             pieces.append(decoder.flush())
                         done = True
                         break
-                emit_text("".join(pieces))
+                emit_text("".join(pieces), lp_entries)
             if auto_detect is not None and tool_stream is None:
                 # ended while still ambiguous: the held text was content
                 decision, rest = auto_detect.finish()

@@ -90,6 +90,28 @@ Phases (any failure exits non-zero):
    time (wq + wv, and all seven targets), one decode step at batch 8
    with 8 adapter slots, 8 base slots and none, and one packed prefill
    of the burst's prompts with and without adapters;
+   per-token logprobs, ``n > 1`` and tenant-fair admission (the
+   ``serve_logprobs`` line, printed after ``model_check``; launch
+   counts zeroed before it, read after it): bf16 weights and pool, the
+   fused rung, the prefix cache on, ``logprobs_topk=20``; a burst of 8
+   requests over the burst's prompts (two greedy chats with
+   ``top_logprobs`` 5, two greedy legacy completions with ``logprobs``
+   3, a sampled chat with ``n`` 4 and ``top_logprobs`` 2, a streamed
+   completion with ``n`` 3, a greedy chat with ``n`` 2, one without
+   logprobs; 14 engine requests) cold and warm (K1, K2), its first four
+   on the chained rung (K3), then a sub-burst of tenants a x 6 and b x
+   2 (``x-aigw-tenant``) at ``tenant_slot_cap=4`` with ``/state``
+   polled throughout. Gates: one entry per completion token with ``k``
+   alternates, sorted, <= 0, ``bytes`` the piece's UTF-8, each equal to
+   the engine's own value; a greedy token its top-1 (or tied with it),
+   its value the top-1's within 1e-5; one finish per streamed index;
+   the ``n: 4`` choices not all equal, the greedy ``n: 2`` ones equal;
+   the two greedy chats recomputed in float32 through the plain
+   functions, each chosen logprob within twice ``model_check``'s bf16
+   logit bound (0.1 x its logit scale) of the recompute and a top-1
+   flip only at a recomputed top-2 gap under that bound; the tenant cap
+   held at every poll, deferrals counted, ``ttft_hist_buckets``' +Inf
+   count the sub-burst's 8 requests;
 5. every kernel against its plain PyTorch version on the card at the
    served shapes (each attention output element within 2**-7 of the
    plain output plus 2e-3, printed beside the mean |output|; K2's and
@@ -142,7 +164,10 @@ Phases (any failure exits non-zero):
    K2/K7 and K3 or K5 launch of the step); the same for one full-width
    bf16 prefill of the served burst's prompts, K1's 32 launches summed,
    and of a prefix-cache resume (150 rows at 1024) beside the same
-   prompt's cold prefill (the ``prefill_profile`` line);
+   prompt's cold prefill (the ``prefill_profile`` line); the bf16 step
+   with the engine's per-token logprobs (``log_softmax`` and
+   ``topk(20)`` over the step's logits) against without, and the
+   launches and host-copy bytes they add (``decode_profile_logprobs``);
 7. the mixtral family (the Llama weights freed first). At Mixtral-8x7B
    widths (dim 4096, 8 experts of ffn 14336, top-2, vocab 32000) and 2
    layers, in float32 and in bf16: a packed prefill of 4 sequences, 8
@@ -169,8 +194,8 @@ Phases (any failure exits non-zero):
    K6 at Mixtral's lm_head shape (4096 x 32000) is on the
    ``qmatmul_shapes`` line;
 8. the ``kernels`` JSON line (each row also carries its launches on
-   ``serve_moe`` and on ``serve_lora``), the card line, then the last
-   line
+   ``serve_moe``, on ``serve_lora`` and on ``serve_logprobs``), the
+   card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -337,11 +362,12 @@ def read_counts() -> dict:
 
 
 # -- phase 3: serving ---------------------------------------------------------
-def _http(port: int, path: str, body: dict | None = None):
+def _http(port: int, path: str, body: dict | None = None,
+          headers: dict | None = None):
     url = f"http://127.0.0.1:{port}{path}"
     data = None if body is None else json.dumps(body).encode()
-    req = urllib.request.Request(url, data=data,
-                                 headers={"content-type": "application/json"})
+    req = urllib.request.Request(url, data=data, headers={
+        "content-type": "application/json", **(headers or {})})
     with urllib.request.urlopen(req, timeout=600) as r:
         return r.status, r.headers.get("content-type", ""), r.read().decode()
 
@@ -1137,6 +1163,7 @@ def model_check(torch, params, cfg, dev: str = "cuda",
         raise AssertionError(f"logits differ by {max(errs)} "
                              f"(logit scale {scale})")
     out = {"max_abs_logit_err": max(errs), "logit_scale": scale,
+           "logit_bound": 0.1 * scale,
            "greedy_mismatches": mism, "steps": 9, "kv_dtype": kv_dtype}
     if ref_params is not None:
         out["greedy_agree_with_bf16"] = agree / picks
@@ -1236,17 +1263,23 @@ def serve_profile(torch, port: int, reqs, warm_s: float) -> dict:
 def decode_profile(torch, params, cfg, dev: str = "cuda",
                    kv_dtype: str = "bfloat16", verify_width: int = 0,
                    attn_impl: str = "fused", model=None, lora=None,
-                   adapter_idx=None) -> dict:
+                   adapter_idx=None, logprobs_topk: int | None = None
+                   ) -> dict:
     """Where one full-width decode step's time goes: host wall clock of a
     step (synchronized) against the device time torch.profiler sees, by
     kernel. Batch 8 at 1000 cached tokens each, a ``kv_dtype`` pool, on
     the ``attn_impl`` rung (K2/K7 fused, K3 chained); with
     ``verify_width`` > 0, a verify step of that width on the chained
     rung (K5) instead. ``model`` is the family's module (llama by
-    default); ``lora`` and ``adapter_idx`` give the slots adapter rows."""
+    default); ``lora`` and ``adapter_idx`` give the slots adapter rows.
+    With ``logprobs_topk`` set each step also takes the greedy token
+    (the argmax), and above 0 the engine's per-token logprobs at it
+    (``sampling.token_logprobs``). ``kernel_launches`` counts the device
+    kernels a step launches."""
     from torch.profiler import ProfilerActivity, profile
 
     from aigw_tpu_torch.models import kvq, llama
+    from aigw_tpu_torch.tpuserve.sampling import token_logprobs
 
     model = model or llama
 
@@ -1268,8 +1301,12 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
             model.verify_step(params, cfg, toks, pos, kv, pt, PS, act,
                               limits, attn_impl="chained", **ad)
         else:
-            model.decode_step(params, cfg, tok, pos, kv, pt, PS, act,
-                              attn_impl=attn_impl, **ad)
+            out = model.decode_step(params, cfg, tok, pos, kv, pt, PS, act,
+                                    attn_impl=attn_impl, **ad)
+            if logprobs_topk is not None:
+                tok_s = out[0].argmax(-1)
+                if logprobs_topk:
+                    token_logprobs(out[0], tok_s, logprobs_topk)
 
     for _ in range(2):
         step()
@@ -1293,8 +1330,12 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
         torch, prof, steps, (("w8a16_matmul", "w8a16"),
                              ("fused_paged_decode", "fused_decode"),
                              (mq, "mq_")))
+    launched = sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.self_device_time_total > 0) / steps
     return {"batch": B, "cached_tokens": ctx, "layers": cfg.n_layers,
             "kv_dtype": kv_dtype, "verify_width": verify_width,
+            "logprobs_topk": logprobs_topk, "kernel_launches": launched,
             "attn_impl": "chained" if verify_width else attn_impl,
             "wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy": device_ms / wall_ms,
@@ -2401,6 +2442,413 @@ def model_check_moe(torch, mixtral, dtype, dev: str = "cuda") -> dict:
     return report
 
 
+# -- per-token logprobs, n > 1 and tenant-fair admission ------------------------
+LP_TOPK = 20
+
+
+def _lp_requests(reqs) -> list:
+    """The logprobs burst, over ``_requests``' prompts (64 new tokens
+    each, every stream asking for its usage): two greedy chats with
+    ``top_logprobs`` 5 (one streamed), two greedy legacy completions
+    with ``logprobs`` 3 (one streamed), a sampled chat with ``n`` 4 and
+    ``top_logprobs`` 2, a streamed completion with ``n`` 3 and no
+    logprobs, a greedy chat with ``n`` 2, and a request with no
+    logprobs."""
+    def text(i):
+        b = reqs[i][2]
+        return b["prompt"] if "prompt" in b else b["messages"][0]["content"]
+
+    def chat(i, stream, **kw):
+        return ("chat", stream, {
+            "model": "llama-3-8b-random", "max_tokens": SERVE_MAX_TOKENS,
+            "messages": [{"role": "user", "content": text(i)}],
+            "stream": stream, **kw})
+
+    def completion(i, stream, **kw):
+        return ("completion", stream, {
+            "model": "llama-3-8b-random", "max_tokens": SERVE_MAX_TOKENS,
+            "prompt": text(i), "stream": stream, **kw})
+
+    greedy = {"temperature": 0.0}
+    out = [
+        chat(0, True, logprobs=True, top_logprobs=5, **greedy),
+        chat(2, False, logprobs=True, top_logprobs=5, **greedy),
+        completion(1, False, logprobs=3, **greedy),
+        completion(3, True, logprobs=3, **greedy),
+        chat(4, False, n=4, temperature=0.8, seed=11, logprobs=True,
+             top_logprobs=2),
+        completion(5, True, n=3, temperature=0.8, seed=5),
+        chat(6, False, n=2, **greedy),
+        completion(7, False, temperature=0.8, seed=107),
+    ]
+    for _kind, stream, body in out:
+        if stream:
+            body["stream_options"] = {"include_usage": True}
+    return out
+
+
+def _lp_call(port: int, kind: str, stream: bool, body: dict,
+             headers: dict | None = None) -> dict:
+    """One request → {"choices": [{"text", "finishes", "chat" (content
+    entries) or "legacy" (the legacy lists)}], "usage"}; a stream is
+    reassembled per index and must end with exactly one [DONE]."""
+    path = "/v1/chat/completions" if kind == "chat" else "/v1/completions"
+    status, ctype, raw = _http(port, path, body, headers)
+    if status != 200:
+        raise AssertionError(f"{kind} status {status}")
+    choices: dict = {}
+
+    def add(ch, text, lp):
+        c = choices.setdefault(ch["index"], {"text": "", "finishes": [],
+                                             "chat": None, "legacy": None})
+        c["text"] += text or ""
+        if ch.get("finish_reason") is not None:
+            c["finishes"].append(ch["finish_reason"])
+        if lp is None:
+            return
+        if "content" in lp:
+            c["chat"] = (c["chat"] or []) + lp["content"]
+        else:
+            acc = c["legacy"] or {"tokens": [], "token_logprobs": [],
+                                  "top_logprobs": []}
+            for k in acc:
+                acc[k] = acc[k] + lp[k]
+            c["legacy"] = acc
+
+    if not stream:
+        resp = json.loads(raw)
+        for ch in resp["choices"]:
+            add(ch, ch["message"]["content"] if kind == "chat"
+                else ch["text"], ch.get("logprobs"))
+        usage = resp["usage"]
+    else:
+        if not ctype.startswith("text/event-stream"):
+            raise AssertionError(f"stream content-type {ctype!r}")
+        frames = [ln[6:] for ln in raw.split("\n")
+                  if ln.startswith("data: ")]
+        if frames[-1] != "[DONE]" or frames.count("[DONE]") != 1:
+            raise AssertionError("SSE stream not ended by one [DONE]")
+        usage = None
+        for f in frames[:-1]:
+            ev = json.loads(f)
+            usage = ev.get("usage") or usage
+            for ch in ev["choices"]:
+                add(ch, ch["delta"].get("content") if kind == "chat"
+                    else ch["text"], ch.get("logprobs"))
+    return {"choices": [choices[i] for i in sorted(choices)],
+            "usage": usage}
+
+
+def _lp_gate(kind: str, body: dict, reply: dict) -> None:
+    """Every choice present once, one finish per streamed index, and
+    with logprobs one entry per completion token: ``k`` alternates,
+    values sorted and <= 0, ``bytes`` the piece's UTF-8."""
+    n = body.get("n", 1)
+    if len(reply["choices"]) != n:
+        raise AssertionError(f"{len(reply['choices'])} choices, want {n}")
+    if body["stream"] and any(c["finishes"] != [c["finishes"][0]]
+                              for c in reply["choices"]):
+        raise AssertionError("a streamed index without exactly one finish")
+    k = (body.get("top_logprobs", 0) if kind == "chat"
+         else body.get("logprobs"))
+    if body.get("logprobs") is None:
+        if any(c["chat"] or c["legacy"] for c in reply["choices"]):
+            raise AssertionError("logprobs on a request without them")
+        return
+    entries = 0
+    for c in reply["choices"]:
+        if kind == "chat":
+            for e in c["chat"]:
+                tops = e["top_logprobs"]
+                vals = [t["logprob"] for t in tops]
+                if (len(tops) != k or vals != sorted(vals, reverse=True)
+                        or max(vals + [e["logprob"]]) > 0.0
+                        or e["bytes"] != list(e["token"].encode())
+                        or any(t["bytes"] != list(t["token"].encode())
+                               for t in tops)):
+                    raise AssertionError(f"a malformed entry: {e}")
+            entries += len(c["chat"])
+        else:
+            lg = c["legacy"]
+            if not (len(lg["tokens"]) == len(lg["token_logprobs"])
+                    == len(lg["top_logprobs"])):
+                raise AssertionError("legacy logprobs lists disagree")
+            for lp, top in zip(lg["token_logprobs"], lg["top_logprobs"]):
+                if lp > 0.0 or not 1 <= len(top) <= k \
+                        or max(top.values()) > 0.0:
+                    raise AssertionError(f"a malformed legacy entry: {top}")
+            entries += len(lg["tokens"])
+    if entries != reply["usage"]["completion_tokens"]:
+        raise AssertionError(f"{entries} logprobs entries for "
+                             f"{reply['usage']['completion_tokens']} tokens")
+
+
+def _lp_burst(port: int, burst, headers=None) -> list:
+    results: list = [None] * len(burst)
+
+    def one(i):
+        try:
+            results[i] = _lp_call(port, *burst[i],
+                                  headers=(headers or [None] * len(burst))[i])
+            _lp_gate(burst[i][0], burst[i][2], results[i])
+        except Exception as e:  # noqa: BLE001 — reported below, fails run
+            results[i] = e
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(burst))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    for i, r in enumerate(results):
+        if not isinstance(r, dict):
+            raise AssertionError(f"logprobs request {i} failed: {r!r}")
+    return results
+
+
+def teacher_forced(torch, params, cfg, prompt: list, rows: list,
+                   dev: str = "cuda") -> dict:
+    """Recompute a greedy stream's logprobs in float32 through the plain
+    functions: one prefill over prompt + completion whose [m] gathered
+    rows are the logits each completion token was drawn from. Returns
+    the largest |served - recomputed| chosen logprob, and per token
+    whether the served token is the recomputed top-1 and the
+    recomputed top-2 logit gap."""
+    from aigw_tpu_torch.models import kvq, llama
+
+    PS = 128
+    toks = [t for t, _c in rows]
+    ids = prompt + toks[:-1]
+    T, n, m = len(ids), len(prompt), len(toks)
+    P = -(-T // PS)
+    kv = kvq.make_pool((cfg.n_layers, 2, (P + 1) * PS, cfg.n_kv_heads,
+                        cfg.head_dim), "float32", dev)
+    pt = torch.zeros((m, P), dtype=torch.int32, device=dev)
+    pt[0] = torch.arange(P, dtype=torch.int32, device=dev)
+    logits, _ = llama.prefill_ragged(
+        params, cfg, torch.tensor(ids, device=dev),
+        torch.zeros((T,), dtype=torch.int32, device=dev),
+        torch.arange(T, dtype=torch.int32, device=dev),
+        torch.arange(n - 1, n - 1 + m, dtype=torch.int32, device=dev),
+        kv, pt, PS, plain=True)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tok = torch.tensor(toks, device=dev)
+    want = logp[torch.arange(m, device=dev), tok]
+    served = torch.tensor([c for _t, c in rows], device=dev)
+    top2 = torch.topk(logits.float(), 2, dim=-1)
+    return {"max_err": (served - want).abs().max().item(),
+            "top1": (top2.indices[:, 0] == tok).tolist(),
+            "gap": (top2.values[:, 0] - top2.values[:, 1]).tolist()}
+
+
+def serve_logprobs(torch, srv, params, reqs, launches: dict,
+                   dev: str = "cuda") -> dict:
+    """Per-token logprobs, ``n > 1`` and tenant-fair admission at full
+    depth (32 layers, bf16, a bf16 pool, the prefix cache on,
+    ``logprobs_topk=20``) through the port's server: the burst
+    (``_lp_requests``) cold and warm on the fused rung (K1, K2), its
+    first four requests on the chained rung (K3), then a two-tenant
+    sub-burst (``x-aigw-tenant`` a x 6 and b x 2) at
+    ``tenant_slot_cap=4``, polling ``/state``. Gates: ``_lp_gate`` on
+    every reply; every served entry equal to the engine's own value; a
+    greedy token its top-1 (or tied with it) and its value the top-1's
+    within 1e-5; the ``n: 4`` choices not all equal, the greedy ``n: 2``
+    ones equal; the tenant cap held at every poll, deferrals counted,
+    ``ttft_hist_buckets``' +Inf count the sub-burst's requests. The two
+    greedy chats are recomputed in float32 (``teacher_forced``); their
+    bound comes from ``model_check`` and is gated in ``main``. Launches
+    go into ``launches`` under ``serve_logprobs``; returns the line's
+    fields."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.obs.metrics import EnginePhases
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    cfg = llama.LLAMA3_8B
+    t_phase = time.monotonic()
+    captured: dict = {}
+
+    def start(**engine_kw):
+        srv.engine.stop()
+        eng = Engine(params, cfg, EngineConfig(**{
+            **dict(max_batch_size=8, max_seq_len=2048, page_size=128,
+                   attention_backend="pallas-ragged",
+                   decode_backend="fused", logprobs_topk=LP_TOPK),
+            **engine_kw}), eos_token_ids=(srv.tokenizer.eos_id,),
+            device=dev)
+        submit = eng.submit
+
+        def recording(req):
+            # the engine's own (token, chosen, top) per request, keyed
+            # by prompt: the served entries are held to them
+            if req.emit_lp is not None:
+                rows: list = []
+                captured.setdefault(tuple(req.prompt), []).append(rows)
+                emit_lp = req.emit_lp
+
+                def tap(t, f, c, top, rows=rows, emit_lp=emit_lp):
+                    if t >= 0:
+                        rows.append((t, c, top))
+                    emit_lp(t, f, c, top)
+
+                req.emit_lp = tap
+            submit(req)
+
+        eng.submit = recording
+        srv.engine = eng
+        eng.warmup()
+        eng.start()
+
+    burst = _lp_requests(reqs)
+    out: dict = {"logprobs_topk": LP_TOPK, "requests": len(burst),
+                 "engine_requests": sum(b.get("n", 1) for _k, _s, b in burst)}
+    start()
+    reset_counts()
+    t = time.monotonic()
+    cold = _lp_burst(srv.port, burst)
+    out["cold_s"] = time.monotonic() - t
+    cold_rows = dict(captured)
+    _wait_idle(srv)
+    captured.clear()
+    srv.engine.phases = EnginePhases()
+    t = time.monotonic()
+    warm = _lp_burst(srv.port, burst)
+    out["warm_s"] = time.monotonic() - t
+    st = _wait_idle(srv)
+    pp = st["phase_percentiles"]
+    out.update({"warm_ttft_p50_ms": pp["ttft"]["p50"],
+                "warm_ttft_p95_ms": pp["ttft"]["p95"],
+                "warm_prefill_p50_ms": pp["prefill"]["p50"],
+                "warm_prefix_cache_hits": st["prefix_cache_hits"]})
+    c_fused = read_counts()
+
+    # the served entries are the engine's values; greedy tokens are
+    # their top-1
+    greedy_ok = 0
+    for (kind, _s, body), reply in zip(burst, cold):
+        if body.get("logprobs") is None:
+            continue
+        prompt = tuple(srv.encode_chat(body) if kind == "chat"
+                       else srv.encode_text(body))
+        served_rows = cold_rows.get(prompt)
+        if not served_rows or len(served_rows) != body.get("n", 1):
+            raise AssertionError("a logprobs request was not captured")
+        served = [[e["logprob"] for e in c["chat"]] if kind == "chat"
+                  else c["legacy"]["token_logprobs"]
+                  for c in reply["choices"]]
+        engine_side = sorted([[c for _t, c, _top in r]
+                              for r in served_rows])
+        if sorted(served) != engine_side:
+            raise AssertionError("served logprobs differ from the engine's")
+        if body.get("temperature", 1.0) > 0:
+            continue
+        for r in served_rows:
+            for tok, chosen, top in r:
+                ties = [i for i, v in top if v == top[0][1]]
+                if tok not in ties or abs(chosen - top[0][1]) > 1e-5:
+                    raise AssertionError(f"greedy token {tok} is not top-1:"
+                                         f" {chosen} vs {top[:2]}")
+                greedy_ok += 1
+    out["greedy_top1_checked"] = greedy_ok
+    n4 = [c["text"] for c in cold[4]["choices"]]
+    n2 = [c["text"] for c in cold[6]["choices"]]
+    if len(set(n4)) < 2 or len(set(n2)) != 1:
+        raise AssertionError(f"n choices: {len(set(n4))} distinct of 4 "
+                             f"sampled, {len(set(n2))} of 2 greedy")
+    out["warm_equals_cold_greedy"] = (
+        warm[1]["choices"][0]["text"] == cold[1]["choices"][0]["text"])
+
+    # the teacher-forced recompute of the two greedy chats (float32)
+    p32 = {k: v.float() for k, v in params.items()}
+    tf = []
+    for _kind, _s, body in burst[:2]:
+        prompt = srv.encode_chat(body)
+        rows = [(t, c) for t, c, _top in cold_rows[tuple(prompt)][0]]
+        tf.append(teacher_forced(torch, p32, cfg, prompt, rows, dev))
+    del p32
+    torch.cuda.empty_cache()
+    out["teacher_forced"] = {
+        "max_err": max(r["max_err"] for r in tf),
+        "tokens": sum(len(r["top1"]) for r in tf),
+        "top1_mismatches": [g for r in tf
+                            for ok, g in zip(r["top1"], r["gap"]) if not ok]}
+
+    # the chained rung: the first four requests (K3)
+    start(pallas_attn=True, decode_backend="auto")
+    t = time.monotonic()
+    _lp_burst(srv.port, burst[:4])
+    out["chained_s"] = time.monotonic() - t
+    c_chained = read_counts()
+    _wait_idle(srv)
+
+    # two tenants at a slot cap of 4: a x 6, b x 2
+    start(tenant_slot_cap=4)
+    sub = [(k, s, {key: v for key, v in b.items()
+                   if key not in ("logprobs", "top_logprobs", "n")})
+           for k, s, b in _lp_requests(reqs)]
+    polls: list = []
+    stop = threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            polls.append(json.loads(_http(srv.port, "/state")[2]))
+            time.sleep(0.02)
+
+    poller = threading.Thread(target=poll)
+    poller.start()
+    try:
+        t = time.monotonic()
+        _lp_burst(srv.port, sub, headers=[{"x-aigw-tenant": "a"}] * 6
+                  + [{"x-aigw-tenant": "b"}] * 2)
+        out["tenant_burst_s"] = time.monotonic() - t
+    finally:
+        stop.set()
+        poller.join()
+    st = _wait_idle(srv)
+    c_all = read_counts()
+    srv.engine.stop()
+    peak = max(p["tenant_max_slots"] for p in polls)
+    buckets = st["ttft_hist_buckets"]
+    out["tenants"] = {
+        "polls": len(polls), "tenant_max_slots_peak": peak,
+        "tenants_active_peak": max(p["tenants_active"] for p in polls),
+        "tenant_deferrals": st["tenant_deferrals"],
+        "tenant_slot_cap": st["tenant_slot_cap"],
+        "ttft_hist_inf": buckets["+Inf"]}
+    if peak > 4 or st["tenant_deferrals"] <= 0 or buckets["+Inf"] != 8 \
+            or list(buckets)[-1] != "+Inf":
+        raise AssertionError(f"tenant sub-burst: {out['tenants']}")
+    d_chained = {k: c_chained[k] - c_fused[k] for k in c_all}
+    if c_fused["ragged_prefill_attention"] <= 0 \
+            or c_fused["fused_paged_decode"] <= 0 \
+            or d_chained["paged_attention_decode_v2"] <= 0:
+        raise AssertionError(f"K1 / K2 / K3 not on the logprobs path: "
+                             f"fused {c_fused}, chained {d_chained}")
+    out["launches"] = {"fused": c_fused, "chained": d_chained,
+                       "all": c_all}
+    launches["serve_logprobs"] = c_all
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"logprobs burst ({out['engine_requests']} engine requests) cold "
+        f"{out['cold_s']:.1f}s, warm {out['warm_s']:.1f}s; teacher-forced "
+        f"max error {out['teacher_forced']['max_err']:.4f}; tenants "
+        f"{out['tenants']}; phase {out['phase_s']:.1f}s")
+    return out
+
+
+def gate_teacher_forced(lp: dict, check: dict) -> None:
+    """The served chosen logprobs of the greedy chats lie within twice
+    ``model_check``'s bf16 logit bound of the float32 recompute (a
+    log-softmax moves at most twice its logits' largest error), and a
+    token that is not the recomputed top-1 sits at a top-2 gap under
+    that bound."""
+    bound = check["logit_bound"]
+    tf = lp["teacher_forced"]
+    tf["bound"] = 2 * bound
+    if tf["max_err"] > 2 * bound or any(g >= bound
+                                        for g in tf["top1_mismatches"]):
+        raise AssertionError(f"teacher-forced logprobs: {tf}, logit bound "
+                             f"{bound}")
+
+
 def _place(args, pool):
     """An entry point's arguments with the pool put where ``None``
     stands."""
@@ -2957,6 +3405,7 @@ def main() -> int:
         from aigw_tpu_torch.obs.metrics import EnginePhases
         from aigw_tpu_torch.ops import _build
         from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+        from aigw_tpu_torch.tpuserve.sampling import token_logprobs
         from aigw_tpu_torch.tpuserve.server import TPUServeServer
     except ImportError as e:
         fail(f"the aigw_tpu_torch package is not beside chip_smoke.py "
@@ -3142,6 +3591,10 @@ def main() -> int:
 
         # multi-LoRA: a zoo over 2 rows, bf16 then W8A16 (serve_lora)
         serve_lora(torch, srv, params, qparams, reqs, launches)
+
+        # per-token logprobs, n > 1 and tenant fairness (serve_logprobs;
+        # its teacher-forced bound is gated after model_check)
+        lp_out = serve_logprobs(torch, srv, params, reqs, launches)
     finally:
         srv.stop()
 
@@ -3171,6 +3624,8 @@ def main() -> int:
         f"at 1023) vs a cold prefill: {checks['resume']} "
         f"({time.monotonic() - t:.1f}s)")
     print(json.dumps({"model_check": checks}), flush=True)
+    gate_teacher_forced(lp_out, checks["bf16"])
+    print(json.dumps({"serve_logprobs": lp_out}), flush=True)
     checks_lora = {}
     for name, dtype in (("float32", torch.float32),
                         ("bf16", torch.bfloat16)):
@@ -3194,6 +3649,33 @@ def main() -> int:
         f"{prof_c['device_ms']:.2f} ms on the device (busy "
         f"{prof_c['device_busy']:.2f})")
     print(json.dumps({"decode_profile_chained": prof_c}), flush=True)
+    prof_lp = decode_profile(torch, params, llama.LLAMA3_8B,
+                             logprobs_topk=LP_TOPK)
+    prof_lp0 = decode_profile(torch, params, llama.LLAMA3_8B,
+                              logprobs_topk=0)
+    lp_line = {
+        "logprobs_topk": LP_TOPK, "with": prof_lp, "without": prof_lp0,
+        "added_wall_ms": prof_lp["wall_ms"] - prof_lp0["wall_ms"],
+        "added_device_ms": prof_lp["device_ms"] - prof_lp0["device_ms"],
+        "added_launches": prof_lp["kernel_launches"]
+        - prof_lp0["kernel_launches"],
+        # the window's host copy: [B] chosen f32 and [B, k] ids i32 and
+        # values f32 per step
+        "added_host_copy_bytes_per_step": 8 * (4 + LP_TOPK * 8)}
+    # the logprobs ops alone, at a step's [8, V] float32 logits (the
+    # steps' difference sits inside their run-to-run spread)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    logits = torch.randn((8, llama.LLAMA3_8B.vocab_size), generator=g,
+                         device="cuda")
+    top = logits.argmax(-1)
+    lp_line["logprobs_ops_ms"] = cuda_ms(
+        lambda: token_logprobs(logits, top, LP_TOPK))
+    log(f"decode step with logprobs (top {LP_TOPK}): the ops alone "
+        f"{lp_line['logprobs_ops_ms']:.4f} ms, "
+        f"+{lp_line['added_device_ms']:.3f} ms device, "
+        f"+{lp_line['added_wall_ms']:.3f} ms wall, "
+        f"+{lp_line['added_launches']:.0f} launches")
+    print(json.dumps({"decode_profile_logprobs": lp_line}), flush=True)
     prof_q = decode_profile(torch, qparams, llama.LLAMA3_8B,
                             kv_dtype="int8")
     log(f"W8A16 + int8 KV decode step: {prof_q['wall_ms']:.2f} ms wall, "
@@ -3243,6 +3725,8 @@ def main() -> int:
     for row in rows:
         row["launches_serve_moe"] = launches["serve_moe"].get(row["name"], 0)
         row["launches_serve_lora"] = launches["serve_lora"].get(
+            row["name"], 0)
+        row["launches_serve_logprobs"] = launches["serve_logprobs"].get(
             row["name"], 0)
 
     print(json.dumps({"kernels": rows}), flush=True)

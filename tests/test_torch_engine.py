@@ -268,10 +268,15 @@ def test_engine_request_filling_max_seq_len(weights, rung):
 
 
 def test_engine_config_refuses_unported_knobs():
-    for kw in (dict(logprobs_topk=2), dict(kv_host_bytes=1 << 20),
-               dict(tenant_slot_cap=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tengine.EngineConfig(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tengine.EngineConfig(kv_host_bytes=1 << 20)
+    # logprobs and the tenant cap are ported; logprobs still exclude
+    # speculation, as in the reference
+    for kw in (dict(logprobs_topk=2), dict(tenant_slot_cap=1)):
+        assert getattr(tengine.EngineConfig(**kw), next(iter(kw))) == \
+            next(iter(kw.values()))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tengine.EngineConfig(logprobs_topk=2, spec_tokens=2)
     with pytest.raises(NotImplementedError, match="gather"):
         tengine.Engine({}, tllama.TINY,
                        tengine.EngineConfig(decode_backend="chained"),

@@ -953,3 +953,164 @@ def test_lora_base_rows_bitwise_on_card(cuda):
         assert torch.equal(a[base], b[base])
         assert all(not torch.equal(a[i], b[i])
                    for i in torch.nonzero(~base).flatten().tolist())
+
+
+# -- per-token logprobs and n > 1 ------------------------------------------------
+LP_RUNGS = {"fused": dict(decode_backend="fused"),
+            "chained": dict(decode_backend="auto", pallas_attn=True)}
+
+
+def _lp_engine(device, params, rung, **over):
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    return Engine({k: v.to(device) for k, v in params.items()}, llama.TINY,
+                  EngineConfig(**{**dict(
+                      max_batch_size=4, max_seq_len=128, page_size=16,
+                      decode_steps_per_tick=4, kv_cache_dtype="float32",
+                      attention_backend="pallas-ragged", logprobs_topk=5),
+                      **LP_RUNGS[rung], **over}),
+                  eos_token_ids=(257,), device=device)
+
+
+def _lp_requests(rows):
+    """A greedy, a seeded and a penalized request whose (token, chosen,
+    top) entries land in ``rows``."""
+    from aigw_tpu_torch.tpuserve.engine import GenRequest
+    from aigw_tpu_torch.tpuserve.sampling import SamplingParams
+
+    reqs = []
+    for i, (prompt, kw) in enumerate([
+            ([10, 20, 30, 40], dict(temperature=0.0)),
+            ([3, 1, 4, 1, 5], dict(temperature=0.8, seed=11)),
+            ([99, 98, 97], dict(temperature=0.0, frequency_penalty=0.8))]):
+        rows.append([])
+
+        def emit_lp(t, f, chosen, top, out=rows[i]):
+            out.append((t, f, chosen, top))
+
+        reqs.append(GenRequest(prompt=prompt, max_tokens=20,
+                               sampling=SamplingParams(**kw),
+                               emit_lp=emit_lp))
+    return reqs
+
+
+@pytest.mark.parametrize("rung", sorted(LP_RUNGS))
+def test_decode_window_logprobs_match_plain_path(cuda, rung):
+    """The engine on the card (K1, and K2 or K3) against the same engine
+    on the CPU (their plain versions), float32, the same weights:
+    identical streams, and every chosen and top-5 value within 1e-4."""
+    from aigw_tpu_torch.models import llama
+
+    params = llama.init_params(0, llama.TINY, torch.float32, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        rows: list = []
+        _cn_serve(_lp_engine(dev, params, rung), _lp_requests(rows))
+        out[str(dev)] = rows
+    cpu, gpu = out["cpu"], out[str(cuda)]
+    assert [[r[:2] for r in s] for s in gpu] == \
+        [[r[:2] for r in s] for s in cpu]
+    n = 0
+    for gs, cs in zip(gpu, cpu):
+        for (t, f, gc, gtop), (_t, _f, cc, ctop) in zip(gs, cs):
+            if t < 0:
+                assert gc is None and gtop is None
+                continue
+            assert abs(gc - cc) <= 1e-4
+            assert max(abs(a[1] - b[1]) for a, b in zip(gtop, ctop)) <= 1e-4
+            n += 1
+    assert n >= 40
+
+
+def test_window_logprobs_host_copy_is_async(cuda):
+    """Under async_transfers the window's [K, B] chosen values and
+    [K, B, k] top ids and values are pinned host copies made under the
+    tokens' event, and the entries equal a blocking copy's bit for bit."""
+    from aigw_tpu_torch.models import llama
+
+    params = llama.init_params(0, llama.TINY, torch.float32, "cpu")
+    out = {}
+    for sync in (False, True):
+        eng = _lp_engine(cuda, params, "fused", async_transfers=not sync)
+        rows: list = []
+        for r in _lp_requests(rows):
+            eng.submit(r)
+        eng._admit()
+        eng._decode_tick()
+        w = eng._inflight
+        chosen, ids, vals = w.lp
+        K, B = w.k, eng.cfg.max_batch_size
+        assert chosen.shape == (K, B) and ids.shape == vals.shape == (K, B, 5)
+        assert all(t.device.type == "cpu" for t in w.lp)
+        if not sync:
+            assert w.ready is not None
+            assert all(t.is_pinned() for t in (w.sampled, *w.lp))
+        _cn_serve(eng, [])
+        out[sync] = rows
+    assert out[False] == out[True]
+
+
+def test_n4_fan_out_under_a_lora_zoo(cuda):
+    """A replica with a zoo of 2 adapters over 2 rows on the card and on
+    the CPU: an ``n: 4`` sampled chat to ``tiny-random:ad0`` beside a
+    base request; the 4 choices equal the CPU's, differ from one
+    another, and each was submitted with the adapter as its tenant."""
+    import concurrent.futures
+    import json
+    import urllib.request
+
+    from aigw_tpu_torch.models import llama, lora
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+    from aigw_tpu_torch.tpuserve.server import TPUServeServer
+
+    params = llama.init_params(0, llama.TINY, torch.float32, "cpu")
+    stacks = lora.init_lora_adapters(7, llama.TINY, lora.LoRAConfig(
+        rank=4, alpha=8.0, targets=("wq", "wv")), 2, torch.bfloat16,
+        random_b=True, device="cpu")
+    zoo = {f"ad{i}": {k: v[i] for k, v in stacks.items()} for i in range(2)}
+    bodies = [("/v1/chat/completions", {
+        "model": "tiny-random:ad0", "n": 4, "temperature": 0.9, "seed": 7,
+        "max_tokens": 12, "messages": [{"role": "user", "content": "hi"}]}),
+        ("/v1/completions", {"model": "tiny-random", "prompt": "ab",
+                             "max_tokens": 12, "temperature": 0.0})]
+
+    def post(port, path, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+            headers={"content-type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    out = {}
+    for dev in ("cpu", cuda):
+        srv = TPUServeServer("tiny-random", EngineConfig(
+            max_batch_size=8, max_seq_len=128, page_size=16,
+            decode_steps_per_tick=4, kv_cache_dtype="float32"),
+            device=dev, port=0, param_dtype="float32", lora_adapters=zoo,
+            lora_slots=2)
+        srv.engine = Engine({k: v.to(dev) for k, v in params.items()},
+                            llama.TINY, srv.engine.cfg, eos_token_ids=(257,),
+                            fns=srv.fns, device=dev,
+                            adapter_store=srv.adapter_store)
+        tenants = []
+        submit = srv.engine.submit
+
+        def recording(req, submit=submit, tenants=tenants):
+            tenants.append(req.tenant)
+            submit(req)
+
+        srv.engine.submit = recording
+        srv.start()
+        try:
+            with concurrent.futures.ThreadPoolExecutor(2) as ex:
+                replies = list(ex.map(lambda b: post(srv.port, *b), bodies))
+        finally:
+            srv.stop()
+        out[str(dev)] = ([c["message"]["content"]
+                          for c in replies[0]["choices"]],
+                         replies[1]["choices"][0]["text"], sorted(tenants))
+    assert out[str(cuda)] == out["cpu"]
+    choices, _base, tenants = out[str(cuda)]
+    assert len(choices) == 4 and len(set(choices)) > 1
+    assert tenants == ["", "ad0", "ad0", "ad0", "ad0"]

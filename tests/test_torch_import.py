@@ -130,6 +130,33 @@ def test_lora_modules_are_covered():
     assert sig.parameters["device"].default == "cuda"
 
 
+def test_request_surface_names_import_with_jax_blocked():
+    """The request surface's names (the logprobs intake, the n fan-out,
+    the fairness guard, the histogram's cumulative buckets) import in a
+    fresh interpreter where jax and the reference package cannot, and
+    pull in nothing of either."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['aigw_tpu'] = None\n"
+        "from aigw_tpu_torch.tpuserve.server import TPUServeServer\n"
+        "from aigw_tpu_torch.tpuserve.engine import Engine\n"
+        "from aigw_tpu_torch.obs.metrics import PhaseHistogram\n"
+        "from aigw_tpu_torch.tpuserve.sampling import token_logprobs\n"
+        "for fn in (TPUServeServer.check_logprobs, TPUServeServer.submit_n,\n"
+        "           Engine._fair_admission, PhaseHistogram.cumulative,\n"
+        "           token_logprobs):\n"
+        "    assert callable(fn)\n"
+        "bad = [k for k, v in sys.modules.items() if v and (\n"
+        "    k.split('.')[0] in ('jax', 'jaxlib', 'aigw_tpu'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_cuda_request_without_cuda_raises():
     from aigw_tpu_torch.device import resolve_device
 
