@@ -10,6 +10,12 @@
         --no-prefix-cache --no-constrained-decoding
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --logprobs 20 --tenant-slot-cap 4
+    python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
+        --flight-entries 512 --enable-profile-endpoint
+
+SIGTERM or SIGINT drains the replica (new generations get 503 while
+live ones finish, ``--drain-grace`` at most) and exits 0; a second
+signal stops it at once.
 
 ``--lora NAME=DIR`` names an adapter checkpoint, which the reference
 reads with orbax; the port has no orbax (nor does the card machine), so
@@ -29,6 +35,8 @@ import argparse
 import logging
 import signal
 import threading
+
+logger = logging.getLogger(__name__)
 
 _DESCRIPTION = "aigw-tpu serving on PyTorch/CUDA"
 
@@ -113,6 +121,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "starving others (0 = off)")
     s.add_argument("--ragged-chunk-tokens", type=int, default=256)
     s.add_argument("--max-queued-requests", type=int, default=256)
+    s.add_argument("--flight-entries", type=int, default=256,
+                   help="request timelines the flight recorder keeps "
+                        "(GET /debug/requests)")
+    s.add_argument("--enable-profile-endpoint", action="store_true",
+                   help="serve GET /debug/profile?seconds=N (a "
+                        "torch.profiler capture; off by default: a "
+                        "profiler on the data port is an inspection "
+                        "surface)")
+    s.add_argument("--drain-grace", type=float, default=30.0,
+                   help="on SIGTERM/SIGINT, how long live requests may "
+                        "take to finish before the replica stops")
     return p
 
 
@@ -171,14 +190,35 @@ def main(argv: list[str] | None = None) -> int:
                             device=args.device, host=args.host,
                             port=args.port, quantize=args.quantize,
                             lora_adapters=adapters or None,
-                            lora_slots=args.lora_slots)
-    stop = threading.Event()
+                            lora_slots=args.lora_slots,
+                            flight_entries=args.flight_entries,
+                            enable_profile_endpoint=(
+                                args.enable_profile_endpoint))
+    # the handler runs on the main thread between bytecodes: it only
+    # records the signal; the loop below drains (the first) or stops
+    # at once (the second)
+    signalled = threading.Event()
+    insist = threading.Event()
+
+    def on_signal(*_) -> None:
+        if signalled.is_set():
+            insist.set()
+        signalled.set()
+
     for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
+        signal.signal(sig, on_signal)
     server.start()
     print(f"listening on http://{args.host}:{server.port}", flush=True)
     try:
-        stop.wait()
+        while not signalled.wait(0.5):
+            pass
+        logger.info("signal received: draining (grace %.0fs)",
+                    args.drain_grace)
+        drained = server.drain(args.drain_grace, stop=insist)
+        logger.info("drain %s; shutting down",
+                    "complete" if drained else
+                    "cut by a second signal" if insist.is_set()
+                    else "timed out")
     finally:
         server.stop()
     return 0

@@ -18,6 +18,23 @@ class SchemaError(ValueError):
     status = 400
 
 
+#: the engine's MeterRecord fields (one record per request lifetime,
+#: ``Engine._meter_emit``), as the reference's ``gateway/costs.py`` meter
+#: surface and its usage ledger read them off ``usage.aigw_meter``
+METER_FIELDS: tuple[str, ...] = (
+    "schema", "finish", "prefill_real", "prefill_padded", "prefix_reused",
+    "decode_tokens", "spec_drafted", "spec_accepted", "hbm_page_byte_s",
+    "host_page_byte_s", "segments", "tenant", "priority",
+)
+
+
+def meter_to_tuple(record: dict) -> tuple:
+    """A MeterRecord dict → a hashable, order-stable tuple of ``(key,
+    value)`` pairs for ``TokenUsage.meter`` (the port's copy of
+    ``aigw_tpu/gateway/costs.py``'s ``meter_to_tuple``)."""
+    return tuple(sorted((str(k), v) for k, v in record.items()))
+
+
 @dataclass(frozen=True)
 class TokenUsage:
     input_tokens: int = 0
@@ -25,6 +42,9 @@ class TokenUsage:
     total_tokens: int = 0
     # prompt tokens whose KV came from the prefix cache
     cached_input_tokens: int = 0
+    # the engine's MeterRecord as ``meter_to_tuple`` pairs (rendered as
+    # ``usage.aigw_meter``); () = none
+    meter: tuple = ()
 
 
 def parse_json_body(body: bytes) -> dict[str, Any]:
@@ -121,6 +141,8 @@ def usage_dict(usage: TokenUsage) -> dict[str, Any]:
     if usage.cached_input_tokens:
         d["prompt_tokens_details"] = {
             "cached_tokens": usage.cached_input_tokens}
+    if usage.meter:
+        d["aigw_meter"] = dict(usage.meter)
     return d
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from aigw_tpu_torch.models.kvq import is_quantized_dtype
+from aigw_tpu_torch.obs.flight import trace_id_of
 
 if TYPE_CHECKING:  # pragma: no cover
     from aigw_tpu_torch.tpuserve.engine import Engine
@@ -134,6 +135,7 @@ class RaggedPrefillBackend:
         calls = 0
         tick_ms = 0.0
         real = padded = 0
+        T = 0
         while True:
             call: list[tuple[_Seg, int]] = []  # (seg, take)
             t_used = 0
@@ -187,15 +189,21 @@ class RaggedPrefillBackend:
             calls += 1
             real += t_used
             padded += T
-            for s, _take in call:
+            for s, take in call:
                 if s.done == len(s.tokens):
                     final_out[s.g] = next_tok
+                elif s.req.trace is not None:
+                    s.req.trace.event("prefill_chunk", tokens=take,
+                                      consumed=s.start + s.done)
         # intermediate budget-boundary device steps
         eng.stats.chunked_prefill_steps += max(0, calls - 1)
         eng.stats.prefill_tokens_real += real
         eng.stats.prefill_tokens_padded += padded
-        return final_out, {"tick_ms": tick_ms, "calls": calls,
-                           "real": real, "padded": padded, "moe": macc}
+        return final_out, {
+            "tick_ms": tick_ms, "calls": calls, "real": real,
+            "padded": padded, "moe": macc, "bucket": T,
+            "padded_frac": (round(1.0 - real / padded, 3) if padded
+                            else 0.0)}
 
     def _sampling_rows(self, by_row: dict[int, tuple],
                        mask: np.ndarray | None = None) -> tuple:
@@ -237,8 +245,16 @@ class RaggedPrefillBackend:
         ``chain_by_req[id(req)]`` into the prefix cache)."""
         eng = self.eng
         t0 = time.monotonic()
+        burst_id, burst_size = eng._cur_burst
         for req, _sid, _n, _total in items:
-            eng.phases.observe("queue_wait", 1e3 * (t0 - req.enqueued_at))
+            qw = 1e3 * (t0 - req.enqueued_at)
+            eng.phases.observe("queue_wait", qw, trace_id_of(req))
+            if req.trace is not None:
+                req.trace.queue_wait(qw)
+                req.trace.admission(
+                    path="batched", burst_id=burst_id,
+                    burst_size=burst_size,
+                    prefix="miss" if chain_by_req.get(id(req)) else "off")
         segs = []
         by_row = {}
         for g, (req, seq_id, _n, _total) in enumerate(items):
@@ -255,8 +271,13 @@ class RaggedPrefillBackend:
                          - info["tick_ms"])
         eng.stats.prefill_ms += prefill_ms
         eng.stats.note_prefill_call(prefill_ms, info["real"])
-        for _item in items:
-            eng.phases.observe("prefill", prefill_ms)
+        for req, _sid, _n, _total in items:
+            eng.phases.observe("prefill", prefill_ms, trace_id_of(req))
+            if req.trace is not None:
+                req.trace.prefill(
+                    prefill_ms, bucket=info["bucket"], group=len(items),
+                    padded_frac=info["padded_frac"],
+                    chunks=info["calls"] - 1)
         logger.debug("ragged prefill G=%d tokens=%d padded=%d calls=%d",
                      len(items), info["real"], info["padded"],
                      info["calls"])

@@ -94,6 +94,17 @@ instead of ``emit``'s pair. A window's ``[K, B]`` chosen values and
 With ``logprobs_topk == 0`` the window runs exactly the ops it ran
 before.
 
+**Operations surface**: a request's ``trace`` (``obs/flight.py``'s
+``RequestTrace``) hears queue wait, admission, prefill, first token,
+decode and speculative windows, grammar rollbacks, the token copy and
+the engine's finish, at the reference's points; the phase histograms
+keep a traced request's id as the bucket's exemplar. Each request gets
+exactly one MeterRecord (``_meter_finish`` for a slot, ``_meter_zero``
+for a request that never held one), handed to its ``meter_sink`` on
+the engine thread before its terminal emit and summed into
+``EngineStats.meter_*``. All of it is host bookkeeping: no device work
+is added.
+
 Every default equals the reference's. Knobs of features this slice does
 not implement raise ``NotImplementedError`` naming their ROADMAP entry
 when set to a non-default value.
@@ -115,6 +126,7 @@ import torch
 
 from aigw_tpu_torch.device import resolve_device
 from aigw_tpu_torch.models import kvq
+from aigw_tpu_torch.obs.flight import trace_id_of
 from aigw_tpu_torch.obs.metrics import EnginePhases
 from aigw_tpu_torch.tpuserve import constrain, speculation
 from aigw_tpu_torch.tpuserve.adapters import (
@@ -275,6 +287,17 @@ class GenRequest:
     # terminal token < 0 carries (None, None)
     emit_lp: Callable[[int, str | None, float | None, list | None],
                       None] | None = None
+    # the request's lifecycle sink (``obs.flight.RequestTrace``) or None:
+    # queue wait, admission, prefill, first token, decode windows and the
+    # engine's finish land in the flight recorder and the span tree
+    trace: Any = None
+    # called exactly once per request with its MeterRecord dict, on the
+    # engine thread and before the terminal emit (so a consumer that has
+    # the finish item has the record); None = not metered
+    meter_sink: Callable[[dict], None] | None = None
+    # the priority class the record carries; every request of the port
+    # is interactive (the batch tier is not ported)
+    priority: str = "interactive"
 
 
 @dataclass
@@ -307,6 +330,16 @@ class _Slot:
     cn_epoch: int = 0
     # the adapter row the slot decodes through (pinned while it lives)
     adapter_row: int = 0
+    # usage metering accumulators, folded into the MeterRecord at the
+    # terminal emit; m_res_t0 is the monotonic time the slot's pages
+    # became resident (a slot holds its whole allocation from admission
+    # on, so its residency is one segment: pages x bytes x dwell)
+    m_prefill_real: int = 0
+    m_prefill_padded: int = 0
+    m_prefix_reused: int = 0
+    m_spec_drafted: int = 0
+    m_spec_accepted: int = 0
+    m_res_t0: float = 0.0
 
 
 @dataclass
@@ -401,6 +434,21 @@ class EngineStats:
     tenants_active: int = 0
     tenant_max_slots: int = 0
     tenant_deferrals: int = 0
+    # the engine's devices (one) and the worst device's memory fraction
+    device_count: int = 1
+    device_memory_frac_worst: float = 0.0
+    # usage metering: cumulative MeterRecord totals, moved only in
+    # Engine._meter_emit, so a ledger of the records reconciles against
+    # them token for token
+    meter_records: int = 0
+    meter_prefill_tokens: int = 0
+    meter_prefill_padded_tokens: int = 0
+    meter_prefix_reused_tokens: int = 0
+    meter_decode_tokens: int = 0
+    meter_spec_drafted: int = 0
+    meter_spec_accepted: int = 0
+    meter_hbm_page_byte_s: float = 0.0
+    meter_host_page_byte_s: float = 0.0
 
     PREFILL_RATE_HALF_LIFE_TOKENS = 16384
 
@@ -538,6 +586,14 @@ class Engine:
         # reference's engine observes them; /state's phase_percentiles
         self.phases = EnginePhases()
         self.stats.kv_quant_bits = kvq.quant_bits(cfg.kv_cache_dtype)
+        # the engine's device: memory (CUDA), its KV pool and weights
+        # (``/metrics``' per-device gauges), refreshed with the stats
+        self.param_bytes = sum(t.numel() * t.element_size()
+                               for t in params.values())
+        self.device_stats: list[dict[str, Any]] = []
+        # one admission pass's (burst id, size), for the traces
+        self._burst_seq = itertools.count(1)
+        self._cur_burst: tuple[int, int] = (0, 0)
         self.healthy = True
         self.last_error: str | None = None
 
@@ -956,19 +1012,25 @@ class Engine:
         self._cn_dirty.clear()
         for i, s in enumerate(self._slots):
             if s is not None:
+                self._meter_finish(s, "error")
                 s.req.emit(-1, "error")
                 self.allocator.free(s.req.id)
                 self._release_adapter_row(s.adapter_row)
                 self._slots[i] = None
         try:
             while True:
-                self._queue.get_nowait().emit(-1, "error")
+                req = self._queue.get_nowait()
+                self._meter_zero(req, "error")
+                req.emit(-1, "error")
         except queue.Empty:
             pass
 
     def _reap_cancelled(self) -> None:
         for i, s in enumerate(self._slots):
             if s is not None and s.req.cancelled.is_set():
+                if s.req.trace is not None:
+                    s.req.trace.engine_finish("cancel")
+                self._meter_finish(s, "cancelled")
                 s.req.emit(-1, "cancelled")
                 self._pending_frees.append(s.req.id)
                 self._release_adapter_row(s.adapter_row)
@@ -1103,12 +1165,18 @@ class Engine:
                 # order kept, until a tenant frees a slot
                 self._requeue_front(fair_requeue)
                 break
+            # one admission burst id per pass: the traces show which
+            # requests shared a packed prefill
+            self._cur_burst = (next(self._burst_seq), len(pending))
             items: list[tuple[GenRequest, bool, list]] = []
             seen_chain_heads: set = set()
             for req in pending:
                 if req.cancelled.is_set():
-                    continue  # consumed without a slot
+                    # consumed without a slot: still one (zero) record
+                    self._meter_zero(req, "cancelled")
+                    continue
                 if not req.prompt:
+                    self._meter_zero(req, "error")
                     req.emit(-1, "error")
                     continue
                 ok, chain = self._classify(req)
@@ -1231,12 +1299,18 @@ class Engine:
                 req=r.req, pos=r.n - 1, generated=0,
                 key_seed=r.req.sampling.seed or r.seq_id,
                 limit=r.total, page_row=r.page_row,
-                adapter_row=r.adapter_row, ctrl=self._make_ctrl(r.req))
+                adapter_row=r.adapter_row, ctrl=self._make_ctrl(r.req),
+                # metering, as the reference's batched path: the real
+                # prompt volume (its padding shows in the aggregate
+                # prefill_tokens_* pair), and the residency clock
+                m_prefill_real=r.n, m_prefill_padded=r.n,
+                m_res_t0=time.monotonic())
             self.stats.prefills += 1
             self._mark_admitted(slot_idx)
             t_m = time.monotonic()
             self._emit_token(slot_idx, r.tok, r.first_lp)
-            self.phases.observe("first_emit", 1e3 * (time.monotonic() - t_m))
+            self.phases.observe("first_emit", 1e3 * (time.monotonic() - t_m),
+                                trace_id_of(r.req))
         self.stats.first_emit_ms += 1e3 * (time.monotonic() - t_first)
         return len(results), leftover
 
@@ -1318,8 +1392,17 @@ class Engine:
             return "stop"
         pages = self.allocator.pages(seq_id)
         req.id = seq_id
-        self.phases.observe("queue_wait",
-                            1e3 * (time.monotonic() - req.enqueued_at))
+        qw = 1e3 * (time.monotonic() - req.enqueued_at)
+        self.phases.observe("queue_wait", qw, trace_id_of(req))
+        if req.trace is not None:
+            burst_id, burst_size = self._cur_burst
+            req.trace.queue_wait(qw)
+            req.trace.admission(
+                path="single", burst_id=burst_id, burst_size=burst_size,
+                prefix=("off" if not chain
+                        else "full" if full_hit
+                        else "partial" if cached_pages else "miss"),
+                pages_adopted=len(cached_pages), prefix_tokens=prefix_len)
         adapter_row = self._base_row
         if req.adapter:
             try:
@@ -1327,6 +1410,7 @@ class Engine:
                 # passes to the slot and is released when it frees
                 adapter_row = self._acquire_adapter(req.adapter)
             except UnknownAdapterError:
+                self._meter_zero(req, "error")
                 req.emit(-1, "error")
                 self.allocator.free(seq_id)
                 return "skipped"
@@ -1348,9 +1432,12 @@ class Engine:
             mask=cn.mask_row() if cn is not None else None)
         if isinstance(res, str):
             # cancelled or the engine stopping: the pin never reached a
-            # slot
+            # slot. A request consumed here gets its one (zero) record;
+            # a "stop" is requeued and metered where it ends
             self._release_adapter_row(adapter_row)
             self.allocator.free(seq_id)
+            if res != "stop":
+                self._meter_zero(req, "cancelled")
             return res
         tok, info = res
         if prefix_len:
@@ -1364,7 +1451,12 @@ class Engine:
                          - info["tick_ms"])
         self.stats.prefill_ms += prefill_ms
         self.stats.note_prefill_call(prefill_ms, len(suffix))
-        self.phases.observe("prefill", prefill_ms)
+        self.phases.observe("prefill", prefill_ms, trace_id_of(req))
+        if req.trace is not None:
+            req.trace.prefill(
+                prefill_ms, bucket=info["bucket"],
+                padded_frac=info["padded_frac"], chunks=info["calls"] - 1,
+                resumed_at=prefix_len, sp=False)
         t_first = time.monotonic()
         if self.prefix_cache is not None and chain:
             self.prefix_cache.insert(chain, pages, tokens=req.prompt)
@@ -1381,13 +1473,20 @@ class Engine:
                 self.stats.spec_lookahead_slots += 1
         req.prefix_reused = prefix_len
         slot_idx = self._slots.index(None)
+        # metering: the padded volume from the calls' padded share, the
+        # reference's formula for every prefill path
+        ns = len(suffix)
+        pf = info["padded_frac"]
+        m_padded = int(round(ns / (1.0 - pf))) if 0.0 < pf < 1.0 else ns
         # pos = n - 1: _emit_token advances it to n, the write position
         # of the just-sampled first token
         self._slots[slot_idx] = _Slot(
             req=req, pos=n - 1, generated=0,
             key_seed=req.sampling.seed or seq_id, limit=total,
             page_row=page_row, ctrl=ctrl, la_base=la_base,
-            la_tokens=la_tokens, cn=cn, adapter_row=adapter_row)
+            la_tokens=la_tokens, cn=cn, adapter_row=adapter_row,
+            m_prefill_real=ns, m_prefill_padded=m_padded,
+            m_prefix_reused=prefix_len, m_res_t0=time.monotonic())
         self._mark_admitted(slot_idx)
         if cn is not None:
             # counted at admission (a requeue under page pressure must
@@ -1398,7 +1497,7 @@ class Engine:
         self._emit_token(slot_idx, tok, info["first_lp"])
         first_emit_ms = 1e3 * (time.monotonic() - t_first)
         self.stats.first_emit_ms += first_emit_ms
-        self.phases.observe("first_emit", first_emit_ms)
+        self.phases.observe("first_emit", first_emit_ms, trace_id_of(req))
         return "admitted"
 
     def _copy_page_dev(self, src: int, dst: int) -> None:
@@ -1565,6 +1664,8 @@ class Engine:
         self._dirty_rows.add(i)
         self._cn_dirty.discard(i)
         self.stats.constraint_rollbacks += 1
+        if s.req.trace is not None:
+            s.req.trace.constraint_rollback()
 
     # -- decode ---------------------------------------------------------------
     def _drain_inflight(self) -> None:
@@ -1578,8 +1679,14 @@ class Engine:
             w.ready.synchronize()
         toks = w.sampled.numpy()
         t1 = time.monotonic()
-        self.stats.transfer_ms += 1e3 * (t1 - t0)
-        self.phases.observe("transfer", 1e3 * (t1 - t0))
+        tr_ms = 1e3 * (t1 - t0)
+        self.stats.transfer_ms += tr_ms
+        ex = ""
+        for _i, req in w.members:
+            if req.trace is not None:
+                req.trace.transfer(tr_ms)
+                ex = ex or req.trace.trace_id
+        self.phases.observe("transfer", tr_ms, ex)
         ce = {i: (ep, m) for i, ep, m in w.cn_epochs}
         if w.draft:
             D1 = w.draft + 1
@@ -1670,6 +1777,9 @@ class Engine:
                 if n > 0:
                     proposed[i] = proposed.get(i, 0) + int(props[k, i])
                     live[i] = True
+                    # metered before the emits: a slot finishing in this
+                    # step carries the step's drafts in its record
+                    s.m_spec_drafted += int(props[k, i])
                 emitted = 0
                 for d in range(n):
                     cur = self._slots[i]
@@ -1678,6 +1788,10 @@ class Engine:
                     if cur.cn is not None and not self._cn_verify(
                             i, cur, int(toks[k, i, d]), ce[i][1]):
                         break  # cut here: rolled back
+                    if emitted > 0:
+                        # a landed draft, credited before its emit so a
+                        # finish on it still meters it
+                        cur.m_spec_accepted += 1
                     self._emit_token(i, int(toks[k, i, d]))
                     emitted += 1
                 if emitted > 1:
@@ -1689,6 +1803,9 @@ class Engine:
             if not live.get(i, False) or dl.get(i, 0) <= 0:
                 continue
             self.stats.spec_drafted += proposed.get(i, 0)
+            if req.trace is not None:
+                req.trace.spec_window(proposed.get(i, 0),
+                                      accepted.get(i, 0))
             s = self._slots[i]
             if s is None or s.req is not req or s.ctrl is None:
                 continue
@@ -1867,6 +1984,9 @@ class Engine:
                                  k=k, frees=frees, draft=draft,
                                  draft_lens=draft_lens, cn_epochs=cn_epochs,
                                  moe=moe, lp=lp)
+        for _i, req in members:
+            if req.trace is not None:
+                req.trace.decode_window(k, lean and not draft, draft)
         self.stats.active_slots = sum(s is not None for s in self._slots)
         self._refresh_stats()
         return True
@@ -1883,7 +2003,10 @@ class Engine:
             # request of the port is interactive: no batch tier yet)
             s.first_emit_at = time.monotonic()
             self.phases.observe("ttft",
-                                1e3 * (s.first_emit_at - req.enqueued_at))
+                                1e3 * (s.first_emit_at - req.enqueued_at),
+                                trace_id_of(req))
+            if req.trace is not None:
+                req.trace.first_token()
         finish: str | None = None
         send_tok = tok
         if tok in self.eos:
@@ -1893,6 +2016,10 @@ class Engine:
             s.pos += 1  # where `tok` will be written by the next decode
             if s.generated >= req.max_tokens or s.pos >= self.cfg.max_seq_len:
                 finish = "length"
+        if finish is not None:
+            # the record before the terminal emit: the consumer that
+            # takes the finish item finds it
+            self._meter_finish(s, finish)
         if req.emit_lp is None:
             req.emit(send_tok, finish)
         elif lp is None or send_tok < 0:
@@ -1905,7 +2032,9 @@ class Engine:
                 self.phases.observe(
                     "decode_per_token", 1e3 * (time.monotonic()
                                                - s.first_emit_at)
-                    / (s.generated - 1))
+                    / (s.generated - 1), trace_id_of(req))
+            if req.trace is not None:
+                req.trace.engine_finish(finish)
             self._pending_frees.append(req.id)
             self._release_adapter_row(s.adapter_row)
             self._slots[i] = None
@@ -1915,6 +2044,100 @@ class Engine:
             s.pending_token = tok
             s.token_counts[tok] = s.token_counts.get(tok, 0) + 1
             s.gen_tokens.append(tok)
+
+    # -- usage metering -------------------------------------------------------
+    # One MeterRecord per request lifetime, emitted on the engine thread
+    # before the terminal emit; EngineStats.meter_* move only in
+    # _meter_emit, so a ledger of the records reconciles against /state
+    # token for token.
+
+    def _meter_fold(self, s: _Slot) -> dict:
+        """Slot ``s``'s accumulators as one meter dict (the terminal
+        record adds schema and finish). HBM residency: the slot's pages x
+        kv_page_bytes x seconds since admission."""
+        req = s.req
+        hbm = ((time.monotonic() - s.m_res_t0)
+               * len(self.allocator.pages(req.id)) * self.kv_page_bytes)
+        return {
+            "prefill_real": s.m_prefill_real,
+            "prefill_padded": s.m_prefill_padded,
+            "prefix_reused": s.m_prefix_reused,
+            "decode_tokens": s.generated,
+            "spec_drafted": s.m_spec_drafted,
+            "spec_accepted": s.m_spec_accepted,
+            "hbm_page_byte_s": round(hbm, 6),
+            "host_page_byte_s": 0.0,
+            "segments": 1,
+            "tenant": req.tenant,
+            "priority": req.priority,
+        }
+
+    def _meter_emit(self, rec: dict, sink) -> None:
+        """The one place the meter counters move and a record reaches
+        its sink."""
+        st = self.stats
+        st.meter_records += 1
+        st.meter_prefill_tokens += rec["prefill_real"]
+        st.meter_prefill_padded_tokens += rec["prefill_padded"]
+        st.meter_prefix_reused_tokens += rec["prefix_reused"]
+        st.meter_decode_tokens += rec["decode_tokens"]
+        st.meter_spec_drafted += rec["spec_drafted"]
+        st.meter_spec_accepted += rec["spec_accepted"]
+        st.meter_hbm_page_byte_s = round(
+            st.meter_hbm_page_byte_s + rec["hbm_page_byte_s"], 6)
+        st.meter_host_page_byte_s = round(
+            st.meter_host_page_byte_s + rec["host_page_byte_s"], 6)
+        if sink is not None:
+            sink(rec)
+
+    def _meter_finish(self, s: _Slot, finish: str) -> None:
+        """The terminal record of a live slot (stop, length, cancelled,
+        error)."""
+        rec = self._meter_fold(s)
+        rec["schema"] = 1
+        rec["finish"] = finish
+        self._meter_emit(rec, s.req.meter_sink)
+
+    def _meter_zero(self, req: GenRequest, finish: str) -> None:
+        """The terminal record of a request that never held a slot
+        (cancelled while queued, an unknown adapter, an engine abort)."""
+        self._meter_emit({
+            "schema": 1, "finish": finish, "prefill_real": 0,
+            "prefill_padded": 0, "prefix_reused": 0, "decode_tokens": 0,
+            "spec_drafted": 0, "spec_accepted": 0, "hbm_page_byte_s": 0.0,
+            "host_page_byte_s": 0.0, "segments": 0, "tenant": req.tenant,
+            "priority": req.priority}, req.meter_sink)
+
+    def _refresh_device_stats(self) -> None:
+        """The engine's device: on CUDA its memory (``mem_get_info``),
+        with the KV pool and the weights' bytes; on the CPU the pool and
+        weights only."""
+        st = self.stats
+        if self.device.type == "cuda":
+            free_b, total_b = torch.cuda.mem_get_info(self.device)
+            used = int(total_b - free_b)
+            limit = int(total_b)
+            dev_id = (self.device.index if self.device.index is not None
+                      else torch.cuda.current_device())
+        else:
+            used = limit = dev_id = 0
+        frac = round(used / limit, 4) if limit else 0.0
+        st.device_bytes_in_use = used
+        st.device_bytes_limit = limit
+        st.device_memory_frac = frac
+        st.device_count = 1
+        st.device_memory_frac_worst = frac
+        self.device_stats = [{
+            "id": dev_id,
+            "platform": "gpu" if self.device.type == "cuda" else "cpu",
+            "bytes_in_use": used,
+            "bytes_limit": limit,
+            "memory_frac": frac,
+            "kv_pool_bytes": st.kv_pool_bytes,
+            "kv_bytes_in_use": st.kv_bytes_in_use,
+            "kv_occupancy": round(st.kv_occupancy, 4),
+            "param_bytes": self.param_bytes,
+        }]
 
     def _refresh_stats(self) -> None:
         st = self.stats
@@ -1965,13 +2188,9 @@ class Engine:
         st.kv_pool_bytes = self.cfg.num_pages * self.kv_page_bytes
         st.kv_bytes_in_use = round(st.kv_pool_bytes * st.kv_occupancy)
         now = time.monotonic()
-        if self.device.type == "cuda" and now >= self._mem_next:
+        if now >= self._mem_next:
             self._mem_next = now + 0.5  # a CUDA query: not every tick
-            free_b, total_b = torch.cuda.mem_get_info(self.device)
-            st.device_bytes_in_use = int(total_b - free_b)
-            st.device_bytes_limit = int(total_b)
-            st.device_memory_frac = round(
-                st.device_bytes_in_use / total_b, 4) if total_b else 0.0
+            self._refresh_device_stats()
         try:
             head = self._queue.queue[0]
             st.queue_wait_ms = 1e3 * (now - head.enqueued_at)

@@ -37,17 +37,34 @@ must not silently serve base-model output). ``/v1/models`` lists
 ``<model>:<adapter>`` per registered adapter, and ``/state`` carries the
 picker's adapter keys on every replica, zoo or not.
 
+The operations surface: ``GET /metrics`` (``obs/metrics.py``: the
+engine gauges, the per-device and MoE gauges, the phase histograms with
+trace-id exemplars); ``POST /drain`` (new generations then get 503 with
+``retry-after: 2`` and ``x-aigw-draining: 1`` while live ones finish;
+``{"on": false}`` un-drains; ``/state``'s ``draining``) and ``drain()``,
+which the CLI's signal handling polls; ``GET /debug/requests[/{rid}]``,
+the flight recorder (``obs/flight.py``) of every request, whose
+``RequestTrace`` also feeds the request's span when tracing is on
+(``obs/tracing.py``, the ``OTEL_*`` variables; the caller's
+``traceparent`` or B3 header is the parent, and its trace id is recorded
+even with tracing off); ``GET /debug/profile?seconds=N`` (opt-in), a
+``torch.profiler`` capture written as a Chrome trace. Every response's
+``usage`` carries the engine's MeterRecord as ``aigw_meter``, and
+``/state`` the ``meter_*`` totals.
+
 The server is ``http.server.ThreadingHTTPServer``: one thread per
 connection, each waiting on its request's token queue, which the engine
-thread fills. Embeddings, batches, migration, KV pages, debug and
-profile routes wait for later slices (ROADMAP queue 1).
+thread fills. Embeddings, batches, migration and KV pages wait for later
+slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import queue
+import tempfile
 import threading
 import time
 import uuid
@@ -59,6 +76,9 @@ import torch
 from aigw_tpu_torch.device import device_name, resolve_device
 from aigw_tpu_torch.models.quant import quantize_params
 from aigw_tpu_torch.models.registry import family_fns, get_model_spec
+from aigw_tpu_torch.obs import metrics as obs_metrics
+from aigw_tpu_torch.obs.flight import FlightRecorder, RequestTrace
+from aigw_tpu_torch.obs.tracing import Tracer, genai_attributes
 from aigw_tpu_torch.schemas import openai as oai
 from aigw_tpu_torch.translate.structured import (
     JSONSchemaError,
@@ -88,6 +108,9 @@ _PARAM_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: read into GenRequest.tenant for the engine's fairness guard
 TENANT_HEADER = "x-aigw-tenant"
 
+#: the longest /debug/profile capture window, seconds
+PROFILE_MAX_SECONDS = 30.0
+
 
 def _find_stop(text: str, stop_strs: list[str]) -> int | None:
     """Earliest index where a stop sequence begins, or None."""
@@ -103,10 +126,15 @@ class TPUServeServer:
                  host: str = "127.0.0.1", port: int = 8011,
                  param_dtype: str = "bfloat16", quantize: str = "",
                  lora_adapters: dict[str, dict] | None = None,
-                 lora_slots: int = 0):
+                 lora_slots: int = 0, flight_entries: int = 256,
+                 enable_profile_endpoint: bool = False):
         """``lora_adapters``: name → one adapter's tensors (``[r, in]`` /
         ``[out, r]`` per target), the zoo, of which ``lora_slots`` are
-        resident on the device at a time (0 = one row per adapter)."""
+        resident on the device at a time (0 = one row per adapter).
+        ``flight_entries``: the flight recorder's ring. The
+        ``/debug/profile`` route answers 404 unless
+        ``enable_profile_endpoint``. Tracing follows the ``OTEL_*``
+        environment (service name ``tpuserve`` unless it sets one)."""
         self.device = resolve_device(device)
         self.model_name = model
         spec = get_model_spec(model)
@@ -151,6 +179,17 @@ class TPUServeServer:
                              adapter_store=self.adapter_store)
         self._started_at = time.time()
         self.replica_id = uuid.uuid4().hex[:16]
+        self.tracer = Tracer(
+            service_name=os.environ.get("OTEL_SERVICE_NAME", "")
+            or "tpuserve")
+        self.flight = FlightRecorder(capacity=flight_entries)
+        self.enable_profile = enable_profile_endpoint
+        self._profile_lock = threading.Lock()
+        # when set, new generations are refused with 503 while live ones
+        # finish (POST /drain, or the CLI's SIGTERM/SIGINT)
+        self.draining = False
+        # generation responses in flight: response id → streamed
+        self._live: dict[str, bool] = {}
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self._http_thread: threading.Thread | None = None
@@ -230,9 +269,9 @@ class TPUServeServer:
             "replica_id": self.replica_id,
             "started_at": round(self._started_at, 3),
             "uptime_s": round(time.time() - self._started_at, 3),
-            "draining": False,
+            "draining": self.draining,
             "device": device_name(self.device),
-            "device_count": 1,
+            "device_count": s.device_count,
             "active_slots": s.active_slots,
             "max_slots": cfg.max_batch_size,
             "queued": s.queued,
@@ -290,6 +329,18 @@ class TPUServeServer:
             "spec_rung_ups": s.spec_rung_ups,
             "spec_rung_downs": s.spec_rung_downs,
             "spec_lookahead_slots": s.spec_lookahead_slots,
+            # usage metering: cumulative MeterRecord totals, which the
+            # gateway's usage ledger reconciles its per-tenant sums
+            # against token for token
+            "meter_records": s.meter_records,
+            "meter_prefill_tokens": s.meter_prefill_tokens,
+            "meter_prefill_padded_tokens": s.meter_prefill_padded_tokens,
+            "meter_prefix_reused_tokens": s.meter_prefix_reused_tokens,
+            "meter_decode_tokens": s.meter_decode_tokens,
+            "meter_spec_drafted": s.meter_spec_drafted,
+            "meter_spec_accepted": s.meter_spec_accepted,
+            "meter_hbm_page_byte_s": s.meter_hbm_page_byte_s,
+            "meter_host_page_byte_s": s.meter_host_page_byte_s,
             # grammar-constrained decoding: the flags the gateway merges
             # into /v1/models, live constrained slots, rollbacks (grammar
             # cuts), bias-row patches, the compiled-grammar cache size
@@ -340,6 +391,157 @@ class TPUServeServer:
             # burn-rate monitor computes windowed goodput from them
             "ttft_hist_buckets": eng.phases.hists["ttft"].cumulative(),
         }
+
+    def metrics(self) -> bytes:
+        """The ``/metrics`` exposition, in the reference's order."""
+        eng = self.engine
+        return (obs_metrics.render_genai_families()
+                + obs_metrics.render_engine_gauges(eng.stats)
+                + obs_metrics.render_decode_impl(eng.decode_attn_impl)
+                + obs_metrics.render_device_gauges(eng.device_stats)
+                + obs_metrics.render_moe_gauges(eng.moe_expert_load(),
+                                                eng.moe_layer_drops())
+                + eng.phases.render())
+
+    # -- drain ----------------------------------------------------------------
+    def set_draining(self, on: bool = True) -> dict[str, Any]:
+        """``POST /drain``: flip the flag (new generations then get 503
+        while live ones keep serving) and report what is still live."""
+        self.draining = bool(on)
+        s = self.engine.stats
+        return {"draining": self.draining, "active_slots": s.active_slots,
+                "queued": s.queued,
+                "live_streams": sum(self._live.values())}
+
+    def drained(self) -> bool:
+        """No slot, nothing queued, and no response still writing."""
+        s = self.engine.stats
+        return s.active_slots == 0 and s.queued == 0 and not self._live
+
+    def drain(self, timeout_s: float = 60.0, poll_s: float = 0.1,
+              stop: threading.Event | None = None) -> bool:
+        """Refuse new generations and wait until the replica is empty
+        (``drained``), ``timeout_s`` passes or ``stop`` is set; True when
+        empty. Blocks the caller only: handler threads keep serving."""
+        self.draining = True
+        deadline = time.monotonic() + timeout_s
+        while not self.drained():
+            if time.monotonic() >= deadline or (stop is not None
+                                                and stop.is_set()):
+                break
+            time.sleep(poll_s)
+        return self.drained()
+
+    # -- debug ------------------------------------------------------------------
+    def profile(self, query: str) -> tuple[int, bytes]:
+        """``GET /debug/profile?seconds=N``: a ``torch.profiler`` capture
+        of the next N seconds (at most PROFILE_MAX_SECONDS; CUDA activity
+        on the card, CPU activity on the CPU) written as a Chrome trace
+        into a fresh directory; returns (status, JSON body). 404 unless
+        enabled, 409 while a capture runs, 500 with the reason when the
+        profiler fails."""
+        from urllib.parse import parse_qs
+
+        if not self.enable_profile:
+            return 404, oai.error_body(
+                "profiling endpoint disabled (start tpuserve with "
+                "--enable-profile-endpoint)", "not_found")
+        try:
+            seconds = float(parse_qs(query).get("seconds", ["2"])[0])
+        except ValueError:
+            return 400, oai.error_body("seconds must be a number")
+        seconds = min(max(seconds, 0.1), PROFILE_MAX_SECONDS)
+        if not self._profile_lock.acquire(blocking=False):
+            return 409, oai.error_body(
+                "a profile capture is already running")
+        try:
+            out_dir = tempfile.mkdtemp(prefix="tpuserve-profile-")
+            try:
+                from torch.profiler import ProfilerActivity, profile
+
+                act = (ProfilerActivity.CUDA if self.device.type == "cuda"
+                       else ProfilerActivity.CPU)
+                with profile(activities=[act]) as prof:
+                    time.sleep(seconds)
+                prof.export_chrome_trace(os.path.join(out_dir,
+                                                      "trace.json"))
+            except Exception as e:  # noqa: BLE001 — a profiler fault is
+                # the caller's 500, not a crashed replica
+                return 500, oai.error_body(
+                    f"profiler capture failed: {e}", "server_error")
+        finally:
+            self._profile_lock.release()
+        return 200, json.dumps({"profile_dir": out_dir,
+                                "seconds": seconds}).encode()
+
+    # -- request traces and usage ---------------------------------------------
+    def begin_trace(self, headers: dict[str, str], rid: str, model: str,
+                    prompt: list[int], body: dict[str, Any], stream: bool,
+                    chat: bool) -> RequestTrace:
+        """The request's span (a child of the caller's ``traceparent`` or
+        B3 context) when tracing is on, and its flight entry, which keeps
+        the caller's trace id with tracing off too."""
+        parent = self.tracer.propagators.extract(headers)
+        span = None
+        if self.tracer.enabled:
+            op = "chat" if chat else "text_completion"
+            span = self.tracer.start_span(f"tpuserve.{op} {model}", parent)
+            span.attributes.update(genai_attributes(
+                operation=op, request_model=model,
+                response_model=self.model_name, backend="tpuserve",
+                streaming=stream))
+            span.set("tpuserve.request_id", rid)
+        entry = self.flight.begin(
+            rid, model=model, prompt_tokens=len(prompt),
+            max_tokens=int(body.get("max_completion_tokens")
+                           or body.get("max_tokens") or 256),
+            stream=stream,
+            trace_id=(span.context.trace_id if span is not None
+                      else parent.trace_id if parent is not None else ""),
+            span_id=span.context.span_id if span is not None else "")
+        return RequestTrace(entry=entry, tracer=self.tracer, span=span)
+
+    def end_trace(self, trace: RequestTrace, finish: str, n_out: int,
+                  n_prompt: int = 0, error: str = "") -> None:
+        self.flight.finish(trace.entry, finish, n_out)
+        span = trace.span
+        if span is not None:
+            span.set("gen_ai.usage.input_tokens", n_prompt)
+            span.set("gen_ai.usage.output_tokens", n_out)
+            span.set("tpuserve.finish_reason", finish)
+            if error:
+                span.record_error(error)
+            span.end()
+
+    @staticmethod
+    def usage_from_meter(n_prompt: int, n_out: int,
+                         box: dict[str, Any] | None) -> oai.TokenUsage:
+        """The response's usage: the counts the handler saw, the cached
+        tokens the engine skipped and its MeterRecord (``aigw_meter``).
+        An empty box (a stop-string cancel that ended the response before
+        the engine's reap) gives the plain counts."""
+        if not box:
+            return oai.TokenUsage(n_prompt, n_out, n_prompt + n_out)
+        return oai.TokenUsage(
+            n_prompt, n_out, n_prompt + n_out,
+            cached_input_tokens=int(box.get("prefix_reused", 0) or 0),
+            meter=oai.meter_to_tuple(box))
+
+    @staticmethod
+    def merge_meter_boxes(boxes: list[dict]) -> dict[str, Any]:
+        """The ``n > 1`` fan-out's records summed field by field (each
+        choice is one engine request and one record; identity fields
+        from the first)."""
+        merged: dict[str, Any] = {}
+        for b in boxes:
+            for k, v in b.items():
+                if k == "schema":
+                    merged[k] = v
+                elif isinstance(v, bool) or not isinstance(v, (int, float)):
+                    merged.setdefault(k, v)
+                else:
+                    merged[k] = round(merged.get(k, 0) + v, 6)
+        return merged
 
     def tokenize(self, body: dict[str, Any]) -> dict[str, Any]:
         """The reference's ``/tokenize``: chat ``messages`` through the
@@ -503,14 +705,17 @@ class TPUServeServer:
 
     def submit(self, prompt: list[int], body: dict[str, Any],
                constraint: Any = None, lp_top_n: int = -1,
-               tenant: str = "", sink: Any = None):
-        """Submit to the engine; returns (token queue, request). The queue
-        yields (token_id, finish_reason, lp) items, lp None without
-        logprobs, else (chosen logprob, [(top id, top logprob)]);
-        ``sink`` (a callable taking each item) replaces the queue, which
-        is then None. ``lp_top_n`` is ``check_logprobs``' value (>= 0
-        attaches logprobs); the tenant is the header's, else the
-        adapter. Raises SchemaError for an unknown adapter suffix."""
+               tenant: str = "", sink: Any = None,
+               trace: RequestTrace | None = None):
+        """Submit to the engine; returns (token queue, request, meter
+        box). The queue yields (token_id, finish_reason, lp) items, lp
+        None without logprobs, else (chosen logprob, [(top id, top
+        logprob)]); ``sink`` (a callable taking each item) replaces the
+        queue, which is then None. ``lp_top_n`` is ``check_logprobs``'
+        value (>= 0 attaches logprobs); the tenant is the header's, else
+        the adapter. The box is a dict the engine fills with the
+        request's MeterRecord before its finish item. Raises SchemaError
+        for an unknown adapter suffix."""
         adapter = self._resolve_adapter(str(body.get("model", "")))
         out: queue.Queue | None = queue.Queue() if sink is None else None
         put = out.put if sink is None else sink
@@ -520,14 +725,16 @@ class TPUServeServer:
         def emit_lp(tok, fin, chosen, top) -> None:
             put((tok, fin, None if chosen is None else (chosen, top)))
 
+        box: dict[str, Any] = {}
         req = GenRequest(prompt=prompt, max_tokens=max_tokens,
                          sampling=SamplingParams.from_request(body),
                          emit=lambda t, f: put((t, f, None)),
                          emit_lp=emit_lp if lp_top_n >= 0 else None,
                          constraint=constraint, adapter=adapter,
-                         tenant=tenant or adapter)
+                         tenant=tenant or adapter, trace=trace,
+                         meter_sink=box.update)
         self.engine.submit(req)
-        return out, req
+        return out, req, box
 
     def submit_n(self, prompt: list[int], body: dict[str, Any], n: int,
                  constraint: Any = None, lp_top_n: int = -1,
@@ -536,8 +743,8 @@ class TPUServeServer:
         """``n`` engine requests, one per choice (the reference's
         ``_submit_n``): choice i samples with seed ``(seed or 0) + i``
         when a seed is given or the temperature is above 0, else 0.
-        Returns [(queue, request)]; with ``merged``, choice i's items go
-        there as (i, item) and its queue is None. A refusal (overload,
+        Returns [(queue, request, meter box)]; with ``merged``, choice
+        i's items go there as (i, item) and its queue is None. A refusal (overload,
         an unknown adapter, bad sampling) cancels the choices already
         queued and raises."""
         sampling = SamplingParams.from_request(body)
@@ -553,7 +760,7 @@ class TPUServeServer:
                 outs.append(self.submit(prompt, per_choice, constraint,
                                         lp_top_n, tenant, sink))
         except (EngineOverloadedError, ValueError):
-            for _q, req in outs:  # no orphaned choices in the queue
+            for _q, req, _b in outs:  # no orphaned choices in the queue
                 req.cancelled.set()
             raise
         return outs
@@ -634,25 +841,59 @@ def _make_handler(server: TPUServeServer):
             self._send(status, oai.error_body(msg, type_), headers=headers)
 
         def do_GET(self):  # noqa: N802 (http.server naming)
-            path = self.path.split("?", 1)[0]
+            path, _, query = self.path.partition("?")
+            srv = self.srv
             if path == "/v1/models":
-                self._json(200, self.srv.models())
+                self._json(200, srv.models())
             elif path == "/health":
-                self._json(*self.srv.health())
+                self._json(*srv.health())
             elif path == "/state":
-                self._json(200, self.srv.state())
+                self._json(200, srv.state())
+            elif path == "/metrics":
+                self._send(200, srv.metrics(),
+                           "text/plain; version=0.0.4; charset=utf-8")
+            elif path == "/debug/requests":
+                self._json(200, srv.flight.snapshot())
+            elif path.startswith("/debug/requests/"):
+                entry = srv.flight.get(path[len("/debug/requests/"):])
+                if entry is None:
+                    self._error(404, "unknown request id", "not_found")
+                else:
+                    self._json(200, entry.detail())
+            elif path == "/debug/profile":
+                self._send(*srv.profile(query))
             else:
                 self._error(404, f"no route {path}", "not_found")
 
         def do_POST(self):  # noqa: N802
             path = self.path.split("?", 1)[0]
             chat = path == "/v1/chat/completions"
-            if not chat and path not in ("/v1/completions", "/tokenize"):
+            if not chat and path not in ("/v1/completions", "/tokenize",
+                                         "/drain"):
                 self._error(404, f"no route {path}", "not_found")
                 return
             length = int(self.headers.get("content-length") or 0)
+            raw = self.rfile.read(length)
+            if path == "/drain":
+                try:
+                    body = oai.parse_json_body(raw) if raw.strip() else {}
+                except oai.SchemaError as e:
+                    self._error(400, str(e))
+                    return
+                self._json(200, self.srv.set_draining(
+                    bool(body.get("on", True))))
+                return
+            if path != "/tokenize" and self.srv.draining:
+                # no new generation on a draining replica: the gateway
+                # retries a sibling before the first byte
+                self._error(503, "replica is draining (shutting down or "
+                            "being retired); retry against another "
+                            "replica", "server_error",
+                            headers={"retry-after": "2",
+                                     "x-aigw-draining": "1"})
+                return
             try:
-                body = oai.parse_json_body(self.rfile.read(length))
+                body = oai.parse_json_body(raw)
                 if path == "/tokenize":
                     self._json(200, self.srv.tokenize(body))
                     return
@@ -675,31 +916,52 @@ def _make_handler(server: TPUServeServer):
             stop_strs = [stops] if isinstance(stops, str) \
                 else list(stops or [])
             tenant = self.headers.get(TENANT_HEADER, "")
+            srv._live[rid] = stream
+            try:
+                self._serve_generation(body, prompt, chat, lp_top_n, n,
+                                    constraint, cmode, stream, rid,
+                                    created, stop_strs, tenant)
+            finally:
+                srv._live.pop(rid, None)
+
+        def _serve_generation(self, body, prompt, chat, lp_top_n, n,
+                           constraint, cmode, stream, rid, created,
+                           stop_strs, tenant):
+            srv = self.srv
             merged: queue.Queue | None = \
                 queue.Queue() if n > 1 and stream else None
+            n_prompt = len(prompt)
+            trace = None
+            if n == 1:
+                trace = srv.begin_trace(
+                    {k.lower(): v for k, v in self.headers.items()}, rid,
+                    str(body.get("model", srv.model_name)), prompt, body,
+                    stream, chat)
             try:
                 if n > 1:
                     outs = srv.submit_n(prompt, body, n, constraint,
                                         lp_top_n, tenant, merged)
                 else:
-                    out, req = srv.submit(prompt, body, constraint,
-                                          lp_top_n, tenant)
-            except EngineOverloadedError as e:
-                self._error(429, str(e), "rate_limit_error",
-                            headers={"retry-after": "1"})
+                    out, req, box = srv.submit(prompt, body, constraint,
+                                               lp_top_n, tenant,
+                                               trace=trace)
+            except (EngineOverloadedError, ValueError) as e:
+                if trace is not None:
+                    srv.end_trace(trace, "rejected", 0, n_prompt,
+                                  error=str(e))
+                if isinstance(e, EngineOverloadedError):
+                    self._error(429, str(e), "rate_limit_error",
+                                headers={"retry-after": "1"})
+                elif isinstance(e, oai.SchemaError):  # an unknown adapter
+                    self._error(404, str(e), "model_not_found")
+                else:
+                    self._error(400, str(e))
                 return
-            except oai.SchemaError as e:  # an unknown adapter
-                self._error(404, str(e), "model_not_found")
-                return
-            except ValueError as e:
-                self._error(400, str(e))
-                return
-            n_prompt = len(prompt)
             if n > 1:
-                reqs = [r for _q, r in outs]
+                reqs = [r for _q, r, _b in outs]
                 try:
                     if stream:
-                        self._stream_n(merged, reqs, chat, rid, created,
+                        self._stream_n(merged, outs, chat, rid, created,
                                        stop_strs, n_prompt, lp_top_n,
                                        oai.include_stream_usage(body))
                     else:
@@ -716,11 +978,13 @@ def _make_handler(server: TPUServeServer):
                 # a stop-string hit ends generation (a no-op once the
                 # engine has finished the request itself)
                 req.cancelled.set()
+                usage = srv.usage_from_meter(n_prompt, n_out, box)
+                srv.end_trace(trace, finish, n_out, n_prompt,
+                              error="engine failure" if finish == "error"
+                              else "")
                 if finish == "error":
                     self._error(500, "engine failure", "server_error")
                     return
-                usage = oai.TokenUsage(n_prompt, n_out, n_prompt + n_out,
-                                       req.prefix_reused)
                 tool_calls = None
                 if cmode is not None and cmode["mode"] == "tool":
                     env = constrain.parse_tool_envelope(text, cmode["names"])
@@ -756,11 +1020,13 @@ def _make_handler(server: TPUServeServer):
                 self._json(200, resp, headers={"x-aigw-request-id": rid})
                 return
             try:
-                self._stream(out, req, chat, rid, created, stop_strs,
-                             n_prompt, oai.include_stream_usage(body), cmode,
+                self._stream(out, req, box, trace, chat, rid, created,
+                             stop_strs, n_prompt,
+                             oai.include_stream_usage(body), cmode,
                              lp_top_n)
             except (BrokenPipeError, ConnectionResetError):
                 req.cancelled.set()  # client went away: free the slot
+                srv.end_trace(trace, "cancelled", 0, n_prompt)
                 self.close_connection = True
 
         def _respond_n(self, outs, chat, rid, created, stop_strs, n_prompt,
@@ -771,12 +1037,11 @@ def _make_handler(server: TPUServeServer):
             tokens."""
             srv = self.srv
             results = []
-            for q, req in outs:
+            for q, req, _b in outs:
                 results.append(srv.collect(q, stop_strs, lp_top_n))
                 req.cancelled.set()  # a stop-string hit ends the choice
             n_out = sum(r[1] for r in results)
-            usage = oai.TokenUsage(n_prompt, n_out, n_prompt + n_out,
-                                   sum(r.prefix_reused for _q, r in outs))
+            usage = self._usage_n(outs, n_prompt, n_out)
             choices = []
             for i, (text, _n, finish, lp_content) in enumerate(results):
                 if chat:
@@ -825,7 +1090,17 @@ def _make_handler(server: TPUServeServer):
                 logprobs=srv.legacy_logprobs(lp_entries) if lp_entries
                 else None)
 
-        def _stream_n(self, merged, reqs, chat, rid, created, stop_strs,
+        def _usage_n(self, outs, n_prompt, n_out):
+            """One usage for the ``n`` choices: the prompt once, the
+            completions summed, the choices' records summed."""
+            merged = self.srv.merge_meter_boxes([b for _q, _r, b in outs])
+            return oai.TokenUsage(
+                n_prompt, n_out, n_prompt + n_out,
+                cached_input_tokens=int(merged.get("prefix_reused", 0)
+                                        or 0),
+                meter=oai.meter_to_tuple(merged) if merged else ())
+
+        def _stream_n(self, merged, outs, chat, rid, created, stop_strs,
                       n_prompt, lp_top_n, include_usage):
             """The streamed ``n > 1`` reply (the reference's
             ``_generate_n_stream``): the choices' items arrive on one
@@ -833,6 +1108,7 @@ def _make_handler(server: TPUServeServer):
             moved, then one finish frame per choice, usage when asked
             for, one ``[DONE]``."""
             srv = self.srv
+            reqs = [r for _q, r, _b in outs]
             n = len(reqs)
             self._start_sse(rid)
             w = self.wfile
@@ -899,9 +1175,7 @@ def _make_handler(server: TPUServeServer):
                                             index=i))
                 w.flush()
             if include_usage:
-                n_out = sum(counts)
-                usage = oai.TokenUsage(n_prompt, n_out, n_prompt + n_out,
-                                       sum(r.prefix_reused for r in reqs))
+                usage = self._usage_n(outs, n_prompt, sum(counts))
                 if chat:
                     w.write(oai.stream_chunk_sse(
                         response_id=rid, model=srv.model_name,
@@ -913,8 +1187,8 @@ def _make_handler(server: TPUServeServer):
             w.write(oai.sse("[DONE]"))
             w.flush()
 
-        def _stream(self, out, req, chat, rid, created, stop_strs,
-                    n_prompt, include_usage, cmode, lp_top_n):
+        def _stream(self, out, req, box, trace, chat, rid, created,
+                    stop_strs, n_prompt, include_usage, cmode, lp_top_n):
             srv = self.srv
             self._start_sse(rid)
             want_lp = lp_top_n >= 0
@@ -1027,9 +1301,10 @@ def _make_handler(server: TPUServeServer):
             if tool_stream is not None and tool_stream.completed \
                     and finish == "stop":
                 finish = "tool_calls"
-            usage = (oai.TokenUsage(n_prompt, n_out, n_prompt + n_out,
-                                    req.prefix_reused)
-                     if include_usage else None)
+            usage = srv.usage_from_meter(n_prompt, n_out, box)
+            srv.end_trace(trace, finish, n_out, n_prompt)
+            if not include_usage:
+                usage = None
             if chat:
                 tail = oai.stream_chunk_sse(
                     response_id=rid, model=srv.model_name, created=created,

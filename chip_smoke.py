@@ -112,6 +112,27 @@ Phases (any failure exits non-zero):
    flip only at a recomputed top-2 gap under that bound; the tenant cap
    held at every poll, deferrals counted, ``ttft_hist_buckets``' +Inf
    count the sub-burst's 8 requests;
+   the operations surface (the ``serve_ops`` line, after
+   ``serve_logprobs``; launch counts zeroed before it, read after it):
+   bf16, the fused rung, the prefix cache on, tracing on with the
+   OTLP/HTTP exporter posting to a trace sink inside this script and a
+   ``traceparent`` on every request. The burst with ``/metrics``
+   scraped before, during and after it (every scrape parsed line by
+   line, its families exactly the port's ``metric_families()``, a live
+   slot seen during the burst, the TTFT buckets equal to ``/state``'s
+   ``ttft_hist_buckets``, exemplars among the sent trace ids), the
+   flight recorder's entries (trace id, tokens, admission, prefill and
+   first token), each request's span in the sink with its ``gen_ai.*``
+   attributes, and every reply's ``usage.aigw_meter`` reconciled with
+   its usage and ``/state``'s ``meter_*`` deltas; the burst again with
+   ``POST /drain`` once it decodes (new chat, completion and ``n = 2``
+   requests 503 with ``retry-after: 2`` and ``x-aigw-draining: 1``,
+   live ones 200 and whole, K2 launching after the drain, then
+   ``{"on": false}``); ``/debug/profile`` around the burst (K1's and
+   K2's kernels in the Chrome trace, its K2 events the K2 counter's
+   delta, a second capture 409); the chained rung at a fixed draft
+   width of 4 (the records' accepted drafts equal ``/state``'s, K3 and
+   K5); the warm burst traced beside ``serve``'s (reported);
 5. every kernel against its plain PyTorch version on the card at the
    served shapes (each attention output element within 2**-7 of the
    plain output plus 2e-3, printed beside the mean |output|; K2's and
@@ -194,8 +215,8 @@ Phases (any failure exits non-zero):
    K6 at Mixtral's lm_head shape (4096 x 32000) is on the
    ``qmatmul_shapes`` line;
 8. the ``kernels`` JSON line (each row also carries its launches on
-   ``serve_moe``, on ``serve_lora`` and on ``serve_logprobs``), the
-   card line, then the last line
+   ``serve_moe``, on ``serve_lora``, on ``serve_logprobs`` and on
+   ``serve_ops``), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -3389,6 +3410,537 @@ def serve_lora(torch, srv, params, qparams, reqs, launches: dict,
     print(json.dumps({"serve_lora": out}), flush=True)
 
 
+# -- the operations surface (serve_ops) ---------------------------------------
+class OtlpSink:
+    """A local OTLP/HTTP trace collector on the standard library: the
+    port's exporter posts protobuf ``ExportTraceServiceRequest`` bodies
+    to ``/v1/traces``; ``spans()`` reads them back with the port's
+    ``otlp_proto`` decoder."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        posts = self.posts = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):  # noqa: N802
+                n = int(self.headers.get("content-length") or 0)
+                posts.append((self.path, self.headers.get("content-type"),
+                              self.rfile.read(n)))
+                self.send_response(200)
+                self.send_header("content-length", "0")
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+
+    @property
+    def endpoint(self) -> str:
+        return f"http://127.0.0.1:{self.httpd.server_address[1]}"
+
+    def spans(self) -> list[dict]:
+        from aigw_tpu_torch.obs.otlp_proto import decode_message as dm
+
+        out = []
+        for path, ctype, raw in list(self.posts):
+            if path != "/v1/traces" or ctype != "application/x-protobuf":
+                raise AssertionError(f"the exporter posted {ctype} to "
+                                     f"{path}")
+            for rs in dm(raw).get(1, []):
+                for ss in dm(rs).get(2, []):
+                    for sp in dm(ss).get(2, []):
+                        f = dm(sp)
+                        out.append({
+                            "name": f[5][0].decode(),
+                            "trace_id": f[1][0].hex(),
+                            "span_id": f[2][0].hex(),
+                            "parent": f.get(4, [b""])[0].hex(),
+                            "attrs": {dm(kv)[1][0].decode()
+                                      for kv in f.get(9, [])}})
+        return out
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def _ops_call(port: int, kind: str, stream: bool, body: dict,
+              headers: dict | None = None) -> dict:
+    """One generation: status and headers; for a 200 its tokens, finish,
+    usage (a stream's usage frame) and response id."""
+    path = "/v1/chat/completions" if kind == "chat" else "/v1/completions"
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"content-type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, hdrs, raw = r.status, dict(r.headers), r.read().decode()
+    except urllib.error.HTTPError as e:
+        return {"status": e.code, "headers": dict(e.headers),
+                "body": e.read().decode()}
+    out = _check_response(kind, stream, status, hdrs.get("content-type", ""),
+                          raw)
+    if stream:
+        frames = [json.loads(ln[6:]) for ln in raw.split("\n")
+                  if ln.startswith("data: ") and ln[6:] != "[DONE]"]
+        out["usage"] = [f["usage"] for f in frames if f.get("usage")][-1]
+    else:
+        out["usage"] = json.loads(raw)["usage"]
+    out.update(status=status, headers=hdrs,
+               rid=hdrs.get("x-aigw-request-id", ""))
+    return out
+
+
+def _ops_burst(port: int, reqs, trace_ids=None) -> list[dict]:
+    """The burst concurrently, request i under ``traceparent`` trace id
+    ``trace_ids[i]``; every reply 200 with its whole length."""
+    results: list = [None] * len(reqs)
+
+    def one(i):
+        kind, stream, body = reqs[i]
+        headers = ({"traceparent": f"00-{trace_ids[i]}-{i + 1:016x}-01"}
+                   if trace_ids else None)
+        try:
+            results[i] = _ops_call(port, kind, stream, body, headers)
+        except Exception as e:  # noqa: BLE001 — reported below, fails run
+            results[i] = e
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    for i, r in enumerate(results):
+        if not isinstance(r, dict) or r["status"] != 200:
+            raise AssertionError(f"ops request {i} failed: {r!r}")
+        if r["n"] != reqs[i][2]["max_tokens"] and r["finish"] != "stop":
+            raise AssertionError(f"ops request {i}: {r}")
+    return results
+
+
+def _gauge(text: str, name: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"/metrics has no {name}")
+
+
+def _meter_gates(results, before: dict, after: dict, prompt_lens) -> dict:
+    """Every reply carries its MeterRecord: decode tokens sum to the
+    completion tokens, prefill plus reuse to the prompt tokens, each
+    residency is positive, and ``/state``'s ``meter_*`` deltas are the
+    records' sums."""
+    meters = []
+    for r, n_prompt in zip(results, prompt_lens):
+        m = r["usage"].get("aigw_meter")
+        if not m:
+            raise AssertionError(f"a reply without aigw_meter: {r['usage']}")
+        if r["usage"]["prompt_tokens"] != n_prompt or m["segments"] != 1 \
+                or m["hbm_page_byte_s"] <= 0:
+            raise AssertionError(f"meter record {m} for usage {r['usage']}")
+        meters.append(m)
+    sums = {f: sum(m[f] for m in meters)
+            for f in ("prefill_real", "prefill_padded", "prefix_reused",
+                      "decode_tokens", "spec_drafted", "spec_accepted")}
+    if sums["decode_tokens"] != sum(r["usage"]["completion_tokens"]
+                                    for r in results) \
+            or sums["prefill_real"] + sums["prefix_reused"] \
+            != sum(r["usage"]["prompt_tokens"] for r in results):
+        raise AssertionError(f"meter sums {sums} against the usages")
+    deltas = {f: after[k] - before[k] for f, k in (
+        ("records", "meter_records"),
+        ("prefill_real", "meter_prefill_tokens"),
+        ("prefill_padded", "meter_prefill_padded_tokens"),
+        ("prefix_reused", "meter_prefix_reused_tokens"),
+        ("decode_tokens", "meter_decode_tokens"),
+        ("spec_drafted", "meter_spec_drafted"),
+        ("spec_accepted", "meter_spec_accepted"))}
+    hbm = after["meter_hbm_page_byte_s"] - before["meter_hbm_page_byte_s"]
+    want = {**sums, "records": len(meters)}
+    if deltas != want or abs(hbm - sum(m["hbm_page_byte_s"]
+                                       for m in meters)) > 1e-3:
+        raise AssertionError(f"/state meter deltas {deltas}, hbm {hbm}, "
+                             f"against the records' sums {want}")
+    return {**sums, "records": len(meters),
+            "hbm_page_byte_s": sum(m["hbm_page_byte_s"] for m in meters)}
+
+
+#: the profile capture's window, s (the burst inside it takes ~2-4)
+OPS_PROFILE_S = 20.0
+
+
+def serve_ops(torch, srv, params, reqs, launches: dict,
+              serve_warm_s: float, dev: str = "cuda") -> dict:
+    """The replica's operations surface at full depth (32 layers, bf16
+    weights and pool, 8 slots x 2048, the prefix cache on, the fused
+    rung), tracing on with the OTLP/HTTP exporter posting to a local
+    sink and every request carrying a ``traceparent``:
+
+    - the burst with ``/metrics`` scraped before, during and after it:
+      every scrape parses and declares exactly ``metric_families()``;
+      ``tpuserve_active_slots`` above 0 in a scrape during the burst; the
+      TTFT histogram's buckets equal ``/state``'s ``ttft_hist_buckets``
+      and its exemplars name trace ids that were sent;
+      ``/debug/requests`` lists the 8 with their trace ids and token
+      counts, each detail with its admission, prefill and first token;
+      the sink holds each request's span with its ``gen_ai.*``
+      attributes and its engine children; every reply's
+      ``usage.aigw_meter`` reconciles with the usage and ``/state``;
+    - the burst again with ``POST /drain`` once it decodes: new
+      chat, completion and ``n = 2`` requests 503 with ``retry-after: 2``
+      and ``x-aigw-draining: 1``, every live request 200 and whole, K2
+      launching after the drain, ``/state`` draining and empty, then
+      ``{"on": false}`` serving again;
+    - ``/debug/profile`` over the burst sent wholly inside its window
+      (its flight entries between the capture's request and reply): the
+      Chrome trace names K1's and K2's kernels, its K2 events equal the
+      K2 counter's delta, and a second capture gets 409;
+    - the chained rung at a fixed draft width of 4 (two pinned requests
+      and a sampled one): the records' ``spec_accepted`` sum equals
+      ``/state``'s delta, K3 and K5 launch;
+    - the exporter's cost, before the profile: the warm burst with the
+      cache off (as ``serve``'s), untraced and traced in turns
+      (untraced, traced, traced, untraced; reported beside ``serve``'s
+      warm burst).
+
+    Launches go into ``launches`` under ``serve_ops``."""
+    import shutil
+
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.obs.flight import FlightRecorder
+    from aigw_tpu_torch.obs.metrics import metric_families, parse_exposition
+    from aigw_tpu_torch.obs.tracing import Tracer
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    t_phase = time.monotonic()
+    fams = metric_families()
+    out: dict = {}
+    prompt_lens = served_prompt_lens(reqs)
+    sink = OtlpSink()
+    os.environ["OTEL_EXPORTER_OTLP_ENDPOINT"] = sink.endpoint
+    os.environ["OTEL_EXPORTER_OTLP_PROTOCOL"] = "http/protobuf"
+    srv.tracer = Tracer(exporter="otlp", service_name="tpuserve")
+    srv.flight = FlightRecorder(capacity=256)
+    srv.enable_profile = True
+
+    def start(**engine_kw):
+        srv.engine.stop()
+        srv.engine = Engine(params, llama.LLAMA3_8B, EngineConfig(**{
+            **dict(max_batch_size=8, max_seq_len=2048, page_size=128,
+                   attention_backend="pallas-ragged",
+                   decode_backend="fused"), **engine_kw}),
+            eos_token_ids=(srv.tokenizer.eos_id,), device=dev)
+        srv.engine.warmup()
+        srv.engine.start()
+
+    def state() -> dict:
+        return json.loads(_http(srv.port, "/state")[2])
+
+    def scrape() -> str:
+        status, ctype, text = _http(srv.port, "/metrics")
+        got = parse_exposition(text)
+        if status != 200 or not ctype.startswith("text/plain") \
+                or set(got) != fams:
+            raise AssertionError(
+                f"/metrics families: missing {sorted(fams - set(got))}, "
+                f"extra {sorted(set(got) - fams)}")
+        return text
+
+    try:
+        reset_counts()
+        start()
+        # 1. the burst, scraped before, during and after
+        ids = [f"{0x0A16C0DE00000000 + i:032x}" for i in range(len(reqs))]
+        st0 = state()
+        scrape()
+        during: list = []
+        errors: list = []
+        stop = threading.Event()
+
+        def scraper():
+            while not stop.is_set():
+                try:
+                    during.append(_gauge(scrape(), "tpuserve_active_slots"))
+                except Exception as e:  # noqa: BLE001 — raised below
+                    errors.append(e)
+                    return
+                time.sleep(0.05)
+
+        th = threading.Thread(target=scraper)
+        th.start()
+        try:
+            t = time.monotonic()
+            res_a = _ops_burst(srv.port, reqs, ids)
+            out["burst_s"] = time.monotonic() - t
+        finally:
+            stop.set()
+            th.join()
+        if errors:
+            raise errors[0]
+        st1 = _wait_idle(srv)
+        text = scrape()
+        if not during or max(during) <= 0:
+            raise AssertionError(f"no scrape saw a live slot: {during}")
+        buckets, exemplars = {}, []
+        for line in text.splitlines():
+            if line.startswith("tpuserve_ttft_hist_ms_bucket{"):
+                le = line.split('le="', 1)[1].split('"', 1)[0]
+                buckets[le] = int(line.split("}", 1)[1].split()[0])
+                if "# {trace_id=" in line:
+                    exemplars.append(line.split('trace_id="')[1][:32])
+        if buckets != st1["ttft_hist_buckets"] \
+                or buckets["+Inf"] != len(reqs):
+            raise AssertionError(f"TTFT buckets {buckets} against /state "
+                                 f"{st1['ttft_hist_buckets']}")
+        if not exemplars or not set(exemplars) <= set(ids):
+            raise AssertionError(f"TTFT exemplars {exemplars} not among "
+                                 f"the sent trace ids")
+        snap = json.loads(_http(srv.port, "/debug/requests")[2])
+        recent = {e["id"]: e for e in snap["recent"]}
+        for r, tid in zip(res_a, ids):
+            e = recent.get(r["rid"])
+            if e is None or e["trace_id"] != tid \
+                    or e["tokens_out"] != r["usage"]["completion_tokens"]:
+                raise AssertionError(f"flight entry {e} for {r['rid']}")
+            d = json.loads(_http(srv.port,
+                                 f"/debug/requests/{r['rid']}")[2])
+            names = [ev["name"] for ev in d["events"]]
+            if "admission" not in names or "first_token" not in names \
+                    or d["prefill_ms"] < 0 or d["ttft_ms"] < 0:
+                raise AssertionError(f"flight detail {d}")
+        deadline = time.monotonic() + 30
+        while True:
+            spans = sink.spans()
+            roots = {s["trace_id"]: s for s in spans
+                     if s["name"].startswith("tpuserve.")}
+            if set(ids) <= set(roots) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        want_attrs = {"gen_ai.operation.name", "gen_ai.request.model",
+                      "gen_ai.response.model", "gen_ai.provider.name",
+                      "gen_ai.usage.input_tokens",
+                      "gen_ai.usage.output_tokens"}
+        for tid in ids:
+            root = roots.get(tid)
+            kids = {s["name"] for s in spans if root is not None
+                    and s["parent"] == root["span_id"]}
+            if root is None or not want_attrs <= root["attrs"] \
+                    or not {"engine.queue_wait", "engine.prefill"} <= kids:
+                raise AssertionError(f"span of trace {tid}: {root}, "
+                                     f"children {kids}")
+        out["spans_received"] = len(spans)
+        out["scrapes_during"] = len(during)
+        out["active_slots_peak_scraped"] = max(during)
+        out["ttft_exemplars"] = len(exemplars)
+        out["meter"] = _meter_gates(res_a, st0, st1, prompt_lens)
+        k_a = read_counts()
+
+        # 2. the burst again, drained once it decodes
+        results_b: list = [None] * len(reqs)
+
+        def one_b(i):
+            results_b[i] = _ops_call(srv.port, *reqs[i])
+
+        tok0 = srv.engine.stats.tokens_generated
+        threads = [threading.Thread(target=one_b, args=(i,))
+                   for i in range(len(reqs))]
+        for t_ in threads:
+            t_.start()
+        deadline = time.monotonic() + 120
+        while srv.engine.stats.tokens_generated < tok0 + 3 * len(reqs) \
+                and time.monotonic() < deadline:
+            time.sleep(0.005)
+        k2_at = read_counts()["fused_paged_decode"]
+        status, _ct, body = _http(srv.port, "/drain", {})
+        reply = json.loads(body)
+        refused = [_ops_call(srv.port, "chat", False, {
+            "model": "llama-3-8b-random", "max_tokens": 4,
+            "messages": [{"role": "user", "content": "late"}]}),
+            _ops_call(srv.port, "completion", True, {
+                "model": "llama-3-8b-random", "prompt": "late",
+                "max_tokens": 4, "stream": True}),
+            _ops_call(srv.port, "chat", False, {
+                "model": "llama-3-8b-random", "max_tokens": 4, "n": 2,
+                "temperature": 0.5,
+                "messages": [{"role": "user", "content": "late"}]})]
+        st_d = state()
+        for t_ in threads:
+            t_.join(timeout=900)
+        k2_end = read_counts()["fused_paged_decode"]
+        for r in refused:
+            if r["status"] != 503 or r["headers"].get("retry-after") != "2" \
+                    or r["headers"].get("x-aigw-draining") != "1":
+                raise AssertionError(f"a request during the drain: {r}")
+        for i, r in enumerate(results_b):
+            if not isinstance(r, dict) or r["status"] != 200 or (
+                    r["n"] != reqs[i][2]["max_tokens"]
+                    and r["finish"] != "stop"):
+                raise AssertionError(f"live request {i} under the drain: "
+                                     f"{r}")
+        st_e = _wait_idle(srv)
+        if status != 200 or not reply["draining"] \
+                or reply["active_slots"] + reply["queued"] <= 0 \
+                or not st_d["draining"] or not st_e["draining"] \
+                or st_e["active_slots"] or st_e["queued"] \
+                or k2_end - k2_at <= 0:
+            raise AssertionError(f"drain: reply {reply}, K2 {k2_at} -> "
+                                 f"{k2_end}, /state {st_e}")
+        undrain = json.loads(_http(srv.port, "/drain", {"on": False})[2])
+        after = _ops_call(srv.port, *_pinned_requests(1)[0])
+        if undrain["draining"] or after["status"] != 200:
+            raise AssertionError(f"un-drain: {undrain}, {after}")
+        out["drain"] = {"reply": reply, "refused": len(refused),
+                        "k2_after_drain": k2_end - k2_at}
+
+        # 3. the exporter's cost: the warm burst with the cache off (as
+        # serve's), untraced and traced in turns (the recorder is on in
+        # both, as it always is)
+        start(enable_prefix_cache=False)
+        serve_phase(srv.port, reqs)
+        tracer = srv.tracer
+        turns = {"untraced": [], "traced": []}
+        for arm in ("untraced", "traced", "traced", "untraced"):
+            srv.tracer = tracer if arm == "traced" \
+                else Tracer(exporter="none")
+            t = time.monotonic()
+            serve_phase(srv.port, reqs)
+            turns[arm].append(time.monotonic() - t)
+        srv.tracer = tracer
+        out["warm_s"] = turns
+        out["warm_s_serve"] = serve_warm_s
+        out["traced_over_untraced"] = (sum(turns["traced"])
+                                       / sum(turns["untraced"]))
+
+        # 4. a profile over the burst sent inside its window
+        _wait_idle(srv)
+        prof: dict = {}
+        t_req = time.time()
+        t_req_m = time.monotonic()
+
+        def capture():
+            try:
+                prof["r"] = _http(srv.port, f"/debug/profile?seconds="
+                                            f"{OPS_PROFILE_S}")
+            except urllib.error.HTTPError as e:
+                prof["r"] = (e.code, "", e.read().decode())
+
+        th = threading.Thread(target=capture)
+        th.start()
+        # the profiler's first start in a process (CUPTI's set-up) takes
+        # seconds: the burst goes once it is recording
+        from torch.autograd import profiler as autograd_profiler
+
+        deadline = time.monotonic() + 60
+        while not autograd_profiler._is_profiler_enabled \
+                and "r" not in prof:
+            if time.monotonic() > deadline:
+                raise AssertionError("the profile capture did not start")
+            time.sleep(0.01)
+        t_on = time.monotonic() - t_req_m
+        time.sleep(0.5)
+        try:
+            _http(srv.port, "/debug/profile?seconds=1")
+            busy = 200
+        except urllib.error.HTTPError as e:
+            busy = e.code
+        c_b = read_counts()
+        t = time.monotonic()
+        res_p = _ops_burst(srv.port, reqs)
+        burst_p_s = time.monotonic() - t
+        c_p = read_counts()
+        # the window was still open when the burst ended
+        inside = autograd_profiler._is_profiler_enabled
+        th.join(timeout=OPS_PROFILE_S + 300)
+        t_resp = time.time()
+        c_q = read_counts()
+        status, _ct, body = prof["r"]
+        if status != 200:
+            raise AssertionError(f"/debug/profile: {status} {body}")
+        pinfo = json.loads(body)
+        trace_path = os.path.join(pinfo["profile_dir"], "trace.json")
+        with open(trace_path) as fh:
+            events = json.load(fh)["traceEvents"]
+        shutil.rmtree(pinfo["profile_dir"])
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        n_k1 = sum("ragged_prefill_tc_kernel" in k for k in kernels)
+        n_k2 = sum("fused_decode_kernel" in k for k in kernels)
+        d_k2 = c_p["fused_paged_decode"] - c_b["fused_paged_decode"]
+        snap = json.loads(_http(srv.port, "/debug/requests")[2])
+        recent = {e["id"]: e for e in snap["recent"]}
+        inside = inside and all(
+            t_req <= recent[r["rid"]]["ts"]
+            and recent[r["rid"]]["ts"] + recent[r["rid"]]["total_ms"] / 1e3
+            <= t_resp for r in res_p)
+        out["profile"] = {
+            "seconds": pinfo["seconds"], "trace_events": len(events),
+            "kernel_events": len(kernels), "k1_events": n_k1,
+            "k2_events": n_k2, "k2_launches": d_k2,
+            "second_capture_status": busy, "burst_s": burst_p_s,
+            "profiler_start_s": t_on}
+        if busy != 409 or n_k1 <= 0 or n_k2 != d_k2 or d_k2 <= 0 \
+                or c_q != c_p or not inside:
+            raise AssertionError(f"profile: {out['profile']}, inside "
+                                 f"{inside}, launches after the burst "
+                                 f"{c_q != c_p}")
+
+        # 5. the chained rung, speculating at width 4
+        start(pallas_attn=True, decode_backend="auto", spec_tokens=4,
+              spec_adaptive=False)
+        if not srv.engine.decode_attn_impl.startswith("chained"):
+            raise AssertionError(f"not the chained rung: "
+                                 f"{srv.engine.decode_attn_impl}")
+        c_c = read_counts()
+        st_c0 = state()
+        spec_reqs = [(k, s, {**b, "max_tokens": 32})
+                     for k, s, b in _pinned_requests(2)]
+        spec_reqs.append(("completion", False, {
+            "model": "llama-3-8b-random", "prompt": "sampled alone",
+            "max_tokens": SERVE_MAX_TOKENS, "temperature": 0.8,
+            "seed": 5}))
+        res_s = _ops_burst(srv.port, spec_reqs)
+        _check_pinned(res_s[:2], 32)
+        st_c1 = _wait_idle(srv)
+        c_s = read_counts()
+        acc = sum(r["usage"]["aigw_meter"]["spec_accepted"] for r in res_s)
+        d_acc = st_c1["spec_accepted"] - st_c0["spec_accepted"]
+        d_k3 = c_s["paged_attention_decode_v2"] \
+            - c_c["paged_attention_decode_v2"]
+        d_k5 = c_s["paged_attention_verify"] - c_c["paged_attention_verify"]
+        out["spec"] = {"spec_accepted_records": acc,
+                       "spec_accepted_state": d_acc, "k3": d_k3,
+                       "k5": d_k5}
+        if acc != d_acc or acc <= 0 or d_k3 <= 0 or d_k5 <= 0:
+            raise AssertionError(f"chained rung metering: {out['spec']}")
+        counts = read_counts()
+        srv.engine.stop()
+    finally:
+        sink.close()
+        srv.tracer = Tracer(exporter="none")
+        srv.enable_profile = False
+        os.environ.pop("OTEL_EXPORTER_OTLP_ENDPOINT", None)
+        os.environ.pop("OTEL_EXPORTER_OTLP_PROTOCOL", None)
+    need = ("ragged_prefill_attention", "fused_paged_decode",
+            "paged_attention_decode_v2", "paged_attention_verify")
+    if any(counts[k] <= 0 for k in need):
+        raise AssertionError(f"K1 / K2 / K3 / K5 not on the ops path: "
+                             f"{counts}")
+    out["launches"] = counts
+    out["launches_first_burst"] = k_a
+    launches["serve_ops"] = counts
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"ops surface: burst {out['burst_s']:.2f}s, {len(during)} scrapes "
+        f"during it, {out['spans_received']} spans, drain "
+        f"{out['drain']}, profile {out['profile']}, spec {out['spec']}, "
+        f"warm bursts {turns} (serve's {serve_warm_s:.2f}s); phase "
+        f"{out['phase_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3595,6 +4147,11 @@ def main() -> int:
         # per-token logprobs, n > 1 and tenant fairness (serve_logprobs;
         # its teacher-forced bound is gated after model_check)
         lp_out = serve_logprobs(torch, srv, params, reqs, launches)
+
+        # the operations surface: /metrics, traces, the flight recorder,
+        # metering, drain and the profile capture (serve_ops)
+        print(json.dumps({"serve_ops": serve_ops(
+            torch, srv, params, reqs, launches, warm_s)}), flush=True)
     finally:
         srv.stop()
 
@@ -3728,6 +4285,7 @@ def main() -> int:
             row["name"], 0)
         row["launches_serve_logprobs"] = launches["serve_logprobs"].get(
             row["name"], 0)
+        row["launches_serve_ops"] = launches["serve_ops"].get(row["name"], 0)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)

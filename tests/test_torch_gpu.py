@@ -1114,3 +1114,103 @@ def test_n4_fan_out_under_a_lora_zoo(cuda):
     choices, _base, tenants = out[str(cuda)]
     assert len(choices) == 4 and len(set(choices)) > 1
     assert tenants == ["", "ad0", "ad0", "ad0", "ad0"]
+
+
+def _ops_replica(cuda, **kw):
+    from aigw_tpu_torch.tpuserve.engine import EngineConfig
+    from aigw_tpu_torch.tpuserve.server import TPUServeServer
+
+    srv = TPUServeServer("tiny-random", EngineConfig(
+        max_batch_size=4, max_seq_len=256, page_size=16,
+        decode_steps_per_tick=4), device=cuda, port=0, **kw)
+    srv.start()
+    return srv
+
+
+def _post(port, path, body):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"content-type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def test_profile_capture_names_the_kernels(cuda):
+    """``/debug/profile`` on the card: a bf16 request served inside the
+    window puts K1's tensor-core kernel and K2's kernel in the Chrome
+    trace, K2's events as many as its launch counter moved."""
+    import json
+    import os
+    import shutil
+    import threading
+    import time
+
+    srv = _ops_replica(cuda, enable_profile_endpoint=True)
+    try:
+        _post(srv.port, "/v1/completions", {"model": "tiny-random",
+                                            "prompt": "warm", "max_tokens": 4})
+        out = {}
+        th = threading.Thread(target=lambda: out.update(r=srv.profile(
+            "seconds=6")))
+        th.start()
+        from torch.autograd import profiler as autograd_profiler
+
+        while not autograd_profiler._is_profiler_enabled:
+            time.sleep(0.01)  # CUPTI's first set-up takes seconds
+        time.sleep(0.5)
+        k2 = decode_fused.fused_paged_decode.launches
+        k1 = paged_attention.ragged_prefill_attention.launches
+        reply = _post(srv.port, "/v1/completions", {
+            "model": "tiny-random", "prompt": "profile me " * 5,
+            "max_tokens": 24, "temperature": 0.0})
+        d_k2 = decode_fused.fused_paged_decode.launches - k2
+        d_k1 = paged_attention.ragged_prefill_attention.launches - k1
+        th.join(timeout=120)
+    finally:
+        srv.stop()
+    status, body = out["r"]
+    assert status == 200, body
+    info = json.loads(body)
+    with open(os.path.join(info["profile_dir"], "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    shutil.rmtree(info["profile_dir"])
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert reply["usage"]["completion_tokens"] == 24 and d_k2 > 0
+    assert sum("fused_decode_kernel" in n for n in names) == d_k2
+    assert sum("ragged_prefill_tc_kernel" in n for n in names) == d_k1 > 0
+
+
+def test_device_gauges_on_card(cuda):
+    """The engine's device entry on the card: its memory from
+    ``mem_get_info`` (at least what PyTorch allocated), the pool and the
+    weights' bytes, rendered on ``/metrics`` under ``device="<index>"``."""
+    import time
+
+    from aigw_tpu_torch.obs.metrics import parse_exposition
+
+    srv = _ops_replica(cuda)
+    try:
+        eng = srv.engine
+        eng._mem_next = 0.0
+        eng._refresh_stats()
+        dev = eng.device_stats[0]
+        free_b, total_b = torch.cuda.mem_get_info(eng.device)
+        assert dev["platform"] == "gpu" and dev["bytes_limit"] == total_b
+        assert dev["bytes_in_use"] >= torch.cuda.memory_allocated(eng.device)
+        assert dev["param_bytes"] == sum(
+            t.numel() * t.element_size() for t in eng.params.values()) > 0
+        assert dev["kv_pool_bytes"] == eng.stats.kv_pool_bytes > 0
+        assert eng.stats.device_memory_frac_worst == dev["memory_frac"] > 0
+        text = srv.metrics().decode()
+        parse_exposition(text)
+        idx = dev["id"]
+        assert f'tpuserve_device_bytes_limit_per_device{{device="{idx}"}} ' \
+            f"{total_b}" in text
+        assert "tpuserve_device_count 1" in text
+        assert 'tpuserve_decode_attn_impl{impl="fused-cuda"} 1' in text
+        time.sleep(0)
+    finally:
+        srv.stop()

@@ -157,6 +157,49 @@ def test_request_surface_names_import_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_ops_surface_modules_import_with_jax_blocked():
+    """The operations surface's modules (the flight recorder, tracing and
+    its OTLP encoder, the metrics) are the port's own copies: in the
+    scans above, standard library only apart from the port, and
+    importable in a fresh interpreter where jax and the reference
+    package cannot be imported, pulling in nothing of either."""
+    import sys as _sys
+
+    for m in ("aigw_tpu_torch.obs.flight", "aigw_tpu_torch.obs.tracing",
+              "aigw_tpu_torch.obs.otlp_proto", "aigw_tpu_torch.obs.metrics"):
+        assert m in MODULES, m
+        path = ROOT / (m.replace(".", "/") + ".py")
+        outside = [n for n in _imported_names(path)
+                   if n.split(".")[0] not in _sys.stdlib_module_names
+                   and not n.startswith("aigw_tpu_torch")]
+        assert not outside, (m, outside)
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['aigw_tpu'] = None\n"
+        "from aigw_tpu_torch.obs.flight import FlightRecorder, RequestTrace\n"
+        "from aigw_tpu_torch.obs.tracing import Tracer, Propagators\n"
+        "from aigw_tpu_torch.obs.otlp_proto import encode_traces\n"
+        "from aigw_tpu_torch.obs.metrics import metric_families\n"
+        "from aigw_tpu_torch.schemas.openai import meter_to_tuple\n"
+        "from aigw_tpu_torch.tpuserve.server import TPUServeServer\n"
+        "for fn in (FlightRecorder.snapshot, RequestTrace.prefill,\n"
+        "           Tracer.start_span, Propagators.extract, encode_traces,\n"
+        "           meter_to_tuple, TPUServeServer.drain,\n"
+        "           TPUServeServer.profile, TPUServeServer.metrics):\n"
+        "    assert callable(fn)\n"
+        "assert len(metric_families()) == 93\n"
+        "bad = [k for k, v in sys.modules.items() if v and (\n"
+        "    k.split('.')[0] in ('jax', 'jaxlib', 'aigw_tpu',\n"
+        "                        'prometheus_client', 'grpc'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_cuda_request_without_cuda_raises():
     from aigw_tpu_torch.device import resolve_device
 

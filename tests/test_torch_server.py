@@ -112,9 +112,14 @@ def test_chat_completion(server):
     prompt = apply_chat_template(MSGS, ByteTokenizer())
     text, n = _engine_text(server, prompt)
     assert choice["message"]["content"] == text
+    meter = body["usage"].pop("aigw_meter")
     assert body["usage"] == {"prompt_tokens": len(prompt),
                              "completion_tokens": n,
                              "total_tokens": len(prompt) + n}
+    # the engine's MeterRecord rides the usage, as the reference's does
+    assert meter["decode_tokens"] == n and meter["finish"] \
+        == choice["finish_reason"]
+    assert meter["prefill_real"] + meter["prefix_reused"] == len(prompt)
     assert choice["finish_reason"] in ("stop", "length")
 
 
