@@ -119,6 +119,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(x-aigw-tenant / adapter suffix) may hold: the "
                         "fairness guard against one tenant's burst "
                         "starving others (0 = off)")
+    s.add_argument("--kv-host-bytes", type=int, default=0,
+                   help="byte budget of the host KV spill tier: prefix "
+                        "pages evicted under pool pressure are copied to "
+                        "host memory and revived by later hits instead "
+                        "of prefilled again; 0 disables it")
     s.add_argument("--ragged-chunk-tokens", type=int, default=256)
     s.add_argument("--max-queued-requests", type=int, default=256)
     s.add_argument("--flight-entries", type=int, default=256,
@@ -159,6 +164,7 @@ def engine_config(args):
         max_queued_requests=args.max_queued_requests,
         logprobs_topk=args.logprobs,
         tenant_slot_cap=args.tenant_slot_cap,
+        kv_host_bytes=args.kv_host_bytes,
     )
 
 

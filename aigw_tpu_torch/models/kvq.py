@@ -253,3 +253,107 @@ def layer_pool(kv: Any, layer: int, which: int
     if not is_quantized(kv):
         return kv[layer, which], None
     return kv["q"][layer, which], kv["scale"][layer, which]
+
+
+# -- host pages (spill tier, fleet fetch, migration) ------------------------
+# A host page is one page's rows of every layer in the pool's own layout,
+# ``[L, 2, page_size, Hkv, D]``: a CPU tensor in the pool's dtype for a
+# native pool, and for a quantized pool ``{"q", "scale", "dtype"}`` with
+# ``scale`` float32 ``[L, 2, page_size, Hkv]``. int4 ``q`` holds one
+# element per byte (``uint8``, the 4-bit two's-complement value in the
+# low nibble, the high nibble zero), byte for byte the reference's
+# ``ml_dtypes.int4`` host page and wire, and is packed again on import.
+def gather_pages(kv: Any, pages: torch.Tensor, page_size: int) -> Any:
+    """Rows of ``pages`` ([k] page ids on the pool's device), per leaf
+    stacked ``[k, L, 2, page_size, ...]`` (a copy)."""
+    off = torch.arange(page_size, device=pages.device)
+    idx = (pages.long()[:, None] * page_size + off).reshape(-1)
+    k = pages.numel()
+
+    def one(leaf: torch.Tensor) -> torch.Tensor:
+        rows = leaf.index_select(2, idx)
+        rows = rows.reshape(*leaf.shape[:2], k, page_size,
+                            *leaf.shape[3:])
+        return rows.movedim(2, 0).contiguous()
+
+    if is_quantized(kv):
+        return {"q": one(kv["q"]), "scale": one(kv["scale"])}
+    return one(kv)
+
+
+def scatter_pages(kv: Any, pages: torch.Tensor, stacked: Any,
+                  page_size: int) -> Any:
+    """Write ``stacked`` (per leaf ``[k, L, 2, page_size, ...]`` on the
+    pool's device, in the pool's layout) into ``pages`` in place: exactly
+    k pages, one index copy per leaf."""
+    off = torch.arange(page_size, device=pages.device)
+    idx = (pages.long()[:, None] * page_size + off).reshape(-1)
+
+    def one(leaf: torch.Tensor, rows: torch.Tensor) -> None:
+        src = rows.movedim(0, 2).reshape(*leaf.shape[:2], -1,
+                                         *leaf.shape[3:])
+        leaf.index_copy_(2, idx, src.to(leaf.dtype))
+
+    if is_quantized(kv):
+        one(kv["q"], stacked["q"])
+        one(kv["scale"], stacked["scale"])
+    else:
+        one(kv, stacked)
+    return kv
+
+
+def pages_to_host(stacked: Any, kv_cache_dtype: str) -> list:
+    """``gather_pages``' output → one host page per page (a device→host
+    copy that waits for the work queued before it on the stream)."""
+    if not is_quantized_dtype(kv_cache_dtype):
+        return list(stacked.cpu().unbind(0))
+    q = stacked["q"].cpu()
+    if kv_cache_dtype == "int4":
+        q = (unpack_int4(q) & 0xF).to(torch.uint8)
+    scale = stacked["scale"].cpu()
+    return [{"q": qi, "scale": si, "dtype": kv_cache_dtype}
+            for qi, si in zip(q.unbind(0), scale.unbind(0))]
+
+
+def host_to_stacked(host: list, kv_cache_dtype: str,
+                    device: torch.device) -> Any:
+    """Host pages → per-leaf ``[k, L, 2, page_size, ...]`` tensors on
+    ``device`` in the pool's layout (int4 packed again)."""
+    if not is_quantized_dtype(kv_cache_dtype):
+        return torch.stack([torch.as_tensor(h) for h in host]).to(
+            device=device, dtype=compute_dtype(kv_cache_dtype))
+    q = torch.stack([torch.as_tensor(h["q"]) for h in host])
+    if kv_cache_dtype == "int4":
+        q = pack_int4(q)
+    scale = torch.stack([torch.as_tensor(h["scale"]) for h in host])
+    return {"q": q.to(device=device, dtype=compute_dtype(kv_cache_dtype)),
+            "scale": scale.to(device=device, dtype=torch.float32)}
+
+
+def page_nbytes(rows: Any) -> int:
+    """Bytes a host page is charged (the spill tier's budget): int4
+    counts its packed size, half a byte per element, as on the device;
+    a quantized page adds its scales; a byte blob its length."""
+    if isinstance(rows, dict):
+        q = rows["q"]
+        qb = q.nbytes // 2 if rows.get("dtype") == "int4" else q.nbytes
+        return int(qb + rows["scale"].nbytes)
+    n = getattr(rows, "nbytes", None)
+    return int(n) if n is not None else len(rows)
+
+
+def page_shape_ok(rows: Any, want: tuple) -> bool:
+    """An imported host page has the engine's ``(L, 2, page_size, Hkv,
+    D)`` geometry (and a quantized one its scales')."""
+    if isinstance(rows, dict):
+        return (tuple(rows["q"].shape) == want
+                and tuple(rows["scale"].shape) == want[:-1])
+    return tuple(rows.shape) == want
+
+
+def page_matches_dtype(rows: Any, kv_cache_dtype: str) -> bool:
+    """A quantized page scatters only into a pool of its own dtype, and
+    a native page only into a native pool."""
+    if isinstance(rows, dict):
+        return rows.get("dtype") == kv_cache_dtype
+    return not is_quantized_dtype(kv_cache_dtype)

@@ -104,6 +104,21 @@ ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
     ("adapter_evictions", "tpuserve_adapter_evictions_total"),
     ("adapter_resident", "tpuserve_adapter_resident"),
     ("adapter_slots", "tpuserve_adapter_slots"),
+    ("migrations_out", "tpuserve_migrations_out_total"),
+    ("migrations_in", "tpuserve_migrations_in_total"),
+    ("migration_pages_out", "tpuserve_migration_pages_out_total"),
+    ("migration_pages_in", "tpuserve_migration_pages_in_total"),
+    ("migratable_slots", "tpuserve_migratable_slots"),
+    ("kv_spills", "tpuserve_kv_spills_total"),
+    ("kv_revives", "tpuserve_kv_revives_total"),
+    ("kv_spill_evictions", "tpuserve_kv_spill_evictions_total"),
+    ("kv_spilled_pages", "tpuserve_kv_spilled_pages"),
+    ("kv_spill_bytes", "tpuserve_kv_spill_bytes"),
+    ("kv_host_bytes", "tpuserve_kv_host_bytes"),
+    ("kv_fetches_out", "tpuserve_kv_fetches_out_total"),
+    ("kv_fetches_in", "tpuserve_kv_fetches_in_total"),
+    ("kv_fetch_pages_out", "tpuserve_kv_fetch_pages_out_total"),
+    ("kv_fetch_pages_in", "tpuserve_kv_fetch_pages_in_total"),
     ("tenants_active", "tpuserve_tenants_active"),
     ("tenant_max_slots", "tpuserve_tenant_max_slots"),
     ("tenant_deferrals", "tpuserve_tenant_deferrals_total"),
@@ -126,6 +141,13 @@ ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
     ("moe_tokens_dropped", "tpuserve_moe_tokens_dropped_total"),
     ("moe_dropped_frac", "tpuserve_moe_dropped_frac"),
     ("moe_expert_imbalance", "tpuserve_moe_expert_imbalance"),
+    # the offline batch tier: waiting work (queued lines and parked
+    # sessions), slots it holds, parks and resumes, tokens generated
+    ("batch_queued", "tpuserve_batch_queued"),
+    ("batch_active", "tpuserve_batch_active"),
+    ("batch_preemptions", "tpuserve_batch_preemptions_total"),
+    ("batch_resumed", "tpuserve_batch_resumed_total"),
+    ("batch_tokens", "tpuserve_batch_tokens_total"),
     # engine-truth usage metering: cumulative MeterRecord totals, moved
     # only where a record is emitted (Engine._meter_emit)
     ("meter_records", "tpuserve_meter_records_total"),
@@ -143,8 +165,6 @@ ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
 )
 
 _SP = "gather rung, bucketed prefill and the remaining prefill entry points"
-_MIG = "migration and KV mobility"
-_BATCH = "migration and KV mobility (the batch tier parks through its export)"
 _MESH = "multi-GPU"
 _WARM = "the compiled decode window, as CUDA graphs"
 #: the reference's engine gauges the port does not export yet:
@@ -157,28 +177,8 @@ GAUGES_NOT_PORTED: dict[str, tuple[str, str]] = {
     "warm_programs": ("tpuserve_warm_programs", _WARM),
     "xla_compiles": ("tpuserve_xla_compiles_total", _WARM),
     "xla_compile_ms": ("tpuserve_xla_compile_ms_total", _WARM),
-    "migrations_out": ("tpuserve_migrations_out_total", _MIG),
-    "migrations_in": ("tpuserve_migrations_in_total", _MIG),
-    "migration_pages_out": ("tpuserve_migration_pages_out_total", _MIG),
-    "migration_pages_in": ("tpuserve_migration_pages_in_total", _MIG),
-    "migratable_slots": ("tpuserve_migratable_slots", _MIG),
-    "kv_spills": ("tpuserve_kv_spills_total", _MIG),
-    "kv_revives": ("tpuserve_kv_revives_total", _MIG),
-    "kv_spill_evictions": ("tpuserve_kv_spill_evictions_total", _MIG),
-    "kv_spilled_pages": ("tpuserve_kv_spilled_pages", _MIG),
-    "kv_spill_bytes": ("tpuserve_kv_spill_bytes", _MIG),
-    "kv_host_bytes": ("tpuserve_kv_host_bytes", _MIG),
-    "kv_fetches_out": ("tpuserve_kv_fetches_out_total", _MIG),
-    "kv_fetches_in": ("tpuserve_kv_fetches_in_total", _MIG),
-    "kv_fetch_pages_out": ("tpuserve_kv_fetch_pages_out_total", _MIG),
-    "kv_fetch_pages_in": ("tpuserve_kv_fetch_pages_in_total", _MIG),
     "ici_bytes_per_token": ("tpuserve_ici_bytes_per_token", _MESH),
     "ici_bytes_total": ("tpuserve_ici_bytes_total", _MESH),
-    "batch_queued": ("tpuserve_batch_queued", _BATCH),
-    "batch_active": ("tpuserve_batch_active", _BATCH),
-    "batch_preemptions": ("tpuserve_batch_preemptions_total", _BATCH),
-    "batch_resumed": ("tpuserve_batch_resumed_total", _BATCH),
-    "batch_tokens": ("tpuserve_batch_tokens_total", _BATCH),
 }
 
 

@@ -209,7 +209,8 @@ class RaggedPrefillBackend:
                        mask: np.ndarray | None = None) -> tuple:
         """[B]-wide sampling tensors from ``row → (req, seq_id)``, and
         each row's adapter row (the base row where no request sits): the
-        prefill token samples with key ``[seed or seq_id, 0]``. A
+        prefill token samples with key ``[seed or seq_id, 0]`` (a
+        continuation's with the key at its cut, ``Engine.first_key``). A
         grammar ``mask`` ([V]) is added to row 0's bias (the single
         path's row)."""
         eng = self.eng
@@ -222,7 +223,8 @@ class RaggedPrefillBackend:
         bias = np.zeros((B, V), np.float32)
         adapter = np.full((B,), eng._base_row, np.int32)
         for g, (req, seq_id) in by_row.items():
-            keys[g, 0] = (req.sampling.seed or seq_id) & 0xFFFFFFFF
+            seed, counter = eng.first_key(req, seq_id)
+            keys[g] = (seed & 0xFFFFFFFF, counter)
             temp[g] = req.sampling.temperature
             top_p[g] = req.sampling.top_p
             top_k[g] = req.sampling.top_k

@@ -105,6 +105,26 @@ the engine thread before its terminal emit and summed into
 ``EngineStats.meter_*``. All of it is host bookkeeping: no device work
 is added.
 
+**KV mobility**: ``migrate_export`` cuts a live session at its next
+token boundary (the window in flight settled) and serializes its complete
+pages, pinned while they are copied off the device, with its sampling,
+penalty, key and meter state; ``migrate_import`` scatters such pages into
+the pool and registers them in the prefix cache, where the continuation
+(``continuation_request``, ``GenRequest.import_state``) adopts them and
+resumes at its offset, sampling its first token with the key the solo run
+would have used. ``kv_export_pages`` / ``kv_import_pages`` serve and adopt
+pages by chain key for the fleet fetch, and ``kv_chain_digest`` lists the
+keys held. With ``kv_host_bytes`` the prefix cache's evictions spill into
+the host tier (``tpuserve/kvhost.py``) and a hit on a spilled chain
+revives it. Server threads post these jobs on a queue the engine thread
+runs (``_process_migrations``).
+
+**The offline batch class** (``priority="batch"``): a never-shed queue
+admitted after the interactive pass, only while no interactive request
+waits and under the ``batch_slot_frac`` ceiling; an interactive arrival
+on a full table parks batch slots through the export cut, and the tier
+resumes them, parked sessions first, through the import.
+
 Every default equals the reference's. Knobs of features this slice does
 not implement raise ``NotImplementedError`` naming their ROADMAP entry
 when set to a non-default value.
@@ -144,7 +164,9 @@ from aigw_tpu_torch.tpuserve.kvcache import (
     PageAllocator,
     PrefixCache,
     RefcountedAllocator,
+    page_chain_hashes,
 )
+from aigw_tpu_torch.tpuserve.kvhost import HostKVTier
 from aigw_tpu_torch.tpuserve.sampling import (
     SamplingParams,
     apply_penalties,
@@ -157,10 +179,9 @@ logger = logging.getLogger(__name__)
 
 #: knobs of features the port does not implement yet: (reference
 #: default, ROADMAP queue 1 entry). A non-default value raises
-#: NotImplementedError.
-NOT_PORTED = {
-    "kv_host_bytes": (0, "migration and KV mobility"),
-}
+#: NotImplementedError. Every knob of the reference's EngineConfig that
+#: the port has is implemented.
+NOT_PORTED: dict[str, tuple[Any, str]] = {}
 
 #: defaults that differ from the reference, and why (/state): none
 DEFAULTS_DIFFER: dict[str, str] = {}
@@ -168,6 +189,13 @@ DEFAULTS_DIFFER: dict[str, str] = {}
 
 class EngineOverloadedError(Exception):
     """Admission queue full — callers should surface 429/503."""
+
+
+class MigrationError(Exception):
+    """A page export or import could not be performed (the request is
+    not active or finished during the cut, no prefix cache, a malformed
+    page). The session is left as it was: a failed export never ends the
+    stream it tried to move."""
 
 
 @dataclass
@@ -216,12 +244,28 @@ class EngineConfig:
     # off: the default programs are unchanged); exclusive with
     # spec_tokens, as in the reference
     logprobs_topk: int = 0
+    # byte budget of the host spill tier (tpuserve/kvhost.py): with the
+    # prefix cache on, a registered page reclaimed under pool pressure is
+    # copied to host memory and revived by a later hit instead of being
+    # prefilled again; 0 = off (plain eviction)
     kv_host_bytes: int = 0
+    # a slot with 1 <= generated <= this counts toward /state's
+    # migratable_slots (0 = every decoding slot); exports are not gated
+    migration_young_tokens: int = 64
+    # the most decode slots the offline batch class may hold, as a
+    # fraction of max_batch_size (at least one); batch requests admit
+    # only while no interactive request waits, and interactive arrivals
+    # preempt them (a shrunk window, then a park through the export)
+    batch_slot_frac: float = 0.5
 
     def __post_init__(self) -> None:
         if self.logprobs_topk > 0 and self.spec_tokens > 0:
             raise ValueError(
                 "logprobs_topk and spec_tokens are mutually exclusive")
+        if not 0.0 < self.batch_slot_frac <= 1.0:
+            raise ValueError(
+                f"batch_slot_frac must be in (0, 1] "
+                f"(got {self.batch_slot_frac})")
         for name, (default, entry) in NOT_PORTED.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -295,9 +339,24 @@ class GenRequest:
     # engine thread and before the terminal emit (so a consumer that has
     # the finish item has the record); None = not metered
     meter_sink: Callable[[dict], None] | None = None
-    # the priority class the record carries; every request of the port
-    # is interactive (the batch tier is not ported)
+    # "interactive" (the admission queue) or "batch": the never-shed
+    # offline queue, admitted only into slots interactive leaves idle
+    # (batch_slot_frac), parked host-side when interactive arrivals need
+    # its slot and resumed byte-identically later
     priority: str = "interactive"
+    # token ids that finish the request like EOS (the export blob's
+    # stop_token_ids)
+    stop_token_ids: tuple[int, ...] = ()
+    # set on a request that RESUMES an exported session (a migration or a
+    # parked batch slot): its prompt is the original prompt plus every
+    # token generated so far, and this restores the slot state a solo
+    # run would have at the cut: orig_prompt_len (tokens past it are
+    # generated history: they seed the penalty counts), generated (the
+    # usage offset), key_seed and key_counter (the first resumed token
+    # samples with the key of position len(prompt) - 1) and meter_carry
+    # (the record of the earlier segments). Such requests always take the
+    # per-request admission path
+    import_state: dict | None = None
 
 
 @dataclass
@@ -340,6 +399,9 @@ class _Slot:
     m_spec_drafted: int = 0
     m_spec_accepted: int = 0
     m_res_t0: float = 0.0
+    # the meter of the earlier segments of a resumed session (its
+    # import_state's meter_carry), folded into the one terminal record
+    m_carry: dict | None = None
 
 
 @dataclass
@@ -437,6 +499,42 @@ class EngineStats:
     # the engine's devices (one) and the worst device's memory fraction
     device_count: int = 1
     device_memory_frac_worst: float = 0.0
+    # the offline batch class: waiting work (the never-shed queue plus
+    # parked sessions), slots it holds (at most the batch_slot_frac
+    # ceiling), sessions parked for interactive arrivals and resumed,
+    # and the tokens it generated
+    batch_queued: int = 0
+    batch_active: int = 0
+    batch_preemptions: int = 0
+    batch_resumed: int = 0
+    batch_tokens: int = 0
+    # sessions exported to / imported from other replicas, the pages
+    # that moved with them, and the live slots young enough to migrate
+    migrations_out: int = 0
+    migrations_in: int = 0
+    migration_pages_out: int = 0
+    migration_pages_in: int = 0
+    migratable_slots: int = 0
+    # the host spill tier (its counters, what it holds now and its
+    # budget) and the fleet fetch over /kv/pages (page sets served to
+    # siblings and imported from them)
+    kv_spills: int = 0
+    kv_revives: int = 0
+    kv_spill_evictions: int = 0
+    kv_spilled_pages: int = 0
+    kv_spill_bytes: int = 0
+    kv_host_bytes: int = 0
+    kv_fetches_out: int = 0
+    kv_fetches_in: int = 0
+    kv_fetch_pages_out: int = 0
+    kv_fetch_pages_in: int = 0
+    # engine-thread time in the page movers: spills (the stall a spill
+    # adds to the allocation that reclaimed the page), exports and
+    # fetches served (device→host) and imports (host→device); the
+    # port's own, not on /state
+    kv_spill_ms: float = 0.0
+    kv_export_ms: float = 0.0
+    kv_import_ms: float = 0.0
     # usage metering: cumulative MeterRecord totals, moved only in
     # Engine._meter_emit, so a ledger of the records reconciles against
     # them token for token
@@ -580,6 +678,18 @@ class Engine:
         else:
             self.allocator = PageAllocator(cfg.num_pages, cfg.page_size)
             self.prefix_cache = None
+        # the host spill tier: with the prefix cache on, eviction demotes
+        # a registered page into it (its rows copied device→host) and a
+        # prefix hit on a spilled chain revives the pages
+        self.host_tier: HostKVTier | None = None
+        if cfg.kv_host_bytes > 0 and self.prefix_cache is not None:
+            self.host_tier = HostKVTier(cfg.kv_host_bytes)
+            self.prefix_cache.spill_sink = self._spill_page
+        # hex chain keys this replica holds (resident and spilled),
+        # rebuilt by the engine thread at most every 0.5 s and read
+        # lock-free by /state and the fleet fetch (an atomic swap)
+        self._kv_digest: tuple[str, ...] = ()
+        self._kv_digest_next = 0.0
         self.stats = EngineStats()
         # serving-phase latency histograms (queue_wait, prefill, ttft,
         # first_emit, decode_per_token, transfer), observed where the
@@ -600,6 +710,18 @@ class Engine:
         B = cfg.max_batch_size
         self._slots: list[_Slot | None] = [None] * B
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
+        # the offline batch class has its own unbounded queue, so every
+        # interactive signal (the window's pressure, queue_wait_ms,
+        # /state's queued) stays batch-free; parked sessions are batch
+        # slots cut off the device through the export ({"blob", "data",
+        # emit, cancelled, meter_sink, parked_at, park_bytes}), resumed
+        # oldest first
+        self._batch_q: "queue.Queue[GenRequest]" = queue.Queue()
+        self._parked_batch: list[dict] = []
+        # export, import and fetch jobs posted by server threads, run on
+        # the engine thread (the only one that touches the pool and the
+        # slot table)
+        self._mig_q: "queue.Queue[tuple]" = queue.Queue()
         self._seq_ids = itertools.count()
         self._stop = threading.Event()
         self._wake = threading.Event()
@@ -915,14 +1037,19 @@ class Engine:
 
     def _choose_window(self) -> int:
         """Shrink to the small window while requests wait or a stream is
-        brand new; regrow after two steady ticks."""
+        brand new; regrow after two steady ticks. Only interactive work
+        counts: batch waits in its own queue and a young batch stream
+        has no TTFT at stake, so a waiting interactive request shrinks
+        the window under every live batch slot (the first preemption
+        rung)."""
         K = self.cfg.decode_steps_per_tick
         ladder = self._window_ladder()
         if len(ladder) == 1:
             self.stats.decode_window = K
             return K
         pressured = self._queue.qsize() > 0 or any(
-            s is not None and s.generated <= 1 for s in self._slots)
+            s is not None and s.generated <= 1
+            and s.req.priority != "batch" for s in self._slots)
         if pressured:
             self._steady_ticks = 0
             chosen = ladder[0]
@@ -968,11 +1095,562 @@ class Engine:
             raise ValueError(
                 f"prompt+max_tokens {len(req.prompt)}+{req.max_tokens} "
                 f"exceeds max_seq_len {self.cfg.max_seq_len}")
+        if req.priority == "batch":
+            # the offline class never sheds: it queues without bound
+            # (the /v1/batches runner bounds its lines in flight)
+            self._batch_q.put(req)
+            self._wake.set()
+            return
         if self._queue.qsize() >= self.cfg.max_queued_requests:
             raise EngineOverloadedError(
                 f"queue full ({self.cfg.max_queued_requests} waiting)")
         self._queue.put(req)
         self._wake.set()
+
+    # -- KV mobility: the page movers -----------------------------------------
+    def _page_index(self, pages: list[int]) -> torch.Tensor:
+        return torch.tensor(pages, dtype=torch.int64, device=self.device)
+
+    def _export_page_dev(self, page: int) -> Any:
+        """One page's rows of every layer, copied on the device in the
+        pool's layout (``[L, 2, page_size, ...]`` per leaf)."""
+        st = kvq.gather_pages(self.kv_cache, self._page_index([page]),
+                              self.cfg.page_size)
+        if isinstance(st, dict):
+            return {k: v[0] for k, v in st.items()}
+        return st[0]
+
+    def _export_pages(self, pages: list[int]) -> list:
+        """Host pages of ``pages`` (``kvq``'s host page): one gather on
+        the device and one copy to the host. The copy waits for every
+        launch queued before it on the engine's stream, a decode window
+        in flight included, so the rows are the pages' settled content."""
+        if not pages:
+            return []
+        stacked = kvq.gather_pages(self.kv_cache, self._page_index(pages),
+                                   self.cfg.page_size)
+        return kvq.pages_to_host(stacked, self.cfg.kv_cache_dtype)
+
+    def _import_pages_dev(self, page_ids: list[int], rows: list) -> None:
+        """Scatter host pages into ``page_ids`` in one index copy per
+        leaf: exactly k pages (the reference pads k to a power of two
+        only to bound its compiled programs)."""
+        if not page_ids:
+            return
+        stacked = kvq.host_to_stacked(rows, self.cfg.kv_cache_dtype,
+                                      self.device)
+        self.kv_cache = kvq.scatter_pages(
+            self.kv_cache, self._page_index(page_ids), stacked,
+            self.cfg.page_size)
+
+    # -- KV mobility: the host spill tier and the chain digest ---------------
+    def _spill_page(self, key: bytes, page: int) -> None:
+        """The prefix cache's spill sink: copy the page being reclaimed
+        to the host and park it in the tier under its chain key. It runs
+        inside the allocator's _pop_page on the engine thread, so the
+        page reaches its new owner only after the copy has landed; the
+        copy waits for the stream (a window in flight included), and
+        that wait is the spill's stall (``kv_spill_ms``)."""
+        t0 = time.monotonic()
+        self.host_tier.put(key, self._export_pages([page])[0])
+        self.stats.kv_spill_ms += 1e3 * (time.monotonic() - t0)
+
+    def _revive_chain(self, chain_keys: list) -> int:
+        """Promote the longest spilled run extending the resident prefix
+        back into the pool: allocate pages, scatter the host rows, and
+        register them in the prefix cache, parked evictable (the caller's
+        probe adopts them). Returns the pages revived; 0 under page
+        pressure (the rows go back to the tier)."""
+        tier = self.host_tier
+        resident = len(self.prefix_cache.probe(chain_keys))
+        take: list = []
+        while (resident + len(take) < len(chain_keys)
+               and tier.contains(chain_keys[resident + len(take)])):
+            take.append(chain_keys[resident + len(take)])
+        if not take:
+            return 0
+        # out of the tier first: a spill during the allocation below
+        # cannot drop the rows mid-revive
+        rows = []
+        for k in take:
+            r = tier.take(k)
+            if r is None:
+                break
+            rows.append(r)
+        take = take[:len(rows)]
+        if not rows:
+            return 0
+        seq_id = next(self._seq_ids)
+        try:
+            self.allocator.allocate_extra(seq_id, len(rows))
+        except OutOfPagesError:
+            self.allocator.free(seq_id)
+            for k, r in zip(take, rows):
+                tier.put(k, r)
+            return 0
+        t0 = time.monotonic()
+        page_ids = self.allocator.pages(seq_id)
+        self._import_pages_dev(page_ids, rows)
+        self.stats.kv_import_ms += 1e3 * (time.monotonic() - t0)
+        self.prefix_cache.insert(take, page_ids)
+        self.allocator.free(seq_id)
+        logger.debug("revived %d spilled pages", len(rows))
+        return len(rows)
+
+    def _purge_spilled(self, keys: list) -> None:
+        """Strict tiering: a chain a prefill just made resident must not
+        also hold host budget."""
+        if self.host_tier is not None:
+            for k in keys:
+                self.host_tier.discard(k)
+
+    #: the digest's floor: a replica always advertises this many keys
+    KV_DIGEST_MAX = 4096
+    #: full-length chains the digest bound leaves room for
+    KV_DIGEST_MIN_CHAINS = 8
+
+    def kv_chain_digest(self) -> tuple:
+        """Hex chain keys this replica can serve pages for (resident
+        prefix-cache entries, then spilled pages): ``/state``'s
+        ``kv_chains`` and the fleet fetch's local presence probe. A
+        lock-free read of the tuple the engine thread rebuilds."""
+        return self._kv_digest
+
+    def kv_digest_max(self) -> int:
+        """The digest bound: ``max(KV_DIGEST_MAX, KV_DIGEST_MIN_CHAINS x
+        max_pages_per_seq)`` (keys are per page, so long chains need
+        room)."""
+        return max(self.KV_DIGEST_MAX,
+                   self.KV_DIGEST_MIN_CHAINS * self.cfg.max_pages_per_seq)
+
+    def _refresh_kv_digest(self) -> None:
+        """Rebuild the digest on the engine thread, the only thread that
+        changes the cache's keys and the tier's."""
+        if self.prefix_cache is None:
+            return
+        keys = list(self.prefix_cache._by_key.keys())
+        if self.host_tier is not None:
+            keys.extend(self.host_tier.keys())
+        out: list[str] = []
+        seen: set = set()
+        bound = self.kv_digest_max()
+        for k in keys:
+            if k not in seen:
+                seen.add(k)
+                out.append(k.hex())
+                if len(out) >= bound:
+                    break
+        self._kv_digest = tuple(out)
+
+    # -- KV mobility: jobs from server threads --------------------------------
+    def _post_job(self, kind: str, payload: Any, timeout: float,
+                  what: str) -> Any:
+        """Queue a job for the engine thread and wait for its result;
+        raises MigrationError (its error) or TimeoutError."""
+        box: dict = {"evt": threading.Event()}
+        self._mig_q.put((kind, payload, box))
+        self._wake.set()
+        if not box["evt"].wait(timeout):
+            raise TimeoutError(f"{what} timed out")
+        if "error" in box:
+            raise MigrationError(box["error"])
+        return box["result"]
+
+    def kv_export_pages(self, keys: list, timeout: float = 30.0) -> list:
+        """Pages by chain key for a sibling's fetch (``/kv/pages``):
+        resident pages pinned and copied off the device, spilled pages
+        from the host tier. Returns [(key, host page)] for the keys held;
+        the others are absent."""
+        return self._post_job("fetch", keys, timeout, "kv page fetch")
+
+    def kv_import_pages(self, tokens: list[int], pages: list,
+                        start: int = 0, timeout: float = 30.0) -> int:
+        """Adopt pages fetched from a sibling: chain depths ``[start,
+        start + len(pages))`` of ``tokens``, registered as cached pages
+        (the migration import's lifecycle, counted as fetches)."""
+        return self._post_job("import", (tokens, pages, start, "fetch"),
+                              timeout, "kv page import")
+
+    def migrate_export(self, req: GenRequest, timeout: float = 30.0) -> dict:
+        """Cut a live session at its next token boundary and serialize it
+        for another replica: its full pages (host pages), their chain
+        keys and the slot's sampling, penalty and key state. Returns
+        {"blob": JSON-able dict, "data": [host pages]}; raises
+        MigrationError (the session untouched) or TimeoutError."""
+        return self._post_job("export", req, timeout, "migration export")
+
+    def migrate_import(self, tokens: list[int], pages: list,
+                       timeout: float = 30.0) -> int:
+        """Adopt another replica's exported chain: scatter the pages into
+        this pool and register them in the prefix cache, parked evictable
+        until the continuation adopts them. Returns the pages imported.
+        Page pressure surfaces as MigrationError("OutOfPagesError: ...")."""
+        return self._post_job("import", (tokens, pages, 0, "migration"),
+                              timeout, "migration import")
+
+    @property
+    def migratable(self) -> bool:
+        """Whether this engine serves /migrate/* (the refcounted
+        prefix-cache allocator): /state's ``migration`` flag."""
+        return isinstance(self.allocator, RefcountedAllocator)
+
+    def _process_migrations(self) -> None:
+        """Run the queued jobs on the engine thread; an error goes to the
+        waiting caller, never into the engine loop."""
+        while True:
+            try:
+                kind, payload, box = self._mig_q.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                if kind == "export":
+                    box["result"] = self._do_export(payload)
+                elif kind == "fetch":
+                    box["result"] = self._do_fetch(payload)
+                else:
+                    box["result"] = self._do_import(*payload)
+            except Exception as e:  # noqa: BLE001 — relayed to the caller
+                box["error"] = f"{type(e).__name__}: {e}"
+            finally:
+                box["evt"].set()
+
+    def _do_fetch(self, keys: list) -> list:
+        if self.prefix_cache is None:
+            return []
+        out: list = []
+        resident: list = []
+        for k in keys:
+            page = self.prefix_cache._by_key.get(k)
+            if page is not None:
+                resident.append((k, page))
+            elif self.host_tier is not None:
+                rows = self.host_tier.get(k)  # a peek: the rung stays
+                if rows is not None:
+                    out.append((k, rows))
+        if resident:
+            # pinned while the rows are copied off the device, as an
+            # export's pages are
+            t0 = time.monotonic()
+            pin = self.allocator.begin_export([p for _, p in resident])
+            try:
+                host = self._export_pages([p for _, p in resident])
+            finally:
+                self.allocator.end_export(pin)
+            out.extend((k, h) for (k, _p), h in zip(resident, host))
+            self.stats.kv_export_ms += 1e3 * (time.monotonic() - t0)
+        if out:
+            self.stats.kv_fetches_out += 1
+            self.stats.kv_fetch_pages_out += len(out)
+        return out
+
+    def _do_export(self, req: GenRequest) -> dict:
+        """The engine-thread half of migrate_export. Only complete pages,
+        every row written, travel: k = (m - 1) // page_size for m tokens
+        (the last token's K/V is the pending decode input, not written
+        yet); the importer recomputes the tail of at most one page with
+        its offset resume."""
+        if not isinstance(self.allocator, RefcountedAllocator):
+            raise MigrationError(
+                "migration requires the prefix cache "
+                "(refcounted page allocator)")
+        if req.emit_lp is not None:
+            raise MigrationError("logprobs sessions are not migratable")
+        if req.constraint is not None:
+            raise MigrationError(
+                "grammar-constrained sessions are not migratable")
+        idx = next((i for i, s in enumerate(self._slots)
+                    if s is not None and s.req is req), None)
+        if idx is None:
+            raise MigrationError(
+                "request is not active (finished, cancelled, or not "
+                "yet admitted)")
+        # settle the window in flight: it may still write this sequence's
+        # pages, and its tokens land before the cut
+        self._drain_inflight()
+        self._apply_frees()
+        s = self._slots[idx]
+        if s is None or s.req is not req:
+            raise MigrationError("request finished during the export cut")
+        if s.generated < 1:
+            raise MigrationError("prefill not finished (no token yet)")
+        if req.trace is not None:
+            req.trace.engine_finish("migrated")
+        out = self._export_cut(idx)
+        req.emit(-1, "migrated")
+        self.stats.migrations_out += 1
+        self.stats.migration_pages_out += len(out["data"])
+        logger.info("exported seq %d: %d tokens, %d pages", req.id,
+                    len(out["blob"]["tokens"]), len(out["data"]))
+        return out
+
+    def _export_cut(self, idx: int) -> dict:
+        """Serialize slot ``idx``'s session at the settled token boundary
+        and free the slot: the cut behind a migration export and a batch
+        park. The caller owns the emit, the trace and the counters.
+        Returns {"blob": JSON-able dict, "data": [host pages]}."""
+        s = self._slots[idx]
+        req = s.req
+        ps = self.cfg.page_size
+        tokens = list(req.prompt) + list(s.gen_tokens)
+        m = len(tokens)
+        k = (m - 1) // ps
+        pages = self.allocator.pages(req.id)[:k]
+        t0 = time.monotonic()
+        # pinned for the copy: nothing may free, evict or copy-on-write
+        # them meanwhile
+        pin = self.allocator.begin_export(pages)
+        try:
+            data = self._export_pages(pages)
+        finally:
+            self.allocator.end_export(pin)
+        self.stats.kv_export_ms += 1e3 * (time.monotonic() - t0)
+        ims = req.import_state or {}
+        sp = req.sampling
+        blob = {
+            "tokens": tokens,
+            "page_size": ps,
+            "chain": [h.hex() for h in page_chain_hashes(tokens, ps)[:k]],
+            "kv_dtype": self.cfg.kv_cache_dtype,
+            "orig_prompt_len": ims.get("orig_prompt_len", len(req.prompt)),
+            "generated": ims.get("generated", 0) + s.generated,
+            "max_tokens": req.max_tokens - s.generated,
+            "key_seed": s.key_seed,
+            "adapter": req.adapter,
+            "tenant": req.tenant,
+            "priority": req.priority,
+            "stop_token_ids": list(req.stop_token_ids),
+            "sampling": {
+                "temperature": sp.temperature, "top_p": sp.top_p,
+                "top_k": sp.top_k, "seed": sp.seed,
+                "frequency_penalty": sp.frequency_penalty,
+                "presence_penalty": sp.presence_penalty,
+                "logit_bias": [[t, b] for t, b in sp.logit_bias],
+            },
+            # the cut emits no MeterRecord: this carry rides to the
+            # resume, whose terminal record covers the whole session
+            "meter": self._meter_fold(s),
+        }
+        self._pending_frees.append(req.id)
+        self._release_adapter_row(s.adapter_row)
+        self._slots[idx] = None
+        self._dirty_rows.add(idx)
+        self._wake.set()
+        return {"blob": blob, "data": data}
+
+    def _do_import(self, tokens: list[int], pages_data: list,
+                   start: int = 0, source: str = "migration") -> int:
+        """The engine-thread half of migrate_import and kv_import_pages:
+        allocate pages, scatter the rows, register the chain in the
+        prefix cache and release the pages, which park evictable until
+        an admission adopts them. ``start`` is the chain depth the pages
+        land at (a fetch extends a resident prefix); ``source`` picks the
+        counters (migration, fetch, or parked: a batch resume)."""
+        if self.prefix_cache is None:
+            raise MigrationError(
+                "migration import requires the prefix cache")
+        ps = self.cfg.page_size
+        k = len(pages_data)
+        if k == 0:
+            return 0
+        if start < 0 or start + k > (len(tokens) - 1) // ps:
+            raise MigrationError(
+                f"pages [{start}, {start + k}) exceed the written-KV "
+                f"coverage of {len(tokens)} tokens")
+        mc = self.model_cfg
+        want = (mc.n_layers, 2, ps, mc.n_kv_heads, mc.head_dim)
+        for rows in pages_data:
+            if not kvq.page_matches_dtype(rows, self.cfg.kv_cache_dtype):
+                raise MigrationError(
+                    "page dtype does not match this engine's "
+                    f"kv_cache_dtype={self.cfg.kv_cache_dtype!r} "
+                    "(quantized pages only scatter into a matching "
+                    "quantized pool)")
+            if not kvq.page_shape_ok(rows, want):
+                raise MigrationError(
+                    f"page shape != expected {want} "
+                    "(mismatched model or page size)")
+        keys = page_chain_hashes(tokens, ps)[start:start + k]
+        seq_id = next(self._seq_ids)
+        self.allocator.allocate_extra(seq_id, k)  # OutOfPages → caller
+        t0 = time.monotonic()
+        page_ids = self.allocator.pages(seq_id)
+        self._import_pages_dev(page_ids, pages_data)
+        self.stats.kv_import_ms += 1e3 * (time.monotonic() - t0)
+        self.prefix_cache.insert(keys, page_ids)
+        self._purge_spilled(keys)
+        # registered pages park evictable; those whose key was already
+        # cached here were skipped by insert and go back to the free stack
+        self.allocator.free(seq_id)
+        if source == "fetch":
+            self.stats.kv_fetches_in += 1
+            self.stats.kv_fetch_pages_in += k
+        elif source == "migration":
+            self.stats.migrations_in += 1
+            self.stats.migration_pages_in += k
+        logger.info("imported %d pages for a %d-token chain (%s)", k,
+                    len(tokens), source)
+        return k
+
+    # -- the offline batch class ----------------------------------------------
+    def _batch_ceiling(self) -> int:
+        """The most decode slots the batch class may hold at once."""
+        return max(1, int(self.cfg.batch_slot_frac
+                          * self.cfg.max_batch_size))
+
+    def _batch_active(self) -> int:
+        return sum(1 for s in self._slots
+                   if s is not None and s.req.priority == "batch")
+
+    def _park_batch_slot(self, idx: int) -> bool:
+        """The second preemption rung: cut a live batch slot off the
+        device through the export and keep it host-side (pages, blob and
+        the still-attached consumer) until interactive stops wanting the
+        slot. True when the slot is free afterwards; False when the
+        session cannot park (no token yet, logprobs, a grammar, or no
+        refcounted allocator): try another victim."""
+        s = self._slots[idx]
+        if s is None:
+            return True
+        req = s.req
+        if (not isinstance(self.allocator, RefcountedAllocator)
+                or req.emit_lp is not None or req.constraint is not None
+                or s.generated < 1):
+            return False
+        self._drain_inflight()
+        self._apply_frees()
+        s = self._slots[idx]
+        if s is None or s.req is not req:
+            return True  # finished while the window settled
+        if req.trace is not None:
+            req.trace.engine_finish("parked")
+        entry = self._export_cut(idx)
+        entry["emit"] = req.emit
+        entry["cancelled"] = req.cancelled
+        # while parked the pages live in host memory: host page-byte-
+        # seconds, folded into the carry at resume
+        entry["meter_sink"] = req.meter_sink
+        entry["parked_at"] = time.monotonic()
+        entry["park_bytes"] = len(entry["data"]) * self.kv_page_bytes
+        self._parked_batch.append(entry)
+        self.stats.batch_preemptions += 1
+        logger.info("parked batch seq %d (%d pages) for interactive "
+                    "admission", req.id, len(entry["data"]))
+        return True
+
+    def _preempt_batch(self) -> bool:
+        """Park live batch slots so waiting interactive requests admit (at
+        most one per waiting request); True when a slot freed."""
+        want = self._queue.qsize()
+        if want <= 0:
+            return False
+        freed = 0
+        for i, s in enumerate(self._slots):
+            if freed >= want:
+                break
+            if (s is not None and s.req.priority == "batch"
+                    and self._park_batch_slot(i)):
+                freed += 1
+        return freed > 0
+
+    def _admit_batch_tier(self) -> bool:
+        """Admit offline work into slots interactive leaves idle: after
+        the interactive pass, only while the interactive queue is empty,
+        never past the batch ceiling. Parked sessions resume first,
+        oldest first: their pages go back into the pool through the
+        import, and the continuation adopts them and resumes at its
+        offset, byte-identical to an uninterrupted run. Queued batch
+        requests go through the fairness guard, per request."""
+        admitted = False
+        while True:
+            if self._queue.qsize() > 0:
+                break  # interactive wants the slots
+            room = min(self._free_slot_count(),
+                       self._batch_ceiling() - self._batch_active())
+            if room <= 0:
+                break
+            if self._parked_batch:
+                park = self._parked_batch[0]
+                if park["cancelled"].is_set():
+                    # a cancel finish: its consumer is still waiting
+                    self._meter_parked(park, "cancelled")
+                    park["emit"](-1, "cancelled")
+                    self._parked_batch.pop(0)
+                    continue
+                try:
+                    self._do_import(
+                        [int(t) for t in park["blob"]["tokens"]],
+                        park["data"], 0, "parked")
+                except (MigrationError, OutOfPagesError):
+                    break  # page pressure: a later pass retries
+                carry = park["blob"].get("meter")
+                if carry is not None:
+                    # close the parked dwell into the carry, and re-anchor
+                    # it in case this entry parks again below
+                    now = time.monotonic()
+                    carry["host_page_byte_s"] = round(
+                        float(carry.get("host_page_byte_s", 0.0))
+                        + (now - park.get("parked_at", now))
+                        * park.get("park_bytes", 0), 6)
+                    park["parked_at"] = now
+                req = continuation_request(park["blob"], emit=park["emit"])
+                req.cancelled = park["cancelled"]
+                req.meter_sink = park.get("meter_sink")
+                self._parked_batch.pop(0)
+                _ok, chain = self._classify(req)
+                r = self._admit_one(req, chain)
+                if r == "admitted":
+                    admitted = True
+                    self.stats.batch_resumed += 1
+                elif r == "stop":
+                    # page pressure mid-admission: the imported pages stay
+                    # cached; park again and retry later
+                    self._parked_batch.insert(0, park)
+                    break
+                elif r == "stop_consumed":
+                    break
+                continue
+            pending: list[GenRequest] = []
+            try:
+                while len(pending) < room:
+                    pending.append(self._batch_q.get_nowait())
+            except queue.Empty:
+                pass
+            if not pending:
+                break
+            admit, requeue, capped = self._fair_admission(pending, room)
+            self.stats.tenant_deferrals += capped
+            stop = False
+            unhandled: list[GenRequest] = []
+            for j, req in enumerate(admit):
+                if req.cancelled.is_set():
+                    self._meter_zero(req, "cancelled")
+                    req.emit(-1, "cancelled")
+                    continue
+                _ok, chain = self._classify(req)
+                r = self._admit_one(req, chain)
+                if r == "admitted":
+                    admitted = True
+                elif r in ("stop", "stop_consumed"):
+                    if r == "stop":
+                        unhandled.append(req)
+                    unhandled.extend(admit[j + 1:])
+                    stop = True
+                    break
+            if unhandled or requeue:
+                self._requeue_batch_front(unhandled + requeue)
+            if stop or requeue:
+                break
+        return admitted
+
+    def _requeue_batch_front(self, reqs: list[GenRequest]) -> None:
+        items = list(reqs)
+        try:
+            while True:
+                items.append(self._batch_q.get_nowait())
+        except queue.Empty:
+            pass
+        for it in items:
+            self._batch_q.put(it)
 
     # -- engine loop --------------------------------------------------------
     def _run(self) -> None:
@@ -982,7 +1660,10 @@ class Engine:
         while not self._stop.is_set():
             try:
                 self._reap_cancelled()
+                self._process_migrations()
                 admitted = self._admit()
+                # the offline class soaks what interactive left idle
+                admitted |= self._admit_batch_tier()
                 worked = self._decode_tick()
                 if self._stop.is_set():
                     self._drain_inflight()
@@ -1017,11 +1698,24 @@ class Engine:
                 self.allocator.free(s.req.id)
                 self._release_adapter_row(s.adapter_row)
                 self._slots[i] = None
+        for q in (self._queue, self._batch_q):
+            try:
+                while True:
+                    req = q.get_nowait()
+                    self._meter_zero(req, "error")
+                    req.emit(-1, "error")
+            except queue.Empty:
+                pass
+        for park in self._parked_batch:
+            self._meter_parked(park, "error")
+            park["emit"](-1, "error")
+        self._parked_batch.clear()
+        # waiting export/import callers must not hang until their timeout
         try:
             while True:
-                req = self._queue.get_nowait()
-                self._meter_zero(req, "error")
-                req.emit(-1, "error")
+                _kind, _payload, box = self._mig_q.get_nowait()
+                box["error"] = f"engine aborted: {reason}"
+                box["evt"].set()
         except queue.Empty:
             pass
 
@@ -1123,7 +1817,13 @@ class Engine:
         while True:
             free = self._free_slot_count()
             if free == 0:
-                break
+                # interactive arrivals on a full table reclaim slots from
+                # the batch class: its sessions park host-side
+                if not self._preempt_batch():
+                    break
+                free = self._free_slot_count()
+                if free == 0:
+                    break
             pending: list[GenRequest] = []
             self._pop_pending(pending, free)
             if not pending:
@@ -1244,11 +1944,20 @@ class Engine:
             hits = len(self.prefix_cache.probe(chain))
             if min(hits, n // self.cfg.page_size) > 0:
                 return False, chain
+            if (self.host_tier is not None and hits < len(chain)
+                    and self.host_tier.contains(chain[hits])):
+                # the chain goes on in the spill tier: the per-request
+                # path revives it and resumes
+                return False, chain
         if req.adapter and not self._adapter_known(req.adapter):
             return False, chain  # the per-request path reports the error
         if req.constraint is not None:
             # the grammar's initial mask goes into the prefill's bias
             # row: the per-request path builds it
+            return False, chain
+        if req.import_state is not None:
+            # a continuation's key and penalty state is threaded only by
+            # the per-request path
             return False, chain
         return True, chain
 
@@ -1294,6 +2003,7 @@ class Engine:
                 self.prefix_cache.insert(
                     chain, self.allocator.pages(r.seq_id),
                     tokens=r.req.prompt)
+                self._purge_spilled(chain)
             slot_idx = self._slots.index(None)
             self._slots[slot_idx] = _Slot(
                 req=r.req, pos=r.n - 1, generated=0,
@@ -1355,6 +2065,11 @@ class Engine:
         cached_pages: list[int] = []
         full_hit = False
         if self.prefix_cache is not None and chain:
+            if self.host_tier is not None:
+                # promote a spilled run extending the resident prefix
+                # back into the pool first: the probe then adopts it like
+                # any cached prefix
+                self._revive_chain(chain)
             hit_pages = self.prefix_cache.probe(chain)
             hits = min(len(hit_pages), n // ps)
             full_hit = hits > 0 and hits * ps == n
@@ -1460,6 +2175,7 @@ class Engine:
         t_first = time.monotonic()
         if self.prefix_cache is not None and chain:
             self.prefix_cache.insert(chain, pages, tokens=req.prompt)
+            self._purge_spilled(chain)
         # speculative drafts: when the radix chain remembers what followed
         # this prefix, one page of it becomes the slot's lookahead buffer
         ctrl = self._make_ctrl(req)
@@ -1472,6 +2188,12 @@ class Engine:
                 la_tokens = cont[1]
                 self.stats.spec_lookahead_slots += 1
         req.prefix_reused = prefix_len
+        # a continuation: the generated tokens riding in the prompt's tail
+        # keep counting toward the repetition penalties
+        ims = req.import_state or {}
+        counts: dict[int, int] = {}
+        for t in req.prompt[int(ims.get("orig_prompt_len", n)):]:
+            counts[t] = counts.get(t, 0) + 1
         slot_idx = self._slots.index(None)
         # metering: the padded volume from the calls' padded share, the
         # reference's formula for every prefill path
@@ -1482,11 +2204,12 @@ class Engine:
         # of the just-sampled first token
         self._slots[slot_idx] = _Slot(
             req=req, pos=n - 1, generated=0,
-            key_seed=req.sampling.seed or seq_id, limit=total,
-            page_row=page_row, ctrl=ctrl, la_base=la_base,
-            la_tokens=la_tokens, cn=cn, adapter_row=adapter_row,
-            m_prefill_real=ns, m_prefill_padded=m_padded,
-            m_prefix_reused=prefix_len, m_res_t0=time.monotonic())
+            key_seed=self.first_key(req, seq_id)[0], limit=total,
+            page_row=page_row, token_counts=counts, ctrl=ctrl,
+            la_base=la_base, la_tokens=la_tokens, cn=cn,
+            adapter_row=adapter_row, m_prefill_real=ns,
+            m_prefill_padded=m_padded, m_prefix_reused=prefix_len,
+            m_res_t0=time.monotonic(), m_carry=ims.get("meter_carry"))
         self._mark_admitted(slot_idx)
         if cn is not None:
             # counted at admission (a requeue under page pressure must
@@ -1499,6 +2222,16 @@ class Engine:
         self.stats.first_emit_ms += first_emit_ms
         self.phases.observe("first_emit", first_emit_ms, trace_id_of(req))
         return "admitted"
+
+    @staticmethod
+    def first_key(req: GenRequest, seq_id: int) -> tuple[int, int]:
+        """(seed, counter) of the key a request's first token samples
+        with: ``[seed or seq_id, 0]``, or for a continuation the key the
+        solo run would use at the cut (its import_state's seed, and the
+        position of the pending token, len(prompt) - 1)."""
+        ims = req.import_state or {}
+        seed = int(ims.get("key_seed") or (req.sampling.seed or seq_id))
+        return seed, int(ims.get("key_counter", 0))
 
     def _copy_page_dev(self, src: int, dst: int) -> None:
         """Clone one KV page on the device (copy-on-write of a full hit's
@@ -1999,17 +2732,20 @@ class Engine:
         req = s.req
         s.generated += 1
         if s.generated == 1:
-            # engine-side TTFT: arrival to the first sampled token (every
-            # request of the port is interactive: no batch tier yet)
+            # engine-side TTFT: arrival to the first sampled token, of
+            # interactive requests only (the histogram feeds the SLO
+            # monitor and the picker's TTFT price; offline work queuing
+            # for minutes is by design)
             s.first_emit_at = time.monotonic()
-            self.phases.observe("ttft",
-                                1e3 * (s.first_emit_at - req.enqueued_at),
-                                trace_id_of(req))
+            if req.priority != "batch":
+                self.phases.observe(
+                    "ttft", 1e3 * (s.first_emit_at - req.enqueued_at),
+                    trace_id_of(req))
             if req.trace is not None:
                 req.trace.first_token()
         finish: str | None = None
         send_tok = tok
-        if tok in self.eos:
+        if tok in self.eos or tok in req.stop_token_ids:
             finish = "stop"
             send_tok = -1
         else:
@@ -2027,6 +2763,8 @@ class Engine:
         else:
             req.emit_lp(send_tok, finish, lp[0], lp[1])
         self.stats.tokens_generated += 1
+        if req.priority == "batch":
+            self.stats.batch_tokens += 1
         if finish is not None:
             if s.generated > 1 and s.first_emit_at:
                 self.phases.observe(
@@ -2051,6 +2789,10 @@ class Engine:
     # _meter_emit, so a ledger of the records reconciles against /state
     # token for token.
 
+    _METER_SUM_KEYS = ("prefill_real", "prefill_padded", "prefix_reused",
+                       "decode_tokens", "spec_drafted", "spec_accepted",
+                       "segments")
+
     def _meter_fold(self, s: _Slot) -> dict:
         """Slot ``s``'s accumulators as one meter dict (the terminal
         record adds schema and finish). HBM residency: the slot's pages x
@@ -2058,7 +2800,7 @@ class Engine:
         req = s.req
         hbm = ((time.monotonic() - s.m_res_t0)
                * len(self.allocator.pages(req.id)) * self.kv_page_bytes)
-        return {
+        rec = {
             "prefill_real": s.m_prefill_real,
             "prefill_padded": s.m_prefill_padded,
             "prefix_reused": s.m_prefix_reused,
@@ -2071,6 +2813,18 @@ class Engine:
             "tenant": req.tenant,
             "priority": req.priority,
         }
+        c = s.m_carry
+        if c:
+            # a resumed session: the earlier segments' meter, so the
+            # spliced stream meters once, at its real end
+            for key in self._METER_SUM_KEYS:
+                rec[key] += int(c.get(key, 0))
+            rec["hbm_page_byte_s"] = round(
+                rec["hbm_page_byte_s"]
+                + float(c.get("hbm_page_byte_s", 0.0)), 6)
+            rec["host_page_byte_s"] = round(
+                float(c.get("host_page_byte_s", 0.0)), 6)
+        return rec
 
     def _meter_emit(self, rec: dict, sink) -> None:
         """The one place the meter counters move and a record reaches
@@ -2100,13 +2854,27 @@ class Engine:
 
     def _meter_zero(self, req: GenRequest, finish: str) -> None:
         """The terminal record of a request that never held a slot
-        (cancelled while queued, an unknown adapter, an engine abort)."""
-        self._meter_emit({
-            "schema": 1, "finish": finish, "prefill_real": 0,
-            "prefill_padded": 0, "prefix_reused": 0, "decode_tokens": 0,
-            "spec_drafted": 0, "spec_accepted": 0, "hbm_page_byte_s": 0.0,
-            "host_page_byte_s": 0.0, "segments": 0, "tenant": req.tenant,
-            "priority": req.priority}, req.meter_sink)
+        (cancelled while queued, an unknown adapter, an engine abort):
+        zeros, or a queued continuation's carried meter."""
+        c = (req.import_state or {}).get("meter_carry") or {}
+        self._meter_emit(_carry_record(
+            c, finish, req.tenant, req.priority,
+            float(c.get("host_page_byte_s", 0.0))), req.meter_sink)
+
+    def _meter_parked(self, park: dict, finish: str) -> None:
+        """The terminal record of a parked session that never resumes
+        (cancelled while parked, an engine abort): its carry plus the
+        host residency accrued while parked."""
+        blob = park["blob"]
+        c = dict(blob.get("meter") or {})
+        now = time.monotonic()
+        host = (float(c.get("host_page_byte_s", 0.0))
+                + (now - park.get("parked_at", now))
+                * park.get("park_bytes", 0))
+        self._meter_emit(_carry_record(
+            c, finish, str(blob.get("tenant", "")),
+            str(blob.get("priority", "batch")), host),
+            park.get("meter_sink"))
 
     def _refresh_device_stats(self) -> None:
         """The engine's device: on CUDA its memory (``mem_get_info``),
@@ -2141,7 +2909,24 @@ class Engine:
 
     def _refresh_stats(self) -> None:
         st = self.stats
+        # ``queued`` is interactive depth only (the picker prices it);
+        # the offline backlog rides the batch pair
         st.queued = self._queue.qsize()
+        st.batch_queued = self._batch_q.qsize() + len(self._parked_batch)
+        st.batch_active = self._batch_active()
+        young = self.cfg.migration_young_tokens
+        st.migratable_slots = sum(
+            1 for s in self._slots
+            if s is not None and s.generated >= 1
+            and (young <= 0 or s.generated <= young))
+        if self.host_tier is not None:
+            tier = self.host_tier
+            st.kv_spills = tier.spills
+            st.kv_revives = tier.revives
+            st.kv_spill_evictions = tier.evictions
+            st.kv_spilled_pages = tier.count
+            st.kv_spill_bytes = tier.bytes_used
+            st.kv_host_bytes = tier.max_bytes
         st.constrained_slots = sum(
             1 for s in self._slots if s is not None and s.cn is not None)
         st.constraint_grammars = constrain.grammar_cache_size()
@@ -2188,6 +2973,9 @@ class Engine:
         st.kv_pool_bytes = self.cfg.num_pages * self.kv_page_bytes
         st.kv_bytes_in_use = round(st.kv_pool_bytes * st.kv_occupancy)
         now = time.monotonic()
+        if self.prefix_cache is not None and now >= self._kv_digest_next:
+            self._kv_digest_next = now + 0.5
+            self._refresh_kv_digest()
         if now >= self._mem_next:
             self._mem_next = now + 0.5  # a CUDA query: not every tick
             self._refresh_device_stats()
@@ -2196,3 +2984,66 @@ class Engine:
             st.queue_wait_ms = 1e3 * (now - head.enqueued_at)
         except IndexError:
             st.queue_wait_ms = 0.0
+
+
+def _carry_record(c: dict, finish: str, tenant: str, priority: str,
+                  host_pbs: float) -> dict:
+    """A terminal MeterRecord made of a carried meter alone (all zeros
+    without one)."""
+    return {
+        "schema": 1, "finish": finish,
+        "prefill_real": int(c.get("prefill_real", 0)),
+        "prefill_padded": int(c.get("prefill_padded", 0)),
+        "prefix_reused": int(c.get("prefix_reused", 0)),
+        "decode_tokens": int(c.get("decode_tokens", 0)),
+        "spec_drafted": int(c.get("spec_drafted", 0)),
+        "spec_accepted": int(c.get("spec_accepted", 0)),
+        "hbm_page_byte_s": round(float(c.get("hbm_page_byte_s", 0.0)), 6),
+        "host_page_byte_s": round(host_pbs, 6),
+        "segments": int(c.get("segments", 0)),
+        "tenant": tenant, "priority": priority}
+
+
+def continuation_request(blob: dict,
+                         emit: Callable[[int, str | None], None]
+                         = lambda t, f: None,
+                         trace: Any = None) -> GenRequest:
+    """The GenRequest that resumes an exported session from its blob
+    (the one reading of the wire format, shared by ``/migrate/import``,
+    the batch resume and the tests). The prompt is the whole token
+    history; import_state restores the key, penalty and meter state, so
+    the resumed stream equals a solo run's."""
+    sp = blob.get("sampling") or {}
+    sampling = SamplingParams(
+        temperature=float(sp.get("temperature", 1.0)),
+        top_p=float(sp.get("top_p", 1.0)),
+        top_k=int(sp.get("top_k", 0)),
+        seed=int(sp.get("seed", 0)),
+        frequency_penalty=float(sp.get("frequency_penalty", 0.0)),
+        presence_penalty=float(sp.get("presence_penalty", 0.0)),
+        logit_bias=tuple((int(t), float(b))
+                         for t, b in (sp.get("logit_bias") or ())),
+    )
+    tokens = [int(t) for t in blob["tokens"]]
+    return GenRequest(
+        prompt=tokens,
+        max_tokens=int(blob["max_tokens"]),
+        sampling=sampling,
+        stop_token_ids=tuple(int(t) for t in
+                             (blob.get("stop_token_ids") or ())),
+        emit=emit,
+        adapter=str(blob.get("adapter", "")),
+        tenant=str(blob.get("tenant", "")),
+        priority=str(blob.get("priority", "interactive")),
+        import_state={
+            "orig_prompt_len": int(blob.get("orig_prompt_len",
+                                            len(tokens))),
+            "generated": int(blob.get("generated", 0)),
+            "key_seed": int(blob.get("key_seed", 0)),
+            # the pending token at the cut sat at position m - 1: the
+            # resume's first sample uses its key
+            "key_counter": len(tokens) - 1,
+            "meter_carry": blob.get("meter"),
+        },
+        trace=trace,
+    )

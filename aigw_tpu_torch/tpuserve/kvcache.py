@@ -10,14 +10,20 @@ cache: full prompt pages are registered under chained content hashes
 (``page_chain_hashes``, byte for byte the reference's keys), shared
 read-only between sequences by refcount, and parked in an LRU pool of
 evictable pages when their last reference goes, revivable by a later hit
-until a fresh allocation reclaims them. The reference's migration export
-pins and host spill tier wait for KV mobility (ROADMAP queue 1).
+until a fresh allocation reclaims them. ``begin_export``/``end_export``
+pin the pages of a migration export or a fleet fetch while their rows are
+copied off the device, and ``PrefixCache.spill_sink`` (the engine's host
+spill tier, ``tpuserve/kvhost.py``) hears each registered page the
+moment it is reclaimed, before its registration drops.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 from dataclasses import dataclass, field
+
+logger = logging.getLogger(__name__)
 
 
 def page_chain_hashes(
@@ -188,6 +194,24 @@ class RefcountedAllocator(PageAllocator):
         self._release_page(page)
         return fresh
 
+    def begin_export(self, pages: list[int]) -> list[int]:
+        """Pin ``pages`` for an export: each gains a reference and leaves
+        the evictable pool, so no free, eviction or copy-on-write hands
+        one out while its rows are copied off the device (the owner may
+        finish, cancel or be cut meanwhile). Returns the pin for
+        :meth:`end_export`."""
+        for p in pages:
+            self._refs[p] = self._refs.get(p, 0) + 1
+            self._evictable.pop(p, None)
+        return list(pages)
+
+    def end_export(self, pin: list[int]) -> None:
+        """Release an export pin: each page drops one reference and
+        rejoins the normal lifecycle (registered pages park evictable,
+        others return to the free stack)."""
+        for p in pin:
+            self._release_page(p)
+
     def truncate_to(self, seq_id: int, n_tokens: int) -> list[tuple]:
         """The speculative path's write invariant: every owned page
         overlapping positions ``[n_tokens, ∞)`` must be privately
@@ -249,6 +273,12 @@ class PrefixCache:
         self._next_tokens: dict[bytes, list[int]] = {}
         #: entries reclaimed under pool pressure (monotonic counter)
         self.evictions = 0
+        # called as sink(chain key, page id) when a registered page is
+        # reclaimed, before its registration drops, while its rows are
+        # still the chain's: the engine's host spill. It runs inside the
+        # allocator's _pop_page, so the page reaches its new owner only
+        # after the spill's copy has landed
+        self.spill_sink = None
         allocator._prefix_cache = self
         allocator.set_evict_callback(self._evicted)
 
@@ -312,5 +342,11 @@ class PrefixCache:
         page = self._by_key.pop(key, None)
         self._next_tokens.pop(key, None)
         if page is not None:
+            if self.spill_sink is not None:
+                try:
+                    self.spill_sink(key, page)
+                except Exception:  # noqa: BLE001 — a failed spill is a
+                    # plain eviction; admission must go on
+                    logger.exception("KV spill failed for page %d", page)
             self._key_by_page.pop(page, None)
             self.evictions += 1

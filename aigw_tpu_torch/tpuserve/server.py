@@ -52,14 +52,35 @@ even with tracing off); ``GET /debug/profile?seconds=N`` (opt-in), a
 ``usage`` carries the engine's MeterRecord as ``aigw_meter``, and
 ``/state`` the ``meter_*`` totals.
 
+KV mobility: ``POST /migrate/export`` cuts a live stream (by its
+``x-aigw-request-id``) at a token boundary and answers its pages and
+state, the source's stream ending without terminal frames; ``POST
+/migrate/import`` adopts them and streams the continuation under the
+original response id, its usage counting the whole session. ``POST
+/kv/pages`` serves pages by chain key to a sibling, and a request naming
+siblings in ``x-aigw-kv-peers`` fetches the prompt's missing leading
+pages from them before admission (best effort: a dead peer means a cold
+prefill, counted in ``kv_fetch_failures``). Every response names its
+prompt's first chain key in ``x-aigw-kv-chain``, and ``/state`` carries
+``kv_chains`` and the spill tier's and the fetch's keys. Pages travel as
+``encode_wire_page`` writes them, byte for byte the reference's wire, so
+a reference replica and a port replica exchange pages.
+
+The offline batch tier: ``POST /v1/files`` (a raw JSONL body), ``GET
+/v1/files/{id}/content``, and ``/v1/batches`` create, list, get and
+cancel run each line at priority ``batch`` (also the ``x-aigw-priority:
+batch`` header's class), which the engine admits only into slots
+interactive work leaves idle, parks when interactive arrivals need them
+and resumes byte-identically.
+
 The server is ``http.server.ThreadingHTTPServer``: one thread per
 connection, each waiting on its request's token queue, which the engine
-thread fills. Embeddings, batches, migration and KV pages wait for later
-slices (ROADMAP queue 1).
+thread fills. Embeddings wait for a later slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import logging
 import os
@@ -67,10 +88,14 @@ import queue
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
+import numpy as np
 import torch
 
 from aigw_tpu_torch.device import device_name, resolve_device
@@ -92,7 +117,10 @@ from aigw_tpu_torch.tpuserve.engine import (
     EngineConfig,
     EngineOverloadedError,
     GenRequest,
+    MigrationError,
+    continuation_request,
 )
+from aigw_tpu_torch.tpuserve.kvcache import page_chain_hashes
 from aigw_tpu_torch.tpuserve.sampling import SamplingParams
 from aigw_tpu_torch.tpuserve.tokenizer import (
     StreamingDecoder,
@@ -108,8 +136,73 @@ _PARAM_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: read into GenRequest.tenant for the engine's fairness guard
 TENANT_HEADER = "x-aigw-tenant"
 
+#: the priority class header: "batch" rides the engine's offline queue
+#: (never shed); anything else is interactive
+PRIORITY_HEADER = "x-aigw-priority"
+
+#: sibling replicas ("host:port", comma-separated) the gateway believes
+#: hold KV for the prompt's chain: their pages are fetched over /kv/pages
+#: and imported before admission
+KV_PEERS_HEADER = "x-aigw-kv-peers"
+
+#: response header: the served prompt's first chain key, from which the
+#: gateway learns prefix head → chain
+KV_CHAIN_HEADER = "x-aigw-kv-chain"
+
+#: the fleet fetch's bounds: peers tried per request, pages per fetch,
+#: and each peer's HTTP budget (a slow sibling delays admission by a
+#: bounded amount, and the cold prefill is always the way on)
+KV_PEERS_MAX = 3
+KV_FETCH_MAX_PAGES = 64
+KV_FETCH_TIMEOUT_S = 10.0
+
 #: the longest /debug/profile capture window, seconds
 PROFILE_MAX_SECONDS = 30.0
+
+#: the error a draining replica answers new work with
+_DRAIN_MSG = ("replica is draining (shutting down or being retired); "
+              "retry against another replica")
+_DRAIN_HEADERS = {"retry-after": "2", "x-aigw-draining": "1"}
+
+
+def encode_wire_page(d) -> dict:
+    """Host page (``models/kvq.py``) → JSON-able wire dict, the
+    reference's bytes: a native page as float32 (``b64``, ``shape``); a
+    quantized page at its own dtype (int4 one element per byte) with
+    ``dtype`` and its float32 scales (``scale_b64``, ``scale_shape``),
+    never re-rounded."""
+    if isinstance(d, dict):
+        q = np.ascontiguousarray(np.asarray(d["q"]))
+        sc = np.ascontiguousarray(np.asarray(d["scale"]), dtype=np.float32)
+        return {
+            "b64": base64.b64encode(q.tobytes()).decode(),
+            "shape": list(q.shape),
+            "dtype": str(d["dtype"]),
+            "scale_b64": base64.b64encode(sc.tobytes()).decode(),
+            "scale_shape": list(sc.shape),
+        }
+    arr = (d.float().numpy() if isinstance(d, torch.Tensor)
+           else np.asarray(d, np.float32))
+    arr = np.ascontiguousarray(arr, dtype=np.float32)
+    return {"b64": base64.b64encode(arr.tobytes()).decode(),
+            "shape": list(arr.shape)}
+
+
+def decode_wire_page(p: dict):
+    """Inverse of :func:`encode_wire_page` → a host page (raises
+    KeyError or ValueError on a malformed one: the caller's 400)."""
+    dt = p.get("dtype")
+    if dt:
+        np_dt = {"int8": np.int8, "int4": np.uint8}[str(dt)]
+        q = np.frombuffer(base64.b64decode(p["b64"]),
+                          np_dt).reshape(p["shape"])
+        scale = np.frombuffer(base64.b64decode(p["scale_b64"]),
+                              np.float32).reshape(p["scale_shape"])
+        return {"q": torch.from_numpy(q.copy()),
+                "scale": torch.from_numpy(scale.copy()), "dtype": str(dt)}
+    arr = np.frombuffer(base64.b64decode(p["b64"]),
+                        np.float32).reshape(p["shape"])
+    return torch.from_numpy(arr.copy())
 
 
 def _find_stop(text: str, stop_strs: list[str]) -> int | None:
@@ -127,14 +220,17 @@ class TPUServeServer:
                  param_dtype: str = "bfloat16", quantize: str = "",
                  lora_adapters: dict[str, dict] | None = None,
                  lora_slots: int = 0, flight_entries: int = 256,
-                 enable_profile_endpoint: bool = False):
+                 enable_profile_endpoint: bool = False,
+                 params: dict[str, torch.Tensor] | None = None):
         """``lora_adapters``: name → one adapter's tensors (``[r, in]`` /
         ``[out, r]`` per target), the zoo, of which ``lora_slots`` are
         resident on the device at a time (0 = one row per adapter).
         ``flight_entries``: the flight recorder's ring. The
         ``/debug/profile`` route answers 404 unless
         ``enable_profile_endpoint``. Tracing follows the ``OTEL_*``
-        environment (service name ``tpuserve`` unless it sets one)."""
+        environment (service name ``tpuserve`` unless it sets one).
+        ``params``: weights to serve instead of drawing random ones (a
+        second replica in one process sharing a first's tensors)."""
         self.device = resolve_device(device)
         self.model_name = model
         spec = get_model_spec(model)
@@ -147,24 +243,17 @@ class TPUServeServer:
                 f"weights {spec.weights!r}: checkpoint loading is not "
                 "ported yet (ROADMAP queue 1: checkpoints); register a "
                 "weights='random' spec")
-        logger.info("initializing random %s weights for %s on %s",
-                    param_dtype, spec.name, self.device)
         if quantize not in ("", "int8", "int4"):
             raise ValueError(f"unknown quantization {quantize!r}")
-        # drawn one tensor at a time and, with --quantize, quantized as
-        # drawn: the peak is the quantized model plus one bf16 tensor
-        # (Mixtral-8x7B's bf16 weights do not fit one 80 GB card)
-        params: dict[str, torch.Tensor] = {}
-        for name, w in self.fns.iter_params(0, self.model_cfg,
-                                            _PARAM_DTYPES[param_dtype],
-                                            self.device):
-            params.update(quantize_params({name: w}, consume=True,
-                                          mode=quantize)
-                          if quantize else {name: w})
-            del w
-        if quantize:
-            logger.info("weights quantized to %s (W%sA16)", quantize,
-                        quantize[-1])
+        if params is None:
+            logger.info("initializing random %s weights for %s on %s",
+                        param_dtype, spec.name, self.device)
+            params = self._draw_params(param_dtype, quantize)
+            if quantize:
+                logger.info("weights quantized to %s (W%sA16)", quantize,
+                            quantize[-1])
+        elif quantize:
+            raise ValueError("pass quantized params, or quantize, not both")
         self.adapter_store: AdapterStore | None = None
         if lora_adapters:
             if spec.family != "llama":
@@ -190,9 +279,37 @@ class TPUServeServer:
         self.draining = False
         # generation responses in flight: response id → streamed
         self._live: dict[str, bool] = {}
+        # streams /migrate/export can cut: response id → (request, the
+        # continuation's stream meta); a stream leaves at its end
+        self._exportable: dict[str, tuple[GenRequest, dict]] = {}
+        # fleet fetches that got nothing from a peer or failed to import
+        # (the request then prefilled cold); handler threads count them
+        self.kv_fetch_failures = 0
+        self._fetch_lock = threading.Lock()
+        # the batch tier: the in-memory file store (JSONL in and out),
+        # batch objects, and each batch's requests in flight
+        self._files: dict[str, bytes] = {}
+        self._batches: dict[str, dict] = {}
+        self._batch_live: dict[str, list[GenRequest]] = {}
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self._http_thread: threading.Thread | None = None
+
+    def _draw_params(self, param_dtype: str, quantize: str
+                     ) -> dict[str, torch.Tensor]:
+        """Random weights drawn one tensor at a time and, with a
+        quantization, quantized as drawn: the peak is the quantized
+        model plus one bf16 tensor (Mixtral-8x7B's bf16 weights do not
+        fit one 80 GB card)."""
+        params: dict[str, torch.Tensor] = {}
+        for name, w in self.fns.iter_params(0, self.model_cfg,
+                                            _PARAM_DTYPES[param_dtype],
+                                            self.device):
+            params.update(quantize_params({name: w}, consume=True,
+                                          mode=quantize)
+                          if quantize else {name: w})
+            del w
+        return params
 
     @property
     def port(self) -> int:
@@ -380,9 +497,36 @@ class TPUServeServer:
             "tenant_max_slots": s.tenant_max_slots,
             "tenant_deferrals": s.tenant_deferrals,
             "tenant_slot_cap": cfg.tenant_slot_cap,
+            # the offline batch class (the picker reads queued, active
+            # and preemptions; ``queued`` above stays interactive)
+            "batch_queued": s.batch_queued,
+            "batch_active": s.batch_active,
+            "batch_preemptions": s.batch_preemptions,
+            "batch_resumed": s.batch_resumed,
+            "batch_tokens": s.batch_tokens,
+            "batch_slot_frac": cfg.batch_slot_frac,
+            # KV mobility: migrations and their pages, live young slots,
+            # the spill tier, the fleet fetch, and the chain digest the
+            # gateway's fleet index polls
+            "migrations_out": s.migrations_out,
+            "migrations_in": s.migrations_in,
+            "migration_pages_out": s.migration_pages_out,
+            "migration_pages_in": s.migration_pages_in,
+            "migratable_slots": s.migratable_slots,
+            "kv_spills": s.kv_spills,
+            "kv_revives": s.kv_revives,
+            "kv_spill_evictions": s.kv_spill_evictions,
+            "kv_spilled_pages": s.kv_spilled_pages,
+            "kv_spill_bytes": s.kv_spill_bytes,
+            "kv_host_bytes": s.kv_host_bytes,
+            "kv_fetches_out": s.kv_fetches_out,
+            "kv_fetches_in": s.kv_fetches_in,
+            "kv_fetch_pages_out": s.kv_fetch_pages_out,
+            "kv_fetch_pages_in": s.kv_fetch_pages_in,
+            "kv_chains": list(eng.kv_chain_digest()),
             "enable_prefix_cache": cfg.enable_prefix_cache,
             "defaults_differ": dict(DEFAULTS_DIFFER),
-            "migration": False,
+            "migration": eng.migratable,
             # serving-phase latency distributions (p50/p95/p99 per
             # phase; -1 = no observations yet): the picker's TTFT
             # prediction reads the prefill and ttft p50
@@ -431,6 +575,327 @@ class TPUServeServer:
                 break
             time.sleep(poll_s)
         return self.drained()
+
+    # -- KV mobility ----------------------------------------------------------
+    def prefix_hashes(self, prompt: list[int]) -> list | None:
+        """The prompt's chain keys at the engine's page size (None with
+        the prefix cache off)."""
+        if self.engine.prefix_cache is None:
+            return None
+        return page_chain_hashes(prompt, self.engine.cfg.page_size)
+
+    @staticmethod
+    def kv_chain_header(hashes: list | None) -> dict[str, str]:
+        """``x-aigw-kv-chain``: the prompt's first chain key (none for a
+        prompt without a full page: nothing shareable)."""
+        if not hashes:
+            return {}
+        return {KV_CHAIN_HEADER: hashes[0].hex()}
+
+    def migrate_export(self, body: dict[str, Any]) -> tuple[int, bytes]:
+        """``POST /migrate/export``: cut the live stream ``request_id``
+        and answer its blob and wire pages; its own stream then ends with
+        no terminal frames. 404 for an id that is not an exportable live
+        stream; 409 when the engine refuses (the session serves on)."""
+        rid = str(body.get("request_id", ""))
+        live = self._exportable.get(rid)
+        if live is None:
+            return 404, oai.error_body(
+                f"request {rid!r} is not an exportable live stream")
+        gen_req, meta = live
+        try:
+            out = self.engine.migrate_export(gen_req)
+        except (MigrationError, TimeoutError) as e:
+            return 409, oai.error_body(str(e))
+        blob = out["blob"]
+        blob["meta"] = meta
+        pages = [encode_wire_page(d) for d in out["data"]]
+        return 200, json.dumps({"blob": blob, "pages": pages}).encode()
+
+    def kv_pages(self, body: dict[str, Any]) -> tuple[int, bytes]:
+        """``POST /kv/pages``: the pages this replica holds among
+        ``keys`` (hex chain keys, the first KV_FETCH_MAX_PAGES), resident
+        or spilled, each on the wire with its ``key``; keys not held are
+        absent."""
+        raw_keys = body.get("keys")
+        if not isinstance(raw_keys, list) or not raw_keys:
+            return 400, oai.error_body(
+                "keys must be a non-empty list of hex chain hashes")
+        try:
+            keys = [bytes.fromhex(str(k))
+                    for k in raw_keys[:KV_FETCH_MAX_PAGES]]
+        except ValueError as e:
+            return 400, oai.error_body(f"malformed chain hash: {e}")
+        try:
+            out = self.engine.kv_export_pages(keys)
+        except (MigrationError, TimeoutError) as e:
+            return 409, oai.error_body(str(e))
+        pages = [dict(encode_wire_page(d), key=k.hex()) for k, d in out]
+        return 200, json.dumps({
+            "model": self.model_name,
+            "page_size": self.engine.cfg.page_size,
+            "pages": pages}).encode()
+
+    def maybe_fleet_fetch(self, peers_hdr: str, prompt: list[int],
+                          hashes: list | None) -> int:
+        """Before admission: when siblings are named (``x-aigw-kv-peers``)
+        and the prompt's leading written pages are missing here, fetch
+        them over ``/kv/pages`` and import the leading contiguous run as
+        cached pages, so the prefill becomes a resume. Best effort, as
+        in the reference: a peer that fails or holds nothing is skipped
+        (counted in ``kv_fetch_failures``) and the request prefills cold.
+        Returns the pages imported."""
+        eng = self.engine
+        if not peers_hdr or not hashes or eng.prefix_cache is None:
+            return 0
+        ps = eng.cfg.page_size
+        # only pages whose every row is written KV travel
+        usable = min(len(hashes), (len(prompt) - 1) // ps)
+        present = set(eng.kv_chain_digest())
+        miss = 0
+        while miss < usable and hashes[miss].hex() in present:
+            miss += 1
+        if miss >= usable:
+            return 0
+        want = [h.hex() for h in hashes[miss:usable]]
+        peers = [p.strip() for p in peers_hdr.split(",")
+                 if p.strip()][:KV_PEERS_MAX]
+        for peer in peers:
+            got = self.fetch_pages_from(peer, want)
+            run: list = []
+            for h in want:
+                rows = got.get(h)
+                if rows is None:
+                    break  # the leading contiguous run only
+                run.append(rows)
+            if not run:
+                self._count_fetch_failure()
+                continue
+            try:
+                n = eng.kv_import_pages(prompt, run, miss)
+            except (MigrationError, TimeoutError) as e:
+                logger.info("fleet KV import from %s failed: %s", peer, e)
+                self._count_fetch_failure()
+                return 0
+            logger.info("fleet-fetched %d KV pages from %s", n, peer)
+            return n
+        return 0
+
+    def _count_fetch_failure(self) -> None:
+        with self._fetch_lock:
+            self.kv_fetch_failures += 1
+
+    @staticmethod
+    def fetch_pages_from(peer: str, keys_hex: list[str]) -> dict:
+        """``POST /kv/pages`` to one sibling: {key hex: host page}, or {}
+        on any error (the fetch is best effort)."""
+        base = peer if "://" in peer else f"http://{peer}"
+        req = urllib.request.Request(
+            base + "/kv/pages", data=json.dumps({"keys": keys_hex}).encode(),
+            headers={"content-type": "application/json"})
+        try:
+            with urllib.request.urlopen(req,
+                                        timeout=KV_FETCH_TIMEOUT_S) as r:
+                data = json.loads(r.read())
+        except (urllib.error.URLError, OSError, ValueError):
+            return {}
+        out: dict = {}
+        try:
+            for p in data.get("pages") or ():
+                out[str(p["key"])] = decode_wire_page(p)
+        except (AttributeError, KeyError, TypeError, ValueError):
+            return {}
+        return out
+
+    # -- the offline batch tier -----------------------------------------------
+    #: request lines accepted per batch file (an in-memory store)
+    BATCH_MAX_LINES = 10_000
+
+    def file_upload(self, raw: bytes) -> tuple[int, bytes]:
+        """``POST /v1/files``: a raw JSONL body → a file id."""
+        if not raw.strip():
+            return 400, oai.error_body(
+                "empty file body; POST the JSONL batch input as the "
+                "request body")
+        fid = f"file-{uuid.uuid4().hex[:24]}"
+        self._files[fid] = raw
+        return 200, json.dumps({
+            "id": fid, "object": "file", "bytes": len(raw),
+            "created_at": int(time.time()), "purpose": "batch"}).encode()
+
+    def parse_batch_lines(self, raw: bytes, endpoint: str
+                          ) -> list[tuple[str, dict]]:
+        """Validate the whole JSONL input before any engine work: every
+        malformed line is a SchemaError naming it."""
+        lines: list[tuple[str, dict]] = []
+        seen: set[str] = set()
+        for i, ln in enumerate(raw.splitlines(), start=1):
+            if not ln.strip():
+                continue
+            try:
+                obj = json.loads(ln)
+            except ValueError:
+                raise oai.SchemaError(f"line {i}: not valid JSON") from None
+            if not isinstance(obj, dict):
+                raise oai.SchemaError(
+                    f"line {i}: each line must be a JSON object")
+            cid = obj.get("custom_id")
+            if not isinstance(cid, str) or not cid:
+                raise oai.SchemaError(
+                    f"line {i}: custom_id must be a non-empty string")
+            if cid in seen:
+                raise oai.SchemaError(
+                    f"line {i}: duplicate custom_id {cid!r}")
+            seen.add(cid)
+            if obj.get("method", "POST") != "POST":
+                raise oai.SchemaError(f"line {i}: method must be POST")
+            url = obj.get("url", endpoint)
+            if url != endpoint:
+                raise oai.SchemaError(
+                    f"line {i}: url {url!r} does not match the batch "
+                    f"endpoint {endpoint!r}")
+            body = obj.get("body")
+            if not isinstance(body, dict):
+                raise oai.SchemaError(
+                    f"line {i}: body must be a JSON object")
+            if body.get("stream"):
+                raise oai.SchemaError(
+                    f"line {i}: stream is not supported in batches")
+            lines.append((cid, body))
+        if not lines:
+            raise oai.SchemaError("batch input has no request lines")
+        if len(lines) > self.BATCH_MAX_LINES:
+            raise oai.SchemaError(
+                f"batch input has {len(lines)} lines; this replica caps "
+                f"a batch at {self.BATCH_MAX_LINES}")
+        return lines
+
+    def batch_create(self, body: dict[str, Any]) -> tuple[int, bytes]:
+        """``POST /v1/batches``: validate the input file, register the
+        batch and start its runner (a thread)."""
+        endpoint = str(body.get("endpoint", ""))
+        if endpoint not in ("/v1/chat/completions", "/v1/completions"):
+            return 400, oai.error_body(
+                "endpoint must be /v1/chat/completions or "
+                "/v1/completions")
+        fid = str(body.get("input_file_id", ""))
+        raw = self._files.get(fid)
+        if raw is None:
+            return 404, oai.error_body(f"unknown input_file_id {fid!r}")
+        try:
+            lines = self.parse_batch_lines(raw, endpoint)
+        except oai.SchemaError as e:
+            return 400, oai.error_body(str(e))
+        bid = f"batch_{uuid.uuid4().hex[:24]}"
+        self._batches[bid] = {
+            "id": bid, "object": "batch", "endpoint": endpoint,
+            "input_file_id": fid, "status": "in_progress",
+            "output_file_id": None, "created_at": int(time.time()),
+            "request_counts": {"total": len(lines), "completed": 0,
+                               "failed": 0},
+        }
+        self._batch_live[bid] = []
+        threading.Thread(target=self.run_batch, args=(bid, lines),
+                         name=f"batch-{bid}", daemon=True).start()
+        return 200, json.dumps(self._batches[bid]).encode()
+
+    def batch_list(self) -> dict[str, Any]:
+        return {"object": "list",
+                "data": sorted(self._batches.values(),
+                               key=lambda b: b["created_at"])}
+
+    def batch_cancel(self, bid: str) -> tuple[int, bytes]:
+        """``POST /v1/batches/{id}/cancel``: stop starting lines and
+        cancel those in flight; the runner finalizes to ``cancelled``
+        with the lines that did finish."""
+        b = self._batches.get(bid)
+        if b is None:
+            return 404, oai.error_body("unknown batch id")
+        if b["status"] == "in_progress":
+            b["status"] = "cancelling"
+            for req in list(self._batch_live.get(bid, ())):
+                req.cancelled.set()
+        return 200, json.dumps(b).encode()
+
+    def batch_one(self, bid: str, body: dict[str, Any], chat: bool
+                  ) -> tuple[int, dict[str, Any]]:
+        """One batch line through the normal submit path at priority
+        "batch", buffered: (status code, response body); a failed line
+        is an output line, never a batch-level error."""
+        try:
+            prompt = (self.encode_chat(body) if chat
+                      else self.encode_text(body))
+            lp_top_n = self.check_logprobs(body)
+            out, gen_req, box = self.submit(
+                prompt, body, lp_top_n=lp_top_n,
+                tenant=str(body.get("user", "")), priority="batch")
+        except ValueError as e:  # SchemaError included
+            return 400, json.loads(oai.error_body(str(e)))
+        self._batch_live[bid].append(gen_req)
+        stops = body.get("stop")
+        stop_strs = [stops] if isinstance(stops, str) else list(stops or [])
+        try:
+            text, n_out, finish, lp_content = self.collect(
+                out, stop_strs, lp_top_n)
+        finally:
+            self._batch_live[bid].remove(gen_req)
+        gen_req.cancelled.set()  # a stop-string hit ends the line
+        if finish == "error":
+            return 500, json.loads(oai.error_body("engine failure",
+                                                  "server_error"))
+        # the usage carries the engine's record: a parked and resumed
+        # line's spans the whole session, host residency included
+        usage = self.usage_from_meter(len(prompt), n_out, box)
+        if chat:
+            resp = oai.chat_completion_response(
+                model=self.model_name, content=text, finish_reason=finish,
+                usage=usage,
+                response_id=f"chatcmpl-{uuid.uuid4().hex[:24]}")
+            if lp_content is not None:
+                resp["choices"][0]["logprobs"] = {"content": lp_content}
+        else:
+            resp = oai.completion_response(
+                model=self.model_name, text=text, finish_reason=finish,
+                usage=usage, response_id=f"cmpl-{uuid.uuid4().hex[:24]}",
+                created=int(time.time()))
+            if lp_content is not None:
+                resp["choices"][0]["logprobs"] = \
+                    self.legacy_logprobs(lp_content)
+        return 200, resp
+
+    def run_batch(self, bid: str, lines: list[tuple[str, dict]]) -> None:
+        """The batch runner: every line at priority "batch" with at most
+        one engine's worth in flight, then the JSONL output file and the
+        batch's final status."""
+        b = self._batches[bid]
+        chat = b["endpoint"] == "/v1/chat/completions"
+        out_lines: list[bytes | None] = [None] * len(lines)
+        counts_lock = threading.Lock()  # the workers count concurrently
+
+        def one(i: int) -> None:
+            cid, body = lines[i]
+            if b["status"] != "in_progress":
+                return  # cancelled before this line started
+            status, resp = self.batch_one(bid, body, chat)
+            entry = {"id": f"batch_req_{uuid.uuid4().hex[:16]}",
+                     "custom_id": cid,
+                     "response": {"status_code": status, "body": resp},
+                     "error": None}
+            with counts_lock:
+                b["request_counts"]["completed" if status == 200
+                                    else "failed"] += 1
+            out_lines[i] = json.dumps(entry).encode()
+
+        workers = max(2, self.engine.cfg.max_batch_size)
+        with ThreadPoolExecutor(max_workers=workers,
+                                thread_name_prefix=f"batch-{bid}") as ex:
+            list(ex.map(one, range(len(lines))))
+        ofid = f"file-{uuid.uuid4().hex[:24]}"
+        self._files[ofid] = b"\n".join(
+            ln for ln in out_lines if ln is not None) + b"\n"
+        b["output_file_id"] = ofid
+        b["status"] = ("cancelled" if b["status"] == "cancelling"
+                       else "completed")
 
     # -- debug ------------------------------------------------------------------
     def profile(self, query: str) -> tuple[int, bytes]:
@@ -503,6 +968,7 @@ class TPUServeServer:
 
     def end_trace(self, trace: RequestTrace, finish: str, n_out: int,
                   n_prompt: int = 0, error: str = "") -> None:
+        self._exportable.pop(trace.entry.rid, None)  # no longer cut
         self.flight.finish(trace.entry, finish, n_out)
         span = trace.span
         if span is not None:
@@ -706,7 +1172,8 @@ class TPUServeServer:
     def submit(self, prompt: list[int], body: dict[str, Any],
                constraint: Any = None, lp_top_n: int = -1,
                tenant: str = "", sink: Any = None,
-               trace: RequestTrace | None = None):
+               trace: RequestTrace | None = None,
+               priority: str = "interactive"):
         """Submit to the engine; returns (token queue, request, meter
         box). The queue yields (token_id, finish_reason, lp) items, lp
         None without logprobs, else (chosen logprob, [(top id, top
@@ -714,7 +1181,8 @@ class TPUServeServer:
         queue, which is then None. ``lp_top_n`` is ``check_logprobs``'
         value (>= 0 attaches logprobs); the tenant is the header's, else
         the adapter. The box is a dict the engine fills with the
-        request's MeterRecord before its finish item. Raises SchemaError
+        request's MeterRecord before its finish item. ``priority`` is the
+        engine's class ("batch": the offline queue). Raises SchemaError
         for an unknown adapter suffix."""
         adapter = self._resolve_adapter(str(body.get("model", "")))
         out: queue.Queue | None = queue.Queue() if sink is None else None
@@ -732,14 +1200,14 @@ class TPUServeServer:
                          emit_lp=emit_lp if lp_top_n >= 0 else None,
                          constraint=constraint, adapter=adapter,
                          tenant=tenant or adapter, trace=trace,
-                         meter_sink=box.update)
+                         meter_sink=box.update, priority=priority)
         self.engine.submit(req)
         return out, req, box
 
     def submit_n(self, prompt: list[int], body: dict[str, Any], n: int,
                  constraint: Any = None, lp_top_n: int = -1,
-                 tenant: str = "", merged: queue.Queue | None = None
-                 ) -> list:
+                 tenant: str = "", merged: queue.Queue | None = None,
+                 priority: str = "interactive") -> list:
         """``n`` engine requests, one per choice (the reference's
         ``_submit_n``): choice i samples with seed ``(seed or 0) + i``
         when a seed is given or the temperature is above 0, else 0.
@@ -758,7 +1226,8 @@ class TPUServeServer:
                 sink = (None if merged is None
                         else lambda item, i=i: merged.put((i, item)))
                 outs.append(self.submit(prompt, per_choice, constraint,
-                                        lp_top_n, tenant, sink))
+                                        lp_top_n, tenant, sink,
+                                        priority=priority))
         except (EngineOverloadedError, ValueError):
             for _q, req, _b in outs:  # no orphaned choices in the queue
                 req.cancelled.set()
@@ -862,52 +1331,236 @@ def _make_handler(server: TPUServeServer):
                     self._json(200, entry.detail())
             elif path == "/debug/profile":
                 self._send(*srv.profile(query))
+            elif path == "/v1/batches":
+                self._json(200, srv.batch_list())
+            elif path.startswith("/v1/batches/"):
+                b = srv._batches.get(path[len("/v1/batches/"):])
+                if b is None:
+                    self._error(404, "unknown batch id")
+                else:
+                    self._json(200, b)
+            elif path.startswith("/v1/files/") \
+                    and path.endswith("/content"):
+                raw = srv._files.get(path[len("/v1/files/"):-len(
+                    "/content")])
+                if raw is None:
+                    self._error(404, "unknown file id")
+                else:
+                    self._send(200, raw, "application/jsonl")
             else:
                 self._error(404, f"no route {path}", "not_found")
+
+        #: POST routes refused with the drain's 503 on a draining replica
+        _DRAINED = ("/v1/chat/completions", "/v1/completions",
+                    "/v1/files", "/v1/batches", "/migrate/import")
 
         def do_POST(self):  # noqa: N802
             path = self.path.split("?", 1)[0]
             chat = path == "/v1/chat/completions"
-            if not chat and path not in ("/v1/completions", "/tokenize",
-                                         "/drain"):
+            cancel = (path.startswith("/v1/batches/")
+                      and path.endswith("/cancel"))
+            if not chat and not cancel and path not in (
+                    "/v1/completions", "/tokenize", "/drain", "/v1/files",
+                    "/v1/batches", "/migrate/export", "/migrate/import",
+                    "/kv/pages"):
                 self._error(404, f"no route {path}", "not_found")
                 return
             length = int(self.headers.get("content-length") or 0)
             raw = self.rfile.read(length)
+            srv = self.srv
             if path == "/drain":
                 try:
                     body = oai.parse_json_body(raw) if raw.strip() else {}
                 except oai.SchemaError as e:
                     self._error(400, str(e))
                     return
-                self._json(200, self.srv.set_draining(
+                self._json(200, srv.set_draining(
                     bool(body.get("on", True))))
                 return
-            if path != "/tokenize" and self.srv.draining:
-                # no new generation on a draining replica: the gateway
-                # retries a sibling before the first byte
-                self._error(503, "replica is draining (shutting down or "
-                            "being retired); retry against another "
-                            "replica", "server_error",
-                            headers={"retry-after": "2",
-                                     "x-aigw-draining": "1"})
+            if path in self._DRAINED and srv.draining:
+                # no new work on a draining replica: the gateway retries
+                # a sibling before the first byte
+                self._error(503, _DRAIN_MSG, "server_error",
+                            headers=_DRAIN_HEADERS)
+                return
+            if cancel:
+                self._send(*srv.batch_cancel(
+                    path[len("/v1/batches/"):-len("/cancel")]))
+                return
+            if path == "/v1/files":
+                self._send(*srv.file_upload(raw))
                 return
             try:
                 body = oai.parse_json_body(raw)
+            except oai.SchemaError as e:
+                self._error(400, str(e))
+                return
+            if path == "/v1/batches":
+                self._send(*srv.batch_create(body))
+                return
+            if path == "/migrate/export":
+                self._send(*srv.migrate_export(body))
+                return
+            if path == "/kv/pages":
+                self._send(*srv.kv_pages(body))
+                return
+            if path == "/migrate/import":
+                self._migrate_import(body)
+                return
+            try:
                 if path == "/tokenize":
-                    self._json(200, self.srv.tokenize(body))
+                    self._json(200, srv.tokenize(body))
                     return
-                prompt = (self.srv.encode_chat(body) if chat
-                          else self.srv.encode_text(body))
-                intake = self.srv.check_request(body, chat)
+                prompt = (srv.encode_chat(body) if chat
+                          else srv.encode_text(body))
+                intake = srv.check_request(body, chat)
             except oai.SchemaError as e:
                 self._error(400, str(e))
                 return
             self._generate(body, prompt, chat, *intake)
 
+        def _migrate_import(self, body):
+            """``POST /migrate/import``: adopt an exported chain and stream
+            the session's continuation under the original response id,
+            its decoder primed with the generated tokens (characters and
+            stop strings across the seam resolve as on the exporter), its
+            usage counting the whole session."""
+            srv = self.srv
+            blob = body.get("blob") or {}
+            try:
+                tokens = [int(t) for t in blob["tokens"]]
+                pages = [decode_wire_page(p)
+                         for p in (body.get("pages") or ())]
+            except (KeyError, TypeError, ValueError) as e:
+                self._error(400, f"malformed migration blob: {e}")
+                return
+            try:
+                srv.engine.migrate_import(tokens, pages)
+            except (MigrationError, TimeoutError) as e:
+                if "OutOfPages" in str(e):
+                    # page pressure: the overload contract
+                    self._error(503, str(e), headers={"retry-after": "1"})
+                else:
+                    self._error(400, str(e))
+                return
+            meta = blob.get("meta") or {}
+            rid = str(meta.get("response_id")
+                      or f"chatcmpl-{uuid.uuid4().hex[:24]}")
+            chat = bool(meta.get("chat", True))
+            created = int(meta.get("created") or time.time())
+            stop_strs = [x for x in (meta.get("stop_strs") or ())
+                         if isinstance(x, str)]
+            include_usage = bool(meta.get("include_usage", False))
+            n_prev = int(blob.get("generated", 0))
+            orig_len = int(blob.get("orig_prompt_len", len(tokens)))
+            out: queue.Queue = queue.Queue()
+            box: dict[str, Any] = {}
+            creq = continuation_request(
+                blob, emit=lambda t, f: out.put((t, f)))
+            # the exporter emitted no record at the cut: this one, fed by
+            # the blob's carry, covers the whole session
+            creq.meter_sink = box.update
+            entry = srv.flight.begin(
+                rid, model=srv.model_name, prompt_tokens=len(tokens),
+                max_tokens=creq.max_tokens, stream=True)
+            creq.trace = RequestTrace(entry=entry, tracer=srv.tracer,
+                                      span=None)
+            try:
+                srv.engine.submit(creq)
+            except EngineOverloadedError as e:
+                self._error(429, str(e), "rate_limit_error",
+                            headers={"retry-after": "1"})
+                return
+            except ValueError as e:
+                self._error(400, str(e))
+                return
+            # the continuation can move again
+            srv._exportable[rid] = (creq, meta)
+            srv._live[rid] = True
+            try:
+                self._continue_stream(out, creq, box, chat, rid, created,
+                                      stop_strs, include_usage, tokens,
+                                      orig_len, n_prev)
+            except (BrokenPipeError, ConnectionResetError):
+                creq.cancelled.set()
+                srv.end_trace(creq.trace, "cancelled", 0, orig_len)
+                self.close_connection = True
+            finally:
+                srv._live.pop(rid, None)
+
+        def _continue_stream(self, out, creq, box, chat, rid, created,
+                             stop_strs, include_usage, tokens, orig_len,
+                             n_prev):
+            srv = self.srv
+            self._start_sse(rid)
+            decoder = StreamingDecoder(srv.tokenizer)
+            emitted = ""
+            for t in tokens[orig_len:]:
+                emitted += decoder.push(t)
+            n_out = 0
+            finish = "stop"
+            done = False
+            while not done:
+                burst = [out.get()]
+                while True:
+                    try:
+                        burst.append(out.get_nowait())
+                    except queue.Empty:
+                        break
+                pieces: list[str] = []
+                for tok, fin in burst:
+                    if tok >= 0:
+                        n_out += 1
+                        piece = decoder.push(tok)
+                        if piece:
+                            emitted += piece
+                            hit = _find_stop(emitted, stop_strs)
+                            if hit is not None:
+                                keep = hit - (len(emitted) - len(piece))
+                                pieces.append(piece[:max(keep, 0)])
+                                finish = "stop"
+                                creq.cancelled.set()
+                                done = True
+                                break
+                            pieces.append(piece)
+                    if fin is not None:
+                        finish = fin
+                        if fin not in ("error", "migrated"):
+                            pieces.append(decoder.flush())
+                        done = True
+                        break
+                text = "".join(pieces)
+                if text:
+                    self.wfile.write(self._chunk(chat, rid, created, text))
+                    self.wfile.flush()
+            usage = srv.usage_from_meter(orig_len, n_prev + n_out, box)
+            srv.end_trace(creq.trace, finish, n_out, orig_len)
+            if finish == "migrated":
+                self.wfile.flush()  # moved again: the next replica ends it
+                return
+            if chat:
+                tail = oai.stream_chunk_sse(
+                    response_id=rid, model=srv.model_name, created=created,
+                    delta={}, finish_reason=finish,
+                    usage=usage if include_usage else None)
+            else:
+                tail = oai.completion_chunk_sse(
+                    response_id=rid, model=srv.model_name, created=created,
+                    text="", finish_reason=finish,
+                    usage=usage if include_usage else None)
+            self.wfile.write(tail)
+            self.wfile.write(oai.sse("[DONE]"))
+            self.wfile.flush()
+
         def _generate(self, body, prompt, chat, lp_top_n, n, constraint,
                       cmode):
             srv = self.srv
+            # the named siblings may hold this prompt's chain: import
+            # their pages before admission (the n > 1 fan-out's prompt
+            # is fetched once)
+            hashes = srv.prefix_hashes(prompt)
+            srv.maybe_fleet_fetch(self.headers.get(KV_PEERS_HEADER, ""),
+                                  prompt, hashes)
             stream = bool(body.get("stream", False))
             rid = (f"chatcmpl-{uuid.uuid4().hex[:24]}" if chat
                    else f"cmpl-{uuid.uuid4().hex[:24]}")
@@ -916,17 +1569,21 @@ def _make_handler(server: TPUServeServer):
             stop_strs = [stops] if isinstance(stops, str) \
                 else list(stops or [])
             tenant = self.headers.get(TENANT_HEADER, "")
+            priority = ("batch"
+                        if self.headers.get(PRIORITY_HEADER, "") == "batch"
+                        else "interactive")
             srv._live[rid] = stream
             try:
                 self._serve_generation(body, prompt, chat, lp_top_n, n,
                                     constraint, cmode, stream, rid,
-                                    created, stop_strs, tenant)
+                                    created, stop_strs, tenant, priority,
+                                    srv.kv_chain_header(hashes))
             finally:
                 srv._live.pop(rid, None)
 
         def _serve_generation(self, body, prompt, chat, lp_top_n, n,
                            constraint, cmode, stream, rid, created,
-                           stop_strs, tenant):
+                           stop_strs, tenant, priority, chain_hdr):
             srv = self.srv
             merged: queue.Queue | None = \
                 queue.Queue() if n > 1 and stream else None
@@ -940,11 +1597,13 @@ def _make_handler(server: TPUServeServer):
             try:
                 if n > 1:
                     outs = srv.submit_n(prompt, body, n, constraint,
-                                        lp_top_n, tenant, merged)
+                                        lp_top_n, tenant, merged,
+                                        priority=priority)
                 else:
                     out, req, box = srv.submit(prompt, body, constraint,
                                                lp_top_n, tenant,
-                                               trace=trace)
+                                               trace=trace,
+                                               priority=priority)
             except (EngineOverloadedError, ValueError) as e:
                 if trace is not None:
                     srv.end_trace(trace, "rejected", 0, n_prompt,
@@ -963,10 +1622,12 @@ def _make_handler(server: TPUServeServer):
                     if stream:
                         self._stream_n(merged, outs, chat, rid, created,
                                        stop_strs, n_prompt, lp_top_n,
-                                       oai.include_stream_usage(body))
+                                       oai.include_stream_usage(body),
+                                       chain_hdr)
                     else:
                         self._respond_n(outs, chat, rid, created,
-                                        stop_strs, n_prompt, lp_top_n)
+                                        stop_strs, n_prompt, lp_top_n,
+                                        chain_hdr)
                 except (BrokenPipeError, ConnectionResetError):
                     for r in reqs:
                         r.cancelled.set()
@@ -1017,20 +1678,30 @@ def _make_handler(server: TPUServeServer):
                     if lp_content is not None:
                         resp["choices"][0]["logprobs"] = \
                             srv.legacy_logprobs(lp_content)
-                self._json(200, resp, headers={"x-aigw-request-id": rid})
+                self._json(200, resp, headers={"x-aigw-request-id": rid,
+                                               **chain_hdr})
                 return
+            if lp_top_n < 0 and constraint is None and cmode is None:
+                # a plain stream can be cut by /migrate/export until it
+                # ends (a grammar's or logprobs' state rides no blob);
+                # the meta is what the continuation's stream needs
+                srv._exportable[rid] = (req, {
+                    "response_id": rid, "model": srv.model_name,
+                    "created": created, "chat": chat,
+                    "include_usage": oai.include_stream_usage(body),
+                    "stop_strs": stop_strs})
             try:
                 self._stream(out, req, box, trace, chat, rid, created,
                              stop_strs, n_prompt,
                              oai.include_stream_usage(body), cmode,
-                             lp_top_n)
+                             lp_top_n, chain_hdr)
             except (BrokenPipeError, ConnectionResetError):
                 req.cancelled.set()  # client went away: free the slot
                 srv.end_trace(trace, "cancelled", 0, n_prompt)
                 self.close_connection = True
 
         def _respond_n(self, outs, chat, rid, created, stop_strs, n_prompt,
-                       lp_top_n):
+                       lp_top_n, chain_hdr):
             """The buffered ``n > 1`` reply (the reference's
             ``_generate_n``): indexed choices; usage counts the prompt
             once, sums the completions and the choices' cached
@@ -1061,13 +1732,15 @@ def _make_handler(server: TPUServeServer):
                 "object": "chat.completion" if chat else "text_completion",
                 "created": created, "model": srv.model_name,
                 "choices": choices, "usage": oai.usage_dict(usage),
-            }, headers={"x-aigw-request-id": rid})
+            }, headers={"x-aigw-request-id": rid, **chain_hdr})
 
-        def _start_sse(self, rid):
+        def _start_sse(self, rid, headers=None):
             self.send_response(200)
             self.send_header("content-type", "text/event-stream")
             self.send_header("cache-control", "no-cache")
             self.send_header("x-aigw-request-id", rid)
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.send_header("connection", "close")
             self.end_headers()
             self.close_connection = True
@@ -1101,7 +1774,7 @@ def _make_handler(server: TPUServeServer):
                 meter=oai.meter_to_tuple(merged) if merged else ())
 
         def _stream_n(self, merged, outs, chat, rid, created, stop_strs,
-                      n_prompt, lp_top_n, include_usage):
+                      n_prompt, lp_top_n, include_usage, chain_hdr):
             """The streamed ``n > 1`` reply (the reference's
             ``_generate_n_stream``): the choices' items arrive on one
             merged queue; each burst becomes one frame per choice that
@@ -1110,7 +1783,7 @@ def _make_handler(server: TPUServeServer):
             srv = self.srv
             reqs = [r for _q, r, _b in outs]
             n = len(reqs)
-            self._start_sse(rid)
+            self._start_sse(rid, chain_hdr)
             w = self.wfile
             if chat:
                 for i in range(n):
@@ -1188,9 +1861,10 @@ def _make_handler(server: TPUServeServer):
             w.flush()
 
         def _stream(self, out, req, box, trace, chat, rid, created,
-                    stop_strs, n_prompt, include_usage, cmode, lp_top_n):
+                    stop_strs, n_prompt, include_usage, cmode, lp_top_n,
+                    chain_hdr):
             srv = self.srv
-            self._start_sse(rid)
+            self._start_sse(rid, chain_hdr)
             want_lp = lp_top_n >= 0
 
             def write_piece(piece: str, lp_entries=None) -> None:
@@ -1288,7 +1962,9 @@ def _make_handler(server: TPUServeServer):
                             pieces.append(piece)
                     if fin is not None:
                         finish = fin
-                        if fin != "error":
+                        if fin not in ("error", "migrated"):
+                            # a migrated stream's held-back text is
+                            # re-derived by the importer's primed decoder
                             pieces.append(decoder.flush())
                         done = True
                         break
@@ -1303,6 +1979,11 @@ def _make_handler(server: TPUServeServer):
                 finish = "tool_calls"
             usage = srv.usage_from_meter(n_prompt, n_out, box)
             srv.end_trace(trace, finish, n_out, n_prompt)
+            if finish == "migrated":
+                # the session moved: no finish frame and no [DONE]; the
+                # importer's stream carries them under the same id
+                self.wfile.flush()
+                return
             if not include_usage:
                 usage = None
             if chat:

@@ -133,6 +133,29 @@ Phases (any failure exits non-zero):
    delta, a second capture 409); the chained rung at a fixed draft
    width of 4 (the records' accepted drafts equal ``/state``'s, K3 and
    K5); the warm burst traced beside ``serve``'s (reported);
+   KV mobility and the batch tier (the ``serve_mobility`` line, after
+   ``serve_ops``; launch counts zeroed before each step, read after it):
+   the server as replica A and a second server in this process on the
+   same weight tensors as replica B, the fused rung, the prefix cache on.
+   Four streamed chats (300-1000 prompt tokens, 64 new, two greedy, two
+   seeded with penalties) served uncut on A, then again, each cut
+   through A's ``/migrate/export`` and continued by B's
+   ``/migrate/import``: B's pages equal the exported wire pages string
+   for string, B launches K1 and K2, 4 migrations out and in, each
+   stream equal to its uncut run up to a near-tie (``tie_check``); the
+   same over int8 pools (pages gated, K7-int8 on B, streams reported);
+   B fetching a chat's 9 full written pages (``serve_prefix``'s
+   1089-token system message and a user turn) from A over ``/kv/pages``
+   (``x-aigw-kv-peers``: one fetch, every page, a prefix hit over
+   them); A on a 24-page pool with a host tier spilling a first wave of
+   prompts under a second and reviving it (spills and revives, the
+   revived pages equal the spilled bytes, the streams up to a
+   near-tie); a ``/v1/batches`` job of 12 lines at ``batch_slot_frac``
+   0.5 with the interactive burst sent while it runs (preemptions, all
+   resumed, every line equal to its solo run up to a near-tie).
+   Reported: export and import ms a page, wire MB a page, B's resume
+   TTFT beside a cold prefill of the same history, the spill stall, the
+   interactive TTFT beside ``serve``'s;
 5. every kernel against its plain PyTorch version on the card at the
    served shapes (each attention output element within 2**-7 of the
    plain output plus 2e-3, printed beside the mean |output|; K2's and
@@ -215,8 +238,8 @@ Phases (any failure exits non-zero):
    K6 at Mixtral's lm_head shape (4096 x 32000) is on the
    ``qmatmul_shapes`` line;
 8. the ``kernels`` JSON line (each row also carries its launches on
-   ``serve_moe``, on ``serve_lora``, on ``serve_logprobs`` and on
-   ``serve_ops``), the card line, then the last line
+   ``serve_moe``, on ``serve_lora``, on ``serve_logprobs``, on
+   ``serve_ops`` and on ``serve_mobility``), the card line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -3941,6 +3964,678 @@ def serve_ops(torch, srv, params, reqs, launches: dict,
     return out
 
 
+# -- KV mobility and the batch tier (serve_mobility) --------------------------
+#: the near-tie bound a token flip between two bf16 runs of one request
+#: is held to: model_check's (a greedy flip only where the float32
+#: recompute puts the two tokens within 0.1 of each other; a sampled one
+#: where their scores, logits / temperature plus the key's Gumbel noise,
+#: lie within 0.1 / temperature)
+TIE_BOUND = 0.1
+#: tokens a stream has on the source when the script asks for its cut;
+#: the cut lands at a settled window boundary after the window in flight
+#: (and the one dispatched before the export job runs) settles: asked at
+#: 1 it landed at 3, asked at 16 at 39 (the windows grow from 2 to 8
+#: steps once the streams are two ticks old)
+MOB_CUT_AFTER = 4
+
+
+class TokenTap:
+    """Every token an engine emits, per request: keyed by the response id
+    of a traced HTTP request (a migrated continuation keeps its id), else
+    by the original prompt (batch lines). Installed on ``submit``; a
+    parked batch session resumes through the tapped emit."""
+
+    def __init__(self, engine):
+        self.toks: dict = {}
+        self.prompts: dict = {}
+        self.sampling: dict = {}
+        submit = engine.submit
+
+        def tapped_submit(req):
+            ims = req.import_state or {}
+            prompt = list(req.prompt[:ims.get("orig_prompt_len",
+                                               len(req.prompt))])
+            key = (req.trace.entry.rid if req.trace is not None
+                   else tuple(prompt))
+            rec = self.toks.setdefault(key, [])
+            self.prompts.setdefault(key, prompt)
+            self.sampling.setdefault(key, req.sampling)
+            emit = req.emit
+
+            def tapped(tok, fin):
+                if tok >= 0:
+                    rec.append(tok)
+                emit(tok, fin)
+
+            req.emit = tapped
+            submit(req)
+
+        engine.submit = tapped_submit
+
+
+def recompute_row(torch, params, cfg, ids: list, dev: str = "cuda"):
+    """float32 logits [V] of the position after ``ids``, through the plain
+    functions (one prefill of the whole history)."""
+    from aigw_tpu_torch.models import kvq, llama
+
+    PS = 128
+    T = len(ids)
+    P = -(-T // PS)
+    kv = kvq.make_pool((cfg.n_layers, 2, (P + 1) * PS, cfg.n_kv_heads,
+                        cfg.head_dim), "float32", dev)
+    pt = torch.arange(P, dtype=torch.int32, device=dev)[None]
+    logits, _ = llama.prefill_ragged(
+        params, cfg, torch.tensor(ids, device=dev),
+        torch.zeros((T,), dtype=torch.int32, device=dev),
+        torch.arange(T, dtype=torch.int32, device=dev),
+        torch.tensor([T - 1], dtype=torch.int32, device=dev), kv, pt, PS,
+        plain=True)
+    return logits[0].float()
+
+
+def tie_check(torch, params, cfg, prompt, sp, want, got, eos) -> dict:
+    """Where two runs of one request part (``j``, the completion index;
+    None when equal), and the float32 recompute's gap there between the
+    two tokens they chose, in the sampler's units: for a greedy request
+    the logits with the request's penalties and bias, for a sampled one
+    those over the temperature plus the Gumbel noise of the key at ``j``
+    (counter 0 for the first token, else len(prompt) + j - 1). A run
+    that stopped early chose EOS there."""
+    from aigw_tpu_torch.tpuserve.sampling import gumbel
+
+    if want == got:
+        return {"equal": True, "j": None, "gap": 0.0, "bound": 0.0}
+    n = min(len(want), len(got))
+    j = next((i for i in range(n) if want[i] != got[i]), n)
+    a = want[j] if j < len(want) else eos
+    b = got[j] if j < len(got) else eos
+    logits = recompute_row(torch, params, cfg, list(prompt) + want[:j])
+    counts = torch.zeros_like(logits)
+    for t in want[:j]:
+        counts[t] += 1
+    logits = (logits - sp.frequency_penalty * counts
+              - sp.presence_penalty * (counts > 0).float())
+    for t, bias in sp.logit_bias:
+        logits[t] += bias
+    bound = TIE_BOUND
+    if sp.temperature > 0.0:
+        counter = 0 if j == 0 else len(prompt) + j - 1
+        key = torch.tensor([[sp.seed & 0xFFFFFFFF, counter]],
+                           dtype=torch.int64, device=logits.device)
+        logits = logits / sp.temperature + gumbel(key, logits.shape[0])[0]
+        bound = TIE_BOUND / sp.temperature
+    gap = abs(logits[a] - logits[b]).item()
+    return {"equal": False, "j": j, "gap": gap, "bound": bound}
+
+
+def _gate_ties(what: str, checks: list) -> None:
+    bad = [c for c in checks if not c["equal"] and c["gap"] >= c["bound"]]
+    if bad:
+        raise AssertionError(f"{what}: streams part away from a near-tie: "
+                             f"{bad}")
+
+
+def _post_raw(port: int, path: str, data: bytes, headers=None):
+    """(status, headers, body bytes) of a POST whose body is ``data``."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"content-type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _state(port: int) -> dict:
+    return json.loads(_http(port, "/state")[2])
+
+
+def _mob_chats(rng, eos: int) -> list[dict]:
+    """Four streamed chats of 300-1000 prompt tokens, 64 new tokens each:
+    two greedy, two seeded with repetition penalties. A logit bias keeps
+    EOS out, so every stream is long enough to be cut."""
+    words = "the quick brown fox jumps over a lazy dog while rivers run".split()
+
+    def text(n_bytes: int) -> str:
+        out = ""
+        while len(out) <= n_bytes:
+            out += " " + words[int(rng.integers(len(words)))]
+        return out[1:n_bytes + 1]
+
+    chats = []
+    for i, n in enumerate([280, 520, 760, 980]):
+        body = {"model": "llama-3-8b-random", "max_tokens": SERVE_MAX_TOKENS,
+                "stream": True, "stream_options": {"include_usage": True},
+                "logit_bias": {str(eos): -100.0},
+                "messages": [{"role": "user",
+                              "content": "ABCD"[i] + text(n)}]}
+        if i % 2:
+            body.update(temperature=0.8, seed=500 + i,
+                        frequency_penalty=0.5, presence_penalty=0.3)
+        else:
+            body.update(temperature=0.0)
+        chats.append(body)
+    return chats
+
+
+class _Stream:
+    """One streamed chat read to its end in a thread: its response id,
+    its finish reason and usage, and whether it ended with ``[DONE]``
+    (most of the random model's tokens decode to no text, so the
+    tokens themselves are read from the engine's ``TokenTap``)."""
+
+    def __init__(self, port: int, body: dict, path="/v1/chat/completions",
+                 data: bytes | None = None):
+        self.t0 = time.monotonic()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}",
+            data=data if data is not None else json.dumps(body).encode(),
+            headers={"content-type": "application/json"})
+        self.resp = urllib.request.urlopen(req, timeout=600)
+        self.rid = self.resp.headers["x-aigw-request-id"]
+        self.finish = None
+        self.done = False
+        self.usage = None
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        for line in self.resp:
+            line = line.strip()
+            if not line.startswith(b"data: "):
+                continue
+            if line[6:] == b"[DONE]":
+                self.done = True
+                break
+            ev = json.loads(line[6:])
+            self.usage = ev.get("usage") or self.usage
+            for ch in ev.get("choices") or ():
+                self.finish = ch.get("finish_reason") or self.finish
+        self.resp.close()
+
+    def join(self):
+        self.thread.join(timeout=600)
+        if self.thread.is_alive():
+            raise AssertionError(f"stream {self.rid} never ended")
+
+
+def _mob_swap(srv, params, base: dict, **kw):
+    """Restart ``srv``'s engine with ``base`` + ``kw``; returns its tap."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    old, srv.engine = srv.engine, None
+    old.stop()
+    del old
+    gc.collect()  # its pool goes before the new one is made
+    srv.engine = Engine(params, llama.LLAMA3_8B,
+                        EngineConfig(**{**base, **kw}),
+                        eos_token_ids=(srv.tokenizer.eos_id,),
+                        device="cuda")
+    srv.engine.start()
+    return TokenTap(srv.engine)
+
+
+def _mob_migrate(torch, a, b, params, base, chats, kv_dtype: str) -> dict:
+    """Step 1 (bf16) or 2 (int8): the chats served uncut on A, then again
+    on A, each cut through ``/migrate/export`` (asked once it has
+    MOB_CUT_AFTER tokens) and imported into B through
+    ``/migrate/import`` (B's continuation streams under the same id).
+    Gates: B's pages after the import equal
+    the exported wire pages string for string; B launched K1 and K2
+    (K7-int8 on an int8 pool); 4 migrations out of A and into B; bf16
+    streams equal the uncut ones up to a near-tie."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.server import encode_wire_page
+
+    cfg = llama.LLAMA3_8B
+    tap_a = _mob_swap(a, params, base, kv_cache_dtype=kv_dtype)
+    tap_b = _mob_swap(b, params, base, kv_cache_dtype=kv_dtype)
+    out: dict = {"kv_cache_dtype": kv_dtype}
+    uncut = [_Stream(a.port, body) for body in chats]
+    for s in uncut:
+        s.join()
+        if not (s.done and s.finish in ("length", "stop")):
+            raise AssertionError(f"uncut stream {s.rid}: {s.finish}")
+    _wait_idle(a)
+    st_a0, st_b0 = _state(a.port), _state(b.port)
+    ex0 = a.engine.stats.kv_export_ms
+    cut = [_Stream(a.port, body) for body in chats]
+    # each stream cut from its own thread once it has its tokens, so no
+    # stream runs to its end while another's export is being written
+    results: list = [None] * len(cut)
+
+    def export(i: int) -> None:
+        s = cut[i]
+        deadline = time.monotonic() + 300
+        while len(tap_a.toks.get(s.rid, ())) < MOB_CUT_AFTER:
+            if time.monotonic() > deadline:
+                results[i] = f"stream {s.rid} never reached the cut"
+                return
+            time.sleep(0.002)
+        t = time.monotonic()
+        status, _h, raw = _post_raw(
+            a.port, "/migrate/export",
+            json.dumps({"request_id": s.rid}).encode())
+        results[i] = (status, 1e3 * (time.monotonic() - t), raw)
+
+    threads = [threading.Thread(target=export, args=(i,))
+               for i in range(len(cut))]
+    t_ex = time.monotonic()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    export_wall_ms = 1e3 * (time.monotonic() - t_ex)
+    exports, export_ms, raw_bytes = [], [], []
+    for s, r in zip(cut, results):
+        if not isinstance(r, tuple) or r[0] != 200:
+            raise AssertionError(
+                f"export of {s.rid} after {len(tap_a.toks.get(s.rid, ()))} "
+                f"tokens: {str(r)[:300]}")
+        export_ms.append(r[1])
+        raw_bytes.append(r[2])
+        exports.append(json.loads(r[2]))
+    for s in cut:
+        s.join()
+        if s.done or s.finish is not None:
+            raise AssertionError(f"the cut stream {s.rid} ended with "
+                                 f"terminal frames")
+    _wait_idle(a)
+    pages = [len(e["pages"]) for e in exports]
+    n_pages = sum(pages)
+    out["pages"] = pages
+    out["cut_at_tokens"] = [e["blob"]["generated"] for e in exports]
+    # the four exports run at once: their wall over all their pages, and
+    # each one's own wall (the handlers' base64 and JSON share the GIL)
+    out["export_ms"] = export_ms
+    out["export_ms_per_page"] = export_wall_ms / n_pages
+    out["export_copy_ms_per_page"] = (a.engine.stats.kv_export_ms
+                                      - ex0) / n_pages
+    out["wire_mb_per_page"] = sum(len(r) for r in raw_bytes) / n_pages / 1e6
+    # B: every continuation, one after the other's first token
+    reset_counts()
+    im0 = b.engine.stats.kv_import_ms
+    conts = []
+    for raw in raw_bytes:
+        s = _Stream(b.port, {}, "/migrate/import", data=raw)
+        # the reply's headers follow the import; its first token is B's
+        # resume
+        deadline = time.monotonic() + 300
+        while not tap_b.toks.get(s.rid):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"continuation {s.rid} never started")
+            time.sleep(0.001)
+        conts.append((s, 1e3 * (time.monotonic() - s.t0)))
+    for s, _ms in conts:
+        s.join()
+        if not (s.done and s.finish in ("length", "stop")):
+            raise AssertionError(f"continuation {s.rid}: {s.finish}")
+        if s.usage is not None and s.usage["completion_tokens"] \
+                != len(tap_a.toks[s.rid]) + len(tap_b.toks[s.rid]):
+            raise AssertionError(f"continuation usage {s.usage}")
+    _wait_idle(b)
+    counts = read_counts()
+    out["launches"] = counts
+    out["import_copy_ms_per_page"] = (b.engine.stats.kv_import_ms
+                                      - im0) / n_pages
+    out["resume_ttft_ms"] = [ms for _s, ms in conts]
+    need = (("fused_paged_decode_int8",) if kv_dtype == "int8"
+            else ("ragged_prefill_attention", "fused_paged_decode"))
+    if any(counts[k] <= 0 for k in need):
+        raise AssertionError(f"the target's kernels did not launch: {counts}")
+    # the pages B holds are the exported pages, byte for byte
+    for e in exports:
+        keys = [bytes.fromhex(h) for h in e["blob"]["chain"]]
+        held = b.engine.kv_export_pages(keys)
+        if [k for k, _d in held] != keys or \
+                [encode_wire_page(d) for _k, d in held] != e["pages"]:
+            raise AssertionError("the imported pages differ from the "
+                                 "exported ones")
+    st_a1, st_b1 = _state(a.port), _state(b.port)
+    moved = (st_a1["migrations_out"] - st_a0["migrations_out"],
+             st_b1["migrations_in"] - st_b0["migrations_in"])
+    if moved != (4, 4):
+        raise AssertionError(f"migrations out/in: {moved}")
+    out["migration_pages_in"] = (st_b1["migration_pages_in"]
+                                 - st_b0["migration_pages_in"])
+    checks = []
+    for u, s in zip(uncut, cut):
+        checks.append(tie_check(
+            torch, params, cfg, tap_a.prompts[u.rid], tap_a.sampling[u.rid],
+            tap_a.toks[u.rid], tap_a.toks[s.rid] + tap_b.toks[s.rid],
+            a.tokenizer.eos_id))
+    out["streams_equal"] = sum(c["equal"] for c in checks)
+    out["stream_ties"] = [c for c in checks if not c["equal"]]
+    if kv_dtype != "int8":
+        _gate_ties("migrated streams", checks)
+    out["histories"] = [e["blob"]["tokens"] for e in exports]
+    return out
+
+
+def _cold_ttft_ms(srv, params, base, histories) -> list:
+    """Each history prefilled cold (the prefix cache off) for one token,
+    alone: enqueue to first token."""
+    from aigw_tpu_torch.tpuserve.engine import GenRequest
+    from aigw_tpu_torch.tpuserve.sampling import SamplingParams
+
+    _mob_swap(srv, params, base, enable_prefix_cache=False)
+    out = []
+    for hist in histories:
+        done = threading.Event()
+        req = GenRequest(prompt=list(hist), max_tokens=1,
+                         sampling=SamplingParams(temperature=0.0),
+                         emit=lambda t, f: done.set() if f else None)
+        t = time.monotonic()
+        srv.engine.submit(req)
+        if not done.wait(300):
+            raise AssertionError("a cold prefill never finished")
+        out.append(1e3 * (time.monotonic() - t))
+    return out
+
+
+def _mob_fetch(torch, a, b, params, base, chat: dict) -> dict:
+    """Step 3: a chat behind serve_prefix's 1089-token system message on
+    A, then the same chat on B naming A in ``x-aigw-kv-peers``. Gates:
+    B fetched once, every full written page of the prompt on A, its
+    prefix hit covering them; B's stream equals A's up to a near-tie."""
+    from aigw_tpu_torch.models import llama
+
+    tap_a = _mob_swap(a, params, base)
+    tap_b = _mob_swap(b, params, base)
+    body = dict(chat, stream=False)
+    raw_body = json.dumps(body).encode()
+    status, ha, _raw = _post_raw(a.port, "/v1/chat/completions", raw_body)
+    if status != 200:
+        raise AssertionError(f"A: {status}")
+    _wait_idle(a)
+    n = len(tap_a.prompts[ha["x-aigw-request-id"]])
+    time.sleep(0.6)  # A's chain digest is rebuilt at most every 0.5 s
+    before = _state(b.port)
+    reset_counts()
+    t = time.monotonic()
+    status, hb, _raw = _post_raw(
+        b.port, "/v1/chat/completions", raw_body,
+        {"x-aigw-kv-peers": f"127.0.0.1:{a.port}"})
+    wall_ms = 1e3 * (time.monotonic() - t)
+    if status != 200:
+        raise AssertionError(f"B: {status}")
+    _wait_idle(b)
+    after = _state(b.port)
+    want_pages = (n - 1) // 128
+    got = {k: after[k] - before[k] for k in (
+        "kv_fetches_in", "kv_fetch_pages_in", "prefix_cache_hits",
+        "prefix_tokens_reused")}
+    if got != {"kv_fetches_in": 1, "kv_fetch_pages_in": want_pages,
+               "prefix_cache_hits": 1,
+               "prefix_tokens_reused": want_pages * 128}:
+        raise AssertionError(f"fleet fetch of {want_pages} pages: {got}")
+    if hb.get("x-aigw-kv-chain") != ha.get("x-aigw-kv-chain"):
+        raise AssertionError("the two replicas name different chains")
+    ra, rb = ha["x-aigw-request-id"], hb["x-aigw-request-id"]
+    check = tie_check(torch, params, llama.LLAMA3_8B, tap_a.prompts[ra],
+                      tap_a.sampling[ra], tap_a.toks[ra], tap_b.toks[rb],
+                      a.tokenizer.eos_id)
+    _gate_ties("fetched stream", [check])
+    return {"prompt_tokens": n, "pages": want_pages, **got,
+            "fetch_failures": b.kv_fetch_failures, "b_wall_ms": wall_ms,
+            "launches": read_counts(), "stream": check}
+
+
+#: pool and spill budget of the spill step: 24 pages of 128 tokens (a
+#: wave of four ~1000-token prompts registers 28), and 64 pages of host
+#: memory
+MOB_SPILL_PAGES = 24
+MOB_HOST_PAGES = 64
+
+
+def _mob_spill(torch, a, params, base, rng) -> dict:
+    """Step 4: A restarted with a 24-page pool and a 64-page host tier;
+    wave one (four ~1000-token completions, 16 new tokens each, one at
+    a time), wave two (four others) evicting its chains into the tier,
+    then wave one again, revived. Gates: spills and revives above 0; each
+    revived page, read back from the pool or the tier, equals the page
+    that was spilled, string for string on the wire; the re-asked streams
+    equal the first ones up to a near-tie. Reports the stall a spill adds
+    to the engine thread."""
+    from aigw_tpu_torch.models import llama
+
+    words = "the quick brown fox jumps over a lazy dog while rivers run".split()
+
+    def text(i: int, n_bytes: int) -> str:
+        out = "EFGHIJKL"[i]
+        while len(out) <= n_bytes:
+            out += " " + words[int(rng.integers(len(words)))]
+        return out[:n_bytes]
+
+    page_bytes = a.engine.kv_page_bytes
+    tap = _mob_swap(a, params, base, num_pages=MOB_SPILL_PAGES,
+                    kv_host_bytes=MOB_HOST_PAGES * page_bytes)
+    tier = a.engine.host_tier
+    taken: dict = {}
+    take = tier.take
+
+    def recording_take(key):
+        rows = take(key)
+        if rows is not None:
+            taken[key] = rows  # the spilled bytes, as the tier held them
+        return rows
+
+    tier.take = recording_take
+    waves = [[text(i + 4 * w, 1000) for i in range(4)] for w in range(2)]
+    rids: list = []
+    reset_counts()
+    for prompt in waves[0] + waves[1] + waves[0]:
+        status, h, _raw = _post_raw(a.port, "/v1/completions", json.dumps({
+            "model": "llama-3-8b-random", "prompt": prompt,
+            "max_tokens": 16, "temperature": 0.0}).encode())
+        if status != 200:
+            raise AssertionError(f"spill step: {status}")
+        rids.append(h["x-aigw-request-id"])
+        _wait_idle(a)
+    st = a.engine.stats
+    a.engine._refresh_stats()
+    if st.kv_spills <= 0 or st.kv_revives <= 0 or not taken:
+        raise AssertionError(f"spills {st.kv_spills}, revives "
+                             f"{st.kv_revives}")
+    held = a.engine.kv_export_pages(list(taken))
+    if len(held) != len(taken) or any(
+            not torch.equal(d, taken[k]) for k, d in held):
+        raise AssertionError("a revived page differs from its spilled "
+                             "bytes")
+    checks = [tie_check(torch, params, llama.LLAMA3_8B, tap.prompts[r0],
+                        tap.sampling[r0], tap.toks[r0], tap.toks[r1],
+                        a.tokenizer.eos_id)
+              for r0, r1 in zip(rids[:4], rids[8:])]
+    _gate_ties("revived streams", checks)
+    return {"num_pages": MOB_SPILL_PAGES,
+            "kv_host_bytes": MOB_HOST_PAGES * page_bytes,
+            "kv_spills": st.kv_spills, "kv_revives": st.kv_revives,
+            "kv_spill_evictions": st.kv_spill_evictions,
+            "pages_revived_checked": len(held),
+            "spill_stall_ms_per_page": st.kv_spill_ms / st.kv_spills,
+            "revive_copy_ms_per_page": st.kv_import_ms / st.kv_revives,
+            "prefix_tokens_reused": st.prefix_tokens_reused,
+            "streams_equal": sum(c["equal"] for c in checks),
+            "stream_ties": [c for c in checks if not c["equal"]],
+            "launches": read_counts()}
+
+
+def _mob_batch(torch, a, params, base, reqs, rng, serve_pp: dict) -> dict:
+    """Step 5: a /v1/batches job of 12 chat lines at batch_slot_frac 0.5,
+    and while it runs the serve burst of 8 interactive requests. Gates:
+    preemptions above 0 and all resumed; the batch completed with 12
+    lines, each equal to the same line served alone up to a near-tie.
+    Reports the interactive TTFT p50/p95 beside serve's."""
+    from aigw_tpu_torch.models import llama
+
+    words = "the quick brown fox jumps over a lazy dog while rivers run".split()
+
+    def text(i: int, n_bytes: int) -> str:
+        out = "MNOPQRSTUVWXYZ"[i]
+        while len(out) <= n_bytes:
+            out += " " + words[int(rng.integers(len(words)))]
+        return out[:n_bytes]
+
+    tap = _mob_swap(a, params, base, batch_slot_frac=0.5)
+    lines = [{"custom_id": f"line-{i}", "method": "POST",
+              "url": "/v1/chat/completions",
+              "body": {"model": "llama-3-8b-random", "max_tokens": 32,
+                       "temperature": 0.0, "messages": [
+                           {"role": "user", "content": text(i, 100 + 25 * i)}
+                       ]}} for i in range(12)]
+    data = "\n".join(json.dumps(x) for x in lines).encode()
+    reset_counts()
+    t = time.monotonic()
+    status, _h, raw = _post_raw(a.port, "/v1/files", data)
+    fid = json.loads(raw)["id"]
+    status, _h, raw = _post_raw(a.port, "/v1/batches", json.dumps({
+        "input_file_id": fid, "endpoint": "/v1/chat/completions"}).encode())
+    if status != 200:
+        raise AssertionError(f"batch create: {status} {raw[:300]}")
+    bid = json.loads(raw)["id"]
+    deadline = time.monotonic() + 300
+    while a.engine.stats.batch_tokens < 8:  # the batch decodes
+        if time.monotonic() > deadline:
+            raise AssertionError("the batch never started")
+        time.sleep(0.005)
+    from aigw_tpu_torch.obs.metrics import EnginePhases
+
+    a.engine.phases = EnginePhases()
+    t_burst = time.monotonic()
+    serve_phase(a.port, reqs)
+    burst_s = time.monotonic() - t_burst
+    pp = _state(a.port)["phase_percentiles"]
+    while True:
+        b = json.loads(_http(a.port, f"/v1/batches/{bid}")[2])
+        if b["status"] != "in_progress":
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError("the batch never completed")
+        time.sleep(0.05)
+    batch_s = time.monotonic() - t
+    _wait_idle(a)
+    st = _state(a.port)
+    counts = read_counts()
+    if b["status"] != "completed" or b["request_counts"] != {
+            "total": 12, "completed": 12, "failed": 0}:
+        raise AssertionError(f"batch: {b}")
+    if st["batch_preemptions"] <= 0 \
+            or st["batch_resumed"] != st["batch_preemptions"]:
+        raise AssertionError(f"preemptions {st['batch_preemptions']}, "
+                             f"resumed {st['batch_resumed']}")
+    outs = [json.loads(ln) for ln in _http(
+        a.port, f"/v1/files/{b['output_file_id']}/content")[2].splitlines()
+        if ln.strip()]
+    if sorted(o["custom_id"] for o in outs) != sorted(
+            x["custom_id"] for x in lines) or any(
+            o["response"]["status_code"] != 200 for o in outs):
+        raise AssertionError("batch output lines")
+    batch_keys = [k for k in tap.toks if isinstance(k, tuple)]
+    solo = {}
+    for line in lines:  # each line alone, interactive
+        status, h, _raw = _post_raw(a.port, "/v1/chat/completions",
+                                    json.dumps(line["body"]).encode())
+        rid = h["x-aigw-request-id"]
+        solo[tuple(tap.prompts[rid])] = rid
+        _wait_idle(a)
+    if sorted(batch_keys) != sorted(solo):
+        raise AssertionError("batch lines and solo runs disagree on "
+                             "prompts")
+    checks = [tie_check(torch, params, llama.LLAMA3_8B, list(k),
+                        tap.sampling[solo[k]], tap.toks[solo[k]],
+                        tap.toks[k], a.tokenizer.eos_id)
+              for k in batch_keys]
+    _gate_ties("batch lines", checks)
+    return {"lines": 12, "batch_s": batch_s, "burst_s": burst_s,
+            "batch_preemptions": st["batch_preemptions"],
+            "batch_resumed": st["batch_resumed"],
+            "batch_tokens": st["batch_tokens"],
+            "interactive_ttft_p50_ms": pp["ttft"]["p50"],
+            "interactive_ttft_p95_ms": pp["ttft"]["p95"],
+            "serve_warm_ttft_p50_ms": serve_pp["ttft"]["p50"],
+            "serve_warm_ttft_p95_ms": serve_pp["ttft"]["p95"],
+            "lines_equal_solo": sum(c["equal"] for c in checks),
+            "line_ties": [c for c in checks if not c["equal"]],
+            "launches": counts}
+
+
+def serve_mobility(torch, srv, params, reqs, prefix_chat, launches: dict,
+                   serve_pp: dict) -> dict:
+    """KV mobility and the batch tier at full depth (32 layers, bf16
+    weights, 8 slots x 2048, 128-token pages, the prefix cache on, the
+    fused rung): the earlier phases' server as replica A, replica B a
+    second server in this process on the same weight tensors.
+
+    1. migration, bf16 pools (``_mob_migrate``), with each migrated
+       history's cold prefill timed beside B's resume;
+    2. the same over int8 pools (bf16 weights): the pages gated byte for
+       byte, the streams reported;
+    3. the fleet fetch (``_mob_fetch``);
+    4. spill and revive (``_mob_spill``);
+    5. the batch tier (``_mob_batch``).
+
+    Launch counts are zeroed just before each step and read just after;
+    their sum goes into ``launches`` under ``serve_mobility``."""
+    import numpy as np
+
+    from aigw_tpu_torch.tpuserve.engine import EngineConfig
+    from aigw_tpu_torch.tpuserve.server import TPUServeServer
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(13)
+    base = dict(max_batch_size=8, max_seq_len=2048, page_size=128,
+                attention_backend="pallas-ragged", decode_backend="fused",
+                enable_prefix_cache=True)
+    b = TPUServeServer("llama-3-8b-random", EngineConfig(**base),
+                       device="cuda", port=0, params=params)
+    b.start()
+    out: dict = {}
+    try:
+        chats = _mob_chats(rng, srv.tokenizer.eos_id)
+        t = time.monotonic()
+        m16 = _mob_migrate(torch, srv, b, params, base, chats, "bfloat16")
+        m16["cold_prefill_ttft_ms"] = _cold_ttft_ms(
+            srv, params, base, m16["histories"])
+        m16["step_s"] = time.monotonic() - t
+        log(f"serve_mobility bf16 migration: {json.dumps(m16)[:2000]}")
+        t = time.monotonic()
+        m8 = _mob_migrate(torch, srv, b, params, base, chats, "int8")
+        m8["step_s"] = time.monotonic() - t
+        log(f"serve_mobility int8 migration: {json.dumps(m8)[:1500]}")
+        for m in (m16, m8):
+            m["history_tokens"] = [len(h) for h in m.pop("histories")]
+        t = time.monotonic()
+        fetch = _mob_fetch(torch, srv, b, params, base, prefix_chat)
+        fetch["step_s"] = time.monotonic() - t
+        log(f"serve_mobility fetch: {json.dumps(fetch)}")
+        t = time.monotonic()
+        spill = _mob_spill(torch, srv, params, base, rng)
+        spill["step_s"] = time.monotonic() - t
+        log(f"serve_mobility spill: {json.dumps(spill)}")
+        t = time.monotonic()
+        batch = _mob_batch(torch, srv, params, base, reqs, rng, serve_pp)
+        batch["step_s"] = time.monotonic() - t
+    finally:
+        b.stop()
+    out = {"migrate_bf16": m16, "migrate_int8": m8, "fetch": fetch,
+           "spill": spill, "batch": batch,
+           "phase_s": time.monotonic() - t_phase}
+    total: dict = {}
+    for step in (m16, m8, fetch, spill, batch):
+        for k, v in step["launches"].items():
+            total[k] = total.get(k, 0) + v
+    launches["serve_mobility"] = total
+    log(f"serve_mobility: export {m16['export_ms_per_page']:.1f} ms/page, "
+        f"wire {m16['wire_mb_per_page']:.1f} MB/page, resume TTFT "
+        f"{m16['resume_ttft_ms']} vs cold {m16['cold_prefill_ttft_ms']}; "
+        f"spill stall {spill['spill_stall_ms_per_page']:.2f} ms/page; "
+        f"batch preemptions {batch['batch_preemptions']}; phase "
+        f"{out['phase_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4152,6 +4847,12 @@ def main() -> int:
         # metering, drain and the profile capture (serve_ops)
         print(json.dumps({"serve_ops": serve_ops(
             torch, srv, params, reqs, launches, warm_s)}), flush=True)
+
+        # KV mobility and the batch tier: a second replica in this
+        # process (serve_mobility)
+        print(json.dumps({"serve_mobility": serve_mobility(
+            torch, srv, params, reqs, prefix_reqs[0][0][2], launches,
+            pp)}), flush=True)
     finally:
         srv.stop()
 
@@ -4286,6 +4987,8 @@ def main() -> int:
         row["launches_serve_logprobs"] = launches["serve_logprobs"].get(
             row["name"], 0)
         row["launches_serve_ops"] = launches["serve_ops"].get(row["name"], 0)
+        row["launches_serve_mobility"] = launches["serve_mobility"].get(
+            row["name"], 0)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)

@@ -268,11 +268,14 @@ def test_engine_request_filling_max_seq_len(weights, rung):
 
 
 def test_engine_config_refuses_unported_knobs():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tengine.EngineConfig(kv_host_bytes=1 << 20)
-    # logprobs and the tenant cap are ported; logprobs still exclude
-    # speculation, as in the reference
-    for kw in (dict(logprobs_topk=2), dict(tenant_slot_cap=1)):
+    # every knob of the reference's EngineConfig the port has is ported
+    # (the spill tier's kv_host_bytes last); the gather rung below is
+    # still refused
+    assert tengine.NOT_PORTED == {}
+    # logprobs, the tenant cap and the spill tier are ported; logprobs
+    # still exclude speculation, as in the reference
+    for kw in (dict(logprobs_topk=2), dict(tenant_slot_cap=1),
+               dict(kv_host_bytes=1 << 20)):
         assert getattr(tengine.EngineConfig(**kw), next(iter(kw))) == \
             next(iter(kw.values()))
     with pytest.raises(ValueError, match="mutually exclusive"):

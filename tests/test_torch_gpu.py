@@ -1214,3 +1214,74 @@ def test_device_gauges_on_card(cuda):
         time.sleep(0)
     finally:
         srv.stop()
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8", "int4"])
+def test_page_movers_are_bit_exact(cuda, kv_dtype):
+    """The engine's page movers on the card: ``_export_pages`` copies
+    pages off the pool (int4 unpacked to one element per byte, the
+    reference's host form), ``_import_pages_dev`` scatters host pages
+    back (int4 packed again), and an import followed by an export gives
+    back the same bytes, through the wire codec too; ``_export_page_dev``
+    is the pool's page as it stands; no other page changes."""
+    from aigw_tpu_torch.models import kvq, llama
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+    from aigw_tpu_torch.tpuserve.server import (decode_wire_page,
+                                                encode_wire_page)
+
+    ps = 16
+    eng = Engine(llama.init_params(0, llama.TINY, torch.bfloat16, cuda),
+                 llama.TINY, EngineConfig(max_batch_size=2, max_seq_len=128,
+                                          page_size=ps,
+                                          kv_cache_dtype=kv_dtype),
+                 device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    leaves = (eng.kv_cache.values() if isinstance(eng.kv_cache, dict)
+              else (eng.kv_cache,))
+    for leaf in leaves:
+        if leaf.dtype.is_floating_point:
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda))
+        else:
+            leaf.copy_(torch.randint(0, 255, leaf.shape, generator=g,
+                                     device=cuda).to(leaf.dtype))
+
+    def pages_of(kv, p):
+        if isinstance(kv, dict):
+            return {k: v[:, :, p * ps:(p + 1) * ps].clone()
+                    for k, v in kv.items()}
+        return kv[:, :, p * ps:(p + 1) * ps].clone()
+
+    src = [5, 1, 9]
+    want = [pages_of(eng.kv_cache, p) for p in src]
+    host = eng._export_pages(src)
+    for p, h, w in zip(src, host, want):
+        dev_page = eng._export_page_dev(p)
+        if kv_dtype == "bfloat16":
+            assert h.device.type == "cpu" and h.dtype == torch.bfloat16
+            assert torch.equal(h, w.cpu()) and torch.equal(dev_page, w)
+        else:
+            q = (kvq.unpack_int4(w["q"]) & 0xF).to(torch.uint8) \
+                if kv_dtype == "int4" else w["q"]
+            assert h["dtype"] == kv_dtype
+            assert torch.equal(h["q"], q.cpu())
+            assert torch.equal(h["scale"], w["scale"].cpu())
+            assert torch.equal(dev_page["q"], w["q"])
+    before = pages_of(eng.kv_cache, 0)  # a page the import leaves alone
+    dst = [3, 7, 2]
+    wired = [decode_wire_page(encode_wire_page(h)) for h in host]
+    eng._import_pages_dev(dst, wired)
+    torch.cuda.synchronize()
+    for p, w in zip(dst, want):
+        got = pages_of(eng.kv_cache, p)
+        if isinstance(w, dict):
+            assert all(torch.equal(got[k], w[k]) for k in w)
+        else:
+            assert torch.equal(got, w)
+    again = eng._export_pages(dst)
+    assert [encode_wire_page(h) for h in again] \
+        == [encode_wire_page(h) for h in host]
+    keep = pages_of(eng.kv_cache, 0)
+    if isinstance(keep, dict):
+        assert all(torch.equal(keep[k], before[k]) for k in keep)
+    else:
+        assert torch.equal(keep, before)

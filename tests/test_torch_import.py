@@ -188,10 +188,52 @@ def test_ops_surface_modules_import_with_jax_blocked():
         "           meter_to_tuple, TPUServeServer.drain,\n"
         "           TPUServeServer.profile, TPUServeServer.metrics):\n"
         "    assert callable(fn)\n"
-        "assert len(metric_families()) == 93\n"
+        "assert len(metric_families()) == 113\n"
         "bad = [k for k, v in sys.modules.items() if v and (\n"
         "    k.split('.')[0] in ('jax', 'jaxlib', 'aigw_tpu',\n"
         "                        'prometheus_client', 'grpc'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_kv_mobility_modules_import_with_jax_and_ml_dtypes_blocked():
+    """The KV-mobility names (the spill tier, the host pages, the wire
+    codec, continuation_request) are the port's own: the spill tier
+    is standard library apart from the port, and they import in a fresh
+    interpreter where jax, the reference package and ``ml_dtypes`` (the
+    reference's int4 host dtype, which the card may lack) cannot be
+    imported, pulling in none of them."""
+    import sys as _sys
+
+    assert "aigw_tpu_torch.tpuserve.kvhost" in MODULES
+    outside = [n for n in _imported_names(PKG / "tpuserve" / "kvhost.py")
+               if n.split(".")[0] not in _sys.stdlib_module_names
+               and not n.startswith("aigw_tpu_torch")]
+    assert not outside, outside
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'aigw_tpu', 'ml_dtypes'):\n"
+        "    sys.modules[m] = None\n"
+        "from aigw_tpu_torch.tpuserve.kvhost import HostKVTier\n"
+        "from aigw_tpu_torch.models.kvq import (page_nbytes,\n"
+        "    page_shape_ok, page_matches_dtype, pages_to_host)\n"
+        "from aigw_tpu_torch.tpuserve.engine import (MigrationError,\n"
+        "    continuation_request)\n"
+        "from aigw_tpu_torch.tpuserve.server import (encode_wire_page,\n"
+        "    decode_wire_page)\n"
+        "import numpy as np\n"
+        "t = HostKVTier(64)\n"
+        "q = np.array([9, 15, 0, 1, 7], np.uint8)\n"
+        "page = {'q': q, 'scale': np.ones(1, np.float32), 'dtype': 'int4'}\n"
+        "assert t.put(b'k', page) and t.bytes_used == 2 + 4\n"
+        "back = decode_wire_page(encode_wire_page(page))\n"
+        "assert back['q'].tolist() == q.tolist()\n"
+        "bad = [k for k, v in sys.modules.items() if v and (\n"
+        "    k.split('.')[0] in ('jax', 'jaxlib', 'aigw_tpu', 'ml_dtypes'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
