@@ -3,6 +3,8 @@
     python -m aigw_tpu_torch tpuserve --model tiny-random --port 8011 \\
         --device cuda --attention-backend pallas-ragged --decode-backend fused
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
+        --prefill-chunk-tokens 128 --prefill-bucket-rungs 4
+    python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --quantize int8 --kv-cache-dtype int8
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --pallas-attn --spec-tokens 4
@@ -12,6 +14,14 @@
         --logprobs 20 --tenant-slot-cap 4
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --flight-entries 512 --enable-profile-endpoint
+
+With no flags a replica runs the reference's default programs: the
+bucket-ladder prefill (``xla-bucketed``, chunked past
+``--prefill-chunk-tokens``) and the gather decode rung; the card's
+kernel path is ``--attention-backend pallas-ragged --decode-backend
+fused``. ``--warm-prefill-buckets`` and ``--warm-decode-buckets`` keep
+the reference's names and defaults; a non-zero value is refused with
+the engine's NOT_PORTED reason (ROADMAP queue 1).
 
 SIGTERM or SIGINT drains the replica (new generations get 503 while
 live ones finish, ``--drain-grace`` at most) and exits 0; a second
@@ -66,13 +76,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="blocking token copy at drain time instead of an "
                         "async copy issued at dispatch")
     s.add_argument("--no-first-token-fast-path", action="store_true")
+    s.add_argument("--prefill-chunk-tokens", type=int, default=256,
+                   help="chunk prompts longer than this into fixed-size "
+                        "prefill steps with decode ticks interleaved (0 = "
+                        "off; the bucketed backend)")
+    s.add_argument("--prefill-bucket-rungs", type=int, default=2,
+                   choices=[1, 2, 4],
+                   help="prefill bucket rungs per octave: 1 = powers of "
+                        "two, 2 adds a 1.5xS rung, 4 adds 1.25x/1.5x/1.75x")
+    s.add_argument("--warm-prefill-buckets", type=int, default=0,
+                   help="warm the batched-prefill programs of the N "
+                        "smallest buckets (not ported: non-zero is "
+                        "refused)")
+    s.add_argument("--warm-decode-buckets", type=int, default=0,
+                   help="warm the decode window at the N smallest page "
+                        "buckets (not ported: non-zero is refused)")
     s.add_argument("--pallas-attn", action="store_true",
                    help="the chained decode rung: scatter, then the paged "
                         "attention kernel")
     s.add_argument("--attention-backend", default="xla-bucketed",
                    choices=["xla-bucketed", "pallas-ragged"],
-                   help="prefill backend; only pallas-ragged is ported "
-                        "and xla-bucketed resolves to it (see /state)")
+                   help="prefill backend: xla-bucketed pads each prompt "
+                        "to a bucket rung (dense attention); pallas-ragged "
+                        "packs a burst into token-budget calls through "
+                        "the ragged prefill kernel")
     s.add_argument("--decode-backend", default="auto",
                    choices=["auto", "chained", "fused"])
     s.add_argument("--kv-cache-dtype", default="bfloat16",
@@ -154,6 +181,10 @@ def engine_config(args):
         adaptive_decode_window=not args.no_adaptive_window,
         async_transfers=not args.sync_transfers,
         first_token_fast_path=not args.no_first_token_fast_path,
+        prefill_chunk_tokens=args.prefill_chunk_tokens,
+        prefill_bucket_rungs=args.prefill_bucket_rungs,
+        warm_prefill_buckets=args.warm_prefill_buckets,
+        warm_decode_buckets=args.warm_decode_buckets,
         pallas_attn=args.pallas_attn,
         attention_backend=args.attention_backend,
         decode_backend=args.decode_backend,

@@ -26,14 +26,18 @@ The pool (native tensor or the quantized ``{"q", "scale"}`` dict of
 donates it).
 
 The port has ``prefill_ragged`` (K1, or the windowed program that
-quantized pools take), ``decode_step`` (fused and chained rungs) and
-``verify_step`` (K5 on the chained rung, the gather path otherwise).
-Each takes ``lora=`` (stacked adapters, ``models/lora.py``) and
-``adapter_idx=`` (the adapter row of each sequence): the deltas join
-the projections before the bias and RoPE, the out-projection and the
-dense MLP, as in the reference. ``prefill``, ``prefill_suffix``,
-``hidden_states``, the sequence-parallel prefills and the gather rung
-wait for later slices (ROADMAP queue 1).
+quantized pools take), the dense bucketed ``prefill`` and
+``prefill_suffix`` (the reference's default prefill programs: dense
+masked attention over an unpaged ``[B, S]`` block, or over the gathered
+page window), ``hidden_states`` (the embeddings pass), ``decode_step``
+(fused, chained and gather rungs) and ``verify_step`` (K5 on the
+chained rung, the gather path otherwise). The dense attention
+(``_attention``) is the counterpart of an XLA op, not of a Pallas
+kernel, and stays plain PyTorch. Each entry point takes ``lora=``
+(stacked adapters, ``models/lora.py``) and ``adapter_idx=`` (the adapter
+row of each sequence): the deltas join the projections before the bias
+and RoPE, the out-projection and the dense MLP, as in the reference. The
+sequence-parallel prefills wait for a mesh (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -276,15 +280,18 @@ def _attention(q: torch.Tensor,  # [B, S, H, D]
     """Dense masked attention over gathered rows (the reference's
     ``_attention``): float32 logits and softmax; the probabilities cast
     to the rows' dtype before the PV product, which sums in float32 and
-    rounds once to that dtype. Returns ``[B, S, H * D]``."""
+    rounds once to that dtype. Returns ``[B, S, H * D]``. The logits are
+    scaled and masked in place and dropped before the PV product: at a
+    dense ``[B, S, S]`` block they are the pass's largest tensor."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, S, Hkv, H // Hkv, D)
     logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())
-    logits = logits / math.sqrt(D)
-    logits = torch.where(mask[:, None, None], logits,
-                         torch.full_like(logits, -1e30))
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    logits.div_(math.sqrt(D))
+    logits.masked_fill_(~mask[:, None, None], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    probs = probs.to(v.dtype)
     out = torch.einsum("bhgst,bthd->bshgd", probs.float(), v.float())
     return out.to(v.dtype).reshape(B, S, H * D)
 
@@ -318,6 +325,42 @@ def _logits(p, cfg: LlamaConfig, x: torch.Tensor,
     if cfg.tie_embeddings:
         return _mm(x, _w(p, "embed").T).float()
     return _matmul(p, "lm_head", x, plain).float()
+
+
+def _write_slots(kv_cache: Any, page_table: torch.Tensor, pos: torch.Tensor,
+                 valid: torch.Tensor, page_size: int) -> torch.Tensor:
+    """Flat pool rows the tokens at positions ``pos`` ([B, S]) write:
+    ``page_table[b, pos // page] * page + pos % page`` where ``valid``,
+    else a row of the dump page. Page indices past the table (padding
+    near ``max_seq_len``, an inactive slot at it) are clamped as the
+    reference's gather clamps them; their rows go to the dump page
+    anyway."""
+    page_idx = torch.clamp(pos // page_size, 0, page_table.shape[1] - 1)
+    slot = torch.gather(page_table.long(), 1, page_idx) * page_size \
+        + pos % page_size
+    return kvq.padding_slots(kv_cache, page_size, valid, slot)
+
+
+def _window_slots(page_table: torch.Tensor, page_size: int) -> torch.Tensor:
+    """``[B, P * page]`` flat pool rows of each sequence's page window
+    (the gather of the reference's XLA attention paths), in position
+    order."""
+    B, P = page_table.shape
+    return (page_table.long()[:, :, None] * page_size
+            + torch.arange(page_size, device=page_table.device)
+            ).reshape(B, P * page_size)
+
+
+def _causal_block(seq_lens: torch.Tensor, S: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(positions ``[B, S]``, valid ``[B, S]``, mask ``[B, S, S]``) of an
+    unpaged right-padded block: causal, keys past each row's length
+    masked out (the reference's ``prefill``/``hidden_states`` mask)."""
+    B = seq_lens.shape[0]
+    pos = torch.arange(S, device=seq_lens.device)[None, :].expand(B, S)
+    valid = pos < seq_lens.long()[:, None]
+    mask = (pos[:, :, None] >= pos[:, None, :]) & valid[:, None, :]
+    return pos, valid, mask
 
 
 #: packed rows the windowed prefill attends per pass: bounds its
@@ -477,6 +520,128 @@ def prefill_ragged(
     return _logits(p, cfg, last, plain), kv_cache
 
 
+def prefill(
+    p: dict[str, torch.Tensor],
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] int, right-padded
+    seq_lens: torch.Tensor,  # [B] int true lengths (0 = a padding row)
+    kv_cache: Any,  # [L, 2, n_slots, Hkv, D] or quantized dict, in place
+    page_table: torch.Tensor,  # [B, max_pages] int32
+    page_size: int,
+    *,
+    plain: bool = False,
+    mlp: Any = None,
+    lora: dict[str, torch.Tensor] | None = None,
+    adapter_idx: torch.Tensor | None = None,  # [B] adapter row per sequence
+) -> tuple[torch.Tensor, Any]:
+    """The bucketed prefill (the reference's ``prefill``): whole prompts
+    right-padded to one ``[B, S]`` block. The prompt attends only itself
+    (dense causal attention over the block's fresh K/V, never the pool);
+    each layer's K/V are scattered into the pool, padded positions into
+    the dump page. ``plain``, ``mlp``, ``lora`` and ``adapter_idx`` as
+    in ``prefill_ragged``. Returns (logits at each row's last valid
+    position [B, V] float32, pool)."""
+    B, S = tokens.shape
+    pos, valid, mask = _causal_block(seq_lens, S)
+    flat = _write_slots(kv_cache, page_table, pos, valid, page_size)
+    ad = _adapters(lora, adapter_idx)
+    mlp = _dense_mlp(mlp, ad)
+    x = _embed_rows(p, tokens.long())  # [B, S, dim]
+    for i in range(cfg.n_layers):
+        h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(p, i, h, pos, cfg, plain=plain, ad=ad)
+        kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
+        x = x + _wo(p, i, _attention(q, k, v, mask), plain, ad)
+        h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
+        x = x + mlp(p, i, h, plain)
+    x = rms_norm(x, p["norm_f"], cfg.norm_eps)
+    last = torch.clamp(seq_lens.long() - 1, 0, S - 1)
+    return _logits(p, cfg, x[torch.arange(B, device=x.device), last],
+                   plain), kv_cache
+
+
+def prefill_suffix(
+    p: dict[str, torch.Tensor],
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] suffix tokens, right-padded
+    prefix_lens: torch.Tensor,  # [B] int tokens already in the pool
+    seq_lens: torch.Tensor,  # [B] int TOTAL length, prefix included
+    kv_cache: Any,  # native tensor or quantized dict, updated in place
+    page_table: torch.Tensor,  # [B, window pages] int32
+    page_size: int,
+    *,
+    plain: bool = False,
+    mlp: Any = None,
+    lora: dict[str, torch.Tensor] | None = None,
+    adapter_idx: torch.Tensor | None = None,  # [B] adapter row per sequence
+) -> tuple[torch.Tensor, Any]:
+    """Prefill the suffix of a prompt whose prefix K/V already sits in
+    the pool (a prefix-cache resume, or one chunk of the chunked
+    prefill): the reference's ``prefill_suffix``. Per layer the suffix's
+    K/V are scattered first (padding into the dump page), then every
+    suffix query attends the gathered page window (a quantized pool
+    dequantized at the gather) under the global causal mask, so it sees
+    the cached prefix and the suffix itself. ``page_table``'s width is
+    the window (the engine passes the sequence's power-of-two page
+    bucket). Returns (logits at each row's last valid position [B, V]
+    float32, pool)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    pos = prefix_lens.long()[:, None] + torch.arange(S, device=dev)[None, :]
+    valid = pos < seq_lens.long()[:, None]
+    flat = _write_slots(kv_cache, page_table, pos, valid, page_size)
+    gslot = _window_slots(page_table, page_size)
+    mask = (torch.arange(gslot.shape[1], device=dev)[None, None, :]
+            <= pos[:, :, None]) & valid[..., None]
+    ad = _adapters(lora, adapter_idx)
+    mlp = _dense_mlp(mlp, ad)
+    x = _embed_rows(p, tokens.long())
+    for i in range(cfg.n_layers):
+        h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(p, i, h, pos, cfg, plain=plain, ad=ad)
+        kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
+        k_all, v_all = kvq.gather_kv(kv_cache, i, gslot)
+        x = x + _wo(p, i, _attention(q, k_all, v_all, mask), plain, ad)
+        h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
+        x = x + mlp(p, i, h, plain)
+    x = rms_norm(x, p["norm_f"], cfg.norm_eps)
+    last = torch.clamp(seq_lens.long() - prefix_lens.long() - 1, 0, S - 1)
+    return _logits(p, cfg, x[torch.arange(B, device=dev), last],
+                   plain), kv_cache
+
+
+def hidden_states(
+    p: dict[str, torch.Tensor],
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] int, right-padded
+    seq_lens: torch.Tensor,  # [B] int true lengths
+    *,
+    plain: bool = False,
+    mlp: Any = None,
+    lora: dict[str, torch.Tensor] | None = None,
+    adapter_idx: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Mean-pooled final hidden states (the ``/v1/embeddings`` pass, the
+    reference's ``hidden_states``): the prefill's dense causal pass with
+    no pool, then the final norm's rows averaged in float32 over each
+    row's valid positions (``max(count, 1)`` as the divisor, so an empty
+    input pools to zeros). Returns ``[B, dim]`` float32."""
+    B, S = tokens.shape
+    pos, valid, mask = _causal_block(seq_lens, S)
+    ad = _adapters(lora, adapter_idx)
+    mlp = _dense_mlp(mlp, ad)
+    x = _embed_rows(p, tokens.long())
+    for i in range(cfg.n_layers):
+        h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(p, i, h, pos, cfg, plain=plain, ad=ad)
+        x = x + _wo(p, i, _attention(q, k, v, mask), plain, ad)
+        h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
+        x = x + mlp(p, i, h, plain)
+    x = rms_norm(x, p["norm_f"], cfg.norm_eps)
+    w = valid[..., None].float()
+    return (x.float() * w).sum(1) / torch.clamp(w.sum(1), min=1.0)
+
+
 def decode_step(
     p: dict[str, torch.Tensor],
     cfg: LlamaConfig,
@@ -504,14 +669,20 @@ def decode_step(
       slots scatter into the dump page), then K3
       (``ops.paged_attention.paged_attention_decode_v2``). Native pools
       only, as in the reference.
+    - ``""`` — the gather rung (the reference's XLA default): RoPE and
+      the scatter as on the chained rung, then each slot's whole page
+      window gathered (a quantized pool dequantized to bf16 at the
+      gather, ``kvq.gather_kv``) and dense attention masked to
+      ``pos + 1``, in plain PyTorch on every device, as the reference
+      runs it in XLA.
 
     ``plain=True`` runs the kernels' plain versions (the attention
     rung's and K6's) whatever the device; ``mlp``, ``lora`` and
     ``adapter_idx`` as in ``prefill_ragged``. On the fused rung the
     kernel gets q/k/v that already carry the adapter deltas.
     """
-    if attn_impl not in ("fused", "chained"):
-        raise ValueError(f"attn_impl must be 'fused' or 'chained' "
+    if attn_impl not in ("fused", "chained", ""):
+        raise ValueError(f"attn_impl must be 'fused', 'chained' or '' "
                          f"(got {attn_impl!r})")
     if attn_impl == "chained" and kvq.is_quantized(kv_cache):
         raise NotImplementedError(
@@ -520,8 +691,7 @@ def decode_step(
     ad = _adapters(lora, adapter_idx)
     mlp = _dense_mlp(mlp, ad)
     B = tokens.shape[0]
-    pos = positions.long()
-    pos1 = pos[:, None]
+    pos1 = positions.long()[:, None]
     active = active.bool()
     pt32 = page_table.to(torch.int32).contiguous()
     fused = attn_impl == "fused"
@@ -534,36 +704,45 @@ def decode_step(
         pos32 = positions.to(torch.int32).contiguous()
         act32 = active.to(torch.int32)
     else:
+        # an inactive slot may sit at max_seq_len (its window ran out at
+        # its limit): _write_slots clamps its page index and sends its
+        # row to the dump page
+        flat = _write_slots(kv_cache, page_table, pos1, active[:, None],
+                            page_size)
+    if attn_impl == "chained":
         walk = (paged_attention.paged_attention_decode_v2_plain if plain
                 else paged_attention.paged_attention_decode_v2)
-        # an inactive slot may sit at max_seq_len (its window ran out at
-        # its limit): clamp the page index as the reference's gather does;
-        # padding_slots sends its row to the dump page anyway
-        page_idx = torch.clamp(pos1 // page_size, max=page_table.shape[1] - 1)
-        slot = torch.gather(page_table.long(), 1, page_idx)[:, 0] \
-            * page_size + pos % page_size
-        flat = kvq.padding_slots(kv_cache, page_size, active, slot)
-        lengths = torch.where(active, pos + 1,
-                              torch.zeros_like(pos)).to(torch.int32)
+        lengths = torch.where(active, pos1[:, 0] + 1,
+                              torch.zeros_like(pos1[:, 0])).to(torch.int32)
+    elif not fused:
+        gslot = _window_slots(page_table, page_size)
+        mask = (torch.arange(gslot.shape[1], device=gslot.device)[None, :]
+                <= pos1)[:, None, :]  # [B, 1, T]
     HD = cfg.n_heads * cfg.head_dim
     x = _embed_rows(p, tokens.long())[:, None]  # [B, 1, dim]
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(p, i, h, pos1, cfg, apply_rope=not fused,
                                plain=plain, ad=ad)
-        kr, ksc = kvq.layer_pool(kv_cache, i, 0)
-        vr, vsc = kvq.layer_pool(kv_cache, i, 1)
         if fused:
+            kr, ksc = kvq.layer_pool(kv_cache, i, 0)
+            vr, vsc = kvq.layer_pool(kv_cache, i, 1)
             attn = step(
                 q[:, 0].contiguous(), k[:, 0].contiguous(),
                 v[:, 0].contiguous(), kr, vr, pt32, pos32, act32, ksc, vsc,
                 rope_theta=cfg.rope_theta, page_size=page_size,
-                tables=tables)[0]
+                tables=tables)[0].reshape(B, 1, HD)
         else:
             kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
-            attn = walk(q[:, 0].contiguous(), kr, vr, pt32, lengths,
-                        page_size=page_size)
-        x = x + _wo(p, i, attn.reshape(B, 1, HD), plain, ad)
+            if attn_impl == "chained":
+                kr, _ = kvq.layer_pool(kv_cache, i, 0)
+                vr, _ = kvq.layer_pool(kv_cache, i, 1)
+                attn = walk(q[:, 0].contiguous(), kr, vr, pt32, lengths,
+                            page_size=page_size).reshape(B, 1, HD)
+            else:
+                k_all, v_all = kvq.gather_kv(kv_cache, i, gslot)
+                attn = _attention(q, k_all, v_all, mask)
+        x = x + _wo(p, i, attn, plain, ad)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
         x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
@@ -615,19 +794,12 @@ def verify_step(
             "the verify kernel has no quantized-pool rung: the fallback "
             "matrix keeps int8/int4 on the gather-dequant path")
     B, S = tokens.shape
-    P = page_table.shape[1]
     dev = tokens.device
     start = positions.long()
     pos = start[:, None] + torch.arange(S, device=dev)[None, :]  # [B, S]
     active = active.bool()
     valid = active[:, None] & (pos < limits.long()[:, None])
-    # positions near max_seq_len (or of an inactive slot) may index past
-    # the table: clamp as the reference's gather does; padding_slots
-    # sends those rows to the dump page anyway
-    page_idx = torch.clamp(pos // page_size, 0, P - 1)
-    slot = torch.gather(page_table.long(), 1, page_idx) * page_size \
-        + pos % page_size
-    flat = kvq.padding_slots(kv_cache, page_size, valid, slot)
+    flat = _write_slots(kv_cache, page_table, pos, valid, page_size)
     if chained:
         attend = (paged_attention.paged_attention_verify_plain if plain
                   else paged_attention.paged_attention_verify)
@@ -637,10 +809,8 @@ def verify_step(
                            torch.full_like(start, -(S + 1))
                            ).to(torch.int32).contiguous()
     else:
-        T = P * page_size
-        gslot = (page_table.long()[:, :, None] * page_size
-                 + torch.arange(page_size, device=dev)).reshape(B, T)
-        mask = (torch.arange(T, device=dev)[None, None, :]
+        gslot = _window_slots(page_table, page_size)
+        mask = (torch.arange(gslot.shape[1], device=dev)[None, None, :]
                 <= pos[:, :, None]) & valid[..., None]
     HD = cfg.n_heads * cfg.head_dim
     x = _embed_rows(p, tokens.long())  # [B, S, dim]

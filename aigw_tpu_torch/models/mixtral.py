@@ -25,14 +25,15 @@ Expert weights are ``[E, in, out]`` stacks resolved through
 to bf16 at each call (the reference's experts do not go through its
 quantized-matmul kernel either).
 
-Entry points (``prefill_ragged``, ``decode_step``, ``verify_step``)
-delegate to the llama skeleton; with ``moe_stats=True`` they also
-return an ``[L, E + 1]`` int32 leaf: per layer, the (token, k)
-assignments placed on each expert, then the count the fence dropped,
-over every row the call ran (padding rows included, as the
-reference counts them). ``hidden_states``, ``prefill``,
-``prefill_suffix`` and the sequence-parallel prefills wait with their
-llama counterparts (ROADMAP queue 1).
+Entry points (``prefill_ragged``, ``prefill``, ``prefill_suffix``,
+``decode_step`` on every rung, ``verify_step``) delegate to the llama
+skeleton; with ``moe_stats=True`` they also return an ``[L, E + 1]``
+int32 leaf: per layer, the (token, k) assignments placed on each
+expert, then the count the fence dropped, over every row the call ran
+(padding rows included, as the reference counts them).
+``hidden_states`` keeps no tape, as in the reference. The
+sequence-parallel prefills wait with their llama counterparts (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -231,6 +232,30 @@ def prefill_ragged(p, cfg: MixtralConfig, tokens, row_seq, positions,
     return _with_moe(llama.prefill_ragged(
         p, cfg.as_llama(), tokens, row_seq, positions, last_rows, kv_cache,
         page_table, page_size, plain=plain, mlp=_mlp_fn(cfg, stats)), stats)
+
+
+def prefill(p, cfg: MixtralConfig, tokens, seq_lens, kv_cache, page_table,
+            page_size, *, plain=False, moe_stats=False, lora=None,
+            adapter_idx=None):
+    stats: list | None = [] if moe_stats else None
+    return _with_moe(llama.prefill(
+        p, cfg.as_llama(), tokens, seq_lens, kv_cache, page_table,
+        page_size, plain=plain, mlp=_mlp_fn(cfg, stats)), stats)
+
+
+def prefill_suffix(p, cfg: MixtralConfig, tokens, prefix_lens, seq_lens,
+                   kv_cache, page_table, page_size, *, plain=False,
+                   moe_stats=False, lora=None, adapter_idx=None):
+    stats: list | None = [] if moe_stats else None
+    return _with_moe(llama.prefill_suffix(
+        p, cfg.as_llama(), tokens, prefix_lens, seq_lens, kv_cache,
+        page_table, page_size, plain=plain, mlp=_mlp_fn(cfg, stats)), stats)
+
+
+def hidden_states(p, cfg: MixtralConfig, tokens, seq_lens, *, plain=False,
+                  lora=None, adapter_idx=None):
+    return llama.hidden_states(p, cfg.as_llama(), tokens, seq_lens,
+                               plain=plain, mlp=_mlp_fn(cfg, None))
 
 
 def decode_step(p, cfg: MixtralConfig, tokens, positions, kv_cache,

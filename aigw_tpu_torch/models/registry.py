@@ -33,6 +33,13 @@ class ModelFns:
     init_params: Any
     decode_step: Any
     prefill_ragged: Any
+    # the bucketed prefill programs (the reference's default backend):
+    # whole prompts in a [B, S] block, and a suffix over cached pages
+    # (a prefix-cache resume, or one chunk of the chunked prefill)
+    prefill: Any = None
+    prefill_suffix: Any = None
+    # mean-pooled final hidden states (/v1/embeddings)
+    hidden_states: Any = None
     # multi-position verifier for speculative decoding; None disables
     # the engine's speculation for the family
     verify_step: Any = None
@@ -48,11 +55,16 @@ class ModelFns:
 def family_fns(family: str) -> ModelFns:
     if family == "llama":
         return ModelFns(llama.init_params, llama.decode_step,
-                        llama.prefill_ragged, verify_step=llama.verify_step,
+                        llama.prefill_ragged, prefill=llama.prefill,
+                        prefill_suffix=llama.prefill_suffix,
+                        hidden_states=llama.hidden_states,
+                        verify_step=llama.verify_step,
                         iter_params=llama.iter_params)
     if family == "mixtral":
         return ModelFns(mixtral.init_params, mixtral.decode_step,
-                        mixtral.prefill_ragged,
+                        mixtral.prefill_ragged, prefill=mixtral.prefill,
+                        prefill_suffix=mixtral.prefill_suffix,
+                        hidden_states=mixtral.hidden_states,
                         verify_step=mixtral.verify_step,
                         iter_params=mixtral.iter_params, moe_stats=True)
     raise KeyError(f"unknown model family {family!r}")

@@ -164,16 +164,15 @@ ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
      "tpuserve_meter_host_page_byte_s_total"),
 )
 
-_SP = "gather rung, bucketed prefill and the remaining prefill entry points"
-_MESH = "multi-GPU"
+_MESH = "item 7, multi-GPU"
 _WARM = "the compiled decode window, as CUDA graphs"
 #: the reference's engine gauges the port does not export yet:
 #: EngineStats attribute → (gauge name, ROADMAP queue 1 entry)
 GAUGES_NOT_PORTED: dict[str, tuple[str, str]] = {
-    "sp_prefills": ("tpuserve_sp_prefills_total", _SP),
-    "sp_chunked_prefills": ("tpuserve_sp_chunked_prefills_total", _SP),
-    "sp_resume_prefills": ("tpuserve_sp_resume_prefills_total", _SP),
-    "sp_interactive_admits": ("tpuserve_sp_interactive_admits_total", _SP),
+    "sp_prefills": ("tpuserve_sp_prefills_total", _MESH),
+    "sp_chunked_prefills": ("tpuserve_sp_chunked_prefills_total", _MESH),
+    "sp_resume_prefills": ("tpuserve_sp_resume_prefills_total", _MESH),
+    "sp_interactive_admits": ("tpuserve_sp_interactive_admits_total", _MESH),
     "warm_programs": ("tpuserve_warm_programs", _WARM),
     "xla_compiles": ("tpuserve_xla_compiles_total", _WARM),
     "xla_compile_ms": ("tpuserve_xla_compile_ms_total", _WARM),

@@ -1,7 +1,8 @@
 """OpenAI request/response helpers for the replica server (the port's
 own copy of the subset of ``aigw_tpu/schemas/openai.py`` it serves):
 body parsing and validation for chat and completions, the response and
-stream-chunk shapes, ``/v1/models`` and error envelopes."""
+stream-chunk shapes, the embeddings response, ``/v1/models`` and error
+envelopes."""
 
 from __future__ import annotations
 
@@ -237,6 +238,22 @@ def completion_chunk_sse(*, response_id: str, model: str, created: int,
     if usage is not None:
         ev["usage"] = usage_dict(usage)
     return sse(json.dumps(ev))
+
+
+def embeddings_response(*, model: str, vectors: Iterable[list[float]],
+                        usage: TokenUsage) -> dict[str, Any]:
+    """The ``/v1/embeddings`` body: one indexed entry per input, and a
+    usage with prompt tokens only."""
+    return {
+        "object": "list",
+        "model": model,
+        "data": [{"object": "embedding", "index": i, "embedding": v}
+                 for i, v in enumerate(vectors)],
+        "usage": {
+            "prompt_tokens": usage.input_tokens,
+            "total_tokens": usage.total_tokens or usage.input_tokens,
+        },
+    }
 
 
 def models_response(models: Iterable[tuple]) -> dict[str, Any]:

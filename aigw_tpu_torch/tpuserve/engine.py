@@ -24,7 +24,11 @@ to adopt, at most one new chain head per run) prefill as one packed
 burst (``group_prefill``), and every other request goes through
 ``_admit_one`` in the guard's order, which adopts the longest cached
 page-prefix and resumes at its offset (``single_prefill``). Both run the
-ragged backend (``tpuserve/attention.py``). The KV pool (native, or
+attention backend (``tpuserve/attention.py``): the bucket ladder
+(``xla-bucketed``, the default) or the ragged packer
+(``pallas-ragged``). On the bucket ladder a prompt longer than
+``prefill_chunk_tokens`` is never batched: the per-request path runs it
+as chunks with decode ticks between them. The KV pool (native, or
 int8/int4 pages with their scales, ``models/kvq.py``) carries one page
 past the allocator's range, the dump page.
 
@@ -125,9 +129,11 @@ waits and under the ``batch_slot_frac`` ceiling; an interactive arrival
 on a full table parks batch slots through the export cut, and the tier
 resumes them, parked sessions first, through the import.
 
-Every default equals the reference's. Knobs of features this slice does
-not implement raise ``NotImplementedError`` naming their ROADMAP entry
-when set to a non-default value.
+Every default equals the reference's, and so does what it runs: a
+replica built from ``EngineConfig()`` prefills on the bucket ladder and
+decodes on the gather rung. Knobs of features the port does not
+implement (``NOT_PORTED``) raise ``NotImplementedError`` naming their
+ROADMAP entry when set to a non-default value.
 """
 
 from __future__ import annotations
@@ -179,9 +185,15 @@ logger = logging.getLogger(__name__)
 
 #: knobs of features the port does not implement yet: (reference
 #: default, ROADMAP queue 1 entry). A non-default value raises
-#: NotImplementedError. Every knob of the reference's EngineConfig that
-#: the port has is implemented.
-NOT_PORTED: dict[str, tuple[Any, str]] = {}
+#: NotImplementedError. The reference warms compiled programs ahead of
+#: traffic; the port's counterpart of a compiled program is a captured
+#: CUDA graph, which waits with the decode window's capture
+NOT_PORTED: dict[str, tuple[Any, str]] = {
+    "warm_prefill_buckets": (
+        0, "item 2, the compiled decode window, as CUDA graphs"),
+    "warm_decode_buckets": (
+        0, "item 2, the compiled decode window, as CUDA graphs"),
+}
 
 #: defaults that differ from the reference, and why (/state): none
 DEFAULTS_DIFFER: dict[str, str] = {}
@@ -207,8 +219,14 @@ class EngineConfig:
     max_seq_len: int = 2048
     page_size: int = 128
     num_pages: int = 0  # 0 = auto: enough for max_batch full sequences
+    # the smallest rung of the bucketed prefill's ladder
+    min_prefill_bucket: int = 64
     # decode steps per host round-trip (the adaptive window's maximum)
     decode_steps_per_tick: int = 8
+    # chunked prefill on the bucket ladder: a prompt longer than this
+    # runs as fixed-size prefill_suffix chunks with a decode tick between
+    # them (0 = whole-prompt prefill)
+    prefill_chunk_tokens: int = 256
     enable_prefix_cache: bool = True
     max_queued_requests: int = 256
     adaptive_decode_window: bool = True
@@ -221,6 +239,12 @@ class EngineConfig:
     # a lone arrival to an idle engine probes 1 ms for a second request
     # instead of waiting the whole coalescing window
     first_token_fast_path: bool = True
+    # warm the compiled programs ahead of traffic (NOT_PORTED)
+    warm_prefill_buckets: int = 0
+    warm_decode_buckets: int = 0
+    # bucket ladder rungs per octave: 1 = powers of two, 2 adds 1.5x S,
+    # 4 adds 1.25x / 1.5x / 1.75x S
+    prefill_bucket_rungs: int = 2
     # the chained decode rung (paged-attention kernel after the scatter)
     pallas_attn: bool = False
     decode_backend: str = "auto"
@@ -282,6 +306,10 @@ class EngineConfig:
         if self.ragged_chunk_tokens < 8 or self.ragged_max_chunks < 1:
             raise ValueError("ragged_chunk_tokens must be >= 8 and "
                              "ragged_max_chunks >= 1")
+        if self.prefill_bucket_rungs not in (1, 2, 4):
+            raise ValueError(
+                f"prefill_bucket_rungs must be 1, 2, or 4 "
+                f"(got {self.prefill_bucket_rungs})")
         if self.min_decode_steps_per_tick == 0:
             self.min_decode_steps_per_tick = max(
                 1, self.decode_steps_per_tick // 4)
@@ -768,12 +796,15 @@ class Engine:
         self._mem_next = 0.0
         self.decode_attn_impl, self.decode_attn_reason = (
             resolve_decode_backend(cfg, self.device))
-        self._decode_impl = self.decode_attn_impl.split("-")[0]
+        # decode_step's attn_impl: the gather rung is its "" branch
+        self._decode_impl = {"fused": "fused", "chained": "chained",
+                             "gather": ""}[
+            self.decode_attn_impl.split("-")[0]]
         # speculative decoding: a rung ladder of [B, D + 1] verify steps
         # replaces the decode step while an eligible slot's controller
         # holds a nonzero draft length. The verify step keeps the chained
         # path (K5) on the chained rung, and takes the gather path (which
-        # also serves quantized pools) on the fused rung
+        # also serves quantized pools) on the fused and gather rungs
         self._spec_rungs = (
             speculation.draft_rungs(cfg.spec_tokens)
             if cfg.spec_tokens > 0 and self.fns.verify_step is not None
@@ -812,17 +843,18 @@ class Engine:
         logits, self.kv_cache = out
         return logits, None
 
-    def _prefill_ragged_step(self, tokens, row_seq, positions, last_rows,
-                             page_table, keys, temp, top_p, top_k, bias,
-                             adapter_idx):
-        """One packed prefill call (``adapter_idx``: [B] adapter row per
-        sequence row) plus sampling of each row's first token (key
-        [seed, 0]); returns ([B] int32 tokens, routing counts or None),
-        on the device. With logprobs on, the tokens are a tuple
-        (tokens, chosen [B], top ids [B, k], top values [B, k])."""
+    def _prefill_step(self, fn, args: tuple, sampling: tuple):
+        """One prefill call, ``fn(params, cfg, *args[:-1], pool,
+        args[-1], page_size)`` (``prefill_ragged``, ``prefill`` or
+        ``prefill_suffix``; ``args[-1]`` is the page table), plus
+        sampling of each row's first token with ``sampling`` = (keys,
+        temp, top_p, top_k, bias, adapter_idx), one row per sequence row
+        (key [seed, 0]); returns ([rows] int32 tokens, routing counts or
+        None), on the device. With logprobs on, the tokens are a tuple
+        (tokens, chosen, top ids [rows, k], top values [rows, k])."""
+        keys, temp, top_p, top_k, bias, adapter_idx = sampling
         logits, moe = self._model(
-            self.fns.prefill_ragged, tokens, row_seq, positions, last_rows,
-            self.kv_cache, page_table, self.cfg.page_size,
+            fn, *args[:-1], self.kv_cache, args[-1], self.cfg.page_size,
             adapter_idx=adapter_idx)
         logits = logits + bias
         sampled = sample(logits, keys, temp, top_p, top_k)
@@ -1933,10 +1965,10 @@ class Engine:
 
     def _classify(self, req: GenRequest) -> tuple[bool, list]:
         """(simple, chain keys): simple = eligible for the batched
-        prefill (no cached prefix to adopt; the ragged backend packs
-        long prompts itself). The chain keys are hashed once here; the
-        cheap probe is redone at adoption (cache state moves within a
-        pass)."""
+        prefill (no cached prefix to adopt, no longer than
+        ``prefill_chunk_tokens`` unless the backend packs long prompts
+        itself). The chain keys are hashed once here; the cheap probe is
+        redone at adoption (cache state moves within a pass)."""
         n = len(req.prompt)
         chain: list = []
         if self.prefix_cache is not None and n > 1:
@@ -1949,6 +1981,11 @@ class Engine:
                 # the chain goes on in the spill tier: the per-request
                 # path revives it and resumes
                 return False, chain
+        chunk = self.cfg.prefill_chunk_tokens
+        if (not self.attn.packs_long_prompts and chunk > 0
+                and self.fns.prefill_suffix is not None and n > chunk):
+            # the chunk loop runs on the per-request path
+            return False, chain
         if req.adapter and not self._adapter_known(req.adapter):
             return False, chain  # the per-request path reports the error
         if req.constraint is not None:
@@ -2024,17 +2061,44 @@ class Engine:
         self.stats.first_emit_ms += 1e3 * (time.monotonic() - t_first)
         return len(results), leftover
 
-    def _decode_bucket_pages(self) -> int:
-        """Smallest power-of-two page count covering every live slot's
-        limit (the reference's decode page bucket)."""
-        need = 1
-        for s in self._slots:
-            if s is not None:
-                need = max(need, -(-s.limit // self.cfg.page_size))
+    def _pow2_pages(self, need: int) -> int:
+        """Smallest power-of-two page count covering ``need`` pages,
+        capped at ``max_pages_per_seq`` (a page-window bucket)."""
         bucket = 1
         while bucket < need:
             bucket *= 2
         return min(bucket, self.cfg.max_pages_per_seq)
+
+    def _decode_bucket_pages(self) -> int:
+        """The page bucket covering every live slot's limit (the
+        reference's decode page bucket)."""
+        need = 1
+        for s in self._slots:
+            if s is not None:
+                need = max(need, -(-s.limit // self.cfg.page_size))
+        return self._pow2_pages(need)
+
+    def _prefill_bucket(self, n: int) -> int:
+        """Smallest prefill-ladder rung covering ``n`` prompt tokens:
+        powers of two of ``min_prefill_bucket`` plus, with
+        ``prefill_bucket_rungs`` > 1, the rungs at 1.5x S (and 1.25x /
+        1.75x S at 4), capped at ``max_seq_len``. (The reference's
+        ``multiple_of`` mesh guard waits with the sequence-parallel
+        prefill, ROADMAP queue 1 item 7.)"""
+        cfg = self.cfg
+        S = cfg.min_prefill_bucket
+        while S < n:
+            if cfg.prefill_bucket_rungs >= 4 and n <= S + S // 4:
+                S += S // 4
+                break
+            if cfg.prefill_bucket_rungs >= 2 and n <= S + S // 2:
+                S += S // 2
+                break
+            if cfg.prefill_bucket_rungs >= 4 and n <= S + 3 * S // 4:
+                S += 3 * S // 4
+                break
+            S *= 2
+        return min(S, cfg.max_seq_len)
 
     def _mark_admitted(self, i: int) -> None:
         """Slot i's whole row is uploaded before the next dispatch (its
@@ -2143,7 +2207,7 @@ class Engine:
             else None
         t0 = time.monotonic()
         res = self.attn.single_prefill(
-            req, seq_id, suffix, prefix_len, page_row,
+            req, seq_id, suffix, prefix_len, page_row, total,
             mask=cn.mask_row() if cn is not None else None)
         if isinstance(res, str):
             # cancelled or the engine stopping: the pin never reached a
@@ -2170,8 +2234,8 @@ class Engine:
         if req.trace is not None:
             req.trace.prefill(
                 prefill_ms, bucket=info["bucket"],
-                padded_frac=info["padded_frac"], chunks=info["calls"] - 1,
-                resumed_at=prefix_len, sp=False)
+                padded_frac=info["padded_frac"], chunks=info["chunks"],
+                resumed_at=prefix_len + info["consumed"], sp=False)
         t_first = time.monotonic()
         if self.prefix_cache is not None and chain:
             self.prefix_cache.insert(chain, pages, tokens=req.prompt)

@@ -3,9 +3,10 @@
 
 Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions``
 (streamed over SSE and not, in the reference server's response shapes),
-``POST /tokenize``, ``GET /v1/models``, ``GET /health`` and ``GET
-/state`` (the reference's keys that this engine has, under the same
-names, ``phase_percentiles`` and the constraint keys among them). A
+``POST /v1/embeddings``, ``POST /tokenize``, ``GET /v1/models``, ``GET
+/health`` and ``GET /state`` (the reference's keys that this engine has,
+under the same names, ``phase_percentiles`` and the constraint keys
+among them). A
 gateway in front routes to it like to a reference replica, prices its
 TTFT from ``phase_percentiles`` as a reference replica's, and merges the
 ``capabilities`` it advertises on ``/v1/models`` and ``/state``.
@@ -73,9 +74,13 @@ batch`` header's class), which the engine admits only into slots
 interactive work leaves idle, parks when interactive arrivals need them
 and resumes byte-identically.
 
+``POST /v1/embeddings`` pools the model's final hidden states
+(``hidden_states``) over each input, on the handler's thread beside the
+engine's, and answers while the replica drains, as the reference does.
+
 The server is ``http.server.ThreadingHTTPServer``: one thread per
 connection, each waiting on its request's token queue, which the engine
-thread fills. Embeddings wait for a later slice (ROADMAP queue 1).
+thread fills.
 """
 
 from __future__ import annotations
@@ -213,6 +218,10 @@ def _find_stop(text: str, stop_strs: list[str]) -> int | None:
 
 class TPUServeServer:
     """One model replica: engine + HTTP front end."""
+
+    #: the float32 attention logits one embeddings sub-batch may hold a
+    #: layer (2 GiB: 4 inputs at S 2048 at Llama-3-8B's 32 heads)
+    embed_logits_bytes = 1 << 31
 
     def __init__(self, model: str, engine_cfg: EngineConfig,
                  device: str | torch.device = "cuda",
@@ -1022,6 +1031,71 @@ class TPUServeServer:
                 "max_model_len": self.engine.cfg.max_seq_len,
                 "tokens": ids}
 
+    def embed_rows(self, S: int) -> int:
+        """Inputs one ``hidden_states`` call of the embeddings route
+        takes at block length ``S``: as many as keep a layer's float32
+        ``[rows, n_heads, S, S]`` attention logits within
+        ``embed_logits_bytes``, at least one."""
+        per_row = 4 * self.model_cfg.n_heads * S * S
+        return max(1, self.embed_logits_bytes // per_row)
+
+    def embeddings(self, body: dict[str, Any]) -> tuple[int, bytes]:
+        """``POST /v1/embeddings``, as the reference answers it: a string,
+        a list of strings, one token-id list or a list of them; strings
+        are encoded (no BOS), token ids taken mod the vocabulary, each
+        input cut to ``max_seq_len``, the batch padded to a power-of-two
+        ``S >= 8``, and every vector the float32 mean of the model's
+        final hidden states (``hidden_states`` on the engine's weights,
+        run on the caller's thread, beside the engine's). The inputs run
+        in sub-batches of ``embed_rows(S)``, so one body's dense pass
+        stays within ``embed_logits_bytes`` whatever its input count.
+        Not refused while draining: it starts no generation."""
+        raw = body.get("input")
+        if isinstance(raw, str):
+            items: list = [raw]
+        elif isinstance(raw, list) and raw and all(
+                isinstance(x, int) for x in raw):
+            items = [raw]  # one pre-tokenized input
+        elif isinstance(raw, list):
+            items = list(raw)
+        else:
+            items = []
+        if not items:
+            return 400, oai.error_body(
+                "input must be a string, array of strings, or array of "
+                "token ids")
+        max_len = self.engine.cfg.max_seq_len
+        vocab = self.model_cfg.vocab_size
+        encoded = []
+        for it in items:
+            if isinstance(it, str):
+                encoded.append(self.tokenizer.encode(it)[:max_len])
+            elif isinstance(it, list) and all(isinstance(x, int)
+                                              for x in it):
+                encoded.append([x % vocab for x in it][:max_len])
+            else:
+                return 400, oai.error_body("invalid embeddings input element")
+        S = max(8, max(len(e) for e in encoded))
+        S = 1 << (S - 1).bit_length()  # the power-of-two bucket
+        toks = np.zeros((len(encoded), S), np.int32)
+        lens = np.zeros((len(encoded),), np.int32)
+        for i, e in enumerate(encoded):
+            toks[i, :len(e)] = e
+            lens[i] = len(e)
+        dev = self.device
+        rows = self.embed_rows(S)
+        with torch.inference_mode():
+            hidden = np.concatenate([self.fns.hidden_states(
+                self.engine.params, self.model_cfg,
+                torch.from_numpy(toks[i:i + rows]).to(dev),
+                torch.from_numpy(lens[i:i + rows]).to(dev)).cpu().numpy()
+                for i in range(0, len(encoded), rows)])
+        n_tokens = int(lens.sum())
+        usage = oai.TokenUsage(input_tokens=n_tokens, total_tokens=n_tokens)
+        return 200, json.dumps(oai.embeddings_response(
+            model=self.model_name, vectors=[h.tolist() for h in hidden],
+            usage=usage)).encode()
+
     # -- generation -------------------------------------------------------
     def encode_chat(self, body: dict[str, Any]) -> list[int]:
         oai.validate_chat_request(body)
@@ -1362,7 +1436,7 @@ def _make_handler(server: TPUServeServer):
             if not chat and not cancel and path not in (
                     "/v1/completions", "/tokenize", "/drain", "/v1/files",
                     "/v1/batches", "/migrate/export", "/migrate/import",
-                    "/kv/pages"):
+                    "/kv/pages", "/v1/embeddings"):
                 self._error(404, f"no route {path}", "not_found")
                 return
             length = int(self.headers.get("content-length") or 0)
@@ -1397,6 +1471,9 @@ def _make_handler(server: TPUServeServer):
                 return
             if path == "/v1/batches":
                 self._send(*srv.batch_create(body))
+                return
+            if path == "/v1/embeddings":
+                self._send(*srv.embeddings(body))
                 return
             if path == "/migrate/export":
                 self._send(*srv.migrate_export(body))

@@ -75,6 +75,30 @@ Phases (any failure exits non-zero):
    the prefix cache on (the ``serve_prefix_int8`` line: the same counts,
    the copied page's q and scale rows equal to their source's), and two
    requests over an int4 KV pool, which must launch K7-int4;
+   the reference's default programs (the ``serve_defaults`` line, after
+   ``serve_int4_kv``; launch counts zeroed before each burst, read after
+   it): a replica built from ``EngineConfig()`` with only the geometry
+   set (8 slots x 2048, 128-token pages), so the bucket-ladder prefill
+   (``xla-bucketed``, prompts over 256 tokens chunked with decode ticks
+   between chunks) and the gather decode rung, with the prefix cache on,
+   serving the burst plus two pinned requests cold and warm, bf16 and
+   then W8A16 over int8 pages, each after the same burst on the
+   ``pallas-ragged`` + ``fused`` replica. Gates: ``/state`` resolves
+   ``xla-bucketed`` and ``gather-cuda``, ``chunked_prefill_steps`` > 0,
+   K1, K2 and K3 launch no time, K6 launches in the W8A16 run, every
+   stream equals the kernel path's of the same prompt or parts from it
+   at a near-tie (``tie_check``), and the pinned texts are equal.
+   Reported: wall times, the warm burst's prefill and TTFT p50/p95,
+   ``prefill_padded_frac``, the device's busy share (bf16);
+   ``/v1/embeddings`` on that replica (the ``embeddings`` line): 8 inputs
+   (strings and token ids, 3-1022 tokens), bf16 and W8A16, then 8 of at
+   most 8 tokens in W8A16, each served vector held against
+   ``hidden_states`` of the same tokens on the card (bf16 against a
+   float32 pass within ``EMBED_REL_TOL`` relative L2 a vector; the long
+   W8A16 call against ``plain=True`` per element, the route's check, as
+   no matmul at M 8192 takes K6; the short one, M 64, K6 against its
+   plain version within ``EMBED_REL_TOL``), the call's ms and the
+   device's peak memory;
    multi-LoRA (the ``serve_lora`` line; launch counts zeroed before it,
    read after it): a zoo of 4 adapters at the reference's default
    ``LoRAConfig()`` (wq and wv, rank 16) over 2 device rows, the fused
@@ -178,9 +202,10 @@ Phases (any failure exits non-zero):
    (batch 8, S = 5, a slot that is off, windows across a page) and at
    S = 9 (two row groups per sequence and KV head, a window starting at
    -2);
-   K6 at each of the five weight shapes a decode step multiplies (the
-   ``qmatmul_shapes`` JSON line), beside cuBLAS on the same weight
-   dequantized to bf16 ahead of time; full-width prefill + 8 decode
+   K6 at each of the five weight shapes a decode step multiplies, at
+   M 8 and at a bucketed prefill's M 64 (the ``qmatmul_shapes`` JSON
+   line), beside cuBLAS on the same weight dequantized to bf16 ahead of
+   time; full-width prefill + 8 decode
    steps of the model through the kernels against the same through the
    plain versions, for bf16, for W8A16 over an int8 pool and for W4A16
    (whose matmuls are plain PyTorch in the reference too), the
@@ -189,7 +214,16 @@ Phases (any failure exits non-zero):
    its plain version (the ``model_check`` line's ``verify``); a prompt's
    8 pages prefilled, then its last 150 tokens resumed at 1024, and a
    full hit's copied page with its last token resumed at 1023, each
-   against a cold prefill (``resume``); LoRA at Llama-3-8B widths and 2
+   against a cold prefill (``resume``); the default programs against the
+   kernel path at Llama-3-8B widths and 2 layers, float32 and bf16
+   (``defaults``: the bucketed prefill against K1, ``prefill_suffix`` at
+   700 against a K1 resume, a gather decode step against K2; float32
+   logits and written rows within the attention tolerance, bf16 the
+   first layer's rows there and the logits as ``model_check`` holds
+   them); K6 on the same programs in W8A16 at 2 layers, every matmul at
+   M 64 or 2 through the kernel against ``plain=True``, over float32 and
+   bf16 activations, held as ``defaults`` holds them
+   (``defaults_w8a16``); LoRA at Llama-3-8B widths and 2
    layers, float32 and bf16, 4 adapters on all seven targets at rank 16
    and the base row mixed over 8 slots: a packed prefill (K1), 8 fused
    (K2) and 8 chained (K3) steps and a verify step (K5), dense and
@@ -205,8 +239,11 @@ Phases (any failure exits non-zero):
    time ``torch.profiler`` sees, by kernel (the ``decode_profile``,
    ``decode_profile_chained``, ``decode_profile_quant`` and
    ``verify_profile`` JSON lines; ``port_kernels_ms`` sums every K6,
-   K2/K7 and K3 or K5 launch of the step); the same for one full-width
+   K2/K7 and K3 or K5 launch of the step), and the gather rung's step
+   (``decode_profile_gather``); the same for one full-width
    bf16 prefill of the served burst's prompts, K1's 32 launches summed,
+   beside the same prompts on the bucketed programs
+   (``served_burst_bucketed``: 14 dense calls),
    and of a prefix-cache resume (150 rows at 1024) beside the same
    prompt's cold prefill (the ``prefill_profile`` line); the bf16 step
    with the engine's per-token logprobs (``log_softmax`` and
@@ -239,7 +276,9 @@ Phases (any failure exits non-zero):
    ``qmatmul_shapes`` line;
 8. the ``kernels`` JSON line (each row also carries its launches on
    ``serve_moe``, on ``serve_lora``, on ``serve_logprobs``, on
-   ``serve_ops`` and on ``serve_mobility``), the card line, then the last line
+   ``serve_ops``, on ``serve_mobility``, on ``serve_defaults`` (bf16 and
+   W8A16, the cold bursts) and on ``embeddings``), the card line, then
+   the last line
    ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or outside the repository, it exits non-zero and prints no
@@ -249,6 +288,7 @@ result.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import os
 import statistics
@@ -964,18 +1004,21 @@ def sdpa_paged_yardstick(torch, q, k_pool, v_pool, page_table, keys,
 
 
 def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
-    """K6 at every weight shape a decode step multiplies (M = 8) and
-    K7's int8 and int4 rungs at K2's shapes, each against its plain
-    version; K6 also beside ``torch.matmul`` on the same weight
-    dequantized to bf16 ahead of time (cuBLAS, the library row)."""
+    """K6 at every weight shape a decode step multiplies (M = 8) and a
+    bucketed prefill's [1, 64] block multiplies (M = 64: the default
+    programs' short prompts and chunk tails), and K7's int8 and int4
+    rungs at K2's shapes, each against its plain version; K6 also beside
+    ``torch.matmul`` on the same weight dequantized to bf16 ahead of
+    time (cuBLAS, the library row). The row's step times sum the M = 8
+    shapes."""
     from aigw_tpu_torch.models import kvq, llama, quant
     from aigw_tpu_torch.ops import decode_fused, qmatmul
 
     g = torch.Generator(device=dev)
     g.manual_seed(4321)
     rows, shapes = [], []
-    M = 8
-    for (K, N), per_step in QMM_STEP:
+    for M, ((K, N), step_launches) in itertools.product((8, 64), QMM_STEP):
+        per_step = step_launches if M == 8 else 0
         w = torch.randn((K, N), generator=g, device=dev) / K ** 0.5
         qp = quant.quantize_params({"w_up": w}, consume=True)
         del w
@@ -987,10 +1030,11 @@ def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
         tol = QMM_RTOL * want.float().abs() \
             + QMM_ATOL * want.float().abs().max()
         if (err > tol).any():
-            raise AssertionError(f"K6 {K}x{N}: max error {err.max().item()}")
+            raise AssertionError(f"K6 {M}x{K}x{N}: max error "
+                                 f"{err.max().item()}")
         again = qmatmul.w8a16_matmul(x, q, sc)
         if not torch.equal(got, again):
-            raise AssertionError(f"K6 {K}x{N}: two calls differ")
+            raise AssertionError(f"K6 {M}x{K}x{N}: two calls differ")
         w_bf16 = llama._w(qp, "w_up")  # dequantized ahead of time
         nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
         b_ms, b_by = bound(nbytes, 2 * M * K * N)
@@ -1013,7 +1057,7 @@ def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
             library_ms_rotated=lib_rot,
             bound_ms=b_ms, bound_by=b_by))
         del qp, q, sc, w_bf16, got, want, again
-        log(f"K6 {K}x{N}: {shapes[-1]['ms']:.4f} ms, rotated {ms_rot:.4f} "
+        log(f"K6 {M}x{K}x{N}: {shapes[-1]['ms']:.4f} ms, rotated {ms_rot:.4f} "
             f"(bound {b_ms:.4f}, cuBLAS on bf16 "
             f"{shapes[-1]['library_ms']:.4f}, rotated {lib_rot:.4f}, "
             f"plain {shapes[-1]['plain_ms']:.3f}), max err "
@@ -1489,8 +1533,8 @@ def spec_phases(srv, restart, params, reqs, launches: dict) -> None:
     # of 4: every window verifies through K5 at S = 5. The burst plus
     # two greedy requests pinned to one token, whose drafts the
     # verify accepts
-    restart(params, pallas_attn=True, spec_tokens=4,
-            spec_adaptive=False)
+    restart(params, decode_backend="chained", pallas_attn=True,
+            spec_tokens=4, spec_adaptive=False)
     spec_reqs = reqs + _pinned_requests(2)
     reset_counts()
     t = time.monotonic()
@@ -1872,7 +1916,8 @@ def spec_prefix_phase(srv, restart, params) -> None:
     chain's continuation of the first page (the first prompt's tokens
     128-255) seeds the second request's lookahead drafts, verified
     through K5."""
-    restart(params, pallas_attn=True, spec_tokens=4, spec_adaptive=False,
+    restart(params, decode_backend="chained", pallas_attn=True,
+            spec_tokens=4, spec_adaptive=False,
             enable_prefix_cache=True)
     text = "".join(chr(97 + (7 * i) % 26) for i in range(299))
     reqs = [("completion", False, {
@@ -2171,7 +2216,8 @@ def serve_constrained_phase(srv, restart, params) -> None:
         **delta, "launches": counts}
 
     # the chained rung at a fixed draft width of 4
-    restart(params, pallas_attn=True, spec_tokens=4, spec_adaptive=False,
+    restart(params, decode_backend="chained", pallas_attn=True,
+            spec_tokens=4, spec_adaptive=False,
             enable_prefix_cache=True)
     seeded = ("json_schema", False, {
         k: v for k, v in reqs[1][2].items() if k != "stream_options"}
@@ -4636,6 +4682,655 @@ def serve_mobility(torch, srv, params, reqs, prefix_chat, launches: dict,
     return out
 
 
+# -- the reference's default programs and /v1/embeddings ---------------------
+#: layers of the model-level check of the default programs (Llama-3-8B
+#: widths): enough for a second layer to read the first's K/V
+DEFAULTS_CHECK_LAYERS = 2
+#: served embedding vectors in bf16 against the float32 pass, per
+#: vector: ||served - f32|| / ||f32||. bf16 rounds each of the 32 layers'
+#: activations to 2**-8 relative; the errors add up over the layers
+EMBED_REL_TOL = 5e-2
+#: the geometry the default replica is given (everything else
+#: EngineConfig's defaults: xla-bucketed, the gather rung, 256-token
+#: chunks, the prefix cache on)
+GEOMETRY = dict(max_batch_size=8, max_seq_len=2048, page_size=128)
+
+
+def _start_defaults(srv, params, **kw):
+    """Put an engine built from EngineConfig(**GEOMETRY, **kw) behind the
+    server."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    srv.engine.stop()
+    srv.engine = Engine(params, llama.LLAMA3_8B,
+                        EngineConfig(**GEOMETRY, **kw),
+                        eos_token_ids=(srv.tokenizer.eos_id,), device="cuda")
+    srv.engine.start()
+
+
+#: the kernels the default programs must not launch
+_OFF_PATH = ("ragged_prefill_attention", "fused_paged_decode",
+             "paged_attention_decode_v2")
+
+
+def _defaults_burst(torch, srv, reqs, pinned, what: str) -> dict:
+    """The burst plus the pinned pair, cold then warm (the phase
+    histograms reset for the warm one), on the engine behind ``srv``;
+    launch counts zeroed before and read after each. Gates: the resolved
+    programs, chunking, no K1/K2/K3 launch, the pinned streams."""
+    from aigw_tpu_torch.obs.metrics import EnginePhases
+
+    out: dict = {}
+    st0 = json.loads(_http(srv.port, "/state")[2])
+    if (st0["attention_backend"], st0["decode_attn_impl"]) != (
+            "xla-bucketed", "gather-cuda"):
+        raise AssertionError(f"{what}: the defaults resolve to "
+                             f"{st0['attention_backend']} / "
+                             f"{st0['decode_attn_impl']}")
+    for run in ("cold", "warm"):
+        if run == "warm":
+            srv.engine.phases = EnginePhases()
+        before = json.loads(_http(srv.port, "/state")[2])
+        reset_counts()
+        t = time.monotonic()
+        results = serve_phase(srv.port, reqs + pinned)
+        out[f"{run}_s"] = time.monotonic() - t
+        counts = read_counts()
+        after = json.loads(_http(srv.port, "/state")[2])
+        on = [k for k in _OFF_PATH if counts[k]]
+        if on:
+            raise AssertionError(f"{what} {run}: {on} launched on the "
+                                 f"default programs: {counts}")
+        _check_pinned(results[len(reqs):])
+        out[f"launches_{run}"] = counts
+        for key in ("chunked_prefill_steps", "prefills", "prefill_ms",
+                    "prefill_tokens_real", "prefill_tokens_padded",
+                    "prefix_cache_hits", "decode_steps"):
+            out[f"{run}_{key}"] = after[key] - before[key]
+        out[f"{run}_prefill_padded_frac"] = round(
+            1.0 - out[f"{run}_prefill_tokens_real"]
+            / max(1, out[f"{run}_prefill_tokens_padded"]), 4)
+        out["pinned_texts"] = [r["text"] for r in results[len(reqs):]]
+    if out["cold_chunked_prefill_steps"] <= 0:
+        raise AssertionError(f"{what}: no prompt was chunked")
+    pp = json.loads(_http(srv.port, "/state")[2])["phase_percentiles"]
+    out.update({"warm_prefill_p50_ms": pp["prefill"]["p50"],
+                "warm_prefill_p95_ms": pp["prefill"]["p95"],
+                "warm_ttft_p50_ms": pp["ttft"]["p50"],
+                "warm_ttft_p95_ms": pp["ttft"]["p95"],
+                "attention_backend": st0["attention_backend"],
+                "decode_attn_impl": st0["decode_attn_impl"],
+                "decode_attn_reason": st0["decode_attn_reason"]})
+    return out
+
+
+def _streams_by_prompt(tap: TokenTap) -> dict:
+    """prompt tuple -> [(sampling, tokens)] of every request a tap saw."""
+    out: dict = {}
+    for key, toks in tap.toks.items():
+        out.setdefault(tuple(tap.prompts[key]), []).append(
+            (tap.sampling[key], toks))
+    return out
+
+
+def _hold_streams(torch, params, cfg, eos, kernel: dict, defaults: dict,
+                  what: str) -> dict:
+    """Every stream the default replica served against the kernel
+    path's stream of the same prompt, tie-aware (``tie_check`` on
+    ``params``, ``TIE_BOUND``)."""
+    checks = []
+    for prompt, runs in defaults.items():
+        (sp, want), = kernel[prompt]
+        for _sp, got in runs:
+            checks.append(tie_check(torch, params, cfg, prompt, sp, want,
+                                    got, eos))
+    _gate_ties(what, checks)
+    flips = [c for c in checks if not c["equal"]]
+    return {"streams": len(checks), "equal": len(checks) - len(flips),
+            "near_tie_flips": [{"j": c["j"], "gap": c["gap"]}
+                               for c in flips]}
+
+
+def serve_defaults(torch, srv, restart, params, qparams, reqs,
+                   launches: dict) -> dict:
+    """The burst plus two pinned requests, first on the kernel path
+    (``pallas-ragged`` + ``fused``, cold), then on a replica built from
+    ``EngineConfig()`` with only the geometry set (cold and warm): bf16
+    (the device's busy share over a third, traced burst), then W8A16
+    weights over int8 pages, where K6 carries the matmuls at M <= 64.
+    Every stream the defaults serve is held to the kernel path's of the
+    same prompt, tie-aware; the pinned pair's texts must be equal."""
+    from aigw_tpu_torch.models import llama
+
+    pinned = _pinned_requests(2)
+    eos = srv.tokenizer.eos_id
+    out: dict = {"requests": len(reqs) + len(pinned), "geometry": GEOMETRY,
+                 "prompt_tokens": served_prompt_lens(reqs + pinned)}
+    for name, p, kw in (("bf16", params, {}),
+                        ("w8a16_kv_int8", qparams,
+                         {"kv_cache_dtype": "int8"})):
+        restart(p, decode_backend="fused", **kw)
+        tap = TokenTap(srv.engine)
+        kernel_path = serve_phase(srv.port, reqs + pinned)
+        kernel = _streams_by_prompt(tap)
+        _start_defaults(srv, p, **kw)
+        tap = TokenTap(srv.engine)
+        run = _defaults_burst(torch, srv, reqs, pinned, name)
+        if run["pinned_texts"] != [r["text"] for r in
+                                   kernel_path[len(reqs):]]:
+            raise AssertionError(f"{name}: the pinned streams differ from "
+                                 f"the kernel path's")
+        run["against_kernel_path"] = _hold_streams(
+            torch, p, llama.LLAMA3_8B, eos, kernel, _streams_by_prompt(tap),
+            name)
+        if name == "bf16":
+            run.update(serve_profile(torch, srv.port, reqs, run["warm_s"]))
+            launches["serve_defaults"] = run["launches_cold"]
+        else:
+            if run["launches_cold"]["w8a16_matmul"] <= 0:
+                raise AssertionError(f"K6 not on the W8A16 default "
+                                     f"programs: {run['launches_cold']}")
+            launches["serve_defaults_w8a16"] = run["launches_cold"]
+        out[name] = run
+    bf16, w8 = out["bf16"], out["w8a16_kv_int8"]
+    log(f"serve_defaults: bf16 {bf16['cold_s']:.2f} / {bf16['warm_s']:.2f} "
+        f"s, W8A16+int8 {w8['cold_s']:.2f} / {w8['warm_s']:.2f} s, "
+        f"chunked steps {bf16['cold_chunked_prefill_steps']}, K6 "
+        f"{w8['launches_cold']['w8a16_matmul']}; against the kernel path "
+        f"{bf16['against_kernel_path']}, {w8['against_kernel_path']}")
+    return out
+
+
+def _embed_inputs(rng, vocab: int) -> list:
+    """8 inputs up to 1022 tokens: four strings (one byte-tokenizer token
+    a character) and four token-id lists (some past the vocabulary,
+    which the route takes mod it)."""
+    words = "the quick brown fox jumps over a lazy dog while rivers run".split()
+
+    def text(n: int) -> str:
+        out = []
+        while sum(len(w) + 1 for w in out) < n:
+            out.append(words[int(rng.integers(len(words)))])
+        return " ".join(out)[:n]
+
+    return [text(1022), text(40), text(300), text(700),
+            rng.integers(0, vocab, 1022).tolist(),
+            rng.integers(0, 2 * vocab, 64).tolist(),
+            rng.integers(0, vocab, 500).tolist(), [7, 8, 9]]
+
+
+def _embed_short_inputs(rng, vocab: int) -> list:
+    """8 inputs of at most 8 tokens (four strings, four id lists): an
+    [8, 8] block, so every weight matmul has M = 64 and W8A16 runs K6."""
+    return ["the fox", "a dog", "rivers", "run", *(
+        rng.integers(0, vocab, n).tolist() for n in (8, 5, 1, 6))]
+
+
+def embeddings_phase(torch, srv, params, qparams, launches: dict) -> dict:
+    """``POST /v1/embeddings`` on the default replica: 8 inputs up to
+    1022 tokens (``_embed_inputs``) in bf16 and in W8A16, then 8 inputs
+    of at most 8 tokens (``_embed_short_inputs``) in W8A16. Each call's
+    ms, the device's peak memory over it, and each served vector against
+    the same tokens' ``hidden_states`` on the card, computed here:
+
+    - bf16: against a float32 pass over the same weights,
+      ``EMBED_REL_TOL`` relative L2 a vector;
+    - W8A16 long: against ``hidden_states(plain=True)``, per element
+      within ATTN_RTOL * |x| + ATTN_ATOL. At M = 8 x 1024 no matmul
+      takes K6 (it gates M <= 64), so both run ``x @ _w``: this holds
+      the route (the padding, the sub-batches, the pool), not K6;
+    - W8A16 short: K6 against its plain version (``plain=True``) at
+      M = 64, where K6 must launch 7 times a layer; ``EMBED_REL_TOL``
+      relative L2 a vector (one-ulp differences in K6's bf16 outputs
+      grow over 32 layers as bf16 rounding does).
+
+    The dense pass holds [8, 32, S, S] float32 logits a layer: S is the
+    pow2 bucket of the longest input, 1024 for the long inputs (1.07 GB;
+    4.3 GB at S 2048, where the route's 2 GiB budget splits the batch
+    into sub-batches of 4)."""
+    import numpy as np
+
+    from aigw_tpu_torch.models import llama
+
+    cfg = llama.LLAMA3_8B
+    rng = np.random.default_rng(11)
+    long_in = _embed_inputs(rng, cfg.vocab_size)
+    short_in = _embed_short_inputs(rng, cfg.vocab_size)
+    out: dict = {}
+    counts_w8: dict = {}
+    for name, p, kv, inputs in (("bf16", params, "bfloat16", long_in),
+                                ("w8a16", qparams, "int8", long_in),
+                                ("w8a16_k6", qparams, "int8", short_in)):
+        if name != "w8a16_k6":
+            _start_defaults(srv, p, kv_cache_dtype=kv)
+        res = _embed_call(torch, srv, cfg, p, inputs, name)
+        counts = res["launches"]
+        if name == "w8a16_k6" and counts["w8a16_matmul"] != 7 * cfg.n_layers:
+            raise AssertionError(f"embeddings {name}: K6 launched "
+                                 f"{counts['w8a16_matmul']} times, not "
+                                 f"{7 * cfg.n_layers}")
+        if name == "bf16":
+            launches["embeddings_bf16"] = counts
+        else:
+            counts_w8 = {k: counts_w8.get(k, 0) + v
+                         for k, v in counts.items()}
+        out[name] = res
+        log(f"embeddings {name}: {res['call_ms']:.1f} ms, peak "
+            f"{res['peak_bytes'] / 1e9:.2f} GB, rel err "
+            f"{res['max_rel_l2_err']:.2e}, K6 {counts['w8a16_matmul']}")
+    launches["embeddings_w8a16"] = counts_w8
+    return out
+
+
+def _embed_call(torch, srv, cfg, p, inputs, name: str) -> dict:
+    """One embeddings call on ``srv`` (launch counts zeroed before it)
+    and its vectors held as ``embeddings_phase`` says for ``name``."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    enc = [tok.encode(x) if isinstance(x, str) else
+           [t % cfg.vocab_size for t in x] for x in inputs]
+    S = 1 << (max(8, max(map(len, enc))) - 1).bit_length()
+    toks = torch.zeros((len(enc), S), dtype=torch.int32, device="cuda")
+    for i, e in enumerate(enc):
+        toks[i, :len(e)] = torch.tensor(e, dtype=torch.int32)
+    lens = torch.tensor([len(e) for e in enc], dtype=torch.int32,
+                        device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.monotonic()
+    status, _ctype, raw = _http(srv.port, "/v1/embeddings",
+                                {"model": "llama-3-8b-random",
+                                 "input": inputs})
+    call_ms = (time.monotonic() - t) * 1e3
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    body = json.loads(raw)
+    if status != 200 or [d["index"] for d in body["data"]] != list(
+            range(len(inputs))):
+        raise AssertionError(f"embeddings {name}: {status}")
+    if body["usage"]["prompt_tokens"] != sum(map(len, enc)):
+        raise AssertionError(f"embeddings {name}: usage {body['usage']}")
+    got = torch.tensor([d["embedding"] for d in body["data"]],
+                       dtype=torch.float32, device="cuda")
+    if got.shape != (len(inputs), cfg.dim) or not torch.isfinite(got).all():
+        raise AssertionError(f"embeddings {name}: {tuple(got.shape)}")
+    with torch.inference_mode():
+        if name == "bf16":
+            # float32 activations over the same bf16 weights: the
+            # embedding rows and norms in float32, every matmul promoted
+            # to float32
+            p32 = {k: (v.float() if k == "embed" or k.endswith("norm")
+                       or k == "norm_f" else v) for k, v in p.items()}
+            want = llama.hidden_states(p32, cfg, toks, lens)
+            del p32
+        else:
+            want = llama.hidden_states(p, cfg, toks, lens, plain=True)
+    err = (got - want).abs()
+    rel = ((got - want).norm(dim=1) / want.norm(dim=1)).max().item()
+    if name != "w8a16" and rel > EMBED_REL_TOL:
+        raise AssertionError(f"embeddings {name}: relative error {rel} "
+                             f"over {EMBED_REL_TOL}")
+    if name == "w8a16" and (err > ATTN_RTOL * want.abs() + ATTN_ATOL).any():
+        raise AssertionError(f"embeddings W8A16: max error "
+                             f"{err.max().item()} against the plain call")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    torch.cuda.empty_cache()
+    return {"inputs": len(inputs), "tokens": [len(e) for e in enc], "S": S,
+            "call_ms": call_ms, "peak_bytes": peak,
+            "peak_above_resident_bytes": peak - base,
+            "max_abs_err": err.max().item(), "max_rel_l2_err": rel,
+            "min_cosine": cos.min().item(),
+            "mean_abs": want.abs().mean().item(),
+            "against": {"bf16": "float32 pass", "w8a16": "plain=True, "
+                        "no K6 at M 8192", "w8a16_k6": "plain=True, K6 at "
+                        "M 64"}[name], "launches": counts}
+
+
+def defaults_model_check(torch, params, cfg, dev: str = "cuda") -> dict:
+    """The default programs against the kernel path at Llama-3-8B widths
+    and DEFAULTS_CHECK_LAYERS layers, on the same inputs, in float32 and
+    in bf16: the bucketed ``prefill`` of 4 prompts (700, 45, 300, 3
+    tokens in one [4, 768] block) against ``prefill_ragged`` (K1) packing
+    them; ``prefill_suffix`` continuing the first with 150 tokens at 700
+    over its 8-page window against a K1 resume at 700; one gather
+    ``decode_step`` against the fused rung (K2) from the same pool.
+
+    Held per element within ATTN_RTOL * |x| + ATTN_ATOL: in float32 every
+    logit and every written K/V row; in bf16 the rows of the first
+    layer, which no attention output reaches. Past it, bf16 rounds the
+    residual stream at every op, and a one-ulp difference in an
+    attention output grows to tens of ulps in the next layer's K/V and in
+    the logits (on the CPU the plain versions alone differ by 20 ulps),
+    so bf16 logits are held as ``model_check`` holds them: within 0.1 of
+    the logit scale, greedy tokens equal up to a near-tie (0.1)."""
+    import dataclasses
+
+    from aigw_tpu_torch.models import kvq, llama
+
+    L = DEFAULTS_CHECK_LAYERS
+    c2 = dataclasses.replace(cfg, n_layers=L)
+    p2 = {k: v for k, v in params.items()
+          if not (k[0] == "l" and k[1].isdigit())
+          or int(k[1:].split(".")[0]) < L}
+    PS, P = 128, 16
+    lens = [700, 45, 300, 3]
+    B, S = len(lens), 768
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    block = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev,
+                          dtype=torch.int32)
+    sfx = torch.randint(0, cfg.vocab_size, (1, 192), generator=g, device=dev,
+                        dtype=torch.int32)
+    sfx[0, 150:] = 0
+    pt = torch.arange(B * P, dtype=torch.int32, device=dev).reshape(B, P)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def packed(seqs):
+        """(tokens, row_seq, positions, last) of ((b, row tokens, start))."""
+        T = -(-sum(len(t) for _b, t, _s in seqs) // 256) * 256
+        toks = torch.zeros((T,), dtype=torch.int32, device=dev)
+        row_seq = torch.full((T,), B, dtype=torch.int32, device=dev)
+        positions = torch.zeros((T,), dtype=torch.int32, device=dev)
+        last = torch.zeros((B,), dtype=torch.int32, device=dev)
+        o = 0
+        for b, t, s in seqs:
+            n = len(t)
+            toks[o:o + n] = t
+            row_seq[o:o + n] = b
+            positions[o:o + n] = s + torch.arange(n, device=dev)
+            last[b] = o + n - 1
+            o += n
+        return toks, row_seq, positions, last
+
+    def rows(kv, b, lo, hi):
+        p = torch.arange(lo, hi, device=dev)
+        return kv[:, :, pt[b, p // PS].long() * PS + p % PS]
+
+    out: dict = {"layers": L}
+    for name, dtype in (("float32", torch.float32),
+                        ("bf16", torch.bfloat16)):
+        pd = {k: v.to(dtype) for k, v in p2.items()}
+        res: dict = {}
+        strict = dtype == torch.float32
+
+        def hold(what, a, b):
+            b = b.float()
+            err = (a.float() - b).abs()
+            if (err > ATTN_RTOL * b.abs() + ATTN_ATOL).any():
+                raise AssertionError(f"defaults check {name} {what}: max "
+                                     f"error {err.max().item()}")
+            res[f"{what}_max_abs_err"] = err.max().item()
+
+        def pages(what, a, b):
+            if strict:
+                hold(what, a, b)
+            else:
+                hold(f"{what}_layer0", a[:1], b[:1])
+                res[f"{what}_max_abs_err"] = (
+                    a.float() - b.float()).abs().max().item()
+
+        def logits(what, a, b):
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"defaults check {name} {what}: "
+                                     f"non-finite")
+            if strict:
+                hold(f"{what}_logits", a, b)
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            if err > 0.1 * scale:
+                raise AssertionError(f"defaults check {name} {what}: "
+                                     f"logits differ by {err} (scale "
+                                     f"{scale})")
+            top2 = torch.topk(b, 2, dim=-1).values
+            differ = a.argmax(-1) != b.argmax(-1)
+            if differ.any() and (top2[:, 0]
+                                 - top2[:, 1])[differ].max() > 0.1:
+                raise AssertionError(f"defaults check {name} {what}: "
+                                     f"greedy differs")
+            res[f"{what}_logits_max_abs_err"] = err
+            res[f"{what}_logit_scale"] = scale
+
+        shape = (L, 2, (B * P + 1) * PS, cfg.n_kv_heads, cfg.head_dim)
+        kv_d = kvq.make_pool(shape, "float32" if strict else "bfloat16", dev)
+        kv_r = kvq.make_pool(shape, "float32" if strict else "bfloat16", dev)
+        ld, kv_d = llama.prefill(pd, c2, block, lens_t, kv_d, pt, PS)
+        lr, kv_r = llama.prefill_ragged(
+            pd, c2,
+            *packed([(b, block[b, :n], 0) for b, n in enumerate(lens)]),
+            kv_r, pt, PS)
+        logits("prefill", ld, lr)
+        for b, n in enumerate(lens):
+            pages(f"prefill_pages_{b}", rows(kv_d, b, 0, n),
+                  rows(kv_r, b, 0, n))
+        ld, kv_d = llama.prefill_suffix(
+            pd, c2, sfx, torch.tensor([700], dtype=torch.int32, device=dev),
+            torch.tensor([850], dtype=torch.int32, device=dev), kv_d,
+            pt[:1, :8], PS)
+        lr, kv_r = llama.prefill_ragged(
+            pd, c2, *packed([(0, sfx[0, :150], 700)]), kv_r, pt, PS)
+        logits("prefill_suffix", ld, lr[:1])
+        pages("prefill_suffix_pages", rows(kv_d, 0, 700, 850),
+              rows(kv_r, 0, 700, 850))
+        tok = lr.argmax(-1).to(torch.int32)
+        pos = torch.tensor([850, 45, 300, 3], dtype=torch.int32, device=dev)
+        act = torch.ones((B,), dtype=torch.bool, device=dev)
+        step = {rung: llama.decode_step(pd, c2, tok, pos, kv_d.clone(), pt,
+                                        PS, act, attn_impl=rung)
+                for rung in ("", "fused")}
+        logits("gather_decode", step[""][0], step["fused"][0])
+        for b in range(B):
+            p = int(pos[b])
+            pages(f"gather_decode_row_{b}", rows(step[""][1], b, p, p + 1),
+                  rows(step["fused"][1], b, p, p + 1))
+        out[name] = res
+        del pd, kv_d, kv_r, step
+    return out
+
+
+def defaults_w8a16_check(torch, qparams, cfg, dev: str = "cuda") -> dict:
+    """K6 on the default programs against its plain version: W8A16
+    weights at DEFAULTS_CHECK_LAYERS layers, every weight matmul of a
+    bucketed ``prefill`` of 45 and of 20 tokens (each a [1, 64] block,
+    M = 64: the ladder's first rung), of a ``prefill_suffix`` of 40
+    tokens at 45 (a [1, 64] block over a one-page window) and of one
+    gather ``decode_step`` at batch 2 run through the kernel, then the
+    same calls with ``plain=True`` from the same inputs and pool.
+
+    Over float32 activations (the embedding rows dequantized to float32,
+    the norms cast) every logit and every written K/V row is held per
+    element within ATTN_RTOL * |x| + ATTN_ATOL. Over bf16 activations
+    (the served replica's) the first layer's rows are held per element,
+    and the logits as ``defaults_model_check`` holds bf16 ones (within
+    0.1 of the logit scale, greedy equal up to a near-tie): one-ulp
+    differences in K6's bf16 outputs grow past the first layer as
+    between any two bf16 runs. K6 must launch in the kernel runs."""
+    import dataclasses
+
+    from aigw_tpu_torch.models import kvq, llama
+    from aigw_tpu_torch.ops import qmatmul
+
+    L = DEFAULTS_CHECK_LAYERS
+    c2 = dataclasses.replace(cfg, n_layers=L)
+    q2 = {k: v for k, v in qparams.items()
+          if not (k[0] == "l" and k[1].isdigit())
+          or int(k[1:].split(".")[0]) < L}
+    PS, S, B = 128, 64, 2
+    g = torch.Generator(device=dev)
+    g.manual_seed(37)
+    toks = torch.randint(0, cfg.vocab_size, (3, S), generator=g, device=dev,
+                         dtype=torch.int32)
+    pt = torch.arange(B, dtype=torch.int32, device=dev).reshape(B, 1)
+
+    def t32(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def run(pd, kv, plain):
+        """(logits of the four calls, pool) of one pass."""
+        out = []
+        for b, n in ((0, 45), (1, 20)):
+            lg, kv = llama.prefill(pd, c2, toks[b:b + 1], t32(n), kv,
+                                   pt[b:b + 1], PS, plain=plain)
+            out.append(lg)
+        lg, kv = llama.prefill_suffix(pd, c2, toks[2:3], t32(45), t32(85),
+                                      kv, pt[:1], PS, plain=plain)
+        out.append(lg)
+        lg, kv = llama.decode_step(
+            pd, c2, toks[:2, 0].contiguous(), t32(85, 20), kv, pt, PS,
+            torch.ones((B,), dtype=torch.bool, device=dev), attn_impl="",
+            plain=plain)
+        out.append(lg)
+        return out, kv
+
+    out: dict = {"layers": L, "M": [S, S, S, B]}
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        if dtype == torch.float32:
+            pd = {k: v.float() for k, v in q2.items()
+                  if v.dtype != torch.int8 and not k.startswith("embed.")}
+            pd.update({k: v for k, v in q2.items()
+                       if v.dtype == torch.int8 and k != "embed.q"})
+            pd["embed"] = q2["embed.q"].float() * q2["embed.scale"]
+        else:
+            pd = q2
+        shape = (L, 2, (B + 1) * PS, cfg.n_kv_heads, cfg.head_dim)
+        n0 = qmatmul.w8a16_matmul.launches
+        got, kv_k = run(pd, kvq.make_pool(shape, name, dev), False)
+        launched = qmatmul.w8a16_matmul.launches - n0
+        want, kv_p = run(pd, kvq.make_pool(shape, name, dev), True)
+        if launched != 4 * (7 * L + 1):
+            raise AssertionError(f"defaults W8A16 {name}: K6 launched "
+                                 f"{launched} times, not 4 x {7 * L + 1}")
+        res: dict = {"k6_launches": launched}
+        for what, a, b in zip(("prefill_45", "prefill_20", "suffix",
+                               "gather_decode"), got, want):
+            err = (a - b).abs()
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"defaults W8A16 {name} {what}: "
+                                     f"non-finite")
+            scale = b.abs().max().item()
+            if dtype == torch.float32:
+                bad = err > ATTN_RTOL * b.abs() + ATTN_ATOL
+            else:
+                bad = err.max() > 0.1 * scale
+                top2 = torch.topk(b, 2, dim=-1).values
+                differ = a.argmax(-1) != b.argmax(-1)
+                if differ.any() and (top2[:, 0]
+                                     - top2[:, 1])[differ].max() > 0.1:
+                    raise AssertionError(f"defaults W8A16 {name} {what}: "
+                                         f"greedy differs")
+            if bad.any():
+                raise AssertionError(f"defaults W8A16 {name} {what}: "
+                                     f"logits differ by {err.max().item()}"
+                                     f" (scale {scale})")
+            res[f"{what}_logits_max_abs_err"] = err.max().item()
+            res[f"{what}_logit_scale"] = scale
+        rows_k = kv_k[:, :, :B * PS].float()
+        rows_p = kv_p[:, :, :B * PS].float()
+        held = rows_k if dtype == torch.float32 else rows_k[:1]
+        ref = rows_p if dtype == torch.float32 else rows_p[:1]
+        err = (held - ref).abs()
+        if (err > ATTN_RTOL * ref.abs() + ATTN_ATOL).any():
+            raise AssertionError(f"defaults W8A16 {name}: written rows "
+                                 f"differ by {err.max().item()}")
+        res["pages_held_max_abs_err"] = err.max().item()
+        res["pages_max_abs_err"] = (rows_k - rows_p).abs().max().item()
+        res["pages_held"] = "all layers" if dtype == torch.float32 \
+            else "layer 0"
+        out[name] = res
+        del pd, kv_k, kv_p
+    return out
+
+
+def prefill_profile_bucketed(torch, params, cfg, lens, dev: str = "cuda"
+                             ) -> dict:
+    """Where the default prefill programs' time goes for prompts of
+    ``lens`` tokens, run as the xla-bucketed backend runs a burst that
+    arrives at once: prompts up to 256 tokens grouped by bucket rung,
+    one dense [G2, S] ``prefill`` per group; each longer prompt alone,
+    256-token ``prefill_suffix`` chunks over its pow2 page window, then
+    the tail on its rung. Host wall (synchronized) against device time,
+    as ``prefill_profile`` reads the same prompts through one packed K1
+    call. The trace records the device only, over one pass: its calls
+    launch thousands of small kernels, and a host-side trace of three
+    passes took a minute on the card."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from aigw_tpu_torch.models import kvq, llama
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    PS, P, chunk, calls = 128, 16, 256, 3
+    ladder = SimpleNamespace(cfg=EngineConfig(**GEOMETRY))
+    bucket = lambda n: Engine._prefill_bucket(ladder, n)  # noqa: E731
+    kv = kvq.make_pool((cfg.n_layers, 2, (len(lens) * P + 1) * PS,
+                        cfg.n_kv_heads, cfg.head_dim), "bfloat16", dev)
+    pt = torch.arange(len(lens) * P, dtype=torch.int32,
+                      device=dev).reshape(len(lens), P)
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    plan = []  # (fn, args)
+    groups: dict[int, list[int]] = {}
+    for b, n in enumerate(lens):
+        if n <= chunk:
+            groups.setdefault(bucket(n), []).append(b)
+            continue
+        win = 1
+        while win * PS < n + 64:
+            win *= 2
+        done = 0
+        while n - done > chunk:
+            plan.append((llama.prefill_suffix, (
+                torch.randint(0, cfg.vocab_size, (1, chunk), generator=g,
+                              device=dev, dtype=torch.int32),
+                torch.tensor([done], dtype=torch.int32, device=dev),
+                torch.tensor([done + chunk], dtype=torch.int32, device=dev),
+                pt[b:b + 1, :win])))
+            done += chunk
+        S = bucket(n - done)
+        plan.append((llama.prefill_suffix, (
+            torch.randint(0, cfg.vocab_size, (1, S), generator=g, device=dev,
+                          dtype=torch.int32),
+            torch.tensor([done], dtype=torch.int32, device=dev),
+            torch.tensor([n], dtype=torch.int32, device=dev),
+            pt[b:b + 1, :win])))
+    for S, members in groups.items():
+        G2 = 1
+        while G2 < len(members):
+            G2 *= 2
+        seq = torch.zeros((G2,), dtype=torch.int32, device=dev)
+        seq[:len(members)] = torch.tensor([lens[b] for b in members])
+        table = torch.zeros((G2, P), dtype=torch.int32, device=dev)
+        table[:len(members)] = pt[members]
+        plan.append((llama.prefill, (
+            torch.randint(0, cfg.vocab_size, (G2, S), generator=g,
+                          device=dev, dtype=torch.int32), seq, table)))
+
+    def run():
+        for fn, (*args, table) in plan:
+            fn(params, cfg, *args, kv, table, PS)
+
+    run()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for _ in range(calls):
+        run()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device_ms, _ours, top = device_split(torch, prof, 1, ())
+    return {"prompts": list(lens), "program_calls": len(plan),
+            "wall_ms": wall_ms, "device_ms": device_ms,
+            "top_kernels_ms": top}
+
+
 def main() -> int:
     try:
         import torch
@@ -4690,8 +5385,10 @@ def main() -> int:
 
     def restart(params, **engine_kw):
         srv.engine.stop()
+        # the kernel path: the ragged prefill (K1) and, unless a phase
+        # names the chained rung, the fused decode (K2)
         kw = dict(max_batch_size=8, max_seq_len=2048, page_size=128,
-                  attention_backend="pallas-ragged",
+                  attention_backend="pallas-ragged", decode_backend="fused",
                   enable_prefix_cache=False)
         srv.engine = Engine(
             params, llama.LLAMA3_8B, EngineConfig(**{**kw, **engine_kw}),
@@ -4757,7 +5454,7 @@ def main() -> int:
         serve_constrained_phase(srv, restart, params)
 
         # the chained rung: restart the engine with pallas_attn
-        restart(params, pallas_attn=True)
+        restart(params, decode_backend="chained", pallas_attn=True)
         reset_counts()
         serve_phase(srv.port, reqs[:2])
         k3 = read_counts()["paged_attention_decode_v2"]
@@ -4836,6 +5533,15 @@ def main() -> int:
         launches["fused_paged_decode_int4"] = \
             served_4["fused_paged_decode_int4"]
 
+        # the reference's default programs: a replica built from
+        # EngineConfig() with only the geometry set, bf16 then W8A16
+        # over int8 pages (serve_defaults), and /v1/embeddings on it
+        print(json.dumps({"serve_defaults": serve_defaults(
+            torch, srv, restart, params, qparams, reqs, launches)}),
+            flush=True)
+        print(json.dumps({"embeddings": embeddings_phase(
+            torch, srv, params, qparams, launches)}), flush=True)
+
         # multi-LoRA: a zoo over 2 rows, bf16 then W8A16 (serve_lora)
         serve_lora(torch, srv, params, qparams, reqs, launches)
 
@@ -4877,6 +5583,16 @@ def main() -> int:
     log(f"full-width verify step, K5 vs plain: {checks['verify']} "
         f"({time.monotonic() - t:.1f}s)")
     t = time.monotonic()
+    checks["defaults"] = defaults_model_check(torch, params, llama.LLAMA3_8B)
+    log(f"the default programs ({DEFAULTS_CHECK_LAYERS} layers) against "
+        f"K1 and K2: {checks['defaults']} ({time.monotonic() - t:.1f}s)")
+    t = time.monotonic()
+    checks["defaults_w8a16"] = defaults_w8a16_check(torch, qparams,
+                                                    llama.LLAMA3_8B)
+    log(f"K6 on the default programs ({DEFAULTS_CHECK_LAYERS} layers, "
+        f"M 64 and 2) against its plain version: "
+        f"{checks['defaults_w8a16']} ({time.monotonic() - t:.1f}s)")
+    t = time.monotonic()
     checks["resume"] = resume_check(torch, params, llama.LLAMA3_8B)
     log(f"full-width prefix-cache resume (K1 at 1024, the full hit's row "
         f"at 1023) vs a cold prefill: {checks['resume']} "
@@ -4901,6 +5617,12 @@ def main() -> int:
         f"{prof['device_ms']:.2f} ms on the device "
         f"(busy {prof['device_busy']:.2f})")
     print(json.dumps({"decode_profile": prof}), flush=True)
+    prof_g = decode_profile(torch, params, llama.LLAMA3_8B, attn_impl="")
+    log(f"gather decode step (the default rung): {prof_g['wall_ms']:.2f} "
+        f"ms wall, {prof_g['device_ms']:.2f} ms on the device (busy "
+        f"{prof_g['device_busy']:.2f}); fused {prof['wall_ms']:.2f} / "
+        f"{prof['device_ms']:.2f}")
+    print(json.dumps({"decode_profile_gather": prof_g}), flush=True)
     prof_c = decode_profile(torch, params, llama.LLAMA3_8B,
                             attn_impl="chained")
     log(f"chained decode step (K3): {prof_c['wall_ms']:.2f} ms wall, "
@@ -4955,7 +5677,15 @@ def main() -> int:
                   ("k1_case", K1_CASE),
                   ("resume_150_at_1024", [(150, 1024)]),
                   ("cold_1174", [(1174, 0)]))}
+    prof_p["served_burst_bucketed"] = prefill_profile_bucketed(
+        torch, params, llama.LLAMA3_8B, served_prompt_lens(reqs))
+    log(f"the served burst's prompts on the default programs: "
+        f"{prof_p['served_burst_bucketed']['wall_ms']:.2f} ms wall, "
+        f"{prof_p['served_burst_bucketed']['device_ms']:.2f} ms on the "
+        f"device ({prof_p['served_burst_bucketed']['program_calls']} calls)")
     for name, pr in prof_p.items():
+        if name == "served_burst_bucketed":
+            continue
         log(f"prefill ({name}, {pr['rows']} rows) at full width: "
             f"{pr['wall_ms']:.2f} ms wall, {pr['device_ms']:.2f} ms on the "
             f"device, K1 {pr['k1_in_place_ms']:.3f} ms in 32 launches")
@@ -4989,6 +5719,9 @@ def main() -> int:
         row["launches_serve_ops"] = launches["serve_ops"].get(row["name"], 0)
         row["launches_serve_mobility"] = launches["serve_mobility"].get(
             row["name"], 0)
+        for phase in ("serve_defaults", "serve_defaults_w8a16",
+                      "embeddings_bf16", "embeddings_w8a16"):
+            row[f"launches_{phase}"] = launches[phase].get(row["name"], 0)
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"card: {card}", flush=True)

@@ -268,22 +268,29 @@ def test_engine_request_filling_max_seq_len(weights, rung):
 
 
 def test_engine_config_refuses_unported_knobs():
-    # every knob of the reference's EngineConfig the port has is ported
-    # (the spill tier's kv_host_bytes last); the gather rung below is
-    # still refused
-    assert tengine.NOT_PORTED == {}
-    # logprobs, the tenant cap and the spill tier are ported; logprobs
-    # still exclude speculation, as in the reference
+    # the two warm knobs are the only ones not ported: a capture of the
+    # decode window stands for the reference's compiled programs
+    assert set(tengine.NOT_PORTED) == {"warm_prefill_buckets",
+                                       "warm_decode_buckets"}
+    for name, (default, entry) in tengine.NOT_PORTED.items():
+        assert default == 0 and "CUDA graphs" in entry
+        with pytest.raises(NotImplementedError, match="CUDA graphs"):
+            tengine.EngineConfig(**{name: 1})
+    # logprobs, the tenant cap, the spill tier and the bucket ladder are
+    # ported; logprobs still exclude speculation, as in the reference
     for kw in (dict(logprobs_topk=2), dict(tenant_slot_cap=1),
-               dict(kv_host_bytes=1 << 20)):
+               dict(kv_host_bytes=1 << 20), dict(prefill_chunk_tokens=0),
+               dict(min_prefill_bucket=16), dict(prefill_bucket_rungs=4)):
         assert getattr(tengine.EngineConfig(**kw), next(iter(kw))) == \
             next(iter(kw.values()))
     with pytest.raises(ValueError, match="mutually exclusive"):
         tengine.EngineConfig(logprobs_topk=2, spec_tokens=2)
-    with pytest.raises(NotImplementedError, match="gather"):
-        tengine.Engine({}, tllama.TINY,
-                       tengine.EngineConfig(decode_backend="chained"),
-                       device="cpu")
+    # chained without pallas_attn is the gather rung, as in the reference
+    eng = tengine.Engine({}, tllama.TINY,
+                         tengine.EngineConfig(decode_backend="chained"),
+                         device="cpu")
+    assert eng.decode_attn_impl == "gather-torch"
+    assert eng._decode_impl == "" and eng._verify_impl == ""
 
 
 def test_engine_config_defaults_match_reference():

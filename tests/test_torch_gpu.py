@@ -1086,7 +1086,8 @@ def test_n4_fan_out_under_a_lora_zoo(cuda):
     for dev in ("cpu", cuda):
         srv = TPUServeServer("tiny-random", EngineConfig(
             max_batch_size=8, max_seq_len=128, page_size=16,
-            decode_steps_per_tick=4, kv_cache_dtype="float32"),
+            decode_steps_per_tick=4, kv_cache_dtype="float32",
+            attention_backend="pallas-ragged", decode_backend="fused"),
             device=dev, port=0, param_dtype="float32", lora_adapters=zoo,
             lora_slots=2)
         srv.engine = Engine({k: v.to(dev) for k, v in params.items()},
@@ -1122,7 +1123,8 @@ def _ops_replica(cuda, **kw):
 
     srv = TPUServeServer("tiny-random", EngineConfig(
         max_batch_size=4, max_seq_len=256, page_size=16,
-        decode_steps_per_tick=4), device=cuda, port=0, **kw)
+        decode_steps_per_tick=4, attention_backend="pallas-ragged",
+        decode_backend="fused"), device=cuda, port=0, **kw)
     srv.start()
     return srv
 

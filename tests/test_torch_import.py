@@ -242,6 +242,49 @@ def test_kv_mobility_modules_import_with_jax_and_ml_dtypes_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_default_programs_and_embeddings_import_with_jax_blocked():
+    """The default programs' names (the bucketed prefill, the suffix
+    prefill, the embeddings pass for both families, the backend contract
+    and the bucketed backend, the bucket ladder and the page bucket, the
+    embeddings route, its sub-batch size and its body) are the port's
+    own: they import in a fresh interpreter where jax and the reference
+    package cannot, pull in nothing of either, and the route's server
+    and the engine default to CUDA."""
+    code = (
+        "import sys, inspect\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['aigw_tpu'] = None\n"
+        "from aigw_tpu_torch.models import llama, mixtral\n"
+        "from aigw_tpu_torch.models.registry import family_fns\n"
+        "from aigw_tpu_torch.tpuserve.attention import (AttentionBackend,\n"
+        "    XlaBucketedBackend, RaggedPrefillBackend)\n"
+        "from aigw_tpu_torch.tpuserve.engine import Engine\n"
+        "from aigw_tpu_torch.tpuserve.server import TPUServeServer\n"
+        "from aigw_tpu_torch.schemas.openai import embeddings_response\n"
+        "for fam, mod in (('llama', llama), ('mixtral', mixtral)):\n"
+        "    fns = family_fns(fam)\n"
+        "    assert (fns.prefill, fns.prefill_suffix, fns.hidden_states) \\\n"
+        "        == (mod.prefill, mod.prefill_suffix, mod.hidden_states)\n"
+        "assert issubclass(XlaBucketedBackend, AttentionBackend)\n"
+        "assert RaggedPrefillBackend.packs_long_prompts\n"
+        "assert not XlaBucketedBackend.packs_long_prompts\n"
+        "for fn in (Engine._prefill_bucket, Engine._pow2_pages,\n"
+        "           TPUServeServer.embeddings, TPUServeServer.embed_rows,\n"
+        "           embeddings_response):\n"
+        "    assert callable(fn)\n"
+        "for fn in (Engine.__init__, TPUServeServer.__init__):\n"
+        "    assert inspect.signature(fn).parameters['device'].default \\\n"
+        "        == 'cuda'\n"
+        "bad = [k for k, v in sys.modules.items() if v and (\n"
+        "    k.split('.')[0] in ('jax', 'jaxlib', 'aigw_tpu'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_cuda_request_without_cuda_raises():
     from aigw_tpu_torch.device import resolve_device
 

@@ -191,7 +191,8 @@ def test_metrics_families_are_the_reference_replicas_less_not_ported(
         == set(tmetrics.MOE_FAMILIES)
     lines = text.splitlines()
     assert "tpuserve_meter_records_total 2" in lines
-    assert 'tpuserve_decode_attn_impl{impl="fused-torch"} 1' in lines
+    # the replica runs the defaults: the gather rung, as the reference's
+    assert 'tpuserve_decode_attn_impl{impl="gather-torch"} 1' in lines
     assert any(ln.startswith('tpuserve_device_param_bytes{device="0"} ')
                and int(ln.split()[-1]) > 0 for ln in lines)
     assert any(f'trace_id="{TRACE_ID}"' in ln for ln in lines

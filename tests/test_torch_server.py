@@ -185,10 +185,12 @@ def test_models_health_state(server):
                 "prefix_cache_hits", "prefix_cache_misses",
                 "prefix_cache_evictions"):
         assert key in state, key
-    assert state["attention_backend"] == "pallas-ragged"
-    assert state["decode_attn_impl"] == "fused-torch"
-    # the reference's defaults: constrained decoding and the prefix cache
-    # on, no default differing
+    # the reference's defaults and what they run: the bucket ladder and
+    # the gather rung
+    assert state["attention_backend"] == "xla-bucketed"
+    assert state["attention_backend_reason"] == "requested"
+    assert state["decode_attn_impl"] == "gather-torch"
+    # constrained decoding and the prefix cache on, no default differing
     assert state["constrained_decoding"] is True
     assert state["enable_prefix_cache"] is True
     assert state["defaults_differ"] == {}
@@ -289,10 +291,11 @@ def test_quantized_replica_serves_its_greedy_stream():
         c = tllama.TINY
         assert state["kv_bytes_per_token"] == (
             c.n_layers * 2 * c.n_kv_heads * (c.head_dim + 4))
-        assert "windowed program: int8 KV pages" in \
-            state["attention_backend_reason"]
-        assert "int8 pages dequantized in the kernel" in \
-            state["decode_attn_reason"]
+        # the defaults over int8 pages: the bucketed prefill and the
+        # gather rung, dequantizing at the gather (the reference's rows)
+        assert state["attention_backend_reason"] == "requested"
+        assert "int8 KV pages dequantize against their per-page scales" \
+            in state["decode_attn_reason"]
     finally:
         srv.stop()
     with pytest.raises(ValueError, match="quantization"):
