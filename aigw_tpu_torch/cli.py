@@ -20,8 +20,9 @@ bucket-ladder prefill (``xla-bucketed``, chunked past
 ``--prefill-chunk-tokens``) and the gather decode rung; the card's
 kernel path is ``--attention-backend pallas-ragged --decode-backend
 fused``. ``--warm-prefill-buckets`` and ``--warm-decode-buckets`` keep
-the reference's names and defaults; a non-zero value is refused with
-the engine's NOT_PORTED reason (ROADMAP queue 1).
+the reference's names, defaults and help text: the programs they warm
+are CUDA graphs captured ahead of traffic (``tpuserve/programs.py``),
+counted on ``/state`` as ``warm_programs`` and ``xla_compiles``.
 
 SIGTERM or SIGINT drains the replica (new generations get 503 while
 live ones finish, ``--drain-grace`` at most) and exits 0; a second
@@ -85,12 +86,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="prefill bucket rungs per octave: 1 = powers of "
                         "two, 2 adds a 1.5xS rung, 4 adds 1.25x/1.5x/1.75x")
     s.add_argument("--warm-prefill-buckets", type=int, default=0,
-                   help="warm the batched-prefill programs of the N "
-                        "smallest buckets (not ported: non-zero is "
-                        "refused)")
+                   help="pre-compile batched-prefill programs for the N "
+                        "smallest prompt buckets at startup (all group "
+                        "sizes) so a traffic burst never pays an XLA "
+                        "compile")
     s.add_argument("--warm-decode-buckets", type=int, default=0,
-                   help="warm the decode window at the N smallest page "
-                        "buckets (not ported: non-zero is refused)")
+                   help="pre-compile the decode-window ladder (and "
+                        "row-update scatters) at the N smallest pow2 PAGE "
+                        "buckets so the first admission at any covered "
+                        "length never compiles a decode program on the "
+                        "hot path (0 = only the quiesced bucket)")
     s.add_argument("--pallas-attn", action="store_true",
                    help="the chained decode rung: scatter, then the paged "
                         "attention kernel")

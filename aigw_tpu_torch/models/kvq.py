@@ -131,8 +131,9 @@ def quantize_rows(x: torch.Tensor, kv_cache_dtype: str
     qmax = QMAX[kv_cache_dtype]
     xf = x.float()
     amax = xf.abs().amax(-1)
-    inv = torch.tensor(_INV_QMAX[kv_cache_dtype], dtype=torch.float32,
-                       device=x.device)
+    # made on the device (a fill, no host copy: captured programs run it)
+    inv = torch.full((), _INV_QMAX[kv_cache_dtype], dtype=torch.float32,
+                     device=x.device)
     scale = torch.where(amax > 0.0, amax * inv, torch.ones_like(amax))
     q = torch.clamp(torch.round(xf / scale[..., None]), -qmax, qmax)
     q = q.to(torch.int8)

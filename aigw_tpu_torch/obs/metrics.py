@@ -100,6 +100,12 @@ ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
     ("prefill_tokens_padded", "tpuserve_prefill_tokens_padded_total"),
     ("prefill_padded_frac", "tpuserve_prefill_padded_frac"),
     ("warmup_ms", "tpuserve_warmup_ms"),
+    # the programs warm-up captured, and the captures made since the
+    # engine came up with their wall ms (a CUDA graph stands for a
+    # compiled program): growth after warm-up is a hot-path capture
+    ("warm_programs", "tpuserve_warm_programs"),
+    ("xla_compiles", "tpuserve_xla_compiles_total"),
+    ("xla_compile_ms", "tpuserve_xla_compile_ms_total"),
     ("adapter_loads", "tpuserve_adapter_loads_total"),
     ("adapter_evictions", "tpuserve_adapter_evictions_total"),
     ("adapter_resident", "tpuserve_adapter_resident"),
@@ -165,7 +171,6 @@ ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
 )
 
 _MESH = "item 7, multi-GPU"
-_WARM = "the compiled decode window, as CUDA graphs"
 #: the reference's engine gauges the port does not export yet:
 #: EngineStats attribute → (gauge name, ROADMAP queue 1 entry)
 GAUGES_NOT_PORTED: dict[str, tuple[str, str]] = {
@@ -173,9 +178,6 @@ GAUGES_NOT_PORTED: dict[str, tuple[str, str]] = {
     "sp_chunked_prefills": ("tpuserve_sp_chunked_prefills_total", _MESH),
     "sp_resume_prefills": ("tpuserve_sp_resume_prefills_total", _MESH),
     "sp_interactive_admits": ("tpuserve_sp_interactive_admits_total", _MESH),
-    "warm_programs": ("tpuserve_warm_programs", _WARM),
-    "xla_compiles": ("tpuserve_xla_compiles_total", _WARM),
-    "xla_compile_ms": ("tpuserve_xla_compile_ms_total", _WARM),
     "ici_bytes_per_token": ("tpuserve_ici_bytes_per_token", _MESH),
     "ici_bytes_total": ("tpuserve_ici_bytes_total", _MESH),
 }

@@ -12,6 +12,7 @@ one is reused within a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -19,7 +20,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
+from collections.abc import Iterator
 from pathlib import Path
 
 import torch
@@ -135,6 +138,9 @@ def check_cuda(t: torch.Tensor, name: str, dtype=None) -> None:
 
 #: (device, kernel) -> int32 counters of the kernels' in-launch folds
 _COUNTERS: dict[tuple[str, str], torch.Tensor] = {}
+#: counter buffers a larger one replaced: kept alive, since a captured
+#: CUDA graph may still address them
+_RETIRED: list[torch.Tensor] = []
 
 
 def counters(device: torch.device, kernel: str, n: int) -> torch.Tensor:
@@ -142,13 +148,44 @@ def counters(device: torch.device, kernel: str, n: int) -> torch.Tensor:
     fold of split partials on ``device``. Made once and grown as needed:
     every launch leaves the counters it used at zero, so launches of one
     kernel on one device must be ordered (one stream), as the engine's
-    are."""
+    are. A buffer is never freed: graphs captured over it keep using
+    it."""
     key = (str(device), kernel)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros((max(n, 1024),), dtype=torch.int32, device=device)
         _COUNTERS[key] = buf
     return buf
+
+
+#: this thread's launch tally while it captures a CUDA graph, else None
+_capture = threading.local()
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """Count one launch of ``fn``'s kernel in ``fn.<attr>``. While this
+    thread captures a CUDA graph (``capture_tally``) nothing launches:
+    the launch is recorded in the capture's tally instead, and every
+    replay of the graph adds the tally (``tpuserve/programs.py``)."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[(fn, attr)] = tally.get((fn, attr), 0) + 1
+    else:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+@contextlib.contextmanager
+def capture_tally() -> Iterator[dict]:
+    """Record this thread's ``count_launch`` calls in a ``{(fn, attr):
+    n}`` tally instead of the counters, for the capture of a graph."""
+    tally: dict = {}
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

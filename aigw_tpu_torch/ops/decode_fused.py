@@ -303,12 +303,12 @@ def fused_paged_decode(
         _build.dtype_code(q, "q"),
         _build.dtype_code(k_rows, "k_rows", tuple(_build.DTYPE_CODE)))
     if not quant:
-        fused_paged_decode.launches += 1
+        _build.count_launch(fused_paged_decode)
         return out, k_rows, v_rows
     if packed:
-        fused_paged_decode.launches_int4 += 1
+        _build.count_launch(fused_paged_decode, "launches_int4")
     else:
-        fused_paged_decode.launches_int8 += 1
+        _build.count_launch(fused_paged_decode, "launches_int8")
     return out, k_rows, v_rows, k_scale, v_scale
 
 

@@ -236,7 +236,7 @@ def ragged_prefill_attention(
         start_pos.data_ptr(), out.data_ptr(), T, B, P, H, Hkv, D,
         page_size, _build.dtype_code(q, "q"),
         _build.dtype_code(k_pool, "k_pool"))
-    ragged_prefill_attention.launches += 1
+    _build.count_launch(ragged_prefill_attention)
     return out
 
 
@@ -372,7 +372,7 @@ def paged_attention_decode_v2(
     out = torch.empty_like(q)
     _paged_mq("aigw_paged_decode", q[:, None], k_pool, v_pool, page_table,
               lengths, out, page_size, "paged_attention_decode_v2")
-    paged_attention_decode_v2.launches += 1
+    _build.count_launch(paged_attention_decode_v2)
     return out
 
 
@@ -415,7 +415,7 @@ def paged_attention_decode(
     out = torch.empty_like(q)
     _paged_mq("aigw_paged_decode", q[:, None], k_pool, v_pool, page_table,
               lengths, out, page_size, "paged_attention_decode")
-    paged_attention_decode.launches += 1
+    _build.count_launch(paged_attention_decode)
     return out
 
 
@@ -466,7 +466,7 @@ def paged_attention_verify(
     out = torch.empty_like(q)
     _paged_mq("aigw_paged_verify", q, k_pool, v_pool, page_table,
               positions, out, page_size, "paged_attention_verify")
-    paged_attention_verify.launches += 1
+    _build.count_launch(paged_attention_verify)
     return out
 
 

@@ -119,7 +119,7 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor,
                   scale.data_ptr(), _build.ptr(part), _build.ptr(counters),
                   out.data_ptr(), M, K, N, plan["splits"], plan["k_rows"],
                   _build.dtype_code(x, "x"))
-    w8a16_matmul.launches += 1
+    _build.count_launch(w8a16_matmul)
     return out
 
 

@@ -34,6 +34,10 @@ per-request path, which resumes a prefix-cache hit at its cached offset
 its request's adapter row, which the call's LoRA deltas read. Both
 account real and padded prefill tokens (``prefill_padded_frac``) and
 count their intermediate device steps in ``chunked_prefill_steps``.
+Every prefill call is one of the engine's programs, keyed by its shapes
+(``Engine._prefill_step``); ``warm`` captures the backend's ahead of
+traffic when ``warm_prefill_buckets > 0``, the reference's compile
+warm-up.
 
 Both resolvers export what the replica actually runs, and why, on
 ``/state`` (``attention_backend_reason``, ``decode_attn_impl``,
@@ -109,6 +113,11 @@ class AttentionBackend:
         allocated); returns results in item order (the engine creates the
         slots and inserts each prompt's ``chain_by_req[id(req)]`` into
         the prefix cache)."""
+        raise NotImplementedError
+
+    def warm(self) -> None:
+        """Capture the backend's prefill programs before traffic (with
+        ``warm_prefill_buckets > 0``; ``Engine.warmup`` calls it)."""
         raise NotImplementedError
 
     def single_prefill(self, req, seq_id: int, suffix: list[int],
@@ -203,6 +212,26 @@ class XlaBucketedBackend(AttentionBackend):
         logger.info("attention backend xla-bucketed: min bucket %d, rungs "
                     "%d, chunk %d tokens", cfg.min_prefill_bucket,
                     cfg.prefill_bucket_rungs, cfg.prefill_chunk_tokens)
+
+    def warm(self) -> None:
+        """The ``[G2, S]`` prefill at every group size for each rung of
+        the ``warm_prefill_buckets`` smallest octaves (the reference's
+        walk: octave 0 always; a later octave once the previous base
+        rung is below ``max_seq_len``, so the first octave past the cap
+        still gives its capped rung; capped rungs dedupe). Chunks and
+        resumes (``prefill_suffix``) are not warmed, as in the
+        reference."""
+        eng = self.eng
+        cfg = eng.cfg
+        warmed: set[int] = set()
+        for b in range(cfg.warm_prefill_buckets):
+            if b > 0 and (cfg.min_prefill_bucket << (b - 1)
+                          >= cfg.max_seq_len):
+                break
+            for S in eng._bucket_rungs(b):
+                if S not in warmed:
+                    warmed.add(S)
+                    eng._warm_prefill_shapes(S)
 
     def group_prefill(self, items: list, chain_by_req: dict
                       ) -> list[GroupResult]:
@@ -371,6 +400,29 @@ class RaggedPrefillBackend(AttentionBackend):
     def budget(self) -> int:
         return (self.eng.cfg.ragged_chunk_tokens
                 * self.eng.cfg.ragged_max_chunks)
+
+    def warm(self) -> None:
+        """Every rung of the token-budget ladder with a zero-token pack
+        (all rows padding: their K/V go to the dump page), the
+        reference's warm: any admission whose packed total fits the
+        budget then replays a captured program. A quantized pool's
+        windowed prefill runs eagerly (``Engine._prefill_step``), so it
+        has nothing to capture."""
+        eng = self.eng
+        if eng.cfg.warm_prefill_buckets <= 0 or is_quantized_dtype(
+                eng.cfg.kv_cache_dtype):
+            return
+        B = eng.cfg.max_batch_size
+        P = eng.cfg.max_pages_per_seq
+        dev = eng.device
+        dummy = self._sampling_rows({}, B)
+        for T in self.rungs():
+            eng._prefill_step(eng.fns.prefill_ragged, (
+                torch.zeros((T,), dtype=torch.int32, device=dev),
+                torch.full((T,), B, dtype=torch.int32, device=dev),
+                torch.zeros((T,), dtype=torch.int32, device=dev),
+                torch.zeros((B,), dtype=torch.int32, device=dev),
+                torch.zeros((B, P), dtype=torch.int32, device=dev)), dummy)
 
     # -- packing core ------------------------------------------------------
     def _run_packed(self, segs: list[_Seg], sampling_args: tuple,

@@ -11,6 +11,20 @@
   asynchronously into pinned memory on CUDA) and settles the window while
   the next one runs — the same 1-deep pipeline as the reference. The
   adaptive ``{min, max}`` window is kept.
+- **Compiled programs**: where the reference compiles each window
+  (``_decode_fn_for``) and each prefill geometry with ``jax.jit``, the
+  port captures a CUDA graph (``tpuserve/programs.py``): one per window
+  key ``(k, lean, draft, greedy, adapters)`` and page bucket, and one per
+  prefill shape, captured the first time the key is seen or ahead of
+  traffic by ``warmup()`` under the reference's two warm knobs. The
+  decode state is allocated once per engine and every program updates
+  it, and the KV pool, in place. ``compile_tracker`` counts the programs
+  (``/state``'s ``warm_programs``, ``xla_compiles``,
+  ``xla_compile_ms``). Eager on every device, each for its reason: the
+  windowed prefill over quantized pools (its page walk is read on the
+  host once per call, ``models/llama._window_pages``), the page movers
+  (copy-on-write, export, import, spill and revive: single copies) and
+  the decode state's row uploads.
 - **Sampling on the device**, keys ``[seed, position]`` per slot, so
   streams are identical to the reference engine's, greedy and seeded.
 - **Engine thread**: the loop runs in its own thread; consumers receive
@@ -132,8 +146,9 @@ resumes them, parked sessions first, through the import.
 Every default equals the reference's, and so does what it runs: a
 replica built from ``EngineConfig()`` prefills on the bucket ladder and
 decodes on the gather rung. Knobs of features the port does not
-implement (``NOT_PORTED``) raise ``NotImplementedError`` naming their
-ROADMAP entry when set to a non-default value.
+implement (``NOT_PORTED``, empty since the warm knobs were ported)
+raise ``NotImplementedError`` naming their ROADMAP entry when set to a
+non-default value.
 """
 
 from __future__ import annotations
@@ -153,6 +168,7 @@ import torch
 from aigw_tpu_torch.device import resolve_device
 from aigw_tpu_torch.models import kvq
 from aigw_tpu_torch.obs.flight import trace_id_of
+from aigw_tpu_torch.obs.graph_events import CompileTracker
 from aigw_tpu_torch.obs.metrics import EnginePhases
 from aigw_tpu_torch.tpuserve import constrain, speculation
 from aigw_tpu_torch.tpuserve.adapters import (
@@ -173,6 +189,11 @@ from aigw_tpu_torch.tpuserve.kvcache import (
     page_chain_hashes,
 )
 from aigw_tpu_torch.tpuserve.kvhost import HostKVTier
+from aigw_tpu_torch.tpuserve.programs import (
+    ProgramFamily,
+    ProgramPool,
+    clone_tree,
+)
 from aigw_tpu_torch.tpuserve.sampling import (
     SamplingParams,
     apply_penalties,
@@ -185,15 +206,9 @@ logger = logging.getLogger(__name__)
 
 #: knobs of features the port does not implement yet: (reference
 #: default, ROADMAP queue 1 entry). A non-default value raises
-#: NotImplementedError. The reference warms compiled programs ahead of
-#: traffic; the port's counterpart of a compiled program is a captured
-#: CUDA graph, which waits with the decode window's capture
-NOT_PORTED: dict[str, tuple[Any, str]] = {
-    "warm_prefill_buckets": (
-        0, "item 2, the compiled decode window, as CUDA graphs"),
-    "warm_decode_buckets": (
-        0, "item 2, the compiled decode window, as CUDA graphs"),
-}
+#: NotImplementedError. None since the warm knobs were ported (a
+#: captured CUDA graph stands for a compiled program)
+NOT_PORTED: dict[str, tuple[Any, str]] = {}
 
 #: defaults that differ from the reference, and why (/state): none
 DEFAULTS_DIFFER: dict[str, str] = {}
@@ -239,7 +254,11 @@ class EngineConfig:
     # a lone arrival to an idle engine probes 1 ms for a second request
     # instead of waiting the whole coalescing window
     first_token_fast_path: bool = True
-    # warm the compiled programs ahead of traffic (NOT_PORTED)
+    # capture programs ahead of traffic: the batched prefill's shapes of
+    # the N smallest prompt-bucket octaves (every group size; the ragged
+    # backend's token rungs at any N > 0), and the decode window ladder
+    # at the N smallest power-of-two page buckets (0 = only the
+    # quiesced bucket)
     warm_prefill_buckets: int = 0
     warm_decode_buckets: int = 0
     # bucket ladder rungs per octave: 1 = powers of two, 2 adds 1.5x S,
@@ -469,7 +488,14 @@ class EngineStats:
     prefill_tokens_padded: int = 0
     prefill_padded_frac: float = 0.0
     queue_wait_ms: float = 0.0
+    # warm-up cost: wall ms of the last warmup() and the programs it left
+    # captured; the programs built since the engine came up (a capture,
+    # or a CPU program's first call) and their capture ms: growth after
+    # warm-up is a capture on the hot path
     warmup_ms: float = 0.0
+    warm_programs: int = 0
+    xla_compiles: int = 0
+    xla_compile_ms: float = 0.0
     device_bytes_in_use: int = 0
     device_bytes_limit: int = 0
     device_memory_frac: float = 0.0
@@ -794,6 +820,23 @@ class Engine:
         self._cur_window = cfg.decode_steps_per_tick
         self._steady_ticks = 0
         self._mem_next = 0.0
+        # the compiled programs: the decode window families of
+        # ``_decode_fn_for`` and the prefill families, captured CUDA
+        # graphs sharing one memory pool (tpuserve/programs.py), counted
+        # by the tracker; the per-slot decode state they update is
+        # allocated once (``_state``, by the first build)
+        self.compile_tracker = CompileTracker()
+        self.programs = ProgramPool(self.device, self.compile_tracker)
+        self._decode_fns: dict[tuple, ProgramFamily] = {}
+        # prefill entry point → its family (the reference's "prefill",
+        # "prefill_suffix" and "prefill_ragged" programs)
+        self._prefill_fns: dict[Callable, ProgramFamily] = {
+            f: self.compile_tracker.register(name, ProgramFamily(
+                lambda key, f=f: self._prefill_body(f, len(key[1]) - 6),
+                self.programs))
+            for name in ("prefill", "prefill_suffix", "prefill_ragged")
+            if (f := getattr(self.fns, name, None)) is not None}
+        self._state: dict[str, torch.Tensor] | None = None
         self.decode_attn_impl, self.decode_attn_reason = (
             resolve_decode_backend(cfg, self.device))
         # decode_step's attn_impl: the gather rung is its "" branch
@@ -837,11 +880,13 @@ class Engine:
         [L, E + 1] routing counts or None on a dense family)."""
         out = fn(self.params, self.model_cfg, *args, **kw, **self._moe_kw,
                  lora=self.lora_params, adapter_idx=adapter_idx)
-        if self._moe:
-            logits, self.kv_cache, moe = out
-            return logits, moe
-        logits, self.kv_cache = out
-        return logits, None
+        logits, kv, moe = out if self._moe else (*out, None)
+        if kv is not self.kv_cache:
+            # the captured programs address the pool's tensors: every
+            # model entry point updates it in place
+            raise RuntimeError(f"{getattr(fn, '__name__', fn)} returned "
+                               "another KV pool than it was given")
+        return logits, moe
 
     def _prefill_step(self, fn, args: tuple, sampling: tuple):
         """One prefill call, ``fn(params, cfg, *args[:-1], pool,
@@ -851,19 +896,67 @@ class Engine:
         temp, top_p, top_k, bias, adapter_idx), one row per sequence row
         (key [seed, 0]); returns ([rows] int32 tokens, routing counts or
         None), on the device. With logprobs on, the tokens are a tuple
-        (tokens, chosen, top ids [rows, k], top values [rows, k])."""
-        keys, temp, top_p, top_k, bias, adapter_idx = sampling
-        logits, moe = self._model(
-            fn, *args[:-1], self.kv_cache, args[-1], self.cfg.page_size,
-            adapter_idx=adapter_idx)
-        logits = logits + bias
-        sampled = sample(logits, keys, temp, top_p, top_k)
-        if not self.cfg.logprobs_topk:
-            return sampled, moe
-        return (sampled, *token_logprobs(logits, sampled,
-                                         self.cfg.logprobs_topk)), moe
+        (tokens, chosen, top ids [rows, k], top values [rows, k]).
 
-    def _decode_window(self, k: int, lean: bool, greedy: bool
+        The call is its family's program at the shapes of its inputs
+        and whether adapter stacks are present (the reference's jit
+        cache), except the windowed ragged prefill of a quantized pool,
+        which reads its page walk on the host and so runs eagerly. The
+        outputs are copies the caller may keep past the next program."""
+        if fn is self.fns.prefill_ragged and kvq.is_quantized(
+                self.kv_cache):
+            return self._prefill_body(fn, len(args))(*args, *sampling)
+        inputs = (*args, *sampling)
+        key = (self.lora_params is not None,
+               tuple((tuple(t.shape), t.dtype) for t in inputs))
+        out = self._prefill_fns[fn].program(key)(*inputs)
+        return clone_tree(out) if self.programs.cuda else out
+
+    def _prefill_body(self, fn, n_args: int):
+        """The prefill program's body over ``n_args`` model inputs and
+        the six sampling rows (``_prefill_step``)."""
+
+        def body(*inputs):
+            args, sampling = inputs[:n_args], inputs[n_args:]
+            keys, temp, top_p, top_k, bias, adapter_idx = sampling
+            logits, moe = self._model(
+                fn, *args[:-1], self.kv_cache, args[-1],
+                self.cfg.page_size, adapter_idx=adapter_idx)
+            logits = logits + bias
+            sampled = sample(logits, keys, temp, top_p, top_k)
+            if not self.cfg.logprobs_topk:
+                return sampled, moe
+            return (sampled, *token_logprobs(
+                logits, sampled, self.cfg.logprobs_topk)), moe
+
+        return body
+
+    def _decode_fn_for(self, k: int, lean: bool, greedy: bool,
+                       draft: int = 0):
+        """The decode program of a window of ``k`` steps at draft rung
+        ``draft`` (0 = plain decode) and the current page bucket (the
+        reference's ``_decode_fn_for``, cached per key; its jit caches
+        per page-bucket shape). ``lean`` selects the penalty-free plain
+        variant (a verify window has none: its eligibility reads the
+        penalty fields); the port's key adds ``greedy`` (the window
+        skips the sampling sort) and whether adapter stacks are present
+        (the model calls' ``lora`` is None or the stacks)."""
+        if draft:
+            lean = False
+        lora = self.lora_params is not None
+        key = (k, lean, draft, greedy, lora)
+        fam = self._decode_fns.get(key)
+        if fam is None:
+            fam = self._decode_fns[key] = self.compile_tracker.register(
+                f"decode[k={k},lean={lean},d={draft},greedy={greedy},"
+                f"lora={lora}]",
+                ProgramFamily(lambda P: (
+                    lambda: self._spec_window(k, draft, greedy, P)
+                    if draft else self._decode_window(k, lean, greedy, P)),
+                    self.programs))
+        return fam.program(self._state_bucket)
+
+    def _decode_window(self, k: int, lean: bool, greedy: bool, P: int
                        ) -> tuple[torch.Tensor, Any, Any]:
         """K decode+sample steps; sampled tokens feed forward on the
         device. ``lean`` skips the repetition-penalty terms (bit-identical
@@ -872,12 +965,12 @@ class Engine:
         live slot samples greedily (sample() returns argmax for those).
         Returns ([K, B] int32 tokens, the window's summed routing counts
         or None, and with logprobs on ([K, B] chosen, [K, B, k] top ids,
-        [K, B, k] top values), else None) on the device."""
-        st = self._device_state
-        B = self.cfg.max_batch_size
+        [K, B, k] top values), else None) on the device. The state and
+        the pool are updated in place (the body of a captured program,
+        ``_decode_fn_for``), the page table seen at bucket ``P``."""
+        st = self._state
         lp_k = self.cfg.logprobs_topk
-        rows = torch.arange(B, device=self.device)
-        pt = st["page_table"][:, :self._state_bucket]
+        pt = st["page_table"][:, :P]
         out = []
         lps = []
         macc = None
@@ -904,17 +997,16 @@ class Engine:
                 # was drawn from
                 lps.append(token_logprobs(logits, sampled, lp_k))
             if not lean:
-                st["counts"].index_put_((rows, sampled.long()),
-                                        act.to(torch.int32), accumulate=True)
-            st["tokens"] = torch.where(act, sampled, st["tokens"])
-            st["positions"] = torch.where(act, st["positions"] + 1,
-                                          st["positions"])
+                st["counts"].scatter_add_(1, sampled.long()[:, None],
+                                          act.to(torch.int32)[:, None])
+            st["tokens"].copy_(torch.where(act, sampled, st["tokens"]))
+            st["positions"].add_(act.to(torch.int32))
             st["keys"][:, 1] = (st["keys"][:, 1] + act.long()) & 0xFFFFFFFF
             out.append(sampled)
         lp = (tuple(torch.stack(t) for t in zip(*lps)) if lp_k else None)
         return torch.stack(out), macc, lp
 
-    def _spec_window(self, k: int, D: int, greedy: bool
+    def _spec_window(self, k: int, D: int, greedy: bool, P: int
                      ) -> tuple[torch.Tensor, Any]:
         """K speculative steps at draft rung D (the reference's
         ``_spec_scan`` body). Each step drafts D tokens per slot
@@ -927,8 +1019,9 @@ class Engine:
         which ``sample`` returns for greedy slots anyway. Returns ([K, B,
         D + 3] int32: the samples ``[..., :D + 1]``, then n_emit and
         n_prop (the drafts actually offered); the window's summed
-        routing counts or None), on the device."""
-        st = self._device_state
+        routing counts or None), on the device. The state and the pool
+        are updated in place, the page table seen at bucket ``P``."""
+        st = self._state
         dev = self.device
         B = self.cfg.max_batch_size
         H = self.cfg.max_seq_len
@@ -938,7 +1031,7 @@ class Engine:
         d_idx = torch.arange(D1, device=dev)[None, :]
         elig = ((st["freq_pen"] == 0.0) & (st["pres_pen"] == 0.0)
                 & (st["temp"] <= 0.0))
-        pt = st["page_table"][:, :self._state_bucket]
+        pt = st["page_table"][:, :P]
         out = []
         macc = None
         for _ in range(k):
@@ -988,8 +1081,9 @@ class Engine:
             st["counts"].scatter_add_(1, sampled.long(),
                                       emit.to(torch.int32))
             new_pending = sampled[rows, torch.clamp(n_emit.long() - 1, 0, D)]
-            st["tokens"] = torch.where(n_emit > 0, new_pending, st["tokens"])
-            st["positions"] = st["positions"] + n_emit
+            st["tokens"].copy_(torch.where(n_emit > 0, new_pending,
+                                           st["tokens"]))
+            st["positions"].add_(n_emit)
             st["keys"][:, 1] = (st["keys"][:, 1] + n_emit.long()) & 0xFFFFFFFF
             n_prop = torch.cumprod((drafts >= 0).to(torch.int32),
                                    dim=1).sum(dim=1)
@@ -1098,16 +1192,103 @@ class Engine:
 
     # -- public API -------------------------------------------------------------
     def warmup(self) -> None:
-        """Build the CUDA kernels before traffic arrives (the first
-        request must not pay the nvcc build)."""
+        """Build the CUDA kernels and capture the decode programs before
+        traffic arrives (the reference's ``warmup``): every window of
+        the adaptive ladder, lean and full, greedy and sampled, and every
+        nonzero draft rung of the speculative ladder, at each warm page
+        bucket (``_warm_page_buckets``), then, with
+        ``warm_prefill_buckets > 0``, the attention backend's prefill
+        shapes (``AttentionBackend.warm``). The windows run over the
+        cleared decode state: every slot inactive, so they write only
+        the dump page and move nothing. Records ``warmup_ms`` and the
+        programs captured (``warm_programs``).
+
+        The reference also compiles its row-update scatters, the page
+        movers (a page export and an import at each rung) and the
+        copy-on-write copy here; the port runs those eagerly (single
+        copies with no program to build), so there is nothing to warm.
+        Runs before ``start()``: the windows use the engine's decode
+        state."""
+        if self._thread is not None or self._inflight is not None or any(
+                s is not None for s in self._slots):
+            raise RuntimeError("warmup() runs before the engine starts")
         t0 = time.monotonic()
         if self.device.type == "cuda":
             from aigw_tpu_torch.ops import _build
 
             _build.library()
+        self._build_device_state()
+        quiesced = self._state_bucket
+        try:
+            for P in self._warm_page_buckets():
+                self._state_bucket = P
+                for k in self._window_ladder():
+                    for greedy in (True, False):
+                        for lean in (True, False):
+                            self._decode_fn_for(k, lean, greedy)()
+                        for d in self._spec_rungs:
+                            if d:
+                                self._decode_fn_for(k, False, greedy, d)()
+        finally:
+            self._state_bucket = quiesced
         if self._adapter_store is not None:
             self._adapter_store.warm()
+        self.attn.warm()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self.stats.warmup_ms = round(1e3 * (time.monotonic() - t0), 3)
+        self.stats.warm_programs = self.compile_tracker.program_count()
+        self._refresh_stats()
+
+    def _warm_page_buckets(self) -> list[int]:
+        """Page buckets warmup() captures the decode ladder at: the
+        quiesced bucket, or with ``warm_decode_buckets`` = N the
+        power-of-two rungs 1, 2, ..., 2^(N-1) capped at
+        ``max_pages_per_seq`` (the reference's), so a first admission at
+        any covered sequence length captures nothing on the hot path."""
+        n = self.cfg.warm_decode_buckets
+        if n <= 0:
+            return [self._decode_bucket_pages()]
+        buckets: list[int] = []
+        b = 1
+        for _ in range(n):
+            buckets.append(min(b, self.cfg.max_pages_per_seq))
+            if b >= self.cfg.max_pages_per_seq:
+                break
+            b *= 2
+        return sorted(set(buckets))
+
+    def _bucket_rungs(self, octave: int) -> list[int]:
+        """The prefill-ladder rungs of one octave (octave 0 starts at
+        ``min_prefill_bucket``), ascending, capped at ``max_seq_len``
+        (the reference's)."""
+        S = self.cfg.min_prefill_bucket << octave
+        quarters = {1: (4,), 2: (4, 6), 4: (4, 5, 6, 7)}[
+            self.cfg.prefill_bucket_rungs]
+        return sorted({min(S * q // 4, self.cfg.max_seq_len)
+                       for q in quarters})
+
+    def _warm_prefill_shapes(self, S: int) -> None:
+        """Run the bucketed prefill's program for every power-of-two
+        group size at prompt bucket S with all-zero lengths (the
+        reference's): every row is padding, so its K/V go to the dump
+        page; the call exists to capture the shape."""
+        V = self.model_cfg.vocab_size
+        P = self.cfg.max_pages_per_seq
+        dev = self.device
+        G2 = 1
+        while G2 <= self.cfg.max_batch_size:
+            z32 = torch.zeros((G2,), dtype=torch.int32, device=dev)
+            self._prefill_step(self.fns.prefill, (
+                torch.zeros((G2, S), dtype=torch.int32, device=dev), z32,
+                torch.zeros((G2, P), dtype=torch.int32, device=dev)), (
+                torch.zeros((G2, 2), dtype=torch.int64, device=dev),
+                torch.zeros((G2,), dtype=torch.float32, device=dev),
+                torch.ones((G2,), dtype=torch.float32, device=dev), z32,
+                torch.zeros((G2, V), dtype=torch.float32, device=dev),
+                torch.full((G2,), self._base_row, dtype=torch.int32,
+                           device=dev)))
+            G2 *= 2
 
     def start(self) -> None:
         self._thread = threading.Thread(
@@ -2351,12 +2532,19 @@ class Engine:
 
     def _build_device_state(self) -> dict[str, torch.Tensor]:
         """The full per-slot decode state, uploaded once per busy period
-        (membership changes then patch rows)."""
+        (membership changes then patch rows) into the engine's state
+        tensors: allocated by the first build and written in place
+        after, since the captured programs address them."""
         rows = [self._row_host_values(i)
                 for i in range(self.cfg.max_batch_size)]
-        return {k: torch.from_numpy(np.asarray(
-                    [r[k] for r in rows], dt)).to(self.device)
+        host = {k: torch.from_numpy(np.asarray([r[k] for r in rows], dt))
                 for k, dt in self._state_dtypes.items()}
+        if self._state is None:
+            self._state = {k: v.to(self.device) for k, v in host.items()}
+        else:
+            for k, v in host.items():
+                self._state[k].copy_(v)
+        return self._state
 
     def _apply_row_updates(self) -> None:
         """Patch dirty slot rows into the live state, like the
@@ -2763,9 +2951,9 @@ class Engine:
             draft_lens = tuple((i, self._slots[i].ctrl.draft_len())
                                for i in active_idx
                                if self._slots[i].ctrl is not None)
-            sampled, moe = self._spec_window(k, draft, greedy)
+            sampled, moe = self._decode_fn_for(k, False, greedy, draft)()
         else:
-            sampled, moe, lp = self._decode_window(k, lean, greedy)
+            sampled, moe, lp = self._decode_fn_for(k, lean, greedy)()
         if self.cfg.async_transfers:
             # the logprobs ride the tokens' copy and event
             (host, moe, *lp_host), ready = self._start_host_copy(
@@ -2999,6 +3187,9 @@ class Engine:
         if st.prefill_tokens_padded:
             st.prefill_padded_frac = round(
                 1.0 - st.prefill_tokens_real / st.prefill_tokens_padded, 4)
+        st.xla_compiles = self.compile_tracker.compiles()
+        st.xla_compile_ms = round(self.compile_tracker.compiles_total_ms(),
+                                  3)
         if self.prefix_cache is not None:
             st.prefix_cache_evictions = self.prefix_cache.evictions
             st.prefix_pages_resident = self.prefix_cache.resident_entries

@@ -426,7 +426,13 @@ class TPUServeServer:
             "transfer_ms": round(s.transfer_ms, 3),
             "emit_ms": round(s.emit_ms, 3),
             "first_emit_ms": round(s.first_emit_ms, 3),
+            # cold-start observables: warmup()'s wall ms and the
+            # programs it captured; the captures since the engine came
+            # up (growth after warm-up = a capture on the hot path)
             "warmup_ms": s.warmup_ms,
+            "warm_programs": s.warm_programs,
+            "xla_compiles": s.xla_compiles,
+            "xla_compile_ms": s.xla_compile_ms,
             "attention_backend": eng.attn.name,
             "attention_backend_reason": eng.attn_reason,
             "prefill_tokens_real": s.prefill_tokens_real,

@@ -180,6 +180,17 @@ Phases (any failure exits non-zero):
    Reported: export and import ms a page, wire MB a page, B's resume
    TTFT beside a cold prefill of the same history, the spill stall, the
    interactive TTFT beside ``serve``'s;
+   every phase above serves through the engine's captured programs (a
+   CUDA graph per decode window key and page bucket and per prefill
+   shape, captured on first use; the launch counts are replays'); then
+   a replica warmed ahead of traffic (the ``serve_graphs`` line,
+   ``GRAPH_WARM``: the decode ladder at page buckets 1, 2 and 4 and the
+   ragged prefill's token rungs): ``warmup_ms``, ``warm_programs`` and
+   the graph pool's bytes, the burst with its prompts cut to 400 bytes
+   (inside 4 pages) cold and warm with no capture after warm-up (gated),
+   then the whole burst, whose longest sequences need the 16-page bucket
+   (its captures counted), and again warm with none (gated); K1 and K2
+   must launch;
 5. every kernel against its plain PyTorch version on the card at the
    served shapes (each attention output element within 2**-7 of the
    plain output plus 2e-3, printed beside the mean |output|; K2's and
@@ -249,6 +260,16 @@ Phases (any failure exits non-zero):
    with the engine's per-token logprobs (``log_softmax`` and
    ``topk(20)`` over the step's logits) against without, and the
    launches and host-copy bytes they add (``decode_profile_logprobs``);
+   the captured programs (the ``graphs`` line): every program family's
+   replay against its eager body at these widths, bit for bit (outputs,
+   the decode state and every pool byte but the dump page's), bf16 on
+   the kernel path (lean/full x greedy/sampled windows, the bucketed
+   prefill, a suffix chunk, the ragged prefill), bf16 on the chained
+   rung speculating at width 4 (K3 and K5 windows) and W8A16 over int8
+   pages (K6 and K7 windows, the bucketed prefill and a chunk); the
+   fused, gather, chained, W8A16 + int8 and verify steps and the burst's
+   and a resume's prefill each captured and replayed beside the eager
+   step, wall against device ms;
 7. the mixtral family (the Llama weights freed first). At Mixtral-8x7B
    widths (dim 4096, 8 experts of ffn 14336, top-2, vocab 32000) and 2
    layers, in float32 and in bf16: a packed prefill of 4 sequences, 8
@@ -276,7 +297,8 @@ Phases (any failure exits non-zero):
    ``qmatmul_shapes`` line;
 8. the ``kernels`` JSON line (each row also carries its launches on
    ``serve_moe``, on ``serve_lora``, on ``serve_logprobs``, on
-   ``serve_ops``, on ``serve_mobility``, on ``serve_defaults`` (bf16 and
+   ``serve_ops``, on ``serve_mobility``, on ``serve_graphs`` (the warm
+   burst), on ``serve_defaults`` (bf16 and
    W8A16, the cold bursts) and on ``embeddings``), the card line, then
    the last line
    ``{"ok": true, "device": {...}}``.
@@ -416,7 +438,9 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # -- launch counters -----------------------------------------------------------
 def counters() -> dict:
     """kernel name → (wrapper, counter attribute): each wrapper adds one
-    to its counter where it launches its kernel, and nowhere else."""
+    to its counter where it launches its kernel, and nowhere else; a
+    captured program adds its graph's launches at each replay (the
+    engine's windows and prefill calls, ``tpuserve/programs.py``)."""
     from aigw_tpu_torch.ops import decode_fused, paged_attention, qmatmul
 
     fused = decode_fused.fused_paged_decode
@@ -434,6 +458,16 @@ def counters() -> dict:
         "paged_attention_verify": (
             paged_attention.paged_attention_verify, "launches"),
     }
+
+
+def stop_engine(srv) -> None:
+    """Stop the engine behind ``srv`` and collect the engines stopped
+    before it: an engine is cyclic garbage once replaced (its backends
+    and program families point back at it), and its KV pool and graph
+    pool are freed only by a collection; the phases start many engines
+    one after another."""
+    srv.engine.stop()
+    gc.collect()
 
 
 def reset_counts() -> None:
@@ -1351,8 +1385,8 @@ def serve_profile(torch, port: int, reqs, warm_s: float) -> dict:
 def decode_profile(torch, params, cfg, dev: str = "cuda",
                    kv_dtype: str = "bfloat16", verify_width: int = 0,
                    attn_impl: str = "fused", model=None, lora=None,
-                   adapter_idx=None, logprobs_topk: int | None = None
-                   ) -> dict:
+                   adapter_idx=None, logprobs_topk: int | None = None,
+                   captured: bool = False) -> dict:
     """Where one full-width decode step's time goes: host wall clock of a
     step (synchronized) against the device time torch.profiler sees, by
     kernel. Batch 8 at 1000 cached tokens each, a ``kv_dtype`` pool, on
@@ -1363,7 +1397,8 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
     With ``logprobs_topk`` set each step also takes the greedy token
     (the argmax), and above 0 the engine's per-token logprobs at it
     (``sampling.token_logprobs``). ``kernel_launches`` counts the device
-    kernels a step launches."""
+    kernels a step launches. ``captured`` runs the step as the engine's
+    programs run it: captured once in a CUDA graph and replayed."""
     from torch.profiler import ProfilerActivity, profile
 
     from aigw_tpu_torch.models import kvq, llama
@@ -1396,6 +1431,8 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
                 if logprobs_topk:
                     token_logprobs(out[0], tok_s, logprobs_topk)
 
+    if captured:
+        step = _captured(torch, step)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -1425,9 +1462,21 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
             "kv_dtype": kv_dtype, "verify_width": verify_width,
             "logprobs_topk": logprobs_topk, "kernel_launches": launched,
             "attn_impl": "chained" if verify_width else attn_impl,
-            "wall_ms": wall_ms, "device_ms": device_ms,
+            "captured": captured, "wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy": device_ms / wall_ms,
             "port_kernels_ms": ours, "top_kernels_ms": top}
+
+
+def _captured(torch, fn):
+    """``fn()`` as one of the engine's programs runs: its first call
+    runs it eagerly and captures it in a CUDA graph, every later call
+    replays the graph (``tpuserve/programs.py``)."""
+    from aigw_tpu_torch.obs.graph_events import CompileTracker
+    from aigw_tpu_torch.tpuserve.programs import CapturedProgram, ProgramPool
+
+    prog = CapturedProgram(fn, ProgramPool(torch.device("cuda"),
+                                           CompileTracker()))
+    return lambda: prog()
 
 
 def device_split(torch, prof, calls: int, tags) -> tuple:
@@ -1467,13 +1516,15 @@ def served_prompt_lens(reqs) -> list[int]:
 
 
 def prefill_profile(torch, params, cfg, seqs, dev: str = "cuda", lora=None,
-                    adapter_idx=None) -> dict:
+                    adapter_idx=None, captured: bool = False) -> dict:
     """Where one full-width bf16 prefill's time goes: one
     ``prefill_ragged`` call over the packed sequences ``seqs`` ((new
     tokens, start position) each; the rows padded to a multiple of 256),
     its host wall clock (synchronized) against the device time
     torch.profiler sees, and K1's launches (one per layer) summed;
-    ``lora`` and ``adapter_idx`` give the sequences adapter rows."""
+    ``lora`` and ``adapter_idx`` give the sequences adapter rows;
+    ``captured`` replays the call from a CUDA graph, as the engine's
+    prefill programs run."""
     from torch.profiler import ProfilerActivity, profile
 
     from aigw_tpu_torch.models import kvq, llama
@@ -1503,6 +1554,8 @@ def prefill_profile(torch, params, cfg, seqs, dev: str = "cuda", lora=None,
         llama.prefill_ragged(params, cfg, tokens, row_seq, positions, last,
                              kv, pt, PS, lora=lora, adapter_idx=adapter_idx)
 
+    if captured:
+        call = _captured(torch, call)
     call()
     torch.cuda.synchronize()
     t = time.monotonic()
@@ -1518,7 +1571,8 @@ def prefill_profile(torch, params, cfg, seqs, dev: str = "cuda", lora=None,
     device_ms, ours, top = device_split(
         torch, prof, calls, (("ragged_prefill_attention", "ragged_prefill"),))
     return {"sequences": [list(x) for x in seqs], "rows": total,
-            "padded_rows": T, "layers": cfg.n_layers, "wall_ms": wall_ms,
+            "padded_rows": T, "layers": cfg.n_layers, "captured": captured,
+            "wall_ms": wall_ms,
             "device_ms": device_ms, "k1_in_place_ms":
             ours["ragged_prefill_attention"], "top_kernels_ms": top}
 
@@ -2758,7 +2812,7 @@ def serve_logprobs(torch, srv, params, reqs, launches: dict,
     captured: dict = {}
 
     def start(**engine_kw):
-        srv.engine.stop()
+        stop_engine(srv)
         eng = Engine(params, cfg, EngineConfig(**{
             **dict(max_batch_size=8, max_seq_len=2048, page_size=128,
                    attention_backend="pallas-ragged",
@@ -2895,7 +2949,7 @@ def serve_logprobs(torch, srv, params, reqs, launches: dict,
         poller.join()
     st = _wait_idle(srv)
     c_all = read_counts()
-    srv.engine.stop()
+    stop_engine(srv)
     peak = max(p["tenant_max_slots"] for p in polls)
     buckets = st["ttft_hist_buckets"]
     out["tenants"] = {
@@ -3000,8 +3054,14 @@ def serve_moe(torch, mixtral, reqs, launches: dict,
     log(f"Mixtral-8x7B widths up in {time.monotonic() - t:.1f}s: "
         f"{w_gb:.2f} GB of W8A16 weights, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    # the server's warm-up at the default knobs: the decode ladder at
+    # the quiesced page bucket, captured
     out: dict = {"weights_gb": w_gb,
-                 "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+                 "init_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                 "warmup_ms": srv.engine.stats.warmup_ms,
+                 "warm_programs": srv.engine.stats.warm_programs,
+                 "graph_pool_bytes_after_warmup":
+                 srv.engine.programs.bytes()}
     try:
         reset_counts()
         t = time.monotonic()
@@ -3057,7 +3117,7 @@ def serve_moe(torch, mixtral, reqs, launches: dict,
                 "moe_dropped_frac", "moe_expert_imbalance",
                 "moe_expert_load", "moe_layer_drops", "kv_pool_bytes")},
             "launches": served})
-        srv.engine.stop()
+        stop_engine(srv)
         prof = decode_profile(torch, params, cfg, dev, model=mixtral)
         log(f"Mixtral decode step at batch 8: {prof['wall_ms']:.2f} ms "
             f"wall, {prof['device_ms']:.2f} ms on the device; top "
@@ -3334,7 +3394,7 @@ def serve_lora(torch, srv, params, qparams, reqs, launches: dict,
     names = sorted(zoo)
 
     def start(p, **engine_kw):
-        srv.engine.stop()
+        stop_engine(srv)
         t = time.monotonic()
         store = AdapterStore(n_slots=2, device=dev)
         for name, ad in zoo.items():
@@ -3443,7 +3503,7 @@ def serve_lora(torch, srv, params, qparams, reqs, launches: dict,
         if d_q["w8a16_matmul"] <= 0:
             raise AssertionError(f"K6 not on the W8A16 LoRA path: {d_q}")
         out["w8a16"] = {"requests": 4, "wall_s": q_s, "launches": d_q}
-        srv.engine.stop()
+        stop_engine(srv)
     finally:
         srv.adapter_store = None
     launches["serve_lora"] = c_all
@@ -3698,7 +3758,7 @@ def serve_ops(torch, srv, params, reqs, launches: dict,
     srv.enable_profile = True
 
     def start(**engine_kw):
-        srv.engine.stop()
+        stop_engine(srv)
         srv.engine = Engine(params, llama.LLAMA3_8B, EngineConfig(**{
             **dict(max_batch_size=8, max_seq_len=2048, page_size=128,
                    attention_backend="pallas-ragged",
@@ -3986,7 +4046,7 @@ def serve_ops(torch, srv, params, reqs, launches: dict,
         if acc != d_acc or acc <= 0 or d_k3 <= 0 or d_k5 <= 0:
             raise AssertionError(f"chained rung metering: {out['spec']}")
         counts = read_counts()
-        srv.engine.stop()
+        stop_engine(srv)
     finally:
         sink.close()
         srv.tracer = Tracer(exporter="none")
@@ -4702,7 +4762,7 @@ def _start_defaults(srv, params, **kw):
     from aigw_tpu_torch.models import llama
     from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
 
-    srv.engine.stop()
+    stop_engine(srv)
     srv.engine = Engine(params, llama.LLAMA3_8B,
                         EngineConfig(**GEOMETRY, **kw),
                         eos_token_ids=(srv.tokenizer.eos_id,), device="cuda")
@@ -5331,6 +5391,292 @@ def prefill_profile_bucketed(torch, params, cfg, lens, dev: str = "cuda"
             "top_kernels_ms": top}
 
 
+# -- captured programs (CUDA graphs) ----------------------------------------
+#: the warm knobs of the graphs phase's replica
+GRAPH_WARM = dict(warm_decode_buckets=3, warm_prefill_buckets=2)
+#: prompt bytes the inside-the-warmed-geometry burst keeps: with 64 new
+#: tokens every sequence fits 4 pages of 128, the third warm bucket
+GRAPH_SHORT_BYTES = 400
+
+
+def _graph_live(torch, eng, lens, greedy_only: bool = False) -> None:
+    """Admit one request per prompt length on ``eng`` (not started):
+    seeded token prompts, greedy, seeded top-p and penalized sampling in
+    turn (all greedy with ``greedy_only``), then build the decode state
+    as a tick does."""
+    import numpy as np
+
+    from aigw_tpu_torch.tpuserve.engine import GenRequest
+    from aigw_tpu_torch.tpuserve.sampling import SamplingParams
+
+    rng = np.random.default_rng(15)
+    kws = [dict(temperature=0.0), dict(temperature=0.8, top_p=0.9, seed=3),
+           dict(temperature=0.7, seed=5, frequency_penalty=0.6)]
+    for i, n in enumerate(lens):
+        eng.submit(GenRequest(
+            prompt=rng.integers(1, eng.model_cfg.vocab_size, n).tolist(),
+            max_tokens=64,
+            sampling=SamplingParams(**(kws[0] if greedy_only
+                                       else kws[i % 3]))))
+    eng._admit()
+    eng._device_state = eng._build_device_state()
+    eng._state_bucket = eng._decode_bucket_pages()
+
+
+def _leaves(tree) -> list:
+    """The tensors of a nest of dicts, tuples and tensors, in order."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _leaves(x)]
+    return []
+
+
+def _replay_vs_eager(torch, eng, run) -> dict:
+    """One program of ``eng`` through ``run()``: its first call (the body
+    run eagerly, then captured), the decode state and the pool put back,
+    and its second call (a replay). Returns the comparison: every output,
+    state and pool tensor (less the dump page) equal bit for bit, one
+    capture, the capture's ms and the replay's wall ms."""
+    from aigw_tpu_torch.tpuserve.programs import clone_tree
+
+    ps = eng.cfg.page_size
+
+    def live():
+        # the pool less its dump page: padding rows race into it (several
+        # may share a row), so its bytes are garbage that nothing reads
+        return _leaves(eng._state) + [t[:, :, :-ps]
+                                      for t in _leaves(eng.kv_cache)]
+
+    def snap():
+        return [t.clone() for t in live()]
+
+    def sync():
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    before = snap()
+    n0 = eng.compile_tracker.compiles()
+    ms0 = eng.compile_tracker.compiles_total_ms()
+    eager = clone_tree(run())
+    sync()
+    after = snap()
+    for dst, src in zip(live(), before):
+        dst.copy_(src)
+    del before
+    t = time.monotonic()
+    replay = clone_tree(run())
+    sync()
+    replay_ms = (time.monotonic() - t) * 1e3
+    got, want = _leaves(replay), _leaves(eager)
+    out = {"outputs_equal": len(got) == len(want) > 0 and all(
+               torch.equal(a, b) for a, b in zip(got, want)),
+           "state_and_pool_equal": all(
+               torch.equal(a, b) for a, b in zip(snap(), after)),
+           "captures": eng.compile_tracker.compiles() - n0,
+           "capture_ms": eng.compile_tracker.compiles_total_ms() - ms0,
+           "replay_wall_ms": replay_ms}
+    if not (out["outputs_equal"] and out["state_and_pool_equal"]
+            and out["captures"] == 1):
+        raise AssertionError(f"replay differs from the eager body: {out}")
+    return out
+
+
+def graphs_replay_check(torch, params, qparams, reqs, dev: str = "cuda",
+                        cfg=None) -> dict:
+    """Each program family's replay against its eager body at Llama-3-8B
+    widths (8 slots x 2048, 128-token pages), bit for bit: bf16 on the
+    kernel path (the fused window's lean/full x greedy/sampled programs,
+    the bucketed ``prefill`` at [2, 512], ``prefill_suffix`` at [1, 256]
+    resumed at 768, the ragged prefill (K1) at 1024 rows), bf16 on the
+    chained rung speculating at width 4 (a plain window through K3, a
+    verify window through K5), and W8A16 over int8 pages (the fused
+    window through K6 and K7, the bucketed prefill and a suffix chunk)."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    cfg = cfg or llama.LLAMA3_8B
+    lens = served_prompt_lens(reqs)
+    geom = dict(max_batch_size=8, max_seq_len=2048, page_size=128,
+                attention_backend="pallas-ragged", decode_backend="fused",
+                enable_prefix_cache=False)
+    dev = torch.device(dev)
+
+    def prefill_calls(eng, ragged: bool) -> dict:
+        g = torch.Generator(device="cpu").manual_seed(16)
+        toks = torch.randint(1, cfg.vocab_size, (2, 512), generator=g).to(
+            torch.int32).to(dev)
+        V = eng.model_cfg.vocab_size
+
+        def rows(n):
+            return (torch.tensor([[21, 0], [22, 0]][:n] + [[0, 0]] * (
+                        max(0, n - 2)), dtype=torch.int64, device=dev),
+                    torch.tensor([0.0, 0.8] + [0.0] * max(0, n - 2),
+                                 device=dev)[:n],
+                    torch.ones((n,), device=dev),
+                    torch.zeros((n,), dtype=torch.int32, device=dev),
+                    torch.zeros((n, V), device=dev),
+                    torch.full((n,), eng._base_row, dtype=torch.int32,
+                               device=dev))
+
+        # pages past the live slots' (the pool's top 16 before the dump)
+        top = eng.cfg.num_pages - 16
+        pt = torch.arange(top, top + 16, dtype=torch.int32,
+                          device=dev).reshape(2, 8)
+        pt = torch.cat([pt, torch.zeros((2, 8), dtype=torch.int32,
+                                        device=dev)], dim=1)
+        i32 = (lambda *v: torch.tensor(v, dtype=torch.int32, device=dev))
+        calls = {
+            "prefill": (eng.fns.prefill, (toks, i32(400, 512), pt), rows(2)),
+            "prefill_suffix": (eng.fns.prefill_suffix, (
+                toks[:1, :256], i32(768), i32(1024), pt[:1, :8]), rows(1)),
+        }
+        if ragged:
+            B = eng.cfg.max_batch_size
+            T = 1024
+            seq = torch.full((T,), B, dtype=torch.int32, device=dev)
+            seq[:600], seq[600:1000] = 0, 1
+            pos = torch.zeros((T,), dtype=torch.int32, device=dev)
+            pos[:600] = torch.arange(600, device=dev)
+            pos[600:1000] = torch.arange(400, device=dev)
+            ptB = torch.zeros((B, 16), dtype=torch.int32, device=dev)
+            ptB[:2] = pt
+            calls["prefill_ragged"] = (eng.fns.prefill_ragged, (
+                torch.cat([toks[0], toks[1]])[:T], seq, pos,
+                i32(599, 999, *[0] * (B - 2)), ptB), rows(B))
+        return {name: (lambda c=c: eng._prefill_step(*c))
+                for name, c in calls.items()}
+
+    out: dict = {}
+    for what, p, over, windows, ragged in (
+            ("bf16", params, {}, [(2, True, True, 0), (2, True, False, 0),
+                                  (2, False, True, 0), (2, False, False, 0)],
+             True),
+            ("bf16_chained_spec4", params,
+             dict(decode_backend="chained", pallas_attn=True, spec_tokens=4,
+                  spec_adaptive=False),
+             [(2, False, False, 0), (2, False, True, 4)], None),
+            ("w8a16_kv_int8", qparams, dict(kv_cache_dtype="int8"),
+             [(2, True, True, 0), (2, False, False, 0)], False)):
+        t = time.monotonic()
+        eng = Engine(p, cfg, EngineConfig(**{**geom, **over}),
+                     eos_token_ids=(257,), device=dev)
+        _graph_live(torch, eng, lens, greedy_only=bool(over.get(
+            "spec_tokens")))
+        fams = {f"decode[k={k},lean={lean},d={d},greedy={gr}]":
+                (lambda k=k, lean=lean, gr=gr, d=d:
+                 eng._decode_fn_for(k, lean, gr, d)())
+                for k, lean, gr, d in windows}
+        if ragged is not None:
+            fams.update(prefill_calls(eng, ragged))
+        out[what] = {name: _replay_vs_eager(torch, eng, run)
+                     for name, run in fams.items()}
+        out[what]["seconds"] = time.monotonic() - t
+        del eng, fams
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _short_requests(reqs, n_bytes: int) -> list:
+    """The burst with every prompt cut to ``n_bytes`` bytes."""
+    out = []
+    for kind, stream, body in reqs:
+        body = dict(body)
+        if kind == "chat":
+            body["messages"] = [{"role": "user", "content":
+                                 body["messages"][0]["content"][:n_bytes]}]
+        else:
+            body["prompt"] = body["prompt"][:n_bytes]
+        out.append((kind, stream, body))
+    return out
+
+
+def serve_graphs(torch, srv, params, reqs, launches: dict) -> dict:
+    """A replica warmed ahead of traffic (``GRAPH_WARM``: the decode
+    ladder at page buckets 1, 2 and 4, the ragged prefill's token rungs),
+    bf16 on the kernel path with the prefix cache off: ``warmup()``'s
+    ms, the programs it captured and the graph pool's bytes; then the
+    burst with its prompts cut to ``GRAPH_SHORT_BYTES`` (every sequence
+    inside 4 pages), which must capture nothing, cold and warm; then the
+    whole burst, whose longest sequences need the 16-page bucket (three
+    warm buckets reach 512 tokens), cold (its captures counted) and warm
+    (none). Launch counts zeroed before and read after the warm bursts:
+    K1 and K2 must launch."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    stop_engine(srv)
+    srv.engine = None
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    eng = Engine(params, llama.LLAMA3_8B, EngineConfig(
+        max_batch_size=8, max_seq_len=2048, page_size=128,
+        attention_backend="pallas-ragged", decode_backend="fused",
+        enable_prefix_cache=False, **GRAPH_WARM),
+        eos_token_ids=(srv.tokenizer.eos_id,), device="cuda")
+    eng.warmup()
+    pool_bytes = eng.programs.bytes()
+    out = {"warmup_ms": eng.stats.warmup_ms,
+           "warm_programs": eng.stats.warm_programs,
+           "xla_compile_ms": eng.stats.xla_compile_ms,
+           "programs": eng.compile_tracker.programs(),
+           "graph_pool_bytes": pool_bytes,
+           "device_bytes_above_weights": torch.cuda.memory_allocated()
+           - mem0}
+    srv.engine = eng
+    eng.start()
+
+    def burst(what, rs, gate_zero: bool) -> None:
+        st0 = json.loads(_http(srv.port, "/state")[2])
+        reset_counts()
+        t = time.monotonic()
+        serve_phase(srv.port, rs)
+        wall = time.monotonic() - t
+        counts = read_counts()
+        st = json.loads(_http(srv.port, "/state")[2])
+        grew = st["xla_compiles"] - st0["xla_compiles"]
+        out[what] = {"wall_s": wall, "captures": grew,
+                     "capture_ms": st["xla_compile_ms"]
+                     - st0["xla_compile_ms"],
+                     "prefill_ms": st["prefill_ms"] - st0["prefill_ms"],
+                     "launches": counts}
+        if gate_zero and grew:
+            raise AssertionError(f"{what}: {grew} captures after warm-up "
+                                 f"inside the warmed geometry")
+        if counts["ragged_prefill_attention"] <= 0 \
+                or counts["fused_paged_decode"] <= 0:
+            raise AssertionError(f"{what}: K1 / K2 not launched: {counts}")
+
+    short = _short_requests(reqs, GRAPH_SHORT_BYTES)
+    burst("short_cold", short, True)
+    burst("short_warm", short, True)
+    burst("burst_cold", reqs, False)
+    burst("burst_warm", reqs, True)
+    launches["serve_graphs"] = out["burst_warm"]["launches"]
+    st = json.loads(_http(srv.port, "/state")[2])
+    out.update(xla_compiles=st["xla_compiles"],
+               warm_programs_state=st["warm_programs"],
+               graph_pool_bytes_after=eng.programs.bytes())
+    if st["warm_programs"] != out["warm_programs"] or out["warm_programs"] \
+            != sum(out["programs"].values()):
+        raise AssertionError(f"/state's warm_programs {st} against {out}")
+    log(f"serve_graphs: warm-up {out['warmup_ms']:.0f} ms, "
+        f"{out['warm_programs']} programs, pool {pool_bytes / 1e9:.2f} GB; "
+        f"short burst {out['short_cold']['wall_s']:.2f}/"
+        f"{out['short_warm']['wall_s']:.2f} s, 0 captures; burst "
+        f"{out['burst_cold']['wall_s']:.2f} s ("
+        f"{out['burst_cold']['captures']} captures), warm "
+        f"{out['burst_warm']['wall_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5384,7 +5730,7 @@ def main() -> int:
         f"params, decode {srv.engine.decode_attn_impl}")
 
     def restart(params, **engine_kw):
-        srv.engine.stop()
+        stop_engine(srv)
         # the kernel path: the ragged prefill (K1) and, unless a phase
         # names the chained rung, the fused decode (K2)
         kw = dict(max_batch_size=8, max_seq_len=2048, page_size=128,
@@ -5559,6 +5905,11 @@ def main() -> int:
         print(json.dumps({"serve_mobility": serve_mobility(
             torch, srv, params, reqs, prefix_reqs[0][0][2], launches,
             pp)}), flush=True)
+
+        # a replica warmed ahead of traffic: no capture after warm-up
+        # inside the warmed geometry (serve_graphs)
+        print(json.dumps({"serve_graphs": serve_graphs(
+            torch, srv, params, reqs, launches)}), flush=True)
     finally:
         srv.stop()
 
@@ -5598,6 +5949,10 @@ def main() -> int:
         f"at 1023) vs a cold prefill: {checks['resume']} "
         f"({time.monotonic() - t:.1f}s)")
     print(json.dumps({"model_check": checks}), flush=True)
+    t = time.monotonic()
+    graphs = {"replay": graphs_replay_check(torch, params, qparams, reqs)}
+    log(f"every program family's replay equals its eager body bit for bit "
+        f"({time.monotonic() - t:.1f}s)")
     gate_teacher_forced(lp_out, checks["bf16"])
     print(json.dumps({"serve_logprobs": lp_out}), flush=True)
     checks_lora = {}
@@ -5612,23 +5967,41 @@ def main() -> int:
     print(json.dumps({"model_check_lora": checks_lora}), flush=True)
 
     # 6. where a decode step's time goes
+    steps: dict = {}
+
+    def captured_beside(name, eager, **kw):
+        """The same step captured in a CUDA graph and replayed."""
+        cap = decode_profile(torch, kw.pop("p", params), llama.LLAMA3_8B,
+                             captured=True, **kw)
+        steps[name] = {k: {"wall_ms": d["wall_ms"],
+                           "device_ms": d["device_ms"],
+                           "device_busy": d["device_busy"],
+                           "kernel_launches": d["kernel_launches"]}
+                       for k, d in (("eager", eager), ("captured", cap))}
+        log(f"{name} step captured: {cap['wall_ms']:.2f} ms wall, "
+            f"{cap['device_ms']:.2f} ms on the device; eager "
+            f"{eager['wall_ms']:.2f} / {eager['device_ms']:.2f}")
+
     prof = decode_profile(torch, params, llama.LLAMA3_8B)
     log(f"decode step at full width: {prof['wall_ms']:.2f} ms wall, "
         f"{prof['device_ms']:.2f} ms on the device "
         f"(busy {prof['device_busy']:.2f})")
     print(json.dumps({"decode_profile": prof}), flush=True)
+    captured_beside("fused", prof)
     prof_g = decode_profile(torch, params, llama.LLAMA3_8B, attn_impl="")
     log(f"gather decode step (the default rung): {prof_g['wall_ms']:.2f} "
         f"ms wall, {prof_g['device_ms']:.2f} ms on the device (busy "
         f"{prof_g['device_busy']:.2f}); fused {prof['wall_ms']:.2f} / "
         f"{prof['device_ms']:.2f}")
     print(json.dumps({"decode_profile_gather": prof_g}), flush=True)
+    captured_beside("gather", prof_g, attn_impl="")
     prof_c = decode_profile(torch, params, llama.LLAMA3_8B,
                             attn_impl="chained")
     log(f"chained decode step (K3): {prof_c['wall_ms']:.2f} ms wall, "
         f"{prof_c['device_ms']:.2f} ms on the device (busy "
         f"{prof_c['device_busy']:.2f})")
     print(json.dumps({"decode_profile_chained": prof_c}), flush=True)
+    captured_beside("chained", prof_c, attn_impl="chained")
     prof_lp = decode_profile(torch, params, llama.LLAMA3_8B,
                              logprobs_topk=LP_TOPK)
     prof_lp0 = decode_profile(torch, params, llama.LLAMA3_8B,
@@ -5662,11 +6035,13 @@ def main() -> int:
         f"{prof_q['device_ms']:.2f} ms on the device "
         f"(busy {prof_q['device_busy']:.2f})")
     print(json.dumps({"decode_profile_quant": prof_q}), flush=True)
+    captured_beside("w8a16_kv_int8", prof_q, p=qparams, kv_dtype="int8")
     prof_v = decode_profile(torch, params, llama.LLAMA3_8B, verify_width=5)
     log(f"verify step (width 5, K5) at full width: {prof_v['wall_ms']:.2f} "
         f"ms wall, {prof_v['device_ms']:.2f} ms on the device (busy "
         f"{prof_v['device_busy']:.2f})")
     print(json.dumps({"verify_profile": prof_v}), flush=True)
+    captured_beside("verify", prof_v, verify_width=5)
     # one bf16 prefill of the served burst's prompts, of K1's case, and
     # of a prefix-cache resume (150 rows at 1024) beside the same
     # prompt's cold prefill (1174 rows)
@@ -5690,6 +6065,21 @@ def main() -> int:
             f"{pr['wall_ms']:.2f} ms wall, {pr['device_ms']:.2f} ms on the "
             f"device, K1 {pr['k1_in_place_ms']:.3f} ms in 32 launches")
     print(json.dumps({"prefill_profile": prof_p}), flush=True)
+    graphs["steps"] = steps
+    graphs["prefill"] = {}
+    for name in ("served_burst", "resume_150_at_1024"):
+        seqs = ([(n, 0) for n in served_prompt_lens(reqs)]
+                if name == "served_burst" else [(150, 1024)])
+        cap = prefill_profile(torch, params, llama.LLAMA3_8B, seqs,
+                              captured=True)
+        graphs["prefill"][name] = {
+            k: {"wall_ms": d["wall_ms"], "device_ms": d["device_ms"]}
+            for k, d in (("eager", prof_p[name]), ("captured", cap))}
+        log(f"prefill ({name}) captured: {cap['wall_ms']:.2f} ms wall, "
+            f"{cap['device_ms']:.2f} ms on the device; eager "
+            f"{prof_p[name]['wall_ms']:.2f} / "
+            f"{prof_p[name]['device_ms']:.2f}")
+    print(json.dumps({"graphs": graphs}), flush=True)
     srv.engine = None
     del params, qparams, ref  # the model_check loop's ref held params
     gc.collect()
@@ -5718,6 +6108,8 @@ def main() -> int:
             row["name"], 0)
         row["launches_serve_ops"] = launches["serve_ops"].get(row["name"], 0)
         row["launches_serve_mobility"] = launches["serve_mobility"].get(
+            row["name"], 0)
+        row["launches_serve_graphs"] = launches["serve_graphs"].get(
             row["name"], 0)
         for phase in ("serve_defaults", "serve_defaults_w8a16",
                       "embeddings_bf16", "embeddings_w8a16"):

@@ -19,7 +19,9 @@ streams token for token (a greedy divergence only at a near-tie, as in
 ``test_torch_engine.py``), and the prefill counters equal.
 """
 
+import contextlib
 import dataclasses
+import io
 import threading
 
 import jax
@@ -639,8 +641,9 @@ def test_mixtral_engine_defaults_match_reference():
 
 def test_cli_flags_of_the_default_programs():
     """The four flags keep the reference CLI's names and defaults (its
-    defaults are the reference EngineConfig's), reach EngineConfig, and a
-    non-zero warm flag is refused with the NOT_PORTED reason."""
+    defaults are the reference EngineConfig's) and reach EngineConfig,
+    the two warm flags (ported: CUDA-graph captures ahead of traffic)
+    with the reference CLI's help text."""
     from aigw_tpu_torch.cli import build_parser, engine_config
 
     base = ["tpuserve", "--model", "tiny-random"]
@@ -654,6 +657,19 @@ def test_cli_flags_of_the_default_programs():
         base + ["--prefill-chunk-tokens", "0", "--prefill-bucket-rungs",
                 "4"]))
     assert (cfg.prefill_chunk_tokens, cfg.prefill_bucket_rungs) == (0, 4)
+    from aigw_tpu.cli import main as jmain
+
+    def help_of(run, flag: str) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), pytest.raises(SystemExit):
+            run(["tpuserve", "--help"])
+        text = " ".join(out.getvalue().split())
+        start = text.index(f"{flag} {flag[2:].upper().replace('-', '_')}",
+                           text.index("options:"))
+        return text[start:text.index(" --", start + len(flag))]
+
     for flag in ("--warm-prefill-buckets", "--warm-decode-buckets"):
-        with pytest.raises(NotImplementedError, match="CUDA graphs"):
-            engine_config(build_parser().parse_args(base + [flag, "2"]))
+        cfg = engine_config(build_parser().parse_args(base + [flag, "2"]))
+        assert getattr(cfg, flag[2:].replace("-", "_")) == 2
+        assert help_of(build_parser().parse_args, flag) \
+            == help_of(jmain, flag)

@@ -172,6 +172,30 @@ def test_engine_streams_match_reference_speculative(weights,
     assert eng.stats.spec_drafted > 0
 
 
+@pytest.mark.parametrize("rung", [dict(decode_backend="fused"),
+                                  dict(decode_backend="fused", spec_tokens=3),
+                                  dict(decode_backend="auto",
+                                       pallas_attn=True)],
+                         ids=["fused", "fused_spec", "chained"])
+def test_streams_at_warm_settings_match_reference(weights,
+                                                  reference_streams, rung):
+    """An engine warmed at the reference's warm settings (the decode
+    ladder at page buckets 1, 2 and 4, the ragged prefill's rungs)
+    serves the reference's streams: every window and prefill call runs
+    a program warm-up built, and no other (on the card each replays a
+    captured graph of the same body)."""
+    _, tp = weights
+    eng = tengine.Engine(tp, tllama.TINY, tengine.EngineConfig(**{
+        **CFG, **rung, "enable_prefix_cache": False,
+        "warm_prefill_buckets": 2, "warm_decode_buckets": 3}),
+        eos_token_ids=EOS, device="cpu")
+    eng.warmup()
+    cp = eng.compile_tracker.checkpoint()
+    got = _run(eng, tengine.GenRequest, TSampling, _prompts())
+    _assert_streams_match(got, reference_streams, weights)
+    assert eng.compile_tracker.compiles_since(cp) == 0
+
+
 def test_engine_streams_fixed_window_sync_transfers(weights,
                                                     reference_streams):
     """Window size and transfer mode change only timing, never tokens."""
@@ -268,14 +292,19 @@ def test_engine_request_filling_max_seq_len(weights, rung):
 
 
 def test_engine_config_refuses_unported_knobs():
-    # the two warm knobs are the only ones not ported: a capture of the
-    # decode window stands for the reference's compiled programs
-    assert set(tengine.NOT_PORTED) == {"warm_prefill_buckets",
-                                       "warm_decode_buckets"}
-    for name, (default, entry) in tengine.NOT_PORTED.items():
-        assert default == 0 and "CUDA graphs" in entry
-        with pytest.raises(NotImplementedError, match="CUDA graphs"):
-            tengine.EngineConfig(**{name: 1})
+    # no knob is refused since the two warm knobs were ported (a captured
+    # CUDA graph stands for the reference's compiled program): both are
+    # accepted, with the reference's defaults, and warm what the
+    # reference warms (tests/test_torch_graphs.py holds the surface)
+    assert tengine.NOT_PORTED == {}
+    ref = jengine.EngineConfig()
+    for name in ("warm_prefill_buckets", "warm_decode_buckets"):
+        assert getattr(tengine.EngineConfig(), name) == getattr(ref, name)
+        assert getattr(tengine.EngineConfig(**{name: 2}), name) == 2
+    eng = tengine.Engine({}, tllama.TINY, tengine.EngineConfig(
+        max_seq_len=256, page_size=16, warm_decode_buckets=3),
+        device="cpu")
+    assert eng._warm_page_buckets() == [1, 2, 4]
     # logprobs, the tenant cap, the spill tier and the bucket ladder are
     # ported; logprobs still exclude speculation, as in the reference
     for kw in (dict(logprobs_topk=2), dict(tenant_slot_cap=1),

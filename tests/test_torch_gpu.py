@@ -1287,3 +1287,287 @@ def test_page_movers_are_bit_exact(cuda, kv_dtype):
         assert all(torch.equal(keep[k], before[k]) for k in keep)
     else:
         assert torch.equal(keep, before)
+
+
+# -- captured programs (CUDA graphs) --------------------------------------------
+#: replay against the eager body, per program family: (engine overrides,
+#: model family, the call). Decode calls are (k, lean, greedy, draft);
+#: prefill calls name the entry point
+GRAPH_CASES = {
+    "lean_greedy": (dict(), "llama", (4, True, True, 0)),
+    "lean_sampled": (dict(), "llama", (4, True, False, 0)),
+    "full_greedy": (dict(), "llama", (4, False, True, 0)),
+    "full_sampled": (dict(), "llama", (4, False, False, 0)),
+    "chained": (dict(decode_backend="auto", pallas_attn=True), "llama",
+                (4, False, False, 0)),
+    "gather": (dict(decode_backend="auto"), "llama", (4, False, False, 0)),
+    "int8_pool": (dict(kv_cache_dtype="int8"), "llama", (4, False, False, 0)),
+    "spec_chained": (dict(decode_backend="auto", pallas_attn=True,
+                          spec_tokens=3, spec_adaptive=False), "llama",
+                     (4, False, False, 3)),
+    "spec_fused": (dict(spec_tokens=3, spec_adaptive=False), "llama",
+                   (4, False, True, 3)),
+    "lora": (dict(), "lora", (4, False, False, 0)),
+    "logprobs": (dict(logprobs_topk=5), "llama", (4, False, False, 0)),
+    "mixtral": (dict(), "mixtral", (4, False, False, 0)),
+    "prefill": (dict(attention_backend="xla-bucketed"), "llama", "prefill"),
+    "prefill_suffix": (dict(attention_backend="xla-bucketed"), "llama",
+                       "prefill_suffix"),
+    "k1_rung": (dict(), "llama", "prefill_ragged"),
+    "k1_mixtral": (dict(), "mixtral", "prefill_ragged"),
+}
+
+
+def _graph_engine(device, family="llama", **over):
+    """A bf16 tiny engine on the kernel path (K1, K2), not started."""
+    from aigw_tpu_torch.models import llama, lora, mixtral
+    from aigw_tpu_torch.models.registry import family_fns
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+
+    cfg = EngineConfig(**{**dict(
+        max_batch_size=4, max_seq_len=128, page_size=16,
+        decode_steps_per_tick=4, kv_cache_dtype="bfloat16",
+        attention_backend="pallas-ragged", decode_backend="fused",
+        enable_prefix_cache=False), **over})
+    if family == "mixtral":
+        return Engine(mixtral.init_params(7, mixtral.TINY_MOE, torch.bfloat16,
+                                          device), mixtral.TINY_MOE, cfg,
+                      eos_token_ids=(257,), fns=family_fns("mixtral"),
+                      device=device)
+    kw = {}
+    if family == "lora":
+        stacks = lora.init_lora_adapters(
+            7, llama.TINY, lora.LoRAConfig(rank=4, alpha=8.0),
+            2, torch.bfloat16, random_b=True, device=device)
+        kw = dict(lora_params=stacks, adapter_names=("ad0", "ad1"))
+    return Engine(llama.init_params(0, llama.TINY, torch.bfloat16, device),
+                  llama.TINY, cfg, eos_token_ids=(257,), device=device, **kw)
+
+
+def _live(eng):
+    """Admit a mixed batch (greedy, seeded top-p, penalized, biased; an
+    adapter row with a zoo) and build the decode state as a tick does."""
+    from aigw_tpu_torch.tpuserve.engine import GenRequest
+    from aigw_tpu_torch.tpuserve.sampling import SamplingParams
+
+    for i, (n, kw) in enumerate([
+            (5, dict(temperature=0.0)),
+            (21, dict(temperature=0.8, top_p=0.9, seed=3)),
+            (9, dict(temperature=0.7, seed=5, frequency_penalty=0.6)),
+            (14, dict(temperature=0.0, logit_bias=((7, 3.0),)))]):
+        eng.submit(GenRequest(
+            prompt=[(17 * i + 3 * j) % 250 + 1 for j in range(n)],
+            max_tokens=40, sampling=SamplingParams(**kw),
+            adapter="ad1" if eng.adapter_rows and i % 2 else ""))
+    eng._admit()
+    eng._device_state = eng._build_device_state()
+    eng._state_bucket = eng._decode_bucket_pages()
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _leaves(x)]
+    return []
+
+
+def _prefill_inputs(eng, name):
+    """(entry point, model inputs, sampling rows) of one prefill call
+    at the tiny geometry, on pages 1-6."""
+    dev = eng.device
+    B = eng.cfg.max_batch_size
+    P = eng.cfg.max_pages_per_seq
+
+    def i32(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def rows(n):
+        return (torch.tensor([[11, 0], [12, 0], [13, 0], [14, 0]][:n],
+                             dtype=torch.int64, device=dev),
+                torch.tensor([0.0, 0.8, 0.0, 1.0][:n], device=dev),
+                torch.tensor([1.0, 0.9, 1.0, 1.0][:n], device=dev),
+                i32(*[0, 20, 0, 0][:n]),
+                torch.zeros((n, eng.model_cfg.vocab_size), device=dev),
+                i32(*[eng._base_row] * n))
+
+    pt = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    pt[0, :3], pt[1, :3] = i32(1, 2, 3), i32(4, 5, 6)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    toks = torch.randint(1, 250, (2, 48), generator=g).to(torch.int32)
+    if name == "prefill":
+        return (eng.fns.prefill, (toks.to(dev), i32(30, 48), pt[:2]),
+                rows(2))
+    if name == "prefill_suffix":
+        return (eng.fns.prefill_suffix, (toks[:1].to(dev), i32(16),
+                                         i32(44), pt[:1, :4]), rows(1))
+    T = 48  # no rung of the engine's own packs
+    flat = torch.zeros((T,), dtype=torch.int32)
+    flat[:30], flat[30:48] = toks[0, :30], toks[1, :18]
+    seq = torch.full((T,), B, dtype=torch.int32)
+    seq[:30], seq[30:48] = 0, 1
+    pos = torch.zeros((T,), dtype=torch.int32)
+    pos[:30], pos[30:48] = torch.arange(30), torch.arange(18)
+    last = i32(29, 47, 0, 0)
+    return (eng.fns.prefill_ragged, (flat.to(dev), seq.to(dev), pos.to(dev),
+                                     last, pt), rows(B))
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_program_replay_equals_eager_body(cuda, case):
+    """Each program family's replay against its eager body, bit for
+    bit: the first call of a key runs the body eagerly (and captures
+    it); with the decode state and the pool put back, the second call
+    replays the graph. Tokens, logprobs and routing counts, the decode
+    state and every pool byte must be equal."""
+    from aigw_tpu_torch.tpuserve.programs import clone_tree
+
+    over, family, call = GRAPH_CASES[case]
+    eng = _graph_engine(cuda, family, **over)
+    _live(eng)
+    if isinstance(call, str):
+        fn, args, sampling = _prefill_inputs(eng, call)
+        run = lambda: eng._prefill_step(fn, args, sampling)  # noqa: E731
+    else:
+        k, lean, greedy, draft = call
+        run = lambda: eng._decode_fn_for(k, lean, greedy, draft)()  # noqa
+
+    ps = eng.cfg.page_size
+
+    def live():
+        # the pool less its dump page: padding rows race into it (several
+        # may share a row), so its bytes are garbage that nothing reads
+        return _leaves(eng._state) + [t[:, :, :-ps]
+                                      for t in _leaves(eng.kv_cache)]
+
+    def snap():
+        return clone_tree(tuple(live()))
+
+    before = snap()
+    n0 = eng.compile_tracker.compiles()
+    eager = clone_tree(run())
+    after = snap()
+    assert eng.compile_tracker.compiles() == n0 + 1
+    for dst, src in zip(live(), before):
+        dst.copy_(src)
+    replay = clone_tree(run())
+    torch.cuda.synchronize()
+    assert eng.compile_tracker.compiles() == n0 + 1  # replayed, no capture
+    got, want = _leaves(replay), _leaves(eager)
+    assert len(got) == len(want) > 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), case
+    now = snap()
+    assert all(torch.equal(a, b) for a, b in zip(now, after)), case
+    if not isinstance(call, str):
+        assert not all(torch.equal(a, b) for a, b in zip(after, before))
+
+
+def test_replays_keep_the_host_copy_order(cuda):
+    """A warmed engine on the card serves every window as a replay of a
+    captured graph whose output buffers the next replay overwrites; the
+    host copy of window N is queued behind replay N and ahead of replay
+    N + 1 on the engine's stream, so its streams equal the CPU engine's
+    (float32: plain versions), and no program is built after warm-up."""
+    from aigw_tpu_torch.models import llama
+
+    params = llama.init_params(0, llama.TINY, torch.float32, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        eng = _cn_engine(dev, params, "float32", "fused")
+        eng.cfg.warm_decode_buckets = 4
+        eng.cfg.warm_prefill_buckets = 1
+        eng.warmup()
+        cp = eng.compile_tracker.checkpoint()
+        rows: list = []
+        _cn_serve(eng, _cn_requests(rows))
+        assert eng.compile_tracker.compiles_since(cp) == 0
+        assert eng.stats.decode_steps > 3 * eng.cfg.decode_steps_per_tick
+        out[str(dev)] = rows
+    assert out[str(cuda)] == out["cpu"]
+
+
+def test_capture_of_a_host_sync_raises(cuda):
+    """A body that reads the device on the host cannot be captured: the
+    call raises, no graph is kept, and the next call raises again (no
+    eager run in the graph's place). The card is still sound after it: a
+    clean body captures and replays in a new pool (the void capture's
+    pool takes no further capture; the engine stops on the error)."""
+    from aigw_tpu_torch.obs.graph_events import CompileTracker
+    from aigw_tpu_torch.tpuserve.programs import CapturedProgram, ProgramPool
+
+    pool = ProgramPool(cuda, CompileTracker())
+    bad = CapturedProgram(lambda x: x * float(x.sum().item()), pool)
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError, match="captur"):
+        bad(x)
+    assert bad.graph is None
+    with pytest.raises(RuntimeError):  # again: no eager run in its place
+        bad(x)
+    assert bad.graph is None and pool.tracker.compiles() == 0
+    fresh = ProgramPool(cuda, CompileTracker())
+    good = CapturedProgram(lambda x: x * 2 + 1, fresh)
+    assert torch.equal(good(x), x * 2 + 1)
+    assert torch.equal(good(x * 3), x * 7) and good.graph is not None
+    assert fresh.tracker.compiles() == 1 and fresh.bytes() > 0
+
+
+def test_lazy_capture_beside_embeddings(cuda):
+    """Lazy captures on the engine thread while a handler thread serves
+    ``/v1/embeddings`` (``hidden_states`` on the card) in a loop: every
+    reply succeeds, programs were captured during the loop, and the
+    engine stays healthy."""
+    import threading
+
+    srv = _ops_replica(cuda)
+    stop = threading.Event()
+    embeds: list = []
+
+    def embed_loop():
+        while not stop.is_set():
+            embeds.append(_post(srv.port, "/v1/embeddings", {
+                "model": "tiny-random",
+                "input": ["x" * 90, [1, 2, 3] * 20, "hello"]}))
+
+    t = threading.Thread(target=embed_loop)
+    try:
+        cp = srv.engine.compile_tracker.checkpoint()
+        t.start()
+        while not embeds:
+            threading.Event().wait(0.01)
+        outs = [_post(srv.port, "/v1/completions", {
+            "model": "tiny-random", "prompt": "y" * n, "max_tokens": m,
+            "temperature": 0.0}) for n, m in ((10, 8), (100, 60), (180, 70))]
+        stop.set()
+        t.join(timeout=120)
+        assert not t.is_alive()
+        assert srv.engine.compile_tracker.compiles_since(cp) > 0
+        assert srv.engine.healthy, srv.engine.last_error
+        assert all(o["usage"]["completion_tokens"] > 0 for o in outs)
+        assert len(embeds) > 1 and all(
+            len(e["data"]) == 3 for e in embeds)
+    finally:
+        stop.set()
+        srv.stop()
+
+
+def test_launch_counters_count_replays(cuda):
+    """On a warmed engine every window replays a captured graph: K2's
+    counter moves by the layers of every step the windows ran, K1's by
+    the layers of every packed prefill call, though no wrapper runs."""
+    from aigw_tpu_torch.models import llama
+
+    eng = _graph_engine(cuda, warm_decode_buckets=4, warm_prefill_buckets=1)
+    eng.warmup()
+    cp = eng.compile_tracker.checkpoint()
+    k2 = decode_fused.fused_paged_decode.launches
+    k1 = paged_attention.ragged_prefill_attention.launches
+    rows: list = []
+    _cn_serve(eng, _cn_requests(rows))
+    assert eng.compile_tracker.compiles_since(cp) == 0
+    L = llama.TINY.n_layers
+    assert decode_fused.fused_paged_decode.launches - k2 \
+        == eng.stats.decode_steps * L > 0
+    d1 = paged_attention.ragged_prefill_attention.launches - k1
+    assert d1 > 0 and d1 % L == 0

@@ -188,7 +188,7 @@ def test_ops_surface_modules_import_with_jax_blocked():
         "           meter_to_tuple, TPUServeServer.drain,\n"
         "           TPUServeServer.profile, TPUServeServer.metrics):\n"
         "    assert callable(fn)\n"
-        "assert len(metric_families()) == 113\n"
+        "assert len(metric_families()) == 116\n"
         "bad = [k for k, v in sys.modules.items() if v and (\n"
         "    k.split('.')[0] in ('jax', 'jaxlib', 'aigw_tpu',\n"
         "                        'prometheus_client', 'grpc'))]\n"

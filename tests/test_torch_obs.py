@@ -66,6 +66,12 @@ def test_engine_gauges_are_the_reference_minus_not_ported():
     ref = dict(jmetrics.ENGINE_GAUGES)
     for attr, (name, entry) in tmetrics.GAUGES_NOT_PORTED.items():
         assert ref[attr] == name and entry
+    # only the multi-GPU gauges are left (the warm gauges are ported)
+    assert set(tmetrics.GAUGES_NOT_PORTED) == {
+        "sp_prefills", "sp_chunked_prefills", "sp_resume_prefills",
+        "sp_interactive_admits", "ici_bytes_per_token", "ici_bytes_total"}
+    assert {e for _n, e in tmetrics.GAUGES_NOT_PORTED.values()} == {
+        "item 7, multi-GPU"}
     assert len(tmetrics.ENGINE_GAUGES) + len(tmetrics.GAUGES_NOT_PORTED) \
         == len(jmetrics.ENGINE_GAUGES) == 100
     import dataclasses

@@ -1,8 +1,10 @@
 """Serve chip_smoke's Llama-3-8B-width burst from the tree in the
 working directory and print one JSON line: one cold burst (bf16, fused
-rung, prefix cache off, random weights), then four warm ones, each
-with its wall time and ``/state``'s prefill and TTFT p50, and the
-engine's ``state_rebuilds`` and ``decode_steps`` at the end.
+rung, prefix cache off, random weights) with its wall time, then four
+warm ones, each with its wall time and ``/state``'s prefill and TTFT
+p50, and the engine's ``state_rebuilds``, ``decode_steps`` and (on a
+tree that has them) ``warm_programs`` and ``xla_compiles`` at the
+end.
 
 To compare two commits on one card, unpack each into a directory of
 the repo that ``.gitignore`` lists and run this script from each, in
@@ -44,7 +46,9 @@ def main() -> int:
         enable_prefix_cache=False), device="cuda", port=0)
     srv.start()
     reqs = cs._requests(np.random.default_rng(0))
+    t = time.monotonic()
     cs.serve_phase(srv.port, reqs)
+    cold_s = time.monotonic() - t
     walls, p50 = [], []
     for _ in range(4):
         srv.engine.phases = EnginePhases()
@@ -56,9 +60,12 @@ def main() -> int:
                     st["phase_percentiles"]["ttft"]["p50"]))
     srv.stop()
     print(json.dumps({"tree": os.path.basename(os.getcwd()),
-                      "warm_s": walls, "prefill_ttft_p50": p50,
+                      "cold_s": cold_s, "warm_s": walls,
+                      "prefill_ttft_p50": p50,
                       "state_rebuilds": st["state_rebuilds"],
-                      "decode_steps": st["decode_steps"]}), flush=True)
+                      "decode_steps": st["decode_steps"],
+                      "warm_programs": st.get("warm_programs"),
+                      "xla_compiles": st.get("xla_compiles")}), flush=True)
     return 0
 
 
