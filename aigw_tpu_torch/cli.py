@@ -14,6 +14,9 @@
         --logprobs 20 --tenant-slot-cap 4
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --flight-entries 512 --enable-profile-endpoint
+    python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
+        --lora fr=/ckpt/fr --lora de=/ckpt/de --lora-slots 1
+    python -m aigw_tpu_torch convert /hf/llama-3-8b checkpoints/llama-3-8b
 
 With no flags a replica runs the reference's default programs: the
 bucket-ladder prefill (``xla-bucketed``, chunked past
@@ -28,16 +31,17 @@ SIGTERM or SIGINT drains the replica (new generations get 503 while
 live ones finish, ``--drain-grace`` at most) and exits 0; a second
 signal stops it at once.
 
-``--lora NAME=DIR`` names an adapter checkpoint, which the reference
-reads with orbax; the port has no orbax (nor does the card machine), so
-it refuses the flag with that reason until checkpoints are ported
-(ROADMAP queue 1, checkpoints). A zoo is served from Python instead:
-``TPUServeServer(..., lora_adapters=..., lora_slots=...)``.
-``--lora-slots`` is wired through.
+``--lora NAME=ORBAX_DIR`` (repeatable) registers an adapter restored
+from an orbax directory, as the reference does; ``--lora-slots`` sizes
+its device rows. ``convert HF_DIR OUT_DIR`` imports local HF safetensors
+shards on the CPU and writes them as an orbax directory that a registry
+row's ``orbax:`` weights (and the reference) restore. Both read and
+write orbax directories through ``tensorstore`` (``models/checkpoint.py``)
+and raise naming it where it is missing, as on the card machine.
 
-Only the ``tpuserve`` subcommand is ported; the gateway and the other
-subcommands stay JAX-package code, and the gateway can front this
-replica over HTTP. Flag names follow the reference's ``tpuserve``.
+The ``tpuserve`` and ``convert`` subcommands are ported; the gateway and
+the other subcommands stay JAX-package code, and the gateway can front
+this replica over HTTP. Flag names follow the reference's.
 """
 
 from __future__ import annotations
@@ -56,6 +60,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="aigw_tpu_torch",
                                 description=_DESCRIPTION)
     sub = p.add_subparsers(dest="cmd", required=True)
+    c = sub.add_parser("convert", help="import a local HF safetensors dir "
+                                       "into an orbax checkpoint usable by "
+                                       "tpuserve")
+    c.add_argument("hf_dir")
+    c.add_argument("out_dir")
     s = sub.add_parser("tpuserve", help="run the serving engine")
     s.add_argument("--model", required=True,
                    help="model name (see aigw_tpu_torch.models.registry)")
@@ -140,8 +149,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--lora", action="append", default=[],
                    metavar="NAME=ORBAX_DIR",
                    help="register a LoRA adapter in the zoo (repeatable); "
-                        "served as model '<base>:<name>'. Refused: "
-                        "adapter checkpoints are orbax, not ported yet")
+                        "served as model '<base>:<name>'")
     s.add_argument("--lora-slots", type=int, default=0,
                    help="device rows for resident adapters; the rest of "
                         "the zoo loads on demand with refcounted LRU "
@@ -205,23 +213,38 @@ def engine_config(args):
 
 
 def lora_adapters(specs: list[str]) -> dict[str, dict]:
-    """``--lora NAME=DIR`` values → the zoo. The reference restores each
-    DIR with orbax, which the port lacks: a well-formed value raises
-    NotImplementedError with that reason, as the registry's ``orbax:``
-    weights do."""
+    """``--lora NAME=ORBAX_DIR`` values → the zoo: each directory
+    restored on the CPU (the adapter store keeps a host copy and loads
+    rows on demand)."""
+    from aigw_tpu_torch.models.checkpoint import restore_checkpoint
+
+    adapters = {}
     for spec in specs:
         name, _, path = spec.partition("=")
         if not name or not path:
             raise ValueError(f"--lora expects NAME=ORBAX_DIR, got {spec!r}")
-        raise NotImplementedError(
-            f"--lora {spec}: adapter checkpoints are orbax directories, "
-            "and checkpoint loading is not ported yet (ROADMAP queue 1: "
-            "checkpoints); pass lora_adapters to TPUServeServer instead")
-    return {}
+        adapters[name] = restore_checkpoint(path, device="cpu")
+    return adapters
+
+
+def convert(hf_dir: str, out_dir: str) -> int:
+    """``convert``: HF shards imported on the CPU (bf16), written as an
+    orbax directory."""
+    from aigw_tpu_torch.models.checkpoint import (
+        import_hf_checkpoint,
+        save_checkpoint,
+    )
+
+    params = import_hf_checkpoint(hf_dir, device="cpu")
+    save_checkpoint(params, out_dir)
+    print(f"converted {len(params)} tensors -> {out_dir}")
+    return 0
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.cmd == "convert":
+        return convert(args.hf_dir, args.out_dir)
     adapters = lora_adapters(args.lora)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s "

@@ -2,10 +2,12 @@
 ``aigw_tpu/models/registry.py``).
 
 Both of the reference's families are served: llama and mixtral. Weight
-sources: ``random`` (seeded random weights at the config's widths). The
-reference's ``orbax:`` and ``hf:`` checkpoints wait until checkpoints
-are part of the repository (ROADMAP queue 1, weight quantization and
-checkpoints).
+sources, as the reference's: ``random`` (seeded random weights at the
+config's widths) and ``orbax:<dir>`` (a directory in orbax's layout,
+restored by ``models/checkpoint.py`` through tensorstore; ``convert``
+writes one from HF safetensors shards). ``hf:<dir>`` is refused by the
+server as the reference refuses it. The repository holds no weights:
+the real models' rows name directories a deployment provides.
 """
 
 from __future__ import annotations

@@ -10,10 +10,17 @@ families only) and the phase histograms with trace-id exemplars
 (``ENGINE_HISTOGRAMS``). The reference registers the GenAI families on a
 ``prometheus_client`` registry, which the port does not depend on; they
 are written here by hand with the same names, help strings and types,
-and render as ``prometheus_client.generate_latest`` renders them empty:
-their ``# HELP`` and ``# TYPE`` lines. (The reference replica also
-observes a request's token counts and duration into two of them; the
-port records nothing there yet.)
+and render as ``prometheus_client.generate_latest`` renders them. The
+four GenAI histograms (``GenAIMetrics``, labeled by operation, provider
+and request and response model, the token usage also by token type and
+the duration by error type) take the reference's buckets and are
+observed where the reference replica observes them: a handler makes a
+``RequestMetrics``, each streamed token calls ``record_tokens_emitted``
+(time to first token, time per output token) and the request's end
+``finish`` (token usage, request duration). A family with samples
+renders its ``_bucket``, ``_count`` and ``_sum`` lines per label set,
+then its ``_created`` gauge, which ``parse_exposition`` counts as part
+of the histogram.
 
 The reference exports 100 engine gauges. The port's ``EngineStats``
 has the fields of ``ENGINE_GAUGES``; ``GAUGES_NOT_PORTED`` names the
@@ -30,7 +37,12 @@ off the same poll.
 from __future__ import annotations
 
 import bisect
+import math
 import re
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any
 
 #: the GenAI and gateway request families of the reference's
 #: ``GenAIMetrics`` registry: (name, type, help), in registration order
@@ -53,11 +65,193 @@ GENAI_FAMILIES: tuple[tuple[str, str, str], ...] = (
 )
 
 
-def render_genai_families() -> bytes:
-    """The GenAI families with no samples, as ``generate_latest`` writes
-    them."""
-    return "".join(f"# HELP {name} {help_}\n# TYPE {name} {type_}\n"
-                   for name, type_, help_ in GENAI_FAMILIES).encode()
+#: the reference's GenAI histogram buckets (seconds, and tokens)
+LATENCY_BUCKETS = (
+    0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+    10.0, 30.0, 60.0, 120.0,
+)
+TOKEN_BUCKETS = (
+    1, 4, 16, 64, 256, 1024, 4096, 16384, 65536, 262144, 1048576,
+)
+#: the GenAI label names, in the reference's order
+GENAI_LABELS = ("gen_ai_operation_name", "gen_ai_provider_name",
+                "gen_ai_request_model", "gen_ai_response_model")
+
+
+def float_to_go(d: float) -> str:
+    """A sample value or bucket bound as ``prometheus_client`` writes it
+    (its ``floatToGoString``: Go's exponent form past 1e6)."""
+    d = float(d)
+    if d == math.inf:
+        return "+Inf"
+    if d == -math.inf:
+        return "-Inf"
+    if math.isnan(d):
+        return "NaN"
+    s = repr(d)
+    dot = s.find(".")
+    if d > 0 and dot > 6:
+        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
+        return f"{mantissa}e+0{dot - 1}"
+    return s
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", r"\\").replace("\n", r"\n").replace('"', r'\"')
+
+
+def _escape_help(h: str) -> str:
+    return h.replace("\\", r"\\").replace("\n", r"\n")
+
+
+class LabeledHistogram:
+    """A Prometheus histogram with label names, rendered as
+    ``generate_latest`` renders ``prometheus_client.Histogram``: label
+    sets in first-observation order, labels sorted by name, cumulative
+    ``_bucket`` lines (``le`` last through ``+Inf``), ``_count``,
+    ``_sum``, then every label set's ``_created`` time as a gauge
+    family. Handler threads observe under a lock."""
+
+    def __init__(self, name: str, help_: str, labelnames: tuple[str, ...],
+                 buckets: tuple[float, ...]):
+        self.name = name
+        self.help = help_
+        self.labelnames = labelnames
+        self.bounds = tuple(float(b) for b in buckets) + (math.inf,)
+        # label values → [bucket counts, sum, created]
+        self._children: dict[tuple[str, ...], list] = {}
+        self._lock = threading.Lock()
+
+    def observe(self, labels: tuple[str, ...], value: float) -> None:
+        if len(labels) != len(self.labelnames):
+            raise ValueError(f"{self.name}: {len(self.labelnames)} label "
+                             f"values expected, got {labels!r}")
+        with self._lock:
+            c = self._children.get(labels)
+            if c is None:
+                c = self._children[labels] = [
+                    [0] * len(self.bounds), 0.0, time.time()]
+            c[0][bisect.bisect_left(self.bounds, value)] += 1
+            c[1] += value
+
+    def _labelstr(self, labels: tuple[str, ...], extra=()) -> str:
+        pairs = sorted(list(zip(self.labelnames, labels)) + list(extra))
+        return ",".join(f'{k}="{_escape_label(v)}"' for k, v in pairs)
+
+    def render(self) -> str:
+        help_ = _escape_help(self.help)
+        out = [f"# HELP {self.name} {help_}\n",
+               f"# TYPE {self.name} histogram\n"]
+        created = []
+        with self._lock:
+            children = [(k, list(c[0]), c[1], c[2])
+                        for k, c in self._children.items()]
+        for labels, counts, total, t0 in children:
+            acc = 0
+            for bound, n in zip(self.bounds, counts):
+                acc += n
+                ls = self._labelstr(labels, [("le", float_to_go(bound))])
+                out.append(f"{self.name}_bucket{{{ls}}} {float_to_go(acc)}\n")
+            ls = self._labelstr(labels)
+            out.append(f"{self.name}_count{{{ls}}} {float_to_go(acc)}\n")
+            out.append(f"{self.name}_sum{{{ls}}} {float_to_go(total)}\n")
+            created.append(f"{self.name}_created{{{ls}}} "
+                           f"{float_to_go(t0)}\n")
+        if created:
+            out.append(f"# HELP {self.name}_created {help_}\n")
+            out.append(f"# TYPE {self.name}_created gauge\n")
+            out += created
+        return "".join(out)
+
+
+class GenAIMetrics:
+    """The reference's ``GenAIMetrics`` registry on a replica: the four
+    GenAI histograms, observed, and the gateway's counters, which a
+    replica declares and never moves."""
+
+    def __init__(self) -> None:
+        (tu, _t, tu_h), (rd, _t, rd_h), (ft, _t, ft_h), (tp, _t, tp_h) = \
+            GENAI_FAMILIES[:4]
+        self.token_usage = LabeledHistogram(
+            tu, tu_h, GENAI_LABELS + ("gen_ai_token_type",), TOKEN_BUCKETS)
+        self.request_duration = LabeledHistogram(
+            rd, rd_h, GENAI_LABELS + ("error_type",), LATENCY_BUCKETS)
+        self.time_to_first_token = LabeledHistogram(
+            ft, ft_h, GENAI_LABELS, LATENCY_BUCKETS)
+        self.time_per_output_token = LabeledHistogram(
+            tp, tp_h, GENAI_LABELS, LATENCY_BUCKETS)
+
+    def histograms(self) -> tuple[LabeledHistogram, ...]:
+        return (self.token_usage, self.request_duration,
+                self.time_to_first_token, self.time_per_output_token)
+
+    def export(self) -> bytes:
+        """The families in registration order, as ``generate_latest``."""
+        return ("".join(h.render() for h in self.histograms())
+                + "".join(f"# HELP {name} {help_}\n# TYPE {name} {type_}\n"
+                          for name, type_, help_ in GENAI_FAMILIES[4:])
+                ).encode()
+
+
+def render_genai_families(genai: GenAIMetrics | None = None) -> bytes:
+    """The GenAI families as ``generate_latest`` writes them: ``genai``'s
+    samples, or none."""
+    return (genai or GenAIMetrics()).export()
+
+
+@dataclass
+class RequestMetrics:
+    """One request's GenAI recorder (the reference's ``RequestMetrics``
+    less the gateway's access-log fields): the replica's handlers make
+    one per generation, call ``record_tokens_emitted`` per streamed
+    token and ``finish`` at its end."""
+
+    metrics: GenAIMetrics
+    operation: str = "chat"
+    provider: str = ""
+    request_model: str = ""
+    response_model: str = ""
+    start: float = field(default_factory=time.monotonic)
+    first_token_at: float = 0.0
+    last_token_at: float = 0.0
+    tokens_seen: int = 0
+    final_usage: Any = None
+    error_type: str = ""
+
+    def _labels(self) -> tuple[str, ...]:
+        return (self.operation, self.provider, self.request_model,
+                self.response_model or self.request_model)
+
+    def record_tokens_emitted(self, n: int) -> None:
+        """Streamed tokens: the first observes the time to first token,
+        each later call the time per output token since the last."""
+        if n <= 0:
+            return
+        now = time.monotonic()
+        if self.first_token_at == 0.0:
+            self.first_token_at = now
+            self.metrics.time_to_first_token.observe(self._labels(),
+                                                     now - self.start)
+        elif self.tokens_seen:
+            self.metrics.time_per_output_token.observe(
+                self._labels(), (now - self.last_token_at) / n)
+        self.last_token_at = now
+        self.tokens_seen += n
+
+    def finish(self, usage, error_type: str = "") -> None:
+        """The request's token usage by type (non-zero counts only) and
+        its duration, labeled by ``error_type``."""
+        self.final_usage = usage
+        self.error_type = error_type
+        labels = self._labels()
+        for token_type, n in (("input", usage.input_tokens),
+                              ("output", usage.output_tokens),
+                              ("total", usage.total_tokens),
+                              ("cached_input", usage.cached_input_tokens)):
+            if n:
+                self.metrics.token_usage.observe(labels + (token_type,), n)
+        self.metrics.request_duration.observe(
+            labels + (error_type,), time.monotonic() - self.start)
 
 
 #: EngineStats attribute → Prometheus gauge name, the reference's map
@@ -282,8 +476,9 @@ _SAMPLE_RE = re.compile(
 def parse_exposition(text: str) -> dict[str, str]:
     """A Prometheus text exposition → ``{family: type}``. Raises
     ValueError on a malformed line or a sample whose family was never
-    declared (a histogram's ``_bucket``, ``_sum`` and ``_count`` belong
-    to it); exemplar suffixes are accepted on any sample."""
+    declared (a histogram's ``_bucket``, ``_sum`` and ``_count``, and
+    its ``_created`` gauge family, belong to it); exemplar suffixes are
+    accepted on any sample."""
     fams: dict[str, str] = {}
     for no, line in enumerate(text.splitlines(), 1):
         if not line.strip():
@@ -295,6 +490,9 @@ def parse_exposition(text: str) -> dict[str, str]:
             if parts[1] == "TYPE":
                 if parts[3] not in ("gauge", "counter", "histogram"):
                     raise ValueError(f"line {no}: bad type {line!r}")
+                if parts[2].endswith("_created") and fams.get(
+                        parts[2][:-len("_created")]) == "histogram":
+                    continue  # a histogram's creation times, its own
                 fams[parts[2]] = parts[3]
             continue
         m = _SAMPLE_RE.match(line)
@@ -302,7 +500,7 @@ def parse_exposition(text: str) -> dict[str, str]:
             raise ValueError(f"line {no}: bad sample {line!r}")
         name = m.group(1)
         float(m.group(3))
-        base = re.sub(r"_(bucket|sum|count)$", "", name)
+        base = re.sub(r"_(bucket|sum|count|created)$", "", name)
         if name not in fams and fams.get(base) != "histogram":
             raise ValueError(f"line {no}: undeclared family {name!r}")
     return fams

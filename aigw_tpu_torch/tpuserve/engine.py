@@ -3128,19 +3128,32 @@ class Engine:
             str(blob.get("priority", "batch")), host),
             park.get("meter_sink"))
 
+    @property
+    def device_id(self) -> int:
+        """The engine's device's ordinal (0 on the CPU)."""
+        if self.device.type != "cuda":
+            return 0
+        return (self.device.index if self.device.index is not None
+                else torch.cuda.current_device())
+
+    @property
+    def param_bytes_by_device(self) -> dict[int, int]:
+        """The weights' bytes by device id (one device: all of them),
+        the reference's ``/state`` ``param_bytes_*`` source."""
+        return {self.device_id: self.param_bytes}
+
     def _refresh_device_stats(self) -> None:
         """The engine's device: on CUDA its memory (``mem_get_info``),
         with the KV pool and the weights' bytes; on the CPU the pool and
         weights only."""
         st = self.stats
+        dev_id = self.device_id
         if self.device.type == "cuda":
             free_b, total_b = torch.cuda.mem_get_info(self.device)
             used = int(total_b - free_b)
             limit = int(total_b)
-            dev_id = (self.device.index if self.device.index is not None
-                      else torch.cuda.current_device())
         else:
-            used = limit = dev_id = 0
+            used = limit = 0
         frac = round(used / limit, 4) if limit else 0.0
         st.device_bytes_in_use = used
         st.device_bytes_limit = limit

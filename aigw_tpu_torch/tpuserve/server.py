@@ -39,8 +39,10 @@ must not silently serve base-model output). ``/v1/models`` lists
 picker's adapter keys on every replica, zoo or not.
 
 The operations surface: ``GET /metrics`` (``obs/metrics.py``: the
-engine gauges, the per-device and MoE gauges, the phase histograms with
-trace-id exemplars); ``POST /drain`` (new generations then get 503 with
+GenAI request histograms, observed by the generation handlers where the
+reference's observe them, the engine gauges, the per-device and MoE
+gauges, the phase histograms with trace-id exemplars); ``POST /drain``
+(new generations then get 503 with
 ``retry-after: 2`` and ``x-aigw-draining: 1`` while live ones finish;
 ``{"on": false}`` un-drains; ``/state``'s ``draining``) and ``drain()``,
 which the CLI's signal handling polls; ``GET /debug/requests[/{rid}]``,
@@ -104,6 +106,7 @@ import numpy as np
 import torch
 
 from aigw_tpu_torch.device import device_name, resolve_device
+from aigw_tpu_torch.models import checkpoint
 from aigw_tpu_torch.models.quant import quantize_params
 from aigw_tpu_torch.models.registry import family_fns, get_model_spec
 from aigw_tpu_torch.obs import metrics as obs_metrics
@@ -238,8 +241,10 @@ class TPUServeServer:
         ``/debug/profile`` route answers 404 unless
         ``enable_profile_endpoint``. Tracing follows the ``OTEL_*``
         environment (service name ``tpuserve`` unless it sets one).
-        ``params``: weights to serve instead of drawing random ones (a
-        second replica in one process sharing a first's tensors)."""
+        ``params``: weights to serve instead of loading the registry
+        row's (a second replica in one process sharing a first's
+        tensors, or HF shards read by ``import_hf_checkpoint``); without
+        them ``_load_params`` draws or restores the row's weights."""
         self.device = resolve_device(device)
         self.model_name = model
         spec = get_model_spec(model)
@@ -247,17 +252,10 @@ class TPUServeServer:
         self.model_cfg = spec.config
         self.tokenizer = load_tokenizer(spec.tokenizer)
         self.chat_template = spec.chat_template
-        if spec.weights != "random":
-            raise NotImplementedError(
-                f"weights {spec.weights!r}: checkpoint loading is not "
-                "ported yet (ROADMAP queue 1: checkpoints); register a "
-                "weights='random' spec")
         if quantize not in ("", "int8", "int4"):
             raise ValueError(f"unknown quantization {quantize!r}")
         if params is None:
-            logger.info("initializing random %s weights for %s on %s",
-                        param_dtype, spec.name, self.device)
-            params = self._draw_params(param_dtype, quantize)
+            params = self._load_params(spec, param_dtype, quantize)
             if quantize:
                 logger.info("weights quantized to %s (W%sA16)", quantize,
                             quantize[-1])
@@ -281,6 +279,9 @@ class TPUServeServer:
             service_name=os.environ.get("OTEL_SERVICE_NAME", "")
             or "tpuserve")
         self.flight = FlightRecorder(capacity=flight_entries)
+        # the GenAI request histograms (/metrics), observed by the
+        # generation handlers through a RequestMetrics each
+        self.genai = obs_metrics.GenAIMetrics()
         self.enable_profile = enable_profile_endpoint
         self._profile_lock = threading.Lock()
         # when set, new generations are refused with 503 while live ones
@@ -303,6 +304,30 @@ class TPUServeServer:
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self._http_thread: threading.Thread | None = None
+
+    def _load_params(self, spec, param_dtype: str, quantize: str
+                     ) -> dict[str, torch.Tensor]:
+        """The registry row's weights (the reference's
+        ``_load_params``): ``random`` draws them; ``orbax:<dir>``
+        restores the directory (``models/checkpoint.py``, through
+        tensorstore) against the family's tensors at ``param_dtype``,
+        then quantizes tensor by tensor; any other source, ``hf:``
+        included, raises as the reference does (``convert`` turns HF
+        shards into an orbax directory)."""
+        if spec.weights == "random":
+            logger.info("initializing random %s weights for %s on %s",
+                        param_dtype, spec.name, self.device)
+            return self._draw_params(param_dtype, quantize)
+        if spec.weights.startswith("orbax:"):
+            path = spec.weights[len("orbax:"):]
+            logger.info("restoring orbax checkpoint %s", path)
+            like = checkpoint.param_like(self.fns.iter_params,
+                                         self.model_cfg,
+                                         _PARAM_DTYPES[param_dtype])
+            params = checkpoint.restore_checkpoint(path, like, self.device)
+            return (quantize_params(params, consume=True, mode=quantize)
+                    if quantize else params)
+        raise ValueError(f"unsupported weight source {spec.weights}")
 
     def _draw_params(self, param_dtype: str, quantize: str
                      ) -> dict[str, torch.Tensor]:
@@ -412,6 +437,15 @@ class TPUServeServer:
             "device_bytes_in_use": s.device_bytes_in_use,
             "device_bytes_limit": s.device_bytes_limit,
             "device_memory_frac": s.device_memory_frac,
+            # the engine's device (the picker's worst_hbm_frac and
+            # worst_kv_occupancy read the list and the worst fraction)
+            # and its weights' bytes, under the reference's keys
+            "devices": eng.device_stats,
+            "device_memory_frac_worst": s.device_memory_frac_worst,
+            "param_bytes_total": sum(eng.param_bytes_by_device.values()),
+            "param_bytes_per_device": {
+                str(k): v
+                for k, v in sorted(eng.param_bytes_by_device.items())},
             "max_seq_len": cfg.max_seq_len,
             "tokens_generated": s.tokens_generated,
             "decode_steps": s.decode_steps,
@@ -554,7 +588,7 @@ class TPUServeServer:
     def metrics(self) -> bytes:
         """The ``/metrics`` exposition, in the reference's order."""
         eng = self.engine
-        return (obs_metrics.render_genai_families()
+        return (obs_metrics.render_genai_families(self.genai)
                 + obs_metrics.render_engine_gauges(eng.stats)
                 + obs_metrics.render_decode_impl(eng.decode_attn_impl)
                 + obs_metrics.render_device_gauges(eng.device_stats)
@@ -993,6 +1027,15 @@ class TPUServeServer:
             if error:
                 span.record_error(error)
             span.end()
+
+    def request_metrics(self, chat: bool,
+                        request_model: str) -> obs_metrics.RequestMetrics:
+        """A generation's GenAI recorder, with the reference's labels."""
+        return obs_metrics.RequestMetrics(
+            metrics=self.genai,
+            operation="chat" if chat else "text_completion",
+            provider="tpuserve", request_model=request_model,
+            response_model=self.model_name)
 
     @staticmethod
     def usage_from_meter(n_prompt: int, n_out: int,
@@ -1560,10 +1603,11 @@ def _make_handler(server: TPUServeServer):
             # the continuation can move again
             srv._exportable[rid] = (creq, meta)
             srv._live[rid] = True
+            rm = srv.request_metrics(chat, srv.model_name)
             try:
                 self._continue_stream(out, creq, box, chat, rid, created,
                                       stop_strs, include_usage, tokens,
-                                      orig_len, n_prev)
+                                      orig_len, n_prev, rm)
             except (BrokenPipeError, ConnectionResetError):
                 creq.cancelled.set()
                 srv.end_trace(creq.trace, "cancelled", 0, orig_len)
@@ -1573,7 +1617,7 @@ def _make_handler(server: TPUServeServer):
 
         def _continue_stream(self, out, creq, box, chat, rid, created,
                              stop_strs, include_usage, tokens, orig_len,
-                             n_prev):
+                             n_prev, rm):
             srv = self.srv
             self._start_sse(rid)
             decoder = StreamingDecoder(srv.tokenizer)
@@ -1594,6 +1638,7 @@ def _make_handler(server: TPUServeServer):
                 for tok, fin in burst:
                     if tok >= 0:
                         n_out += 1
+                        rm.record_tokens_emitted(1)
                         piece = decoder.push(tok)
                         if piece:
                             emitted += piece
@@ -1617,6 +1662,7 @@ def _make_handler(server: TPUServeServer):
                     self.wfile.write(self._chunk(chat, rid, created, text))
                     self.wfile.flush()
             usage = srv.usage_from_meter(orig_len, n_prev + n_out, box)
+            rm.finish(usage)
             srv.end_trace(creq.trace, finish, n_out, orig_len)
             if finish == "migrated":
                 self.wfile.flush()  # moved again: the next replica ends it
@@ -1699,6 +1745,7 @@ def _make_handler(server: TPUServeServer):
                 else:
                     self._error(400, str(e))
                 return
+            request_model = str(body.get("model", srv.model_name))
             if n > 1:
                 reqs = [r for _q, r, _b in outs]
                 try:
@@ -1706,7 +1753,8 @@ def _make_handler(server: TPUServeServer):
                         self._stream_n(merged, outs, chat, rid, created,
                                        stop_strs, n_prompt, lp_top_n,
                                        oai.include_stream_usage(body),
-                                       chain_hdr)
+                                       chain_hdr, srv.request_metrics(
+                                           chat, request_model))
                     else:
                         self._respond_n(outs, chat, rid, created,
                                         stop_strs, n_prompt, lp_top_n,
@@ -1716,6 +1764,7 @@ def _make_handler(server: TPUServeServer):
                         r.cancelled.set()
                     self.close_connection = True
                 return
+            rm = srv.request_metrics(chat, request_model)
             if not stream:
                 text, n_out, finish, lp_content = srv.collect(
                     out, stop_strs, lp_top_n)
@@ -1723,6 +1772,8 @@ def _make_handler(server: TPUServeServer):
                 # engine has finished the request itself)
                 req.cancelled.set()
                 usage = srv.usage_from_meter(n_prompt, n_out, box)
+                rm.finish(usage, error_type="engine" if finish == "error"
+                          else "")
                 srv.end_trace(trace, finish, n_out, n_prompt,
                               error="engine failure" if finish == "error"
                               else "")
@@ -1777,7 +1828,7 @@ def _make_handler(server: TPUServeServer):
                 self._stream(out, req, box, trace, chat, rid, created,
                              stop_strs, n_prompt,
                              oai.include_stream_usage(body), cmode,
-                             lp_top_n, chain_hdr)
+                             lp_top_n, chain_hdr, rm)
             except (BrokenPipeError, ConnectionResetError):
                 req.cancelled.set()  # client went away: free the slot
                 srv.end_trace(trace, "cancelled", 0, n_prompt)
@@ -1857,7 +1908,7 @@ def _make_handler(server: TPUServeServer):
                 meter=oai.meter_to_tuple(merged) if merged else ())
 
         def _stream_n(self, merged, outs, chat, rid, created, stop_strs,
-                      n_prompt, lp_top_n, include_usage, chain_hdr):
+                      n_prompt, lp_top_n, include_usage, chain_hdr, rm):
             """The streamed ``n > 1`` reply (the reference's
             ``_generate_n_stream``): the choices' items arrive on one
             merged queue; each burst becomes one frame per choice that
@@ -1898,6 +1949,7 @@ def _make_handler(server: TPUServeServer):
                         continue
                     if tok >= 0:
                         counts[i] += 1
+                        rm.record_tokens_emitted(1)
                         piece = decoders[i].push(tok)
                         if want_lp and lp is not None:
                             lps.setdefault(i, []).append(
@@ -1930,8 +1982,9 @@ def _make_handler(server: TPUServeServer):
                                             finish=fins[i] or "stop",
                                             index=i))
                 w.flush()
+            usage = self._usage_n(outs, n_prompt, sum(counts))
+            rm.finish(usage)
             if include_usage:
-                usage = self._usage_n(outs, n_prompt, sum(counts))
                 if chat:
                     w.write(oai.stream_chunk_sse(
                         response_id=rid, model=srv.model_name,
@@ -1945,7 +1998,7 @@ def _make_handler(server: TPUServeServer):
 
         def _stream(self, out, req, box, trace, chat, rid, created,
                     stop_strs, n_prompt, include_usage, cmode, lp_top_n,
-                    chain_hdr):
+                    chain_hdr, rm):
             srv = self.srv
             self._start_sse(rid, chain_hdr)
             want_lp = lp_top_n >= 0
@@ -2027,6 +2080,7 @@ def _make_handler(server: TPUServeServer):
                 for tok, fin, lp in burst:
                     if tok >= 0:
                         n_out += 1
+                        rm.record_tokens_emitted(1)
                         piece = decoder.push(tok)
                         if want_lp and lp is not None:
                             lp_entries.append(
@@ -2061,6 +2115,7 @@ def _make_handler(server: TPUServeServer):
                     and finish == "stop":
                 finish = "tool_calls"
             usage = srv.usage_from_meter(n_prompt, n_out, box)
+            rm.finish(usage)
             srv.end_trace(trace, finish, n_out, n_prompt)
             if finish == "migrated":
                 # the session moved: no finish frame and no [DONE]; the

@@ -11,10 +11,12 @@ device:
   most recent earlier occurrence of the current 2-gram in the slot's
   own token history ``[B, H]``;
 - **prefix-cache continuation** (``lookahead_drafts``): one page of
-  tokens that followed the cached prompt prefix last time. Prefix
-  caching is not ported yet, so the engine's lookahead buffer stays
-  empty and n-gram drafts serve every slot (``combine_drafts`` falls
-  back to them), exactly the reference with its prefix cache off.
+  tokens that followed the cached prompt prefix last time. At
+  admission the engine seeds a slot's lookahead buffer from the prefix
+  cache's chain when it remembers a continuation past the prompt
+  (``Engine._admit_one``, counted in ``spec_lookahead_slots``), as the
+  reference does; a slot with no remembered continuation keeps an empty
+  buffer, and ``combine_drafts`` falls back to its n-gram drafts.
 
 Per-position sampling keys are derived from the absolute position, so
 accepted tokens are drawn from exactly the distribution plain decoding

@@ -160,7 +160,8 @@ Phases (any failure exits non-zero):
    KV mobility and the batch tier (the ``serve_mobility`` line, after
    ``serve_ops``; launch counts zeroed before each step, read after it):
    the server as replica A and a second server in this process on the
-   same weight tensors as replica B, the fused rung, the prefix cache on.
+   same weight tensors as replica B, cut to their first ``MOB_LAYERS``
+   (8) layers, the fused rung, the prefix cache on.
    Four streamed chats (300-1000 prompt tokens, 64 new, two greedy, two
    seeded with penalties) served uncut on A, then again, each cut
    through A's ``/migrate/export`` and continued by B's
@@ -270,6 +271,21 @@ Phases (any failure exits non-zero):
    fused, gather, chained, W8A16 + int8 and verify steps and the burst's
    and a resume's prefill each captured and replayed beside the eager
    step, wall against device ms;
+   checkpoints (the ``checkpoint`` line, after ``graphs``; launch counts
+   zeroed before its served runs, read after them): HF safetensors
+   shards at Llama-3-8B widths cut to ``CKPT_LAYERS`` (4) layers, 3.85
+   GB in two files with an unmapped tensor, written with the standard
+   library from seeded tensors under ``build/`` and removed afterwards;
+   ``import_hf_checkpoint`` onto the card (every tensor bit-equal to the
+   written one, transposed, float32 norms cast to bf16; seconds and GB/s,
+   page-cached); the burst one request at a time on replicas built from
+   the loaded tensors and from the same tensors transposed in memory
+   (bf16: K1 and K2; both quantized to int8: K6), streams identical;
+   each replica's ``/metrics`` GenAI histograms (requests, streamed
+   first tokens, token sums) against the replies' usage and its
+   ``/state`` device keys against the engine's ``param_bytes``;
+   ``restore_checkpoint`` (orbax) raises naming tensorstore, which the
+   card machine lacks;
 7. the mixtral family (the Llama weights freed first). At Mixtral-8x7B
    widths (dim 4096, 8 experts of ffn 14336, top-2, vocab 32000) and 2
    layers, in float32 and in bf16: a packed prefill of 4 sequences, 8
@@ -298,7 +314,7 @@ Phases (any failure exits non-zero):
 8. the ``kernels`` JSON line (each row also carries its launches on
    ``serve_moe``, on ``serve_lora``, on ``serve_logprobs``, on
    ``serve_ops``, on ``serve_mobility``, on ``serve_graphs`` (the warm
-   burst), on ``serve_defaults`` (bf16 and
+   burst), on ``checkpoint``, on ``serve_defaults`` (bf16 and
    W8A16, the cold bursts) and on ``embeddings``), the card line, then
    the last line
    ``{"ok": true, "device": {...}}``.
@@ -502,7 +518,8 @@ def _check_response(kind: str, stream: bool, status: int, ctype: str,
         if body["object"] != want:
             raise AssertionError(f"object {body['object']!r}, want {want!r}")
         out = {"n": body["usage"]["completion_tokens"],
-               "finish": body["choices"][0]["finish_reason"]}
+               "finish": body["choices"][0]["finish_reason"],
+               "usage": body["usage"]}
         if kind == "completion":
             out["text"] = body["choices"][0]["text"]
         return out
@@ -517,7 +534,8 @@ def _check_response(kind: str, stream: bool, status: int, ctype: str,
         raise AssertionError(f"a stream chunk is not {want!r}")
     last = chunks[-1]
     return {"n": last["usage"]["completion_tokens"],
-            "finish": last["choices"][0]["finish_reason"]}
+            "finish": last["choices"][0]["finish_reason"],
+            "usage": last["usage"]}
 
 
 def _requests(rng) -> list[tuple[str, bool, dict]]:
@@ -4083,6 +4101,18 @@ TIE_BOUND = 0.1
 #: 1 it landed at 3, asked at 16 at 39 (the windows grow from 2 to 8
 #: steps once the streams are two ticks old)
 MOB_CUT_AFTER = 4
+#: the mobility phase's depth: Llama-3-8B widths cut to 8 of 32 layers
+#: (a page then carries 8 layers' rows; the phase's wire and page-mover
+#: numbers are per page of this depth)
+MOB_LAYERS = 8
+
+
+def _mob_cfg():
+    import dataclasses
+
+    from aigw_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.LLAMA3_8B, n_layers=MOB_LAYERS)
 
 
 class TokenTap:
@@ -4268,14 +4298,13 @@ class _Stream:
 
 def _mob_swap(srv, params, base: dict, **kw):
     """Restart ``srv``'s engine with ``base`` + ``kw``; returns its tap."""
-    from aigw_tpu_torch.models import llama
     from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
 
     old, srv.engine = srv.engine, None
     old.stop()
     del old
     gc.collect()  # its pool goes before the new one is made
-    srv.engine = Engine(params, llama.LLAMA3_8B,
+    srv.engine = Engine(params, _mob_cfg(),
                         EngineConfig(**{**base, **kw}),
                         eos_token_ids=(srv.tokenizer.eos_id,),
                         device="cuda")
@@ -4292,10 +4321,9 @@ def _mob_migrate(torch, a, b, params, base, chats, kv_dtype: str) -> dict:
     the exported wire pages string for string; B launched K1 and K2
     (K7-int8 on an int8 pool); 4 migrations out of A and into B; bf16
     streams equal the uncut ones up to a near-tie."""
-    from aigw_tpu_torch.models import llama
     from aigw_tpu_torch.tpuserve.server import encode_wire_page
 
-    cfg = llama.LLAMA3_8B
+    cfg = _mob_cfg()
     tap_a = _mob_swap(a, params, base, kv_cache_dtype=kv_dtype)
     tap_b = _mob_swap(b, params, base, kv_cache_dtype=kv_dtype)
     out: dict = {"kv_cache_dtype": kv_dtype}
@@ -4446,7 +4474,6 @@ def _mob_fetch(torch, a, b, params, base, chat: dict) -> dict:
     A, then the same chat on B naming A in ``x-aigw-kv-peers``. Gates:
     B fetched once, every full written page of the prompt on A, its
     prefix hit covering them; B's stream equals A's up to a near-tie."""
-    from aigw_tpu_torch.models import llama
 
     tap_a = _mob_swap(a, params, base)
     tap_b = _mob_swap(b, params, base)
@@ -4480,7 +4507,7 @@ def _mob_fetch(torch, a, b, params, base, chat: dict) -> dict:
     if hb.get("x-aigw-kv-chain") != ha.get("x-aigw-kv-chain"):
         raise AssertionError("the two replicas name different chains")
     ra, rb = ha["x-aigw-request-id"], hb["x-aigw-request-id"]
-    check = tie_check(torch, params, llama.LLAMA3_8B, tap_a.prompts[ra],
+    check = tie_check(torch, params, _mob_cfg(), tap_a.prompts[ra],
                       tap_a.sampling[ra], tap_a.toks[ra], tap_b.toks[rb],
                       a.tokenizer.eos_id)
     _gate_ties("fetched stream", [check])
@@ -4505,7 +4532,6 @@ def _mob_spill(torch, a, params, base, rng) -> dict:
     that was spilled, string for string on the wire; the re-asked streams
     equal the first ones up to a near-tie. Reports the stall a spill adds
     to the engine thread."""
-    from aigw_tpu_torch.models import llama
 
     words = "the quick brown fox jumps over a lazy dog while rivers run".split()
 
@@ -4550,7 +4576,7 @@ def _mob_spill(torch, a, params, base, rng) -> dict:
             not torch.equal(d, taken[k]) for k, d in held):
         raise AssertionError("a revived page differs from its spilled "
                              "bytes")
-    checks = [tie_check(torch, params, llama.LLAMA3_8B, tap.prompts[r0],
+    checks = [tie_check(torch, params, _mob_cfg(), tap.prompts[r0],
                         tap.sampling[r0], tap.toks[r0], tap.toks[r1],
                         a.tokenizer.eos_id)
               for r0, r1 in zip(rids[:4], rids[8:])]
@@ -4574,7 +4600,6 @@ def _mob_batch(torch, a, params, base, reqs, rng, serve_pp: dict) -> dict:
     preemptions above 0 and all resumed; the batch completed with 12
     lines, each equal to the same line served alone up to a near-tie.
     Reports the interactive TTFT p50/p95 beside serve's."""
-    from aigw_tpu_torch.models import llama
 
     words = "the quick brown fox jumps over a lazy dog while rivers run".split()
 
@@ -4649,7 +4674,7 @@ def _mob_batch(torch, a, params, base, reqs, rng, serve_pp: dict) -> dict:
     if sorted(batch_keys) != sorted(solo):
         raise AssertionError("batch lines and solo runs disagree on "
                              "prompts")
-    checks = [tie_check(torch, params, llama.LLAMA3_8B, list(k),
+    checks = [tie_check(torch, params, _mob_cfg(), list(k),
                         tap.sampling[solo[k]], tap.toks[solo[k]],
                         tap.toks[k], a.tokenizer.eos_id)
               for k in batch_keys]
@@ -4669,10 +4694,11 @@ def _mob_batch(torch, a, params, base, reqs, rng, serve_pp: dict) -> dict:
 
 def serve_mobility(torch, srv, params, reqs, prefix_chat, launches: dict,
                    serve_pp: dict) -> dict:
-    """KV mobility and the batch tier at full depth (32 layers, bf16
-    weights, 8 slots x 2048, 128-token pages, the prefix cache on, the
-    fused rung): the earlier phases' server as replica A, replica B a
-    second server in this process on the same weight tensors.
+    """KV mobility and the batch tier at Llama-3-8B widths cut to
+    ``MOB_LAYERS`` layers (the first layers of the served weights, bf16,
+    8 slots x 2048, 128-token pages, the prefix cache on, the fused
+    rung): the earlier phases' server as replica A, replica B a second
+    server in this process on the same weight tensors.
 
     1. migration, bf16 pools (``_mob_migrate``), with each migrated
        history's cold prefill timed beside B's resume;
@@ -4694,9 +4720,14 @@ def serve_mobility(torch, srv, params, reqs, prefix_chat, launches: dict,
     base = dict(max_batch_size=8, max_seq_len=2048, page_size=128,
                 attention_backend="pallas-ragged", decode_backend="fused",
                 enable_prefix_cache=True)
+    # B starts on the whole model; every step swaps both replicas'
+    # engines onto the cut one (_mob_swap)
     b = TPUServeServer("llama-3-8b-random", EngineConfig(**base),
                        device="cuda", port=0, params=params)
     b.start()
+    params = {k: v for k, v in params.items()
+              if not k.startswith("l") or k.startswith("lm_")
+              or int(k[1:].split(".")[0]) < MOB_LAYERS}
     out: dict = {}
     try:
         chats = _mob_chats(rng, srv.tokenizer.eos_id)
@@ -5677,6 +5708,285 @@ def serve_graphs(torch, srv, params, reqs, launches: dict) -> dict:
     return out
 
 
+# -- the checkpoint phase ----------------------------------------------------
+#: the checkpoint phase's depth: Llama-3-8B widths cut to 4 layers (its
+#: HF shards take 3.85 GB on disk)
+CKPT_LAYERS = 4
+CKPT_MODEL = "llama-3-8b-4-layers"
+
+
+def _ckpt_hf_tensors(torch, cfg) -> tuple[dict, dict]:
+    """HF-layout tensors from a seed on the card (matrices ``[out, in]``
+    bf16 at the reference's init scales, norms float32 so the import
+    casts them) and the port tensor each becomes: ``port name -> (HF
+    name, transposed)``."""
+    import math
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    hd = cfg.head_dim
+
+    def dense(n_out, n_in, scale=None):
+        w = torch.randn((n_out, n_in), generator=g, device="cuda")
+        return (w * (scale or 1.0 / math.sqrt(n_in))).to(torch.bfloat16)
+
+    def norm(n):
+        return 1.0 + 0.1 * torch.randn((n,), generator=g, device="cuda")
+
+    hf = {"model.embed_tokens.weight": dense(cfg.vocab_size, cfg.dim, 0.02),
+          "model.norm.weight": norm(cfg.dim),
+          "lm_head.weight": dense(cfg.vocab_size, cfg.dim)}
+    names = {"embed": ("model.embed_tokens.weight", False),
+             "norm_f": ("model.norm.weight", False),
+             "lm_head": ("lm_head.weight", True)}
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        for port, hf_name, shape in (
+                ("attn_norm", "input_layernorm.weight", None),
+                ("wq", "self_attn.q_proj.weight", (cfg.n_heads * hd,
+                                                   cfg.dim)),
+                ("wk", "self_attn.k_proj.weight", (cfg.n_kv_heads * hd,
+                                                   cfg.dim)),
+                ("wv", "self_attn.v_proj.weight", (cfg.n_kv_heads * hd,
+                                                   cfg.dim)),
+                ("wo", "self_attn.o_proj.weight", (cfg.dim,
+                                                   cfg.n_heads * hd)),
+                ("mlp_norm", "post_attention_layernorm.weight", None),
+                ("w_gate", "mlp.gate_proj.weight", (cfg.ffn_dim, cfg.dim)),
+                ("w_up", "mlp.up_proj.weight", (cfg.ffn_dim, cfg.dim)),
+                ("w_down", "mlp.down_proj.weight", (cfg.dim, cfg.ffn_dim))):
+            hf[pre + hf_name] = (norm(cfg.dim) if shape is None
+                                 else dense(*shape))
+            names[f"l{i}.{port}"] = (pre + hf_name, shape is not None)
+    return hf, names
+
+
+def _ckpt_serve(srv_cls, cfg_kw: dict, params: dict, reqs) -> dict:
+    """One replica on ``params``: the burst's requests sent one at a
+    time (so every replica runs the same call shapes), its token streams
+    (by prompt), the usage each reply reported, ``/metrics`` and
+    ``/state``."""
+    from aigw_tpu_torch.tpuserve.engine import EngineConfig
+
+    srv = srv_cls(CKPT_MODEL, EngineConfig(**cfg_kw), device="cuda",
+                  port=0, params=params)
+    srv.start()
+    try:
+        tap = TokenTap(srv.engine)
+        results = [serve_phase(srv.port, [r])[0] for r in reqs]
+        state = json.loads(_http(srv.port, "/state")[2])
+        metrics = _http(srv.port, "/metrics")[2]
+        param_bytes = srv.engine.param_bytes
+    finally:
+        srv.stop()
+        srv.engine = None
+        gc.collect()
+    return {"streams": _streams_by_prompt(tap), "results": results,
+            "state": state, "metrics": metrics, "param_bytes": param_bytes}
+
+
+def _genai_sums(text: str, sample: str, **labels) -> float:
+    """The sum of one GenAI sample (``name_count``, ``name_sum``) over
+    the label sets holding ``labels``."""
+    total = 0.0
+    for line in text.splitlines():
+        if not line.startswith(sample + "{"):
+            continue
+        head, _, value = line.rpartition(" ")
+        if all(f'{k}="{v}"' in head for k, v in labels.items()):
+            total += float(value)
+    return total
+
+
+def _ckpt_gates(run: dict, reqs, what: str) -> dict:
+    """The replica's ``/metrics`` GenAI histograms against the traffic
+    and the usage the replies reported, and ``/state``'s device keys."""
+    m = run["metrics"]
+    usage = [r["usage"] for r in run["results"]]
+    streamed = sum(1 for (_k, stream, _b), r in zip(reqs, run["results"])
+                   if stream and r["n"] > 0)
+    got = {
+        "requests": _genai_sums(
+            m, "gen_ai_server_request_duration_seconds_count"),
+        "ttft": _genai_sums(
+            m, "gen_ai_server_time_to_first_token_seconds_count"),
+        "input": _genai_sums(m, "gen_ai_client_token_usage_sum",
+                             gen_ai_token_type="input"),
+        "output": _genai_sums(m, "gen_ai_client_token_usage_sum",
+                              gen_ai_token_type="output"),
+        "total": _genai_sums(m, "gen_ai_client_token_usage_sum",
+                             gen_ai_token_type="total")}
+    want = {"requests": len(reqs), "ttft": streamed,
+            "input": sum(u["prompt_tokens"] for u in usage),
+            "output": sum(u["completion_tokens"] for u in usage),
+            "total": sum(u["total_tokens"] for u in usage)}
+    if got != want:
+        raise AssertionError(f"{what}: /metrics GenAI histograms {got}, "
+                             f"the traffic {want}")
+    st = run["state"]
+    keys = ("devices", "device_memory_frac_worst", "param_bytes_total",
+            "param_bytes_per_device")
+    if any(k not in st for k in keys) \
+            or st["param_bytes_total"] != run["param_bytes"] \
+            or list(st["param_bytes_per_device"].values()) \
+            != [run["param_bytes"]] or len(st["devices"]) != 1:
+        raise AssertionError(f"{what}: /state device keys "
+                             f"{ {k: st.get(k) for k in keys} }, engine "
+                             f"param_bytes {run['param_bytes']}")
+    return {"genai": got, "param_bytes_total": st["param_bytes_total"],
+            "device_memory_frac_worst": st["device_memory_frac_worst"]}
+
+
+def _ckpt_same_streams(a: dict, b: dict, what: str) -> int:
+    if a["streams"] != b["streams"]:
+        diff = [p[:8] for p in a["streams"]
+                if a["streams"][p] != b["streams"].get(p)]
+        raise AssertionError(f"{what}: the checkpoint replica's streams "
+                             f"differ from the in-memory replica's "
+                             f"(prompts starting {diff})")
+    return sum(len(t) for runs in a["streams"].values() for _sp, t in runs)
+
+
+def checkpoint_phase(torch, reqs, root: str, launches: dict) -> dict:
+    """HF safetensors shards at Llama-3-8B widths, cut to ``CKPT_LAYERS``
+    layers, written with the standard library from seeded tensors (two
+    shards and an unmapped tensor, matrices bf16, norms float32) into a
+    directory under ``build/``, removed afterwards; imported onto the
+    card (``import_hf_checkpoint``: every tensor bit-equal to the
+    written one, transposed, norms cast to bf16; the load's seconds and
+    GB/s, page-cached since the files were just written); the burst
+    served one request at a time on the kernel path from the loaded
+    tensors (K1, K2) and from the same tensors transposed in memory,
+    streams identical; both quantized to int8 and served again (K6),
+    streams identical; each replica's ``/metrics`` GenAI histograms
+    (requests, streamed first tokens, token sums) against the replies'
+    usage and its ``/state`` device keys against the engine.
+    ``restore_checkpoint`` (orbax) raises naming tensorstore where it is
+    missing, as on the card machine. Launch counts zeroed before the
+    served runs and read after them (``launches["checkpoint"]``)."""
+    import dataclasses
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from aigw_tpu_torch.models import checkpoint, llama, quant
+    from aigw_tpu_torch.models.registry import ModelSpec, register_model
+    from aigw_tpu_torch.tpuserve.server import TPUServeServer
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=CKPT_LAYERS)
+    register_model(ModelSpec(CKPT_MODEL, "llama", cfg))
+    hf, names = _ckpt_hf_tensors(torch, cfg)
+    hf["model.layers.0.self_attn.rotary_emb.inv_freq"] = torch.ones(
+        (cfg.head_dim // 2,), device="cuda")  # unmapped: ignored
+    build = os.path.join(root, "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt-", dir=build)
+    out: dict = {"layers": CKPT_LAYERS, "dim": cfg.dim,
+                 "vocab": cfg.vocab_size, "ffn_dim": cfg.ffn_dim}
+    try:
+        first = {k for k in hf if k == "model.embed_tokens.weight"
+                 or k.startswith(("model.layers.0.", "model.layers.1."))}
+        t = time.monotonic()
+        nbytes = checkpoint.save_safetensors(
+            {k: hf[k] for k in first},
+            os.path.join(tmp, "model-00001-of-00002.safetensors"))
+        nbytes += checkpoint.save_safetensors(
+            {k: v for k, v in hf.items() if k not in first},
+            os.path.join(tmp, "model-00002-of-00002.safetensors"))
+        out["write_s"] = time.monotonic() - t
+        out["file_bytes"] = nbytes
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        loaded = checkpoint.import_hf_checkpoint(tmp, device="cuda")
+        torch.cuda.synchronize()
+        out["load_s_page_cached"] = time.monotonic() - t
+        out["load_gb_per_s_page_cached"] = nbytes / out["load_s_page_cached"] \
+            / 1e9
+        if importlib.util.find_spec("tensorstore") is None:
+            try:
+                checkpoint.restore_checkpoint(tmp)
+            except ImportError as e:
+                if "tensorstore" not in str(e):
+                    raise
+                out["orbax_refused"] = str(e)[:80]
+            else:
+                raise AssertionError("restore_checkpoint ran without "
+                                     "tensorstore")
+        else:  # a machine with tensorstore: an orbax round trip instead
+            ck = os.path.join(tmp, "orbax")
+            small = {k: loaded[k] for k in ("norm_f", "l0.wk")}
+            checkpoint.save_checkpoint(small, ck)
+            back = checkpoint.restore_checkpoint(ck)
+            if any(not torch.equal(back[k], v) for k, v in small.items()):
+                raise AssertionError("orbax round trip changed a tensor")
+            out["orbax_refused"] = None
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the loaded tensors, bit for bit, against the written ones
+    memory = {}
+    for port, (hf_name, transposed) in names.items():
+        w = hf.pop(hf_name)
+        memory[port] = (w.T if transposed else w).to(torch.bfloat16) \
+            .contiguous()
+        del w
+    if set(loaded) != set(memory):
+        raise AssertionError(f"imported names differ: "
+                             f"{sorted(set(loaded) ^ set(memory))}")
+    bad = [k for k, v in memory.items()
+           if loaded[k].dtype != torch.bfloat16
+           or not torch.equal(loaded[k].view(torch.int16),
+                              v.view(torch.int16))]
+    if bad:
+        raise AssertionError(f"imported tensors differ from the written "
+                             f"ones: {bad[:8]}")
+    del hf
+    out["tensors"] = len(loaded)
+    log(f"checkpoint: {len(loaded)} tensors, {nbytes / 1e9:.2f} GB written "
+        f"in {out['write_s']:.1f}s, imported bit-exact in "
+        f"{out['load_s_page_cached']:.2f}s "
+        f"({out['load_gb_per_s_page_cached']:.2f} GB/s, page-cached)")
+
+    kw = dict(max_batch_size=8, max_seq_len=2048, page_size=128,
+              attention_backend="pallas-ragged", decode_backend="fused",
+              enable_prefix_cache=False)
+    reset_counts()
+    t = time.monotonic()
+    runs = {"bf16": _ckpt_serve(TPUServeServer, kw, loaded, reqs),
+            "bf16_memory": _ckpt_serve(TPUServeServer, kw, memory, reqs)}
+    bf16_counts = read_counts()
+    out["bf16_tokens"] = _ckpt_same_streams(runs["bf16"],
+                                            runs["bf16_memory"], "bf16")
+    if bf16_counts["ragged_prefill_attention"] <= 0 \
+            or bf16_counts["fused_paged_decode"] <= 0:
+        raise AssertionError(f"K1 / K2 not on the checkpoint's bf16 path: "
+                             f"{bf16_counts}")
+    qloaded = quant.quantize_params(loaded, consume=True, mode="int8")
+    qmemory = quant.quantize_params(memory, consume=True, mode="int8")
+    del loaded, memory
+    runs["w8a16"] = _ckpt_serve(TPUServeServer, kw, qloaded, reqs)
+    runs["w8a16_memory"] = _ckpt_serve(TPUServeServer, kw, qmemory, reqs)
+    counts = read_counts()
+    out["w8a16_tokens"] = _ckpt_same_streams(
+        runs["w8a16"], runs["w8a16_memory"], "W8A16")
+    if counts["w8a16_matmul"] - bf16_counts["w8a16_matmul"] <= 0:
+        raise AssertionError(f"K6 not on the checkpoint's W8A16 path: "
+                             f"{counts}")
+    out["serve_s"] = time.monotonic() - t
+    out["gates"] = {name: _ckpt_gates(run, reqs, name)
+                    for name, run in runs.items()}
+    out["launches"] = counts
+    launches["checkpoint"] = counts
+    del qloaded, qmemory, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.monotonic() - t_phase
+    log(f"checkpoint: served bf16 and W8A16 from the imported tensors, "
+        f"streams equal to the in-memory replicas' "
+        f"({out['bf16_tokens']} + {out['w8a16_tokens']} tokens); "
+        f"launches {counts}; phase {out['phase_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6086,6 +6396,11 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
+    # checkpoints: HF shards written, imported onto the card and served
+    # (the checkpoint line)
+    print(json.dumps({"checkpoint": checkpoint_phase(
+        torch, reqs, here, launches)}), flush=True)
+
     # 7. the mixtral family at Mixtral-8x7B widths: the layer and the
     # entry points at 2 layers, kernels vs plain; then served at full
     # depth in W8A16
@@ -6110,6 +6425,8 @@ def main() -> int:
         row["launches_serve_mobility"] = launches["serve_mobility"].get(
             row["name"], 0)
         row["launches_serve_graphs"] = launches["serve_graphs"].get(
+            row["name"], 0)
+        row["launches_checkpoint"] = launches["checkpoint"].get(
             row["name"], 0)
         for phase in ("serve_defaults", "serve_defaults_w8a16",
                       "embeddings_bf16", "embeddings_w8a16"):

@@ -1571,3 +1571,61 @@ def test_launch_counters_count_replays(cuda):
         == eng.stats.decode_steps * L > 0
     d1 = paged_attention.ragged_prefill_attention.launches - k1
     assert d1 > 0 and d1 % L == 0
+
+
+# -- checkpoints -------------------------------------------------------------
+@pytest.mark.parametrize("family", ["llama", "mixtral"])
+def test_hf_import_to_card_is_bit_exact(cuda, tmp_path, family):
+    """HF shards written by the standard-library writer (bf16 matrices,
+    float32 norms, two files and an unmapped tensor) load onto the card
+    one tensor at a time: every tensor cast there (round to nearest
+    even) and transposed equals the same on the CPU, bit for bit."""
+    from aigw_tpu_torch.models import checkpoint
+
+    g = torch.Generator().manual_seed(3)
+    dim, ffn, vocab, kv = 64, 128, 512, 32
+
+    def w(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g).to(dtype)
+
+    hf = {"model.embed_tokens.weight": w(vocab, dim),
+          "model.norm.weight": w(dim, dtype=torch.float32),
+          "lm_head.weight": w(vocab, dim),
+          "model.layers.0.rotary_emb.inv_freq": w(8, dtype=torch.float32)}
+    pre = "model.layers.0."
+    hf.update({pre + "input_layernorm.weight": w(dim, dtype=torch.float32),
+               pre + "post_attention_layernorm.weight": w(dim),
+               pre + "self_attn.q_proj.weight": w(dim, dim),
+               pre + "self_attn.k_proj.weight": w(kv, dim),
+               pre + "self_attn.v_proj.weight": w(kv, dim),
+               pre + "self_attn.o_proj.weight": w(dim, dim)})
+    if family == "llama":
+        hf.update({pre + "mlp.gate_proj.weight": w(ffn, dim),
+                   pre + "mlp.up_proj.weight": w(ffn, dim),
+                   pre + "mlp.down_proj.weight": w(dim, ffn)})
+    else:
+        moe = pre + "block_sparse_moe."
+        hf[moe + "gate.weight"] = w(4, dim)
+        for e in range(4):
+            hf.update({f"{moe}experts.{e}.w1.weight": w(ffn, dim),
+                       f"{moe}experts.{e}.w3.weight": w(ffn, dim),
+                       f"{moe}experts.{e}.w2.weight": w(dim, ffn)})
+    names = sorted(hf)
+    checkpoint.save_safetensors({k: hf[k] for k in names[::2]},
+                                str(tmp_path / "a.safetensors"))
+    checkpoint.save_safetensors({k: hf[k] for k in names[1::2]},
+                                str(tmp_path / "b.safetensors"))
+    got = checkpoint.import_hf_checkpoint(str(tmp_path), device="cuda")
+    want = checkpoint.import_hf_checkpoint(str(tmp_path), device="cpu")
+    assert set(got) == set(want) and "lm_head" in got
+    for k in want:
+        assert got[k].is_cuda and got[k].dtype == torch.bfloat16, k
+        assert torch.equal(got[k].cpu().view(torch.int16),
+                           want[k].view(torch.int16)), k
+    assert torch.equal(want["l0.wq"], hf[pre + "self_attn.q_proj.weight"].T)
+    assert torch.equal(want["norm_f"], hf["model.norm.weight"].to(
+        torch.bfloat16))
+    if family == "mixtral":
+        assert got["l0.w_down"].shape == (4, ffn, dim)
+        assert torch.equal(want["l0.w_down"][2], hf[
+            pre + "block_sparse_moe.experts.2.w2.weight"].T)

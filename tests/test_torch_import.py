@@ -328,3 +328,44 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_checkpoint_module_imports_with_its_packages_blocked():
+    """``models/checkpoint.py`` imports, and reads safetensors shards,
+    in a fresh interpreter where jax, the reference package,
+    ``ml_dtypes``, ``tensorstore`` and ``safetensors`` cannot be
+    imported (the card machine has none of the last three); its orbax
+    paths then raise naming tensorstore."""
+    assert "aigw_tpu_torch.models.checkpoint" in MODULES
+    code = (
+        "import sys, tempfile, os\n"
+        "for m in ('jax', 'aigw_tpu', 'ml_dtypes', 'tensorstore',\n"
+        "          'safetensors'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "from aigw_tpu_torch.models import checkpoint\n"
+        "from aigw_tpu_torch import cli\n"
+        "d = tempfile.mkdtemp()\n"
+        "w = torch.arange(6, dtype=torch.float32).reshape(2, 3)\n"
+        "checkpoint.save_safetensors({'model.layers.0.self_attn.q_proj."
+        "weight': w.to(torch.bfloat16)}, os.path.join(d, 'x.safetensors'))\n"
+        "p = checkpoint.import_hf_checkpoint(d, device='cpu')\n"
+        "assert torch.equal(p['l0.wq'].float(), w.T)\n"
+        "calls = (lambda: checkpoint.restore_checkpoint(d, device='cpu'),\n"
+        "         lambda: cli.lora_adapters(['a=' + d]))\n"
+        "for call in calls:\n"
+        "    try:\n"
+        "        call()\n"
+        "    except ImportError as e:\n"
+        "        assert 'tensorstore' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('no ImportError')\n"
+        "bad = [k for k, v in sys.modules.items() if v and k.split('.')[0]\n"
+        "       in ('jax', 'jaxlib', 'aigw_tpu', 'ml_dtypes', 'tensorstore',\n"
+        "           'safetensors')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -451,7 +451,9 @@ def test_cli_lora_flags():
     assert lora_adapters([]) == {}
     with pytest.raises(ValueError, match="NAME=ORBAX_DIR"):
         lora_adapters(["fr"])
-    with pytest.raises(NotImplementedError, match="orbax"):
+    # the directory is restored before the replica starts: a missing
+    # one raises (the restore path is tests/test_torch_checkpoint.py's)
+    with pytest.raises(FileNotFoundError, match="/ckpt/fr"):
         main(["tpuserve", "--model", MODEL, "--device", "cpu", "--port",
               "0", "--lora", "fr=/ckpt/fr"])
 

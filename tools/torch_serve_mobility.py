@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's ``serve_mobility`` phase alone on one NVIDIA GPU:
-KV mobility and the batch tier at Llama-3-8B widths (four streams cut on
+KV mobility and the batch tier at Llama-3-8B widths cut to 8 layers
+(``chip_smoke.MOB_LAYERS``; four streams cut on
 replica A and resumed on replica B through ``/migrate/*`` over bf16 and
 int8 pools, a fleet fetch over ``/kv/pages``, spill and revive through
 the host tier, a ``/v1/batches`` job preempted by an interactive burst).
