@@ -16,6 +16,7 @@
         --flight-entries 512 --enable-profile-endpoint
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --lora fr=/ckpt/fr --lora de=/ckpt/de --lora-slots 1
+    python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu --tp 2
     python -m aigw_tpu_torch convert /hf/llama-3-8b checkpoints/llama-3-8b
 
 With no flags a replica runs the reference's default programs: the
@@ -26,6 +27,11 @@ fused``. ``--warm-prefill-buckets`` and ``--warm-decode-buckets`` keep
 the reference's names, defaults and help text: the programs they warm
 are CUDA graphs captured ahead of traffic (``tpuserve/programs.py``),
 counted on ``/state`` as ``warm_programs`` and ``xla_compiles``.
+
+``--tp N`` / ``--ep N`` shard the model over ``tp x ep`` ranks: this
+process leads, and starts a follower process for every other rank, on
+``cuda:<rank>`` (NCCL) or with ``--device cpu`` on the CPU (gloo); they
+stop with it. A machine with fewer cards than ranks is refused.
 
 SIGTERM or SIGINT drains the replica (new generations get 503 while
 live ones finish, ``--drain-grace`` at most) and exits 0; a second
@@ -78,6 +84,14 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--page-size", type=int, default=128)
     s.add_argument("--hbm-pages", type=int, default=0,
                    help="KV pages to allocate (0 = auto)")
+    s.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (devices on the mesh)")
+    s.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel degree (MoE families; mesh "
+                        "is dp=1 × tp × sp × ep)")
+    s.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree (not ported: > 1 "
+                        "raises)")
     s.add_argument("--decode-steps-per-tick", type=int, default=8,
                    help="decode steps per host round-trip (the adaptive "
                         "window's max; it shrinks to 1/4 under pressure)")
@@ -258,7 +272,8 @@ def main(argv: list[str] | None = None) -> int:
                             lora_slots=args.lora_slots,
                             flight_entries=args.flight_entries,
                             enable_profile_endpoint=(
-                                args.enable_profile_endpoint))
+                                args.enable_profile_endpoint),
+                            tp=args.tp, ep=args.ep, sp=args.sp)
     # the handler runs on the main thread between bytecodes: it only
     # records the signal; the loop below drains (the first) or stops
     # at once (the second)

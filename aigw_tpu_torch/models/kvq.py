@@ -148,9 +148,18 @@ def dequantize_rows(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 # -- pool -------------------------------------------------------------------
 def make_pool(kv_shape: tuple, kv_cache_dtype: str,
-              device: torch.device) -> Any:
+              device: torch.device, mesh=None) -> Any:
     """Zero-initialized pool for ``kv_shape = [L, 2, n_slots, Hkv, D]``:
-    a tensor (native) or the ``{"q", "scale"}`` dict (quantized)."""
+    a tensor (native) or the ``{"q", "scale"}`` dict (quantized). On a
+    mesh, this rank's Hkv/tp heads of it (the reference's
+    ``pool_sharding_tree``: the data and its scale rows both shard on
+    heads)."""
+    if mesh is not None:
+        L, two, n, hkv, D = kv_shape
+        tp = mesh.shape["tp"]
+        if hkv % tp:
+            raise ValueError(f"{hkv} KV heads do not divide over tp={tp}")
+        kv_shape = (L, two, n, hkv // tp, D)
     dt = compute_dtype(kv_cache_dtype)
     if not is_quantized_dtype(kv_cache_dtype):
         return torch.zeros(kv_shape, dtype=dt, device=device)
@@ -161,6 +170,12 @@ def make_pool(kv_shape: tuple, kv_cache_dtype: str,
     return {"q": torch.zeros(q_shape, dtype=dt, device=device),
             "scale": torch.zeros(tuple(lead), dtype=torch.float32,
                                  device=device)}
+
+
+def pool_bytes(kv: Any) -> int:
+    """Device bytes of a pool (this rank's shard of it on a mesh)."""
+    leaves = kv.values() if is_quantized(kv) else (kv,)
+    return sum(t.numel() * t.element_size() for t in leaves)
 
 
 def n_slots(kv: Any) -> int:

@@ -36,12 +36,26 @@ chained rung, the gather path otherwise). The dense attention
 kernel, and stays plain PyTorch. Each entry point takes ``lora=``
 (stacked adapters, ``models/lora.py``) and ``adapter_idx=`` (the adapter
 row of each sequence): the deltas join the projections before the bias
-and RoPE, the out-projection and the dense MLP, as in the reference. The
-sequence-parallel prefills wait for a mesh (ROADMAP queue 1).
+and RoPE, the out-projection and the dense MLP, as in the reference.
+
+**On a mesh** (``mesh=``, ``parallel/mesh.py``) each entry point is the
+rank-local model over this rank's shards (``parallel/sharding.py``):
+H/tp query and Hkv/tp KV heads, F/tp MLP columns and V/tp vocabulary
+rows. The embedding is a masked lookup of the rows this rank holds,
+summed over ``tp``; ``wo`` and ``w_down`` end in an all-reduce over
+``tp`` (a family's ``mlp`` hook reduces its own output); the logits end
+in a gather over ``tp``, so every rank holds the same full logits. An
+adapter's column-parallel targets use the rank's B columns, ``wo`` and
+``w_down`` its A rows, whose partial delta joins the partial product
+before the all-reduce. The attention kernels run as they are on the
+local heads. Without a mesh nothing changes and no collective is
+issued. The sequence-parallel prefills wait for an ``sp`` axis (ROADMAP
+queue 1 item 7).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -180,14 +194,28 @@ def _w(p: dict[str, torch.Tensor], key: str) -> torch.Tensor:
     return q * scale
 
 
-def _embed_rows(p: dict[str, torch.Tensor],
-                tokens: torch.Tensor) -> torch.Tensor:
+def _embed_rows(p: dict[str, torch.Tensor], tokens: torch.Tensor,
+                mesh=None) -> torch.Tensor:
+    """Embedding rows of ``tokens``. On a mesh this rank holds rows
+    ``[r V/tp, (r + 1) V/tp)``: it looks up the tokens in its range and
+    zeros the others, and the sum over ``tp`` is every row exactly."""
     q = p.get("embed.q")
+    ok = None
+    if mesh is not None:
+        n = (p["embed"] if q is None else q).shape[0]
+        tokens = tokens - mesh.axis_index("tp") * n
+        ok = (tokens >= 0) & (tokens < n)
+        tokens = torch.where(ok, tokens, torch.zeros_like(tokens))
     if q is None:
-        return p["embed"][tokens]
-    rows = q[tokens].to(torch.bfloat16)
-    scales = p["embed.scale"][:, 0][tokens]
-    return rows * scales[..., None].to(torch.bfloat16)
+        rows = p["embed"][tokens]
+    else:
+        rows = q[tokens].to(torch.bfloat16)
+        scales = p["embed.scale"][:, 0][tokens]
+        rows = rows * scales[..., None].to(torch.bfloat16)
+    if ok is None:
+        return rows
+    rows = torch.where(ok[..., None], rows, torch.zeros_like(rows))
+    return mesh.all_reduce(rows, "tp")
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -239,12 +267,28 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return decode_fused.rope_rotate(x, torch.cos(angles), torch.sin(angles))
 
 
-def _adapters(lora, adapter_idx, row_seq=None):
+def _adapters(lora, adapter_idx, row_seq=None, mesh=None):
     """The (stacks, row per sequence, sequence per packed row) triple
-    the projections hand ``lora_delta``, or None without adapters."""
+    the projections hand ``lora_delta``, or None without adapters. On a
+    mesh the stacks are this rank's views (``_lora_shard``)."""
     if lora is None or adapter_idx is None:
         return None
+    if mesh is not None:
+        lora = {k: _lora_shard(k, t, mesh) for k, t in lora.items()}
     return lora, adapter_idx, row_seq
+
+
+def _lora_shard(key: str, t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's view of one adapter stack (A ``[n, r, in]``, B ``[n,
+    out, r]``): the B rows of a column-parallel target's output columns,
+    the A columns of ``wo``'s and ``w_down``'s input rows; the other
+    stack of the pair is whole."""
+    row_parallel = key.split(".")[-2] in ("wo", "w_down")
+    if key.endswith(".lora_a") != row_parallel:
+        return t
+    dim = 2 if row_parallel else 1
+    n = t.shape[dim] // mesh.shape["tp"]
+    return t.narrow(dim, mesh.axis_index("tp") * n, n)
 
 
 def _with_delta(y: torch.Tensor, ad, key: str,
@@ -263,9 +307,10 @@ def _project_qkv(p, i, x, positions, cfg, apply_rope=True, plain=False,
     v = _with_delta(_matmul(p, f"l{i}.wv", x, plain), ad, f"l{i}.wv", x)
     if cfg.attn_bias:
         q, k, v = q + p[f"l{i}.bq"], k + p[f"l{i}.bk"], v + p[f"l{i}.bv"]
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    # this rank's heads (all of them without a mesh)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if apply_rope:  # the fused decode kernel ropes Q/K itself
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -296,35 +341,45 @@ def _attention(q: torch.Tensor,  # [B, S, H, D]
     return out.to(v.dtype).reshape(B, S, H * D)
 
 
-def _wo(p, i, attn, plain=False, ad=None):
+def _reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel product's partial sums, summed over ``tp``."""
+    return x if mesh is None else mesh.all_reduce(x, "tp")
+
+
+def _wo(p, i, attn, plain=False, ad=None, mesh=None):
     """The attention out-projection with its adapter delta."""
-    return _with_delta(_matmul(p, f"l{i}.wo", attn, plain), ad,
-                       f"l{i}.wo", attn)
+    return _reduce(_with_delta(_matmul(p, f"l{i}.wo", attn, plain), ad,
+                               f"l{i}.wo", attn), mesh)
 
 
-def _mlp(p, i, x, plain=False, ad=None):
+def _mlp(p, i, x, plain=False, ad=None, mesh=None):
     gate = F.silu(_with_delta(_matmul(p, f"l{i}.w_gate", x, plain), ad,
                               f"l{i}.w_gate", x))
     up = _with_delta(_matmul(p, f"l{i}.w_up", x, plain), ad,
                      f"l{i}.w_up", x)
     h = gate * up
-    return _with_delta(_matmul(p, f"l{i}.w_down", h, plain), ad,
-                       f"l{i}.w_down", h)
+    return _reduce(_with_delta(_matmul(p, f"l{i}.w_down", h, plain), ad,
+                               f"l{i}.w_down", h), mesh)
 
 
-def _dense_mlp(mlp, ad):
+def _dense_mlp(mlp, ad, mesh=None):
     """The layer MLP an entry point runs: a family's ``mlp`` hook as
-    given (no adapter deltas), else the dense MLP with ``ad``'s."""
+    given (no adapter deltas; on a mesh it reduces its own output), else
+    the dense MLP with ``ad``'s."""
     if mlp is not None:
         return mlp
-    return lambda p, i, h, plain: _mlp(p, i, h, plain, ad)
+    return lambda p, i, h, plain: _mlp(p, i, h, plain, ad, mesh)
 
 
 def _logits(p, cfg: LlamaConfig, x: torch.Tensor,
-            plain: bool = False) -> torch.Tensor:
+            plain: bool = False, mesh=None) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return _mm(x, _w(p, "embed").T).float()
-    return _matmul(p, "lm_head", x, plain).float()
+        y = _mm(x, _w(p, "embed").T)
+    else:
+        y = _matmul(p, "lm_head", x, plain)
+    if mesh is not None:
+        y = mesh.all_gather_last(y, "tp")
+    return y.float()
 
 
 def _write_slots(kv_cache: Any, page_table: torch.Tensor, pos: torch.Tensor,
@@ -452,6 +507,7 @@ def prefill_ragged(
     mlp: Any = None,
     lora: dict[str, torch.Tensor] | None = None,
     adapter_idx: torch.Tensor | None = None,  # [B] adapter row per sequence
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, Any]:
     """Ragged prefill: sequence b's new tokens occupy a contiguous run of
     packed rows (grouped and ascending in b, padding at the tail), at
@@ -477,8 +533,8 @@ def prefill_ragged(
     dev = tokens.device
     valid = row_seq < B
     rs = torch.clamp(row_seq, max=B - 1).long()
-    ad = _adapters(lora, adapter_idx, rs)
-    mlp = _dense_mlp(mlp, ad)
+    ad = _adapters(lora, adapter_idx, rs, mesh)
+    mlp = _dense_mlp(mlp, ad, mesh)
     pt_rows = page_table.long()[rs]  # [T, P]
     pos = positions.long()
     slot = torch.gather(pt_rows, 1, (pos // page_size)[:, None])[:, 0] \
@@ -496,9 +552,8 @@ def prefill_ragged(
 
     if windowed:
         chunk_pages = _window_pages(pos, valid, page_size, P)
-    x = _embed_rows(p, tokens.long())[:, None]  # [T, 1, dim]
+    x = _embed_rows(p, tokens.long(), mesh)[:, None]  # [T, 1, dim]
     pos2 = pos[:, None]
-    HD = cfg.n_heads * cfg.head_dim
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(p, i, h, pos2, cfg, plain=plain, ad=ad)
@@ -512,12 +567,12 @@ def prefill_ragged(
         else:
             attn = attend(q[:, 0].contiguous(), kr, vr, pt32, cu,
                           start.contiguous(), page_size=page_size)
-        x = x + _wo(p, i, attn.reshape(T, 1, HD), plain, ad)
+        x = x + _wo(p, i, attn.reshape(T, 1, -1), plain, ad, mesh)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
         x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
     last = x[torch.clamp(last_rows.long(), 0, T - 1), 0]  # [B, dim]
-    return _logits(p, cfg, last, plain), kv_cache
+    return _logits(p, cfg, last, plain, mesh), kv_cache
 
 
 def prefill(
@@ -533,6 +588,7 @@ def prefill(
     mlp: Any = None,
     lora: dict[str, torch.Tensor] | None = None,
     adapter_idx: torch.Tensor | None = None,  # [B] adapter row per sequence
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, Any]:
     """The bucketed prefill (the reference's ``prefill``): whole prompts
     right-padded to one ``[B, S]`` block. The prompt attends only itself
@@ -544,20 +600,20 @@ def prefill(
     B, S = tokens.shape
     pos, valid, mask = _causal_block(seq_lens, S)
     flat = _write_slots(kv_cache, page_table, pos, valid, page_size)
-    ad = _adapters(lora, adapter_idx)
-    mlp = _dense_mlp(mlp, ad)
-    x = _embed_rows(p, tokens.long())  # [B, S, dim]
+    ad = _adapters(lora, adapter_idx, mesh=mesh)
+    mlp = _dense_mlp(mlp, ad, mesh)
+    x = _embed_rows(p, tokens.long(), mesh)  # [B, S, dim]
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(p, i, h, pos, cfg, plain=plain, ad=ad)
         kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
-        x = x + _wo(p, i, _attention(q, k, v, mask), plain, ad)
+        x = x + _wo(p, i, _attention(q, k, v, mask), plain, ad, mesh)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
         x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
     last = torch.clamp(seq_lens.long() - 1, 0, S - 1)
     return _logits(p, cfg, x[torch.arange(B, device=x.device), last],
-                   plain), kv_cache
+                   plain, mesh), kv_cache
 
 
 def prefill_suffix(
@@ -574,6 +630,7 @@ def prefill_suffix(
     mlp: Any = None,
     lora: dict[str, torch.Tensor] | None = None,
     adapter_idx: torch.Tensor | None = None,  # [B] adapter row per sequence
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, Any]:
     """Prefill the suffix of a prompt whose prefix K/V already sits in
     the pool (a prefix-cache resume, or one chunk of the chunked
@@ -593,21 +650,22 @@ def prefill_suffix(
     gslot = _window_slots(page_table, page_size)
     mask = (torch.arange(gslot.shape[1], device=dev)[None, None, :]
             <= pos[:, :, None]) & valid[..., None]
-    ad = _adapters(lora, adapter_idx)
-    mlp = _dense_mlp(mlp, ad)
-    x = _embed_rows(p, tokens.long())
+    ad = _adapters(lora, adapter_idx, mesh=mesh)
+    mlp = _dense_mlp(mlp, ad, mesh)
+    x = _embed_rows(p, tokens.long(), mesh)
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(p, i, h, pos, cfg, plain=plain, ad=ad)
         kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
         k_all, v_all = kvq.gather_kv(kv_cache, i, gslot)
-        x = x + _wo(p, i, _attention(q, k_all, v_all, mask), plain, ad)
+        x = x + _wo(p, i, _attention(q, k_all, v_all, mask), plain, ad,
+                    mesh)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
         x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
     last = torch.clamp(seq_lens.long() - prefix_lens.long() - 1, 0, S - 1)
     return _logits(p, cfg, x[torch.arange(B, device=dev), last],
-                   plain), kv_cache
+                   plain, mesh), kv_cache
 
 
 def hidden_states(
@@ -620,6 +678,7 @@ def hidden_states(
     mlp: Any = None,
     lora: dict[str, torch.Tensor] | None = None,
     adapter_idx: torch.Tensor | None = None,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """Mean-pooled final hidden states (the ``/v1/embeddings`` pass, the
     reference's ``hidden_states``): the prefill's dense causal pass with
@@ -628,13 +687,13 @@ def hidden_states(
     input pools to zeros). Returns ``[B, dim]`` float32."""
     B, S = tokens.shape
     pos, valid, mask = _causal_block(seq_lens, S)
-    ad = _adapters(lora, adapter_idx)
-    mlp = _dense_mlp(mlp, ad)
-    x = _embed_rows(p, tokens.long())
+    ad = _adapters(lora, adapter_idx, mesh=mesh)
+    mlp = _dense_mlp(mlp, ad, mesh)
+    x = _embed_rows(p, tokens.long(), mesh)
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(p, i, h, pos, cfg, plain=plain, ad=ad)
-        x = x + _wo(p, i, _attention(q, k, v, mask), plain, ad)
+        x = x + _wo(p, i, _attention(q, k, v, mask), plain, ad, mesh)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
         x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
@@ -657,6 +716,7 @@ def decode_step(
     mlp: Any = None,
     lora: dict[str, torch.Tensor] | None = None,
     adapter_idx: torch.Tensor | None = None,  # [B] adapter row per slot
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, Any]:
     """One continuous-batching decode step; returns (logits [B, V]
     float32, pool). ``attn_impl`` selects the decode rung:
@@ -688,8 +748,8 @@ def decode_step(
         raise NotImplementedError(
             "the chained decode kernel has no quantized-pool rung: the "
             "fallback matrix resolves int8/int4 to the fused rung")
-    ad = _adapters(lora, adapter_idx)
-    mlp = _dense_mlp(mlp, ad)
+    ad = _adapters(lora, adapter_idx, mesh=mesh)
+    mlp = _dense_mlp(mlp, ad, mesh)
     B = tokens.shape[0]
     pos1 = positions.long()[:, None]
     active = active.bool()
@@ -698,6 +758,13 @@ def decode_step(
     if fused:
         step = (decode_fused.fused_paged_decode_plain if plain
                 else decode_fused.fused_paged_decode)
+        if mesh is not None:
+            # each rank walks its local head shard of the pool (the
+            # counterpart of the reference's paged_decode_walk_spmd)
+            step = functools.partial(decode_fused.fused_paged_decode_shard,
+                                     step=step, mesh=mesh,
+                                     n_heads=cfg.n_heads,
+                                     n_kv_heads=cfg.n_kv_heads)
         # converted once per step, shared by every layer's launch
         tables = decode_fused.rope_tables(positions, cfg.head_dim,
                                           cfg.rope_theta)
@@ -718,8 +785,7 @@ def decode_step(
         gslot = _window_slots(page_table, page_size)
         mask = (torch.arange(gslot.shape[1], device=gslot.device)[None, :]
                 <= pos1)[:, None, :]  # [B, 1, T]
-    HD = cfg.n_heads * cfg.head_dim
-    x = _embed_rows(p, tokens.long())[:, None]  # [B, 1, dim]
+    x = _embed_rows(p, tokens.long(), mesh)[:, None]  # [B, 1, dim]
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(p, i, h, pos1, cfg, apply_rope=not fused,
@@ -731,22 +797,22 @@ def decode_step(
                 q[:, 0].contiguous(), k[:, 0].contiguous(),
                 v[:, 0].contiguous(), kr, vr, pt32, pos32, act32, ksc, vsc,
                 rope_theta=cfg.rope_theta, page_size=page_size,
-                tables=tables)[0].reshape(B, 1, HD)
+                tables=tables)[0].reshape(B, 1, -1)
         else:
             kv_cache = kvq.scatter_kv(kv_cache, i, flat, k, v)
             if attn_impl == "chained":
                 kr, _ = kvq.layer_pool(kv_cache, i, 0)
                 vr, _ = kvq.layer_pool(kv_cache, i, 1)
                 attn = walk(q[:, 0].contiguous(), kr, vr, pt32, lengths,
-                            page_size=page_size).reshape(B, 1, HD)
+                            page_size=page_size).reshape(B, 1, -1)
             else:
                 k_all, v_all = kvq.gather_kv(kv_cache, i, gslot)
                 attn = _attention(q, k_all, v_all, mask)
-        x = x + _wo(p, i, attn, plain, ad)
+        x = x + _wo(p, i, attn, plain, ad, mesh)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
         x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
-    return _logits(p, cfg, x[:, 0], plain), kv_cache
+    return _logits(p, cfg, x[:, 0], plain, mesh), kv_cache
 
 
 def verify_step(
@@ -765,6 +831,7 @@ def verify_step(
     mlp: Any = None,
     lora: dict[str, torch.Tensor] | None = None,
     adapter_idx: torch.Tensor | None = None,  # [B] adapter row per slot
+    mesh: Any = None,
 ) -> tuple[torch.Tensor, Any]:
     """Speculative decoding's verifier: S candidate positions per slot
     in one step; returns (logits at every position [B, S, V] float32,
@@ -786,8 +853,8 @@ def verify_step(
     if attn_impl not in ("", "chained"):
         raise ValueError(f"attn_impl must be '' or 'chained' "
                          f"(got {attn_impl!r})")
-    ad = _adapters(lora, adapter_idx)
-    mlp = _dense_mlp(mlp, ad)
+    ad = _adapters(lora, adapter_idx, mesh=mesh)
+    mlp = _dense_mlp(mlp, ad, mesh)
     chained = attn_impl == "chained"
     if chained and kvq.is_quantized(kv_cache):
         raise NotImplementedError(
@@ -812,8 +879,7 @@ def verify_step(
         gslot = _window_slots(page_table, page_size)
         mask = (torch.arange(gslot.shape[1], device=dev)[None, None, :]
                 <= pos[:, :, None]) & valid[..., None]
-    HD = cfg.n_heads * cfg.head_dim
-    x = _embed_rows(p, tokens.long())  # [B, S, dim]
+    x = _embed_rows(p, tokens.long(), mesh)  # [B, S, dim]
     for i in range(cfg.n_layers):
         h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(p, i, h, pos, cfg, plain=plain, ad=ad)
@@ -822,12 +888,12 @@ def verify_step(
             kr, _ = kvq.layer_pool(kv_cache, i, 0)
             vr, _ = kvq.layer_pool(kv_cache, i, 1)
             attn = attend(q.contiguous(), kr, vr, pt32, pos0,
-                          page_size=page_size).reshape(B, S, HD)
+                          page_size=page_size).reshape(B, S, -1)
         else:
             k_all, v_all = kvq.gather_kv(kv_cache, i, gslot)
             attn = _attention(q, k_all, v_all, mask)
-        x = x + _wo(p, i, attn, plain, ad)
+        x = x + _wo(p, i, attn, plain, ad, mesh)
         h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
         x = x + mlp(p, i, h, plain)
     x = rms_norm(x, p["norm_f"], cfg.norm_eps)
-    return _logits(p, cfg, x, plain), kv_cache
+    return _logits(p, cfg, x, plain, mesh), kv_cache

@@ -34,6 +34,16 @@ expert, then the count the fence dropped, over every row the call ran
 ``hidden_states`` keeps no tape, as in the reference. The
 sequence-parallel prefills wait with their llama counterparts (ROADMAP
 queue 1).
+
+**On an ``ep`` x ``tp`` mesh** (``mesh=``) the router is replicated and
+each rank holds E/ep experts and F/tp of their columns
+(``parallel/sharding.mixtral_param_specs``). Every rank routes every row
+and runs the capacity fence on the same routing, so the routing counts
+are the same on every rank; it runs the experts it holds on their
+buffer rows, combines what they give in float32, and an all-reduce over
+``tp`` x ``ep`` sums the ranks' partial outputs. The reference's GSPMD
+turns the dispatch and combine into all-to-alls instead; the sums are
+the same.
 """
 
 from __future__ import annotations
@@ -158,12 +168,14 @@ def top_k(logits: torch.Tensor, k: int) -> tuple[torch.Tensor,
 
 
 def moe_mlp(p: dict[str, torch.Tensor], i: int, x: torch.Tensor,
-            cfg: MixtralConfig, stats: list | None = None) -> torch.Tensor:
+            cfg: MixtralConfig, stats: list | None = None,
+            mesh=None) -> torch.Tensor:
     """Top-k sparse MLP of layer ``i`` over every row of x ``[..., D]``
     (T rows in all, padding included), as the reference's
     ``mixtral.moe_mlp``. With ``stats`` (a list), appends the layer's
     ``[E + 1]`` int32 routing counts: placed per expert, then
-    dropped."""
+    dropped. On a mesh, this rank's experts and columns, summed over
+    ``tp`` x ``ep``."""
     *lead, D = x.shape
     T = math.prod(lead)
     E, K = cfg.n_experts, cfg.experts_per_token
@@ -193,6 +205,9 @@ def moe_mlp(p: dict[str, torch.Tensor], i: int, x: torch.Tensor,
     buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
     buf[dest] = xt[src]
     xe = buf[:E * C].view(E, C, D)
+    if mesh is not None:
+        return _moe_local(p, i, x, xe, expert, pos, keep, weights,
+                          C, mesh)
     # the expert MLP; each dequantized stack is freed before the next
     gate = F.silu(llama._mm(xe, llama._w(p, f"l{i}.w_gate")))
     h = gate * llama._mm(xe, llama._w(p, f"l{i}.w_up"))
@@ -207,8 +222,31 @@ def moe_mlp(p: dict[str, torch.Tensor], i: int, x: torch.Tensor,
     return out.to(x.dtype).view(*lead, D)
 
 
-def _mlp_fn(cfg: MixtralConfig, stats: list | None):
-    return lambda p, i, x, plain: moe_mlp(p, i, x, cfg, stats)
+def _moe_local(p, i, x, xe, expert, pos, keep, weights, C: int, mesh):
+    """The experts this rank holds over their buffer rows ``xe[e_lo:
+    e_hi]``, combined in float32 and summed over ``tp`` x ``ep``."""
+    *lead, D = x.shape
+    T, K = weights.shape
+    w = p.get(f"l{i}.w_gate.q")
+    n_local = (p[f"l{i}.w_gate"] if w is None else w).shape[0]
+    lo = mesh.axis_index("ep") * n_local
+    xl = xe[lo:lo + n_local]
+    gate = F.silu(llama._mm(xl, llama._w(p, f"l{i}.w_gate")))
+    h = gate * llama._mm(xl, llama._w(p, f"l{i}.w_up"))
+    del gate
+    ye = llama._mm(h, llama._w(p, f"l{i}.w_down"))
+    del h
+    mine = keep & (expert >= lo) & (expert < lo + n_local)
+    row = torch.where(mine, (expert - lo) * C + pos, torch.zeros_like(pos))
+    rows = ye.reshape(n_local * C, D).float()[row]
+    contrib = torch.where(mine[:, None],
+                          rows * weights.reshape(T * K, 1), 0.0)
+    out = mesh.all_reduce(contrib.view(T, K, D).sum(1), "tp", "ep")
+    return out.to(x.dtype).view(*lead, D)
+
+
+def _mlp_fn(cfg: MixtralConfig, stats: list | None, mesh=None):
+    return lambda p, i, x, plain: moe_mlp(p, i, x, cfg, stats, mesh)
 
 
 def _with_moe(out, stats: list | None):
@@ -227,52 +265,59 @@ def _with_moe(out, stats: list | None):
 def prefill_ragged(p, cfg: MixtralConfig, tokens, row_seq, positions,
                    last_rows, kv_cache, page_table, page_size, *,
                    plain=False, moe_stats=False, lora=None,
-                   adapter_idx=None):
+                   adapter_idx=None, mesh=None):
     stats: list | None = [] if moe_stats else None
     return _with_moe(llama.prefill_ragged(
         p, cfg.as_llama(), tokens, row_seq, positions, last_rows, kv_cache,
-        page_table, page_size, plain=plain, mlp=_mlp_fn(cfg, stats)), stats)
+        page_table, page_size, plain=plain, mlp=_mlp_fn(cfg, stats, mesh),
+        mesh=mesh), stats)
 
 
 def prefill(p, cfg: MixtralConfig, tokens, seq_lens, kv_cache, page_table,
             page_size, *, plain=False, moe_stats=False, lora=None,
-            adapter_idx=None):
+            adapter_idx=None, mesh=None):
     stats: list | None = [] if moe_stats else None
     return _with_moe(llama.prefill(
         p, cfg.as_llama(), tokens, seq_lens, kv_cache, page_table,
-        page_size, plain=plain, mlp=_mlp_fn(cfg, stats)), stats)
+        page_size, plain=plain, mlp=_mlp_fn(cfg, stats, mesh),
+        mesh=mesh), stats)
 
 
 def prefill_suffix(p, cfg: MixtralConfig, tokens, prefix_lens, seq_lens,
                    kv_cache, page_table, page_size, *, plain=False,
-                   moe_stats=False, lora=None, adapter_idx=None):
+                   moe_stats=False, lora=None, adapter_idx=None,
+                   mesh=None):
     stats: list | None = [] if moe_stats else None
     return _with_moe(llama.prefill_suffix(
         p, cfg.as_llama(), tokens, prefix_lens, seq_lens, kv_cache,
-        page_table, page_size, plain=plain, mlp=_mlp_fn(cfg, stats)), stats)
+        page_table, page_size, plain=plain, mlp=_mlp_fn(cfg, stats, mesh),
+        mesh=mesh), stats)
 
 
 def hidden_states(p, cfg: MixtralConfig, tokens, seq_lens, *, plain=False,
-                  lora=None, adapter_idx=None):
+                  lora=None, adapter_idx=None, mesh=None):
     return llama.hidden_states(p, cfg.as_llama(), tokens, seq_lens,
-                               plain=plain, mlp=_mlp_fn(cfg, None))
+                               plain=plain, mlp=_mlp_fn(cfg, None, mesh),
+                               mesh=mesh)
 
 
 def decode_step(p, cfg: MixtralConfig, tokens, positions, kv_cache,
                 page_table, page_size, active, attn_impl="fused", *,
-                plain=False, moe_stats=False, lora=None, adapter_idx=None):
+                plain=False, moe_stats=False, lora=None, adapter_idx=None,
+                mesh=None):
     stats: list | None = [] if moe_stats else None
     return _with_moe(llama.decode_step(
         p, cfg.as_llama(), tokens, positions, kv_cache, page_table,
         page_size, active, attn_impl, plain=plain,
-        mlp=_mlp_fn(cfg, stats)), stats)
+        mlp=_mlp_fn(cfg, stats, mesh), mesh=mesh), stats)
 
 
 def verify_step(p, cfg: MixtralConfig, tokens, positions, kv_cache,
                 page_table, page_size, active, limits, attn_impl="", *,
-                plain=False, moe_stats=False, lora=None, adapter_idx=None):
+                plain=False, moe_stats=False, lora=None, adapter_idx=None,
+                mesh=None):
     stats: list | None = [] if moe_stats else None
     return _with_moe(llama.verify_step(
         p, cfg.as_llama(), tokens, positions, kv_cache, page_table,
         page_size, active, limits, attn_impl, plain=plain,
-        mlp=_mlp_fn(cfg, stats)), stats)
+        mlp=_mlp_fn(cfg, stats, mesh), mesh=mesh), stats)

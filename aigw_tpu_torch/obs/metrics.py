@@ -335,6 +335,10 @@ ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
     ("kv_bytes_in_use", "tpuserve_kv_bytes_in_use"),
     ("device_count", "tpuserve_device_count"),
     ("device_memory_frac_worst", "tpuserve_device_memory_frac_worst"),
+    # the analytical collective bytes of one decoded token on the mesh,
+    # and the running total (0 off-mesh)
+    ("ici_bytes_per_token", "tpuserve_ici_bytes_per_token"),
+    ("ici_bytes_total", "tpuserve_ici_bytes_total"),
     ("kv_quant_bits", "tpuserve_kv_quant_bits"),
     ("kv_bytes_per_token", "tpuserve_kv_bytes_per_token"),
     ("moe_tokens_routed", "tpuserve_moe_tokens_routed_total"),
@@ -366,14 +370,13 @@ ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
 
 _MESH = "item 7, multi-GPU"
 #: the reference's engine gauges the port does not export yet:
-#: EngineStats attribute → (gauge name, ROADMAP queue 1 entry)
+#: EngineStats attribute → (gauge name, ROADMAP queue 1 entry): the
+#: sequence-parallel prefill's
 GAUGES_NOT_PORTED: dict[str, tuple[str, str]] = {
     "sp_prefills": ("tpuserve_sp_prefills_total", _MESH),
     "sp_chunked_prefills": ("tpuserve_sp_chunked_prefills_total", _MESH),
     "sp_resume_prefills": ("tpuserve_sp_resume_prefills_total", _MESH),
     "sp_interactive_admits": ("tpuserve_sp_interactive_admits_total", _MESH),
-    "ici_bytes_per_token": ("tpuserve_ici_bytes_per_token", _MESH),
-    "ici_bytes_total": ("tpuserve_ici_bytes_total", _MESH),
 }
 
 

@@ -25,7 +25,9 @@ On the card each sequence's keys are split over blocks by
 ``split_pages`` (shared with K4), the block whose split holds the
 position appends (``appending_split``), and the splits fold in the same
 launch.
-The mesh walk waits for a later slice (ROADMAP queue 1).
+On a tensor-parallel mesh each rank runs this fused decode on its own
+head shard (``fused_paged_decode_shard``, the counterpart of the
+reference's ``paged_decode_walk_spmd``).
 """
 
 from __future__ import annotations
@@ -315,3 +317,27 @@ def fused_paged_decode(
 fused_paged_decode.launches = 0
 fused_paged_decode.launches_int8 = 0
 fused_paged_decode.launches_int4 = 0
+
+
+def fused_paged_decode_shard(*args, step=fused_paged_decode, mesh,
+                             n_heads: int, n_kv_heads: int, **kw):
+    """The fused decode over this rank's head shard: the port's
+    counterpart of the reference's ``paged_decode_walk_spmd``
+    (``aigw_tpu/ops/pallas/decode_fused.py``), which walks each device's
+    local head shard of the pool inside ``shard_map``. Here every rank
+    is its own process and already holds only its shard: q ``[B,
+    H/tp, D]``, the new K/V ``[B, Hkv/tp, D]`` and the pool's ``[n_slots,
+    Hkv/tp, ...]`` rows (and scales), so the step is ``step`` (K2 on a
+    native pool, K7 on int8/int4; ``fused_paged_decode_plain`` for the
+    plain version) over them, with no collective: the layer's all-reduce
+    after ``wo`` is the model's. Raises unless the shapes are whole head
+    shards of ``n_heads`` / ``n_kv_heads`` over the mesh's ``tp``."""
+    tp = mesh.shape["tp"]
+    q, k_rows = args[0], args[3]
+    if n_heads % tp or n_kv_heads % tp or q.shape[1] * tp != n_heads \
+            or k_rows.shape[1] * tp != n_kv_heads:
+        raise ValueError(
+            f"fused_paged_decode_shard: q {tuple(q.shape)} and pool rows "
+            f"{tuple(k_rows.shape)} are not one of tp={tp} shards of "
+            f"{n_heads}q/{n_kv_heads}kv heads")
+    return step(*args, **kw)

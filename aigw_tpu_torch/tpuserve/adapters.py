@@ -91,6 +91,9 @@ class AdapterStore:
         # monotonic counters (EngineStats, /state)
         self.loads = 0
         self.evictions = 0
+        # how a row is loaded: ``_load`` unless an engine on a mesh
+        # routes it through its device operations (every rank loads it)
+        self.loader = None
 
     # -- zoo ---------------------------------------------------------------
     def register(self, name: str, adapter: dict) -> None:
@@ -157,7 +160,7 @@ class AdapterStore:
             self._parked.pop(row, None)  # back in use
             return row
         row = self._pop_row()
-        self._load(row, name)
+        (self.loader or self._load)(row, name)
         self._row_of[name] = row
         self._name_of[row] = name
         self._refs[row] = 1

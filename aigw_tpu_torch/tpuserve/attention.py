@@ -597,16 +597,22 @@ def _unpack_row(out: Any, g: int) -> tuple[int, tuple | None]:
     return toks, (chosen, list(zip(ids, vals)))
 
 
-def resolve_attention_backend(cfg, device: torch.device) -> tuple[str, str]:
+def resolve_attention_backend(cfg, device: torch.device,
+                              mesh=None) -> tuple[str, str]:
     """The prefill half of the fallback matrix: (resolved backend, WHY).
     ``prefill_ragged`` picks the attention from the pool it is given.
 
     | requested     | kv dtype  | device | resolved      | attention |
     |---------------|-----------|--------|---------------|-----------|
     | xla-bucketed  | any       | any    | xla-bucketed  | dense, plain PyTorch (the reference's XLA) |
-    | pallas-ragged | native    | cuda   | pallas-ragged | K1 CUDA kernel |
+    | pallas-ragged | native    | cuda   | pallas-ragged | K1 CUDA kernel (per rank on a mesh) |
     | pallas-ragged | native    | cpu    | pallas-ragged | K1 plain PyTorch |
     | pallas-ragged | int8/int4 | any    | pallas-ragged | windowed program, plain PyTorch (dequant at the read) |
+
+    On a mesh the reference runs its windowed program (SPMD, the pool
+    sharded on heads; its Pallas kernel addresses one local pool); the
+    port runs K1 on each rank's local heads, which computes the same
+    attention. The reason says so.
     """
     if cfg.attention_backend != "pallas-ragged":
         return "xla-bucketed", "requested"
@@ -616,12 +622,19 @@ def resolve_attention_backend(cfg, device: torch.device) -> tuple[str, str]:
             "prefill kernel has no quantized-pool rung (nor has the "
             "reference's), so the windowed program dequantizes prefix "
             "pages at the read, in plain PyTorch on every device")
+    how = ("CUDA kernel" if device.type == "cuda"
+           else "plain PyTorch version (device=cpu)")
+    if mesh is not None:
+        return "pallas-ragged", (
+            f"{how} on each rank's local head shard of the pool "
+            f"(tp={mesh.shape['tp']}); the reference's mesh runs its "
+            "windowed program here, the same attention")
     return "pallas-ragged", ("CUDA kernel (single GPU)"
-                             if device.type == "cuda"
-                             else "plain PyTorch version (device=cpu)")
+                             if device.type == "cuda" else how)
 
 
-def resolve_decode_backend(cfg, device: torch.device) -> tuple[str, str]:
+def resolve_decode_backend(cfg, device: torch.device, model_cfg=None,
+                           mesh=None) -> tuple[str, str]:
     """The decode half of the fallback matrix: (resolved decode rung,
     WHY), exported on /state as ``decode_attn_impl`` /
     ``decode_attn_reason``. ``auto`` requests the chained rung, as in
@@ -637,6 +650,11 @@ def resolve_decode_backend(cfg, device: torch.device) -> tuple[str, str]:
     | fused               | any       | cuda   | fused-cuda     |
     | fused               | any       | cpu    | fused-torch    |
 
+    On a mesh (the reference's rows): ``pallas_attn`` asks for the fused
+    rung, which walks each rank's local head shard (the counterpart of
+    ``paged_decode_walk_spmd``); a fused request whose heads do not
+    divide ``tp`` narrows to the gather rung.
+
     The gather rung gathers each slot's page window (an int8/int4 pool
     dequantized at the gather) and runs dense attention in plain
     PyTorch on every device, as the reference runs it in XLA; ``-cuda``
@@ -648,6 +666,19 @@ def resolve_decode_backend(cfg, device: torch.device) -> tuple[str, str]:
            else "plain PyTorch version (device=cpu)")
     quant = is_quantized_dtype(cfg.kv_cache_dtype)
     req = "chained" if cfg.decode_backend == "auto" else cfg.decode_backend
+    if mesh is not None and (req == "fused" or cfg.pallas_attn):
+        tp = mesh.shape["tp"]
+        why = ("decode_backend=fused" if req == "fused"
+               else "pallas_attn requested on a mesh")
+        if tp > 1 and (model_cfg.n_heads % tp or model_cfg.n_kv_heads % tp):
+            return f"gather-{where}", (
+                f"{why}, but heads ({model_cfg.n_heads}q/"
+                f"{model_cfg.n_kv_heads}kv) do not divide tp={tp}: the "
+                "local walk needs whole head shards per rank (narrowed "
+                "row)")
+        return f"fused-{where}", (
+            f"{why}: each rank runs the fused decode ({how}) on its "
+            f"local head shard of the paged pool (tp={tp})")
     if req == "chained" and not (cfg.pallas_attn and quant):
         if cfg.pallas_attn:
             return f"chained-{where}", (
@@ -674,7 +705,7 @@ def resolve_decode_backend(cfg, device: torch.device) -> tuple[str, str]:
 def make_attention_backend(engine: "Engine") -> AttentionBackend:
     """Resolve the prefill backend (logged, exported on /state)."""
     resolved, engine.attn_reason = resolve_attention_backend(
-        engine.cfg, engine.device)
+        engine.cfg, engine.device, engine.mesh)
     if resolved == "pallas-ragged":
         return RaggedPrefillBackend(engine)
     return XlaBucketedBackend(engine)

@@ -143,6 +143,17 @@ waits and under the ``batch_slot_frac`` ceiling; an interactive arrival
 on a full table parks batch slots through the export cut, and the tier
 resumes them, parked sessions first, through the import.
 
+**On a mesh** (``mesh=``, ``parallel/mesh.py``: one process per rank)
+the engine holds its rank's shards of the weights and the pool and runs
+the rank-local model (``models/llama.py``). Rank 0 leads: it runs this
+scheduler unchanged, and every device operation goes through ``_dev``,
+which first sends it to the followers (``tpuserve/follower.py``); they
+perform the same ``_op_*`` on their shards. Every rank computes the same
+full logits and samples the same tokens from the same replicated state,
+so nothing comes back. Every collective is issued on the engine thread
+(the embeddings pass and the launch-count gather are jobs on a mesh);
+``mesh_axes``, ``ici_bytes_*`` and the device stats cover every rank.
+
 Every default equals the reference's, and so does what it runs: a
 replica built from ``EngineConfig()`` prefills on the bucket ladder and
 decodes on the gather rung. Knobs of features the port does not
@@ -170,7 +181,12 @@ from aigw_tpu_torch.models import kvq
 from aigw_tpu_torch.obs.flight import trace_id_of
 from aigw_tpu_torch.obs.graph_events import CompileTracker
 from aigw_tpu_torch.obs.metrics import EnginePhases
-from aigw_tpu_torch.tpuserve import constrain, speculation
+from aigw_tpu_torch.parallel.sharding import (
+    analytical_ici_bytes_per_token,
+    shard_params,
+    shard_pool_heads,
+)
+from aigw_tpu_torch.tpuserve import constrain, follower, speculation
 from aigw_tpu_torch.tpuserve.adapters import (
     AdapterCapacityError,
     UnknownAdapterError,
@@ -553,6 +569,10 @@ class EngineStats:
     # the engine's devices (one) and the worst device's memory fraction
     device_count: int = 1
     device_memory_frac_worst: float = 0.0
+    # the analytical collective bytes of one decoded token on the mesh
+    # (0 off-mesh), and times the tokens generated
+    ici_bytes_per_token: int = 0
+    ici_bytes_total: int = 0
     # the offline batch class: waiting work (the never-shed queue plus
     # parked sessions), slots it holds (at most the batch_slot_frac
     # ceiling), sessions parked for interactive arrivals and resumed,
@@ -682,6 +702,10 @@ class Engine:
         # a hot-loaded zoo (tpuserve/adapters.py): refcounted rows with
         # LRU eviction; exclusive with the fixed stack above
         adapter_store: Any = None,
+        # this rank's parallel.mesh.Mesh: the engine holds its shards of
+        # the full ``params`` and of the pool; rank 0 leads, the others
+        # follow (tpuserve/follower.py). None: one device, no collective
+        mesh: Any = None,
     ):
         from aigw_tpu_torch.models.registry import family_fns
 
@@ -690,6 +714,8 @@ class Engine:
             if t.device.type != self.device.type:
                 raise ValueError(f"param {name} is on {t.device}, engine "
                                  f"device is {self.device}")
+        self.mesh = mesh
+        self._leader = mesh is not None and mesh.is_leader
         # multi-LoRA: the stacks and name → row map; the last row of a
         # stack is the all-zeros base-model row (models/lora.py). With a
         # store both are dynamic, resolved through it
@@ -710,8 +736,16 @@ class Engine:
             self.adapter_rows = {n: i for i, n in enumerate(adapter_names)}
             self._base_row = len(adapter_names)
         self.fns = fns or family_fns("llama")
-        self.params = params
         self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.eos = eos_token_ids
+        if mesh is not None:
+            self._check_mesh(mesh, model_cfg)
+            if self._leader:
+                follower.send(mesh, "engine",
+                              follower.engine_record(self, params))
+            params = shard_params(params, model_cfg, mesh)
+        self.params = params
         # MoE routing stats: per-expert placed and per-layer dropped
         # totals, folded from every call's [L, E + 1] leaf
         self._moe = bool(getattr(self.fns, "moe_stats", False))
@@ -722,8 +756,6 @@ class Engine:
                                            np.int64)
         self._moe_layer_drops = np.zeros(max(int(model_cfg.n_layers), 1),
                                          np.int64)
-        self.cfg = cfg
-        self.eos = eos_token_ids
         if cfg.enable_prefix_cache:
             self.allocator = RefcountedAllocator(cfg.num_pages,
                                                  cfg.page_size)
@@ -786,7 +818,7 @@ class Engine:
                     (cfg.num_pages + 1) * cfg.page_size,
                     model_cfg.n_kv_heads, model_cfg.head_dim)
         self.kv_cache = kvq.make_pool(kv_shape, cfg.kv_cache_dtype,
-                                      self.device)
+                                      self.device, mesh)
         # device bytes of one page: packed elements plus, for a quantized
         # pool, one float32 scale per token row and KV head for K and V
         # (the reference's kv_page_bytes)
@@ -797,6 +829,13 @@ class Engine:
             * (model_cfg.head_dim * per_elt + scale))
         self.stats.kv_bytes_per_token = round(
             self.kv_page_bytes / cfg.page_size, 3)
+        # the reference's analytical collective volume of one decoded
+        # token (parallel/sharding.py), priced at the first weight's
+        # element size as the reference prices it
+        first = next(iter(self.params.values()), None)
+        self.ici_bytes_per_token = analytical_ici_bytes_per_token(
+            model_cfg, mesh, 2 if first is None else first.element_size())
+        self.stats.ici_bytes_per_token = self.ici_bytes_per_token
         # per-slot decode state lives ON DEVICE between ticks; membership
         # changes patch single rows (_dirty_rows), never the live rows of
         # in-flight slots
@@ -826,7 +865,11 @@ class Engine:
         # by the tracker; the per-slot decode state they update is
         # allocated once (``_state``, by the first build)
         self.compile_tracker = CompileTracker()
-        self.programs = ProgramPool(self.device, self.compile_tracker)
+        # a gloo group cannot be captured into a CUDA graph: on one (two
+        # ranks sharing a card) the programs run eagerly
+        self.programs = ProgramPool(
+            self.device, self.compile_tracker,
+            capture=mesh is None or mesh.backend == "nccl")
         self._decode_fns: dict[tuple, ProgramFamily] = {}
         # prefill entry point → its family (the reference's "prefill",
         # "prefill_suffix" and "prefill_ragged" programs)
@@ -838,7 +881,11 @@ class Engine:
             if (f := getattr(self.fns, name, None)) is not None}
         self._state: dict[str, torch.Tensor] | None = None
         self.decode_attn_impl, self.decode_attn_reason = (
-            resolve_decode_backend(cfg, self.device))
+            resolve_decode_backend(cfg, self.device, model_cfg, mesh))
+        if self.device.type == "cuda" and not self.programs.capture:
+            self.decode_attn_reason += (
+                "; programs run eagerly: a gloo group's collectives "
+                "cannot be captured in a CUDA graph")
         # decode_step's attn_impl: the gather rung is its "" branch
         self._decode_impl = {"fused": "fused", "chained": "chained",
                              "gather": ""}[
@@ -871,13 +918,89 @@ class Engine:
         self._state_dtypes = (_STATE_DTYPES | _SPEC_DTYPES if self._spec_max
                               else _STATE_DTYPES)
         self.attn = make_attention_backend(self)
+        if adapter_store is not None and self._leader:
+            # a hot load is a device operation every rank performs
+            adapter_store.loader = lambda row, name: self._dev(
+                "adapter", row, name)
         self._refresh_stats()
+
+    # -- the mesh: one place for every device operation ---------------------
+    @staticmethod
+    def _check_mesh(mesh, model_cfg) -> None:
+        """The reference server's mesh checks, for an engine built on a
+        mesh directly."""
+        tp, ep = mesh.shape["tp"], mesh.shape["ep"]
+        if model_cfg.n_heads % tp or model_cfg.n_kv_heads % tp:
+            raise ValueError(
+                f"heads ({model_cfg.n_heads}q/{model_cfg.n_kv_heads}kv) "
+                f"not divisible by tp={tp}")
+        n_experts = getattr(model_cfg, "n_experts", 0)
+        if ep > 1 and (not n_experts or n_experts % ep):
+            raise ValueError(f"ep={ep} needs a MoE family whose experts "
+                             f"divide over it (n_experts={n_experts})")
+        if mesh.shape["pp"] > 1:
+            raise ValueError("pp > 1 is not a serving axis "
+                             "(parallel/pipeline.py scores offline)")
+
+    def _dev(self, op: str, *args: Any) -> Any:
+        """Every device operation of the engine goes through here: on a
+        mesh's leader it is sent to the followers first
+        (``tpuserve/follower.py``), then every rank runs ``_op_<op>``.
+        Called on the engine thread only (and before it starts)."""
+        if self._leader:
+            follower.send(self.mesh, op, *args)
+        return getattr(self, "_op_" + op)(*args)
+
+    def mesh_axes(self) -> dict[str, int]:
+        """Mesh axis name → size ({} off-mesh): ``/state``'s topology."""
+        if self.mesh is None:
+            return {}
+        return dict(self.mesh.shape)
+
+    def hidden_states(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
+                      timeout: float = 600.0) -> torch.Tensor:
+        """The embeddings pass over a mesh engine's weights (every
+        rank's shard): a job of the engine thread, where every
+        collective is issued. Without a mesh the server calls the
+        family's ``hidden_states`` on its own thread."""
+        return self._post_job("hidden", (tokens, seq_lens), timeout,
+                              "embeddings")
+
+    def rank_counts(self, names: list[str], timeout: float = 60.0
+                    ) -> list[dict[str, int]]:
+        """Every rank's kernel launch counts on a mesh engine (the
+        ``_build.count_launch`` counters are per process), gathered on
+        the engine thread: ``names`` are
+        ``"<ops module>.<function>[.<attr>]"``."""
+        return self._post_job("counts", names, timeout, "launch counts")
+
+    def _op_counts(self, names: list[str]) -> list[dict[str, int]]:
+        import importlib
+
+        mine = {}
+        for name in names:
+            mod, fn, *attr = name.split(".")
+            f = getattr(importlib.import_module(f"aigw_tpu_torch.ops.{mod}"),
+                        fn)
+            mine[name] = int(getattr(f, attr[0] if attr else "launches"))
+        out: list = [None] * self.mesh.size
+        torch.distributed.all_gather_object(out, mine, group=self.mesh.ctrl)
+        return out
+
+    def _op_adapter(self, row: int, name: str) -> None:
+        self._adapter_store._load(row, name)
+
+    def _op_hidden(self, tokens: torch.Tensor, seq_lens: torch.Tensor):
+        return self.fns.hidden_states(self.params, self.model_cfg, tokens,
+                                      seq_lens, mesh=self.mesh)
 
     # -- device programs ----------------------------------------------------
     def _model(self, fn, *args, adapter_idx=None, **kw):
         """One model call with the adapter stacks and each sequence's row
         (``adapter_idx``): the pool is kept; returns (logits, the call's
         [L, E + 1] routing counts or None on a dense family)."""
+        if self.mesh is not None:
+            kw["mesh"] = self.mesh
         out = fn(self.params, self.model_cfg, *args, **kw, **self._moe_kw,
                  lora=self.lora_params, adapter_idx=adapter_idx)
         logits, kv, moe = out if self._moe else (*out, None)
@@ -903,6 +1026,13 @@ class Engine:
         cache), except the windowed ragged prefill of a quantized pool,
         which reads its page walk on the host and so runs eagerly. The
         outputs are copies the caller may keep past the next program."""
+        name = next(n for n in ("prefill", "prefill_suffix",
+                                "prefill_ragged")
+                    if getattr(self.fns, n, None) is fn)
+        return self._dev("prefill", name, args, sampling)
+
+    def _op_prefill(self, name: str, args: tuple, sampling: tuple):
+        fn = getattr(self.fns, name)
         if fn is self.fns.prefill_ragged and kvq.is_quantized(
                 self.kv_cache):
             return self._prefill_body(fn, len(args))(*args, *sampling)
@@ -910,7 +1040,7 @@ class Engine:
         key = (self.lora_params is not None,
                tuple((tuple(t.shape), t.dtype) for t in inputs))
         out = self._prefill_fns[fn].program(key)(*inputs)
-        return clone_tree(out) if self.programs.cuda else out
+        return clone_tree(out) if self.programs.capture else out
 
     def _prefill_body(self, fn, n_args: int):
         """The prefill program's body over ``n_args`` model inputs and
@@ -955,6 +1085,16 @@ class Engine:
                     if draft else self._decode_window(k, lean, greedy, P)),
                     self.programs))
         return fam.program(self._state_bucket)
+
+    def _run_window(self, k: int, lean: bool, greedy: bool, draft: int = 0):
+        """Dispatch one window program at the current page bucket."""
+        return self._dev("window", k, lean, greedy, draft,
+                         self._state_bucket)
+
+    def _op_window(self, k: int, lean: bool, greedy: bool, draft: int,
+                   P: int):
+        self._state_bucket = P
+        return self._decode_fn_for(k, lean, greedy, draft)()
 
     def _decode_window(self, k: int, lean: bool, greedy: bool, P: int
                        ) -> tuple[torch.Tensor, Any, Any]:
@@ -1212,6 +1352,13 @@ class Engine:
         if self._thread is not None or self._inflight is not None or any(
                 s is not None for s in self._slots):
             raise RuntimeError("warmup() runs before the engine starts")
+        if (self.device.type == "cuda" and not self.programs.capture
+                and (self.cfg.warm_decode_buckets
+                     or self.cfg.warm_prefill_buckets)):
+            raise ValueError(
+                "warm_decode_buckets / warm_prefill_buckets capture "
+                "programs ahead of traffic, and this engine's gloo mesh "
+                "cannot be captured (its programs run eagerly)")
         t0 = time.monotonic()
         if self.device.type == "cuda":
             from aigw_tpu_torch.ops import _build
@@ -1225,10 +1372,10 @@ class Engine:
                 for k in self._window_ladder():
                     for greedy in (True, False):
                         for lean in (True, False):
-                            self._decode_fn_for(k, lean, greedy)()
+                            self._run_window(k, lean, greedy)
                         for d in self._spec_rungs:
                             if d:
-                                self._decode_fn_for(k, False, greedy, d)()
+                                self._run_window(k, False, greedy, d)
         finally:
             self._state_bucket = quiesced
         if self._adapter_store is not None:
@@ -1302,6 +1449,11 @@ class Engine:
         if self._thread is not None:
             self._thread.join(timeout=30)
         self._abort_all("engine stopped")
+        if self._leader and not (self._thread is not None
+                                 and self._thread.is_alive()):
+            # the followers drop this engine (and await the next record)
+            follower.send(self.mesh, "close")
+            self._leader = False
 
     def submit(self, req: GenRequest) -> None:
         if len(req.prompt) + req.max_tokens > self.cfg.max_seq_len:
@@ -1337,21 +1489,41 @@ class Engine:
         """Host pages of ``pages`` (``kvq``'s host page): one gather on
         the device and one copy to the host. The copy waits for every
         launch queued before it on the engine's stream, a decode window
-        in flight included, so the rows are the pages' settled content."""
+        in flight included, so the rows are the pages' settled content.
+        On a mesh the ranks' head shards are gathered into whole pages:
+        the wire is the one-device wire."""
         if not pages:
             return []
+        stacked = self._dev("export", pages)
+        return kvq.pages_to_host(stacked, self.cfg.kv_cache_dtype)
+
+    def _op_export(self, pages: list[int]) -> Any:
         stacked = kvq.gather_pages(self.kv_cache, self._page_index(pages),
                                    self.cfg.page_size)
-        return kvq.pages_to_host(stacked, self.cfg.kv_cache_dtype)
+        if self.mesh is None:
+            return stacked
+        # [k, L, 2, page, Hkv/tp, ...] → whole heads, in tp order
+        return ({k: self.mesh.all_gather_last(v, "tp", dim=4)
+                 for k, v in stacked.items()}
+                if isinstance(stacked, dict)
+                else self.mesh.all_gather_last(stacked, "tp", dim=4))
 
     def _import_pages_dev(self, page_ids: list[int], rows: list) -> None:
         """Scatter host pages into ``page_ids`` in one index copy per
         leaf: exactly k pages (the reference pads k to a power of two
-        only to bound its compiled programs)."""
+        only to bound its compiled programs). On a mesh every rank gets
+        the whole pages and keeps its heads."""
         if not page_ids:
             return
-        stacked = kvq.host_to_stacked(rows, self.cfg.kv_cache_dtype,
-                                      self.device)
+        self._dev("import", page_ids, kvq.host_to_stacked(
+            rows, self.cfg.kv_cache_dtype, self.device))
+
+    def _op_import(self, page_ids: list[int], stacked: Any) -> None:
+        if self.mesh is not None:
+            stacked = ({k: shard_pool_heads(v, self.mesh, dim=4)
+                        for k, v in stacked.items()}
+                       if isinstance(stacked, dict)
+                       else shard_pool_heads(stacked, self.mesh, dim=4))
         self.kv_cache = kvq.scatter_pages(
             self.kv_cache, self._page_index(page_ids), stacked,
             self.cfg.page_size)
@@ -1509,7 +1681,9 @@ class Engine:
 
     def _process_migrations(self) -> None:
         """Run the queued jobs on the engine thread; an error goes to the
-        waiting caller, never into the engine loop."""
+        waiting caller, never into the engine loop, except on a mesh a
+        RuntimeError (a failed collective, a dead rank): the ranks can no
+        longer agree, so it also fails the loop."""
         while True:
             try:
                 kind, payload, box = self._mig_q.get_nowait()
@@ -1520,10 +1694,16 @@ class Engine:
                     box["result"] = self._do_export(payload)
                 elif kind == "fetch":
                     box["result"] = self._do_fetch(payload)
+                elif kind == "hidden":
+                    box["result"] = self._dev("hidden", *payload)
+                elif kind == "counts":
+                    box["result"] = self._dev("counts", payload)
                 else:
                     box["result"] = self._do_import(*payload)
             except Exception as e:  # noqa: BLE001 — relayed to the caller
                 box["error"] = f"{type(e).__name__}: {e}"
+                if self.mesh is not None and isinstance(e, RuntimeError):
+                    raise
             finally:
                 box["evt"].set()
 
@@ -2483,6 +2663,9 @@ class Engine:
         last page). On the engine's stream: it runs after the in-flight
         window's launches, which may read ``src``, and before the resume
         that writes ``dst``."""
+        self._dev("copy_page", src, dst)
+
+    def _op_copy_page(self, src: int, dst: int) -> None:
         self.kv_cache = kvq.copy_page(self.kv_cache, src, dst,
                                       self.cfg.page_size)
 
@@ -2537,8 +2720,12 @@ class Engine:
         after, since the captured programs address them."""
         rows = [self._row_host_values(i)
                 for i in range(self.cfg.max_batch_size)]
-        host = {k: torch.from_numpy(np.asarray([r[k] for r in rows], dt))
-                for k, dt in self._state_dtypes.items()}
+        return self._dev("state", {
+            k: torch.from_numpy(np.asarray([r[k] for r in rows], dt))
+            for k, dt in self._state_dtypes.items()})
+
+    def _op_state(self, host: dict[str, torch.Tensor]
+                  ) -> dict[str, torch.Tensor]:
         if self._state is None:
             self._state = {k: v.to(self.device) for k, v in host.items()}
         else:
@@ -2560,12 +2747,15 @@ class Engine:
         self._dirty_rows.clear()
 
     def _upload_row(self, i: int, row: dict[str, Any]) -> None:
+        self._dev("row", i, row)
+
+    def _op_row(self, i: int, row: dict[str, Any]) -> None:
         """Write ``row``'s fields into row i of the live state. On CUDA
         the arrays are copied into slot i's pinned staging row and from
         there with non-blocking copies, so the host does not wait for the
         window in flight; the staging row is rewritten only after the
         event of its previous copies has completed."""
-        st = self._device_state
+        st = self._state
         stage = None
         if self.device.type == "cuda":
             if self._stage_done[i] is not None:
@@ -2844,15 +3034,17 @@ class Engine:
         Only that field: a live slot's positions and history on the
         device run ahead of the host's view while a window is in
         flight, but the draft length is position-independent."""
-        dl = self._device_state["draft_len"]
         for i in sorted(self._spec_dirty):
             s = self._slots[i]
             d = (s.ctrl.draft_len() if s is not None and s.ctrl is not None
                  else 0)
-            dl[i] = d
+            self._dev("draft_len", i, d)
             if s is not None:
                 s.dev_draft_len = d
         self._spec_dirty.clear()
+
+    def _op_draft_len(self, i: int, d: int) -> None:
+        self._state["draft_len"][i] = d
 
     def _apply_frees(self) -> None:
         """Recycle finished sequences' pages (only with no window in
@@ -2951,9 +3143,9 @@ class Engine:
             draft_lens = tuple((i, self._slots[i].ctrl.draft_len())
                                for i in active_idx
                                if self._slots[i].ctrl is not None)
-            sampled, moe = self._decode_fn_for(k, False, greedy, draft)()
+            sampled, moe = self._run_window(k, False, greedy, draft)
         else:
-            sampled, moe, lp = self._decode_fn_for(k, lean, greedy)()
+            sampled, moe, lp = self._run_window(k, lean, greedy)
         if self.cfg.async_transfers:
             # the logprobs ride the tokens' copy and event
             (host, moe, *lp_host), ready = self._start_host_copy(
@@ -3130,7 +3322,11 @@ class Engine:
 
     @property
     def device_id(self) -> int:
-        """The engine's device's ordinal (0 on the CPU)."""
+        """The engine's device's id: its rank on a mesh (the reference's
+        mesh device ids; two ranks may share a card), else the CUDA
+        ordinal (0 on the CPU)."""
+        if self.mesh is not None:
+            return self.mesh.rank
         if self.device.type != "cuda":
             return 0
         return (self.device.index if self.device.index is not None
@@ -3138,39 +3334,68 @@ class Engine:
 
     @property
     def param_bytes_by_device(self) -> dict[int, int]:
-        """The weights' bytes by device id (one device: all of them),
-        the reference's ``/state`` ``param_bytes_*`` source."""
-        return {self.device_id: self.param_bytes}
+        """The weights' bytes by device id (on a mesh every rank's
+        shard, as last gathered), the reference's ``/state``
+        ``param_bytes_*`` source."""
+        if self.mesh is None:
+            return {self.device_id: self.param_bytes}
+        return {d["id"]: d["param_bytes"] for d in self.device_stats}
 
-    def _refresh_device_stats(self) -> None:
-        """The engine's device: on CUDA its memory (``mem_get_info``),
-        with the KV pool and the weights' bytes; on the CPU the pool and
-        weights only."""
-        st = self.stats
-        dev_id = self.device_id
+    def _local_device_stats(self) -> dict[str, Any]:
+        """This rank's device: on CUDA its memory (``mem_get_info``),
+        with its KV pool share and its weights' bytes."""
         if self.device.type == "cuda":
             free_b, total_b = torch.cuda.mem_get_info(self.device)
-            used = int(total_b - free_b)
-            limit = int(total_b)
+            used, limit = int(total_b - free_b), int(total_b)
         else:
             used = limit = 0
-        frac = round(used / limit, 4) if limit else 0.0
-        st.device_bytes_in_use = used
-        st.device_bytes_limit = limit
-        st.device_memory_frac = frac
-        st.device_count = 1
-        st.device_memory_frac_worst = frac
-        self.device_stats = [{
-            "id": dev_id,
+        pool = kvq.pool_bytes(self.kv_cache)
+        occ = self.allocator.occupancy if self._leader or self.mesh is None \
+            else 0.0
+        return {
+            "id": self.device_id,
             "platform": "gpu" if self.device.type == "cuda" else "cpu",
             "bytes_in_use": used,
             "bytes_limit": limit,
-            "memory_frac": frac,
-            "kv_pool_bytes": st.kv_pool_bytes,
-            "kv_bytes_in_use": st.kv_bytes_in_use,
-            "kv_occupancy": round(st.kv_occupancy, 4),
+            "memory_frac": round(used / limit, 4) if limit else 0.0,
+            "kv_pool_bytes": pool,
+            "kv_bytes_in_use": round(pool * occ),
+            "kv_occupancy": round(occ, 4),
             "param_bytes": self.param_bytes,
-        }]
+        }
+
+    def _op_stats(self, occupancy: float) -> list[dict[str, Any]]:
+        """Every rank's device entry, gathered over the control group
+        (the leader's occupancy stands for every rank's: one allocator
+        places every rank's pages)."""
+        mine = self._local_device_stats()
+        mine.update(kv_occupancy=round(occupancy, 4),
+                    kv_bytes_in_use=round(mine["kv_pool_bytes"]
+                                          * occupancy))
+        out: list = [None] * self.mesh.size
+        torch.distributed.all_gather_object(out, mine, group=self.mesh.ctrl)
+        return out
+
+    def _refresh_device_stats(self) -> None:
+        """The engine's devices (every rank's on a mesh), with their
+        memory, KV pool shares and weights' bytes, and the worst
+        device's memory fraction."""
+        st = self.stats
+        if self.mesh is None:
+            devs = [self._local_device_stats()]
+            # one device: its pool is the engine's whole pool
+            devs[0].update(kv_pool_bytes=st.kv_pool_bytes,
+                           kv_bytes_in_use=st.kv_bytes_in_use)
+        elif self._leader:
+            devs = self._dev("stats", self.allocator.occupancy)
+        else:
+            return
+        st.device_bytes_in_use = devs[0]["bytes_in_use"]
+        st.device_bytes_limit = devs[0]["bytes_limit"]
+        st.device_memory_frac = devs[0]["memory_frac"]
+        st.device_count = len(devs)
+        st.device_memory_frac_worst = max(d["memory_frac"] for d in devs)
+        self.device_stats = devs
 
     def _refresh_stats(self) -> None:
         st = self.stats
@@ -3200,6 +3425,7 @@ class Engine:
         if st.prefill_tokens_padded:
             st.prefill_padded_frac = round(
                 1.0 - st.prefill_tokens_real / st.prefill_tokens_padded, 4)
+        st.ici_bytes_total = self.ici_bytes_per_token * st.tokens_generated
         st.xla_compiles = self.compile_tracker.compiles()
         st.xla_compile_ms = round(self.compile_tracker.compiles_total_ms(),
                                   3)

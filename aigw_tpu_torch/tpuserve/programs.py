@@ -41,7 +41,11 @@ replay adds that tally.
 
 On the CPU, which only a caller asking for ``"cpu"`` gets, a program
 runs its body eagerly at every call; it is keyed and registered all the
-same, so the CPU tests see the same program surface as the card.
+same, so the CPU tests see the same program surface as the card. So
+does a pool made with ``capture=False``: an engine on a gloo mesh,
+whose collectives a CUDA graph cannot hold. On an NCCL mesh the bodies'
+collectives are captured with them, and every rank replays its programs
+in the leader's order (``tpuserve/follower.py``).
 """
 
 from __future__ import annotations
@@ -78,18 +82,21 @@ class ProgramPool:
     tracker, and on CUDA the side stream captures run on and the graph
     memory pool."""
 
-    def __init__(self, device: torch.device,
-                 tracker: CompileTracker) -> None:
+    def __init__(self, device: torch.device, tracker: CompileTracker,
+                 capture: bool = True) -> None:
         self.device = device
         self.tracker = tracker
-        self.cuda = device.type == "cuda"
-        self.stream = torch.cuda.Stream(device) if self.cuda else None
-        self.handle = torch.cuda.graph_pool_handle() if self.cuda else None
+        # whether programs are captured: on CUDA, unless the caller
+        # says its bodies cannot be
+        self.capture = capture and device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.capture else None
+        self.handle = (torch.cuda.graph_pool_handle() if self.capture
+                       else None)
 
     def bytes(self) -> int:
-        """Device bytes the graph pool holds (0 on the CPU): the
-        segments the caching allocator made for it."""
-        if not self.cuda:
+        """Device bytes the graph pool holds (0 when nothing is
+        captured): the segments the caching allocator made for it."""
+        if not self.capture:
             return 0
         pool = tuple(self.handle)
         return sum(int(seg["total_size"])
@@ -116,7 +123,7 @@ class CapturedProgram:
         self._built = False
 
     def __call__(self, *inputs: torch.Tensor | None) -> Any:
-        if not self.pool.cuda:
+        if not self.pool.capture:
             if not self._built:
                 self._built = True
                 self.pool.tracker.note_compile(0.0)

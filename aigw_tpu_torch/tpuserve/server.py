@@ -78,7 +78,16 @@ and resumes byte-identically.
 
 ``POST /v1/embeddings`` pools the model's final hidden states
 (``hidden_states``) over each input, on the handler's thread beside the
-engine's, and answers while the replica drains, as the reference does.
+engine's (on a mesh, on the engine's thread), and answers while the
+replica drains, as the reference does.
+
+``--tp`` / ``--ep`` serve one model over several ranks
+(``parallel/``): this process leads and runs the engine's scheduler and
+the HTTP server; it starts one follower process per other rank
+(``tpuserve/follower.py``) and stops them when it stops. ``/state``
+carries the reference's mesh keys (``mesh_axes``, ``mesh_devices``,
+``ici_bytes_per_token``, ``ici_bytes_total``, ``slice``,
+``device_coords``) with or without a mesh.
 
 The server is ``http.server.ThreadingHTTPServer``: one thread per
 connection, each waiting on its request's token queue, which the engine
@@ -112,6 +121,7 @@ from aigw_tpu_torch.models.registry import family_fns, get_model_spec
 from aigw_tpu_torch.obs import metrics as obs_metrics
 from aigw_tpu_torch.obs.flight import FlightRecorder, RequestTrace
 from aigw_tpu_torch.obs.tracing import Tracer, genai_attributes
+from aigw_tpu_torch.parallel.mesh import MeshSpec
 from aigw_tpu_torch.schemas import openai as oai
 from aigw_tpu_torch.translate.structured import (
     JSONSchemaError,
@@ -119,6 +129,7 @@ from aigw_tpu_torch.translate.structured import (
 )
 from aigw_tpu_torch.tpuserve import constrain
 from aigw_tpu_torch.tpuserve.adapters import AdapterStore
+from aigw_tpu_torch.tpuserve.follower import start_replica_mesh
 from aigw_tpu_torch.tpuserve.engine import (
     DEFAULTS_DIFFER,
     Engine,
@@ -213,6 +224,13 @@ def decode_wire_page(p: dict):
     return torch.from_numpy(arr.copy())
 
 
+def device_topology() -> dict[str, Any]:
+    """``/state``'s slice topology (the reference's
+    ``device_topology``): a TPU slice's name and the first chip's torus
+    coordinates. A GPU, like the reference's CPU devices, has neither."""
+    return {"slice": "", "device_coords": []}
+
+
 def _find_stop(text: str, stop_strs: list[str]) -> int | None:
     """Earliest index where a stop sequence begins, or None."""
     hits = [i for i in (text.find(s) for s in stop_strs if s) if i >= 0]
@@ -233,7 +251,9 @@ class TPUServeServer:
                  lora_adapters: dict[str, dict] | None = None,
                  lora_slots: int = 0, flight_entries: int = 256,
                  enable_profile_endpoint: bool = False,
-                 params: dict[str, torch.Tensor] | None = None):
+                 params: dict[str, torch.Tensor] | None = None,
+                 tp: int = 1, ep: int = 1, sp: int = 1,
+                 mesh_backend: str | None = None):
         """``lora_adapters``: name → one adapter's tensors (``[r, in]`` /
         ``[out, r]`` per target), the zoo, of which ``lora_slots`` are
         resident on the device at a time (0 = one row per adapter).
@@ -244,12 +264,26 @@ class TPUServeServer:
         ``params``: weights to serve instead of loading the registry
         row's (a second replica in one process sharing a first's
         tensors, or HF shards read by ``import_hf_checkpoint``); without
-        them ``_load_params`` draws or restores the row's weights."""
+        them ``_load_params`` draws or restores the row's weights.
+
+        ``tp`` / ``ep`` > 1 serve the model sharded over ``tp x ep``
+        ranks (the reference's checks and messages): this process is
+        rank 0, the leader, and it starts a follower process for every
+        other rank (``tpuserve/follower.py``), each on ``cuda:<rank>``
+        (or the CPU, over gloo), and stops them with the server.
+        ``mesh_backend`` names the collective backend where it must not
+        follow the device (two ranks sharing one card: gloo). ``sp`` > 1
+        is not ported."""
         self.device = resolve_device(device)
         self.model_name = model
         spec = get_model_spec(model)
         self.fns = family_fns(spec.family)
         self.model_cfg = spec.config
+        self.replica_mesh = None
+        if tp > 1 or ep > 1 or sp > 1:
+            self.replica_mesh = self._start_mesh(
+                spec, tp, ep, sp, device, mesh_backend)
+            self.device = self.replica_mesh.mesh.device
         self.tokenizer = load_tokenizer(spec.tokenizer)
         self.chat_template = spec.chat_template
         if quantize not in ("", "int8", "int4"):
@@ -269,10 +303,13 @@ class TPUServeServer:
                 n_slots=lora_slots or len(lora_adapters), device=self.device)
             for name, adapter in lora_adapters.items():
                 self.adapter_store.register(name, adapter)
-        self.engine = Engine(params, self.model_cfg, engine_cfg,
-                             eos_token_ids=(self.tokenizer.eos_id,),
-                             fns=self.fns, device=self.device,
-                             adapter_store=self.adapter_store)
+        self.engine = Engine(
+            params, self.model_cfg, engine_cfg,
+            eos_token_ids=(self.tokenizer.eos_id,), fns=self.fns,
+            device=self.device, adapter_store=self.adapter_store,
+            mesh=None if self.replica_mesh is None
+            else self.replica_mesh.mesh)
+        del params  # the engine holds this rank's shards
         self._started_at = time.time()
         self.replica_id = uuid.uuid4().hex[:16]
         self.tracer = Tracer(
@@ -304,6 +341,39 @@ class TPUServeServer:
         self.httpd = ThreadingHTTPServer((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self._http_thread: threading.Thread | None = None
+
+    def _start_mesh(self, spec, tp: int, ep: int, sp: int, device,
+                    backend: str | None):
+        """Check the parallel degrees as the reference's server does,
+        then start the followers and this rank's mesh."""
+        if ep > 1:
+            n_experts = getattr(spec.config, "n_experts", 0)
+            if not n_experts:
+                raise ValueError(
+                    f"--ep requires a MoE model family; {spec.name!r} "
+                    "has no experts")
+            if n_experts % ep != 0:
+                raise ValueError(
+                    f"n_experts {n_experts} not divisible by ep={ep}")
+        if tp > 1 and spec.config.n_kv_heads % tp != 0:
+            raise ValueError(
+                f"n_kv_heads {spec.config.n_kv_heads} not divisible "
+                f"by tp={tp}")
+        if sp > 1:
+            raise NotImplementedError(
+                f"--sp {sp}: the sequence-parallel prefill is not ported "
+                "yet (ROADMAP queue 1 item 7)")
+        mspec = MeshSpec(dp=1, tp=tp, sp=sp, ep=ep)
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            have = torch.cuda.device_count()
+            if have < mspec.size:
+                raise ValueError(f"mesh {mspec} needs {mspec.size} "
+                                 f"devices, have {have}")
+        rm = start_replica_mesh(mspec, str(device), backend)
+        logger.info("parallel serving: tp=%d ep=%d over %d ranks (%s)",
+                    tp, ep, mspec.size, rm.mesh.backend)
+        return rm
 
     def _load_params(self, spec, param_dtype: str, quantize: str
                      ) -> dict[str, torch.Tensor]:
@@ -367,6 +437,8 @@ class TPUServeServer:
         if self._http_thread is not None:
             self._http_thread.join(timeout=10)
         self.engine.stop()
+        if self.replica_mesh is not None:
+            self.replica_mesh.close()
 
     # -- endpoints --------------------------------------------------------
     def capabilities(self) -> dict[str, Any]:
@@ -446,6 +518,15 @@ class TPUServeServer:
             "param_bytes_per_device": {
                 str(k): v
                 for k, v in sorted(eng.param_bytes_by_device.items())},
+            # the mesh (axis → size, {} off-mesh), its device count, the
+            # analytical collective bytes per decoded token and in all,
+            # and the slice topology: no slice on a GPU ("" and [], as
+            # the reference's CPU devices report)
+            "mesh_axes": eng.mesh_axes(),
+            "mesh_devices": s.device_count,
+            "ici_bytes_per_token": s.ici_bytes_per_token,
+            "ici_bytes_total": s.ici_bytes_total,
+            **device_topology(),
             "max_seq_len": cfg.max_seq_len,
             "tokens_generated": s.tokens_generated,
             "decode_steps": s.decode_steps,
@@ -1095,7 +1176,9 @@ class TPUServeServer:
         input cut to ``max_seq_len``, the batch padded to a power-of-two
         ``S >= 8``, and every vector the float32 mean of the model's
         final hidden states (``hidden_states`` on the engine's weights,
-        run on the caller's thread, beside the engine's). The inputs run
+        run on the caller's thread, beside the engine's; on a mesh
+        ``Engine.hidden_states``, a job of the engine's thread, where
+        every collective is issued). The inputs run
         in sub-batches of ``embed_rows(S)``, so one body's dense pass
         stays within ``embed_logits_bytes`` whatever its input count.
         Not refused while draining: it starts no generation."""
@@ -1133,9 +1216,14 @@ class TPUServeServer:
             lens[i] = len(e)
         dev = self.device
         rows = self.embed_rows(S)
+        if self.engine.mesh is None:
+            def pool(t, n):
+                return self.fns.hidden_states(self.engine.params,
+                                              self.model_cfg, t, n)
+        else:  # every rank's pass, issued on the engine thread
+            pool = self.engine.hidden_states
         with torch.inference_mode():
-            hidden = np.concatenate([self.fns.hidden_states(
-                self.engine.params, self.model_cfg,
+            hidden = np.concatenate([pool(
                 torch.from_numpy(toks[i:i + rows]).to(dev),
                 torch.from_numpy(lens[i:i + rows]).to(dev)).cpu().numpy()
                 for i in range(0, len(encoded), rows)])

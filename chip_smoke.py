@@ -192,6 +192,24 @@ Phases (any failure exits non-zero):
    then the whole burst, whose longest sequences need the 16-page bucket
    (its captures counted), and again warm with none (gated); K1 and K2
    must launch;
+   tensor parallel (the ``serve_tp`` line, after ``serve_graphs``;
+   launch counts per rank zeroed before, read after, through
+   ``Engine.rank_counts``): the burst's streams on the one-rank kernel
+   path recorded, then a tp = 2 replica on the same weights whose
+   leader is this process and whose follower a spawned process, both
+   on ``cuda:0`` over an explicit gloo group (NCCL refuses two ranks on
+   one device; no interconnect is measured), each rank with half the
+   heads, MLP columns and vocabulary: the burst (K1, K2 on every rank),
+   every stream held to the one-rank stream of its prompt up to a
+   near-tie (``tie_check``, bf16 partial sums add in another order),
+   ``/state``'s mesh keys, each rank half the weights; then two requests
+   in W8A16 over int8 pages on the same mesh (K6, K7-int8 on every
+   rank, K1/K2 on none). One rank over NCCL (the ``serve_tp_nccl``
+   line): ``MeshSpec(tp=1)`` passed as a mesh, its collectives issued
+   and captured in every program; four of the burst's requests sent one
+   at a time stream bit-equal to the engine without a mesh, the burst
+   cold and warm, and a captured decode step beside the one without a
+   mesh, in turns;
 5. every kernel against its plain PyTorch version on the card at the
    served shapes (each attention output element within 2**-7 of the
    plain output plus 2e-3, printed beside the mean |output|; K2's and
@@ -245,6 +263,11 @@ Phases (any failure exits non-zero):
    (``model_check_lora``); K3, K4 and K5 beside one
    ``scaled_dot_product_attention`` call over the batch (efficient
    backend, a boolean mask, ``enable_gqa``), their library yardstick;
+   every kernel again at one tp = 2 rank's shard shapes (H 16, Hkv 4;
+   K6 at N 2048, 512, 7168 and 64128 and K 2048 and 7168, the
+   ``qmatmul_shapes_tp`` line), against its plain version and timed the
+   same way (the ``kernels_tp`` line, launches those of a rank in
+   ``serve_tp``);
 6. where one full-width decode step's time goes, bf16 on the fused and
    on the chained rung (K3) and W8A16 over int8 pages, and one verify
    step of width 5 through K5: its host wall time against the device
@@ -296,8 +319,15 @@ Phases (any failure exits non-zero):
    differently must be a router near-tie (adjacent top-3 logits within
    1e-4; counted) and the other rows' logits agree within 2e-5; in
    bf16 routing differences are reported and the other rows' logits
-   held to ``model_check``'s tolerance. Then Mixtral-8x7B served at
-   full depth (32 layers, the ``serve_moe`` line): random weights
+   held to ``model_check``'s tolerance. Then expert parallel (the
+   ``serve_ep`` line): Mixtral-8x7B widths cut to 2 layers in W8A16,
+   four of the burst's requests (32 new tokens) sent one at a time to a
+   one-rank replica, then to an ep = 2 replica on the same weights (this
+   process leads, a spawned follower, both on ``cuda:0`` over gloo, four
+   experts each): streams equal, one prefill call's routing counts
+   through each engine equal, K1, K2 and K6 on every rank. Then Mixtral-8x7B served cut to
+   ``MOE_LAYERS`` (4) of its 32 layers (the ``serve_moe`` line; 32
+   before the parallel phases needed the time): random weights
    drawn and quantized to int8 one tensor at a time (W8A16: the bf16
    model does not fit the card), a bf16 KV pool, the fused rung, the
    prefix cache on; the burst cold, then warm (its cached prefixes
@@ -315,7 +345,8 @@ Phases (any failure exits non-zero):
    ``serve_moe``, on ``serve_lora``, on ``serve_logprobs``, on
    ``serve_ops``, on ``serve_mobility``, on ``serve_graphs`` (the warm
    burst), on ``checkpoint``, on ``serve_defaults`` (bf16 and
-   W8A16, the cold bursts) and on ``embeddings``), the card line, then
+   W8A16, the cold bursts), on ``embeddings`` and, the leader rank's,
+   on ``serve_tp``, its W8A16 set and ``serve_ep``), the card line, then
    the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -325,6 +356,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import itertools
 import json
@@ -358,6 +390,11 @@ SERVE_MAX_TOKENS = 64
 # attention shapes are Llama-3-8B's), outside the Llama step (0)
 QMM_STEP = [((4096, 4096), 64), ((4096, 1024), 64), ((4096, 14336), 64),
             ((14336, 4096), 32), ((4096, 128256), 1), ((4096, 32000), 0)]
+# the same step on one rank of a tp = 2 mesh: wq (N 2048), wk/wv (N 512),
+# wo (K 2048), gate/up (N 7168) and down (K 7168) per layer, the
+# lm_head's vocabulary half (N 64128)
+QMM_TP2 = [((4096, 2048), 32), ((4096, 512), 64), ((2048, 4096), 32),
+           ((4096, 7168), 64), ((7168, 4096), 32), ((4096, 64128), 1)]
 T0 = time.monotonic()
 
 
@@ -627,10 +664,14 @@ def attn_check(name: str, got, want) -> tuple[float, float]:
 
 
 # -- phase 4: kernels against their plain versions -----------------------------
-def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
+def kernel_checks(torch, launches: dict, dev: str = "cuda",
+                  heads: tuple = (32, 8)) -> list[dict]:
+    """K3, K4, K2, K5 and K1 against their plain versions at the served
+    shapes, with ``heads`` (query, KV) heads: Llama-3-8B's, or one
+    tensor-parallel rank's shard of them (``kernels_tp``)."""
     from aigw_tpu_torch.ops import decode_fused, paged_attention
 
-    H, Hkv, D, PS = 32, 8, 128, 128
+    (H, Hkv), D, PS = heads, 128, 128
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
 
@@ -847,16 +888,19 @@ def kernel_checks(torch, launches: dict, dev: str = "cuda") -> list[dict]:
     # resume geometry
     rows.insert(0, k1_row(torch, "ragged_prefill_attention", K1_CASE,
                           launches["ragged_prefill_attention"], k_pool,
-                          v_pool, perm, randn, f32=True, dev=dev))
+                          v_pool, perm, randn, f32=True, dev=dev,
+                          heads=heads))
     rows.insert(1, k1_row(torch, "ragged_prefill_attention_resume",
                           K1_RESUME_CASE,
                           launches["ragged_prefill_attention_resume"],
-                          k_pool, v_pool, perm, randn, dev=dev))
+                          k_pool, v_pool, perm, randn, dev=dev,
+                          heads=heads))
     return rows
 
 
 def k1_row(torch, name: str, seq, n_launches: int, k_pool, v_pool, perm,
-           randn, f32: bool = False, dev: str = "cuda") -> dict:
+           randn, f32: bool = False, dev: str = "cuda",
+           heads: tuple = (32, 8)) -> dict:
     """K1 over the packed sequences ``seq`` ((new rows, start position)
     each, on distinct pages of the pool), padded to a multiple of 256:
     held against its plain version (padding rows zero, two calls
@@ -864,7 +908,7 @@ def k1_row(torch, name: str, seq, n_launches: int, k_pool, v_pool, perm,
     SDPA yardstick; with ``f32``, also the CUDA-core kernel in float32."""
     from aigw_tpu_torch.ops import paged_attention
 
-    H, Hkv, D, PS, P = 32, 8, 128, 128, 16
+    (H, Hkv), D, PS, P = heads, 128, 128, 16
     total = sum(n for n, _ in seq)
     T = -(-total // 256) * 256
     Bp = len(seq)
@@ -1055,21 +1099,24 @@ def sdpa_paged_yardstick(torch, q, k_pool, v_pool, page_table, keys,
     return out
 
 
-def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
+def quant_kernel_checks(torch, launches: dict, dev: str = "cuda",
+                        heads: tuple = (32, 8), qmm=QMM_STEP,
+                        line: str = "qmatmul_shapes") -> list:
     """K6 at every weight shape a decode step multiplies (M = 8) and a
     bucketed prefill's [1, 64] block multiplies (M = 64: the default
     programs' short prompts and chunk tails), and K7's int8 and int4
     rungs at K2's shapes, each against its plain version; K6 also beside
     ``torch.matmul`` on the same weight dequantized to bf16 ahead of
     time (cuBLAS, the library row). The row's step times sum the M = 8
-    shapes."""
+    shapes. ``heads`` and ``qmm`` give one tensor-parallel rank's shard
+    shapes instead (``kernels_tp``), its shapes printed as ``line``."""
     from aigw_tpu_torch.models import kvq, llama, quant
     from aigw_tpu_torch.ops import decode_fused, qmatmul
 
     g = torch.Generator(device=dev)
     g.manual_seed(4321)
     rows, shapes = [], []
-    for M, ((K, N), step_launches) in itertools.product((8, 64), QMM_STEP):
+    for M, ((K, N), step_launches) in itertools.product((8, 64), qmm):
         per_step = step_launches if M == 8 else 0
         w = torch.randn((K, N), generator=g, device=dev) / K ** 0.5
         qp = quant.quantize_params({"w_up": w}, consume=True)
@@ -1114,7 +1161,7 @@ def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
             f"{shapes[-1]['library_ms']:.4f}, rotated {lib_rot:.4f}, "
             f"plain {shapes[-1]['plain_ms']:.3f}), max err "
             f"{shapes[-1]['max_abs_err']:.3g}")
-    print(json.dumps({"qmatmul_shapes": shapes}), flush=True)
+    print(json.dumps({line: shapes}), flush=True)
 
     def step_sum(key):
         return sum(r[key] * r["per_step"] for r in shapes)
@@ -1131,11 +1178,12 @@ def quant_kernel_checks(torch, launches: dict, dev: str = "cuda") -> list:
                   else "operations"),
         library_ms=step_sum("library_ms"),
         library_ms_rotated=step_sum("library_ms_rotated"),
-        per="one Llama-3-8B decode step at batch 8: 225 launches, the "
-            "per-shape times of qmatmul_shapes times per_step"))
+        per=f"one Llama-3-8B decode step at batch 8: "
+            f"{sum(n for _s, n in qmm if n)} launches, the per-shape times "
+            f"of {line} times per_step"))
 
     # K7: K2's shapes over int8 / int4 pools
-    H, Hkv, D, PS = 32, 8, 128, 128
+    (H, Hkv), D, PS = heads, 128, 128
     B, P = 8, 16
     n_pages = B * P + 1
     kf = torch.randn((n_pages * PS, Hkv, D), generator=g, device=dev)
@@ -1404,7 +1452,7 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
                    kv_dtype: str = "bfloat16", verify_width: int = 0,
                    attn_impl: str = "fused", model=None, lora=None,
                    adapter_idx=None, logprobs_topk: int | None = None,
-                   captured: bool = False) -> dict:
+                   captured: bool = False, mesh=None) -> dict:
     """Where one full-width decode step's time goes: host wall clock of a
     step (synchronized) against the device time torch.profiler sees, by
     kernel. Batch 8 at 1000 cached tokens each, a ``kv_dtype`` pool, on
@@ -1416,7 +1464,9 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
     (the argmax), and above 0 the engine's per-token logprobs at it
     (``sampling.token_logprobs``). ``kernel_launches`` counts the device
     kernels a step launches. ``captured`` runs the step as the engine's
-    programs run it: captured once in a CUDA graph and replayed."""
+    programs run it: captured once in a CUDA graph and replayed. ``mesh``
+    runs the rank-local model on it (a one-rank NCCL mesh: the mesh
+    path's collectives captured in the graph)."""
     from torch.profiler import ProfilerActivity, profile
 
     from aigw_tpu_torch.models import kvq, llama
@@ -1436,6 +1486,8 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
     limits = pos + 64
 
     ad = {} if lora is None else dict(lora=lora, adapter_idx=adapter_idx)
+    if mesh is not None:
+        ad["mesh"] = mesh
 
     def step():
         if verify_width:
@@ -3018,6 +3070,9 @@ def _place(args, pool):
 
 
 MOE_MODEL = "mixtral-8x7b-random"
+#: serve_moe's depth: Mixtral-8x7B's widths, 4 of its 32 layers (it
+#: served all 32 before the parallel phases needed the time)
+MOE_LAYERS = 4
 
 
 def _moe_requests(reqs) -> list:
@@ -3039,7 +3094,7 @@ def _aligned_request() -> tuple:
 
 def serve_moe(torch, mixtral, reqs, launches: dict,
               dev: str = "cuda") -> None:
-    """Mixtral-8x7B widths at full depth (32 layers) through the port's
+    """Mixtral-8x7B widths cut to ``MOE_LAYERS`` layers through the port's
     server: random weights drawn and quantized to int8 one tensor at a
     time (W8A16; the bf16 model does not fit the card), a bf16 KV pool,
     8 slots of 2048 tokens, page 128, the fused rung, the prefix cache
@@ -3055,7 +3110,9 @@ def serve_moe(torch, mixtral, reqs, launches: dict,
     from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
     from aigw_tpu_torch.tpuserve.server import TPUServeServer
 
-    cfg = mixtral.MIXTRAL_8X7B
+    # cut in depth (its widths kept) to make room for the parallel
+    # phases in the run's time limit
+    cfg = dataclasses.replace(mixtral.MIXTRAL_8X7B, n_layers=MOE_LAYERS)
     register_model(ModelSpec(MOE_MODEL, "mixtral", cfg))
     torch.cuda.reset_peak_memory_stats()
     reqs = _moe_requests(reqs) + [_aligned_request()]
@@ -4596,7 +4653,9 @@ def _mob_spill(torch, a, params, base, rng) -> dict:
 
 def _mob_batch(torch, a, params, base, reqs, rng, serve_pp: dict) -> dict:
     """Step 5: a /v1/batches job of 12 chat lines at batch_slot_frac 0.5,
-    and while it runs the serve burst of 8 interactive requests. Gates:
+    and while it runs the serve burst of 8 interactive requests, held at
+    the engine until it is queued whole, once the batch holds its 4
+    slots early in a wave (``held``). Gates:
     preemptions above 0 and all resumed; the batch completed with 12
     lines, each equal to the same line served alone up to a near-tie.
     Reports the interactive TTFT p50/p95 beside serve's."""
@@ -4627,16 +4686,41 @@ def _mob_batch(torch, a, params, base, reqs, rng, serve_pp: dict) -> dict:
         raise AssertionError(f"batch create: {status} {raw[:300]}")
     bid = json.loads(raw)["id"]
     deadline = time.monotonic() + 300
-    while a.engine.stats.batch_tokens < 8:  # the batch decodes
-        if time.monotonic() > deadline:
-            raise AssertionError("the batch never started")
-        time.sleep(0.005)
+    eng = a.engine
+    caught = threading.Event()
+
+    def held() -> None:
+        # the engine thread, at the top of a tick: once the batch holds
+        # its ceiling's slots, each with a token and more than two
+        # windows to go, wait there until the whole burst is queued, so
+        # that the burst meets a full table in one admission pass (left
+        # to the HTTP threads' pace, it may arrive spread out, or between
+        # two waves of lines, and fit in the free slots)
+        if not caught.is_set():
+            live = [s for s in eng._slots
+                    if s is not None and s.req.priority == "batch"]
+            if len(live) == eng._batch_ceiling() and all(
+                    s.generated >= 1 and s.req.max_tokens - s.generated
+                    > 2 * eng.cfg.decode_steps_per_tick for s in live):
+                caught.set()
+                end = time.monotonic() + 60
+                while (eng._queue.qsize() < len(reqs)
+                       and time.monotonic() < end):
+                    time.sleep(0.001)
+        type(eng)._process_migrations(eng)
+
     from aigw_tpu_torch.obs.metrics import EnginePhases
 
-    a.engine.phases = EnginePhases()
-    t_burst = time.monotonic()
-    serve_phase(a.port, reqs)
-    burst_s = time.monotonic() - t_burst
+    eng._process_migrations = held
+    try:
+        if not caught.wait(timeout=300):
+            raise AssertionError("the batch never held its slots")
+        eng.phases = EnginePhases()
+        t_burst = time.monotonic()
+        serve_phase(a.port, reqs)
+        burst_s = time.monotonic() - t_burst
+    finally:
+        del eng._process_migrations
     pp = _state(a.port)["phase_percentiles"]
     while True:
         b = json.loads(_http(a.port, f"/v1/batches/{bid}")[2])
@@ -5987,6 +6071,370 @@ def checkpoint_phase(torch, reqs, root: str, launches: dict) -> dict:
     return out
 
 
+# -- tensor, expert and pipeline parallel -------------------------------------
+#: the collective backend of the two-rank phases: the machine has one
+#: card, and NCCL refuses two ranks of a communicator on one device
+#: ("Duplicate GPU detected", tools/torch_dist_probe.py), so the ranks
+#: share ``cuda:0`` over gloo (which carries CUDA tensors for broadcast,
+#: all-reduce and all-gather). These phases measure no interconnect
+TP_BACKEND = "gloo"
+#: serve_ep's depth: Mixtral-8x7B's widths, 2 of its 32 layers
+EP_LAYERS = 2
+EP_MODEL = "mixtral-8x7b-2-layers"
+#: the kernel path every parallel phase serves
+TP_CFG = dict(max_batch_size=8, max_seq_len=2048, page_size=128,
+              attention_backend="pallas-ragged", decode_backend="fused",
+              enable_prefix_cache=False)
+#: /state's mesh keys
+MESH_KEYS = ("mesh_axes", "mesh_devices", "ici_bytes_per_token",
+             "ici_bytes_total", "slice", "device_coords")
+
+
+def _count_names() -> dict:
+    """chip_smoke's counter name → ``Engine.rank_counts``' name."""
+    return {name: f"{fn.__module__.rsplit('.', 1)[-1]}.{fn.__name__}.{attr}"
+            for name, (fn, attr) in counters().items()}
+
+
+def rank_launches(eng, run) -> list[dict]:
+    """Each rank's kernel launches during ``run()`` (the followers'
+    counters are their own processes'; ``Engine.rank_counts`` gathers
+    them on the engine thread)."""
+    names = _count_names()
+    before = eng.rank_counts(list(names.values()))
+    run()
+    after = eng.rank_counts(list(names.values()))
+    return [{k: a[v] - b[v] for k, v in names.items()}
+            for a, b in zip(after, before)]
+
+
+def _gate_ranks(what: str, per_rank: list, on: tuple, off: tuple = ()):
+    for r, counts in enumerate(per_rank):
+        missing = [k for k in on if counts[k] <= 0]
+        extra = [k for k in off if counts[k]]
+        if missing or extra:
+            raise AssertionError(f"{what}: rank {r} launched {counts} "
+                                 f"(missing {missing}, unexpected {extra})")
+
+
+def _mesh_state(port: int, n_ranks: int, what: str) -> dict:
+    state = json.loads(_http(port, "/state")[2])
+    if state["mesh_devices"] != n_ranks or state["slice"] != "" \
+            or state["device_coords"] != [] \
+            or state["ici_bytes_per_token"] <= 0 \
+            or state["ici_bytes_total"] != state["ici_bytes_per_token"] \
+            * state["tokens_generated"]:
+        raise AssertionError(f"{what}: /state mesh keys "
+                             f"{ {k: state[k] for k in MESH_KEYS} }")
+    per = state["param_bytes_per_device"]
+    total = state["param_bytes_total"]
+    return {**{k: state[k] for k in MESH_KEYS},
+            "param_bytes_per_device": per, "param_bytes_total": total,
+            "param_share_per_device": [v / total for v in per.values()],
+            "decode_attn_impl": state["decode_attn_impl"],
+            "decode_attn_reason": state["decode_attn_reason"],
+            "attention_backend_reason": state["attention_backend_reason"]}
+
+
+def serve_tp(torch, srv, restart, params, qparams, reqs,
+             launches: dict) -> dict:
+    """Llama-3-8B widths at tp = 2: rank 0 (this process) leads the HTTP
+    server and the scheduler, a spawned follower is rank 1, both on
+    ``cuda:0`` over gloo (``TP_BACKEND``), each with half the heads, the
+    MLP columns and the vocabulary. The burst on the kernel path (K1 and
+    K2 on each rank's shard shapes; its programs run eagerly, so a
+    second burst would measure nothing new); then the same mesh serves
+    two of the burst's requests (32 new tokens) with W8A16 weights over
+    an int8 pool (K6, K7). Streams held tie-aware against the one-rank
+    replica's on the same weights (bf16 partial sums add in another
+    order on two ranks); ``/state``'s mesh keys and each rank's share of
+    the weights gated."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+    from aigw_tpu_torch.tpuserve.server import TPUServeServer
+
+    eos = srv.tokenizer.eos_id
+    cfg = llama.LLAMA3_8B
+    short = [(k, st, dict(b, max_tokens=32)) for k, st, b in reqs[:2]]
+    # the one-rank replica on the same weights, the same programs
+    restart(params, decode_backend="fused")
+    tap = TokenTap(srv.engine)
+    serve_phase(srv.port, reqs)
+    one = _streams_by_prompt(tap)
+    restart(qparams, decode_backend="fused", kv_cache_dtype="int8")
+    tap = TokenTap(srv.engine)
+    serve_phase(srv.port, short)
+    one_q = _streams_by_prompt(tap)
+    stop_engine(srv)
+    out: dict = {"ranks": 2, "backend": TP_BACKEND, "device": "cuda:0",
+                 "interconnect": "none measured: both ranks on one card",
+                 "requests": len(reqs)}
+    t = time.monotonic()
+    tp_srv = TPUServeServer("llama-3-8b-random", EngineConfig(**TP_CFG),
+                            device="cuda:0", port=0, params=params, tp=2,
+                            mesh_backend=TP_BACKEND)
+    out["up_s"] = time.monotonic() - t
+    tp_srv.start()
+    try:
+        eng = tp_srv.engine
+        tap = TokenTap(eng)
+        timing: dict = {}
+
+        def burst(name, rs):
+            t0 = time.monotonic()
+            serve_phase(tp_srv.port, rs)
+            timing[name] = time.monotonic() - t0
+
+        per_rank = rank_launches(eng, lambda: burst("cold_s", reqs))
+        _gate_ranks("serve_tp", per_rank, ("ragged_prefill_attention",
+                                           "fused_paged_decode"))
+        out.update(timing)
+        out["launches_per_rank"] = per_rank
+        launches["serve_tp"] = per_rank[0]
+        out["state"] = st = _mesh_state(tp_srv.port, 2, "serve_tp")
+        if st["mesh_axes"].get("tp") != 2 or not all(
+                0.45 < x < 0.55 for x in st["param_share_per_device"]):
+            raise AssertionError(f"serve_tp: the shards are not halves: "
+                                 f"{st}")
+        out["against_one_rank"] = _hold_streams(
+            torch, params, cfg, eos, one, _streams_by_prompt(tap),
+            "serve_tp")
+        # W8A16 over int8 pages on the same mesh (the followers drop the
+        # bf16 engine and build this one)
+        stop_engine(tp_srv)
+        tp_srv.engine = eng = Engine(
+            qparams, cfg, EngineConfig(**TP_CFG, kv_cache_dtype="int8"),
+            eos_token_ids=(eos,), device="cuda:0",
+            mesh=tp_srv.replica_mesh.mesh)
+        eng.start()
+        tap = TokenTap(eng)
+        per_q = rank_launches(eng, lambda: burst("w8a16_kv_int8_s", short))
+        _gate_ranks("serve_tp W8A16 + int8", per_q,
+                    ("w8a16_matmul", "fused_paged_decode_int8"),
+                    ("ragged_prefill_attention", "fused_paged_decode"))
+        out["w8a16_kv_int8"] = {
+            "requests": len(short), "wall_s": timing["w8a16_kv_int8_s"],
+            "launches_per_rank": per_q,
+            "against_one_rank": _hold_streams(
+                torch, qparams, cfg, eos, one_q, _streams_by_prompt(tap),
+                "serve_tp W8A16 + int8")}
+        launches["serve_tp_w8a16"] = per_q[0]
+    finally:
+        tp_srv.stop()
+        tp_srv.engine = None
+        gc.collect()
+    out["card"] = nvidia_smi_line()
+    log(f"serve_tp (tp=2 on one card over {TP_BACKEND}): up "
+        f"{out['up_s']:.1f}s, burst {out['cold_s']:.2f} s; against one rank "
+        f"{out['against_one_rank']}; W8A16+int8 "
+        f"{out['w8a16_kv_int8']['against_one_rank']}")
+    return out
+
+
+def serve_tp_nccl(torch, srv, params, reqs) -> dict:
+    """One rank over NCCL (``MeshSpec(tp=1)`` passed as a mesh): the mesh
+    path runs and issues its collectives, and every program captures
+    them. Four of the burst's requests sent one at a time (the same call
+    shapes on both) must stream bit-equal to the replica without a
+    mesh; the whole burst is served cold and warm; a captured decode
+    step's wall against its device time, beside the step without a
+    mesh, in this call."""
+    import torch.distributed as dist
+
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.parallel import MeshSpec, make_mesh
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+    from aigw_tpu_torch.tpuserve.follower import free_port
+
+    eos = srv.tokenizer.eos_id
+    cfg = llama.LLAMA3_8B
+    seq = reqs[:4]
+
+    def one_at_a_time():
+        tap = TokenTap(srv.engine)
+        for r in seq:
+            serve_phase(srv.port, [r])
+        return _streams_by_prompt(tap)
+
+    srv.engine = Engine(params, cfg, EngineConfig(**TP_CFG),
+                        eos_token_ids=(eos,), device="cuda:0")
+    srv.engine.start()
+    want = one_at_a_time()
+    stop_engine(srv)
+    out: dict = {"ranks": 1, "backend": "nccl"}
+    mesh = make_mesh(MeshSpec(tp=1), "cuda:0", rank=0, world_size=1,
+                     init_method=f"tcp://127.0.0.1:{free_port()}",
+                     timeout_s=300)
+    try:
+        if mesh.backend != "nccl":
+            raise AssertionError(f"serve_tp_nccl on {mesh.backend}")
+        srv.engine = eng = Engine(params, cfg, EngineConfig(**TP_CFG),
+                                  eos_token_ids=(eos,), device="cuda:0",
+                                  mesh=mesh)
+        if not eng.programs.capture:
+            raise AssertionError("the NCCL mesh's programs are not captured")
+        eng.start()
+        got = one_at_a_time()
+        differ = [p for p in want if want[p][0][1] != got[p][0][1]]
+        if differ:
+            raise AssertionError(f"serve_tp_nccl: {len(differ)} of "
+                                 f"{len(want)} streams differ from the "
+                                 "replica without a mesh")
+        out["streams_bit_equal"] = len(want)
+        reset_counts()
+        t = time.monotonic()
+        serve_phase(srv.port, reqs)
+        out["cold_s"] = time.monotonic() - t
+        t = time.monotonic()
+        serve_phase(srv.port, reqs)
+        out["warm_s"] = time.monotonic() - t
+        out["launches"] = read_counts()
+        out["programs_captured"] = eng.compile_tracker.program_count()
+        out["captures"] = eng.compile_tracker.compiles()
+        if out["launches"]["fused_paged_decode"] <= 0 \
+                or out["launches"]["ragged_prefill_attention"] <= 0 \
+                or out["captures"] <= 0:
+            raise AssertionError(f"serve_tp_nccl: {out}")
+        st = json.loads(_http(srv.port, "/state")[2])
+        out["state"] = {k: st[k] for k in MESH_KEYS}
+        if st["mesh_axes"].get("tp") != 1 or st["mesh_devices"] != 1:
+            raise AssertionError(f"serve_tp_nccl: {out['state']}")
+        stop_engine(srv)
+        steps = {}
+        for name, m in (("no_mesh", None), ("nccl_mesh", mesh),
+                        ("nccl_mesh_again", mesh), ("no_mesh_again", None)):
+            d = decode_profile(torch, params, cfg, captured=True, mesh=m)
+            steps[name] = {k: d[k] for k in ("wall_ms", "device_ms",
+                                             "device_busy",
+                                             "kernel_launches")}
+        out["captured_step"] = steps
+    finally:
+        srv.engine.stop()
+        gc.collect()
+        dist.destroy_process_group()
+    out["card"] = nvidia_smi_line()
+    log(f"serve_tp_nccl: {out['streams_bit_equal']} streams bit-equal to "
+        f"no mesh; burst {out['cold_s']:.2f} / {out['warm_s']:.2f} s; "
+        f"captured step {steps['nccl_mesh']['wall_ms']:.2f} ms wall / "
+        f"{steps['nccl_mesh']['device_ms']:.2f} device (no mesh "
+        f"{steps['no_mesh']['wall_ms']:.2f} / "
+        f"{steps['no_mesh']['device_ms']:.2f})")
+    return out
+
+
+def serve_ep(torch, mixtral, reqs, launches: dict) -> dict:
+    """Mixtral-8x7B widths cut to ``EP_LAYERS`` layers in W8A16 at ep = 2:
+    the leader and a follower on ``cuda:0`` over gloo, each with four of
+    the eight experts (all their columns), the router replicated. Four
+    of the burst's requests (32 new tokens each), sent one at a time
+    on an idle engine, against the one-rank replica on the same weights:
+    the streams equal, and the per-layer routing counts of one prefill
+    call through each engine (its device operation, before it serves)
+    equal; the served routing totals are reported."""
+    from aigw_tpu_torch.models.registry import ModelSpec, register_model
+    from aigw_tpu_torch.tpuserve.engine import EngineConfig
+    from aigw_tpu_torch.tpuserve.server import TPUServeServer
+
+    cfg = dataclasses.replace(mixtral.MIXTRAL_8X7B, n_layers=EP_LAYERS)
+    register_model(ModelSpec(EP_MODEL, "mixtral", cfg))
+    seq = [(k, st, dict(b, model=EP_MODEL, max_tokens=32))
+           for k, st, b in reqs[:4]]
+    moe_keys = ("moe_expert_load", "moe_layer_drops", "moe_tokens_routed",
+                "moe_tokens_dropped")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    block = (torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                           device="cuda", dtype=torch.int32),
+             torch.tensor([64, 41], dtype=torch.int32, device="cuda"),
+             torch.arange(32, dtype=torch.int32, device="cuda").reshape(2, 16))
+
+    def one_call(eng):
+        """The routing counts of one prefill call (an engine's device
+        operation, before its thread starts): no scheduler timing in
+        them."""
+        _tok, stats = eng._prefill_step(eng.fns.prefill, block, (
+            torch.zeros((2, 2), dtype=torch.int64, device="cuda"),
+            torch.zeros(2, device="cuda"), torch.ones(2, device="cuda"),
+            torch.zeros(2, dtype=torch.int32, device="cuda"),
+            torch.zeros((2, cfg.vocab_size), device="cuda"),
+            torch.full((2,), eng._base_row, dtype=torch.int32,
+                       device="cuda")))
+        return stats.tolist()
+
+    def run(server):
+        tap = TokenTap(server.engine)
+        t0 = time.monotonic()
+        for r in seq:
+            # each request on an idle engine: a window still in flight
+            # when the next arrives would route other rows
+            _wait_idle(server)
+            serve_phase(server.port, [r])
+        wall = time.monotonic() - t0
+        st = json.loads(_http(server.port, "/state")[2])
+        return _streams_by_prompt(tap), {k: st[k] for k in moe_keys}, wall
+
+    one = TPUServeServer(EP_MODEL, EngineConfig(**TP_CFG), device="cuda",
+                         port=0, quantize="int8")
+    want_call = one_call(one.engine)
+    one.start()
+    try:
+        params = one.engine.params
+        want, want_moe, one_s = run(one)
+    finally:
+        one.stop()
+        one.engine = None
+    out: dict = {"ranks": 2, "backend": TP_BACKEND, "layers": EP_LAYERS,
+                 "weights": "int8 (W8A16)", "requests": len(seq),
+                 "one_rank_s": one_s}
+    t = time.monotonic()
+    ep_srv = TPUServeServer(EP_MODEL, EngineConfig(**TP_CFG),
+                            device="cuda:0", port=0, params=params, ep=2,
+                            mesh_backend=TP_BACKEND)
+    del params
+    out["up_s"] = time.monotonic() - t
+    got_call = one_call(ep_srv.engine)
+    ep_srv.start()
+    try:
+        box: dict = {}
+
+        def go():
+            box["got"], box["moe"], box["wall"] = run(ep_srv)
+
+        per_rank = rank_launches(ep_srv.engine, go)
+        _gate_ranks("serve_ep", per_rank, ("ragged_prefill_attention",
+                                           "fused_paged_decode",
+                                           "w8a16_matmul"))
+        out["wall_s"] = box["wall"]
+        out["launches_per_rank"] = per_rank
+        launches["serve_ep"] = per_rank[0]
+        out["state"] = _mesh_state(ep_srv.port, 2, "serve_ep")
+        if out["state"]["mesh_axes"].get("ep") != 2:
+            raise AssertionError(f"serve_ep: {out['state']}")
+        differ = [p for p in want
+                  if want[p][0][1] != box["got"][p][0][1]]
+        out["streams_equal"] = len(want) - len(differ)
+        out["routing_one_call"] = got_call
+        # the served totals count the junk steps of windows a finished
+        # stream still had in flight: reported, not gated
+        out["routing"] = box["moe"]
+        out["routing_one_rank"] = want_moe
+        if differ or got_call != want_call:
+            raise AssertionError(
+                f"serve_ep: {len(differ)} streams differ; one call's "
+                f"routing {got_call} against one rank's {want_call}")
+        w_gate = ep_srv.engine.params["l0.w_gate.q"]
+        out["experts_per_rank"] = int(w_gate.shape[0])
+    finally:
+        ep_srv.stop()
+        ep_srv.engine = None
+        gc.collect()
+    out["card"] = nvidia_smi_line()
+    log(f"serve_ep (ep=2, {EP_LAYERS} layers, W8A16): "
+        f"{out['streams_equal']} streams and one call's routing counts "
+        f"equal to one rank's; {out['wall_s']:.2f} s against "
+        f"{one_s:.2f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6220,12 +6668,33 @@ def main() -> int:
         # inside the warmed geometry (serve_graphs)
         print(json.dumps({"serve_graphs": serve_graphs(
             torch, srv, params, reqs, launches)}), flush=True)
+
+        # tensor parallel: two ranks on the card over gloo (serve_tp),
+        # then one rank over NCCL with its collectives captured
+        # (serve_tp_nccl)
+        print(json.dumps({"serve_tp": serve_tp(
+            torch, srv, restart, params, qparams, reqs, launches)}),
+            flush=True)
+        print(json.dumps({"serve_tp_nccl": serve_tp_nccl(
+            torch, srv, params, reqs)}), flush=True)
     finally:
         srv.stop()
 
     # 5. kernels against their plain versions; the model end to end
     rows = kernel_checks(torch, launches)
     rows += quant_kernel_checks(torch, launches)
+    # the kernels at one tp = 2 rank's shard shapes (H 16, Hkv 4; K6's
+    # N 2048, 512, 7168, 64128 and K 2048, 7168), launches those of a
+    # rank in serve_tp
+    tp_launches = {k: launches["serve_tp"].get(k, 0)
+                   + launches["serve_tp_w8a16"].get(k, 0)
+                   for k in counters()}
+    tp_launches["ragged_prefill_attention_resume"] = 0
+    rows_tp = kernel_checks(torch, tp_launches, heads=(16, 4))
+    rows_tp += quant_kernel_checks(torch, tp_launches, heads=(16, 4),
+                                   qmm=QMM_TP2, line="qmatmul_shapes_tp")
+    print(json.dumps({"kernels_tp": {"heads": [16, 4], "card": card,
+                                     "rows": rows_tp}}), flush=True)
     checks = {}
     for name, p_, kv_dtype, ref in (
             ("bf16", params, "bfloat16", None),
@@ -6414,6 +6883,9 @@ def main() -> int:
             f"kernels vs plain: {checks_moe[name]} "
             f"({time.monotonic() - t:.1f}s)")
     print(json.dumps({"model_check_moe": checks_moe}), flush=True)
+    # expert parallel: two ranks on the card over gloo (serve_ep)
+    print(json.dumps({"serve_ep": serve_ep(torch, mixtral, reqs,
+                                           launches)}), flush=True)
     serve_moe(torch, mixtral, reqs, launches)
     for row in rows:
         row["launches_serve_moe"] = launches["serve_moe"].get(row["name"], 0)
@@ -6428,6 +6900,9 @@ def main() -> int:
             row["name"], 0)
         row["launches_checkpoint"] = launches["checkpoint"].get(
             row["name"], 0)
+        # the leader rank's (each rank launches as many)
+        for phase in ("serve_tp", "serve_tp_w8a16", "serve_ep"):
+            row[f"launches_{phase}"] = launches[phase].get(row["name"], 0)
         for phase in ("serve_defaults", "serve_defaults_w8a16",
                       "embeddings_bf16", "embeddings_w8a16"):
             row[f"launches_{phase}"] = launches[phase].get(row["name"], 0)

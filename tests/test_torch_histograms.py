@@ -4,7 +4,8 @@ against the JAX package's replica.
 - ``obs/metrics.py``: ``LabeledHistogram`` / ``RequestMetrics`` render
   what ``prometheus_client.generate_latest`` renders for the reference's
   ``GenAIMetrics`` on the same observations, byte for byte once the
-  times (``_created``, the durations) are set equal.
+  ``_created`` times are set equal (the durations come from one stepped
+  clock on both sides).
 - Two replicas, the reference's and the port's, on the same float32
   weights, serve the same requests one at a time: chat and completions,
   streamed and not, ``n: 2`` streamed (recorded) and buffered (not
@@ -13,8 +14,7 @@ against the JAX package's replica.
   sets, buckets, counts and token sums (durations are compared by
   count only).
 - ``/state``: the port replica's key set is the reference replica's
-  less the mesh, ``sp`` and slice-topology keys (ROADMAP queue 1 item
-  7) plus the port's own; the four device keys carry the engine's
+  less the ``sp`` keys (ROADMAP queue 1 item 7) plus the port's own; the four device keys carry the engine's
   values; the reference picker's ``worst_hbm_frac`` and
   ``worst_kv_occupancy`` read them off a polled port replica.
 """
@@ -22,6 +22,8 @@ against the JAX package's replica.
 import asyncio
 import json
 import threading
+import time
+import types
 import urllib.error
 import urllib.request
 
@@ -51,13 +53,12 @@ GENAI = ("gen_ai_client_token_usage",
          "gen_ai_server_request_duration_seconds",
          "gen_ai_server_time_to_first_token_seconds",
          "gen_ai_server_time_per_output_token_seconds")
-# the reference's /state keys the port does not export: the mesh and
-# sequence-parallel serving surface and the TPU slice topology (ROADMAP
-# queue 1 item 7, multi-GPU)
+# the reference's /state keys the port does not export: the
+# sequence-parallel serving surface (ROADMAP queue 1 item 7, multi-GPU;
+# the mesh and slice-topology keys are served)
 MESH_STATE_KEYS = frozenset({
     "sp", "sp_prefill_mode", "sp_chunked_prefills", "sp_resume_prefills",
-    "sp_interactive_admits", "mesh_axes", "mesh_devices",
-    "ici_bytes_per_token", "ici_bytes_total", "slice", "device_coords"})
+    "sp_interactive_admits"})
 # the port's /state keys the reference's replica has only on /metrics or
 # not at all (the counters behind the engine gauges, the device's name,
 # the defaults table)
@@ -219,24 +220,38 @@ def _timeless(fams: dict) -> dict:
 
 
 # -- the renderer -------------------------------------------------------------
-def _observe(metrics, rm_cls, usage_cls):
+def _observe(metrics, rm_cls, usage_cls, clock=time.monotonic):
     for op, model, err, usage in (
             ("chat", "m\"1", "", (5, 2, 7, 1)),
             ("text_completion", "m\\2", "engine", (3, 0, 3, 0)),
             ("chat", "m\"1", "", (1_000_000, 64, 1_000_064, 0))):
         rm = rm_cls(metrics=metrics, operation=op, provider="tpuserve",
-                    request_model=model, response_model="r\n")
+                    request_model=model, response_model="r\n",
+                    start=clock())
         for _ in range(3):
             rm.record_tokens_emitted(1)
         rm.record_tokens_emitted(0)
         rm.finish(usage_cls(*usage), error_type=err)
 
 
-def test_genai_histograms_render_like_generate_latest():
+def _stepped_clock(monkeypatch, module):
+    """``module``'s ``time.monotonic`` advances 0.25 s a call from 0, so
+    both sides observe the same durations whatever the host's load."""
+    ticks = iter(range(1_000))
+    fake = types.SimpleNamespace(time=time.time,
+                                 monotonic=lambda: 0.25 * next(ticks))
+    monkeypatch.setattr(module, "time", fake)
+    return fake
+
+
+def test_genai_histograms_render_like_generate_latest(monkeypatch):
     ref, ours = jmetrics.GenAIMetrics(), tmetrics.GenAIMetrics()
-    _observe(ref, jmetrics.RequestMetrics, JUsage)
-    _observe(ours, tmetrics.RequestMetrics, TUsage)
-    # the times are the clocks': set the port's to the reference's
+    _observe(ref, jmetrics.RequestMetrics, JUsage,
+             _stepped_clock(monkeypatch, jmetrics).monotonic)
+    _observe(ours, tmetrics.RequestMetrics, TUsage,
+             _stepped_clock(monkeypatch, tmetrics).monotonic)
+    # the creation stamps are the wall clock's: set the port's to the
+    # reference's
     for mine, theirs in ((ours.token_usage, ref.token_usage),
                          (ours.request_duration, ref.request_duration),
                          (ours.time_to_first_token,
@@ -246,8 +261,6 @@ def test_genai_histograms_render_like_generate_latest():
         for labels, child in mine._children.items():
             other = theirs.labels(*labels)
             child[2] = other._created
-            if mine is not ours.token_usage:
-                child[1] = other._sum.get()
     assert ours.export() == ref.export()
     assert tmetrics.render_genai_families() \
         == jmetrics.GenAIMetrics().export()

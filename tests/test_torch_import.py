@@ -188,7 +188,7 @@ def test_ops_surface_modules_import_with_jax_blocked():
         "           meter_to_tuple, TPUServeServer.drain,\n"
         "           TPUServeServer.profile, TPUServeServer.metrics):\n"
         "    assert callable(fn)\n"
-        "assert len(metric_families()) == 116\n"
+        "assert len(metric_families()) == 118\n"
         "bad = [k for k, v in sys.modules.items() if v and (\n"
         "    k.split('.')[0] in ('jax', 'jaxlib', 'aigw_tpu',\n"
         "                        'prometheus_client', 'grpc'))]\n"
@@ -369,3 +369,36 @@ def test_checkpoint_module_imports_with_its_packages_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_parallel_modules_are_covered():
+    """The mesh, sharding and pipeline modules and the follower loop are
+    in the scans above, the port's own copies; importing them starts no
+    process group and no process, and the mesh defaults to CUDA."""
+    import inspect
+
+    for m in ("aigw_tpu_torch.parallel.__init__",
+              "aigw_tpu_torch.parallel.mesh",
+              "aigw_tpu_torch.parallel.sharding",
+              "aigw_tpu_torch.parallel.pipeline",
+              "aigw_tpu_torch.tpuserve.follower"):
+        assert m in MODULES, m
+    import multiprocessing
+
+    import torch.distributed as dist
+
+    from aigw_tpu_torch.parallel import make_mesh
+    from aigw_tpu_torch.tpuserve import follower
+
+    assert not dist.is_initialized()
+    assert not multiprocessing.active_children()
+    assert inspect.signature(make_mesh).parameters["device"].default \
+        == "cuda"
+    assert inspect.signature(
+        follower.start_replica_mesh).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        from aigw_tpu_torch.parallel import MeshSpec
+
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_mesh(MeshSpec(tp=1), rank=0, world_size=1,
+                      init_method="file:///nonexistent/rdv")
