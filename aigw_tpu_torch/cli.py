@@ -17,6 +17,7 @@
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu \\
         --lora fr=/ckpt/fr --lora de=/ckpt/de --lora-slots 1
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu --tp 2
+    python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu --sp 2
     python -m aigw_tpu_torch convert /hf/llama-3-8b checkpoints/llama-3-8b
 
 With no flags a replica runs the reference's default programs: the
@@ -28,10 +29,14 @@ the reference's names, defaults and help text: the programs they warm
 are CUDA graphs captured ahead of traffic (``tpuserve/programs.py``),
 counted on ``/state`` as ``warm_programs`` and ``xla_compiles``.
 
-``--tp N`` / ``--ep N`` shard the model over ``tp x ep`` ranks: this
-process leads, and starts a follower process for every other rank, on
-``cuda:<rank>`` (NCCL) or with ``--device cpu`` on the CPU (gloo); they
-stop with it. A machine with fewer cards than ranks is refused.
+``--tp N`` / ``--ep N`` shard the model over ``tp x ep`` ranks, and
+``--sp N`` adds ``N`` ranks along the sequence axis (each holding the
+whole ``tp``/``ep`` shard; prompts of at least
+``--sp-prefill-min-tokens`` prefill with their rows split over them):
+this process leads, and starts a follower process for every other of
+the ``tp x sp x ep`` ranks, on ``cuda:<rank>`` (NCCL) or with ``--device
+cpu`` on the CPU (gloo); they stop with it. A machine with fewer cards
+than ranks is refused.
 
 SIGTERM or SIGINT drains the replica (new generations get 503 while
 live ones finish, ``--drain-grace`` at most) and exits 0; a second
@@ -90,8 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="expert-parallel degree (MoE families; mesh "
                         "is dp=1 × tp × sp × ep)")
     s.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel degree (not ported: > 1 "
-                        "raises)")
+                   help="sequence-parallel degree: prompts >= "
+                        "--sp-prefill-min-tokens prefill via ring "
+                        "attention over the sp mesh axis")
+    s.add_argument("--sp-prefill-min-tokens", type=int, default=1024,
+                   help="minimum prompt length routed through the "
+                        "sequence-parallel prefill path")
     s.add_argument("--decode-steps-per-tick", type=int, default=8,
                    help="decode steps per host round-trip (the adaptive "
                         "window's max; it shrinks to 1/4 under pressure)")
@@ -220,6 +229,7 @@ def engine_config(args):
         spec_adaptive=not args.no_spec_adaptive,
         ragged_chunk_tokens=args.ragged_chunk_tokens,
         max_queued_requests=args.max_queued_requests,
+        sp_prefill_min_tokens=args.sp_prefill_min_tokens,
         logprobs_topk=args.logprobs,
         tenant_slot_cap=args.tenant_slot_cap,
         kv_host_bytes=args.kv_host_bytes,

@@ -49,8 +49,21 @@ adapter's column-parallel targets use the rank's B columns, ``wo`` and
 ``w_down`` its A rows, whose partial delta joins the partial product
 before the all-reduce. The attention kernels run as they are on the
 local heads. Without a mesh nothing changes and no collective is
-issued. The sequence-parallel prefills wait for an ``sp`` axis (ROADMAP
-queue 1 item 7).
+issued.
+
+**The sequence-parallel prefills** (``prefill_sp``, ``prefill_sp_suffix``,
+on a mesh with an ``sp`` axis of ``n`` ranks): rank ``r`` owns rows
+``[r S/n, (r + 1) S/n)`` of the padded ``[B, S]`` chunk, at their global
+positions. The embedding, the projections, ``wo`` and the MLP run on its
+rows only (the compute ``sp`` divides; the ``tp`` reductions stay as
+they are). In each layer the rank gathers every rank's K/V block over
+``sp``, scatters all ``S`` rows into its own copy of the pool (the pool
+is replicated over ``sp``, as in the reference), and its queries attend
+the gathered blocks in the ring's order (``ops/ring_attention.py``);
+``prefill_sp_suffix`` then visits its pool's page window. The final row
+of each sequence lives on one rank: every rank offers its candidate row,
+the rows are gathered over ``sp``, and each rank keeps the owner's, so
+every rank computes the same logits.
 """
 
 from __future__ import annotations
@@ -66,6 +79,12 @@ import torch.nn.functional as F
 from aigw_tpu_torch.models import kvq
 from aigw_tpu_torch.models.lora import lora_delta
 from aigw_tpu_torch.ops import decode_fused, paged_attention, qmatmul
+from aigw_tpu_torch.ops.ring_attention import (
+    _ring_attention_local,
+    _ring_prefix_attention_local,
+    _ulysses_attention_local,
+    gather_blocks,
+)
 
 
 @dataclass(frozen=True)
@@ -666,6 +685,164 @@ def prefill_suffix(
     last = torch.clamp(seq_lens.long() - prefix_lens.long() - 1, 0, S - 1)
     return _logits(p, cfg, x[torch.arange(B, device=dev), last],
                    plain, mesh), kv_cache
+
+
+def _sp_shard(mesh, S: int) -> tuple[int, int, int]:
+    """(this rank's ``sp`` index, ``sp``, rows per rank) of an ``S``-row
+    chunk."""
+    n = mesh.shape["sp"]
+    if S % n:
+        raise ValueError(f"a sequence-parallel chunk of {S} rows does not "
+                         f"divide over sp={n}")
+    return mesh.axis_index("sp"), n, S // n
+
+
+def _sp_kv(k: torch.Tensor, v: torch.Tensor, mesh
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                      torch.Tensor]:
+    """Every ``sp`` rank's K/V block, gathered in one collective: the
+    blocks ``[n, B, S/n, Hkv, D]`` (for the attention) and the whole
+    chunk's rows ``[B, S, Hkv, D]`` (for the pool)."""
+    blocks = gather_blocks(torch.stack([k, v]), mesh, "sp")
+    kb, vb = blocks[:, 0], blocks[:, 1]
+    n, B, Sl, Hkv, D = kb.shape
+
+    def rows(x):
+        return x.permute(1, 0, 2, 3, 4).reshape(B, n * Sl, Hkv, D)
+
+    return kb, vb, rows(kb), rows(vb)
+
+
+def _sp_last(x: torch.Tensor, last: torch.Tensor, lo: int,
+             mesh) -> torch.Tensor:
+    """Row ``last[b]`` of each sequence (``x`` holds this rank's rows
+    ``[lo, lo + S/n)``), on every rank: each rank offers its candidate,
+    the candidates are gathered over ``sp``, and the owner's is kept."""
+    B, Sl = x.shape[0], x.shape[1]
+    rows = torch.arange(B, device=x.device)
+    mine = x[rows, torch.clamp(last - lo, 0, Sl - 1)]
+    every = gather_blocks(mine, mesh, "sp")  # [n, B, dim]
+    owner = torch.clamp(last // Sl, 0, every.shape[0] - 1)
+    return every[owner, rows]
+
+
+def prefill_sp(
+    p: dict[str, torch.Tensor],
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] int, right-padded; S divisible by sp
+    seq_lens: torch.Tensor,  # [B] int true lengths
+    kv_cache: Any,  # native tensor or quantized dict, updated in place
+    page_table: torch.Tensor,  # [B, max_pages] int32
+    page_size: int,
+    *,
+    mesh: Any,  # a parallel.mesh.Mesh with an sp axis
+    strategy: str = "ring",  # "ring" | "ulysses"
+    plain: bool = False,
+    mlp: Any = None,
+    lora: dict[str, torch.Tensor] | None = None,
+    adapter_idx: torch.Tensor | None = None,  # [B] adapter row per sequence
+) -> tuple[torch.Tensor, Any]:
+    """The sequence-parallel prefill (the reference's ``prefill_sp``):
+    ``prefill`` with the chunk's rows sharded over ``sp`` and its
+    attention the ring's (``strategy="ring"``) or Ulysses'. Every rank
+    gets the whole ``tokens`` and runs its own rows (see the module
+    docstring). The attention is causal with no validity mask, as the
+    reference's: padding sits past ``seq_len``, so a valid query only
+    reaches valid keys; padded rows compute garbage no one reads, and
+    their K/V go to the dump page. ``plain``, ``mlp``, ``lora`` and
+    ``adapter_idx`` as in ``prefill_ragged``. Returns (logits at each
+    row's last valid position [B, V] float32, the same on every rank;
+    pool)."""
+    if strategy not in ("ring", "ulysses"):
+        raise ValueError(f"strategy must be 'ring' or 'ulysses' (got "
+                         f"{strategy!r})")
+    S = tokens.shape[1]
+    r, n, Sl = _sp_shard(mesh, S)
+    lo = r * Sl
+    pos, valid, _ = _causal_block(seq_lens, S)
+    flat = _write_slots(kv_cache, page_table, pos, valid, page_size)
+    ad = _adapters(lora, adapter_idx, mesh=mesh)
+    mlp = _dense_mlp(mlp, ad, mesh)
+    lpos = pos[:, lo:lo + Sl]
+    x = _embed_rows(p, tokens[:, lo:lo + Sl].long(), mesh)
+    for i in range(cfg.n_layers):
+        h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(p, i, h, lpos, cfg, plain=plain, ad=ad)
+        kb, vb, k_rows, v_rows = _sp_kv(k, v, mesh)
+        kv_cache = kvq.scatter_kv(kv_cache, i, flat, k_rows, v_rows)
+        if strategy == "ring":
+            attn = _ring_attention_local(q, kb.to(q.dtype), vb.to(q.dtype),
+                                         idx=r, n=n, causal=True)
+        else:
+            attn = _ulysses_attention_local(
+                q, k.to(q.dtype), v.to(q.dtype), idx=r, n=n, causal=True,
+                mesh=mesh)
+        x = x + _wo(p, i, attn.to(x.dtype), plain, ad, mesh)
+        h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
+        x = x + mlp(p, i, h, plain)
+    x = rms_norm(x, p["norm_f"], cfg.norm_eps)
+    last = torch.clamp(seq_lens.long() - 1, 0, S - 1)
+    return _logits(p, cfg, _sp_last(x, last, lo, mesh), plain,
+                   mesh), kv_cache
+
+
+def prefill_sp_suffix(
+    p: dict[str, torch.Tensor],
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,  # [B, S] chunk tokens, right-padded; S % sp == 0
+    prefix_lens: torch.Tensor,  # [B] int tokens already in the pool
+    seq_lens: torch.Tensor,  # [B] int TOTAL length, prefix included
+    kv_cache: Any,  # native tensor or quantized dict, updated in place
+    page_table: torch.Tensor,  # [B, pages]; pages * page_size % sp == 0
+    page_size: int,
+    *,
+    mesh: Any,  # a parallel.mesh.Mesh with an sp axis
+    plain: bool = False,
+    mlp: Any = None,
+    lora: dict[str, torch.Tensor] | None = None,
+    adapter_idx: torch.Tensor | None = None,  # [B] adapter row per sequence
+) -> tuple[torch.Tensor, Any]:
+    """The sequence-parallel chunk resuming at a page-aligned offset (the
+    reference's ``prefill_sp_suffix``): ``prefill_suffix``'s contract
+    with the chunk's rows sharded over ``sp``. Per layer every rank
+    scatters the whole chunk's K/V (gathered over ``sp``) into its pool
+    first, so a later chunk's window sees them; then its queries attend
+    the chunk causally and the pool's page window masked to ``t <
+    prefix_len`` under one carry (``ring_attention``'s
+    ``_ring_prefix_attention_local``). With ``prefix_lens == 0`` the
+    window adds nothing and this is ``prefill_sp`` over one chunk.
+    ``page_table``'s width is the window (the engine passes the
+    sequence's power-of-two page bucket). Returns (logits at each row's
+    last valid position [B, V] float32, the same on every rank;
+    pool)."""
+    S = tokens.shape[1]
+    dev = tokens.device
+    r, n, Sl = _sp_shard(mesh, S)
+    lo = r * Sl
+    pos = prefix_lens.long()[:, None] + torch.arange(S, device=dev)[None, :]
+    valid = pos < seq_lens.long()[:, None]
+    flat = _write_slots(kv_cache, page_table, pos, valid, page_size)
+    gslot = _window_slots(page_table, page_size)
+    ad = _adapters(lora, adapter_idx, mesh=mesh)
+    mlp = _dense_mlp(mlp, ad, mesh)
+    lpos = pos[:, lo:lo + Sl]
+    x = _embed_rows(p, tokens[:, lo:lo + Sl].long(), mesh)
+    for i in range(cfg.n_layers):
+        h = rms_norm(x, p[f"l{i}.attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(p, i, h, lpos, cfg, plain=plain, ad=ad)
+        kb, vb, k_rows, v_rows = _sp_kv(k, v, mesh)
+        kv_cache = kvq.scatter_kv(kv_cache, i, flat, k_rows, v_rows)
+        k_all, v_all = kvq.gather_kv(kv_cache, i, gslot)
+        attn = _ring_prefix_attention_local(
+            q, kb.to(q.dtype), vb.to(q.dtype), k_all.to(q.dtype),
+            v_all.to(q.dtype), prefix_lens, idx=r, n=n)
+        x = x + _wo(p, i, attn.to(x.dtype), plain, ad, mesh)
+        h = rms_norm(x, p[f"l{i}.mlp_norm"], cfg.norm_eps)
+        x = x + mlp(p, i, h, plain)
+    x = rms_norm(x, p["norm_f"], cfg.norm_eps)
+    last = torch.clamp(seq_lens.long() - prefix_lens.long() - 1, 0, S - 1)
+    return _logits(p, cfg, _sp_last(x, last, lo, mesh), plain,
+                   mesh), kv_cache
 
 
 def hidden_states(

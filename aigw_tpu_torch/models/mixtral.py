@@ -26,14 +26,23 @@ to bf16 at each call (the reference's experts do not go through its
 quantized-matmul kernel either).
 
 Entry points (``prefill_ragged``, ``prefill``, ``prefill_suffix``,
-``decode_step`` on every rung, ``verify_step``) delegate to the llama
-skeleton; with ``moe_stats=True`` they also return an ``[L, E + 1]``
-int32 leaf: per layer, the (token, k) assignments placed on each
-expert, then the count the fence dropped, over every row the call ran
-(padding rows included, as the reference counts them).
-``hidden_states`` keeps no tape, as in the reference. The
-sequence-parallel prefills wait with their llama counterparts (ROADMAP
-queue 1).
+``prefill_sp``, ``prefill_sp_suffix``, ``decode_step`` on every rung,
+``verify_step``) delegate to the llama skeleton; with ``moe_stats=True``
+they also return an ``[L, E + 1]`` int32 leaf: per layer, the (token, k)
+assignments placed on each expert, then the count the fence dropped,
+over every row the call ran (padding rows included, as the reference
+counts them). ``hidden_states`` keeps no tape, as in the reference.
+
+**In a sequence-parallel prefill** each ``sp`` rank routes only its rows,
+but the fence is the reference's over the whole chunk: the capacity is
+computed from the global row count, and an assignment's position inside
+its expert counts every assignment before it in the global token order,
+so each rank adds, per sequence row and expert, the counts of the other
+ranks' rows that come before its own (one all-gather of ``[B, E]``
+counts per layer). The routing tape's counts are summed over ``sp``
+before they are returned, so every rank returns the reference's. A rank
+runs the experts over a buffer of its own rows (``min(C, T_local)`` per
+expert).
 
 **On an ``ep`` x ``tp`` mesh** (``mesh=``) the router is replicated and
 each rank holds E/ep experts and F/tp of their columns
@@ -56,6 +65,7 @@ import torch.nn.functional as F
 
 from aigw_tpu_torch.models import llama
 from aigw_tpu_torch.models.llama import LlamaConfig
+from aigw_tpu_torch.ops.ring_attention import gather_blocks
 
 
 @dataclass(frozen=True)
@@ -169,17 +179,20 @@ def top_k(logits: torch.Tensor, k: int) -> tuple[torch.Tensor,
 
 def moe_mlp(p: dict[str, torch.Tensor], i: int, x: torch.Tensor,
             cfg: MixtralConfig, stats: list | None = None,
-            mesh=None) -> torch.Tensor:
+            mesh=None, sp: bool = False) -> torch.Tensor:
     """Top-k sparse MLP of layer ``i`` over every row of x ``[..., D]``
     (T rows in all, padding included), as the reference's
     ``mixtral.moe_mlp``. With ``stats`` (a list), appends the layer's
     ``[E + 1]`` int32 routing counts: placed per expert, then
     dropped. On a mesh, this rank's experts and columns, summed over
-    ``tp`` x ``ep``."""
+    ``tp`` x ``ep``. ``sp``: x ``[B, S/n, D]`` is this rank's share of a
+    sequence-parallel chunk, fenced as the whole chunk is (the module
+    docstring); its counts are this rank's."""
     *lead, D = x.shape
     T = math.prod(lead)
     E, K = cfg.n_experts, cfg.experts_per_token
-    C = capacity(T, cfg)
+    n_sp = mesh.shape["sp"] if sp else 1
+    C = capacity(T * n_sp, cfg)
     xt = x.reshape(T, D)
 
     logits = xt.float() @ p[f"l{i}.gate"].float()
@@ -191,23 +204,31 @@ def moe_mlp(p: dict[str, torch.Tensor], i: int, x: torch.Tensor,
     # same expert before it
     pos = (torch.cumsum(choice, 0, dtype=torch.int32) - choice).gather(
         1, expert[:, None])[:, 0]
+    # the buffer rows per expert: the fence's C, or in a sequence-
+    # parallel chunk this rank's rows (a kept assignment's local
+    # position is below both)
+    Cb = C
+    local = pos
+    if n_sp > 1:
+        pos = pos + _sp_offsets(choice, lead[0], expert, mesh)
+        Cb = min(C, T)
     keep = pos < C  # the capacity fence
     if stats is not None:
         placed = (choice * keep[:, None]).sum(0)
         dropped = (~keep).sum()[None]
         stats.append(torch.cat([placed, dropped]).to(torch.int32))
 
-    # dispatch: a kept (t, k) copies row t into buffer row e * C + pos;
-    # a dropped one writes the spare row E * C, which is cut off
-    dest = torch.where(keep, expert * C + pos,
-                       torch.full_like(pos, E * C))
+    # dispatch: a kept (t, k) copies row t into buffer row e * Cb +
+    # local; a dropped one writes the spare row E * Cb, which is cut off
+    dest = torch.where(keep, expert * Cb + local,
+                       torch.full_like(pos, E * Cb))
     src = torch.arange(T, device=x.device).repeat_interleave(K)
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((E * Cb + 1, D), dtype=x.dtype, device=x.device)
     buf[dest] = xt[src]
-    xe = buf[:E * C].view(E, C, D)
+    xe = buf[:E * Cb].view(E, Cb, D)
     if mesh is not None:
-        return _moe_local(p, i, x, xe, expert, pos, keep, weights,
-                          C, mesh)
+        return _moe_local(p, i, x, xe, expert, local, keep, weights,
+                          Cb, mesh)
     # the expert MLP; each dequantized stack is freed before the next
     gate = F.silu(llama._mm(xe, llama._w(p, f"l{i}.w_gate")))
     h = gate * llama._mm(xe, llama._w(p, f"l{i}.w_up"))
@@ -215,11 +236,31 @@ def moe_mlp(p: dict[str, torch.Tensor], i: int, x: torch.Tensor,
     ye = llama._mm(h, llama._w(p, f"l{i}.w_down"))
     del h
     # combine in float32: each token's kept outputs times their weights
-    rows = ye.reshape(E * C, D).float()[torch.clamp(dest, max=E * C - 1)]
+    rows = ye.reshape(E * Cb, D).float()[torch.clamp(dest,
+                                                     max=E * Cb - 1)]
     contrib = torch.where(keep[:, None],
                           rows * weights.reshape(T * K, 1), 0.0)
     out = contrib.view(T, K, D).sum(1)
     return out.to(x.dtype).view(*lead, D)
+
+
+def _sp_offsets(choice: torch.Tensor, B: int, expert: torch.Tensor,
+                mesh) -> torch.Tensor:
+    """Per assignment of this rank's ``[B, S/n]`` rows, the assignments
+    to its expert that the global ``[B, S]`` token order puts before it
+    and this rank does not hold: every other rank's in earlier sequence
+    rows, and the lower ``sp`` ranks' in its own row. ``choice`` is the
+    ``[T K, E]`` one-hot of ``expert``."""
+    E = choice.shape[1]
+    counts = choice.view(B, -1, E).sum(1)  # [B, E] this rank's
+    every = gather_blocks(counts, mesh, "sp")  # [n, B, E]
+    r = mesh.axis_index("sp")
+    others = every.sum(0) - counts
+    before_rows = torch.cumsum(others, 0) - others
+    off = before_rows + every[:r].sum(0)  # [B, E]
+    row = torch.arange(B, device=choice.device).repeat_interleave(
+        choice.shape[0] // B)
+    return off[row, expert].to(torch.int32)
 
 
 def _moe_local(p, i, x, xe, expert, pos, keep, weights, C: int, mesh):
@@ -245,8 +286,9 @@ def _moe_local(p, i, x, xe, expert, pos, keep, weights, C: int, mesh):
     return out.to(x.dtype).view(*lead, D)
 
 
-def _mlp_fn(cfg: MixtralConfig, stats: list | None, mesh=None):
-    return lambda p, i, x, plain: moe_mlp(p, i, x, cfg, stats, mesh)
+def _mlp_fn(cfg: MixtralConfig, stats: list | None, mesh=None,
+            sp: bool = False):
+    return lambda p, i, x, plain: moe_mlp(p, i, x, cfg, stats, mesh, sp)
 
 
 def _with_moe(out, stats: list | None):
@@ -292,6 +334,35 @@ def prefill_suffix(p, cfg: MixtralConfig, tokens, prefix_lens, seq_lens,
         p, cfg.as_llama(), tokens, prefix_lens, seq_lens, kv_cache,
         page_table, page_size, plain=plain, mlp=_mlp_fn(cfg, stats, mesh),
         mesh=mesh), stats)
+
+
+def _sp_moe(out, stats: list | None, mesh):
+    """``_with_moe`` with the ranks' routing counts summed over
+    ``sp``."""
+    out = _with_moe(out, stats)
+    if stats is not None:
+        mesh.all_reduce(out[2], "sp")
+    return out
+
+
+def prefill_sp(p, cfg: MixtralConfig, tokens, seq_lens, kv_cache,
+               page_table, page_size, *, mesh, strategy="ring", plain=False,
+               moe_stats=False, lora=None, adapter_idx=None):
+    stats: list | None = [] if moe_stats else None
+    return _sp_moe(llama.prefill_sp(
+        p, cfg.as_llama(), tokens, seq_lens, kv_cache, page_table,
+        page_size, mesh=mesh, strategy=strategy, plain=plain,
+        mlp=_mlp_fn(cfg, stats, mesh, sp=True)), stats, mesh)
+
+
+def prefill_sp_suffix(p, cfg: MixtralConfig, tokens, prefix_lens, seq_lens,
+                      kv_cache, page_table, page_size, *, mesh, plain=False,
+                      moe_stats=False, lora=None, adapter_idx=None):
+    stats: list | None = [] if moe_stats else None
+    return _sp_moe(llama.prefill_sp_suffix(
+        p, cfg.as_llama(), tokens, prefix_lens, seq_lens, kv_cache,
+        page_table, page_size, mesh=mesh, plain=plain,
+        mlp=_mlp_fn(cfg, stats, mesh, sp=True)), stats, mesh)
 
 
 def hidden_states(p, cfg: MixtralConfig, tokens, seq_lens, *, plain=False,

@@ -42,6 +42,13 @@ class ModelFns:
     prefill_suffix: Any = None
     # mean-pooled final hidden states (/v1/embeddings)
     hidden_states: Any = None
+    # the sequence-parallel (ring-attention) prefill of long prompts on
+    # a mesh with an sp axis; None disables the engine's sp route for
+    # the family (and the server refuses --sp)
+    prefill_sp: Any = None
+    # the sequence-parallel chunk resuming at a page-aligned offset;
+    # None leaves the sp route the monolithic prefill_sp
+    prefill_sp_suffix: Any = None
     # multi-position verifier for speculative decoding; None disables
     # the engine's speculation for the family
     verify_step: Any = None
@@ -60,6 +67,8 @@ def family_fns(family: str) -> ModelFns:
                         llama.prefill_ragged, prefill=llama.prefill,
                         prefill_suffix=llama.prefill_suffix,
                         hidden_states=llama.hidden_states,
+                        prefill_sp=llama.prefill_sp,
+                        prefill_sp_suffix=llama.prefill_sp_suffix,
                         verify_step=llama.verify_step,
                         iter_params=llama.iter_params)
     if family == "mixtral":
@@ -67,6 +76,8 @@ def family_fns(family: str) -> ModelFns:
                         mixtral.prefill_ragged, prefill=mixtral.prefill,
                         prefill_suffix=mixtral.prefill_suffix,
                         hidden_states=mixtral.hidden_states,
+                        prefill_sp=mixtral.prefill_sp,
+                        prefill_sp_suffix=mixtral.prefill_sp_suffix,
                         verify_step=mixtral.verify_step,
                         iter_params=mixtral.iter_params, moe_stats=True)
     raise KeyError(f"unknown model family {family!r}")

@@ -22,10 +22,11 @@ renders its ``_bucket``, ``_count`` and ``_sum`` lines per label set,
 then its ``_created`` gauge, which ``parse_exposition`` counts as part
 of the histogram.
 
-The reference exports 100 engine gauges. The port's ``EngineStats``
-has the fields of ``ENGINE_GAUGES``; ``GAUGES_NOT_PORTED`` names the
-rest with the ROADMAP entry that brings each, so the port's family set
-(``metric_families``) is the reference's minus that map.
+The reference exports 100 engine gauges, and so does the port: its
+``EngineStats`` has the fields of ``ENGINE_GAUGES``, the reference's map.
+``GAUGES_NOT_PORTED``, the gauges a later slice would bring with their
+ROADMAP entry, is empty, so the port's family set (``metric_families``)
+is the reference's.
 
 ``/state`` exports ``EnginePhases.percentiles()`` as
 ``phase_percentiles``, the key the gateway's picker prices a replica's
@@ -255,7 +256,7 @@ class RequestMetrics:
 
 
 #: EngineStats attribute → Prometheus gauge name, the reference's map
-#: (same order) less ``GAUGES_NOT_PORTED``
+#: (same order; none is in ``GAUGES_NOT_PORTED``)
 ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
     ("active_slots", "tpuserve_active_slots"),
     ("queued", "tpuserve_queued_requests"),
@@ -264,6 +265,13 @@ ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
     ("kv_occupancy", "tpuserve_kv_occupancy"),
     ("tokens_generated", "tpuserve_tokens_generated_total"),
     ("prefills", "tpuserve_prefills_total"),
+    ("sp_prefills", "tpuserve_sp_prefills_total"),
+    # the sequence-parallel prefill: prefills that ran as chunked ring
+    # steps, those that resumed at a cached offset, and short requests
+    # admitted at a chunk boundary of one
+    ("sp_chunked_prefills", "tpuserve_sp_chunked_prefills_total"),
+    ("sp_resume_prefills", "tpuserve_sp_resume_prefills_total"),
+    ("sp_interactive_admits", "tpuserve_sp_interactive_admits_total"),
     ("chunked_prefill_steps", "tpuserve_chunked_prefill_steps_total"),
     ("decode_steps", "tpuserve_decode_steps_total"),
     ("decode_window", "tpuserve_decode_window_steps"),
@@ -368,16 +376,10 @@ ENGINE_GAUGES: tuple[tuple[str, str], ...] = (
      "tpuserve_meter_host_page_byte_s_total"),
 )
 
-_MESH = "item 7, multi-GPU"
-#: the reference's engine gauges the port does not export yet:
-#: EngineStats attribute → (gauge name, ROADMAP queue 1 entry): the
-#: sequence-parallel prefill's
-GAUGES_NOT_PORTED: dict[str, tuple[str, str]] = {
-    "sp_prefills": ("tpuserve_sp_prefills_total", _MESH),
-    "sp_chunked_prefills": ("tpuserve_sp_chunked_prefills_total", _MESH),
-    "sp_resume_prefills": ("tpuserve_sp_resume_prefills_total", _MESH),
-    "sp_interactive_admits": ("tpuserve_sp_interactive_admits_total", _MESH),
-}
+#: the reference's engine gauges the port does not export: EngineStats
+#: attribute → (gauge name, ROADMAP queue 1 entry). None since the
+#: sequence-parallel prefill's four were ported
+GAUGES_NOT_PORTED: dict[str, tuple[str, str]] = {}
 
 
 def render_engine_gauges(stats: object) -> bytes:

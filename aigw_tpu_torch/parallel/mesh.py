@@ -17,9 +17,11 @@ on one device). Every group gets the finite ``timeout``: ranks that
 disagree on a collective, or a dead peer, fail the run instead of
 hanging it.
 
-Data and sequence parallelism are not ported here: ``dp > 1`` (replicas
-behind the gateway are the port's data parallelism) and ``sp > 1``
-(ROADMAP queue 1 item 7, the sequence-parallel prefills) raise.
+The ``sp`` axis carries the sequence-parallel prefill
+(``ops/ring_attention.py``): ``group("sp")`` holds the ranks that
+differ only in their ``sp`` coordinate, and a rank's position along it
+is ``axis_index("sp")``. Data parallelism is not ported here: ``dp > 1``
+raises (replicas behind the gateway are the port's data parallelism).
 """
 
 from __future__ import annotations
@@ -62,9 +64,9 @@ class Mesh:
     ``size``, ``shape`` (axis name → size, in the reference's order),
     its coordinates, its ``device``, and the process groups: one per
     axis set the port reduces over (``group("tp")``, ``group("ep")``,
-    ``group("tp", "ep")``, ``group("pp")``), ``world`` (every rank: the
-    tensors a leader sends its followers) and ``ctrl`` (every rank,
-    gloo: the control records)."""
+    ``group("tp", "ep")``, ``group("pp")``, ``group("sp")``), ``world``
+    (every rank: the tensors a leader sends its followers) and ``ctrl``
+    (every rank, gloo: the control records)."""
 
     def __init__(self, spec: MeshSpec, rank: int, device: torch.device,
                  backend: str, timeout: timedelta) -> None:
@@ -80,7 +82,7 @@ class Mesh:
         self._groups: dict[tuple[str, ...], object] = {}
         # every rank creates every group in one order (new_group is
         # collective over the world)
-        for axes in (("tp",), ("ep",), ("pp",), ("tp", "ep")):
+        for axes in (("tp",), ("ep",), ("pp",), ("tp", "ep"), ("sp",)):
             self._groups[axes] = self._axis_group(axes)
         self.ctrl = dist.new_group(backend="gloo", timeout=timeout)
 
@@ -173,15 +175,10 @@ def make_mesh(spec: MeshSpec, device: str | torch.device = "cuda",
     ``Mesh``. Without an initialized group, ``init_method``, ``rank``
     and ``world_size`` start one. The world must hold exactly
     ``spec.size`` ranks: fewer raises the reference's message."""
-    if spec.sp > 1:
-        raise NotImplementedError(
-            f"sp={spec.sp}: the sequence-parallel prefills are not ported "
-            "yet (ROADMAP queue 1 item 7)")
     if spec.dp > 1:
         raise NotImplementedError(
             f"dp={spec.dp}: data parallelism is replicas behind the "
-            "gateway; a dp mesh axis is not ported (ROADMAP queue 1 "
-            "item 7)")
+            "gateway; a dp mesh axis is not ported")
     if min(getattr(spec, a) for a in AXES) < 1:
         raise ValueError(f"mesh axes must be >= 1: {spec}")
     timeout = timedelta(seconds=timeout_s)

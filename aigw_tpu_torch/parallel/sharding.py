@@ -7,7 +7,11 @@ in-projections (``wq``/``wk``/``wv``, ``w_gate``/``w_up``) shard their
 output dimension over ``tp``, row-parallel out-projections (``wo``,
 ``w_down``) their input dimension, the embedding and the lm_head the
 vocabulary, and the paged KV pool its KV heads. A spec is a tuple with
-one entry per dimension: an axis name, or None (replicated).
+one entry per dimension: an axis name, or None (replicated). No spec
+names ``sp``, as none of the reference's does: the ranks along ``sp``
+hold the same weights and the same pool (each rank of a
+sequence-parallel prefill scatters every K/V row of the chunk into its
+own copy), so a rank's weight bytes are its ``tp``/``ep`` shard's.
 
 Where the reference places each leaf with ``jax.device_put`` and lets
 GSPMD insert the collectives, ``shard_params`` slices this rank's shard
@@ -109,10 +113,13 @@ def leaf_spec(key: str, value: torch.Tensor, specs: dict[str, Spec],
 
 
 def _slice(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """This rank's shard of ``t`` under ``spec`` (a copy: the full
-    tensor can be freed)."""
+    """This rank's shard of ``t`` under ``spec``: a copy where an axis
+    cuts it (the full tensor can be freed), ``t`` itself where it is
+    replicated on this mesh (the ranks along ``sp`` hold whole weights:
+    a copy would double them)."""
+    cut = False
     for dim, ax in enumerate(spec):
-        if ax is None:
+        if ax is None or mesh.shape[ax] == 1:
             continue
         n = mesh.shape[ax]
         if t.shape[dim] % n:
@@ -120,7 +127,8 @@ def _slice(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
                              f"divide over {ax}={n}")
         w = t.shape[dim] // n
         t = t.narrow(dim, mesh.axis_index(ax) * w, w)
-    return t.contiguous().clone()
+        cut = True
+    return t.contiguous().clone() if cut else t.contiguous()
 
 
 def shard_param(key: str, value: torch.Tensor, cfg, mesh,

@@ -30,7 +30,11 @@ Two backends behind one interface (``AttentionBackend``), selected by
 
 ``group_prefill`` serves batched admissions and ``single_prefill`` the
 per-request path, which resumes a prefix-cache hit at its cached offset
-(a full hit is one row at n - 1). Each sequence's sampling row carries
+(a full hit is one row at n - 1). On a mesh with an ``sp`` axis the
+engine routes long suffixes past either backend, to the module-level
+``sp_chunked_prefill`` (ring-attention chunk steps with chunk-boundary
+admission) or ``sp_prefill`` (one monolithic call), as the reference
+does. Each sequence's sampling row carries
 its request's adapter row, which the call's LoRA deltas read. Both
 account real and padded prefill tokens (``prefill_padded_frac``) and
 count their intermediate device steps in ``chunked_prefill_steps``.
@@ -580,6 +584,100 @@ class RaggedPrefillBackend(AttentionBackend):
         tok, info["first_lp"] = _unpack_row(final_out[0], 0)
         self.eng._fold_moe(info["moe"])  # settled with the token
         return tok, info
+
+
+def sp_chunked_prefill(eng: "Engine", req, seq_id: int, suffix: list[int],
+                       prefix_len: int, page_row: np.ndarray, total: int,
+                       mask: np.ndarray | None = None):
+    """The sequence-parallel chunked prefill (the reference's): the
+    single path's chunk loop over the family's ``prefill_sp_suffix``,
+    whose chunks of ``sp_chunk_tokens`` (rounded up to a multiple of
+    ``sp``) shard their rows over the ``sp`` ranks, resuming at
+    ``prefix_len`` (0, or a page-aligned cached prefix), then the tail
+    on its bucketed rung rounded up to a multiple of ``sp``. Every chunk
+    step gathers the sequence's page window (its power-of-two page
+    bucket; ``page_size % sp == 0``, so the window splits into ``sp``
+    blocks). Each boundary is a cancellation and shutdown point, then
+    short queued requests are admitted (``Engine._admit_interactive``)
+    and the live streams, the new ones with them, take a decode tick.
+    The routing counts of every step fold after the tail. Module-level,
+    as in the reference: the sp route takes long suffixes whichever
+    backend is configured. Returns what ``single_prefill`` returns."""
+    dev = eng.device
+    fn = eng._prefill_sp_suffix_fn
+    ns = len(suffix)
+    n = prefix_len + ns
+    sampling = eng.attn._sampling_rows({0: (req, seq_id)}, 1, mask)
+    pt = torch.from_numpy(
+        page_row[None, :eng._pow2_pages(eng.allocator.pages_for(total))]
+    ).to(dev)
+    chunk = eng._sp_chunk()
+    tick_ms = 0.0
+    moe = None
+    consumed = 0
+    while ns - consumed > chunk:
+        if req.cancelled.is_set() or eng._stop.is_set():
+            if eng._stop.is_set():
+                return ("stop_consumed" if req.cancelled.is_set()
+                        else "stop")
+            return "skipped"
+        start = prefix_len + consumed
+        ctokens = torch.tensor([suffix[consumed:consumed + chunk]],
+                               dtype=torch.int32, device=dev)
+        _, cmoe = eng._prefill_step(
+            fn, (ctokens, _rows(dev, start), _rows(dev, start + chunk), pt),
+            sampling)
+        moe = cmoe if moe is None else moe + cmoe
+        consumed += chunk
+        eng.attn._account(chunk, chunk)
+        eng.stats.chunked_prefill_steps += 1
+        if req.trace is not None:
+            req.trace.event("prefill_chunk", tokens=chunk,
+                            consumed=prefix_len + consumed, sp=True)
+        t_tick = time.monotonic()
+        eng._admit_interactive()
+        eng._decode_tick()
+        tick_ms += 1e3 * (time.monotonic() - t_tick)
+    tail = suffix[consumed:]
+    ns_tail = len(tail)
+    S = eng._prefill_bucket(ns_tail, multiple_of=eng._sp)
+    tokens = np.zeros((1, S), np.int32)
+    tokens[0, :ns_tail] = tail
+    out, tmoe = eng._prefill_step(
+        fn, (torch.from_numpy(tokens).to(dev),
+             _rows(dev, prefix_len + consumed), _rows(dev, n), pt),
+        sampling)
+    tok, first_lp = _unpack_row(out, 0)
+    eng._fold_moe(tmoe if moe is None else moe + tmoe)
+    eng.attn._account(ns_tail, S)
+    return tok, {
+        "first_lp": first_lp, "consumed": consumed, "tick_ms": tick_ms,
+        "bucket": S, "chunks": consumed // chunk,
+        "padded_frac": round(1.0 - ns_tail / S, 3) if S else 0.0}
+
+
+def sp_prefill(eng: "Engine", req, seq_id: int, suffix: list[int],
+               page_row: np.ndarray, mask: np.ndarray | None = None):
+    """The monolithic sequence-parallel prefill (the reference's
+    ``prefill_sp`` route): the whole prompt in one call on its bucketed
+    rung rounded up to a multiple of ``sp`` (the guard keeps the
+    intermediate rungs). Returns what ``single_prefill`` returns."""
+    dev = eng.device
+    ns = len(suffix)
+    S = eng._prefill_bucket(ns, multiple_of=eng._sp)
+    tokens = np.zeros((1, S), np.int32)
+    tokens[0, :ns] = suffix
+    out, moe = eng._prefill_step(
+        eng._prefill_sp_fn,
+        (torch.from_numpy(tokens).to(dev), _rows(dev, ns),
+         torch.from_numpy(page_row[None, :]).to(dev)),
+        eng.attn._sampling_rows({0: (req, seq_id)}, 1, mask))
+    tok, first_lp = _unpack_row(out, 0)
+    eng._fold_moe(moe)
+    eng.attn._account(ns, S)
+    return tok, {
+        "first_lp": first_lp, "consumed": 0, "tick_ms": 0.0, "bucket": S,
+        "chunks": 0, "padded_frac": round(1.0 - ns / S, 3) if S else 0.0}
 
 
 def _rows(dev: torch.device, v: int) -> torch.Tensor:

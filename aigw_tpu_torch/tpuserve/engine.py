@@ -154,6 +154,21 @@ so nothing comes back. Every collective is issued on the engine thread
 (the embeddings pass and the launch-count gather are jobs on a mesh);
 ``mesh_axes``, ``ici_bytes_*`` and the device stats cover every rank.
 
+**Sequence-parallel prefill** (a mesh with an ``sp`` axis, the
+reference's route): a suffix of at least ``sp_prefill_min_tokens``
+prefills through the family's ``prefill_sp_suffix`` in
+``sp_chunk_tokens`` chunks (``tpuserve/attention.sp_chunked_prefill``),
+each chunk's rows sharded over the ``sp`` ranks and its attention the
+ring's; at every chunk boundary short queued requests are admitted into
+free slots (``_admit_interactive``) and the live streams take a decode
+tick. A prefix hit resumes at its page-aligned offset. With
+``sp_prefill_mode="monolithic"``, or a page size the ``sp`` ranks do not
+divide, a whole prompt runs as one ``prefill_sp`` call instead (and a
+prefix hit takes the backend's path). The ``sp`` programs run eagerly on
+every backend: a gloo group cannot be captured, and no machine holds two
+NCCL ranks to test a captured one. Decode is the same program on every
+``sp`` rank, over its replica of the pool.
+
 Every default equals the reference's, and so does what it runs: a
 replica built from ``EngineConfig()`` prefills on the bucket ladder and
 decodes on the gather rung. Knobs of features the port does not
@@ -196,6 +211,8 @@ from aigw_tpu_torch.tpuserve.attention import (
     DECODE_BACKENDS,
     make_attention_backend,
     resolve_decode_backend,
+    sp_chunked_prefill,
+    sp_prefill,
 )
 from aigw_tpu_torch.tpuserve.kvcache import (
     OutOfPagesError,
@@ -260,6 +277,17 @@ class EngineConfig:
     prefill_chunk_tokens: int = 256
     enable_prefix_cache: bool = True
     max_queued_requests: int = 256
+    # the sequence-parallel prefill (a mesh with an sp axis > 1): a
+    # suffix at least this long runs through ring attention
+    sp_prefill_min_tokens: int = 1024
+    # "chunked": sp_chunk_tokens-sized prefill_sp_suffix steps with a
+    # decode tick (and chunk-boundary admission) between them, resuming
+    # at a cached offset; "monolithic": one prefill_sp call per prompt.
+    # Chunked needs page_size % sp == 0, else the monolithic program
+    # serves
+    sp_prefill_mode: str = "chunked"
+    # chunk size of the chunked sp path, rounded up to a multiple of sp
+    sp_chunk_tokens: int = 2048
     adaptive_decode_window: bool = True
     # small window used under pressure; 0 = auto: max(1, K // 4)
     min_decode_steps_per_tick: int = 0
@@ -477,6 +505,13 @@ class EngineStats:
     kv_occupancy: float = 0.0
     tokens_generated: int = 0
     prefills: int = 0
+    # prefills routed through ring attention; those that ran as chunked
+    # steps, those of them that resumed at a cached offset; and short
+    # requests admitted at a chunk boundary of one
+    sp_prefills: int = 0
+    sp_chunked_prefills: int = 0
+    sp_resume_prefills: int = 0
+    sp_interactive_admits: int = 0
     chunked_prefill_steps: int = 0
     decode_steps: int = 0
     # prefix cache: misses count page-eligible prompts (at least one
@@ -795,6 +830,14 @@ class Engine:
 
         B = cfg.max_batch_size
         self._slots: list[_Slot | None] = [None] * B
+        # slot indices an admission in flight has picked but not
+        # installed (its prefill runs in between): the sequence-parallel
+        # chunk loop admits short requests at its boundaries, which
+        # must not pick the same index
+        self._reserved_slots: set[int] = set()
+        # set while a chunk boundary admits: a short admission's own
+        # chunk loop must not admit again
+        self._in_chunk_admit = False
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
         # the offline batch class has its own unbounded queue, so every
         # interactive signal (the window's pressure, queue_wait_ms,
@@ -879,6 +922,27 @@ class Engine:
                 self.programs))
             for name in ("prefill", "prefill_suffix", "prefill_ragged")
             if (f := getattr(self.fns, name, None)) is not None}
+        # the sequence-parallel programs, built where the reference
+        # builds them: the monolithic prefill_sp on any sp mesh, the
+        # chunked prefill_sp_suffix only in "chunked" mode with pages
+        # the sp ranks divide (its window is visited in sp blocks). They
+        # run eagerly on every backend: a gloo group cannot be captured,
+        # and no machine holds two NCCL ranks to test a captured one
+        self._sp = mesh.shape["sp"] if mesh is not None else 1
+        self._prefill_sp_fn = self.fns.prefill_sp if self._sp > 1 else None
+        self._prefill_sp_suffix_fn = (
+            self.fns.prefill_sp_suffix
+            if (self._sp > 1 and cfg.sp_prefill_mode == "chunked"
+                and cfg.page_size % self._sp == 0) else None)
+        eager = ProgramPool(self.device, self.compile_tracker,
+                            capture=False)
+        for name, f in (("prefill_sp", self._prefill_sp_fn),
+                        ("prefill_sp_chunked", self._prefill_sp_suffix_fn)):
+            if f is not None:
+                self._prefill_fns[f] = self.compile_tracker.register(
+                    name, ProgramFamily(
+                        lambda key, f=f: self._prefill_body(
+                            f, len(key[1]) - 6), eager))
         self._state: dict[str, torch.Tensor] | None = None
         self.decode_attn_impl, self.decode_attn_reason = (
             resolve_decode_backend(cfg, self.device, model_cfg, mesh))
@@ -974,6 +1038,34 @@ class Engine:
         ``"<ops module>.<function>[.<attr>]"``."""
         return self._post_job("counts", names, timeout, "launch counts")
 
+    def rank_page_digests(self, pages: list[int], timeout: float = 60.0
+                          ) -> list[list[str]]:
+        """Every rank's SHA-256 of each of ``pages`` (its rows of every
+        layer in its pool, scales included), gathered on the engine
+        thread: the ranks along ``sp`` hold replicas of the pool, which
+        must agree byte for byte (along ``tp``, their head shards)."""
+        return self._post_job("digests", pages, timeout, "page digests")
+
+    def _op_digests(self, pages: list[int]) -> list[list[str]]:
+        import hashlib
+
+        stacked = kvq.gather_pages(self.kv_cache, self._page_index(pages),
+                                   self.cfg.page_size)
+        leaves = (list(stacked.values()) if isinstance(stacked, dict)
+                  else [stacked])
+        mine = []
+        for i in range(len(pages)):
+            h = hashlib.sha256()
+            for leaf in leaves:
+                h.update(leaf[i].contiguous().view(torch.uint8).cpu()
+                         .numpy().tobytes())
+            mine.append(h.hexdigest())
+        if self.mesh is None:
+            return [mine]
+        out: list = [None] * self.mesh.size
+        torch.distributed.all_gather_object(out, mine, group=self.mesh.ctrl)
+        return out
+
     def _op_counts(self, names: list[str]) -> list[dict[str, int]]:
         import importlib
 
@@ -1024,10 +1116,13 @@ class Engine:
         The call is its family's program at the shapes of its inputs
         and whether adapter stacks are present (the reference's jit
         cache), except the windowed ragged prefill of a quantized pool,
-        which reads its page walk on the host and so runs eagerly. The
-        outputs are copies the caller may keep past the next program."""
+        which reads its page walk on the host and so runs eagerly, and
+        the sequence-parallel programs (``prefill_sp``,
+        ``prefill_sp_suffix``), whose family runs eagerly. The outputs
+        are copies the caller may keep past the next program."""
         name = next(n for n in ("prefill", "prefill_suffix",
-                                "prefill_ragged")
+                                "prefill_ragged", "prefill_sp",
+                                "prefill_sp_suffix")
                     if getattr(self.fns, n, None) is fn)
         return self._dev("prefill", name, args, sampling)
 
@@ -1039,8 +1134,9 @@ class Engine:
         inputs = (*args, *sampling)
         key = (self.lora_params is not None,
                tuple((tuple(t.shape), t.dtype) for t in inputs))
-        out = self._prefill_fns[fn].program(key)(*inputs)
-        return clone_tree(out) if self.programs.capture else out
+        prog = self._prefill_fns[fn].program(key)
+        out = prog(*inputs)
+        return clone_tree(out) if prog.pool.capture else out
 
     def _prefill_body(self, fn, n_args: int):
         """The prefill program's body over ``n_args`` model inputs and
@@ -1381,6 +1477,9 @@ class Engine:
         if self._adapter_store is not None:
             self._adapter_store.warm()
         self.attn.warm()
+        if self.cfg.warm_prefill_buckets > 0:
+            # the sp chunk programs are the engine's, not a backend's
+            self._warm_sp_prefill_shapes()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats.warmup_ms = round(1e3 * (time.monotonic() - t0), 3)
@@ -1436,6 +1535,41 @@ class Engine:
                 torch.full((G2,), self._base_row, dtype=torch.int32,
                            device=dev)))
             G2 *= 2
+
+    def _sp_chunk(self) -> int:
+        """The chunked sp path's chunk: ``sp_chunk_tokens`` rounded up
+        to a multiple of ``sp`` (the ranks split its rows)."""
+        sp = self._sp
+        return -(-max(self.cfg.sp_chunk_tokens, sp) // sp) * sp
+
+    def _warm_sp_prefill_shapes(self) -> None:
+        """Run the chunked sequence-parallel program at the reference's
+        warm keys: the chunk and every tail rung up to it, at each warm
+        page bucket that a sequence of ``sp_prefill_min_tokens`` can
+        reach, with all-zero lengths (every row padding: their K/V go
+        to the dump page). The programs run eagerly, so the walk builds
+        the kernels and each key's host state and counts in
+        ``warm_programs``, as the reference's compiles do."""
+        if self._prefill_sp_suffix_fn is None:
+            return
+        cfg = self.cfg
+        sp = self._sp
+        chunk = self._sp_chunk()
+        rungs = {chunk}
+        for t in range(1, chunk + 1):
+            rungs.add(self._prefill_bucket(t, multiple_of=sp))
+        min_need = -(-cfg.sp_prefill_min_tokens // cfg.page_size)
+        dev = self.device
+        sampling = self.attn._sampling_rows({}, 1)
+        z = torch.zeros((1,), dtype=torch.int32, device=dev)
+        for P in self._warm_page_buckets():
+            if P < min_need:
+                continue
+            for S in sorted(rungs):
+                self._prefill_step(self._prefill_sp_suffix_fn, (
+                    torch.zeros((1, S), dtype=torch.int32, device=dev), z,
+                    z, torch.zeros((1, P), dtype=torch.int32, device=dev)),
+                    sampling)
 
     def start(self) -> None:
         self._thread = threading.Thread(
@@ -1698,6 +1832,8 @@ class Engine:
                     box["result"] = self._dev("hidden", *payload)
                 elif kind == "counts":
                     box["result"] = self._dev("counts", payload)
+                elif kind == "digests":
+                    box["result"] = self._dev("digests", payload)
                 else:
                     box["result"] = self._do_import(*payload)
             except Exception as e:  # noqa: BLE001 — relayed to the caller
@@ -2124,8 +2260,15 @@ class Engine:
                 self._slots[i] = None
                 self._dirty_rows.add(i)
 
+    def _free_slot_index(self) -> int | None:
+        for i, s in enumerate(self._slots):
+            if s is None and i not in self._reserved_slots:
+                return i
+        return None
+
     def _free_slot_count(self) -> int:
-        return sum(1 for s in self._slots if s is None)
+        return sum(1 for i, s in enumerate(self._slots)
+                   if s is None and i not in self._reserved_slots)
 
     def _requeue_front(self, reqs: list[GenRequest]) -> None:
         items = list(reqs)
@@ -2324,6 +2467,60 @@ class Engine:
                 break
         return admitted
 
+    def _admit_interactive(self) -> bool:
+        """Admission at a chunk boundary of a sequence-parallel prefill
+        (``attention.sp_chunked_prefill``): the queue's short requests
+        (under ``sp_prefill_min_tokens``, so none enters another sp
+        chunk loop) are admitted into free slots through the
+        per-request path, the fairness guard over them; everything else
+        goes back to the queue in arrival order. A short arrival behind
+        a long prompt so gets its first token at the next boundary and
+        decodes through the boundary ticks. Latched: a short
+        admission's own chunk boundaries do not admit again."""
+        if self._in_chunk_admit:
+            return False
+        free = self._free_slot_count()
+        if free == 0:
+            return False
+        backlog: list[GenRequest] = []
+        try:
+            while True:
+                backlog.append(self._queue.get_nowait())
+        except queue.Empty:
+            pass
+        if not backlog:
+            return False
+        shorts = [r for r in backlog
+                  if len(r.prompt) < self.cfg.sp_prefill_min_tokens]
+        admitted = False
+        handled: set[int] = set()
+        self._in_chunk_admit = True
+        try:
+            admit, _requeue, capped = self._fair_admission(shorts, free)
+            self.stats.tenant_deferrals += capped
+            for req in admit:
+                if req.cancelled.is_set():
+                    self._meter_zero(req, "cancelled")
+                    handled.add(id(req))
+                    continue
+                if not req.prompt:
+                    self._meter_zero(req, "error")
+                    req.emit(-1, "error")
+                    handled.add(id(req))
+                    continue
+                _simple, chain = self._classify(req)
+                r = self._admit_one(req, chain)
+                if r == "stop":
+                    break  # page pressure or stopping: it stays queued
+                handled.add(id(req))
+                if r == "admitted":
+                    admitted = True
+                    self.stats.sp_interactive_admits += 1
+        finally:
+            self._in_chunk_admit = False
+        self._requeue_front([r for r in backlog if id(r) not in handled])
+        return admitted
+
     def _classify(self, req: GenRequest) -> tuple[bool, list]:
         """(simple, chain keys): simple = eligible for the batched
         prefill (no cached prefix to adopt, no longer than
@@ -2342,6 +2539,11 @@ class Engine:
                 # the chain goes on in the spill tier: the per-request
                 # path revives it and resumes
                 return False, chain
+        if ((self._prefill_sp_fn is not None
+             or self._prefill_sp_suffix_fn is not None)
+                and n >= self.cfg.sp_prefill_min_tokens):
+            # the sequence-parallel route runs on the per-request path
+            return False, chain
         chunk = self.cfg.prefill_chunk_tokens
         if (not self.attn.packs_long_prompts and chunk > 0
                 and self.fns.prefill_suffix is not None and n > chunk):
@@ -2402,7 +2604,7 @@ class Engine:
                     chain, self.allocator.pages(r.seq_id),
                     tokens=r.req.prompt)
                 self._purge_spilled(chain)
-            slot_idx = self._slots.index(None)
+            slot_idx = self._free_slot_index()
             self._slots[slot_idx] = _Slot(
                 req=r.req, pos=r.n - 1, generated=0,
                 key_seed=r.req.sampling.seed or r.seq_id,
@@ -2439,13 +2641,14 @@ class Engine:
                 need = max(need, -(-s.limit // self.cfg.page_size))
         return self._pow2_pages(need)
 
-    def _prefill_bucket(self, n: int) -> int:
+    def _prefill_bucket(self, n: int, multiple_of: int = 1) -> int:
         """Smallest prefill-ladder rung covering ``n`` prompt tokens:
         powers of two of ``min_prefill_bucket`` plus, with
         ``prefill_bucket_rungs`` > 1, the rungs at 1.5x S (and 1.25x /
-        1.75x S at 4), capped at ``max_seq_len``. (The reference's
-        ``multiple_of`` mesh guard waits with the sequence-parallel
-        prefill, ROADMAP queue 1 item 7.)"""
+        1.75x S at 4), capped at ``max_seq_len``. ``multiple_of`` is the
+        mesh guard: a chunk sharded over ``sp`` must divide over it, so
+        the chosen rung is rounded up to the next multiple (the
+        intermediate rungs stay)."""
         cfg = self.cfg
         S = cfg.min_prefill_bucket
         while S < n:
@@ -2459,7 +2662,10 @@ class Engine:
                 S += 3 * S // 4
                 break
             S *= 2
-        return min(S, cfg.max_seq_len)
+        S = min(S, cfg.max_seq_len)
+        if multiple_of > 1 and S % multiple_of:
+            S = -(-S // multiple_of) * multiple_of
+        return S
 
     def _mark_admitted(self, i: int) -> None:
         """Slot i's whole row is uploaded before the next dispatch (its
@@ -2477,7 +2683,20 @@ class Engine:
         "admitted", "skipped" (consumed without a slot), "stop" (page
         pressure or the engine stopping: the caller requeues the request
         and stops admitting) or "stop_consumed" (stop admitting, the
-        request needs no requeue)."""
+        request needs no requeue). The slot is picked first and reserved
+        until it is installed after the prefill: the sequence-parallel
+        chunk loop admits at its boundaries in between."""
+        slot_idx = self._free_slot_index()
+        if slot_idx is None:  # the callers bound admissions by free slots
+            return "stop"
+        self._reserved_slots.add(slot_idx)
+        try:
+            return self._admit_one_reserved(req, chain, slot_idx)
+        finally:
+            self._reserved_slots.discard(slot_idx)
+
+    def _admit_one_reserved(self, req: GenRequest, chain: list,
+                            slot_idx: int) -> str:
         n = len(req.prompt)
         total = min(n + req.max_tokens, self.cfg.max_seq_len)
         seq_id = next(self._seq_ids)
@@ -2566,10 +2785,25 @@ class Engine:
         # is already valid
         cn = req.constraint.new_state() if req.constraint is not None \
             else None
+        mask = cn.mask_row() if cn is not None else None
+        # the sequence-parallel route: the chunked program takes every
+        # long suffix (resuming at a cached offset); the monolithic one
+        # only whole prompts, where the chunked one is not built
+        ns = len(suffix)
+        use_sp_chunked = (self._prefill_sp_suffix_fn is not None
+                          and ns >= self.cfg.sp_prefill_min_tokens)
+        use_sp = (not use_sp_chunked and self._prefill_sp_fn is not None
+                  and prefix_len == 0
+                  and ns >= self.cfg.sp_prefill_min_tokens)
         t0 = time.monotonic()
-        res = self.attn.single_prefill(
-            req, seq_id, suffix, prefix_len, page_row, total,
-            mask=cn.mask_row() if cn is not None else None)
+        if use_sp_chunked:
+            res = sp_chunked_prefill(self, req, seq_id, suffix, prefix_len,
+                                     page_row, total, mask)
+        elif use_sp:
+            res = sp_prefill(self, req, seq_id, suffix, page_row, mask)
+        else:
+            res = self.attn.single_prefill(
+                req, seq_id, suffix, prefix_len, page_row, total, mask=mask)
         if isinstance(res, str):
             # cancelled or the engine stopping: the pin never reached a
             # slot. A request consumed here gets its one (zero) record;
@@ -2580,6 +2814,12 @@ class Engine:
                 self._meter_zero(req, "cancelled")
             return res
         tok, info = res
+        if use_sp or use_sp_chunked:
+            self.stats.sp_prefills += 1
+        if use_sp_chunked:
+            self.stats.sp_chunked_prefills += 1
+            if prefix_len:
+                self.stats.sp_resume_prefills += 1
         if prefix_len:
             self.stats.prefix_cache_hits += 1
             self.stats.prefix_tokens_reused += prefix_len
@@ -2596,7 +2836,8 @@ class Engine:
             req.trace.prefill(
                 prefill_ms, bucket=info["bucket"],
                 padded_frac=info["padded_frac"], chunks=info["chunks"],
-                resumed_at=prefix_len + info["consumed"], sp=False)
+                resumed_at=prefix_len + info["consumed"],
+                sp=use_sp or use_sp_chunked)
         t_first = time.monotonic()
         if self.prefix_cache is not None and chain:
             self.prefix_cache.insert(chain, pages, tokens=req.prompt)
@@ -2619,10 +2860,8 @@ class Engine:
         counts: dict[int, int] = {}
         for t in req.prompt[int(ims.get("orig_prompt_len", n)):]:
             counts[t] = counts.get(t, 0) + 1
-        slot_idx = self._slots.index(None)
         # metering: the padded volume from the calls' padded share, the
         # reference's formula for every prefill path
-        ns = len(suffix)
         pf = info["padded_frac"]
         m_padded = int(round(ns / (1.0 - pf))) if 0.0 < pf < 1.0 else ns
         # pos = n - 1: _emit_token advances it to n, the write position

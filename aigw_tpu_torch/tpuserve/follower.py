@@ -14,6 +14,10 @@ the leader performs, in the leader's order, so that the collectives
 inside the model pair up rank by rank. Every rank computes the same full
 logits and samples the same tokens from the same replicated slot state,
 so the decode state moves in step on every rank with nothing sent back.
+A sequence-parallel prefill is no exception: each of its chunk steps is
+one operation every rank performs (each on its own rows), and so is each
+boundary decode tick and each prefill of a short request admitted at a
+boundary, in the order the leader's chunk loop runs them.
 
 The leader sends each operation (``send``) before it runs it itself;
 ``follow`` receives them and calls the same ``Engine._op_*`` method. A
@@ -32,6 +36,7 @@ and the leader's engine loop then fails, loudly.
 
 from __future__ import annotations
 
+import gc
 import logging
 import multiprocessing
 import socket
@@ -161,7 +166,9 @@ def build_engine(mesh: Mesh, rec: dict):
 def serve(mesh: Mesh) -> None:
     """A follower's main loop: build each engine the leader announces,
     perform its operations until the leader closes it, and return when
-    the leader exits."""
+    the leader exits. A dropped engine's memory (its weights, pool and
+    the allocator's cached blocks) is released before the next record
+    arrives: ranks sharing a card otherwise hold each other's."""
     while True:
         op, args = recv(mesh)
         if op == "exit":
@@ -175,7 +182,10 @@ def serve(mesh: Mesh) -> None:
             if op == "close":
                 break
             getattr(eng, "_op_" + op)(*args)
-        del eng
+        del eng, args
+        gc.collect()  # an engine is cyclic garbage (its backends)
+        if mesh.device.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 def _follower_main(rank: int, world: int, init_method: str, spec: MeshSpec,

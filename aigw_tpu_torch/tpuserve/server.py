@@ -81,13 +81,15 @@ and resumes byte-identically.
 engine's (on a mesh, on the engine's thread), and answers while the
 replica drains, as the reference does.
 
-``--tp`` / ``--ep`` serve one model over several ranks
+``--tp`` / ``--ep`` / ``--sp`` serve one model over several ranks
 (``parallel/``): this process leads and runs the engine's scheduler and
-the HTTP server; it starts one follower process per other rank
-(``tpuserve/follower.py``) and stops them when it stops. ``/state``
-carries the reference's mesh keys (``mesh_axes``, ``mesh_devices``,
-``ici_bytes_per_token``, ``ici_bytes_total``, ``slice``,
-``device_coords``) with or without a mesh.
+the HTTP server; it starts one follower process per other rank (``tp x
+sp x ep - 1`` of them, ``tpuserve/follower.py``) and stops them when it
+stops. ``/state`` carries the reference's mesh keys (``mesh_axes``,
+``mesh_devices``, ``ici_bytes_per_token``, ``ici_bytes_total``,
+``slice``, ``device_coords``) and its sequence-parallel keys (``sp``,
+``sp_prefill_mode``, ``sp_chunked_prefills``, ``sp_resume_prefills``,
+``sp_interactive_admits``) with or without a mesh.
 
 The server is ``http.server.ThreadingHTTPServer``: one thread per
 connection, each waiting on its request's token queue, which the engine
@@ -266,14 +268,15 @@ class TPUServeServer:
         tensors, or HF shards read by ``import_hf_checkpoint``); without
         them ``_load_params`` draws or restores the row's weights.
 
-        ``tp`` / ``ep`` > 1 serve the model sharded over ``tp x ep``
-        ranks (the reference's checks and messages): this process is
-        rank 0, the leader, and it starts a follower process for every
-        other rank (``tpuserve/follower.py``), each on ``cuda:<rank>``
-        (or the CPU, over gloo), and stops them with the server.
+        ``tp`` / ``ep`` / ``sp`` > 1 serve the model over ``tp x sp x
+        ep`` ranks (the reference's checks and messages): sharded over
+        ``tp`` and ``ep``, replicated over ``sp``, whose ranks split the
+        rows of long prompts' prefill chunks. This process is rank 0, the
+        leader, and it starts a follower process for every other rank
+        (``tpuserve/follower.py``), each on ``cuda:<rank>`` (or the
+        CPU, over gloo), and stops them with the server.
         ``mesh_backend`` names the collective backend where it must not
-        follow the device (two ranks sharing one card: gloo). ``sp`` > 1
-        is not ported."""
+        follow the device (two ranks sharing one card: gloo)."""
         self.device = resolve_device(device)
         self.model_name = model
         spec = get_model_spec(model)
@@ -359,10 +362,11 @@ class TPUServeServer:
             raise ValueError(
                 f"n_kv_heads {spec.config.n_kv_heads} not divisible "
                 f"by tp={tp}")
-        if sp > 1:
-            raise NotImplementedError(
-                f"--sp {sp}: the sequence-parallel prefill is not ported "
-                "yet (ROADMAP queue 1 item 7)")
+        if sp > 1 and self.fns.prefill_sp is None:
+            raise ValueError(
+                f"--sp requires a model family with a sequence-parallel "
+                f"prefill; {spec.family!r} has none (devices on the sp "
+                "axis would sit idle)")
         mspec = MeshSpec(dp=1, tp=tp, sp=sp, ep=ep)
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
@@ -371,8 +375,8 @@ class TPUServeServer:
                 raise ValueError(f"mesh {mspec} needs {mspec.size} "
                                  f"devices, have {have}")
         rm = start_replica_mesh(mspec, str(device), backend)
-        logger.info("parallel serving: tp=%d ep=%d over %d ranks (%s)",
-                    tp, ep, mspec.size, rm.mesh.backend)
+        logger.info("parallel serving: tp=%d ep=%d sp=%d over %d ranks "
+                    "(%s)", tp, ep, sp, mspec.size, rm.mesh.backend)
         return rm
 
     def _load_params(self, spec, param_dtype: str, quantize: str
@@ -528,6 +532,17 @@ class TPUServeServer:
             "ici_bytes_total": s.ici_bytes_total,
             **device_topology(),
             "max_seq_len": cfg.max_seq_len,
+            # the sequence-parallel prefill: the axis, the route it
+            # takes (the chunked program, the monolithic one, or none)
+            # and its counters
+            "sp": eng._sp,
+            "sp_prefill_mode": (
+                "chunked" if eng._prefill_sp_suffix_fn is not None
+                else "monolithic" if eng._prefill_sp_fn is not None
+                else "off"),
+            "sp_chunked_prefills": s.sp_chunked_prefills,
+            "sp_resume_prefills": s.sp_resume_prefills,
+            "sp_interactive_admits": s.sp_interactive_admits,
             "tokens_generated": s.tokens_generated,
             "decode_steps": s.decode_steps,
             "decode_window": s.decode_window,

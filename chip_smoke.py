@@ -192,10 +192,11 @@ Phases (any failure exits non-zero):
    then the whole burst, whose longest sequences need the 16-page bucket
    (its captures counted), and again warm with none (gated); K1 and K2
    must launch;
-   tensor parallel (the ``serve_tp`` line, after ``serve_graphs``;
-   launch counts per rank zeroed before, read after, through
-   ``Engine.rank_counts``): the burst's streams on the one-rank kernel
-   path recorded, then a tp = 2 replica on the same weights whose
+   tensor parallel (the ``serve_tp`` line, after ``serve_graphs``, at
+   ``TP_LAYERS`` of the 32 layers; launch counts per rank zeroed before,
+   read after, through ``Engine.rank_counts``): the burst's streams on
+   the one-rank kernel path recorded, then a tp = 2 replica on the same
+   weights whose
    leader is this process and whose follower a spawned process, both
    on ``cuda:0`` over an explicit gloo group (NCCL refuses two ranks on
    one device; no interconnect is measured), each rank with half the
@@ -209,7 +210,21 @@ Phases (any failure exits non-zero):
    and captured in every program; four of the burst's requests sent one
    at a time stream bit-equal to the engine without a mesh, the burst
    cold and warm, and a captured decode step beside the one without a
-   mesh, in turns;
+   mesh, in turns; sequence parallel (the ``serve_sp`` line, after
+   ``serve_tp_nccl``; launch counts per rank as ``serve_tp``'s): an sp =
+   2 replica at all 32 layers with both ranks on ``cuda:0`` over gloo,
+   each with the whole weights and its own replica of the pool, the
+   default sp knobs, the prefix cache on: a 6000-token prompt as two
+   2048-row ring-attention chunk steps and a tail, two short prompts
+   queued at its first chunk boundary and admitted there (K1, then K2 on
+   both ranks), a prompt resuming at its 32 shared pages; gated: the sp
+   counters and ``/state`` keys, the short requests' first tokens before
+   the long one's, the long prompt's pages byte-equal on both ranks
+   (``Engine.rank_page_digests``), every stream held to the one-rank
+   replica's up to a near-tie; printed: each chunk step's wall, its ring
+   calls' device ms (CUDA events) and its gathers' ms, the boundaries,
+   the engine-side TTFTs; then the long prompt in W8A16 over int8 pages
+   on the same mesh (K6, K7-int8 on both ranks);
 5. every kernel against its plain PyTorch version on the card at the
    served shapes (each attention output element within 2**-7 of the
    plain output plus 2e-3, printed beside the mean |output|; K2's and
@@ -346,7 +361,8 @@ Phases (any failure exits non-zero):
    ``serve_ops``, on ``serve_mobility``, on ``serve_graphs`` (the warm
    burst), on ``checkpoint``, on ``serve_defaults`` (bf16 and
    W8A16, the cold bursts), on ``embeddings`` and, the leader rank's,
-   on ``serve_tp``, its W8A16 set and ``serve_ep``), the card line, then
+   on ``serve_tp``, ``serve_sp`` (each with its W8A16 set) and
+   ``serve_ep``), the card line, then
    the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -6078,6 +6094,10 @@ def checkpoint_phase(torch, reqs, root: str, launches: dict) -> dict:
 #: share ``cuda:0`` over gloo (which carries CUDA tensors for broadcast,
 #: all-reduce and all-gather). These phases measure no interconnect
 TP_BACKEND = "gloo"
+#: serve_tp's depth: Llama-3-8B's widths, 4 of its 32 layers (the time
+#: went to serve_sp)
+TP_LAYERS = 4
+TP_MODEL = "llama-3-8b-4-layers"
 #: serve_ep's depth: Mixtral-8x7B's widths, 2 of its 32 layers
 EP_LAYERS = 2
 EP_MODEL = "mixtral-8x7b-2-layers"
@@ -6136,9 +6156,17 @@ def _mesh_state(port: int, n_ranks: int, what: str) -> dict:
             "attention_backend_reason": state["attention_backend_reason"]}
 
 
-def serve_tp(torch, srv, restart, params, qparams, reqs,
-             launches: dict) -> dict:
-    """Llama-3-8B widths at tp = 2: rank 0 (this process) leads the HTTP
+def _first_layers(params: dict, n: int) -> dict:
+    """The tensors of the first ``n`` layers and the shared ones (the
+    same tensors, no copy)."""
+    return {k: v for k, v in params.items()
+            if not k.startswith("l") or k.startswith("lm_")
+            or int(k[1:].split(".")[0]) < n}
+
+
+def serve_tp(torch, srv, params, qparams, reqs, launches: dict) -> dict:
+    """Llama-3-8B widths cut to ``TP_LAYERS`` layers (the first layers of
+    the served weights) at tp = 2: rank 0 (this process) leads the HTTP
     server and the scheduler, a spawned follower is rank 1, both on
     ``cuda:0`` over gloo (``TP_BACKEND``), each with half the heads, the
     MLP columns and the vocabulary. The burst on the kernel path (K1 and
@@ -6150,27 +6178,36 @@ def serve_tp(torch, srv, restart, params, qparams, reqs,
     order on two ranks); ``/state``'s mesh keys and each rank's share of
     the weights gated."""
     from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.models.registry import ModelSpec, register_model
     from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
     from aigw_tpu_torch.tpuserve.server import TPUServeServer
 
     eos = srv.tokenizer.eos_id
-    cfg = llama.LLAMA3_8B
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=TP_LAYERS)
+    register_model(ModelSpec(TP_MODEL, "llama", cfg))
+    params = _first_layers(params, TP_LAYERS)
+    qparams = _first_layers(qparams, TP_LAYERS)
+    reqs = [(k, st, dict(b, model=TP_MODEL)) for k, st, b in reqs]
     short = [(k, st, dict(b, max_tokens=32)) for k, st, b in reqs[:2]]
-    # the one-rank replica on the same weights, the same programs
-    restart(params, decode_backend="fused")
-    tap = TokenTap(srv.engine)
-    serve_phase(srv.port, reqs)
-    one = _streams_by_prompt(tap)
-    restart(qparams, decode_backend="fused", kv_cache_dtype="int8")
-    tap = TokenTap(srv.engine)
-    serve_phase(srv.port, short)
-    one_q = _streams_by_prompt(tap)
+
+    def one_rank(p, rs, **kw):
+        """The one-rank replica on the same weights and programs."""
+        stop_engine(srv)
+        srv.engine = Engine(p, cfg, EngineConfig(**TP_CFG, **kw),
+                            eos_token_ids=(eos,), device="cuda")
+        srv.engine.start()
+        tap = TokenTap(srv.engine)
+        serve_phase(srv.port, rs)
+        return _streams_by_prompt(tap)
+
+    one = one_rank(params, reqs)
+    one_q = one_rank(qparams, short, kv_cache_dtype="int8")
     stop_engine(srv)
     out: dict = {"ranks": 2, "backend": TP_BACKEND, "device": "cuda:0",
                  "interconnect": "none measured: both ranks on one card",
-                 "requests": len(reqs)}
+                 "layers": TP_LAYERS, "requests": len(reqs)}
     t = time.monotonic()
-    tp_srv = TPUServeServer("llama-3-8b-random", EngineConfig(**TP_CFG),
+    tp_srv = TPUServeServer(TP_MODEL, EngineConfig(**TP_CFG),
                             device="cuda:0", port=0, params=params, tp=2,
                             mesh_backend=TP_BACKEND)
     out["up_s"] = time.monotonic() - t
@@ -6224,7 +6261,8 @@ def serve_tp(torch, srv, restart, params, qparams, reqs,
         tp_srv.engine = None
         gc.collect()
     out["card"] = nvidia_smi_line()
-    log(f"serve_tp (tp=2 on one card over {TP_BACKEND}): up "
+    log(f"serve_tp (tp=2, {TP_LAYERS} layers, on one card over "
+        f"{TP_BACKEND}): up "
         f"{out['up_s']:.1f}s, burst {out['cold_s']:.2f} s; against one rank "
         f"{out['against_one_rank']}; W8A16+int8 "
         f"{out['w8a16_kv_int8']['against_one_rank']}")
@@ -6319,6 +6357,381 @@ def serve_tp_nccl(torch, srv, params, reqs) -> dict:
         f"{steps['nccl_mesh']['device_ms']:.2f} device (no mesh "
         f"{steps['no_mesh']['wall_ms']:.2f} / "
         f"{steps['no_mesh']['device_ms']:.2f})")
+    return out
+
+
+#: serve_sp: Llama-3-8B widths at sp = 2, both ranks on the card over
+#: gloo; the default sp knobs (sp_prefill_min_tokens 1024,
+#: sp_chunk_tokens 2048), the prefix cache on, the kernel path
+SP_CFG = dict(max_batch_size=4, max_seq_len=8192, page_size=128,
+              attention_backend="pallas-ragged", decode_backend="fused",
+              enable_prefix_cache=True)
+#: (a)'s prompt bytes (two chunks and a tail), the bytes (c) shares with
+#: it (32 pages), and the two short arrivals'
+SP_LONG, SP_SHARED, SP_SHORTS = 6000, 4096, (300, 700)
+#: both ranks' card
+SP_DEVICE = "cuda:0"
+
+
+def _sp_text(rng, n: int) -> str:
+    words = ("the quick brown fox jumps over a lazy dog while rivers run "
+             "past quiet hills under a grey sky").split()
+    out: list = []
+    while sum(len(w) + 1 for w in out) < n:
+        out.append(words[int(rng.integers(len(words)))])
+    return " ".join(out)[:n]
+
+
+def _sp_bodies(rng) -> dict:
+    """The serve_sp requests, greedy completions (one byte a token):
+    (a) long, (b) two short, (c) long sharing (a)'s first pages, (d)
+    (a)'s prompt again, for the W8A16 + int8 engine."""
+    a = _sp_text(rng, SP_LONG)
+
+    def body(prompt, n, stream=True):
+        b = {"model": "llama-3-8b-random", "prompt": prompt,
+             "max_tokens": n, "temperature": 0.0, "stream": stream}
+        if stream:
+            b["stream_options"] = {"include_usage": True}
+        return b
+
+    return {"a": body(a, 32),
+            "b": [body(_sp_text(rng, n), 16) for n in SP_SHORTS],
+            "c": body(a[:SP_SHARED] + _sp_text(rng, SP_LONG - SP_SHARED),
+                      32),
+            "d": body(a, 16)}
+
+
+def _sp_stream(port: int, body: dict) -> dict:
+    """One streamed completion: its result (``_check_response``) and its
+    wall, client side."""
+    t0 = time.monotonic()
+    out = _check_response("completion", True, *_http(
+        port, "/v1/completions", body))
+    out["wall_s"] = time.monotonic() - t0
+    return out
+
+
+def _first_token_tap(eng) -> dict:
+    """prompt tuple → (submitted, first token emitted), monotonic, on the
+    engine's side: the random model's tokens are mostly past the byte
+    range and decode to no text, so a stream's first text frame can come
+    long after its first token."""
+    seen: dict = {}
+    submit = eng.submit
+
+    def tapped(req):
+        key, emit = tuple(req.prompt), req.emit
+        seen[key] = [time.monotonic(), None]
+
+        def first(tok, fin):
+            if tok >= 0 and seen[key][1] is None:
+                seen[key][1] = time.monotonic()
+            emit(tok, fin)
+
+        req.emit = first
+        submit(req)
+
+    eng.submit = tapped
+    return seen
+
+
+def _sp_instrument(torch, eng) -> tuple[dict, object]:
+    """Time the leader's sequence-parallel chunk steps: each step's wall
+    (synchronized before and after) and, with CUDA events on this
+    rank's stream, its device time and that of its ring attention calls
+    (``_ring_prefix_attention_local``, every layer). Both ranks share
+    the card, so an event pair also spans the other rank's work
+    time-sliced in between. The K/V gathers over ``sp`` (gloo, through
+    host memory) are timed on the host clock, synchronized. Returns (the
+    record, the undo)."""
+    from aigw_tpu_torch.models import llama
+
+    rec: dict = {"steps": [], "events": None, "gathers": None}
+    step, ring = eng._prefill_step, llama._ring_prefix_attention_local
+    gather = llama.gather_blocks
+
+    def timed_gather(*a, **k):
+        if rec["gathers"] is None:
+            return gather(*a, **k)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = gather(*a, **k)
+        torch.cuda.synchronize()
+        rec["gathers"].append(1e3 * (time.monotonic() - t0))
+        return out
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    def timed_ring(*a, **k):
+        if rec["events"] is None:
+            return ring(*a, **k)
+        s, e = event(), event()
+        s.record()
+        out = ring(*a, **k)
+        e.record()
+        rec["events"].append((s, e))
+        return out
+
+    def timed_step(fn, args, sampling):
+        if fn is not eng._prefill_sp_suffix_fn:
+            return step(fn, args, sampling)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        s, e = event(), event()
+        rec["events"], rec["gathers"] = [], []
+        s.record()
+        out = step(fn, args, sampling)
+        e.record()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        ring_ms = sum(a.elapsed_time(b) for a, b in rec["events"])
+        rec["steps"].append({
+            "rows": int(args[0].shape[1]), "start": int(args[1][0]),
+            "t0": t0, "t1": t1, "wall_ms": 1e3 * (t1 - t0),
+            "device_ms": s.elapsed_time(e), "ring_ms": ring_ms,
+            "ring_calls": len(rec["events"]),
+            "gather_ms": sum(rec["gathers"]),
+            "gathers": len(rec["gathers"])})
+        rec["events"] = rec["gathers"] = None
+        return out
+
+    eng._prefill_step = timed_step
+    llama._ring_prefix_attention_local = timed_ring
+    llama.gather_blocks = timed_gather
+
+    def undo():
+        eng.__dict__.pop("_prefill_step", None)
+        llama._ring_prefix_attention_local = ring
+        llama.gather_blocks = gather
+
+    return rec, undo
+
+
+def serve_sp(torch, srv, restart, params, qparams, launches: dict) -> dict:
+    """Llama-3-8B widths at sp = 2: rank 0 (this process) leads the HTTP
+    server and the scheduler, a spawned follower is rank 1, both on
+    ``cuda:0`` over gloo (``TP_BACKEND``), each with the whole weights
+    and its own replica of the pool. (a) a 6000-token prompt prefills as
+    two 2048-row ring-attention chunk steps and a tail, each chunk's
+    rows split between the ranks; (b) two short prompts queued at its
+    first chunk boundary are admitted there (K1) and decode through the
+    boundary ticks (K2 on both ranks); (c) a prompt sharing (a)'s first
+    32 pages resumes at its cached offset in the chunk loop; (d) (a)'s
+    prompt on W8A16 weights over int8 pages on the same mesh (K6, K7 on
+    both ranks). Streams held tie-aware against the one-rank replica's
+    on the same weights (the ring's float32 merge adds in another
+    order); the sp counters and ``/state``'s sp keys gated; (a)'s pages
+    byte-equal on the two ranks; the chunk steps' walls and their
+    attention share measured."""
+    import numpy as np
+
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+    from aigw_tpu_torch.tpuserve.server import TPUServeServer
+
+    eos = srv.tokenizer.eos_id
+    cfg = llama.LLAMA3_8B
+    bodies = _sp_bodies(np.random.default_rng(18))
+    # the one-rank replica on the same weights and programs: (a) and (b)
+    # together, then (c), which resumes there too
+    t = time.monotonic()
+    restart(params, **SP_CFG)
+    tap = TokenTap(srv.engine)
+    serve_phase(srv.port, [("completion", True, b)
+                           for b in (bodies["a"], *bodies["b"])])
+    serve_phase(srv.port, [("completion", True, bodies["c"])])
+    one = _streams_by_prompt(tap)
+    # (d)'s one-rank replica prefills in 512-token chunks on the bucket
+    # ladder: the windowed program, which an int8 pool's ragged prefill
+    # runs, walks a 6000-token prompt's pages 256 rows at a time (about
+    # 20 s on the card)
+    restart(qparams, **{**SP_CFG, "attention_backend": "xla-bucketed",
+                        "prefill_chunk_tokens": 512},
+            kv_cache_dtype="int8")
+    tap = TokenTap(srv.engine)
+    serve_phase(srv.port, [("completion", True, bodies["d"])])
+    one_q = _streams_by_prompt(tap)
+    stop_engine(srv)
+    # the two ranks share the card: this process's cached blocks go back
+    torch.cuda.empty_cache()
+    out: dict = {"ranks": 2, "backend": TP_BACKEND, "device": SP_DEVICE,
+                 "interconnect": "none measured: both ranks on one card",
+                 "one_rank_s": time.monotonic() - t, "prompt_tokens": {"a": SP_LONG, "b": list(SP_SHORTS),
+                                   "c": SP_LONG, "shared": SP_SHARED}}
+    t = time.monotonic()
+    sp_srv = TPUServeServer("llama-3-8b-random", EngineConfig(**SP_CFG),
+                            device=SP_DEVICE, port=0, params=params, sp=2,
+                            mesh_backend=TP_BACKEND)
+    out["up_s"] = time.monotonic() - t
+    sp_srv.start()
+    undo = None
+    try:
+        eng = sp_srv.engine
+        tap = TokenTap(eng)
+        firsts = _first_token_tap(eng)
+        rec, undo = _sp_instrument(torch, eng)
+        # the first chunk boundary waits (at most 30 s) until both short
+        # arrivals are queued, so they are admitted there whatever the
+        # HTTP threads' pace
+        boundary = threading.Event()
+        admit = eng._admit_interactive
+
+        def at_boundary():
+            if not boundary.is_set():
+                boundary.set()
+                t_wait = time.monotonic()
+                while eng._queue.qsize() < len(bodies["b"]) \
+                        and time.monotonic() - t_wait < 30:
+                    time.sleep(0.001)
+                out["boundary_wait_ms"] = 1e3 * (time.monotonic() - t_wait)
+            return admit()
+
+        eng._admit_interactive = at_boundary
+        res: dict = {}
+
+        def run(name, body):
+            try:
+                res[name] = _sp_stream(sp_srv.port, body)
+            except Exception as e:  # noqa: BLE001 — reported below
+                res[name] = e
+
+        def burst():
+            t0 = time.monotonic()
+            ta = threading.Thread(target=run, args=("a", bodies["a"]))
+            ta.start()
+            if not boundary.wait(600):
+                raise AssertionError("serve_sp: (a) reached no chunk "
+                                     "boundary")
+            tb = [threading.Thread(target=run, args=(f"b{i}", b))
+                  for i, b in enumerate(bodies["b"])]
+            for th in tb:
+                th.start()
+            for th in (ta, *tb):
+                th.join(timeout=900)
+            out["burst_s"] = time.monotonic() - t0
+            out["c_sent"] = time.monotonic()
+            run("c", bodies["c"])
+
+        per_rank = rank_launches(eng, burst)
+        del eng._admit_interactive
+        undo()
+        undo = None
+        bad = {k: v for k, v in res.items() if not isinstance(v, dict)}
+        if bad:
+            raise AssertionError(f"serve_sp: requests failed: {bad}")
+        _gate_ranks("serve_sp", per_rank, ("fused_paged_decode",
+                                           "ragged_prefill_attention"))
+        out["launches_per_rank"] = per_rank
+        launches["serve_sp"] = per_rank[0]
+        st = eng.stats
+        out["counters"] = counts = {
+            "sp_prefills": st.sp_prefills,
+            "sp_chunked_prefills": st.sp_chunked_prefills,
+            "sp_resume_prefills": st.sp_resume_prefills,
+            "sp_interactive_admits": st.sp_interactive_admits,
+            "chunked_prefill_steps": st.chunked_prefill_steps,
+            "prefix_cache_hits": st.prefix_cache_hits}
+        if counts["sp_chunked_prefills"] < 2 \
+                or counts["sp_interactive_admits"] < 1 \
+                or counts["sp_resume_prefills"] < 1:
+            raise AssertionError(f"serve_sp: counters {counts}")
+        state = json.loads(_http(sp_srv.port, "/state")[2])
+        out["state"] = {k: state[k] for k in (
+            "sp", "sp_prefill_mode", "sp_chunked_prefills",
+            "sp_resume_prefills", "sp_interactive_admits", "mesh_axes",
+            "mesh_devices", "param_bytes_per_device")}
+        if state["sp"] != 2 or state["sp_prefill_mode"] != "chunked":
+            raise AssertionError(f"serve_sp: /state {out['state']}")
+        times = {k: firsts[tuple(sp_srv.encode_text(b))] for k, b in (
+            ("a", bodies["a"]), ("b0", bodies["b"][0]),
+            ("b1", bodies["b"][1]), ("c", bodies["c"]))}
+        ttft = {k: 1e3 * (t1 - t0) for k, (t0, t1) in times.items()}
+        out["ttft_ms"] = ttft
+        out["wall_s"] = {k: v["wall_s"] for k, v in res.items()}
+        if not max(times["b0"][1], times["b1"][1]) < times["a"][1]:
+            raise AssertionError(f"serve_sp: the short requests' first "
+                                 f"tokens came after (a)'s: {times}")
+        steps = rec["steps"]
+        c_sent = out.pop("c_sent")
+        out["chunk_steps"] = [{k: x[k] for k in (
+            "rows", "start", "wall_ms", "device_ms", "ring_ms",
+            "ring_calls", "gather_ms", "gathers")}
+            | {"request": "a" if x["t0"] < c_sent else "c"} for x in steps]
+        a_steps = [x for x in steps if x["t0"] < c_sent]
+        out["a_chunk_steps_s"] = (a_steps[-1]["t1"] - a_steps[0]["t0"]
+                                  if a_steps else 0.0)
+        # (a)'s boundaries: from one chunk step's end to the next one's
+        # start (the interactive admissions, then the decode tick)
+        out["tick_ms"] = [1e3 * (b["t0"] - a["t1"])
+                          for a, b in zip(a_steps, a_steps[1:])]
+        # the attention share of (a)'s second chunk step (a full chunk
+        # over a window holding the first)
+        share = next((x for x in a_steps[1:] if x["rows"]
+                      == a_steps[0]["rows"]), steps[0])
+        out["attention_share"] = {
+            "step_rows": share["rows"], "step_start": share["start"],
+            "ring_ms": share["ring_ms"], "step_device_ms":
+            share["device_ms"], "share": share["ring_ms"]
+            / share["device_ms"], "gather_ms_per_layer":
+            share["gather_ms"] / max(1, share["gathers"])}
+        # (a)'s pages on both ranks: the replicas agree byte for byte
+        chain = eng.prefix_cache.chain_keys(sp_srv.encode_text(bodies["a"]))
+        pages = eng.prefix_cache.probe(chain)
+        digests = eng.rank_page_digests(pages)
+        if len(pages) < SP_LONG // 128 or digests[0] != digests[1]:
+            raise AssertionError(f"serve_sp: (a)'s {len(pages)} pages "
+                                 "differ between the ranks")
+        out["pages_equal_across_ranks"] = len(pages)
+        out["against_one_rank"] = _hold_streams(
+            torch, params, cfg, eos, one, _streams_by_prompt(tap),
+            "serve_sp")
+        # (d): W8A16 over int8 pages on the same mesh (the follower
+        # drops the bf16 engine and builds this one)
+        t = time.monotonic()
+        stop_engine(sp_srv)
+        torch.cuda.empty_cache()
+        sp_srv.engine = eng = Engine(
+            qparams, cfg, EngineConfig(**SP_CFG, kv_cache_dtype="int8"),
+            eos_token_ids=(eos,), device=SP_DEVICE,
+            mesh=sp_srv.replica_mesh.mesh)
+        eng.start()
+        out["swap_s"] = time.monotonic() - t
+        tap = TokenTap(eng)
+        firsts = _first_token_tap(eng)
+        per_q = rank_launches(eng, lambda: run("d", bodies["d"]))
+        if not isinstance(res["d"], dict):
+            raise AssertionError(f"serve_sp (d): {res['d']!r}")
+        _gate_ranks("serve_sp W8A16 + int8", per_q,
+                    ("w8a16_matmul", "fused_paged_decode_int8"),
+                    ("ragged_prefill_attention", "fused_paged_decode"))
+        if eng.stats.sp_chunked_prefills != 1:
+            raise AssertionError("serve_sp (d): not an sp prefill")
+        t0, t1 = firsts[tuple(sp_srv.encode_text(bodies["d"]))]
+        out["w8a16_kv_int8"] = {
+            "ttft_ms": 1e3 * (t1 - t0), "wall_s": res["d"]["wall_s"],
+            "launches_per_rank": per_q,
+            "against_one_rank": _hold_streams(
+                torch, qparams, cfg, eos, one_q, _streams_by_prompt(tap),
+                "serve_sp W8A16 + int8")}
+        launches["serve_sp_w8a16"] = per_q[0]
+    finally:
+        if undo is not None:
+            undo()
+        sp_srv.stop()
+        sp_srv.engine = None
+        gc.collect()
+    out["card"] = nvidia_smi_line()
+    log(f"serve_sp (sp=2 on one card over {TP_BACKEND}): up "
+        f"{out['up_s']:.1f}s, burst {out['burst_s']:.2f} s, TTFT (a) "
+        f"{ttft['a']:.0f} ms, shorts {ttft['b0']:.0f} / {ttft['b1']:.0f} "
+        f"ms, (c) {ttft['c']:.0f} ms; (a)'s chunk steps "
+        f"{out['a_chunk_steps_s']:.2f} s, ticks {out['tick_ms']} ms; "
+        f"attention share {out['attention_share']['share']:.3f}, gather "
+        f"{out['attention_share']['gather_ms_per_layer']:.2f} ms a "
+        f"layer; against one rank "
+        f"{out['against_one_rank']}")
     return out
 
 
@@ -6673,10 +7086,13 @@ def main() -> int:
         # then one rank over NCCL with its collectives captured
         # (serve_tp_nccl)
         print(json.dumps({"serve_tp": serve_tp(
-            torch, srv, restart, params, qparams, reqs, launches)}),
-            flush=True)
+            torch, srv, params, qparams, reqs, launches)}), flush=True)
         print(json.dumps({"serve_tp_nccl": serve_tp_nccl(
             torch, srv, params, reqs)}), flush=True)
+        # sequence parallel: two ranks on the card over gloo, long
+        # prompts as ring-attention chunk steps (serve_sp)
+        print(json.dumps({"serve_sp": serve_sp(
+            torch, srv, restart, params, qparams, launches)}), flush=True)
     finally:
         srv.stop()
 
@@ -6901,7 +7317,8 @@ def main() -> int:
         row["launches_checkpoint"] = launches["checkpoint"].get(
             row["name"], 0)
         # the leader rank's (each rank launches as many)
-        for phase in ("serve_tp", "serve_tp_w8a16", "serve_ep"):
+        for phase in ("serve_tp", "serve_tp_w8a16", "serve_sp",
+                      "serve_sp_w8a16", "serve_ep"):
             row[f"launches_{phase}"] = launches[phase].get(row["name"], 0)
         for phase in ("serve_defaults", "serve_defaults_w8a16",
                       "embeddings_bf16", "embeddings_w8a16"):

@@ -1725,3 +1725,104 @@ def test_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
         j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), None)
         if j is not None:  # a float32 near-tie only
             assert j > 0, (g, w)
+
+
+# -- the sequence-parallel attention (ops/ring_attention.py) ------------------
+def _sp_inputs(g, dev, dtype, B=1, S=256, H=32, Hkv=8, D=128, T=0):
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    out = [r(B, S, H, D), r(B, S, Hkv, D), r(B, S, Hkv, D)]
+    if T:
+        out += [r(B, T, Hkv, D), r(B, T, Hkv, D)]
+    return out
+
+
+def _rank_blocks(x, n):
+    return torch.stack(x.chunk(n, dim=1))
+
+
+def _sp_close(got, want, dtype):
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_attention_local_on_cuda(cuda, n, causal, dtype):
+    """Every rank's ring attention at Llama-3-8B heads, computed in one
+    process (``mesh=None``, explicit ``idx``/``n``) on the card, against
+    the same computation on the CPU (the reference's tolerance in
+    float32, one bf16 ulp in bf16)."""
+    from aigw_tpu_torch.ops import ring_attention as ra
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = _sp_inputs(g, cuda, dtype)
+    qb, kb, vb = (_rank_blocks(x, n) for x in (q, k, v))
+    for r in range(n):
+        got = ra._ring_attention_local(qb[r], kb, vb, idx=r, n=n,
+                                       causal=causal)
+        want = ra._ring_attention_local(qb[r].cpu(), kb.cpu(), vb.cpu(),
+                                        idx=r, n=n, causal=causal)
+        assert got.device.type == "cuda"
+        _sp_close(got.cpu(), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_prefix_and_ulysses_local_on_cuda(cuda, dtype):
+    """The prefix pass at a misaligned resume (and a zero one) and
+    Ulysses at sp 2, on the card against the CPU."""
+    from aigw_tpu_torch.ops import ring_attention as ra
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, kc, vc = _sp_inputs(g, cuda, dtype, B=2, T=1024)
+    pl = torch.tensor([384, 0], dtype=torch.int32, device=cuda)
+    qb, kb, vb = (_rank_blocks(x, 2) for x in (q, k, v))
+    for r in range(2):
+        got = ra._ring_prefix_attention_local(qb[r], kb, vb, kc, vc, pl,
+                                              idx=r, n=2)
+        want = ra._ring_prefix_attention_local(
+            qb[r].cpu(), kb.cpu(), vb.cpu(), kc.cpu(), vc.cpu(), pl.cpu(),
+            idx=r, n=2)
+        _sp_close(got.cpu(), want, dtype)
+        got = ra._ulysses_attention_local(qb, kb, vb, idx=r, n=2)
+        want = ra._ulysses_attention_local(qb.cpu(), kb.cpu(), vb.cpu(),
+                                           idx=r, n=2)
+        _sp_close(got.cpu(), want, dtype)
+
+
+def test_sp_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
+    """Two sp ranks on ``cuda:0`` over gloo: prompts of 32 tokens or
+    more prefill as ring-attention chunk steps over both ranks (eager),
+    decode runs the fused kernel on each rank, and the streams equal the
+    one-rank engine's on float32 weights up to a near-tie."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.parallel import MeshSpec
+    from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
+    from aigw_tpu_torch.tpuserve.follower import start_replica_mesh
+
+    params = llama.init_params(0, llama.TINY, torch.float32, "cuda")
+    cfg = {**MESH_CFG, "kv_cache_dtype": "float32",
+           "sp_prefill_min_tokens": 32, "sp_chunk_tokens": 16}
+    want = _mesh_streams(Engine(params, llama.TINY, EngineConfig(**cfg),
+                                device="cuda"))
+    rm = start_replica_mesh(MeshSpec(sp=2), "cuda:0", backend="gloo",
+                            init_method=f"file://{tmp_path / 'rdv'}",
+                            timeout_s=300)
+    try:
+        eng = Engine(params, llama.TINY, EngineConfig(**cfg),
+                     device="cuda:0", mesh=rm.mesh)
+        assert eng._prefill_sp_suffix_fn is not None
+        k2 = decode_fused.fused_paged_decode.launches
+        got = _mesh_streams(eng)
+        assert decode_fused.fused_paged_decode.launches > k2
+        assert eng.stats.sp_chunked_prefills == 1  # the 40-token prompt
+        assert eng.stats.chunked_prefill_steps > 0
+    finally:
+        rm.close()
+    for g, w in zip(got, want):
+        j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is not None:  # a float32 near-tie only
+            assert j > 0, (g, w)

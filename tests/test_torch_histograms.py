@@ -14,8 +14,10 @@ against the JAX package's replica.
   sets, buckets, counts and token sums (durations are compared by
   count only).
 - ``/state``: the port replica's key set is the reference replica's
-  less the ``sp`` keys (ROADMAP queue 1 item 7) plus the port's own; the four device keys carry the engine's
-  values; the reference picker's ``worst_hbm_frac`` and
+  plus the port's own (``MESH_STATE_KEYS``, the reference's keys the
+  port does not export, is empty since the ``sp`` keys were ported, and
+  the five carry the reference's values off a mesh); the four device
+  keys carry the engine's values; the reference picker's ``worst_hbm_frac`` and
   ``worst_kv_occupancy`` read them off a polled port replica.
 """
 
@@ -53,12 +55,12 @@ GENAI = ("gen_ai_client_token_usage",
          "gen_ai_server_request_duration_seconds",
          "gen_ai_server_time_to_first_token_seconds",
          "gen_ai_server_time_per_output_token_seconds")
-# the reference's /state keys the port does not export: the
-# sequence-parallel serving surface (ROADMAP queue 1 item 7, multi-GPU;
-# the mesh and slice-topology keys are served)
-MESH_STATE_KEYS = frozenset({
-    "sp", "sp_prefill_mode", "sp_chunked_prefills", "sp_resume_prefills",
-    "sp_interactive_admits"})
+# the reference's /state keys the port does not export: none (the mesh,
+# slice-topology and sequence-parallel keys are served)
+MESH_STATE_KEYS = frozenset()
+# the sequence-parallel keys, with the reference's values off a mesh
+SP_STATE_KEYS = ("sp", "sp_prefill_mode", "sp_chunked_prefills",
+                 "sp_resume_prefills", "sp_interactive_admits")
 # the port's /state keys the reference's replica has only on /metrics or
 # not at all (the counters behind the engine gauges, the device's name,
 # the defaults table)
@@ -343,9 +345,13 @@ def test_genai_counts_are_the_traffic(port_run):
 def test_state_keys_are_the_references_less_the_mesh(port_run,
                                                      reference_run):
     got, want = set(port_run["state"]), set(reference_run["state"])
-    assert MESH_STATE_KEYS <= want
-    assert got == (want - MESH_STATE_KEYS) | PORT_STATE_KEYS
+    assert MESH_STATE_KEYS == frozenset()
+    assert got == want | PORT_STATE_KEYS
     assert not PORT_STATE_KEYS & want
+    assert {k: port_run["state"][k] for k in SP_STATE_KEYS} \
+        == {k: reference_run["state"][k] for k in SP_STATE_KEYS} \
+        == {"sp": 1, "sp_prefill_mode": "off", "sp_chunked_prefills": 0,
+            "sp_resume_prefills": 0, "sp_interactive_admits": 0}
 
 
 def test_state_device_keys_carry_the_engines_values(port_run,

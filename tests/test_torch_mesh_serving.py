@@ -347,8 +347,10 @@ def test_speculation_streams(weights, jmesh, replica):
 
 def test_server_refusals_are_the_references():
     """``--ep`` without experts or not dividing them, ``--tp`` not
-    dividing the KV heads: the reference's messages; ``--sp`` names
-    its ROADMAP entry; too few cards the reference's mesh message."""
+    dividing the KV heads: the reference's messages (``--sp``'s refusal,
+    a family with no sequence-parallel prefill, is
+    ``tests/test_torch_sp_serving.py``'s); too few cards the
+    reference's mesh message."""
     from aigw_tpu_torch.tpuserve.server import TPUServeServer
 
     cfg = tengine.EngineConfig(**GEOM)
@@ -361,12 +363,6 @@ def test_server_refusals_are_the_references():
     for model, kw, msg in cases:
         with pytest.raises(ValueError, match=re.escape(msg)):
             TPUServeServer(model, cfg, device="cpu", port=0, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        TPUServeServer("tiny-random", cfg, device="cpu", port=0, sp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        from aigw_tpu_torch.parallel import make_mesh
-
-        make_mesh(MeshSpec(sp=2), device="cpu")
 
 
 def test_too_few_cards_is_refused(monkeypatch):

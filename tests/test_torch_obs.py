@@ -66,15 +66,10 @@ def test_engine_gauges_are_the_reference_minus_not_ported():
     ref = dict(jmetrics.ENGINE_GAUGES)
     for attr, (name, entry) in tmetrics.GAUGES_NOT_PORTED.items():
         assert ref[attr] == name and entry
-    # only the sequence-parallel gauges are left (the warm gauges and
-    # the mesh's ICI gauges are ported)
-    assert set(tmetrics.GAUGES_NOT_PORTED) == {
-        "sp_prefills", "sp_chunked_prefills", "sp_resume_prefills",
-        "sp_interactive_admits"}
-    assert {e for _n, e in tmetrics.GAUGES_NOT_PORTED.values()} == {
-        "item 7, multi-GPU"}
-    assert len(tmetrics.ENGINE_GAUGES) + len(tmetrics.GAUGES_NOT_PORTED) \
-        == len(jmetrics.ENGINE_GAUGES) == 100
+    # every gauge is ported (the sequence-parallel four were the last)
+    assert tmetrics.GAUGES_NOT_PORTED == {}
+    assert len(tmetrics.ENGINE_GAUGES) == len(jmetrics.ENGINE_GAUGES) \
+        == 100
     import dataclasses
 
     from aigw_tpu_torch.tpuserve.engine import EngineStats

@@ -270,7 +270,8 @@ def test_decode_resolver_mesh_rows_are_the_references(kw, tp):
 
 def test_rank_coordinates_follow_the_references_device_grid():
     for spec in (JMeshSpec(tp=2), JMeshSpec(tp=2, ep=2), JMeshSpec(ep=4),
-                 JMeshSpec(pp=2), JMeshSpec(tp=4, ep=2)):
+                 JMeshSpec(pp=2), JMeshSpec(tp=4, ep=2), JMeshSpec(sp=2),
+                 JMeshSpec(tp=2, sp=2, ep=2)):
         mesh = jmake_mesh(spec)
         grid = mesh.devices
         devs = list(grid.flat)
@@ -282,7 +283,8 @@ def test_rank_coordinates_follow_the_references_device_grid():
 
 
 def test_mesh_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+    # sp is accepted up to the process group
+    with pytest.raises(ValueError, match="no process group"):
         tmesh.make_mesh(tmesh.MeshSpec(sp=2), device="cpu")
     with pytest.raises(NotImplementedError, match="dp=2"):
         tmesh.make_mesh(tmesh.MeshSpec(dp=2), device="cpu")

@@ -10,7 +10,8 @@ Runs, each in fresh processes with a finite timeout:
    not put two ranks of one communicator on one device); the error is
    printed;
 2. two ranks on ``cuda:0`` over gloo with CUDA tensors: ``broadcast``,
-   ``all_reduce``, ``all_gather``, and ``send`` / ``recv``, each
+   ``all_reduce``, ``all_gather``, ``all_to_all_single`` (Ulysses'
+   exchange, ``ops/ring_attention.py``) and ``send`` / ``recv``, each
    checked against its expected values;
 3. one rank over NCCL: an ``all_reduce`` and an ``all_gather`` captured
    in a CUDA graph and replayed, checked.
@@ -54,6 +55,17 @@ def _case(rank: int, world: int, init: str, backend: str, what: str,
             parts = [torch.empty(2, device=dev) for _ in range(world)]
             dist.all_gather(parts, torch.full((2,), float(rank), device=dev))
             res["all_gather"] = [p.tolist() for p in parts]
+            try:
+                # rank r sends [10 r + j] to rank j: rank j gets
+                # [j, 10 + j]
+                a2a = torch.empty(world, device=dev)
+                dist.all_to_all_single(a2a, torch.arange(
+                    world, dtype=torch.float32, device=dev) + 10.0 * rank)
+                res["all_to_all_single"] = a2a.tolist()
+                res["all_to_all_ok"] = a2a.tolist() == [
+                    10.0 * j + rank for j in range(world)]
+            except Exception as e:  # noqa: BLE001 — the finding
+                res["all_to_all_error"] = f"{type(e).__name__}: {e}"[:400]
             try:
                 if rank == 0:
                     dist.send(torch.arange(5, dtype=torch.float32,

@@ -4,8 +4,11 @@
 gloo, bf16 then W8A16 over int8 pages, streams held to one rank's),
 ``serve_tp_nccl`` (one rank over NCCL, collectives captured, streams
 bit-equal to no mesh), ``kernels_tp`` (every kernel at a tp = 2 rank's
-shard shapes against its plain version, timed) and ``serve_ep``
-(Mixtral-8x7B widths at 2 layers, W8A16, ep = 2).
+shard shapes against its plain version, timed), ``serve_sp``
+(Llama-3-8B widths at sp = 2, two ranks on the card over gloo: long
+prompts as ring-attention chunk steps, short arrivals admitted at chunk
+boundaries, a prefix resume, then W8A16 over int8 pages) and
+``serve_ep`` (Mixtral-8x7B widths at 2 layers, W8A16, ep = 2).
 
     python3 tools/torch_parallel.py [--skip serve_tp,serve_ep,...]
 
@@ -25,7 +28,8 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
-PHASES = ("serve_tp", "serve_tp_nccl", "kernels_tp", "serve_ep")
+PHASES = ("serve_tp", "serve_tp_nccl", "kernels_tp", "serve_sp",
+          "serve_ep")
 
 
 def main() -> int:
@@ -52,7 +56,7 @@ def main() -> int:
     cs.log(f"kernels built in {time.monotonic() - t:.1f}s")
     reqs = cs._requests(np.random.default_rng(0))
     launches: dict = {"serve_tp": {}, "serve_tp_w8a16": {}}
-    if not {"serve_tp", "serve_tp_nccl"} <= skip:
+    if not {"serve_tp", "serve_tp_nccl", "serve_sp"} <= skip:
         register_model(ModelSpec("llama-3-8b-random", "llama",
                                  llama.LLAMA3_8B))
         srv = TPUServeServer("llama-3-8b-random", EngineConfig(**cs.TP_CFG),
@@ -72,11 +76,15 @@ def main() -> int:
         try:
             if "serve_tp" not in skip:
                 print(json.dumps({"serve_tp": cs.serve_tp(
-                    torch, srv, restart, params, qparams, reqs,
-                    launches)}), flush=True)
+                    torch, srv, params, qparams, reqs, launches)}),
+                    flush=True)
             if "serve_tp_nccl" not in skip:
                 print(json.dumps({"serve_tp_nccl": cs.serve_tp_nccl(
                     torch, srv, params, reqs)}), flush=True)
+            if "serve_sp" not in skip:
+                print(json.dumps({"serve_sp": cs.serve_sp(
+                    torch, srv, restart, params, qparams, launches)}),
+                    flush=True)
         finally:
             srv.stop()
         del params, qparams, srv
