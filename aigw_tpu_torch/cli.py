@@ -19,6 +19,7 @@
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu --tp 2
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu --sp 2
     python -m aigw_tpu_torch convert /hf/llama-3-8b checkpoints/llama-3-8b
+    python -m aigw_tpu_torch run gateway.json --port 1975
 
 With no flags a replica runs the reference's default programs: the
 bucket-ladder prefill (``xla-bucketed``, chunked past
@@ -50,9 +51,16 @@ row's ``orbax:`` weights (and the reference) restore. Both read and
 write orbax directories through ``tensorstore`` (``models/checkpoint.py``)
 and raise naming it where it is missing, as on the card machine.
 
-The ``tpuserve`` and ``convert`` subcommands are ported; the gateway and
-the other subcommands stay JAX-package code, and the gateway can front
-this replica over HTTP. Flag names follow the reference's.
+``run CONFIG`` starts the gateway data plane (``gateway/server.py``) in
+front of replica pools: the config is JSON (YAML where ``pyyaml`` is
+installed), watched every ``--watch-interval`` seconds and reloaded on
+change; ``--port 0`` binds a free port, which the startup line names.
+SIGTERM or SIGINT stops it after ``AIGW_DRAIN_SECONDS`` (1 s) for the
+requests in flight.
+
+The ``tpuserve``, ``convert`` and ``run`` subcommands are ported; the
+other subcommands stay JAX-package code. Flag names follow the
+reference's.
 """
 
 from __future__ import annotations
@@ -76,6 +84,12 @@ def build_parser() -> argparse.ArgumentParser:
                                        "tpuserve")
     c.add_argument("hf_dir")
     c.add_argument("out_dir")
+    r = sub.add_parser("run", help="run the gateway data plane")
+    r.add_argument("config", help="config file: JSON, or YAML with pyyaml")
+    r.add_argument("--host", default="127.0.0.1")
+    r.add_argument("--port", type=int, default=1975)
+    r.add_argument("--watch-interval", type=float, default=5.0)
+    r.add_argument("--log-level", default="info")
     s = sub.add_parser("tpuserve", help="run the serving engine")
     s.add_argument("--model", required=True,
                    help="model name (see aigw_tpu_torch.models.registry)")
@@ -265,10 +279,60 @@ def convert(hf_dir: str, out_dir: str) -> int:
     return 0
 
 
+async def run_gateway_cli(args) -> int:
+    """``run``: the gateway until SIGTERM or SIGINT."""
+    import asyncio
+    import os
+
+    from aigw_tpu_torch.config.watcher import ConfigWatcher
+    from aigw_tpu_torch.gateway.server import run_gateway
+
+    holder = {}
+
+    def on_reload(rc) -> None:
+        if "server" in holder:
+            holder["server"].set_runtime(rc)
+
+    watcher = ConfigWatcher(args.config, on_reload,
+                            interval=args.watch_interval)
+    server = await run_gateway(watcher.load_initial(), host=args.host,
+                               port=args.port)
+    holder["server"] = server
+    await watcher.start()
+    print(f"gateway listening on http://{args.host}:{server.port}",
+          flush=True)
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    try:
+        drain = float(os.environ.get("AIGW_DRAIN_SECONDS", "1.0"))
+    except ValueError:
+        drain = 1.0
+    await watcher.stop()
+    await server.stop(grace=max(0.0, drain))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "convert":
         return convert(args.hf_dir, args.out_dir)
+    if args.cmd == "run":
+        import asyncio
+        import sys
+
+        from aigw_tpu_torch.config.model import ConfigError
+
+        logging.basicConfig(
+            level=getattr(logging, args.log_level.upper(), logging.INFO),
+            format="%(asctime)s %(levelname)s %(name)s %(message)s")
+        try:
+            return asyncio.run(run_gateway_cli(args))
+        except ConfigError as e:
+            print(f"config error: {e}", file=sys.stderr)
+            return 1
     adapters = lora_adapters(args.lora)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s "

@@ -1,0 +1,64 @@
+"""RuntimeConfig: a Config with everything pre-built for the hot path
+(the port's copy of ``aigw_tpu/config/runtime.py``).
+
+Equivalent of the upstream ``filterapi.RuntimeConfig``: cost expressions
+compiled and route-level cost lists merged over the global one, so
+per-request processing never touches parsing or compilation. The
+reference also builds each backend's auth handler and the quota rate
+limiter here; the port's config refuses ``auth`` and ``quotas``, so
+neither exists.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+from aigw_tpu_torch.config.model import Backend, Config, Route
+
+
+@dataclass
+class RuntimeBackend:
+    backend: Backend
+
+
+@dataclass
+class RuntimeConfig:
+    config: Config
+    backends: dict[str, RuntimeBackend] = field(default_factory=dict)
+    cost_calculator: Any = None  # gateway.costs.CostCalculator
+    # per-route calculators (global costs + route-level overrides)
+    route_cost_calculators: dict[str, Any] = field(default_factory=dict)
+
+    @staticmethod
+    def build(config: Config) -> "RuntimeConfig":
+        from aigw_tpu_torch.gateway.costs import CostCalculator
+
+        config.validate()
+        rc = RuntimeConfig(config=config)
+        for b in config.backends:
+            rc.backends[b.name] = RuntimeBackend(backend=b)
+        rc.cost_calculator = CostCalculator.from_config(config)
+        global_costs = {c.metadata_key: c for c in config.llm_request_costs}
+        for route in config.routes:
+            if route.llm_request_costs:
+                merged = dict(global_costs)
+                merged.update(
+                    {c.metadata_key: c for c in route.llm_request_costs}
+                )
+                rc.route_cost_calculators[route.name] = CostCalculator(
+                    tuple(merged.values())
+                )
+        return rc
+
+    def cost_calculator_for(self, route_name: str):
+        return self.route_cost_calculators.get(route_name,
+                                               self.cost_calculator)
+
+    def routes_for_host(self, host: str) -> list[Route]:
+        host = host.split(":")[0].lower()
+        out = []
+        for r in self.config.routes:
+            if not r.hostnames or host in r.hostnames:
+                out.append(r)
+        return out

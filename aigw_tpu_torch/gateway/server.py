@@ -1,0 +1,1110 @@
+"""The gateway data plane for self-hosted serving pools (the port's copy
+of ``aigw_tpu/gateway/server.py``, on the standard-library HTTP of
+``gateway/http.py`` instead of aiohttp).
+
+It keeps the reference's two-phase processor:
+
+  Phase 1 (route selection): parse the body enough to extract the model,
+  validate it against the endpoint's typed schema, stamp the model
+  header, match a route. The parsed body is captured.
+
+  Phase 2 (upstream, per attempt): against the chosen backend, translate
+  the captured body to the backend schema, apply header/body mutations,
+  pick a replica of the backend's pool (``gateway/picker.py``) and send.
+  A retriable failure (no connection, a reset before the first byte, a
+  429 or 5xx) moves to the next backend of the rule's priority tiers,
+  once to a sibling replica first; once a byte has gone to the client,
+  nothing is retried.
+
+Streamed responses are relayed frame by frame as they arrive, with token
+usage mined on the side; at the end the request's token costs are
+computed (``gateway/costs.py``) and recorded with the replica's
+MeterRecord in the usage ledger (``gateway/usage.py``).
+
+What this data plane carries: ``POST /v1/chat/completions``,
+``/v1/completions`` and ``/v1/embeddings`` on an OpenAI front to
+``OpenAI``- and ``TPUServe``-schema backends, streamed and not;
+``GET /v1/models``, ``/health``, ``/metrics``, ``/usage``,
+``/fleet/state``, ``/fleet/metrics`` and ``/debug/decisions``; retry
+and fallback over priorities, the circuit breaker, session and prefix
+affinity derived from the body, the prompt-length estimate. The
+reference's mid-stream migrator, fleet controller, quotas, batch-tier
+proxy, upstream auth, provider translators, Anthropic front, access log,
+OpenInference and gateway spans, and MCP proxy are not carried; the
+config refuses what would need them (``config/model.py``). With no span
+of its own the gateway relays the caller's trace-context headers to the
+replica verbatim, as the reference does with tracing off.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import gzip
+import hashlib
+import json
+import logging
+import os
+import random
+import time
+import urllib.parse
+import zlib
+from typing import Any, Callable
+
+from aigw_tpu_torch.config.model import (
+    DESTINATION_ENDPOINT_HEADER,
+    MODEL_NAME_HEADER,
+    ORIGINAL_PATH_HEADER,
+    APISchemaName,
+    _thaw,
+)
+from aigw_tpu_torch.config.runtime import RuntimeBackend, RuntimeConfig
+from aigw_tpu_torch.gateway.circuit import CircuitBreaker
+from aigw_tpu_torch.gateway.costs import TokenUsage
+from aigw_tpu_torch.gateway.fleetstate import (
+    DecisionRing,
+    merge_rollups,
+    relabel_exposition,
+)
+from aigw_tpu_torch.gateway.http import (
+    ClientError,
+    ClientResponse,
+    HTTPClient,
+    HTTPServer,
+    Request,
+    Response,
+    StreamResponse,
+    Timeout,
+    json_response,
+)
+from aigw_tpu_torch.gateway.mutators import (
+    apply_body_mutation,
+    apply_header_mutation,
+)
+from aigw_tpu_torch.gateway.picker import (
+    ADAPTER_HEADER,
+    AFFINITY_HEADER,
+    KV_CHAIN_HEADER,
+    KV_PEERS_HEADER,
+    PREFIX_HEADER,
+    PRIORITY_HEADER,
+    PROMPT_TOKENS_HEADER,
+    TENANT_HEADER,
+    ContextLengthError,
+    Endpoint as PickerEndpoint,
+    EndpointPicker,
+    SLOShedError,
+)
+from aigw_tpu_torch.gateway.router import (
+    BackendSelector,
+    NoRouteError,
+    match_route,
+    split_model,
+)
+from aigw_tpu_torch.gateway.usage import UsageLedger
+from aigw_tpu_torch.obs.metrics import (
+    GenAIMetrics,
+    RequestMetrics,
+    render_fleet_gauges,
+    render_usage_gauges,
+)
+from aigw_tpu_torch.obs.tracing import relay_trace_headers
+from aigw_tpu_torch.schemas import openai as oai
+from aigw_tpu_torch.schemas import typed as typed_schemas
+from aigw_tpu_torch.schemas import typed_response
+from aigw_tpu_torch.translate import Endpoint, TranslationError, get_translator
+
+logger = logging.getLogger(__name__)
+
+#: endpoint path → (Endpoint, front schema, metrics operation)
+_ENDPOINTS: dict[str, tuple[Endpoint, APISchemaName, str]] = {
+    Endpoint.CHAT_COMPLETIONS.value: (
+        Endpoint.CHAT_COMPLETIONS, APISchemaName.OPENAI, "chat"),
+    Endpoint.COMPLETIONS.value: (
+        Endpoint.COMPLETIONS, APISchemaName.OPENAI, "text_completion"),
+    Endpoint.EMBEDDINGS.value: (
+        Endpoint.EMBEDDINGS, APISchemaName.OPENAI, "embeddings"),
+}
+
+
+def _head_digest(head: list) -> str:
+    blob = json.dumps(head, sort_keys=True).encode()
+    return hashlib.blake2b(blob, digest_size=12).hexdigest()
+
+
+def _conversation_affinity_key(body: dict) -> str:
+    """Key a conversation by its stable head, the system prompt(s) plus
+    the first user message: identical on every turn of one chat, so the
+    picker can pin the conversation to the replica whose prefix cache
+    holds it; distinct conversations differ in their first user
+    message."""
+    messages = body.get("messages")
+    if not isinstance(messages, list) or not messages:
+        return ""
+    head: list = []
+    first_user = None
+    for m in messages:
+        if not isinstance(m, dict):
+            return ""
+        role = m.get("role")
+        if role in ("system", "developer"):
+            head.append(m)
+        elif role == "user":
+            first_user = m
+            break
+        else:
+            break
+    if first_user is None:
+        return ""
+    head.append(first_user)
+    return _head_digest(head)
+
+
+def _prefix_hash_key(body: dict) -> str:
+    """Key the request's shared prompt prefix, the system/developer
+    messages only: every request templated from one system prompt shares
+    it, so the picker steers them toward the replica whose prefix cache
+    already holds those pages (soft affinity, ``gateway/picker.py``)."""
+    messages = body.get("messages")
+    if not isinstance(messages, list) or not messages:
+        return ""
+    head: list = []
+    for m in messages:
+        if not isinstance(m, dict):
+            return ""
+        if m.get("role") in ("system", "developer"):
+            head.append(m)
+        else:
+            break
+    if not head:
+        return ""
+    return _head_digest(head)
+
+
+def _prompt_token_estimate(body: dict) -> int:
+    """A conservative prompt-token estimate for the picker's
+    context-length filter and prompt-priced TTFT: bytes / 4, which
+    under-estimates byte-level tokenizers, so a borderline prompt routes
+    and the replica's own length check still guards."""
+    n = 0
+    prompt = body.get("prompt")
+    if isinstance(prompt, str):
+        n += len(prompt.encode("utf-8", errors="ignore"))
+    messages = body.get("messages")
+    if isinstance(messages, list):
+        for m in messages:
+            if not isinstance(m, dict):
+                continue
+            c = m.get("content")
+            if isinstance(c, str):
+                n += len(c.encode("utf-8", errors="ignore"))
+            elif isinstance(c, list):
+                for part in c:
+                    if (isinstance(part, dict)
+                            and isinstance(part.get("text"), str)):
+                        n += len(part["text"].encode(
+                            "utf-8", errors="ignore"))
+    return n // 4
+
+
+#: upstream statuses that move the request to the next backend
+_RETRIABLE_STATUS = {429, 500, 502, 503, 504}
+
+
+def _error(status: int, body: bytes,
+           headers: dict[str, str] | None = None) -> Response:
+    return Response(status, body, "application/json", headers)
+
+
+class GatewayServer:
+    """The data plane: routes, pickers, breaker, metrics and ledger.
+
+    ``rng`` draws the weighted backend picks (seed it for a reproducible
+    sequence)."""
+
+    def __init__(self, runtime: RuntimeConfig, *,
+                 rng: random.Random | None = None):
+        self._runtime = runtime
+        self.metrics = GenAIMetrics()
+        self.rng = rng or random.Random()
+        # one breaker keyed by backend name for logical backends and by
+        # replica address for picked endpoints; every open/close lands in
+        # the replica's fleet event ring, and the picker's routability
+        # view consults is_open
+        self.circuit = CircuitBreaker(
+            on_transition=self._on_circuit_transition)
+        self.usage_ledger = self._build_usage_ledger(runtime)
+        self.decisions = DecisionRing(
+            capacity=int(os.environ.get("AIGW_DECISION_RING", "512")))
+        routes = {("POST", path): self._handle for path in _ENDPOINTS}
+        routes.update({
+            ("GET", "/v1/models"): self._handle_models,
+            ("GET", "/health"): self._handle_health,
+            ("GET", "/metrics"): self._handle_metrics,
+            ("GET", "/usage"): self._handle_usage,
+            ("GET", "/fleet/state"): self._handle_fleet_state,
+            ("GET", "/fleet/metrics"): self._handle_fleet_metrics,
+            ("GET", "/debug/decisions"): self._handle_decisions,
+        })
+        self.http = HTTPServer(routes)
+        self.client = HTTPClient()
+        self.port = 0
+        self._pickers: dict[str, EndpointPicker] = {}
+        self._picker_tasks: set[asyncio.Task] = set()
+        self._build_pickers(runtime)
+
+    # -- lifecycle --------------------------------------------------------
+    @property
+    def runtime(self) -> RuntimeConfig:
+        return self._runtime
+
+    async def start(self, host: str = "127.0.0.1", port: int = 1975) -> int:
+        """Start the pickers' polls and listen; returns the bound port."""
+        for picker in self._pickers.values():
+            await picker.start()
+        self.port = await self.http.start(host, port)
+        return self.port
+
+    async def stop(self, grace: float = 0.0) -> None:
+        """Stop listening; after ``grace`` seconds for the requests in
+        flight, close their connections, the polls and the ledger."""
+        await self.http.stop(grace)
+        for picker in self._pickers.values():
+            await picker.stop()
+        self.client.close()
+        if self.usage_ledger is not None:
+            self.usage_ledger.close()
+
+    @staticmethod
+    def _build_usage_ledger(runtime: RuntimeConfig) -> UsageLedger | None:
+        """The metering ledger from the config's ``usage`` block: on by
+        default (no block = in-memory ledger with defaults);
+        ``usage: {enabled: false}`` turns it off."""
+        raw = _thaw(runtime.config.usage) or {}
+        if not isinstance(raw, dict):
+            raw = {}
+        if not raw.get("enabled", True):
+            return None
+        journal = str(raw.get("journal", "") or "")
+        budgets = raw.get("budgets") or {}
+        kwargs = dict(
+            window_s=float(raw.get("window_s", 60.0)),
+            retain_windows=int(raw.get("retain_windows", 64)),
+            budgets={str(k): float(v) for k, v in budgets.items()},
+            burn_windows=int(raw.get("burn_windows", 3)),
+        )
+        if journal:
+            # crash-safe resume: replay what survived, keep appending
+            return UsageLedger.replay(journal, **kwargs)
+        return UsageLedger(**kwargs)
+
+    def set_runtime(self, rc: RuntimeConfig) -> None:
+        """Hot-swap the config (the watcher's callback). Pickers whose
+        endpoint pools are unchanged are kept, so telemetry and session
+        affinity survive reloads."""
+        if rc.config.usage != self._runtime.config.usage:
+            # metering knobs changed: rebuild (a journal-backed ledger
+            # replays itself, so totals survive the swap)
+            old_ledger = self.usage_ledger
+            self.usage_ledger = self._build_usage_ledger(rc)
+            if old_ledger is not None:
+                old_ledger.close()
+        self._runtime = rc
+        try:
+            loop = asyncio.get_running_loop()
+        except RuntimeError:
+            loop = None
+        old = self._pickers
+        self._build_pickers(rc)
+        if loop is not None:
+            for name, picker in old.items():
+                if self._pickers.get(name) is not picker:
+                    self._spawn(loop, picker.stop())
+            for name, picker in self._pickers.items():
+                if old.get(name) is not picker:
+                    self._spawn(loop, picker.start())
+
+    def _spawn(self, loop: asyncio.AbstractEventLoop, coro) -> None:
+        # the loop holds tasks weakly; keep them until they finish
+        task = loop.create_task(coro)
+        self._picker_tasks.add(task)
+        task.add_done_callback(self._picker_tasks.discard)
+
+    def _build_pickers(self, rc: RuntimeConfig) -> None:
+        pickers: dict[str, EndpointPicker] = {}
+        for name, rb in rc.backends.items():
+            b = rb.backend
+            if not b.endpoints:
+                continue
+            prev = self._pickers.get(name)
+            key = (b.endpoints, b.picker_poll_interval, b.picker_mode,
+                   b.slo_ttft_ms, b.fleet_obs, b.slo_objective,
+                   b.slo_window_s, b.slo_burn_windows)
+            if prev is not None and getattr(prev, "_config_key", None) == key:
+                pickers[name] = prev  # unchanged pool: keep its state
+                continue
+            picker = EndpointPicker(
+                [PickerEndpoint.parse(_thaw(e)) for e in b.endpoints],
+                poll_interval=b.picker_poll_interval,
+                mode=b.picker_mode,
+                slo_ttft_ms=b.slo_ttft_ms,
+                fleet_obs=b.fleet_obs,
+                slo_objective=b.slo_objective,
+                slo_window_s=b.slo_window_s,
+                slo_burn_windows=b.slo_burn_windows,
+            )
+            picker._config_key = key  # type: ignore[attr-defined]
+            pickers[name] = picker
+        self._pickers = pickers
+        # the picker consults the same breaker the attempt loop feeds,
+        # keyed by replica address
+        for picker in self._pickers.values():
+            picker.breaker = self.circuit
+
+    def _on_circuit_transition(self, key: str, opened: bool,
+                               failures: int) -> None:
+        """Breaker open/close → the fleet event ring of the pool that
+        knows this key as a replica address (backend names have none)."""
+        for picker in self._pickers.values():
+            if key in picker.state:
+                picker.fleet.mark_breaker(key, opened, failures)
+
+    # -- admin endpoints --------------------------------------------------
+    async def _handle_health(self, _request: Request) -> Response:
+        return json_response({
+            "status": "ok",
+            "uuid": self._runtime.config.uuid,
+            "circuit": self.circuit.snapshot(),
+        })
+
+    async def _handle_metrics(self, _request: Request) -> Response:
+        body = self.metrics.export()
+        if self.usage_ledger is not None:
+            body += render_usage_gauges(self.usage_ledger.snapshot())
+        return Response(200, body, "text/plain")
+
+    async def _handle_usage(self, request: Request) -> Response:
+        """``GET /usage``: the metering ledger's windowed per-tenant and
+        per-model view. ``since`` (unix seconds), ``tenant`` and
+        ``model`` filter the windows; ``export=jsonl`` answers them as
+        JSON lines."""
+        if self.usage_ledger is None:
+            return json_response({"error": "usage metering disabled"},
+                                 status=404)
+        try:
+            since = float(request.query.get("since", "0") or 0.0)
+        except ValueError:
+            since = 0.0
+        payload = self.usage_ledger.query(
+            since=since,
+            tenant=request.query.get("tenant", ""),
+            model=request.query.get("model", ""),
+        )
+        if request.query.get("export", "") == "jsonl":
+            body = "".join(json.dumps(w, sort_keys=True) + "\n"
+                           for w in payload["windows"])
+            return Response(200, body.encode(), "application/jsonl")
+        return json_response(payload)
+
+    async def _handle_fleet_state(self, _request: Request) -> Response:
+        """Per-replica health state, event rings, staleness and key
+        gauges, per-backend rollups and the SLO burn-rate windows of
+        every picker-polled pool."""
+        backends = {
+            name: picker.fleet.snapshot(picker.state)
+            for name, picker in self._pickers.items()
+        }
+        return json_response({
+            "ts": round(time.time(), 3),
+            "backends": backends,
+            "fleet": merge_rollups(
+                [b["rollup"] for b in backends.values()]),
+            "decisions_recorded": self.decisions.recorded,
+        })
+
+    async def _handle_fleet_metrics(self, _request: Request) -> Response:
+        """Every replica's ``/metrics`` samples re-exported with a
+        ``replica`` label, plus the ``aigw_fleet_*`` rollup gauges."""
+        chunks: list[bytes] = []
+        seen: set = set()
+        errors = 0
+
+        async def scrape(addr: str) -> str | None:
+            try:
+                async with await self.client.get(
+                        f"http://{addr}/metrics",
+                        timeout=Timeout(total=2.0)) as resp:
+                    if resp.status != 200:
+                        return None
+                    return (await resp.read()).decode(
+                        "utf-8", errors="replace")
+            except (ClientError, asyncio.TimeoutError):
+                return None
+
+        for name, picker in self._pickers.items():
+            addrs = [e.address for e in picker.endpoints
+                     if picker.fleet.health_of(e.address) != "down"]
+            texts = await asyncio.gather(*(scrape(a) for a in addrs))
+            for addr, text in zip(addrs, texts):
+                if text is None:
+                    errors += 1
+                    continue
+                chunks.append(
+                    relabel_exposition(text, addr, seen).encode())
+            label = name if len(self._pickers) > 1 else ""
+            chunks.append(render_fleet_gauges(
+                picker.fleet.rollup(picker.state), backend=label))
+        chunks.append(
+            b"# TYPE aigw_fleet_scrape_errors gauge\n"
+            b"aigw_fleet_scrape_errors %d\n" % errors)
+        return Response(200, b"".join(chunks), "text/plain")
+
+    async def _handle_decisions(self, request: Request) -> Response:
+        """The routing-decision audit ring: every pick's explain, shed
+        events and costs; ``?rid=<x-aigw-request-id>`` joins one against
+        the serving replica's ``/debug/requests/{id}``."""
+        rid = request.query.get("rid", "")
+        try:
+            limit = max(1, min(1000, int(
+                request.query.get("limit", "100"))))
+        except ValueError:
+            limit = 100
+        return json_response({
+            "capacity": self.decisions.capacity,
+            "recorded": self.decisions.recorded,
+            "decisions": self.decisions.snapshot(rid=rid, limit=limit),
+        })
+
+    async def _handle_models(self, request: Request) -> Response:
+        """``/v1/models``: the configured models routed on this host,
+        plus every ``<base>:<adapter>`` name the polled replicas report
+        on ``/state`` whose base model routes here, with the replicas'
+        capability flags."""
+        rc = self._runtime
+        host = request.host.split(":")[0].lower()
+        visible_rules = [
+            rule for route in rc.routes_for_host(host) for rule in route.rules
+        ]
+
+        def visible(name: str) -> bool:
+            base = split_model(name)[0]
+            for probe_name in ({name, base}):
+                probe = {MODEL_NAME_HEADER: probe_name}
+                if any(r.matches(probe) for r in visible_rules):
+                    return True
+            return False
+
+        caps_by_model: dict[str, dict] = {}
+        for picker in self._pickers.values():
+            for st in picker.state.values():
+                if st.healthy and st.model and st.capabilities:
+                    caps_by_model[st.model] = dict(st.capabilities)
+
+        def extra_for(name: str):
+            caps = caps_by_model.get(split_model(name)[0])
+            return {"capabilities": caps} if caps else None
+
+        entries: list[tuple] = [
+            (m.name, m.owned_by, m.created_at, extra_for(m.name))
+            for m in rc.config.models
+            if visible(m.name)
+        ]
+        seen = {e[0] for e in entries}
+        for picker in self._pickers.values():
+            for st in picker.state.values():
+                if not (st.healthy and st.model):
+                    continue
+                for adapter in st.adapters_registered:
+                    name = f"{st.model}:{adapter}"
+                    if name not in seen and visible(name):
+                        seen.add(name)
+                        entries.append((name, "aigw-tpu-lora", 0,
+                                        extra_for(name)))
+        return json_response(oai.models_response(entries))
+
+    # -- the data plane ---------------------------------------------------
+    @staticmethod
+    def _decode_body(raw: bytes, enc: str) -> bytes:
+        """A request body in its declared content-encoding, decoded
+        (gzip and deflate); ValueError on anything else or a corrupt
+        body."""
+        if enc in ("", "identity"):
+            return raw
+        try:
+            if enc == "gzip":
+                return gzip.decompress(raw)
+            if enc == "deflate":
+                try:
+                    return zlib.decompress(raw)
+                except zlib.error:
+                    return zlib.decompress(raw, -zlib.MAX_WBITS)
+        except (OSError, EOFError, zlib.error):
+            raise ValueError(f"invalid {enc} request body") from None
+        raise ValueError(f"unsupported content-encoding: {enc}")
+
+    async def _handle(self, request: Request) -> "Response | StreamResponse":
+        endpoint, front_schema, operation = _ENDPOINTS[request.path]
+        rc = self._runtime  # pin the config for this request
+        error_body = oai.error_body
+        try:
+            raw = self._decode_body(
+                request.body,
+                request.headers.get("content-encoding", "").lower().strip())
+        except ValueError as e:
+            return _error(400, error_body(str(e)))
+        # ---- phase 1: route selection ----------------------------------
+        try:
+            body = oai.parse_json_body(raw)
+            model = oai.request_model(body)
+            typed_schemas.validate_request(endpoint.value, body)
+        except oai.SchemaError as e:
+            return _error(400, error_body(str(e)))
+        client_headers = dict(request.headers)
+        # the tenant: an explicit header wins, else the adapter suffix of
+        # a zoo name; the cost sink and the upstream relay key on it
+        tenant = client_headers.get(TENANT_HEADER, "") or \
+            split_model(model)[1]
+        if tenant:
+            client_headers[TENANT_HEADER] = tenant
+        match_headers = {
+            **client_headers,
+            MODEL_NAME_HEADER: model,
+            ORIGINAL_PATH_HEADER: request.path,
+        }
+        try:
+            match = match_route(rc, request.host, match_headers)
+        except NoRouteError:
+            return _error(404, error_body(
+                f"model {model!r} is not served by this gateway",
+                type_="model_not_found"))
+
+        req_metrics = RequestMetrics(
+            metrics=self.metrics, operation=operation, request_model=model
+        )
+        selector = BackendSelector(rule=match.rule, circuit=self.circuit,
+                                   rng=self.rng)
+        # ---- phase 2: upstream attempts --------------------------------
+        return await self._attempt_loop(
+            request, endpoint, front_schema, selector, rc, body,
+            req_metrics, match.route.name, error_body, client_headers)
+
+    async def _attempt_loop(
+        self, request, endpoint, front_schema, selector, rc, body,
+        req_metrics, route_name, error_body, client_headers,
+    ) -> "Response | StreamResponse":
+        last_error: tuple[int, bytes] = (
+            502,
+            error_body("all upstream backends failed",
+                       type_="upstream_error"),
+        )
+        attempt = 0
+        while True:
+            ref = selector.next_backend()
+            if ref is None:
+                break
+            rb = rc.backends[ref.backend]
+            if attempt > 0:
+                self.metrics.retries_total.labels(
+                    route_name, rb.backend.name).inc()
+            attempt += 1
+            req_metrics.attempts = attempt
+            req_metrics.provider = rb.backend.name
+            try:
+                result = await self._attempt(
+                    request, endpoint, front_schema, rb, body,
+                    req_metrics, route_name, error_body, client_headers,
+                )
+            except _RetriableUpstreamError as e:
+                logger.warning(
+                    "backend %s failed (%s), trying next", rb.backend.name, e
+                )
+                self.circuit.record_failure(rb.backend.name)
+                last_error = (e.status, e.client_body)
+                self.metrics.requests_total.labels(
+                    route_name, rb.backend.name, str(e.status)
+                ).inc()
+                continue
+            except (TranslationError, oai.SchemaError) as e:
+                req_metrics.finish(TokenUsage(), error_type="translation")
+                status = getattr(e, "status", 400)
+                return _error(status, error_body(
+                    str(e), type_="not_found" if status == 404
+                    else "invalid_request_error"))
+            self.circuit.record_success(rb.backend.name)
+            return result
+
+        req_metrics.finish(TokenUsage(), error_type="upstream_exhausted")
+        return _error(last_error[0], last_error[1])
+
+    def _pick(self, backend, body, req_metrics, route_name, error_body,
+              client_headers, headers):
+        """The pool's replica for this request: (destination, the
+        headers the pick read, its decision-ring entry, the prefix key
+        it used), or a finished 429/400 ``Response`` when the picker
+        sheds or no replica fits the prompt."""
+        pick_headers = client_headers
+        if backend.picker_content_affinity:
+            derived = {}
+            if AFFINITY_HEADER not in client_headers:
+                key = _conversation_affinity_key(body)
+                if key:
+                    derived[AFFINITY_HEADER] = key
+            if PREFIX_HEADER not in client_headers:
+                # the shared system-prompt hash: soft cache affinity
+                pkey = _prefix_hash_key(body)
+                if pkey:
+                    derived[PREFIX_HEADER] = pkey
+            if derived:
+                pick_headers = dict(client_headers) | derived
+        # an adapter-suffixed zoo name prefers replicas with the LoRA row
+        # resident (soft: any replica can load it)
+        adapter = split_model(req_metrics.request_model)[1]
+        if adapter and ADAPTER_HEADER not in pick_headers:
+            pick_headers = dict(pick_headers) | {ADAPTER_HEADER: adapter}
+        # prompt length is a routing input: an explicit header wins, else
+        # the estimate from the prompt's bytes
+        if PROMPT_TOKENS_HEADER not in pick_headers:
+            est = _prompt_token_estimate(body)
+            if est:
+                pick_headers = dict(pick_headers) | {
+                    PROMPT_TOKENS_HEADER: str(est)}
+        picker = self._pickers[backend.name]
+        request_id = client_headers.get("x-request-id", "")
+        explain: dict[str, Any] = {}
+        try:
+            dest = picker.pick(pick_headers, explain=explain) or ""
+        except SLOShedError as e:
+            # every candidate's predicted TTFT blows the SLO: shed with
+            # 429 + Retry-After instead of queueing into collapse
+            self.metrics.slo_sheds_total.labels(
+                route_name, backend.name).inc()
+            self.metrics.requests_total.labels(
+                route_name, backend.name, "429").inc()
+            req_metrics.finish(TokenUsage(), error_type="slo_shed")
+            if backend.fleet_obs:
+                req_metrics.decision = self.decisions.record(
+                    route=route_name, backend=backend.name,
+                    model=req_metrics.request_model, request_id=request_id,
+                    shed=True, retry_after_s=e.retry_after_s,
+                    pick=dict(explain))
+            return _error(429, error_body(str(e), type_="rate_limit_error"),
+                          {"retry-after": str(e.retry_after_s)})
+        except ContextLengthError as e:
+            # the prompt exceeds every fresh candidate's context length
+            self.metrics.requests_total.labels(
+                route_name, backend.name, "400").inc()
+            req_metrics.finish(TokenUsage(), error_type="context_length")
+            if backend.fleet_obs:
+                req_metrics.decision = self.decisions.record(
+                    route=route_name, backend=backend.name,
+                    model=req_metrics.request_model, request_id=request_id,
+                    context_rejected=True, prompt_tokens=e.prompt_tokens,
+                    max_ctx=e.max_ctx, pick=dict(explain))
+            return _error(400, error_body(
+                str(e), type_="invalid_request_error"))
+        decision = None
+        if dest and backend.fleet_obs:
+            decision = self.decisions.record(
+                route=route_name, backend=backend.name,
+                model=req_metrics.request_model, request_id=request_id,
+                chosen=dest, pick=dict(explain))
+            req_metrics.decision = decision
+        if dest and backend.kv_fleet:
+            # name the siblings the fleet index says hold this request's
+            # chain: a prefix miss on the chosen replica becomes a page
+            # fetch over /kv/pages instead of a re-prefill
+            peers = picker.kv_peers(dest, pick_headers)
+            if peers:
+                headers[KV_PEERS_HEADER] = ",".join(peers)
+                if decision is not None:
+                    decision["kv_peers"] = list(peers)
+        return dest, pick_headers, decision, pick_headers.get(
+            PREFIX_HEADER, "")
+
+    async def _attempt(
+        self,
+        request: Request,
+        endpoint: Endpoint,
+        front_schema: APISchemaName,
+        rb: RuntimeBackend,
+        body: dict[str, Any],
+        req_metrics: RequestMetrics,
+        route_name: str,
+        error_body: Callable[..., bytes],
+        client_headers: dict[str, str],
+    ) -> "Response | StreamResponse":
+        backend = rb.backend
+        translator = get_translator(
+            endpoint,
+            front_schema,
+            backend.schema.name,
+            model_name_override=backend.model_name_override,
+            out_version=backend.schema.version,
+        )
+        # translators never mutate the captured body, so each attempt
+        # re-translates it without a copy
+        tx = translator.request(body)
+        out_body = apply_body_mutation(tx.body, backend.body_mutation)
+        headers = {
+            "content-type": "application/json",
+            "accept": "text/event-stream" if tx.stream
+            else "application/json",
+        }
+        # an externally pre-selected destination wins; otherwise the
+        # picker chooses a replica of the backend's pool
+        dest = request.headers.get(DESTINATION_ENDPOINT_HEADER, "")
+        prefix_key_used = ""
+        decision: dict[str, Any] | None = None
+        pick_headers = client_headers
+        if not dest and backend.name in self._pickers:
+            picked_ = self._pick(backend, body, req_metrics, route_name,
+                                 error_body, client_headers, headers)
+            if isinstance(picked_, Response):
+                return picked_
+            dest, pick_headers, decision, prefix_key_used = picked_
+        base_url = f"http://{dest}" if dest else backend.url
+        if not base_url:
+            raise _RetriableUpstreamError(
+                502, error_body(f"backend {backend.name} has no url"),
+                "missing url")
+        headers.update(tx.headers)
+        relay_trace_headers(client_headers, headers)
+        # the replica's fairness guard and two-class scheduler see the
+        # tenant and the priority the gateway routed and accounts by
+        for h in (TENANT_HEADER, PRIORITY_HEADER):
+            if h in client_headers:
+                headers[h] = client_headers[h]
+        headers = apply_header_mutation(headers, backend.header_mutation)
+        headers["host"] = urllib.parse.urlsplit(base_url).netloc
+        path = tx.path or request.path
+        timeout = Timeout(
+            total=backend.request_timeout,
+            connect=min(10.0, backend.request_timeout),
+            sock_read=backend.stream_idle_timeout if tx.stream else None,
+        )
+        #: the pick went through the picker (an external pin is not
+        #: failed over: the pinner chose that replica on purpose)
+        picked = bool(dest) and backend.name in self._pickers
+
+        def _move_dest(nxt: str) -> None:
+            # re-aim the same translated request at a sibling replica
+            nonlocal dest, base_url
+            if decision is not None:
+                decision.setdefault("failover_from", []).append(dest)
+                decision["chosen"] = nxt
+            if KV_PEERS_HEADER in headers:
+                peers = [p for p in headers[KV_PEERS_HEADER].split(",")
+                         if p and p != nxt]
+                if peers:
+                    headers[KV_PEERS_HEADER] = ",".join(peers)
+                else:
+                    del headers[KV_PEERS_HEADER]
+            dest = nxt
+            base_url = f"http://{dest}"
+            headers["host"] = urllib.parse.urlsplit(base_url).netloc
+
+        def _sibling(tried: set[str]) -> str | None:
+            picker = self._pickers.get(backend.name)
+            if picker is None:
+                return None
+            try:
+                nxt = picker.pick(pick_headers, exclude=frozenset(tried))
+            except (SLOShedError, ContextLengthError):
+                return None
+            return nxt if nxt and nxt not in tried else None
+
+        # at most one sibling retry, before any byte has been relayed: a
+        # connect error or an immediate retriable 5xx from a picked
+        # replica re-picks the next-ranked sibling
+        failed_over = not picked
+        breaker_counted: set[str] = set()
+        while True:
+            try:
+                resp = await self.client.post(
+                    base_url + path, data=out_body, headers=headers,
+                    timeout=timeout)
+            except (ClientError, asyncio.TimeoutError) as e:
+                if picked:
+                    # per-replica breaker evidence
+                    self.circuit.record_failure(dest)
+                if not failed_over:
+                    nxt = _sibling({dest})
+                    if nxt is not None:
+                        failed_over = True
+                        logger.warning(
+                            "pre-first-byte failover %s -> %s (%s)",
+                            dest, nxt, e)
+                        _move_dest(nxt)
+                        continue
+                raise _RetriableUpstreamError(
+                    502, error_body(f"upstream connect error: {e}",
+                                    type_="upstream_error"),
+                    str(e) or type(e).__name__,
+                ) from None
+            if not failed_over and resp.status in (500, 502, 503, 504):
+                self.circuit.record_failure(dest)
+                breaker_counted.add(dest)
+                nxt = _sibling({dest})
+                if nxt is not None:
+                    failed_over = True
+                    logger.warning(
+                        "pre-first-byte failover %s -> %s (status %d)",
+                        dest, nxt, resp.status)
+                    resp.release()
+                    _move_dest(nxt)
+                    continue
+            break
+
+        async with resp:
+            if resp.status >= 400:
+                try:
+                    err = await resp.read()
+                except (ClientError, asyncio.TimeoutError):
+                    err = b""
+                client_err = translator.response_error(resp.status, err)
+                if resp.status in _RETRIABLE_STATUS:
+                    if picked and dest not in breaker_counted:
+                        self.circuit.record_failure(dest)
+                    raise _RetriableUpstreamError(resp.status, client_err,
+                                                  f"status {resp.status}")
+                req_metrics.finish(TokenUsage(), error_type=str(resp.status))
+                self.metrics.requests_total.labels(
+                    route_name, backend.name, str(resp.status)
+                ).inc()
+                return _error(resp.status, client_err)
+
+            if picked:
+                # the response started: close the replica's circuit
+                self.circuit.record_success(dest)
+            translator.response_headers(resp.status, dict(resp.headers))
+            # the replica's request id joins this request to its
+            # /debug/requests/{id} timeline
+            req_metrics.upstream_request_id = resp.headers.get(
+                "x-aigw-request-id", "")
+            if decision is not None and req_metrics.upstream_request_id:
+                decision["upstream_request_id"] = (
+                    req_metrics.upstream_request_id)
+            if backend.name in self._pickers:
+                # learn (prefix head → KV chain) from the replica's
+                # response, so the fleet index can locate it later
+                chain_hex = resp.headers.get(KV_CHAIN_HEADER, "")
+                if chain_hex and prefix_key_used:
+                    self._pickers[backend.name].note_chain(
+                        prefix_key_used, chain_hex)
+            ctype = resp.headers.get("content-type", "")
+            if tx.stream and "text/event-stream" in ctype:
+                return await self._stream_response(
+                    request, resp, translator, rb, req_metrics, route_name,
+                    client_headers, endpoint=endpoint)
+            try:
+                raw = await resp.read()
+            except (ClientError, asyncio.TimeoutError) as e:
+                raise _RetriableUpstreamError(
+                    502,
+                    error_body(f"upstream body read failed: {e}",
+                               type_="upstream_error"),
+                    str(e) or type(e).__name__,
+                ) from None
+            rx = translator.response_body(raw, True)
+            # the body the gateway re-emits must carry the front schema's
+            # shape: a malformed upstream body is an upstream failure,
+            # retried on the next backend like any other 502
+            if typed_response.has_spec(endpoint):
+                parsed = rx.parsed
+                try:
+                    if parsed is None:
+                        parsed = json.loads(rx.body or raw)
+                    typed_response.validate_response(endpoint, parsed)
+                except (json.JSONDecodeError, oai.SchemaError) as e:
+                    raise _RetriableUpstreamError(
+                        502,
+                        error_body(
+                            f"upstream returned a malformed "
+                            f"{endpoint.value} response: {e}",
+                            type_="upstream_error"),
+                        f"malformed upstream body: {e}",
+                    ) from None
+            usage = rx.usage
+            req_metrics.response_model = rx.model
+            req_metrics.finish(usage)
+            self._sink_costs(usage, req_metrics, route_name, client_headers)
+            self.metrics.requests_total.labels(
+                route_name, backend.name, str(resp.status)
+            ).inc()
+            upstream_ctype = resp.headers.get(
+                "content-type", "application/json")
+            out_headers = {}
+            if req_metrics.upstream_request_id:
+                out_headers["x-aigw-request-id"] = (
+                    req_metrics.upstream_request_id)
+            return Response(resp.status, rx.body or raw,
+                            upstream_ctype.split(";")[0], out_headers)
+
+    async def _stream_response(
+        self,
+        request: Request,
+        resp: ClientResponse,
+        translator: Any,
+        rb: RuntimeBackend,
+        req_metrics: RequestMetrics,
+        route_name: str,
+        client_headers: dict[str, str],
+        endpoint: Endpoint | None = None,
+    ) -> StreamResponse:
+        """Relay the SSE stream through the translator. Nothing here
+        buffers beyond one complete event: upstream bytes are handled as
+        they arrive, every complete, valid event is written and drained
+        at once (only a partial tail waits for its terminator), and a
+        malformed event is never relayed: the stream ends with the error
+        event instead."""
+        out = StreamResponse(
+            status=200,
+            headers={
+                "content-type": "text/event-stream",
+                "cache-control": "no-cache",
+                "x-accel-buffering": "no",
+            },
+        )
+        if req_metrics.upstream_request_id:
+            out.headers["x-aigw-request-id"] = (
+                req_metrics.upstream_request_id)
+        await out.prepare(request)
+        usage = TokenUsage()
+        model = ""
+        sse_buf = b""
+        check_events = typed_response.has_stream_spec(endpoint)
+
+        def _bad_event(raw: bytes) -> "oai.SchemaError | None":
+            from aigw_tpu_torch.translate.sse import _parse_event
+
+            ev = _parse_event(raw)
+            if ev is None or not ev.data or ev.data.strip() == "[DONE]":
+                return None
+            try:
+                typed_response.validate_stream_event(
+                    endpoint, json.loads(ev.data))
+            except (json.JSONDecodeError, oai.SchemaError) as e:
+                return oai.SchemaError(str(e))
+            return None
+
+        def _scan_events(
+            buf: bytes,
+        ) -> "tuple[bytes, bytes, oai.SchemaError | None]":
+            """(the relay-able prefix of complete good events, the
+            remainder, an error). On error the bad event stays in the
+            remainder. An event ends at the first blank line, \\n\\n or
+            \\r\\n\\r\\n, as in SSEParser.feed."""
+            ok_end = pos = 0
+            while True:
+                sep = -1
+                seplen = 0
+                for cand in (b"\n\n", b"\r\n\r\n"):
+                    i = buf.find(cand, pos)
+                    if i != -1 and (sep == -1 or i < sep):
+                        sep, seplen = i, len(cand)
+                if sep == -1:
+                    return buf[:ok_end], buf[ok_end:], None
+                err = _bad_event(buf[pos:sep])
+                if err is not None:
+                    return buf[:ok_end], buf[ok_end:], err
+                pos = ok_end = sep + seplen
+
+        async def _relay(body: bytes) -> None:
+            nonlocal sse_buf
+            if not check_events:
+                await out.write(body)
+                return
+            good, sse_buf, err = _scan_events(sse_buf + body)
+            if good:
+                await out.write(good)
+            if err is not None:
+                raise err
+
+        try:
+            async for chunk in resp.iter_any():
+                rx = translator.response_body(chunk, False)
+                usage = usage.merge_override(rx.usage)
+                model = rx.model or model
+                req_metrics.record_tokens_emitted(rx.tokens_emitted)
+                if rx.body:
+                    await _relay(rx.body)
+            rx = translator.response_body(b"", True)
+            usage = usage.merge_override(rx.usage)
+            model = rx.model or model
+            if rx.body:
+                await _relay(rx.body)
+            if check_events and sse_buf:
+                # a final event with no blank line after it: validated
+                # before it is relayed, as every other
+                err = _bad_event(sse_buf)
+                if err is not None:
+                    raise err
+                await out.write(sse_buf)
+                sse_buf = b""
+        except (ClientError, asyncio.TimeoutError, oai.SchemaError) as e:
+            # mid-stream failure: the client already has bytes, so the
+            # stream ends with an SSE error event, never a retry
+            malformed = isinstance(e, oai.SchemaError)
+            logger.warning("stream from %s %s: %s", rb.backend.name,
+                           "emitted malformed event" if malformed
+                           else "aborted", e)
+            msg = ("upstream emitted a malformed stream event"
+                   if malformed else "upstream stream interrupted")
+            await out.write(
+                b'data: {"error": {"message": "' + msg.encode()
+                + b'", "type": "upstream_error", "code": null}}\n\n'
+            )
+        req_metrics.response_model = model
+        req_metrics.finish(usage)
+        self._sink_costs(usage, req_metrics, route_name, client_headers)
+        self.metrics.requests_total.labels(route_name, rb.backend.name,
+                                           "200").inc()
+        await out.write_eof()
+        return out
+
+    def _sink_costs(
+        self,
+        usage: TokenUsage,
+        req_metrics: RequestMetrics,
+        route_name: str,
+        client_headers: dict[str, str],
+    ) -> None:
+        """The end-of-request cost metadata, keyed by the request model:
+        every finished request is recorded in the usage ledger (with the
+        replica's MeterRecord from ``usage.aigw_meter``) and its priced
+        cost stamped on its decision-ring entry."""
+        ledger = self.usage_ledger
+        if ledger is None:
+            return
+        model = req_metrics.request_model
+        backend = req_metrics.provider
+        tenant = client_headers.get(TENANT_HEADER, "")
+        costs = self._runtime.cost_calculator_for(route_name).calculate(
+            usage, model=model, backend=backend, route_name=route_name,
+            tenant=tenant,
+        )
+        # the ledger's cost is the sum of the configured cost metrics (0
+        # with none; the token and residency columns still count)
+        total_cost = sum(costs.values())
+        ledger.record(tenant, model, usage, cost=total_cost)
+        req_metrics.decision["cost"] = total_cost
+        if costs:
+            req_metrics.decision["costs"] = dict(costs)
+            req_metrics.costs = dict(costs)
+
+
+class _RetriableUpstreamError(Exception):
+    def __init__(self, status: int, client_body: bytes, reason: str):
+        super().__init__(reason)
+        self.status = status
+        self.client_body = client_body
+
+
+async def run_gateway(runtime: RuntimeConfig, host: str = "127.0.0.1",
+                      port: int = 1975,
+                      rng: random.Random | None = None) -> GatewayServer:
+    """Start the gateway; the caller stops it (``await server.stop()``).
+    ``server.port`` is the bound port (``port=0`` binds a free one)."""
+    server = GatewayServer(runtime, rng=rng)
+    await server.start(host, port)
+    logger.info("gateway listening on %s:%d", host, server.port)
+    return server

@@ -165,10 +165,78 @@ class LabeledHistogram:
         return "".join(out)
 
 
+class LabeledCounter:
+    """A Prometheus counter with label names, rendered as
+    ``generate_latest`` renders ``prometheus_client.Counter``: label sets
+    in first-increment order, labels sorted by name, then every label
+    set's ``_created`` time as a gauge family. ``labels(*values).inc(n)``
+    as the reference's counters are moved."""
+
+    def __init__(self, name: str, help_: str,
+                 labelnames: tuple[str, ...]):
+        self.name = name
+        self.help = help_
+        self.labelnames = labelnames
+        # label values → [value, created]
+        self._children: dict[tuple[str, ...], list] = {}
+        self._lock = threading.Lock()
+
+    def labels(self, *values: str) -> "_CounterChild":
+        if len(values) != len(self.labelnames):
+            raise ValueError(f"{self.name}: {len(self.labelnames)} label "
+                             f"values expected, got {values!r}")
+        return _CounterChild(self, tuple(str(v) for v in values))
+
+    def _inc(self, labels: tuple[str, ...], n: float) -> None:
+        with self._lock:
+            c = self._children.get(labels)
+            if c is None:
+                c = self._children[labels] = [0.0, time.time()]
+            c[0] += n
+
+    def render(self) -> str:
+        base = self.name[:-len("_total")] if self.name.endswith(
+            "_total") else self.name
+        help_ = _escape_help(self.help)
+        out = [f"# HELP {self.name} {help_}\n",
+               f"# TYPE {self.name} counter\n"]
+        created = []
+        with self._lock:
+            children = [(k, c[0], c[1]) for k, c in self._children.items()]
+        for labels, v, t0 in children:
+            ls = ",".join(f'{k}="{_escape_label(x)}"' for k, x in
+                          sorted(zip(self.labelnames, labels)))
+            out.append(f"{self.name}{{{ls}}} {float_to_go(v)}\n")
+            created.append(f"{base}_created{{{ls}}} {float_to_go(t0)}\n")
+        if created:
+            out.append(f"# HELP {base}_created {help_}\n")
+            out.append(f"# TYPE {base}_created gauge\n")
+            out += created
+        return "".join(out)
+
+
+@dataclass
+class _CounterChild:
+    counter: LabeledCounter
+    labels: tuple[str, ...]
+
+    def inc(self, n: float = 1.0) -> None:
+        self.counter._inc(self.labels, n)
+
+
+#: the gateway's counters: (attribute, label names)
+GATEWAY_COUNTERS: tuple[tuple[str, tuple[str, ...]], ...] = (
+    ("requests_total", ("route", "backend", "status")),
+    ("retries_total", ("route", "backend")),
+    ("slo_sheds_total", ("route", "backend")),
+    ("migrations_total", ("route", "backend")),
+)
+
+
 class GenAIMetrics:
-    """The reference's ``GenAIMetrics`` registry on a replica: the four
-    GenAI histograms, observed, and the gateway's counters, which a
-    replica declares and never moves."""
+    """The reference's ``GenAIMetrics`` registry: the four GenAI
+    histograms and the gateway's four counters (``GATEWAY_COUNTERS``),
+    which the gateway moves and a replica declares and never moves."""
 
     def __init__(self) -> None:
         (tu, _t, tu_h), (rd, _t, rd_h), (ft, _t, ft_h), (tp, _t, tp_h) = \
@@ -181,6 +249,12 @@ class GenAIMetrics:
             ft, ft_h, GENAI_LABELS, LATENCY_BUCKETS)
         self.time_per_output_token = LabeledHistogram(
             tp, tp_h, GENAI_LABELS, LATENCY_BUCKETS)
+        self.counters = tuple(
+            LabeledCounter(name, help_, labelnames)
+            for (name, _t, help_), (_a, labelnames)
+            in zip(GENAI_FAMILIES[4:], GATEWAY_COUNTERS))
+        for (attr, _l), counter in zip(GATEWAY_COUNTERS, self.counters):
+            setattr(self, attr, counter)
 
     def histograms(self) -> tuple[LabeledHistogram, ...]:
         return (self.token_usage, self.request_duration,
@@ -189,9 +263,7 @@ class GenAIMetrics:
     def export(self) -> bytes:
         """The families in registration order, as ``generate_latest``."""
         return ("".join(h.render() for h in self.histograms())
-                + "".join(f"# HELP {name} {help_}\n# TYPE {name} {type_}\n"
-                          for name, type_, help_ in GENAI_FAMILIES[4:])
-                ).encode()
+                + "".join(c.render() for c in self.counters)).encode()
 
 
 def render_genai_families(genai: GenAIMetrics | None = None) -> bytes:
@@ -202,10 +274,10 @@ def render_genai_families(genai: GenAIMetrics | None = None) -> bytes:
 
 @dataclass
 class RequestMetrics:
-    """One request's GenAI recorder (the reference's ``RequestMetrics``
-    less the gateway's access-log fields): the replica's handlers make
-    one per generation, call ``record_tokens_emitted`` per streamed
-    token and ``finish`` at its end."""
+    """One request's GenAI recorder (the reference's ``RequestMetrics``):
+    the replica's handlers make one per generation and the gateway one
+    per request, call ``record_tokens_emitted`` per streamed token and
+    ``finish`` at its end."""
 
     metrics: GenAIMetrics
     operation: str = "chat"
@@ -218,6 +290,12 @@ class RequestMetrics:
     tokens_seen: int = 0
     final_usage: Any = None
     error_type: str = ""
+    # the gateway's access-log fields: cost metadata, upstream attempts,
+    # the replica's request id and the pick's decision-ring entry
+    costs: dict = field(default_factory=dict)
+    attempts: int = 0
+    upstream_request_id: str = ""
+    decision: dict = field(default_factory=dict)
 
     def _labels(self) -> tuple[str, ...]:
         return (self.operation, self.provider, self.request_model,
@@ -253,6 +331,79 @@ class RequestMetrics:
                 self.metrics.token_usage.observe(labels + (token_type,), n)
         self.metrics.request_duration.observe(
             labels + (error_type,), time.monotonic() - self.start)
+
+
+#: FleetState rollup key → the gateway's ``aigw_fleet_*`` gauge
+FLEET_GAUGES: tuple[tuple[str, str], ...] = (
+    ("replicas_total", "aigw_fleet_replicas_total"),
+    ("replicas_up", "aigw_fleet_replicas_up"),
+    ("replicas_degraded", "aigw_fleet_replicas_degraded"),
+    ("replicas_draining", "aigw_fleet_replicas_draining"),
+    ("replicas_down", "aigw_fleet_replicas_down"),
+    ("slots_total", "aigw_fleet_slots_total"),
+    ("slots_free", "aigw_fleet_slots_free"),
+    ("queued_total", "aigw_fleet_queued_total"),
+    ("kv_occupancy_worst", "aigw_fleet_kv_occupancy_worst"),
+    ("kv_occupancy_mean", "aigw_fleet_kv_occupancy_mean"),
+    ("device_memory_frac_worst",
+     "aigw_fleet_device_memory_frac_worst"),
+    ("kv_spills_total", "aigw_fleet_kv_spills_total"),
+    ("kv_revives_total", "aigw_fleet_kv_revives_total"),
+    ("kv_fetch_pages_in_total", "aigw_fleet_kv_fetch_pages_in_total"),
+    ("kv_fetch_pages_out_total",
+     "aigw_fleet_kv_fetch_pages_out_total"),
+    ("migrations_in_total", "aigw_fleet_migrations_in_total"),
+    ("migrations_out_total", "aigw_fleet_migrations_out_total"),
+    ("adapters_resident", "aigw_fleet_adapters_resident"),
+    ("slo_goodput", "aigw_fleet_slo_goodput"),
+    ("slo_burn_rate", "aigw_fleet_slo_burn_rate"),
+    ("slo_overshoot_sustained", "aigw_fleet_slo_overshoot_sustained"),
+)
+
+
+def render_fleet_gauges(rollup: dict, backend: str = "") -> bytes:
+    """A FleetState rollup → the ``aigw_fleet_*`` gauges, labeled by
+    backend pool when the gateway serves more than one."""
+    sel = f'{{backend="{backend}"}}' if backend else ""
+    lines = []
+    for key, name in FLEET_GAUGES:
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name}{sel} {rollup.get(key, 0)}")
+    return ("\n".join(lines) + "\n").encode()
+
+
+#: UsageLedger snapshot key → the gateway's ``aigw_usage_*`` gauge
+USAGE_GAUGES: tuple[tuple[str, str], ...] = (
+    ("records_total", "aigw_usage_records_total"),
+    ("prefill_tokens_total", "aigw_usage_prefill_tokens_total"),
+    ("prefill_padded_tokens_total",
+     "aigw_usage_prefill_padded_tokens_total"),
+    ("prefix_reused_tokens_total",
+     "aigw_usage_prefix_reused_tokens_total"),
+    ("decode_tokens_total", "aigw_usage_decode_tokens_total"),
+    ("spec_drafted_total", "aigw_usage_spec_drafted_total"),
+    ("spec_accepted_total", "aigw_usage_spec_accepted_total"),
+    ("hbm_page_byte_s_total", "aigw_usage_hbm_page_byte_s_total"),
+    ("host_page_byte_s_total", "aigw_usage_host_page_byte_s_total"),
+    ("cost_total", "aigw_usage_cost_total"),
+    ("tenants", "aigw_usage_tenants"),
+    ("windows_closed_total", "aigw_usage_windows_closed_total"),
+    ("journal_lines_total", "aigw_usage_journal_lines_total"),
+    ("reconcile_mismatches_total",
+     "aigw_usage_reconcile_mismatches_total"),
+    ("over_budget_tenants", "aigw_usage_over_budget_tenants"),
+    ("burn_sustained_tenants", "aigw_usage_burn_sustained_tenants"),
+)
+
+
+def render_usage_gauges(snapshot: dict) -> bytes:
+    """A UsageLedger snapshot → the ``aigw_usage_*`` gauges the gateway
+    appends to its ``/metrics``."""
+    lines = []
+    for key, name in USAGE_GAUGES:
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name} {snapshot.get(key, 0)}")
+    return ("\n".join(lines) + "\n").encode()
 
 
 #: EngineStats attribute → Prometheus gauge name, the reference's map

@@ -367,3 +367,18 @@ def genai_attributes(
     if output_tokens:
         attrs["gen_ai.usage.output_tokens"] = output_tokens
     return attrs
+
+
+#: the trace-context headers a gateway relays verbatim to the replica
+#: when it starts no span of its own, so the replica's spans and flight
+#: entries parent on the caller's trace
+TRACE_HEADERS = ("traceparent", "b3", "x-b3-traceid", "x-b3-spanid",
+                 "x-b3-sampled")
+
+
+def relay_trace_headers(client_headers: dict[str, str],
+                        headers: dict[str, str]) -> None:
+    """Copy the caller's trace-context headers into ``headers``."""
+    for h in TRACE_HEADERS:
+        if h in client_headers:
+            headers[h] = client_headers[h]

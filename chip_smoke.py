@@ -39,7 +39,8 @@ Phases (any failure exits non-zero):
    the two share (reported, not gated: bf16 on the card is not
    bit-stable across call shapes);
    grammar-constrained decoding, on the fused rung with the prefix cache
-   on (the ``serve_constrained`` line): the grammars compiled in process
+   on, at ``CN_LAYERS`` (8) of the 32 layers (the ``serve_constrained``
+   line): the grammars compiled in process
    (timed), a warm-up request caching the shared system message's two
    pages, then a burst of 8 chats (256 new tokens at most): two
    ``json_schema`` (a nested object with an enum; an array of at most 3
@@ -77,8 +78,9 @@ Phases (any failure exits non-zero):
    requests over an int4 KV pool, which must launch K7-int4;
    the reference's default programs (the ``serve_defaults`` line, after
    ``serve_int4_kv``; launch counts zeroed before each burst, read after
-   it): a replica built from ``EngineConfig()`` with only the geometry
-   set (8 slots x 2048, 128-token pages), so the bucket-ladder prefill
+   it): at ``DEFAULTS_LAYERS`` (8) of the 32 layers, a replica built
+   from ``EngineConfig()`` with only the geometry set (8 slots x 2048,
+   128-token pages), so the bucket-ladder prefill
    (``xla-bucketed``, prompts over 256 tokens chunked with decode ticks
    between chunks) and the gather decode rung, with the prefix cache on,
    serving the burst plus two pinned requests cold and warm, bf16 and
@@ -111,9 +113,10 @@ Phases (any failure exits non-zero):
    chained rung at a fixed draft width of 4 (two pinned requests beside
    a sampled adapter request: K3 and K5, drafts accepted), then W8A16
    weights with the zoo (K6). Reported, not gated: an adapter's load
-   time (wq + wv, and all seven targets), one decode step at batch 8
-   with 8 adapter slots, 8 base slots and none, and one packed prefill
-   of the burst's prompts with and without adapters;
+   time (wq + wv, and all seven targets), and at ``LORA_NUMBERS_LAYERS``
+   (8) of the 32 layers one decode step at batch 8 with 8 adapter
+   slots, 8 base slots and none, and one packed prefill of the burst's
+   prompts with and without adapters;
    per-token logprobs, ``n > 1`` and tenant-fair admission (the
    ``serve_logprobs`` line, printed after ``model_check``; launch
    counts zeroed before it, read after it): bf16 weights and pool, the
@@ -205,14 +208,16 @@ Phases (any failure exits non-zero):
    near-tie (``tie_check``, bf16 partial sums add in another order),
    ``/state``'s mesh keys, each rank half the weights; then two requests
    in W8A16 over int8 pages on the same mesh (K6, K7-int8 on every
-   rank, K1/K2 on none). One rank over NCCL (the ``serve_tp_nccl``
-   line): ``MeshSpec(tp=1)`` passed as a mesh, its collectives issued
+   rank, K1/K2 on none). One rank over NCCL at ``NCCL_LAYERS`` (8) of
+   the 32 layers (the ``serve_tp_nccl`` line): ``MeshSpec(tp=1)``
+   passed as a mesh, its collectives issued
    and captured in every program; four of the burst's requests sent one
    at a time stream bit-equal to the engine without a mesh, the burst
    cold and warm, and a captured decode step beside the one without a
    mesh, in turns; sequence parallel (the ``serve_sp`` line, after
    ``serve_tp_nccl``; launch counts per rank as ``serve_tp``'s): an sp =
-   2 replica at all 32 layers with both ranks on ``cuda:0`` over gloo,
+   2 replica at ``SP_LAYERS`` (8) of the 32 layers with both ranks on
+   ``cuda:0`` over gloo,
    each with the whole weights and its own replica of the pool, the
    default sp knobs, the prefix cache on: a 6000-token prompt as two
    2048-row ring-attention chunk steps and a tail, two short prompts
@@ -224,7 +229,21 @@ Phases (any failure exits non-zero):
    replica's up to a near-tie; printed: each chunk step's wall, its ring
    calls' device ms (CUDA events) and its gathers' ms, the boundaries,
    the engine-side TTFTs; then the long prompt in W8A16 over int8 pages
-   on the same mesh (K6, K7-int8 on both ranks);
+   on the same mesh (K6, K7-int8 on both ranks); client -> gateway ->
+   replicas (the ``serve_gateway`` line, after ``serve_sp``; launch
+   counts zeroed before it, read after it): two replicas in this
+   process at Llama-3-8B widths cut to ``GW_LAYERS`` (4) layers on the
+   kernel path, the port's gateway in its own process (``python -m
+   aigw_tpu_torch run`` on ``examples/inference-pool``'s shape as JSON);
+   gated: a mixed burst of 8 chats and 8 completions (streamed and not,
+   two with ``n = 2``) answers in the replica's shapes and reaches both
+   replicas, greedy and seeded streams through the gateway equal the
+   same requests sent straight to the chosen replica token for token, a
+   drained replica (each in turn) shows ``draining`` on ``/fleet/state``
+   and gets none of the next bursts, ``/usage``'s token totals equal the
+   replicas' ``meter_*`` deltas, K1 and K2 on each replica; printed:
+   TTFT p50 and tokens/s sent straight to a replica and through the
+   gateway, in turns;
 5. every kernel against its plain PyTorch version on the card at the
    served shapes (each attention output element within 2**-7 of the
    plain output plus 2e-3, printed beside the mean |output|; K2's and
@@ -362,7 +381,8 @@ Phases (any failure exits non-zero):
    burst), on ``checkpoint``, on ``serve_defaults`` (bf16 and
    W8A16, the cold bursts), on ``embeddings`` and, the leader rank's,
    on ``serve_tp``, ``serve_sp`` (each with its W8A16 set) and
-   ``serve_ep``), the card line, then
+   ``serve_ep``, and both replicas' on ``serve_gateway``), the card
+   line, then
    the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2117,6 +2137,10 @@ CN_TOOLS = [
 #: their first two 128-token pages, which the warm-up request caches, so
 #: every request of the burst resumes at 256 through K1
 CN_SYSTEM = ("You answer in JSON. " * 16)[:300]
+#: serve_constrained's depth: Llama-3-8B's widths, 8 of its 32 layers
+#: (the time went to serve_gateway; the grammar work per window is the
+#: same at any depth)
+CN_LAYERS = 8
 
 
 def _cn_requests() -> list[tuple[str, bool, dict]]:
@@ -2275,10 +2299,15 @@ def serve_constrained_phase(srv, restart, params) -> None:
     pinned ones (K5 while a
     greedy slot lives), then one seeded json_schema request alone (no
     draft controller: plain windows, K3): K5 and K3 must launch, drafts
-    be accepted and the constrained replies validate."""
+    be accepted and the constrained replies validate. Llama-3-8B's
+    widths, its first ``CN_LAYERS`` layers."""
+    from aigw_tpu_torch.models import llama
     from aigw_tpu_torch.tpuserve import constrain
 
-    restart(params, decode_backend="fused", enable_prefix_cache=True)
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=CN_LAYERS)
+    params = _first_layers(params, CN_LAYERS)
+    restart(params, model_cfg=cfg, decode_backend="fused",
+            enable_prefix_cache=True)
     eng = srv.engine
     tok, V = srv.tokenizer, srv.model_cfg.vocab_size
     eos = (tok.eos_id,)
@@ -2356,8 +2385,8 @@ def serve_constrained_phase(srv, restart, params) -> None:
         **delta, "launches": counts}
 
     # the chained rung at a fixed draft width of 4
-    restart(params, decode_backend="chained", pallas_attn=True,
-            spec_tokens=4, spec_adaptive=False,
+    restart(params, model_cfg=cfg, decode_backend="chained",
+            pallas_attn=True, spec_tokens=4, spec_adaptive=False,
             enable_prefix_cache=True)
     seeded = ("json_schema", False, {
         k: v for k, v in reqs[1][2].items() if k != "stream_options"}
@@ -3270,6 +3299,10 @@ LORA_CHECK_LAYERS = 2
 #: model_check_lora's slot rows: adapters a0-a3 (rows 0-3), the base row 4
 LORA_CHECK_ROWS = [0, 4, 1, 2, 0, 4, 3, 1]
 LORA_MODEL = "llama-3-8b-random"
+#: the depth of serve_lora's numbers (a decode step and a prefill with
+#: and without adapters): 8 of Llama-3-8B's 32 layers (the time went to
+#: serve_gateway)
+LORA_NUMBERS_LAYERS = 8
 
 
 def model_check_lora(torch, dtype, dev: str = "cuda") -> dict:
@@ -3469,7 +3502,8 @@ def serve_lora(torch, srv, params, qparams, reqs, launches: dict,
     two pinned base requests of 32 tokens (K5, drafts accepted) beside a
     sampled ``:a2`` request of 64 that decodes on alone (K3). Then
     W8A16 weights with the zoo (K6). Then, not gated: one adapter's load
-    time (wq + wv, and all seven targets), one decode step at batch 8
+    time (wq + wv, and all seven targets) and, at
+    ``LORA_NUMBERS_LAYERS`` layers, one decode step at batch 8
     with 8 adapter slots, with 8 base slots (the same delta kernels on
     the zero row) and without adapters, and one packed prefill of the
     burst's prompts with and without adapters (the delta's device time
@@ -3599,9 +3633,14 @@ def serve_lora(torch, srv, params, qparams, reqs, launches: dict,
         srv.adapter_store = None
     launches["serve_lora"] = c_all
 
-    # the numbers: a load, a decode step, a prefill (not gated)
+    # the numbers: a load, a decode step, a prefill (not gated); the
+    # step and the prefill at LORA_NUMBERS_LAYERS layers
     out["load"] = [lora_load_ms(torch, cfg, ("wq", "wv"), dev),
                    lora_load_ms(torch, cfg, LORA_TARGETS_ALL, dev)]
+    cfg = dataclasses.replace(cfg, n_layers=LORA_NUMBERS_LAYERS)
+    params = _first_layers(params, LORA_NUMBERS_LAYERS)
+    stacks, _zoo = _lora_zoo(torch, cfg, dev=dev)
+    out["numbers_layers"] = LORA_NUMBERS_LAYERS
     rows_ad = torch.tensor([0, 1, 2, 3] * 2, device=dev)
     rows_base = torch.full((8,), 4, device=dev)
     out["decode_profile"] = {
@@ -3790,8 +3829,9 @@ def _meter_gates(results, before: dict, after: dict, prompt_lens) -> dict:
             "hbm_page_byte_s": sum(m["hbm_page_byte_s"] for m in meters)}
 
 
-#: the profile capture's window, s (the burst inside it takes ~2-4)
-OPS_PROFILE_S = 20.0
+#: the profile capture's window, s (the burst inside it takes ~1-4; 20
+#: before the time went to serve_gateway)
+OPS_PROFILE_S = 10.0
 
 
 def serve_ops(torch, srv, params, reqs, launches: dict,
@@ -4885,16 +4925,19 @@ EMBED_REL_TOL = 5e-2
 #: EngineConfig's defaults: xla-bucketed, the gather rung, 256-token
 #: chunks, the prefix cache on)
 GEOMETRY = dict(max_batch_size=8, max_seq_len=2048, page_size=128)
+#: serve_defaults' depth: Llama-3-8B's widths, 8 of its 32 layers (the
+#: time went to serve_gateway)
+DEFAULTS_LAYERS = 8
 
 
-def _start_defaults(srv, params, **kw):
+def _start_defaults(srv, params, model_cfg=None, **kw):
     """Put an engine built from EngineConfig(**GEOMETRY, **kw) behind the
-    server."""
+    server (Llama-3-8B unless ``model_cfg``)."""
     from aigw_tpu_torch.models import llama
     from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
 
     stop_engine(srv)
-    srv.engine = Engine(params, llama.LLAMA3_8B,
+    srv.engine = Engine(params, model_cfg or llama.LLAMA3_8B,
                         EngineConfig(**GEOMETRY, **kw),
                         eos_token_ids=(srv.tokenizer.eos_id,), device="cuda")
     srv.engine.start()
@@ -4990,22 +5033,26 @@ def serve_defaults(torch, srv, restart, params, qparams, reqs,
     ``EngineConfig()`` with only the geometry set (cold and warm): bf16
     (the device's busy share over a third, traced burst), then W8A16
     weights over int8 pages, where K6 carries the matmuls at M <= 64.
-    Every stream the defaults serve is held to the kernel path's of the
-    same prompt, tie-aware; the pinned pair's texts must be equal."""
+    Llama-3-8B's widths, its first ``DEFAULTS_LAYERS`` layers. Every
+    stream the defaults serve is held to the kernel path's of the same
+    prompt, tie-aware; the pinned pair's texts must be equal."""
     from aigw_tpu_torch.models import llama
 
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=DEFAULTS_LAYERS)
     pinned = _pinned_requests(2)
     eos = srv.tokenizer.eos_id
     out: dict = {"requests": len(reqs) + len(pinned), "geometry": GEOMETRY,
+                 "layers": DEFAULTS_LAYERS,
                  "prompt_tokens": served_prompt_lens(reqs + pinned)}
     for name, p, kw in (("bf16", params, {}),
                         ("w8a16_kv_int8", qparams,
                          {"kv_cache_dtype": "int8"})):
-        restart(p, decode_backend="fused", **kw)
+        p = _first_layers(p, DEFAULTS_LAYERS)
+        restart(p, model_cfg=cfg, decode_backend="fused", **kw)
         tap = TokenTap(srv.engine)
         kernel_path = serve_phase(srv.port, reqs + pinned)
         kernel = _streams_by_prompt(tap)
-        _start_defaults(srv, p, **kw)
+        _start_defaults(srv, p, model_cfg=cfg, **kw)
         tap = TokenTap(srv.engine)
         run = _defaults_burst(torch, srv, reqs, pinned, name)
         if run["pinned_texts"] != [r["text"] for r in
@@ -5013,8 +5060,7 @@ def serve_defaults(torch, srv, restart, params, qparams, reqs,
             raise AssertionError(f"{name}: the pinned streams differ from "
                                  f"the kernel path's")
         run["against_kernel_path"] = _hold_streams(
-            torch, p, llama.LLAMA3_8B, eos, kernel, _streams_by_prompt(tap),
-            name)
+            torch, p, cfg, eos, kernel, _streams_by_prompt(tap), name)
         if name == "bf16":
             run.update(serve_profile(torch, srv.port, reqs, run["warm_s"]))
             launches["serve_defaults"] = run["launches_cold"]
@@ -6269,8 +6315,14 @@ def serve_tp(torch, srv, params, qparams, reqs, launches: dict) -> dict:
     return out
 
 
+#: serve_tp_nccl's depth: Llama-3-8B's widths, 8 of its 32 layers (the
+#: time went to serve_gateway)
+NCCL_LAYERS = 8
+
+
 def serve_tp_nccl(torch, srv, params, reqs) -> dict:
-    """One rank over NCCL (``MeshSpec(tp=1)`` passed as a mesh): the mesh
+    """One rank over NCCL (``MeshSpec(tp=1)`` passed as a mesh), at
+    Llama-3-8B's widths and its first ``NCCL_LAYERS`` layers: the mesh
     path runs and issues its collectives, and every program captures
     them. Four of the burst's requests sent one at a time (the same call
     shapes on both) must stream bit-equal to the replica without a
@@ -6285,7 +6337,8 @@ def serve_tp_nccl(torch, srv, params, reqs) -> dict:
     from aigw_tpu_torch.tpuserve.follower import free_port
 
     eos = srv.tokenizer.eos_id
-    cfg = llama.LLAMA3_8B
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=NCCL_LAYERS)
+    params = _first_layers(params, NCCL_LAYERS)
     seq = reqs[:4]
 
     def one_at_a_time():
@@ -6299,7 +6352,7 @@ def serve_tp_nccl(torch, srv, params, reqs) -> dict:
     srv.engine.start()
     want = one_at_a_time()
     stop_engine(srv)
-    out: dict = {"ranks": 1, "backend": "nccl"}
+    out: dict = {"ranks": 1, "backend": "nccl", "layers": NCCL_LAYERS}
     mesh = make_mesh(MeshSpec(tp=1), "cuda:0", rank=0, world_size=1,
                      init_method=f"tcp://127.0.0.1:{free_port()}",
                      timeout_s=300)
@@ -6363,6 +6416,10 @@ def serve_tp_nccl(torch, srv, params, reqs) -> dict:
 #: serve_sp: Llama-3-8B widths at sp = 2, both ranks on the card over
 #: gloo; the default sp knobs (sp_prefill_min_tokens 1024,
 #: sp_chunk_tokens 2048), the prefix cache on, the kernel path
+#: serve_sp's depth: Llama-3-8B's widths, 8 of its 32 layers (the time
+#: went to serve_gateway)
+SP_LAYERS = 8
+SP_MODEL = "llama-3-8b-8-layers"
 SP_CFG = dict(max_batch_size=4, max_seq_len=8192, page_size=128,
               attention_backend="pallas-ragged", decode_backend="fused",
               enable_prefix_cache=True)
@@ -6531,13 +6588,18 @@ def serve_sp(torch, srv, restart, params, qparams, launches: dict) -> dict:
     from aigw_tpu_torch.tpuserve.engine import Engine, EngineConfig
     from aigw_tpu_torch.tpuserve.server import TPUServeServer
 
+    from aigw_tpu_torch.models.registry import ModelSpec, register_model
+
     eos = srv.tokenizer.eos_id
-    cfg = llama.LLAMA3_8B
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=SP_LAYERS)
+    register_model(ModelSpec(SP_MODEL, "llama", cfg))
+    params = _first_layers(params, SP_LAYERS)
+    qparams = _first_layers(qparams, SP_LAYERS)
     bodies = _sp_bodies(np.random.default_rng(18))
     # the one-rank replica on the same weights and programs: (a) and (b)
     # together, then (c), which resumes there too
     t = time.monotonic()
-    restart(params, **SP_CFG)
+    restart(params, model_cfg=cfg, **SP_CFG)
     tap = TokenTap(srv.engine)
     serve_phase(srv.port, [("completion", True, b)
                            for b in (bodies["a"], *bodies["b"])])
@@ -6547,9 +6609,9 @@ def serve_sp(torch, srv, restart, params, qparams, launches: dict) -> dict:
     # ladder: the windowed program, which an int8 pool's ragged prefill
     # runs, walks a 6000-token prompt's pages 256 rows at a time (about
     # 20 s on the card)
-    restart(qparams, **{**SP_CFG, "attention_backend": "xla-bucketed",
-                        "prefill_chunk_tokens": 512},
-            kv_cache_dtype="int8")
+    restart(qparams, model_cfg=cfg,
+            **{**SP_CFG, "attention_backend": "xla-bucketed",
+               "prefill_chunk_tokens": 512}, kv_cache_dtype="int8")
     tap = TokenTap(srv.engine)
     serve_phase(srv.port, [("completion", True, bodies["d"])])
     one_q = _streams_by_prompt(tap)
@@ -6557,11 +6619,12 @@ def serve_sp(torch, srv, restart, params, qparams, launches: dict) -> dict:
     # the two ranks share the card: this process's cached blocks go back
     torch.cuda.empty_cache()
     out: dict = {"ranks": 2, "backend": TP_BACKEND, "device": SP_DEVICE,
+                 "layers": SP_LAYERS,
                  "interconnect": "none measured: both ranks on one card",
                  "one_rank_s": time.monotonic() - t, "prompt_tokens": {"a": SP_LONG, "b": list(SP_SHORTS),
                                    "c": SP_LONG, "shared": SP_SHARED}}
     t = time.monotonic()
-    sp_srv = TPUServeServer("llama-3-8b-random", EngineConfig(**SP_CFG),
+    sp_srv = TPUServeServer(SP_MODEL, EngineConfig(**SP_CFG),
                             device=SP_DEVICE, port=0, params=params, sp=2,
                             mesh_backend=TP_BACKEND)
     out["up_s"] = time.monotonic() - t
@@ -6848,6 +6911,403 @@ def serve_ep(torch, mixtral, reqs, launches: dict) -> dict:
     return out
 
 
+#: serve_gateway's depth: Llama-3-8B's widths, 4 of its 32 layers (the
+#: phase measures the gateway's hop, not the model)
+GW_LAYERS = 4
+GW_MODEL = "llama-3-8b-4-layers"
+#: the picker's /state poll period in the phase's config (the example's
+#: 1.0 s, shortened so a drain is seen within the phase's budget)
+GW_POLL_S = 0.25
+#: /usage's token totals → the replicas' /state meter counters (records
+#: are not gated: a replica meters each choice of an ``n = 2`` request,
+#: the ledger each request)
+GW_METER = (("prefill_tokens", "meter_prefill_tokens"),
+            ("prefill_padded_tokens", "meter_prefill_padded_tokens"),
+            ("prefix_reused_tokens", "meter_prefix_reused_tokens"),
+            ("decode_tokens", "meter_decode_tokens"),
+            ("spec_drafted", "meter_spec_drafted"),
+            ("spec_accepted", "meter_spec_accepted"))
+
+
+def _gw_requests(rng, n_each: int = 8, model: str = GW_MODEL) -> list:
+    """``n_each`` chats and as many completions, streamed and not, the
+    third of each kind with ``n = 2``; greedy or seeded."""
+    words = "the quick brown fox jumps over a lazy dog while rivers run".split()
+
+    def text(n_bytes: int) -> str:
+        out: list = []
+        while sum(len(w) + 1 for w in out) < n_bytes:
+            out.append(words[int(rng.integers(len(words)))])
+        return " ".join(out)[:n_bytes]
+
+    lens = [3, 40, 130, 250, 511, 700, 1000, 90]
+    reqs = []
+    for kind in ("chat", "completion"):
+        for i in range(n_each):
+            stream = i % 2 == 1
+            body = {"model": model, "max_tokens": SERVE_MAX_TOKENS,
+                    "temperature": 0.0 if i % 3 else 0.8, "seed": 200 + i,
+                    "stream": stream}
+            if i == 2:
+                body["n"] = 2
+            if stream:
+                body["stream_options"] = {"include_usage": True}
+            t = text(lens[i % len(lens)])
+            if kind == "chat":
+                body["messages"] = [{"role": "user", "content": t}]
+            else:
+                body["prompt"] = t
+            reqs.append((kind, stream, body))
+    return reqs
+
+
+def _gw_call(port: int, kind: str, stream: bool, body: dict) -> dict:
+    """One request, checked as ``_check_response`` checks the reference
+    server's shapes (every choice of an ``n = 2`` reply); the client's
+    time to a stream's first token frame, the response's
+    ``x-aigw-request-id``."""
+    path = "/v1/chat/completions" if kind == "chat" else "/v1/completions"
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"content-type": "application/json"})
+    t0 = time.monotonic()
+    ttft = None
+    with urllib.request.urlopen(req, timeout=600) as r:
+        status, ctype = r.status, r.headers.get("content-type", "")
+        rid = r.headers.get("x-aigw-request-id", "")
+        if stream:
+            lines = []
+            for line in r:
+                # the first frame that carries a token (a chat's first
+                # frame is its role; on random weights a token's text
+                # may be empty)
+                if ttft is None and line.startswith(b"data: {") and any(
+                        "role" not in (c.get("delta") or {})
+                        for c in json.loads(line[6:])["choices"]):
+                    ttft = time.monotonic() - t0
+                lines.append(line)
+            raw = b"".join(lines).decode()
+        else:
+            raw = r.read().decode()
+    wall = time.monotonic() - t0
+    n = body.get("n", 1)
+    if n == 1:
+        out = _check_response(kind, stream, status, ctype, raw)
+        if out["n"] != body["max_tokens"] and out["finish"] != "stop":
+            raise AssertionError(f"{kind}: {out}")
+    else:
+        if status != 200:
+            raise AssertionError(f"{kind} n={n} status {status}")
+        want = ("chat.completion" if kind == "chat"
+                else "text_completion")
+        if stream:
+            frames = [json.loads(ln[6:]) for ln in raw.split("\n")
+                      if ln.startswith("data: {")]
+            if not raw.rstrip().endswith("data: [DONE]") or any(
+                    f["object"] != want + ("" if kind != "chat"
+                                           else ".chunk")
+                    for f in frames):
+                raise AssertionError(f"{kind} n={n}: stream shape")
+            seen = {c["index"] for f in frames for c in f["choices"]}
+            usage = frames[-1]["usage"]
+        else:
+            reply = json.loads(raw)
+            if reply["object"] != want:
+                raise AssertionError(f"{kind} n={n}: {reply['object']}")
+            seen = {c["index"] for c in reply["choices"]}
+            usage = reply["usage"]
+        if seen != set(range(n)) or not 0 < usage["completion_tokens"] \
+                <= n * body["max_tokens"]:
+            raise AssertionError(f"{kind} n={n}: choices {seen}, usage "
+                                 f"{usage}")
+        out = {"n": usage["completion_tokens"], "usage": usage}
+    out.update(ttft_s=ttft, wall_s=wall, rid=rid)
+    return out
+
+
+#: the mixed burst's arrivals, this far apart: the picker balances on
+#: the load its polls see, so requests that arrive within one poll
+#: period all see the same state and land on the same replica (the
+#: reference's picker does the same)
+GW_SPACING_S = 0.1
+
+
+def _gw_burst(port: int, reqs, spacing: float = 0.0) -> tuple[list, float]:
+    """The requests, ``spacing`` seconds apart (at once by default);
+    their results and the burst's wall."""
+    results: list = [None] * len(reqs)
+
+    def one(i):
+        try:
+            results[i] = _gw_call(port, *reqs[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            results[i] = e
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+        time.sleep(spacing)
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    bad = [(i, r) for i, r in enumerate(results) if not isinstance(r, dict)]
+    if bad:
+        raise AssertionError(f"serve_gateway: requests failed: {bad}")
+    return results, wall
+
+
+def _gw_json(port: int, path: str) -> dict:
+    return json.loads(_http(port, path)[2])
+
+
+def _gw_wait(pred, what: str, timeout_s: float = 30.0) -> None:
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"serve_gateway: timed out waiting for "
+                                 f"{what}")
+        time.sleep(0.05)
+
+
+def serve_gateway(torch, params, launches: dict) -> dict:
+    """Client → the port's gateway → two port replicas on the card.
+
+    Two replicas in this process at Llama-3-8B widths cut to
+    ``GW_LAYERS`` layers (the first layers of the served weights, the
+    same tensors), each on the kernel path (K1, K2) with the prefix
+    cache off; the gateway in its own process, as it is deployed and as
+    ``bench.py`` runs the reference's: ``python -m aigw_tpu_torch run``
+    on ``examples/inference-pool/config.yaml``'s shape in JSON (one
+    TPUServe backend over both replicas, content affinity, a TotalToken
+    cost), its port read off its startup line. Gates: (1) a burst of 8
+    chats and 8 completions, streamed and not, two with ``n = 2``,
+    arriving ``GW_SPACING_S`` apart, answers 200 in the replica's
+    shapes; (2) greedy and seeded streams,
+    sent one at a time, equal token for token the same requests sent
+    straight to the replica the gateway's ``/debug/decisions`` names;
+    (3) both replicas serve part of the burst; (4) with one replica
+    drained, ``/fleet/state`` shows it ``draining`` and the next bursts
+    land only on the other (each way: the per-replica K1 and K2
+    launches); (5) ``/usage``'s token totals equal the replicas'
+    ``meter_*`` deltas over the gateway's traffic; (6) K1 and K2 launch
+    on each replica. Reported: the TTFT p50 (the first frame that
+    carries a token, client side) and tokens/s of a streamed burst of 8
+    pinned to one byte token by ``logit_bias``, sent straight to a
+    replica and through the gateway, in turns (direct, gateway, gateway,
+    direct, three times), the medians' ratios."""
+    import numpy as np
+
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.models.registry import ModelSpec, register_model
+    from aigw_tpu_torch.tpuserve.engine import EngineConfig
+    from aigw_tpu_torch.tpuserve.server import TPUServeServer
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=GW_LAYERS)
+    register_model(ModelSpec(GW_MODEL, "llama", cfg))
+    p = _first_layers(params, GW_LAYERS)
+    t_phase = time.monotonic()
+    reps = [TPUServeServer(GW_MODEL, EngineConfig(**TP_CFG), device="cuda",
+                           port=0, params=p) for _ in range(2)]
+    for r in reps:
+        r.start()
+    taps = [TokenTap(r.engine) for r in reps]
+    addrs = [f"127.0.0.1:{r.port}" for r in reps]
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="aigw-gw-")
+    cfg_path = os.path.join(tmp, "gateway.json")
+    with open(cfg_path, "w") as f:
+        json.dump({
+            "version": "v1",
+            "backends": [{"name": "llama-pool", "schema": "TPUServe",
+                          "endpoints": [{"address": a, "slice": "s0"}
+                                        for a in addrs],
+                          "picker_poll_interval": GW_POLL_S,
+                          "picker_content_affinity": True}],
+            "routes": [{"name": "serving", "rules": [
+                {"model_prefixes": ["llama"], "backends": ["llama-pool"]}]}],
+            "models": [GW_MODEL],
+            "llm_request_costs": [{"metadata_key": "total_tokens",
+                                   "type": "TotalToken"}]}, f)
+    err = open(os.path.join(tmp, "gateway.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "aigw_tpu_torch", "run", cfg_path,
+         "--port", "0", "--watch-interval", "3600"], cwd=here,
+        env=dict(os.environ, AIGW_DRAIN_SECONDS="0"),
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    out: dict = {"layers": GW_LAYERS, "replicas": 2,
+                 "poll_interval_s": GW_POLL_S}
+    rng = np.random.default_rng(19)
+    try:
+        line: list = []
+        reader = threading.Thread(
+            target=lambda: line.append(proc.stdout.readline()), daemon=True)
+        reader.start()
+        reader.join(timeout=60)
+        import re
+
+        m = re.search(r"gateway listening on http://[\d.]+:(\d+)",
+                      line[0] if line else "")
+        if m is None:
+            raise AssertionError(f"serve_gateway: no startup line "
+                                 f"({line!r}, exit {proc.poll()})")
+        gw = int(m.group(1))
+        out["gateway_up_s"] = time.monotonic() - t_phase
+
+        def health(addr):
+            st = _gw_json(gw, "/fleet/state")
+            return st["backends"]["llama-pool"]["replicas"][addr][
+                "health"]["state"]
+
+        _gw_wait(lambda: all(health(a) == "up" for a in addrs),
+                 "both replicas up")
+        meters0 = [_gw_json(r.port, "/state") for r in reps]
+        reset_counts()
+        # (1), (3): the mixed burst
+        burst = _gw_requests(rng)
+        results, wall = _gw_burst(gw, burst, GW_SPACING_S)
+        out["burst"] = {"requests": len(burst), "wall_s": wall,
+                        "spacing_s": GW_SPACING_S,
+                        "completion_tokens": sum(r["n"] for r in results)}
+        dec = _gw_json(gw, "/debug/decisions?limit=1000")["decisions"]
+        chosen = [d.get("chosen") for d in dec]
+        out["burst"]["per_replica"] = [chosen.count(a) for a in addrs]
+        if min(out["burst"]["per_replica"]) < 1:
+            raise AssertionError(f"serve_gateway: one replica served none "
+                                 f"of the burst: {chosen}")
+        # (2): greedy and seeded streams, one at a time
+        pinned = [(k, True, dict(b, n=1, stream=True, stream_options={
+            "include_usage": True})) for k, _s, b in
+            (burst[0], burst[3], burst[8], burst[11])]
+        via = []
+        for kind, stream, body in pinned:
+            r = _gw_call(gw, kind, stream, body)
+            d = _gw_json(gw, f"/debug/decisions?rid={r['rid']}")[
+                "decisions"]
+            if len(d) != 1 or d[0].get("chosen") not in addrs:
+                raise AssertionError(f"serve_gateway: decision for "
+                                     f"{r['rid']}: {d}")
+            via.append((r["rid"], addrs.index(d[0]["chosen"])))
+        # (4), (6): each replica drained in turn; the streamed burst sent
+        # straight to the other and through the gateway, in turns
+        # pinned to one byte token: a random model's tokens are mostly
+        # past the byte range and stream no text, so without the pin a
+        # stream's first frame comes at its end
+        stream_burst = [(k, True, dict(
+            b, n=1, stream=True, stream_options={"include_usage": True},
+            logit_bias={str(PIN_TOKEN): 100.0}))
+            for k, _s, b in burst[::2]]
+        per_replica: list = [None, None]
+        turns: dict = {"direct": [], "gateway": []}
+        # the meters the direct turns move, which the gateway never sees
+        direct_meter = {k: 0 for _u, k in GW_METER + (
+            ("records", "meter_records"),)}
+        for drained in (1, 0):
+            live = 1 - drained
+            _post_raw(reps[drained].port, "/drain", b"{}")
+            _gw_wait(lambda: health(addrs[drained]) == "draining",
+                     f"replica {drained} draining on /fleet/state")
+            before = _gw_json(reps[drained].port, "/state")["meter_records"]
+            n_dec = _gw_json(gw, "/debug/decisions")["recorded"]
+            reset_before = read_counts()
+            order = (("direct", "gateway", "gateway", "direct") * 3
+                     if drained == 1 else ("gateway",))
+            for how in order:
+                port = reps[live].port if how == "direct" else gw
+                m_before = _gw_json(reps[live].port, "/state")
+                res, w = _gw_burst(port, stream_burst)
+                if how == "direct":
+                    m_after = _gw_json(reps[live].port, "/state")
+                    for k in direct_meter:
+                        direct_meter[k] += m_after[k] - m_before[k]
+                if drained == 1:
+                    ttfts = sorted(r["ttft_s"] for r in res)
+                    turns[how].append({
+                        "wall_s": w,
+                        "tokens_per_s": sum(r["n"] for r in res) / w,
+                        "ttft_p50_ms": 1e3 * statistics.median(ttfts)})
+            counts = read_counts()
+            per_replica[live] = {k: counts[k] - reset_before[k]
+                                 for k in counts}
+            after = _gw_json(reps[drained].port, "/state")["meter_records"]
+            recent = _gw_json(gw, "/debug/decisions?limit=1000")
+            landed = {d.get("chosen") for d in recent["decisions"][
+                :recent["recorded"] - n_dec]}  # newest first
+            if after != before or landed != {addrs[live]}:
+                raise AssertionError(
+                    f"serve_gateway: the drained replica {drained} got "
+                    f"work ({before} -> {after} records; picks {landed})")
+            _post_raw(reps[drained].port, "/drain", b'{"on": false}')
+            _gw_wait(lambda: health(addrs[drained]) == "up",
+                     f"replica {drained} back up")
+        for i, c in enumerate(per_replica):
+            if c["ragged_prefill_attention"] <= 0 \
+                    or c["fused_paged_decode"] <= 0:
+                raise AssertionError(f"serve_gateway: K1/K2 not on replica "
+                                     f"{i}'s path: {c}")
+        out["launches_per_replica"] = per_replica
+        # (5): /usage against the replicas' meters over the gateway's
+        # traffic (before the direct sends below)
+        meters1 = [_gw_json(r.port, "/state") for r in reps]
+        usage = _gw_json(gw, "/usage")["totals"]
+        replica_sum = {u: sum(m1[k] - m0[k] for m0, m1 in
+                              zip(meters0, meters1)) - direct_meter[k]
+                       for u, k in GW_METER}
+        out["usage"] = {"gateway": {u: usage[u] for u, _k in GW_METER},
+                        "replicas": replica_sum,
+                        "records_gateway": usage["records"],
+                        "records_replicas": sum(
+                            m1["meter_records"] - m0["meter_records"]
+                            for m0, m1 in zip(meters0, meters1))
+                        - direct_meter["meter_records"]}
+        if out["usage"]["gateway"] != replica_sum:
+            raise AssertionError(f"serve_gateway: /usage {usage} against "
+                                 f"the replicas' meters {replica_sum}")
+        launches["serve_gateway"] = read_counts()
+        # direct sends of (2)'s requests to the replica each went to
+        for (rid, i), (kind, stream, body) in zip(via, pinned):
+            r = _gw_call(reps[i].port, kind, stream, body)
+            want, got = taps[i].toks[rid], taps[i].toks[r["rid"]]
+            if got != want:
+                raise AssertionError(f"serve_gateway: {kind} through the "
+                                     f"gateway {want} != direct {got}")
+        out["streams_equal_direct"] = len(via)
+        proc.send_signal(2)  # SIGINT: the gateway stops and exits 0
+        if proc.wait(timeout=30) != 0:
+            raise AssertionError(f"serve_gateway: the gateway exited "
+                                 f"{proc.returncode}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        err.close()
+        for r in reps:
+            r.stop()
+            r.engine = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    d_ttft = statistics.median(t["ttft_p50_ms"] for t in turns["direct"])
+    g_ttft = statistics.median(t["ttft_p50_ms"] for t in turns["gateway"])
+    d_tps = statistics.median(t["tokens_per_s"] for t in turns["direct"])
+    g_tps = statistics.median(t["tokens_per_s"] for t in turns["gateway"])
+    out["direct_vs_gateway"] = {
+        "requests": len(stream_burst), "turns": turns,
+        "direct_ttft_p50_ms": d_ttft, "gateway_ttft_p50_ms": g_ttft,
+        "ttft_ratio": g_ttft / d_ttft, "direct_tokens_per_s": d_tps,
+        "gateway_tokens_per_s": g_tps, "tokens_per_s_ratio": g_tps / d_tps}
+    out["wall_s"] = time.monotonic() - t_phase
+    out["card"] = card = nvidia_smi_line()
+    log(f"serve_gateway ({GW_LAYERS} layers, 2 replicas, {card}): burst "
+        f"{out['burst']['wall_s']:.2f} s over {out['burst']['per_replica']}; "
+        f"TTFT p50 direct {d_ttft:.1f} ms, gateway {g_ttft:.1f} ms "
+        f"(x{g_ttft / d_ttft:.3f}); tokens/s direct {d_tps:.0f}, gateway "
+        f"{g_tps:.0f} (x{g_tps / d_tps:.3f}); phase {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6900,15 +7360,16 @@ def main() -> int:
         f"{sum(p.numel() for p in srv.engine.params.values()) / 1e9:.2f}B "
         f"params, decode {srv.engine.decode_attn_impl}")
 
-    def restart(params, **engine_kw):
+    def restart(params, model_cfg=llama.LLAMA3_8B, **engine_kw):
         stop_engine(srv)
         # the kernel path: the ragged prefill (K1) and, unless a phase
-        # names the chained rung, the fused decode (K2)
+        # names the chained rung, the fused decode (K2); ``model_cfg``
+        # for a phase that serves the first layers only
         kw = dict(max_batch_size=8, max_seq_len=2048, page_size=128,
                   attention_backend="pallas-ragged", decode_backend="fused",
                   enable_prefix_cache=False)
         srv.engine = Engine(
-            params, llama.LLAMA3_8B, EngineConfig(**{**kw, **engine_kw}),
+            params, model_cfg, EngineConfig(**{**kw, **engine_kw}),
             eos_token_ids=(srv.tokenizer.eos_id,), device="cuda")
         srv.engine.start()
 
@@ -7093,6 +7554,10 @@ def main() -> int:
         # prompts as ring-attention chunk steps (serve_sp)
         print(json.dumps({"serve_sp": serve_sp(
             torch, srv, restart, params, qparams, launches)}), flush=True)
+        # client -> the port's gateway (its own process) -> two replicas
+        # (serve_gateway)
+        print(json.dumps({"serve_gateway": serve_gateway(
+            torch, params, launches)}), flush=True)
     finally:
         srv.stop()
 
@@ -7320,6 +7785,9 @@ def main() -> int:
         for phase in ("serve_tp", "serve_tp_w8a16", "serve_sp",
                       "serve_sp_w8a16", "serve_ep"):
             row[f"launches_{phase}"] = launches[phase].get(row["name"], 0)
+        # both replicas' (one process)
+        row["launches_serve_gateway"] = launches["serve_gateway"].get(
+            row["name"], 0)
         for phase in ("serve_defaults", "serve_defaults_w8a16",
                       "embeddings_bf16", "embeddings_w8a16"):
             row[f"launches_{phase}"] = launches[phase].get(row["name"], 0)

@@ -1826,3 +1826,135 @@ def test_sp_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
         j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), None)
         if j is not None:  # a float32 near-tie only
             assert j > 0, (g, w)
+
+
+def _gateway_pair(cuda):
+    """Two tiny-random replicas on the card on the kernel path, and the
+    port's gateway over both in this process's event-loop thread."""
+    import asyncio
+    import threading
+
+    from aigw_tpu_torch.config.model import Config
+    from aigw_tpu_torch.config.runtime import RuntimeConfig
+    from aigw_tpu_torch.gateway.server import run_gateway
+
+    reps = [_ops_replica(cuda) for _ in range(2)]
+    addrs = [f"127.0.0.1:{r.port}" for r in reps]
+    loop = asyncio.new_event_loop()
+    threading.Thread(target=loop.run_forever, daemon=True).start()
+    cfg = Config.parse({
+        "version": "v1",
+        "backends": [{"name": "pool", "schema": "TPUServe",
+                      "endpoints": addrs, "picker_poll_interval": 0.1,
+                      "picker_content_affinity": True}],
+        "routes": [{"name": "r", "rules": [{"backends": ["pool"]}]}],
+        "llm_request_costs": [{"metadata_key": "t",
+                               "type": "TotalToken"}]})
+    gw = asyncio.run_coroutine_threadsafe(
+        run_gateway(RuntimeConfig.build(cfg), port=0), loop).result(60)
+
+    def close():
+        asyncio.run_coroutine_threadsafe(gw.stop(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        for r in reps:
+            r.stop()
+
+    return reps, addrs, gw, close
+
+
+def _sse_text(port, path, body):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"content-type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        raw = r.read().decode()
+        rid = r.headers.get("x-aigw-request-id")
+    text = ""
+    for line in raw.split("\n"):
+        if line.startswith("data: {"):
+            for c in json.loads(line[6:])["choices"]:
+                text += (c.get("delta") or {}).get("content") or \
+                    c.get("text") or ""
+    assert raw.rstrip().endswith("data: [DONE]")
+    return text, rid
+
+
+def test_gateway_streams_equal_direct_on_cuda_replicas(cuda):
+    """Greedy and seeded streams through the gateway, one at a time,
+    equal the same requests sent straight to the replica the gateway's
+    ``/debug/decisions`` names; K1 and K2 launched."""
+    import json
+    import time
+    import urllib.request
+
+    reps, addrs, gw, close = _gateway_pair(cuda)
+    try:
+        time.sleep(0.5)  # a poll of both
+        k1 = paged_attention.ragged_prefill_attention.launches
+        k2 = decode_fused.fused_paged_decode.launches
+        bodies = [
+            ("/v1/chat/completions", {"model": "tiny-random", "stream": True,
+                                      "max_tokens": 16, "temperature": 0.0,
+                                      "messages": [{"role": "user",
+                                                    "content": "hello"}]}),
+            ("/v1/completions", {"model": "tiny-random", "stream": True,
+                                 "prompt": "abc", "max_tokens": 16,
+                                 "temperature": 0.9, "seed": 5})]
+        for path, body in bodies:
+            via, rid = _sse_text(gw.port, path, body)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{gw.port}/debug/decisions?rid={rid}",
+                    timeout=60) as r:
+                (dec,) = json.loads(r.read())["decisions"]
+            direct, _ = _sse_text(reps[addrs.index(dec["chosen"])].port,
+                                  path, body)
+            assert via == direct and via
+        assert paged_attention.ragged_prefill_attention.launches > k1
+        assert decode_fused.fused_paged_decode.launches > k2
+    finally:
+        close()
+
+
+def test_gateway_honours_a_drained_cuda_replica(cuda):
+    """A replica drained with ``POST /drain`` shows ``draining`` on the
+    gateway's ``/fleet/state`` and receives none of the next requests;
+    un-drained, it is routed to again."""
+    import json
+    import time
+    import urllib.request
+
+    reps, addrs, gw, close = _gateway_pair(cuda)
+
+    def get(port, path):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return json.loads(r.read())
+
+    def health(addr):
+        return get(gw.port, "/fleet/state")["backends"]["pool"][
+            "replicas"][addr]["health"]["state"]
+
+    def wait(pred):
+        t0 = time.monotonic()
+        while not pred():
+            assert time.monotonic() - t0 < 30
+            time.sleep(0.05)
+
+    try:
+        wait(lambda: all(health(a) == "up" for a in addrs))
+        _post(reps[1].port, "/drain", {})
+        wait(lambda: health(addrs[1]) == "draining")
+        before = get(reps[1].port, "/state")["meter_records"]
+        for i in range(6):
+            _post(gw.port, "/v1/completions", {
+                "model": "tiny-random", "prompt": f"q{i}", "max_tokens": 4})
+        assert get(reps[1].port, "/state")["meter_records"] == before
+        decs = get(gw.port, "/debug/decisions?limit=6")["decisions"]
+        assert {d["chosen"] for d in decs} == {addrs[0]}
+        _post(reps[1].port, "/drain", {"on": False})
+        wait(lambda: health(addrs[1]) == "up")
+    finally:
+        close()

@@ -402,3 +402,56 @@ def test_parallel_modules_are_covered():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make_mesh(MeshSpec(tp=1), rank=0, world_size=1,
                       init_method="file:///nonexistent/rdv")
+
+
+def test_gateway_modules_import_with_aiohttp_and_yaml_blocked():
+    """The gateway's modules (config, gateway, translate, obs, schemas)
+    are the port's own copies on the standard library: every one imports
+    in a fresh interpreter where jax, the reference package, aiohttp and
+    yaml cannot be imported, and pulls in none of them (nor
+    prometheus_client); the gateway and its CLI entry are callable."""
+    mods = [m for m in MODULES if m.split(".")[1] in (
+        "gateway", "config", "translate", "obs", "schemas")]
+    for m in ("aigw_tpu_torch.gateway.server", "aigw_tpu_torch.gateway.http",
+              "aigw_tpu_torch.gateway.picker", "aigw_tpu_torch.gateway.router",
+              "aigw_tpu_torch.gateway.circuit", "aigw_tpu_torch.gateway.costs",
+              "aigw_tpu_torch.gateway.usage", "aigw_tpu_torch.gateway.kvindex",
+              "aigw_tpu_torch.gateway.fleetstate",
+              "aigw_tpu_torch.gateway.mutators",
+              "aigw_tpu_torch.config.model", "aigw_tpu_torch.config.runtime",
+              "aigw_tpu_torch.config.watcher",
+              "aigw_tpu_torch.translate.base",
+              "aigw_tpu_torch.translate.passthrough",
+              "aigw_tpu_torch.translate.sse", "aigw_tpu_torch.obs.slomon",
+              "aigw_tpu_torch.schemas.spec", "aigw_tpu_torch.schemas.typed",
+              "aigw_tpu_torch.schemas.typed_response"):
+        assert m in mods, m
+    import sys as _sys
+
+    for m in mods:
+        path = ROOT / (m.replace(".", "/") + ".py")
+        outside = [n for n in _imported_names(path)
+                   if n.split(".")[0] not in _sys.stdlib_module_names
+                   and not n.startswith("aigw_tpu_torch")
+                   and n != "yaml"]  # config/model.py: lazily, for YAML
+        assert not outside, (m, outside)
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'aigw_tpu', 'aiohttp', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from aigw_tpu_torch.gateway.server import GatewayServer, run_gateway\n"
+        "from aigw_tpu_torch.cli import build_parser, run_gateway_cli\n"
+        "assert build_parser().parse_args(['run', 'c.json']).port == 1975\n"
+        "for fn in (GatewayServer._handle, run_gateway, run_gateway_cli):\n"
+        "    assert callable(fn)\n"
+        "bad = [k for k, v in sys.modules.items() if v and k.split('.')[0]\n"
+        "       in ('jax', 'jaxlib', 'aigw_tpu', 'aiohttp', 'yaml',\n"
+        "           'prometheus_client', 'torch')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

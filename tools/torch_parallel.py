@@ -65,9 +65,9 @@ def main() -> int:
         params = srv.engine.params
         qparams = quant.quantize_params(params, consume=False, mode="int8")
 
-        def restart(p, **kw):
+        def restart(p, model_cfg=llama.LLAMA3_8B, **kw):
             cs.stop_engine(srv)
-            srv.engine = Engine(p, llama.LLAMA3_8B,
+            srv.engine = Engine(p, model_cfg,
                                 EngineConfig(**{**cs.TP_CFG, **kw}),
                                 eos_token_ids=(srv.tokenizer.eos_id,),
                                 device="cuda")

@@ -54,9 +54,9 @@ def main() -> int:
                          device="cuda", port=0)
     srv.start()
 
-    def restart(params, **engine_kw):
+    def restart(params, model_cfg=llama.LLAMA3_8B, **engine_kw):
         srv.engine.stop()
-        srv.engine = Engine(params, llama.LLAMA3_8B,
+        srv.engine = Engine(params, model_cfg,
                             EngineConfig(**{**kw, **engine_kw}),
                             eos_token_ids=(srv.tokenizer.eos_id,),
                             device="cuda")
