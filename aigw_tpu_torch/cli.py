@@ -20,6 +20,7 @@
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu --sp 2
     python -m aigw_tpu_torch convert /hf/llama-3-8b checkpoints/llama-3-8b
     python -m aigw_tpu_torch run gateway.json --port 1975
+    python -m aigw_tpu_torch quota-service --port 1981 --dir /var/aigw-quota
 
 With no flags a replica runs the reference's default programs: the
 bucket-ladder prefill (``xla-bucketed``, chunked past
@@ -56,11 +57,17 @@ front of replica pools: the config is JSON (YAML where ``pyyaml`` is
 installed), watched every ``--watch-interval`` seconds and reloaded on
 change; ``--port 0`` binds a free port, which the startup line names.
 SIGTERM or SIGINT stops it after ``AIGW_DRAIN_SECONDS`` (1 s) for the
-requests in flight.
+requests in flight, and stops every replica its pools' controllers
+launched.
 
-The ``tpuserve``, ``convert`` and ``run`` subcommands are ported; the
-other subcommands stay JAX-package code. Flag names follow the
-reference's.
+``quota-service`` serves the shared token-quota counters
+(``gateway/ratelimit.py``, flock'd files under ``--dir``): gateways
+that set ``AIGW_QUOTA_URL`` to it enforce one budget with no shared
+filesystem; SIGTERM or SIGINT stops it.
+
+The ``tpuserve``, ``convert``, ``run`` and ``quota-service``
+subcommands are ported; the other subcommands stay JAX-package code.
+Flag names follow the reference's.
 """
 
 from __future__ import annotations
@@ -90,6 +97,16 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--port", type=int, default=1975)
     r.add_argument("--watch-interval", type=float, default=5.0)
     r.add_argument("--log-level", default="info")
+    q = sub.add_parser(
+        "quota-service",
+        help="run the shared quota service: gateways on other nodes "
+             "point AIGW_QUOTA_URL here so one token budget is enforced "
+             "with no shared filesystem")
+    q.add_argument("--host", default="0.0.0.0")
+    q.add_argument("--port", type=int, default=1981)
+    q.add_argument("--dir", default="/tmp/aigw-quota",
+                   help="counter storage (flock'd files; a shared volume "
+                        "lets the service itself replicate)")
     s = sub.add_parser("tpuserve", help="run the serving engine")
     s.add_argument("--model", required=True,
                    help="model name (see aigw_tpu_torch.models.registry)")
@@ -315,10 +332,35 @@ async def run_gateway_cli(args) -> int:
     return 0
 
 
+async def run_quota_service(args) -> int:
+    """``quota-service``: the counters' HTTP service until SIGTERM or
+    SIGINT."""
+    import asyncio
+
+    from aigw_tpu_torch.gateway.ratelimit import quota_service
+
+    server = quota_service(args.dir)
+    port = await server.start(args.host, args.port)
+    print(f"quota service listening on http://{args.host}:{port} "
+          f"(dir={args.dir})", flush=True)
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    await server.stop()
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "convert":
         return convert(args.hf_dir, args.out_dir)
+    if args.cmd == "quota-service":
+        import asyncio
+
+        logging.basicConfig(level=logging.INFO)
+        return asyncio.run(run_quota_service(args))
     if args.cmd == "run":
         import asyncio
         import sys

@@ -3,11 +3,11 @@
 
 The declarative model a user writes (JSON, or YAML where ``pyyaml`` is
 installed) and the gateway consumes. The port's gateway fronts serving
-pools of ``OpenAI``- and ``TPUServe``-schema backends; a config that
-names anything else it does not carry (another provider schema, upstream
-``auth``, a fleet ``controller``, gateway-driven ``migration``,
-``quotas``, ``mcp``, a Kubernetes CRD manifest) raises ``ConfigError``
-naming the field, never drops it.
+pools of ``OpenAI``- and ``TPUServe``-schema backends, with a pool's
+fleet ``controller``, gateway-driven ``migration`` and token ``quotas``;
+a config that names anything else it does not carry (another provider
+schema, upstream ``auth``, ``mcp``, a Kubernetes CRD manifest) raises
+``ConfigError`` naming the field, never drops it.
 It is deliberately decoupled from any orchestrator (the reference makes the
 same choice for its data-plane config: filterapi/filterconfig.go:6-12).
 
@@ -250,11 +250,29 @@ def _check_ported_backend(value: dict[str, Any]) -> None:
     auth = value.get("auth")
     if auth and dict(auth) != {"kind": "None"}:
         raise not_ported(where, "auth", "upstream credentials")
-    if value.get("controller") is not None:
-        raise not_ported(where, "controller", "the fleet controller")
-    if value.get("migration"):
-        raise not_ported(where, "migration",
-                         "gateway-driven mid-stream migration")
+
+
+def _check_controller(value: dict[str, Any]) -> Any:
+    """Validate a backend's fleet-controller block at parse time (the
+    knobs are read by ``gateway/controller.ControllerConfig``; the frozen
+    mapping keeps Backend hashable). The import is lazy: the config
+    layer imports without the gateway."""
+    raw = value.get("controller")
+    if raw is None:
+        return None
+    from aigw_tpu_torch.gateway.controller import ControllerConfig
+
+    if not value.get("endpoints"):
+        raise ConfigError(
+            f"backend {value.get('name', '?')!r}: controller requires "
+            "an endpoint pool")
+    try:
+        ControllerConfig.parse(dict(raw))
+    except (TypeError, ValueError) as e:
+        raise ConfigError(
+            f"backend {value.get('name', '?')!r}: invalid controller "
+            f"block: {e}") from None
+    return _freeze(raw)
 
 
 @dataclass(frozen=True)
@@ -324,6 +342,15 @@ class Backend:
     slo_objective: float = 0.95
     slo_window_s: float = 30.0
     slo_burn_windows: int = 3
+    # The pool's replica lifecycle manager: autoscaling off the SLO
+    # monitor's sustained-overshoot flag, scale-in through a lossless
+    # drain, crash failover. A mapping of
+    # gateway/controller.ControllerConfig knobs (min_replicas,
+    # max_replicas, tick_s, scale_cooldown_s, idle_ticks,
+    # idle_slots_frac, down_grace_s, drain_timeout_s, launcher:
+    # {kind: local, spec: {...}, env: {...}}). None = a static pool.
+    # Requires an endpoint pool.
+    controller: Any = None
     header_mutation: HeaderMutation = HeaderMutation()
     body_mutation: BodyMutation = BodyMutation()
     # Rewrite the model name sent upstream (reference modelNameOverride).
@@ -365,6 +392,7 @@ class Backend:
                 slo_objective=float(value.get("slo_objective", 0.95)),
                 slo_window_s=float(value.get("slo_window_s", 30.0)),
                 slo_burn_windows=int(value.get("slo_burn_windows", 3)),
+                controller=_check_controller(value),
                 header_mutation=HeaderMutation.parse(value.get("header_mutation")),
                 body_mutation=BodyMutation.parse(value.get("body_mutation")),
                 model_name_override=value.get("model_name_override", ""),
@@ -404,6 +432,8 @@ class Backend:
             d["slo_window_s"] = self.slo_window_s
         if self.slo_burn_windows != 3:
             d["slo_burn_windows"] = self.slo_burn_windows
+        if self.controller is not None:
+            d["controller"] = _thaw(self.controller)
         if self.header_mutation != HeaderMutation():
             d["header_mutation"] = self.header_mutation.to_dict()
         if self.body_mutation != BodyMutation():
@@ -622,6 +652,7 @@ class Config:
     llm_request_costs: tuple[LLMRequestCost, ...] = ()
     # Quota rules (parsed/enforced by aigw_tpu_torch.gateway.ratelimit — the
     # QuotaPolicy equivalent); stored frozen for hashability.
+    quotas: tuple[Any, ...] = ()
     # Engine-truth usage metering: the gateway ledger's
     # knobs, stored frozen. None = metering ON with defaults (in-memory
     # ledger, 60s windows, no budgets). Mapping keys: enabled (bool),
@@ -674,8 +705,6 @@ class Config:
             raise ConfigError(
                 f"config version {version!r} != supported {CONFIG_VERSION!r}"
             )
-        if value.get("quotas"):
-            raise not_ported("config", "quotas", "token rate limits")
         if value.get("mcp") is not None:
             raise not_ported("config", "mcp", "the MCP proxy")
         cfg = Config(
@@ -685,6 +714,7 @@ class Config:
             llm_request_costs=tuple(
                 LLMRequestCost.parse(c) for c in value.get("llm_request_costs", ())
             ),
+            quotas=tuple(_freeze(q) for q in value.get("quotas", ())),
             usage=(_freeze(value["usage"])
                    if value.get("usage") is not None else None),
             version=version,
@@ -705,6 +735,8 @@ class Config:
             d["models"] = [m.to_dict() for m in self.models]
         if self.llm_request_costs:
             d["llm_request_costs"] = [c.to_dict() for c in self.llm_request_costs]
+        if self.quotas:
+            d["quotas"] = [_thaw(q) for q in self.quotas]
         if self.usage is not None:
             d["usage"] = _thaw(self.usage)
         return d

@@ -2,11 +2,12 @@
 (the port's copy of ``aigw_tpu/config/runtime.py``).
 
 Equivalent of the upstream ``filterapi.RuntimeConfig``: cost expressions
-compiled and route-level cost lists merged over the global one, so
-per-request processing never touches parsing or compilation. The
-reference also builds each backend's auth handler and the quota rate
-limiter here; the port's config refuses ``auth`` and ``quotas``, so
-neither exists.
+compiled, route-level cost lists merged over the global one and the
+quota rate limiter built from ``quotas`` (adopting the previous
+runtime's window counters across a hot reload), so per-request
+processing never touches parsing or compilation. The reference also
+builds each backend's auth handler here; the port's config refuses
+``auth``, so none exists.
 """
 
 from __future__ import annotations
@@ -29,10 +30,14 @@ class RuntimeConfig:
     cost_calculator: Any = None  # gateway.costs.CostCalculator
     # per-route calculators (global costs + route-level overrides)
     route_cost_calculators: dict[str, Any] = field(default_factory=dict)
+    rate_limiter: Any = None  # gateway.ratelimit.RateLimiter
 
     @staticmethod
-    def build(config: Config) -> "RuntimeConfig":
+    def build(config: Config,
+              previous: "RuntimeConfig | None" = None) -> "RuntimeConfig":
+        from aigw_tpu_torch.config.model import _thaw
         from aigw_tpu_torch.gateway.costs import CostCalculator
+        from aigw_tpu_torch.gateway.ratelimit import RateLimiter
 
         config.validate()
         rc = RuntimeConfig(config=config)
@@ -49,6 +54,9 @@ class RuntimeConfig:
                 rc.route_cost_calculators[route.name] = CostCalculator(
                     tuple(merged.values())
                 )
+        rc.rate_limiter = RateLimiter.from_config_value(
+            [_thaw(q) for q in config.quotas]
+        ).adopt(previous.rate_limiter if previous else None)
         return rc
 
     def cost_calculator_for(self, route_name: str):

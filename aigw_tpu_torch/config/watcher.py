@@ -3,7 +3,8 @@
 
 Polls one config file (every ``interval`` seconds, 5 by default),
 checksums its content to skip no-op reloads, and swaps in a freshly
-built RuntimeConfig on change. A bad new config is logged and rejected;
+built RuntimeConfig on change (built over the current one, so quota
+windows survive the reload). A bad new config is logged and rejected;
 the gateway keeps serving the last good one. Bundle directories, CRD
 manifest directories and live clusters are the reference's control
 plane, which the port does not carry.
@@ -30,6 +31,7 @@ class ConfigWatcher:
         self.on_reload = on_reload
         self.interval = interval
         self._checksum = ""
+        self._current: RuntimeConfig | None = None
         self._task: asyncio.Task | None = None
 
     def load_initial(self) -> RuntimeConfig:
@@ -38,6 +40,7 @@ class ConfigWatcher:
         cfg = load_config(self.path)
         self._checksum = cfg.checksum()
         rc = RuntimeConfig.build(cfg)
+        self._current = rc
         self.on_reload(rc)
         return rc
 
@@ -61,13 +64,14 @@ class ConfigWatcher:
                 checksum = cfg.checksum()
                 if checksum == self._checksum:
                     continue
-                rc = RuntimeConfig.build(cfg)
+                rc = RuntimeConfig.build(cfg, previous=self._current)
             except asyncio.CancelledError:
                 raise
             except Exception as e:  # noqa: BLE001 (keep the last good)
                 logger.warning("config reload failed, keeping current: %s", e)
                 continue
             self._checksum = checksum
+            self._current = rc
             self.on_reload(rc)
             logger.info(
                 "config reloaded (uuid=%s, %d backends, %d routes)",

@@ -5,7 +5,9 @@ aiohttp application and ``ClientSession``).
 The server (``HTTPServer``) reads a request line, headers and a body
 framed by ``content-length`` or chunked transfer-encoding (at most
 ``client_max_size`` bytes, 64 MiB as the reference's application), hands
-a ``Request`` to its dispatcher and writes what comes back: a
+a ``Request`` to the handler of its path (a route's ``{name}`` segment
+matches one percent-decoded segment, in ``Request.match_info``, as the
+reference's router does) and writes what comes back: a
 ``Response`` with a ``content-length``, or a ``StreamResponse`` that
 sends its head on ``prepare`` and every ``write`` as one chunk, drained
 before ``write`` returns, so an SSE frame leaves the gateway as soon as
@@ -120,6 +122,8 @@ class Request:
     body: bytes
     remote: str
     writer: asyncio.StreamWriter = field(repr=False)
+    #: the values of the matched route's ``{name}`` segments
+    match_info: dict[str, str] = field(default_factory=dict)
 
     @property
     def host(self) -> str:
@@ -207,12 +211,43 @@ class HTTPServer:
             await self._server.wait_closed()
             self._server = None
 
+    @staticmethod
+    def _match(pattern: str, path: str) -> dict[str, str] | None:
+        """The ``{name}`` segments' values when ``path`` matches
+        ``pattern`` (an exact path matches with none), else None."""
+        if pattern == path:
+            return {}
+        if "{" not in pattern:
+            return None
+        want, got = pattern.split("/"), path.split("/")
+        if len(want) != len(got):
+            return None
+        info = {}
+        for w, g in zip(want, got):
+            if w.startswith("{") and w.endswith("}"):
+                if not g:
+                    return None
+                info[w[1:-1]] = urllib.parse.unquote(g)
+            elif w != g:
+                return None
+        return info
+
     async def _dispatch(self, req: Request) -> "Response | StreamResponse":
         handler = self.routes.get((req.method, req.path))
         if handler is None:
-            if any(p == req.path for _m, p in self.routes):
-                return text_response("405: Method Not Allowed", 405)
-            return text_response("404: Not Found", 404)
+            methods = set()
+            for (method, pattern), h in self.routes.items():
+                info = self._match(pattern, req.path)
+                if info is None:
+                    continue
+                methods.add(method)
+                if method == req.method:
+                    handler, req.match_info = h, info
+                    break
+            if handler is None:
+                if methods:
+                    return text_response("405: Method Not Allowed", 405)
+                return text_response("404: Not Found", 404)
         try:
             return await handler(req)
         except (ConnectionError, asyncio.CancelledError):
@@ -338,6 +373,12 @@ class ClientResponse:
             self._mode, self._left = "close", 0
             self._keep = False
         self._done = self._mode == "length" and self._left == 0
+
+    @property
+    def close_delimited(self) -> bool:
+        """The body ends where the connection ends (neither a length nor
+        chunks): a reset reads as its end."""
+        return self._mode == "close"
 
     @property
     def content_type(self) -> str:

@@ -27,13 +27,21 @@ What this data plane carries: ``POST /v1/chat/completions``,
 ``GET /v1/models``, ``/health``, ``/metrics``, ``/usage``,
 ``/fleet/state``, ``/fleet/metrics`` and ``/debug/decisions``; retry
 and fallback over priorities, the circuit breaker, session and prefix
-affinity derived from the body, the prompt-length estimate. The
-reference's mid-stream migrator, fleet controller, quotas, batch-tier
-proxy, upstream auth, provider translators, Anthropic front, access log,
-OpenInference and gateway spans, and MCP proxy are not carried; the
-config refuses what would need them (``config/model.py``). With no span
-of its own the gateway relays the caller's trace-context headers to the
-replica verbatim, as the reference does with tracing off.
+affinity derived from the body, the prompt-length estimate; the fleet
+operations: token quotas checked at admission and drawn down at the
+end of a request (``gateway/ratelimit.py``), the mid-stream migrator
+(``_Migrator``: a young stream of a prefill-pressured replica, or any
+stream of a draining one, moved to a sibling through the replicas'
+``/migrate`` routes and spliced into the client's stream), and one
+fleet controller per pool that configures one
+(``gateway/controller.py``: autoscaling, lossless drain, failover, a
+launcher of replica processes that the gateway's shutdown stops). The
+reference's batch-tier proxy, upstream auth, provider translators,
+Anthropic front, access log, OpenInference and gateway spans, and MCP
+proxy are not carried; the config refuses what would need them
+(``config/model.py``). With no span of its own the gateway relays the
+caller's trace-context headers to the replica verbatim, as the
+reference does with tracing off.
 """
 
 from __future__ import annotations
@@ -59,6 +67,11 @@ from aigw_tpu_torch.config.model import (
 )
 from aigw_tpu_torch.config.runtime import RuntimeBackend, RuntimeConfig
 from aigw_tpu_torch.gateway.circuit import CircuitBreaker
+from aigw_tpu_torch.gateway.controller import (
+    ControllerConfig,
+    FleetController,
+    build_launcher,
+)
 from aigw_tpu_torch.gateway.costs import TokenUsage
 from aigw_tpu_torch.gateway.fleetstate import (
     DecisionRing,
@@ -67,6 +80,7 @@ from aigw_tpu_torch.gateway.fleetstate import (
 )
 from aigw_tpu_torch.gateway.http import (
     ClientError,
+    ClientPayloadError,
     ClientResponse,
     HTTPClient,
     HTTPServer,
@@ -104,6 +118,7 @@ from aigw_tpu_torch.gateway.usage import UsageLedger
 from aigw_tpu_torch.obs.metrics import (
     GenAIMetrics,
     RequestMetrics,
+    render_controller_gauges,
     render_fleet_gauges,
     render_usage_gauges,
 )
@@ -250,6 +265,8 @@ class GatewayServer:
         self.port = 0
         self._pickers: dict[str, EndpointPicker] = {}
         self._picker_tasks: set[asyncio.Task] = set()
+        # one lifecycle manager per backend pool with a `controller`
+        self._controllers: dict[str, FleetController] = {}
         self._build_pickers(runtime)
 
     # -- lifecycle --------------------------------------------------------
@@ -258,16 +275,23 @@ class GatewayServer:
         return self._runtime
 
     async def start(self, host: str = "127.0.0.1", port: int = 1975) -> int:
-        """Start the pickers' polls and listen; returns the bound port."""
+        """Start the pickers' polls and the controllers' loops and
+        listen; returns the bound port."""
         for picker in self._pickers.values():
             await picker.start()
+        for ctl in self._controllers.values():
+            await ctl.start()
         self.port = await self.http.start(host, port)
         return self.port
 
     async def stop(self, grace: float = 0.0) -> None:
         """Stop listening; after ``grace`` seconds for the requests in
-        flight, close their connections, the polls and the ledger."""
+        flight, close their connections, the controllers (and every
+        replica process their launchers started), the polls and the
+        ledger."""
         await self.http.stop(grace)
+        for ctl in self._controllers.values():
+            await ctl.stop()
         for picker in self._pickers.values():
             await picker.stop()
         self.client.close()
@@ -300,7 +324,8 @@ class GatewayServer:
     def set_runtime(self, rc: RuntimeConfig) -> None:
         """Hot-swap the config (the watcher's callback). Pickers whose
         endpoint pools are unchanged are kept, so telemetry and session
-        affinity survive reloads."""
+        affinity survive reloads, and so are their controllers when
+        their blocks are unchanged too."""
         if rc.config.usage != self._runtime.config.usage:
             # metering knobs changed: rebuild (a journal-backed ledger
             # replays itself, so totals survive the swap)
@@ -314,14 +339,21 @@ class GatewayServer:
         except RuntimeError:
             loop = None
         old = self._pickers
+        old_ctl = self._controllers
         self._build_pickers(rc)
         if loop is not None:
+            for name, ctl in old_ctl.items():
+                if self._controllers.get(name) is not ctl:
+                    self._spawn(loop, ctl.stop())
             for name, picker in old.items():
                 if self._pickers.get(name) is not picker:
                     self._spawn(loop, picker.stop())
             for name, picker in self._pickers.items():
                 if old.get(name) is not picker:
                     self._spawn(loop, picker.start())
+            for name, ctl in self._controllers.items():
+                if old_ctl.get(name) is not ctl:
+                    self._spawn(loop, ctl.start())
 
     def _spawn(self, loop: asyncio.AbstractEventLoop, coro) -> None:
         # the loop holds tasks weakly; keep them until they finish
@@ -359,6 +391,30 @@ class GatewayServer:
         # keyed by replica address
         for picker in self._pickers.values():
             picker.breaker = self.circuit
+        self._build_controllers(rc)
+
+    def _build_controllers(self, rc: RuntimeConfig) -> None:
+        controllers: dict[str, FleetController] = {}
+        for name, rb in rc.backends.items():
+            raw = rb.backend.controller
+            picker = self._pickers.get(name)
+            if raw is None or picker is None:
+                continue
+            cfg = ControllerConfig.parse(_thaw(raw))
+            if not cfg.enabled:
+                continue
+            prev = self._controllers.get(name)
+            if (prev is not None and prev.picker is picker
+                    and getattr(prev, "_config_raw", None) == raw):
+                controllers[name] = prev  # unchanged: keep its state
+                continue
+            ctl = FleetController(
+                picker=picker, cfg=cfg,
+                launcher=build_launcher(cfg.launcher),
+                decisions=self.decisions, backend=name)
+            ctl._config_raw = raw  # type: ignore[attr-defined]
+            controllers[name] = ctl
+        self._controllers = controllers
 
     def _on_circuit_transition(self, key: str, opened: bool,
                                failures: int) -> None:
@@ -413,6 +469,11 @@ class GatewayServer:
             name: picker.fleet.snapshot(picker.state)
             for name, picker in self._pickers.items()
         }
+        for name, ctl in self._controllers.items():
+            if name in backends:
+                # the lifecycle manager: scaling decisions, drains in
+                # progress and its bounded action ring
+                backends[name]["controller"] = ctl.snapshot()
         return json_response({
             "ts": round(time.time(), 3),
             "backends": backends,
@@ -453,6 +514,10 @@ class GatewayServer:
             label = name if len(self._pickers) > 1 else ""
             chunks.append(render_fleet_gauges(
                 picker.fleet.rollup(picker.state), backend=label))
+            ctl = self._controllers.get(name)
+            if ctl is not None:
+                chunks.append(render_controller_gauges(
+                    ctl.gauge_values(), backend=label))
         chunks.append(
             b"# TYPE aigw_fleet_scrape_errors gauge\n"
             b"aigw_fleet_scrape_errors %d\n" % errors)
@@ -617,7 +682,8 @@ class GatewayServer:
                 logger.warning(
                     "backend %s failed (%s), trying next", rb.backend.name, e
                 )
-                self.circuit.record_failure(rb.backend.name)
+                if e.count_failure:
+                    self.circuit.record_failure(rb.backend.name)
                 last_error = (e.status, e.client_body)
                 self.metrics.requests_total.labels(
                     route_name, rb.backend.name, str(e.status)
@@ -733,6 +799,10 @@ class GatewayServer:
         client_headers: dict[str, str],
     ) -> "Response | StreamResponse":
         backend = rb.backend
+        limited = await self._check_quota(client_headers, rb, req_metrics,
+                                          error_body)
+        if limited is not None:
+            return limited
         translator = get_translator(
             endpoint,
             front_schema,
@@ -892,9 +962,21 @@ class GatewayServer:
                         prefix_key_used, chain_hex)
             ctype = resp.headers.get("content-type", "")
             if tx.stream and "text/event-stream" in ctype:
+                migrator = None
+                if (backend.migration and dest
+                        and backend.name in self._pickers
+                        and endpoint in (Endpoint.CHAT_COMPLETIONS,
+                                         Endpoint.COMPLETIONS)):
+                    # this stream may be handed to a decode-leaning
+                    # replica mid-flight if the source's prefill queue
+                    # backs up, or to any sibling if the source drains
+                    migrator = _Migrator(
+                        picker=self._pickers[backend.name],
+                        backend=backend, src=dest, client=self.client,
+                        decision=decision)
                 return await self._stream_response(
                     request, resp, translator, rb, req_metrics, route_name,
-                    client_headers, endpoint=endpoint)
+                    client_headers, endpoint=endpoint, migrator=migrator)
             try:
                 raw = await resp.read()
             except (ClientError, asyncio.TimeoutError) as e:
@@ -926,7 +1008,8 @@ class GatewayServer:
             usage = rx.usage
             req_metrics.response_model = rx.model
             req_metrics.finish(usage)
-            self._sink_costs(usage, req_metrics, route_name, client_headers)
+            await self._sink_costs(usage, req_metrics, route_name,
+                                   client_headers)
             self.metrics.requests_total.labels(
                 route_name, backend.name, str(resp.status)
             ).inc()
@@ -949,13 +1032,22 @@ class GatewayServer:
         route_name: str,
         client_headers: dict[str, str],
         endpoint: Endpoint | None = None,
+        migrator: "_Migrator | None" = None,
     ) -> StreamResponse:
         """Relay the SSE stream through the translator. Nothing here
         buffers beyond one complete event: upstream bytes are handled as
         they arrive, every complete, valid event is written and drained
         at once (only a partial tail waits for its terminator), and a
         malformed event is never relayed: the stream ends with the error
-        event instead."""
+        event instead. With a ``migrator``, the source's stream may be
+        cut at a token boundary and the target's continuation relayed
+        after it.
+
+        A port replica ends its SSE body with its connection, so a
+        replica that dies mid-stream reads as the body's end; such a
+        stream that ends with no ``[DONE]`` and was not cut by the
+        migrator ends with the typed error event too, as a torn chunked
+        body does on the reference's replicas."""
         out = StreamResponse(
             status=200,
             headers={
@@ -1019,14 +1111,58 @@ class GatewayServer:
             if err is not None:
                 raise err
 
+        def _torn(r: ClientResponse, tail: bytes) -> bool:
+            # a close-delimited SSE body that ended before its [DONE]
+            return r.close_delimited and b"[DONE]" not in tail
+
         try:
+            tail = b""
             async for chunk in resp.iter_any():
+                tail = (tail + chunk)[-32:]
                 rx = translator.response_body(chunk, False)
                 usage = usage.merge_override(rx.usage)
                 model = rx.model or model
                 req_metrics.record_tokens_emitted(rx.tokens_emitted)
                 if rx.body:
                     await _relay(rx.body)
+                if migrator is not None:
+                    # may cut the session at the source: its stream then
+                    # ends at a token boundary and this loop runs to its
+                    # end, relaying every token before the cut
+                    await migrator.maybe_export(
+                        req_metrics.tokens_seen,
+                        req_metrics.upstream_request_id)
+            torn = (migrator is None or migrator.export is None) \
+                and _torn(resp, tail)
+            if migrator is not None and migrator.export is not None:
+                # splice the target's continuation: its frames carry the
+                # same response id, terminal frames included, so the
+                # client sees one stream
+                cont = await migrator.start_continuation()
+                if cont is None:
+                    # resume from the exported state on another sibling:
+                    # the blob is in hand and no continuation byte was
+                    # relayed yet
+                    cont = await migrator.retry_continuation()
+                if cont is None:
+                    # cut and resumed nowhere: a real mid-stream loss,
+                    # ended with the typed error event below
+                    raise ClientPayloadError(
+                        "migration continuation failed after export")
+                self.metrics.migrations_total.labels(
+                    route_name, rb.backend.name).inc()
+                async with cont:
+                    tail = b""
+                    async for chunk in cont.iter_any():
+                        tail = (tail + chunk)[-32:]
+                        rx = translator.response_body(chunk, False)
+                        usage = usage.merge_override(rx.usage)
+                        model = rx.model or model
+                        req_metrics.record_tokens_emitted(
+                            rx.tokens_emitted)
+                        if rx.body:
+                            await _relay(rx.body)
+                    torn = _torn(cont, tail)
             rx = translator.response_body(b"", True)
             usage = usage.merge_override(rx.usage)
             model = rx.model or model
@@ -1040,6 +1176,9 @@ class GatewayServer:
                     raise err
                 await out.write(sse_buf)
                 sse_buf = b""
+            if torn:
+                raise ClientPayloadError("upstream stream ended before "
+                                         "its [DONE]")
         except (ClientError, asyncio.TimeoutError, oai.SchemaError) as e:
             # mid-stream failure: the client already has bytes, so the
             # stream ends with an SSE error event, never a retry
@@ -1055,25 +1194,64 @@ class GatewayServer:
             )
         req_metrics.response_model = model
         req_metrics.finish(usage)
-        self._sink_costs(usage, req_metrics, route_name, client_headers)
+        await self._sink_costs(usage, req_metrics, route_name,
+                               client_headers)
         self.metrics.requests_total.labels(route_name, rb.backend.name,
                                            "200").inc()
         await out.write_eof()
         return out
 
-    def _sink_costs(
+    async def _check_quota(self, client_headers, rb, req_metrics,
+                           error_body) -> Response | None:
+        """Admission against the token quotas; a 429 ``Response`` when a
+        rule's budget is spent, else None. Consumption happens at the
+        end of the request, in ``_sink_costs``. A shared (flock'd file
+        or quota service) backend can block, so it runs off the event
+        loop; the in-memory limiter is called inline."""
+        limiter = self._runtime.rate_limiter
+        if limiter is None or not limiter.rules:
+            return None
+        if limiter.backend is not None:
+            ok, rule = await asyncio.to_thread(
+                limiter.check,
+                req_metrics.request_model, rb.backend.name, client_headers)
+        else:
+            ok, rule = limiter.check(
+                req_metrics.request_model, rb.backend.name, client_headers)
+        if ok:
+            return None
+        client_err = error_body(
+            f"token quota exceeded (rule {rule.name!r})",
+            type_="rate_limit_error")
+        if rule.backend:
+            # a backend-scoped budget: other backends may still have
+            # budget, so fail over, without a circuit-breaker mark (the
+            # backend is healthy; a refilled window must not find its
+            # circuit open)
+            raise _RetriableUpstreamError(429, client_err,
+                                          f"quota {rule.name}",
+                                          count_failure=False)
+        req_metrics.finish(TokenUsage(), error_type="429")
+        return _error(429, client_err, {"retry-after": "1"})
+
+    async def _sink_costs(
         self,
         usage: TokenUsage,
         req_metrics: RequestMetrics,
         route_name: str,
         client_headers: dict[str, str],
     ) -> None:
-        """The end-of-request cost metadata, keyed by the request model:
-        every finished request is recorded in the usage ledger (with the
-        replica's MeterRecord from ``usage.aigw_meter``) and its priced
-        cost stamped on its decision-ring entry."""
+        """The end-of-request cost metadata, keyed by the request model
+        (the value ``_check_quota`` matched, so a model-scoped budget
+        holds when the replica reports another response model): every
+        finished request is recorded in the usage ledger (with the
+        replica's MeterRecord from ``usage.aigw_meter``), its priced cost
+        stamped on its decision-ring entry, and its costs drawn from the
+        matching quotas."""
+        limiter = self._runtime.rate_limiter
+        has_quota = limiter is not None and limiter.rules
         ledger = self.usage_ledger
-        if ledger is None:
+        if ledger is None and not has_quota:
             return
         model = req_metrics.request_model
         backend = req_metrics.provider
@@ -1082,21 +1260,198 @@ class GatewayServer:
             usage, model=model, backend=backend, route_name=route_name,
             tenant=tenant,
         )
-        # the ledger's cost is the sum of the configured cost metrics (0
-        # with none; the token and residency columns still count)
-        total_cost = sum(costs.values())
-        ledger.record(tenant, model, usage, cost=total_cost)
-        req_metrics.decision["cost"] = total_cost
-        if costs:
-            req_metrics.decision["costs"] = dict(costs)
-            req_metrics.costs = dict(costs)
+        if ledger is not None:
+            # the ledger's cost is the sum of the configured cost
+            # metrics (0 with none; the token and residency columns
+            # still count)
+            total_cost = sum(costs.values())
+            ledger.record(tenant, model, usage, cost=total_cost)
+            req_metrics.decision["cost"] = total_cost
+            if costs:
+                req_metrics.decision["costs"] = dict(costs)
+        if not costs:
+            return
+        req_metrics.costs = dict(costs)
+        if has_quota:
+            if limiter.backend is not None:
+                # a shared store: lock contention must not stall the loop
+                await asyncio.to_thread(
+                    limiter.consume, costs, model, backend, client_headers)
+            else:
+                limiter.consume(costs, model, backend, client_headers)
+
+
+class _Migrator:
+    """The gateway side of moving ONE streaming session between
+    replicas. While the gateway relays a stream from its source replica
+    it watches the picker's polled telemetry; when the source's
+    admission queue is deep (prefill pressure), the session is still
+    young, and a decode-leaning sibling exists (or at once, to any
+    sibling that can take it, when the source drains), it cuts the
+    session through the source's ``/migrate/export`` and splices the
+    target's ``/migrate/import`` continuation: the client sees one SSE
+    stream under one response id.
+
+    At most one migration attempt per request; a declined or failed
+    export leaves the source serving untouched."""
+
+    def __init__(self, picker: EndpointPicker, backend, src: str,
+                 client: HTTPClient, decision: dict | None = None):
+        self.picker = picker
+        self.backend = backend
+        self.src = src
+        self.client = client
+        self.attempted = False
+        self.export: dict | None = None
+        self.target: str | None = None
+        #: the request's audit-ring entry: a fired migration is stamped
+        #: there, so /debug/decisions shows the trigger beside the pick
+        self.decision = decision
+
+    def _drain_requested(self) -> bool:
+        """The source replica is draining (a controller's scale-in or
+        retirement, an operator's /drain, or its own /state): every
+        migration-capable stream moves off whatever its queue or age."""
+        h = self.picker.fleet.health.get(self.src)
+        return h is not None and h.draining
+
+    def _pick_target(self, force: bool = False,
+                     exclude: set | frozenset = frozenset()
+                     ) -> str | None:
+        src_st = self.picker.state.get(self.src)
+        if src_st is None or not src_st.healthy:
+            return None
+        if not src_st.migration_capable:
+            # the replica reports `migration: false` on /state (its
+            # prefix cache is off: no refcounted page export): stop
+            # checking this stream instead of getting a 409
+            self.attempted = True
+            return None
+        if not force and src_st.queued < self.backend.migration_queue_depth:
+            return None  # no prefill pressure at the source
+        now = self.picker.clock()
+        best: str | None = None
+        best_pred = 0.0
+        for addr, st in self.picker.state.items():
+            if addr == self.src or addr in exclude or not st.healthy:
+                continue
+            if not self.picker.is_routable(addr):
+                continue  # down, draining or breaker-open: not a home
+            if not st.migration_capable:
+                continue  # cannot adopt a page chain
+            if now - st.updated_at >= self.picker.STALE_AFTER:
+                continue
+            if st.queued > 0 or st.active_slots >= st.max_slots:
+                continue  # not decode-leaning: no slot for the stream
+            p = self.picker.predicted_ttft_ms(st)
+            p = 0.0 if p is None else p
+            if best is None or p < best_pred:
+                best, best_pred = addr, p
+        return best
+
+    async def maybe_export(self, tokens_seen: int, rid: str) -> None:
+        """The check after each relayed chunk (dict reads until the
+        trigger fires). On the trigger, POSTs the source's export route;
+        the source then ends its stream at a token boundary and the
+        relay loop runs to its end, relaying every token before the
+        cut."""
+        if self.attempted or not rid or tokens_seen < 1:
+            return
+        draining = self._drain_requested()
+        if not draining and tokens_seen > self.backend.migration_young_tokens:
+            self.attempted = True  # matured past migratability
+            return
+        target = self._pick_target(force=draining)
+        if target is None:
+            return
+        self.attempted = True
+        try:
+            async with await self.client.post(
+                    f"http://{self.src}/migrate/export",
+                    data=json.dumps({"request_id": rid}).encode(),
+                    headers={"content-type": "application/json"},
+                    timeout=Timeout(total=60)) as r:
+                if r.status != 200:
+                    # 409 = not now (finished or ineligible): the source
+                    # keeps serving, nothing to splice
+                    await r.read()
+                    logger.info("migration export declined (%d)",
+                                r.status)
+                    return
+                self.export = await r.json()
+            self.target = target
+            if self.decision is not None:
+                self.decision["migrated_to"] = target
+                self.decision["migration_trigger"] = {
+                    "src_queued": int(getattr(
+                        self.picker.state.get(self.src), "queued", 0)),
+                    "tokens_seen": tokens_seen,
+                    "drain": draining,
+                }
+            logger.info("migrating session %s: %s -> %s", rid, self.src,
+                        target)
+        except (ClientError, asyncio.TimeoutError, ValueError) as e:
+            logger.warning("migration export failed: %s", e)
+
+    async def retry_continuation(self) -> ClientResponse | None:
+        """Resume from the exported state on a DIFFERENT sibling: the
+        cut happened and the blob is in hand, so when the chosen target
+        died or refused the import any other idle migration-capable
+        replica can adopt the chain. The client's stream stays gap-free:
+        the continuation starts at the cut, and no continuation byte was
+        relayed before this retry. None when there is no other target
+        (the caller ends the stream with the typed error event)."""
+        if self.export is None or self.target is None:
+            return None
+        failed = self.target
+        nxt = self._pick_target(force=True, exclude={failed})
+        if nxt is None:
+            return None
+        self.target = nxt
+        if self.decision is not None:
+            self.decision.setdefault(
+                "migration_retargeted_from", []).append(failed)
+            self.decision["migrated_to"] = nxt
+        logger.info("migration continuation retarget %s -> %s",
+                    failed, nxt)
+        return await self.start_continuation()
+
+    async def start_continuation(self) -> ClientResponse | None:
+        """Hand the blob to the target replica; the SSE response that
+        continues the client's stream (the original response id), or
+        None when the import failed."""
+        if self.export is None or self.target is None:
+            return None
+        try:
+            r = await self.client.post(
+                f"http://{self.target}/migrate/import",
+                data=json.dumps(self.export).encode(),
+                headers={"content-type": "application/json"},
+                timeout=Timeout(
+                    total=self.backend.request_timeout,
+                    sock_read=self.backend.stream_idle_timeout))
+            if r.status != 200:
+                body = await r.read()
+                r.release()
+                logger.warning("migration import failed (%d): %s",
+                               r.status, body[:200])
+                return None
+            return r
+        except (ClientError, asyncio.TimeoutError) as e:
+            logger.warning("migration import failed: %s", e)
+            return None
 
 
 class _RetriableUpstreamError(Exception):
-    def __init__(self, status: int, client_body: bytes, reason: str):
+    def __init__(self, status: int, client_body: bytes, reason: str,
+                 count_failure: bool = True):
         super().__init__(reason)
         self.status = status
         self.client_body = client_body
+        #: whether the circuit breaker counts this as a backend failure
+        #: (a quota refusal fails over without one: the backend is
+        #: healthy)
+        self.count_failure = count_failure
 
 
 async def run_gateway(runtime: RuntimeConfig, host: str = "127.0.0.1",

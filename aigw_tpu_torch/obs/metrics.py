@@ -406,6 +406,35 @@ def render_usage_gauges(snapshot: dict) -> bytes:
     return ("\n".join(lines) + "\n").encode()
 
 
+#: ``FleetController.gauge_values()`` key → the gauge the gateway's
+#: ``GET /fleet/metrics`` renders for a pool with a controller
+CONTROLLER_GAUGES: tuple[tuple[str, str], ...] = (
+    ("scale_outs", "aigw_ctl_scale_outs_total"),
+    ("scale_ins", "aigw_ctl_scale_ins_total"),
+    ("drains", "aigw_ctl_drains_total"),
+    ("retires", "aigw_ctl_retires_total"),
+    ("failovers", "aigw_ctl_failovers_total"),
+    ("launch_failures", "aigw_ctl_launch_failures_total"),
+    ("launches_in_flight", "aigw_ctl_launches_in_flight"),
+    ("drains_in_progress", "aigw_ctl_drains_in_progress"),
+    ("replicas_min", "aigw_ctl_replicas_min"),
+    ("replicas_max", "aigw_ctl_replicas_max"),
+    ("replicas_live", "aigw_ctl_replicas_live"),
+    ("idle_streak", "aigw_ctl_idle_streak"),
+)
+
+
+def render_controller_gauges(values: dict, backend: str = "") -> bytes:
+    """A FleetController's gauge dict → the ``aigw_ctl_*`` gauges,
+    labeled by backend pool when the gateway serves more than one."""
+    sel = f'{{backend="{backend}"}}' if backend else ""
+    lines = []
+    for key, name in CONTROLLER_GAUGES:
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name}{sel} {values.get(key, 0)}")
+    return ("\n".join(lines) + "\n").encode()
+
+
 #: EngineStats attribute → Prometheus gauge name, the reference's map
 #: (same order; none is in ``GAUGES_NOT_PORTED``)
 ENGINE_GAUGES: tuple[tuple[str, str], ...] = (

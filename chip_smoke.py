@@ -243,7 +243,24 @@ Phases (any failure exits non-zero):
    and gets none of the next bursts, ``/usage``'s token totals equal the
    replicas' ``meter_*`` deltas, K1 and K2 on each replica; printed:
    TTFT p50 and tokens/s sent straight to a replica and through the
-   gateway, in turns;
+   gateway, in turns; the gateway's fleet operations (the
+   ``serve_fleet`` line, after ``serve_gateway``; launch counts zeroed
+   once both replicas are up, read at the end): replica B in this
+   process (``tpuserve/child.py``'s ``build_server`` on ``fleet_spec``:
+   Llama-3-8B widths cut to ``FLEET_LAYERS`` (4) layers, the kernel
+   path, the prefix cache on, ``init_params(0)``), the port's gateway
+   in this process with ``migration``, a ``controller`` whose ``local``
+   launcher has the same spec on the card, and a TotalToken quota kept
+   by the port's quota service; replica A started by that launcher as a
+   child process and added to the pool; gated: both ``up``, a pinned
+   greedy chat through the gateway on A drained mid-stream by
+   ``drain_and_retire`` arrives whole and equal to the same chat sent
+   straight to B (B's continuation tokens equal the solo run's last
+   ones), the migration counted on the gateway and both replicas, A
+   exited 0 and retired with its lifecycle events, the quota's 429 with
+   the consumed budget equal to B's meter, K1 and K2 on B; printed: A's
+   boot seconds, the client's export gap, the drain's and the phase's
+   wall;
 5. every kernel against its plain PyTorch version on the card at the
    served shapes (each attention output element within 2**-7 of the
    plain output plus 2e-3, printed beside the mean |output|; K2's and
@@ -381,8 +398,8 @@ Phases (any failure exits non-zero):
    burst), on ``checkpoint``, on ``serve_defaults`` (bf16 and
    W8A16, the cold bursts), on ``embeddings`` and, the leader rank's,
    on ``serve_tp``, ``serve_sp`` (each with its W8A16 set) and
-   ``serve_ep``, and both replicas' on ``serve_gateway``), the card
-   line, then
+   ``serve_ep``, both replicas' on ``serve_gateway`` and replica B's on
+   ``serve_fleet``), the card line, then
    the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1547,8 +1564,10 @@ def decode_profile(torch, params, cfg, dev: str = "cuda",
         step()
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the trace records the device only: every number below reads kernel
+    # events, and recording each host op of an eager step cost seconds a
+    # profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
@@ -1669,8 +1688,7 @@ def prefill_profile(torch, params, cfg, seqs, dev: str = "cuda", lora=None,
         call()
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - t) * 1e3 / calls
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device only
         for _ in range(calls):
             call()
         torch.cuda.synchronize()
@@ -7308,6 +7326,360 @@ def serve_gateway(torch, params, launches: dict) -> dict:
     return out
 
 
+#: serve_fleet's depth: Llama-3-8B's widths, 4 of its 32 layers, and
+#: the sequence length its replicas are built for
+FLEET_LAYERS = 4
+FLEET_MODEL = "llama-3-8b-4-layers-fleet"
+FLEET_MAX_SEQ = 2048
+#: the drained stream's prompt (about 400 tokens: three full pages
+#: travel with the cut), its length, and the content frames it has
+#: streamed when the drain starts (once a poll has also seen it on A:
+#: the controller's drain waits for a poll that shows A empty)
+FLEET_PROMPT_BYTES = 400
+FLEET_TOKENS = 1024
+FLEET_DRAIN_AT = 8
+#: the TotalToken budget of one quota key; its window is longer than
+#: any run, so every request falls in one
+FLEET_QUOTA = 200
+FLEET_QUOTA_WINDOW_S = 1e9
+
+
+def fleet_spec(cfg) -> dict:
+    """The replicas' spec (``tpuserve/child.py``): the kernel path (K1,
+    K2) with the prefix cache on (a replica reports ``migration: true``
+    only with it), bf16 weights from seed 0 on the card."""
+    return {"model": FLEET_MODEL, "family": "llama",
+            "cfg": dataclasses.asdict(cfg), "batch": 8, "page": 128,
+            "k": 8, "quantize": "", "param_dtype": "bfloat16", "tp": 1,
+            "seed": 0, "device": "cuda",
+            "engine": {"attention_backend": "pallas-ragged",
+                       "decode_backend": "fused",
+                       "enable_prefix_cache": True}}
+
+
+def _fleet_stream(port: int, body: dict, headers=None, on_frame=None):
+    """A streamed chat: every content frame's (arrival time, text), the
+    finish reason, whether it ended with ``[DONE]``, whether an error
+    event came and the response's ``x-aigw-request-id``; ``on_frame(n)``
+    runs after the n-th content frame."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions",
+        data=json.dumps(body).encode(),
+        headers={"content-type": "application/json", **(headers or {})})
+    out = {"frames": [], "finish": None, "done": False, "error": None}
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out["rid"] = r.headers.get("x-aigw-request-id", "")
+        for line in r:
+            if not line.startswith(b"data: "):
+                continue
+            data = line[6:].strip()
+            if data == b"[DONE]":
+                out["done"] = True
+                break
+            ev = json.loads(data)
+            if "error" in ev:
+                out["error"] = ev["error"]
+                continue
+            for c in ev.get("choices") or []:
+                text = (c.get("delta") or {}).get("content") or ""
+                if text:
+                    out["frames"].append((time.monotonic(), text))
+                    if on_frame is not None:
+                        on_frame(len(out["frames"]))
+                out["finish"] = c.get("finish_reason") or out["finish"]
+    out["text"] = "".join(t for _t, t in out["frames"])
+    return out
+
+
+def serve_fleet(torch, launches: dict) -> dict:
+    """The gateway's fleet operations on the card: a replica launched
+    by the fleet controller, a lossless drain through the migrator, and
+    token quotas.
+
+    Replica B in this process (``tpuserve/child.py``'s ``build_server``
+    on ``fleet_spec``: Llama-3-8B widths cut to ``FLEET_LAYERS`` layers,
+    the kernel path, the prefix cache on, ``init_params(0)`` on the
+    card), the port's gateway in this process on its own event loop (one
+    TPUServe backend over B with ``migration: true``, a ``controller``
+    whose ``local`` launcher has the same spec, a TotalToken quota keyed
+    by ``x-user-id`` kept by the port's quota service through
+    ``AIGW_QUOTA_URL``), and replica A started by the controller's
+    launcher as a child process (``python -m
+    aigw_tpu_torch.tpuserve.child``) and added to the pool. Gates: (1) A
+    boots on the card and both are ``up`` on ``/fleet/state``; (2) a
+    greedy chat pinned to one byte token streamed straight to B (the
+    solo run), then through the gateway pinned to A, and after
+    ``FLEET_DRAIN_AT`` content frames ``drain_and_retire(A)``: one
+    complete stream (finish, ``[DONE]``, no error event) whose text
+    equals the solo run's, ``aigw_migrations_total`` one up, B's
+    ``migrations_in`` and A's last ``migrations_out`` one up, A exited
+    0 and left the pool, ``drain_start``, ``drain_complete`` and
+    ``retire`` in the controller's events and ``/debug/decisions``;
+    (3) completions for one key until a 429 with ``rate_limit_error``
+    and ``retry-after``: the consumed budget (the quota service's count)
+    equals B's ``meter_*`` token deltas over them, and another key is
+    served; (4) K1 and K2 on B, and B's K2 launches from the drain on
+    cover the continuation's tokens (``FLEET_LAYERS`` a token), which
+    equal the solo run's last tokens one for one (B's tokens tapped by
+    request id: the continuation keeps the stream's). Counts zeroed
+    once both replicas are up, read at the end (A's launches are its own
+    process's). Printed: A's boot seconds, the client's gap between the
+    last frame from A and the first from B, the drain's wall, the
+    phase's wall, with the card."""
+    import asyncio
+    import tempfile
+
+    from aigw_tpu_torch.config.model import Config
+    from aigw_tpu_torch.config.runtime import RuntimeConfig
+    from aigw_tpu_torch.gateway.ratelimit import quota_service
+    from aigw_tpu_torch.gateway.server import run_gateway
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.tpuserve.child import build_server
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=FLEET_LAYERS,
+                              max_seq_len=FLEET_MAX_SEQ)
+    spec = fleet_spec(cfg)
+    b = build_server(spec)
+    b.start()
+    tap = TokenTap(b.engine)
+    out: dict = {"layers": FLEET_LAYERS, "b_up_s": time.monotonic() - t_phase}
+    addr_b = f"127.0.0.1:{b.port}"
+    loop = asyncio.new_event_loop()
+    loop_thread = threading.Thread(target=loop.run_forever, daemon=True)
+    loop_thread.start()
+
+    def on(coro, timeout=600):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    qdir = tempfile.mkdtemp(prefix="aigw-quota-")
+    qsrv = quota_service(qdir)
+    gw = None
+    addr_a = None
+    try:
+        qport = on(qsrv.start("127.0.0.1", 0))
+        raw = {
+            "version": "v1",
+            "backends": [{
+                "name": "fleet", "schema": "TPUServe",
+                "endpoints": [addr_b], "picker_poll_interval": GW_POLL_S,
+                # a drain moves every stream, however old
+                "migration": True, "migration_young_tokens": 10 ** 6,
+                "controller": {
+                    "min_replicas": 1, "max_replicas": 2, "tick_s": 0.25,
+                    "idle_ticks": 10 ** 6, "drain_timeout_s": 120,
+                    "launcher": {"kind": "local", "spec": spec,
+                                 "boot_timeout_s": 600,
+                                 "term_grace_s": 60}}}],
+            "routes": [{"name": "serving", "rules": [
+                {"model_prefixes": ["llama"], "backends": ["fleet"]}]}],
+            "models": [FLEET_MODEL],
+            "llm_request_costs": [{"metadata_key": "total_tokens",
+                                   "type": "TotalToken"}],
+            "quotas": [{"name": "per-user", "metadata_key": "total_tokens",
+                        "limit": FLEET_QUOTA,
+                        "window_seconds": FLEET_QUOTA_WINDOW_S,
+                        "client_key_header": "x-user-id"}]}
+        prior = os.environ.get("AIGW_QUOTA_URL")
+        os.environ["AIGW_QUOTA_URL"] = f"http://127.0.0.1:{qport}"
+        try:
+            runtime = RuntimeConfig.build(Config.parse(raw))
+        finally:
+            if prior is None:
+                del os.environ["AIGW_QUOTA_URL"]
+            else:
+                os.environ["AIGW_QUOTA_URL"] = prior
+        gw = on(run_gateway(runtime, port=0))
+        ctl = gw._controllers["fleet"]
+        launcher = ctl.launcher
+        # (1) A through the controller's launcher, then into the pool
+        t = time.monotonic()
+        addr_a = on(launcher.launch())
+        ctl.picker.add_endpoint(addr_a)
+        out["a_launch_s"], out["a_boot_s"] = launcher.boot_seconds[addr_a]
+        port_a = int(addr_a.split(":")[1])
+
+        def health(addr):
+            reps = _gw_json(gw.port, "/fleet/state")["backends"]["fleet"][
+                "replicas"]
+            return reps.get(addr, {}).get("health", {}).get("state")
+
+        _gw_wait(lambda: health(addr_a) == health(addr_b) == "up",
+                 "both fleet replicas up", timeout_s=120)
+        out["pool_up_s"] = time.monotonic() - t
+        reset_counts()
+        # (2) the solo run, then the same request drained off A
+        words = itertools.cycle("a stream that moves between replicas "
+                                "when one of them drains".split())
+        prompt = ""
+        while len(prompt) < FLEET_PROMPT_BYTES:
+            prompt += next(words) + " "
+        body = {"model": FLEET_MODEL, "max_tokens": FLEET_TOKENS,
+                "temperature": 0.0, "stream": True,
+                "logit_bias": {str(PIN_TOKEN): 100.0},
+                "messages": [{"role": "user", "content": prompt}]}
+        solo = _fleet_stream(b.port, body)
+        if not solo["done"] or solo["finish"] != "length":
+            raise AssertionError(f"serve_fleet: the solo run {solo}")
+        b0, a0 = _state(b.port), _state(port_a)
+        last_a: dict = {}
+        terminate = launcher.terminate
+
+        async def terminate_reading_state(addr):
+            # A's counters as it leaves: read just before it is stopped
+            last_a.update(await asyncio.to_thread(_state, port_a))
+            await terminate(addr)
+
+        launcher.terminate = terminate_reading_state
+        drain: dict = {}
+
+        async def timed_drain():
+            t0 = time.monotonic()
+            ok = await ctl.drain_and_retire(addr_a, reason="serve_fleet")
+            return ok, time.monotonic() - t0
+
+        def start_drain(n):
+            if "f" not in drain and n >= FLEET_DRAIN_AT and getattr(
+                    ctl.picker.state.get(addr_a), "active_slots", 0) > 0:
+                drain["t"] = time.monotonic()
+                drain["k2"] = read_counts()["fused_paged_decode"]
+                drain["f"] = asyncio.run_coroutine_threadsafe(
+                    timed_drain(), loop)
+
+        res = _fleet_stream(gw.port, body, {
+            "x-gateway-destination-endpoint": addr_a}, on_frame=start_drain)
+        if "f" not in drain:
+            raise AssertionError(f"serve_fleet: the stream ended before "
+                                 f"the drain: {len(res['frames'])} frames")
+        drained, drain_s = drain["f"].result(600)
+        k2 = read_counts()["fused_paged_decode"] - drain["k2"]
+        # B's tokens of the stream: its continuation, under the stream's
+        # id; one character each (pinned to one byte token), so the
+        # client's first frame from B is the one past the others'
+        cont = tap.toks.get(res["rid"], [])
+        solo_toks = tap.toks.get(solo["rid"], [])
+        cont_tokens = len(cont)
+        seen, first_b = 0, None
+        for i, (_t, x) in enumerate(res["frames"]):
+            if seen >= len(res["text"]) - cont_tokens:
+                first_b = i
+                break
+            seen += len(x)
+        gap = (res["frames"][first_b][0] - res["frames"][first_b - 1][0]
+               if first_b else None)
+        b1 = _state(b.port)
+        mets = _http(gw.port, "/metrics")[2]
+        migrated = [ln for ln in mets.splitlines()
+                    if ln.startswith("aigw_migrations_total{")]
+        events = [e["action"] for e in ctl.events]
+        lifecycles = {d.get("lifecycle") for d in _gw_json(
+            gw.port, "/debug/decisions?limit=1000")["decisions"]}
+        out["drain"] = {
+            "tokens": len(res["text"]), "drained": drained,
+            "drain_s": drain_s, "export_gap_s": gap,
+            "continuation_tokens": cont_tokens, "k2_after_drain": k2,
+            "migrations_in": b1["migrations_in"] - b0["migrations_in"],
+            "migrations_out": last_a.get("migrations_out", -1)
+            - a0["migrations_out"], "a_exit": launcher.returncode(addr_a),
+            "migrations_total": migrated, "events": events}
+        bad = []
+        if not res["done"] or res["error"] or res["finish"] != "length":
+            bad.append(f"stream {res['finish']} {res['done']} "
+                       f"{res['error']}")
+        if res["text"] != solo["text"]:
+            bad.append(f"text {len(res['text'])} != solo "
+                       f"{len(solo['text'])} characters")
+        if not cont or cont != solo_toks[len(solo_toks) - cont_tokens:] \
+                or first_b is None:
+            bad.append(f"B's {cont_tokens} continuation tokens against "
+                       f"the solo run's {len(solo_toks)}")
+        if not drained:
+            bad.append("the drain timed out with live slots")
+        if migrated != ['aigw_migrations_total{backend="fleet",'
+                        'route="serving"} 1.0']:
+            bad.append(f"migrations_total {migrated}")
+        if out["drain"]["migrations_in"] != 1 \
+                or out["drain"]["migrations_out"] != 1:
+            bad.append("replica migration counters")
+        if out["drain"]["a_exit"] != 0 or addr_a in ctl.picker.state \
+                or health(addr_a) is not None:
+            bad.append("A did not exit 0 and leave the pool")
+        for action in ("drain_start", "drain_complete", "retire"):
+            if action not in events or action not in lifecycles:
+                bad.append(f"no {action} event")
+        if cont_tokens < 1 or k2 < FLEET_LAYERS * (cont_tokens - 1):
+            bad.append(f"K2 launches {k2} on B for {cont_tokens} "
+                       f"continuation tokens")
+        if bad:
+            raise AssertionError(f"serve_fleet: drain: {bad}; "
+                                 f"{out['drain']}")
+        # (3) the quota: one key until its 429, another served
+        m0 = _state(b.port)
+        sent, usage_sum, limited = 0, 0, None
+        for i in range(40):
+            st_, hdr, raw_ = _post_raw(gw.port, "/v1/completions", json.dumps({
+                "model": FLEET_MODEL, "prompt": f"quota request {i} of u1",
+                "max_tokens": 16, "temperature": 0.0}).encode(),
+                {"x-user-id": "u1"})
+            if st_ != 200:
+                limited = (st_, {k.lower(): v for k, v in hdr.items()},
+                           json.loads(raw_))
+                break
+            sent += 1
+            usage_sum += json.loads(raw_)["usage"]["total_tokens"]
+        m1 = _state(b.port)
+        meter = sum(m1[k] - m0[k] for k in (
+            "meter_prefill_tokens", "meter_prefix_reused_tokens",
+            "meter_decode_tokens"))
+        start = time.time() // FLEET_QUOTA_WINDOW_S * FLEET_QUOTA_WINDOW_S
+        consumed = json.loads(_http(
+            qport, f"/v1/quota/per-user?key=u1&start={start}")[2])["used"]
+        other = _post_raw(gw.port, "/v1/completions", json.dumps({
+            "model": FLEET_MODEL, "prompt": "another key", "max_tokens": 4,
+            "temperature": 0.0}).encode(), {"x-user-id": "u2"})[0]
+        out["quota"] = {"limit": FLEET_QUOTA, "admitted": sent,
+                        "consumed": consumed, "usage_total_tokens": usage_sum,
+                        "meter_tokens": meter, "other_key": other}
+        if limited is None or limited[0] != 429 \
+                or limited[2]["error"]["type"] != "rate_limit_error" \
+                or limited[1].get("retry-after") != "1" \
+                or not consumed == usage_sum == meter >= FLEET_QUOTA \
+                or other != 200:
+            raise AssertionError(f"serve_fleet: quota {out['quota']}, "
+                                 f"{limited}")
+        counts = read_counts()
+        launches["serve_fleet"] = counts
+        if counts["ragged_prefill_attention"] <= 0 \
+                or counts["fused_paged_decode"] <= 0:
+            raise AssertionError(f"serve_fleet: K1/K2 not on B: {counts}")
+        out["launches"] = counts
+        fs = _gw_json(gw.port, "/fleet/state")["backends"]["fleet"]
+        out["controller"] = fs["controller"]["counters"]
+    finally:
+        if gw is not None:
+            # stops the controller and every replica its launcher started
+            on(gw.stop())
+        on(qsrv.stop())
+        loop.call_soon_threadsafe(loop.stop)
+        loop_thread.join(timeout=30)
+        b.stop()
+        b.engine = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.monotonic() - t_phase
+    out["card"] = card = nvidia_smi_line()
+    log(f"serve_fleet ({FLEET_LAYERS} layers, {card}): A booted through "
+        f"the launcher in {out['a_launch_s']:.1f} s (its own "
+        f"{out['a_boot_s']:.1f} s); drain {out['drain']['drain_s']:.2f} s, "
+        f"export gap seen by the client "
+        f"{1e3 * out['drain']['export_gap_s']:.1f} ms, "
+        f"{out['drain']['continuation_tokens']} of "
+        f"{out['drain']['tokens']} tokens from B; quota 429 after "
+        f"{out['quota']['admitted']} requests, {out['quota']['consumed']} "
+        f"tokens; phase {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -7558,6 +7930,10 @@ def main() -> int:
         # (serve_gateway)
         print(json.dumps({"serve_gateway": serve_gateway(
             torch, params, launches)}), flush=True)
+        # the fleet operations: a replica launched by the gateway's
+        # controller, drained through the migrator; quotas (serve_fleet)
+        print(json.dumps({"serve_fleet": serve_fleet(torch, launches)}),
+              flush=True)
     finally:
         srv.stop()
 
@@ -7787,6 +8163,9 @@ def main() -> int:
             row[f"launches_{phase}"] = launches[phase].get(row["name"], 0)
         # both replicas' (one process)
         row["launches_serve_gateway"] = launches["serve_gateway"].get(
+            row["name"], 0)
+        # replica B's (A launches in its own process)
+        row["launches_serve_fleet"] = launches["serve_fleet"].get(
             row["name"], 0)
         for phase in ("serve_defaults", "serve_defaults_w8a16",
                       "embeddings_bf16", "embeddings_w8a16"):

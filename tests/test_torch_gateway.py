@@ -451,14 +451,14 @@ def test_cli_run_serves_and_refuses_unported_fields(replicas, tmp_path):
         proc.stdout.close()
         proc.stderr.close()
     bad = tmp_path / "bad.json"
-    bad.write_text(json.dumps(_pool_config(["127.0.0.1:1"],
-                                           migration=True)))
+    bad.write_text(json.dumps(dict(_pool_config(["127.0.0.1:1"]),
+                                   mcp={"path": "/mcp"})))
     done = subprocess.run(
         [sys.executable, "-m", "aigw_tpu_torch", "run", str(bad),
          "--port", "0"], cwd=ROOT, capture_output=True, text=True,
         timeout=60)
     assert done.returncode == 1
-    assert "config error" in done.stderr and "'migration'" in done.stderr
+    assert "config error" in done.stderr and "'mcp'" in done.stderr
 
 
 class _Replay(BaseHTTPRequestHandler):

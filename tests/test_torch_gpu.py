@@ -1958,3 +1958,81 @@ def test_gateway_honours_a_drained_cuda_replica(cuda):
         wait(lambda: health(addrs[1]) == "up")
     finally:
         close()
+
+
+def _fleet_tiny_spec():
+    """A tiny-geometry replica on the card's kernel path (K1, K2) with
+    the prefix cache on, for ``tpuserve/child.py``."""
+    import dataclasses
+
+    from aigw_tpu_torch.models import llama
+
+    return {"model": "tiny-fleet-gpu", "family": "llama",
+            "cfg": dataclasses.asdict(llama.TINY), "batch": 2, "page": 16,
+            "k": 4, "quantize": "", "param_dtype": "bfloat16", "tp": 1,
+            "seed": 7, "device": "cuda",
+            "engine": {"attention_backend": "pallas-ragged",
+                       "decode_backend": "fused", "min_prefill_bucket": 16}}
+
+
+def test_launched_child_serves_like_an_in_process_replica(cuda):
+    """A replica the fleet controller's launcher boots on the card
+    (``python -m aigw_tpu_torch.tpuserve.child``) answers a greedy and a
+    seeded completion exactly as a replica built in this process from
+    the same spec; SIGTERM drains it and it exits 0."""
+    import asyncio
+    import json
+    import urllib.request
+
+    from aigw_tpu_torch.gateway.controller import LocalProcessLauncher
+    from aigw_tpu_torch.tpuserve.child import build_server
+
+    spec = _fleet_tiny_spec()
+    launcher = LocalProcessLauncher(spec, term_grace_s=60)
+    addr = asyncio.run(launcher.launch())
+    local = build_server(spec)
+    local.start()
+    try:
+        launch_s, boot_s = launcher.boot_seconds[addr]
+        assert 0 < boot_s <= launch_s
+        for body in ({"prompt": "hello there", "temperature": 0.0},
+                     {"prompt": "abc", "temperature": 0.9, "seed": 3}):
+            body = dict(body, model=spec["model"], max_tokens=16)
+            got = []
+            for port in (int(addr.split(":")[1]), local.port):
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/v1/completions",
+                    data=json.dumps(body).encode(),
+                    headers={"content-type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    reply = json.loads(r.read())
+                got.append((reply["choices"][0]["text"],
+                            reply["usage"]["completion_tokens"]))
+            assert got[0] == got[1] and got[0][1] == 16
+    finally:
+        local.stop()
+        asyncio.run(launcher.close())
+    assert launcher.returncode(addr) == 0
+
+
+def test_fleet_drain_on_cuda_replicas(cuda, monkeypatch):
+    """chip_smoke's ``serve_fleet`` at 2 layers of Llama-3-8B's widths:
+    a replica launched by the controller on the card, a stream drained
+    off it through the migrator equal to the solo run, the replica
+    exited 0 and retired, the quota's 429 against the replica's meter,
+    K1 and K2 on the in-process replica."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    from aigw_tpu_torch.ops import _build
+
+    _build.library()
+    monkeypatch.setattr(cs, "FLEET_LAYERS", 2)
+    launches: dict = {}
+    out = cs.serve_fleet(torch, launches)
+    assert out["drain"]["migrations_in"] == 1
+    assert out["drain"]["a_exit"] == 0
+    assert launches["serve_fleet"]["fused_paged_decode"] > 0

@@ -455,3 +455,43 @@ def test_gateway_modules_import_with_aiohttp_and_yaml_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_fleet_modules_import_with_aiohttp_and_yaml_blocked():
+    """The fleet operations (the controller and its launcher, the rate
+    limiter and the quota service, the launcher's child) import in a
+    fresh interpreter where jax, the reference package, aiohttp and yaml
+    cannot be imported; none of them, nor torch, is pulled in by the
+    imports (the child imports torch only when it builds its replica);
+    the CLI parses ``quota-service``."""
+    mods = ["aigw_tpu_torch.gateway.controller",
+            "aigw_tpu_torch.gateway.ratelimit",
+            "aigw_tpu_torch.tpuserve.child"]
+    for m in mods:
+        assert m in MODULES, m
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'aigw_tpu', 'aiohttp', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from aigw_tpu_torch.gateway.controller import (\n"
+        "    FleetController, LocalProcessLauncher, build_launcher)\n"
+        "from aigw_tpu_torch.gateway.ratelimit import (\n"
+        "    RateLimiter, quota_service)\n"
+        "from aigw_tpu_torch.tpuserve.child import main\n"
+        "from aigw_tpu_torch.cli import build_parser\n"
+        "a = build_parser().parse_args(['quota-service', '--dir', 'q'])\n"
+        "assert (a.cmd, a.port, a.dir) == ('quota-service', 1981, 'q')\n"
+        "l = build_launcher({'kind': 'local', 'spec': {'model': 'm'}})\n"
+        "assert l.command()[1:3] == ['-m', 'aigw_tpu_torch.tpuserve.child']\n"
+        "assert callable(quota_service) and callable(main)\n"
+        "bad = [k for k, v in sys.modules.items() if v and k.split('.')[0]\n"
+        "       in ('jax', 'jaxlib', 'aigw_tpu', 'aiohttp', 'yaml',\n"
+        "           'prometheus_client', 'torch')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
