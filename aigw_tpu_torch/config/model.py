@@ -227,8 +227,10 @@ def _check_picker_mode(mode: str) -> str:
     return mode
 
 
-#: backend schemas the port's gateway carries (the passthrough pair)
-PORTED_SCHEMAS = frozenset({"OpenAI", "TPUServe"})
+#: backend schemas the port's gateway carries: the OpenAI passthrough,
+#: port replicas, and self-hosted Cohere-compatible rerankers (no
+#: schema that needs upstream credentials)
+PORTED_SCHEMAS = frozenset({"OpenAI", "TPUServe", "Cohere"})
 
 
 def not_ported(where: str, field: str, what: str) -> ConfigError:
@@ -245,8 +247,8 @@ def _check_ported_backend(value: dict[str, Any]) -> None:
     name = (raw_schema.get("name") if isinstance(raw_schema, dict)
             else raw_schema)
     if name is not None and str(name) not in PORTED_SCHEMAS:
-        raise not_ported(where, "schema", f"{name}; OpenAI and TPUServe "
-                         "are ported")
+        raise not_ported(where, "schema", f"{name}; OpenAI, TPUServe "
+                         "and Cohere are ported")
     auth = value.get("auth")
     if auth and dict(auth) != {"kind": "None"}:
         raise not_ported(where, "auth", "upstream credentials")

@@ -21,11 +21,19 @@ usage mined on the side; at the end the request's token costs are
 computed (``gateway/costs.py``) and recorded with the replica's
 MeterRecord in the usage ledger (``gateway/usage.py``).
 
-What this data plane carries: ``POST /v1/chat/completions``,
-``/v1/completions`` and ``/v1/embeddings`` on an OpenAI front to
-``OpenAI``- and ``TPUServe``-schema backends, streamed and not;
-``GET /v1/models``, ``/health``, ``/metrics``, ``/usage``,
-``/fleet/state``, ``/fleet/metrics`` and ``/debug/decisions``; retry
+What this data plane carries: the reference's eleven client endpoints
+(``_ENDPOINTS``): chat, completions, embeddings, ``/tokenize``,
+``/v1/responses`` (mapped onto chat for ``TPUServe`` backends, with its
+transcript store for ``previous_response_id``), image generation and the
+three audio routes (the two multipart ones forwarded untranslated) on an
+OpenAI front to ``OpenAI``- and ``TPUServe``-schema backends; the
+Anthropic front (``/v1/messages``, mapped onto chat for both); and
+``/v2/rerank`` on a Cohere front to ``Cohere``-schema backends; streamed
+and not. ``GET /v1/models``, ``/health``, ``/metrics``, ``/usage``,
+``/fleet/state``, ``/fleet/metrics`` and ``/debug/decisions``; the
+batch tier's proxy (``/v1/files``, ``/v1/batches``: new batch state on
+the picker's batch choice, polls, cancels and fetches on the replica
+that holds the id); retry
 and fallback over priorities, the circuit breaker, session and prefix
 affinity derived from the body, the prompt-length estimate; the fleet
 operations: token quotas checked at admission and drawn down at the
@@ -36,9 +44,9 @@ stream of a draining one, moved to a sibling through the replicas'
 fleet controller per pool that configures one
 (``gateway/controller.py``: autoscaling, lossless drain, failover, a
 launcher of replica processes that the gateway's shutdown stops). The
-reference's batch-tier proxy, upstream auth, provider translators,
-Anthropic front, access log, OpenInference and gateway spans, and MCP
-proxy are not carried; the config refuses what would need them
+reference's upstream auth, hosted-provider translators, access log,
+OpenInference and gateway spans, and MCP proxy are not carried; the
+config refuses what would need them
 (``config/model.py``). With no span of its own the gateway relays the
 caller's trace-context headers to the replica verbatim, as the
 reference does with tracing off.
@@ -123,10 +131,16 @@ from aigw_tpu_torch.obs.metrics import (
     render_usage_gauges,
 )
 from aigw_tpu_torch.obs.tracing import relay_trace_headers
+from aigw_tpu_torch.schemas import anthropic as anth
 from aigw_tpu_torch.schemas import openai as oai
 from aigw_tpu_torch.schemas import typed as typed_schemas
 from aigw_tpu_torch.schemas import typed_response
-from aigw_tpu_torch.translate import Endpoint, TranslationError, get_translator
+from aigw_tpu_torch.translate import (
+    Endpoint,
+    RequestTx,
+    TranslationError,
+    get_translator,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -138,6 +152,31 @@ _ENDPOINTS: dict[str, tuple[Endpoint, APISchemaName, str]] = {
         Endpoint.COMPLETIONS, APISchemaName.OPENAI, "text_completion"),
     Endpoint.EMBEDDINGS.value: (
         Endpoint.EMBEDDINGS, APISchemaName.OPENAI, "embeddings"),
+    Endpoint.MESSAGES.value: (
+        Endpoint.MESSAGES, APISchemaName.ANTHROPIC, "chat"),
+    Endpoint.TOKENIZE.value: (
+        Endpoint.TOKENIZE, APISchemaName.OPENAI, "tokenize"),
+    Endpoint.RESPONSES.value: (
+        Endpoint.RESPONSES, APISchemaName.OPENAI, "responses"),
+    Endpoint.IMAGES_GENERATIONS.value: (
+        Endpoint.IMAGES_GENERATIONS, APISchemaName.OPENAI, "image_generation"),
+    Endpoint.RERANK.value: (
+        Endpoint.RERANK, APISchemaName.COHERE, "rerank"),
+    Endpoint.AUDIO_SPEECH.value: (
+        Endpoint.AUDIO_SPEECH, APISchemaName.OPENAI, "audio_speech"),
+    Endpoint.AUDIO_TRANSCRIPTIONS.value: (
+        Endpoint.AUDIO_TRANSCRIPTIONS, APISchemaName.OPENAI,
+        "audio_transcription"),
+    Endpoint.AUDIO_TRANSLATIONS.value: (
+        Endpoint.AUDIO_TRANSLATIONS, APISchemaName.OPENAI,
+        "audio_translation"),
+}
+
+#: endpoints whose request body is multipart/form-data, not JSON: they pass
+#: through untranslated, the model read from the form's ``model`` part
+_MULTIPART_ENDPOINTS = {
+    Endpoint.AUDIO_TRANSCRIPTIONS,
+    Endpoint.AUDIO_TRANSLATIONS,
 }
 
 
@@ -221,6 +260,31 @@ def _prompt_token_estimate(body: dict) -> int:
     return n // 4
 
 
+def _multipart_model(raw: bytes, content_type: str) -> str:
+    """The ``model`` form field of a multipart body, without touching
+    the (possibly large) audio parts; the boundary is parsed as the
+    rewrite path parses it (``translate/multipart.py``)."""
+    from aigw_tpu_torch.translate.multipart import parse_multipart_boundary
+
+    b = parse_multipart_boundary(content_type)
+    if not b:
+        return ""
+    boundary = b"--" + b.encode()
+    for part in raw.split(boundary):
+        header_end = part.find(b"\r\n\r\n")
+        if header_end < 0:
+            continue
+        headers = part[:header_end]
+        if b'name="model"' in headers:
+            return (
+                part[header_end + 4:]
+                .rstrip(b"\r\n-")
+                .decode("utf-8", errors="replace")
+                .strip()
+            )
+    return ""
+
+
 #: upstream statuses that move the request to the next backend
 _RETRIABLE_STATUS = {429, 500, 502, 503, 504}
 
@@ -228,6 +292,15 @@ _RETRIABLE_STATUS = {429, 500, 502, 503, 504}
 def _error(status: int, body: bytes,
            headers: dict[str, str] | None = None) -> Response:
     return Response(status, body, "application/json", headers)
+
+
+class _RawBody:
+    """A multipart request carried through phase 2 untranslated."""
+
+    def __init__(self, raw: bytes, content_type: str, model: str):
+        self.raw = raw
+        self.content_type = content_type
+        self.model = model
 
 
 class GatewayServer:
@@ -259,7 +332,16 @@ class GatewayServer:
             ("GET", "/fleet/state"): self._handle_fleet_state,
             ("GET", "/fleet/metrics"): self._handle_fleet_metrics,
             ("GET", "/debug/decisions"): self._handle_decisions,
+            # the batch tier: upload and create on a picker-chosen
+            # replica, later calls on the replica that holds the id
+            ("POST", "/v1/files"): self._handle_file_upload,
+            ("GET", "/v1/files/{fid}/content"): self._handle_batch_forward,
+            ("POST", "/v1/batches"): self._handle_batch_create,
+            ("GET", "/v1/batches/{bid}"): self._handle_batch_forward,
+            ("POST", "/v1/batches/{bid}/cancel"):
+                self._handle_batch_forward,
         })
+        self._batch_replica: dict[str, str] = {}
         self.http = HTTPServer(routes)
         self.client = HTTPClient()
         self.port = 0
@@ -461,6 +543,92 @@ class GatewayServer:
             return Response(200, body.encode(), "application/jsonl")
         return json_response(payload)
 
+    # -- the batch tier's proxy -------------------------------------------
+    #: bound on the (file or batch id → replica) map
+    _BATCH_MAP_MAX = 10_000
+
+    def _batch_pick(self) -> str | None:
+        """A replica for new batch state: the first configured pool's
+        batch-priority pick (most idle capacity, never SLO-shed)."""
+        for _name, picker in sorted(self._pickers.items()):
+            dest = picker.pick({PRIORITY_HEADER: "batch"})
+            if dest:
+                return dest
+        return None
+
+    def _remember_batch(self, obj_id: str, addr: str) -> None:
+        self._batch_replica[obj_id] = addr
+        while len(self._batch_replica) > self._BATCH_MAP_MAX:
+            self._batch_replica.pop(next(iter(self._batch_replica)))
+
+    async def _proxy_batch(self, request: Request,
+                           addr: str) -> tuple[int, bytes, str]:
+        """Forward one batch request to its replica verbatim: (status,
+        body, content type); an unreachable replica is a 502."""
+        try:
+            async with await self.client.request(
+                    request.method, f"http://{addr}{request.path}",
+                    data=request.body,
+                    headers={"content-type": request.headers.get(
+                        "content-type", "application/json")},
+                    timeout=Timeout(total=60.0)) as resp:
+                return (resp.status, await resp.read(),
+                        resp.content_type or "application/json")
+        except (ClientError, asyncio.TimeoutError) as e:
+            return (502,
+                    oai.error_body(f"batch replica {addr} unreachable: {e}",
+                                   type_="server_error"),
+                    "application/json")
+
+    @staticmethod
+    def _id_of(body: bytes, key: str) -> str:
+        try:
+            return str(json.loads(body).get(key) or "")
+        except (ValueError, AttributeError):
+            return ""
+
+    async def _batch_new(self, request: Request, dest: str | None
+                         ) -> Response:
+        """Upload or create on ``dest``; the new object's id is mapped
+        to it."""
+        if dest is None:
+            return _error(503, oai.error_body(
+                "no replica available for batch work", type_="server_error"))
+        status, body, ctype = await self._proxy_batch(request, dest)
+        oid = self._id_of(body, "id") if status == 200 else ""
+        if oid:
+            self._remember_batch(oid, dest)
+        return Response(status, body, ctype)
+
+    async def _handle_file_upload(self, request: Request) -> Response:
+        return await self._batch_new(request, self._batch_pick())
+
+    async def _handle_batch_create(self, request: Request) -> Response:
+        """``POST /v1/batches`` lands on the replica that holds its input
+        file; a miss falls back to a fresh batch pick, where the unknown
+        file id answers 404."""
+        fid = self._id_of(request.body, "input_file_id")
+        return await self._batch_new(
+            request, self._batch_replica.get(fid) or self._batch_pick())
+
+    async def _handle_batch_forward(self, request: Request) -> Response:
+        """Poll, cancel and output fetch follow the id → replica map
+        (batch state is replica-local)."""
+        bid = request.match_info.get("bid")
+        oid = bid or request.match_info.get("fid") or ""
+        dest = self._batch_replica.get(oid)
+        if dest is None:
+            return _error(404, oai.error_body(
+                f"unknown batch object {oid!r}"))
+        status, body, ctype = await self._proxy_batch(request, dest)
+        if status == 200 and bid:
+            # a poll names the output file: its content fetch then
+            # resolves to the same replica
+            ofid = self._id_of(body, "output_file_id")
+            if ofid:
+                self._remember_batch(ofid, dest)
+        return Response(status, body, ctype)
+
     async def _handle_fleet_state(self, _request: Request) -> Response:
         """Per-replica health state, event rings, staleness and key
         gauges, per-backend rollups and the SLO burn-rate windows of
@@ -609,7 +777,9 @@ class GatewayServer:
     async def _handle(self, request: Request) -> "Response | StreamResponse":
         endpoint, front_schema, operation = _ENDPOINTS[request.path]
         rc = self._runtime  # pin the config for this request
-        error_body = oai.error_body
+        error_body = (anth.error_body
+                      if front_schema is APISchemaName.ANTHROPIC
+                      else oai.error_body)
         try:
             raw = self._decode_body(
                 request.body,
@@ -617,12 +787,23 @@ class GatewayServer:
         except ValueError as e:
             return _error(400, error_body(str(e)))
         # ---- phase 1: route selection ----------------------------------
-        try:
-            body = oai.parse_json_body(raw)
-            model = oai.request_model(body)
-            typed_schemas.validate_request(endpoint.value, body)
-        except oai.SchemaError as e:
-            return _error(400, error_body(str(e)))
+        body: Any
+        if endpoint in _MULTIPART_ENDPOINTS:
+            ctype = request.headers.get("content-type", "")
+            model = _multipart_model(raw, ctype)
+            if not model:
+                return _error(400, error_body("missing 'model' form field"))
+            body = _RawBody(raw, ctype, model)
+        else:
+            try:
+                body = oai.parse_json_body(raw)
+                model = oai.request_model(body)
+                if endpoint is Endpoint.MESSAGES:
+                    anth.validate_messages_request(body)
+                else:
+                    typed_schemas.validate_request(endpoint.value, body)
+            except oai.SchemaError as e:
+                return _error(400, error_body(str(e)))
         client_headers = dict(request.headers)
         # the tenant: an explicit header wins, else the adapter suffix of
         # a zoo name; the cost sink and the upstream relay key on it
@@ -640,7 +821,9 @@ class GatewayServer:
         except NoRouteError:
             return _error(404, error_body(
                 f"model {model!r} is not served by this gateway",
-                type_="model_not_found"))
+                type_="model_not_found"
+                if front_schema is APISchemaName.OPENAI
+                else "not_found_error"))
 
         req_metrics = RequestMetrics(
             metrics=self.metrics, operation=operation, request_model=model
@@ -708,7 +891,7 @@ class GatewayServer:
         it used), or a finished 429/400 ``Response`` when the picker
         sheds or no replica fits the prompt."""
         pick_headers = client_headers
-        if backend.picker_content_affinity:
+        if backend.picker_content_affinity and isinstance(body, dict):
             derived = {}
             if AFFINITY_HEADER not in client_headers:
                 key = _conversation_affinity_key(body)
@@ -728,7 +911,8 @@ class GatewayServer:
             pick_headers = dict(pick_headers) | {ADAPTER_HEADER: adapter}
         # prompt length is a routing input: an explicit header wins, else
         # the estimate from the prompt's bytes
-        if PROMPT_TOKENS_HEADER not in pick_headers:
+        if (PROMPT_TOKENS_HEADER not in pick_headers
+                and isinstance(body, dict)):
             est = _prompt_token_estimate(body)
             if est:
                 pick_headers = dict(pick_headers) | {
@@ -792,7 +976,7 @@ class GatewayServer:
         endpoint: Endpoint,
         front_schema: APISchemaName,
         rb: RuntimeBackend,
-        body: dict[str, Any],
+        body: "dict[str, Any] | _RawBody",
         req_metrics: RequestMetrics,
         route_name: str,
         error_body: Callable[..., bytes],
@@ -803,22 +987,48 @@ class GatewayServer:
                                           error_body)
         if limited is not None:
             return limited
-        translator = get_translator(
-            endpoint,
-            front_schema,
-            backend.schema.name,
-            model_name_override=backend.model_name_override,
-            out_version=backend.schema.version,
-        )
-        # translators never mutate the captured body, so each attempt
-        # re-translates it without a copy
-        tx = translator.request(body)
-        out_body = apply_body_mutation(tx.body, backend.body_mutation)
-        headers = {
-            "content-type": "application/json",
-            "accept": "text/event-stream" if tx.stream
-            else "application/json",
-        }
+        if isinstance(body, _RawBody):
+            # multipart passthrough: the original bytes go upstream, with
+            # the model part rewritten when the backend overrides the
+            # model name; the response side is the OpenAI passthrough
+            translator = get_translator(Endpoint.CHAT_COMPLETIONS,
+                                        APISchemaName.OPENAI,
+                                        APISchemaName.OPENAI)
+            out_body, out_ctype = body.raw, body.content_type
+            if (backend.model_name_override
+                    and backend.model_name_override != body.model):
+                from aigw_tpu_torch.translate.multipart import (
+                    rewrite_multipart_model,
+                )
+
+                out_body, out_ctype = rewrite_multipart_model(
+                    body.raw, body.content_type,
+                    backend.model_name_override)
+            tx = RequestTx(body=out_body, path=request.path)
+            headers = {"content-type": out_ctype,
+                       "accept": "application/json"}
+        else:
+            translator = get_translator(
+                endpoint,
+                front_schema,
+                backend.schema.name,
+                model_name_override=backend.model_name_override,
+                out_version=backend.schema.version,
+            )
+            # translators never mutate the captured body, so each attempt
+            # re-translates it without a copy
+            if self._translator_blocks(endpoint):
+                # a file-backed transcript store: resolving
+                # previous_response_id reads the disk, off the loop
+                tx = await asyncio.to_thread(translator.request, body)
+            else:
+                tx = translator.request(body)
+            out_body = apply_body_mutation(tx.body, backend.body_mutation)
+            headers = {
+                "content-type": "application/json",
+                "accept": "text/event-stream" if tx.stream
+                else "application/json",
+            }
         # an externally pre-selected destination wins; otherwise the
         # picker chooses a replica of the backend's pool
         dest = request.headers.get(DESTINATION_ENDPOINT_HEADER, "")
@@ -976,7 +1186,8 @@ class GatewayServer:
                         decision=decision)
                 return await self._stream_response(
                     request, resp, translator, rb, req_metrics, route_name,
-                    client_headers, endpoint=endpoint, migrator=migrator)
+                    client_headers, front_schema, endpoint=endpoint,
+                    migrator=migrator)
             try:
                 raw = await resp.read()
             except (ClientError, asyncio.TimeoutError) as e:
@@ -986,17 +1197,28 @@ class GatewayServer:
                                type_="upstream_error"),
                     str(e) or type(e).__name__,
                 ) from None
-            rx = translator.response_body(raw, True)
+            if self._translator_blocks(endpoint):
+                # the end of the response persists the transcript to disk
+                rx = await asyncio.to_thread(
+                    translator.response_body, raw, True)
+            else:
+                rx = translator.response_body(raw, True)
             # the body the gateway re-emits must carry the front schema's
             # shape: a malformed upstream body is an upstream failure,
             # retried on the next backend like any other 502
-            if typed_response.has_spec(endpoint):
+            if (not isinstance(body, _RawBody)
+                    and typed_response.has_spec(endpoint)):
                 parsed = rx.parsed
                 try:
                     if parsed is None:
                         parsed = json.loads(rx.body or raw)
                     typed_response.validate_response(endpoint, parsed)
                 except (json.JSONDecodeError, oai.SchemaError) as e:
+                    if (endpoint is Endpoint.RESPONSES
+                            and isinstance(parsed, dict)):
+                        # the translator stored a transcript under an id
+                        # the client will never see: roll it back
+                        await self._forget_response(parsed.get("id"))
                     raise _RetriableUpstreamError(
                         502,
                         error_body(
@@ -1031,6 +1253,7 @@ class GatewayServer:
         req_metrics: RequestMetrics,
         route_name: str,
         client_headers: dict[str, str],
+        front_schema: APISchemaName = APISchemaName.OPENAI,
         endpoint: Endpoint | None = None,
         migrator: "_Migrator | None" = None,
     ) -> StreamResponse:
@@ -1043,11 +1266,12 @@ class GatewayServer:
         cut at a token boundary and the target's continuation relayed
         after it.
 
-        A port replica ends its SSE body with its connection, so a
-        replica that dies mid-stream reads as the body's end; such a
-        stream that ends with no ``[DONE]`` and was not cut by the
-        migrator ends with the typed error event too, as a torn chunked
-        body does on the reference's replicas."""
+        A chunked body that ends before its last chunk (a replica that
+        died mid-stream) is torn and ends with the error event. An
+        upstream that delimits its SSE body by closing the connection
+        gives no such signal, so such a stream that ends with no
+        ``[DONE]`` and was not cut by the migrator ends with the error
+        event too. The error event takes the front schema's shape."""
         out = StreamResponse(
             status=200,
             headers={
@@ -1163,7 +1387,12 @@ class GatewayServer:
                         if rx.body:
                             await _relay(rx.body)
                     torn = _torn(cont, tail)
-            rx = translator.response_body(b"", True)
+            if self._translator_blocks(endpoint):
+                # the end of the stream persists the transcript to disk
+                rx = await asyncio.to_thread(
+                    translator.response_body, b"", True)
+            else:
+                rx = translator.response_body(b"", True)
             usage = usage.merge_override(rx.usage)
             model = rx.model or model
             if rx.body:
@@ -1188,10 +1417,19 @@ class GatewayServer:
                            else "aborted", e)
             msg = ("upstream emitted a malformed stream event"
                    if malformed else "upstream stream interrupted")
-            await out.write(
-                b'data: {"error": {"message": "' + msg.encode()
-                + b'", "type": "upstream_error", "code": null}}\n\n'
-            )
+            if front_schema is APISchemaName.ANTHROPIC:
+                # Anthropic SDKs read `event: error` with their envelope
+                await out.write(
+                    b'event: error\n'
+                    b'data: {"type": "error", "error": {"type": '
+                    b'"overloaded_error", "message": "'
+                    + msg.encode() + b'"}}\n\n'
+                )
+            else:
+                await out.write(
+                    b'data: {"error": {"message": "' + msg.encode()
+                    + b'", "type": "upstream_error", "code": null}}\n\n'
+                )
         req_metrics.response_model = model
         req_metrics.finish(usage)
         await self._sink_costs(usage, req_metrics, route_name,
@@ -1200,6 +1438,29 @@ class GatewayServer:
                                            "200").inc()
         await out.write_eof()
         return out
+
+    @staticmethod
+    def _translator_blocks(endpoint: "Endpoint | None") -> bool:
+        """True when the translator's request and end-of-response calls
+        do disk I/O (``/v1/responses`` over a file-backed transcript
+        store), so the event loop hands them to a thread."""
+        if endpoint is not Endpoint.RESPONSES:
+            return False
+        from aigw_tpu_torch.translate.responses import RESPONSE_STORE
+
+        return RESPONSE_STORE.blocking
+
+    async def _forget_response(self, rid: Any) -> None:
+        """Roll back a stored Responses transcript (its response failed
+        typed validation and was never delivered)."""
+        if not isinstance(rid, str) or not rid:
+            return
+        from aigw_tpu_torch.translate.responses import RESPONSE_STORE
+
+        if RESPONSE_STORE.blocking:
+            await asyncio.to_thread(RESPONSE_STORE.delete, rid)
+        else:
+            RESPONSE_STORE.delete(rid)
 
     async def _check_quota(self, client_headers, rb, req_metrics,
                            error_body) -> Response | None:

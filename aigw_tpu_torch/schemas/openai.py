@@ -27,6 +27,14 @@ class SchemaError(ValueError):
     status = 400
 
 
+class NotFoundError(SchemaError):
+    """Client-facing 404: a referenced resource does not exist (an
+    unknown ``previous_response_id``; OpenAI answers 404 for these, and
+    SDK retry logic branches on 404 against 400)."""
+
+    status = 404
+
+
 def parse_json_body(body: bytes) -> dict[str, Any]:
     try:
         data = json.loads(body)

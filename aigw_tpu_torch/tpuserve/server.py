@@ -93,7 +93,14 @@ stops. ``/state`` carries the reference's mesh keys (``mesh_axes``,
 
 The server is ``http.server.ThreadingHTTPServer``: one thread per
 connection, each waiting on its request's token queue, which the engine
-thread fills.
+thread fills. Every accepted socket has ``TCP_NODELAY`` set (as the
+reference's aiohttp server has), so a reply's header block and body, or
+an SSE frame behind another, never wait on the client's delayed ACK. An
+SSE body is chunked (``_ChunkedWriter``: one chunk per frame, the last
+chunk at the stream's end, a migration's cut included) and the
+connection stays open for the next request, as on the reference's
+replica; a stream that fails part-way closes its connection instead, so
+a client reads it as torn, never as ended.
 """
 
 from __future__ import annotations
@@ -1509,10 +1516,56 @@ class TPUServeServer:
                 "bytes": list(piece.encode("utf-8")), "top_logprobs": tops}
 
 
+class _ChunkedWriter:
+    """A handler's ``wfile`` while it streams SSE: each ``write`` is one
+    chunk of the body (``%x\\r\\n`` frame ``\\r\\n``) in one send;
+    ``end`` writes the last chunk."""
+
+    def __init__(self, raw):
+        self.raw = raw
+
+    def write(self, data: bytes) -> int:
+        if data:
+            self.raw.write(b"%x\r\n%s\r\n" % (len(data), data))
+        return len(data)
+
+    def flush(self) -> None:
+        self.raw.flush()
+
+    def end(self) -> None:
+        self.raw.write(b"0\r\n\r\n")
+        self.raw.flush()
+
+    def __getattr__(self, name):
+        # ``closed``, ``close``: the handler's ``finish`` closes the
+        # socket's file under a stream that raised
+        return getattr(self.raw, name)
+
+
 def _make_handler(server: TPUServeServer):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # TCP_NODELAY on every accepted socket
+        disable_nagle_algorithm = True
         srv = server
+
+        def handle_one_request(self):
+            super().handle_one_request()
+            self._end_sse()
+
+        def _end_sse(self) -> None:
+            """After a request whose handler returned, a chunked SSE body
+            gets its last chunk (a handler that raised leaves the body
+            torn and its connection closed); a client that went away
+            closes the connection."""
+            w = self.wfile
+            if not isinstance(w, _ChunkedWriter):
+                return
+            self.wfile = w.raw
+            try:
+                w.end()
+            except OSError:
+                self.close_connection = True
 
         def log_message(self, fmt, *args):  # route to logging, not stderr
             logger.debug("%s " + fmt, self.address_string(), *args)
@@ -1978,9 +2031,16 @@ def _make_handler(server: TPUServeServer):
             self.send_header("x-aigw-request-id", rid)
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
-            self.send_header("connection", "close")
+            if self.request_version != "HTTP/1.1":
+                # an HTTP/1.0 client reads no chunks: the body ends with
+                # the connection
+                self.send_header("connection", "close")
+                self.end_headers()
+                self.close_connection = True
+                return
+            self.send_header("transfer-encoding", "chunked")
             self.end_headers()
-            self.close_connection = True
+            self.wfile = _ChunkedWriter(self.wfile)
 
         def _chunk(self, chat, rid, created, piece, lp_entries=None,
                    finish=None, index=0):

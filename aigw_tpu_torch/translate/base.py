@@ -154,10 +154,16 @@ def supported_pairs() -> list[tuple[Endpoint, APISchemaName, APISchemaName]]:
 
 
 def _install_all() -> None:
-    """Import the translator modules so their registrations run: the
-    same-schema passthrough is the one this port carries (OpenAI front
-    to OpenAI and TPUServe backends)."""
-    from aigw_tpu_torch.translate import passthrough  # noqa: F401
+    """Import the translator modules so their registrations run, in the
+    reference's order: ``responses`` re-registers the Responses front to
+    TPUServe over the passthrough entry, so a TPUServe backend gets
+    ``ResponsesToChat`` while an OpenAI backend keeps the passthrough."""
+    from aigw_tpu_torch.translate import (  # noqa: F401
+        passthrough,
+        anthropic_openai,
+        rerank,
+        responses,
+    )
 
 
 _install_all()

@@ -1,7 +1,7 @@
 """Same-schema passthrough translators (the port's copy of
-``aigw_tpu/translate/passthrough.py``): OpenAI→OpenAI and
-OpenAI→TPUServe (the replica speaks the OpenAI surface natively); the
-Anthropic pair is not carried. The request body is forwarded with at
+``aigw_tpu/translate/passthrough.py``): OpenAI→OpenAI,
+Anthropic→Anthropic and OpenAI→TPUServe (the replica speaks the OpenAI
+surface natively). The request body is forwarded with at
 most a model-name rewrite; response bytes are forwarded **unchanged** while
 usage/model are extracted on the side — the allocation-lean fast path the
 reference optimizes for (openai→openai translator + sjson).
@@ -14,6 +14,7 @@ from typing import Any, Callable
 
 from aigw_tpu_torch.config.model import APISchemaName
 from aigw_tpu_torch.gateway.costs import TokenUsage
+from aigw_tpu_torch.schemas import anthropic as anthropic_schema
 from aigw_tpu_torch.schemas import openai as openai_schema
 from aigw_tpu_torch.translate.base import (
     Endpoint,
@@ -96,7 +97,40 @@ class PassthroughTranslator(Translator):
                 delta = choice.get("delta")
                 if isinstance(delta, dict) and delta.get("content"):
                     tokens += 1
+            # Anthropic-shaped stream events carry no "choices"
+            if data.get("type") == "content_block_delta":
+                if (data.get("delta") or {}).get("type") in (
+                    "text_delta", "thinking_delta",
+                ):
+                    tokens += 1
         return ResponseTx(body=chunk, usage=usage, model=model, tokens_emitted=tokens)
+
+
+def _anthropic_stream_usage(data: dict[str, Any]) -> TokenUsage:
+    # message_start carries usage under message.usage; message_delta at top level.
+    if data.get("type") == "message_start":
+        return anthropic_schema.extract_usage(data.get("message") or {})
+    return anthropic_schema.extract_usage(data)
+
+
+class AnthropicPassthrough(PassthroughTranslator):
+    def __init__(self, **kw: Any):
+        kw.setdefault("path", Endpoint.MESSAGES.value)
+        kw.setdefault("usage_extractor", _anthropic_stream_usage)
+        super().__init__(**kw)
+
+    def request(self, body: dict[str, Any]) -> RequestTx:
+        # the gateway admits mid-conversation role:system messages, but
+        # the Anthropic upstream rejects them — promote to the top-level
+        # system parameter before forwarding
+        return super().request(
+            anthropic_schema.promote_system_messages(body))
+
+    def response_error(self, status: int, body: bytes) -> bytes:
+        text = body.decode("utf-8", errors="replace")[:4096]
+        return anthropic_schema.error_body(
+            f"upstream error (status {status}): {text}", type_="api_error"
+        )
 
 
 def _openai_factory(path: str):
@@ -111,16 +145,34 @@ def _openai_factory(path: str):
     return make
 
 
+def _anthropic_factory(*, model_name_override: str = "", stream: bool = False, **_: object):
+    return AnthropicPassthrough(
+        model_name_override=model_name_override, stream=stream
+    )
+
+
 def _install() -> None:
     openai_like = (APISchemaName.OPENAI, APISchemaName.TPUSERVE)
     for ep in (
         Endpoint.CHAT_COMPLETIONS,
         Endpoint.COMPLETIONS,
         Endpoint.EMBEDDINGS,
+        Endpoint.TOKENIZE,
+        Endpoint.RESPONSES,
+        Endpoint.IMAGES_GENERATIONS,
+        Endpoint.AUDIO_SPEECH,
+        Endpoint.AUDIO_TRANSCRIPTIONS,
+        Endpoint.AUDIO_TRANSLATIONS,
     ):
         for src in openai_like:
             for dst in openai_like:
                 register_translator(ep, src, dst, _openai_factory(ep.value))
+    register_translator(
+        Endpoint.MESSAGES,
+        APISchemaName.ANTHROPIC,
+        APISchemaName.ANTHROPIC,
+        _anthropic_factory,
+    )
 
 
 _install()

@@ -141,7 +141,8 @@ Phases (any failure exits non-zero):
    count the sub-burst's 8 requests;
    the operations surface (the ``serve_ops`` line, after
    ``serve_logprobs``; launch counts zeroed before it, read after it):
-   bf16, the fused rung, the prefix cache on, tracing on with the
+   Llama-3-8B widths cut to ``OPS_LAYERS`` (8) layers, bf16, the fused
+   rung, the prefix cache on, tracing on with the
    OTLP/HTTP exporter posting to a trace sink inside this script and a
    ``traceparent`` on every request. The burst with ``/metrics``
    scraped before, during and after it (every scrape parsed line by
@@ -243,7 +244,18 @@ Phases (any failure exits non-zero):
    and gets none of the next bursts, ``/usage``'s token totals equal the
    replicas' ``meter_*`` deltas, K1 and K2 on each replica; printed:
    TTFT p50 and tokens/s sent straight to a replica and through the
-   gateway, in turns; the gateway's fleet operations (the
+   gateway, in turns, and the connections the gateway opened for its
+   streams; then, on the same replicas and gateway, the client fronts
+   (launch counts zeroed before them, read after them into
+   ``launches_serve_fronts``): ``/v1/messages`` and ``/v1/responses``
+   streamed and not, held to the same prompt sent as chat (text and
+   usage; every stream event through the typed stream checks), a second
+   Responses turn by ``previous_response_id`` held to the chat with the
+   transcript spelled out, ``/tokenize`` held to the replica's, a
+   two-line batch through ``/v1/files`` and ``/v1/batches`` polled to
+   ``completed`` on the replica that holds it, its lines equal to the
+   same requests sent straight there; K1 and K2 launched; the gateway's
+   fleet operations (the
    ``serve_fleet`` line, after ``serve_gateway``; launch counts zeroed
    once both replicas are up, read at the end): replica B in this
    process (``tpuserve/child.py``'s ``build_server`` on ``fleet_spec``:
@@ -398,8 +410,9 @@ Phases (any failure exits non-zero):
    burst), on ``checkpoint``, on ``serve_defaults`` (bf16 and
    W8A16, the cold bursts), on ``embeddings`` and, the leader rank's,
    on ``serve_tp``, ``serve_sp`` (each with its W8A16 set) and
-   ``serve_ep``, both replicas' on ``serve_gateway`` and replica B's on
-   ``serve_fleet``), the card line, then
+   ``serve_ep``, both replicas' on ``serve_gateway`` and on its fronts
+   (``launches_serve_fronts``), and replica B's on ``serve_fleet``), the
+   card line, then
    the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -3847,14 +3860,20 @@ def _meter_gates(results, before: dict, after: dict, prompt_lens) -> dict:
             "hbm_page_byte_s": sum(m["hbm_page_byte_s"] for m in meters)}
 
 
-#: the profile capture's window, s (the burst inside it takes ~1-4; 20
-#: before the time went to serve_gateway)
-OPS_PROFILE_S = 10.0
+#: the profile capture's window, s (the burst inside it takes under 1
+#: at ``OPS_LAYERS``; 20 before the time went to serve_gateway, 10 before
+#: it went to the gateway's fronts)
+OPS_PROFILE_S = 4.0
+#: serve_ops' depth: Llama-3-8B's widths, 8 of its 32 layers (the phase
+#: gates the operations surface, which no layer count changes; 32 before
+#: the time went to the gateway's fronts)
+OPS_LAYERS = 8
 
 
 def serve_ops(torch, srv, params, reqs, launches: dict,
-              serve_warm_s: float, dev: str = "cuda") -> dict:
-    """The replica's operations surface at full depth (32 layers, bf16
+              dev: str = "cuda") -> dict:
+    """The replica's operations surface at Llama-3-8B widths cut to
+    ``OPS_LAYERS`` layers (the first layers of the served weights; bf16
     weights and pool, 8 slots x 2048, the prefix cache on, the fused
     rung), tracing on with the OTLP/HTTP exporter posting to a local
     sink and every request carrying a ``traceparent``:
@@ -3883,8 +3902,8 @@ def serve_ops(torch, srv, params, reqs, launches: dict,
       ``/state``'s delta, K3 and K5 launch;
     - the exporter's cost, before the profile: the warm burst with the
       cache off (as ``serve``'s), untraced and traced in turns
-      (untraced, traced, traced, untraced; reported beside ``serve``'s
-      warm burst).
+      (untraced, traced, traced, untraced), all at ``OPS_LAYERS``
+      layers.
 
     Launches go into ``launches`` under ``serve_ops``."""
     import shutil
@@ -3906,9 +3925,12 @@ def serve_ops(torch, srv, params, reqs, launches: dict,
     srv.flight = FlightRecorder(capacity=256)
     srv.enable_profile = True
 
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=OPS_LAYERS)
+    params = _first_layers(params, OPS_LAYERS)
+
     def start(**engine_kw):
         stop_engine(srv)
-        srv.engine = Engine(params, llama.LLAMA3_8B, EngineConfig(**{
+        srv.engine = Engine(params, cfg, EngineConfig(**{
             **dict(max_batch_size=8, max_seq_len=2048, page_size=128,
                    attention_backend="pallas-ragged",
                    decode_backend="fused"), **engine_kw}),
@@ -4090,7 +4112,6 @@ def serve_ops(torch, srv, params, reqs, launches: dict,
             turns[arm].append(time.monotonic() - t)
         srv.tracer = tracer
         out["warm_s"] = turns
-        out["warm_s_serve"] = serve_warm_s
         out["traced_over_untraced"] = (sum(turns["traced"])
                                        / sum(turns["untraced"]))
 
@@ -4214,7 +4235,7 @@ def serve_ops(torch, srv, params, reqs, launches: dict,
     log(f"ops surface: burst {out['burst_s']:.2f}s, {len(during)} scrapes "
         f"during it, {out['spans_received']} spans, drain "
         f"{out['drain']}, profile {out['profile']}, spec {out['spec']}, "
-        f"warm bursts {turns} (serve's {serve_warm_s:.2f}s); phase "
+        f"warm bursts at {OPS_LAYERS} layers {turns}; phase "
         f"{out['phase_s']:.1f}s")
     return out
 
@@ -7089,6 +7110,220 @@ def _gw_wait(pred, what: str, timeout_s: float = 30.0) -> None:
         time.sleep(0.05)
 
 
+def _count_accepts(reps) -> list:
+    """Connections each in-process replica accepts from now on (its
+    handler's ``setup`` runs once a connection)."""
+    counts = [0] * len(reps)
+    for i, r in enumerate(reps):
+        handler = r.httpd.RequestHandlerClass
+        setup = handler.setup
+
+        def counted(self, _setup=setup, _i=i):
+            _setup(self)
+            counts[_i] += 1
+
+        handler.setup = counted
+    return counts
+
+
+def _sse_events(raw: bytes) -> list:
+    """(event name, payload) of each SSE frame of ``raw``."""
+    out = []
+    for frame in raw.decode().split("\n\n"):
+        name, data = "", []
+        for line in frame.splitlines():
+            k, _, v = line.partition(": ")
+            if k == "event":
+                name = v
+            elif k == "data":
+                data.append(v)
+        if data:
+            text = "\n".join(data)
+            out.append((name, text if text == "[DONE]" else json.loads(text)))
+    return out
+
+
+def _gw_fronts(gw: int, reps) -> dict:
+    """The client fronts through the gateway onto the phase's replicas,
+    greedy: Messages and Responses (streamed and not) held to the same
+    prompt as chat, a Responses second turn to the chat with its
+    transcript, ``/tokenize`` to the replica's, a two-line batch to the
+    same requests served directly. The Messages and Responses requests
+    carry no ``logit_bias`` (neither API has one), so on random weights
+    at a 128,256-token vocabulary their text is mostly empty (the byte
+    tokenizer spells ids 0-255 only): each is held to its chat by the
+    prompt ids and the completion ids the replica's ``TokenTap`` saw
+    under the request id the reply carries, and by its usage; a chat
+    that emitted no token fails. The batch lines are pinned to a byte
+    token, so their text is not empty."""
+    from aigw_tpu_torch.schemas import typed_response
+    from aigw_tpu_torch.translate import Endpoint
+
+    t0 = time.monotonic()
+    taps = [TokenTap(r.engine) for r in reps]
+    system, user, n_tok = "be brief", "the quick brown fox jumps", 8
+    out: dict = {}
+    bad: list = []
+
+    def post(port, path, body, with_rid=False):
+        s, h, raw = _post_raw(port, path, json.dumps(body).encode())
+        if s != 200:
+            raise AssertionError(f"serve_gateway fronts: {path} {s} "
+                                 f"{raw[:300]!r}")
+        if not with_rid:
+            return raw
+        rid = {k.lower(): v for k, v in h.items()}.get("x-aigw-request-id")
+        return raw, rid
+
+    def tapped(rid):
+        """(prompt ids, completion ids) of the request ``rid``."""
+        hits = [(t.prompts[rid], t.toks[rid]) for t in taps
+                if rid in t.toks]
+        if len(hits) != 1:
+            raise AssertionError(f"serve_gateway fronts: request {rid!r} "
+                                 f"on {len(hits)} replicas' taps")
+        return hits[0]
+
+    def chat(messages):
+        raw, rid = post(gw, "/v1/chat/completions", {
+            "model": GW_MODEL, "max_tokens": n_tok, "temperature": 0.0,
+            "messages": messages}, with_rid=True)
+        reply = json.loads(raw)
+        ids = tapped(rid)
+        if not ids[1]:
+            raise AssertionError(f"serve_gateway fronts: chat emitted "
+                                 f"{ids[1]} for usage {reply['usage']}")
+        return reply["choices"][0]["message"]["content"], reply["usage"], ids
+
+    def same(what, rid, want_ids, got_usage, want_usage):
+        """The request ``rid`` ran the chat's prompt to the chat's ids,
+        and its usage is the chat's."""
+        got_ids = tapped(rid)
+        if got_ids != want_ids or got_usage != want_usage:
+            bad.append(f"{what}: prompt/ids {got_ids} usage {got_usage} "
+                       f"against chat {want_ids} {want_usage}")
+
+    def checked(endpoint, raw):
+        evs = _sse_events(raw)
+        for _name, ev in evs:
+            if ev != "[DONE]":
+                typed_response.validate_stream_event(endpoint, ev)
+        return evs
+
+    base = [{"role": "system", "content": system},
+            {"role": "user", "content": user}]
+    text, usage, ids = chat(base)
+    want_usage = {"input_tokens": usage["prompt_tokens"],
+                  "output_tokens": usage["completion_tokens"]}
+    msg = {"model": GW_MODEL, "max_tokens": n_tok, "temperature": 0.0,
+           "system": system, "messages": [{"role": "user", "content": user}]}
+    raw, rid = post(gw, "/v1/messages", msg, with_rid=True)
+    m = json.loads(raw)
+    if m["content"] != ([{"type": "text", "text": text}] if text else []):
+        bad.append(f"messages {m['content']} against chat {text!r}")
+    same("messages", rid, ids, m["usage"], want_usage)
+    raw, rid = post(gw, "/v1/messages", dict(msg, stream=True),
+                    with_rid=True)
+    evs = checked(Endpoint.MESSAGES, raw)
+    names = [n for n, _e in evs]
+    s_text = "".join(e["delta"].get("text", "") for n, e in evs
+                     if n == "content_block_delta")
+    s_usage = [e["usage"] for n, e in evs if n == "message_delta"]
+    if names[0] != "message_start" or names[-1] != "message_stop" \
+            or s_text != text or len(s_usage) != 1:
+        bad.append(f"messages stream {names} {s_text!r} {s_usage}")
+    same("messages stream", rid, ids, s_usage[-1] if s_usage else None,
+         want_usage)
+
+    def r_usage(r):
+        u = r.get("usage") or {}
+        return {k: u.get(k) for k in ("input_tokens", "output_tokens")}
+
+    resp = {"model": GW_MODEL, "max_output_tokens": n_tok,
+            "temperature": 0.0, "instructions": system, "input": user}
+    raw, rid = post(gw, "/v1/responses", resp, with_rid=True)
+    r1 = json.loads(raw)
+    same("responses", rid, ids, r_usage(r1), want_usage)
+    raw, rid = post(gw, "/v1/responses", dict(resp, stream=True),
+                    with_rid=True)
+    evs = checked(Endpoint.RESPONSES, raw)
+    done = [e["response"] for n, e in evs if n == "response.completed"]
+    if r1["output_text"] != text or len(done) != 1 \
+            or done[0]["output_text"] != text:
+        bad.append(f"responses {r1['output_text']!r} / stream "
+                   f"{[d.get('output_text') for d in done]} against chat "
+                   f"{text!r}")
+    same("responses stream", rid, ids, r_usage(done[0]) if done else None,
+         want_usage)
+    raw, rid = post(gw, "/v1/responses", dict(
+        resp, input="and then?", previous_response_id=r1["id"]),
+        with_rid=True)
+    r2 = json.loads(raw)
+    text2, usage2, ids2 = chat(base + [
+        {"role": "assistant", "content": text},
+        {"role": "user", "content": "and then?"}])
+    if r2["output_text"] != text2:
+        bad.append(f"second turn {r2['output_text']!r} against chat "
+                   f"{text2!r}")
+    same("second turn", rid, ids2, r_usage(r2), {
+        "input_tokens": usage2["prompt_tokens"],
+        "output_tokens": usage2["completion_tokens"]})
+    tok = {"model": GW_MODEL, "prompt": user}
+    if json.loads(post(gw, "/tokenize", tok)) != json.loads(
+            post(reps[0].port, "/tokenize", tok)):
+        bad.append("tokenize through the gateway differs from direct")
+    # the batch tier: upload, create, poll, fetch through the gateway
+    lines = [{"custom_id": f"c{i}", "method": "POST",
+              "url": "/v1/chat/completions", "body": {
+                  "model": GW_MODEL, "max_tokens": n_tok,
+                  "temperature": 0.0,
+                  "logit_bias": {str(PIN_TOKEN): 100.0}, "messages": [
+                      {"role": "user", "content": f"{user} {i}"}]}}
+             for i in range(2)]
+    s, _h, raw = _post_raw(gw, "/v1/files", b"\n".join(
+        json.dumps(x).encode() for x in lines))
+    fid = json.loads(raw)["id"]
+    bid = json.loads(post(gw, "/v1/batches", {
+        "input_file_id": fid, "endpoint": "/v1/chat/completions"}))["id"]
+    while True:
+        b = json.loads(_http(gw, f"/v1/batches/{bid}")[2])
+        if b["status"] in ("completed", "failed", "cancelled"):
+            break
+        if time.monotonic() - t0 > 60:
+            raise AssertionError(f"serve_gateway fronts: batch {b}")
+        time.sleep(0.05)
+    content = _http(gw, f"/v1/files/{b['output_file_id']}/content")[2]
+    got = [json.loads(x) for x in content.splitlines() if x.strip()]
+    holders = []
+    for r in reps:
+        try:
+            _http(r.port, f"/v1/batches/{bid}")
+            holders.append(r)
+        except urllib.error.HTTPError:
+            pass
+    if b["status"] != "completed" or len(holders) != 1 \
+            or [x["custom_id"] for x in got] != ["c0", "c1"]:
+        bad.append(f"batch {b['status']} on {len(holders)} replicas, "
+                   f"lines {[x.get('custom_id') for x in got]}")
+    else:
+        for line, x in zip(lines, got):
+            direct = json.loads(post(holders[0].port,
+                                     "/v1/chat/completions", line["body"]))
+            body = x["response"]["body"]
+            if not body["choices"][0]["message"]["content"] or \
+                    body["choices"][0]["message"] != \
+                    direct["choices"][0]["message"] or \
+                    body["usage"]["completion_tokens"] != \
+                    direct["usage"]["completion_tokens"]:
+                bad.append(f"batch line {x['custom_id']} differs from "
+                           f"direct")
+    if bad:
+        raise AssertionError(f"serve_gateway fronts: {bad}")
+    out.update(chat_tokens=usage["completion_tokens"],
+               batch_lines=len(got), wall_s=time.monotonic() - t0)
+    return out
+
+
 def serve_gateway(torch, params, launches: dict) -> dict:
     """Client → the port's gateway → two port replicas on the card.
 
@@ -7132,6 +7367,7 @@ def serve_gateway(torch, params, launches: dict) -> dict:
     for r in reps:
         r.start()
     taps = [TokenTap(r.engine) for r in reps]
+    accepts = _count_accepts(reps)
     addrs = [f"127.0.0.1:{r.port}" for r in reps]
     import tempfile
 
@@ -7220,6 +7456,8 @@ def serve_gateway(torch, params, launches: dict) -> dict:
             for k, _s, b in burst[::2]]
         per_replica: list = [None, None]
         turns: dict = {"direct": [], "gateway": []}
+        #: connections the replicas accepted during each gateway turn
+        stream_conns: list = []
         # the meters the direct turns move, which the gateway never sees
         direct_meter = {k: 0 for _u, k in GW_METER + (
             ("records", "meter_records"),)}
@@ -7236,7 +7474,10 @@ def serve_gateway(torch, params, launches: dict) -> dict:
             for how in order:
                 port = reps[live].port if how == "direct" else gw
                 m_before = _gw_json(reps[live].port, "/state")
+                c0 = sum(accepts)
                 res, w = _gw_burst(port, stream_burst)
+                if how == "gateway":
+                    stream_conns.append(sum(accepts) - c0)
                 if how == "direct":
                     m_after = _gw_json(reps[live].port, "/state")
                     for k in direct_meter:
@@ -7293,6 +7534,14 @@ def serve_gateway(torch, params, launches: dict) -> dict:
                 raise AssertionError(f"serve_gateway: {kind} through the "
                                      f"gateway {want} != direct {got}")
         out["streams_equal_direct"] = len(via)
+        # the client fronts on the same replicas and gateway
+        reset_counts()
+        out["fronts"] = _gw_fronts(gw, reps)
+        launches["serve_fronts"] = counts = read_counts()
+        if counts["ragged_prefill_attention"] <= 0 \
+                or counts["fused_paged_decode"] <= 0:
+            raise AssertionError(f"serve_gateway: K1/K2 not on the fronts' "
+                                 f"path: {counts}")
         proc.send_signal(2)  # SIGINT: the gateway stops and exits 0
         if proc.wait(timeout=30) != 0:
             raise AssertionError(f"serve_gateway: the gateway exited "
@@ -7315,14 +7564,20 @@ def serve_gateway(torch, params, launches: dict) -> dict:
         "requests": len(stream_burst), "turns": turns,
         "direct_ttft_p50_ms": d_ttft, "gateway_ttft_p50_ms": g_ttft,
         "ttft_ratio": g_ttft / d_ttft, "direct_tokens_per_s": d_tps,
-        "gateway_tokens_per_s": g_tps, "tokens_per_s_ratio": g_tps / d_tps}
+        "gateway_tokens_per_s": g_tps, "tokens_per_s_ratio": g_tps / d_tps,
+        "gateway_streams": len(stream_burst) * len(stream_conns),
+        "gateway_stream_connections": stream_conns,
+        "accepted_connections": sum(accepts)}
     out["wall_s"] = time.monotonic() - t_phase
     out["card"] = card = nvidia_smi_line()
     log(f"serve_gateway ({GW_LAYERS} layers, 2 replicas, {card}): burst "
         f"{out['burst']['wall_s']:.2f} s over {out['burst']['per_replica']}; "
         f"TTFT p50 direct {d_ttft:.1f} ms, gateway {g_ttft:.1f} ms "
         f"(x{g_ttft / d_ttft:.3f}); tokens/s direct {d_tps:.0f}, gateway "
-        f"{g_tps:.0f} (x{g_tps / d_tps:.3f}); phase {out['wall_s']:.1f} s")
+        f"{g_tps:.0f} (x{g_tps / d_tps:.3f}); {sum(stream_conns)} upstream "
+        f"connections for {len(stream_burst) * len(stream_conns)} gateway "
+        f"streams ({sum(accepts)} accepted in the phase); fronts {out['fronts']['wall_s']:.1f} s; phase "
+        f"{out['wall_s']:.1f} s")
     return out
 
 
@@ -7902,7 +8157,7 @@ def main() -> int:
         # the operations surface: /metrics, traces, the flight recorder,
         # metering, drain and the profile capture (serve_ops)
         print(json.dumps({"serve_ops": serve_ops(
-            torch, srv, params, reqs, launches, warm_s)}), flush=True)
+            torch, srv, params, reqs, launches)}), flush=True)
 
         # KV mobility and the batch tier: a second replica in this
         # process (serve_mobility)
@@ -8163,6 +8418,8 @@ def main() -> int:
             row[f"launches_{phase}"] = launches[phase].get(row["name"], 0)
         # both replicas' (one process)
         row["launches_serve_gateway"] = launches["serve_gateway"].get(
+            row["name"], 0)
+        row["launches_serve_fronts"] = launches["serve_fronts"].get(
             row["name"], 0)
         # replica B's (A launches in its own process)
         row["launches_serve_fleet"] = launches["serve_fleet"].get(

@@ -1918,6 +1918,34 @@ def test_gateway_streams_equal_direct_on_cuda_replicas(cuda):
         close()
 
 
+def test_gateway_fronts_on_cuda_replicas(cuda):
+    """Through the gateway onto the card's replicas: ``/v1/messages`` and
+    ``/v1/responses`` (streamed and not, a second turn by
+    ``previous_response_id``) held to the same prompts as chat,
+    ``/tokenize`` to the replica's, a two-line batch through the proxy
+    polled to ``completed`` on the replica that holds it (the phase's
+    ``_gw_fronts``); K1 and K2 launched."""
+    import time
+
+    import chip_smoke as cs
+
+    reps, _addrs, gw, close = _gateway_pair(cuda)
+    try:
+        time.sleep(0.5)  # a poll of both
+        k1 = paged_attention.ragged_prefill_attention.launches
+        k2 = decode_fused.fused_paged_decode.launches
+        saved, cs.GW_MODEL = cs.GW_MODEL, "tiny-random"
+        try:
+            out = cs._gw_fronts(gw.port, reps)
+        finally:
+            cs.GW_MODEL = saved
+        assert out["batch_lines"] == 2
+        assert paged_attention.ragged_prefill_attention.launches > k1
+        assert decode_fused.fused_paged_decode.launches > k2
+    finally:
+        close()
+
+
 def test_gateway_honours_a_drained_cuda_replica(cuda):
     """A replica drained with ``POST /drain`` shows ``draining`` on the
     gateway's ``/fleet/state`` and receives none of the next requests;

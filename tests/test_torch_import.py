@@ -495,3 +495,42 @@ def test_fleet_modules_import_with_aiohttp_and_yaml_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_front_modules_import_with_aiohttp_and_yaml_blocked():
+    """The client fronts (the Anthropic and Responses translators, the
+    rerank passthrough, the multipart helpers, the Anthropic schema)
+    import in a fresh interpreter where jax, the reference package,
+    aiohttp and yaml cannot be imported, and pull in none of them nor
+    torch; the translator registry then holds the Anthropic front to
+    port replicas and the Responses front's chat mapping."""
+    mods = ["aigw_tpu_torch.schemas.anthropic",
+            "aigw_tpu_torch.translate.anthropic_openai",
+            "aigw_tpu_torch.translate.responses",
+            "aigw_tpu_torch.translate.multipart",
+            "aigw_tpu_torch.translate.rerank"]
+    for m in mods:
+        assert m in MODULES, m
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'aigw_tpu', 'aiohttp', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from aigw_tpu_torch.config.model import APISchemaName as S\n"
+        "from aigw_tpu_torch.translate import Endpoint as E, get_translator\n"
+        "t = get_translator(E.MESSAGES, S.ANTHROPIC, S.TPUSERVE)\n"
+        "assert type(t).__name__ == 'AnthropicToOpenAIChat'\n"
+        "t = get_translator(E.RESPONSES, S.OPENAI, S.TPUSERVE)\n"
+        "assert type(t).__name__ == 'ResponsesToChat'\n"
+        "t = get_translator(E.RESPONSES, S.OPENAI, S.OPENAI)\n"
+        "assert type(t).__name__ == 'PassthroughTranslator'\n"
+        "bad = [k for k, v in sys.modules.items() if v and k.split('.')[0]\n"
+        "       in ('jax', 'jaxlib', 'aigw_tpu', 'aiohttp', 'yaml',\n"
+        "           'prometheus_client', 'torch')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -1,22 +1,21 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's ``serve_ops`` phase alone on one NVIDIA GPU: the
-operations surface at Llama-3-8B widths (``/metrics`` scraped through a
-burst, spans posted to a local OTLP sink, metering against ``/state``, a
-drain mid-burst, ``/debug/profile`` around a burst, the chained rung
-speculating, the traced warm burst against the untraced).
+operations surface at Llama-3-8B widths cut to ``OPS_LAYERS`` layers
+(``/metrics`` scraped through a burst, spans posted to a local OTLP
+sink, metering against ``/state``, a drain mid-burst, ``/debug/profile``
+around a burst, the chained rung speculating, the traced warm burst
+against the untraced).
 
     python3 tools/torch_serve_ops.py
 
 It builds the kernels, starts the bf16 replica with the prefix cache
-off, times ``serve``'s warm burst (the second of two), runs the phase
-and prints its JSON line; any failed gate exits non-zero. About two
+off, sends ``serve``'s burst once, runs the phase and prints its JSON line; any failed gate exits non-zero. About two
 minutes on an H100, against chip_smoke.py's nine.
 """
 
 import json
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -48,10 +47,7 @@ def main() -> int:
     try:
         reqs = cs._requests(np.random.default_rng(0))
         cs.serve_phase(srv.port, reqs)
-        t = time.monotonic()
-        cs.serve_phase(srv.port, reqs)
-        warm_s = time.monotonic() - t
-        out = cs.serve_ops(torch, srv, srv.engine.params, reqs, {}, warm_s)
+        out = cs.serve_ops(torch, srv, srv.engine.params, reqs, {})
     finally:
         srv.stop()
     print(json.dumps({"serve_ops": out}), flush=True)
