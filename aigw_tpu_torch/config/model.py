@@ -2,12 +2,11 @@
 ``aigw_tpu/config/model.py``).
 
 The declarative model a user writes (JSON, or YAML where ``pyyaml`` is
-installed) and the gateway consumes. The port's gateway fronts serving
-pools of ``OpenAI``- and ``TPUServe``-schema backends, with a pool's
-fleet ``controller``, gateway-driven ``migration`` and token ``quotas``;
-a config that names anything else it does not carry (another provider
-schema, upstream ``auth``, ``mcp``, a Kubernetes CRD manifest) raises
-``ConfigError`` naming the field, never drops it.
+installed) and the gateway consumes: backends of every provider schema
+with their upstream ``auth``, serving pools with a pool's fleet
+``controller``, gateway-driven ``migration`` and token ``quotas``. A
+config that names what the port does not carry (``mcp``, a Kubernetes
+CRD manifest) raises ``ConfigError`` naming the field, never drops it.
 It is deliberately decoupled from any orchestrator (the reference makes the
 same choice for its data-plane config: filterapi/filterconfig.go:6-12).
 
@@ -21,10 +20,12 @@ Shape parity with the reference:
                           (ai_gateway_route.go:377-397)
 - ``LLMRequestCost``    ≈ filterapi.LLMRequestCost   (shared_types.go:103-162)
 - ``APISchema``         ≈ VersionedAPISchema         (shared_types.go:15-74)
+- ``AuthConfig``        ≈ BackendSecurityPolicy CRD  (backendsecurity_policy.go:37)
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import hashlib
 import json
@@ -92,6 +93,68 @@ class APISchema:
         d: dict[str, Any] = {"name": self.name.value}
         if self.version:
             d["version"] = self.version
+        return d
+
+
+class AuthKind(str, enum.Enum):
+    """Upstream credential kinds (upstream backendauth/auth.go)."""
+
+    NONE = "None"
+    API_KEY = "APIKey"  # Authorization: Bearer <key>
+    AWS_SIGV4 = "AWSSigV4"  # SigV4 request signing (incl. body hash)
+    AZURE_API_KEY = "AzureAPIKey"  # api-key header
+    AZURE_TOKEN = "AzureToken"  # Authorization: Bearer <oauth token>
+    GCP_TOKEN = "GCPToken"  # Bearer token + project/region path rewrite
+    ANTHROPIC_API_KEY = "AnthropicAPIKey"  # x-api-key + anthropic-version
+
+
+@dataclass(frozen=True)
+class AuthConfig:
+    """Per-backend upstream credential configuration.
+
+    ``api_key``/``secret_*`` fields may be literal values or ``file:<path>``
+    references, read by the backend's handler (``gateway/auth``) when a
+    request is sent and again whenever the file changes.
+    """
+
+    kind: AuthKind = AuthKind.NONE
+    api_key: str = ""
+    # AWS SigV4
+    aws_access_key_id: str = ""
+    aws_secret_access_key: str = ""
+    aws_session_token: str = ""
+    aws_region: str = ""
+    aws_service: str = "bedrock"
+    # Azure
+    azure_api_key: str = ""
+    azure_access_token: str = ""
+    # GCP
+    gcp_access_token: str = ""
+    gcp_project: str = ""
+    gcp_region: str = ""
+    # Anthropic
+    anthropic_version: str = "2023-06-01"
+
+    @staticmethod
+    def parse(value: dict[str, Any] | None) -> "AuthConfig":
+        if not value:
+            return AuthConfig()
+        kind = AuthKind(value.get("kind", "None"))
+        known = {f.name for f in dataclasses.fields(AuthConfig)}
+        kwargs = {k: v for k, v in value.items() if k in known and k != "kind"}
+        unknown = set(value) - known - {"kind"}
+        if unknown:
+            raise ConfigError(f"unknown auth fields: {sorted(unknown)}")
+        return AuthConfig(kind=kind, **kwargs)
+
+    def to_dict(self) -> dict[str, Any]:
+        d = {"kind": self.kind.value}
+        for f in dataclasses.fields(self):
+            if f.name == "kind":
+                continue
+            v = getattr(self, f.name)
+            if v != f.default:
+                d[f.name] = v
         return d
 
 
@@ -227,31 +290,11 @@ def _check_picker_mode(mode: str) -> str:
     return mode
 
 
-#: backend schemas the port's gateway carries: the OpenAI passthrough,
-#: port replicas, and self-hosted Cohere-compatible rerankers (no
-#: schema that needs upstream credentials)
-PORTED_SCHEMAS = frozenset({"OpenAI", "TPUServe", "Cohere"})
-
-
 def not_ported(where: str, field: str, what: str) -> ConfigError:
     """The error for a config field this gateway does not carry."""
     return ConfigError(
         f"{where}: {field!r} ({what}) is not ported to the aigw_tpu_torch "
         "gateway")
-
-
-def _check_ported_backend(value: dict[str, Any]) -> None:
-    """Refuse the backend fields whose machinery this gateway lacks."""
-    where = f"backend {value.get('name', '?')!r}"
-    raw_schema = value.get("schema")
-    name = (raw_schema.get("name") if isinstance(raw_schema, dict)
-            else raw_schema)
-    if name is not None and str(name) not in PORTED_SCHEMAS:
-        raise not_ported(where, "schema", f"{name}; OpenAI, TPUServe "
-                         "and Cohere are ported")
-    auth = value.get("auth")
-    if auth and dict(auth) != {"kind": "None"}:
-        raise not_ported(where, "auth", "upstream credentials")
 
 
 def _check_controller(value: dict[str, Any]) -> Any:
@@ -279,7 +322,7 @@ def _check_controller(value: dict[str, Any]) -> Any:
 
 @dataclass(frozen=True)
 class Backend:
-    """One upstream backend: schema + address + mutations.
+    """One upstream backend: schema + address + auth + mutations.
 
     ≈ AIServiceBackend CRD (ai_service_backend.go:28) flattened with the
     resolved Envoy Gateway ``Backend`` address.
@@ -353,6 +396,7 @@ class Backend:
     # {kind: local, spec: {...}, env: {...}}). None = a static pool.
     # Requires an endpoint pool.
     controller: Any = None
+    auth: AuthConfig = AuthConfig()
     header_mutation: HeaderMutation = HeaderMutation()
     body_mutation: BodyMutation = BodyMutation()
     # Rewrite the model name sent upstream (reference modelNameOverride).
@@ -365,7 +409,6 @@ class Backend:
 
     @staticmethod
     def parse(value: dict[str, Any]) -> "Backend":
-        _check_ported_backend(value)
         try:
             return Backend(
                 name=value["name"],
@@ -395,6 +438,7 @@ class Backend:
                 slo_window_s=float(value.get("slo_window_s", 30.0)),
                 slo_burn_windows=int(value.get("slo_burn_windows", 3)),
                 controller=_check_controller(value),
+                auth=AuthConfig.parse(value.get("auth")),
                 header_mutation=HeaderMutation.parse(value.get("header_mutation")),
                 body_mutation=BodyMutation.parse(value.get("body_mutation")),
                 model_name_override=value.get("model_name_override", ""),
@@ -436,6 +480,8 @@ class Backend:
             d["slo_burn_windows"] = self.slo_burn_windows
         if self.controller is not None:
             d["controller"] = _thaw(self.controller)
+        if self.auth.kind is not AuthKind.NONE:
+            d["auth"] = self.auth.to_dict()
         if self.header_mutation != HeaderMutation():
             d["header_mutation"] = self.header_mutation.to_dict()
         if self.body_mutation != BodyMutation():

@@ -1,13 +1,12 @@
 """RuntimeConfig: a Config with everything pre-built for the hot path
 (the port's copy of ``aigw_tpu/config/runtime.py``).
 
-Equivalent of the upstream ``filterapi.RuntimeConfig``: cost expressions
-compiled, route-level cost lists merged over the global one and the
-quota rate limiter built from ``quotas`` (adopting the previous
+Equivalent of the upstream ``filterapi.RuntimeConfig``: each backend's
+auth handler constructed (``gateway/auth.new_handler``), cost
+expressions compiled, route-level cost lists merged over the global one
+and the quota rate limiter built from ``quotas`` (adopting the previous
 runtime's window counters across a hot reload), so per-request
-processing never touches parsing or compilation. The reference also
-builds each backend's auth handler here; the port's config refuses
-``auth``, so none exists.
+processing never touches parsing or compilation.
 """
 
 from __future__ import annotations
@@ -20,7 +19,10 @@ from aigw_tpu_torch.config.model import Backend, Config, Route
 
 @dataclass
 class RuntimeBackend:
+    """A Backend plus its pre-built auth handler."""
+
     backend: Backend
+    auth_handler: Any  # gateway.auth.AuthHandler
 
 
 @dataclass
@@ -36,13 +38,15 @@ class RuntimeConfig:
     def build(config: Config,
               previous: "RuntimeConfig | None" = None) -> "RuntimeConfig":
         from aigw_tpu_torch.config.model import _thaw
+        from aigw_tpu_torch.gateway.auth import new_handler
         from aigw_tpu_torch.gateway.costs import CostCalculator
         from aigw_tpu_torch.gateway.ratelimit import RateLimiter
 
         config.validate()
         rc = RuntimeConfig(config=config)
         for b in config.backends:
-            rc.backends[b.name] = RuntimeBackend(backend=b)
+            rc.backends[b.name] = RuntimeBackend(
+                backend=b, auth_handler=new_handler(b.auth))
         rc.cost_calculator = CostCalculator.from_config(config)
         global_costs = {c.metadata_key: c for c in config.llm_request_costs}
         for route in config.routes:

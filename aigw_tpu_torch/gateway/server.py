@@ -23,13 +23,21 @@ MeterRecord in the usage ledger (``gateway/usage.py``).
 
 What this data plane carries: the reference's eleven client endpoints
 (``_ENDPOINTS``): chat, completions, embeddings, ``/tokenize``,
-``/v1/responses`` (mapped onto chat for ``TPUServe`` backends, with its
-transcript store for ``previous_response_id``), image generation and the
-three audio routes (the two multipart ones forwarded untranslated) on an
-OpenAI front to ``OpenAI``- and ``TPUServe``-schema backends; the
-Anthropic front (``/v1/messages``, mapped onto chat for both); and
-``/v2/rerank`` on a Cohere front to ``Cohere``-schema backends; streamed
-and not. ``GET /v1/models``, ``/health``, ``/metrics``, ``/usage``,
+``/v1/responses`` (passed through to OpenAI backends, mapped onto chat
+for every chat-capable one, with its transcript store for
+``previous_response_id``), image generation and the three audio routes
+(the two multipart ones forwarded untranslated) on an OpenAI front; the
+Anthropic front (``/v1/messages``); and ``/v2/rerank`` on a Cohere front;
+streamed and not, to every backend schema the translators pair with the
+front (``translate/``): port replicas and OpenAI, the hosted Anthropic,
+Azure OpenAI, Vertex Gemini, Vertex and Bedrock Anthropic and Bedrock
+Converse, whose AWS event-stream replies are streams as SSE is. Each
+attempt applies the backend's upstream credentials last
+(``gateway/auth``: a key header, a bearer token with the Vertex path's
+project and region, or a SigV4 signature over the final body and host),
+and signs again on a failover to a sibling; a missing credential
+answers 401 ``authentication_error``. ``GET /v1/models``, ``/health``,
+``/metrics``, ``/usage``,
 ``/fleet/state``, ``/fleet/metrics`` and ``/debug/decisions``; the
 batch tier's proxy (``/v1/files``, ``/v1/batches``: new batch state on
 the picker's batch choice, polls, cancels and fetches on the replica
@@ -44,9 +52,8 @@ stream of a draining one, moved to a sibling through the replicas'
 fleet controller per pool that configures one
 (``gateway/controller.py``: autoscaling, lossless drain, failover, a
 launcher of replica processes that the gateway's shutdown stops). The
-reference's upstream auth, hosted-provider translators, access log,
-OpenInference and gateway spans, and MCP proxy are not carried; the
-config refuses what would need them
+reference's access log, OpenInference and gateway spans, and MCP proxy
+are not carried; the config refuses what would need them
 (``config/model.py``). With no span of its own the gateway relays the
 caller's trace-context headers to the replica verbatim, as the
 reference does with tracing off.
@@ -74,6 +81,7 @@ from aigw_tpu_torch.config.model import (
     _thaw,
 )
 from aigw_tpu_torch.config.runtime import RuntimeBackend, RuntimeConfig
+from aigw_tpu_torch.gateway.auth import AuthError
 from aigw_tpu_torch.gateway.circuit import CircuitBreaker
 from aigw_tpu_torch.gateway.controller import (
     ControllerConfig,
@@ -141,6 +149,7 @@ from aigw_tpu_torch.translate import (
     TranslationError,
     get_translator,
 )
+from aigw_tpu_torch.utils.redaction import redact_body, redact_headers
 
 logger = logging.getLogger(__name__)
 
@@ -287,6 +296,11 @@ def _multipart_model(raw: bytes, content_type: str) -> str:
 
 #: upstream statuses that move the request to the next backend
 _RETRIABLE_STATUS = {429, 500, 502, 503, 504}
+#: backend schemas whose SSE streams end with ``data: [DONE]``: only
+#: their close-delimited streams can be told torn from finished
+_DONE_TERMINATED = frozenset({APISchemaName.OPENAI,
+                              APISchemaName.AZURE_OPENAI,
+                              APISchemaName.TPUSERVE})
 
 
 def _error(status: int, body: bytes,
@@ -872,6 +886,10 @@ class GatewayServer:
                     route_name, rb.backend.name, str(e.status)
                 ).inc()
                 continue
+            except AuthError as e:
+                req_metrics.finish(TokenUsage(), error_type="auth")
+                return _error(401, error_body(
+                    str(e), type_="authentication_error"))
             except (TranslationError, oai.SchemaError) as e:
                 req_metrics.finish(TokenUsage(), error_type="translation")
                 status = getattr(e, "status", 400)
@@ -1056,6 +1074,15 @@ class GatewayServer:
         headers = apply_header_mutation(headers, backend.header_mutation)
         headers["host"] = urllib.parse.urlsplit(base_url).netloc
         path = tx.path or request.path
+        # credentials last: SigV4 signs the final body and host
+        headers, path = rb.auth_handler.apply(headers, out_body, path)
+        if logger.isEnabledFor(logging.DEBUG):
+            logger.debug(
+                "upstream attempt backend=%s path=%s headers=%s body=%s",
+                backend.name, path, redact_headers(headers),
+                redact_body(body) if not isinstance(body, _RawBody)
+                else f"[multipart {len(body.raw)} bytes]",
+            )
         timeout = Timeout(
             total=backend.request_timeout,
             connect=min(10.0, backend.request_timeout),
@@ -1067,7 +1094,7 @@ class GatewayServer:
 
         def _move_dest(nxt: str) -> None:
             # re-aim the same translated request at a sibling replica
-            nonlocal dest, base_url
+            nonlocal dest, base_url, headers, path
             if decision is not None:
                 decision.setdefault("failover_from", []).append(dest)
                 decision["chosen"] = nxt
@@ -1081,6 +1108,8 @@ class GatewayServer:
             dest = nxt
             base_url = f"http://{dest}"
             headers["host"] = urllib.parse.urlsplit(base_url).netloc
+            # a new host: sign again (the handler is retry-safe)
+            headers, path = rb.auth_handler.apply(headers, out_body, path)
 
         def _sibling(tried: set[str]) -> str | None:
             picker = self._pickers.get(backend.name)
@@ -1171,7 +1200,8 @@ class GatewayServer:
                     self._pickers[backend.name].note_chain(
                         prefix_key_used, chain_hex)
             ctype = resp.headers.get("content-type", "")
-            if tx.stream and "text/event-stream" in ctype:
+            if tx.stream and ("text/event-stream" in ctype
+                              or "vnd.amazon.eventstream" in ctype):
                 migrator = None
                 if (backend.migration and dest
                         and backend.name in self._pickers
@@ -1335,9 +1365,13 @@ class GatewayServer:
             if err is not None:
                 raise err
 
+        done_terminated = rb.backend.schema.name in _DONE_TERMINATED
+
         def _torn(r: ClientResponse, tail: bytes) -> bool:
             # a close-delimited SSE body that ended before its [DONE]
-            return r.close_delimited and b"[DONE]" not in tail
+            # (another schema's stream has no such marker to miss)
+            return (done_terminated and r.close_delimited
+                    and b"[DONE]" not in tail)
 
         try:
             tail = b""

@@ -405,6 +405,9 @@ def usage_dict(usage: TokenUsage) -> dict[str, Any]:
     if usage.cached_input_tokens:
         d["prompt_tokens_details"] = {
             "cached_tokens": usage.cached_input_tokens}
+    if usage.reasoning_tokens:
+        d["completion_tokens_details"] = {
+            "reasoning_tokens": usage.reasoning_tokens}
     if usage.meter:
         d["aigw_meter"] = dict(usage.meter)
     return d
@@ -414,13 +417,22 @@ def chat_completion_response(*, model: str, content: str,
                              finish_reason: str = "stop",
                              usage: TokenUsage | None = None,
                              response_id: str = "",
-                             tool_calls: list[dict[str, Any]] | None = None
-                             ) -> dict[str, Any]:
+                             tool_calls: list[dict[str, Any]] | None = None,
+                             reasoning_content: str = "",
+                             thinking_blocks: list[dict[str, Any]] | None
+                             = None) -> dict[str, Any]:
+    """A ``chat.completion``; a hosted model's reasoning rides as
+    ``reasoning_content`` and the signed ``thinking_blocks`` a client
+    replays on its next turn."""
     message: dict[str, Any] = {"role": "assistant", "content": content}
     if tool_calls:
         message["tool_calls"] = tool_calls
         if not content:
             message["content"] = None
+    if reasoning_content:
+        message["reasoning_content"] = reasoning_content
+    if thinking_blocks:
+        message["thinking_blocks"] = thinking_blocks
     return {
         "id": response_id or f"chatcmpl-{uuid.uuid4().hex[:24]}",
         "object": "chat.completion",
@@ -452,15 +464,16 @@ def sse(data: str) -> bytes:
             + "\n").encode()
 
 
-def stream_chunk_sse(*, response_id: str, model: str, created: int,
-                     delta: dict[str, Any] | None = None,
-                     finish_reason: str | None = None,
-                     usage: TokenUsage | None = None,
-                     logprobs: dict[str, Any] | None = None,
-                     index: int = 0) -> bytes:
-    """One ``chat.completion.chunk`` as an SSE event: choice ``index``
-    (with its ``logprobs`` when given), or no choice when there is
-    neither a delta nor a finish (a usage chunk)."""
+def chat_completion_chunk(*, response_id: str, model: str,
+                          delta: dict[str, Any] | None = None,
+                          finish_reason: str | None = None,
+                          usage: TokenUsage | None = None,
+                          created: int = 0,
+                          logprobs: dict[str, Any] | None = None,
+                          index: int = 0) -> dict[str, Any]:
+    """One ``chat.completion.chunk``: choice ``index`` (with its
+    ``logprobs`` when given), or no choice when there is neither a delta
+    nor a finish (a usage chunk)."""
     chunk: dict[str, Any] = {
         "id": response_id,
         "object": "chat.completion.chunk",
@@ -477,7 +490,20 @@ def stream_chunk_sse(*, response_id: str, model: str, created: int,
         chunk["choices"] = [choice]
     if usage is not None:
         chunk["usage"] = usage_dict(usage)
-    return sse(json.dumps(chunk))
+    return chunk
+
+
+def stream_chunk_sse(*, response_id: str, model: str, created: int,
+                     delta: dict[str, Any] | None = None,
+                     finish_reason: str | None = None,
+                     usage: TokenUsage | None = None,
+                     logprobs: dict[str, Any] | None = None,
+                     index: int = 0) -> bytes:
+    """``chat_completion_chunk`` as one SSE event."""
+    return sse(json.dumps(chat_completion_chunk(
+        response_id=response_id, model=model, delta=delta,
+        finish_reason=finish_reason, usage=usage, created=created,
+        logprobs=logprobs, index=index)))
 
 
 def completion_chunk_sse(*, response_id: str, model: str, created: int,

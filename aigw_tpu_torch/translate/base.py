@@ -156,13 +156,22 @@ def supported_pairs() -> list[tuple[Endpoint, APISchemaName, APISchemaName]]:
 def _install_all() -> None:
     """Import the translator modules so their registrations run, in the
     reference's order: ``responses`` re-registers the Responses front to
-    TPUServe over the passthrough entry, so a TPUServe backend gets
-    ``ResponsesToChat`` while an OpenAI backend keeps the passthrough."""
+    its chat-capable targets over the passthrough entries, so those
+    backends get ``ResponsesToChat`` while an OpenAI backend keeps the
+    passthrough; ``anthropic_hosted`` comes last."""
     from aigw_tpu_torch.translate import (  # noqa: F401
         passthrough,
+        openai_anthropic,
         anthropic_openai,
+        openai_awsbedrock,
+        anthropic_awsbedrock,
+        openai_azure,
+        openai_gcp,
+        embeddings,
+        tokenize,
         rerank,
         responses,
+        anthropic_hosted,
     )
 
 

@@ -26,9 +26,6 @@ opts out, matching the OpenAI contract. With ``AIGW_RESPONSES_DIR``
 set the transcripts are files (``FileResponseStore``) in the
 reference's on-disk format, so gateways of either package that share
 the directory continue each other's conversations.
-
-The port registers the ``TPUServe`` target only; the reference's hosted
-targets wait for their chat translators.
 """
 
 from __future__ import annotations
@@ -680,13 +677,19 @@ class ResponsesToChat(Translator):
         )
 
 
-def _make(*, model_name_override: str = "", stream: bool = False,
-          out_version: str = "", **_: object) -> ResponsesToChat:
-    return ResponsesToChat(
-        APISchemaName.TPUSERVE, model_name_override=model_name_override,
-        stream=stream, out_version=out_version,
-    )
+def _install() -> None:
+    for schema in (APISchemaName.ANTHROPIC, APISchemaName.AWS_BEDROCK,
+                   APISchemaName.GCP_VERTEX_AI, APISchemaName.GCP_ANTHROPIC,
+                   APISchemaName.AWS_ANTHROPIC, APISchemaName.TPUSERVE):
+        def make(*, model_name_override: str = "", stream: bool = False,
+                 out_version: str = "", _s: APISchemaName = schema):
+            return ResponsesToChat(
+                _s, model_name_override=model_name_override, stream=stream,
+                out_version=out_version,
+            )
+
+        register_translator(Endpoint.RESPONSES, APISchemaName.OPENAI,
+                            schema, make)
 
 
-register_translator(Endpoint.RESPONSES, APISchemaName.OPENAI,
-                    APISchemaName.TPUSERVE, _make)
+_install()

@@ -1,12 +1,15 @@
-"""OpenAI ``response_format`` parsing and JSON-schema ``$ref``
-dereferencing (the port's own copy of the replica-side part of
-``aigw_tpu/translate/structured.py``; the Gemini schema conversion
-serves the gateway, not a replica, and is not copied).
+"""OpenAI ``response_format`` parsing, JSON-schema ``$ref``
+dereferencing and the Gemini schema conversion (the port's copy of
+``aigw_tpu/translate/structured.py``).
 
 ``parse_response_format`` validates and normalizes the
 ``response_format`` union; ``dereference`` substitutes every ``$ref``
-with circular-reference and recursion-depth guards. Every error is a
-``JSONSchemaError`` (a client-facing 400) with the reference's message.
+with circular-reference and recursion-depth guards; ``to_gemini_schema``
+turns a JSON schema into Gemini's (GAPIC) form: allowed-field filtering,
+``type: [T, "null"]`` → ``nullable: true``, single-element ``allOf``
+collapse, and ``anyOf`` flattening with null-branch extraction. Every
+error is a ``JSONSchemaError`` (a client-facing 400) with the reference's
+message.
 """
 
 from __future__ import annotations
@@ -171,3 +174,107 @@ def dereference(schema: dict[str, Any]) -> Any:
         raise JSONSchemaError("schema object cannot be None")
     skip = _skip_keys(schema, schema, set(), 0)
     return _deref(schema, schema, skip, set(), 0)
+
+
+# ---------------------------------------------------------------------------
+# Gemini (GAPIC) schema conversion
+# ---------------------------------------------------------------------------
+
+#: fields genai.Schema supports
+GEMINI_ALLOWED_FIELDS = frozenset({
+    "anyOf", "default", "description", "enum", "example", "format",
+    "items", "maxItems", "maxLength", "maxProperties", "maximum",
+    "minItems", "minLength", "minProperties", "minimum", "nullable",
+    "pattern", "properties", "propertyOrdering", "required", "title",
+    "type",
+})
+
+
+def _type_field(value: Any) -> dict[str, Any]:
+    if isinstance(value, list):
+        if len(value) != 2:
+            raise JSONSchemaError(
+                f"if type is a list, length must be 2, got {len(value)}")
+        has_null = "null" in value
+        non_null = next((t for t in value if t != "null"), None)
+        if not has_null or non_null is None:
+            raise JSONSchemaError(
+                "if type is a list, it must contain one non-null type "
+                "and 'null'")
+        if isinstance(non_null, dict):
+            raise JSONSchemaError("unexpected map type in type array")
+        return {"type": str(non_null), "nullable": True}
+    if isinstance(value, str):
+        return {"type": value}
+    raise JSONSchemaError(
+        f"'type' must be a list or string, got {type(value).__name__}")
+
+
+def _to_gapic(schema: dict[str, Any]) -> dict[str, Any]:
+    out: dict[str, Any] = {}
+    for key, value in schema.items():
+        if key in _DEFINITION_CONTAINERS:
+            continue
+        if key == "$ref":
+            # a $ref that survived dereferencing would silently become an
+            # accept-anything schema — fail loudly instead
+            raise JSONSchemaError(
+                f"unresolved $ref in schema: {value!r}")
+        if key == "items":
+            if not isinstance(value, dict):
+                raise JSONSchemaError(
+                    f"'items' must be a dict, got {type(value).__name__}")
+            out["items"] = _to_gapic(value)
+        elif key == "properties":
+            if not isinstance(value, dict):
+                raise JSONSchemaError(
+                    f"'properties' must be a dict, "
+                    f"got {type(value).__name__}")
+            props = {}
+            for pk, pv in value.items():
+                if not isinstance(pv, dict):
+                    raise JSONSchemaError(
+                        f"property {pk!r} must be a dict, "
+                        f"got {type(pv).__name__}")
+                props[pk] = _to_gapic(pv)
+            out["properties"] = props
+        elif key == "type":
+            out.update(_type_field(value))
+        elif key == "allOf":
+            if not isinstance(value, list) or not value:
+                raise JSONSchemaError("'allOf' must be a non-empty list")
+            if len(value) > 1:
+                raise JSONSchemaError(
+                    f"only one value for 'allOf' key is supported, "
+                    f"got {len(value)}")
+            if not isinstance(value[0], dict):
+                raise JSONSchemaError("item in 'allOf' must be an object")
+            return _to_gapic(value[0])
+        elif key == "anyOf":
+            if not isinstance(value, list) or not value:
+                raise JSONSchemaError("'anyOf' must be a non-empty list")
+            branches = []
+            nullable = False
+            for i, v in enumerate(value):
+                if not isinstance(v, dict):
+                    raise JSONSchemaError(
+                        f"item {i} in 'anyOf' must be a dict")
+                if v.get("type") == "null":
+                    nullable = True
+                else:
+                    branches.append(_to_gapic(v))
+            if nullable:
+                out["nullable"] = True
+            out["anyOf"] = branches
+        elif key in GEMINI_ALLOWED_FIELDS:
+            out[key] = value
+        # unknown fields are dropped (not in the allowed set)
+    return out
+
+
+def to_gemini_schema(schema: dict[str, Any]) -> dict[str, Any]:
+    """JSON Schema → Gemini responseSchema dict (dereference + filter)."""
+    deref = dereference(schema)
+    if not isinstance(deref, dict):
+        raise JSONSchemaError("dereferenced schema is not an object")
+    return _to_gapic(deref)

@@ -72,7 +72,8 @@ def _both(fn):
 
 
 # -- the registry ---------------------------------------------------------------
-CARRIED = {"OpenAI", "TPUServe", "Cohere"}
+#: every backend schema: the hosted providers' translators are ported too
+CARRIED = {s.value for s in TS}
 _PORT_PAIRS = sorted((e.value, i.value, o.value)
                      for e, i, o in tbase.supported_pairs())
 
@@ -82,6 +83,7 @@ def test_supported_pairs_are_the_references_on_carried_schemas():
     want = {p for p in ref if p[2] in CARRIED} | {
         ("/v1/messages", "Anthropic", "Anthropic")}
     assert set(_PORT_PAIRS) == want
+    assert CARRIED == {s.value for s in JS}
 
 
 @pytest.mark.parametrize("pair", _PORT_PAIRS, ids=["|".join(p)

@@ -1828,12 +1828,15 @@ def test_sp_two_ranks_share_the_card_over_gloo(cuda, tmp_path):
             assert j > 0, (g, w)
 
 
-def _gateway_pair(cuda):
+def _gateway_pair(cuda, pinned=False):
     """Two tiny-random replicas on the card on the kernel path, and the
-    port's gateway over both in this process's event-loop thread."""
+    port's gateway over both in this process's event-loop thread; with
+    ``pinned``, also chip_smoke's pinned backend on the first replica
+    (``_gw_pinned``), routed first."""
     import asyncio
     import threading
 
+    import chip_smoke as cs
     from aigw_tpu_torch.config.model import Config
     from aigw_tpu_torch.config.runtime import RuntimeConfig
     from aigw_tpu_torch.gateway.server import run_gateway
@@ -1842,12 +1845,15 @@ def _gateway_pair(cuda):
     addrs = [f"127.0.0.1:{r.port}" for r in reps]
     loop = asyncio.new_event_loop()
     threading.Thread(target=loop.run_forever, daemon=True).start()
+    backend, rule = cs._gw_pinned(addrs[0], "tiny-random")
     cfg = Config.parse({
         "version": "v1",
         "backends": [{"name": "pool", "schema": "TPUServe",
                       "endpoints": addrs, "picker_poll_interval": 0.1,
-                      "picker_content_affinity": True}],
-        "routes": [{"name": "r", "rules": [{"backends": ["pool"]}]}],
+                      "picker_content_affinity": True}]
+        + ([backend] if pinned else []),
+        "routes": [{"name": "r", "rules": ([rule] if pinned else [])
+                    + [{"backends": ["pool"]}]}],
         "llm_request_costs": [{"metadata_key": "t",
                                "type": "TotalToken"}]})
     gw = asyncio.run_coroutine_threadsafe(
@@ -1940,6 +1946,32 @@ def test_gateway_fronts_on_cuda_replicas(cuda):
         finally:
             cs.GW_MODEL = saved
         assert out["batch_lines"] == 2
+        assert paged_attention.ragged_prefill_attention.launches > k1
+        assert decode_fused.fused_paged_decode.launches > k2
+    finally:
+        close()
+
+
+def test_gateway_hosted_chain_on_cuda_replicas(cuda):
+    """A second gateway in front of this one (``python -m aigw_tpu_torch
+    run``, an ``Anthropic`` backend with a ``file:`` key), onto the card's
+    replicas through the ``/v1/messages`` front: chat streamed and not,
+    Responses and Messages through it equal the same requests here by
+    the replica's ids, usage and text; an emptied key answers 401 with
+    no launch, the key written back 200 (chip_smoke's ``_gw_hosted``);
+    K1 and K2 launched."""
+    import time
+
+    import chip_smoke as cs
+
+    reps, _addrs, gw, close = _gateway_pair(cuda, pinned=True)
+    try:
+        time.sleep(0.5)  # a poll of both
+        k1 = paged_attention.ragged_prefill_attention.launches
+        k2 = decode_fused.fused_paged_decode.launches
+        out = cs._gw_hosted(gw.port, reps, model="tiny-random")
+        assert out["empty_key"]["status"] == 401
+        assert out["key_restored_status"] == 200
         assert paged_attention.ragged_prefill_attention.launches > k1
         assert decode_fused.fused_paged_decode.launches > k2
     finally:

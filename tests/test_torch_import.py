@@ -534,3 +534,64 @@ def test_front_modules_import_with_aiohttp_and_yaml_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+HOSTED_MODULES = [
+    "aigw_tpu_torch.gateway.auth", "aigw_tpu_torch.gateway.auth.handlers",
+    "aigw_tpu_torch.gateway.auth.oidc", "aigw_tpu_torch.utils.redaction",
+    "aigw_tpu_torch.translate.eventstream",
+    "aigw_tpu_torch.translate.vendor_fields",
+    "aigw_tpu_torch.translate.openai_anthropic",
+    "aigw_tpu_torch.translate.anthropic_hosted",
+    "aigw_tpu_torch.translate.openai_azure",
+    "aigw_tpu_torch.translate.openai_awsbedrock",
+    "aigw_tpu_torch.translate.anthropic_awsbedrock",
+    "aigw_tpu_torch.translate.openai_gcp",
+    "aigw_tpu_torch.translate.tokenize",
+    "aigw_tpu_torch.translate.embeddings"]
+
+
+def test_hosted_modules_import_with_aiohttp_and_yaml_blocked():
+    """The upstream credentials (handlers, the OIDC exchangers on the
+    gateway's own client), the log redaction and the hosted-provider
+    translators import in a fresh interpreter where jax, the reference
+    package, aiohttp and yaml cannot be imported, pull in none of them
+    nor torch, and import only the standard library and the port; the
+    registry then holds every hosted pair."""
+    import sys as _sys
+
+    for m in HOSTED_MODULES:
+        assert m in MODULES or m + ".__init__" in MODULES, m
+        path = ROOT / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / m.replace(".", "/") / "__init__.py"
+        outside = [n for n in _imported_names(path)
+                   if n.split(".")[0] not in _sys.stdlib_module_names
+                   and not n.startswith("aigw_tpu_torch")]
+        assert not outside, (m, outside)
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'aigw_tpu', 'aiohttp', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {HOSTED_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from aigw_tpu_torch.config.model import APISchemaName as S\n"
+        "from aigw_tpu_torch.translate import Endpoint as E, get_translator\n"
+        "want = {(E.CHAT_COMPLETIONS, S.ANTHROPIC): 'OpenAIToAnthropicChat',\n"
+        "        (E.CHAT_COMPLETIONS, S.AWS_BEDROCK): 'OpenAIToBedrockChat',\n"
+        "        (E.CHAT_COMPLETIONS, S.GCP_VERTEX_AI): 'OpenAIToGeminiChat',\n"
+        "        (E.MESSAGES, S.AWS_BEDROCK): 'AnthropicToBedrockConverse',\n"
+        "        (E.MESSAGES, S.GCP_ANTHROPIC): 'AnthropicToVertexAnthropic',\n"
+        "        (E.RESPONSES, S.AWS_ANTHROPIC): 'ResponsesToChat'}\n"
+        "for (e, s), name in want.items():\n"
+        "    f = S.ANTHROPIC if e is E.MESSAGES else S.OPENAI\n"
+        "    assert type(get_translator(e, f, s)).__name__ == name, (e, s)\n"
+        "bad = [k for k, v in sys.modules.items() if v and k.split('.')[0]\n"
+        "       in ('jax', 'jaxlib', 'aigw_tpu', 'aiohttp', 'yaml',\n"
+        "           'prometheus_client', 'torch')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Run chip_smoke.py's ``serve_gateway`` phase, with its client fronts,
-alone on one NVIDIA GPU: two port replicas at Llama-3-8B widths cut to
-``GW_LAYERS`` layers on the kernel path, the port's gateway in front of
-them in its own process (``python -m aigw_tpu_torch run``), the
-phase's gates, then ``/v1/messages``, ``/v1/responses``, ``/tokenize``
-and a batch through ``/v1/files`` and ``/v1/batches`` on the same
-replicas and gateway, held to chat and to the replicas served directly.
+"""Run chip_smoke.py's ``serve_gateway`` phase, with its client fronts
+and its hosted-provider hop, alone on one NVIDIA GPU: two port replicas
+at Llama-3-8B widths cut to ``GW_LAYERS`` layers on the kernel path, the
+port's gateway in front of them in its own process (``python -m
+aigw_tpu_torch run``), the phase's gates, then ``/v1/messages``,
+``/v1/responses``, ``/tokenize`` and a batch through ``/v1/files`` and
+``/v1/batches`` on the same replicas and gateway, held to chat and to
+the replicas served directly; then a second gateway whose
+``Anthropic``-schema backend (an ``AnthropicAPIKey`` from a ``file:``
+secret) is the first gateway, its chat, Responses and Messages held to
+the same requests sent to the first, an emptied key answering 401.
 
     python3 tools/torch_fronts.py
 
 It builds the kernels, draws the Llama-3-8B-width weights from the
 registry's seed (the phase serves their first layers), runs the phase
-and prints its JSON line, the fronts' launch counts and the card; any
-failed gate exits non-zero.
+and prints its JSON line, the fronts' and the hosted hop's launch
+counts and the card; any failed gate exits non-zero.
 """
 
 import json
@@ -53,6 +57,9 @@ def main() -> int:
     print(json.dumps({"serve_gateway": out}), flush=True)
     print(json.dumps({"fronts": out["fronts"],
                       "launches_serve_fronts": launches["serve_fronts"]}),
+          flush=True)
+    print(json.dumps({"hosted": out["hosted"],
+                      "launches_serve_hosted": launches["serve_hosted"]}),
           flush=True)
     return 0
 
