@@ -20,6 +20,7 @@
     python -m aigw_tpu_torch tpuserve --model tiny-random --device cpu --sp 2
     python -m aigw_tpu_torch convert /hf/llama-3-8b checkpoints/llama-3-8b
     python -m aigw_tpu_torch run gateway.json --port 1975
+    python -m aigw_tpu_torch run gateway.json --mcp-config mcp.json
     python -m aigw_tpu_torch quota-service --port 1981 --dir /var/aigw-quota
 
 With no flags a replica runs the reference's default programs: the
@@ -58,7 +59,11 @@ installed), watched every ``--watch-interval`` seconds and reloaded on
 change; ``--port 0`` binds a free port, which the startup line names.
 SIGTERM or SIGINT stops it after ``AIGW_DRAIN_SECONDS`` (1 s) for the
 requests in flight, and stops every replica its pools' controllers
-launched.
+launched. ``--mcp-config FILE`` / ``--mcp-json TEXT`` take the canonical
+``mcpServers`` JSON: every stdio server (``command``) is spawned and
+bridged to a local Streamable-HTTP endpoint (``mcp/stdio_bridge.py``),
+and all of them join the config's ``mcp`` backends on every load; the
+children stop with the gateway, on every exit path.
 
 ``quota-service`` serves the shared token-quota counters
 (``gateway/ratelimit.py``, flock'd files under ``--dir``): gateways
@@ -97,6 +102,15 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--port", type=int, default=1975)
     r.add_argument("--watch-interval", type=float, default=5.0)
     r.add_argument("--log-level", default="info")
+    r.add_argument(
+        "--mcp-config", default="",
+        help="Claude-Desktop-style mcpServers JSON file: http servers "
+             "route through the MCP proxy; stdio servers (command/args) "
+             "are spawned and bridged to Streamable HTTP automatically "
+             "(the reference's aigw run --mcp-config)")
+    r.add_argument(
+        "--mcp-json", default="",
+        help="same as --mcp-config but inline JSON")
     q = sub.add_parser(
         "quota-service",
         help="run the shared quota service: gateways on other nodes "
@@ -299,7 +313,9 @@ def convert(hf_dir: str, out_dir: str) -> int:
 async def run_gateway_cli(args) -> int:
     """``run``: the gateway until SIGTERM or SIGINT."""
     import asyncio
+    import dataclasses
     import os
+    import sys
 
     from aigw_tpu_torch.config.watcher import ConfigWatcher
     from aigw_tpu_torch.gateway.server import run_gateway
@@ -310,26 +326,72 @@ async def run_gateway_cli(args) -> int:
         if "server" in holder:
             holder["server"].set_runtime(rc)
 
-    watcher = ConfigWatcher(args.config, on_reload,
-                            interval=args.watch_interval)
-    server = await run_gateway(watcher.load_initial(), host=args.host,
-                               port=args.port)
-    holder["server"] = server
-    await watcher.start()
-    print(f"gateway listening on http://{args.host}:{server.port}",
-          flush=True)
-    loop = asyncio.get_running_loop()
-    stop = asyncio.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        loop.add_signal_handler(sig, stop.set)
-    await stop.wait()
+    # --mcp-config / --mcp-json: stdio servers are spawned and bridged
+    # first, then every server (http and bridged) joins the MCP proxy's
+    # backends, again on every reload through the watcher's transform
+    bridges: list = []
+    transform = None
+    mcp_text = ""
+    if args.mcp_config:
+        with open(os.path.expanduser(args.mcp_config),
+                  encoding="utf-8") as f:
+            mcp_text = f.read()
+    elif args.mcp_json:
+        mcp_text = args.mcp_json
     try:
-        drain = float(os.environ.get("AIGW_DRAIN_SECONDS", "1.0"))
-    except ValueError:
-        drain = 1.0
-    await watcher.stop()
-    await server.stop(grace=max(0.0, drain))
-    return 0
+        if mcp_text:
+            from aigw_tpu_torch.mcp.stdio_bridge import (
+                parse_mcp_servers,
+                start_bridges,
+            )
+
+            try:
+                http_backends, stdio_specs = parse_mcp_servers(mcp_text)
+                bridged_backends, bridges = await start_bridges(stdio_specs)
+            except ValueError as e:
+                print(f"config error: {e}", file=sys.stderr)
+                return 1
+            mcp_backends = http_backends + bridged_backends
+            print(f"mcp: {len(mcp_backends)} server(s): "
+                  f"{', '.join(b['name'] for b in mcp_backends)}"
+                  + (f" ({len(bridged_backends)} stdio-bridged)"
+                     if bridged_backends else ""),
+                  flush=True)
+
+            def transform(cfg):
+                mcp = dict(cfg.mcp or {})
+                existing = list(mcp.get("backends") or ())
+                have = {b.get("name") for b in existing}
+                mcp["backends"] = existing + [
+                    b for b in mcp_backends if b["name"] not in have]
+                return dataclasses.replace(cfg, mcp=mcp)
+
+        watcher = ConfigWatcher(args.config, on_reload,
+                                interval=args.watch_interval,
+                                transform=transform)
+        server = await run_gateway(watcher.load_initial(), host=args.host,
+                                   port=args.port)
+        holder["server"] = server
+        await watcher.start()
+        print(f"gateway listening on http://{args.host}:{server.port}",
+              flush=True)
+        loop = asyncio.get_running_loop()
+        stop = asyncio.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
+        await stop.wait()
+        try:
+            drain = float(os.environ.get("AIGW_DRAIN_SECONDS", "1.0"))
+        except ValueError:
+            drain = 1.0
+        await watcher.stop()
+        await server.stop(grace=max(0.0, drain))
+        return 0
+    finally:
+        # the stdio children stop on every exit path: a config error or a
+        # failed bind must not orphan them
+        for bridge in bridges:
+            await bridge.stop()
 
 
 async def run_quota_service(args) -> int:

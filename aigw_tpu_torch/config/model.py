@@ -4,9 +4,10 @@
 The declarative model a user writes (JSON, or YAML where ``pyyaml`` is
 installed) and the gateway consumes: backends of every provider schema
 with their upstream ``auth``, serving pools with a pool's fleet
-``controller``, gateway-driven ``migration`` and token ``quotas``. A
-config that names what the port does not carry (``mcp``, a Kubernetes
-CRD manifest) raises ``ConfigError`` naming the field, never drops it.
+``controller``, gateway-driven ``migration`` and token ``quotas``, and the
+MCP proxy's ``mcp`` block (kept raw, parsed by ``aigw_tpu_torch.mcp``). A
+config the port does not carry (a Kubernetes CRD manifest) raises
+``ConfigError`` naming the field, never drops it.
 It is deliberately decoupled from any orchestrator (the reference makes the
 same choice for its data-plane config: filterapi/filterconfig.go:6-12).
 
@@ -701,6 +702,7 @@ class Config:
     # Quota rules (parsed/enforced by aigw_tpu_torch.gateway.ratelimit — the
     # QuotaPolicy equivalent); stored frozen for hashability.
     quotas: tuple[Any, ...] = ()
+    mcp: dict[str, Any] | None = None  # parsed by aigw_tpu_torch.mcp
     # Engine-truth usage metering: the gateway ledger's
     # knobs, stored frozen. None = metering ON with defaults (in-memory
     # ledger, 60s windows, no budgets). Mapping keys: enabled (bool),
@@ -753,8 +755,6 @@ class Config:
             raise ConfigError(
                 f"config version {version!r} != supported {CONFIG_VERSION!r}"
             )
-        if value.get("mcp") is not None:
-            raise not_ported("config", "mcp", "the MCP proxy")
         cfg = Config(
             backends=tuple(Backend.parse(b) for b in value.get("backends", ())),
             routes=tuple(Route.parse(r) for r in value.get("routes", ())),
@@ -763,6 +763,7 @@ class Config:
                 LLMRequestCost.parse(c) for c in value.get("llm_request_costs", ())
             ),
             quotas=tuple(_freeze(q) for q in value.get("quotas", ())),
+            mcp=value.get("mcp"),
             usage=(_freeze(value["usage"])
                    if value.get("usage") is not None else None),
             version=version,
@@ -785,6 +786,8 @@ class Config:
             d["llm_request_costs"] = [c.to_dict() for c in self.llm_request_costs]
         if self.quotas:
             d["quotas"] = [_thaw(q) for q in self.quotas]
+        if self.mcp is not None:
+            d["mcp"] = self.mcp
         if self.usage is not None:
             d["usage"] = _thaw(self.usage)
         return d

@@ -4,7 +4,9 @@
 Polls one config file (every ``interval`` seconds, 5 by default),
 checksums its content to skip no-op reloads, and swaps in a freshly
 built RuntimeConfig on change (built over the current one, so quota
-windows survive the reload). A bad new config is logged and rejected;
+windows survive the reload). An optional ``transform`` (Config →
+Config) runs after every load, so a CLI-side merge (the ``--mcp-config``
+backends) survives reloads of the file. A bad new config is logged and rejected;
 the gateway keeps serving the last good one. Bundle directories, CRD
 manifest directories and live clusters are the reference's control
 plane, which the port does not carry.
@@ -16,7 +18,7 @@ import asyncio
 import logging
 from typing import Callable
 
-from aigw_tpu_torch.config.model import load_config
+from aigw_tpu_torch.config.model import Config, load_config
 from aigw_tpu_torch.config.runtime import RuntimeConfig
 
 logger = logging.getLogger(__name__)
@@ -26,10 +28,14 @@ ReloadCallback = Callable[[RuntimeConfig], None]
 
 class ConfigWatcher:
     def __init__(self, path: str, on_reload: ReloadCallback,
-                 interval: float = 5.0):
+                 interval: float = 5.0,
+                 transform: Callable[[Config], Config] | None = None):
         self.path = path
         self.on_reload = on_reload
         self.interval = interval
+        #: applied after every load; the checksum is the file's, taken
+        #: before it
+        self.transform = transform
         self._checksum = ""
         self._current: RuntimeConfig | None = None
         self._task: asyncio.Task | None = None
@@ -39,6 +45,8 @@ class ConfigWatcher:
         loudly, reloads do not)."""
         cfg = load_config(self.path)
         self._checksum = cfg.checksum()
+        if self.transform is not None:
+            cfg = self.transform(cfg)
         rc = RuntimeConfig.build(cfg)
         self._current = rc
         self.on_reload(rc)
@@ -64,6 +72,8 @@ class ConfigWatcher:
                 checksum = cfg.checksum()
                 if checksum == self._checksum:
                     continue
+                if self.transform is not None:
+                    cfg = self.transform(cfg)
                 rc = RuntimeConfig.build(cfg, previous=self._current)
             except asyncio.CancelledError:
                 raise

@@ -11,7 +11,9 @@ reference's router does) and writes what comes back: a
 ``Response`` with a ``content-length``, or a ``StreamResponse`` that
 sends its head on ``prepare`` and every ``write`` as one chunk, drained
 before ``write`` returns, so an SSE frame leaves the gateway as soon as
-it is relayed. Connections are kept alive between requests.
+it is relayed. Connections are kept alive between requests. A handler
+that holds a stream open (the MCP proxy's listening stream) learns of
+the client's close from ``Request.gone`` / ``Request.disconnected``.
 
 The client (``HTTPClient``, one per gateway, as the reference keeps one
 ``ClientSession``) keeps a pool of idle connections per upstream
@@ -49,7 +51,8 @@ _READ = 65536
 _IDLE_PER_HOST = 32
 
 _REASONS = {
-    200: "OK", 400: "Bad Request", 401: "Unauthorized", 404: "Not Found",
+    200: "OK", 202: "Accepted", 400: "Bad Request", 401: "Unauthorized",
+    403: "Forbidden", 404: "Not Found",
     405: "Method Not Allowed", 409: "Conflict",
     413: "Request Entity Too Large", 429: "Too Many Requests",
     500: "Internal Server Error", 502: "Bad Gateway",
@@ -124,10 +127,23 @@ class Request:
     writer: asyncio.StreamWriter = field(repr=False)
     #: the values of the matched route's ``{name}`` segments
     match_info: dict[str, str] = field(default_factory=dict)
+    reader: asyncio.StreamReader | None = field(default=None, repr=False)
 
     @property
     def host(self) -> str:
         return self.headers.get("host", "")
+
+    @property
+    def gone(self) -> bool:
+        """The client closed its connection (a long-lived stream's
+        handler polls this to stop what it holds open for the client)."""
+        return (self.writer.is_closing()
+                or (self.reader is not None and self.reader.at_eof()))
+
+    async def disconnected(self, poll: float = 0.2) -> None:
+        """Return once the client has closed its connection."""
+        while not self.gone:
+            await asyncio.sleep(poll)
 
 
 class Response:
@@ -303,7 +319,7 @@ class HTTPServer:
                     method=method.upper(), path=url.path or "/",
                     query=dict(urllib.parse.parse_qsl(url.query)),
                     headers=headers, body=body, remote=remote,
-                    writer=writer)
+                    writer=writer, reader=reader)
                 resp = await self._dispatch(req)
                 if isinstance(resp, StreamResponse):
                     await resp.write_eof()
@@ -543,6 +559,9 @@ class HTTPClient:
 
     async def get(self, url: str, **kw: Any) -> ClientResponse:
         return await self.request("GET", url, **kw)
+
+    async def delete(self, url: str, **kw: Any) -> ClientResponse:
+        return await self.request("DELETE", url, **kw)
 
     def close(self) -> None:
         self.closed = True

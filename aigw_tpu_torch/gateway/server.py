@@ -51,12 +51,25 @@ stream of a draining one, moved to a sibling through the replicas'
 ``/migrate`` routes and spliced into the client's stream), and one
 fleet controller per pool that configures one
 (``gateway/controller.py``: autoscaling, lossless drain, failover, a
-launcher of replica processes that the gateway's shutdown stops). The
-reference's access log, OpenInference and gateway spans, and MCP proxy
-are not carried; the config refuses what would need them
-(``config/model.py``). With no span of its own the gateway relays the
-caller's trace-context headers to the replica verbatim, as the
-reference does with tracing off.
+launcher of replica processes that the gateway's shutdown stops).
+
+Observability, as the reference's: with tracing on (``OTEL_*``,
+``obs/tracing.py``) each request gets a span named ``"<operation>
+<model>"`` that continues the caller's trace, carries the mapped request
+headers (``AIGW_HEADER_ATTRIBUTES``), the OpenInference request and
+response attributes (``obs/openinference.py``; a stream's through
+``StreamAccumulator``), the pick's ``aigw.pick.*`` and ``aigw.endpoint``
+and its GenAI attributes, and is injected into the upstream's headers, so
+the replica's span is its child; with tracing off the caller's
+trace-context headers are relayed to the replica verbatim. One JSON line
+per request, early rejections included, goes to the access log
+(``AIGW_ACCESS_LOG``, ``obs/accesslog.py``) with its span's ids, tokens
+and costs. ``AIGW_ENABLE_DEBUG=true`` adds ``/debug/config`` (the live
+config, credentials and MCP seeds masked) and ``/debug/stacks``.
+
+The MCP proxy (``mcp/``) is always on its routes (``/mcp`` unless the
+config's ``mcp.path`` says otherwise), and a reload updates it in place;
+its ``mcp_*`` families render on ``/metrics`` after the gateway's.
 """
 
 from __future__ import annotations
@@ -105,6 +118,7 @@ from aigw_tpu_torch.gateway.http import (
     StreamResponse,
     Timeout,
     json_response,
+    text_response,
 )
 from aigw_tpu_torch.gateway.mutators import (
     apply_body_mutation,
@@ -138,7 +152,19 @@ from aigw_tpu_torch.obs.metrics import (
     render_fleet_gauges,
     render_usage_gauges,
 )
-from aigw_tpu_torch.obs.tracing import relay_trace_headers
+from aigw_tpu_torch.mcp import MCPConfig, MCPProxy
+from aigw_tpu_torch.obs import openinference as oi
+from aigw_tpu_torch.obs.accesslog import AccessLogger
+from aigw_tpu_torch.obs.metrics import MCPMetrics
+from aigw_tpu_torch.obs.tracing import (
+    DEFAULT_HEADER_ATTRIBUTES,
+    Span,
+    Tracer,
+    genai_attributes,
+    header_attributes,
+    parse_header_attribute_mapping,
+    relay_trace_headers,
+)
 from aigw_tpu_torch.schemas import anthropic as anth
 from aigw_tpu_torch.schemas import openai as oai
 from aigw_tpu_torch.schemas import typed as typed_schemas
@@ -321,13 +347,23 @@ class GatewayServer:
     """The data plane: routes, pickers, breaker, metrics and ledger.
 
     ``rng`` draws the weighted backend picks (seed it for a reproducible
-    sequence)."""
+    sequence); ``tracer`` defaults to the ``OTEL_*`` environment's."""
 
     def __init__(self, runtime: RuntimeConfig, *,
-                 rng: random.Random | None = None):
+                 rng: random.Random | None = None,
+                 tracer: Tracer | None = None):
         self._runtime = runtime
         self.metrics = GenAIMetrics()
         self.rng = rng or random.Random()
+        self.tracer = tracer or Tracer()
+        # request header → span attribute (default agent-session-id:
+        # session.id)
+        self._header_attrs = parse_header_attribute_mapping(
+            os.environ.get("AIGW_HEADER_ATTRIBUTES",
+                           DEFAULT_HEADER_ATTRIBUTES))
+        # the OpenInference privacy knobs and the structured access log
+        self._oi_config = oi.TraceConfig.from_env()
+        self.access_log = AccessLogger()
         # one breaker keyed by backend name for logical backends and by
         # replica address for picked endpoints; every open/close lands in
         # the replica's fleet event ring, and the picker's routability
@@ -355,6 +391,18 @@ class GatewayServer:
             ("POST", "/v1/batches/{bid}/cancel"):
                 self._handle_batch_forward,
         })
+        # the debug surface is off on the data-plane port unless asked
+        # for: any API client could otherwise read thread stacks and the
+        # config's topology
+        if os.environ.get("AIGW_ENABLE_DEBUG", "").lower() == "true":
+            routes[("GET", "/debug/config")] = self._handle_debug_config
+            routes[("GET", "/debug/stacks")] = self._handle_debug_stacks
+        # the MCP proxy is always registered, so a reload can add or
+        # change its backends, filters and authorization (its path is
+        # fixed here)
+        self.mcp = MCPProxy(MCPConfig.parse(runtime.config.mcp or {}),
+                            metrics=MCPMetrics(self.metrics))
+        routes.update(self.mcp.routes())
         self._batch_replica: dict[str, str] = {}
         self.http = HTTPServer(routes)
         self.client = HTTPClient()
@@ -391,6 +439,7 @@ class GatewayServer:
         for picker in self._pickers.values():
             await picker.stop()
         self.client.close()
+        self.mcp.close()
         if self.usage_ledger is not None:
             self.usage_ledger.close()
 
@@ -430,6 +479,7 @@ class GatewayServer:
             if old_ledger is not None:
                 old_ledger.close()
         self._runtime = rc
+        self.mcp.update_config(MCPConfig.parse(rc.config.mcp or {}))
         try:
             loop = asyncio.get_running_loop()
         except RuntimeError:
@@ -768,6 +818,47 @@ class GatewayServer:
                                         extra_for(name)))
         return json_response(oai.models_response(entries))
 
+    async def _handle_debug_config(self, _request: Request) -> Response:
+        """The live config with credentials and the MCP seeds masked."""
+        cfg = self._runtime.config.to_dict()
+        for b in cfg.get("backends", ()):
+            if "auth" in b:
+                b["auth"] = {"kind": b["auth"].get("kind", "?"),
+                             "credentials": "[REDACTED]"}
+        if "mcp" in cfg and isinstance(cfg["mcp"], dict):
+            cfg["mcp"] = dict(cfg["mcp"])
+            cfg["mcp"].pop("session_seed", None)
+            cfg["mcp"].pop("session_fallback_seed", None)
+        return json_response(cfg)
+
+    async def _handle_debug_stacks(self, _request: Request) -> Response:
+        """Every thread's stack."""
+        import sys
+        import traceback
+
+        out = []
+        for tid, frame in sys._current_frames().items():
+            out.append(f"--- thread {tid} ---")
+            out.extend(traceback.format_stack(frame))
+        return text_response("\n".join(out))
+
+    def _log_rejection(self, request: Request, status: int, started: float,
+                       model: str = "", reason: str = "") -> None:
+        """The access-log line of a request rejected before the attempt
+        loop (schema 400s, unknown-model 404s)."""
+        if not self.access_log.enabled:
+            return
+        self.access_log.log(
+            method=request.method,
+            path=request.path,
+            status=status,
+            duration_ms=(time.monotonic() - started) * 1000.0,
+            model=model,
+            error_type=reason or oi.error_type_for_status(status),
+            client=request.remote or "",
+            request_id=request.headers.get("x-request-id", ""),
+        )
+
     # -- the data plane ---------------------------------------------------
     @staticmethod
     def _decode_body(raw: bytes, enc: str) -> bytes:
@@ -791,6 +882,7 @@ class GatewayServer:
     async def _handle(self, request: Request) -> "Response | StreamResponse":
         endpoint, front_schema, operation = _ENDPOINTS[request.path]
         rc = self._runtime  # pin the config for this request
+        started = time.monotonic()
         error_body = (anth.error_body
                       if front_schema is APISchemaName.ANTHROPIC
                       else oai.error_body)
@@ -799,6 +891,7 @@ class GatewayServer:
                 request.body,
                 request.headers.get("content-encoding", "").lower().strip())
         except ValueError as e:
+            self._log_rejection(request, 400, started, reason="bad_encoding")
             return _error(400, error_body(str(e)))
         # ---- phase 1: route selection ----------------------------------
         body: Any
@@ -806,6 +899,8 @@ class GatewayServer:
             ctype = request.headers.get("content-type", "")
             model = _multipart_model(raw, ctype)
             if not model:
+                self._log_rejection(request, 400, started,
+                                    reason="missing_model")
                 return _error(400, error_body("missing 'model' form field"))
             body = _RawBody(raw, ctype, model)
         else:
@@ -817,6 +912,8 @@ class GatewayServer:
                 else:
                     typed_schemas.validate_request(endpoint.value, body)
             except oai.SchemaError as e:
+                self._log_rejection(request, 400, started,
+                                    reason="invalid_request")
                 return _error(400, error_body(str(e)))
         client_headers = dict(request.headers)
         # the tenant: an explicit header wins, else the adapter suffix of
@@ -833,6 +930,8 @@ class GatewayServer:
         try:
             match = match_route(rc, request.host, match_headers)
         except NoRouteError:
+            self._log_rejection(request, 404, started, model=model,
+                                reason="model_not_found")
             return _error(404, error_body(
                 f"model {model!r} is not served by this gateway",
                 type_="model_not_found"
@@ -844,14 +943,132 @@ class GatewayServer:
         )
         selector = BackendSelector(rule=match.rule, circuit=self.circuit,
                                    rng=self.rng)
+        route_name = match.route.name
+        # the gateway's span continues the caller's trace
+        span = None
+        if self.tracer.enabled:
+            parent = self.tracer.propagators.extract(client_headers)
+            span = self.tracer.start_span(f"{operation} {model}", parent)
+            span.attributes.update(
+                header_attributes(client_headers, self._header_attrs))
+            if isinstance(body, dict):
+                span.attributes.update(
+                    self._openinference_request_attrs(endpoint, body, raw))
         # ---- phase 2: upstream attempts --------------------------------
-        return await self._attempt_loop(
-            request, endpoint, front_schema, selector, rc, body,
-            req_metrics, match.route.name, error_body, client_headers)
+        status = 500
+        try:
+            resp_out = await self._attempt_loop(
+                request, endpoint, front_schema, selector, rc, body,
+                req_metrics, route_name, error_body, client_headers, span)
+            status = resp_out.status
+            return resp_out
+        finally:
+            self._end_request(request, span, operation, model, status,
+                              req_metrics, route_name, client_headers)
+
+    def _end_request(self, request: Request, span: Span | None,
+                     operation: str, model: str, status: int,
+                     req_metrics: RequestMetrics, route_name: str,
+                     client_headers: dict[str, str]) -> None:
+        """The span's GenAI attributes and error, its end, and the
+        request's access-log line."""
+        usage = req_metrics.final_usage or TokenUsage()
+        if span is not None:
+            span.attributes.update(genai_attributes(
+                operation=operation,
+                request_model=model,
+                response_model=req_metrics.response_model,
+                backend=req_metrics.provider,
+                input_tokens=usage.input_tokens,
+                output_tokens=usage.output_tokens,
+                streaming=req_metrics.tokens_seen > 0,
+            ))
+            if req_metrics.error_type:
+                span.record_error(req_metrics.error_type)
+            span.end()
+        if not self.access_log.enabled:
+            return
+        err = req_metrics.error_type
+        if err.isdigit():
+            err = oi.error_type_for_status(int(err))
+        self.access_log.log(
+            method=request.method,
+            path=request.path,
+            status=status,
+            duration_ms=(time.monotonic() - req_metrics.start) * 1000.0,
+            route=route_name,
+            backend=req_metrics.provider,
+            model=model,
+            response_model=req_metrics.response_model,
+            stream=req_metrics.tokens_seen > 0,
+            input_tokens=usage.input_tokens,
+            output_tokens=usage.output_tokens,
+            total_tokens=usage.total_tokens,
+            cached_tokens=usage.cached_input_tokens,
+            costs=req_metrics.costs,
+            error_type=err,
+            client=request.remote or "",
+            trace_id=span.context.trace_id if span is not None else "",
+            span_id=span.context.span_id if span is not None else "",
+            request_id=client_headers.get("x-request-id", ""),
+            upstream_request_id=req_metrics.upstream_request_id,
+            attempts=req_metrics.attempts,
+            decision=req_metrics.decision,
+        )
+
+    def _openinference_request_attrs(
+        self, endpoint: Endpoint, body: dict[str, Any], raw: bytes
+    ) -> dict[str, Any]:
+        try:
+            if endpoint is Endpoint.CHAT_COMPLETIONS:
+                return oi.chat_request_attributes(body, raw, self._oi_config)
+            if endpoint is Endpoint.MESSAGES:
+                return oi.chat_request_attributes(
+                    body, raw, self._oi_config,
+                    system=oi.LLM_SYSTEM_ANTHROPIC)
+            if endpoint is Endpoint.EMBEDDINGS:
+                return oi.embeddings_request_attributes(
+                    body, raw, self._oi_config)
+            if endpoint is Endpoint.COMPLETIONS:
+                return oi.completion_request_attributes(
+                    body, raw, self._oi_config)
+            if endpoint is Endpoint.RERANK:
+                return oi.rerank_request_attributes(
+                    body, raw, self._oi_config)
+        except Exception:  # noqa: BLE001 (telemetry never fails a request)
+            logger.debug("openinference request attrs failed",
+                         exc_info=True)
+        return {}
+
+    @staticmethod
+    def _oi_response_builder(endpoint: "Endpoint | None"):
+        """The response-attribute builder of an endpoint, for unary
+        replies and streams alike (MESSAGES is the Anthropic front)."""
+        return {
+            Endpoint.CHAT_COMPLETIONS: oi.chat_response_attributes,
+            Endpoint.MESSAGES: oi.anthropic_response_attributes,
+            Endpoint.EMBEDDINGS: oi.embeddings_response_attributes,
+            Endpoint.COMPLETIONS: oi.completion_response_attributes,
+            Endpoint.RERANK: oi.rerank_response_attributes,
+        }.get(endpoint)
+
+    def _openinference_response_attrs(self, span: Span, endpoint: Endpoint,
+                                      payload: bytes) -> None:
+        builder = self._oi_response_builder(endpoint)
+        if builder is None:
+            return
+        try:
+            resp = json.loads(payload)
+            if not isinstance(resp, dict):
+                return
+            span.attributes.update(builder(resp, self._oi_config))
+        except Exception:  # noqa: BLE001 (telemetry never fails a request)
+            logger.debug("openinference response attrs failed",
+                         exc_info=True)
 
     async def _attempt_loop(
         self, request, endpoint, front_schema, selector, rc, body,
-        req_metrics, route_name, error_body, client_headers,
+        req_metrics, route_name, error_body, client_headers, span,
     ) -> "Response | StreamResponse":
         last_error: tuple[int, bytes] = (
             502,
@@ -874,6 +1091,7 @@ class GatewayServer:
                 result = await self._attempt(
                     request, endpoint, front_schema, rb, body,
                     req_metrics, route_name, error_body, client_headers,
+                    span,
                 )
             except _RetriableUpstreamError as e:
                 logger.warning(
@@ -903,11 +1121,12 @@ class GatewayServer:
         return _error(last_error[0], last_error[1])
 
     def _pick(self, backend, body, req_metrics, route_name, error_body,
-              client_headers, headers):
+              client_headers, headers, span):
         """The pool's replica for this request: (destination, the
         headers the pick read, its decision-ring entry, the prefix key
         it used), or a finished 429/400 ``Response`` when the picker
-        sheds or no replica fits the prompt."""
+        sheds or no replica fits the prompt. The span gets the pick's
+        attributes."""
         pick_headers = client_headers
         if backend.picker_content_affinity and isinstance(body, dict):
             derived = {}
@@ -954,6 +1173,10 @@ class GatewayServer:
                     model=req_metrics.request_model, request_id=request_id,
                     shed=True, retry_after_s=e.retry_after_s,
                     pick=dict(explain))
+            if span is not None:
+                span.set("aigw.pick.shed", True)
+                span.set("aigw.pick.predicted_ttft_ms",
+                         round(e.predicted_ms, 1))
             return _error(429, error_body(str(e), type_="rate_limit_error"),
                           {"retry-after": str(e.retry_after_s)})
         except ContextLengthError as e:
@@ -967,6 +1190,10 @@ class GatewayServer:
                     model=req_metrics.request_model, request_id=request_id,
                     context_rejected=True, prompt_tokens=e.prompt_tokens,
                     max_ctx=e.max_ctx, pick=dict(explain))
+            if span is not None:
+                span.set("aigw.pick.context_rejected", True)
+                span.set("aigw.pick.prompt_tokens", e.prompt_tokens)
+                span.set("aigw.pick.max_ctx", e.max_ctx)
             return _error(400, error_body(
                 str(e), type_="invalid_request_error"))
         decision = None
@@ -976,6 +1203,13 @@ class GatewayServer:
                 model=req_metrics.request_model, request_id=request_id,
                 chosen=dest, pick=dict(explain))
             req_metrics.decision = decision
+        if span is not None and dest:
+            # which replica served the request, and why the picker chose
+            # it (affinity, cache or load; slo mode's predicted TTFTs)
+            span.set("aigw.endpoint", dest)
+            for k, v in (explain or {}).items():
+                span.set(f"aigw.pick.{k}",
+                         json.dumps(v) if isinstance(v, dict) else v)
         if dest and backend.kv_fleet:
             # name the siblings the fleet index says hold this request's
             # chain: a prefix miss on the chosen replica becomes a page
@@ -999,6 +1233,7 @@ class GatewayServer:
         route_name: str,
         error_body: Callable[..., bytes],
         client_headers: dict[str, str],
+        span: Span | None = None,
     ) -> "Response | StreamResponse":
         backend = rb.backend
         limited = await self._check_quota(client_headers, rb, req_metrics,
@@ -1055,7 +1290,7 @@ class GatewayServer:
         pick_headers = client_headers
         if not dest and backend.name in self._pickers:
             picked_ = self._pick(backend, body, req_metrics, route_name,
-                                 error_body, client_headers, headers)
+                                 error_body, client_headers, headers, span)
             if isinstance(picked_, Response):
                 return picked_
             dest, pick_headers, decision, prefix_key_used = picked_
@@ -1065,7 +1300,13 @@ class GatewayServer:
                 502, error_body(f"backend {backend.name} has no url"),
                 "missing url")
         headers.update(tx.headers)
-        relay_trace_headers(client_headers, headers)
+        if span is not None:
+            self.tracer.propagators.inject(span.context, headers)
+        else:
+            # tracing off at the gateway: relay the caller's trace
+            # context, so the replica's spans and flight entries still
+            # parent on the caller's trace
+            relay_trace_headers(client_headers, headers)
         # the replica's fairness guard and two-class scheduler see the
         # tenant and the priority the gateway routed and accounts by
         for h in (TENANT_HEADER, PRIORITY_HEADER):
@@ -1098,6 +1339,8 @@ class GatewayServer:
             if decision is not None:
                 decision.setdefault("failover_from", []).append(dest)
                 decision["chosen"] = nxt
+            if span is not None:
+                span.set("aigw.pick.failover_from", dest)
             if KV_PEERS_HEADER in headers:
                 peers = [p for p in headers[KV_PEERS_HEADER].split(",")
                          if p and p != nxt]
@@ -1216,8 +1459,8 @@ class GatewayServer:
                         decision=decision)
                 return await self._stream_response(
                     request, resp, translator, rb, req_metrics, route_name,
-                    client_headers, front_schema, endpoint=endpoint,
-                    migrator=migrator)
+                    client_headers, front_schema, span=span,
+                    endpoint=endpoint, migrator=migrator)
             try:
                 raw = await resp.read()
             except (ClientError, asyncio.TimeoutError) as e:
@@ -1259,6 +1502,9 @@ class GatewayServer:
                     ) from None
             usage = rx.usage
             req_metrics.response_model = rx.model
+            if span is not None:
+                self._openinference_response_attrs(
+                    span, endpoint, rx.body or raw)
             req_metrics.finish(usage)
             await self._sink_costs(usage, req_metrics, route_name,
                                    client_headers)
@@ -1284,6 +1530,7 @@ class GatewayServer:
         route_name: str,
         client_headers: dict[str, str],
         front_schema: APISchemaName = APISchemaName.OPENAI,
+        span: Span | None = None,
         endpoint: Endpoint | None = None,
         migrator: "_Migrator | None" = None,
     ) -> StreamResponse:
@@ -1301,7 +1548,10 @@ class GatewayServer:
         upstream that delimits its SSE body by closing the connection
         gives no such signal, so such a stream that ends with no
         ``[DONE]`` and was not cut by the migrator ends with the error
-        event too. The error event takes the front schema's shape."""
+        event too. The error event takes the front schema's shape. With
+        a span, chat, Messages and completions streams rebuild their
+        response from the relayed bytes (``StreamAccumulator``) for the
+        span's output attributes."""
         out = StreamResponse(
             status=200,
             headers={
@@ -1316,6 +1566,14 @@ class GatewayServer:
         await out.prepare(request)
         usage = TokenUsage()
         model = ""
+        # a stream's output attributes: its response rebuilt from the
+        # front-schema bytes, only when a span exists (every event is
+        # parsed)
+        acc = None
+        if span is not None and endpoint in (
+                Endpoint.CHAT_COMPLETIONS, Endpoint.MESSAGES,
+                Endpoint.COMPLETIONS):
+            acc = oi.StreamAccumulator()
         sse_buf = b""
         check_events = typed_response.has_stream_spec(endpoint)
 
@@ -1357,10 +1615,14 @@ class GatewayServer:
         async def _relay(body: bytes) -> None:
             nonlocal sse_buf
             if not check_events:
+                if acc is not None:
+                    acc.feed(body)
                 await out.write(body)
                 return
             good, sse_buf, err = _scan_events(sse_buf + body)
             if good:
+                if acc is not None:
+                    acc.feed(good)
                 await out.write(good)
             if err is not None:
                 raise err
@@ -1409,6 +1671,8 @@ class GatewayServer:
                         "migration continuation failed after export")
                 self.metrics.migrations_total.labels(
                     route_name, rb.backend.name).inc()
+                if span is not None:
+                    span.set("aigw.migrated_to", migrator.target)
                 async with cont:
                     tail = b""
                     async for chunk in cont.iter_any():
@@ -1465,6 +1729,14 @@ class GatewayServer:
                     + b'", "type": "upstream_error", "code": null}}\n\n'
                 )
         req_metrics.response_model = model
+        if acc is not None:
+            final = acc.response()
+            builder = self._oi_response_builder(endpoint)
+            if final is not None and builder is not None:
+                try:
+                    span.attributes.update(builder(final, self._oi_config))
+                except Exception:  # noqa: BLE001 (telemetry only)
+                    logger.debug("stream span attrs failed", exc_info=True)
         req_metrics.finish(usage)
         await self._sink_costs(usage, req_metrics, route_name,
                                client_headers)
@@ -1542,11 +1814,11 @@ class GatewayServer:
         finished request is recorded in the usage ledger (with the
         replica's MeterRecord from ``usage.aigw_meter``), its priced cost
         stamped on its decision-ring entry, and its costs drawn from the
-        matching quotas."""
+        matching quotas. The access log's cost fields need it too."""
         limiter = self._runtime.rate_limiter
         has_quota = limiter is not None and limiter.rules
         ledger = self.usage_ledger
-        if ledger is None and not has_quota:
+        if ledger is None and not has_quota and not self.access_log.enabled:
             return
         model = req_metrics.request_model
         backend = req_metrics.provider
@@ -1751,10 +2023,11 @@ class _RetriableUpstreamError(Exception):
 
 async def run_gateway(runtime: RuntimeConfig, host: str = "127.0.0.1",
                       port: int = 1975,
-                      rng: random.Random | None = None) -> GatewayServer:
+                      rng: random.Random | None = None,
+                      tracer: Tracer | None = None) -> GatewayServer:
     """Start the gateway; the caller stops it (``await server.stop()``).
     ``server.port`` is the bound port (``port=0`` binds a free one)."""
-    server = GatewayServer(runtime, rng=rng)
+    server = GatewayServer(runtime, rng=rng, tracer=tracer)
     await server.start(host, port)
     logger.info("gateway listening on %s:%d", host, server.port)
     return server

@@ -111,7 +111,9 @@ class LabeledHistogram:
     sets in first-observation order, labels sorted by name, cumulative
     ``_bucket`` lines (``le`` last through ``+Inf``), ``_count``,
     ``_sum``, then every label set's ``_created`` time as a gauge
-    family. Handler threads observe under a lock."""
+    family. With no label names the one child exists from construction
+    and renders at zero, as ``prometheus_client``'s does. Handler
+    threads observe under a lock."""
 
     def __init__(self, name: str, help_: str, labelnames: tuple[str, ...],
                  buckets: tuple[float, ...]):
@@ -121,6 +123,8 @@ class LabeledHistogram:
         self.bounds = tuple(float(b) for b in buckets) + (math.inf,)
         # label values → [bucket counts, sum, created]
         self._children: dict[tuple[str, ...], list] = {}
+        if not labelnames:
+            self._children[()] = [[0] * len(self.bounds), 0.0, time.time()]
         self._lock = threading.Lock()
 
     def observe(self, labels: tuple[str, ...], value: float) -> None:
@@ -137,7 +141,8 @@ class LabeledHistogram:
 
     def _labelstr(self, labels: tuple[str, ...], extra=()) -> str:
         pairs = sorted(list(zip(self.labelnames, labels)) + list(extra))
-        return ",".join(f'{k}="{_escape_label(v)}"' for k, v in pairs)
+        ls = ",".join(f'{k}="{_escape_label(v)}"' for k, v in pairs)
+        return f"{{{ls}}}" if ls else ""
 
     def render(self) -> str:
         help_ = _escape_help(self.help)
@@ -152,11 +157,11 @@ class LabeledHistogram:
             for bound, n in zip(self.bounds, counts):
                 acc += n
                 ls = self._labelstr(labels, [("le", float_to_go(bound))])
-                out.append(f"{self.name}_bucket{{{ls}}} {float_to_go(acc)}\n")
+                out.append(f"{self.name}_bucket{ls} {float_to_go(acc)}\n")
             ls = self._labelstr(labels)
-            out.append(f"{self.name}_count{{{ls}}} {float_to_go(acc)}\n")
-            out.append(f"{self.name}_sum{{{ls}}} {float_to_go(total)}\n")
-            created.append(f"{self.name}_created{{{ls}}} "
+            out.append(f"{self.name}_count{ls} {float_to_go(acc)}\n")
+            out.append(f"{self.name}_sum{ls} {float_to_go(total)}\n")
+            created.append(f"{self.name}_created{ls} "
                            f"{float_to_go(t0)}\n")
         if created:
             out.append(f"# HELP {self.name}_created {help_}\n")
@@ -169,7 +174,8 @@ class LabeledCounter:
     """A Prometheus counter with label names, rendered as
     ``generate_latest`` renders ``prometheus_client.Counter``: label sets
     in first-increment order, labels sorted by name, then every label
-    set's ``_created`` time as a gauge family. ``labels(*values).inc(n)``
+    set's ``_created`` time as a gauge family (an unlabeled counter's one
+    child exists, at zero, from construction). ``labels(*values).inc(n)``
     as the reference's counters are moved."""
 
     def __init__(self, name: str, help_: str,
@@ -179,6 +185,8 @@ class LabeledCounter:
         self.labelnames = labelnames
         # label values → [value, created]
         self._children: dict[tuple[str, ...], list] = {}
+        if not labelnames:
+            self._children[()] = [0.0, time.time()]
         self._lock = threading.Lock()
 
     def labels(self, *values: str) -> "_CounterChild":
@@ -206,8 +214,9 @@ class LabeledCounter:
         for labels, v, t0 in children:
             ls = ",".join(f'{k}="{_escape_label(x)}"' for k, x in
                           sorted(zip(self.labelnames, labels)))
-            out.append(f"{self.name}{{{ls}}} {float_to_go(v)}\n")
-            created.append(f"{base}_created{{{ls}}} {float_to_go(t0)}\n")
+            ls = f"{{{ls}}}" if ls else ""
+            out.append(f"{self.name}{ls} {float_to_go(v)}\n")
+            created.append(f"{base}_created{ls} {float_to_go(t0)}\n")
         if created:
             out.append(f"# HELP {base}_created {help_}\n")
             out.append(f"# TYPE {base}_created gauge\n")
@@ -255,6 +264,9 @@ class GenAIMetrics:
             in zip(GENAI_FAMILIES[4:], GATEWAY_COUNTERS))
         for (attr, _l), counter in zip(GATEWAY_COUNTERS, self.counters):
             setattr(self, attr, counter)
+        #: families registered later on the same registry (the gateway's
+        #: ``MCPMetrics``), rendered after these in registration order
+        self.extra: list = []
 
     def histograms(self) -> tuple[LabeledHistogram, ...]:
         return (self.token_usage, self.request_duration,
@@ -263,13 +275,52 @@ class GenAIMetrics:
     def export(self) -> bytes:
         """The families in registration order, as ``generate_latest``."""
         return ("".join(h.render() for h in self.histograms())
-                + "".join(c.render() for c in self.counters)).encode()
+                + "".join(c.render() for c in self.counters)
+                + "".join(f.render() for f in self.extra)).encode()
 
 
 def render_genai_families(genai: GenAIMetrics | None = None) -> bytes:
     """The GenAI families as ``generate_latest`` writes them: ``genai``'s
     samples, or none."""
     return (genai or GenAIMetrics()).export()
+
+
+class MCPMetrics:
+    """The MCP proxy's instruments (the reference's ``MCPMetrics``: method
+    counts by method, backend and status, request and initialization
+    durations, negotiated capabilities, routed progress notifications
+    and errors by type), registered on the gateway's ``GenAIMetrics``
+    so ``/metrics`` renders them after its families, as the reference's
+    shared registry does."""
+
+    def __init__(self, genai: GenAIMetrics):
+        self.method_total = LabeledCounter(
+            "mcp_method_total",
+            "JSON-RPC methods handled by the MCP proxy",
+            ("mcp_method_name", "mcp_backend", "status"))
+        self.request_duration = LabeledHistogram(
+            "mcp_request_duration_seconds",
+            "MCP request handling duration",
+            ("mcp_method_name",), LATENCY_BUCKETS)
+        self.initialization_duration = LabeledHistogram(
+            "mcp_initialization_duration_seconds",
+            "MCP session initialization duration (backend fan-out)",
+            (), LATENCY_BUCKETS)
+        self.capabilities_negotiated = LabeledCounter(
+            "mcp_capabilities_negotiated_total",
+            "Capabilities negotiated at initialize",
+            ("capability_type", "capability_side"))
+        self.progress_notifications = LabeledCounter(
+            "mcp_progress_notifications_total",
+            "Progress notifications routed through the proxy", ())
+        self.errors_total = LabeledCounter(
+            "mcp_errors_total",
+            "MCP errors by method and type",
+            ("mcp_method_name", "error_type"))
+        genai.extra += [self.method_total, self.request_duration,
+                        self.initialization_duration,
+                        self.capabilities_negotiated,
+                        self.progress_notifications, self.errors_total]
 
 
 @dataclass

@@ -3,18 +3,23 @@ own copy of ``aigw_tpu/obs/tracing.py``; standard library only).
 
 Env-driven configuration, W3C ``traceparent`` and B3 propagation,
 per-request spans carrying GenAI attributes, exported from a background
-flusher as JSON lines (console) or OTLP/HTTP (``/v1/traces``, protobuf
-by default, or JSON).
+flusher as JSON lines (console), OTLP/HTTP (``/v1/traces``, protobuf by
+default, or JSON) or OTLP/gRPC (the same protobuf bytes as a
+``TraceService/Export`` unary call, through ``grpcio``, imported when the
+first batch is sent). A failed export is dropped: telemetry never stops
+the data plane.
 
 Env vars (the reference honors the same ones):
 - ``OTEL_SDK_DISABLED=true``            — tracing off
 - ``OTEL_TRACES_EXPORTER=console|otlp|none``
 - ``OTEL_EXPORTER_OTLP_ENDPOINT``       — e.g. http://collector:4318
+  (default :4318, or :4317 for grpc)
 - ``OTEL_EXPORTER_OTLP_PROTOCOL`` (or ``..._TRACES_PROTOCOL``) —
-  ``http/protobuf`` (default) or ``http/json``; ``grpc`` needs grpcio
-  and is refused
+  ``http/protobuf`` (default), ``http/json`` or ``grpc``
 - ``OTEL_PROPAGATORS``                  — tracecontext, b3, b3multi
 - ``OTEL_SERVICE_NAME``                 — default aigw-tpu
+- ``AIGW_HEADER_ATTRIBUTES``            — request headers copied onto
+  the gateway's span (``header_attributes``)
 """
 
 from __future__ import annotations
@@ -185,21 +190,18 @@ class Tracer:
         )
         # standard OTLP protocol selection (the SDK's env contract):
         # protobuf is the default a stock collector expects, http/json
-        # the other HTTP encoding; grpc needs grpcio, which the port
-        # does not depend on, so it is refused
+        # the other HTTP encoding, grpc the collector's :4317 service
         self.protocol = os.environ.get(
             "OTEL_EXPORTER_OTLP_TRACES_PROTOCOL",
             os.environ.get("OTEL_EXPORTER_OTLP_PROTOCOL",
                            "http/protobuf"),
         ).lower()
         self.endpoint = os.environ.get(
-            "OTEL_EXPORTER_OTLP_ENDPOINT", "http://127.0.0.1:4318",
+            "OTEL_EXPORTER_OTLP_ENDPOINT",
+            "http://127.0.0.1:4317" if self.protocol == "grpc"
+            else "http://127.0.0.1:4318",
         ).rstrip("/")
-        if self.exporter == "otlp" and self.protocol == "grpc":
-            raise NotImplementedError(
-                "OTEL_EXPORTER_OTLP_PROTOCOL=grpc needs the grpcio package, "
-                "which the port does not depend on; use http/protobuf (the "
-                "default) or http/json")
+        self._grpc_call = None  # the TraceService/Export stub, built lazily
         self.propagators = Propagators()
         self._q: "queue.Queue[Span]" = queue.Queue(maxsize=4096)
         self._flusher: threading.Thread | None = None
@@ -271,6 +273,12 @@ class Tracer:
             except queue.Empty:
                 pass
             try:
+                if self.protocol == "grpc":
+                    # the same ExportTraceServiceRequest bytes, carried
+                    # as a gRPC unary call instead of an HTTP POST
+                    self._grpc_export(
+                        encode_traces(spans, self.service_name))
+                    continue
                 if self.protocol == "http/json":
                     data = json.dumps(self._otlp_payload(spans)).encode()
                     ctype = "application/json"
@@ -285,6 +293,30 @@ class Tracer:
                 urllib.request.urlopen(req, timeout=5)
             except Exception:  # noqa: BLE001 — telemetry must never crash
                 pass
+
+    def _grpc_export(self, data: bytes) -> None:
+        """``opentelemetry.proto.collector.trace.v1.TraceService/Export``
+        on the endpoint: a TLS channel for an https scheme, else an
+        insecure one."""
+        if self._grpc_call is None:
+            import grpc
+
+            target = self.endpoint
+            secure = target.startswith("https://")
+            for prefix in ("http://", "https://"):
+                if target.startswith(prefix):
+                    target = target[len(prefix):]
+            channel = (
+                grpc.secure_channel(target, grpc.ssl_channel_credentials())
+                if secure else grpc.insecure_channel(target)
+            )
+            self._grpc_call = channel.unary_unary(
+                "/opentelemetry.proto.collector.trace.v1."
+                "TraceService/Export",
+                request_serializer=lambda b: b,
+                response_deserializer=lambda b: b,
+            )
+        self._grpc_call(data, timeout=5)
 
     def _otlp_payload(self, spans: list[Span]) -> dict[str, Any]:
         def attr(k: str, v: Any) -> dict[str, Any]:
@@ -367,6 +399,31 @@ def genai_attributes(
     if output_tokens:
         attrs["gen_ai.usage.output_tokens"] = output_tokens
     return attrs
+
+
+def parse_header_attribute_mapping(spec: str) -> list[tuple[str, str]]:
+    """``header:attribute[,header:attribute...]`` → the mapping list
+    (lower-cased header names; pairs missing either side are skipped).
+    The gateway reads it from ``AIGW_HEADER_ATTRIBUTES``."""
+    out: list[tuple[str, str]] = []
+    for pair in spec.split(","):
+        pair = pair.strip()
+        if not pair:
+            continue
+        header, _, attr = pair.partition(":")
+        if header and attr:
+            out.append((header.strip().lower(), attr.strip()))
+    return out
+
+
+DEFAULT_HEADER_ATTRIBUTES = "agent-session-id:session.id"
+
+
+def header_attributes(
+    headers: dict[str, str], mapping: list[tuple[str, str]]
+) -> dict[str, str]:
+    """The span attributes of the mapped headers the request carries."""
+    return {attr: headers[h] for h, attr in mapping if h in headers}
 
 
 #: the trace-context headers a gateway relays verbatim to the replica

@@ -266,7 +266,25 @@ Phases (any failure exits non-zero):
    the same requests to B, an emptied key answers 401 with no launch and
    the key written back 200, K1 and K2 launched; printed: the TTFT p50
    straight to the replica, through B and through A -> B, in turns, and
-   the block's wall; the gateway's
+   the block's wall; then an agent's MCP turn (``_gw_mcp``; launch counts
+   zeroed before its chats, read after them into ``launches_serve_mcp``):
+   gateway C, a third ``python -m aigw_tpu_torch run`` with tracing on
+   (OTLP ``http/json`` to a collector in this process), an access log,
+   ``AIGW_ENABLE_DEBUG``, an ``mcp`` block (a standard-library HTTP MCP
+   backend with a ``tool_filter``, HS256 authorization from a ``file:``
+   secret, a session seed) and ``--mcp-json`` bridging a stdio server;
+   gated: ``initialize``, ``tools/list`` and ``tools/call`` on both
+   backends with a JWT, 401 without one and 403 without the rule's
+   claim, ``DELETE``; the tools' text as a pinned chat through C,
+   streamed and not, equal by the replica's ``TokenTap`` ids to the same
+   chat sent to that replica; C's span per chat (name, parent, endpoint,
+   OpenInference messages, the replica flight entry's trace id); one
+   access-log line per chat with its span's ids, tokens and cost;
+   ``/debug/config`` masked and ``/debug/stacks`` on C, 404 on B;
+   ``mcp_method_total`` samples; K1 and K2 launched; printed (the
+   ``serve_gateway mcp`` line): the session AEAD, ``tools/call`` p50,
+   the chat's TTFT p50 direct, through B and through C, the block's
+   wall; the gateway's
    fleet operations (the
    ``serve_fleet`` line, after ``serve_gateway``; launch counts zeroed
    once both replicas are up, read at the end): replica B in this
@@ -423,8 +441,9 @@ Phases (any failure exits non-zero):
    W8A16, the cold bursts), on ``embeddings`` and, the leader rank's,
    on ``serve_tp``, ``serve_sp`` (each with its W8A16 set) and
    ``serve_ep``, both replicas' on ``serve_gateway``, on its fronts
-   (``launches_serve_fronts``) and on its hosted hop
-   (``launches_serve_hosted``), and replica B's on ``serve_fleet``), the
+   (``launches_serve_fronts``), on its hosted hop
+   (``launches_serve_hosted``) and on its MCP turn
+   (``launches_serve_mcp``), and replica B's on ``serve_fleet``), the
    card line, then
    the last line
    ``{"ok": true, "device": {...}}``.
@@ -448,6 +467,7 @@ import time
 import traceback
 import urllib.error
 import urllib.request
+from http.server import BaseHTTPRequestHandler
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -7358,9 +7378,12 @@ def _gw_pinned(addr: str, model: str = GW_MODEL) -> tuple[dict, dict]:
             {"models": [GW_PINNED], "backends": ["llama-pinned"]})
 
 
-def _start_gateway(cfg: dict, tmp: str, name: str):
-    """``python -m aigw_tpu_torch run`` on ``cfg`` in its own process:
-    (the process, its port read off its startup line, its log file)."""
+def _start_gateway(cfg: dict, tmp: str, name: str, env=None, args=(),
+                   startup: list | None = None):
+    """``python -m aigw_tpu_torch run`` on ``cfg`` in its own process,
+    with ``env`` added to this one's and ``args`` after the config:
+    (the process, its port read off its startup line, its log file).
+    The lines it prints before that one go to ``startup``."""
     import re
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -7370,26 +7393,36 @@ def _start_gateway(cfg: dict, tmp: str, name: str):
     err = open(os.path.join(tmp, f"{name}.log"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "aigw_tpu_torch", "run", cfg_path,
-         "--port", "0", "--watch-interval", "3600"], cwd=here,
-        env=dict(os.environ, AIGW_DRAIN_SECONDS="0"),
+         "--port", "0", "--watch-interval", "3600", *args], cwd=here,
+        env=dict(os.environ, AIGW_DRAIN_SECONDS="0", **(env or {})),
         stdout=subprocess.PIPE, stderr=err, text=True)
-    line: list = []
-    reader = threading.Thread(
-        target=lambda: line.append(proc.stdout.readline()), daemon=True)
+    lines: list = []
+
+    def read():
+        while True:
+            got = proc.stdout.readline()
+            lines.append(got)
+            if not got or got.startswith("gateway listening on"):
+                return
+
+    reader = threading.Thread(target=read, daemon=True)
     reader.start()
     reader.join(timeout=60)
+    line = lines[-1:]
+    if startup is not None:
+        startup += lines[:-1]
     m = re.search(r"gateway listening on http://[\d.]+:(\d+)",
                   line[0] if line else "")
     if m is None:
         proc.kill()
         proc.wait(timeout=30)
         err.close()
-        raise AssertionError(f"{name}: no startup line ({line!r}, exit "
+        raise AssertionError(f"{name}: no startup line ({lines!r}, exit "
                              f"{proc.poll()})")
     return proc, int(m.group(1)), err
 
 
-def _chat_stream(port: int, body: dict) -> dict:
+def _chat_stream(port: int, body: dict, headers=None) -> dict:
     """A streamed chat read frame by frame: its text, usage, the
     ``x-aigw-request-id`` and the client's time to the first frame whose
     delta carries text."""
@@ -7397,7 +7430,7 @@ def _chat_stream(port: int, body: dict) -> dict:
         f"http://127.0.0.1:{port}/v1/chat/completions",
         data=json.dumps(dict(body, stream=True, stream_options={
             "include_usage": True})).encode(),
-        headers={"content-type": "application/json"})
+        headers={"content-type": "application/json", **(headers or {})})
     t0 = time.monotonic()
     ttft, text, usage, done = None, "", None, False
     with urllib.request.urlopen(req, timeout=600) as r:
@@ -7585,6 +7618,444 @@ def _gw_hosted(gw: int, reps, model: str = GW_MODEL) -> dict:
     return out
 
 
+#: the MCP block's made-up secrets: the JWT's HS256 secret (read by
+#: gateway C from a ``file:``), its session seed, and the key of a
+#: backend no route uses (``/debug/config`` must mask all three)
+GW_MCP_JWT = "made-up-jwt-secret-0000"
+GW_MCP_SEED = "made-up-session-seed-0000"
+GW_MCP_KEY = "sk-made-up-mcp-0000"
+#: the stdio MCP server ``_gw_mcp`` writes and gateway C bridges: the
+#: standard library only, newline-delimited JSON-RPC on stdin/stdout
+GW_MCP_STDIO = r'''
+import json
+import sys
+
+for line in sys.stdin:
+    msg = json.loads(line)
+    mid, method = msg.get("id"), msg.get("method")
+    if mid is None:
+        continue
+    if method == "initialize":
+        result = {"protocolVersion": "2025-06-18",
+                  "capabilities": {"tools": {}},
+                  "serverInfo": {"name": "notes"}}
+    elif method == "tools/list":
+        result = {"tools": [{"name": "recall", "inputSchema": {
+            "type": "object"}}]}
+    elif method == "tools/call":
+        result = {"content": [{"type": "text",
+                               "text": "notes: water the plants"}]}
+    else:
+        result = {}
+    sys.stdout.write(json.dumps({"jsonrpc": "2.0", "id": mid,
+                                 "result": result}) + "\n")
+    sys.stdout.flush()
+'''
+
+
+class _MCPBackend(BaseHTTPRequestHandler):
+    """A standard-library Streamable-HTTP MCP server answering JSON:
+    ``lookup`` and ``secret_admin`` (which the gateway's filter hides);
+    ``seen`` keeps every method and ``sessions`` the live ones."""
+
+    protocol_version = "HTTP/1.1"
+    seen: list = []
+    sessions: set = set()
+
+    def _send(self, status, body=b"", headers=None):
+        self.send_response(status)
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.send_header("content-type", "application/json")
+        self.send_header("content-length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_POST(self):  # noqa: N802
+        msg = json.loads(self.rfile.read(int(self.headers["content-length"])))
+        method, mid = msg.get("method"), msg.get("id")
+        self.seen.append(method or "response")
+        sid = self.headers.get("mcp-session-id", "")
+        if method == "initialize":
+            sid = f"kb-{len(self.sessions) + 1}"
+            self.sessions.add(sid)
+            return self._send(200, json.dumps({
+                "jsonrpc": "2.0", "id": mid, "result": {
+                    "protocolVersion": "2025-06-18",
+                    "capabilities": {"tools": {}},
+                    "serverInfo": {"name": "kb"}}}).encode(),
+                {"mcp-session-id": sid})
+        if sid not in self.sessions:
+            return self._send(404, b'{"error": "no session"}')
+        if mid is None:
+            return self._send(202)
+        result = {"tools/list": {"tools": [
+            {"name": t, "inputSchema": {"type": "object"}}
+            for t in ("lookup", "secret_admin")]},
+            "tools/call": {"content": [{"type": "text", "text":
+                                        "kb: Paris is the capital of "
+                                        "France"}]}}.get(method, {})
+        self._send(200, json.dumps({"jsonrpc": "2.0", "id": mid,
+                                    "result": result}).encode())
+
+    def do_DELETE(self):  # noqa: N802
+        self.seen.append("DELETE")
+        self.sessions.discard(self.headers.get("mcp-session-id", ""))
+        self._send(200)
+
+    def log_message(self, *a):
+        pass
+
+
+class _OTLPCollector(BaseHTTPRequestHandler):
+    """OTLP/HTTP JSON: every posted body, parsed."""
+
+    payloads: list = []
+
+    def do_POST(self):  # noqa: N802
+        self.payloads.append(json.loads(self.rfile.read(
+            int(self.headers["content-length"]))))
+        self.send_response(200)
+        self.send_header("content-length", "0")
+        self.end_headers()
+
+    def log_message(self, *a):
+        pass
+
+    @classmethod
+    def spans(cls, service: str) -> list:
+        out = []
+        for p in list(cls.payloads):
+            for rs in p["resourceSpans"]:
+                svc = rs["resource"]["attributes"][0]["value"]
+                if svc.get("stringValue") != service:
+                    continue
+                for ss in rs["scopeSpans"]:
+                    for sp in ss["spans"]:
+                        out.append(dict(sp, attributes={
+                            a["key"]: int(a["value"]["intValue"])
+                            if "intValue" in a["value"]
+                            else next(iter(a["value"].values()))
+                            for a in sp["attributes"]}))
+        return out
+
+
+def _gw_mcp(gw_b: int, reps, model: str = GW_MODEL) -> dict:
+    """An agent's turn through gateway C: its MCP tools, then the tool's
+    text as a chat onto the replicas, traced and logged.
+
+    Gateway C is a third ``python -m aigw_tpu_torch run`` in front of the
+    same replicas, with tracing on (OTLP ``http/json`` to a collector in
+    this process), ``AIGW_ACCESS_LOG`` and ``AIGW_ENABLE_DEBUG``; its
+    config adds a TotalToken cost, an ``mcp`` block (one standard-library
+    HTTP MCP backend with a ``tool_filter``, an HS256 ``authorization``
+    whose secret is a ``file:``, a ``session_seed``) and a backend no route
+    uses with a made-up key; ``--mcp-json`` bridges a standard-library
+    stdio MCP server. Gates: (1) with a valid JWT, ``initialize`` gives a
+    session, ``tools/list`` lists both backends' tools prefixed and
+    filtered, ``tools/call`` on each returns that backend's text; no JWT
+    is a 401 naming the resource metadata, a JWT without the rule's claim
+    a 403; ``DELETE`` ends the backend's session; (2) the tools' text as
+    a greedy chat pinned to a byte token, sent to C non-streamed and
+    streamed, each equal by the prompt and completion ids the replica's
+    ``TokenTap`` saw to the same chat sent to that replica directly;
+    (3) per chat, one span of C's named ``chat <model>``, parented on the
+    ``traceparent`` sent, carrying ``aigw.endpoint`` and the OpenInference
+    input and output messages, its trace id the replica's flight entry's;
+    (4) one access-log line per chat request (MCP requests write none, as
+    in the reference), each chat's with its span's ids, the model, the
+    backend, the tokens and the cost; (5) C's ``/debug/config`` holds no
+    secret, seed or key and ``/debug/stacks`` lists the gateway's
+    threads, both 404 on gateway B; (6) C's ``/metrics`` has
+    ``mcp_method_total`` samples for ``initialize``, ``tools/list`` and
+    ``tools/call``. Reported: ``tools/call`` p50 over six calls, the
+    pinned streamed chat's TTFT p50 straight to the replica, through B
+    and through C, in turns, and the block's wall. The caller zeroes and
+    reads the launch counts."""
+    import secrets as _secrets
+    import tempfile
+    from http.server import ThreadingHTTPServer
+
+    from aigw_tpu_torch.mcp.authz import sign_hs256
+    from aigw_tpu_torch.mcp.crypto import AEAD
+
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="aigw-mcp-")
+    jwt_file = os.path.join(tmp, "jwt-secret")
+    with open(jwt_file, "w") as f:
+        f.write(GW_MCP_JWT)
+    stdio = os.path.join(tmp, "notes_server.py")
+    with open(stdio, "w") as f:
+        f.write(GW_MCP_STDIO)
+    access = os.path.join(tmp, "access.jsonl")
+    _MCPBackend.seen, _MCPBackend.sessions = [], set()
+    _OTLPCollector.payloads = []
+    servers = [ThreadingHTTPServer(("127.0.0.1", 0), h)
+               for h in (_MCPBackend, _OTLPCollector)]
+    for srv in servers:
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    kb_port, otlp_port = (srv.server_address[1] for srv in servers)
+    addrs = [f"127.0.0.1:{r.port}" for r in reps]
+    startup: list = []
+    proc = None
+    out: dict = {"aead": AEAD}
+    bad: list = []
+    try:
+        proc, c, err = _start_gateway({
+            "version": "v1",
+            "backends": [
+                {"name": "llama-pool", "schema": "TPUServe",
+                 "endpoints": addrs, "picker_poll_interval": GW_POLL_S},
+                {"name": "unrouted", "schema": "OpenAI",
+                 "url": "http://127.0.0.1:9",
+                 "auth": {"kind": "APIKey", "api_key": GW_MCP_KEY}}],
+            "routes": [{"name": "agent", "rules": [
+                {"models": [model], "backends": ["llama-pool"]}]}],
+            "models": [model],
+            "llm_request_costs": [{"metadata_key": "total_tokens",
+                                   "type": "TotalToken"}],
+            "mcp": {"session_seed": GW_MCP_SEED, "backends": [
+                {"name": "kb", "url": f"http://127.0.0.1:{kb_port}/mcp",
+                 "tool_filter": {"exclude": ["secret_*"]}}],
+                "authorization": {
+                    "resource": "/mcp",
+                    "jwt": {"hs256_secret": f"file:{jwt_file}"},
+                    "rules": [{"tools": ["*"],
+                               "claims": {"role": "agent"}}]}}},
+            tmp, "gateway-c", env={
+                "OTEL_TRACES_EXPORTER": "otlp",
+                "OTEL_EXPORTER_OTLP_TRACES_PROTOCOL": "http/json",
+                "OTEL_EXPORTER_OTLP_ENDPOINT":
+                    f"http://127.0.0.1:{otlp_port}",
+                "OTEL_SERVICE_NAME": "gateway-c",
+                "AIGW_ACCESS_LOG": access, "AIGW_ENABLE_DEBUG": "true"},
+            args=("--mcp-json", json.dumps({"mcpServers": {"notes": {
+                "command": sys.executable, "args": [stdio]}}})),
+            startup=startup)
+        out["startup"] = [ln.strip() for ln in startup]
+        if out["startup"] != ["mcp: 1 server(s): notes (1 stdio-bridged)"]:
+            bad.append(f"startup lines {out['startup']}")
+
+        def health(addr):
+            st = _gw_json(c, "/fleet/state")
+            return st["backends"]["llama-pool"]["replicas"][addr][
+                "health"]["state"]
+
+        _gw_wait(lambda: all(health(a) == "up" for a in addrs),
+                 "gateway C sees both replicas up")
+        agent = sign_hs256({"sub": "agent-1", "role": "agent"}, GW_MCP_JWT)
+        viewer = sign_hs256({"sub": "viewer-1", "role": "viewer"},
+                            GW_MCP_JWT)
+        session = {"id": ""}
+
+        def mcp(payload, token=agent, method="POST"):
+            headers = {"content-type": "application/json"}
+            if token:
+                headers["authorization"] = f"Bearer {token}"
+            if session["id"]:
+                headers["mcp-session-id"] = session["id"]
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{c}/mcp", method=method, headers=headers,
+                data=None if payload is None else json.dumps(payload)
+                .encode())
+            try:
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    status, h, raw = r.status, dict(r.headers), r.read()
+            except urllib.error.HTTPError as e:
+                status, h, raw = e.code, dict(e.headers), e.read()
+            h = {k.lower(): v for k, v in h.items()}
+            return status, h, json.loads(raw) if raw.strip() else None
+
+        # (1) the MCP session
+        s, h, body = mcp({"jsonrpc": "2.0", "id": 1, "method": "initialize",
+                          "params": {"protocolVersion": "2025-06-18",
+                                     "capabilities": {}}})
+        session["id"] = h.get("mcp-session-id", "")
+        if s != 200 or not session["id"]:
+            raise AssertionError(f"serve_gateway mcp: initialize {s} {body}")
+        mcp({"jsonrpc": "2.0", "method": "notifications/initialized"})
+        s, _h, body = mcp({"jsonrpc": "2.0", "id": 2,
+                           "method": "tools/list"})
+        tools = sorted(t["name"] for t in body["result"]["tools"])
+        out["tools"] = tools
+        if tools != ["kb__lookup", "notes__recall"]:
+            bad.append(f"tools/list {tools}")
+        texts = {}
+        call_ms = []
+        for i in range(6):
+            name = ("kb__lookup", "notes__recall")[i % 2]
+            t1 = time.monotonic()
+            s, _h, body = mcp({"jsonrpc": "2.0", "id": 10 + i,
+                               "method": "tools/call",
+                               "params": {"name": name, "arguments": {}}})
+            call_ms.append(1e3 * (time.monotonic() - t1))
+            texts[name] = body["result"]["content"][0]["text"]
+        out["tools_call_p50_ms"] = statistics.median(call_ms)
+        if texts != {"kb__lookup": "kb: Paris is the capital of France",
+                     "notes__recall": "notes: water the plants"}:
+            bad.append(f"tools/call texts {texts}")
+        s, h, body = mcp({"jsonrpc": "2.0", "id": 20, "method": "tools/list"},
+                         token="")
+        out["no_jwt"] = s
+        if s != 401 or "resource_metadata" not in h.get(
+                "www-authenticate", ""):
+            bad.append(f"no JWT: {s} {h.get('www-authenticate')}")
+        s, _h, body = mcp({"jsonrpc": "2.0", "id": 21,
+                           "method": "tools/call",
+                           "params": {"name": "kb__lookup"}}, token=viewer)
+        out["wrong_claim"] = s
+        if s != 403:
+            bad.append(f"a JWT without the claim: {s} {body}")
+        # (2) the tools' text goes back through C as a chat
+        reset_counts()
+        taps = [TokenTap(r.engine) for r in reps]
+        chat = {"model": model, "max_tokens": 8, "temperature": 0.0,
+                "logit_bias": {str(PIN_TOKEN): 100.0}, "messages": [
+                    {"role": "system", "content": "answer from the tools"},
+                    {"role": "user", "content": " ".join(
+                        texts[k] for k in sorted(texts))}]}
+
+        def tapped(rid):
+            hits = [(i, t.prompts[rid], t.toks[rid])
+                    for i, t in enumerate(taps) if rid in t.toks]
+            if len(hits) != 1 or not hits[0][2]:
+                raise AssertionError(f"serve_gateway mcp: request {rid!r} "
+                                     f"on the taps: {hits}")
+            return hits[0]
+
+        parent = "00f067aa0ba902b7"
+        traced = []
+        for stream in (False, True):
+            trace = _secrets.token_hex(16)
+            tp = {"traceparent": f"00-{trace}-{parent}-01"}
+            if stream:
+                rid = _chat_stream(c, chat, tp)["rid"]
+            else:
+                s, h, raw = _post_raw(c, "/v1/chat/completions",
+                                      json.dumps(chat).encode(), tp)
+                rid = {k.lower(): v for k, v in h.items()}.get(
+                    "x-aigw-request-id", "")
+                if s != 200:
+                    raise AssertionError(f"serve_gateway mcp: chat {s} "
+                                         f"{raw[:300]!r}")
+            i, prompt, toks = tapped(rid)
+            d_rid = _chat_stream(reps[i].port, chat)["rid"] if stream else \
+                {k.lower(): v for k, v in _post_raw(
+                    reps[i].port, "/v1/chat/completions",
+                    json.dumps(chat).encode())[1].items()}[
+                    "x-aigw-request-id"]
+            if tapped(d_rid)[1:] != (prompt, toks):
+                bad.append(f"chat stream={stream}: {toks} via C against "
+                           f"{tapped(d_rid)[2]} direct")
+            flight = json.loads(_http(reps[i].port,
+                                      f"/debug/requests/{rid}")[2])
+            traced.append((stream, trace, rid, addrs[i], flight["trace_id"],
+                           len(toks)))
+        # (3) the spans
+        def spans_of(trace):
+            return [sp for sp in _OTLPCollector.spans("gateway-c")
+                    if sp["traceId"] == trace]
+
+        _gw_wait(lambda: all(spans_of(t[1]) for t in traced),
+                 "gateway C's spans at the collector", 30)
+        span_ids = {}
+        for stream, trace, rid, addr, flight_trace, n in traced:
+            (sp,) = spans_of(trace)
+            a = sp["attributes"]
+            span_ids[trace] = sp["spanId"]
+            want = {"name": f"chat {model}", "parent": parent,
+                    "endpoint": addr, "flight_trace": trace}
+            got = {"name": sp["name"], "parent": sp["parentSpanId"],
+                   "endpoint": a.get("aigw.endpoint"),
+                   "flight_trace": flight_trace}
+            if got != want or not a.get(
+                    "llm.input_messages.1.message.content") or not a.get(
+                    "llm.output_messages.0.message.content") or a.get(
+                    "gen_ai.usage.output_tokens") != n:
+                bad.append(f"span stream={stream}: {got} against {want}; "
+                           f"{sorted(a)}")
+        # TTFT: the replica, B and C, in turns
+        ttft: dict = {"direct": [], "b": [], "c": []}
+        for how in ("direct", "b", "c", "c", "b", "direct") * 2:
+            port = {"direct": reps[0].port, "b": gw_b, "c": c}[how]
+            ttft[how].append(1e3 * _chat_stream(port, chat)["ttft_s"])
+        out["ttft_p50_ms"] = {k: statistics.median(v)
+                              for k, v in ttft.items()}
+        out["ttft_ms"] = ttft
+        # (4) the access log: the 2 gated chats and C's 4 TTFT turns
+        def log_lines():
+            with open(access) as f:
+                return [json.loads(x) for x in f if x.strip()]
+
+        _gw_wait(lambda: len(log_lines()) >= 6, "C's access-log lines", 20)
+        lines = log_lines()
+        out["access_log_lines"] = len(lines)
+        by_trace = {ln.get("trace_id"): ln for ln in lines}
+        for stream, trace, rid, _addr, _ft, n in traced:
+            ln = by_trace.get(trace, {})
+            got = (ln.get("span_id"), ln.get("model"), ln.get("backend"),
+                   (ln.get("usage") or {}).get("output"),
+                   ln.get("costs", {}).get("total_tokens", 0) > 0,
+                   ln.get("upstream_request_id"), ln.get("status"))
+            if got != (span_ids[trace], model, "llama-pool", n, True, rid,
+                       200):
+                bad.append(f"access log stream={stream}: {ln}")
+        if len(lines) != 6 or {ln["path"] for ln in lines} != {
+                "/v1/chat/completions"}:
+            bad.append(f"access log: {len(lines)} lines "
+                       f"{[ln['path'] for ln in lines]}")
+        # (5) the debug routes
+        cfg_text = _http(c, "/debug/config")[2]
+        stacks = _http(c, "/debug/stacks")[2]
+        leaked = [x for x in (GW_MCP_JWT, GW_MCP_SEED, GW_MCP_KEY)
+                  if x in cfg_text]
+        out["debug"] = {"config_bytes": len(cfg_text), "leaked": leaked,
+                        "threads": stacks.count("--- thread ")}
+        if leaked or "accesslog.py" not in stacks \
+                or "_flush_loop" not in stacks:
+            bad.append(f"debug routes: {out['debug']}")
+        for path in ("/debug/config", "/debug/stacks"):
+            try:
+                _http(gw_b, path)
+                bad.append(f"gateway B serves {path}")
+            except urllib.error.HTTPError as e:
+                if e.code != 404:
+                    bad.append(f"gateway B {path}: {e.code}")
+        # (6) the MCP metrics
+        metrics = _http(c, "/metrics")[2]
+        methods = sorted({m for m in ("initialize", "tools/list",
+                                      "tools/call")
+                          if f'mcp_method_name="{m}",status="success"'
+                          in metrics})
+        out["mcp_methods"] = methods
+        if methods != ["initialize", "tools/call", "tools/list"]:
+            bad.append(f"mcp_method_total samples for {methods}")
+        # the session ends on DELETE, at the backend too
+        s, _h, _b = mcp(None, method="DELETE")
+        out["delete"] = s
+        if s != 200 or _MCPBackend.sessions or "DELETE" not in \
+                _MCPBackend.seen:
+            bad.append(f"DELETE {s}: backend sessions "
+                       f"{_MCPBackend.sessions}")
+        proc.send_signal(2)
+        if proc.wait(timeout=30) != 0:
+            bad.append(f"gateway C exited {proc.returncode}")
+    finally:
+        if proc is not None:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            proc.stdout.close()
+            err.close()
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+    if bad:
+        raise AssertionError(f"serve_gateway mcp: {bad}")
+    out.update(chat_tokens=traced[0][5], wall_s=time.monotonic() - t0)
+    return out
+
+
 def serve_gateway(torch, params, launches: dict) -> dict:
     """Client → the port's gateway → two port replicas on the card.
 
@@ -7613,7 +8084,8 @@ def serve_gateway(torch, params, launches: dict) -> dict:
     direct, three times), the medians' ratios. Then, on the same
     replicas and gateway, the client fronts (``_gw_fronts``) and a
     hosted-provider hop in front of the gateway (``_gw_hosted``), each
-    with its own launch counts."""
+    with its own launch counts, and an agent's MCP turn through a third,
+    traced gateway (``_gw_mcp``)."""
     import numpy as np
 
     from aigw_tpu_torch.models import llama
@@ -7799,6 +8271,14 @@ def serve_gateway(torch, params, launches: dict) -> dict:
                 or counts["fused_paged_decode"] <= 0:
             raise AssertionError(f"serve_gateway: K1/K2 not on the hosted "
                                  f"chain's path: {counts}")
+        # an agent's MCP turn through gateway C (its chats zero the
+        # counts first)
+        out["mcp"] = _gw_mcp(gw, reps)
+        launches["serve_mcp"] = counts = read_counts()
+        if counts["ragged_prefill_attention"] <= 0 \
+                or counts["fused_paged_decode"] <= 0:
+            raise AssertionError(f"serve_gateway: K1/K2 not on the MCP "
+                                 f"turn's path: {counts}")
         proc.send_signal(2)  # SIGINT: the gateway stops and exits 0
         if proc.wait(timeout=30) != 0:
             raise AssertionError(f"serve_gateway: the gateway exited "
@@ -7839,6 +8319,12 @@ def serve_gateway(torch, params, launches: dict) -> dict:
         f"{hosted['direct']:.1f} ms, B {hosted['b']:.1f} ms, A -> B "
         f"{hosted['a']:.1f} ms, block {out['hosted']['wall_s']:.1f} s; "
         f"phase {out['wall_s']:.1f} s")
+    m = out["mcp"]
+    log(f"serve_gateway mcp ({card}): session AEAD {m['aead']}; tools/call "
+        f"p50 {m['tools_call_p50_ms']:.2f} ms through C; pinned chat TTFT "
+        f"p50 direct {m['ttft_p50_ms']['direct']:.1f} ms, B "
+        f"{m['ttft_p50_ms']['b']:.1f} ms, C (traced, logged) "
+        f"{m['ttft_p50_ms']['c']:.1f} ms; block {m['wall_s']:.2f} s")
     return out
 
 
@@ -8683,6 +9169,8 @@ def main() -> int:
         row["launches_serve_fronts"] = launches["serve_fronts"].get(
             row["name"], 0)
         row["launches_serve_hosted"] = launches["serve_hosted"].get(
+            row["name"], 0)
+        row["launches_serve_mcp"] = launches["serve_mcp"].get(
             row["name"], 0)
         # replica B's (A launches in its own process)
         row["launches_serve_fleet"] = launches["serve_fleet"].get(

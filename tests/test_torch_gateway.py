@@ -276,9 +276,7 @@ def test_script_matches_reference_gateway(replicas, loop):
         assert usage["totals"]["records"] == 7
         assert usage["totals"]["cost"] > 0
         mt = {n: ends[n]["/metrics"][2].decode() for n in ends}
-        ref_fams = {f for f in _families(mt["ref"])
-                    if not f.startswith("mcp_")}  # no MCP proxy here
-        assert _families(mt["port"]) == ref_fams
+        assert _families(mt["port"]) == _families(mt["ref"])
         for fam in ("aigw_requests_total", "aigw_usage_records_total"):
             assert _samples(mt["port"], fam) == _samples(mt["ref"], fam)
         dec = {n: json.loads(ends[n]["/debug/decisions"][2])
@@ -450,15 +448,16 @@ def test_cli_run_serves_and_refuses_unported_fields(replicas, tmp_path):
         assert proc.wait(timeout=30) == 0
         proc.stdout.close()
         proc.stderr.close()
-    bad = tmp_path / "bad.json"
-    bad.write_text(json.dumps(dict(_pool_config(["127.0.0.1:1"]),
-                                   mcp={"path": "/mcp"})))
+    bad = tmp_path / "bad.json"  # a CRD manifest, which is not ported
+    bad.write_text(json.dumps({"apiVersion": "aigateway.envoyproxy.io/v1alpha1",
+                               "kind": "AIGatewayRoute",
+                               "metadata": {"name": "r"}}))
     done = subprocess.run(
         [sys.executable, "-m", "aigw_tpu_torch", "run", str(bad),
          "--port", "0"], cwd=ROOT, capture_output=True, text=True,
         timeout=60)
     assert done.returncode == 1
-    assert "config error" in done.stderr and "'mcp'" in done.stderr
+    assert "config error" in done.stderr and "'kind'" in done.stderr
 
 
 class _Replay(BaseHTTPRequestHandler):

@@ -403,7 +403,7 @@ def test_inference_pool_example_loads_like_reference(tmp_path):
 
 #: fields the port's config refused until its gateway carried them: their
 #: cases below now load equal to the reference's instead
-CARRIED = {"auth", "controller", "migration", "quotas", "schema"}
+CARRIED = {"auth", "controller", "mcp", "migration", "quotas", "schema"}
 
 
 @pytest.mark.parametrize("example,field", [

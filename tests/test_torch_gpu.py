@@ -1978,6 +1978,32 @@ def test_gateway_hosted_chain_on_cuda_replicas(cuda):
         close()
 
 
+def test_gateway_mcp_turn_on_cuda_replicas(cuda):
+    """An agent's turn through a third gateway (``python -m
+    aigw_tpu_torch run`` with tracing, an access log and the debug routes
+    on, an ``mcp`` block with authorization and a bridged stdio server):
+    its tools with a JWT (401 and 403 without), the tools' text as a
+    chat onto the card's replicas equal to the same chat sent there,
+    the spans, access-log lines, debug routes and ``mcp_*`` samples
+    (chip_smoke's ``_gw_mcp``); K1 and K2 launched."""
+    import time
+
+    import chip_smoke as cs
+
+    reps, _addrs, gw, close = _gateway_pair(cuda)
+    try:
+        time.sleep(0.5)  # a poll of both
+        out = cs._gw_mcp(gw.port, reps, model="tiny-random")
+        assert out["tools"] == ["kb__lookup", "notes__recall"]
+        assert (out["no_jwt"], out["wrong_claim"]) == (401, 403)
+        assert out["access_log_lines"] == 6
+        # the block zeroes the counts before its chats
+        assert paged_attention.ragged_prefill_attention.launches > 0
+        assert decode_fused.fused_paged_decode.launches > 0
+    finally:
+        close()
+
+
 def test_gateway_honours_a_drained_cuda_replica(cuda):
     """A replica drained with ``POST /drain`` shows ``draining`` on the
     gateway's ``/fleet/state`` and receives none of the next requests;

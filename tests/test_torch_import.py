@@ -171,7 +171,9 @@ def test_ops_surface_modules_import_with_jax_blocked():
         path = ROOT / (m.replace(".", "/") + ".py")
         outside = [n for n in _imported_names(path)
                    if n.split(".")[0] not in _sys.stdlib_module_names
-                   and not n.startswith("aigw_tpu_torch")]
+                   and not n.startswith("aigw_tpu_torch")
+                   # obs/tracing.py: lazily, for the OTLP gRPC export
+                   and not (m.endswith(".tracing") and n == "grpc")]
         assert not outside, (m, outside)
     code = (
         "import sys\n"
@@ -433,7 +435,9 @@ def test_gateway_modules_import_with_aiohttp_and_yaml_blocked():
         outside = [n for n in _imported_names(path)
                    if n.split(".")[0] not in _sys.stdlib_module_names
                    and not n.startswith("aigw_tpu_torch")
-                   and n != "yaml"]  # config/model.py: lazily, for YAML
+                   and n != "yaml"  # config/model.py: lazily, for YAML
+                   # obs/tracing.py: lazily, for the OTLP gRPC export
+                   and not (m.endswith(".tracing") and n == "grpc")]
         assert not outside, (m, outside)
     code = (
         "import sys, importlib\n"
@@ -448,7 +452,7 @@ def test_gateway_modules_import_with_aiohttp_and_yaml_blocked():
         "    assert callable(fn)\n"
         "bad = [k for k, v in sys.modules.items() if v and k.split('.')[0]\n"
         "       in ('jax', 'jaxlib', 'aigw_tpu', 'aiohttp', 'yaml',\n"
-        "           'prometheus_client', 'torch')]\n"
+        "           'prometheus_client', 'torch', 'grpc')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -589,6 +593,57 @@ def test_hosted_modules_import_with_aiohttp_and_yaml_blocked():
         "bad = [k for k, v in sys.modules.items() if v and k.split('.')[0]\n"
         "       in ('jax', 'jaxlib', 'aigw_tpu', 'aiohttp', 'yaml',\n"
         "           'prometheus_client', 'torch')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+MCP_OBS_MODULES = [
+    "aigw_tpu_torch.mcp", "aigw_tpu_torch.mcp.crypto",
+    "aigw_tpu_torch.mcp.authz", "aigw_tpu_torch.mcp.replay",
+    "aigw_tpu_torch.mcp.proxy", "aigw_tpu_torch.mcp.stdio_bridge",
+    "aigw_tpu_torch.obs.openinference", "aigw_tpu_torch.obs.accesslog"]
+
+
+def test_mcp_and_gateway_obs_modules_import_with_optional_packages_blocked():
+    """The MCP proxy, its session crypto, authorization, replay stores
+    and stdio bridge, and the gateway's OpenInference and access-log
+    modules import only the standard library and the port (the session
+    crypto and RS256 keys reach ``cryptography`` where it imports); in a
+    fresh interpreter where jax, the reference package, aiohttp, yaml,
+    cryptography and grpc cannot be imported every one imports, the
+    session crypto falls back to the standard-library AEAD, and none of
+    them nor torch is pulled in."""
+    import sys as _sys
+
+    for m in MCP_OBS_MODULES:
+        assert m in MODULES or m + ".__init__" in MODULES, m
+        path = ROOT / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / m.replace(".", "/") / "__init__.py"
+        outside = [n for n in _imported_names(path)
+                   if n.split(".")[0] not in _sys.stdlib_module_names
+                   and not n.startswith("aigw_tpu_torch")
+                   and n.split(".")[0] != "cryptography"]
+        assert not outside, (m, outside)
+    code = (
+        "import sys, importlib\n"
+        "for m in ('jax', 'aigw_tpu', 'aiohttp', 'yaml', 'cryptography',\n"
+        "          'grpc'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {MCP_OBS_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from aigw_tpu_torch.mcp import crypto\n"
+        "assert crypto.AEAD.endswith('(standard library)'), crypto.AEAD\n"
+        "tok = crypto.SessionCrypto('s').encrypt(b'x')\n"
+        "assert crypto.SessionCrypto('n', 's').decrypt(tok) == b'x'\n"
+        "from aigw_tpu_torch.gateway.server import GatewayServer\n"
+        "bad = [k for k, v in sys.modules.items() if v and k.split('.')[0]\n"
+        "       in ('jax', 'jaxlib', 'aigw_tpu', 'aiohttp', 'yaml',\n"
+        "           'prometheus_client', 'torch', 'grpc', 'cryptography')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

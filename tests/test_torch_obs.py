@@ -308,8 +308,8 @@ def test_tracer_environment_contract(monkeypatch):
     monkeypatch.delenv("OTEL_SDK_DISABLED")
     monkeypatch.setenv("OTEL_TRACES_EXPORTER", "otlp")
     monkeypatch.setenv("OTEL_EXPORTER_OTLP_PROTOCOL", "grpc")
-    with pytest.raises(NotImplementedError, match="grpcio"):
-        ttracing.Tracer()
+    t = ttracing.Tracer(exporter="none")  # grpc: the collector's :4317
+    assert (t.protocol, t.endpoint) == ("grpc", "http://127.0.0.1:4317")
     monkeypatch.setenv("OTEL_EXPORTER_OTLP_TRACES_PROTOCOL", "http/json")
     assert ttracing.Tracer(exporter="none").protocol == "http/json"
     ctx = ttracing.SpanContext(TRACE_ID, "00f067aa0ba902b7", sampled=False)

@@ -9,14 +9,18 @@ aigw_tpu_torch run``), the phase's gates, then ``/v1/messages``,
 the replicas served directly; then a second gateway whose
 ``Anthropic``-schema backend (an ``AnthropicAPIKey`` from a ``file:``
 secret) is the first gateway, its chat, Responses and Messages held to
-the same requests sent to the first, an emptied key answering 401.
+the same requests sent to the first, an emptied key answering 401;
+then an agent's MCP turn through a third gateway with tracing, an
+access log and the debug routes on (``_gw_mcp``): its tools over HTTP
+and a bridged stdio server, authorization, and the tools' text as a
+traced chat onto the replicas.
 
     python3 tools/torch_fronts.py
 
 It builds the kernels, draws the Llama-3-8B-width weights from the
 registry's seed (the phase serves their first layers), runs the phase
 and prints its JSON line, the fronts' and the hosted hop's launch
-counts and the card; any failed gate exits non-zero.
+counts, the MCP turn's and the card; any failed gate exits non-zero.
 """
 
 import json
@@ -60,6 +64,9 @@ def main() -> int:
           flush=True)
     print(json.dumps({"hosted": out["hosted"],
                       "launches_serve_hosted": launches["serve_hosted"]}),
+          flush=True)
+    print(json.dumps({"mcp": out["mcp"],
+                      "launches_serve_mcp": launches["serve_mcp"]}),
           flush=True)
     return 0
 
