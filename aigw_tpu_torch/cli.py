@@ -21,7 +21,15 @@
     python -m aigw_tpu_torch convert /hf/llama-3-8b checkpoints/llama-3-8b
     python -m aigw_tpu_torch run gateway.json --port 1975
     python -m aigw_tpu_torch run gateway.json --mcp-config mcp.json
+    python -m aigw_tpu_torch run manifests/ --port 1975 --workers 4
+    python -m aigw_tpu_torch run gateway.json --port 1975 --reuse-port
+    TPUSERVE_URL=http://127.0.0.1:8011 python -m aigw_tpu_torch run
+    python -m aigw_tpu_torch validate manifests/
+    python -m aigw_tpu_torch status manifests/ --json
+    python -m aigw_tpu_torch translate gateway.json
+    python -m aigw_tpu_torch healthcheck http://127.0.0.1:1975
     python -m aigw_tpu_torch quota-service --port 1981 --dir /var/aigw-quota
+    python -m aigw_tpu_torch --version
 
 With no flags a replica runs the reference's default programs: the
 bucket-ladder prefill (``xla-bucketed``, chunked past
@@ -54,32 +62,60 @@ write orbax directories through ``tensorstore`` (``models/checkpoint.py``)
 and raise naming it where it is missing, as on the card machine.
 
 ``run CONFIG`` starts the gateway data plane (``gateway/server.py``) in
-front of replica pools: the config is JSON (YAML where ``pyyaml`` is
-installed), watched every ``--watch-interval`` seconds and reloaded on
-change; ``--port 0`` binds a free port, which the startup line names.
+front of replica pools. CONFIG is a config file (JSON, or YAML: through
+``pyyaml`` where it is installed, else JSON text in the ``.yaml`` file),
+a bundle directory (``config/bundle.py``) or a directory of Kubernetes
+CRD manifests, reconciled by ``config/controller.py``: a broken object
+is quarantined while the rest serves, per-object Accepted conditions go
+to ``<dir>/aigw-status.json``, and ``/health`` counts the objects not
+accepted. The source is watched every ``--watch-interval`` seconds and
+reloaded on change; ``--port 0`` binds a free port, which the startup
+line names. With no CONFIG the config is built from the environment
+(``config/autoconfig.py``: ``TPUSERVE_URL``, ``OPENAI_API_KEY``,
+``ANTHROPIC_API_KEY``, ``AZURE_OPENAI_*``, ``AIGW_MODELS``).
+``--workers N`` runs N processes (this one and N - 1 spawned children)
+bound to one explicit ``--port`` with ``SO_REUSEPORT``; they share one
+MCP session seed, and one token-quota budget and one Responses
+transcript store through ``AIGW_QUOTA_DIR`` / ``AIGW_RESPONSES_DIR``
+(a temporary directory when unset). ``--reuse-port`` binds one process
+with ``SO_REUSEPORT``, so a replacement gateway can bind the same port
+before this one is stopped: a rolling upgrade with no refused request.
 SIGTERM or SIGINT stops it after ``AIGW_DRAIN_SECONDS`` (1 s) for the
 requests in flight, and stops every replica its pools' controllers
-launched. ``--mcp-config FILE`` / ``--mcp-json TEXT`` take the canonical
-``mcpServers`` JSON: every stdio server (``command``) is spawned and
-bridged to a local Streamable-HTTP endpoint (``mcp/stdio_bridge.py``),
-and all of them join the config's ``mcp`` backends on every load; the
-children stop with the gateway, on every exit path.
+launched and every worker it spawned. ``--mcp-config FILE`` /
+``--mcp-json TEXT`` take the canonical ``mcpServers`` JSON: every stdio
+server (``command``) is spawned and bridged to a local Streamable-HTTP
+endpoint (``mcp/stdio_bridge.py``), and all of them join the config's
+``mcp`` backends on every load; the children stop with the gateway, on
+every exit path (refused with ``--workers`` above 1).
+
+``validate CONFIG|DIR`` parses a config (or reconciles a manifest
+directory, writing no status) and prints a summary, exit 1 on an
+invalid config or a rejected object; ``status DIR [--json]`` prints the
+manifests' Accepted conditions (from ``aigw-status.json`` when it is
+current, else reconciled now), exit 1 when any is not accepted;
+``translate CONFIG`` prints the compiled runtime view as JSON;
+``healthcheck [URL]`` probes ``/health`` (exit 0 when healthy);
+``--version`` prints the package's version and, in a git checkout, its
+revision. Each prints what ``aigw_tpu``'s does.
 
 ``quota-service`` serves the shared token-quota counters
 (``gateway/ratelimit.py``, flock'd files under ``--dir``): gateways
 that set ``AIGW_QUOTA_URL`` to it enforce one budget with no shared
 filesystem; SIGTERM or SIGINT stops it.
 
-The ``tpuserve``, ``convert``, ``run`` and ``quota-service``
-subcommands are ported; the other subcommands stay JAX-package code.
-Flag names follow the reference's.
+Not ported: the ``core-config`` and ``webhook`` subcommands and the
+live-cluster source (``run`` / ``validate kube:...``), which raise or
+are absent. Flag names follow the reference's.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import signal
+import sys
 import threading
 
 logger = logging.getLogger(__name__)
@@ -87,9 +123,61 @@ logger = logging.getLogger(__name__)
 _DESCRIPTION = "aigw-tpu serving on PyTorch/CUDA"
 
 
+def _build_version() -> str:
+    """The package's version, with the git revision when run from this
+    project's checkout (upstream stamps the same through the Go linker,
+    internal/version/version.go)."""
+    try:
+        from importlib.metadata import version as _pkg_version
+
+        base = _pkg_version("aigw-tpu")
+    except Exception:  # noqa: BLE001 — an uninstalled checkout
+        base = "0.1.0"
+    try:
+        import subprocess
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        # stamp only when the repository holding the package is this
+        # project (not some unrelated checkout around a virtualenv)
+        top = subprocess.run(
+            ["git", "rev-parse", "--show-toplevel"], cwd=root,
+            capture_output=True, text=True, timeout=2,
+        ).stdout.strip()
+        if not top or not os.path.isdir(os.path.join(top, "aigw_tpu_torch")):
+            return base
+        rev = subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"], cwd=root,
+            capture_output=True, text=True, timeout=2,
+        ).stdout.strip()
+        dirty = subprocess.run(
+            ["git", "status", "--porcelain"], cwd=root,
+            capture_output=True, text=True, timeout=2,
+        ).stdout.strip()
+        if rev:
+            return f"{base} ({rev}{'-dirty' if dirty else ''})"
+    except Exception:  # noqa: BLE001 — no git, or not a checkout
+        pass
+    return base
+
+
+class _VersionAction(argparse.Action):
+    """A lazy ``--version``: the git calls run only when it is asked
+    for."""
+
+    def __init__(self, option_strings, dest, **kwargs):
+        super().__init__(option_strings, dest, nargs=0, **kwargs)
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        print(f"aigw-tpu {_build_version()}")
+        parser.exit(0)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="aigw_tpu_torch",
                                 description=_DESCRIPTION)
+    p.add_argument(
+        "--version", action=_VersionAction,
+        help="print version (with git revision when run from a checkout)")
     sub = p.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("convert", help="import a local HF safetensors dir "
                                        "into an orbax checkpoint usable by "
@@ -97,11 +185,26 @@ def build_parser() -> argparse.ArgumentParser:
     c.add_argument("hf_dir")
     c.add_argument("out_dir")
     r = sub.add_parser("run", help="run the gateway data plane")
-    r.add_argument("config", help="config file: JSON, or YAML with pyyaml")
+    r.add_argument("config", nargs="?", default="",
+                   help="config file (JSON, or YAML: pyyaml, else JSON "
+                        "text), bundle dir, or CRD manifest dir (watched "
+                        "and reconciled with status conditions); omit to "
+                        "autoconfig from env: OPENAI_API_KEY, "
+                        "ANTHROPIC_API_KEY, AZURE_OPENAI_*, TPUSERVE_URL")
     r.add_argument("--host", default="127.0.0.1")
     r.add_argument("--port", type=int, default=1975)
     r.add_argument("--watch-interval", type=float, default=5.0)
     r.add_argument("--log-level", default="info")
+    r.add_argument(
+        "--workers", type=int, default=1,
+        help="worker processes sharing the port via SO_REUSEPORT "
+             "(each runs the full data plane and watches the config; "
+             "requires an explicit --port)")
+    r.add_argument(
+        "--reuse-port", action="store_true",
+        help="bind with SO_REUSEPORT even with --workers 1, so a "
+             "replacement gateway process can bind the same port and "
+             "take over before this one drains (a rolling upgrade)")
     r.add_argument(
         "--mcp-config", default="",
         help="Claude-Desktop-style mcpServers JSON file: http servers "
@@ -111,6 +214,27 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument(
         "--mcp-json", default="",
         help="same as --mcp-config but inline JSON")
+    v = sub.add_parser("validate", help="validate a config file")
+    v.add_argument("config")
+    st = sub.add_parser(
+        "status",
+        help="print per-object Accepted conditions for a manifest dir "
+             "(from <dir>/aigw-status.json, written by the reconciling "
+             "gateway, or computed fresh when no gateway has run)")
+    st.add_argument("dir", help="CRD manifest directory")
+    st.add_argument("--json", action="store_true",
+                    help="machine-readable output")
+    t = sub.add_parser(
+        "translate",
+        help="compile a config and print the normalized runtime view "
+             "(resolved translator pairs, auth kinds, quota rules) as JSON")
+    t.add_argument("config")
+    h = sub.add_parser(
+        "healthcheck",
+        help="probe a gateway or replica /health endpoint (exit 0 = "
+             "healthy)")
+    h.add_argument("url", nargs="?", default="http://127.0.0.1:1975")
+    h.add_argument("--timeout", type=float, default=5.0)
     q = sub.add_parser(
         "quota-service",
         help="run the shared quota service: gateways on other nodes "
@@ -310,13 +434,12 @@ def convert(hf_dir: str, out_dir: str) -> int:
     return 0
 
 
-async def run_gateway_cli(args) -> int:
+async def run_gateway_cli(args, reuse_port: bool = False) -> int:
     """``run``: the gateway until SIGTERM or SIGINT."""
     import asyncio
     import dataclasses
-    import os
-    import sys
 
+    from aigw_tpu_torch.config.runtime import RuntimeConfig
     from aigw_tpu_torch.config.watcher import ConfigWatcher
     from aigw_tpu_torch.gateway.server import run_gateway
 
@@ -366,13 +489,27 @@ async def run_gateway_cli(args) -> int:
                     b for b in mcp_backends if b["name"] not in have]
                 return dataclasses.replace(cfg, mcp=mcp)
 
-        watcher = ConfigWatcher(args.config, on_reload,
-                                interval=args.watch_interval,
-                                transform=transform)
-        server = await run_gateway(watcher.load_initial(), host=args.host,
-                                   port=args.port)
+        watcher = None
+        if args.config:
+            watcher = ConfigWatcher(args.config, on_reload,
+                                    interval=args.watch_interval,
+                                    transform=transform)
+            runtime = watcher.load_initial()
+        else:
+            from aigw_tpu_torch.config.autoconfig import autoconfig_from_env
+
+            cfg = autoconfig_from_env()
+            if transform is not None:
+                cfg = transform(cfg)
+            print(f"autoconfig: {len(cfg.backends)} backend(s): "
+                  f"{', '.join(b.name for b in cfg.backends)}", flush=True)
+            runtime = RuntimeConfig.build(cfg)
+        server = await run_gateway(runtime, host=args.host, port=args.port,
+                                   reuse_port=reuse_port)
         holder["server"] = server
-        await watcher.start()
+        if watcher is not None:
+            server.conditions_fn = watcher.not_accepted
+            await watcher.start()
         print(f"gateway listening on http://{args.host}:{server.port}",
               flush=True)
         loop = asyncio.get_running_loop()
@@ -384,7 +521,8 @@ async def run_gateway_cli(args) -> int:
             drain = float(os.environ.get("AIGW_DRAIN_SECONDS", "1.0"))
         except ValueError:
             drain = 1.0
-        await watcher.stop()
+        if watcher is not None:
+            await watcher.stop()
         await server.stop(grace=max(0.0, drain))
         return 0
     finally:
@@ -392,6 +530,244 @@ async def run_gateway_cli(args) -> int:
         # failed bind must not orphan them
         for bridge in bridges:
             await bridge.stop()
+
+
+def run_gateway_workers(args) -> int:
+    """``run --workers N``: N processes share the port through
+    ``SO_REUSEPORT``, the kernel spreading accepted connections over
+    them (CPython's GIL caps one process at one core). Each runs the
+    whole data plane with its own config watcher. MCP session tokens
+    are sealed with one process-group seed, and the token-quota budget
+    and the Responses transcripts are shared through flock'd files
+    (``AIGW_QUOTA_DIR``, ``AIGW_RESPONSES_DIR``), all inherited through
+    the spawn's environment."""
+    import asyncio
+    import multiprocessing
+    import secrets
+
+    if args.port == 0:
+        print("--workers requires an explicit --port (SO_REUSEPORT "
+              "workers must bind the same port)", file=sys.stderr)
+        return 1
+    os.environ.setdefault("AIGW_MCP_SESSION_SEED", secrets.token_hex(32))
+    if not (os.environ.get("AIGW_QUOTA_DIR")
+            and os.environ.get("AIGW_RESPONSES_DIR")):
+        import atexit
+        import shutil
+        import tempfile
+
+        shared = tempfile.mkdtemp(prefix=f"aigw-shared-{args.port}-")
+        atexit.register(shutil.rmtree, shared, ignore_errors=True)
+        os.environ.setdefault("AIGW_QUOTA_DIR",
+                              os.path.join(shared, "quota"))
+        os.environ.setdefault("AIGW_RESPONSES_DIR",
+                              os.path.join(shared, "responses"))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_gateway_worker_main, args=(args,),
+                         daemon=True)
+             for _ in range(args.workers - 1)]
+    for proc in procs:
+        proc.start()
+    try:
+        return asyncio.run(run_gateway_cli(args, reuse_port=True))
+    finally:
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            proc.join(timeout=5)
+
+
+def _gateway_worker_main(args) -> None:
+    import asyncio
+
+    _log_setup(args.log_level)
+    asyncio.run(run_gateway_cli(args, reuse_port=True))
+
+
+def validate(config: str) -> int:
+    """``validate``: parse a config, or reconcile a manifest directory
+    (a dry run: the status goes to a temporary file), and print a
+    summary; exit 1 when it is invalid or an object is not accepted."""
+    import tempfile
+
+    from aigw_tpu_torch.config.controller import Reconciler, is_manifest_dir
+    from aigw_tpu_torch.config.model import ConfigError, load_config
+
+    try:
+        if config.startswith("kube:"):
+            raise ConfigError(
+                f"{config!r}: a live cluster source (kube:) is not ported "
+                "to the aigw_tpu_torch gateway")
+        if is_manifest_dir(config):
+            with tempfile.NamedTemporaryFile(suffix=".json") as tf:
+                rec = Reconciler(config, status_path=tf.name)
+                cfg = rec.load()
+            bad = sorted(rec.not_accepted().items())
+            for key, cond in bad:
+                print(f"NOT ACCEPTED {key}: {cond['message']}",
+                      file=sys.stderr)
+            if bad:
+                return 1
+        else:
+            cfg = load_config(config)
+    except (OSError, ValueError) as e:  # ConfigError is a ValueError
+        print(f"INVALID: {e}", file=sys.stderr)
+        return 1
+    print(
+        f"OK: {len(cfg.backends)} backends, {len(cfg.routes)} routes, "
+        f"{len(cfg.models)} models, {len(cfg.llm_request_costs)} cost metrics"
+    )
+    return 0
+
+
+def status(directory: str, as_json: bool) -> int:
+    """``status``: the manifests' Accepted conditions. The directory is
+    always reconciled now (a dry run), so the exit code reflects the
+    manifests as they are; a gateway's ``aigw-status.json`` is shown
+    instead only when its statuses and checksums match that view (a
+    stale file never masks an edit)."""
+    import json
+    import tempfile
+
+    from aigw_tpu_torch.config.controller import (
+        STATUS_FILE,
+        Reconciler,
+        is_manifest_dir,
+    )
+
+    if not is_manifest_dir(directory):
+        print(f"{directory}: not a CRD manifest directory", file=sys.stderr)
+        return 2
+    with tempfile.NamedTemporaryFile(suffix=".json") as tf:
+        rec = Reconciler(directory, status_path=tf.name)
+        rec.load()
+    conditions = rec.conditions()
+    source = "live"
+    status_file = os.path.join(directory, STATUS_FILE)
+    if os.path.exists(status_file):
+        try:
+            with open(status_file, encoding="utf-8") as f:
+                file_conds = json.load(f).get("objects", {})
+        except (OSError, json.JSONDecodeError):
+            file_conds = None
+
+        def view(c: dict) -> dict:
+            return {k: (v.get("status"), v.get("observedChecksum"))
+                    for k, v in c.items()}
+
+        if file_conds and view(file_conds) == view(conditions):
+            conditions = file_conds
+            source = STATUS_FILE
+        elif file_conds is not None:
+            source = f"live ({STATUS_FILE} stale)"
+    if as_json:
+        print(json.dumps({"source": source, "objects": conditions},
+                         indent=1, sort_keys=True))
+        return 0 if all(c.get("status") == "True"
+                        for c in conditions.values()) else 1
+    bad = 0
+    for key in sorted(conditions):
+        cond = conditions[key]
+        accepted = cond.get("status") == "True"
+        bad += not accepted
+        mark = "Accepted" if accepted else "NOT ACCEPTED"
+        line = f"{mark:13s} {key}"
+        if not accepted:
+            line += f"  [{cond.get('reason', '')}] {cond.get('message', '')}"
+        print(line)
+    print(f"-- {len(conditions)} objects, {bad} not accepted "
+          f"(source: {source})")
+    return 1 if bad else 0
+
+
+def translate(config: str) -> int:
+    """``translate``: the compiled runtime view as JSON: each route
+    rule's backends with their schema, auth kind and whether an OpenAI
+    chat request translates to them; the models, costs, quota rules and
+    MCP backends."""
+    import json
+
+    from aigw_tpu_torch.config.model import (
+        APISchemaName,
+        ConfigError,
+        load_config,
+    )
+    from aigw_tpu_torch.config.runtime import RuntimeConfig
+    from aigw_tpu_torch.translate import (
+        Endpoint,
+        TranslationError,
+        get_translator,
+    )
+
+    try:
+        cfg = load_config(config)
+        rc = RuntimeConfig.build(cfg)
+    except ConfigError as e:
+        print(f"INVALID: {e}", file=sys.stderr)
+        return 1
+    routes = []
+    for route in cfg.routes:
+        rules = []
+        for rule in route.rules:
+            backends = []
+            for ref in rule.backends:
+                b = cfg.backend(ref.backend)
+                try:
+                    get_translator(Endpoint.CHAT_COMPLETIONS,
+                                   APISchemaName.OPENAI, b.schema.name)
+                    chat_ok = True
+                except TranslationError:
+                    chat_ok = False
+                backends.append({
+                    "backend": ref.backend,
+                    "weight": ref.weight,
+                    "priority": ref.priority,
+                    "schema": b.schema.name.value,
+                    "auth": b.auth.kind.value,
+                    "chat_translation": chat_ok,
+                })
+            rules.append({
+                "models": list(rule.models),
+                "model_prefixes": list(rule.model_prefixes),
+                "backends": backends,
+            })
+        routes.append({"name": route.name, "rules": rules})
+    print(json.dumps({
+        "version": cfg.version,
+        "routes": routes,
+        "models": [m.name for m in cfg.models],
+        "costs": [c.to_dict() for c in cfg.llm_request_costs],
+        "quotas": len(rc.rate_limiter.rules),
+        "mcp_backends": len((cfg.mcp or {}).get("backends", [])),
+    }, indent=2))
+    return 0
+
+
+def healthcheck(url: str, timeout: float) -> int:
+    """``healthcheck``: GET ``<url>/health``; exit 0 and print it when
+    its status is ``ok``."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url.rstrip("/") + "/health",
+                                    timeout=timeout) as resp:
+            data = json.loads(resp.read())
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        print(f"UNHEALTHY: {e}", file=sys.stderr)
+        return 1
+    if data.get("status") != "ok":
+        print(f"UNHEALTHY: {data}", file=sys.stderr)
+        return 1
+    print(json.dumps(data))
+    return 0
+
+
+def _log_setup(level: str) -> None:
+    logging.basicConfig(
+        level=getattr(logging, level.upper(), logging.INFO),
+        format="%(asctime)s %(levelname)s %(name)s %(message)s")
 
 
 async def run_quota_service(args) -> int:
@@ -423,17 +799,36 @@ def main(argv: list[str] | None = None) -> int:
 
         logging.basicConfig(level=logging.INFO)
         return asyncio.run(run_quota_service(args))
+    if args.cmd in ("validate", "status", "translate", "healthcheck"):
+        _log_setup("info")
+        if args.cmd == "validate":
+            return validate(args.config)
+        if args.cmd == "status":
+            return status(args.dir, args.json)
+        if args.cmd == "translate":
+            return translate(args.config)
+        return healthcheck(args.url, args.timeout)
     if args.cmd == "run":
         import asyncio
-        import sys
 
         from aigw_tpu_torch.config.model import ConfigError
 
-        logging.basicConfig(
-            level=getattr(logging, args.log_level.upper(), logging.INFO),
-            format="%(asctime)s %(levelname)s %(name)s %(message)s")
+        _log_setup(args.log_level)
         try:
-            return asyncio.run(run_gateway_cli(args))
+            if args.workers > 1:
+                if args.mcp_config or args.mcp_json:
+                    # every worker would spawn its own copy of each stdio
+                    # server, and SO_REUSEPORT would spread one MCP
+                    # session over diverging children
+                    print("config error: --mcp-config/--mcp-json is "
+                          "incompatible with --workers > 1 (stateful "
+                          "stdio servers would be spawned per worker); "
+                          "bridge the server once and use an http url",
+                          file=sys.stderr)
+                    return 1
+                return run_gateway_workers(args)
+            return asyncio.run(run_gateway_cli(args,
+                                               reuse_port=args.reuse_port))
         except ConfigError as e:
             print(f"config error: {e}", file=sys.stderr)
             return 1

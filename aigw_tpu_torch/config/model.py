@@ -5,9 +5,8 @@ The declarative model a user writes (JSON, or YAML where ``pyyaml`` is
 installed) and the gateway consumes: backends of every provider schema
 with their upstream ``auth``, serving pools with a pool's fleet
 ``controller``, gateway-driven ``migration`` and token ``quotas``, and the
-MCP proxy's ``mcp`` block (kept raw, parsed by ``aigw_tpu_torch.mcp``). A
-config the port does not carry (a Kubernetes CRD manifest) raises
-``ConfigError`` naming the field, never drops it.
+MCP proxy's ``mcp`` block (kept raw, parsed by ``aigw_tpu_torch.mcp``).
+Kubernetes CRD manifests are compiled into it by ``config/crd.py``.
 It is deliberately decoupled from any orchestrator (the reference makes the
 same choice for its data-plane config: filterapi/filterconfig.go:6-12).
 
@@ -289,13 +288,6 @@ def _check_picker_mode(mode: str) -> str:
         raise ConfigError(
             f"picker_mode must be 'static' or 'slo' (got {mode!r})")
     return mode
-
-
-def not_ported(where: str, field: str, what: str) -> ConfigError:
-    """The error for a config field this gateway does not carry."""
-    return ConfigError(
-        f"{where}: {field!r} ({what}) is not ported to the aigw_tpu_torch "
-        "gateway")
 
 
 def _check_controller(value: dict[str, Any]) -> Any:
@@ -801,20 +793,22 @@ class Config:
 
 def load_config(path: str) -> Config:
     """Load a Config from a JSON file, or from a YAML file (``.yaml`` /
-    ``.yml``) through ``pyyaml``, imported here and only for those: a
-    machine without it raises ``ConfigError`` naming ``pyyaml``. A YAML
-    file must hold one native config document; Kubernetes CRD manifests
-    (documents with ``kind`` and ``apiVersion``) are refused."""
+    ``.yml``) through ``config.crd.load_documents`` (pyyaml where it is
+    installed, else the file must be JSON text, and any other text raises
+    ``ConfigError`` naming ``pyyaml``). Kubernetes CRD manifests
+    (documents with ``kind`` and ``apiVersion``) are compiled through
+    ``config.crd``, as the reference compiles them; a native config is
+    one document."""
+    from aigw_tpu_torch.config.crd import (
+        compile_crd_objects,
+        load_documents,
+        looks_like_crd,
+    )
+
     with open(path, "r", encoding="utf-8") as f:
         text = f.read()
     if path.endswith((".yaml", ".yml")):
-        try:
-            import yaml
-        except ImportError:
-            raise ConfigError(
-                f"{path!r} is YAML and pyyaml is not installed: install "
-                "pyyaml or write the config as JSON") from None
-        docs = [d for d in yaml.safe_load_all(text) if d is not None]
+        docs = [d for d in load_documents(text, repr(path)) if d is not None]
     else:
         try:
             docs = [json.loads(text)] if text.strip() else []
@@ -822,13 +816,13 @@ def load_config(path: str) -> Config:
             raise ConfigError(f"{path!r} is not valid JSON: {e}") from None
     if not docs:
         raise ConfigError(f"empty config file {path!r}")
-    if any(isinstance(d, dict) and "kind" in d and "apiVersion" in d
-           for d in docs):
-        raise not_ported(path, "kind", "Kubernetes CRD manifests")
+    if looks_like_crd([d for d in docs if isinstance(d, dict)]):
+        return Config.parse(compile_crd_objects(
+            [d for d in docs if isinstance(d, dict)]))
     if len(docs) > 1:
         raise ConfigError(
-            f"{path!r} contains {len(docs)} YAML documents; a native "
-            "config must be a single document")
+            f"{path!r} contains {len(docs)} YAML documents but is not a "
+            "K8s CRD manifest; native configs must be a single document")
     data = docs[0]
     if not isinstance(data, dict):
         raise ConfigError(f"config root must be a mapping, got {type(data)}")

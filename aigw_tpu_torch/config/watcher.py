@@ -1,24 +1,30 @@
-"""Config hot-reload watcher (the port's copy of the file half of
+"""Config hot-reload watcher (the port's copy of
 ``aigw_tpu/config/watcher.py``).
 
-Polls one config file (every ``interval`` seconds, 5 by default),
-checksums its content to skip no-op reloads, and swaps in a freshly
-built RuntimeConfig on change (built over the current one, so quota
-windows survive the reload). An optional ``transform`` (Config →
-Config) runs after every load, so a CLI-side merge (the ``--mcp-config``
-backends) survives reloads of the file. A bad new config is logged and rejected;
-the gateway keeps serving the last good one. Bundle directories, CRD
-manifest directories and live clusters are the reference's control
-plane, which the port does not carry.
+Polls a config file, a bundle directory (``config/bundle.py``) or a CRD
+manifest directory (every ``interval`` seconds, 5 by default),
+checksums the loaded config to skip no-op reloads, and swaps in a
+freshly built RuntimeConfig on change (built over the current one, so
+quota windows survive the reload). A manifest directory goes through
+the reconciling control plane (``config/controller.py``), which writes
+per-object status conditions; ``not_accepted()`` reads them. An
+optional ``transform`` (Config → Config) runs after every load, so a
+CLI-side merge (the ``--mcp-config`` backends) survives reloads. A bad
+new config is logged and rejected; the gateway keeps serving the last
+good one. A live cluster (``kube:``) is not ported and raises
+``ConfigError`` naming it.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 from typing import Callable
 
-from aigw_tpu_torch.config.model import Config, load_config
+from aigw_tpu_torch.config.bundle import read_bundle
+from aigw_tpu_torch.config.controller import Reconciler, is_manifest_dir
+from aigw_tpu_torch.config.model import Config, ConfigError, load_config
 from aigw_tpu_torch.config.runtime import RuntimeConfig
 
 logger = logging.getLogger(__name__)
@@ -39,11 +45,33 @@ class ConfigWatcher:
         self._checksum = ""
         self._current: RuntimeConfig | None = None
         self._task: asyncio.Task | None = None
+        self._reconciler: Reconciler | None = None
+
+    def not_accepted(self) -> dict:
+        """Per-object NOT-Accepted conditions from the reconciling
+        control plane (empty when the source is not a manifest
+        directory)."""
+        if self._reconciler is None:
+            return {}
+        return self._reconciler.not_accepted()
+
+    def _load(self) -> Config:
+        if self.path.startswith("kube:"):
+            raise ConfigError(
+                f"{self.path!r}: a live cluster source (kube:) is not "
+                "ported to the aigw_tpu_torch gateway")
+        if is_manifest_dir(self.path):
+            if self._reconciler is None:
+                self._reconciler = Reconciler(self.path)
+            return self._reconciler.load()
+        if os.path.isdir(self.path):
+            return read_bundle(self.path)
+        return load_config(self.path)
 
     def load_initial(self) -> RuntimeConfig:
         """The first load; raises on an invalid config (startup fails
         loudly, reloads do not)."""
-        cfg = load_config(self.path)
+        cfg = self._load()
         self._checksum = cfg.checksum()
         if self.transform is not None:
             cfg = self.transform(cfg)
@@ -68,7 +96,7 @@ class ConfigWatcher:
         while True:
             await asyncio.sleep(self.interval)
             try:
-                cfg = load_config(self.path)
+                cfg = self._load()
                 checksum = cfg.checksum()
                 if checksum == self._checksum:
                     continue

@@ -210,9 +210,13 @@ class HTTPServer:
         self._server: asyncio.AbstractServer | None = None
         self._conns: set[asyncio.StreamWriter] = set()
 
-    async def start(self, host: str, port: int) -> int:
+    async def start(self, host: str, port: int,
+                    reuse_port: bool = False) -> int:
+        """Listen; ``reuse_port`` binds with ``SO_REUSEPORT``, so other
+        processes may bind the same port and share its connections."""
         self._server = await asyncio.start_server(
-            self._serve, host, port, limit=_MAX_HEAD)
+            self._serve, host, port, limit=_MAX_HEAD,
+            reuse_port=reuse_port)
         return self._server.sockets[0].getsockname()[1]
 
     async def stop(self, grace: float = 0.0) -> None:

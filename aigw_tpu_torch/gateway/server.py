@@ -407,6 +407,9 @@ class GatewayServer:
         self.http = HTTPServer(routes)
         self.client = HTTPClient()
         self.port = 0
+        #: the reconciling control plane's not-accepted objects
+        #: (``ConfigWatcher.not_accepted``), shown on ``/health``
+        self.conditions_fn: Callable[[], dict] | None = None
         self._pickers: dict[str, EndpointPicker] = {}
         self._picker_tasks: set[asyncio.Task] = set()
         # one lifecycle manager per backend pool with a `controller`
@@ -418,14 +421,16 @@ class GatewayServer:
     def runtime(self) -> RuntimeConfig:
         return self._runtime
 
-    async def start(self, host: str = "127.0.0.1", port: int = 1975) -> int:
+    async def start(self, host: str = "127.0.0.1", port: int = 1975,
+                    reuse_port: bool = False) -> int:
         """Start the pickers' polls and the controllers' loops and
-        listen; returns the bound port."""
+        listen (with ``SO_REUSEPORT`` when ``reuse_port``); returns the
+        bound port."""
         for picker in self._pickers.values():
             await picker.start()
         for ctl in self._controllers.values():
             await ctl.start()
-        self.port = await self.http.start(host, port)
+        self.port = await self.http.start(host, port, reuse_port)
         return self.port
 
     async def stop(self, grace: float = 0.0) -> None:
@@ -572,11 +577,19 @@ class GatewayServer:
 
     # -- admin endpoints --------------------------------------------------
     async def _handle_health(self, _request: Request) -> Response:
-        return json_response({
+        payload = {
             "status": "ok",
             "uuid": self._runtime.config.uuid,
             "circuit": self.circuit.snapshot(),
-        })
+        }
+        # the reconciling control plane's quarantined objects, so an
+        # operator need not read aigw-status.json
+        if self.conditions_fn is not None:
+            bad = self.conditions_fn()
+            payload["objects_not_accepted"] = len(bad)
+            if bad:
+                payload["not_accepted"] = sorted(bad)
+        return json_response(payload)
 
     async def _handle_metrics(self, _request: Request) -> Response:
         body = self.metrics.export()
@@ -2024,10 +2037,12 @@ class _RetriableUpstreamError(Exception):
 async def run_gateway(runtime: RuntimeConfig, host: str = "127.0.0.1",
                       port: int = 1975,
                       rng: random.Random | None = None,
-                      tracer: Tracer | None = None) -> GatewayServer:
+                      tracer: Tracer | None = None,
+                      reuse_port: bool = False) -> GatewayServer:
     """Start the gateway; the caller stops it (``await server.stop()``).
-    ``server.port`` is the bound port (``port=0`` binds a free one)."""
+    ``server.port`` is the bound port (``port=0`` binds a free one);
+    ``reuse_port`` binds it with ``SO_REUSEPORT``."""
     server = GatewayServer(runtime, rng=rng, tracer=tracer)
-    await server.start(host, port)
+    await server.start(host, port, reuse_port)
     logger.info("gateway listening on %s:%d", host, server.port)
     return server

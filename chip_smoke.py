@@ -284,7 +284,21 @@ Phases (any failure exits non-zero):
    ``mcp_method_total`` samples; K1 and K2 launched; printed (the
    ``serve_gateway mcp`` line): the session AEAD, ``tools/call`` p50,
    the chat's TTFT p50 direct, through B and through C, the block's
-   wall; the gateway's
+   wall; then the control plane and the command line (``_gw_control``;
+   launch counts zeroed before it, read after it into
+   ``launches_serve_control``): ``run --workers 2`` on a probed port with
+   a token quota and the Responses store (a fresh-connection burst
+   spread over both workers, greedy chats equal to direct, 429 once the
+   one shared budget is spent, after as many requests as one process
+   admits, ``previous_response_id`` resolved on 8 fresh connections), a
+   rolling replacement of a ``--reuse-port`` gateway with no failed
+   request, ``run DIR`` over JSON-text CRD manifests (rerouted by an
+   edit within two watch intervals; a broken object quarantined,
+   ``/health``, ``status --json`` and ``validate`` naming it) and ``run``
+   with no config (autoconfig from ``TPUSERVE_URL``); K1 and K2
+   launched; printed (the ``serve_gateway control`` line): the workers'
+   start, the roll's requests, resets retried and largest client gap,
+   the route's move, the block's wall; the gateway's
    fleet operations (the
    ``serve_fleet`` line, after ``serve_gateway``; launch counts zeroed
    once both replicas are up, read at the end): replica B in this
@@ -442,8 +456,9 @@ Phases (any failure exits non-zero):
    on ``serve_tp``, ``serve_sp`` (each with its W8A16 set) and
    ``serve_ep``, both replicas' on ``serve_gateway``, on its fronts
    (``launches_serve_fronts``), on its hosted hop
-   (``launches_serve_hosted``) and on its MCP turn
-   (``launches_serve_mcp``), and replica B's on ``serve_fleet``), the
+   (``launches_serve_hosted``), on its MCP turn
+   (``launches_serve_mcp``) and on its control block
+   (``launches_serve_control``), and replica B's on ``serve_fleet``), the
    card line, then
    the last line
    ``{"ok": true, "device": {...}}``.
@@ -7034,7 +7049,8 @@ def _gw_requests(rng, n_each: int = 8, model: str = GW_MODEL) -> list:
     return reqs
 
 
-def _gw_call(port: int, kind: str, stream: bool, body: dict) -> dict:
+def _gw_call(port: int, kind: str, stream: bool, body: dict,
+             headers=None) -> dict:
     """One request, checked as ``_check_response`` checks the reference
     server's shapes (every choice of an ``n = 2`` reply); the client's
     time to a stream's first token frame, the response's
@@ -7042,7 +7058,7 @@ def _gw_call(port: int, kind: str, stream: bool, body: dict) -> dict:
     path = "/v1/chat/completions" if kind == "chat" else "/v1/completions"
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
-        headers={"content-type": "application/json"})
+        headers={"content-type": "application/json", **(headers or {})})
     t0 = time.monotonic()
     ttft = None
     with urllib.request.urlopen(req, timeout=600) as r:
@@ -7378,48 +7394,92 @@ def _gw_pinned(addr: str, model: str = GW_MODEL) -> tuple[dict, dict]:
             {"models": [GW_PINNED], "backends": ["llama-pinned"]})
 
 
+def _spawn_gateway(argv: list, tmp: str, name: str, env=None,
+                   listening: int = 1, drop_env=()):
+    """``python -m aigw_tpu_torch run *argv`` in its own process, with
+    ``env`` added to this one's (less ``drop_env``): (the process, its
+    port read off its first startup line, its log file, the lines it
+    printed before). Returns once ``listening`` processes (its workers)
+    have printed their startup line; a reader thread keeps draining its
+    output after that."""
+    import re
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    err = open(os.path.join(tmp, f"{name}.log"), "w")
+    base = {k: v for k, v in os.environ.items() if k not in drop_env}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "aigw_tpu_torch", "run", *argv], cwd=here,
+        env=dict(base, **{"AIGW_DRAIN_SECONDS": "0", **(env or {})}),
+        stdout=subprocess.PIPE, stderr=err, text=True)
+    lines: list = []
+    up = threading.Event()
+
+    def read():
+        seen = 0
+        while True:
+            try:
+                got = proc.stdout.readline()
+            except (OSError, ValueError):  # closed by the caller
+                got = ""
+            if not got:
+                up.set()
+                return
+            lines.append(got)
+            seen += got.startswith("gateway listening on")
+            if seen >= listening:
+                up.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    up.wait(timeout=60)
+    first = [ln for ln in lines if ln.startswith("gateway listening on")]
+    m = re.search(r"gateway listening on http://[\d.]+:(\d+)",
+                  first[0] if len(first) >= listening else "")
+    if m is None:
+        _stop_tree(proc)
+        err.close()
+        raise AssertionError(f"{name}: no startup line ({lines!r}, exit "
+                             f"{proc.poll()})")
+    return proc, int(m.group(1)), err, lines[:lines.index(first[0])]
+
+
+def _children(pid: int) -> list:
+    """The pids of ``pid``'s child processes (read off /proc)."""
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children") as f:
+            return [int(x) for x in f.read().split()]
+    except OSError:
+        return []
+
+
+def _stop_tree(proc) -> None:
+    """Kill a gateway process and the workers it spawned."""
+    import signal as _signal
+
+    for pid in _children(proc.pid):
+        try:
+            os.kill(pid, _signal.SIGKILL)
+        except OSError:
+            pass
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait(timeout=30)
+
+
 def _start_gateway(cfg: dict, tmp: str, name: str, env=None, args=(),
                    startup: list | None = None):
     """``python -m aigw_tpu_torch run`` on ``cfg`` in its own process,
     with ``env`` added to this one's and ``args`` after the config:
     (the process, its port read off its startup line, its log file).
     The lines it prints before that one go to ``startup``."""
-    import re
-
-    here = os.path.dirname(os.path.abspath(__file__))
     cfg_path = os.path.join(tmp, f"{name}.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    err = open(os.path.join(tmp, f"{name}.log"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "aigw_tpu_torch", "run", cfg_path,
-         "--port", "0", "--watch-interval", "3600", *args], cwd=here,
-        env=dict(os.environ, AIGW_DRAIN_SECONDS="0", **(env or {})),
-        stdout=subprocess.PIPE, stderr=err, text=True)
-    lines: list = []
-
-    def read():
-        while True:
-            got = proc.stdout.readline()
-            lines.append(got)
-            if not got or got.startswith("gateway listening on"):
-                return
-
-    reader = threading.Thread(target=read, daemon=True)
-    reader.start()
-    reader.join(timeout=60)
-    line = lines[-1:]
+    proc, port, err, lines = _spawn_gateway(
+        [cfg_path, "--port", "0", "--watch-interval", "3600", *args], tmp,
+        name, env)
     if startup is not None:
-        startup += lines[:-1]
-    m = re.search(r"gateway listening on http://[\d.]+:(\d+)",
-                  line[0] if line else "")
-    if m is None:
-        proc.kill()
-        proc.wait(timeout=30)
-        err.close()
-        raise AssertionError(f"{name}: no startup line ({lines!r}, exit "
-                             f"{proc.poll()})")
-    return proc, int(m.group(1)), err
+        startup += lines
+    return proc, port, err
 
 
 def _chat_stream(port: int, body: dict, headers=None) -> dict:
@@ -8056,6 +8116,464 @@ def _gw_mcp(gw_b: int, reps, model: str = GW_MODEL) -> dict:
     return out
 
 
+#: _gw_control: the manifest directory's watch period (gate (c)), the
+#: chats' length, and the client threads sending through the roll
+#: (gate (b))
+GW_CONTROL_WATCH_S = 0.5
+GW_CONTROL_TOKENS = 16
+GW_ROLL_CLIENTS = 2
+#: the environment a gateway of the block must not inherit: shared
+#: state the CLI sets up itself, and credentials autoconfig would read
+GW_CONTROL_DROP_ENV = (
+    "AIGW_QUOTA_DIR", "AIGW_QUOTA_URL", "AIGW_RESPONSES_DIR",
+    "AIGW_MCP_SESSION_SEED", "OPENAI_API_KEY", "OPENAI_BASE_URL",
+    "ANTHROPIC_API_KEY", "ANTHROPIC_BASE_URL", "AZURE_OPENAI_API_KEY",
+    "AZURE_OPENAI_ENDPOINT", "TPUSERVE_URL", "AIGW_MODELS")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _gw_post(port: int, path: str, body: dict, headers=None):
+    """One POST on a fresh connection: (status, the JSON reply); an HTTP
+    error status is answered, not raised."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"content-type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _crd(kind: str, name: str, spec: dict,
+         api: str = "aigateway.envoyproxy.io/v1alpha1") -> dict:
+    return {"apiVersion": api, "kind": kind, "metadata": {"name": name},
+            "spec": spec}
+
+
+def _write_json(path: str, obj) -> None:
+    """``obj`` as JSON text at ``path``, replaced in one step (a watcher
+    never reads half a file)."""
+    tmp = os.path.join(os.path.dirname(path),
+                       f".{os.path.basename(path)}.tmp")
+    with open(tmp, "w") as f:
+        json.dump(obj, f, indent=1)
+    os.replace(tmp, path)
+
+
+def _gw_control(reps, model: str = GW_MODEL, tie=None) -> dict:
+    """The gateway's control plane and its command line, onto the
+    phase's replicas.
+
+    (a) ``run --workers 2`` on a probed free port, in front of both
+    replicas (one ``TPUServe`` pool), with a per-user token quota and
+    the Responses store: a burst of 8 chats on fresh connections,
+    streamed and not, greedy and seeded, all 200 in the replica's shapes
+    and spread over both workers (each worker's ``/metrics`` counts some
+    of them, not all); 4 greedy chats sent one at a time, each equal,
+    by the ids the replica's ``TokenTap`` saw, to the same chat sent
+    straight to the replica its worker's ``/debug/decisions`` names;
+    the quota answers 429 once the one shared budget is spent, and to
+    four more requests on fresh connections, after as many requests as a
+    one-process gateway over the same config admits (gate (b)'s first
+    process); a ``previous_response_id`` follow-up
+    resolves on each of 8 fresh connections, its transcript prepended.
+    (b) A rolling replacement: ``run --reuse-port`` on a second port, a
+    second ``run --reuse-port`` (a config with another ``uuid``) binds
+    the same port, the first gets SIGTERM and exits 0; clients sending
+    chats on fresh connections throughout see no failure (one retry of
+    a reset that carried no response byte, as Envoy's ``retry_on:
+    reset``: a connection still in the closing listener's accept queue
+    is reset by the kernel), and ``/health`` names the new config once
+    the old process is gone. (c) ``run DIR`` over a manifest directory
+    written as JSON text in ``.yaml`` files (a ``Backend`` at each
+    replica's address, an ``AIServiceBackend`` of schema ``OpenAI`` on
+    each, an ``AIGatewayRoute``), watched every
+    ``GW_CONTROL_WATCH_S``: it serves on replica 0; the route rewritten
+    onto replica 1 moves every request sent two intervals later there;
+    a broken object (an unsupported schema) is quarantined while the
+    rest serves, ``/health`` shows ``objects_not_accepted: 1``, ``status
+    DIR --json`` exits 1 naming it and ``validate DIR`` exits 1. (d)
+    ``run`` with no config and ``TPUSERVE_URL`` at replica 0: it prints
+    the autoconfig line, and a greedy chat equals the same chat sent
+    straight there. Streams that differ are held to a near-tie by
+    ``tie(prompt, sampling, want, got)`` when given, else fail. Every
+    gateway stops on SIGINT and exits 0. The caller zeroes and reads the
+    launch counts."""
+    import signal as _signal
+    import tempfile
+
+    t_block = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="aigw-control-")
+    taps = [TokenTap(r.engine) for r in reps]
+    addrs = [f"127.0.0.1:{r.port}" for r in reps]
+    words = "the quick brown fox jumps over a lazy dog while rivers run"
+    out: dict = {}
+    bad: list = []
+    ties: list = []
+    started: list = []  # (process, log) of every gateway of the block
+
+    def chat(i: int, stream: bool = False, tokens: int = GW_CONTROL_TOKENS,
+             seeded: bool = False) -> dict:
+        body = {"model": model, "max_tokens": tokens,
+                "temperature": 0.8 if seeded else 0.0, "seed": 300 + i,
+                "stream": stream, "messages": [{"role": "user", "content":
+                                                f"{i}: {words[:12 + 7 * i]}"}]}
+        if stream:
+            body["stream_options"] = {"include_usage": True}
+        return body
+
+    users = itertools.count()
+
+    def user() -> dict:
+        """A client key of its own (the quota keys budgets by it)."""
+        return {"x-user-id": f"client-{next(users)}"}
+
+    def served_by(rid: str) -> int:
+        hits = [i for i, t in enumerate(taps) if rid in t.toks]
+        if len(hits) != 1:
+            raise AssertionError(f"serve_gateway control: request {rid!r} "
+                                 f"on the taps of {hits}")
+        return hits[0]
+
+    def equal_direct(rid: str, body: dict, what: str) -> int:
+        """Send ``body`` straight to the replica that served ``rid`` and
+        hold the two runs' tokens equal (or at a near-tie)."""
+        i = served_by(rid)
+        d = _gw_call(reps[i].port, "chat", body["stream"], body)["rid"]
+        tap = taps[i]
+        if tap.prompts[rid] != tap.prompts[d]:
+            bad.append(f"{what}: prompt ids differ from direct")
+        elif tap.toks[rid] != tap.toks[d]:
+            if tie is None:
+                bad.append(f"{what}: {tap.toks[rid]} != direct "
+                           f"{tap.toks[d]}")
+            else:
+                ties.append(tie(tap.prompts[rid], tap.sampling[rid],
+                                tap.toks[d], tap.toks[rid]))
+        return i
+
+    def spawn(argv: list, name: str, env=None, listening: int = 1):
+        proc, port, err, lines = _spawn_gateway(
+            argv, tmp, name, env, listening, GW_CONTROL_DROP_ENV)
+        started.append((proc, err))
+        return proc, port, lines
+
+    def stop(proc, name: str, sig=_signal.SIGINT) -> float:
+        t0 = time.monotonic()
+        proc.send_signal(sig)
+        if proc.wait(timeout=60) != 0:
+            bad.append(f"{name} exited {proc.returncode}")
+        return time.monotonic() - t0
+
+    def pool_up(port: int) -> bool:
+        st = _gw_json(port, "/fleet/state")["backends"]["llama-pool"]
+        return all(st["replicas"][a]["health"]["state"] == "up"
+                   for a in addrs)
+
+    quota_body = chat(0)
+
+    def spend(port: int, user: str) -> list:
+        """The quota's request sent until the first refusal and four
+        times after it, each on a fresh connection (with a budget per
+        worker, one of those would reach a worker with room left): the
+        statuses (at most the expected count and six more)."""
+        got = []
+        for _ in range(want_admitted + 6):
+            s, reply = _gw_post(port, "/v1/chat/completions", quota_body,
+                                {"x-user-id": user})
+            got.append(s)
+            if s != 200 and reply.get("error", {}).get(
+                    "type") != "rate_limit_error":
+                bad.append(f"quota {user}: {s} {reply}")
+            if got.count(429) == 5:
+                break
+        return got
+
+    try:
+        # the config of (a) and (b): one pool, a TotalToken cost and a
+        # per-user budget of 2.5 requests (a request is admitted while
+        # the budget's use is below its limit: 3 of them)
+        s, reply = _gw_post(reps[0].port, "/v1/chat/completions", quota_body)
+        cost = reply["usage"]["total_tokens"]
+        limit = int(2.5 * cost)
+        want_admitted = -(-limit // cost)
+        cfg = {
+            "version": "v1",
+            "backends": [{"name": "llama-pool", "schema": "TPUServe",
+                          "endpoints": addrs,
+                          "picker_poll_interval": GW_POLL_S}],
+            "routes": [{"name": "serving", "rules": [
+                {"models": [model], "backends": ["llama-pool"]}]}],
+            "models": [model],
+            "llm_request_costs": [{"metadata_key": "total_tokens",
+                                   "type": "TotalToken"}],
+            "quotas": [{"name": "per-user", "metadata_key": "total_tokens",
+                        "limit": limit, "window_seconds": 3600,
+                        "client_key_header": "x-user-id"}]}
+        cfg_path = os.path.join(tmp, "workers.json")
+        _write_json(cfg_path, cfg)
+        # (a) two workers on one port
+        port_a = _free_port()
+        t0 = time.monotonic()
+        proc, gw, _lines = spawn([cfg_path, "--port", str(port_a),
+                                  "--workers", "2", "--watch-interval",
+                                  "3600"], "workers", listening=2)
+        out["workers_up_s"] = time.monotonic() - t0
+        workers = []
+        for child in _children(proc.pid):
+            with open(f"/proc/{child}/cmdline", "rb") as f:
+                if b"spawn_main" in f.read():  # not the resource tracker
+                    workers.append(child)
+        if gw != port_a or len(workers) != 1:
+            bad.append(f"workers: port {gw} (asked {port_a}), spawned "
+                       f"{workers}")
+        _gw_wait(lambda: all(pool_up(gw) for _ in range(8)),
+                 "both workers' pickers see both replicas up")
+        burst = [("chat", i % 2 == 1, chat(i, i % 2 == 1, seeded=i % 3 == 0),
+                  user()) for i in range(8)]
+        _results, wall = _gw_burst(gw, burst)
+        seen = set()
+        for _ in range(16):
+            seen.add(sum(float(ln.rsplit(" ", 1)[1]) for ln in
+                         _http(gw, "/metrics")[2].splitlines()
+                         if ln.startswith("aigw_requests_total{")
+                         and 'status="200"' in ln))
+        out["burst"] = {"requests": len(burst), "wall_s": wall,
+                        "per_worker_seen": sorted(seen)}
+        if not all(0 < v < len(burst) for v in seen):
+            bad.append(f"workers: the burst's 200s per worker {seen}")
+        # greedy chats one at a time, against the replica the serving
+        # worker's decision names (a fresh connection may reach the
+        # other worker, whose ring does not hold it: asked again)
+        for i in range(4):
+            body = chat(10 + i, stream=i % 2 == 1)
+            rid = _gw_call(gw, "chat", body["stream"], body, user())["rid"]
+            for _ in range(64):
+                dec = _gw_json(gw, f"/debug/decisions?rid={rid}")[
+                    "decisions"]
+                if dec:
+                    break
+            chosen = dec[0].get("chosen") if dec else None
+            if chosen not in addrs or \
+                    equal_direct(rid, body, f"workers chat {i}") != \
+                    addrs.index(chosen):
+                bad.append(f"workers chat {i}: decision {dec}")
+        out["streams_equal_direct"] = 4
+        # one budget across the workers
+        out["quota"] = {"cost_tokens": cost, "limit": limit,
+                        "workers": spend(gw, "quota-workers")}
+        # the transcript store across the workers
+        s, first = _gw_post(gw, "/v1/responses", {
+            "model": model, "input": "the quick brown fox",
+            "max_output_tokens": 4}, user())
+        follow = [_gw_post(gw, "/v1/responses", {
+            "model": model, "input": f"and then {i}",
+            "previous_response_id": first.get("id"),
+            "max_output_tokens": 4}, user()) for i in range(8)]
+        out["responses_followups"] = [f[0] for f in follow]
+        if s != 200 or any(
+                fs != 200 or fr["usage"]["input_tokens"]
+                <= first["usage"]["input_tokens"] for fs, fr in follow):
+            bad.append(f"responses across workers: {s} "
+                       f"{[(f[0], f[1].get('usage')) for f in follow]}")
+        stop(proc, "workers")
+        time.sleep(0.5)
+        alive = [w for w in workers if os.path.exists(f"/proc/{w}")]
+        if alive:
+            bad.append(f"workers left running: {alive}")
+        # (b) the rolling replacement, on another port
+        port_b = _free_port()
+        env_b = {"AIGW_DRAIN_SECONDS": "1",
+                 "AIGW_QUOTA_DIR": os.path.join(tmp, "quota-one")}
+        paths = {}
+        for tag in ("old", "new"):
+            paths[tag] = os.path.join(tmp, f"roll-{tag}.json")
+            _write_json(paths[tag], dict(cfg, uuid=f"roll-{tag}"))
+        p1, _p, _l = spawn([paths["old"], "--port", str(port_b),
+                            "--reuse-port", "--watch-interval", "3600"],
+                           "roll-old", env_b)
+        _gw_wait(lambda: pool_up(port_b), "the first process's picker")
+        out["quota"]["one_process"] = spend(port_b, "quota-one")
+        if out["quota"]["workers"] != out["quota"]["one_process"] or \
+                out["quota"]["workers"] != [200] * want_admitted + [429] * 5:
+            bad.append(f"quota: {out['quota']}")
+        stop_load = threading.Event()
+        failures: list = []
+        done_at: list = []
+        resets = [0]
+
+        def client(c: int) -> None:
+            import http.client
+
+            n = 0
+            while not stop_load.is_set():
+                n += 1
+                body = chat(20 + c, tokens=4)
+                for attempt in (1, 2):
+                    try:
+                        s, _r = _gw_post(port_b, "/v1/chat/completions",
+                                         body, {"x-user-id": f"roll-{c}-{n}"})
+                        if s != 200:
+                            failures.append(f"client {c}: HTTP {s}")
+                        else:
+                            done_at.append(time.monotonic())
+                        break
+                    except (urllib.error.URLError,
+                            http.client.RemoteDisconnected,
+                            ConnectionResetError) as e:
+                        # reset before any response byte: never served
+                        if attempt == 2:
+                            failures.append(f"client {c}: reset twice: "
+                                            f"{e!r}")
+                        else:
+                            resets[0] += 1
+                    except Exception as e:  # noqa: BLE001 — reported
+                        failures.append(f"client {c}: {e!r}")
+                        break
+
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(GW_ROLL_CLIENTS)]
+        for t in clients:
+            t.start()
+        time.sleep(1.0)  # the old process alone
+        t_roll = time.monotonic()
+        p2, _p, _l = spawn([paths["new"], "--port", str(port_b),
+                            "--reuse-port", "--watch-interval", "3600"],
+                           "roll-new", env_b)
+        new_up_s = time.monotonic() - t_roll
+        time.sleep(1.0)  # both serving
+        old_exit_s = stop(p1, "the old process", _signal.SIGTERM)
+        time.sleep(1.0)  # the new process alone
+        stop_load.set()
+        for t in clients:
+            t.join(timeout=120)
+        uuids = {_gw_json(port_b, "/health")["uuid"] for _ in range(8)}
+        times = sorted(t for t in done_at if t >= t_roll)
+        out["roll"] = {
+            "requests": len(done_at), "failures": failures[:10],
+            "resets_retried": resets[0], "new_up_s": new_up_s,
+            "old_exit_s": old_exit_s,
+            "max_gap_ms": 1e3 * max((b - a for a, b in
+                                     zip(times, times[1:])), default=0.0),
+            "uuids_after": sorted(uuids)}
+        if failures or uuids != {"roll-new"} or len(times) < 2:
+            bad.append(f"roll: {out['roll']}")
+        stop(p2, "the new process")
+        # (c) a manifest directory, watched and reconciled
+        mdir = os.path.join(tmp, "manifests")
+        os.makedirs(mdir)
+        eg = "gateway.envoyproxy.io/v1alpha1"
+        _write_json(os.path.join(mdir, "backends.yaml"), [
+            _crd("Backend", f"rep{i}", {"endpoints": [{"ip": {
+                "address": "127.0.0.1", "port": r.port}}]}, eg)
+            for i, r in enumerate(reps)])
+        _write_json(os.path.join(mdir, "services.yaml"), [
+            _crd("AIServiceBackend", f"llama-{i}", {
+                "schema": {"name": "OpenAI"},
+                "backendRef": {"name": f"rep{i}", "kind": "Backend",
+                               "group": "gateway.envoyproxy.io"}})
+            for i in range(len(reps))])
+
+        def route(i: int) -> dict:
+            return _crd("AIGatewayRoute", "serving", {
+                "parentRefs": [{"name": "aigw", "kind": "Gateway"}],
+                "rules": [{"matches": [{"headers": [{
+                    "type": "Exact", "name": "x-ai-eg-model",
+                    "value": model}]}],
+                    "backendRefs": [{"name": f"llama-{i}"}]}],
+                "llmRequestCosts": [{"metadataKey": "total_tokens",
+                                     "type": "TotalToken"}]})
+
+        _write_json(os.path.join(mdir, "route.yaml"), route(0))
+        pc, c, _l = spawn([mdir, "--port", "0", "--watch-interval",
+                           str(GW_CONTROL_WATCH_S)], "manifests")
+
+        def landed(n: int, first: int = 0) -> list:
+            return [served_by(_gw_call(c, "chat", False, chat(first + k),
+                                       user())["rid"]) for k in range(n)]
+
+        out["manifests"] = {"before": landed(2)}
+        t_edit = time.monotonic()
+        _write_json(os.path.join(mdir, "route.yaml"), route(1))
+        moved = None
+        while moved is None and time.monotonic() - t_edit < 30:
+            if landed(1)[0] == 1:
+                moved = time.monotonic() - t_edit
+        time.sleep(max(0.0, t_edit + 2 * GW_CONTROL_WATCH_S
+                       - time.monotonic()))
+        out["manifests"].update(moved_s=moved, after=landed(3, 4))
+        if out["manifests"]["before"] != [0, 0] or \
+                out["manifests"]["after"] != [1, 1, 1]:
+            bad.append(f"manifest dir routing: {out['manifests']}")
+        _write_json(os.path.join(mdir, "broken.yaml"), _crd(
+            "AIServiceBackend", "llama-bad", {"schema": {"name": "Bogus"}}))
+        health: dict = {}
+
+        def quarantined() -> bool:
+            health.update(_gw_json(c, "/health"))
+            return health.get("objects_not_accepted") == 1
+
+        _gw_wait(quarantined, "the broken object quarantined", 10)
+        out["manifests"].update(
+            not_accepted=health.get("not_accepted"),
+            serving_while_quarantined=landed(1, 8))
+        here = os.path.dirname(os.path.abspath(__file__))
+        tools = {}
+        for tool in (["status", mdir, "--json"], ["validate", mdir]):
+            r = subprocess.run([sys.executable, "-m", "aigw_tpu_torch",
+                                *tool], cwd=here, capture_output=True,
+                               text=True, timeout=120)
+            tools[tool[0]] = (r.returncode, r.stdout, r.stderr)
+        objs = json.loads(tools["status"][1] or "{}").get("objects", {})
+        out["manifests"]["status"] = {
+            "rc": tools["status"][0],
+            "not_accepted": sorted(k for k, v in objs.items()
+                                   if v.get("status") != "True"),
+            "objects": len(objs),
+            "source": json.loads(tools["status"][1] or "{}").get("source")}
+        out["manifests"]["validate_rc"] = tools["validate"][0]
+        bad_key = "AIServiceBackend/llama-bad"
+        if health.get("not_accepted") != [bad_key] \
+                or out["manifests"]["serving_while_quarantined"] != [1] \
+                or out["manifests"]["status"]["rc"] != 1 \
+                or out["manifests"]["status"]["not_accepted"] != [bad_key] \
+                or tools["validate"][0] != 1 \
+                or f"NOT ACCEPTED {bad_key}" not in tools["validate"][2]:
+            bad.append(f"quarantine: {out['manifests']} {tools}")
+        stop(pc, "the manifest gateway")
+        # (d) no config: autoconfig from the environment
+        pd, d, lines = spawn(["--port", "0"], "autoconfig", {
+            "TPUSERVE_URL": f"http://{addrs[0]}"})
+        out["autoconfig"] = {"startup": [ln.strip() for ln in lines]}
+        if out["autoconfig"]["startup"] != [
+                "autoconfig: 1 backend(s): tpuserve"]:
+            bad.append(f"autoconfig: {lines}")
+        body = chat(30)
+        rid = _gw_call(d, "chat", False, body, user())["rid"]
+        if equal_direct(rid, body, "autoconfig chat") != 0:
+            bad.append("autoconfig chat not on replica 0")
+        stop(pd, "the autoconfig gateway")
+    finally:
+        for proc, err in started:
+            _stop_tree(proc)
+            err.close()
+    bad += [f"streams part away from a near-tie: {t}" for t in ties
+            if not t["equal"] and t["gap"] >= t["bound"]]
+    if bad:
+        raise AssertionError(f"serve_gateway control: {bad}")
+    out["ties"] = len(ties)
+    out["wall_s"] = time.monotonic() - t_block
+    return out
+
+
 def serve_gateway(torch, params, launches: dict) -> dict:
     """Client → the port's gateway → two port replicas on the card.
 
@@ -8084,8 +8602,10 @@ def serve_gateway(torch, params, launches: dict) -> dict:
     direct, three times), the medians' ratios. Then, on the same
     replicas and gateway, the client fronts (``_gw_fronts``) and a
     hosted-provider hop in front of the gateway (``_gw_hosted``), each
-    with its own launch counts, and an agent's MCP turn through a third,
-    traced gateway (``_gw_mcp``)."""
+    with its own launch counts, an agent's MCP turn through a third,
+    traced gateway (``_gw_mcp``), and the control plane and command line
+    (``_gw_control``: ``run --workers 2``, a ``--reuse-port`` roll, a
+    manifest directory, autoconfig)."""
     import numpy as np
 
     from aigw_tpu_torch.models import llama
@@ -8279,6 +8799,18 @@ def serve_gateway(torch, params, launches: dict) -> dict:
                 or counts["fused_paged_decode"] <= 0:
             raise AssertionError(f"serve_gateway: K1/K2 not on the MCP "
                                  f"turn's path: {counts}")
+        # the control plane and the command line: workers, a rolling
+        # replacement, a manifest directory, autoconfig
+        reset_counts()
+        out["control"] = _gw_control(
+            reps, tie=lambda prompt, sp, want, got: tie_check(
+                torch, p, cfg, prompt, sp, want, got,
+                reps[0].tokenizer.eos_id))
+        launches["serve_control"] = counts = read_counts()
+        if counts["ragged_prefill_attention"] <= 0 \
+                or counts["fused_paged_decode"] <= 0:
+            raise AssertionError(f"serve_gateway: K1/K2 not on the control "
+                                 f"block's path: {counts}")
         proc.send_signal(2)  # SIGINT: the gateway stops and exits 0
         if proc.wait(timeout=30) != 0:
             raise AssertionError(f"serve_gateway: the gateway exited "
@@ -8325,6 +8857,17 @@ def serve_gateway(torch, params, launches: dict) -> dict:
         f"p50 direct {m['ttft_p50_ms']['direct']:.1f} ms, B "
         f"{m['ttft_p50_ms']['b']:.1f} ms, C (traced, logged) "
         f"{m['ttft_p50_ms']['c']:.1f} ms; block {m['wall_s']:.2f} s")
+    k = out["control"]
+    log(f"serve_gateway control ({card}): --workers 2 up in "
+        f"{k['workers_up_s']:.2f} s, burst of {k['burst']['requests']} "
+        f"{k['burst']['wall_s']:.2f} s (200s per worker seen "
+        f"{k['burst']['per_worker_seen']}); quota {k['quota']['workers']} "
+        f"(one process {k['quota']['one_process']}); roll: "
+        f"{k['roll']['requests']} requests, {k['roll']['resets_retried']} "
+        f"resets retried, new process up in {k['roll']['new_up_s']:.2f} s, "
+        f"old exit {k['roll']['old_exit_s']:.2f} s, max client gap "
+        f"{k['roll']['max_gap_ms']:.1f} ms; manifest route moved in "
+        f"{k['manifests']['moved_s']:.2f} s; block {k['wall_s']:.2f} s")
     return out
 
 
@@ -9171,6 +9714,8 @@ def main() -> int:
         row["launches_serve_hosted"] = launches["serve_hosted"].get(
             row["name"], 0)
         row["launches_serve_mcp"] = launches["serve_mcp"].get(
+            row["name"], 0)
+        row["launches_serve_control"] = launches["serve_control"].get(
             row["name"], 0)
         # replica B's (A launches in its own process)
         row["launches_serve_fleet"] = launches["serve_fleet"].get(

@@ -2004,6 +2004,29 @@ def test_gateway_mcp_turn_on_cuda_replicas(cuda):
         close()
 
 
+def test_gateway_control_block_on_cuda_replicas(cuda):
+    """The control plane and the command line onto the card's replicas
+    (chip_smoke's ``_gw_control``): ``run --workers 2`` on one port with
+    one quota budget and the Responses store, a ``--reuse-port`` roll
+    with no failed request, ``run DIR`` over JSON-text manifests
+    rerouted and quarantining, autoconfig; K1 and K2 launched."""
+    import chip_smoke as cs
+
+    reps, _addrs, _gw, close = _gateway_pair(cuda)
+    try:
+        k1 = paged_attention.ragged_prefill_attention.launches
+        k2 = decode_fused.fused_paged_decode.launches
+        out = cs._gw_control(reps, model="tiny-random")
+        assert out["quota"]["workers"] == out["quota"]["one_process"]
+        assert out["roll"]["failures"] == []
+        assert out["manifests"]["after"] == [1, 1, 1]
+        assert out["manifests"]["status"]["rc"] == 1
+        assert paged_attention.ragged_prefill_attention.launches > k1
+        assert decode_fused.fused_paged_decode.launches > k2
+    finally:
+        close()
+
+
 def test_gateway_honours_a_drained_cuda_replica(cuda):
     """A replica drained with ``POST /drain`` shows ``draining`` on the
     gateway's ``/fleet/state`` and receives none of the next requests;

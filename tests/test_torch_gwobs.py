@@ -491,9 +491,17 @@ def test_traced_gateways_match_reference(replica, loop, collector, tmp_path,
         log = [json.loads(x) for x in
                (tmp_path / f"{side}.log").read_text().splitlines()]
         results[side] = (replies, dbg, log)
+    # every expected span has arrived: each side's gateway span per
+    # request and the replica's, which leave on their exporters' own
+    # flush loops (a count of all spans could be met by others first)
+    expected = {(f"{side}-gw", _trace(n, i))
+                for n, side in enumerate(("ref", "port"))
+                for i in range(7)}
+    expected |= {("tpuserve", _trace(n, i)) for n in range(2)
+                 for i, (_p, _b, r) in enumerate(REQUESTS[:7]) if r}
     deadline = time.monotonic() + 30
-    want = sum(1 + r for _p, _b, r in REQUESTS[:7]) * 2
-    while time.monotonic() < deadline and len(_collected()) < want:
+    while time.monotonic() < deadline and not expected <= {
+            (svc, sp["traceId"]) for svc, sp in _collected()}:
         time.sleep(0.05)
     spans = _collected()
     for n, side in enumerate(("ref", "port")):

@@ -337,9 +337,17 @@ def test_reference_picker_prices_a_port_moe_replica(weights):
         picker = EndpointPicker([Endpoint(addr), Endpoint("b:1")])
 
         async def poll():
+            # polled until the replica reads healthy: on a loaded host
+            # one poll can time out and leave the state stale
+            deadline = time.monotonic() + 60
             async with aiohttp.ClientSession(
                     timeout=aiohttp.ClientTimeout(total=10.0)) as session:
-                await picker._poll_one(session, picker.endpoints[0])
+                while True:
+                    await picker._poll_one(session, picker.endpoints[0])
+                    if picker.state[addr].healthy \
+                            or time.monotonic() > deadline:
+                        return
+                    await asyncio.sleep(0.2)
 
         asyncio.run(poll())
     finally:
@@ -347,13 +355,17 @@ def test_reference_picker_prices_a_port_moe_replica(weights):
     st = picker.state[addr]
     assert st.healthy
     assert st.moe_expert_imbalance == state["moe_expert_imbalance"] > 1.0
-    picker.observe("b:1", kv_occupancy=st.kv_occupancy,
-                   max_slots=st.max_slots)
+    # b:1 carries the polled replica's own load (its queue wait, slots
+    # and memory follow the host's timing), so only the router differs
+    load = dict(queued=st.queued, active_slots=st.active_slots,
+                max_slots=st.max_slots, queue_wait_ms=st.queue_wait_ms,
+                hbm_frac=st.hbm_frac, hbm_frac_worst=st.hbm_frac_worst,
+                devices=st.devices)
+    picker.observe("b:1", kv_occupancy=st.kv_occupancy, **load)
     assert picker.pick() == "b:1"
     # the same replica with a balanced router wins the tie back
     st.moe_expert_imbalance = 1.0
-    picker.observe("b:1", kv_occupancy=st.kv_occupancy + 0.01,
-                   max_slots=st.max_slots)
+    picker.observe("b:1", kv_occupancy=st.kv_occupancy + 0.01, **load)
     assert picker.pick() == addr
 
 

@@ -2,8 +2,11 @@
 """Run chip_smoke.py's ``serve_gateway`` phase alone on one NVIDIA GPU:
 two port replicas at Llama-3-8B widths cut to ``GW_LAYERS`` layers on
 the kernel path, the port's gateway in front of them in its own process
-(``python -m aigw_tpu_torch run``), the phase's six gates, and the
-direct-versus-gateway TTFT p50 and burst tokens/s.
+(``python -m aigw_tpu_torch run``), the phase's six gates, the
+direct-versus-gateway TTFT p50 and burst tokens/s, and the phase's
+blocks on the same replicas (the fronts, the hosted hop, the MCP turn,
+and the control plane's: ``--workers``, a ``--reuse-port`` roll, a
+manifest directory, autoconfig).
 
     python3 tools/torch_gateway.py
 
@@ -48,7 +51,9 @@ def main() -> int:
             torch, srv.engine.params, launches)}), flush=True)
     finally:
         srv.engine = None
-    cs.log(f"launches {launches['serve_gateway']}")
+    for block in ("serve_gateway", "serve_fronts", "serve_hosted",
+                  "serve_mcp", "serve_control"):
+        cs.log(f"launches on {block}: {launches[block]}")
     return 0
 
 
