@@ -23,12 +23,16 @@
     python -m aigw_tpu_torch run gateway.json --mcp-config mcp.json
     python -m aigw_tpu_torch run manifests/ --port 1975 --workers 4
     python -m aigw_tpu_torch run gateway.json --port 1975 --reuse-port
+    python -m aigw_tpu_torch run kube:~/.kube/config --port 1975
     TPUSERVE_URL=http://127.0.0.1:8011 python -m aigw_tpu_torch run
     python -m aigw_tpu_torch validate manifests/
+    python -m aigw_tpu_torch validate kube:in-cluster
     python -m aigw_tpu_torch status manifests/ --json
     python -m aigw_tpu_torch translate gateway.json
     python -m aigw_tpu_torch healthcheck http://127.0.0.1:1975
     python -m aigw_tpu_torch quota-service --port 1981 --dir /var/aigw-quota
+    python -m aigw_tpu_torch webhook --image aigw-tpu:latest \\
+        --tls-cert tls.crt --tls-key tls.key
     python -m aigw_tpu_torch --version
 
 With no flags a replica runs the reference's default programs: the
@@ -64,36 +68,42 @@ and raise naming it where it is missing, as on the card machine.
 ``run CONFIG`` starts the gateway data plane (``gateway/server.py``) in
 front of replica pools. CONFIG is a config file (JSON, or YAML: through
 ``pyyaml`` where it is installed, else JSON text in the ``.yaml`` file),
-a bundle directory (``config/bundle.py``) or a directory of Kubernetes
-CRD manifests, reconciled by ``config/controller.py``: a broken object
-is quarantined while the rest serves, per-object Accepted conditions go
-to ``<dir>/aigw-status.json``, and ``/health`` counts the objects not
-accepted. The source is watched every ``--watch-interval`` seconds and
-reloaded on change; ``--port 0`` binds a free port, which the startup
-line names. With no CONFIG the config is built from the environment
-(``config/autoconfig.py``: ``TPUSERVE_URL``, ``OPENAI_API_KEY``,
-``ANTHROPIC_API_KEY``, ``AZURE_OPENAI_*``, ``AIGW_MODELS``).
-``--workers N`` runs N processes (this one and N - 1 spawned children)
-bound to one explicit ``--port`` with ``SO_REUSEPORT``; they share one
-MCP session seed, and one token-quota budget and one Responses
-transcript store through ``AIGW_QUOTA_DIR`` / ``AIGW_RESPONSES_DIR``
-(a temporary directory when unset). ``--reuse-port`` binds one process
-with ``SO_REUSEPORT``, so a replacement gateway can bind the same port
-before this one is stopped: a rolling upgrade with no refused request.
-SIGTERM or SIGINT stops it after ``AIGW_DRAIN_SECONDS`` (1 s) for the
-requests in flight, and stops every replica its pools' controllers
-launched and every worker it spawned. ``--mcp-config FILE`` /
-``--mcp-json TEXT`` take the canonical ``mcpServers`` JSON: every stdio
-server (``command``) is spawned and bridged to a local Streamable-HTTP
-endpoint (``mcp/stdio_bridge.py``), and all of them join the config's
-``mcp`` backends on every load; the children stop with the gateway, on
-every exit path (refused with ``--workers`` above 1).
+a bundle directory (``config/bundle.py``), a directory of Kubernetes CRD
+manifests, reconciled by ``config/controller.py``: a broken object is
+quarantined while the rest serves, per-object Accepted conditions go to
+``<dir>/aigw-status.json``, and ``/health`` counts the objects not
+accepted; or a live cluster, ``kube:<kubeconfig>`` or
+``kube:in-cluster`` (``config/kube.py``: the CRDs list/watched, the
+conditions merge-patched onto each object's status by the replica that
+holds the ``AIGW_LEASE_NAME`` Lease; a kubeconfig is YAML through
+pyyaml, else JSON text). The source is watched every
+``--watch-interval`` seconds and reloaded on change; ``--port 0`` binds
+a free port, which the startup line names. With no CONFIG the config is
+built from the environment (``config/autoconfig.py``: ``TPUSERVE_URL``,
+``OPENAI_API_KEY``, ``ANTHROPIC_API_KEY``, ``AZURE_OPENAI_*``,
+``AIGW_MODELS``). ``--workers N`` runs N processes (this one and N - 1
+spawned children) bound to one explicit ``--port`` with
+``SO_REUSEPORT``; they share one MCP session seed, and one token-quota
+budget and one Responses transcript store through ``AIGW_QUOTA_DIR`` /
+``AIGW_RESPONSES_DIR`` (a temporary directory when unset).
+``--reuse-port`` binds one process with ``SO_REUSEPORT``, so a
+replacement gateway can bind the same port before this one is stopped: a
+rolling upgrade with no refused request. SIGTERM or SIGINT stops it
+after ``AIGW_DRAIN_SECONDS`` (1 s) for the requests in flight, and stops
+every replica its pools' controllers launched and every worker it
+spawned. ``--mcp-config FILE`` / ``--mcp-json TEXT`` take the canonical
+``mcpServers`` JSON: every stdio server (``command``) is spawned and
+bridged to a local Streamable-HTTP endpoint (``mcp/stdio_bridge.py``),
+and all of them join the config's ``mcp`` backends on every load; the
+children stop with the gateway, on every exit path (refused with
+``--workers`` above 1).
 
-``validate CONFIG|DIR`` parses a config (or reconciles a manifest
-directory, writing no status) and prints a summary, exit 1 on an
-invalid config or a rejected object; ``status DIR [--json]`` prints the
-manifests' Accepted conditions (from ``aigw-status.json`` when it is
-current, else reconciled now), exit 1 when any is not accepted;
+``validate CONFIG|DIR|kube:...`` parses a config (or reconciles a
+manifest directory or the cluster's objects once, writing no status)
+and prints a summary, exit 1 on an invalid config or a rejected object;
+``status DIR [--json]`` prints the manifests' Accepted conditions
+(from ``aigw-status.json`` when it is current, else reconciled now),
+exit 1 when any is not accepted;
 ``translate CONFIG`` prints the compiled runtime view as JSON;
 ``healthcheck [URL]`` probes ``/health`` (exit 0 when healthy);
 ``--version`` prints the package's version and, in a git checkout, its
@@ -102,11 +112,14 @@ revision. Each prints what ``aigw_tpu``'s does.
 ``quota-service`` serves the shared token-quota counters
 (``gateway/ratelimit.py``, flock'd files under ``--dir``): gateways
 that set ``AIGW_QUOTA_URL`` to it enforce one budget with no shared
-filesystem; SIGTERM or SIGINT stops it.
+filesystem; SIGTERM or SIGINT stops it. ``webhook`` serves the pod
+mutating webhook (``config/webhook.py``: ``POST /mutate`` injects the
+gateway sidecar, ``run kube:in-cluster``, into Envoy Gateway's pods),
+over TLS with ``--tls-cert`` and ``--tls-key``; SIGTERM or SIGINT stops
+it.
 
-Not ported: the ``core-config`` and ``webhook`` subcommands and the
-live-cluster source (``run`` / ``validate kube:...``), which raise or
-are absent. Flag names follow the reference's.
+Not ported: the ``core-config`` subcommand (the native proxy core),
+which is absent. Flag names follow the reference's.
 """
 
 from __future__ import annotations
@@ -187,8 +200,11 @@ def build_parser() -> argparse.ArgumentParser:
     r = sub.add_parser("run", help="run the gateway data plane")
     r.add_argument("config", nargs="?", default="",
                    help="config file (JSON, or YAML: pyyaml, else JSON "
-                        "text), bundle dir, or CRD manifest dir (watched "
-                        "and reconciled with status conditions); omit to "
+                        "text), bundle dir, CRD manifest dir (watched "
+                        "and reconciled with status conditions), or "
+                        "kube:<kubeconfig>|kube:in-cluster to list/watch "
+                        "the CRDs on a live cluster with Accepted "
+                        "conditions patched onto object status; omit to "
                         "autoconfig from env: OPENAI_API_KEY, "
                         "ANTHROPIC_API_KEY, AZURE_OPENAI_*, TPUSERVE_URL")
     r.add_argument("--host", default="127.0.0.1")
@@ -245,6 +261,20 @@ def build_parser() -> argparse.ArgumentParser:
     q.add_argument("--dir", default="/tmp/aigw-quota",
                    help="counter storage (flock'd files; a shared volume "
                         "lets the service itself replicate)")
+    w = sub.add_parser(
+        "webhook",
+        help="run the pod mutating webhook: injects the aigw gateway "
+             "sidecar into Envoy Gateway pods (the reference's "
+             "gateway_mutator role; K8s requires TLS — pass "
+             "--tls-cert/--tls-key)")
+    w.add_argument("--host", default="0.0.0.0")
+    w.add_argument("--port", type=int, default=9443)
+    w.add_argument("--image", required=True,
+                   help="sidecar image (must provide `python -m "
+                        "aigw_tpu_torch` as entrypoint)")
+    w.add_argument("--gateway-port", type=int, default=1975)
+    w.add_argument("--tls-cert", default="")
+    w.add_argument("--tls-key", default="")
     s = sub.add_parser("tpuserve", help="run the serving engine")
     s.add_argument("--model", required=True,
                    help="model name (see aigw_tpu_torch.models.registry)")
@@ -585,28 +615,50 @@ def _gateway_worker_main(args) -> None:
 
 
 def validate(config: str) -> int:
-    """``validate``: parse a config, or reconcile a manifest directory
-    (a dry run: the status goes to a temporary file), and print a
-    summary; exit 1 when it is invalid or an object is not accepted."""
+    """``validate``: parse a config, or reconcile a manifest directory or
+    a cluster's objects once (a dry run: the status goes to a temporary
+    file, nothing is patched), and print a summary; exit 1 when it is
+    invalid or an object is not accepted."""
     import tempfile
 
     from aigw_tpu_torch.config.controller import Reconciler, is_manifest_dir
-    from aigw_tpu_torch.config.model import ConfigError, load_config
+    from aigw_tpu_torch.config.model import load_config
+
+    def report_rejections(rec) -> int:
+        bad = sorted(rec.not_accepted().items())
+        for key, cond in bad:
+            print(f"NOT ACCEPTED {key}: {cond['message']}", file=sys.stderr)
+        return len(bad)
 
     try:
         if config.startswith("kube:"):
-            raise ConfigError(
-                f"{config!r}: a live cluster source (kube:) is not ported "
-                "to the aigw_tpu_torch gateway")
-        if is_manifest_dir(config):
+            from aigw_tpu_torch.config.kube import (
+                KubeReconciler,
+                KubeSource,
+                parse_kube_target,
+            )
+
+            source = KubeSource(parse_kube_target(config))
+            source.start()
+            try:
+                if not source.wait_synced(30.0):
+                    print("INVALID: API server never synced",
+                          file=sys.stderr)
+                    return 1
+                with tempfile.NamedTemporaryFile(suffix=".json") as tf:
+                    rec = KubeReconciler(source, status_path=tf.name,
+                                         leader_election=False,
+                                         dry_run=True)
+                    cfg = rec.load()
+                if report_rejections(rec):
+                    return 1
+            finally:
+                source.stop()
+        elif is_manifest_dir(config):
             with tempfile.NamedTemporaryFile(suffix=".json") as tf:
                 rec = Reconciler(config, status_path=tf.name)
                 cfg = rec.load()
-            bad = sorted(rec.not_accepted().items())
-            for key, cond in bad:
-                print(f"NOT ACCEPTED {key}: {cond['message']}",
-                      file=sys.stderr)
-            if bad:
+            if report_rejections(rec):
                 return 1
         else:
             cfg = load_config(config)
@@ -790,10 +842,48 @@ async def run_quota_service(args) -> int:
     return 0
 
 
+async def run_webhook(args, ssl_ctx) -> int:
+    """``webhook``: the mutating webhook's server until SIGTERM or
+    SIGINT."""
+    import asyncio
+
+    from aigw_tpu_torch.config.webhook import webhook_app
+
+    server = webhook_app(args.image, port=args.gateway_port)
+    await server.start(args.host, args.port, ssl=ssl_ctx)
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+    await server.stop()
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.cmd == "convert":
         return convert(args.hf_dir, args.out_dir)
+    if args.cmd == "webhook":
+        import asyncio
+        import ssl
+
+        logging.basicConfig(level=logging.INFO)
+        if bool(args.tls_cert) != bool(args.tls_key):
+            # half a TLS pair fails loudly: with failurePolicy Ignore on
+            # the API server's side, a webhook silently on plain HTTP
+            # would just never mutate a pod
+            print("webhook: --tls-cert and --tls-key must be provided "
+                  "together", file=sys.stderr)
+            return 1
+        ssl_ctx = None
+        if args.tls_cert and args.tls_key:
+            ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ssl_ctx.load_cert_chain(args.tls_cert, args.tls_key)
+        print(f"webhook listening on "
+              f"{'https' if ssl_ctx else 'http'}://{args.host}:{args.port}"
+              f"/mutate (sidecar image {args.image})", flush=True)
+        return asyncio.run(run_webhook(args, ssl_ctx))
     if args.cmd == "quota-service":
         import asyncio
 

@@ -11,8 +11,10 @@ per-object status conditions; ``not_accepted()`` reads them. An
 optional ``transform`` (Config → Config) runs after every load, so a
 CLI-side merge (the ``--mcp-config`` backends) survives reloads. A bad
 new config is logged and rejected; the gateway keeps serving the last
-good one. A live cluster (``kube:``) is not ported and raises
-``ConfigError`` naming it.
+good one. A live cluster (``kube:<kubeconfig>``, ``kube:in-cluster``)
+is list/watched by ``config/kube.py`` and reconciled on every tick, its
+conditions patched back onto the objects' status; ``stop`` surrenders
+the status writer's Lease before the source stops.
 """
 
 from __future__ import annotations
@@ -46,20 +48,37 @@ class ConfigWatcher:
         self._current: RuntimeConfig | None = None
         self._task: asyncio.Task | None = None
         self._reconciler: Reconciler | None = None
+        self._kube_reconciler = None
+        self._kube_source = None
 
     def not_accepted(self) -> dict:
         """Per-object NOT-Accepted conditions from the reconciling
-        control plane (empty when the source is not a manifest
-        directory)."""
+        control plane (empty when the source is not reconciled)."""
+        if self._kube_reconciler is not None:
+            return self._kube_reconciler.not_accepted()
         if self._reconciler is None:
             return {}
         return self._reconciler.not_accepted()
 
     def _load(self) -> Config:
         if self.path.startswith("kube:"):
-            raise ConfigError(
-                f"{self.path!r}: a live cluster source (kube:) is not "
-                "ported to the aigw_tpu_torch gateway")
+            if self._kube_reconciler is None:
+                from aigw_tpu_torch.config.kube import (
+                    KubeReconciler,
+                    KubeSource,
+                    parse_kube_target,
+                )
+
+                source = KubeSource(parse_kube_target(self.path))
+                source.start()
+                if not source.wait_synced(60.0):
+                    source.stop()
+                    raise ConfigError(
+                        f"kube source {self.path!r} never synced "
+                        "(API server unreachable?)")
+                self._kube_source = source
+                self._kube_reconciler = KubeReconciler(source)
+            return self._kube_reconciler.load()
         if is_manifest_dir(self.path):
             if self._reconciler is None:
                 self._reconciler = Reconciler(self.path)
@@ -91,6 +110,15 @@ class ConfigWatcher:
             except asyncio.CancelledError:
                 pass
             self._task = None
+        if self._kube_source is not None:
+            if self._kube_reconciler is not None:
+                # surrender the status writer's Lease before the loop
+                # the surrender runs on is torn down
+                self._kube_reconciler.shutdown()
+                await asyncio.sleep(0.1)
+            await asyncio.to_thread(self._kube_source.stop)
+            self._kube_source = None
+            self._kube_reconciler = None
 
     async def _run(self) -> None:
         while True:

@@ -24,8 +24,11 @@ new connection. A ``ClientResponse`` reads a body framed by
 (``read``) or piece by piece as the bytes arrive (``iter_any``), and
 goes back to the pool on ``release`` when its body was read to the end
 on a connection that stays open. ``Timeout`` carries the reference's
-three limits: the whole request (``total``), the connect and each read.
-Both legs set ``TCP_NODELAY``. Failures to connect, resets and torn
+three limits: the whole request (``total``), the connect and each read;
+with none (the default) a long GET, such as a cluster watch, streams
+for as long as the server keeps it open. Both legs set ``TCP_NODELAY``;
+the server may listen with TLS and the client may carry its own TLS
+context. Failures to connect, resets and torn
 bodies raise ``ClientError``; a limit raises ``asyncio.TimeoutError``.
 """
 
@@ -210,13 +213,14 @@ class HTTPServer:
         self._server: asyncio.AbstractServer | None = None
         self._conns: set[asyncio.StreamWriter] = set()
 
-    async def start(self, host: str, port: int,
-                    reuse_port: bool = False) -> int:
+    async def start(self, host: str, port: int, reuse_port: bool = False,
+                    ssl: _ssl.SSLContext | None = None) -> int:
         """Listen; ``reuse_port`` binds with ``SO_REUSEPORT``, so other
-        processes may bind the same port and share its connections."""
+        processes may bind the same port and share its connections;
+        ``ssl`` (a server context) serves HTTPS."""
         self._server = await asyncio.start_server(
             self._serve, host, port, limit=_MAX_HEAD,
-            reuse_port=reuse_port)
+            reuse_port=reuse_port, ssl=ssl)
         return self._server.sockets[0].getsockname()[1]
 
     async def stop(self, grace: float = 0.0) -> None:
@@ -482,10 +486,14 @@ class ClientResponse:
 
 
 class HTTPClient:
-    """Upstream requests over pooled keep-alive connections."""
+    """Upstream requests over pooled keep-alive connections. ``https``
+    URLs connect with ``ssl_context`` when one is given (a cluster
+    client's CA bundle, client certificate or skipped verification),
+    else with the default context."""
 
-    def __init__(self) -> None:
+    def __init__(self, ssl_context: _ssl.SSLContext | None = None) -> None:
         self._idle: dict[tuple, list[_Conn]] = {}
+        self._ssl = ssl_context
         self.closed = False
 
     def _put(self, conn: _Conn) -> None:
@@ -501,7 +509,8 @@ class HTTPClient:
         try:
             reader, writer = await asyncio.wait_for(asyncio.open_connection(
                 host, port, limit=_MAX_HEAD,
-                ssl=_ssl.create_default_context() if tls else None),
+                ssl=(self._ssl or _ssl.create_default_context())
+                if tls else None),
                 timeout)
         except OSError as e:
             raise ClientConnectionError(

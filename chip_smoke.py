@@ -298,8 +298,25 @@ Phases (any failure exits non-zero):
    with no config (autoconfig from ``TPUSERVE_URL``); K1 and K2
    launched; printed (the ``serve_gateway control`` line): the workers'
    start, the roll's requests, resets retried and largest client gap,
-   the route's move, the block's wall; the gateway's
-   fleet operations (the
+   the route's move, the block's wall; then the live cluster source
+   (``_gw_kube``; launch counts zeroed before it, read after it into
+   ``launches_serve_kube``): a standard-library API server over TLS
+   (``KubeFake``: list, watch streams replayed from a resourceVersion,
+   merge-patch of ``/status``, Leases), ``webhook`` over TLS answering a
+   gateway pod with the reference's JSONPatch and a plain pod with none,
+   ``validate kube:`` (``OK:``, then ``NOT ACCEPTED`` and exit 1 for a
+   bad route), gateway K0 (``run kube:<kubeconfig>``, JSON text) and K1
+   (the webhook's sidecar args, ``run kube:in-cluster``) on one Lease:
+   chats to replica 0, K0 the only Lease and status writer, a route edit
+   moving both gateways' chats to replica 1 with none failed, a bad
+   route NotAccepted on its status and on both ``/health``s, a 410 on
+   both route watches with an edit in the gap served after the re-list,
+   K0's SIGTERM releasing the Lease and K1 taking over within one renew
+   period plus 1 s and patching the next edit, ``AigwClientset`` and an
+   informer; K1 and K2 launched; printed (the ``serve_gateway kube``
+   line): the sync times, the route's moves, the takeover, the patch and
+   Lease-write counts per gateway, the launches, the block's wall; the
+   gateway's fleet operations (the
    ``serve_fleet`` line, after ``serve_gateway``; launch counts zeroed
    once both replicas are up, read at the end): replica B in this
    process (``tpuserve/child.py``'s ``build_server`` on ``fleet_spec``:
@@ -457,8 +474,9 @@ Phases (any failure exits non-zero):
    ``serve_ep``, both replicas' on ``serve_gateway``, on its fronts
    (``launches_serve_fronts``), on its hosted hop
    (``launches_serve_hosted``), on its MCP turn
-   (``launches_serve_mcp``) and on its control block
-   (``launches_serve_control``), and replica B's on ``serve_fleet``), the
+   (``launches_serve_mcp``), on its control block
+   (``launches_serve_control``) and on its cluster block
+   (``launches_serve_kube``), and replica B's on ``serve_fleet``), the
    card line, then
    the last line
    ``{"ok": true, "device": {...}}``.
@@ -8574,6 +8592,744 @@ def _gw_control(reps, model: str = GW_MODEL, tie=None) -> dict:
     return out
 
 
+# -- the live cluster source (serve_gateway's kube block) ---------------------
+class KubeFake:
+    """A Kubernetes API server on the standard library, after the
+    reference's test double (``tests/test_kube.py``'s ``FakeAPIServer``):
+    cluster-wide lists with a resourceVersion; watch streams of JSON
+    lines (chunked, a heartbeat newline every 0.5 s) that replay the
+    events after the watch's resourceVersion, as an API server does, and
+    end with an ERROR event (410 Gone) on ``inject_gone``; merge-patch of
+    ``/status`` (no watch event, as the test double); Lease GET, POST and
+    PUT. Serves TLS with ``ssl_context``. Records, with the bearer token
+    that sent them, every list, status patch and Lease write."""
+
+    def __init__(self, ssl_context=None):
+        import urllib.parse
+        from http.server import ThreadingHTTPServer
+
+        from aigw_tpu_torch.config.kube import RESOURCES
+
+        plural_kind = {v[2]: k for k, v in RESOURCES.items()}
+        self.objects: dict = {}
+        self.rv = 100
+        self.events: list = []  # (rv, kind, type, object)
+        self.leases: dict = {}
+        self.lists: list = []  # (token, kind, resourceVersion, time)
+        self.patches: list = []  # (token, "Kind/name", conditions, time)
+        self.lease_writes: list = []  # (token, method, holder, time)
+        self.watches: dict = {}  # stream id -> (kind, token)
+        self.gone: set = set()
+        self.closing = False
+        self.cond = threading.Condition()
+        fake = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def setup(self):
+                # the TLS handshake on the connection's own thread, not
+                # in the accepting one
+                if hasattr(self.request, "do_handshake"):
+                    self.request.do_handshake()
+                super().setup()
+
+            def log_message(self, *a):
+                pass
+
+            def _token(self) -> str:
+                auth = self.headers.get("authorization", "")
+                return auth[7:] if auth.startswith("Bearer ") else ""
+
+            def _body(self) -> dict:
+                n = int(self.headers.get("content-length") or 0)
+                return json.loads(self.rfile.read(n) or b"{}")
+
+            def _send(self, status: int, obj) -> None:
+                raw = json.dumps(obj).encode()
+                self.send_response(status)
+                self.send_header("content-type", "application/json")
+                self.send_header("content-length", str(len(raw)))
+                self.end_headers()
+                self.wfile.write(raw)
+
+            def _lease(self, method: str, parts: list) -> None:
+                i = parts.index("leases")
+                name = parts[i + 1] if len(parts) > i + 1 else ""
+                with fake.cond:
+                    if method == "GET" and name:
+                        lease = fake.leases.get(name)
+                        return self._send(*((404, {"reason": "NotFound"})
+                                            if lease is None
+                                            else (200, lease)))
+                    body = self._body()
+                    lname = name or body["metadata"]["name"]
+                    if method == "POST" and lname in fake.leases:
+                        return self._send(409, {"reason": "Conflict"})
+                    fake.leases[lname] = body
+                    fake.lease_writes.append((
+                        self._token(), method,
+                        (body.get("spec") or {}).get("holderIdentity", ""),
+                        time.monotonic()))
+                self._send(201 if method == "POST" else 200, body)
+
+            def do_GET(self):  # noqa: N802
+                url = urllib.parse.urlsplit(self.path)
+                parts = [p for p in url.path.split("/") if p]
+                if "leases" in parts:
+                    return self._lease("GET", parts)
+                kind = plural_kind.get(parts[-1] if parts else "")
+                if kind is None:
+                    return self._send(404, {"reason": "NotFound"})
+                query = dict(urllib.parse.parse_qsl(url.query))
+                if query.get("watch") in ("true", "1"):
+                    return self._watch(kind, query.get("resourceVersion"))
+                with fake.cond:
+                    items = [o for (k, _n, _m), o in fake.objects.items()
+                             if k == kind]
+                    rv = fake.rv
+                    fake.lists.append((self._token(), kind, rv,
+                                       time.monotonic()))
+                self._send(200, {"kind": f"{kind}List", "metadata": {
+                    "resourceVersion": str(rv)}, "items": items})
+
+            def _watch(self, kind: str, since) -> None:
+                sid = object()
+                with fake.cond:
+                    start = int(since) if (since or "").isdigit() else \
+                        fake.rv
+                    i = next((j for j, e in enumerate(fake.events)
+                              if e[0] > start), len(fake.events))
+                    fake.watches[sid] = (kind, self._token())
+                self.send_response(200)
+                self.send_header("content-type", "application/json")
+                self.send_header("transfer-encoding", "chunked")
+                self.end_headers()
+                try:
+                    while True:
+                        with fake.cond:
+                            if i == len(fake.events) and sid not in \
+                                    fake.gone and not fake.closing:
+                                fake.cond.wait(0.5)
+                            if fake.closing:
+                                return
+                            gone = sid in fake.gone
+                            new, i = fake.events[i:], len(fake.events)
+                        lines = [{"type": t, "object": o}
+                                 for _rv, k, t, o in new if k == kind]
+                        if gone:
+                            lines.append({"type": "ERROR", "object": {
+                                "kind": "Status", "apiVersion": "v1",
+                                "status": "Failure", "code": 410,
+                                "reason": "Expired",
+                                "message": "too old resource version"}})
+                        data = "".join(json.dumps(ln) + "\n"
+                                       for ln in lines).encode() or b"\n"
+                        self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+                        if gone:
+                            self.wfile.write(b"0\r\n\r\n")
+                            self.close_connection = True
+                            return
+                except OSError:
+                    self.close_connection = True  # the client went away
+                finally:
+                    with fake.cond:
+                        fake.watches.pop(sid, None)
+                        fake.gone.discard(sid)
+                        fake.cond.notify_all()
+
+            def do_POST(self):  # noqa: N802
+                parts = [p for p in self.path.split("?")[0].split("/") if p]
+                if "leases" not in parts:
+                    return self._send(405, {"reason": "MethodNotAllowed"})
+                self._lease("POST", parts)
+
+            def do_PUT(self):  # noqa: N802
+                parts = [p for p in self.path.split("?")[0].split("/") if p]
+                if "leases" not in parts:
+                    return self._send(405, {"reason": "MethodNotAllowed"})
+                self._lease("PUT", parts)
+
+            def do_PATCH(self):  # noqa: N802
+                parts = [p for p in self.path.split("?")[0].split("/") if p]
+                if len(parts) < 4 or parts[-1] != "status":
+                    return self._send(405, {"reason": "MethodNotAllowed"})
+                kind = plural_kind.get(parts[-3], "")
+                ns = parts[parts.index("namespaces") + 1] \
+                    if "namespaces" in parts else ""
+                key = (kind, ns, parts[-2])
+                patch = self._body()
+                with fake.cond:
+                    if key not in fake.objects:
+                        return self._send(404, {"reason": "NotFound"})
+                    merged = dict(fake.objects[key])
+                    merged["status"] = dict(merged.get("status") or {},
+                                            **patch.get("status", {}))
+                    fake.objects[key] = merged
+                    fake.patches.append((
+                        self._token(), f"{kind}/{parts[-2]}",
+                        patch.get("status", {}).get("conditions"),
+                        time.monotonic()))
+                self._send(200, merged)
+
+        class Server(ThreadingHTTPServer):
+            # a gateway's sync opens a connection per kind at once: the
+            # default backlog of 5 drops some, and the kernel sends their
+            # SYN again a second later
+            request_queue_size = 128
+            daemon_threads = True
+
+        self.httpd = Server(("127.0.0.1", 0), Handler)
+        if ssl_context is not None:
+            self.httpd.socket = ssl_context.wrap_socket(
+                self.httpd.socket, server_side=True,
+                do_handshake_on_connect=False)
+        self.port = self.httpd.server_address[1]
+        self.url = (f"{'https' if ssl_context else 'http'}://127.0.0.1:"
+                    f"{self.port}")
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+
+    @staticmethod
+    def _key(obj: dict) -> tuple:
+        m = obj.get("metadata") or {}
+        return (obj["kind"], m.get("namespace", ""), m.get("name", ""))
+
+    def apply(self, obj: dict) -> int:
+        """Create or replace an object (its status kept, as a spec
+        update keeps it) and send the event to the watches: its
+        resourceVersion."""
+        obj = json.loads(json.dumps(obj))
+        with self.cond:
+            key = self._key(obj)
+            old = self.objects.get(key)
+            if old is not None and old.get("status"):
+                obj.setdefault("status", old["status"])
+            self.rv += 1
+            obj["metadata"]["resourceVersion"] = str(self.rv)
+            self.objects[key] = obj
+            self.events.append((self.rv, obj["kind"],
+                                "MODIFIED" if old else "ADDED", obj))
+            self.cond.notify_all()
+            return self.rv
+
+    def delete(self, kind: str, name: str, ns: str = "default") -> None:
+        with self.cond:
+            obj = self.objects.pop((kind, ns, name))
+            self.rv += 1
+            self.events.append((self.rv, kind, "DELETED", obj))
+            self.cond.notify_all()
+
+    def inject_gone(self, kind: str) -> set:
+        """End every watch of ``kind`` with a 410: the streams ended."""
+        with self.cond:
+            sids = {s for s, (k, _t) in self.watches.items() if k == kind}
+            self.gone |= sids
+            self.cond.notify_all()
+        return sids
+
+    def watching(self, kind: str) -> dict:
+        """Open watches of ``kind`` by token."""
+        with self.cond:
+            out: dict = {}
+            for k, t in self.watches.values():
+                if k == kind:
+                    out[t] = out.get(t, 0) + 1
+            return out
+
+    def status(self, kind: str, name: str) -> dict:
+        with self.cond:
+            obj = self.objects.get((kind, "default", name)) or {}
+            return ((obj.get("status") or {}).get("conditions") or [{}])[0]
+
+    def holder(self, name: str) -> str:
+        with self.cond:
+            return ((self.leases.get(name) or {}).get("spec") or {}).get(
+                "holderIdentity", "")
+
+    def close(self) -> None:
+        with self.cond:
+            self.closing = True
+            self.cond.notify_all()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+#: _gw_kube: gateway K0's watch interval (K1, the webhook's sidecar, runs
+#: its args as injected: the default 5 s), its chats' length, the Lease
+#: both gateways elect on, and the image the webhook injects
+GW_KUBE_WATCH_S = 0.5
+GW_KUBE_TOKENS = 8
+GW_KUBE_LEASE = "aigw-card-status-writer"
+GW_KUBE_IMAGE = "aigw-tpu-torch:card"
+#: the renew period of the port's (and the reference's) leader elector
+GW_KUBE_RENEW_S = 5.0
+
+
+def _openssl_cert(tmp: str, name: str) -> tuple[str, str]:
+    """A self-signed certificate for 127.0.0.1, made by ``openssl`` as
+    the reference's webhook test makes one: (cert path, key path)."""
+    crt, key = (os.path.join(tmp, f"{name}.{x}") for x in ("crt", "key"))
+    subprocess.run(
+        ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+         "-keyout", key, "-out", crt, "-days", "1", "-subj", "/CN=127.0.0.1",
+         "-addext", "subjectAltName=IP:127.0.0.1"],
+        check=True, capture_output=True, timeout=60)
+    return crt, key
+
+
+def _gw_kube(reps, model: str = GW_MODEL) -> dict:
+    """The live cluster source in front of the phase's replicas: the
+    gateway configured from a fake API server (``KubeFake``, TLS), the
+    pod mutating webhook and the typed clientset.
+
+    The cluster: a ``Backend`` at each replica's address, an
+    ``AIServiceBackend`` of schema ``OpenAI`` on each, the route
+    ``serving`` onto replica 0. (g) ``webhook`` over TLS (a certificate
+    made by ``openssl``) answers a gateway pod's AdmissionReview with
+    the reference's JSONPatch (the ``ai-gateway-sidecar`` container,
+    ``run kube:in-cluster``) and a plain pod's with none. (a) ``validate
+    kube:<kubeconfig>`` (JSON text with the CA's data) prints ``OK:`` with
+    the counts; with a bad route it prints ``NOT ACCEPTED`` and exits 1;
+    it patches nothing. (b) Gateway K0 (``run kube:<kubeconfig>``,
+    watched every ``GW_KUBE_WATCH_S``) and gateway K1 (the webhook's
+    sidecar args as injected, in-cluster through ``AIGW_SA_DIR``) on one
+    Lease, each with a token of its own: chats through both reach replica
+    0; K0 holds the Lease and K1 writes none; every status kind's object
+    carries ``Accepted``, patched once, by K0 only. (c) The route edited
+    onto replica 1 moves every later chat there through both gateways
+    (clients sending throughout, no failure). (d) A bad route gets
+    ``NotAccepted`` on its status and shows in both ``/health``s; the
+    served route stays. (e) A 410 ends both gateways' route watches, the
+    route is edited back onto replica 0 in the gap, and both serve it
+    after their re-list (which carried it). (f) SIGTERM to K0: it exits
+    0, its Lease is released (holder blank), K1 acquires it within one
+    renew period plus 1 s, K1 patches the next edit, and K1's clients
+    see no failed chat. (h) ``AigwClientset`` lists and gets the routes,
+    an informer on a ``KubeSource`` of its own sees a new route's
+    ``ADDED``. The caller zeroes and reads the launch counts."""
+    import base64
+    import signal as _signal
+    import ssl
+    import tempfile
+
+    t_block = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="aigw-kube-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    taps = [TokenTap(r.engine) for r in reps]
+    out: dict = {"tls": True}
+    bad: list = []
+    started: list = []
+    aigw, eg = "aigateway.envoyproxy.io/v1alpha1", \
+        "gateway.envoyproxy.io/v1alpha1"
+    words = "the quick brown fox jumps over a lazy dog while rivers run"
+    counter = itertools.count()
+
+    def obj(kind, name, spec, api=aigw, gen=1) -> dict:
+        return {"apiVersion": api, "kind": kind, "metadata": {
+            "name": name, "namespace": "default", "generation": gen},
+            "spec": spec}
+
+    def route(i: int, gen: int, name: str = "serving", ref=None,
+              served: str = model) -> dict:
+        return obj("AIGatewayRoute", name, {"rules": [{
+            "matches": [{"headers": [{"type": "Exact",
+                                      "name": "x-ai-eg-model",
+                                      "value": served}]}],
+            "backendRefs": [ref or {"name": f"llama-{i}"}]}]}, gen=gen)
+
+    def chat() -> dict:
+        k = next(counter)
+        return {"model": model, "max_tokens": GW_KUBE_TOKENS,
+                "temperature": 0.0, "messages": [
+                    {"role": "user", "content": f"{k}: {words[:9 + k % 40]}"}]}
+
+    def served_by(port: int) -> int:
+        rid = _gw_call(port, "chat", False, chat())["rid"]
+        hits = [i for i, t in enumerate(taps) if rid in t.toks]
+        if len(hits) != 1:
+            raise AssertionError(f"serve_gateway kube: request {rid!r} on "
+                                 f"the taps of {hits}")
+        return hits[0]
+
+    class Clients:
+        """Chats sent one after another through each gateway, until
+        stopped: (start time, replica) of each, and every failure."""
+
+        def __init__(self, ports: dict):
+            self.seen = {g: [] for g in ports}
+            self.failures: list = []
+            self._stop = threading.Event()
+            self._threads = [threading.Thread(target=self._run, args=(g, p))
+                             for g, p in ports.items()]
+            for t in self._threads:
+                t.start()
+
+        def _run(self, g, port) -> None:
+            while not self._stop.is_set():
+                t0 = time.monotonic()
+                try:
+                    self.seen[g].append((t0, served_by(port)))
+                except Exception as e:  # noqa: BLE001 — reported
+                    self.failures.append(f"{g}: {e!r}")
+
+        def moved(self, g, to: int, since: float):
+            """Seconds from ``since`` to the first chat sent after it
+            that reached ``to``, once it and at least two later ones all
+            did (None before)."""
+            after = [(t, r) for t, r in list(self.seen[g]) if t >= since]
+            for j, (t, _r) in enumerate(after):
+                if all(x == to for _t, x in after[j:]):
+                    return t - since if len(after) - j >= 3 else None
+            return None
+
+        def stop(self) -> None:
+            self._stop.set()
+            for t in self._threads:
+                t.join(timeout=120)
+
+    def spawn(argv, name, env, drop=()):
+        proc, port, err, _lines = _spawn_gateway(
+            argv, tmp, name, env, 1, GW_CONTROL_DROP_ENV + (
+                "KUBECONFIG", "KUBERNETES_SERVICE_HOST",
+                "KUBERNETES_SERVICE_PORT", "AIGW_SA_DIR",
+                "AIGW_LEASE_NAMESPACE", "AIGW_LEADER_ELECTION") + drop)
+        started.append((proc, err))
+        return proc, port
+
+    def stop(proc, name: str, sig=_signal.SIGINT) -> None:
+        proc.send_signal(sig)
+        if proc.wait(timeout=60) != 0:
+            bad.append(f"{name} exited {proc.returncode}")
+
+    def health(port: int) -> dict:
+        return _gw_json(port, "/health")
+
+    crt, key = _openssl_cert(tmp, "apiserver")
+    server_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    server_ctx.load_cert_chain(crt, key)
+    fake = KubeFake(server_ctx)
+    wh = None
+    try:
+        for i, r in enumerate(reps):
+            fake.apply(obj("Backend", f"rep-{i}", {"endpoints": [{"ip": {
+                "address": "127.0.0.1", "port": r.port}}]}, eg))
+            fake.apply(obj("AIServiceBackend", f"llama-{i}", {
+                "schema": {"name": "OpenAI"},
+                "backendRef": {"name": f"rep-{i}", "kind": "Backend",
+                               "group": "gateway.envoyproxy.io"}}))
+        fake.apply(route(0, 1))
+        status_keys = {f"AIServiceBackend/llama-{i}"
+                       for i in range(len(reps))} | {"AIGatewayRoute/serving"}
+        # (g) the webhook, over TLS
+        wh_crt, wh_key = _openssl_cert(tmp, "webhook")
+        wh_port, k1_port = _free_port(), _free_port()
+        wh_log = open(os.path.join(tmp, "webhook.log"), "w")
+        started.append((None, wh_log))
+        wh = subprocess.Popen(
+            [sys.executable, "-m", "aigw_tpu_torch", "webhook", "--host",
+             "127.0.0.1", "--port", str(wh_port), "--image", GW_KUBE_IMAGE,
+             "--gateway-port", str(k1_port), "--tls-cert", wh_crt,
+             "--tls-key", wh_key], cwd=here, stdout=subprocess.PIPE,
+            stderr=wh_log, text=True)
+        wh_line = wh.stdout.readline().strip()
+        wh_ctx = ssl.create_default_context(cafile=wh_crt)
+
+        def wh_up() -> bool:
+            # the startup line comes before the listener, as the
+            # reference's
+            try:
+                with urllib.request.urlopen(
+                        f"https://127.0.0.1:{wh_port}/health", timeout=10,
+                        context=wh_ctx) as r:
+                    return r.status == 200
+            except (urllib.error.URLError, ConnectionError):
+                return False
+
+        _gw_wait(wh_up, "the webhook's /health")
+
+        def admit(pod: dict) -> dict:
+            req = urllib.request.Request(
+                f"https://127.0.0.1:{wh_port}/mutate",
+                data=json.dumps({"apiVersion": "admission.k8s.io/v1",
+                                 "kind": "AdmissionReview", "request": {
+                                     "uid": "card-1", "object": pod}}).encode(),
+                headers={"content-type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30,
+                                        context=wh_ctx) as r:
+                return json.loads(r.read())["response"]
+
+        gateway_pod = {"kind": "Pod", "metadata": {"name": "eg-gw", "labels": {
+            "gateway.envoyproxy.io/owning-gateway-name": "gw-1",
+            "gateway.envoyproxy.io/owning-gateway-namespace": "default"}},
+            "spec": {"containers": [{"name": "envoy", "image": "envoy"}]}}
+        t0 = time.monotonic()
+        answer = admit(gateway_pod)
+        plain = admit({"kind": "Pod", "metadata": {"name": "app"},
+                       "spec": {"containers": [{"name": "c"}]}})
+        out["webhook_ms"] = 1e3 * (time.monotonic() - t0) / 2
+        want = [{"op": "add", "path": "/spec/containers/-", "value": {
+            "name": "ai-gateway-sidecar", "image": GW_KUBE_IMAGE,
+            "args": ["run", "kube:in-cluster", "--host", "0.0.0.0",
+                     "--port", str(k1_port), "--log-level", "info"],
+            "ports": [{"containerPort": k1_port, "name": "aigw"}],
+            "env": [], "readinessProbe": {
+                "httpGet": {"path": "/health", "port": k1_port},
+                "initialDelaySeconds": 2, "periodSeconds": 5}}}]
+        patch = json.loads(base64.b64decode(answer.get("patch", "")) or "[]")
+        if not wh_line.startswith(f"webhook listening on https://") \
+                or answer.get("patchType") != "JSONPatch" or patch != want \
+                or not answer["allowed"] or "patch" in plain \
+                or not plain["allowed"]:
+            bad.append(f"webhook: {wh_line!r} {answer} {plain}")
+        stop(wh, "the webhook", _signal.SIGTERM)
+        sidecar_args = patch[0]["value"]["args"] if patch else []
+        # (a) validate, a one-shot dry run (JSON-text kubeconfig)
+        kc = os.path.join(tmp, "kubeconfig.json")
+        _write_json(kc, {
+            "apiVersion": "v1", "kind": "Config", "current-context": "card",
+            "contexts": [{"name": "card", "context": {"cluster": "fake",
+                                                      "user": "k0"}}],
+            "clusters": [{"name": "fake", "cluster": {
+                "server": fake.url, "certificate-authority-data":
+                    base64.b64encode(open(crt, "rb").read()).decode()}}],
+            "users": [{"name": "k0", "user": {"token": "token-k0"}}]})
+
+        def validate() -> tuple:
+            t0 = time.monotonic()
+            r = subprocess.run([sys.executable, "-m", "aigw_tpu_torch",
+                                "validate", f"kube:{kc}"], cwd=here,
+                               capture_output=True, text=True, timeout=120)
+            return r.returncode, r.stdout, r.stderr, time.monotonic() - t0
+
+        good = validate()
+        fake.apply(route(0, 1, "bad-route", {"name": "llama-0",
+                                             "group": "example.com"},
+                         "bad-model"))
+        rejected = validate()
+        fake.delete("AIGatewayRoute", "bad-route")
+        out["validate"] = {"ok_rc": good[0], "ok": good[1].strip(),
+                           "bad_rc": rejected[0], "wall_s": good[3],
+                           "bad": [ln for ln in rejected[2].splitlines()
+                                   if ln.startswith("NOT ACCEPTED")]}
+        if good[0] != 0 or not good[1].startswith(
+                f"OK: {len(reps)} backends, 1 routes") or rejected[0] != 1 \
+                or not out["validate"]["bad"] or not out["validate"][
+                    "bad"][0].startswith(
+                        "NOT ACCEPTED AIGatewayRoute/bad-route: ") \
+                or fake.patches:
+            bad.append(f"validate: {out['validate']} {good} {rejected}")
+        # (b) two gateways on one Lease
+        lease_env = {"AIGW_LEASE_NAME": GW_KUBE_LEASE}
+        t0 = time.monotonic()
+        k0, p0 = spawn([f"kube:{kc}", "--port", "0", "--watch-interval",
+                        str(GW_KUBE_WATCH_S)], "kube-k0", lease_env)
+        out["k0_up_s"] = time.monotonic() - t0
+        _gw_wait(lambda: fake.holder(GW_KUBE_LEASE), "K0's Lease")
+        sa = os.path.join(tmp, "serviceaccount")
+        os.makedirs(sa)
+        with open(os.path.join(sa, "token"), "w") as f:
+            f.write("token-k1")
+        with open(os.path.join(sa, "ca.crt"), "wb") as f:
+            f.write(open(crt, "rb").read())
+        t0 = time.monotonic()
+        k1, p1 = spawn(sidecar_args[1:], "kube-k1", dict(
+            lease_env, KUBERNETES_SERVICE_HOST="127.0.0.1",
+            KUBERNETES_SERVICE_PORT=str(fake.port), AIGW_SA_DIR=sa))
+        out["k1_up_s"] = time.monotonic() - t0
+        if p1 != k1_port:
+            bad.append(f"K1 bound {p1}, the sidecar's port is {k1_port}")
+        gws = {"k0": p0, "k1": p1}
+        sync = {}
+        for tok in ("token-k0", "token-k1"):
+            firsts: dict = {}
+            for t, kind, _rv, at in fake.lists:
+                if t == tok:
+                    firsts.setdefault(kind, at)
+            sync[tok] = max(firsts.values()) - min(firsts.values())
+        out["sync_s"] = sync
+        _gw_wait(lambda: all(fake.watching("AIGatewayRoute").get(t)
+                             for t in ("token-k0", "token-k1")),
+                 "both gateways' route watches")
+        out["before"] = {g: [served_by(p) for _ in range(2)]
+                         for g, p in gws.items()}
+        _gw_wait(lambda: {k for _t, k, _c, _a in fake.patches}
+                 >= status_keys, "K0's status patches", 30)
+        time.sleep(GW_KUBE_RENEW_S + 1.0)  # K1's watch tick and renewal
+        leader = fake.holder(GW_KUBE_LEASE)
+        writers = {t for t, m, h, _a in fake.lease_writes}
+        by_key: dict = {}
+        for tok, k, conds, _a in fake.patches:
+            by_key.setdefault(k, []).append((tok, conds[0]["type"],
+                                             conds[0]["status"]))
+        out["patches_b"] = {k: len(v) for k, v in by_key.items()}
+        if out["before"] != {"k0": [0, 0], "k1": [0, 0]} \
+                or writers != {"token-k0"} or not leader \
+                or set(by_key) != status_keys or any(
+                    v != [("token-k0", "Accepted", "True")]
+                    for v in by_key.values()):
+            bad.append(f"two gateways: chats {out['before']}, Lease "
+                       f"writers {writers}, holder {leader!r}, patches "
+                       f"{by_key}")
+        # (c) the route edited onto replica 1, clients sending throughout
+        clients = Clients(gws)
+        time.sleep(0.5)
+        t_edit = time.monotonic()
+        fake.apply(route(1, 2))
+        _gw_wait(lambda: all(clients.moved(g, 1, t_edit) is not None
+                             for g in gws),
+                 "the route's move through both gateways", 30)
+        _gw_wait(lambda: fake.status("AIGatewayRoute", "serving").get(
+            "observedGeneration") == 2, "the edit's condition")
+        clients.stop()
+        out["route_moved_s"] = {g: clients.moved(g, 1, t_edit) for g in gws}
+        out["clients_c"] = {g: len(v) for g, v in clients.seen.items()}
+        if clients.failures:
+            bad.append(f"route edit: failed chats {clients.failures[:5]}")
+        # (d) a bad route: NotAccepted on its status and in /health
+        fake.apply(route(0, 1, "bad-route", {"name": "llama-0",
+                                             "group": "example.com"},
+                         "bad-model"))
+        _gw_wait(lambda: fake.status("AIGatewayRoute", "bad-route").get(
+            "status") == "False", "the bad route's condition")
+        _gw_wait(lambda: all(health(p).get("objects_not_accepted") == 1
+                             for p in gws.values()),
+                 "both /health naming the bad route", 30)
+        cond = fake.status("AIGatewayRoute", "bad-route")
+        out["bad_route"] = {
+            "reason": cond.get("reason"),
+            "health": {g: health(p).get("not_accepted")
+                       for g, p in gws.items()},
+            "serving": {g: served_by(p) for g, p in gws.items()}}
+        if cond.get("reason") != "NotAccepted" \
+                or out["bad_route"]["serving"] != {"k0": 1, "k1": 1} \
+                or any(v != ["AIGatewayRoute/bad-route"]
+                       for v in out["bad_route"]["health"].values()):
+            bad.append(f"bad route: {out['bad_route']} {cond}")
+        # (e) both route watches end with a 410; the edit in the gap
+        sids = fake.inject_gone("AIGatewayRoute")
+        t_gone = time.monotonic()
+        _gw_wait(lambda: not (sids & set(fake.watches)), "the 410s")
+        rv_gap = fake.apply(route(0, 3))
+        _gw_wait(lambda: all(served_by(p) == 0 for p in gws.values()),
+                 "the gap's edit through both gateways", 30)
+        relists = {}
+        for tok in ("token-k0", "token-k1"):
+            rvs = [rv for t, kind, rv, at in fake.lists
+                   if t == tok and kind == "AIGatewayRoute"
+                   and at > t_gone]
+            relists[tok] = rvs[0] if rvs else None
+        out["watch_loss"] = {"streams_ended": len(sids),
+                             "relist_rv": relists, "edit_rv": rv_gap,
+                             "served_s": time.monotonic() - t_gone}
+        if len(sids) != 2 or any(rv is None or rv < rv_gap
+                                 for rv in relists.values()):
+            bad.append(f"watch loss: {out['watch_loss']}")
+        # (f) K0 stopped: the Lease released, K1 takes over
+        _gw_wait(lambda: fake.status("AIGatewayRoute", "serving").get(
+            "observedGeneration") == 3, "the gap edit's condition")
+        n_k1 = sum(t == "token-k1" for t, *_ in fake.patches)
+        clients = Clients({"k1": p1})
+        time.sleep(0.5)
+        t_term = time.monotonic()
+        stop(k0, "gateway K0", _signal.SIGTERM)
+        out["k0_exit_s"] = time.monotonic() - t_term
+        _gw_wait(lambda: any(t == "token-k1" and h for t, _m, h, _a in
+                             fake.lease_writes), "K1's takeover",
+                 2 * GW_KUBE_RENEW_S + 5)
+        released = [a for t, m, h, a in fake.lease_writes
+                    if t == "token-k0" and h == ""]
+        acquired = [a for t, m, h, a in fake.lease_writes
+                    if t == "token-k1" and h]
+        out["takeover_s"] = (acquired[0] - released[0]) if released \
+            else None
+        t_edit = time.monotonic()
+        fake.apply(route(1, 4))
+        _gw_wait(lambda: clients.moved("k1", 1, t_edit) is not None,
+                 "K1's route move after the takeover", 30)
+        _gw_wait(lambda: fake.status("AIGatewayRoute", "serving").get(
+            "observedGeneration") == 4, "K1's patch of the next edit", 30)
+        clients.stop()
+        last = [t for t, k, _c, _a in fake.patches
+                if k == "AIGatewayRoute/serving"][-1]
+        out["after_takeover"] = {
+            "moved_s": clients.moved("k1", 1, t_edit),
+            "chats": len(clients.seen["k1"]),
+            "patches_k1": sum(t == "token-k1" for t, *_ in fake.patches)
+            - n_k1, "last_route_patch_by": last}
+        if out["takeover_s"] is None \
+                or out["takeover_s"] > GW_KUBE_RENEW_S + 1.0 \
+                or last != "token-k1" or clients.failures:
+            bad.append(f"takeover: {out['takeover_s']} s, "
+                       f"{out['after_takeover']}, failed chats "
+                       f"{clients.failures[:5]}")
+        # (h) the typed clients against the same API server
+        import asyncio
+
+        from aigw_tpu_torch.config.generated import clients as gen
+        from aigw_tpu_torch.config.kube import KubeAuth, KubeClient, KubeSource
+
+        auth = KubeAuth(server=fake.url, token="token-typed",
+                        ca_data=open(crt, "rb").read())
+
+        async def typed():
+            client = KubeClient(auth)
+            try:
+                cs = gen.AigwClientset(client)
+                names = sorted(r.name for r in
+                               await cs.ai_gateway_route.list())
+                got = await cs.ai_gateway_route.get("serving")
+                return names, got.spec.rules[0]["backendRefs"][0]["name"]
+            finally:
+                await client.close()
+
+        names, ref = asyncio.run(typed())
+        src = KubeSource(auth, kinds=("AIGatewayRoute",))
+        informer = gen.AIGatewayRouteInformer(src)
+        events: list = []
+        informer.add_event_handler(lambda et, o: events.append((et, o.name)))
+        src.start()
+        try:
+            src.wait_synced(30)
+            _gw_wait(lambda: fake.watching("AIGatewayRoute").get(
+                "token-typed"), "the informer's watch")
+            fake.apply(route(0, 1, "typed", None, "typed-model"))
+            _gw_wait(lambda: ("ADDED", "typed") in events, "the informer")
+        finally:
+            src.stop()
+        out["typed"] = {"list": names, "serving_ref": ref,
+                        "events": events,
+                        "store": sorted(r.name for r in informer.store())}
+        if names != ["bad-route", "serving"] or ref != "llama-1" \
+                or sorted(events[:2]) != [("ADDED", "bad-route"),
+                                          ("ADDED", "serving")] \
+                or out["typed"]["store"] != ["bad-route", "serving",
+                                             "typed"]:
+            bad.append(f"typed clients: {out['typed']}")
+        stop(k1, "gateway K1")
+        _gw_wait(lambda: fake.holder(GW_KUBE_LEASE) == "",
+                 "K1's surrender", 10)
+    finally:
+        for proc, err in started:
+            if proc is not None:
+                _stop_tree(proc)
+            err.close()
+        if wh is not None:
+            if wh.poll() is None:
+                wh.kill()
+                wh.wait(timeout=30)
+            wh.stdout.close()
+        fake.close()
+    out["patches"] = {tok: sum(t == tok for t, *_ in fake.patches)
+                      for tok in ("token-k0", "token-k1")}
+    out["lease_writes"] = {tok: sum(t == tok for t, *_ in fake.lease_writes)
+                           for tok in ("token-k0", "token-k1")}
+    if bad:
+        raise AssertionError(f"serve_gateway kube: {bad}")
+    out["wall_s"] = time.monotonic() - t_block
+    return out
+
+
 def serve_gateway(torch, params, launches: dict) -> dict:
     """Client → the port's gateway → two port replicas on the card.
 
@@ -8603,9 +9359,11 @@ def serve_gateway(torch, params, launches: dict) -> dict:
     replicas and gateway, the client fronts (``_gw_fronts``) and a
     hosted-provider hop in front of the gateway (``_gw_hosted``), each
     with its own launch counts, an agent's MCP turn through a third,
-    traced gateway (``_gw_mcp``), and the control plane and command line
+    traced gateway (``_gw_mcp``), the control plane and command line
     (``_gw_control``: ``run --workers 2``, a ``--reuse-port`` roll, a
-    manifest directory, autoconfig)."""
+    manifest directory, autoconfig), and the live cluster source
+    (``_gw_kube``: two gateways fed by a TLS API server on one Lease,
+    the webhook, the typed clientset)."""
     import numpy as np
 
     from aigw_tpu_torch.models import llama
@@ -8811,6 +9569,15 @@ def serve_gateway(torch, params, launches: dict) -> dict:
                 or counts["fused_paged_decode"] <= 0:
             raise AssertionError(f"serve_gateway: K1/K2 not on the control "
                                  f"block's path: {counts}")
+        # the live cluster source: two gateways fed by an API server, the
+        # webhook, the typed clients
+        reset_counts()
+        out["kube"] = _gw_kube(reps)
+        launches["serve_kube"] = counts = read_counts()
+        if counts["ragged_prefill_attention"] <= 0 \
+                or counts["fused_paged_decode"] <= 0:
+            raise AssertionError(f"serve_gateway: K1/K2 not on the cluster "
+                                 f"block's path: {counts}")
         proc.send_signal(2)  # SIGINT: the gateway stops and exits 0
         if proc.wait(timeout=30) != 0:
             raise AssertionError(f"serve_gateway: the gateway exited "
@@ -8868,7 +9635,24 @@ def serve_gateway(torch, params, launches: dict) -> dict:
         f"old exit {k['roll']['old_exit_s']:.2f} s, max client gap "
         f"{k['roll']['max_gap_ms']:.1f} ms; manifest route moved in "
         f"{k['manifests']['moved_s']:.2f} s; block {k['wall_s']:.2f} s")
+    log(_kube_line(out["kube"], launches["serve_kube"], card))
     return out
+
+
+def _kube_line(k: dict, counts: dict, card: str) -> str:
+    """The cluster block's printed line."""
+    return (
+        f"serve_gateway kube ({card}; TLS webhook and API server, "
+        f"openssl on this machine): sync {k['sync_s']['token-k0']:.3f} / "
+        f"{k['sync_s']['token-k1']:.3f} s (K0 / K1), up "
+        f"{k['k0_up_s']:.2f} / {k['k1_up_s']:.2f} s; route moved "
+        f"{k['route_moved_s']['k0']:.2f} / {k['route_moved_s']['k1']:.2f} "
+        f"s; gap edit served {k['watch_loss']['served_s']:.2f} s after the "
+        f"410; takeover {k['takeover_s']:.2f} s, K1's move after it "
+        f"{k['after_takeover']['moved_s']:.2f} s; status patches "
+        f"{k['patches']}, Lease writes {k['lease_writes']}; launches K1 "
+        f"{counts['ragged_prefill_attention']}, K2 "
+        f"{counts['fused_paged_decode']}; block {k['wall_s']:.2f} s")
 
 
 #: serve_fleet's depth: Llama-3-8B's widths, 4 of its 32 layers, and
@@ -9716,6 +10500,8 @@ def main() -> int:
         row["launches_serve_mcp"] = launches["serve_mcp"].get(
             row["name"], 0)
         row["launches_serve_control"] = launches["serve_control"].get(
+            row["name"], 0)
+        row["launches_serve_kube"] = launches["serve_kube"].get(
             row["name"], 0)
         # replica B's (A launches in its own process)
         row["launches_serve_fleet"] = launches["serve_fleet"].get(

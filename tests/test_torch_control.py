@@ -26,6 +26,7 @@ from aigw_tpu.config import controller as jcontroller
 from aigw_tpu.config import crd as jcrd
 from aigw_tpu.config import model as jmodel
 from aigw_tpu.config import refgrant as jrefgrant
+from aigw_tpu.config import watcher as jwatcher
 from aigw_tpu_torch.config import admission as tadmission
 from aigw_tpu_torch.config import autoconfig as tauto
 from aigw_tpu_torch.config import bundle as tbundle
@@ -704,7 +705,7 @@ def test_autoconfig_reads_the_environment(monkeypatch):
 
 
 # -- the watcher --------------------------------------------------------------------
-def test_watcher_over_directories(tmp_path):
+def test_watcher_over_directories(tmp_path, monkeypatch):
     """A manifest directory reconciled on every tick (a quarantined
     object shows in ``not_accepted``, an edit reloads), a bundle
     directory rewritten, and ``kube:`` refused naming the source."""
@@ -743,9 +744,16 @@ def test_watcher_over_directories(tmp_path):
     assert [rc.config.routes[0].rules[0].backends[0].backend
             for rc in seen["m"]] == ["a", "b"]
     assert [rc.config.uuid for rc in seen["b"]] == ["bundle-1", "two"]
-    with pytest.raises(tmodel.ConfigError, match="kube:"):
-        twatcher.ConfigWatcher("kube:in-cluster", lambda rc: None) \
-            .load_initial()
+    # kube:in-cluster outside a cluster: the reference's exception
+    monkeypatch.delenv("KUBERNETES_SERVICE_HOST", raising=False)
+    raised = []
+    for watcher in (jwatcher, twatcher):
+        with pytest.raises(Exception) as e:
+            watcher.ConfigWatcher("kube:in-cluster", lambda rc: None) \
+                .load_initial()
+        raised.append((type(e.value), str(e.value)))
+    assert raised[1] == raised[0] == (
+        ValueError, "not running in-cluster (KUBERNETES_SERVICE_HOST unset)")
 
 
 def test_load_config_compiles_crd_manifests(tmp_path):

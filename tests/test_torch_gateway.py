@@ -448,15 +448,19 @@ def test_cli_run_serves_and_refuses_unported_fields(replicas, tmp_path):
         assert proc.wait(timeout=30) == 0
         proc.stdout.close()
         proc.stderr.close()
-    # the live-cluster source is not ported (CRD manifests load:
-    # tests/test_torch_control.py)
-    done = subprocess.run(
-        [sys.executable, "-m", "aigw_tpu_torch", "run", "kube:in-cluster",
-         "--port", "0"], cwd=ROOT, capture_output=True, text=True,
-        timeout=60)
-    assert done.returncode == 1
-    assert "config error" in done.stderr and "'kube:in-cluster'" in \
-        done.stderr
+    # a live cluster outside a cluster ends as the reference's does (the
+    # cluster source itself: tests/test_torch_kube.py)
+    done = [subprocess.run(
+        [sys.executable, "-m", pkg, "run", "kube:in-cluster", "--port", "0"],
+        cwd=ROOT, capture_output=True, text=True, timeout=60,
+        env={k: v for k, v in os.environ.items()
+             if k != "KUBERNETES_SERVICE_HOST"})
+        for pkg in ("aigw_tpu", "aigw_tpu_torch")]
+    assert done[1].returncode == done[0].returncode == 1
+    assert done[1].stderr.strip().splitlines()[-1] == \
+        done[0].stderr.strip().splitlines()[-1] == (
+            "ValueError: not running in-cluster "
+            "(KUBERNETES_SERVICE_HOST unset)")
 
 
 class _Replay(BaseHTTPRequestHandler):

@@ -2027,6 +2027,30 @@ def test_gateway_control_block_on_cuda_replicas(cuda):
         close()
 
 
+def test_gateway_kube_block_on_cuda_replicas(cuda):
+    """The live cluster source onto the card's replicas (chip_smoke's
+    ``_gw_kube``): the webhook and the API server over TLS, ``validate
+    kube:``, two gateways on one Lease (a kubeconfig's and the injected
+    sidecar's), a route edit, a bad route, a 410 with an edit in the
+    gap, the leader's SIGTERM and the follower's takeover, the typed
+    clients; K1 and K2 launched."""
+    import chip_smoke as cs
+
+    reps, _addrs, _gw, close = _gateway_pair(cuda)
+    try:
+        k1 = paged_attention.ragged_prefill_attention.launches
+        k2 = decode_fused.fused_paged_decode.launches
+        out = cs._gw_kube(reps, model="tiny-random")
+        assert out["before"] == {"k0": [0, 0], "k1": [0, 0]}
+        assert out["bad_route"]["serving"] == {"k0": 1, "k1": 1}
+        assert out["takeover_s"] <= cs.GW_KUBE_RENEW_S + 1.0
+        assert out["after_takeover"]["last_route_patch_by"] == "token-k1"
+        assert paged_attention.ragged_prefill_attention.launches > k1
+        assert decode_fused.fused_paged_decode.launches > k2
+    finally:
+        close()
+
+
 def test_gateway_honours_a_drained_cuda_replica(cuda):
     """A replica drained with ``POST /drain`` shows ``draining`` on the
     gateway's ``/fleet/state`` and receives none of the next requests;

@@ -650,3 +650,51 @@ def test_mcp_and_gateway_obs_modules_import_with_optional_packages_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+KUBE_MODULES = [
+    "aigw_tpu_torch.config.kube", "aigw_tpu_torch.config.webhook",
+    "aigw_tpu_torch.config.clientgen",
+    "aigw_tpu_torch.config.generated.clients"]
+
+
+def test_cluster_modules_import_with_optional_packages_blocked():
+    """The live cluster source, the webhook, the clientset generator and
+    its generated clients import only the standard library and the port
+    (the generator imports pyyaml when it runs, as the reference's
+    does); in a fresh interpreter where jax, the reference package,
+    aiohttp and yaml cannot be imported every one imports, a JSON-text
+    kubeconfig loads, and neither torch nor any of those is pulled in."""
+    import sys as _sys
+
+    for m in KUBE_MODULES:
+        assert m in MODULES, m
+        outside = [n for n in _imported_names(
+            ROOT / (m.replace(".", "/") + ".py"))
+            if n.split(".")[0] not in _sys.stdlib_module_names
+            and not n.startswith("aigw_tpu_torch")]
+        assert outside == (["yaml"] if m.endswith("clientgen") else []), \
+            (m, outside)
+    code = (
+        "import sys, importlib, json, tempfile\n"
+        "for m in ('jax', 'aigw_tpu', 'aiohttp', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {KUBE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from aigw_tpu_torch.config import kube\n"
+        "with tempfile.NamedTemporaryFile('w', suffix='.json') as f:\n"
+        "    json.dump({'current-context': 'c', 'contexts': [{'name': 'c',\n"
+        "        'context': {'cluster': 'k', 'user': 'u'}}], 'clusters': [\n"
+        "        {'name': 'k', 'cluster': {'server': 'http://h:1'}}],\n"
+        "        'users': [{'name': 'u', 'user': {'token': 't'}}]}, f)\n"
+        "    f.flush()\n"
+        "    a = kube.load_kubeconfig(f.name)\n"
+        "assert (a.server, a.token) == ('http://h:1', 't'), a\n"
+        "bad = [k for k, v in sys.modules.items() if v and k.split('.')[0]\n"
+        "       in ('jax', 'jaxlib', 'aigw_tpu', 'aiohttp', 'yaml', 'torch')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -5,16 +5,21 @@ the kernel path, the port's gateway in front of them in its own process
 (``python -m aigw_tpu_torch run``), the phase's six gates, the
 direct-versus-gateway TTFT p50 and burst tokens/s, and the phase's
 blocks on the same replicas (the fronts, the hosted hop, the MCP turn,
-and the control plane's: ``--workers``, a ``--reuse-port`` roll, a
-manifest directory, autoconfig).
+the control plane's: ``--workers``, a ``--reuse-port`` roll, a manifest
+directory, autoconfig; and the live cluster source's).
 
-    python3 tools/torch_gateway.py
+    python3 tools/torch_gateway.py          # the whole phase
+    python3 tools/torch_gateway.py --kube   # the cluster block alone
 
 It builds the kernels, draws the Llama-3-8B-width weights from the
 registry's seed (the phase serves their first layers), runs the phase
-and prints its JSON line; any failed gate exits non-zero.
+(or, with ``--kube``, only ``_gw_kube`` on the phase's two replicas,
+the launch counts zeroed before it) and prints its JSON line; any
+failed gate exits non-zero.
 """
 
+import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -26,9 +31,45 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 
+def kube_block(params) -> dict:
+    """``_gw_kube`` alone, on two replicas built as ``serve_gateway``
+    builds them."""
+    from aigw_tpu_torch.models import llama
+    from aigw_tpu_torch.models.registry import ModelSpec, register_model
+    from aigw_tpu_torch.tpuserve.engine import EngineConfig
+    from aigw_tpu_torch.tpuserve.server import TPUServeServer
+
+    cfg = dataclasses.replace(llama.LLAMA3_8B, n_layers=cs.GW_LAYERS)
+    register_model(ModelSpec(cs.GW_MODEL, "llama", cfg))
+    p = cs._first_layers(params, cs.GW_LAYERS)
+    reps = [TPUServeServer(cs.GW_MODEL, EngineConfig(**cs.TP_CFG),
+                           device="cuda", port=0, params=p) for _ in range(2)]
+    for r in reps:
+        r.start()
+    try:
+        cs.reset_counts()
+        out = cs._gw_kube(reps)
+        counts = cs.read_counts()
+    finally:
+        for r in reps:
+            r.stop()
+    if counts["ragged_prefill_attention"] <= 0 \
+            or counts["fused_paged_decode"] <= 0:
+        raise AssertionError(f"K1/K2 not on the cluster block's path: "
+                             f"{counts}")
+    card = cs.nvidia_smi_line()
+    cs.log(cs._kube_line(out, counts, card))
+    out.update(card=card, launches=counts)
+    return out
+
+
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kube", action="store_true",
+                    help="run the live cluster block alone")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this needs an NVIDIA "
                 "GPU", 2)
@@ -47,12 +88,16 @@ def main() -> int:
                          device="cuda", port=0)
     launches: dict = {}
     try:
+        if args.kube:
+            print(json.dumps({"serve_gateway_kube": kube_block(
+                srv.engine.params)}), flush=True)
+            return 0
         print(json.dumps({"serve_gateway": cs.serve_gateway(
             torch, srv.engine.params, launches)}), flush=True)
     finally:
         srv.engine = None
     for block in ("serve_gateway", "serve_fronts", "serve_hosted",
-                  "serve_mcp", "serve_control"):
+                  "serve_mcp", "serve_control", "serve_kube"):
         cs.log(f"launches on {block}: {launches[block]}")
     return 0
 
