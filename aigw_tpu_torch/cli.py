@@ -33,6 +33,8 @@
     python -m aigw_tpu_torch quota-service --port 1981 --dir /var/aigw-quota
     python -m aigw_tpu_torch webhook --image aigw-tpu:latest \\
         --tls-cert tls.crt --tls-key tls.key
+    python -m aigw_tpu_torch core-config gateway.json -o aigw-core.json \\
+        --listen-port 1975 --fallback-port 1976 --access-log core.jsonl
     python -m aigw_tpu_torch --version
 
 With no flags a replica runs the reference's default programs: the
@@ -118,8 +120,19 @@ gateway sidecar, ``run kube:in-cluster``, into Envoy Gateway's pods),
 over TLS with ``--tls-cert`` and ``--tls-key``; SIGTERM or SIGINT stops
 it.
 
-Not ported: the ``core-config`` subcommand (the native proxy core),
-which is absent. Flag names follow the reference's.
+``core-config CONFIG`` compiles the config's natively servable rules
+(``config/nativecore.py``) into the JSON of the C++ proxy core
+(``aigw-core``, built by ``aigw_tpu_torch.native.core_binary()``), which
+listens in front and relays every other request to this gateway on the
+fallback address (``run --port`` equal to ``--fallback-port``); it
+prints what stays on the Python path. A gateway run with
+``AIGW_CORE_ACCESS_LOG`` naming the core's ``--access-log`` tails it
+into spans and post-hoc costs (``obs/native_spans.py``). ``run`` builds
+and loads the C++ SSE and event-stream scanners (``utils/native.py``)
+before it serves, and says so after its startup line; a failed build
+stops it with the compiler's output.
+
+Flag names follow the reference's.
 """
 
 from __future__ import annotations
@@ -230,6 +243,23 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument(
         "--mcp-json", default="",
         help="same as --mcp-config but inline JSON")
+    cc = sub.add_parser(
+        "core-config",
+        help="compile the native proxy core's config (aigw-core serves "
+             "eligible routes in C++; the rest fall back to the Python "
+             "gateway)")
+    cc.add_argument("config")
+    cc.add_argument("-o", "--out", default="aigw-core.json")
+    cc.add_argument("--listen-host", default="0.0.0.0")
+    cc.add_argument("--listen-port", type=int, default=1975)
+    cc.add_argument("--fallback-host", default="127.0.0.1")
+    cc.add_argument("--fallback-port", type=int, default=1976,
+                    help="where the Python gateway listens (run it "
+                         "with --port matching this)")
+    cc.add_argument("--access-log", default="",
+                    help="JSON-lines access log for natively routed "
+                         "requests (model/backend/status/duration/"
+                         "token usage per line)")
     v = sub.add_parser("validate", help="validate a config file")
     v.add_argument("config")
     st = sub.add_parser(
@@ -472,7 +502,12 @@ async def run_gateway_cli(args, reuse_port: bool = False) -> int:
     from aigw_tpu_torch.config.runtime import RuntimeConfig
     from aigw_tpu_torch.config.watcher import ConfigWatcher
     from aigw_tpu_torch.gateway.server import run_gateway
+    from aigw_tpu_torch.utils import native
 
+    # the C++ scanners are built and loaded before anything is served
+    # (nothing is on the loop yet), so no compile lands on it mid-stream;
+    # a failed build raises with the compiler's output
+    scanner = native.load()
     holder = {}
 
     def on_reload(rc) -> None:
@@ -484,6 +519,7 @@ async def run_gateway_cli(args, reuse_port: bool = False) -> int:
     # backends, again on every reload through the watcher's transform
     bridges: list = []
     transform = None
+    tailer = None
     mcp_text = ""
     if args.mcp_config:
         with open(os.path.expanduser(args.mcp_config),
@@ -540,8 +576,29 @@ async def run_gateway_cli(args, reuse_port: bool = False) -> int:
         if watcher is not None:
             server.conditions_fn = watcher.not_accepted
             await watcher.start()
+        # native-core telemetry: when the C++ core's access log is
+        # shared with us (AIGW_CORE_ACCESS_LOG), tail it into spans and
+        # post-hoc costs (obs/native_spans.py)
+        core_log = os.environ.get("AIGW_CORE_ACCESS_LOG", "")
+        if core_log:
+            from aigw_tpu_torch.obs.native_spans import (
+                NativeLogTailer,
+                make_cost_fn,
+            )
+
+            tailer = NativeLogTailer(
+                core_log, server.tracer,
+                cost_fn=make_cost_fn(
+                    lambda: getattr(holder.get("server"), "_runtime",
+                                    None),
+                    server.cost_sink))
+            tailer.start()
+            print(f"native-core telemetry: tailing {core_log}",
+                  flush=True)
         print(f"gateway listening on http://{args.host}:{server.port}",
               flush=True)
+        print(f"native scanners: SSE and event-stream parsing in C++ "
+              f"({os.path.basename(scanner._name)})", flush=True)
         loop = asyncio.get_running_loop()
         stop = asyncio.Event()
         for sig in (signal.SIGINT, signal.SIGTERM):
@@ -553,6 +610,8 @@ async def run_gateway_cli(args, reuse_port: bool = False) -> int:
             drain = 1.0
         if watcher is not None:
             await watcher.stop()
+        if tailer is not None:
+            await asyncio.to_thread(tailer.stop)
         await server.stop(grace=max(0.0, drain))
         return 0
     finally:
@@ -795,6 +854,41 @@ def translate(config: str) -> int:
     return 0
 
 
+def core_config(args) -> int:
+    """``core-config``: prints and writes what the reference's does."""
+    from aigw_tpu_torch.config.model import ConfigError, load_config
+    from aigw_tpu_torch.config.nativecore import (
+        compile_core_config,
+        write_core_config,
+    )
+
+    try:
+        cfg = load_config(args.config)
+    except ConfigError as e:
+        print(f"INVALID: {e}", file=sys.stderr)
+        return 1
+    core, skipped = compile_core_config(
+        cfg,
+        listen_host=args.listen_host,
+        listen_port=args.listen_port,
+        fallback_host=args.fallback_host,
+        fallback_port=args.fallback_port,
+        access_log_path=args.access_log,
+    )
+    write_core_config(args.out, core)
+    print(f"{args.out}: {len(core['rules'])} native rules, "
+          f"fallback {args.fallback_host}:{args.fallback_port}")
+    for s in skipped:
+        print(f"  python-path: {s}")
+    if cfg.llm_request_costs and args.access_log:
+        # without the tailer, native requests' costs are silently never
+        # computed: make the wiring requirement explicit
+        print(f"  REMINDER: run the gateway with "
+              f"AIGW_CORE_ACCESS_LOG={args.access_log} so native "
+              f"requests get spans + post-hoc cost accounting")
+    return 0
+
+
 def healthcheck(url: str, timeout: float) -> int:
     """``healthcheck``: GET ``<url>/health``; exit 0 and print it when
     its status is ``ok``."""
@@ -889,6 +983,8 @@ def main(argv: list[str] | None = None) -> int:
 
         logging.basicConfig(level=logging.INFO)
         return asyncio.run(run_quota_service(args))
+    if args.cmd == "core-config":
+        return core_config(args)
     if args.cmd in ("validate", "status", "translate", "healthcheck"):
         _log_setup("info")
         if args.cmd == "validate":

@@ -343,19 +343,28 @@ class _RawBody:
         self.model = model
 
 
+#: receives every finished request's costs and its labels (``model``,
+#: ``backend``, ``route``; ``native`` for the core's requests)
+CostSink = Callable[[dict[str, int], dict[str, str]], Any]
+
+
 class GatewayServer:
     """The data plane: routes, pickers, breaker, metrics and ledger.
 
     ``rng`` draws the weighted backend picks (seed it for a reproducible
-    sequence); ``tracer`` defaults to the ``OTEL_*`` environment's."""
+    sequence); ``tracer`` defaults to the ``OTEL_*`` environment's;
+    ``cost_sink`` receives each request's costs, as the reference's
+    does (the native core's tailer feeds it too)."""
 
     def __init__(self, runtime: RuntimeConfig, *,
                  rng: random.Random | None = None,
-                 tracer: Tracer | None = None):
+                 tracer: Tracer | None = None,
+                 cost_sink: CostSink | None = None):
         self._runtime = runtime
         self.metrics = GenAIMetrics()
         self.rng = rng or random.Random()
         self.tracer = tracer or Tracer()
+        self.cost_sink = cost_sink
         # request header → span attribute (default agent-session-id:
         # session.id)
         self._header_attrs = parse_header_attribute_mapping(
@@ -1831,7 +1840,8 @@ class GatewayServer:
         limiter = self._runtime.rate_limiter
         has_quota = limiter is not None and limiter.rules
         ledger = self.usage_ledger
-        if ledger is None and not has_quota and not self.access_log.enabled:
+        if (self.cost_sink is None and ledger is None and not has_quota
+                and not self.access_log.enabled):
             return
         model = req_metrics.request_model
         backend = req_metrics.provider
@@ -1859,6 +1869,11 @@ class GatewayServer:
                     limiter.consume, costs, model, backend, client_headers)
             else:
                 limiter.consume(costs, model, backend, client_headers)
+        if self.cost_sink is not None:
+            self.cost_sink(
+                costs,
+                {"model": model, "backend": backend, "route": route_name},
+            )
 
 
 class _Migrator:
@@ -2038,11 +2053,13 @@ async def run_gateway(runtime: RuntimeConfig, host: str = "127.0.0.1",
                       port: int = 1975,
                       rng: random.Random | None = None,
                       tracer: Tracer | None = None,
-                      reuse_port: bool = False) -> GatewayServer:
+                      reuse_port: bool = False,
+                      cost_sink: CostSink | None = None) -> GatewayServer:
     """Start the gateway; the caller stops it (``await server.stop()``).
     ``server.port`` is the bound port (``port=0`` binds a free one);
     ``reuse_port`` binds it with ``SO_REUSEPORT``."""
-    server = GatewayServer(runtime, rng=rng, tracer=tracer)
+    server = GatewayServer(runtime, rng=rng, tracer=tracer,
+                           cost_sink=cost_sink)
     await server.start(host, port, reuse_port)
     logger.info("gateway listening on %s:%d", host, server.port)
     return server

@@ -258,6 +258,7 @@ def save_checkpoint(params: dict[str, torch.Tensor], path: str) -> None:
     if os.path.exists(os.path.join(path, "_METADATA")):
         raise FileExistsError(f"a checkpoint already exists at {path}")
     os.makedirs(path, exist_ok=True)
+    # aigw: lint-ok(determinism): orbax metadata stamp, no tensor reads it
     t0 = time.time_ns()
     ctx = ts.Context()
     tree: dict[str, Any] = {}
@@ -303,6 +304,7 @@ def save_checkpoint(params: dict[str, torch.Tensor], path: str) -> None:
                              "StandardCheckpointHandler",
             "metrics": {}, "performance_metrics": {},
             "init_timestamp_nsecs": t0,
+            # aigw: lint-ok(determinism): orbax metadata stamp, no tensor
             "commit_timestamp_nsecs": time.time_ns(),
             "custom_metadata": {}}, f)
     logger.info("saved checkpoint to %s", path)

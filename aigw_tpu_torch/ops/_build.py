@@ -96,6 +96,7 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # aigw: lint-ok(determinism): times the nvcc build, no kernel reads it
     t0 = time.monotonic()
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -108,6 +109,7 @@ def build() -> Path:
         _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
                    *map(str, objs)]])
         os.replace(lib, out)
+    # aigw: lint-ok(determinism): the build's seconds, no kernel reads it
     last_build_s = time.monotonic() - t0
     return out
 

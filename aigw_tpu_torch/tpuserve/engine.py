@@ -191,6 +191,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from aigw_tpu_torch.analysis.registry import engine_thread_only
 from aigw_tpu_torch.device import resolve_device
 from aigw_tpu_torch.models import kvq
 from aigw_tpu_torch.obs.flight import trace_id_of
@@ -1187,6 +1188,7 @@ class Engine:
         return self._dev("window", k, lean, greedy, draft,
                          self._state_bucket)
 
+    @engine_thread_only
     def _op_window(self, k: int, lean: bool, greedy: bool, draft: int,
                    P: int):
         self._state_bucket = P
@@ -1397,6 +1399,7 @@ class Engine:
         kmin = min(self.cfg.min_decode_steps_per_tick, K)
         return [K] if kmin == K else [kmin, K]
 
+    @engine_thread_only
     def _choose_window(self) -> int:
         """Shrink to the small window while requests wait or a stream is
         brand new; regrow after two steady ticks. Only interactive work
@@ -1461,6 +1464,24 @@ class Engine:
 
             _build.library()
         self._build_device_state()
+        self._warm_decode_windows()
+        if self._adapter_store is not None:
+            self._adapter_store.warm()
+        self.attn.warm()
+        if self.cfg.warm_prefill_buckets > 0:
+            # the sp chunk programs are the engine's, not a backend's
+            self._warm_sp_prefill_shapes()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stats.warmup_ms = round(1e3 * (time.monotonic() - t0), 3)
+        self.stats.warm_programs = self.compile_tracker.program_count()
+        self._refresh_stats()
+
+    @engine_thread_only
+    def _warm_decode_windows(self) -> None:
+        """``warmup``'s decode ladder: every window program at each warm
+        page bucket, the quiesced bucket restored after. Engine-thread
+        state: it runs before ``start()``, when no loop is live."""
         quiesced = self._state_bucket
         try:
             for P in self._warm_page_buckets():
@@ -1474,17 +1495,6 @@ class Engine:
                                 self._run_window(k, False, greedy, d)
         finally:
             self._state_bucket = quiesced
-        if self._adapter_store is not None:
-            self._adapter_store.warm()
-        self.attn.warm()
-        if self.cfg.warm_prefill_buckets > 0:
-            # the sp chunk programs are the engine's, not a backend's
-            self._warm_sp_prefill_shapes()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.stats.warmup_ms = round(1e3 * (time.monotonic() - t0), 3)
-        self.stats.warm_programs = self.compile_tracker.program_count()
-        self._refresh_stats()
 
     def _warm_page_buckets(self) -> list[int]:
         """Page buckets warmup() captures the decode ladder at: the
@@ -1663,6 +1673,7 @@ class Engine:
             self.cfg.page_size)
 
     # -- KV mobility: the host spill tier and the chain digest ---------------
+    @engine_thread_only
     def _spill_page(self, key: bytes, page: int) -> None:
         """The prefix cache's spill sink: copy the page being reclaimed
         to the host and park it in the tier under its chain key. It runs
@@ -1674,6 +1685,7 @@ class Engine:
         self.host_tier.put(key, self._export_pages([page])[0])
         self.stats.kv_spill_ms += 1e3 * (time.monotonic() - t0)
 
+    @engine_thread_only
     def _revive_chain(self, chain_keys: list) -> int:
         """Promote the longest spilled run extending the resident prefix
         back into the pool: allocate pages, scatter the host rows, and
@@ -1742,6 +1754,7 @@ class Engine:
         return max(self.KV_DIGEST_MAX,
                    self.KV_DIGEST_MIN_CHAINS * self.cfg.max_pages_per_seq)
 
+    @engine_thread_only
     def _refresh_kv_digest(self) -> None:
         """Rebuild the digest on the engine thread, the only thread that
         changes the cache's keys and the tier's."""
@@ -1774,6 +1787,15 @@ class Engine:
         if "error" in box:
             raise MigrationError(box["error"])
         return box["result"]
+
+    def refresh_stats(self, timeout: float = 30.0) -> None:
+        """Recompute ``stats`` now: as a job on the engine thread while
+        the loop runs (``_refresh_stats`` is engine-thread-only), else
+        on the caller's thread."""
+        if self._thread is not None and self._thread.is_alive():
+            self._post_job("stats", None, timeout, "stats refresh")
+        else:
+            self._refresh_stats()
 
     def kv_export_pages(self, keys: list, timeout: float = 30.0) -> list:
         """Pages by chain key for a sibling's fetch (``/kv/pages``):
@@ -1813,6 +1835,7 @@ class Engine:
         prefix-cache allocator): /state's ``migration`` flag."""
         return isinstance(self.allocator, RefcountedAllocator)
 
+    @engine_thread_only
     def _process_migrations(self) -> None:
         """Run the queued jobs on the engine thread; an error goes to the
         waiting caller, never into the engine loop, except on a mesh a
@@ -1834,6 +1857,8 @@ class Engine:
                     box["result"] = self._dev("counts", payload)
                 elif kind == "digests":
                     box["result"] = self._dev("digests", payload)
+                elif kind == "stats":
+                    box["result"] = self._refresh_stats()
                 else:
                     box["result"] = self._do_import(*payload)
             except Exception as e:  # noqa: BLE001 — relayed to the caller
@@ -1843,6 +1868,7 @@ class Engine:
             finally:
                 box["evt"].set()
 
+    @engine_thread_only
     def _do_fetch(self, keys: list) -> list:
         if self.prefix_cache is None:
             return []
@@ -1872,6 +1898,7 @@ class Engine:
             self.stats.kv_fetch_pages_out += len(out)
         return out
 
+    @engine_thread_only
     def _do_export(self, req: GenRequest) -> dict:
         """The engine-thread half of migrate_export. Only complete pages,
         every row written, travel: k = (m - 1) // page_size for m tokens
@@ -1912,6 +1939,7 @@ class Engine:
                     len(out["blob"]["tokens"]), len(out["data"]))
         return out
 
+    @engine_thread_only
     def _export_cut(self, idx: int) -> dict:
         """Serialize slot ``idx``'s session at the settled token boundary
         and free the slot: the cut behind a migration export and a batch
@@ -1966,6 +1994,7 @@ class Engine:
         self._wake.set()
         return {"blob": blob, "data": data}
 
+    @engine_thread_only
     def _do_import(self, tokens: list[int], pages_data: list,
                    start: int = 0, source: str = "migration") -> int:
         """The engine-thread half of migrate_import and kv_import_pages:
@@ -2030,6 +2059,7 @@ class Engine:
         return sum(1 for s in self._slots
                    if s is not None and s.req.priority == "batch")
 
+    @engine_thread_only
     def _park_batch_slot(self, idx: int) -> bool:
         """The second preemption rung: cut a live batch slot off the
         device through the export and keep it host-side (pages, blob and
@@ -2066,6 +2096,7 @@ class Engine:
                     "admission", req.id, len(entry["data"]))
         return True
 
+    @engine_thread_only
     def _preempt_batch(self) -> bool:
         """Park live batch slots so waiting interactive requests admit (at
         most one per waiting request); True when a slot freed."""
@@ -2081,6 +2112,7 @@ class Engine:
                 freed += 1
         return freed > 0
 
+    @engine_thread_only
     def _admit_batch_tier(self) -> bool:
         """Admit offline work into slots interactive leaves idle: after
         the interactive pass, only while the interactive queue is empty,
@@ -2210,6 +2242,7 @@ class Engine:
         self._apply_frees()
         logger.info("engine loop stopped")
 
+    @engine_thread_only
     def _abort_all(self, reason: str) -> None:
         if self._inflight is not None:
             self._pending_frees.extend(self._inflight.frees)
@@ -2248,6 +2281,7 @@ class Engine:
         except queue.Empty:
             pass
 
+    @engine_thread_only
     def _reap_cancelled(self) -> None:
         for i, s in enumerate(self._slots):
             if s is not None and s.req.cancelled.is_set():
@@ -2342,6 +2376,7 @@ class Engine:
         requeue = [r for r in pending if id(r) in left]  # arrival order
         return admit, requeue, len(capped)
 
+    @engine_thread_only
     def _admit(self) -> bool:
         """Admit queued requests: the fairness guard picks and orders
         each pass's requests, each is classified once (its chain keys
@@ -2467,6 +2502,7 @@ class Engine:
                 break
         return admitted
 
+    @engine_thread_only
     def _admit_interactive(self) -> bool:
         """Admission at a chunk boundary of a sequence-parallel prefill
         (``attention.sp_chunked_prefill``): the queue's short requests
@@ -2561,6 +2597,7 @@ class Engine:
             return False, chain
         return True, chain
 
+    @engine_thread_only
     def _admit_batch(self, reqs: list[GenRequest], chain_by_req: dict
                      ) -> tuple[int, list[GenRequest] | None]:
         """Allocate and batch-prefill ``reqs`` (all simple). Returns
@@ -2667,6 +2704,7 @@ class Engine:
             S = -(-S // multiple_of) * multiple_of
         return S
 
+    @engine_thread_only
     def _mark_admitted(self, i: int) -> None:
         """Slot i's whole row is uploaded before the next dispatch (its
         draft length included); a page bucket that must grow rebuilds
@@ -2678,6 +2716,7 @@ class Engine:
         self._spec_dirty.discard(i)
         self._cn_dirty.discard(i)  # the row carries the mask too
 
+    @engine_thread_only
     def _admit_one(self, req: GenRequest, chain: list) -> str:
         """Per-request admission with prefix-cache adoption. Returns
         "admitted", "skipped" (consumed without a slot), "stop" (page
@@ -2695,6 +2734,7 @@ class Engine:
         finally:
             self._reserved_slots.discard(slot_idx)
 
+    @engine_thread_only
     def _admit_one_reserved(self, req: GenRequest, chain: list,
                             slot_idx: int) -> str:
         n = len(req.prompt)
@@ -2972,6 +3012,7 @@ class Engine:
                 self._state[k].copy_(v)
         return self._state
 
+    @engine_thread_only
     def _apply_row_updates(self) -> None:
         """Patch dirty slot rows into the live state, like the
         reference's chained row-update program: the writes queue behind
@@ -3034,6 +3075,7 @@ class Engine:
         return row
 
     # -- grammar constraints (host) ------------------------------------------
+    @engine_thread_only
     def _apply_cn_row_updates(self) -> None:
         """Patch the bias rows of constrained slots whose state moved.
         Rows due for a whole upload (``_dirty_rows``) carry the mask
@@ -3046,6 +3088,7 @@ class Engine:
             self.stats.constraint_mask_updates += 1
         self._cn_dirty.clear()
 
+    @engine_thread_only
     def _cn_verify(self, i: int, s: _Slot, tok: int, dispatch_mask) -> bool:
         """Verify and advance slot i's FSM with ``tok``, which the window
         sampled under ``dispatch_mask``; True = emit it.
@@ -3070,6 +3113,7 @@ class Engine:
         self.stats.constraint_host_ms += 1e3 * (time.monotonic() - t0)
         return ok
 
+    @engine_thread_only
     def _cn_rollback(self, i: int, s: _Slot) -> None:
         """The host state never moved past the cut: a new epoch drops the
         window in flight for this slot, and the whole row is uploaded
@@ -3082,6 +3126,7 @@ class Engine:
             s.req.trace.constraint_rollback()
 
     # -- decode ---------------------------------------------------------------
+    @engine_thread_only
     def _drain_inflight(self) -> None:
         """Settle the in-flight window: finish its host copy, emit its
         tokens, recycle the pages it was carrying."""
@@ -3118,6 +3163,7 @@ class Engine:
         for seq_id in w.frees:
             self.allocator.free(seq_id)
 
+    @engine_thread_only
     def _fold_moe(self, moe) -> None:
         """Fold one program's [L, E + 1] routing counts into the totals
         behind /state's moe_* keys; None (a dense family) is a no-op."""
@@ -3139,6 +3185,7 @@ class Engine:
             return []
         return [int(x) for x in self._moe_layer_drops]
 
+    @engine_thread_only
     def _process_window(self, toks: np.ndarray, members: tuple,
                         ce: dict, lp=None) -> None:
         """Emit a plain window's tokens [K, B] to the slots that were
@@ -3165,6 +3212,7 @@ class Engine:
                                list(zip(tk_ids[k][i], tk_vals[k][i])))
                 self._emit_token(i, int(toks[k, i]), step_lp)
 
+    @engine_thread_only
     def _process_spec_window(self, toks: np.ndarray, counts: np.ndarray,
                              props: np.ndarray, members: tuple,
                              draft_lens: tuple, ce: dict) -> None:
@@ -3247,6 +3295,7 @@ class Engine:
         return speculation.DraftController(
             self._spec_rungs, self._accept_prior, self.cfg.spec_adaptive)
 
+    @engine_thread_only
     def _choose_draft_len(self) -> int:
         """Dispatch draft width: the max of the live eligible slots'
         rungs (0 dispatches the plain window). Ticking the controllers
@@ -3268,6 +3317,7 @@ class Engine:
         self.stats.spec_draft_len = d
         return d
 
+    @engine_thread_only
     def _apply_spec_row_updates(self) -> None:
         """Patch live slots' on-device ``draft_len`` after a rung move.
         Only that field: a live slot's positions and history on the
@@ -3285,6 +3335,7 @@ class Engine:
     def _op_draft_len(self, i: int, d: int) -> None:
         self._state["draft_len"][i] = d
 
+    @engine_thread_only
     def _apply_frees(self) -> None:
         """Recycle finished sequences' pages (only with no window in
         flight: it may still write into them)."""
@@ -3293,6 +3344,7 @@ class Engine:
             self.allocator.free(seq_id)
         self._pending_frees.clear()
 
+    @engine_thread_only
     def _quiesce(self) -> None:
         self._device_state = None
         self._need_rebuild = False
@@ -3302,6 +3354,7 @@ class Engine:
         self.stats.active_slots = 0
         self._refresh_stats()
 
+    @engine_thread_only
     def _decode_tick(self) -> bool:
         """Pipelined: dispatch window N+1, then settle window N while the
         device runs it."""
@@ -3407,6 +3460,7 @@ class Engine:
         self._refresh_stats()
         return True
 
+    @engine_thread_only
     def _emit_token(self, i: int, tok: int, lp=None) -> None:
         """Record one generated token for slot i; finish if stopping.
         ``lp`` = (chosen logprob, [(top id, top logprob)]) with logprobs
@@ -3476,6 +3530,7 @@ class Engine:
                        "decode_tokens", "spec_drafted", "spec_accepted",
                        "segments")
 
+    @engine_thread_only
     def _meter_fold(self, s: _Slot) -> dict:
         """Slot ``s``'s accumulators as one meter dict (the terminal
         record adds schema and finish). HBM residency: the slot's pages x
@@ -3509,6 +3564,7 @@ class Engine:
                 float(c.get("host_page_byte_s", 0.0)), 6)
         return rec
 
+    @engine_thread_only
     def _meter_emit(self, rec: dict, sink) -> None:
         """The one place the meter counters move and a record reaches
         its sink."""
@@ -3527,6 +3583,7 @@ class Engine:
         if sink is not None:
             sink(rec)
 
+    @engine_thread_only
     def _meter_finish(self, s: _Slot, finish: str) -> None:
         """The terminal record of a live slot (stop, length, cancelled,
         error)."""
@@ -3535,6 +3592,7 @@ class Engine:
         rec["finish"] = finish
         self._meter_emit(rec, s.req.meter_sink)
 
+    @engine_thread_only
     def _meter_zero(self, req: GenRequest, finish: str) -> None:
         """The terminal record of a request that never held a slot
         (cancelled while queued, an unknown adapter, an engine abort):
@@ -3544,6 +3602,7 @@ class Engine:
             c, finish, req.tenant, req.priority,
             float(c.get("host_page_byte_s", 0.0))), req.meter_sink)
 
+    @engine_thread_only
     def _meter_parked(self, park: dict, finish: str) -> None:
         """The terminal record of a parked session that never resumes
         (cancelled while parked, an engine abort): its carry plus the
@@ -3636,6 +3695,7 @@ class Engine:
         st.device_memory_frac_worst = max(d["memory_frac"] for d in devs)
         self.device_stats = devs
 
+    @engine_thread_only
     def _refresh_stats(self) -> None:
         st = self.stats
         # ``queued`` is interactive depth only (the picker prices it);

@@ -12,9 +12,10 @@ layout (big-endian):
 Header value types: 7 = string (u16 length prefix). Other types are not
 produced by Bedrock response streams but are skipped structurally.
 
-The port's copy of ``aigw_tpu/translate/eventstream.py``, without its
-native scanner: the Python loop below is the one the scanner is
-byte-exact with.
+The port's copy of ``aigw_tpu/translate/eventstream.py``. Once
+``utils/native.load()`` has run (the gateway's ``run`` calls it), the
+C++ scanner finds the frames and checks their CRCs; the Python loop
+below is its plain version, byte-exact with it.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from __future__ import annotations
 import struct
 import zlib
 from dataclasses import dataclass
+
+from aigw_tpu_torch.utils import native as _native
 
 
 @dataclass
@@ -47,6 +50,22 @@ class EventStreamParser:
     def feed(self, chunk: bytes) -> list[EventStreamMessage]:
         self._buf += chunk
         out: list[EventStreamMessage] = []
+        # native fast path: frame boundaries + CRCs validated in C++
+        # (aigw_tpu_torch/native/eventstream_scan.cpp); headers still parse in Python
+        while True:
+            scan = _native.es_scan(self._buf)
+            if scan is None:
+                break
+            frames, tail, truncated = scan
+            for off, total, hlen in frames:
+                headers = _parse_headers(
+                    self._buf[off + 12 : off + 12 + hlen])
+                payload = self._buf[off + 12 + hlen : off + total - 4]
+                out.append(EventStreamMessage(headers=headers,
+                                              payload=payload))
+            self._buf = self._buf[tail:]
+            if not truncated:
+                return out
         while len(self._buf) >= 16:
             total_len, headers_len, prelude_crc = struct.unpack_from(
                 ">III", self._buf

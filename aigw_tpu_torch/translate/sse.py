@@ -1,6 +1,8 @@
 """Server-Sent Events incremental parsing and encoding (the port's copy
-of ``aigw_tpu/translate/sse.py``, without its native scanner: the
-Python loop below is the one the scanner is byte-exact with).
+of ``aigw_tpu/translate/sse.py``). Once ``utils/native.load()`` has run
+(the gateway's ``run`` calls it), the C++ scanner finds the event
+boundaries; the Python loop below is its plain version, byte-exact with
+it.
 
 The streaming hot loop (reference extproc processes SSE per-chunk in
 ProcessResponseBody, processor_impl.go:481-575). The parser is incremental:
@@ -13,6 +15,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from aigw_tpu_torch.utils import native as _native
 
 
 @dataclass
@@ -44,6 +47,22 @@ class SSEParser:
     def feed(self, chunk: bytes) -> list[SSEEvent]:
         self._buf += chunk
         events: list[SSEEvent] = []
+        # Fast path: the C++ scanner finds all boundaries in one pass
+        # (aigw_tpu_torch/native/sse_scan.cpp; byte-exact with the loop below).
+        scan = _native.sse_scan(self._buf)
+        if scan is not None:
+            while True:
+                boundaries, tail, truncated = scan
+                start = 0
+                for end, sep in boundaries:
+                    ev = _parse_event(self._buf[start:end])
+                    if ev is not None:
+                        events.append(ev)
+                    start = end + sep
+                self._buf = self._buf[tail:]
+                if not truncated:
+                    return events
+                scan = _native.sse_scan(self._buf)
         while True:
             # An event terminates at the first blank line.
             sep = -1

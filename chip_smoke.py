@@ -315,7 +315,21 @@ Phases (any failure exits non-zero):
    period plus 1 s and patching the next edit, ``AigwClientset`` and an
    informer; K1 and K2 launched; printed (the ``serve_gateway kube``
    line): the sync times, the route's moves, the takeover, the patch and
-   Lease-write counts per gateway, the launches, the block's wall; the
+   Lease-write counts per gateway, the launches, the block's wall; then
+   the native proxy core (``_gw_core``; launch counts zeroed before it,
+   read after it into ``launches_serve_core``): ``aigw-core`` and the
+   scanner library built with g++ beside nvcc at the start, ``core-config``
+   compiling the replicas' rule native and stopping at the pinned rule,
+   the core in front of ``python -m aigw_tpu_torch run`` on the fallback
+   port tailing the core's access log (startup lines: the tailer, the
+   scanner), greedy streams through the native route and a pinned one
+   through the fallback equal to direct, ``/aigw-core/stats`` counting
+   the traffic sent, one gateway span per native request under its
+   client's trace id; printed (the ``serve_gateway core`` line): each
+   build's seconds, TTFT p50/p95 and burst tokens/s direct, through the
+   Python gateway, the core's native route, direct to replica 0 and
+   through the core's fallback route (to replica 0) over five turns, the
+   counts, the launches, the block's wall; the
    gateway's fleet operations (the
    ``serve_fleet`` line, after ``serve_gateway``; launch counts zeroed
    once both replicas are up, read at the end): replica B in this
@@ -475,8 +489,9 @@ Phases (any failure exits non-zero):
    (``launches_serve_fronts``), on its hosted hop
    (``launches_serve_hosted``), on its MCP turn
    (``launches_serve_mcp``), on its control block
-   (``launches_serve_control``) and on its cluster block
-   (``launches_serve_kube``), and replica B's on ``serve_fleet``), the
+   (``launches_serve_control``), on its cluster block
+   (``launches_serve_kube``) and on its native core block
+   (``launches_serve_core``), and replica B's on ``serve_fleet``), the
    card line, then
    the last line
    ``{"ok": true, "device": {...}}``.
@@ -4786,7 +4801,7 @@ def _mob_spill(torch, a, params, base, rng) -> dict:
         rids.append(h["x-aigw-request-id"])
         _wait_idle(a)
     st = a.engine.stats
-    a.engine._refresh_stats()
+    a.engine.refresh_stats()
     if st.kv_spills <= 0 or st.kv_revives <= 0 or not taken:
         raise AssertionError(f"spills {st.kv_spills}, revives "
                              f"{st.kv_revives}")
@@ -7413,13 +7428,13 @@ def _gw_pinned(addr: str, model: str = GW_MODEL) -> tuple[dict, dict]:
 
 
 def _spawn_gateway(argv: list, tmp: str, name: str, env=None,
-                   listening: int = 1, drop_env=()):
+                   listening: int = 1, drop_env=(), tail=None):
     """``python -m aigw_tpu_torch run *argv`` in its own process, with
     ``env`` added to this one's (less ``drop_env``): (the process, its
     port read off its first startup line, its log file, the lines it
     printed before). Returns once ``listening`` processes (its workers)
     have printed their startup line; a reader thread keeps draining its
-    output after that."""
+    output after that, into ``tail`` (a list) when one is given."""
     import re
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -7443,6 +7458,8 @@ def _spawn_gateway(argv: list, tmp: str, name: str, env=None,
                 up.set()
                 return
             lines.append(got)
+            if tail is not None:
+                tail.append(got)
             seen += got.startswith("gateway listening on")
             if seen >= listening:
                 up.set()
@@ -7461,12 +7478,25 @@ def _spawn_gateway(argv: list, tmp: str, name: str, env=None,
 
 
 def _children(pid: int) -> list:
-    """The pids of ``pid``'s child processes (read off /proc)."""
+    """The pids of ``pid``'s child processes (read off /proc). Some
+    kernels list a child's threads there too: only a thread group's
+    leader (its ``Tgid`` is its pid) is a process."""
     try:
         with open(f"/proc/{pid}/task/{pid}/children") as f:
-            return [int(x) for x in f.read().split()]
+            pids = [int(x) for x in f.read().split()]
     except OSError:
         return []
+    out = []
+    for child in pids:
+        try:
+            with open(f"/proc/{child}/status") as f:
+                tgid = next(int(ln.split()[1]) for ln in f
+                            if ln.startswith("Tgid:"))
+        except (OSError, StopIteration, ValueError):
+            continue
+        if tgid == child:
+            out.append(child)
+    return out
 
 
 def _stop_tree(proc) -> None:
@@ -9330,6 +9360,341 @@ def _gw_kube(reps, model: str = GW_MODEL) -> dict:
     return out
 
 
+#: the host C++ builds (g++): started beside nvcc's by ``main``, joined
+#: by the core block (``native_builds``)
+_NATIVE: dict = {}
+_NATIVE_THREAD: list = []
+
+
+def _build_native() -> None:
+    from aigw_tpu_torch import native as nbuild
+
+    for key, target in (("scanner", nbuild.LIBRARY), ("core", nbuild.CORE)):
+        t = time.monotonic()
+        try:
+            path = nbuild.build(target)
+        except Exception as e:  # noqa: BLE001 — raised by native_builds
+            _NATIVE[key] = e
+            continue
+        _NATIVE[key] = {"path": str(path), "s": time.monotonic() - t,
+                        "compiled": target.name in nbuild.last_build_s}
+
+
+def start_native_builds() -> None:
+    """Build the SSE/event-stream scanner library and ``aigw-core`` with
+    g++ on a thread of their own (into ``build/native/``)."""
+    if not _NATIVE_THREAD:
+        th = threading.Thread(target=_build_native, name="native-build",
+                              daemon=True)
+        th.start()
+        _NATIVE_THREAD.append(th)
+
+
+def native_builds() -> dict:
+    """The two host builds, each with its seconds (started now unless
+    ``main`` started them); raises with the compiler's output."""
+    start_native_builds()
+    _NATIVE_THREAD[0].join()
+    for key, got in _NATIVE.items():
+        if isinstance(got, Exception):
+            raise AssertionError(f"the {key} build failed: {got}")
+    return dict(_NATIVE)
+
+
+#: the core block: TTFT turns, requests per burst (streamed chats pinned
+#: to one byte token), their tokens, and the equality checks' chats
+GW_CORE_TURNS = 5
+GW_CORE_BURST = 8
+GW_CORE_TOKENS = 16
+GW_CORE_CHECKS = 3
+
+
+def _gw_core(reps, model: str = GW_MODEL) -> dict:
+    """The native proxy core in front of the Python gateway.
+
+    ``aigw-core`` and the scanner library are built with g++ from the
+    checkout (``native_builds``). One config: rule one sends ``model`` to
+    the two replicas as static ``OpenAI`` backends, weight 1:1, which
+    ``python -m aigw_tpu_torch core-config`` compiles native; rule two
+    (``GW_PINNED``, the pinned ``TPUServe`` backend with its body
+    mutation) is not eligible and stays on the Python path. The core
+    listens in front; ``python -m aigw_tpu_torch run`` listens on the
+    fallback port with ``AIGW_CORE_ACCESS_LOG`` naming the core's access
+    log and tracing to a collector in this process. Gates: (1)
+    ``core-config`` prints one native rule and names the pinned rule;
+    (2) the gateway's startup lines say it tails the log and parses SSE
+    on the scanner; (3) greedy streamed chats through the core's native
+    route, one at a time, equal the same chats sent straight to a replica
+    by the token ids the replicas' ``TokenTap`` saw, and a pinned chat
+    through the fallback route equals it sent straight; (4)
+    ``/aigw-core/stats`` counts every native and fallback request sent,
+    no retry and no upstream error; (5) the collector holds one span of
+    the gateway's per native request (``aigw.native``), under the trace
+    id its client sent. Reported: each build's seconds, and in
+    ``GW_CORE_TURNS`` turns (the paths' order rotating, after one
+    untimed burst on each path) a burst of ``GW_CORE_BURST``
+    streamed pinned chats straight to the two replicas (alternating),
+    through the Python gateway and through the core's native route (both
+    pick the replicas 1:1 at random), straight to replica 0 alone, and
+    through the core's fallback route (whose pinned backend is replica
+    0): TTFT p50/p95 and tokens/s each. The replicas share this process
+    (and its interpreter lock), so a burst on one replica, batched in one
+    engine, is not slower than one split over both: the fallback route
+    compares with ``direct_one``, the other two with ``direct``. The
+    caller zeroes and reads the launch counts."""
+    import signal as _signal
+    import tempfile
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    t0 = time.monotonic()
+    builds = native_builds()
+    tmp = tempfile.mkdtemp(prefix="aigw-core-")
+    log_path = os.path.join(tmp, "core-access.jsonl")
+    addrs = [f"127.0.0.1:{r.port}" for r in reps]
+    pinned, pinned_rule = _gw_pinned(addrs[0], model)
+    cfg = {
+        "version": "v1",
+        "backends": [{"name": f"rep-{i}", "schema": "OpenAI",
+                      "url": f"http://{a}"} for i, a in enumerate(addrs)]
+        + [pinned],
+        "routes": [{"name": "serving", "rules": [
+            {"models": [model], "backends": [
+                {"backend": "rep-0", "weight": 1},
+                {"backend": "rep-1", "weight": 1}]},
+            pinned_rule]}],
+        "models": [model, GW_PINNED],
+        "llm_request_costs": [{"metadata_key": "total_tokens",
+                               "type": "TotalToken"}]}
+    cfg_path = os.path.join(tmp, "gateway.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    core_port, fb_port = _free_port(), _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    cc = subprocess.run(
+        [sys.executable, "-m", "aigw_tpu_torch", "core-config", cfg_path,
+         "-o", os.path.join(tmp, "core.json"), "--listen-host", "127.0.0.1",
+         "--listen-port", str(core_port), "--fallback-port", str(fb_port),
+         "--access-log", log_path], cwd=here, capture_output=True,
+        text=True, timeout=60)
+    out: dict = {"builds": {k: {"s": v["s"], "compiled": v["compiled"]}
+                            for k, v in builds.items()},
+                 "core_config": cc.stdout.splitlines()}
+    bad: list = []
+    if cc.returncode != 0 or not cc.stdout.startswith(
+            f"{os.path.join(tmp, 'core.json')}: 1 native rules, fallback "
+            f"127.0.0.1:{fb_port}") or "'llama-pinned'" not in cc.stdout:
+        raise AssertionError(f"serve_gateway core: core-config "
+                             f"{cc.returncode}: {cc.stdout} {cc.stderr}")
+    _OTLPCollector.payloads = []
+    collector = ThreadingHTTPServer(("127.0.0.1", 0), _OTLPCollector)
+    threading.Thread(target=collector.serve_forever, daemon=True).start()
+    after: list = []
+    gw = core = None
+    taps = [TokenTap(r.engine) for r in reps]
+    try:
+        gw, _port, err, before = _spawn_gateway(
+            [cfg_path, "--port", str(fb_port), "--watch-interval", "3600"],
+            tmp, "gateway-core", env={
+                "AIGW_CORE_ACCESS_LOG": log_path,
+                "OTEL_TRACES_EXPORTER": "otlp",
+                "OTEL_EXPORTER_OTLP_TRACES_PROTOCOL": "http/json",
+                "OTEL_EXPORTER_OTLP_ENDPOINT":
+                    f"http://127.0.0.1:{collector.server_address[1]}",
+                "OTEL_SERVICE_NAME": "gateway-core"}, tail=after)
+        core = subprocess.Popen(
+            [builds["core"]["path"], os.path.join(tmp, "core.json")],
+            stderr=subprocess.PIPE, text=True)
+        line = core.stderr.readline()
+        if "aigw-core listening" not in line:
+            raise AssertionError(f"serve_gateway core: aigw-core: {line!r}")
+        # (2) the gateway's startup lines
+        _gw_wait(lambda: any(ln.startswith("native scanners:")
+                             for ln in after), "the gateway's scanner line")
+        out["startup"] = [ln.strip() for ln in before] + [
+            ln.strip() for ln in after if ln.startswith("native scanners:")]
+        if out["startup"][0] != f"native-core telemetry: tailing {log_path}":
+            bad.append(f"startup lines {out['startup']}")
+        counts = {"native": 0, "fallback": 0}
+        traces: list = []
+
+        def native_headers() -> dict:
+            tid = f"{len(traces) + 1:032x}"
+            traces.append(tid)
+            counts["native"] += 1
+            return {"traceparent": f"00-{tid}-{'c0' * 8}-01"}
+
+        def owner(rid: str) -> list:
+            for tap in taps:
+                if rid in tap.toks:
+                    return tap.toks[rid]
+            raise AssertionError(f"serve_gateway core: no replica saw "
+                                 f"{rid}")
+
+        # (3) one at a time: the native route against the replicas
+        rng = np.random.default_rng(26)
+        for k, (kind, _s, body) in enumerate(
+                _gw_requests(rng, n_each=GW_CORE_CHECKS, model=model)
+                [:GW_CORE_CHECKS]):
+            body = dict(body, stream=True, n=1, temperature=0.0,
+                        max_tokens=GW_CORE_TOKENS,
+                        stream_options={"include_usage": True})
+            d = _gw_call(reps[k % 2].port, kind, True, body)
+            c = _gw_call(core_port, kind, True, body,
+                         headers=native_headers())
+            if owner(d["rid"]) != owner(c["rid"]):
+                bad.append(f"native stream {k}: {owner(c['rid'])} != "
+                           f"direct {owner(d['rid'])}")
+        pinned_body = {"model": model, "max_tokens": GW_CORE_TOKENS,
+                       "temperature": 0.0, "messages": [
+                           {"role": "user", "content": "core fallback"}]}
+        d = _chat_stream(reps[0].port, dict(pinned_body, logit_bias={
+            str(PIN_TOKEN): 100.0}))
+        c = _chat_stream(core_port, dict(pinned_body, model=GW_PINNED))
+        counts["fallback"] += 1
+        if owner(d["rid"]) != owner(c["rid"]) or d["text"] != c["text"]:
+            bad.append(f"fallback stream {c['text']!r} != {d['text']!r}")
+        out["streams_equal_direct"] = GW_CORE_CHECKS + 1
+        # the turns
+        words = "every request here streams one pinned byte token".split()
+
+        def burst(path: str) -> dict:
+            bodies, ports, headers = [], [], []
+            for j in range(GW_CORE_BURST):
+                text = " ".join(words[(j + i) % len(words)]
+                                for i in range(4 + 4 * j))
+                b = {"model": model, "max_tokens": GW_CORE_TOKENS,
+                     "temperature": 0.0,
+                     "messages": [{"role": "user", "content": text}]}
+                if path == "core_fallback":
+                    b["model"] = GW_PINNED
+                    counts["fallback"] += 1
+                else:
+                    b["logit_bias"] = {str(PIN_TOKEN): 100.0}
+                bodies.append(b)
+                ports.append({"direct": reps[j % 2].port,
+                              "direct_one": reps[0].port,
+                              "gateway": fb_port}.get(path, core_port))
+                headers.append(native_headers() if path == "core_native"
+                               else None)
+            res: list = [None] * len(bodies)
+
+            def one(j):
+                try:
+                    res[j] = _chat_stream(ports[j], bodies[j], headers[j])
+                except Exception as e:  # noqa: BLE001 — reported below
+                    res[j] = e
+
+            t = time.monotonic()
+            threads = [threading.Thread(target=one, args=(j,))
+                       for j in range(len(bodies))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            wall = time.monotonic() - t
+            failed = [r for r in res if not isinstance(r, dict)]
+            if failed:
+                raise AssertionError(f"serve_gateway core: {path} burst: "
+                                     f"{failed}")
+            ttfts = sorted(1e3 * r["ttft_s"] for r in res)
+            tokens = sum(r["usage"]["completion_tokens"] for r in res)
+            return {"ttft_p50_ms": statistics.median(ttfts),
+                    "ttft_p95_ms": float(np.percentile(ttfts, 95)),
+                    "wall_s": wall, "tokens": tokens,
+                    "tokens_per_s": tokens / wall}
+
+        paths = ["direct", "gateway", "core_native", "direct_one",
+                 "core_fallback"]
+        turns: dict = {p: [] for p in paths}
+        for path in paths:  # untimed: first programs, first connections
+            burst(path)
+        for turn in range(GW_CORE_TURNS):
+            for path in paths[turn:] + paths[:turn]:
+                turns[path].append(burst(path))
+        out["turns"] = turns
+        out["paths"] = {p: {
+            "ttft_p50_ms": statistics.median(t["ttft_p50_ms"]
+                                             for t in turns[p]),
+            "ttft_p95_ms": statistics.median(t["ttft_p95_ms"]
+                                             for t in turns[p]),
+            "tokens_per_s": statistics.median(t["tokens_per_s"]
+                                              for t in turns[p])}
+            for p in paths}
+        # (4) the core's counters against the traffic sent
+        st = _gw_json(core_port, "/aigw-core/stats")
+        out["stats"] = {k: st[k] for k in (
+            "native_requests", "fallback_requests", "retries",
+            "upstream_errors")}
+        out["stats"]["per_backend"] = {
+            k: v["requests"] for k, v in st["backends"].items()}
+        out["sent"] = dict(counts)
+        if (st["native_requests"], st["fallback_requests"]) != (
+                counts["native"], counts["fallback"])                 or st["retries"] or st["upstream_errors"]                 or sum(out["stats"]["per_backend"].values())                 != counts["native"]:
+            bad.append(f"/aigw-core/stats {out['stats']} against the "
+                       f"traffic {counts}")
+        # (5) the tailer's spans: one per native request, its trace id
+        deadline = time.monotonic() + 20
+        spans: list = []
+        while time.monotonic() < deadline:
+            spans = [s for s in _OTLPCollector.spans("gateway-core")
+                     if s["attributes"].get("aigw.native")]
+            if len(spans) >= counts["native"]:
+                break
+            time.sleep(0.2)
+        time.sleep(0.5)
+        spans = [s for s in _OTLPCollector.spans("gateway-core")
+                 if s["attributes"].get("aigw.native")]
+        out["native_spans"] = len(spans)
+        if sorted(s["traceId"] for s in spans) != sorted(traces):
+            bad.append(f"{len(spans)} native spans for {len(traces)} "
+                       f"native requests")
+        if any(s["parentSpanId"] != "c0" * 8 for s in spans):
+            bad.append("a native span not parented on the client's span")
+        gw.send_signal(_signal.SIGINT)
+        if gw.wait(timeout=30) != 0:
+            bad.append(f"the gateway exited {gw.returncode}")
+        err.close()
+    finally:
+        if core is not None:
+            core.kill()
+            core.wait(timeout=30)
+        if gw is not None and gw.poll() is None:
+            _stop_tree(gw)
+        collector.shutdown()
+        collector.server_close()
+    if bad:
+        raise AssertionError(f"serve_gateway core: {bad}")
+    out["wall_s"] = time.monotonic() - t0
+    return out
+
+
+def _core_line(k: dict, counts: dict, card: str) -> str:
+    """The core block's printed line."""
+    p = k["paths"]
+    b = k["builds"]
+
+    def path(name):
+        return (f"{p[name]['ttft_p50_ms']:.1f} / "
+                f"{p[name]['ttft_p95_ms']:.1f} ms, "
+                f"{p[name]['tokens_per_s']:.0f} tok/s")
+
+    return (
+        f"serve_gateway core ({card}): builds scanner "
+        f"{b['scanner']['s']:.2f} s, aigw-core {b['core']['s']:.2f} s; "
+        f"TTFT p50 / p95 and burst tokens/s over {GW_CORE_TURNS} turns of "
+        f"{GW_CORE_BURST}: direct {path('direct')}; Python gateway "
+        f"{path('gateway')}; core native {path('core_native')}; direct to "
+        f"replica 0 {path('direct_one')}; core fallback (replica 0) "
+        f"{path('core_fallback')}; stats native "
+        f"{k['stats']['native_requests']} / fallback "
+        f"{k['stats']['fallback_requests']} for {k['sent']}; "
+        f"{k['native_spans']} native spans; launches K1 "
+        f"{counts['ragged_prefill_attention']}, K2 "
+        f"{counts['fused_paged_decode']}; block {k['wall_s']:.2f} s")
+
+
 def serve_gateway(torch, params, launches: dict) -> dict:
     """Client → the port's gateway → two port replicas on the card.
 
@@ -9363,7 +9728,8 @@ def serve_gateway(torch, params, launches: dict) -> dict:
     (``_gw_control``: ``run --workers 2``, a ``--reuse-port`` roll, a
     manifest directory, autoconfig), and the live cluster source
     (``_gw_kube``: two gateways fed by a TLS API server on one Lease,
-    the webhook, the typed clientset)."""
+    the webhook, the typed clientset), and the native proxy core in
+    front of a Python gateway (``_gw_core``)."""
     import numpy as np
 
     from aigw_tpu_torch.models import llama
@@ -9578,6 +9944,14 @@ def serve_gateway(torch, params, launches: dict) -> dict:
                 or counts["fused_paged_decode"] <= 0:
             raise AssertionError(f"serve_gateway: K1/K2 not on the cluster "
                                  f"block's path: {counts}")
+        # the native proxy core in front of a Python gateway
+        reset_counts()
+        out["core"] = _gw_core(reps)
+        launches["serve_core"] = counts = read_counts()
+        if counts["ragged_prefill_attention"] <= 0 \
+                or counts["fused_paged_decode"] <= 0:
+            raise AssertionError(f"serve_gateway: K1/K2 not on the core "
+                                 f"block's path: {counts}")
         proc.send_signal(2)  # SIGINT: the gateway stops and exits 0
         if proc.wait(timeout=30) != 0:
             raise AssertionError(f"serve_gateway: the gateway exited "
@@ -9636,6 +10010,7 @@ def serve_gateway(torch, params, launches: dict) -> dict:
         f"{k['roll']['max_gap_ms']:.1f} ms; manifest route moved in "
         f"{k['manifests']['moved_s']:.2f} s; block {k['wall_s']:.2f} s")
     log(_kube_line(out["kube"], launches["serve_kube"], card))
+    log(_core_line(out["core"], launches["serve_core"], card))
     return out
 
 
@@ -10040,7 +10415,8 @@ def main() -> int:
         f"python {sys.version.split()[0]}, "
         f"device {torch.cuda.get_device_name(0)}")
 
-    # 2. build
+    # 2. build (g++ builds the host C++ beside nvcc)
+    start_native_builds()
     t = time.monotonic()
     _build.library()
     log(f"kernels built in {time.monotonic() - t:.1f}s "
@@ -10502,6 +10878,8 @@ def main() -> int:
         row["launches_serve_control"] = launches["serve_control"].get(
             row["name"], 0)
         row["launches_serve_kube"] = launches["serve_kube"].get(
+            row["name"], 0)
+        row["launches_serve_core"] = launches["serve_core"].get(
             row["name"], 0)
         # replica B's (A launches in its own process)
         row["launches_serve_fleet"] = launches["serve_fleet"].get(

@@ -1197,7 +1197,7 @@ def test_device_gauges_on_card(cuda):
     try:
         eng = srv.engine
         eng._mem_next = 0.0
-        eng._refresh_stats()
+        eng.refresh_stats()
         dev = eng.device_stats[0]
         free_b, total_b = torch.cuda.mem_get_info(eng.device)
         assert dev["platform"] == "gpu" and dev["bytes_limit"] == total_b
@@ -2045,6 +2045,29 @@ def test_gateway_kube_block_on_cuda_replicas(cuda):
         assert out["bad_route"]["serving"] == {"k0": 1, "k1": 1}
         assert out["takeover_s"] <= cs.GW_KUBE_RENEW_S + 1.0
         assert out["after_takeover"]["last_route_patch_by"] == "token-k1"
+        assert paged_attention.ragged_prefill_attention.launches > k1
+        assert decode_fused.fused_paged_decode.launches > k2
+    finally:
+        close()
+
+
+def test_gateway_core_block_on_cuda_replicas(cuda):
+    """The native proxy core onto the card's replicas (chip_smoke's
+    ``_gw_core``): ``aigw-core`` and the scanners built with g++, the
+    core in front of the Python gateway, native and fallback streams
+    equal to direct, the core's counts, one span per native request; K1
+    and K2 launched."""
+    import chip_smoke as cs
+
+    reps, _addrs, _gw, close = _gateway_pair(cuda)
+    try:
+        k1 = paged_attention.ragged_prefill_attention.launches
+        k2 = decode_fused.fused_paged_decode.launches
+        out = cs._gw_core(reps, model="tiny-random")
+        assert out["stats"]["native_requests"] == out["sent"]["native"]
+        assert out["stats"]["fallback_requests"] == out["sent"]["fallback"]
+        assert out["native_spans"] == out["sent"]["native"]
+        assert out["startup"][1].startswith("native scanners: ")
         assert paged_attention.ragged_prefill_attention.launches > k1
         assert decode_fused.fused_paged_decode.launches > k2
     finally:

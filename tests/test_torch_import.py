@@ -698,3 +698,73 @@ def test_cluster_modules_import_with_optional_packages_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+#: the port's last modules: the native scanners' bindings and their build
+#: helper, the core's compiler and span tailer, aigw-check, the cassettes
+NATIVE_AND_CHECK_MODULES = (
+    "aigw_tpu_torch.native", "aigw_tpu_torch.utils.native",
+    "aigw_tpu_torch.config.nativecore", "aigw_tpu_torch.obs.native_spans",
+    "aigw_tpu_torch.analysis", "aigw_tpu_torch.analysis.core",
+    "aigw_tpu_torch.analysis.registry", "aigw_tpu_torch.analysis.manifest",
+    "aigw_tpu_torch.analysis.passes",
+    "aigw_tpu_torch.analysis.passes.async_blocking",
+    "aigw_tpu_torch.analysis.passes.capture_registry",
+    "aigw_tpu_torch.analysis.passes.determinism",
+    "aigw_tpu_torch.analysis.passes.gauge_drift",
+    "aigw_tpu_torch.analysis.passes.thread_discipline",
+    "aigw_tpu_torch.testing", "aigw_tpu_torch.testing.cassettes",
+    "aigw_tpu_torch.testing.yaml_subset")
+
+
+def test_native_check_and_cassette_modules_import_with_packages_blocked():
+    """The native scanners' bindings and build helper, ``core-config``'s
+    compiler, the span tailer, aigw-check and the cassette harness import
+    only the standard library and the port; in a fresh interpreter where
+    jax, the reference package, aiohttp and yaml cannot be imported every
+    one imports, builds nothing, loads no scanner, reads a go-vcr
+    cassette and runs a lint pass, and neither torch nor any of those is
+    pulled in (the engine imports ``analysis.registry`` for its
+    sanitizer)."""
+    import sys as _sys
+
+    for m in NATIVE_AND_CHECK_MODULES:
+        assert m in MODULES or m + ".__init__" in MODULES, m
+        path = ROOT / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / m.replace(".", "/") / "__init__.py"
+        outside = [n for n in _imported_names(path)
+                   if n.split(".")[0] not in _sys.stdlib_module_names
+                   and not n.startswith("aigw_tpu_torch")]
+        assert not outside, (m, outside)
+    code = (
+        "import sys, importlib, tempfile, pathlib\n"
+        "for m in ('jax', 'aigw_tpu', 'aiohttp', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {NATIVE_AND_CHECK_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from aigw_tpu_torch.utils import native\n"
+        "assert not native.available()\n"
+        "from aigw_tpu_torch.testing import load_cassette\n"
+        "d = pathlib.Path(tempfile.mkdtemp())\n"
+        "(d / 'c.yaml').write_text('---\\nversion: 2\\ninteractions:\\n'\n"
+        "    '    - id: 0\\n      request:\\n        body: \\'{}\\'\\n'\n"
+        "    '        url: https://h/v1/x\\n        method: POST\\n'\n"
+        "    '      response:\\n        body: |-\\n            {\"a\": 1}\\n'\n"
+        "    '        code: 200\\n')\n"
+        "it = load_cassette(d / 'c.yaml').interactions[0]\n"
+        "assert (it.path, it.status, it.response_body) == (\n"
+        "    '/v1/x', 200, '{\"a\": 1}'), it\n"
+        "from aigw_tpu_torch.analysis.core import run_checks\n"
+        "root = pathlib.Path('.').resolve()\n"
+        "found, _ = run_checks(root, paths=['aigw_tpu_torch/analysis'])\n"
+        "assert found == [], found\n"
+        "bad = [k for k, v in sys.modules.items() if v and k.split('.')[0]\n"
+        "       in ('jax', 'jaxlib', 'aigw_tpu', 'aiohttp', 'yaml',\n"
+        "           'torch')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

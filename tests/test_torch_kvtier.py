@@ -325,7 +325,7 @@ def _run_spill(eng, req_cls, sp_cls):
         first = _serve(eng, req_cls, sp_cls, WAVE)
         again = _serve(eng, req_cls, sp_cls, WAVE[:2])
         if port:  # the reference refreshes on its engine thread
-            eng._refresh_stats()
+            eng.refresh_stats()
         stats = {k: getattr(eng.stats, k) for k in STATS}
         stats["kv_pages_free"] = eng.allocator.free_pages
     finally:
